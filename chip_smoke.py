@@ -10,19 +10,36 @@ printing one JSON line:
 1. device   — card name and power limit (nvidia-smi).
 2. build    — nvcc build of every kernel library, one process per source.
 3. kernels  — each kernel against its plain PyTorch twin on the card, at
-              the headline's shapes: K1 and K2a bitwise; K2b, and K2c's
-              ranks, pull-sum input and dangling mass, within rtol 1e-5 /
-              atol 1e-7; K2c's halting flags exact. CUDA-event times,
-              bounds, twin times.
+              the shapes of the path that runs it: K1 and K2a bitwise; K2b,
+              and K2c's ranks, pull-sum input and dangling mass, within
+              rtol 1e-5 / atol 1e-7; K2c's halting flags exact; K5 (CC
+              superstep, GAB shapes), K6 (BFS/SSSP superstep, unit and
+              weighted, directed and undirected, LDBC shapes) and K6w (the
+              weight rebuild, pads, with and without h0) bitwise
+              (``torch.equal``). CUDA-event times, bounds, twin times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
               30k vertices / 300k edge events, 12 hops x 3 windows,
               chunks=3, warm start, tol 1e-7, 20 supersteps) through
               ``HopBatchedPageRank`` on the card, held against the same
               port run on the CPU (plain twins): rtol 1e-5 / atol 1e-7 and
               equal steps; every column's ranks sum to 1 +- 1e-4.
-5. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank Range job.
-6. scale    — the same engine on a 5.3M-vertex / 2^25-edge-event log,
+5. cc_range — the GAB ConnectedComponents Range query (the headline log,
+              12 hops x the 1-month window, max_steps 50, chunks=1) through
+              ``HopBatchedCC``, held BITWISE against the CPU run, equal
+              steps.
+6. ldbc_traversal — LDBC-like log (10k persons, 120k knows, 10 % deletes,
+              weights), 10 hops x 2 sliding windows, seeds (0, 1, 2, 3),
+              undirected, max_steps 32: ``HopBatchedBFS`` and
+              ``HopBatchedSSSP`` (chunks=1), and SSSP with chunks=2 (the
+              device-resident weight state), each BITWISE against the CPU
+              run with equal steps.
+7. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank, CC and
+              weighted SSSP Range jobs.
+8. scale    — the PageRank engine on a 5.3M-vertex / 2^25-edge-event log,
               4 hops x 3 windows, chunks=2.
+
+The launch counts are zeroed just before each path's timed run and read
+just after it; each path fails if one of its kernels never launched.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``. Exits non-zero, with no result line, when any phase fails or no
@@ -41,6 +58,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 GAB_SPAN = 2_600_000
 WINDOWS = [2_600_000, 604_800, 86_400]   # month / week / day
+#: kernels each path launches (the ``columns.LAUNCHES`` keys)
+PAGERANK_KERNELS = ("masks_from_deltas", "column_out_degree",
+                    "column_pull_sum", "pagerank_update")
+CC_KERNELS = ("masks_from_deltas", "cc_superstep")
+SSSP_KERNELS = ("masks_from_deltas", "minplus_superstep",
+                "weights_from_deltas")
 
 
 def emit(phase: str, **kw) -> None:
@@ -261,12 +284,285 @@ def phase_kernels(torch, np, columns, tables, dev):
         **dict(zip(("bound_ms", "bound_by"),
                    bound(n_pad * C * (4 * 3 + 1 + 4 * 2),
                          10 * n_pad * C))))
-    emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
-                                 if kk in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "max_abs_err",
-                                           "shape")}
-                             for k, v in out.items()})
     return out
+
+
+def check_launched(path: str, launches: dict, kernels) -> None:
+    """Fail if a kernel of ``path`` was launched no time in its run."""
+    idle = [k for k in kernels if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{path}: kernels of the path never launched: "
+                             f"{idle} ({launches})")
+
+
+def exact_err(got, want) -> float:
+    """Max abs difference of two equal-shaped tensors, 0 where they are
+    equal (so inf == inf counts as no error)."""
+    import torch
+
+    diff = torch.where(got == want, 0.0,
+                       (got.double() - want.double()).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
+    """K5 at the GAB CC shapes, K6 and K6w at the LDBC traversal shapes,
+    each against its twin with ``torch.equal``."""
+    from raphtory_tpu_torch.engine.device_sweep import DeviceEdges
+
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def edges_of(t):
+        return DeviceEdges(*(torch.from_numpy(getattr(t, f)).to(dev)
+                             for f in DeviceEdges._fields))
+
+    def masks(t, C):
+        me = rng.random((t.m_pad, C)) < 0.6
+        me[t.m:] = False                      # pad edges carry no mask
+        me[:, 1] = False                      # an all-masked column
+        mv = rng.random((t.n_pad, C)) < 0.8
+        mv[t.n:] = False                      # pad rows
+        return (torch.from_numpy(me).to(dev), torch.from_numpy(mv).to(dev),
+                int(me.sum()))
+
+    def compare(what, step, plain, x0, frozen):
+        """One superstep of the kernel and of its twin from the same state
+        (columns ``frozen`` halted before it); returns the max abs err."""
+        pair = []
+        for fn in (step, plain):
+            st = minplus.min_state(x0.clone())
+            st.halted[frozen] = True
+            fn(st)
+            pair.append(st)
+        got, want = pair
+        for a, b, name in ((got.cur, want.cur, "state"),
+                           (got.halted, want.halted, "halted"),
+                           (got.done, want.done, "done")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs from its twin "
+                                     f"(frozen {frozen})")
+        return exact_err(got.cur, want.cur)
+
+    # ---- K5 at GAB: n_pad 32,768, m_pad 327,680, C = 12 (12 hops x 1)
+    C = 12
+    e = edges_of(gab)
+    me, mv, nnz = masks(gab, C)
+    lab = torch.where(mv, torch.from_numpy(rng.integers(
+        0, gab.n_pad, (gab.n_pad, C)).astype(np.int32)).to(dev),
+        minplus.I32_MAX).contiguous()
+    err = 0.0
+    for frozen in ([2], [c for c in range(C) if c != 1]):
+        err = max(err, compare(
+            "K5", lambda st: minplus.cc_superstep(st, me, mv, e),
+            lambda st: minplus.cc_superstep_plain(st, me, mv, e), lab,
+            frozen))
+    # every column unchanged → all halt, and the flag is set
+    settled = minplus.min_state(torch.full_like(lab, minplus.I32_MAX))
+    minplus.cc_superstep(settled, me, torch.zeros_like(mv), e)
+    if not bool(settled.done) or not bool(settled.halted.all()):
+        raise AssertionError("K5: every column settled, flag unset")
+    st_k = minplus.min_state(lab.clone())
+    st_p = minplus.min_state(lab.clone())
+    n, m = gab.n_pad, gab.m
+    out["cc_superstep"] = dict(
+        source="raphtory_tpu_torch/csrc/minplus_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:538",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: minplus.cc_superstep(st_k, me, mv, e)),
+        plain_ms=cuda_ms(torch, lambda: minplus.cc_superstep_plain(
+            st_p, me, mv, e)),
+        library_ms=None, shape=f"n_pad={n} m_pad={gab.m_pad} C={C}",
+        # mask and vertex mask, edge ids, both CSRs and the source index,
+        # state in and out, each once; one compare per masked edge and
+        # direction
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            m * C + n * C + 3 * 4 * m + 2 * 8 * (n + 1) + 2 * 4 * n * C,
+            2 * nnz))))
+
+    # ---- K6 at LDBC: C = 20 (10 hops x 2 windows), unit and weighted,
+    # directed and undirected
+    H, W = 10, 2
+    C = H * W
+    e = edges_of(ldbc)
+    me, mv, nnz = masks(ldbc, C)
+    dist = torch.where(
+        mv & torch.from_numpy(rng.random((ldbc.n_pad, C)) < 0.3).to(dev),
+        torch.from_numpy(rng.integers(0, 5, (ldbc.n_pad, C)).astype(
+            np.float32)).to(dev), minplus.INF).contiguous()
+    ew = torch.from_numpy(rng.choice(np.array(
+        [-0.5, 0.0, 0.5, 1.0, 2.25, 4.99], np.float32),
+        (ldbc.m_pad, H))).to(dev)
+    err = 0.0
+    for directed in (False, True):
+        for w in (None, ew):
+            for frozen in ([2], [c for c in range(C) if c != 1]):
+                err = max(err, compare(
+                    f"K6 (directed={directed}, weighted={w is not None})",
+                    lambda st: minplus.minplus_superstep(
+                        st, me, mv, e, directed, w, W),
+                    lambda st: minplus.minplus_superstep_plain(
+                        st, me, mv, e, directed, w, W), dist, frozen))
+    st_k = minplus.min_state(dist.clone())
+    st_p = minplus.min_state(dist.clone())
+    n, m = ldbc.n_pad, ldbc.m
+    out["minplus_superstep"] = dict(
+        source="raphtory_tpu_torch/csrc/minplus_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:620",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: minplus.minplus_superstep(
+            st_k, me, mv, e, False, ew, W)),
+        plain_ms=cuda_ms(torch, lambda: minplus.minplus_superstep_plain(
+            st_p, me, mv, e, False, ew, W)),
+        library_ms=None,
+        shape=f"n_pad={n} m_pad={ldbc.m_pad} C={C} weighted undirected",
+        # as K5 plus the [m_pad, H] weights; an add and a compare per
+        # masked edge and direction
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            m * C + n * C + 3 * 4 * m + 2 * 8 * (n + 1) + 2 * 4 * n * C
+            + 4 * m * H, 4 * nnz))))
+
+    # ---- K6w at LDBC: len m_pad, H = 10, U = 8,192 weight updates a hop
+    U = 8192
+    length = ldbc.m_pad
+    base = torch.from_numpy(rng.random(length).astype(np.float32)).to(dev)
+    pos = np.full((H, U), 2**31 - 1, np.int32)
+    val = np.zeros((H, U), np.float32)
+    for h in range(H):
+        k = int(rng.integers(U // 2, U))
+        pos[h, :k] = rng.choice(ldbc.m, k, replace=False)
+        val[h, :k] = rng.random(k) * 5 - 0.5
+    d_pos, d_val = (torch.from_numpy(a).to(dev) for a in (pos, val))
+    err = 0.0
+    for h0 in (False, True):
+        got = columns.weights_from_deltas(base, d_pos, d_val, H, h0)
+        want = columns.weights_from_deltas_plain(base, d_pos, d_val, H, h0)
+        for g, x in zip(got, want):
+            if not torch.equal(g, x):
+                raise AssertionError(f"K6w differs from its twin (h0={h0})")
+            err = max(err, exact_err(g, x))
+    valid = int((pos < length).sum())
+    out["weights_from_deltas"] = dict(
+        source="raphtory_tpu_torch/csrc/masks.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:374",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: columns.weights_from_deltas(
+            base, d_pos, d_val, H, True)),
+        plain_ms=cuda_ms(torch, lambda: columns.weights_from_deltas_plain(
+            base, d_pos, d_val, H, True), iters=3),
+        library_ms=None, shape=f"len={length} H={H} U={U} h0",
+        # base in, live delta rows, the [len, H] block and the state out
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            length * 4 + valid * 8 + length * H * 4 + length * 4))))
+    return out
+
+
+def timed_sweep(torch, columns, make, hops, windows, chunks, reps=3,
+                **run_kw):
+    """Best of ``reps`` cold engines after one warm-up; the launch counts
+    cover the last timed sweep alone (zeroed just before it)."""
+    make().run(hops, windows, chunks=chunks, **run_kw)
+    torch.cuda.synchronize()
+    reps_out = []
+    for _ in range(reps):
+        hb = make()
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        res, steps = hb.run(hops, windows, chunks=chunks, **run_kw)
+        torch.cuda.synchronize()
+        reps_out.append((time.perf_counter() - t0, hb.fold_seconds,
+                         hb.dispatch_seconds, hb.ship_bytes))
+        launches = dict(columns.LAUNCHES)
+    best = min(reps_out, key=lambda r: r[0])
+    n_views = len(hops) * len(windows)
+    return res, steps, launches, dict(
+        views=n_views, views_per_s=n_views / best[0], sweep_s=best[0],
+        fold_s=best[1], dispatch_s=best[2], ship_bytes=best[3],
+        repeat_sweep_s=[r[0] for r in reps_out], supersteps=steps,
+        launches=launches)
+
+
+def bitwise_vs_cpu(what, got, steps, ref, ref_steps) -> None:
+    import torch
+
+    if not torch.equal(got.cpu(), ref) or steps != ref_steps:
+        raise AssertionError(f"{what} differs from the CPU run (steps "
+                             f"{steps} vs {ref_steps})")
+
+
+def phase_cc_range(torch, np, columns, log, dev):
+    from raphtory_tpu_torch.engine.hopbatch import HopBatchedCC
+
+    hops, _ = headline_grid()
+    windows = [GAB_SPAN]
+    labels, steps, launches, stats = timed_sweep(
+        torch, columns, lambda: HopBatchedCC(log, max_steps=50, device=dev),
+        hops, windows, chunks=1)
+    check_launched("cc_range", launches, CC_KERNELS)
+    ref, ref_steps = HopBatchedCC(log, max_steps=50, device="cpu").run(
+        hops, windows)
+    bitwise_vs_cpu("cc_range", labels, steps, ref, ref_steps)
+    lab = labels.cpu().numpy()
+    n = int((lab[-1] != np.iinfo(np.int32).max).sum())
+    biggest = int(np.unique(lab[-1][lab[-1] != np.iinfo(np.int32).max],
+                            return_counts=True)[1].max())
+    emit("cc_range", **stats, vertices_last_view=n,
+         biggest_component_last_view=biggest)
+    return launches
+
+
+LDBC_SPAN = 2_600_000
+LDBC_SEEDS = (0, 1, 2, 3)
+
+
+def ldbc_log():
+    from raphtory_tpu_torch.utils.synth import ldbc_like_log
+
+    return ldbc_like_log(n_persons=10_000, n_knows=120_000, t_span=LDBC_SPAN,
+                         weighted=True)
+
+
+def phase_ldbc_traversal(torch, np, columns, log, dev):
+    from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
+                                                    HopBatchedSSSP)
+
+    hops = [int(T) for T in
+            np.linspace(0.5 * LDBC_SPAN, LDBC_SPAN, 10).astype(np.int64)]
+    windows = [1_300_000, 604_800]
+    seeds = LDBC_SEEDS
+    runs = {
+        "bfs": (lambda d: HopBatchedBFS(log, seeds, directed=False,
+                                        max_steps=32, device=d), 1),
+        "sssp": (lambda d: HopBatchedSSSP(log, seeds, "weight",
+                                          directed=False, max_steps=32,
+                                          device=d), 1),
+        "sssp_chunks2": (lambda d: HopBatchedSSSP(
+            log, seeds, "weight", directed=False, max_steps=32, device=d),
+            2),
+    }
+    total = {k: 0 for k in columns.LAUNCHES}
+    result = {}
+    for name, (make, chunks) in runs.items():
+        dist, steps, launches, stats = timed_sweep(
+            torch, columns, lambda make=make: make(dev), hops, windows,
+            chunks=chunks)
+        ref, ref_steps = make("cpu").run(hops, windows, chunks=chunks)
+        bitwise_vs_cpu(f"ldbc_traversal {name}", dist, steps, ref,
+                       ref_steps)
+        reached = int(torch.isfinite(ref[-1]).sum())
+        if reached <= len(seeds):
+            raise AssertionError(f"ldbc {name}: only {reached} reached")
+        for k, v in launches.items():
+            total[k] += v
+        result[name] = dict(stats, reached_last_view=reached)
+    check_launched("ldbc_traversal", total,
+                   ("masks_from_deltas", "minplus_superstep"))
+    check_launched("ldbc_traversal sssp", result["sssp"]["launches"],
+                   SSSP_KERNELS)
+    tables = runs["bfs"][0]("cpu").tables
+    emit("ldbc_traversal", n=tables.n, m=tables.m, n_pad=tables.n_pad,
+         m_pad=tables.m_pad, runs=result, launches=total)
+    return total
 
 
 def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
@@ -288,9 +584,7 @@ def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
         reps.append((time.perf_counter() - t0, hb.fold_seconds,
                      hb.dispatch_seconds, hb.ship_bytes))
         launches = dict(columns.LAUNCHES)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    check_launched("headline", launches, PAGERANK_KERNELS)
     ranks = ranks.cpu()
     ref, ref_steps = HopBatchedPageRank(log, device="cpu", **kw).run(
         hops, windows, chunks=3, warm_start=True)
@@ -315,32 +609,50 @@ def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
 
 
 def phase_job(torch, np, columns, dev):
-    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.algorithms import SSSP, ConnectedComponents, \
+        PageRank
     from raphtory_tpu_torch.core.service import TemporalGraph
     from raphtory_tpu_torch.jobs.manager import AnalysisManager, RangeQuery
-    from raphtory_tpu_torch.utils.synth import gab_like_log
+    from raphtory_tpu_torch.utils.synth import gab_like_log, ldbc_like_log
 
-    g = TemporalGraph(gab_like_log(3_000, 30_000, seed=3, t_span=100_000),
-                      device=dev)
-    mgr = AnalysisManager(g, device=dev)
-    windows = (100_000, 20_000, 5_000)
-    q = RangeQuery(start=40_000, end=100_000, jump=10_000, windows=windows)
-    columns.reset_launches()
-    job = mgr.submit(PageRank(tol=1e-7, max_steps=20), q)
-    if not job.wait(600):
-        raise AssertionError("job did not finish in 600 s")
-    launches = dict(columns.LAUNCHES)
-    rows = mgr.results(job.id)
-    n_hops = len(range(q.start, q.end + 1, q.jump))
-    if job.status != "done" or len(rows) != n_hops * len(windows):
-        raise AssertionError(f"job {job.status}: {len(rows)} rows, "
-                             f"error {job.error}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"job launched no kernel: {launches}")
+    def run_job(log, prog, q, kernels):
+        mgr = AnalysisManager(TemporalGraph(log, device=dev), device=dev)
+        columns.reset_launches()
+        job = mgr.submit(prog, q)
+        if not job.wait(600):
+            raise AssertionError("job did not finish in 600 s")
+        launches = dict(columns.LAUNCHES)
+        rows = mgr.results(job.id)
+        n_rows = len(range(q.start, q.end + 1, q.jump)) * len(q.windows)
+        if job.status != "done" or len(rows) != n_rows:
+            raise AssertionError(f"{type(prog).__name__} job {job.status}: "
+                                 f"{len(rows)} rows, error {job.error}")
+        check_launched(f"{type(prog).__name__} job", launches, kernels)
+        return rows, dict(status=job.status, rows=len(rows),
+                          steps=rows[0]["steps"], launches=launches)
+
+    gab = gab_like_log(3_000, 30_000, seed=3, t_span=100_000)
+    q = RangeQuery(start=40_000, end=100_000, jump=10_000,
+                   windows=(100_000, 20_000, 5_000))
+    rows, pr = run_job(gab, PageRank(tol=1e-7, max_steps=20), q,
+                       PAGERANK_KERNELS)
     if any(abs(r["result"]["sum"] - 1.0) > 1e-4 for r in rows):
         raise AssertionError("job rank sums off 1")
-    emit("job", status=job.status, rows=len(rows), steps=rows[0]["steps"],
-         launches=launches)
+    rows, cc = run_job(gab, ConnectedComponents(max_steps=50), q,
+                       CC_KERNELS)
+    if any(r["result"]["vertices"] and not r["result"]["clusters"]
+           for r in rows):
+        raise AssertionError("CC job rows without clusters")
+    ldbc = ldbc_like_log(n_persons=2_000, n_knows=20_000, t_span=100_000,
+                         weighted=True)
+    rows, sssp = run_job(ldbc, SSSP(seeds=(0, 1), weight_prop="weight",
+                                    directed=False, max_steps=32),
+                         RangeQuery(start=50_000, end=100_000, jump=10_000,
+                                    windows=(100_000, 30_000)),
+                         SSSP_KERNELS)
+    if not any(r["result"]["reached"] > 2 for r in rows):
+        raise AssertionError("SSSP job reached no vertex past its seeds")
+    emit("job", pagerank=pr, cc=cc, sssp=sssp)
 
 
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
@@ -361,8 +673,7 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     launches = dict(columns.LAUNCHES)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"scale run launched no kernel: {launches}")
+    check_launched("scale", launches, PAGERANK_KERNELS)
     if not bool(torch.isfinite(ranks).all()):
         raise AssertionError("non-finite ranks at scale")
     sums = ranks.double().sum(1).cpu()
@@ -390,7 +701,7 @@ def main() -> int:
     import numpy as np
 
     from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
-    from raphtory_tpu_torch.ops import columns
+    from raphtory_tpu_torch.ops import columns, minplus
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
     dev = torch.device("cuda")
@@ -411,9 +722,24 @@ def main() -> int:
 
     log = gab_like_log(n_vertices=30_000, n_edges=300_000, t_span=GAB_SPAN)
     tables = HopBatchedPageRank(log, device=dev).tables
+    ldbc = ldbc_log()
+    ldbc_tables = HopBatchedPageRank(ldbc, device=dev).tables
     kernels = phase_kernels(torch, np, columns, tables, dev)
+    kernels.update(minplus_kernels(torch, np, columns, minplus, tables,
+                                   ldbc_tables, dev))
+    emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
+                                 if kk in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "max_abs_err",
+                                           "shape")}
+                             for k, v in kernels.items()})
     launches = phase_headline(torch, np, columns, HopBatchedPageRank, log,
                               dev)
+    cc_launches = phase_cc_range(torch, np, columns, log, dev)
+    ldbc_launches = phase_ldbc_traversal(torch, np, columns, ldbc, dev)
+    # each kernel's launches on the path that runs it
+    launches["cc_superstep"] = cc_launches["cc_superstep"]
+    for k in ("minplus_superstep", "weights_from_deltas"):
+        launches[k] = ldbc_launches[k]
     phase_job(torch, np, columns, dev)
     phase_scale(torch, np, columns, HopBatchedPageRank, dev)
 

@@ -26,6 +26,17 @@
 // rows carry position 2^31-1 and are skipped explicitly (JAX drops them
 // with mode="drop").
 //
+// K6w — the weight-state rebuild of weighted SSSP, the same scatter with
+// f32 values and no window compare. Replaces raphtory_tpu/engine/
+// hopbatch.py:374-384 (inside `_compiled_delta`): for each hop h it
+// scatter-sets hop h's (pos, val) weight deltas into the running weight
+// state (hop 0 only with `h0`; pad positions skipped as above; the host
+// removes duplicate positions within a hop, last wins) and writes the
+// state as column h of the [len, H] weight block the K6 superstep reads
+// (minplus_columns.cu). The state is updated in place and is the advanced
+// weight state the caller keeps resident. Bound: bytes, len * 4 per hop
+// written plus the delta rows; 2 launches per hop (2H-1 without `h0`).
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/columns.py).
 // Every entry point launches on the caller's stream, allocates nothing,
 // adds the number of kernels it launched to the host integer `*launched`,
@@ -75,6 +86,29 @@ __global__ void write_columns(int64_t len, int64_t W, int64_t C, int64_t col0,
         const int64_t i = k / W;
         const int64_t c = col0 + (k - i * W);
         out[i * C + c] = cur_a[i] && (nowin[c] || cur_l[i] >= lo[c]);
+    }
+}
+
+__global__ void scatter_set_f32(int64_t len, int64_t U,
+                                const int32_t* __restrict__ pos,
+                                const float* __restrict__ val,
+                                float* __restrict__ cur) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         u < U; u += stride) {
+        const int64_t p = pos[u];
+        if (p < 0 || p >= len) continue;   // pad row
+        cur[p] = val[u];
+    }
+}
+
+__global__ void write_weight_column(int64_t len, int64_t H, int64_t h,
+                                    const float* __restrict__ cur,
+                                    float* __restrict__ out) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < len; i += stride) {
+        out[i * H + h] = cur[i];
     }
 }
 
@@ -137,6 +171,33 @@ int rtpu_masks_from_deltas_i64(int64_t len, int64_t H, int64_t W, int64_t U,
         static_cast<const uint8_t*>(nowin), static_cast<int64_t*>(cur_l),
         static_cast<uint8_t*>(cur_a), static_cast<uint8_t*>(out),
         static_cast<cudaStream_t>(stream), launched);
+}
+
+int rtpu_weights_from_deltas(int64_t len, int64_t H, int64_t U, int64_t h0,
+                             const void* d_pos, const void* d_val,
+                             void* cur_w, void* out, void* stream,
+                             int64_t* launched) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* pos = static_cast<const int32_t*>(d_pos);
+    const float* val = static_cast<const float*>(d_val);
+    float* cur = static_cast<float*>(cur_w);
+    for (int64_t h = 0; h < H; ++h) {
+        if (h > 0 || h0) {
+            scatter_set_f32<<<blocks_for(U), kThreads, 0, st>>>(
+                len, U, pos + h * U, val + h * U, cur);
+            const cudaError_t e = cudaGetLastError();
+            if (e != cudaSuccess) return static_cast<int>(e);
+            ++*launched;
+        }
+        if (len > 0) {
+            write_weight_column<<<blocks_for(len), kThreads, 0, st>>>(
+                len, H, h, cur, static_cast<float*>(out));
+            const cudaError_t e = cudaGetLastError();
+            if (e != cudaSuccess) return static_cast<int>(e);
+            ++*launched;
+        }
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -10,6 +10,7 @@ the device ONCE per log and every hop ships only fold-state deltas.
 from __future__ import annotations
 
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,17 +38,29 @@ def _pad_large(n: int) -> int:
 _DEVICE_EDGES = weakref.WeakKeyDictionary()
 
 
-def _device_edges(log, tables, device: torch.device):
-    """Device ``(e_src, e_dst, in_indptr)`` for ``tables``, cached per log
-    and device. The (m, n) key is exact: pairs and vertices are never
-    removed from a log, so equal counts mean the identical deterministic
-    table (same pair set, same dense ranks, same (dst, src) sort)."""
+class DeviceEdges(NamedTuple):
+    """The static edge tables on the device: the (dst, src)-sorted edges
+    with their destination CSR, and the source-ordered index over the
+    same edges with its source CSR (``GlobalTables`` fields of the same
+    names)."""
+    e_src: torch.Tensor        # [m_pad] int32
+    e_dst: torch.Tensor        # [m_pad] int32
+    in_indptr: torch.Tensor    # [n_pad + 1] int64
+    out_perm: torch.Tensor     # [m] int32
+    out_indptr: torch.Tensor   # [n_pad + 1] int64
+
+
+def _device_edges(log, tables, device: torch.device) -> DeviceEdges:
+    """``DeviceEdges`` for ``tables``, cached per log and device. The
+    (m, n) key is exact: pairs and vertices are never removed from a log,
+    so equal counts mean the identical deterministic table (same pair set,
+    same dense ranks, same (dst, src) sort)."""
     per_log = _DEVICE_EDGES.setdefault(log, {})
     ent = per_log.get(device)
     if ent is not None and ent[0] == tables.m and ent[1] == tables.n:
         return ent[2]
-    dev = tuple(torch.from_numpy(a).to(device)
-                for a in (tables.e_src, tables.e_dst, tables.in_indptr))
+    dev = DeviceEdges(*(torch.from_numpy(getattr(tables, f)).to(device)
+                        for f in DeviceEdges._fields))
     per_log[device] = (tables.m, tables.n, dev)
     return dev
 
@@ -113,6 +126,17 @@ class GlobalTables:
         self.in_indptr = np.zeros(self.n_pad + 1, np.int64)
         np.cumsum(np.bincount(self.e_dst[: self.m], minlength=self.n_pad),
                   out=self.in_indptr[1:])
+        #: source-ordered index over the same m real edges: out_perm[k] is
+        #: the engine position of the k-th edge in (src, dst) order (a
+        #: stable sort of the (dst, src) order by source), and source row
+        #: s owns out_perm[out_indptr[s]:out_indptr[s+1]]. The min-combine
+        #: kernels pull the reverse direction through it without atomics;
+        #: the pad edges stay out of both CSRs
+        self.out_perm = np.argsort(self.e_src[: self.m],
+                                   kind="stable").astype(np.int32)
+        self.out_indptr = np.zeros(self.n_pad + 1, np.int64)
+        np.cumsum(np.bincount(self.e_src[: self.m], minlength=self.n_pad),
+                  out=self.out_indptr[1:])
 
     def eng_pos(self, enc: np.ndarray) -> np.ndarray:
         """Engine positions of packed pair keys (must exist in the log).

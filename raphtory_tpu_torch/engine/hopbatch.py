@@ -1,10 +1,12 @@
-"""Hop-batched columnar PageRank — a whole range sweep as columns of one pass.
+"""Hop-batched columnar engines — a whole range sweep as columns of one pass.
 
 Every (hop, window) view of a Range query is a COLUMN of one column-batched
-power iteration: the per-edge access becomes a C-wide row move, and the
-temporal dimension is captured as per-hop fold state rebuilt on the device
-from a base snapshot plus the host fold's per-hop touched-entity deltas
-(deletes and revivals included, not an add-only approximation).
+iteration (PageRank's power iteration, or the min-combine traversals of
+connected components and BFS / weighted SSSP): the per-edge access becomes
+a C-wide row move, and the temporal dimension is captured as per-hop fold
+state rebuilt on the device from a base snapshot plus the host fold's
+per-hop touched-entity deltas (deletes and revivals included, not an
+add-only approximation).
 
 Port of ``raphtory_tpu/engine/hopbatch.py`` on its serial delta-fold path:
 the host fold is the same numpy/C++ code, and the device side runs the
@@ -12,9 +14,12 @@ hand-written kernels of ``ops/columns.py`` — K1 (``masks_from_deltas``)
 rebuilds the masks, K2a (``column_out_degree``) and K2b
 (``column_pull_sum``) carry the power iteration's edge passes, and K2c
 (``pagerank_update``) its superstep epilogue (dangling mass, damping, tol
-halting with frozen columns); the per-dispatch start ranks stay in torch
-ops. Semantics match ``algorithms/pagerank.py``. The iteration loops on
-the host and reads one all-halted flag per superstep.
+halting with frozen columns); K5 (``ops/minplus.cc_superstep``) and K6
+(``minplus_superstep``) are one superstep each of CC and BFS / SSSP, and
+K6w (``columns.weights_from_deltas``) rebuilds SSSP's per-hop weight state.
+The per-dispatch start states stay in torch ops. Semantics match
+``algorithms/``. Every iteration loops on the host and reads one
+all-halted flag per superstep.
 
 Reference contrast: one pass per RANGE QUERY, where the reference runs its
 full actor handshake once per hop (``RangeAnalysisTask.scala:18-35``).
@@ -28,9 +33,9 @@ import time as _time
 import numpy as np
 import torch
 
-from ..core.events import EventLog
+from ..core.events import EDGE_ADD, EventLog
 from ..core.sweep import SweepBuilder
-from ..ops import columns
+from ..ops import columns, minplus
 from ..utils.device import resolve_device
 from .device_sweep import GlobalTables, _device_edges, normalize_windows
 
@@ -99,36 +104,111 @@ def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
     return st.r.t(), steps
 
 
+def _cc_columns(me, mv, edges, n_pad: int, max_steps: int, l_init=None):
+    """Columnar min-label propagation — connected components for every
+    (hop, window) column at once (``algorithms/connected_components.py``
+    semantics: undirected min over both directions, labels are global
+    padded indices). ``l_init`` ([n_pad, C] int32) warm-starts from a
+    previous epoch's labels: the start is ``min(own index, l_init)``,
+    equal to the cold result only when the graph merely GAINED
+    edges/vertices since (the caller's gate, as in the reference).
+    Returns ``(labels [C, n_pad], supersteps run)``."""
+    lab0 = torch.where(mv, torch.arange(n_pad, dtype=torch.int32,
+                                        device=mv.device)[:, None],
+                       minplus.I32_MAX)
+    if l_init is not None:
+        lab0 = torch.where(mv, torch.minimum(lab0, l_init), minplus.I32_MAX)
+    st = minplus.min_state(lab0.contiguous())
+    steps = 0
+    while steps < max_steps and not bool(st.done):
+        minplus.cc_superstep(st, me, mv, edges)
+        steps += 1
+    return st.cur.t(), steps
+
+
+def _bfs_columns(me, mv, edges, n_pad: int, max_steps: int, directed: bool,
+                 seed_mask, ew=None, W: int = 1, d_init=None):
+    """Columnar min-plus traversal (``algorithms/traversal.SSSP``
+    semantics): ``ew`` is None for hop counting or the ``[m_pad, H]`` f32
+    weight block (hop ``c // W`` of column ``c``). ``d_init`` ([n_pad, C]
+    f32) warm-starts with ``min(cold seed, d_init)``, valid when edges and
+    vertices were only ADDED since (the caller's gate); weighted SSSP never
+    warm-starts. Returns ``(distances [C, n_pad], supersteps run)``."""
+    d0 = torch.where(mv & seed_mask[:, None], 0.0, minplus.INF) \
+        .to(torch.float32)
+    if d_init is not None:
+        d0 = torch.where(mv, torch.minimum(d0, d_init), minplus.INF)
+    st = minplus.min_state(d0.contiguous())
+    steps = 0
+    while steps < max_steps and not bool(st.done):
+        minplus.minplus_superstep(st, me, mv, edges, directed, ew, W)
+        steps += 1
+    return st.cur.t(), steps
+
+
+def _seed_mask(tables, seed_vids) -> np.ndarray:
+    """Global dense-space seed mask from external vertex ids (absent ids
+    ignored)."""
+    seed_mask = np.zeros(tables.n_pad, bool)
+    seeds = np.asarray(sorted({int(v) for v in seed_vids}), np.int64)
+    if len(seeds) and len(tables.uv):
+        pos = np.clip(np.searchsorted(tables.uv, seeds), 0,
+                      len(tables.uv) - 1)
+        ok = tables.uv[pos] == seeds
+        seed_mask[pos[ok]] = True
+    return seed_mask
+
+
+def _pad_weight_deltas(weight_deltas, H: int):
+    """Pad per-hop (pos, val) weight updates to ``[H, U]`` (pad position
+    2^31-1, skipped by the device scatter)."""
+    longest = max((len(p) for p, _ in weight_deltas), default=1)
+    U = max(256, 1 << int(np.ceil(np.log2(max(longest, 1)))))
+    pos = np.full((H, U), 2**31 - 1, np.int32)
+    val = np.zeros((H, U), np.float32)
+    for h, (p, v) in enumerate(weight_deltas):
+        pos[h, : len(p)] = p
+        val[h, : len(v)] = v
+    return pos, val
+
+
 def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
-                      windows, *, algo_args: tuple, edges, r_init=None,
+                      windows, *, algo_args: tuple, edges, seed_mask=None,
+                      r_init=None, weight_base=None, weight_deltas=None,
                       h0_delta: bool = False, ship_counter=None):
-    """Dispatch the delta-fed columnar PageRank over
-    ``_HopBatched._fold_deltas`` output; returns ``(ranks [H*W, n_pad],
-    steps, advanced_base)``. ``base`` is a host snapshot (numpy) or, with
-    ``h0_delta=True``, the previous dispatch's device-resident advanced
-    state, in which case delta[0] carries the inter-batch catch-up and the
-    dispatch ships O(Σ delta) bytes. ``edges`` is the device
-    ``(e_src, e_dst, in_indptr)``; ``r_init`` is the previous chunk's full
-    ``[C_prev, n_pad]`` output (its last hop's W rows seed every hop)."""
-    if kind != "pagerank":
-        raise NotImplementedError(
-            f"columnar kind {kind!r}: CC/BFS/SSSP columns come with ROADMAP "
-            "queue 1 item 2 (kernels K5, K6)")
-    damping, tol, max_steps = algo_args
+    """Dispatch a delta-fed columnar kernel (``kind``: pagerank | cc | bfs)
+    over ``_HopBatched._fold_deltas`` output; returns ``(result [H*W,
+    n_pad], steps, advanced_base)``. ``base`` is a host snapshot (numpy)
+    or, with ``h0_delta=True``, the previous dispatch's device-resident
+    advanced state, in which case delta[0] carries the inter-batch
+    catch-up and the dispatch ships O(Σ delta) bytes. ``edges`` is the
+    device ``DeviceEdges``; ``seed_mask`` the device ``[n_pad]`` bool seeds
+    (bfs). ``weight_base`` + ``weight_deltas`` ([(pos, val)] per hop) turn
+    bfs into weighted SSSP with the weight state rebuilt on the device too
+    (K6w); the advanced base then carries the weight state as a 5th
+    element. ``r_init`` is the previous chunk's (or epoch's) full
+    ``[C_prev, n_pad]`` output: its last hop's W rows seed every hop."""
     H, C, _, T_col, w_col = _column_layout(hop_times, windows)
     W = C // H
     tdt = tables.tdtype
     _, de_pos, de_lat, de_alive = _pad_hop_deltas(deltas_e, H, tdt)
     _, dv_pos, dv_lat, dv_alive = _pad_hop_deltas(deltas_v, H, tdt)
+    weighted = weight_base is not None
+    if weighted:
+        dw_pos, dw_val = _pad_weight_deltas(weight_deltas, H)
     if ship_counter is not None:
         # FOLD-STATE host→device payload of THIS dispatch (padded shapes;
-        # a device-resident h0 base and the cached tables ship nothing)
+        # a device-resident h0 base, the cached tables and the per-engine
+        # seed mask ship nothing)
         shipped = [de_pos, de_lat, de_alive, dv_pos, dv_lat, dv_alive]
         if not h0_delta:
             shipped += list(base)
+        if weighted:
+            shipped += [dw_pos, dw_val]
+            if not h0_delta:
+                shipped.append(weight_base)
         ship_counter(int(sum(a.nbytes for a in shipped)))
-    e_src, e_dst, indptr = edges
-    dev = e_src.device
+    dev = edges.e_src.device
 
     def put(a):
         return torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) \
@@ -144,13 +224,31 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     mv, fv_lat, fv_alive = columns.masks_from_deltas(
         bv_lat, bv_alive, put(dv_pos), put(dv_lat), put(dv_alive),
         lo, nowin, H, W, h0_delta)
-    r0 = None
+    adv = (fe_lat, fe_alive, fv_lat, fv_alive)
+    warm = None
     if r_init is not None:
-        r0 = r_init[-W:].repeat(H, 1).t().contiguous()
-    out, steps = _pagerank_columns(me, mv, e_src, e_dst, indptr,
-                                   tables.n_pad, damping, tol, max_steps,
-                                   r_init=r0)
-    return out, steps, (fe_lat, fe_alive, fv_lat, fv_alive)
+        warm = r_init[-W:].repeat(H, 1).t().contiguous()
+    n_pad = tables.n_pad
+    if kind == "pagerank":
+        damping, tol, max_steps = algo_args
+        out, steps = _pagerank_columns(me, mv, *edges[:3], n_pad, damping,
+                                       tol, max_steps, r_init=warm)
+    elif kind == "cc":
+        (max_steps,) = algo_args
+        out, steps = _cc_columns(me, mv, edges, n_pad, max_steps,
+                                 l_init=warm)
+    elif kind == "bfs":
+        max_steps, directed = algo_args
+        ew = None
+        if weighted:
+            ew, cur_w = columns.weights_from_deltas(
+                put(weight_base), put(dw_pos), put(dw_val), H, h0_delta)
+            adv = adv + (cur_w,)
+        out, steps = _bfs_columns(me, mv, edges, n_pad, max_steps, directed,
+                                  seed_mask, ew, W, d_init=warm)
+    else:
+        raise ValueError(f"unknown columnar kind {kind!r}")
+    return out, steps, adv
 
 
 class _HopBatched:
@@ -160,11 +258,18 @@ class _HopBatched:
     hop groups, each folded on the host and then dispatched; the first
     group ships a base snapshot, later groups only deltas onto the
     device-resident advanced base. Results match ``chunks=1`` (hop-major
-    concatenation, within solver tolerance for PageRank)."""
+    concatenation; bitwise for CC and BFS/SSSP, within solver tolerance for
+    PageRank)."""
 
     #: set True by subclasses whose iteration is a contraction (safe to
     #: warm-start from the previous chunk's solution)
     supports_warm_start = False
+
+    #: subclasses whose kernel accepts a cross-epoch warm seed
+    #: (``run(..., warm_state=...)``) under the caller-enforced monotone
+    #: gate — the CC/BFS min-merge warm init. Contraction engines
+    #: (``supports_warm_start``) accept the seed unconditionally.
+    supports_epoch_warm = False
 
     def __init__(self, log: EventLog, device=None):
         self.device = resolve_device(device)
@@ -189,6 +294,9 @@ class _HopBatched:
         # fold state, fed back as the next dispatch's base so follow-on
         # chunks and batches ship only deltas
         self._dev_base = None
+        # cross-epoch warm seed (run(..., warm_state=...)): seeds the FIRST
+        # dispatch's iteration from a previous run's output
+        self._epoch_seed = None
 
     @property
     def _edges(self):
@@ -214,7 +322,8 @@ class _HopBatched:
         state when the fold shipped no base snapshot, else the host
         snapshot (first batch, or residency was dropped)."""
         if ship_base is None:
-            return tuple(self._dev_base), True
+            # SSSP's advanced base carries its weight state as a 5th entry
+            return tuple(self._dev_base[:4]), True
         return ship_base, False
 
     def _count_ship(self, nbytes: int) -> None:
@@ -232,14 +341,21 @@ class _HopBatched:
         return out, steps
 
     def run(self, hop_times, windows, chunks: int = 1,
-            warm_start: bool = False, hop_callback=None):
-        """Returns ``(ranks [H*W, n_pad] on the engine's device, steps)``;
+            warm_start: bool = False, hop_callback=None, warm_state=None):
+        """Returns ``(result [H*W, n_pad] on the engine's device, steps)``;
         ``steps`` is the max over chunks. ``warm_start=True`` initialises
         each chunk's columns from the previous chunk's LAST-hop ranks (same
         fixed point, reached in fewer steps when consecutive hops differ
         little); warm results agree with cold ones to the solver
         tolerance. ``hop_callback(T, sweep_builder)`` fires after each
-        hop's fold."""
+        hop's fold.
+
+        ``warm_state`` (a previous ``run``'s output, ``[C_prev, n_pad]``
+        with the SAME window count) seeds the FIRST dispatch the same way:
+        the cross-epoch warm channel. PageRank takes it unconditionally;
+        for CC/BFS the min-merge warm init is only equivalent under the
+        monotone (add-only, unwindowed) gate the CALLER must enforce; SSSP
+        ignores it (a weight update can raise a pair's weight)."""
         self.fold_seconds = 0.0
         self.dispatch_seconds = 0.0
         self.ship_bytes = 0
@@ -248,6 +364,10 @@ class _HopBatched:
                 f"{type(self).__name__} cannot warm-start: its superstep "
                 "is not a contraction (stale state would be wrong, not "
                 "just slower)")
+        self._epoch_seed = None
+        if warm_state is not None and (self.supports_warm_start
+                                       or self.supports_epoch_warm):
+            self._epoch_seed = warm_state
         hop_times = [int(x) for x in hop_times]
         chunks = max(1, min(int(chunks), len(hop_times)))
         try:
@@ -280,9 +400,13 @@ class _HopBatched:
         outs, steps = [], 0
         for group in groups:
             _, payload = self._fold_deltas(group, hop_callback)
-            # warm start: the previous chunk's FULL output; its last hop's
-            # W rows are tiled per hop of this group inside the dispatch
-            r_init = outs[-1] if warm_start and outs else None
+            # warm start: the previous chunk's FULL output (the epoch seed
+            # for the first dispatch); its last hop's W rows are tiled per
+            # hop of this group inside the dispatch
+            if outs:
+                r_init = outs[-1] if warm_start else None
+            else:
+                r_init = self._epoch_seed
             d0 = _time.perf_counter()
             out, st = self._dispatch_deltas(payload, group, windows,
                                             r_init=r_init)
@@ -407,3 +531,181 @@ class HopBatchedPageRank(_HopBatched):
                        int(self.max_steps)),
             edges=self._edges, r_init=r_init, h0_delta=h0,
             ship_counter=self._count_ship))
+
+
+class HopBatchedBFS(_HopBatched):
+    """Windowed BFS hop counting over a full hop sweep; distances are f32
+    with inf for unreached (SSSP-with-unit-weights semantics). Rows of the
+    ``[H*W, n_pad]`` result are hop-major, columns in the global dense
+    vertex space."""
+
+    supports_epoch_warm = True   # min-merge seed (gate: _bfs_columns)
+
+    def __init__(self, log: EventLog, seeds, directed: bool = False,
+                 max_steps: int = 100, device=None):
+        super().__init__(log, device=device)
+        self._seeds = tuple(seeds)
+        self.directed = directed
+        self.max_steps = max_steps
+        # seeds are fixed per engine: the dense seed mask uploads once
+        self._seed_dev = None
+
+    @property
+    def seeds(self):
+        """Seed vertex ids — fixed at construction (build a new engine for
+        different seeds)."""
+        return self._seeds
+
+    @property
+    def _seed(self):
+        if self._seed_dev is None:
+            self._seed_dev = torch.from_numpy(
+                _seed_mask(self.tables, self.seeds)).to(self.device)
+        return self._seed_dev
+
+    def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
+        # r_init is the cross-epoch warm seed (min-merged distances);
+        # validity is gated by the caller (_bfs_columns docstring)
+        base, deltas_e, deltas_v = payload
+        base, h0 = self._delta_base_args(base)
+        return self._run_delta(lambda: run_columns_delta(
+            "bfs", self.tables, base, deltas_e, deltas_v, hop_times,
+            windows, algo_args=(int(self.max_steps), bool(self.directed)),
+            edges=self._edges, seed_mask=self._seed, r_init=r_init,
+            h0_delta=h0, ship_counter=self._count_ship))
+
+
+class HopBatchedSSSP(HopBatchedBFS):
+    """Weighted min-plus traversal over a full hop sweep.
+
+    Per-pair weights are the LATEST numeric value of ``weight_prop`` at
+    each hop (the (time, event-row) tie-break of the per-view property
+    join), folded as per-hop ``(pos, val)`` updates that the device
+    rebuilds into a ``[m_pad, H]`` weight block (K6w); pairs that never
+    set the key weigh 1.0, and so do stored NaNs (``SSSP.message``'s
+    rule). Immutable keys (earliest-wins) are refused: the ascending fold
+    is last-wins."""
+
+    #: a weight update can RAISE a pair's weight — old distances become
+    #: stale under-estimates, so SSSP never takes a cross-epoch seed
+    supports_epoch_warm = False
+
+    def host_column_bytes(self, n_hops: int) -> int:
+        return super().host_column_bytes(n_hops) + self.tables.m_pad * 4
+
+    def device_mask_bytes(self, n_cols: int) -> int:
+        # the reference's accounting ([m_pad, C] f32 weights), kept so the
+        # jobs layer's memory guard routes the same ranges; the port's
+        # [m_pad, H] block is W times smaller
+        return (super().device_mask_bytes(n_cols)
+                + self.tables.m_pad * n_cols * 4)
+
+    def __init__(self, log: EventLog, seeds, weight_prop: str,
+                 directed: bool = False, max_steps: int = 100, device=None):
+        super().__init__(log, seeds, directed=directed, max_steps=max_steps,
+                         device=device)
+        log = self.sw.log
+        props = log.props
+        if weight_prop in props._key_ids \
+                and props.is_immutable(props._key_ids[weight_prop]):
+            raise ValueError(
+                f"{weight_prop!r} is an immutable (earliest-wins) key — "
+                "the incremental weight fold is last-wins")
+        self.weight_prop = weight_prop
+        t = self.tables
+        # every numeric row of the key on an EDGE_ADD event, sorted by
+        # (time, event-row) — the order the per-view join picks "latest"
+        # from — plus a running per-pair state row
+        self._w_state = np.ones(t.m_pad, np.float32)
+        self._w_t = np.empty(0, np.int64)
+        self._w_val = np.empty(0, np.float32)
+        self._w_pos = np.empty(0, np.int64)
+        if weight_prop in props._key_ids:
+            sel = ((props.column("key") == props._key_ids[weight_prop])
+                   & (props.column("tag") == props.NUM_TAG))
+            ev = props.column("event")[sel]
+            is_add = log.column("kind")[ev] == EDGE_ADD
+            ev = ev[is_add]
+            val = props.column("num")[sel][is_add]
+            # stored NaNs weigh 1.0 like missing values — a raw NaN would
+            # poison the whole column through the relaxation
+            val = np.where(np.isnan(val), 1.0, val)
+            tt = log.column("time")[ev]
+            order = np.lexsort((ev, tt))
+            self._w_t = tt[order]
+            self._w_val = val[order].astype(np.float32)
+            enc = self.sw._pack(self.sw._dense(log.column("src")[ev]),
+                                self.sw._dense(log.column("dst")[ev]))
+            self._w_pos = t.eng_pos(enc)[order]
+        self._w_cursor = 0
+
+    def _weight_deltas(self, hop_times, resident: bool = False):
+        """Per-hop ``(pos, val)`` weight updates plus the running state at
+        hop 0 of this batch (``w_base``). ``resident`` mirrors the mask
+        fold's decision: hop 0's catch-up ships as delta[0] against the
+        device-held weight state, and ``w_base`` is None."""
+        wd = []
+        w_base = None
+        for j, T in enumerate(hop_times):
+            hi = int(np.searchsorted(self._w_t, T, side="right"))
+            pos = self._w_pos[self._w_cursor:hi].astype(np.int32)
+            val = self._w_val[self._w_cursor:hi]
+            if (j > 0 or resident) and len(pos):
+                # last-wins per pair WITHIN the hop: the device scatter
+                # takes each position once (its twin raises on a repeat)
+                u_last = np.unique(pos[::-1], return_index=True)[1]
+                sel = np.sort(len(pos) - 1 - u_last)
+                pos, val = pos[sel], val[sel]
+            if hi > self._w_cursor:
+                self._w_state[self._w_pos[self._w_cursor:hi]] = \
+                    self._w_val[self._w_cursor:hi]
+                self._w_cursor = hi
+            if j == 0 and not resident:
+                # updates at/before hop 0 belong to the base
+                w_base = self._w_state.copy()
+                wd.append((pos[:0], val[:0]))
+            else:
+                wd.append((pos, val))
+        return w_base, wd
+
+    def _fold_deltas(self, hop_times, hop_callback=None):
+        hop_times, payload = super()._fold_deltas(hop_times, hop_callback)
+        # payload[0] is None exactly when the mask fold went all-delta
+        # against the device-resident base — the weight fold must match
+        return hop_times, (*payload,
+                           *self._weight_deltas(hop_times,
+                                                resident=payload[0] is None))
+
+    def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
+        base, deltas_e, deltas_v, w_base, w_deltas = payload
+        base, h0 = self._delta_base_args(base)
+        if h0:
+            w_base = self._dev_base[4]   # device-resident weight state
+        return self._run_delta(lambda: run_columns_delta(
+            "bfs", self.tables, base, deltas_e, deltas_v, hop_times,
+            windows, algo_args=(int(self.max_steps), bool(self.directed)),
+            edges=self._edges, seed_mask=self._seed,
+            weight_base=w_base, weight_deltas=w_deltas, h0_delta=h0,
+            ship_counter=self._count_ship))
+
+
+class HopBatchedCC(_HopBatched):
+    """Windowed connected components over a full hop sweep; labels are
+    global padded indices (``tables.uv[label]`` is the component's
+    min vid)."""
+
+    supports_epoch_warm = True   # min-merge seed (gate: _cc_columns)
+
+    def __init__(self, log: EventLog, max_steps: int = 100, device=None):
+        super().__init__(log, device=device)
+        self.max_steps = max_steps
+
+    def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
+        # r_init is the cross-epoch warm seed (min-merged labels);
+        # validity is gated by the caller (_cc_columns docstring)
+        base, deltas_e, deltas_v = payload
+        base, h0 = self._delta_base_args(base)
+        return self._run_delta(lambda: run_columns_delta(
+            "cc", self.tables, base, deltas_e, deltas_v, hop_times,
+            windows, algo_args=(int(self.max_steps),), edges=self._edges,
+            r_init=r_init, h0_delta=h0, ship_counter=self._count_ship))

@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .algorithms import PageRank
+from .algorithms import BFS, SSSP, ConnectedComponents, PageRank
 from .core.events import EventLog
 
-_PROGRAMS = {"PageRank": PageRank}
+_PROGRAMS = {"PageRank": PageRank, "ConnectedComponents": ConnectedComponents,
+             "SSSP": SSSP, "BFS": BFS}
 
 
 def event_log_from_arrays(cols: dict[str, np.ndarray],
@@ -26,6 +27,28 @@ def event_log_from_arrays(cols: dict[str, np.ndarray],
                      np.asarray(cols["src"]), np.asarray(cols["dst"]),
                      props=props)
     return log
+
+
+def numeric_prop_payloads(props) -> list:
+    """The numeric property rows of an event log's property store (the
+    ``props`` of either package's ``EventLog``: columns ``event``, ``key``,
+    ``tag`` and ``num``, plus ``key_name``/``is_immutable``/``NUM_TAG``) as
+    the ``(row, {key: value})`` payloads ``event_log_from_arrays`` takes,
+    one per run of rows on the same event, in row order; an immutable key
+    keeps its ``"!"`` mark. String values are left out."""
+    num = props.column("tag") == props.NUM_TAG
+    events = props.column("event")[num]
+    keys = props.column("key")[num]
+    vals = props.column("num")[num]
+    names = {int(k): ("!" if props.is_immutable(int(k)) else "")
+             + props.key_name(int(k)) for k in np.unique(keys)}
+    out = []
+    for ev, k, v in zip(events.tolist(), keys.tolist(), vals.tolist()):
+        if out and out[-1][0] == ev and names[k] not in out[-1][1]:
+            out[-1][1][names[k]] = v
+        else:
+            out.append((ev, {names[k]: v}))
+    return out
 
 
 def program_from_params(name: str, **hyper):

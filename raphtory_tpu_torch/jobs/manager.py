@@ -6,10 +6,11 @@ handshake per timestamp. Here a job is a host thread that runs a whole
 Range query as columns of one columnar sweep (``engine/hopbatch``) and
 emits one result row per (hop, window) view.
 
-This slice carries PageRank Range queries only. A View query, a Live query
-or another program raises ``NotImplementedError`` at submit, naming the
-ROADMAP item that brings it. A failed dispatch fails the job (``status`` /
-``error``); there is no per-hop fallback route.
+Range queries of PageRank, ConnectedComponents and SSSP/BFS run on the
+columnar engines. A View query, a Live query or another program raises
+``NotImplementedError`` at submit, naming the ROADMAP item that brings it.
+A failed dispatch fails the job (``status`` / ``error``); there is no
+per-hop fallback route.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..algorithms import PageRank
+from ..algorithms import SSSP, ConnectedComponents, PageRank
 from ..core.service import TemporalGraph
 from ..core.snapshot import INT64_MIN
-from ..engine.hopbatch import HopBatchedPageRank
+from ..engine.hopbatch import (HopBatchedBFS, HopBatchedCC,
+                               HopBatchedPageRank, HopBatchedSSSP)
 from ..engine.program import VertexProgram
 from ..utils.device import resolve_device
 
@@ -75,6 +77,10 @@ class _Shell:
         lo = self.time - w
         v = self.v_mask[None, :] & (self.v_latest_time[None, :] >= lo)
         return v, None  # the shell carries no edge masks
+
+
+#: the programs a Range job runs on a columnar engine
+_COLUMNAR = (PageRank, ConnectedComponents, SSSP)
 
 
 def _shell_from_fold(tables, sw, T):
@@ -140,6 +146,28 @@ class Job:
         finally:
             self._done.set()
 
+    def _columnar_builder(self):
+        """The hop-batched columnar engine for this job's program
+        (reference ``jobs/manager.py:516-541``). PageRank: finalize is the
+        raw rank vector and the power iteration warm-starts safely. CC:
+        labels are global padded indices. SSSP/BFS: the columnar distances
+        are finalize's output; weighted traversal folds per-hop weight
+        deltas (immutable weight keys raise)."""
+        p, log, dev = self.program, self.graph.log, self.device
+        if type(p) is PageRank:
+            return HopBatchedPageRank(log, damping=p.damping, tol=p.tol,
+                                      max_steps=p.max_steps, device=dev)
+        if type(p) is ConnectedComponents:
+            return HopBatchedCC(log, max_steps=p.max_steps, device=dev)
+        if type(p) is SSSP:
+            if p.weight_prop:
+                return HopBatchedSSSP(log, p.seeds, p.weight_prop,
+                                      directed=p.directed,
+                                      max_steps=p.max_steps, device=dev)
+            return HopBatchedBFS(log, p.seeds, directed=p.directed,
+                                 max_steps=p.max_steps, device=dev)
+        raise TypeError(f"no columnar engine for {type(p).__name__}")
+
     def _columnar_range_prep(self, q: RangeQuery):
         """``(hops, windows, engine)`` for the whole-range columnar sweep,
         with the reference's size guards (``jobs/manager.py:546``). A range
@@ -152,9 +180,7 @@ class Job:
                 f"{len(hops)} hops x {len(windows)} windows is outside the "
                 "columnar route (1 to 1024 views); the per-hop engines are "
                 "ROADMAP queue 1 items 4-5")
-        p = self.program
-        hb = HopBatchedPageRank(self.graph.log, damping=p.damping, tol=p.tol,
-                                max_steps=p.max_steps, device=self.device)
+        hb = self._columnar_builder()
         if hb.device_mask_bytes(len(hops) * len(windows)) > 1 << 32 \
                 or hb.host_column_bytes(len(hops)) > 1 << 29:
             raise NotImplementedError(
@@ -165,7 +191,8 @@ class Job:
     def _run_range(self, q: RangeQuery) -> None:
         """Whole-range columnar sweep: every (hop, window) view is a column
         of one pass (``engine/hopbatch``), pipelined in equal hop chunks
-        with warm start, behind the watermark fence at ``q.end``."""
+        (warm-started where the engine's iteration is a contraction),
+        behind the watermark fence at ``q.end``."""
         if not self.graph.watermarks.wait_for(int(q.end),
                                               timeout=self.wait_timeout):
             raise StaleRangeError(
@@ -183,7 +210,9 @@ class Job:
                        if len(hops) >= 2 * k and len(hops) % k == 0), 1)
         t0 = _time.perf_counter()
         ranks, steps = hb.run(hops, windows, chunks=chunks,
-                              warm_start=chunks > 1, hop_callback=grab_shell)
+                              warm_start=chunks > 1
+                              and hb.supports_warm_start,
+                              hop_callback=grab_shell)
         ranks = ranks.cpu().numpy()
         self._emit_columnar(hops, windows, ranks, shells, steps,
                             _time.perf_counter() - t0)
@@ -237,11 +266,10 @@ class AnalysisManager:
             raise NotImplementedError(
                 f"{type(query).__name__} is not carried yet: Live queries "
                 "come with the jobs/serving slice, ROADMAP queue 1 item 7")
-        if type(program) is not PageRank:
+        if type(program) not in _COLUMNAR:
             raise NotImplementedError(
-                f"{type(program).__name__} Range queries: the columnar "
-                "CC/BFS/SSSP engines are ROADMAP queue 1 item 2, the "
-                "generic vertex-program engine item 4")
+                f"{type(program).__name__} Range queries run on the generic "
+                "vertex-program engine: ROADMAP queue 1 item 4")
         with self._lock:
             if job_id is None:
                 job_id = f"{type(program).__name__}_{next(self._counter)}"

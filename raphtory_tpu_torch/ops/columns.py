@@ -1,5 +1,7 @@
-"""Kernels of the hop-batched columnar engine: K1 and K2 (the edge passes
-and the superstep update of the PageRank power iteration).
+"""Kernels of the hop-batched columnar engine: K1 (with K6w, the weighted
+SSSP weight-state rebuild beside it) and K2 (the edge passes and the
+superstep update of the PageRank power iteration); the build and launch
+plumbing that ``ops/minplus.py`` (K5/K6) shares.
 
 Each kernel has three parts here:
 
@@ -38,10 +40,13 @@ _BUILD = _CSRC / "_build"
 #: kernel library → (CUDA source, its C entry points)
 _LIBS = {
     "masks": ("masks.cu", ("rtpu_masks_from_deltas_i32",
-                           "rtpu_masks_from_deltas_i64")),
+                           "rtpu_masks_from_deltas_i64",
+                           "rtpu_weights_from_deltas")),
     "pagerank_columns": ("pagerank_columns.cu", ("rtpu_column_out_degree",
                                                  "rtpu_column_pull_sum",
                                                  "rtpu_pagerank_update")),
+    "minplus_columns": ("minplus_columns.cu", ("rtpu_cc_superstep",
+                                               "rtpu_minplus_superstep")),
 }
 _ARGTYPES = {
     # len, H, W, U, h0 | d_pos, d_lat, d_alive, lo, nowin, cur_l, cur_a,
@@ -50,6 +55,9 @@ _ARGTYPES = {
     + [ctypes.POINTER(ctypes.c_int64)],
     "rtpu_masks_from_deltas_i64": 5 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
+    # len, H, U, h0 | d_pos, d_val, cur_w, out, stream | launched
+    "rtpu_weights_from_deltas": 4 * [ctypes.c_int64]
+    + 5 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     # m, C | me, src, deg, stream
     "rtpu_column_out_degree": 2 * [ctypes.c_int64] + 4 * [ctypes.c_void_p],
     # n, C | indptr, src, me, rd, agg, stream
@@ -58,11 +66,18 @@ _ARGTYPES = {
     # dangling, halted, done, part, busy, ticket, stream
     "rtpu_pagerank_update": 4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
     + 13 * [ctypes.c_void_p],
+    # n, C, gx | in_indptr, e_src, out_indptr, out_perm, e_dst, me, mv, cur,
+    # nxt, halted, done, busy, ticket, stream
+    "rtpu_cc_superstep": 3 * [ctypes.c_int64] + 14 * [ctypes.c_void_p],
+    # n, C, W, H, gx, directed | ew, then as rtpu_cc_superstep
+    "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES = {"masks_from_deltas": 0, "column_out_degree": 0,
-            "column_pull_sum": 0, "pagerank_update": 0}
+            "column_pull_sum": 0, "pagerank_update": 0,
+            "cc_superstep": 0, "minplus_superstep": 0,
+            "weights_from_deltas": 0}
 
 #: ``nvcc -Xptxas -v`` report of each library built by this process
 BUILD_LOG: dict[str, str] = {}
@@ -186,6 +201,19 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 _TIME_DTYPES = (torch.int32, torch.int64)
 
 
+def _skip_pads(name: str, h: int, pos: torch.Tensor, n: int):
+    """(positions inside ``[0, n)``, their keep mask) of one hop's delta
+    row; raises on a position set twice."""
+    p = pos.long()
+    keep = (p >= 0) & (p < n)
+    p = p[keep]
+    if torch.unique(p).numel() != p.numel():
+        raise ValueError(f"{name}: hop {h} delta sets a position twice — "
+                         "the host fold emits each touched entity once per "
+                         "hop")
+    return p, keep
+
+
 # ---------------------------------------------------------------- K1
 
 def masks_from_deltas_plain(base_lat, base_alive, d_pos, d_lat, d_alive,
@@ -200,13 +228,7 @@ def masks_from_deltas_plain(base_lat, base_alive, d_pos, d_lat, d_alive,
     out = torch.empty((n, H * W), dtype=torch.bool, device=cur_l.device)
     for h in range(H):
         if h or h0:
-            p = d_pos[h].long()
-            keep = (p >= 0) & (p < n)
-            p = p[keep]
-            if torch.unique(p).numel() != p.numel():
-                raise ValueError(f"hop {h} delta sets a position twice — "
-                                 "the host fold emits each touched entity "
-                                 "once per hop")
+            p, keep = _skip_pads("masks_from_deltas", h, d_pos[h], n)
             cur_l[p] = d_lat[h][keep]
             cur_a[p] = d_alive[h][keep]
         sl = slice(h * W, (h + 1) * W)
@@ -246,6 +268,50 @@ def masks_from_deltas(base_lat, base_alive, d_pos, d_lat, d_alive, lo, nowin,
              _ptr(out), _stream(out), ctypes.byref(launched))
     _launch(name, err, launched.value)
     return out, cur_l, cur_a
+
+
+# ---------------------------------------------------------------- K6w
+
+def weights_from_deltas_plain(base_w, d_pos, d_val, H: int,
+                              h0: bool = False):
+    """Twin of ``rtpu_weights_from_deltas``: per hop, scatter-set the hop's
+    ``(pos, val)`` weight deltas into a copy of the base weight state (hop 0
+    only with ``h0``; pad rows outside ``[0, len)`` dropped) and write the
+    state as the hop's column. Returns ``(ew [len, H] f32, advanced
+    state)``."""
+    cur = base_w.clone()
+    n = cur.shape[0]
+    out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
+    for h in range(H):
+        if h or h0:
+            p, keep = _skip_pads("weights_from_deltas", h, d_pos[h], n)
+            cur[p] = d_val[h][keep]
+        out[:, h] = cur
+    return out, cur
+
+
+def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
+    """K6w wrapper (replaces the weight rebuild of
+    ``raphtory_tpu/engine/hopbatch.py:374-384``): ``base_w [len]`` f32,
+    ``d_pos [H, U]`` int32 (pad 2^31-1), ``d_val [H, U]`` f32 → ``(ew
+    [len, H] f32 — hop h's weight state in column h, the block K6 reads,
+    advanced state [len])``."""
+    name = "weights_from_deltas"
+    n = base_w.shape[0]
+    U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+    _expect(name, base_w, "base_w", (torch.float32,), (n,))
+    _expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
+    _expect(name, d_val, "d_val", (torch.float32,), (H, U))
+    if not _on_cuda(name, base_w, d_pos, d_val):
+        return weights_from_deltas_plain(base_w, d_pos, d_val, H, h0)
+    cur = base_w.clone()
+    out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
+    launched = ctypes.c_int64(0)
+    err = _fn("masks", "rtpu_weights_from_deltas")(
+        n, H, U, int(bool(h0)), _ptr(d_pos), _ptr(d_val), _ptr(cur),
+        _ptr(out), _stream(out), ctypes.byref(launched))
+    _launch(name, err, launched.value)
+    return out, cur
 
 
 # ---------------------------------------------------------------- K2a

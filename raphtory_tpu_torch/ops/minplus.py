@@ -1,0 +1,177 @@
+"""Kernels of the columnar min-combine traversals: K5 (connected components,
+min-label propagation) and K6 (BFS / weighted SSSP, min-plus relaxation),
+one superstep each.
+
+Same three parts as ``ops/columns.py``, whose build and launch plumbing
+they share: a **wrapper** (``cc_superstep``, ``minplus_superstep``) that
+checks its inputs and routes by device (CPU tensors take the twin, CUDA
+tensors launch the kernel or raise), a **plain twin** (``*_plain``) with
+the same math, and the **CUDA source** ``csrc/minplus_columns.cu``.
+
+A superstep is synchronous: it reads ``MinState.cur`` and writes
+``MinState.nxt``, then the wrapper swaps the two, so every row sees the
+previous superstep's state, as the reference's ``while_loop`` body does.
+Results are bitwise the reference's: min is exact and ``dist + w`` is one
+f32 add.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import columns
+from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+
+I32_MAX = 2**31 - 1
+INF = float("inf")
+
+
+@dataclass
+class MinState:
+    """Per-dispatch state of a min-combine traversal, advanced in place.
+    ``busy``/``ticket`` are the kernel's cross-block scratch (the twin
+    leaves them alone)."""
+    cur: torch.Tensor        # [n, C] int32 labels / f32 distances
+    nxt: torch.Tensor        # [n, C] the next superstep's state
+    halted: torch.Tensor     # [C] bool converged (frozen) columns
+    done: torch.Tensor       # [1] bool every column halted
+    busy: torch.Tensor       # [gx, C] int32 per-block "changed"
+    ticket: torch.Tensor     # [1] int32 blocks finished (reset by the last)
+
+
+def min_state(x0: torch.Tensor) -> MinState:
+    """A ``MinState`` around the start state ``x0 [n, C]`` (contiguous)."""
+    n, C = x0.shape
+    dev = x0.device
+    return MinState(
+        cur=x0, nxt=torch.empty_like(x0),
+        halted=torch.zeros(C, dtype=torch.bool, device=dev),
+        done=torch.zeros(1, dtype=torch.bool, device=dev),
+        busy=torch.empty((columns.update_grid(n, C), C), dtype=torch.int32,
+                         device=dev),
+        ticket=torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _pull(cur, me, e_from, e_to, fill, w=None):
+    """``min over e with e_to[e] = row of (me[e, c] ? cur[e_from[e], c]
+    (+ w) : fill)`` — the reference's masked segment-min, over every m_pad
+    edge (the pads are masked). ``w`` is a scalar or ``[m_pad, C]``."""
+    vals = cur[e_from.long()]
+    if w is not None:
+        vals = vals + w
+    vals = torch.where(me, vals, fill)
+    idx = e_to.long()[:, None].expand_as(vals)
+    return torch.full_like(cur, fill).scatter_reduce_(0, idx, vals, "amin")
+
+
+def _advance_plain(st: MinState, agg, mv, fill) -> None:
+    """The superstep epilogue: min with the pull, mask, halting over every
+    row, then the freeze of halted columns; swaps ``cur``/``nxt``."""
+    new = torch.where(mv, torch.minimum(st.cur, agg), fill)
+    col_done = (new == st.cur).all(0)
+    torch.where(st.halted[None, :], st.cur, new, out=st.nxt)
+    st.halted |= col_done
+    st.done.copy_(st.halted.all().reshape(1))
+    st.cur, st.nxt = st.nxt, st.cur
+
+
+def _check(name, st: MinState, me, mv, edges, dtype):
+    n, C = st.cur.shape
+    m = me.shape[0]
+    _expect(name, st.cur, "cur", (dtype,), (n, C))
+    _expect(name, st.nxt, "nxt", (dtype,), (n, C))
+    _expect(name, me, "me", (torch.bool,), (m, C))
+    _expect(name, mv, "mv", (torch.bool,), (n, C))
+    _expect(name, st.halted, "halted", (torch.bool,), (C,))
+    _expect(name, st.done, "done", (torch.bool,), (1,))
+    _expect(name, edges.e_src, "e_src", (torch.int32,), (m,))
+    _expect(name, edges.e_dst, "e_dst", (torch.int32,), (m,))
+    _expect(name, edges.in_indptr, "in_indptr", (torch.int64,), (n + 1,))
+    _expect(name, edges.out_indptr, "out_indptr", (torch.int64,), (n + 1,))
+    _expect(name, edges.out_perm, "out_perm", (torch.int32,),
+            (edges.out_perm.shape[0],))
+    return n, C
+
+
+def _launch_args(name, st: MinState, me, mv, edges):
+    _expect(name, st.busy, "busy", (torch.int32,),
+            (columns.update_grid(*st.cur.shape), st.cur.shape[1]))
+    _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
+    return (_ptr(edges.in_indptr), _ptr(edges.e_src), _ptr(edges.out_indptr),
+            _ptr(edges.out_perm), _ptr(edges.e_dst), _ptr(me), _ptr(mv),
+            _ptr(st.cur), _ptr(st.nxt), _ptr(st.halted), _ptr(st.done),
+            _ptr(st.busy), _ptr(st.ticket), _stream(st.cur))
+
+
+def _tensors(st: MinState, me, mv, edges):
+    return (st.cur, st.nxt, st.halted, st.done, st.busy, st.ticket, me, mv,
+            *edges)
+
+
+# ---------------------------------------------------------------- K5
+
+def cc_superstep_plain(st: MinState, me, mv, edges) -> None:
+    """Twin of ``rtpu_cc_superstep``: one superstep of min-label
+    propagation over both directions (``hopbatch.py:580-588``)."""
+    agg = torch.minimum(
+        _pull(st.cur, me, edges.e_src, edges.e_dst, I32_MAX),
+        _pull(st.cur, me, edges.e_dst, edges.e_src, I32_MAX))
+    _advance_plain(st, agg, mv, I32_MAX)
+
+
+def cc_superstep(st: MinState, me, mv, edges) -> None:
+    """K5 wrapper (the loop body of ``raphtory_tpu/engine/hopbatch.py:538``
+    ``_cc_columns``): advances ``st`` (int32 ``[n_pad, C]`` labels) by one
+    superstep over the column masks ``me [m_pad, C]`` / ``mv [n_pad, C]``
+    and the device edge tables ``edges`` (``DeviceEdges``)."""
+    name = "cc_superstep"
+    n, C = _check(name, st, me, mv, edges, torch.int32)
+    if not _on_cuda(name, *_tensors(st, me, mv, edges)):
+        return cc_superstep_plain(st, me, mv, edges)
+    err = _fn("minplus_columns", "rtpu_cc_superstep")(
+        n, C, columns.update_grid(n, C),
+        *_launch_args(name, st, me, mv, edges))
+    _launch(name, err)
+    st.cur, st.nxt = st.nxt, st.cur
+
+
+# ---------------------------------------------------------------- K6
+
+def minplus_superstep_plain(st: MinState, me, mv, edges, directed: bool,
+                            ew=None, W: int = 1) -> None:
+    """Twin of ``rtpu_minplus_superstep``: one min-plus relaxation
+    (``hopbatch.py:662-670``), payload ``dist[u] + w`` with ``w = 1`` or
+    ``ew[e, c // W]``; the out-direction pull only when undirected."""
+    w = 1.0 if ew is None else ew.repeat_interleave(W, dim=1)  # hop-major
+    agg = _pull(st.cur, me, edges.e_src, edges.e_dst, INF, w)
+    if not directed:
+        agg = torch.minimum(agg, _pull(st.cur, me, edges.e_dst, edges.e_src,
+                                       INF, w))
+    _advance_plain(st, agg, mv, INF)
+
+
+def minplus_superstep(st: MinState, me, mv, edges, directed: bool,
+                      ew=None, W: int = 1) -> None:
+    """K6 wrapper (the loop body of ``raphtory_tpu/engine/hopbatch.py:620``
+    ``_bfs_columns``): advances ``st`` (f32 ``[n_pad, C]`` distances) by one
+    superstep. ``ew`` is None for hop counting or the ``[m_pad, H]`` f32
+    weight block of K6w (``C = H * W``, hop-major columns)."""
+    name = "minplus_superstep"
+    n, C = _check(name, st, me, mv, edges, torch.float32)
+    tensors = _tensors(st, me, mv, edges)
+    H = C // W
+    if ew is not None:
+        if H * W != C:
+            raise ValueError(f"{name}: {C} columns are not H x W={W}")
+        _expect(name, ew, "ew", (torch.float32,), (me.shape[0], H))
+        tensors += (ew,)
+    if not _on_cuda(name, *tensors):
+        return minplus_superstep_plain(st, me, mv, edges, directed, ew, W)
+    err = _fn("minplus_columns", "rtpu_minplus_superstep")(
+        n, C, W, H, columns.update_grid(n, C), int(bool(directed)),
+        None if ew is None else _ptr(ew),
+        *_launch_args(name, st, me, mv, edges))
+    _launch(name, err)
+    st.cur, st.nxt = st.nxt, st.cur

@@ -39,6 +39,48 @@ def random_update_stream(
     return times, kinds, src, dst
 
 
+def ldbc_like_log(
+    n_persons: int = 10_000,
+    n_knows: int = 120_000,
+    delete_frac: float = 0.1,
+    seed: int = 13,
+    t_span: int = 2_600_000,
+    weighted: bool = False,
+) -> EventLog:
+    """LDBC-SNB person_knows_person workload shape (``LDBCRouter`` with
+    deletion support, ``ldbc/routers/LDBCRouter.scala:291-319``): friendship
+    edge adds over the span plus a ``delete_frac`` fraction of later edge
+    deletions — windowed views exercise the tombstone path. ``weighted``
+    sets a numeric ``weight`` property on every add (SSSP workloads)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_persons, n_knows).astype(np.int64)
+    dst = rng.integers(0, n_persons, n_knows).astype(np.int64)
+    times = np.sort(rng.integers(0, int(t_span * 0.9), n_knows)).astype(np.int64)
+    kinds = np.full(n_knows, EDGE_ADD, np.uint8)
+    # delete a sample of existing edges at a later time
+    n_del = int(n_knows * delete_frac)
+    rows = rng.choice(n_knows, n_del, replace=False)
+    d_times = times[rows] + rng.integers(
+        1, int(t_span * 0.1), n_del).astype(np.int64)
+    d_kinds = np.full(n_del, EDGE_DELETE, np.uint8)
+    t_all = np.concatenate([times, d_times])
+    k_all = np.concatenate([kinds, d_kinds])
+    s_all = np.concatenate([src, src[rows]])
+    d_all = np.concatenate([dst, dst[rows]])
+    order = np.argsort(t_all, kind="stable")
+    props = None
+    if weighted:
+        # interaction weight on each knows-edge add
+        w = np.round(rng.uniform(0.5, 5.0, n_knows), 2)
+        is_add = k_all[order] == EDGE_ADD
+        props = [(int(off), {"weight": float(w[i])})
+                 for i, off in enumerate(np.flatnonzero(is_add))]
+    log = EventLog()
+    log.append_batch(t_all[order], k_all[order], s_all[order], d_all[order],
+                     props=props)
+    return log
+
+
 def gab_like_arrays(
     n_vertices: int = 30_000,
     n_edges: int = 300_000,

@@ -19,6 +19,21 @@ def _port_sources():
     return files + [ROOT / "chip_smoke.py"]
 
 
+#: modules each slice added; the walk above must reach every one of them
+SLICE_MODULES = (
+    "raphtory_tpu_torch/ops/columns.py",
+    "raphtory_tpu_torch/engine/hopbatch.py",
+    "raphtory_tpu_torch/ops/minplus.py",
+    "raphtory_tpu_torch/algorithms/connected_components.py",
+    "raphtory_tpu_torch/algorithms/traversal.py",
+)
+
+
+def test_walk_covers_every_slice_module():
+    walked = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert set(SLICE_MODULES) <= walked
+
+
 def _imported_top_levels(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -65,13 +80,19 @@ def _tiny_log():
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     from raphtory_tpu_torch.core.service import TemporalGraph
-    from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
+    from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
+                                                    HopBatchedCC,
+                                                    HopBatchedPageRank,
+                                                    HopBatchedSSSP)
     from raphtory_tpu_torch.jobs.manager import AnalysisManager
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     log = _tiny_log()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        HopBatchedPageRank(log)
+    for make in (HopBatchedPageRank, HopBatchedCC,
+                 lambda lg: HopBatchedBFS(lg, (1,)),
+                 lambda lg: HopBatchedSSSP(lg, (1,), "weight")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(log)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TemporalGraph(log)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,0 +1,310 @@
+"""The min-combine kernels' plain twins (``raphtory_tpu_torch/ops/minplus.py``
+K5/K6, and K6w in ``ops/columns.py``) and the traversal loops around them
+against the JAX package's own functions (``_cc_columns``, ``_bfs_columns``
+and the weight rebuild inside ``run_columns_delta``) on the same numpy
+inputs: BITWISE equal labels, distances and advanced state, equal superstep
+counts. Inputs carry pad edges and pad rows, an all-masked column, columns
+that halt (and freeze) at different supersteps, and warm starts."""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from test_sweep import random_log
+
+from raphtory_tpu.engine import hopbatch as jhb
+from raphtory_tpu.utils.synth import gab_like_log
+from raphtory_tpu_torch.core.sweep import SweepBuilder
+from raphtory_tpu_torch.engine import hopbatch as thb
+from raphtory_tpu_torch.engine.device_sweep import DeviceEdges, GlobalTables
+from raphtory_tpu_torch.interop import event_log_from_arrays
+from raphtory_tpu_torch.ops import columns, minplus
+
+T = torch.from_numpy
+I32_MAX = np.iinfo(np.int32).max
+
+
+@pytest.fixture(autouse=True)
+def _unbinned_reference(monkeypatch):
+    monkeypatch.setenv("RTPU_PCPM", "0")
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(kind):
+    if kind == "gab":
+        jlog = gab_like_log(600, 5_000, t_span=1_000)
+    else:
+        jlog = random_log(np.random.default_rng(3), n_events=800, n_ids=60,
+                          t_span=100)
+    return GlobalTables(SweepBuilder(event_log_from_arrays(jlog.arrays()),
+                                     track_rows=False, preseed_pairs=True))
+
+
+def _edges(t):
+    return DeviceEdges(*(T(getattr(t, f)) for f in DeviceEdges._fields))
+
+
+def _masks(t, rng, C):
+    me = rng.random((t.m_pad, C)) < 0.5
+    me[t.m:] = False                       # pad edges carry no mask
+    me[:, 1] = False                       # an all-masked edge column
+    mv = rng.random((t.n_pad, C)) < 0.85
+    mv[t.n:] = False                       # pad rows
+    mv[:, 3] = False                       # an empty view
+    return me, mv
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cc(n_pad, max_steps, warm):
+    def run(me, mv, e_src, e_dst, l_init):
+        return jhb._cc_columns(me, mv, e_src, e_dst, n_pad, max_steps,
+                               tile_budget=256 << 20,
+                               l_init=l_init if warm else None)
+    return jax.jit(run)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bfs(n_pad, max_steps, directed, weighted, warm):
+    def run(me, mv, e_src, e_dst, seed, ew, d_init):
+        return jhb._bfs_columns(me, mv, e_src, e_dst, n_pad, max_steps,
+                                directed, seed, ew if weighted else 1.0,
+                                tile_budget=256 << 20,
+                                d_init=d_init if warm else None)
+    return jax.jit(run)
+
+
+# max_steps=2 stops mid-propagation: the Jacobi step order must match
+@pytest.mark.parametrize("max_steps", [2, 60])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_cc_columns_twin_bitwise(kind, warm, max_steps):
+    t = _tables(kind)
+    rng = np.random.default_rng(7)
+    C = 6
+    me, mv = _masks(t, rng, C)
+    l_init = rng.integers(0, t.n_pad, (t.n_pad, C)).astype(np.int32)
+    want, want_steps = _jax_cc(t.n_pad, max_steps, warm)(
+        me, mv, t.e_src, t.e_dst, l_init)
+    got, steps = thb._cc_columns(T(me), T(mv), _edges(t), t.n_pad,
+                                 max_steps,
+                                 l_init=T(l_init) if warm else None)
+    assert got.shape == (C, t.n_pad) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert steps == int(want_steps)
+    assert (got.numpy()[3] == I32_MAX).all()
+    if max_steps == 60:
+        assert steps < max_steps   # every column halted
+
+
+@pytest.mark.parametrize("max_steps", [2, 40])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_bfs_columns_twin_bitwise(kind, directed, weighted, warm,
+                                  max_steps):
+    """Weights span negative, zero and fractional values: the min-plus
+    relaxation is exact whatever their sign (no integer reinterpretation
+    of floats)."""
+    t = _tables(kind)
+    rng = np.random.default_rng(11)
+    H, W = 3, 2
+    C = H * W
+    me, mv = _masks(t, rng, C)
+    seed = np.zeros(t.n_pad, bool)
+    seed[rng.choice(t.n, 3, replace=False)] = True
+    ew = rng.choice(np.array([-0.25, 0.0, 0.5, 1.0, 2.75, 7.0],
+                             np.float32), (t.m_pad, H))
+    d_init = np.where(rng.random((t.n_pad, C)) < 0.3,
+                      rng.integers(0, 6, (t.n_pad, C)),
+                      np.inf).astype(np.float32)
+    want, want_steps = _jax_bfs(t.n_pad, max_steps, directed, weighted,
+                                warm)(me, mv, t.e_src, t.e_dst, seed,
+                                      np.repeat(ew, W, axis=1), d_init)
+    got, steps = thb._bfs_columns(
+        T(me), T(mv), _edges(t), t.n_pad, max_steps, directed, T(seed),
+        T(ew) if weighted else None, W,
+        d_init=T(d_init) if warm else None)
+    assert got.shape == (C, t.n_pad) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert steps == int(want_steps)
+    assert np.isfinite(got.numpy()).any()
+
+
+def _np_superstep(cur, me, mv, e_src, e_dst, halted, pay, both, fill):
+    """One synchronous min-combine superstep in numpy, written from the
+    reference loop body (``hopbatch.py:580-588``, ``:662-670``)."""
+    agg = np.full_like(cur, fill)
+    pairs = [(e_src, e_dst)] + ([(e_dst, e_src)] if both else [])
+    for a, b in pairs:
+        vals = np.where(me, pay(cur[a]), fill)
+        np.minimum.at(agg, b, vals)
+    new = np.where(mv, np.minimum(cur, agg), fill)
+    col_done = (new == cur).all(0)
+    return np.where(halted[None, :], cur, new), halted | col_done
+
+
+@pytest.mark.parametrize("op", ["cc", "bfs", "sssp_directed"])
+def test_superstep_twins_freeze_and_halt(op):
+    """One superstep with a column frozen BEFORE it: the frozen column keeps
+    its state, halting is judged over every row, the all-halted flag
+    follows; ``cur``/``nxt`` swap."""
+    t = _tables("random")
+    rng = np.random.default_rng(5)
+    H, W = 2, 3
+    C = H * W
+    me, mv = _masks(t, rng, C)
+    edges = _edges(t)
+    halted = np.zeros(C, bool)
+    halted[[0, 4]] = True
+    if op == "cc":
+        cur = np.where(mv, rng.integers(0, t.n_pad, (t.n_pad, C)),
+                       I32_MAX).astype(np.int32)
+        pay, fill, both = (lambda x: x), I32_MAX, True
+    else:
+        cur = np.where(mv & (rng.random((t.n_pad, C)) < 0.3),
+                       rng.integers(0, 4, (t.n_pad, C)),
+                       np.inf).astype(np.float32)
+        fill, both = np.float32(np.inf), op == "bfs"
+        ew = rng.random((t.m_pad, H)).astype(np.float32)
+        w = np.float32(1.0) if op == "bfs" else np.repeat(ew, W, axis=1)
+        pay = lambda x: x + w   # noqa: E731
+    want, want_halted = _np_superstep(cur, me, mv, t.e_src, t.e_dst, halted,
+                                      pay, both, fill)
+    st = minplus.min_state(T(cur.copy()))
+    st.halted[:] = T(halted)
+    first = st.cur
+    if op == "cc":
+        minplus.cc_superstep(st, T(me), T(mv), edges)
+    else:
+        minplus.minplus_superstep(st, T(me), T(mv), edges,
+                                  directed=op != "bfs",
+                                  ew=None if op == "bfs" else T(ew), W=W)
+    assert st.nxt is first                       # swapped
+    np.testing.assert_array_equal(st.cur.numpy(), want)
+    np.testing.assert_array_equal(st.cur.numpy()[:, [0, 4]],
+                                  cur[:, [0, 4]])
+    np.testing.assert_array_equal(st.halted.numpy(), want_halted)
+    assert want_halted[1] and want_halted[3]     # empty columns halt
+    assert bool(st.done) == bool(want_halted.all())
+    # a second superstep from the frozen state: everything still agrees
+    want2, halted2 = _np_superstep(want, me, mv, t.e_src, t.e_dst,
+                                   want_halted, pay, both, fill)
+    if op == "cc":
+        minplus.cc_superstep(st, T(me), T(mv), edges)
+    else:
+        minplus.minplus_superstep(st, T(me), T(mv), edges,
+                                  directed=op != "bfs",
+                                  ew=None if op == "bfs" else T(ew), W=W)
+    np.testing.assert_array_equal(st.cur.numpy(), want2)
+    np.testing.assert_array_equal(st.halted.numpy(), halted2)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("directed", [False, True])
+def test_weight_rebuild_matches_reference(directed, h0):
+    """K6w inside ``run_columns_delta``: the same (pos, val) weight deltas
+    (pads included, hop 0's only with ``h0``) onto the same base give the
+    same distances, steps and advanced base — its weight state included —
+    as the JAX package's ``_compiled_delta``."""
+    t = _tables("random")
+    rng = np.random.default_rng(13 + h0)
+    hops, windows = [30, 60, 90], [1000, 20]
+    H = len(hops)
+    tdt = t.tdtype
+    base = (rng.integers(0, 100, t.m_pad).astype(tdt),
+            rng.random(t.m_pad) < 0.7,
+            rng.integers(0, 100, t.n_pad).astype(tdt),
+            rng.random(t.n_pad) < 0.9)
+
+    def deltas(length, k):
+        out = []
+        for _ in range(H):
+            p = rng.choice(length, k, replace=False).astype(np.int32)
+            out.append((p, rng.integers(0, 100, k).astype(tdt),
+                        rng.random(k) < 0.6))
+        return out
+
+    de, dv = deltas(t.m, 40), deltas(t.n, 10)
+    w_base = rng.choice(np.array([0.5, 1.0, 3.0], np.float32), t.m_pad)
+    wd = []
+    for h in range(H):
+        k = int(rng.integers(5, 60))
+        wd.append((rng.choice(t.m, k, replace=False).astype(np.int32),
+                   (rng.random(k) * 4 - 0.5).astype(np.float32)))
+    seed = np.zeros(t.n_pad, bool)
+    seed[:4] = True
+    kw = dict(algo_args=(30, directed), weight_base=w_base, weight_deltas=wd,
+              h0_delta=h0)
+    want, want_steps, want_adv = jhb.run_columns_delta(
+        "bfs", t, base, de, dv, hops, windows, seed_mask=seed, **kw)
+    got, steps, adv = thb.run_columns_delta(
+        "bfs", t, base, de, dv, hops, windows, edges=_edges(t),
+        seed_mask=T(seed), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert steps == int(want_steps)
+    assert len(adv) == len(want_adv) == 5
+    for g, w in zip(adv, want_adv):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_weights_from_deltas_twin():
+    base = T(np.arange(6, dtype=np.float32))
+    pad = 2**31 - 1
+    pos = T(np.array([[5, pad, 0], [1, 2, pad], [pad, pad, pad]], np.int32))
+    val = T(np.array([[9, 9, 9], [-1, -2, 9], [9, 9, 9]], np.float32))
+    for h0 in (False, True):
+        ew, cur = columns.weights_from_deltas(base, pos, val, 3, h0)
+        first = [9.0, 1, 2, 3, 4, 9] if h0 else [0.0, 1, 2, 3, 4, 5]
+        assert ew[:, 0].tolist() == first
+        assert ew[:, 1].tolist() == first[:1] + [-1, -2] + first[3:]
+        assert torch.equal(ew[:, 2], ew[:, 1]) and torch.equal(cur, ew[:, 2])
+    assert base.tolist() == list(range(6))       # the base is not touched
+    with pytest.raises(ValueError, match="twice"):
+        columns.weights_from_deltas(
+            base, T(np.array([[3, 3]], np.int32)).repeat(2, 1),
+            torch.zeros((2, 2)), 2, False)
+
+
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_source_index_orders_the_real_edges(kind):
+    t = _tables(kind)
+    perm = t.out_perm
+    assert perm.dtype == np.int32 and len(perm) == t.m
+    assert sorted(perm.tolist()) == list(range(t.m))   # pads left out
+    key = t.e_src[perm].astype(np.int64) << 32 | t.e_dst[perm]
+    assert (np.diff(key) > 0).all()                    # (src, dst) order
+    assert t.out_indptr[0] == 0 and t.out_indptr[-1] == t.m
+    rows = np.repeat(np.arange(t.n_pad), np.diff(t.out_indptr))
+    np.testing.assert_array_equal(rows, t.e_src[perm])
+
+
+def test_superstep_wrappers_check_inputs_and_count_only_launches():
+    t = _tables("random")
+    edges = _edges(t)
+    columns.reset_launches()
+    me = torch.zeros((t.m_pad, 2), dtype=torch.bool)
+    mv = torch.ones((t.n_pad, 2), dtype=torch.bool)
+    st = minplus.min_state(torch.zeros((t.n_pad, 2), dtype=torch.int32))
+    with pytest.raises(TypeError, match="cur"):
+        minplus.minplus_superstep(st, me, mv, edges, True)
+    with pytest.raises(ValueError, match="shape"):
+        minplus.cc_superstep(st, me[:5], mv, edges)
+    with pytest.raises(TypeError, match="in_indptr"):
+        minplus.cc_superstep(st, me, mv, edges._replace(
+            in_indptr=edges.in_indptr.int()))
+    fst = minplus.min_state(torch.zeros((t.n_pad, 2)))
+    with pytest.raises(ValueError, match="ew"):
+        minplus.minplus_superstep(fst, me, mv, edges, True,
+                                  ew=torch.ones((t.m_pad, 2)), W=2)
+    with pytest.raises(ValueError, match="H x W"):
+        minplus.minplus_superstep(fst, me, mv, edges, True,
+                                  ew=torch.ones((t.m_pad, 1)), W=3)
+    # CPU tensors run the twins, which launch no kernel; no edge is
+    # masked in, so every column halts at once
+    minplus.cc_superstep(st, me, mv, edges)
+    minplus.minplus_superstep(fst, me, mv, edges, False)
+    assert bool(st.done) and bool(fst.done)
+    assert columns.LAUNCHES == {k: 0 for k in columns.LAUNCHES}

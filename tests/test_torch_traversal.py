@@ -1,0 +1,210 @@
+"""The port's columnar CC, BFS and weighted SSSP engines against the JAX
+package's on the same logs (carried across as numpy arrays and numeric
+property rows): labels and distances BITWISE equal, superstep counts equal
+(ROADMAP "Checked against the reference": min-combine results are exact).
+Covers chunked sweeps (``chunks=4`` on 6 hops is the uneven split), the
+device-resident advanced base across runs (SSSP's weight state included),
+the epoch warm seed, stored NaN weights, the immutable-key refusal and the
+LDBC-like generator."""
+
+import numpy as np
+import pytest
+from test_sweep import random_log
+
+from raphtory_tpu.engine import hopbatch as jhb
+from raphtory_tpu.utils import synth as jsynth
+from raphtory_tpu_torch.engine import hopbatch as thb
+from raphtory_tpu_torch.interop import (event_log_from_arrays,
+                                        numeric_prop_payloads)
+from raphtory_tpu_torch.utils import synth
+
+WINDOWS = [1000, 25, None]
+SEEDS = (1, 2, 3, 9_999)   # 9_999 never occurs: ignored
+
+
+@pytest.fixture(autouse=True)
+def _unbinned_reference(monkeypatch):
+    # the reference stays on the unbinned route at every size
+    monkeypatch.setenv("RTPU_PCPM", "0")
+
+
+def carried(jlog):
+    return event_log_from_arrays(jlog.arrays(),
+                                 props=numeric_prop_payloads(jlog.props))
+
+
+def _log(seed):
+    if seed == "ldbc":
+        return jsynth.ldbc_like_log(n_persons=300, n_knows=3_000,
+                                    t_span=10_000, weighted=True), \
+            [5_000, 6_000, 7_000, 8_000, 9_000, 9_999], "weight"
+    rng = np.random.default_rng(seed)
+    return random_log(rng, n_events=800, n_ids=50, t_span=100,
+                      props=True), [20, 40, 60, 80, 85, 99], "w"
+
+
+def _engines(kind, jlog, directed=False):
+    log = carried(jlog)
+    if kind == "cc":
+        return (jhb.HopBatchedCC(jlog, max_steps=60),
+                thb.HopBatchedCC(log, max_steps=60, device="cpu"))
+    if kind == "bfs":
+        return (jhb.HopBatchedBFS(jlog, SEEDS, directed=directed,
+                                  max_steps=40),
+                thb.HopBatchedBFS(log, SEEDS, directed=directed,
+                                  max_steps=40, device="cpu"))
+    prop = "weight" if "weight" in jlog.props.keys else "w"
+    return (jhb.HopBatchedSSSP(jlog, SEEDS, prop, directed=directed,
+                               max_steps=40),
+            thb.HopBatchedSSSP(log, SEEDS, prop, directed=directed,
+                               max_steps=40, device="cpu"))
+
+
+def _check(want, got):
+    (w, ws), (g, gs) = want, got
+    w = np.asarray(w)
+    assert g.device.type == "cpu" and g.shape == w.shape
+    assert g.dtype.itemsize == w.dtype.itemsize
+    np.testing.assert_array_equal(g.numpy(), w)   # bitwise (no NaN)
+    assert gs == int(ws)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+@pytest.mark.parametrize("seed", [0, 1, "ldbc"])
+def test_cc_matches_reference(seed, chunks):
+    jlog, hops, _ = _log(seed)
+    j, t = _engines("cc", jlog)
+    _check(j.run(hops, WINDOWS, chunks=chunks),
+           t.run(hops, WINDOWS, chunks=chunks))
+    assert t.fold_seconds > 0 and t.ship_bytes > 0
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("seed", [0, "ldbc"])
+def test_bfs_matches_reference(seed, directed, chunks):
+    jlog, hops, _ = _log(seed)
+    j, t = _engines("bfs", jlog, directed)
+    _check(j.run(hops, WINDOWS, chunks=chunks),
+           t.run(hops, WINDOWS, chunks=chunks))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("seed", [2, "ldbc"])
+def test_sssp_matches_reference(seed, directed, chunks):
+    """Weighted: the per-hop weight deltas rebuilt on the device (K6w),
+    zero weights included (random logs set ``w`` in 0..4)."""
+    jlog, hops, _ = _log(seed)
+    j, t = _engines("sssp", jlog, directed)
+    want = j.run(hops, WINDOWS, chunks=chunks)
+    got = t.run(hops, WINDOWS, chunks=chunks)
+    _check(want, got)
+    assert np.isfinite(got[0].numpy()).any()
+    # the weights do change the answer against hop counting
+    bfs, _ = _engines("bfs", jlog, directed)[1].run(hops, WINDOWS)
+    assert not np.array_equal(bfs.numpy(), got[0].numpy())
+
+
+@pytest.mark.parametrize("kind", ["cc", "bfs", "sssp"])
+def test_resident_base_across_runs(kind, monkeypatch):
+    """A second run() continues from the device-resident advanced base:
+    every dispatch after the first ships deltas only (h0), SSSP's weight
+    state riding along as the base's 5th entry."""
+    seen = []
+    real = thb.run_columns_delta
+
+    def spy(*a, **kw):
+        seen.append((kw["h0_delta"], kw.get("weight_base") is not None,
+                     len(a[2])))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(thb, "run_columns_delta", spy)
+    jlog, hops, _ = _log("ldbc" if kind == "sssp" else 3)
+    j, t = _engines(kind, jlog)
+    _check(j.run(hops[:4], WINDOWS, chunks=2),
+           t.run(hops[:4], WINDOWS, chunks=2))
+    _check(j.run(hops[4:], WINDOWS), t.run(hops[4:], WINDOWS))
+    assert [h0 for h0, _, _ in seen] == [False, True, True]
+    assert all(w == (kind == "sssp") and nb == 4 for _, w, nb in seen)
+    assert len(t._dev_base) == (5 if kind == "sssp" else 4)
+
+
+@pytest.mark.parametrize("kind", ["cc", "bfs"])
+def test_epoch_warm_state(kind):
+    """``warm_state`` seeds the first dispatch with min(cold start, the
+    previous run's output) — on an add-only log, as the live engine's gate
+    requires, and equal to the JAX package's warm run bitwise."""
+    jlog = jsynth.gab_like_log(400, 3_000, seed=4, t_span=600)
+    windows = [None]
+    j, t = _engines(kind, jlog)
+    jw, tw = j.run([200, 300], windows), t.run([200, 300], windows)
+    _check(jw, tw)
+    j2, t2 = _engines(kind, jlog)
+    want = j2.run([400, 500, 599], windows, warm_state=jw[0])
+    got = t2.run([400, 500, 599], windows, warm_state=tw[0])
+    _check(want, got)
+    cold = _engines(kind, jlog)[1].run([400, 500, 599], windows)
+    np.testing.assert_array_equal(got[0].numpy(), cold[0].numpy())
+
+
+def test_sssp_ignores_warm_state():
+    jlog, hops, _ = _log("ldbc")
+    _, t = _engines("sssp", jlog)
+    prev, _ = t.run(hops[:2], WINDOWS)
+    _, t2 = _engines("sssp", jlog)
+    _, t3 = _engines("sssp", jlog)
+    np.testing.assert_array_equal(
+        t2.run(hops[2:], WINDOWS, warm_state=prev)[0].numpy(),
+        t3.run(hops[2:], WINDOWS)[0].numpy())
+
+
+def test_sssp_stored_nan_weighs_one():
+    """An explicitly stored NaN weight weighs 1.0, like a missing one."""
+    from raphtory_tpu.core.events import EventLog as JEventLog
+
+    jlog = JEventLog()
+    jlog.append_batch(np.array([1, 2, 3]), np.array([2, 2, 2], np.uint8),
+                      np.array([0, 1, 0]), np.array([1, 2, 2]),
+                      props=[(0, {"weight": float("nan")}),
+                             (1, {"weight": 2.0}), (2, {"weight": 7.5})])
+    want = jhb.HopBatchedSSSP(jlog, (0,), "weight", directed=True,
+                              max_steps=10).run([3], [None])
+    got = thb.HopBatchedSSSP(carried(jlog), (0,), "weight", directed=True,
+                             max_steps=10, device="cpu").run([3], [None])
+    _check(want, got)
+    np.testing.assert_array_equal(got[0].numpy()[0, :3], [0.0, 1.0, 3.0])
+
+
+def test_sssp_refuses_immutable_key():
+    from raphtory_tpu_torch.core.events import EventLog
+
+    log = EventLog()
+    log.append_batch(np.array([1, 2]), np.array([2, 2], np.uint8),
+                     np.array([0, 1]), np.array([1, 2]),
+                     props=[(0, {"!weight": 2.0}), (1, {"!weight": 3.0})])
+    with pytest.raises(ValueError, match="immutable"):
+        thb.HopBatchedSSSP(log, (0,), "weight", device="cpu")
+    # a random log's "!kind" key is immutable in both packages
+    jlog, _, _ = _log(0)
+    with pytest.raises(ValueError, match="immutable"):
+        thb.HopBatchedSSSP(carried(jlog), (0,), "kind", device="cpu")
+
+
+def test_ldbc_like_log_matches_reference():
+    """Same seed → the same events and property rows as the JAX
+    generator."""
+    kw = dict(n_persons=500, n_knows=4_000, t_span=50_000, weighted=True)
+    want, got = jsynth.ldbc_like_log(**kw), synth.ldbc_like_log(**kw)
+    for k, v in want.arrays().items():
+        np.testing.assert_array_equal(got.arrays()[k], v, err_msg=k)
+    for c in ("event", "key", "tag", "num"):
+        np.testing.assert_array_equal(got.props.column(c),
+                                      want.props.column(c), err_msg=c)
+    assert got.props.keys == want.props.keys == ["weight"]
+    assert numeric_prop_payloads(got.props) \
+        == numeric_prop_payloads(want.props)
+    unweighted = synth.ldbc_like_log(n_persons=50, n_knows=300)
+    assert unweighted.props.n == 0
+    kinds = unweighted.column("kind")
+    assert (kinds == 3).sum() == 30   # 10 % deletes
