@@ -16,7 +16,12 @@ printing one JSON line:
               superstep, GAB shapes), K6 (BFS/SSSP superstep, unit and
               weighted, directed and undirected, LDBC shapes) and K6w (the
               weight rebuild, pads, with and without h0) bitwise
-              (``torch.equal``). CUDA-event times, bounds, twin times.
+              (``torch.equal``); K7 (segment combine: sum / min / max,
+              float32 / int32, both directions, k = 1 and 3) bitwise but
+              for its float sums (rtol 1e-5 / atol 1e-7), K9a (delta
+              apply, int32 and int64), K9b (window masks, k = 1 and 3)
+              and K8u (mask unpack) bitwise. CUDA-event times, bounds,
+              twin times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
               30k vertices / 300k edge events, 12 hops x 3 windows,
               chunks=3, warm start, tol 1e-7, 20 supersteps) through
@@ -35,7 +40,21 @@ printing one JSON line:
               run with equal steps.
 7. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank, CC and
               weighted SSSP Range jobs.
-8. scale    — the PageRank engine on a 5.3M-vertex / 2^25-edge-event log,
+8. gab_pr_view — the GAB PageRank View (``bench.py:bench_gab_pr_view``):
+              PageRank(max_steps=20, tol=1e-7) View jobs at 0.90 (cold:
+              pin + first dispatch), then 0.92 .. 1.0 x t_span (warm),
+              window 2.6M, on the resident ``DeviceSweep`` (K9a, K9b, K7);
+              rows and rank vectors against the same jobs on the CPU
+              (rtol 1e-5 / atol 1e-7, equal steps).
+9. bitcoin_range — ``bitcoin_like_log(20_000, 200_000)``, 10 hops over
+              [0.5, 1.0] x t_span x windows (week, day, hour), PageRank
+              through ``DeviceSweep.run_sweep`` (serial), against the CPU.
+10. view_programs — on the LDBC log: CC, DegreeBasic and undirected BFS
+              View jobs on the resident route, weighted SSSP and a
+              descending-time PageRank View on the cold ``bsp.run`` route
+              (K8u); rows and result vectors bitwise against the CPU
+              (PageRank: the tolerance above).
+11. scale   — the PageRank engine on a 5.3M-vertex / 2^25-edge-event log,
               4 hops x 3 windows, chunks=2.
 
 The launch counts are zeroed just before each path's timed run and read
@@ -64,6 +83,10 @@ PAGERANK_KERNELS = ("masks_from_deltas", "column_out_degree",
 CC_KERNELS = ("masks_from_deltas", "cc_superstep")
 SSSP_KERNELS = ("masks_from_deltas", "minplus_superstep",
                 "weights_from_deltas")
+RESIDENT_KERNELS = ("segment_combine", "apply_delta_chunk", "window_masks")
+COLD_KERNELS = ("segment_combine", "unpack_mask_bits")
+BTC_SPAN = 2_600_000
+BTC_WINDOWS = [604_800, 86_400, 3_600]    # week / day / hour
 
 
 def emit(phase: str, **kw) -> None:
@@ -655,6 +678,422 @@ def phase_job(torch, np, columns, dev):
     emit("job", pagerank=pr, cc=cc, sssp=sssp)
 
 
+def within_tol(got, want) -> bool:
+    """The float-sum tolerance: |got - want| <= 1e-7 + 1e-5 |want|."""
+    err = (got.double() - want.double()).abs()
+    return not bool((err > 1e-7 + 1e-5 * want.double().abs()).any())
+
+
+def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
+                    dev):
+    """K7, K9a, K9b and K8u against their twins on the card, at the shapes
+    of the paths that run them: GAB (gab_pr_view, k = 1) and Bitcoin
+    (bitcoin_range, k = 3) tables, the GAB resident buffers and chunk
+    capacities, the LDBC cold view's masks."""
+    rng = np.random.default_rng(2)
+    out = {}
+
+    # ---- K7: every (op, dtype, direction) the programs use, k = 1 and 3
+    def csr_of(t, direction):
+        if direction == "dst":
+            return segment.SegmentCSR(
+                torch.from_numpy(t.e_dst).to(dev),
+                torch.from_numpy(t.in_indptr).to(dev), None)
+        return segment.SegmentCSR(
+            torch.from_numpy(t.e_src).to(dev),
+            torch.from_numpy(t.out_indptr).to(dev),
+            torch.from_numpy(t.out_perm).to(dev))
+
+    def inputs(t, k, dtype):
+        mask = rng.random((k, t.m_pad)) < 0.7
+        mask[:, t.m:] = False                  # pads masked everywhere
+        if dtype == "f32":
+            # PageRank's messages: rank / degree, positive, ~1e-4
+            x = (rng.random(k * t.m_pad) * 1e-4).astype(np.float32)
+        else:
+            x = rng.integers(-10**6, 10**6, k * t.m_pad).astype(np.int32)
+        return (torch.from_numpy(x).to(dev),
+                torch.from_numpy(mask.reshape(-1)).to(dev), int(mask.sum()))
+
+    err7, bad = 0.0, []
+    cases = [("sum", "f32", "dst", gab, 1), ("sum", "i32", "dst", gab, 1),
+             ("sum", "i32", "src", gab, 1), ("min", "i32", "src", gab, 1),
+             ("min", "f32", "dst", gab, 1), ("max", "f32", "src", gab, 1),
+             ("sum", "f32", "dst", btc, 3), ("sum", "i32", "src", btc, 3),
+             ("min", "i32", "dst", btc, 3)]
+    for op, dt, direction, t, k in cases:
+        csr = csr_of(t, direction)
+        x, mask, _ = inputs(t, k, dt)
+        got = segment.segment_combine(x, csr, op, mask, k)
+        want = segment.segment_combine_plain(x, csr, op, mask, k)
+        ok = (within_tol(got, want) if op == "sum" and dt == "f32"
+              else torch.equal(got, want))
+        err7 = max(err7, exact_err(got, want))
+        if not ok:
+            bad.append(f"{op} {dt} {direction} k={k} (max abs err "
+                       f"{exact_err(got, want)})")
+    if bad:
+        raise AssertionError(f"K7 differs from its twin: {bad}")
+    # the timed call: PageRank's message combine on the GAB View (k = 1)
+    csr = csr_of(gab, "dst")
+    x, mask, nnz = inputs(gab, 1, "f32")
+    ids = csr.ids.long()
+    xm = torch.where(mask, x, 0.0)
+    m, n = gab.m, gab.n_pad
+    out["segment_combine"] = dict(
+        source="raphtory_tpu_torch/csrc/segment.cu",
+        replaces="raphtory_tpu/ops/segment.py:35",
+        max_abs_err=err7,
+        ms=cuda_ms(torch, lambda: segment.segment_combine(
+            x, csr, "sum", mask, 1)),
+        plain_ms=cuda_ms(torch, lambda: segment.segment_combine_plain(
+            x, csr, "sum", mask, 1)),
+        # one call: index_add_ of the pre-masked payload
+        library_ms=cuda_ms(torch, lambda: torch.zeros(
+            n, device=dev).index_add_(0, ids, xm)),
+        shape=f"sum f32 dst n_pad={n} m_pad={gab.m_pad} k=1 F=1",
+        # the real edges' payload and mask, the CSR, the output; one add
+        # per masked edge
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(m * 5 + (n + 1) * 8 + n * 4, nnz))))
+
+    # ---- K9a: the GAB resident buffers and chunk capacities
+    n_pad, m_pad = gab.n_pad, gab.m_pad
+    cap_v, cap_e = max(1024, n_pad // 4), max(4096, m_pad // 16)
+    err9a, timed = 0.0, None
+    for tdt, tt in ((np.int32, torch.int32), (np.int64, torch.int64)):
+        info = np.iinfo(tdt)
+        edge = np.array([info.min, info.min + 1, -5, 0, 7, info.max - 1,
+                         info.max], tdt)
+
+        def rows(cap, length):
+            kk = int(rng.integers(cap // 2, cap))
+            idx = np.full(cap, 2**31 - 1, np.int32)
+            idx[:kk] = rng.choice(length, kk, replace=False)
+            return (idx, rng.choice(edge, cap).astype(tdt),
+                    rng.random(cap) < 0.5, rng.choice(edge, cap).astype(tdt))
+
+        chunk = tuple(torch.from_numpy(a).to(dev)
+                      for a in rows(cap_v, n_pad) + rows(cap_e, m_pad))
+        base = (torch.full((n_pad,), info.min, dtype=tt, device=dev),
+                torch.zeros(n_pad, dtype=torch.bool, device=dev),
+                torch.full((n_pad,), info.min, dtype=tt, device=dev),
+                torch.full((m_pad,), info.min, dtype=tt, device=dev),
+                torch.zeros(m_pad, dtype=torch.bool, device=dev),
+                torch.full((m_pad,), info.min, dtype=tt, device=dev))
+        got = tuple(b.clone() for b in base)
+        want = tuple(b.clone() for b in base)
+        resident.apply_delta_chunk(got, chunk)
+        resident.apply_delta_chunk_plain(want, chunk)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K9a differs from its twin "
+                                     f"({tdt.__name__})")
+            err9a = max(err9a, exact_err(g, w))
+        if tdt == np.int32:
+            timed = (got, want, chunk)
+    got, want, chunk = timed
+    valid = [(c < 2**31 - 1) for c in (chunk[0], chunk[4])]
+    nv, ne = (int(v.sum()) for v in valid)
+    lib_rows = [(b, chunk[i].long()[valid[i // 4]], chunk[j][valid[i // 4]])
+                for b, i, j in ((got[0], 0, 1), (got[1], 0, 2),
+                                (got[2], 0, 3), (got[3], 4, 5),
+                                (got[4], 4, 6), (got[5], 4, 7))]
+
+    def library():
+        for b, p, v in lib_rows:
+            b.index_put_((p,), v)
+
+    out["apply_delta_chunk"] = dict(
+        source="raphtory_tpu_torch/csrc/sweep.cu",
+        replaces="raphtory_tpu/engine/device_sweep.py:239",
+        max_abs_err=err9a,
+        ms=cuda_ms(torch, lambda: resident.apply_delta_chunk(got, chunk)),
+        plain_ms=cuda_ms(torch, lambda: resident.apply_delta_chunk_plain(
+            want, chunk), iters=3),
+        # six index_put_ calls on the unpadded rows
+        library_ms=cuda_ms(torch, library),
+        shape=f"n_pad={n_pad} m_pad={m_pad} cap_v={cap_v} cap_e={cap_e} "
+              "int32",
+        # the chunk read once (4 + 4 + 1 + 4 bytes a row), the live rows
+        # written once (4 + 1 + 4 bytes)
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            (cap_v + cap_e) * 13 + (nv + ne) * 9))))
+
+    # ---- K9b: GAB buffers (k = 1, the View's window) and Bitcoin (k = 3)
+    err9b, timed = 0.0, None
+    for t, windows, T in ((gab, [2_600_000], 2_400_000),
+                          (btc, BTC_WINDOWS, 2_000_000),
+                          (gab, [-1, 0, 1 << 40], 2_400_000)):
+        lat = [torch.from_numpy(rng.integers(0, 2_600_000, s).astype(
+            np.int32)).to(dev) for s in (t.n_pad, t.m_pad)]
+        alive = [torch.from_numpy(rng.random(s) < 0.8).to(dev)
+                 for s in (t.n_pad, t.m_pad)]
+        args = (lat[0], alive[0], lat[1], alive[1])
+        got = resident.window_masks(*args, T, windows)
+        lo, nowin = resident.window_bounds(T, windows, torch.int32, dev)
+        want = resident.window_masks_plain(*args, lo, nowin)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K9b differs from its twin "
+                                     f"(windows {windows})")
+            err9b = max(err9b, exact_err(g, w))
+        if timed is None:
+            timed = (args, T, windows, lo, nowin, t)
+    args, T, windows, lo, nowin, t = timed
+    k = len(windows)
+    out["window_masks"] = dict(
+        source="raphtory_tpu_torch/csrc/sweep.cu",
+        replaces="raphtory_tpu/engine/device_sweep.py:273",
+        max_abs_err=err9b,
+        ms=cuda_ms(torch, lambda: resident.window_masks(*args, T, windows)),
+        plain_ms=cuda_ms(torch, lambda: resident.window_masks_plain(
+            *args, lo, nowin)),
+        library_ms=None,
+        shape=f"n_pad={t.n_pad} m_pad={t.m_pad} k={k} int32",
+        # lat + alive read, k masks written
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            (t.n_pad + t.m_pad) * (5 + k)))))
+
+    # ---- K8u: the cold LDBC view's vertex and edge masks (2 windows)
+    err8, packed = 0.0, None
+    for length in view_shape:
+        masks = rng.random((2, length)) < 0.4
+        packed = torch.from_numpy(np.packbits(
+            masks, axis=1, bitorder="little")).to(dev)
+        got = resident.unpack_mask_bits(packed)
+        want = resident.unpack_mask_bits_plain(packed)
+        if not (torch.equal(got, want)
+                and torch.equal(got.cpu(), torch.from_numpy(masks))):
+            raise AssertionError(f"K8u differs from its twin (len "
+                                 f"{length})")
+        err8 = max(err8, exact_err(got, want))
+    out["unpack_mask_bits"] = dict(
+        source="raphtory_tpu_torch/csrc/sweep.cu",
+        replaces="raphtory_tpu/engine/bsp.py:39",
+        max_abs_err=err8,
+        ms=cuda_ms(torch, lambda: resident.unpack_mask_bits(packed)),
+        plain_ms=cuda_ms(torch, lambda: resident.unpack_mask_bits_plain(
+            packed)),
+        library_ms=None, shape=f"k=2 len={view_shape[-1]}",
+        # the packed bits read, one byte per bit written
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(packed.numel() * 9))))
+    return out
+
+
+def compare_rows(what, got, want) -> None:
+    """Job rows on the card against the CPU's: time / windowsize / steps
+    equal; PageRank's top-10 ids equal and ranks within the tolerance,
+    every other result equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows vs {len(want)}")
+    for g, w in zip(got, want):
+        if any(g[k] != w[k] for k in ("time", "windowsize", "steps")):
+            raise AssertionError(f"{what}: row {g} vs {w}")
+        r, x = g["result"], w["result"]
+        if isinstance(x, dict) and "top10" in x:
+            gr = [v for _, v in r["top10"]]
+            xr = [v for _, v in x["top10"]]
+            ok = ([v for v, _ in r["top10"]] == [v for v, _ in x["top10"]]
+                  and all(abs(a - b) <= 1e-7 + 1e-5 * abs(b)
+                          for a, b in zip(gr, xr))
+                  and abs(r["sum"] - x["sum"]) <= 1e-5)
+        else:
+            ok = r == x
+        if not ok:
+            raise AssertionError(f"{what}: result {r} vs {x}")
+
+
+def run_view_jobs(log, dev, jobs):
+    """``(rows, per-job viewTime seconds, per-job resident (fold,
+    dispatch) seconds, graph)`` of View jobs submitted one after another
+    through ``TemporalGraph`` + ``AnalysisManager``."""
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager
+
+    g = TemporalGraph(log, device=dev)
+    mgr = AnalysisManager(g, device=dev)
+    rows, secs, split = [], [], []
+
+    def resident_clock():
+        ds = g._resident
+        return (0.0, 0.0) if ds is None else (ds.fold_seconds,
+                                              ds.dispatch_seconds)
+
+    for prog, q in jobs:
+        before = resident_clock()
+        job = mgr.submit(prog, q)
+        if not job.wait(600) or job.status != "done":
+            raise AssertionError(f"{type(prog).__name__} View job "
+                                 f"{job.status}: {job.error}")
+        r = mgr.results(job.id)
+        rows.extend(r)
+        secs.append(sum(x["viewTime"] for x in r) / 1e3)
+        after = resident_clock()
+        split.append([a - b if a >= b else a
+                      for a, b in zip(after, before)])
+    return rows, secs, split, g
+
+
+def result_leaves(tree):
+    return [tree[k] for k in sorted(tree)] if isinstance(tree, dict) \
+        else [tree]
+
+
+def phase_gab_pr_view(torch, np, columns, log, dev):
+    """bench.py:bench_gab_pr_view through the port's jobs layer."""
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.jobs.manager import ViewQuery
+
+    prog = PageRank(max_steps=20, tol=1e-7)
+    times = [int(f * GAB_SPAN) for f in (0.90, 0.92, 0.94, 0.96, 0.98, 1.0)]
+    jobs = [(prog, ViewQuery(t, window=2_600_000)) for t in times]
+    columns.reset_launches()
+    t0 = time.perf_counter()
+    rows, secs, split, g = run_view_jobs(log, dev, jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(columns.LAUNCHES)
+    check_launched("gab_pr_view", launches, RESIDENT_KERNELS)
+    if launches["unpack_mask_bits"]:
+        raise AssertionError("gab_pr_view: a View took the cold route")
+    sweep = g._resident
+    if sweep is None or sweep.t_now != times[-1]:
+        raise AssertionError("gab_pr_view: the Views did not ride the "
+                             "resident sweep")
+    want = run_view_jobs(log, "cpu", jobs)[0]
+    compare_rows("gab_pr_view", rows, want)
+    # the rank vectors themselves, card against CPU
+    card, cpu = DeviceSweep(log, device=dev), DeviceSweep(log, device="cpu")
+    err = 0.0
+    for t in times:
+        (r, s), (x, xs) = (ds.run(prog, t, window=2_600_000)
+                           for ds in (card, cpu))
+        r = r.cpu()
+        if s != xs or not within_tol(r, x):
+            raise AssertionError(f"gab_pr_view ranks at {t} differ from "
+                                 f"the CPU run (steps {s} vs {xs})")
+        if abs(float(r.double().sum()) - 1.0) > 1e-4:
+            raise AssertionError(f"gab_pr_view ranks at {t} sum off 1")
+        err = max(err, float((r - x).abs().max()))
+    emit("gab_pr_view", n=sweep.n, m=sweep.m, n_pad=sweep.n_pad,
+         m_pad=sweep.m_pad, views=len(times), cold_s_per_view=secs[0],
+         warm_s_per_view=secs[1:],
+         warm_median_s_per_view=float(np.median(secs[1:])),
+         wall_s=wall, fold_s=sweep.fold_seconds,
+         dispatch_s=sweep.dispatch_seconds, ship_bytes=sweep.ship_bytes,
+         fold_s_per_view=[f for f, _ in split],
+         dispatch_s_per_view=[d for _, d in split],
+         supersteps=[r["steps"] for r in rows], launches=launches,
+         max_abs_err_vs_cpu=err)
+    return launches
+
+
+def phase_bitcoin_range(torch, np, columns, dev):
+    """bench.py:bench_bitcoin_range: PageRank over batched week/day/hour
+    windows through DeviceSweep.run_sweep (serial)."""
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.utils.synth import bitcoin_like_log
+
+    log = bitcoin_like_log(n_addresses=20_000, n_txs=200_000,
+                           t_span=BTC_SPAN)
+    hops = [int(t) for t in
+            np.linspace(0.5 * BTC_SPAN, BTC_SPAN, 10).astype(np.int64)]
+    prog = PageRank(max_steps=20, tol=1e-7)
+    DeviceSweep(log, device=dev).run_sweep(prog, hops, windows=BTC_WINDOWS)
+    torch.cuda.synchronize()                           # warm-up
+    reps = []
+    for _ in range(2):
+        ds = DeviceSweep(log, device=dev)
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        res, steps = ds.run_sweep(prog, hops, windows=BTC_WINDOWS)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0, ds.fold_seconds,
+                     ds.dispatch_seconds, ds.ship_bytes))
+        launches = dict(columns.LAUNCHES)
+    check_launched("bitcoin_range", launches, RESIDENT_KERNELS)
+    ref, ref_steps = DeviceSweep(log, device="cpu").run_sweep(
+        prog, hops, windows=BTC_WINDOWS)
+    err = 0.0
+    for T, r, x, s, xs in zip(hops, res, ref, steps, ref_steps):
+        r = r.cpu()
+        if s != xs or not within_tol(r, x):
+            raise AssertionError(f"bitcoin_range at {T} differs from the "
+                                 f"CPU run (steps {s} vs {xs})")
+        err = max(err, float((r - x).abs().max()))
+    best = min(reps, key=lambda r: r[0])
+    n_views = len(hops) * len(BTC_WINDOWS)
+    emit("bitcoin_range", n=ds.n, m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad,
+         views=n_views, views_per_s=n_views / best[0], sweep_s=best[0],
+         fold_s=best[1], dispatch_s=best[2], ship_bytes=best[3],
+         repeat_sweep_s=[r[0] for r in reps], supersteps=steps,
+         launches=launches, max_abs_err_vs_cpu=err)
+    return launches
+
+
+def phase_view_programs(torch, np, columns, log, dev):
+    """CC, DegreeBasic and undirected BFS Views on the resident route;
+    weighted SSSP and a descending-time PageRank View on the cold route."""
+    from raphtory_tpu_torch.algorithms import (BFS, SSSP, ConnectedComponents,
+                                               DegreeBasic, PageRank)
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.jobs.manager import ViewQuery
+
+    T = [int(f * LDBC_SPAN) for f in (0.6, 0.7, 0.8, 0.9, 0.5)]
+    W = (1_300_000, 604_800)
+    cc, deg = ConnectedComponents(max_steps=50), DegreeBasic()
+    bfs = BFS(seeds=LDBC_SEEDS, directed=False, max_steps=32)
+    sssp = SSSP(seeds=LDBC_SEEDS, weight_prop="weight", directed=False,
+                max_steps=32)
+    pr = PageRank(max_steps=20, tol=1e-7)
+    jobs = [(cc, ViewQuery(T[0], windows=W)), (deg, ViewQuery(T[1])),
+            (bfs, ViewQuery(T[2], windows=W)),
+            (sssp, ViewQuery(T[3], windows=W)),       # properties: cold
+            (pr, ViewQuery(T[4], windows=W))]         # behind: cold
+    columns.reset_launches()
+    rows, secs, split, _ = run_view_jobs(log, dev, jobs)
+    torch.cuda.synchronize()
+    launches = dict(columns.LAUNCHES)
+    # (the resident Views here are 10 % of the span apart: each delta
+    # restages the full state, so K9a need not run)
+    check_launched("view_programs", launches,
+                   ("window_masks",) + COLD_KERNELS)
+    want = run_view_jobs(log, "cpu", jobs)[0]
+    compare_rows("view_programs", rows, want)
+    # the result vectors, card against CPU, on each job's route
+    card, cpu = DeviceSweep(log, device=dev), DeviceSweep(log, device="cpu")
+    err = 0.0
+    for prog, q in jobs:
+        kw = dict(window=q.window, windows=q.windows)
+        if prog in (sssp, pr):
+            view = build_view(log, q.timestamp)
+            got, s = bsp.run(prog, view, device=dev, **kw)
+            ref, xs = bsp.run(prog, view, device="cpu", **kw)
+        else:
+            got, s = card.run(prog, q.timestamp, **kw)
+            ref, xs = cpu.run(prog, q.timestamp, **kw)
+        for a, b in zip(result_leaves(got), result_leaves(ref)):
+            a = a.cpu()
+            ok = within_tol(a, b) if prog is pr else torch.equal(a, b)
+            if s != xs or not ok:
+                raise AssertionError(f"view_programs {type(prog).__name__} "
+                                     f"differs from the CPU run (steps {s} "
+                                     f"vs {xs})")
+            if prog is pr:
+                err = max(err, float((a - b).abs().max()))
+    emit("view_programs", rows=len(rows), view_s=secs,
+         resident_fold_dispatch_s=split,
+         supersteps=[r["steps"] for r in rows], launches=launches,
+         pagerank_max_abs_err_vs_cpu=err)
+    return launches
+
+
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
@@ -700,9 +1139,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from raphtory_tpu_torch.core.snapshot import build_view
     from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
-    from raphtory_tpu_torch.ops import columns, minplus
-    from raphtory_tpu_torch.utils.synth import gab_like_log
+    from raphtory_tpu_torch.ops import columns, minplus, resident, segment
+    from raphtory_tpu_torch.utils.synth import bitcoin_like_log, gab_like_log
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -724,9 +1164,16 @@ def main() -> int:
     tables = HopBatchedPageRank(log, device=dev).tables
     ldbc = ldbc_log()
     ldbc_tables = HopBatchedPageRank(ldbc, device=dev).tables
+    btc_tables = HopBatchedPageRank(bitcoin_like_log(
+        n_addresses=20_000, n_txs=200_000, t_span=BTC_SPAN),
+        device=dev).tables
+    ldbc_view = build_view(ldbc, int(0.9 * LDBC_SPAN))
     kernels = phase_kernels(torch, np, columns, tables, dev)
     kernels.update(minplus_kernels(torch, np, columns, minplus, tables,
                                    ldbc_tables, dev))
+    kernels.update(segment_kernels(torch, np, segment, resident, tables,
+                                   btc_tables,
+                                   (ldbc_view.n_pad, ldbc_view.m_pad), dev))
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
                                  if kk in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "max_abs_err",
@@ -741,6 +1188,12 @@ def main() -> int:
     for k in ("minplus_superstep", "weights_from_deltas"):
         launches[k] = ldbc_launches[k]
     phase_job(torch, np, columns, dev)
+    view_launches = phase_gab_pr_view(torch, np, columns, log, dev)
+    for k in RESIDENT_KERNELS:
+        launches[k] = view_launches[k]
+    phase_bitcoin_range(torch, np, columns, dev)
+    cold_launches = phase_view_programs(torch, np, columns, ldbc, dev)
+    launches["unpack_mask_bits"] = cold_launches["unpack_mask_bits"]
     phase_scale(torch, np, columns, HopBatchedPageRank, dev)
 
     print(json.dumps({"kernels": [

@@ -1,9 +1,11 @@
 """raphtory_tpu_torch — the PyTorch/CUDA port of raphtory_tpu.
 
 Runs the windowed PageRank, ConnectedComponents and BFS / weighted-SSSP
-Range queries end to end on an NVIDIA H100 through hand-written CUDA
-kernels (``ops/columns.py``, ``ops/minplus.py``, sources in ``csrc/``),
-beside the JAX package it is checked against. It imports torch and numpy, never
+Range queries, and View queries and Range queries of any supported program
+through the generic vertex-program engine, end to end on an NVIDIA H100
+through hand-written CUDA kernels (``ops/columns.py``, ``ops/minplus.py``,
+``ops/segment.py``, ``ops/resident.py``, sources in ``csrc/``), beside the
+JAX package it is checked against. It imports torch and numpy, never
 JAX. Entry points take ``device=None`` (the CUDA card; raises without one)
 or ``device="cpu"``, where every kernel wrapper runs its plain PyTorch twin.
 """

@@ -9,10 +9,10 @@ reports cluster count / biggest / islands / average like the reference's
 
 Labels are GLOBAL PADDED vertex indices (int32) on the device, never 64-bit
 external ids; ``view.vids[label]`` recovers the external id of a
-component's representative. The hop-batched columnar engine
-(``engine/hopbatch.HopBatchedCC``) runs these semantics for every (hop,
-window) view of a Range query; the per-vertex ``init``/``message``/
-``update`` bodies come with the generic superstep engine.
+component's representative. The generic superstep engine runs the
+per-vertex ``init``/``message``/``update`` below; the hop-batched columnar
+engine (``engine/hopbatch.HopBatchedCC``) runs the same semantics for
+every (hop, window) view of a Range query.
 """
 
 from __future__ import annotations
@@ -20,8 +20,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..engine.program import VertexProgram
+from ..engine.program import Context, Edges, VertexProgram
+
+_I32_MAX = int(np.iinfo(np.int32).max)
 
 
 @dataclass(frozen=True)
@@ -31,6 +34,23 @@ class ConnectedComponents(VertexProgram):
     direction = "both"
     monotone_min = True        # min-label merge
     reduce_shell_safe = True   # reducer reads vids/v_mask only
+    needs_vids = False
+    needs_vertex_times = False
+    needs_edge_times = False
+
+    def init(self, ctx: Context):
+        return torch.where(ctx.v_mask, ctx.global_index(), _I32_MAX)
+
+    def message(self, src_state, edge: Edges):
+        return src_state
+
+    def update(self, state, agg, ctx: Context):
+        new = torch.minimum(state, agg)
+        new = torch.where(ctx.v_mask, new, _I32_MAX)
+        return new, new == state
+
+    def finalize(self, state, ctx: Context):
+        return state
 
     def reduce(self, result, view, window=None):
         """Cluster stats in the reference's output shape

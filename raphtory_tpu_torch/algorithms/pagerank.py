@@ -5,9 +5,10 @@ The reference ships a deprecated 10-step push PageRank
 power-iteration formulation: each superstep every vertex pulls
 ``rank/out_deg`` along in-edges (sum combiner), applies damping with a
 dangling-mass correction, and votes to halt when its rank moved less than
-``tol``. f32 on the device. The hop-batched columnar engine
-(``engine/hopbatch.py``) runs exactly these semantics for every (hop,
-window) view of a Range query at once.
+``tol``. f32 on the device. The generic superstep engine (``engine/bsp.py``) runs
+these functions for View queries and the resident sweep; the hop-batched
+columnar engine (``engine/hopbatch.py``) runs exactly these semantics for
+every (hop, window) view of a Range query at once.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ class PageRank(VertexProgram):
     combiner = "sum"
     direction = "out"   # payload flows src→dst, combined at dst = pull at dst
     reduce_shell_safe = True   # reducer reads vids/v_mask only
+    needs_vids = False
+    needs_vertex_times = False
+    needs_edge_times = False
 
     def init(self, ctx: Context):
         n = torch.clamp(ctx.num_vertices, min=1.0)
@@ -43,7 +47,10 @@ class PageRank(VertexProgram):
         # dangling vertices redistribute their mass uniformly
         dangling = ctx.global_sum(
             torch.where(ctx.v_mask & (ctx.out_deg == 0), state["rank"], 0.0))
-        new = (1.0 - self.damping) / n + self.damping * (agg + dangling / n)
+        # an f32 numerator: torch divides a Python float by a tensor through
+        # the reciprocal (two roundings); the reference divides once
+        base = torch.full_like(n, 1.0 - self.damping) / n
+        new = base + self.damping * (agg + dangling / n)
         new = torch.where(ctx.v_mask, new, 0.0).to(torch.float32)
         votes = (new - state["rank"]).abs() < self.tol
         return {"rank": new, "out_deg": state["out_deg"]}, votes

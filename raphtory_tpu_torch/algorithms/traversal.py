@@ -3,11 +3,10 @@
 The LDBC-SNB capability bar (BASELINE.md configs: "BFS / SSSP Analyser over
 sliding windows"). BFS is hop counting; SSSP weights edges with a numeric
 property (default weight 1; a stored NaN weighs 1 too). Both are the same
-min-plus program. The hop-batched columnar engines
-(``engine/hopbatch.HopBatchedBFS`` / ``HopBatchedSSSP``) run these
-semantics for every (hop, window) view of a Range query; the per-vertex
-``init``/``message``/``update`` bodies come with the generic superstep
-engine.
+min-plus program. The generic superstep engine runs the per-vertex
+``init``/``message``/``update`` below; the hop-batched columnar engines
+(``engine/hopbatch.HopBatchedBFS`` / ``HopBatchedSSSP``) run the same
+semantics for every (hop, window) view of a Range query.
 """
 
 from __future__ import annotations
@@ -15,8 +14,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..engine.program import VertexProgram
+from ..engine.program import Context, Edges, VertexProgram
+
+FINF = float("inf")
+
+
+def _member(vids, ids: tuple):
+    """bool[n]: which rows' ids are among ``ids``."""
+    if not ids:
+        return torch.zeros(vids.shape, dtype=torch.bool, device=vids.device)
+    ids_arr = torch.tensor(ids, dtype=vids.dtype, device=vids.device)
+    return (vids[:, None] == ids_arr[None, :]).any(dim=1)
 
 
 @dataclass(frozen=True)
@@ -30,6 +40,8 @@ class SSSP(VertexProgram):
     combiner = "min"
     monotone_min = True        # min-plus relaxation
     reduce_shell_safe = True   # reducer reads vids/v_mask only
+    needs_vertex_times = False
+    needs_edge_times = False
 
     @property
     def direction(self):  # type: ignore[override]
@@ -38,6 +50,23 @@ class SSSP(VertexProgram):
     @property
     def edge_props(self):  # type: ignore[override]
         return (self.weight_prop,) if self.weight_prop else ()
+
+    def init(self, ctx: Context):
+        seeded = _member(ctx.vids, self.seeds) & ctx.v_mask
+        return torch.where(seeded, 0.0, FINF).to(torch.float32)
+
+    def message(self, src_state, edge: Edges):
+        if self.weight_prop:
+            w = edge.props[self.weight_prop]
+            w = torch.where(torch.isnan(w), 1.0, w).to(torch.float32)
+        else:
+            w = 1.0
+        return src_state + w
+
+    def update(self, state, agg, ctx: Context):
+        new = torch.minimum(state, agg)
+        new = torch.where(ctx.v_mask, new, FINF)
+        return new, new == state
 
     def reduce(self, result, view, window=None):
         """Top-k + hop histogram summary (PageRank reducer discipline).

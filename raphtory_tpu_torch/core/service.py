@@ -5,13 +5,25 @@ The single-process equivalent of the reference deployment
 runs on, behind one object. The watermark fence reproduces the
 ``TimeCheck``/``TimeResponse`` gate (``AnalysisTask.scala:162-195``): a view
 at T is only served as *exact* once every source's watermark has passed T.
+
+Views are served two ways (``raphtory_tpu/core/service.py``): a small cache
+of host ``GraphView`` folds (``view_at``, the cold route) and one shared
+device-resident ``DeviceSweep`` (``resident_acquire``, the warm route).
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 from ..ingestion.watermark import WatermarkRegistry
 from ..utils.device import resolve_device
 from .events import EventLog
+from .snapshot import GraphView, build_view
+
+
+class StaleViewError(RuntimeError):
+    """The watermark fence did not pass the view's time in time."""
 
 
 class TemporalGraph:
@@ -20,11 +32,23 @@ class TemporalGraph:
 
     def __init__(self, log: EventLog | None = None,
                  watermarks: WatermarkRegistry | None = None,
-                 device=None):
+                 device=None, cache_size: int = 8):
         self.device = resolve_device(device)
         self.log = log if log is not None else EventLog()
         self.watermarks = (watermarks if watermarks is not None
                            else WatermarkRegistry())
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+        self._cache_size = cache_size
+        self._cache_lock = threading.Lock()  # jobs share one graph
+        # warm View engine: one resident DeviceSweep shared by View
+        # dispatches — a repeat view is a delta-advance + one dispatch, not
+        # a full host fold + O(m) upload
+        self._resident = None
+        self._resident_lock = threading.Lock()
+        self._resident_version = -1
+        self._resident_n = 0            # rows scanned for post-pin events
+        self._post_pin_min = 2**62      # min event time appended after pin
+        self._resident_broken = False   # >= 2^31 vertices: stop retrying
 
     @property
     def earliest_time(self) -> int:
@@ -37,3 +61,104 @@ class TemporalGraph:
     def safe_time(self) -> int:
         """Largest timestamp no in-flight source can still mutate."""
         return min(self.watermarks.safe_time(), 2**62)
+
+    # ---- views (the GraphLens surface) ----
+
+    def view_at(self, time: int, *, exact: bool = True,
+                wait_timeout: float = 0.0) -> GraphView:
+        """Host snapshot at ``time``. ``exact=True`` enforces the watermark
+        fence, polling up to ``wait_timeout`` seconds; ``exact=False``
+        serves a best-effort live view."""
+        if exact and not self.watermarks.wait_for(time,
+                                                  timeout=wait_timeout):
+            raise StaleViewError(
+                f"view at {time} not yet safe: watermark="
+                f"{self.safe_time()} ({self.watermarks.snapshot()})")
+        version = self.log.version
+        key = (version, int(time))
+        with self._cache_lock:
+            hit = self._cache.get(key)
+            if hit is not None:
+                self._cache.move_to_end(key)
+                return hit
+        view = build_view(self.log, int(time))
+        self.cache_put(int(time), view, version=version)
+        return view
+
+    def cache_put(self, time: int, view: GraphView, *,
+                  version: int | None = None) -> None:
+        """Insert an externally built view (e.g. a SweepBuilder hop) into the
+        cache. ``version`` must be the log version the view was BUILT from
+        (a sweep's pinned log), not the current one."""
+        if version is None:
+            version = self.log.version
+        with self._cache_lock:
+            self._cache[(version, int(time))] = view
+            while len(self._cache) > self._cache_size:
+                self._cache.popitem(last=False)
+
+    def resident_acquire(self, time: int):
+        """Acquire the shared resident ``DeviceSweep`` for a warm View
+        dispatch at ``time``: ``(sweep, held_lock)`` — the caller MUST
+        release the lock — or None when the resident route cannot serve:
+
+        * ``time`` is behind the sweep's clock (it only ascends; the cold
+          route serves out-of-order times), or
+        * the log's id space overflows the packed-key engine.
+
+        When events appended after the pin land at or before ``time`` (an
+        exact incremental min over the post-pin rows), the sweep is REBUILT
+        from a fresh pin — the reference's rebuild branch; adopting the
+        suffix in place (``repin``) is not ported yet.
+
+        The caller owns the watermark fence (only ask for ``time`` <=
+        ``safe_time()``)."""
+        from ..engine.device_sweep import DeviceSweep, IdSpaceError
+
+        if self._resident_broken:
+            return None
+        self._resident_lock.acquire()
+        try:
+            sweep = self._resident
+            if sweep is not None:
+                if self.log.version != self._resident_version:
+                    pinned = self.log.pin()
+                    if self._resident_n < pinned.n:
+                        tcol = pinned.column("time")
+                        self._post_pin_min = min(
+                            self._post_pin_min,
+                            int(tcol[self._resident_n:pinned.n].min()))
+                        self._resident_n = pinned.n
+                    self._resident_version = pinned.version
+                # checked on EVERY acquire: an earlier small-time acquire
+                # may have recorded the post-pin min already
+                if int(time) >= self._post_pin_min:
+                    sweep = None
+            if sweep is None:
+                pinned = self.log.pin()   # (n, version) atomic with rows
+                sweep = DeviceSweep(pinned, device=self.device)
+                self._resident = sweep
+                self._resident_version = pinned.version
+                self._resident_n = pinned.n
+                self._post_pin_min = 2**62
+            if sweep.t_now is not None and int(time) < sweep.t_now:
+                self._resident_lock.release()
+                return None
+            return sweep, self._resident_lock
+        except IdSpaceError:
+            self._resident_broken = True
+            self._resident_lock.release()
+            return None
+        except BaseException:
+            self._resident_lock.release()
+            raise
+
+    def resident_discard(self) -> None:
+        """Drop the resident sweep. Callers that hit trouble mid-dispatch
+        MUST call this while still holding the acquired lock: a partially
+        applied delta leaves the device buffers inconsistent with the host
+        fold, and the next acquire must re-pin."""
+        self._resident = None
+        self._resident_version = -1
+        self._resident_n = 0
+        self._post_pin_min = 2**62

@@ -1,0 +1,256 @@
+"""The BSP superstep engine — the generic runner for every vertex program.
+
+Replaces the reference's actor-driven superstep machinery (the
+``AnalysisTask`` coordinator counting ``Ready``/``EndStep`` acks,
+``ReaderWorker`` executing ``analyse()`` per shard, the double-buffered
+mailboxes) as ``raphtory_tpu/engine/bsp.py`` does, with the JAX program
+written out as torch code: the barrier is the host loop, quiescence is a
+reduction read on the host once per superstep, and the message exchange
+is a gather plus K7 (``ops/segment.segment_combine``).
+
+Batched windows (``ReaderWorker.scala:180-187``) run as ONE flat graph of
+k·n vertices and k·m edges: window w's segment ids are offset by w·n, and
+the program's ``init``/``update``/``finalize`` are called once on ``[k, n]``
+tensors (``engine/program.py``), so launches per superstep do not grow
+with k. Halted windows freeze.
+
+Two callers: ``run``/``run_async`` over a host ``GraphView`` (the cold
+route: masks built on the host, shipped bit-packed, unpacked on the card
+by K8u) and the resident sweep (``engine/device_sweep.py``), which makes
+its masks on the card (K9b) and calls ``make_mask_runner`` directly.
+
+Not ported here, each raising ``NotImplementedError``: the PCPM
+destination-binned exchange (ROADMAP queue 2, K7/K8), ``combiner="custom"``
+(K7 ``segment_mode``) and occurrence programs (``needs_occurrences``,
+ROADMAP queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.snapshot import INT64_MIN, GraphView
+from ..ops.resident import unpack_mask_bits
+from ..ops.segment import SegmentCSR, segment_combine
+from ..utils.device import resolve_device
+from .device_sweep import DeviceEdges, normalize_windows
+from .program import Context, Edges, VertexProgram
+
+_ELEM = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of dicts / lists / tuples of tensors
+    (the program state and result pytrees)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {key: tree_map(fn, *(t[key] for t in trees)) for key in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def check_program(program: VertexProgram) -> None:
+    """Refuse what this engine does not carry yet, naming the ROADMAP
+    item."""
+    if program.combiner == "custom":
+        raise NotImplementedError(
+            "combiner='custom' (the program's own exchange, segment_mode) "
+            "is not ported yet: ROADMAP queue 2, K7")
+    if program.combiner not in _ELEM:
+        raise ValueError(f"unknown combiner {program.combiner!r}")
+    if program.needs_occurrences:
+        raise NotImplementedError(
+            "occurrence programs (needs_occurrences: the multigraph of "
+            "edge-add events) are not ported yet: ROADMAP queue 1 item 4")
+
+
+def make_mask_runner(program: VertexProgram, n: int, m: int, k: int):
+    """The superstep core over UNPACKED bool masks (``v_masks [k, n]``,
+    ``e_masks [k, m]``) — ``raphtory_tpu/engine/bsp.py:70``. The returned
+    ``run(v_masks, e_masks, vids, v_latest, v_first, edges, e_latest,
+    e_first, time, windows, eprops, vprops)`` gives ``(result, steps)``:
+    result leaves ``[k, n, ...]`` and the superstep count as an int.
+    ``edges`` is a ``DeviceEdges`` (the (dst, src)-sorted endpoints and
+    both CSRs over the real edges); arrays a program opts out of
+    (``needs_*`` False) may be None."""
+    check_program(program)
+    op = program.combiner
+
+    def run(v_masks, e_masks, vids, v_latest, v_first, edges: DeviceEdges,
+            e_latest, e_first, time: int, windows, eprops, vprops):
+        dev = v_masks.device
+        if not program.needs_vids:
+            vids = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        if not program.needs_vertex_times:
+            v_latest = torch.full((n,), INT64_MIN, dtype=torch.int64,
+                                  device=dev)
+            v_first = v_latest
+        if not program.needs_edge_times:
+            e_latest = torch.full((m,), INT64_MIN, dtype=torch.int64,
+                                  device=dev)
+            e_first = e_latest
+
+        # flat (window-major) edge space: window w's ids offset by w*n
+        voffs = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * n
+        flat_dst = (edges.e_dst.long()[None, :] + voffs).reshape(-1)
+        flat_src = (edges.e_src.long()[None, :] + voffs).reshape(-1)
+        em_flat = e_masks.reshape(-1)
+        at_dst = SegmentCSR(edges.e_dst, edges.in_indptr, None)
+        at_src = SegmentCSR(edges.e_src, edges.out_indptr, edges.out_perm)
+
+        def tile_e(a):
+            return a if k == 1 else a.repeat((k,) + (1,) * (a.dim() - 1))
+
+        def combine(tree, csr):
+            return tree_map(lambda x: segment_combine(
+                x, csr, op, em_flat, k).reshape((k, n) + x.shape[1:]), tree)
+
+        # per-window degrees: one flat masked segment-sum each way (K7)
+        ones = torch.ones(k * m, dtype=torch.int32, device=dev)
+        in_deg = segment_combine(ones, at_dst, "sum", em_flat, k).reshape(k, n)
+        out_deg = segment_combine(ones, at_src, "sum", em_flat,
+                                  k).reshape(k, n)
+        time_t = torch.full((k, 1), int(time), dtype=torch.int64, device=dev)
+        win_t = torch.tensor(normalize_windows(windows), dtype=torch.int64,
+                             device=dev).reshape(k, 1)
+        n_active = v_masks.sum(dim=1, keepdim=True, dtype=torch.int32)
+
+        def mk_ctx(step: int) -> Context:
+            return Context(n=n, time=time_t, window=win_t, v_mask=v_masks,
+                           vids=vids, v_latest_time=v_latest,
+                           v_first_time=v_first, out_deg=out_deg,
+                           in_deg=in_deg, n_active=n_active, step=step,
+                           vprops=vprops)
+
+        def flat_edges(step: int) -> Edges:
+            # src/dst stay the per-window indices (programs compare them)
+            return Edges(src=tile_e(edges.e_src), dst=tile_e(edges.e_dst),
+                         mask=em_flat, time=tile_e(e_latest),
+                         first_time=tile_e(e_first),
+                         props={key: tile_e(v) for key, v in eprops.items()},
+                         step=step)
+
+        def gather_flat(state, ids):
+            return tree_map(
+                lambda a: a.reshape((k * n,) + a.shape[2:])[ids], state)
+
+        def step_all(st, step: int):
+            ek = flat_edges(step)
+            agg = None
+            if program.direction in ("out", "both"):
+                agg = combine(program.message(gather_flat(st, flat_src), ek),
+                              at_dst)
+            if program.direction in ("in", "both"):
+                agg_in = combine(
+                    program.message(gather_flat(st, flat_dst), ek), at_src)
+                agg = agg_in if agg is None else tree_map(_ELEM[op], agg,
+                                                          agg_in)
+            new, votes = program.update(st, agg, mk_ctx(step))
+            return new, (votes | ~v_masks).all(dim=1)
+
+        state = program.init(mk_ctx(0))
+        steps = 0
+        if program.max_steps > 0:
+            halted = torch.zeros(k, dtype=torch.bool, device=dev)
+            while steps < program.max_steps:
+                new_state, new_halt = step_all(state, steps)
+                # halted windows keep their state (bsp.py:220-227)
+                state = tree_map(lambda old, new: torch.where(
+                    halted.reshape((k,) + (1,) * (new.dim() - 1)), old, new),
+                    state, new_state)
+                halted = halted | new_halt
+                steps += 1
+                if bool(halted.all()):   # the one host read per superstep
+                    break
+        return program.finalize(state, mk_ctx(steps)), steps
+
+    return run
+
+
+def view_edges(view: GraphView, device) -> DeviceEdges:
+    """A view's edge tables on ``device``: its (dst, src)-sorted endpoints
+    (pads dst = src = n_pad-1), the destination CSR and the source-ordered
+    index over the REAL edges only (the pads stay out of both CSRs)."""
+    m = int(view.m_active)
+    host = (view.e_src, view.e_dst, view.in_indptr.astype(np.int64),
+            view.out_order[:m].astype(np.int32),
+            view.out_indptr.astype(np.int64))
+    return DeviceEdges(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in host))
+
+
+def _gather_props(view: GraphView, keys, kind: str, device) -> dict:
+    out = {}
+    for name in keys:
+        arr = view.edge_prop(name) if kind == "e" else view.vertex_prop(name)
+        out[name] = torch.from_numpy(
+            np.asarray(arr, np.float32)).to(device)
+    return out
+
+
+def run_async(program: VertexProgram, view: GraphView, *,
+              window: int | None = None, windows=None, device=None):
+    """Run a vertex program against a host view on ``device`` (None: the
+    CUDA card) — ``raphtory_tpu/engine/bsp.py:287``. The torch engine
+    blocks once per superstep for its halting read, so the result is ready
+    on return; the name keeps the reference's surface.
+
+    window=None, windows=None → plain view ({View,Range}AnalysisTask).
+    window=w                  → single window (Windowed*).
+    windows=[w0 > w1 > ...]   → batched windows, one result per window
+                                (BWindowed*; leading axis on the result).
+    """
+    device = resolve_device(device)
+    check_program(program)
+    batched = windows is not None
+    if windows is not None and len(windows) == 0:
+        raise ValueError("windows must be a non-empty list of window sizes")
+    if windows is None:
+        windows = [window if window is not None else -1]
+    wlist = normalize_windows(windows)
+    k = len(wlist)
+    n_pad, m_pad = view.n_pad, len(view.e_src)
+
+    v_masks = np.empty((k, n_pad), bool)
+    e_masks = np.empty((k, m_pad), bool)
+    for i, w in enumerate(wlist):
+        if w < 0:
+            v_masks[i] = view.v_mask
+            e_masks[i] = view.e_mask
+        else:
+            vm, _ = view.window_masks([w])
+            v_masks[i] = vm[0]
+            e_masks[i] = view.e_mask & (view.e_latest_time >= view.time - w)
+
+    def ship_bits(a):
+        # bit-packed over the link, unpacked on the device (K8u)
+        packed = np.packbits(a, axis=1, bitorder="little")
+        return unpack_mask_bits(torch.from_numpy(packed).to(device))
+
+    def put(a, needed):
+        return torch.from_numpy(a).to(device) if needed else None
+
+    needs_vt, needs_et = program.needs_vertex_times, program.needs_edge_times
+    runner = make_mask_runner(program, n_pad, m_pad, k)
+    result, steps = runner(
+        ship_bits(v_masks), ship_bits(e_masks),
+        put(view.vids, program.needs_vids),
+        put(view.v_latest_time, needs_vt), put(view.v_first_time, needs_vt),
+        view_edges(view, device),
+        put(view.e_latest_time, needs_et), put(view.e_first_time, needs_et),
+        int(view.time), wlist,
+        _gather_props(view, program.edge_props, "e", device),
+        _gather_props(view, program.vertex_props, "v", device))
+    if not batched:
+        result = tree_map(lambda a: a[0], result)
+    return result, steps
+
+
+def run(program: VertexProgram, view: GraphView, *,
+        window: int | None = None, windows=None, device=None):
+    """``(result, int steps)`` of ``program`` on ``view`` (``run_async``;
+    ``raphtory_tpu/engine/bsp.py:395``)."""
+    return run_async(program, view, window=window, windows=windows,
+                     device=device)

@@ -1,14 +1,29 @@
-"""Global dense-space graph tables and their cached device upload.
+"""Device-resident range sweeps: global dense-space tables and
+``DeviceSweep``.
 
 Vertices are indexed by their rank in the sorted set of every id the pinned
 log ever mentions (``SweepBuilder.uv``); the edge table is every (src, dst)
 pair the log ever mentions, sorted once by (dst, src). Positions never change
 across a sweep — dead entities are simply masked — so the tables upload to
 the device ONCE per log and every hop ships only fold-state deltas.
+
+``DeviceSweep`` (``raphtory_tpu/engine/device_sweep.py:296``) keeps the
+per-entity fold state (latest time, alive, first time) in six resident
+device buffers, mirrors each hop's touched rows into them (K9a,
+``ops/resident.apply_delta_chunk``), derives the window masks on the device
+(K9b, ``ops/resident.window_masks``) and runs the generic superstep engine
+(``engine/bsp.make_mask_runner``, K7) over them. Results are in the GLOBAL
+dense vertex space: row i is vertex ``uv[i]``.
+
+Not ported yet (ROADMAP queue 1 item 5): ``repin`` (incremental re-pin of a
+live log), the lookahead prefetch and forked parallel folds of
+``run_sweep`` (it runs the serial loop), the ``TransferEngine`` and the
+tracer, fault and ledger hooks.
 """
 
 from __future__ import annotations
 
+import time as _time
 import weakref
 from typing import NamedTuple
 
@@ -19,6 +34,14 @@ from ..core.events import EDGE_ADD, EDGE_DELETE
 from ..core.snapshot import INT64_MIN, _pad_bucket
 from ..core.sweep import _ENC_MASK, _ENC_SHIFT, SweepBuilder
 from ..native import lib as _native
+from ..ops.resident import apply_delta_chunk, window_masks
+from ..utils.device import resolve_device
+from .program import VertexProgram
+
+
+class IdSpaceError(ValueError):
+    """The log has 2^31 distinct vertex ids or more: the packed pair keys
+    of the global dense space are exhausted."""
 
 
 def _pad_large(n: int) -> int:
@@ -72,7 +95,7 @@ class GlobalTables:
 
     def __init__(self, sw: SweepBuilder):
         if not sw._ok:
-            raise ValueError("log has >= 2^31 distinct vertices — the packed "
+            raise IdSpaceError("log has >= 2^31 distinct vertices — the packed "
                              "pair key space is exhausted; use build_view")
         self.uv = sw.uv
         if sw._preseeded:
@@ -161,3 +184,292 @@ class GlobalTables:
 def normalize_windows(windows) -> list[int]:
     """window list → int list with -1 for 'no window' (engine convention)."""
     return [(-1 if w is None else int(w)) for w in windows]
+
+
+def supported(program: VertexProgram) -> bool:
+    """True if ``program`` can run on the device-resident sweep engine:
+    no occurrence arrays and no host-materialised properties."""
+    return (not program.needs_occurrences
+            and not program.edge_props
+            and not program.vertex_props)
+
+
+def _widen(a: torch.Tensor, tmin: int) -> torch.Tensor:
+    """Narrow int32 times → the int64 the ``Context``/``Edges`` contract
+    carries; the narrow minimum (the pad) maps to INT64_MIN exactly."""
+    if a.dtype == torch.int64:
+        return a
+    return torch.where(a == tmin, INT64_MIN, a.to(torch.int64))
+
+
+class DeviceSweep:
+    """Ascending-time range sweep with device-resident fold state.
+
+    Drives a ``SweepBuilder`` for the host fold (delta semantics identical to
+    ``build_view`` — killList propagation, delete-wins, revival), mirrors the
+    touched rows into fixed-position device buffers (K9a), and runs the
+    superstep engine over window masks derived on the device (K9b, then K7
+    inside the engine).
+
+    ``run(program, T, ...)`` returns ``(result, steps)``; results are in the
+    GLOBAL dense vertex space: row i is vertex ``self.uv[i]``. ``device``
+    None means the CUDA card (and raises without one).
+    """
+
+    def __init__(self, log, device=None):
+        self.device = resolve_device(device)
+        # fold state only (shells are vertex-side) — no add-row tracking
+        self.sw = SweepBuilder(log, track_rows=False, preseed_pairs=True)
+        self.tables = GlobalTables(self.sw)
+        t = self.tables
+        self.uv = t.uv
+        self.n, self.m = t.n, t.m
+        self.n_pad, self.m_pad = t.n_pad, t.m_pad
+        # static device uploads — shared per log across sweeps
+        self.edges = _device_edges(log, t, self.device)
+        self.vids = torch.from_numpy(t.vids).to(self.device)
+        # fold-state buffers in the narrow time dtype the log fits,
+        # updated in place by every delta chunk
+        self.tdtype = t.tdtype
+        self._tmin = int(t.tmin)
+        tdt = torch.int32 if self.tdtype == np.int32 else torch.int64
+        dev = self.device
+        self._bufs = (
+            torch.full((self.n_pad,), self._tmin, dtype=tdt, device=dev),
+            torch.zeros(self.n_pad, dtype=torch.bool, device=dev),
+            torch.full((self.n_pad,), self._tmin, dtype=tdt, device=dev),
+            torch.full((self.m_pad,), self._tmin, dtype=tdt, device=dev),
+            torch.zeros(self.m_pad, dtype=torch.bool, device=dev),
+            torch.full((self.m_pad,), self._tmin, dtype=tdt, device=dev),
+        )
+        # delta chunk capacities: big enough that a typical hop is one chunk
+        self.cap_v = max(1024, self.n_pad // 4)
+        self.cap_e = max(4096, self.m_pad // 16)
+        self.t_now: int | None = None
+        #: host seconds spent folding + staging, device-bound seconds spent
+        #: applying deltas and dispatching (host wall; the superstep loop
+        #: waits on the device once per superstep), and bytes shipped
+        self.fold_seconds = 0.0
+        self.dispatch_seconds = 0.0
+        self.ship_bytes = 0
+        # a failure between fold and device apply leaves t_now ahead of
+        # the buffers — the next fold must restage the full state
+        self._stale = False
+
+    # ---- sweep driving ----
+
+    def advance(self, time: int) -> None:
+        """Fold events in (t_now, time] on the host and mirror the touched
+        rows into the device buffers. Times must be non-decreasing."""
+        self._apply_staged(self._fold_hop_inner(time))
+
+    def _fold_hop_inner(self, time: int) -> dict:
+        f0 = _time.perf_counter()
+        time = int(time)
+        if self.t_now is not None and time < self.t_now:
+            if not self._stale:
+                raise ValueError(
+                    f"DeviceSweep times must ascend "
+                    f"(got {time} < {self.t_now})")
+            # stale rewind: the fold only ascends, so rebuild the builder
+            # from the pinned log and refold to `time`; the stale path
+            # below restages the FULL state either way
+            self.sw = SweepBuilder(self.sw.log, track_rows=False,
+                                   preseed_pairs=True)
+            self.t_now = None
+        advanced = self.t_now is None or time > self.t_now
+        if advanced:
+            self.sw._advance(time)
+            self.t_now = time
+        if self._stale:
+            self._stale = False
+            payload = {"time": time, "kind": "full",
+                       "arrays": self._stage_full()}
+        elif not advanced:   # repeat hop on healthy buffers: nothing to ship
+            return {"time": time, "kind": "noop"}
+        else:
+            payload = self._stage_payload(self.sw, time)
+        self.fold_seconds += _time.perf_counter() - f0
+        return payload
+
+    def _stage_payload(self, sw, time: int) -> dict:
+        """Staged payload for ``sw``'s LAST advance: noop / full refresh /
+        padded delta chunks."""
+        d = sw.last_delta
+        nv, ne = len(d["v_idx"]), len(d["e_enc"])
+        if nv == 0 and ne == 0:
+            return {"time": time, "kind": "noop"}
+        # full-state refresh (first hop, or a delta so large that chunked
+        # scatters would ship more than the whole buffers)
+        if nv > self.n_pad // 2 or ne > self.m_pad // 2:
+            return {"time": time, "kind": "full",
+                    "arrays": self._stage_full(sw)}
+        e_pos = self.tables.eng_pos(d["e_enc"])
+        n_chunks = max(-(-nv // self.cap_v), -(-ne // self.cap_e), 1)
+        chunks = []
+        for i in range(n_chunks):
+            ov, oe = i * self.cap_v, i * self.cap_e
+            chunks.append(self._stage_chunk(
+                d["v_idx"][ov: ov + self.cap_v],
+                d["v_lat"][ov: ov + self.cap_v],
+                d["v_alive"][ov: ov + self.cap_v],
+                d["v_first"][ov: ov + self.cap_v],
+                e_pos[oe: oe + self.cap_e],
+                d["e_lat"][oe: oe + self.cap_e],
+                d["e_alive"][oe: oe + self.cap_e],
+                d["e_first"][oe: oe + self.cap_e],
+            ))
+        return {"time": time, "kind": "chunks", "chunks": chunks}
+
+    def _apply_staged(self, payload: dict) -> None:
+        """Device half of one hop: ship the staged arrays and scatter them
+        into the resident buffers (K9a), or swap in a full refresh."""
+        kind = payload["kind"]
+        if kind == "noop":
+            return
+        t0 = _time.perf_counter()
+        try:
+            if kind == "full":
+                arrays = payload["arrays"]
+                self.ship_bytes += sum(a.nbytes for a in arrays)
+                self._bufs = tuple(torch.from_numpy(a).to(self.device)
+                                   for a in arrays)
+            else:
+                for chunk in payload["chunks"]:
+                    self.ship_bytes += sum(a.nbytes for a in chunk)
+                    apply_delta_chunk(self._bufs, tuple(
+                        torch.from_numpy(a).to(self.device) for a in chunk))
+        except BaseException:
+            # t_now already reflects this payload's fold but the buffers
+            # may not — the next fold must take the full-refresh path
+            self._stale = True
+            raise
+        finally:
+            self.dispatch_seconds += _time.perf_counter() - t0
+
+    def _cast_t(self, a: np.ndarray) -> np.ndarray:
+        return self.tables.cast_times(a)
+
+    def _stage_chunk(self, v_idx, v_lat, v_alive, v_first,
+                     e_idx, e_lat, e_alive, e_first) -> tuple:
+        """Pad one delta chunk to the fixed capacities; pad rows carry the
+        out-of-range index 2^31-1, which K9a skips."""
+        def pad(a, cap, dtype):
+            out = np.full(cap, 2**31 - 1 if dtype == np.int32 else 0, dtype)
+            out[: len(a)] = a
+            return out
+
+        tdt = self.tdtype
+        return (
+            pad(v_idx, self.cap_v, np.int32),
+            pad(self._cast_t(v_lat), self.cap_v, tdt),
+            pad(v_alive, self.cap_v, bool),
+            pad(self._cast_t(v_first), self.cap_v, tdt),
+            pad(e_idx, self.cap_e, np.int32),
+            pad(self._cast_t(e_lat), self.cap_e, tdt),
+            pad(e_alive, self.cap_e, bool),
+            pad(self._cast_t(e_first), self.cap_e, tdt),
+        )
+
+    def _apply_chunk(self, v_idx, v_lat, v_alive, v_first,
+                     e_idx, e_lat, e_alive, e_first) -> None:
+        self._apply_staged({"time": self.t_now, "kind": "chunks",
+                            "chunks": [self._stage_chunk(
+                                v_idx, v_lat, v_alive, v_first,
+                                e_idx, e_lat, e_alive, e_first)]})
+
+    def _stage_full(self, sw=None) -> tuple:
+        sw = self.sw if sw is None else sw
+        tdt = self.tdtype
+        v_lat = np.full(self.n_pad, self._tmin, tdt)
+        v_alive = np.zeros(self.n_pad, bool)
+        v_first = np.full(self.n_pad, self._tmin, tdt)
+        v_lat[: self.n] = self._cast_t(sw.v_lat)
+        v_alive[: self.n] = sw.v_alive
+        v_first[: self.n] = self._cast_t(sw.v_first)
+        e_lat = np.full(self.m_pad, self._tmin, tdt)
+        e_alive = np.zeros(self.m_pad, bool)
+        e_first = np.full(self.m_pad, self._tmin, tdt)
+        pos = self.tables.eng_pos(sw.e_enc)
+        e_lat[pos] = self._cast_t(sw.e_lat)
+        e_alive[pos] = sw.e_alive
+        e_first[pos] = self._cast_t(sw.e_first)
+        return (v_lat, v_alive, v_first, e_lat, e_alive, e_first)
+
+    def _refresh_full(self) -> None:
+        self._apply_staged({"time": self.t_now, "kind": "full",
+                            "arrays": self._stage_full()})
+
+    # ---- program dispatch ----
+
+    def run(self, program: VertexProgram, time: int | None = None, *,
+            window: int | None = None, windows=None):
+        """Advance to ``time`` (if given) and run ``program``; result rows
+        are global dense vertex indices."""
+        if not supported(program):
+            raise ValueError(
+                "program needs occurrences or host-materialised properties — "
+                "run it through bsp.run / jobs instead")
+        if time is not None:
+            self.advance(time)
+        if self.t_now is None:
+            raise ValueError("call advance(T) (or pass time=) before run()")
+        return self._dispatch(program, self.t_now, window, windows)
+
+    def _dispatch(self, program: VertexProgram, T: int, window, windows):
+        """Run ``program`` against the CURRENT resident buffers for hop
+        time ``T`` (``device_sweep.py:261`` ``_compiled_run``): K9b masks,
+        the times widened only for programs that read them, then the
+        superstep engine."""
+        from .bsp import make_mask_runner, tree_map
+
+        batched = windows is not None
+        if windows is not None and len(windows) == 0:
+            raise ValueError("windows must be a non-empty list")
+        if windows is None:
+            windows = [window if window is not None else -1]
+        wlist = normalize_windows(windows)
+        t0 = _time.perf_counter()
+        try:
+            v_lat, v_alive, v_first, e_lat, e_alive, e_first = self._bufs
+            v_masks, e_masks = window_masks(v_lat, v_alive, e_lat, e_alive,
+                                            int(T), wlist)
+            if program.needs_vertex_times:
+                v_lat = _widen(v_lat, self._tmin)
+                v_first = _widen(v_first, self._tmin)
+            if program.needs_edge_times:
+                e_lat = _widen(e_lat, self._tmin)
+                e_first = _widen(e_first, self._tmin)
+            runner = make_mask_runner(program, self.n_pad, self.m_pad,
+                                      len(wlist))
+            result, steps = runner(v_masks, e_masks, self.vids, v_lat,
+                                   v_first, self.edges, e_lat, e_first,
+                                   int(T), wlist, {}, {})
+        finally:
+            self.dispatch_seconds += _time.perf_counter() - t0
+        if not batched:
+            result = tree_map(lambda a: a[0], result)
+        return result, steps
+
+    def run_sweep(self, program: VertexProgram, times, *,
+                  window: int | None = None, windows=None):
+        """Ascending range sweep, the serial advance/run loop: returns
+        ``(results, steps_list)`` with ``results[i]`` = ``run(program,
+        times[i])``'s result. ``fold_seconds``, ``dispatch_seconds`` and
+        ``ship_bytes`` report this sweep alone."""
+        if not supported(program):
+            raise ValueError(
+                "program needs occurrences or host-materialised properties — "
+                "run it through bsp.run / jobs instead")
+        times = [int(t) for t in times]
+        if sorted(times) != times:
+            raise ValueError("run_sweep times must ascend")
+        self.fold_seconds = self.dispatch_seconds = 0.0
+        self.ship_bytes = 0
+        results, steps = [], []
+        for T in times:
+            self.advance(T)
+            r, s = self._dispatch(program, T, window, windows)
+            results.append(r)
+            steps.append(s)
+        return results, steps

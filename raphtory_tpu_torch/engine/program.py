@@ -14,9 +14,18 @@ array functions over the WHOLE vertex/edge set at once:
 
 Messages flow along edges (``direction`` 'out', 'in' or 'both') and are
 combined at the receiver by an associative-commutative ``combiner``
-('sum' | 'min' | 'max'). The hop-batched columnar engine runs PageRank's
-semantics directly; the generic superstep engine that drives these
-functions for every program arrives with ROADMAP queue 1 item 4.
+('sum' | 'min' | 'max'). The generic superstep engine (``engine/bsp.py``)
+drives these functions for every program; the hop-batched columnar engine
+runs PageRank's, CC's and BFS/SSSP's semantics directly.
+
+**Window-batched calls.** The reference vmaps ``init``/``update``/
+``finalize`` over the k windows of a batched query (``bsp.py:160-218``).
+Here each is called ONCE on ``[k, n]`` tensors, so the launches per
+superstep do not grow with k: ``Context.time``, ``window`` and
+``n_active`` are ``[k, 1]``; ``v_mask`` and the degrees ``[k, n]``;
+``vids`` and the vertex times ``[n]`` (shared by every window);
+``global_sum``/``global_max`` reduce over the vertex axis and keep it.
+``message`` sees flat window-major edge tensors ``[k*m]``.
 """
 
 from __future__ import annotations
@@ -29,16 +38,18 @@ import torch
 
 @dataclass(frozen=True)
 class Edges:
-    """Per-edge tensors visible to ``message`` (masked rows are neutralised
-    by the engine). ``time``/``first_time`` are the latest/earliest history
-    points."""
+    """Per-edge tensors visible to ``message``, flat over the k windows
+    (window w's edges at ``w*m .. w*m+m-1``; masked rows are neutralised
+    by the engine). ``src``/``dst`` are the per-window vertex indices, NOT
+    offset by window. ``time``/``first_time`` are the latest/earliest
+    history points."""
 
-    src: torch.Tensor          # i32[m] global padded source index
-    dst: torch.Tensor          # i32[m] global padded destination index
-    mask: torch.Tensor         # bool[m] (already window-restricted)
-    time: torch.Tensor         # i64[m] latest activity <= T
-    first_time: torch.Tensor   # i64[m]
-    props: dict[str, torch.Tensor] = field(default_factory=dict)
+    src: torch.Tensor          # i32[k*m] padded source index
+    dst: torch.Tensor          # i32[k*m] padded destination index
+    mask: torch.Tensor         # bool[k*m] (already window-restricted)
+    time: torch.Tensor         # i64[k*m] latest activity <= T
+    first_time: torch.Tensor   # i64[k*m]
+    props: dict[str, torch.Tensor] = field(default_factory=dict)  # f32[k*m]
     step: int = 0              # current superstep
 
 
@@ -47,18 +58,19 @@ class Context:
     """Per-superstep global context visible to ``init``/``update``/
     ``finalize`` — the analogue of the reference's injected
     ``sysSetup(context, managerCount, proxy: GraphLens, workerID)``
-    (``Analyser.scala:37-42``), but the "lens" is just tensors."""
+    (``Analyser.scala:37-42``), but the "lens" is just tensors, with a
+    leading window axis of k."""
 
     n: int                     # padded vertex count
-    time: int                  # view timestamp
-    window: int                # window size (-1 = none)
-    v_mask: torch.Tensor       # bool[n] in-view/in-window vertices
+    time: torch.Tensor         # i64[k, 1] view timestamp
+    window: torch.Tensor       # i64[k, 1] window size (-1 = none)
+    v_mask: torch.Tensor       # bool[k, n] in-view/in-window vertices
     vids: torch.Tensor         # i64[n] global ids (-1 pad)
-    v_latest_time: torch.Tensor
-    v_first_time: torch.Tensor
-    out_deg: torch.Tensor      # i32[n] under current mask
-    in_deg: torch.Tensor       # i32[n]
-    n_active: torch.Tensor     # i32 scalar: active vertex count
+    v_latest_time: torch.Tensor   # i64[n]
+    v_first_time: torch.Tensor    # i64[n]
+    out_deg: torch.Tensor      # i32[k, n] under each window's mask
+    in_deg: torch.Tensor       # i32[k, n]
+    n_active: torch.Tensor     # i32[k, 1] active vertex count per window
     step: int = 0              # current superstep
     vprops: dict[str, torch.Tensor] = field(default_factory=dict)
 
@@ -68,10 +80,23 @@ class Context:
         return self.n_active.to(torch.float32)
 
     def global_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sum(x)
+        """Sum over the vertex axis, per window (``[k, 1]``). A float32 sum
+        accumulates in float64 and rounds once, so its value does not hang
+        on the reduction order (the card's and the CPU's differ)."""
+        if x.dtype == torch.float32:
+            return torch.sum(x, dim=-1, keepdim=True,
+                             dtype=torch.float64).to(torch.float32)
+        return torch.sum(x, dim=-1, keepdim=True)
 
     def global_max(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.max(x)
+        """Max over the vertex axis, per window (``[k, 1]``)."""
+        return torch.amax(x, dim=-1, keepdim=True)
+
+    def global_index(self) -> torch.Tensor:
+        """i32[n]: the global padded index of each row (CC labels); on one
+        device the row itself."""
+        return torch.arange(self.n, dtype=torch.int32,
+                            device=self.v_mask.device)
 
 
 class VertexProgram:
@@ -83,6 +108,14 @@ class VertexProgram:
     max_steps: int = 20
     edge_props: tuple[str, ...] = ()
     vertex_props: tuple[str, ...] = ()
+    needs_occurrences: bool = False  # multigraph temporal algorithms
+    # Array-requirement declarations: a program that never reads ctx.vids /
+    # ctx.v_{latest,first}_time / edge.{time,first_time} sets the matching
+    # flag False, and the engine then hands it pad defaults (-1 /
+    # INT64_MIN) instead of the real arrays.
+    needs_vids: bool = True
+    needs_vertex_times: bool = True
+    needs_edge_times: bool = True
     # True when the program's overridden ``reduce`` reads only the
     # vertex-side view fields (vids / v_mask / v_latest_time /
     # window_masks()[0]) — the amortised sweep engines hand reducers a
@@ -93,8 +126,19 @@ class VertexProgram:
         raise NotImplementedError
 
     def message(self, src_state: Any, edge: Edges) -> Any:
-        """Payload sent along each edge, computed from the SENDER's state."""
+        """Payload sent along each edge, computed from the SENDER's state.
+        For direction='in' the "sender" is the edge's dst vertex; for 'both'
+        it is called once per direction."""
         raise NotImplementedError
+
+    def exchange(self, payload: Any, seg_ids: torch.Tensor,
+                 num_segments: int, mask: torch.Tensor) -> Any:
+        """combiner='custom' only: the program's own reduction of the flat
+        per-edge payloads. The custom exchange (``segment_mode``) is not
+        ported yet."""
+        raise NotImplementedError(
+            "combiner='custom' (the program's own exchange) is not ported "
+            "yet: ROADMAP queue 2, K7 segment_mode")
 
     def update(self, state: Any, agg: Any, ctx: Context):
         """Fold the combined inbox into new state; return (state, halt_votes)

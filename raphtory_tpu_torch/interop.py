@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .algorithms import BFS, SSSP, ConnectedComponents, PageRank
+from .algorithms import BFS, SSSP, ConnectedComponents, DegreeBasic, PageRank
 from .core.events import EventLog
 
 _PROGRAMS = {"PageRank": PageRank, "ConnectedComponents": ConnectedComponents,
-             "SSSP": SSSP, "BFS": BFS}
+             "SSSP": SSSP, "BFS": BFS, "DegreeBasic": DegreeBasic}
 
 
 def event_log_from_arrays(cols: dict[str, np.ndarray],
@@ -58,6 +58,6 @@ def program_from_params(name: str, **hyper):
     if cls is None:
         raise NotImplementedError(
             f"program {name!r} is not ported yet: this slice carries "
-            f"{sorted(_PROGRAMS)}; the generic vertex-program engine and the "
-            "other algorithms are ROADMAP queue 1 item 4")
+            f"{sorted(_PROGRAMS)}; the other algorithms are ROADMAP queue 1 "
+            "item 4")
     return cls(**hyper)

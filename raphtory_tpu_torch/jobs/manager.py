@@ -1,16 +1,24 @@
-"""Job orchestration: Range analysis over the hop-batched columnar engine.
+"""Job orchestration: View and Range analysis on the port's engines.
 
 The reference spawns one ``AnalysisTask`` actor per request
 (``AnalysisManager.scala:72-167``, ``Tasks/``), each driving the actor BSP
-handshake per timestamp. Here a job is a host thread that runs a whole
-Range query as columns of one columnar sweep (``engine/hopbatch``) and
-emits one result row per (hop, window) view.
+handshake per timestamp. Here a job is a host thread:
 
-Range queries of PageRank, ConnectedComponents and SSSP/BFS run on the
-columnar engines. A View query, a Live query or another program raises
-``NotImplementedError`` at submit, naming the ROADMAP item that brings it.
-A failed dispatch fails the job (``status`` / ``error``); there is no
-per-hop fallback route.
+* a **View** query takes the warm route — the graph's shared resident
+  ``DeviceSweep`` (``engine/device_sweep``): a delta-advance and one
+  dispatch — unless the reference declines it (the time is behind the
+  sweep's clock, the program needs properties or its reducer needs the
+  full view, the fence has not passed, or the log has 2^31 ids or more);
+  then the cold route folds a host view and runs ``engine/bsp.run``;
+* a **Range** query of PageRank, ConnectedComponents or SSSP/BFS runs as
+  columns of one hop-batched sweep (``engine/hopbatch``); any other
+  program runs on a ``DeviceSweep`` hop by hop when the whole range is
+  behind the fence, else hop by hop through the View routes.
+
+A Live query, a custom-combiner program and an occurrence program raise
+``NotImplementedError`` at submit, naming the ROADMAP item that brings
+them. A failed dispatch fails the job (``status`` / ``error``): the
+resident route drops its sweep and does NOT fall back to the cold route.
 """
 
 from __future__ import annotations
@@ -26,6 +34,9 @@ import numpy as np
 from ..algorithms import SSSP, ConnectedComponents, PageRank
 from ..core.service import TemporalGraph
 from ..core.snapshot import INT64_MIN
+from ..core.sweep import SweepBuilder
+from ..engine import bsp
+from ..engine.device_sweep import DeviceSweep, IdSpaceError, supported
 from ..engine.hopbatch import (HopBatchedBFS, HopBatchedCC,
                                HopBatchedPageRank, HopBatchedSSSP)
 from ..engine.program import VertexProgram
@@ -53,6 +64,17 @@ class RangeQuery:
         if int(self.jump) <= 0:
             # jump=0 would spin the sweep forever — refuse at construction
             raise ValueError(f"jump must be positive, got {self.jump}")
+
+
+@dataclass(frozen=True)
+class LiveQuery:
+    """Repeating analysis at the moving watermark (LiveAnalysisTask) —
+    not carried yet: ``submit`` refuses it."""
+    repeat: float = 1.0
+    event_time: bool = False
+    max_runs: int | None = None
+    window: int | None = None
+    windows: tuple | None = None
 
 
 class StaleRangeError(RuntimeError):
@@ -97,8 +119,25 @@ def _shell_from_fold(tables, sw, T):
                   v_latest_time=vl, v_first_time=vf)
 
 
+def _to_host(tree):
+    """Result tensors → numpy (the reducers are host code)."""
+    return bsp.tree_map(lambda a: a.cpu().numpy(), tree)
+
+
+class _DeviceShell:
+    """Reducer-facing view shells over a DeviceSweep's HOST fold state
+    (the device buffers' twin lives in its SweepBuilder)."""
+
+    def __init__(self, sweep):
+        self.sweep = sweep
+
+    def freeze(self):
+        ds = self.sweep
+        return _shell_from_fold(ds.tables, ds.sw, ds.t_now)
+
+
 class Job:
-    def __init__(self, job_id: str, program: VertexProgram, query: RangeQuery,
+    def __init__(self, job_id: str, program: VertexProgram, query,
                  graph: TemporalGraph, device, wait_timeout: float = 30.0):
         self.id = job_id
         self.program = program
@@ -138,13 +177,156 @@ class Job:
 
     def _run(self) -> None:
         try:
-            self._run_range(self.query)
+            q = self.query
+            if isinstance(q, ViewQuery):
+                self._run_at(q.timestamp, q)
+            elif type(self.program) in _COLUMNAR:
+                self._run_range(q)
+            elif not self._try_range_device(q):
+                # hop by hop behind the watermark fence (the reference's
+                # RangeAnalysisTask loop, jobs/manager.py:331-340): fold
+                # incrementally when the whole range is already safe
+                sweep = (SweepBuilder(self.graph.log)
+                         if self.graph.safe_time() >= q.end else None)
+                t = q.start
+                while t <= q.end and not self._kill.is_set():
+                    self._run_at(t, q, sweep=sweep)
+                    t += q.jump
             self.status = "done" if not self._kill.is_set() else "killed"
         except Exception as e:  # job errors surface via status, like the
             self.status = "failed"  # reference's per-phase catches
             self.error = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
         finally:
             self._done.set()
+
+    # ---- the generic engine: View queries and non-columnar Ranges ----
+
+    def _device_engine_ok(self) -> bool:
+        """Eligibility of the device-resident engines (warm View, resident
+        Range): no occurrences or property joins (``supported``), and a
+        reducer that accepts the vertex-side shell view."""
+        if not supported(self.program):
+            return False
+        return (type(self.program).reduce is VertexProgram.reduce
+                or self.program.reduce_shell_safe)
+
+    def _try_view_resident(self, t: int, q) -> bool:
+        """Warm View dispatch through the graph's shared resident
+        DeviceSweep: delta-advance + one dispatch. Returns False only on
+        the reference's declines (fence, program, clock, id space); a
+        failure DURING the dispatch drops the sweep and fails the job — it
+        never falls back to the cold route."""
+        if self.graph.safe_time() < int(t):
+            return False   # the cold route owns the fence wait
+        if not self._device_engine_ok():
+            return False
+        acq = self.graph.resident_acquire(int(t))
+        if acq is None:
+            return False
+        sweep, lock = acq
+        t0 = _time.perf_counter()
+        try:
+            sweep.advance(int(t))
+            windows = list(q.windows) if q.windows is not None else None
+            result, steps = sweep.run(self.program, window=q.window,
+                                      windows=windows)
+            rv = _DeviceShell(sweep).freeze()
+            result = _to_host(result)
+        except BaseException:
+            # a partially applied delta leaves the device state
+            # inconsistent with the host fold: drop the sweep while the
+            # lock is still held, then fail the job
+            self.graph.resident_discard()
+            raise
+        finally:
+            lock.release()
+        if windows is not None:
+            for i, w in enumerate(windows):
+                self._emit(t, w, bsp.tree_map(lambda a: a[i], result), rv,
+                           steps, t0)
+        else:
+            self._emit(t, q.window, result, rv, steps, t0)
+        return True
+
+    def _run_at(self, t: int, q, exact: bool = True, sweep=None) -> None:
+        """One view at ``t``: the warm route, else the cold one (a host
+        view — from ``sweep`` when the Range loop folds incrementally — and
+        ``bsp.run``)."""
+        if sweep is None and self._try_view_resident(t, q):
+            return
+        t0 = _time.perf_counter()
+        if sweep is not None:
+            view = sweep.view_at(int(t))
+            self.graph.cache_put(int(t), view, version=sweep.log.version)
+        else:
+            view = self.graph.view_at(int(t), exact=exact,
+                                      wait_timeout=self.wait_timeout)
+        if q.windows is not None:
+            result, steps = self._execute(view, windows=list(q.windows))
+            result = _to_host(result)
+            for i, w in enumerate(q.windows):
+                self._emit(t, w, bsp.tree_map(lambda a: a[i], result), view,
+                           steps, t0)
+        else:
+            result, steps = self._execute(view, window=q.window)
+            self._emit(t, q.window, _to_host(result), view, steps, t0)
+
+    def _execute(self, view, window=None, windows=None):
+        return bsp.run(self.program, view, window=window, windows=windows,
+                       device=self.device)
+
+    def _try_range_device(self, q: RangeQuery) -> bool:
+        """Range sweep on a DeviceSweep: device-resident fold state, O(delta)
+        per-hop uploads, one dispatch per hop. Declines (False) when the
+        range is not yet behind the fence, the program is not eligible, or
+        the log's id space overflows."""
+        if self.graph.safe_time() < q.end or not self._device_engine_ok():
+            return False
+        try:
+            sweep = DeviceSweep(self.graph.log, device=self.device)
+        except IdSpaceError:
+            return False
+        shell = _DeviceShell(sweep)
+
+        def run(windows):
+            return sweep.run(self.program, window=q.window, windows=windows)
+
+        self._range_amortised(q, sweep.advance, run, shell.freeze)
+        return True
+
+    def _range_amortised(self, q: RangeQuery, advance, run,
+                         freeze_rv) -> None:
+        """The amortised-sweep hop loop: advance the fold, dispatch, emit
+        the PREVIOUS hop's rows after this hop's dispatch."""
+        pending = None
+        t = q.start
+        windows = list(q.windows) if q.windows is not None else None
+        while t <= q.end and not self._kill.is_set():
+            t0 = _time.perf_counter()
+            advance(int(t))
+            result, steps = run(windows)
+            rv = freeze_rv()
+            t_disp = _time.perf_counter()
+            if pending is not None:
+                self._emit_mesh(*pending)
+            pending = (t, q, rv, result, steps, t0, t_disp)
+            t += q.jump
+        if pending is not None:
+            self._emit_mesh(*pending)
+
+    def _emit_mesh(self, t, q, rv, result, steps, t0, t_disp) -> None:
+        # viewTime means this hop's fold + dispatch + reduce — not the next
+        # hop's host work that ran between its dispatch and now
+        t0 = t0 + (_time.perf_counter() - t_disp)
+        result = _to_host(result)
+        if q.windows is not None:
+            for i, w in enumerate(q.windows):
+                self._emit(t, w, bsp.tree_map(lambda a: a[i], result), rv,
+                           steps, t0)
+        else:
+            self._emit(t, q.window, result, rv, steps, t0)
+
+    # ---- the columnar engines: Range queries of PageRank, CC, SSSP ----
 
     def _columnar_builder(self):
         """The hop-batched columnar engine for this job's program
@@ -258,18 +440,11 @@ class AnalysisManager:
     def submit(self, program: VertexProgram, query,
                job_id: str | None = None,
                wait_timeout: float = 30.0) -> Job:
-        if isinstance(query, ViewQuery):
-            raise NotImplementedError(
-                "View queries run on the generic vertex-program engine and "
-                "the resident sweep: ROADMAP queue 1 items 4-5")
-        if not isinstance(query, RangeQuery):
+        if not isinstance(query, (ViewQuery, RangeQuery)):
             raise NotImplementedError(
                 f"{type(query).__name__} is not carried yet: Live queries "
                 "come with the jobs/serving slice, ROADMAP queue 1 item 7")
-        if type(program) not in _COLUMNAR:
-            raise NotImplementedError(
-                f"{type(program).__name__} Range queries run on the generic "
-                "vertex-program engine: ROADMAP queue 1 item 4")
+        bsp.check_program(program)
         with self._lock:
             if job_id is None:
                 job_id = f"{type(program).__name__}_{next(self._counter)}"

@@ -1,7 +1,8 @@
 """Kernels of the hop-batched columnar engine: K1 (with K6w, the weighted
 SSSP weight-state rebuild beside it) and K2 (the edge passes and the
 superstep update of the PageRank power iteration); the build and launch
-plumbing that ``ops/minplus.py`` (K5/K6) shares.
+plumbing that ``ops/minplus.py`` (K5/K6), ``ops/segment.py`` (K7) and
+``ops/resident.py`` (K9a, K9b, K8u) share.
 
 Each kernel has three parts here:
 
@@ -47,6 +48,9 @@ _LIBS = {
                                                  "rtpu_pagerank_update")),
     "minplus_columns": ("minplus_columns.cu", ("rtpu_cc_superstep",
                                                "rtpu_minplus_superstep")),
+    "segment": ("segment.cu", ("rtpu_segment_combine",)),
+    "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
+                           "rtpu_unpack_mask_bits")),
 }
 _ARGTYPES = {
     # len, H, W, U, h0 | d_pos, d_lat, d_alive, lo, nowin, cur_l, cur_a,
@@ -71,13 +75,25 @@ _ARGTYPES = {
     "rtpu_cc_superstep": 3 * [ctypes.c_int64] + 14 * [ctypes.c_void_p],
     # n, C, W, H, gx, directed | ew, then as rtpu_cc_superstep
     "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
+    # k, n, m, F, op, dtype | indptr, perm, x, mask, out, stream
+    "rtpu_segment_combine": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
+    # n_pad, m_pad, cap_v, cap_e, tbytes | six buffers, eight chunk
+    # arrays, stream
+    "rtpu_apply_delta_chunk": 5 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
+    # k, n, m, tbytes | v_lat, v_alive, e_lat, e_alive, lo, nowin, v_out,
+    # e_out, stream
+    "rtpu_window_masks": 4 * [ctypes.c_int64] + 9 * [ctypes.c_void_p],
+    # rows, nbytes | packed, out, stream
+    "rtpu_unpack_mask_bits": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES = {"masks_from_deltas": 0, "column_out_degree": 0,
             "column_pull_sum": 0, "pagerank_update": 0,
             "cc_superstep": 0, "minplus_superstep": 0,
-            "weights_from_deltas": 0}
+            "weights_from_deltas": 0, "segment_combine": 0,
+            "apply_delta_chunk": 0, "window_masks": 0,
+            "unpack_mask_bits": 0}
 
 #: ``nvcc -Xptxas -v`` report of each library built by this process
 BUILD_LOG: dict[str, str] = {}

@@ -1,0 +1,127 @@
+"""K7 — the masked segment combine, the message exchange of the generic
+superstep engine (``engine/bsp.py``).
+
+The reference delivers typed point-to-point actor messages per vertex
+(``VertexVisitor.scala:99-161`` → ``ReaderWorker.scala:137-157``). Here a
+superstep's messages are a flat per-edge payload combined at the receiving
+vertex with an associative-commutative reduction (sum, min or max); masked
+edges contribute the combiner's neutral value, and so does an empty
+segment.
+
+Same three parts as ``ops/columns.py``, whose build and launch plumbing it
+shares: the **wrapper** ``segment_combine`` (CPU tensors take the twin,
+CUDA tensors launch ``rtpu_segment_combine`` from ``csrc/segment.cu`` or
+raise), the **plain twin** ``segment_combine_plain`` (``index_add_`` /
+``scatter_reduce_`` over the segment ids), and the CUDA source.
+
+Where a payload goes is a ``SegmentCSR``: the segment id of every edge
+(what the twin scatters by) and the same mapping as a CSR over the REAL
+edges (what the kernel walks — one thread per (window, row, feature), no
+atomics, a fixed sum order). Pad edges lie outside the CSR and must be
+masked in every window, as every caller's are.
+
+``segment_sum_sorted_csr`` (TPU only), ``partition_segment_reduce`` (PCPM)
+and ``segment_mode`` (the custom-combiner exchange) are not ported yet
+(ROADMAP queue 2, K7).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+
+_OPS = {"sum": 0, "min": 1, "max": 2}
+#: payload dtypes the kernel takes (the twin takes any)
+_KERNEL_DTYPES = {torch.float32: 0, torch.int32: 1}
+
+
+def neutral(op: str, dtype: torch.dtype):
+    """The combiner's identity for ``dtype``: 0, the dtype's max (+inf) or
+    its min (-inf)."""
+    if op not in _OPS:
+        raise ValueError(f"unknown combiner {op!r}; use one of "
+                         f"{sorted(_OPS)}")
+    if op == "sum":
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+@dataclass(frozen=True)
+class SegmentCSR:
+    """The destination segment of each edge, twice: ``ids`` per edge, and a
+    CSR over the real edges — row r owns ``perm[indptr[r]:indptr[r+1]]``
+    (``perm`` None: the edges ``indptr[r]:indptr[r+1]`` themselves, for
+    edges sorted by segment)."""
+    ids: torch.Tensor               # int32 [m] segment of each edge
+    indptr: torch.Tensor            # int64 [n + 1] over the real edges
+    perm: torch.Tensor | None       # int32 [m_real] or None
+
+    @property
+    def n(self) -> int:
+        """Segments per window."""
+        return self.indptr.shape[0] - 1
+
+
+def segment_combine_plain(data, csr: SegmentCSR, op: str, mask, k: int = 1):
+    """Twin of ``rtpu_segment_combine``: ``data`` ``[k*m, ...]`` with its
+    ``mask`` ``bool[k*m]`` combined into ``[k*n, ...]`` — window w's edge e
+    into segment ``w*n + ids[e]`` (``raphtory_tpu/ops/segment.py:35``)."""
+    m, n = csr.ids.shape[0], csr.n
+    tail = tuple(data.shape[1:])
+    x = data.reshape(k * m, -1)
+    fill = neutral(op, data.dtype)
+    x = torch.where(mask[:, None], x, torch.full_like(x, fill))
+    ids = (csr.ids.long()[None, :]
+           + torch.arange(k, device=data.device)[:, None] * n).reshape(-1)
+    out = torch.full((k * n, x.shape[1]), fill, dtype=data.dtype,
+                     device=data.device)
+    if op == "sum":
+        out.index_add_(0, ids, x)
+    else:
+        out.scatter_reduce_(0, ids[:, None].expand_as(x), x,
+                            "amin" if op == "min" else "amax")
+    return out.reshape((k * n,) + tail)
+
+
+def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
+    """K7 wrapper (``raphtory_tpu/ops/segment.py:35`` ``segment_combine``,
+    as the superstep runner calls it at ``engine/bsp.py:145,152,154``):
+    the masked sum/min/max of ``data [k*m, ...]`` per (window, segment),
+    ``[k*n, ...]``. Float32 and int32 payloads on the card."""
+    name = "segment_combine"
+    if op not in _OPS:
+        raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
+                         f"{sorted(_OPS)}")
+    m, n = csr.ids.shape[0], csr.n
+    if data.dim() == 0 or data.shape[0] != k * m:
+        raise ValueError(f"{name}: data has shape {tuple(data.shape)}, want "
+                         f"[{k * m}, ...] (k={k} windows x m={m} edges)")
+    _expect(name, mask, "mask", (torch.bool,), (k * m,))
+    _expect(name, csr.ids, "ids", (torch.int32,), (m,))
+    _expect(name, csr.indptr, "indptr", (torch.int64,), (n + 1,))
+    tensors = (data, mask, csr.ids, csr.indptr)
+    if csr.perm is not None:
+        _expect(name, csr.perm, "perm", (torch.int32,),
+                (csr.perm.shape[0],))
+        tensors += (csr.perm,)
+    if not _on_cuda(name, *tensors):
+        return segment_combine_plain(data, csr, op, mask, k)
+    if data.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
+                        f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
+    _expect(name, data, "data", (data.dtype,), tuple(data.shape))
+    F = data[0].numel() if k * m else 1
+    out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    err = _fn("segment", "rtpu_segment_combine")(
+        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype], _ptr(csr.indptr),
+        None if csr.perm is None else _ptr(csr.perm), _ptr(data), _ptr(mask),
+        _ptr(out), _stream(data))
+    _launch(name, err)
+    return out

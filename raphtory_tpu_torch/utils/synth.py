@@ -39,6 +39,29 @@ def random_update_stream(
     return times, kinds, src, dst
 
 
+def bitcoin_like_log(
+    n_addresses: int = 20_000,
+    n_txs: int = 200_000,
+    seed: int = 11,
+    t_span: int = 2_600_000,
+) -> EventLog:
+    """Bitcoin-style transaction graph (``BitcoinRouter`` workload shape):
+    address→address payment edges, heavy-tailed sender distribution
+    (exchanges / mixers dominate), timestamps over ~a month so hour/day/week
+    batched windows are all non-trivial."""
+    rng = np.random.default_rng(seed)
+    # heavy-tailed senders: Zipf-ish via pareto index into the address pool
+    ranks = np.minimum(
+        (rng.pareto(1.2, n_txs) * 50).astype(np.int64), n_addresses - 1)
+    src = ranks
+    dst = rng.integers(0, n_addresses, n_txs).astype(np.int64)
+    times = np.sort(rng.integers(0, t_span, n_txs)).astype(np.int64)
+    kinds = np.full(n_txs, EDGE_ADD, np.uint8)
+    log = EventLog()
+    log.append_batch(times, kinds, src, dst)
+    return log
+
+
 def ldbc_like_log(
     n_persons: int = 10_000,
     n_knows: int = 120_000,

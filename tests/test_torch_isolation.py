@@ -26,6 +26,11 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/ops/minplus.py",
     "raphtory_tpu_torch/algorithms/connected_components.py",
     "raphtory_tpu_torch/algorithms/traversal.py",
+    "raphtory_tpu_torch/ops/segment.py",
+    "raphtory_tpu_torch/ops/resident.py",
+    "raphtory_tpu_torch/engine/bsp.py",
+    "raphtory_tpu_torch/engine/device_sweep.py",
+    "raphtory_tpu_torch/algorithms/degree.py",
 )
 
 
@@ -97,6 +102,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         TemporalGraph(log)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnalysisManager(TemporalGraph(log, device="cpu"))
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceSweep(log)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bsp.run(PageRank(), build_view(log, 2))
     # the explicit CPU request is honoured
     assert HopBatchedPageRank(log, device="cpu").device.type == "cpu"
 
