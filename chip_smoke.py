@@ -20,8 +20,10 @@ printing one JSON line:
               float32 / int32, both directions, k = 1 and 3) bitwise but
               for its float sums (rtol 1e-5 / atol 1e-7), K9a (delta
               apply, int32 and int64), K9b (window masks, k = 1 and 3)
-              and K8u (mask unpack) bitwise. CUDA-event times, bounds,
-              twin times.
+              and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
+              tables, int32 and int64) and K4 (scale masks at the scale
+              sweep's shape) bitwise. CUDA-event times, bounds, twin
+              times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
               30k vertices / 300k edge events, 12 hops x 3 windows,
               chunks=3, warm start, tol 1e-7, 20 supersteps) through
@@ -54,8 +56,23 @@ printing one JSON line:
               descending-time PageRank View on the cold ``bsp.run`` route
               (K8u); rows and result vectors bitwise against the CPU
               (PageRank: the tolerance above).
-11. scale   — the PageRank engine on a 5.3M-vertex / 2^25-edge-event log,
-              4 hops x 3 windows, chunks=2.
+11. host_columns — the headline PageRank, cc_range CC and LDBC BFS and
+              SSSP on the host-column route (``RTPU_FOLD=host``: host-built
+              ``[H, m_pad]`` fold columns, K3), each BITWISE with equal
+              steps against the same engine's delta route on the card.
+12. scale_bulk — ``bench.py:bench_scale_pagerank`` uncut: the bulk loader
+              over ``gab_like_arrays(5.3M, 2^25, seed 11)``, 16 one-hour
+              hops x 8 windows = 128 columns, tol 0, 10 supersteps through
+              ``run_scale_columns`` (K4, K2); one warm call then two timed
+              sweeps; every column finite and summing to 1 +- 1e-4; K4
+              and K2a/b/c against their twins at this shape (K4, K2a
+              bitwise). Then a crosscheck on a 30k / 300k stream over the
+              same grid: card against CPU (rtol 1e-5 / atol 1e-7, equal
+              steps), and
+              ``run_columns`` over the bulk host columns (K3) bitwise equal
+              to ``run_scale_columns`` on the card.
+13. scale   — the general-fold PageRank engine on a 5.3M-vertex /
+              2^25-edge-event log, 4 hops x 3 windows, chunks=2.
 
 The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched.
@@ -307,6 +324,97 @@ def phase_kernels(torch, np, columns, tables, dev):
         **dict(zip(("bound_ms", "bound_by"),
                    bound(n_pad * C * (4 * 3 + 1 + 4 * 2),
                          10 * n_pad * C))))
+    return out
+
+
+def mask_kernels(torch, np, columns, gab, dev):
+    """K3 at the headline's tables and one headline chunk (H = 4 hops x 3
+    windows; int32 times, int64 checked too) and K4 at the scale sweep's
+    shape (``bench.py:bench_scale_pagerank``: m_pad 33,554,432, n_pad
+    5,308,416, 16 hops x 8 windows, U_e 65,536, U_v 131,072), each against
+    its twin with ``torch.equal``."""
+    rng = np.random.default_rng(2)
+    out = {}
+
+    # ---- K3: random fold columns, times at the dtype's bounds among them
+    H, W = 4, 3
+    C = H * W
+    m, n = gab.m_pad, gab.n_pad
+    hop_of_col = np.repeat(np.arange(H, dtype=np.int32), W)
+    for tdt in (np.int32, np.int64):
+        info = np.iinfo(tdt)
+        vals = np.concatenate([[info.min, info.min + 1, info.max - 1,
+                                info.max], rng.integers(-5000, 5000, 60)])
+        T_col = np.repeat(np.array([info.max - 3, 0, 1000, 4000],
+                                   np.int64), W)
+        w_col = np.tile(np.array([-1, 0, 1 << 40], np.int64), H)
+        lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            rng.choice(vals, (H, m)).astype(tdt), rng.random((H, m)) < 0.7,
+            rng.choice(vals, (H, n)).astype(tdt), rng.random((H, n)) < 0.7,
+            hop_of_col, lo, w_col < 0)]
+        got = columns.column_masks(*args)
+        want = columns.column_masks_plain(*args)
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"K3 differs from its twin "
+                                 f"(tdt={tdt.__name__})")
+        if tdt == np.int32:
+            k3_ms = cuda_ms(torch, lambda: columns.column_masks(*args))
+            k3_plain = cuda_ms(torch,
+                               lambda: columns.column_masks_plain(*args))
+    out["column_masks"] = dict(
+        source="raphtory_tpu_torch/csrc/masks.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:50",
+        max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
+        shape=f"m_pad={m} n_pad={n} H={H} C={C} int32",
+        # the fold columns (lat i32 + alive) and the column descriptors
+        # read once, the masks written once
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            H * (m + n) * 5 + C * 9 + (m + n) * C))))
+
+    # ---- K4 at the scale shape: random base states (half never seen),
+    # half-full update lists padded with (0, INT32_MIN), a real update
+    # to position 0, thresholds with unwindowed (0) columns among them
+    H, W = 16, 8
+    gen = torch.Generator(device=dev).manual_seed(3)
+    i32min = torch.iinfo(torch.int32).min
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    thr = rand((H * W,), 2_600_000)
+    thr[::5] = 0
+    k4 = {}
+    for length, U in ((33_554_432, 65_536), (5_308_416, 131_072)):
+        base = torch.where(rand((length,), 2) == 0,
+                           rand((length,), 2_000_000), i32min)
+        pos, t = rand((H, U), length), rand((H, U), 2_600_000)
+        pos[:, U // 2:] = 0
+        t[:, U // 2:] = i32min
+        pos[3, 0], t[3, 0] = 0, 2_500_000
+        got = columns.scale_hop_masks(base, pos, t, thr, H, W)
+        want = columns.scale_hop_masks_plain(base, pos, t, thr, H, W)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 differs from its twin (len={length})")
+        del got, want
+        if length == 33_554_432:
+            k4 = dict(
+                ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
+                    base, pos, t, thr, H, W), iters=5),
+                plain_ms=cuda_ms(torch, lambda: columns.scale_hop_masks_plain(
+                    base, pos, t, thr, H, W), iters=2),
+                # base and the update lists read once, thresholds, the
+                # [len, H*W] masks written once
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    length * 4 + H * U * 8 + H * W * 4 + length * H * W))))
+        del base, pos, t
+    out["scale_hop_masks"] = dict(
+        source="raphtory_tpu_torch/csrc/masks.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:2129",
+        max_abs_err=0.0, library_ms=None,
+        shape=f"len=33554432 H={H} W={W} U=65536 (len=5308416 U=131072 "
+              "checked)", **k4)
     return out
 
 
@@ -1094,6 +1202,79 @@ def phase_view_programs(torch, np, columns, log, dev):
     return launches
 
 
+class fold_route:
+    """``RTPU_FOLD`` set to ``route`` inside the block (the engines read it
+    at dispatch)."""
+
+    def __init__(self, route: str):
+        self.route = route
+
+    def __enter__(self):
+        self.prev = os.environ.get("RTPU_FOLD")
+        os.environ["RTPU_FOLD"] = self.route
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop("RTPU_FOLD", None)
+        else:
+            os.environ["RTPU_FOLD"] = self.prev
+
+
+def phase_host_columns(torch, np, columns, log, ldbc, dev):
+    """The host-column route (``RTPU_FOLD=host``: the host builds the
+    ``[H, m_pad]`` fold columns, K3 the masks) of the headline PageRank,
+    the cc_range CC and the LDBC BFS and SSSP, each held BITWISE, with
+    equal steps, against the same engine's delta route on the card."""
+    from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
+                                                    HopBatchedCC,
+                                                    HopBatchedPageRank,
+                                                    HopBatchedSSSP)
+
+    hops, windows = headline_grid()
+    ldbc_hops = [int(T) for T in
+                 np.linspace(0.5 * LDBC_SPAN, LDBC_SPAN, 10).astype(np.int64)]
+    ldbc_windows = [1_300_000, 604_800]
+    runs = {
+        "headline": (lambda: HopBatchedPageRank(log, tol=1e-7, max_steps=20,
+                                                device=dev),
+                     hops, windows, dict(chunks=3, warm_start=True),
+                     PAGERANK_KERNELS),
+        "cc_range": (lambda: HopBatchedCC(log, max_steps=50, device=dev),
+                     hops, [GAB_SPAN], dict(chunks=1), CC_KERNELS),
+        "ldbc_bfs": (lambda: HopBatchedBFS(ldbc, LDBC_SEEDS, directed=False,
+                                           max_steps=32, device=dev),
+                     ldbc_hops, ldbc_windows, dict(chunks=1),
+                     ("minplus_superstep",)),
+        "ldbc_sssp": (lambda: HopBatchedSSSP(
+            ldbc, LDBC_SEEDS, "weight", directed=False, max_steps=32,
+            device=dev), ldbc_hops, ldbc_windows, dict(chunks=1),
+            ("minplus_superstep",)),
+    }
+    total = {k: 0 for k in columns.LAUNCHES}
+    result = {}
+    for name, (make, h, w, kw, kernels) in runs.items():
+        with fold_route("delta"):
+            ref, ref_steps = make().run(h, w, **kw)
+        with fold_route("host"):
+            got, steps, launches, stats = timed_sweep(
+                torch, columns, make, h, w, **kw)
+        if not torch.equal(got, ref) or steps != ref_steps:
+            raise AssertionError(f"host_columns {name}: the host-column "
+                                 f"route differs from the delta route "
+                                 f"(steps {steps} vs {ref_steps})")
+        kernels = tuple(k for k in kernels if k != "masks_from_deltas")
+        check_launched(f"host_columns {name}", launches,
+                       ("column_masks",) + kernels)
+        if launches["masks_from_deltas"]:
+            raise AssertionError(f"host_columns {name}: the delta route's "
+                                 f"K1 launched ({launches})")
+        for k, v in launches.items():
+            total[k] += v
+        result[name] = stats
+    emit("host_columns", runs=result, launches=total)
+    return total
+
+
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
@@ -1127,6 +1308,192 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
          views_per_s=n_views / sweep_s, supersteps=steps,
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          launches=launches)
+
+
+#: ``bench.py:bench_scale_pagerank``'s sweep: 16 one-hour hops from
+#: 0.8 t_span x 8 windows (month, 2 weeks, week, 3 days, day, 12 h, 6 h,
+#: hour) = 128 columns, 10 supersteps (tol 0)
+SCALE_WINDOWS = [2_600_000, 1_209_600, 604_800, 259_200, 86_400, 43_200,
+                 21_600, 3_600]
+SCALE_KERNELS = ("scale_hop_masks", "column_out_degree", "column_pull_sum",
+                 "pagerank_update")
+
+
+def scale_hops(k: int) -> list[int]:
+    return [int(0.8 * GAB_SPAN) + 3_600 * j for j in range(1, k + 1)]
+
+
+def phase_scale_bulk(torch, np, columns, dev):
+    """``bench.py:bench_scale_pagerank``'s shape, nothing cut: the bulk
+    loader over ``gab_like_arrays(5.3M, 2^25, seed 11)``, then
+    ``run_scale_columns`` (K4, K2) over 128 columns, 10 supersteps. The
+    load, the static uploads and ``prepare_scale_payload`` run once,
+    outside the timed sweeps; one warm call, then two timed sweeps. K4 and
+    K2a/b/c are then held against their twins at this shape, and a small
+    stream over the same grid against the CPU and against the host-column
+    route."""
+    from raphtory_tpu_torch.core.bulk import (bulk_hop_columns,
+                                              bulk_hop_deltas)
+    from raphtory_tpu_torch.engine.hopbatch import (prepare_scale_payload,
+                                                    run_columns,
+                                                    run_scale_columns)
+    from raphtory_tpu_torch.utils.synth import gab_like_arrays
+
+    n_v, iters = 5_300_000, 10
+    hops, windows = scale_hops(16), SCALE_WINDOWS
+    n_views = len(hops) * len(windows)
+    t0 = time.perf_counter()
+    src, dst, times = gab_like_arrays(n_vertices=n_v, n_edges=1 << 25,
+                                      seed=11, t_span=GAB_SPAN)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk, base_e, base_v, d_e, d_v = bulk_hop_deltas(src, dst, times, hops,
+                                                     n_vertices=n_v)
+    bulk_s = time.perf_counter() - t0
+    del src, dst, times
+    t0 = time.perf_counter()
+    kw = dict(tol=0.0, max_steps=iters, device=dev,
+              edges=tuple(torch.from_numpy(a).to(dev) for a in (
+                  bulk.e_src, bulk.e_dst, bulk.in_indptr)),
+              prepared=prepare_scale_payload(d_e, d_v, hops, windows,
+                                             device=dev))
+    base_e, base_v = (torch.from_numpy(a).to(dev) for a in (base_e, base_v))
+
+    def sweep():
+        return run_scale_columns(bulk, base_e, base_v, d_e, d_v, hops,
+                                 windows, **kw)
+
+    warm, _ = sweep()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    reps = []
+    for _ in range(2):
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        ranks, steps = sweep()
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+        launches = dict(columns.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launched("scale_bulk", launches, SCALE_KERNELS)
+    if steps != iters:
+        raise AssertionError(f"scale_bulk ran {steps} supersteps, not "
+                             f"{iters} (tol 0 never halts)")
+    if ranks.shape != (n_views, bulk.n_pad) \
+            or not bool(torch.isfinite(ranks).all()):
+        raise AssertionError(f"scale_bulk: bad ranks {tuple(ranks.shape)}")
+    sums = ranks.double().sum(1).cpu()
+    if bool(((sums - 1.0).abs() > 1e-4).any()):
+        raise AssertionError(f"scale_bulk rank sums off 1: {sums.tolist()}")
+    # the sweep's last ranks, entity-major: uneven state for the kernel
+    # checks below
+    r0 = ranks.t().contiguous()
+    del ranks
+
+    # K4, K2a, K2b and K2c at this shape, on this run's payload and ranks,
+    # each against its twin on the same card tensors; K2b and K2c then
+    # timed a superstep (these launches come after the counts were read).
+    # The twins of K2a and K2b run 32 columns at a time (every column is
+    # independent; their [m_pad, C] temporaries would take 34 GB whole).
+    H, W = len(hops), len(windows)
+    C = H * W
+    prep = kw["prepared"]
+    e_src, e_dst, indptr = kw["edges"]
+    errs = {}
+    me = columns.scale_hop_masks(base_e, *prep[2:4], prep[6], H, W)
+    mv = columns.scale_hop_masks(base_v, *prep[4:7], H, W)
+    for got, args in ((me, (base_e, *prep[2:4], prep[6])),
+                      (mv, (base_v, *prep[4:7]))):
+        if not torch.equal(got, columns.scale_hop_masks_plain(*args, H, W)):
+            raise AssertionError("scale_bulk: K4 differs from its twin on "
+                                 "the scale payload")
+    errs["scale_hop_masks"] = 0.0
+
+    def by_columns(fn):
+        return torch.cat([fn(slice(c, c + 32)) for c in range(0, C, 32)],
+                         dim=1)
+
+    def hold(name, got, want):
+        err = (got - want).abs()
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+        if bool((err > 1e-7 + 1e-5 * want.abs()).any()):
+            raise AssertionError(f"scale_bulk: {name} differs from its twin "
+                                 f"at the scale shape: max abs err "
+                                 f"{errs[name]}")
+
+    deg = columns.column_out_degree(me, e_src, bulk.n_pad)
+    if not torch.equal(deg, by_columns(
+            lambda s: columns.column_out_degree_plain(me[:, s], e_src,
+                                                      bulk.n_pad))):
+        raise AssertionError("scale_bulk: K2a differs from its twin at the "
+                             "scale shape")
+    errs["column_out_degree"] = 0.0
+    n_act = torch.clamp(mv.to(torch.float32).sum(0), min=1.0)
+    states = []
+    for update in (columns.pagerank_update, columns.pagerank_update_plain):
+        st = columns.rank_state(r0.clone())
+        update(st, None, deg, mv, n_act, 0.85, 0.0, prime=True)
+        states.append(st)
+    st, st_p = states
+    hold("pagerank_update", st.rd, st_p.rd)
+    hold("pagerank_update", st.dangling, st_p.dangling)
+    agg = columns.column_pull_sum(me, st.rd, e_src, e_dst, indptr)
+    hold("column_pull_sum", agg, by_columns(
+        lambda s: columns.column_pull_sum_plain(me[:, s], st.rd[:, s],
+                                                e_src, e_dst)))
+    columns.pagerank_update(st, agg, deg, mv, n_act, 0.85, 0.0)
+    columns.pagerank_update_plain(st_p, agg, deg, mv, n_act, 0.85, 0.0)
+    for what in ("r", "rd", "dangling"):
+        hold("pagerank_update", getattr(st, what), getattr(st_p, what))
+    if not (torch.equal(st.halted, st_p.halted)
+            and torch.equal(st.done, st_p.done)):
+        raise AssertionError("scale_bulk: K2c halting differs from its twin")
+    del st_p, r0
+    k2b_ms = cuda_ms(torch, lambda: columns.column_pull_sum(
+        me, st.rd, e_src, e_dst, indptr), iters=3)
+    k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
+        st, agg, deg, mv, n_act, 0.85, 0.0), iters=3)
+    del me, mv, deg, st, agg
+    best = min(reps)
+    emit("scale_bulk", n_edge_events=1 << 25, n=bulk.n, m=bulk.m,
+         n_pad=bulk.n_pad, m_pad=bulk.m_pad, hops=H, windows=W,
+         views=n_views, U_e=kw["prepared"][0], U_v=kw["prepared"][1],
+         gen_s=gen_s, bulk_s=bulk_s, setup_s=setup_s, sweep_s=best,
+         repeat_sweep_s=reps, views_per_s=n_views / best, supersteps=steps,
+         k2b_ms_per_superstep=k2b_ms, k2c_ms_per_superstep=k2c_ms,
+         peak_device_bytes=peak, launches=launches,
+         max_abs_err_vs_twins=errs)
+    del kw, base_e, base_v, bulk, d_e, d_v
+    torch.cuda.empty_cache()
+
+    # ---- crosscheck: a small add-only stream over the same 16 x 8 grid,
+    # on the card against the CPU (twins), and against the host-column
+    # route
+    src, dst, times = gab_like_arrays(n_vertices=30_000, n_edges=300_000,
+                                      seed=7, t_span=GAB_SPAN)
+    loaded = bulk_hop_deltas(src, dst, times, hops, n_vertices=30_000)
+    ckw = dict(tol=0.0, max_steps=iters)
+    got, steps = run_scale_columns(*loaded, hops, windows, device=dev, **ckw)
+    ref, ref_steps = run_scale_columns(*loaded, hops, windows, device="cpu",
+                                       **ckw)
+    err = (got.cpu() - ref).abs()
+    if bool((err > 1e-7 + 1e-5 * ref.abs()).any()) or steps != ref_steps:
+        raise AssertionError(f"scale crosscheck differs from the CPU run: "
+                             f"max abs err {float(err.max())}, steps "
+                             f"{steps} vs {ref_steps}")
+    host, host_steps = run_columns(*bulk_hop_columns(
+        src, dst, times, hops, n_vertices=30_000), hops, windows,
+        device=dev, **ckw)
+    if not torch.equal(host, got) or host_steps != steps:
+        raise AssertionError("scale crosscheck: run_columns over the bulk "
+                             "host columns differs from run_scale_columns")
+    emit("scale_bulk_crosscheck", n=loaded[0].n, m=loaded[0].m,
+         views=len(hops) * len(windows), supersteps=steps,
+         max_abs_err_vs_cpu=float(err.max()),
+         host_columns_bitwise=True)
+    return launches, errs
 
 
 def main() -> int:
@@ -1174,6 +1541,7 @@ def main() -> int:
     kernels.update(segment_kernels(torch, np, segment, resident, tables,
                                    btc_tables,
                                    (ldbc_view.n_pad, ldbc_view.m_pad), dev))
+    kernels.update(mask_kernels(torch, np, columns, tables, dev))
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
                                  if kk in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "max_abs_err",
@@ -1187,6 +1555,8 @@ def main() -> int:
     launches["cc_superstep"] = cc_launches["cc_superstep"]
     for k in ("minplus_superstep", "weights_from_deltas"):
         launches[k] = ldbc_launches[k]
+    host_launches = phase_host_columns(torch, np, columns, log, ldbc, dev)
+    launches["column_masks"] = host_launches["column_masks"]
     phase_job(torch, np, columns, dev)
     view_launches = phase_gab_pr_view(torch, np, columns, log, dev)
     for k in RESIDENT_KERNELS:
@@ -1194,6 +1564,10 @@ def main() -> int:
     phase_bitcoin_range(torch, np, columns, dev)
     cold_launches = phase_view_programs(torch, np, columns, ldbc, dev)
     launches["unpack_mask_bits"] = cold_launches["unpack_mask_bits"]
+    bulk_launches, bulk_errs = phase_scale_bulk(torch, np, columns, dev)
+    launches["scale_hop_masks"] = bulk_launches["scale_hop_masks"]
+    for k, err in bulk_errs.items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
     phase_scale(torch, np, columns, HopBatchedPageRank, dev)
 
     print(json.dumps({"kernels": [

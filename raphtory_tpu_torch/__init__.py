@@ -1,9 +1,10 @@
 """raphtory_tpu_torch — the PyTorch/CUDA port of raphtory_tpu.
 
 Runs the windowed PageRank, ConnectedComponents and BFS / weighted-SSSP
-Range queries, and View queries and Range queries of any supported program
-through the generic vertex-program engine, end to end on an NVIDIA H100
-through hand-written CUDA kernels (``ops/columns.py``, ``ops/minplus.py``,
+Range queries (on the delta and the host-column fold routes), the
+bulk-loaded scale PageRank sweep (``core/bulk.py``), and View queries and
+Range queries of any supported program through the generic vertex-program
+engine, end to end on an NVIDIA H100 through hand-written CUDA kernels (``ops/columns.py``, ``ops/minplus.py``,
 ``ops/segment.py``, ``ops/resident.py``, sources in ``csrc/``), beside the
 JAX package it is checked against. It imports torch and numpy, never
 JAX. Entry points take ``device=None`` (the CUDA card; raises without one)

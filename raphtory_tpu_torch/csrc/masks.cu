@@ -37,6 +37,44 @@
 // weight state the caller keeps resident. Bound: bytes, len * 4 per hop
 // written plus the delta rows; 2 launches per hop (2H-1 without `h0`).
 //
+// K3 — host fold columns to window masks (the host-column route). Replaces
+// raphtory_tpu/engine/hopbatch.py:50 `_column_masks`, the head of the
+// jitted `_compiled`, `_compiled_cc` and `_compiled_bfs` programs: from the
+// hop-major [H, len] fold columns (lat, alive) the host fold built,
+//     out[i, c] = alive[hop_of_col[c], i]
+//                 && (nowin[c] || lat[hop_of_col[c], i] >= lo[c])
+// into the entity-major [len, C] bool layout the superstep kernels read.
+// Edges and vertices share one launch. What bounds it: bytes — the columns
+// are read once (H * len * (sizeof(T) + 1)) and the masks written once
+// (len * C); no arithmetic to speak of. The read runs along entities and
+// the write along columns, so the design is a tiled transpose: a block
+// owns one 32-column tile (its hops, bounds and flags read once into
+// shared memory, so no mask byte pays a division) and strides over
+// 32-entity row tiles; its threads read a tile's 32 entities of one
+// column's hop row as neighbouring words (coalesced), park the mask bytes
+// in shared memory, and write them back as 32 neighbouring bytes of one
+// output row. Columns sharing a hop re-read the same words, from L1/L2.
+//
+// K4 — the scale path's per-hop masks. Replaces
+// raphtory_tpu/engine/hopbatch.py:2129-2150 `_compiled_scale.hop_masks`
+// (both its unrolled and its `lax.scan` program shapes, which compute the
+// same function). Add-only streams: hop h's state is the running scatter-MAX
+//     cur[pos[h, u]] = max(cur[pos[h, u]], t[h, u])
+// of the base state and every update list up to h, and its W columns are
+//     out[i, h*W + w] = cur[i] >= thr[h*W + w]
+// (thr = max(T - w, 0), or 0 unwindowed; never-seen entities hold
+// INT32_MIN). Pads are (pos 0, INT32_MIN): a max no-op at a VALID index, so
+// position 0 is not skipped — only positions outside [0, len) are. atomicMax
+// on int32 is exact, so the state, and the masks, are the same bits in any
+// order. Design: hop h's state is a row of an [H, len] int32 snapshot — a
+// device copy of row h-1 (the base for h = 0), then one scatter-max launch
+// over hop h's list — and one launch of K3's tiled transpose (no alive
+// column, no unwindowed flag, hop c / W of column c) writes every mask row
+// once, coalesced. Bound: bytes, the base and the update lists read once
+// and len * H * W mask bytes written; the design moves the snapshot
+// (2 * H * len * 4 bytes of copies and H * len * 4 of transpose reads) on
+// top. H + 1 launches a call.
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/columns.py).
 // Every entry point launches on the caller's stream, allocates nothing,
 // adds the number of kernels it launched to the host integer `*launched`,
@@ -139,6 +177,160 @@ int masks_from_deltas(int64_t len, int64_t H, int64_t W, int64_t U, int64_t h0,
     return static_cast<int>(cudaGetLastError());
 }
 
+
+constexpr int kTile = 32;   // K3 tile: 32 entities x 32 columns
+
+// The 32 columns of a block's column tile [c0, c0 + 32): hop row, bound and
+// unwindowed flag, read once per block (no division per mask byte).
+// `hop_of_col` null: hop c / W; `nowin` null: every column windowed.
+template <typename T>
+struct ColumnTile {
+    int64_t hop[kTile];
+    T lo[kTile];
+    uint8_t nowin[kTile];
+};
+
+template <typename T>
+__device__ void load_column_tile(int64_t c0, int64_t C, int64_t W,
+                                 const int32_t* __restrict__ hop_of_col,
+                                 const T* __restrict__ lo,
+                                 const uint8_t* __restrict__ nowin,
+                                 ColumnTile<T>* ct) {
+    if (threadIdx.x < kTile) {
+        const int64_t c = c0 + threadIdx.x;
+        if (c < C) {
+            ct->hop[threadIdx.x] = hop_of_col ? hop_of_col[c] : c / W;
+            ct->lo[threadIdx.x] = lo[c];
+            ct->nowin[threadIdx.x] = nowin ? nowin[c] : 0;
+        }
+    }
+    __syncthreads();
+}
+
+// One 32 x 32 tile of K3's masks: rows [i0, i0 + 32) of `out [len, C]`,
+// the block's columns [c0, c0 + 32). `alive` null: no alive test.
+template <typename T>
+__device__ void mask_tile(int64_t i0, int64_t c0, int64_t len, int64_t C,
+                          const T* __restrict__ lat,
+                          const uint8_t* __restrict__ alive,
+                          const ColumnTile<T>* ct,
+                          uint8_t* __restrict__ out,
+                          uint8_t (*sh)[kTile + 1]) {
+    const int lane = threadIdx.x % kTile;
+    const int row = threadIdx.x / kTile;
+    const int rows = blockDim.x / kTile;
+    const int ncol = C - c0 < kTile ? static_cast<int>(C - c0) : kTile;
+    // read: lane = entity, so a warp reads 32 neighbouring words of a row
+    const int64_t i = i0 + lane;
+    for (int cl = row; cl < ncol; cl += rows) {
+        uint8_t m = 0;
+        if (i < len) {
+            const int64_t k = ct->hop[cl] * len + i;
+            m = (!alive || alive[k])
+                && (ct->nowin[cl] || lat[k] >= ct->lo[cl]);
+        }
+        sh[lane][cl] = m;
+    }
+    __syncthreads();
+    // write: lane = column, so a warp writes 32 neighbouring bytes of a row
+    for (int rl = row; rl < kTile; rl += rows) {
+        const int64_t r = i0 + rl;
+        if (r < len && lane < ncol) out[r * C + c0 + lane] = sh[rl][lane];
+    }
+    __syncthreads();
+}
+
+// K3 over edges then vertices in one grid: blockIdx.y is the column tile,
+// blockIdx.x strides over the edge row tiles, then the vertex row tiles.
+template <typename T>
+__global__ void column_masks(int64_t m, int64_t n, int64_t H, int64_t C,
+                             const T* __restrict__ e_lat,
+                             const uint8_t* __restrict__ e_alive,
+                             const T* __restrict__ v_lat,
+                             const uint8_t* __restrict__ v_alive,
+                             const int32_t* __restrict__ hop_of_col,
+                             const T* __restrict__ lo,
+                             const uint8_t* __restrict__ nowin,
+                             uint8_t* __restrict__ me,
+                             uint8_t* __restrict__ mv) {
+    __shared__ uint8_t sh[kTile][kTile + 1];
+    __shared__ ColumnTile<T> ct;
+    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
+    load_column_tile<T>(c0, C, 1, hop_of_col, lo, nowin, &ct);
+    const int64_t te = (m + kTile - 1) / kTile;
+    const int64_t total = te + (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
+        if (t < te) {
+            mask_tile<T>(t * kTile, c0, m, C, e_lat, e_alive, &ct, me, sh);
+        } else {
+            mask_tile<T>((t - te) * kTile, c0, n, C, v_lat, v_alive, &ct,
+                         mv, sh);
+        }
+    }
+}
+
+__global__ void scatter_max_i32(int64_t len, int64_t U,
+                                const int32_t* __restrict__ pos,
+                                const int32_t* __restrict__ t,
+                                int32_t* __restrict__ cur) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         u < U; u += stride) {
+        const int64_t p = pos[u];
+        if (p < 0 || p >= len) continue;   // outside the table (pad 0 is valid)
+        atomicMax(cur + p, t[u]);
+    }
+}
+
+// K3's tiled transpose over one entity table (the K4 pass): no alive
+// column, every column windowed, hop c / W.
+__global__ void threshold_masks(int64_t len, int64_t C, int64_t W,
+                                const int32_t* __restrict__ snap,
+                                const int32_t* __restrict__ thr,
+                                uint8_t* __restrict__ out) {
+    __shared__ uint8_t sh[kTile][kTile + 1];
+    __shared__ ColumnTile<int32_t> ct;
+    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
+    load_column_tile<int32_t>(c0, C, W, nullptr, thr, nullptr, &ct);
+    const int64_t total = (len + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
+        mask_tile<int32_t>(t * kTile, c0, len, C, snap, nullptr, &ct, out,
+                           sh);
+    }
+}
+
+// Grid of a K3 / K4 pass: one block row per column tile (y), the row tiles
+// strided over x, about 132 * 32 blocks in all.
+inline dim3 tile_grid(int64_t row_tiles, int64_t C) {
+    const int64_t ct = (C + kTile - 1) / kTile;
+    int64_t x = (132 * 32 + ct - 1) / ct;
+    if (x > row_tiles) x = row_tiles;
+    if (x < 1) x = 1;
+    return dim3(static_cast<unsigned>(x), static_cast<unsigned>(ct));
+}
+
+template <typename T>
+int column_masks_launch(int64_t m, int64_t n, int64_t H, int64_t C,
+                        const void* e_lat,
+                        const void* e_alive, const void* v_lat,
+                        const void* v_alive, const void* hop_of_col,
+                        const void* lo, const void* nowin, void* me, void* mv,
+                        void* stream) {
+    if (C <= 0 || H <= 0 || m + n <= 0) {
+        return static_cast<int>(cudaGetLastError());
+    }
+    const int64_t rows = (m + kTile - 1) / kTile + (n + kTile - 1) / kTile;
+    column_masks<T><<<tile_grid(rows, C), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        m, n, H, C, static_cast<const T*>(e_lat),
+        static_cast<const uint8_t*>(e_alive), static_cast<const T*>(v_lat),
+        static_cast<const uint8_t*>(v_alive),
+        static_cast<const int32_t*>(hop_of_col), static_cast<const T*>(lo),
+        static_cast<const uint8_t*>(nowin), static_cast<uint8_t*>(me),
+        static_cast<uint8_t*>(mv));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -196,6 +388,71 @@ int rtpu_weights_from_deltas(int64_t len, int64_t H, int64_t U, int64_t h0,
             if (e != cudaSuccess) return static_cast<int>(e);
             ++*launched;
         }
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K3: m edges and n vertices, H hops, C columns | e_lat, e_alive [H, m],
+// v_lat, v_alive [H, n], hop_of_col [C] int32, lo [C], nowin [C] |
+// me [m, C], mv [n, C]. One launch (none when there is nothing to write).
+int rtpu_column_masks_i32(int64_t m, int64_t n, int64_t H, int64_t C,
+                          const void* e_lat,
+                          const void* e_alive, const void* v_lat,
+                          const void* v_alive, const void* hop_of_col,
+                          const void* lo, const void* nowin, void* me,
+                          void* mv, void* stream) {
+    return column_masks_launch<int32_t>(m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin, me,
+                                        mv, stream);
+}
+
+int rtpu_column_masks_i64(int64_t m, int64_t n, int64_t H, int64_t C,
+                          const void* e_lat,
+                          const void* e_alive, const void* v_lat,
+                          const void* v_alive, const void* hop_of_col,
+                          const void* lo, const void* nowin, void* me,
+                          void* mv, void* stream) {
+    return column_masks_launch<int64_t>(m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin, me,
+                                        mv, stream);
+}
+
+// K4: len entities, H hops, W windows, U updates a hop | base [len],
+// d_pos, d_t [H, U] int32, thr [H*W] int32 | snap [H, len] int32 scratch,
+// out [len, H*W]. Adds the kernels it launched to *launched.
+int rtpu_scale_hop_masks(int64_t len, int64_t H, int64_t W, int64_t U,
+                         const void* base, const void* d_pos,
+                         const void* d_t, const void* thr, void* snap,
+                         void* out, void* stream, int64_t* launched) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* pos = static_cast<const int32_t*>(d_pos);
+    const int32_t* t = static_cast<const int32_t*>(d_t);
+    int32_t* rows = static_cast<int32_t*>(snap);
+    if (len <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+    for (int64_t h = 0; h < H; ++h) {
+        const void* prev = h ? static_cast<const void*>(rows + (h - 1) * len)
+                             : base;
+        cudaError_t e = cudaMemcpyAsync(rows + h * len, prev,
+                                        static_cast<size_t>(len) * 4,
+                                        cudaMemcpyDeviceToDevice, st);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (U > 0) {
+            scatter_max_i32<<<blocks_for(U), kThreads, 0, st>>>(
+                len, U, pos + h * U, t + h * U, rows + h * len);
+            e = cudaGetLastError();
+            if (e != cudaSuccess) return static_cast<int>(e);
+            ++*launched;
+        }
+    }
+    if (W > 0) {
+        const int64_t C = H * W;
+        threshold_masks<<<tile_grid((len + kTile - 1) / kTile, C), kThreads,
+                          0, st>>>(
+            len, C, W, rows, static_cast<const int32_t*>(thr),
+            static_cast<uint8_t*>(out));
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ++*launched;
     }
     return static_cast<int>(cudaGetLastError());
 }

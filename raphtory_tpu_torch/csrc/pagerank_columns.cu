@@ -48,7 +48,10 @@
 // ticket for the next launch. Threads are laid out column-fastest (a block
 // holds whole rows of up to 256 columns; wider C tiles the columns over
 // blockIdx.y), so each thread keeps one column for its whole grid-stride
-// loop and the per-column sums live in registers.
+// loop and the per-column sums live in registers. The dangling sums run in
+// f64 and round to f32 once per block partial and once at the end: over the
+// capped grid a thread walks ~10^4 rows at n = 5.3M, C = 128, and an f32
+// running sum that long drifts from the twin's sum past its tolerance.
 //
 // What bounds them on the H100: bytes. Per superstep K2b streams the mask
 // (m_pad * C bytes), the source ids (4 * m_pad) and the CSR offsets, and
@@ -132,7 +135,7 @@ __global__ void pagerank_update(int64_t n, int64_t C, int prime,
                                 float* __restrict__ part,
                                 int32_t* __restrict__ busy,
                                 unsigned int* __restrict__ ticket) {
-    __shared__ float s_dang[kThreads];
+    __shared__ double s_dang[kThreads];
     __shared__ int s_busy[kThreads];
     __shared__ bool s_last;
     __shared__ int s_all;
@@ -141,7 +144,7 @@ __global__ void pagerank_update(int64_t n, int64_t C, int prime,
     const int t = threadIdx.x;
     const int64_t cl = t % CT;
     const int64_t c = static_cast<int64_t>(blockIdx.y) * CT + cl;
-    float dsum = 0.0f;
+    double dsum = 0.0;
     int nb = 0;
     if (c < C) {
         const float na = n_act[c];
@@ -164,20 +167,21 @@ __global__ void pagerank_update(int64_t n, int64_t C, int prime,
             }
             const float dg = deg[k];
             rd[k] = __fmul_rn(v, __fdiv_rn(1.0f, fmaxf(dg, 1.0f)));
-            if (alive && dg == 0.0f) dsum = __fadd_rn(dsum, v);
+            if (alive && dg == 0.0f) dsum += v;
         }
     }
     s_dang[t] = dsum;
     s_busy[t] = nb;
     __syncthreads();
     if (t < CT && c < C) {
-        float acc = 0.0f;
+        double acc = 0.0;
         int b = 0;
         for (int64_t j = 0; j < R; ++j) {
-            acc = __fadd_rn(acc, s_dang[j * CT + t]);
+            acc += s_dang[j * CT + t];
             b |= s_busy[j * CT + t];
         }
-        part[static_cast<int64_t>(blockIdx.x) * C + c] = acc;
+        part[static_cast<int64_t>(blockIdx.x) * C + c] =
+            static_cast<float>(acc);
         busy[static_cast<int64_t>(blockIdx.x) * C + c] = b;
     }
     __threadfence();   // partials visible device-wide before the ticket
@@ -191,13 +195,13 @@ __global__ void pagerank_update(int64_t n, int64_t C, int prime,
     if (!s_last) return;
     __threadfence();
     for (int64_t cc = t; cc < C; cc += blockDim.x) {
-        float acc = 0.0f;
+        double acc = 0.0;
         int b = 0;
         for (int64_t bx = 0; bx < gridDim.x; ++bx) {
-            acc = __fadd_rn(acc, __ldcg(part + bx * C + cc));
+            acc += __ldcg(part + bx * C + cc);
             b |= __ldcg(busy + bx * C + cc);
         }
-        dangling[cc] = acc;
+        dangling[cc] = static_cast<float>(acc);
         uint8_t h = halted[cc];
         if (!prime && !b) h = 1;
         halted[cc] = h;

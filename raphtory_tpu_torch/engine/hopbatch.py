@@ -8,10 +8,15 @@ state rebuilt on the device from a base snapshot plus the host fold's
 per-hop touched-entity deltas (deletes and revivals included, not an
 add-only approximation).
 
-Port of ``raphtory_tpu/engine/hopbatch.py`` on its serial delta-fold path:
-the host fold is the same numpy/C++ code, and the device side runs the
+Port of ``raphtory_tpu/engine/hopbatch.py`` on its serial fold paths: the
+host fold is the same numpy/C++ code, and the device side runs the
 hand-written kernels of ``ops/columns.py`` — K1 (``masks_from_deltas``)
-rebuilds the masks, K2a (``column_out_degree``) and K2b
+rebuilds the masks from a base plus per-hop deltas (the default
+``RTPU_FOLD=delta`` route), K3 (``column_masks``) builds them from the
+hop-major ``[H, m_pad]`` fold columns the host materialises instead
+(``RTPU_FOLD=host``, and ``run_columns`` over ``core/bulk.bulk_hop_columns``),
+K4 (``scale_hop_masks``) from the bulk loader's add-only base and update
+lists (``run_scale_columns``), K2a (``column_out_degree``) and K2b
 (``column_pull_sum``) carry the power iteration's edge passes, and K2c
 (``pagerank_update``) its superstep epilogue (dangling mass, damping, tol
 halting with frozen columns); K5 (``ops/minplus.cc_superstep``) and K6
@@ -28,6 +33,7 @@ full actor handshake once per hop (``RangeAnalysisTask.scala:18-35``).
 from __future__ import annotations
 
 import logging
+import os
 import time as _time
 
 import numpy as np
@@ -37,7 +43,8 @@ from ..core.events import EDGE_ADD, EventLog
 from ..core.sweep import SweepBuilder
 from ..ops import columns, minplus
 from ..utils.device import resolve_device
-from .device_sweep import GlobalTables, _device_edges, normalize_windows
+from .device_sweep import (DeviceEdges, GlobalTables, _device_edges,
+                           normalize_windows)
 
 _log = logging.getLogger(__name__)
 
@@ -172,6 +179,20 @@ def _pad_weight_deltas(weight_deltas, H: int):
     return pos, val
 
 
+def _put(a, dev):
+    """A host array on ``dev``; a tensor passes through as it is."""
+    return torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+
+
+def _tile_warm(r_init, H: int, W: int):
+    """The warm start of an ``H``-hop dispatch: the last hop's W rows of the
+    previous output ``r_init [C_prev, n_pad]``, tiled per hop, as ``[n_pad,
+    H*W]`` (None when cold)."""
+    if r_init is None:
+        return None
+    return r_init[-W:].repeat(H, 1).t().contiguous()
+
+
 def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
                       windows, *, algo_args: tuple, edges, seed_mask=None,
                       r_init=None, weight_base=None, weight_deltas=None,
@@ -211,8 +232,7 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     dev = edges.e_src.device
 
     def put(a):
-        return torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) \
-            else a
+        return _put(a, dev)
 
     info = np.iinfo(tdt)
     lo = put(np.clip(T_col - w_col, info.min, info.max).astype(tdt))
@@ -225,9 +245,7 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
         bv_lat, bv_alive, put(dv_pos), put(dv_lat), put(dv_alive),
         lo, nowin, H, W, h0_delta)
     adv = (fe_lat, fe_alive, fv_lat, fv_alive)
-    warm = None
-    if r_init is not None:
-        warm = r_init[-W:].repeat(H, 1).t().contiguous()
+    warm = _tile_warm(r_init, H, W)
     n_pad = tables.n_pad
     if kind == "pagerank":
         damping, tol, max_steps = algo_args
@@ -251,13 +269,211 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     return out, steps, adv
 
 
+def _host_edges(tables, dev, full: bool):
+    """The static edge tables of ``tables`` uploaded to ``dev``: the whole
+    ``DeviceEdges`` (``full``: the min-combine kernels walk both
+    directions) or its first three fields, all the PageRank passes read (a
+    ``core/bulk.BulkGraph`` has no source-ordered index)."""
+    fields = DeviceEdges._fields if full else DeviceEdges._fields[:3]
+    got = tuple(_put(getattr(tables, f), dev) for f in fields)
+    return DeviceEdges(*got) if full else got
+
+
+def _dispatch_columns(tables, cols, hop_times, windows, dev):
+    """Upload the host fold columns ``cols = (e_lat, e_alive, v_lat,
+    v_alive)`` (hop-major ``[H, m_pad]`` / ``[H, n_pad]``) and build the
+    window masks on the device (K3). Returns ``(H, W, me [m_pad, C], mv
+    [n_pad, C])``."""
+    H, C, hop_of_col, T_col, w_col = _column_layout(hop_times, windows)
+    tdt = tables.tdtype
+    info = np.iinfo(tdt)
+    me, mv = columns.column_masks(
+        *(_put(a, dev) for a in cols), _put(hop_of_col, dev),
+        _put(np.clip(T_col - w_col, info.min, info.max).astype(tdt), dev),
+        _put(w_col < 0, dev))
+    return H, C // H, me, mv
+
+
+def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
+                *, damping: float = 0.85, tol: float = 1e-7,
+                max_steps: int = 20, edges=None, r_init=None, device=None):
+    """Columnar PageRank over prebuilt per-hop fold columns — the
+    ``RTPU_FOLD=host`` route of ``HopBatchedPageRank`` and the add-only bulk
+    loader's (``core/bulk.bulk_hop_columns``). ``tables`` needs the
+    GlobalTables / BulkGraph surface (``n_pad``, ``e_src``, ``e_dst``,
+    ``in_indptr``, ``tdtype``); ``edges`` (device tensors, ``DeviceEdges``
+    or its first three fields) skips their upload. ``r_init`` (the
+    previous chunk's full ``[C_prev, n_pad]`` output, on the device)
+    warm-starts from its last hop's W rows, tiled per hop.
+    ``device=None`` is the CUDA card. Returns ``(ranks [H*W, n_pad]
+    hop-major, steps)``."""
+    dev = resolve_device(device)
+    H, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
+                                     hop_times, windows, dev)
+    if edges is None:
+        edges = _host_edges(tables, dev, full=False)
+    return _pagerank_columns(me, mv, *edges[:3], tables.n_pad,
+                             float(damping), float(tol), int(max_steps),
+                             r_init=_tile_warm(r_init, H, W))
+
+
+def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
+                   windows, *, max_steps: int = 100, edges=None, device=None):
+    """Columnar connected components over prebuilt per-hop fold columns
+    (K3, then K5 per superstep). ``edges`` is the device ``DeviceEdges``
+    (uploaded from ``tables`` when None). Returns ``(labels [H*W, n_pad],
+    steps)``."""
+    dev = resolve_device(device)
+    _, _, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
+                                     hop_times, windows, dev)
+    if edges is None:
+        edges = _host_edges(tables, dev, full=True)
+    return _cc_columns(me, mv, edges, tables.n_pad, int(max_steps))
+
+
+def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
+                    windows, seed_vids, *, directed: bool = False,
+                    max_steps: int = 100, edges=None, weight_cols=None,
+                    device=None):
+    """Columnar min-plus traversal over prebuilt fold columns (K3, then K6
+    per superstep); ``seed_vids`` are external vertex ids looked up in the
+    global dense space (absent ids ignored). ``weight_cols`` (``[H,
+    m_pad]`` f32, missing folded to 1.0) turns hop counting into weighted
+    SSSP: it uploads transposed, as the ``[m_pad, H]`` block K6 reads.
+    Returns ``(distances [H*W, n_pad], steps)``."""
+    dev = resolve_device(device)
+    _, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
+                                     hop_times, windows, dev)
+    if edges is None:
+        edges = _host_edges(tables, dev, full=True)
+    ew = None
+    if weight_cols is not None:
+        ew = _put(weight_cols, dev).t().contiguous()
+    seed_mask = _put(_seed_mask(tables, seed_vids), dev)
+    return _bfs_columns(me, mv, edges, tables.n_pad, int(max_steps),
+                        bool(directed), seed_mask, ew, W)
+
+
+def _delta_fingerprint(deltas_e, deltas_v) -> tuple:
+    """Cheap identity of the delta lists a scale payload was built from:
+    per-hop lengths plus an xor checksum over BOTH the pos and time arrays
+    (same positions with different update times are different deltas). A
+    payload built from DIFFERENT deltas must fail loudly in
+    ``run_scale_columns`` instead of returning mislabelled results."""
+    def xor(a):
+        a = np.asarray(a)
+        if not len(a):
+            return 0
+        return int(np.bitwise_xor.reduce(a.astype(np.int64, copy=False)))
+
+    def fp(deltas):
+        return tuple((int(len(p)), xor(p) ^ (xor(t) << 1))
+                     for p, t in deltas)
+
+    return fp(deltas_e), fp(deltas_v)
+
+
+def prepare_scale_payload(deltas_e, deltas_v, hop_times, windows,
+                          device=None):
+    """Pad the per-hop update lists and compute the column thresholds ONCE
+    for repeated ``run_scale_columns`` calls over the same sweep, and
+    upload them to ``device`` (None: the CUDA card) — re-padding and
+    re-uploading per sweep would put the host→device copy inside a timed
+    loop. Updates pad with ``(pos 0, INT32_MIN)``, a max no-op; thresholds
+    are ``max(T - w, 0)``, or 0 unwindowed. Returns ``(U_e, U_v, de_pos,
+    de_t, dv_pos, dv_t, thr, fingerprint)``."""
+    dev = resolve_device(device)
+    H = len(hop_times)
+    wlist = normalize_windows(windows)
+    W = len(wlist)
+    thr = np.zeros(H * W, np.int32)
+    for j, T in enumerate(int(x) for x in hop_times):
+        for i, w in enumerate(wlist):
+            thr[j * W + i] = 0 if w < 0 else max(int(T) - int(w), 0)
+
+    def pad_for(deltas):
+        longest = max((len(p) for p, _ in deltas), default=1)
+        return max(1024, 1 << int(np.ceil(np.log2(max(longest, 1)))))
+
+    def pad_deltas(deltas, U):
+        pos = np.zeros((H, U), np.int32)
+        t = np.full((H, U), np.iinfo(np.int32).min, np.int32)
+        for h, (p, tt) in enumerate(deltas):
+            if len(p) > U:
+                raise ValueError(f"delta {h} exceeds pad {U}")
+            pos[h, : len(p)] = p
+            t[h, : len(p)] = tt
+        return pos, t
+
+    U_e, U_v = pad_for(deltas_e), pad_for(deltas_v)
+    de_pos, de_t = pad_deltas(deltas_e, U_e)
+    dv_pos, dv_t = pad_deltas(deltas_v, U_v)
+    # fingerprint: the (hop_times, windows) grid AND the delta lists — a
+    # payload prepared for one sweep must not silently relabel another
+    # same-shape sweep's results
+    fp = (tuple(int(x) for x in hop_times), tuple(wlist),
+          _delta_fingerprint(deltas_e, deltas_v))
+    return (U_e, U_v, *(_put(a, dev) for a in (de_pos, de_t, dv_pos, dv_t,
+                                                thr)), fp)
+
+
+def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
+                      windows, *, damping: float = 0.85, tol: float = 0.0,
+                      max_steps: int = 20, edges=None, prepared=None,
+                      device=None):
+    """Columnar PageRank over ``core/bulk.bulk_hop_deltas`` output: the
+    base fold rows and per-hop update lists go to the device, K4 rebuilds
+    every hop's masks there, and every (hop, window) view runs as one
+    column (K2). Returns ``(ranks [H*W, n_pad] hop-major, steps)``;
+    unwindowed views use a negative window (``run_columns``' convention).
+    ``base_e``/``base_v`` may already be device tensors, ``edges`` the
+    device ``(e_src, e_dst, in_indptr)``, and ``prepared`` (from
+    ``prepare_scale_payload``) the uploaded update lists, so repeated
+    sweeps ship nothing; a payload prepared for another grid or other
+    deltas raises ``ValueError``. ``device=None`` is the CUDA card."""
+    dev = resolve_device(device)
+    H = len(hop_times)
+    wlist = normalize_windows(windows)
+    W = len(wlist)
+    if prepared is None:
+        prepared = prepare_scale_payload(deltas_e, deltas_v, hop_times,
+                                         windows, device=dev)
+    else:
+        # caller-supplied payload: verify it was built from THESE deltas
+        # and THIS grid (the fresh-built branch above trivially was)
+        fp = prepared[7]
+        want = (tuple(int(x) for x in hop_times), tuple(wlist),
+                _delta_fingerprint(deltas_e, deltas_v))
+        if fp[:2] != want[:2]:
+            raise ValueError(
+                "prepared payload was built for a different sweep grid "
+                f"(prepared {fp[0][:2]}.../{fp[1]}, called with "
+                f"{want[0][:2]}.../{want[1]}) — prepare_scale_payload must "
+                "see the SAME hop_times/windows (and the same deltas)")
+        if fp[2] != want[2]:
+            raise ValueError(
+                "prepared payload was built from DIFFERENT delta lists "
+                "(per-hop length/checksum mismatch) — results would be "
+                "mislabelled; re-run prepare_scale_payload on these deltas")
+    _, _, de_pos, de_t, dv_pos, dv_t, thr, _ = prepared
+    me = columns.scale_hop_masks(_put(base_e, dev), de_pos, de_t, thr, H, W)
+    mv = columns.scale_hop_masks(_put(base_v, dev), dv_pos, dv_t, thr, H, W)
+    if edges is None:
+        edges = _host_edges(bulk, dev, full=False)
+    return _pagerank_columns(me, mv, *edges[:3], bulk.n_pad, float(damping),
+                             float(tol), int(max_steps))
+
+
 class _HopBatched:
-    """Shared incremental fold → per-hop state deltas (deletes included).
+    """Shared incremental fold → per-hop state (deletes included).
 
     ``run(hop_times, windows, chunks=k)`` splits the sweep into ``k`` equal
-    hop groups, each folded on the host and then dispatched; the first
-    group ships a base snapshot, later groups only deltas onto the
-    device-resident advanced base. Results match ``chunks=1`` (hop-major
+    hop groups, each folded on the host and then dispatched. On the default
+    delta route (``RTPU_FOLD=delta``) the first group ships a base
+    snapshot, later groups only deltas onto the device-resident advanced
+    base (K1); on ``RTPU_FOLD=host`` every group ships its hop-major
+    ``[H, m_pad]`` fold columns (K3). Both routes build the same masks, so
+    their results are bitwise equal. Results match ``chunks=1`` (hop-major
     concatenation; bitwise for CC and BFS/SSSP, within solver tolerance for
     PageRank)."""
 
@@ -302,12 +518,22 @@ class _HopBatched:
     def _edges(self):
         return _device_edges(self._log, self.tables, self.device)
 
+    def _use_delta_fold(self) -> bool:
+        """The fold route, read at dispatch: ``RTPU_FOLD=host`` ships the
+        host-built fold columns (K3), anything else (default ``delta``)
+        the base plus per-hop deltas (K1)."""
+        return os.environ.get("RTPU_FOLD", "delta") != "host"
+
     def host_column_bytes(self, n_hops: int) -> int:
-        """Host bytes the delta fold materialises for a sweep: O(base),
-        whatever ``n_hops``. Routing layers size admission guards from
+        """Host bytes the fold will materialise for an ``n_hops`` sweep —
+        O(base) on the delta route, O(H · (m_pad + n_pad)) on the
+        host-column route. Routing layers size their admission guards from
         THIS, not from engine internals."""
         t = self.tables
-        return (t.m_pad + t.n_pad) * (np.dtype(t.tdtype).itemsize + 1)
+        per_row = np.dtype(t.tdtype).itemsize + 1   # lat + alive
+        if self._use_delta_fold():
+            return (t.m_pad + t.n_pad) * per_row
+        return n_hops * (t.m_pad + t.n_pad) * per_row
 
     def device_mask_bytes(self, n_cols: int) -> int:
         """Device bytes of the [m_pad+n_pad, C] bool masks every columnar
@@ -315,6 +541,9 @@ class _HopBatched:
         return (self.tables.m_pad + self.tables.n_pad) * n_cols
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
+        raise NotImplementedError
+
+    def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
         raise NotImplementedError
 
     def _delta_base_args(self, ship_base):
@@ -365,8 +594,12 @@ class _HopBatched:
                 "is not a contraction (stale state would be wrong, not "
                 "just slower)")
         self._epoch_seed = None
-        if warm_state is not None and (self.supports_warm_start
-                                       or self.supports_epoch_warm):
+        # the min-merge seed of CC/BFS rides the delta route only; the
+        # host-column route has no warm plumbing for it (as in the
+        # reference)
+        if warm_state is not None and (
+                self.supports_warm_start
+                or (self.supports_epoch_warm and self._use_delta_fold())):
             self._epoch_seed = warm_state
         hop_times = [int(x) for x in hop_times]
         chunks = max(1, min(int(chunks), len(hop_times)))
@@ -385,6 +618,7 @@ class _HopBatched:
     def _run_chunks(self, hop_times, windows, chunks, warm_start,
                     hop_callback):
         self._check_forward(hop_times)
+        delta = self._use_delta_fold()
         if chunks == 1 or len(hop_times) % chunks:
             # unequal groups are not pipelined: one dispatch
             if warm_start and chunks > 1:
@@ -398,8 +632,10 @@ class _HopBatched:
             groups = [hop_times[c * per: (c + 1) * per]
                       for c in range(chunks)]
         outs, steps = [], 0
+        fold = self._fold_deltas if delta else self._fold_columns
+        dispatch = self._dispatch_deltas if delta else self._dispatch_cols
         for group in groups:
-            _, payload = self._fold_deltas(group, hop_callback)
+            _, payload = fold(group, hop_callback)
             # warm start: the previous chunk's FULL output (the epoch seed
             # for the first dispatch); its last hop's W rows are tiled per
             # hop of this group inside the dispatch
@@ -408,8 +644,7 @@ class _HopBatched:
             else:
                 r_init = self._epoch_seed
             d0 = _time.perf_counter()
-            out, st = self._dispatch_deltas(payload, group, windows,
-                                            r_init=r_init)
+            out, st = dispatch(payload, group, windows, r_init=r_init)
             self.dispatch_seconds += _time.perf_counter() - d0
             outs.append(out)
             steps = max(steps, st)
@@ -442,6 +677,49 @@ class _HopBatched:
         bv_lat[:nv] = t.cast_times(sw.v_lat)
         bv_alive[:nv] = sw.v_alive
         return (be_lat, be_alive, bv_lat, bv_alive)
+
+    def _fold_columns(self, hop_times, hop_callback=None):
+        """Host-column fold: hop-major state columns ``[H, m_pad]`` /
+        ``[H, n_pad]`` (lat, alive) — hop 0 writes the full fold state,
+        every later hop copies the previous row (contiguous in this layout)
+        and scatters the hop's touched-entity delta (``sweep.last_delta``).
+        The device builds the masks from them (K3)."""
+        f0 = _time.perf_counter()
+        # this route advances the shared SweepBuilder WITHOUT updating the
+        # running delta base, and the device-resident advanced base falls
+        # behind it: a later delta-route call must rebuild both, or it
+        # would scatter one hop's delta onto a stale base
+        self._delta_base = None
+        self._dev_base = None
+        t = self.tables
+        hop_times = [int(x) for x in hop_times]
+        self._check_forward(hop_times)
+        H = len(hop_times)
+        # every row is written whole: row 0 from the fold state, the rest
+        # copied from the row before
+        e_lat, e_alive, v_lat, v_alive = cols = tuple(
+            np.empty((H, size), dt) for size, dt in (
+                (t.m_pad, t.tdtype), (t.m_pad, bool), (t.n_pad, t.tdtype),
+                (t.n_pad, bool)))
+        for j, T in enumerate(hop_times):
+            self.sw._advance(T)
+            if hop_callback is not None:
+                hop_callback(T, self.sw)
+            if j == 0:
+                for col, row in zip(cols, self._materialise_base(self.sw)):
+                    col[0] = row
+                continue
+            for col in cols:
+                col[j] = col[j - 1]
+            de, dv = self._delta_eng(self.sw.last_delta)
+            for (pos, lat, alive), lat_col, alive_col in (
+                    (de, e_lat, e_alive), (dv, v_lat, v_alive)):
+                lat_col[j, pos] = lat
+                alive_col[j, pos] = alive
+        self.fold_seconds += _time.perf_counter() - f0
+        self.ship_bytes += (e_lat.nbytes + e_alive.nbytes + v_lat.nbytes
+                            + v_alive.nbytes)
+        return hop_times, (e_lat, e_alive, v_lat, v_alive)
 
     def _delta_eng(self, d):
         """``sweep.last_delta`` → engine-coordinate (pos, lat, alive)
@@ -521,6 +799,12 @@ class HopBatchedPageRank(_HopBatched):
         super().__init__(log, device=device)
         self.damping, self.tol, self.max_steps = damping, tol, max_steps
 
+    def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
+        return run_columns(
+            self.tables, *cols, hop_times, windows, damping=self.damping,
+            tol=self.tol, max_steps=self.max_steps, edges=self._edges,
+            r_init=r_init, device=self.device)
+
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         base, deltas_e, deltas_v = payload
         base, h0 = self._delta_base_args(base)
@@ -563,6 +847,13 @@ class HopBatchedBFS(_HopBatched):
                 _seed_mask(self.tables, self.seeds)).to(self.device)
         return self._seed_dev
 
+    def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
+        # r_init is never set here: no warm start on the host-column route
+        return run_bfs_columns(
+            self.tables, *cols, hop_times, windows, self.seeds,
+            directed=self.directed, max_steps=self.max_steps,
+            edges=self._edges, device=self.device)
+
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         # r_init is the cross-epoch warm seed (min-merged distances);
         # validity is gated by the caller (_bfs_columns docstring)
@@ -591,7 +882,10 @@ class HopBatchedSSSP(HopBatchedBFS):
     supports_epoch_warm = False
 
     def host_column_bytes(self, n_hops: int) -> int:
-        return super().host_column_bytes(n_hops) + self.tables.m_pad * 4
+        extra = self.tables.m_pad * 4   # the weight base (delta route)
+        if not self._use_delta_fold():
+            extra = n_hops * self.tables.m_pad * 4   # [H, m_pad] f32 cols
+        return super().host_column_bytes(n_hops) + extra
 
     def device_mask_bytes(self, n_cols: int) -> int:
         # the reference's accounting ([m_pad, C] f32 weights), kept so the
@@ -639,6 +933,27 @@ class HopBatchedSSSP(HopBatchedBFS):
             self._w_pos = t.eng_pos(enc)[order]
         self._w_cursor = 0
 
+    def _weight_cols(self, hop_times):
+        """The host-column route's ``[H, m_pad]`` f32 weight columns: row j
+        is the running per-pair weight state at ``hop_times[j]``."""
+        H = len(hop_times)
+        cols = np.empty((H, self.tables.m_pad), np.float32)
+        for j, T in enumerate(hop_times):
+            hi = int(np.searchsorted(self._w_t, T, side="right"))
+            if hi > self._w_cursor:
+                # ascending (time, row) order: last write = latest value
+                self._w_state[self._w_pos[self._w_cursor:hi]] = \
+                    self._w_val[self._w_cursor:hi]
+                self._w_cursor = hi
+            cols[j] = self._w_state
+        return cols
+
+    def _fold_columns(self, hop_times, hop_callback=None):
+        hop_times, cols = super()._fold_columns(hop_times, hop_callback)
+        wcols = self._weight_cols(hop_times)
+        self.ship_bytes += wcols.nbytes
+        return hop_times, (*cols, wcols)
+
     def _weight_deltas(self, hop_times, resident: bool = False):
         """Per-hop ``(pos, val)`` weight updates plus the running state at
         hop 0 of this batch (``w_base``). ``resident`` mirrors the mask
@@ -676,6 +991,13 @@ class HopBatchedSSSP(HopBatchedBFS):
                            *self._weight_deltas(hop_times,
                                                 resident=payload[0] is None))
 
+    def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
+        *cols, wcols = cols
+        return run_bfs_columns(
+            self.tables, *cols, hop_times, windows, self.seeds,
+            directed=self.directed, max_steps=self.max_steps,
+            edges=self._edges, weight_cols=wcols, device=self.device)
+
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         base, deltas_e, deltas_v, w_base, w_deltas = payload
         base, h0 = self._delta_base_args(base)
@@ -699,6 +1021,12 @@ class HopBatchedCC(_HopBatched):
     def __init__(self, log: EventLog, max_steps: int = 100, device=None):
         super().__init__(log, device=device)
         self.max_steps = max_steps
+
+    def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
+        # r_init is never set here: no warm start on the host-column route
+        return run_cc_columns(
+            self.tables, *cols, hop_times, windows, max_steps=self.max_steps,
+            edges=self._edges, device=self.device)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         # r_init is the cross-epoch warm seed (min-merged labels);

@@ -1,13 +1,16 @@
 """Kernels of the hop-batched columnar engine: K1 (with K6w, the weighted
-SSSP weight-state rebuild beside it) and K2 (the edge passes and the
-superstep update of the PageRank power iteration); the build and launch
+SSSP weight-state rebuild beside it), K3 (the host-column route's window
+masks), K4 (the bulk scale path's per-hop masks) and K2 (the edge passes
+and the superstep update of the PageRank power iteration); the build and
+launch
 plumbing that ``ops/minplus.py`` (K5/K6), ``ops/segment.py`` (K7) and
 ``ops/resident.py`` (K9a, K9b, K8u) share.
 
 Each kernel has three parts here:
 
-* a **wrapper** (``masks_from_deltas``, ``column_out_degree``,
-  ``column_pull_sum``, ``pagerank_update``) that checks device, dtype, shape
+* a **wrapper** (``masks_from_deltas``, ``column_masks``,
+  ``scale_hop_masks``, ``column_out_degree``, ``column_pull_sum``,
+  ``pagerank_update``) that checks device, dtype, shape
   and contiguity, allocates the outputs, and routes by the tensors' device:
   CPU tensors take the plain twin, CUDA tensors launch the hand-written
   kernel (or raise — there is no fallback). Each kernel launch adds one to
@@ -42,7 +45,9 @@ _BUILD = _CSRC / "_build"
 _LIBS = {
     "masks": ("masks.cu", ("rtpu_masks_from_deltas_i32",
                            "rtpu_masks_from_deltas_i64",
-                           "rtpu_weights_from_deltas")),
+                           "rtpu_weights_from_deltas",
+                           "rtpu_column_masks_i32", "rtpu_column_masks_i64",
+                           "rtpu_scale_hop_masks")),
     "pagerank_columns": ("pagerank_columns.cu", ("rtpu_column_out_degree",
                                                  "rtpu_column_pull_sum",
                                                  "rtpu_pagerank_update")),
@@ -62,6 +67,13 @@ _ARGTYPES = {
     # len, H, U, h0 | d_pos, d_val, cur_w, out, stream | launched
     "rtpu_weights_from_deltas": 4 * [ctypes.c_int64]
     + 5 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
+    # m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
+    # me, mv, stream
+    "rtpu_column_masks_i32": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
+    "rtpu_column_masks_i64": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
+    # len, H, W, U | base, d_pos, d_t, thr, snap, out, stream | launched
+    "rtpu_scale_hop_masks": 4 * [ctypes.c_int64] + 7 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # m, C | me, src, deg, stream
     "rtpu_column_out_degree": 2 * [ctypes.c_int64] + 4 * [ctypes.c_void_p],
     # n, C | indptr, src, me, rd, agg, stream
@@ -88,7 +100,8 @@ _ARGTYPES = {
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-LAUNCHES = {"masks_from_deltas": 0, "column_out_degree": 0,
+LAUNCHES = {"masks_from_deltas": 0, "column_masks": 0,
+            "scale_hop_masks": 0, "column_out_degree": 0,
             "column_pull_sum": 0, "pagerank_update": 0,
             "cc_superstep": 0, "minplus_superstep": 0,
             "weights_from_deltas": 0, "segment_combine": 0,
@@ -328,6 +341,118 @@ def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
         _ptr(out), _stream(out), ctypes.byref(launched))
     _launch(name, err, launched.value)
     return out, cur
+
+
+# ---------------------------------------------------------------- K3
+
+#: most mask columns K3/K4 take: their grid has one block row per 32
+#: columns, and a CUDA grid at most 65,535 rows
+_MAX_MASK_COLUMNS = 65_535 * 32
+
+
+def _check_columns(name: str, C: int) -> None:
+    if C > _MAX_MASK_COLUMNS:
+        raise ValueError(f"{name}: {C} columns, more than the kernel's "
+                         f"{_MAX_MASK_COLUMNS}")
+
+
+def column_masks_plain(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
+                       nowin):
+    """Twin of ``rtpu_column_masks``: per column c, ``alive[hop_of_col[c]]
+    & (nowin[c] | lat[hop_of_col[c]] >= lo[c])``, transposed to the
+    entity-major layout. Returns ``(me [m, C], mv [n, C])``."""
+    hop = hop_of_col.long()
+
+    def masks(lat, alive):
+        return (alive[hop] & (nowin[:, None] | (lat[hop] >= lo[:, None]))) \
+            .t().contiguous()
+
+    return masks(e_lat, e_alive), masks(v_lat, v_alive)
+
+
+def column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin):
+    """K3 wrapper (replaces ``raphtory_tpu/engine/hopbatch.py:50``): the
+    host-column route's window masks. ``e_lat``/``e_alive [H, m]`` and
+    ``v_lat``/``v_alive [H, n]`` are the host fold's hop-major columns
+    (int32 or int64 times, bool alive), ``hop_of_col [C]`` int32 names each
+    column's hop in ``[0, H)``, ``lo [C]`` is ``clip(T_col - w_col)`` in
+    the time dtype and ``nowin [C]`` is ``w_col < 0``. Returns
+    ``(me [m, C], mv [n, C])`` bool, entity-major."""
+    name = "column_masks"
+    H, m = e_lat.shape if e_lat.dim() == 2 else (-1, -1)
+    n = v_lat.shape[1] if v_lat.dim() == 2 else -1
+    C = hop_of_col.shape[0] if hop_of_col.dim() == 1 else -1
+    tdt = e_lat.dtype
+    _expect(name, e_lat, "e_lat", _TIME_DTYPES, (H, m))
+    _expect(name, e_alive, "e_alive", (torch.bool,), (H, m))
+    _expect(name, v_lat, "v_lat", (tdt,), (H, n))
+    _expect(name, v_alive, "v_alive", (torch.bool,), (H, n))
+    _expect(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
+    _expect(name, lo, "lo", (tdt,), (C,))
+    _expect(name, nowin, "nowin", (torch.bool,), (C,))
+    _check_columns(name, C)
+    if C and H <= 0:
+        raise ValueError(f"{name}: {C} columns over no hop")
+    tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin)
+    if not _on_cuda(name, *tensors):
+        return column_masks_plain(*tensors)
+    me = torch.empty((m, C), dtype=torch.bool, device=e_lat.device)
+    mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
+    fn = _fn("masks", "rtpu_column_masks_i32" if tdt == torch.int32
+             else "rtpu_column_masks_i64")
+    err = fn(m, n, H, C, *(_ptr(t) for t in tensors), _ptr(me), _ptr(mv),
+             _stream(me))
+    _launch(name, err, 1 if C and m + n else 0)
+    return me, mv
+
+
+# ---------------------------------------------------------------- K4
+
+def scale_hop_masks_plain(base, d_pos, d_t, thr, H: int, W: int):
+    """Twin of ``rtpu_scale_hop_masks``: per hop, the running scatter-max of
+    the hop's ``(pos, t)`` updates into a copy of the base state (positions
+    outside ``[0, len)`` dropped; the pads ``(0, INT32_MIN)`` are a max
+    no-op), then the hop's W columns ``cur >= thr``. Returns ``[len, H*W]``
+    bool, hop-major columns."""
+    cur = base.clone()
+    n = cur.shape[0]
+    out = torch.empty((n, H * W), dtype=torch.bool, device=cur.device)
+    for h in range(H):
+        p = d_pos[h].long()
+        keep = (p >= 0) & (p < n)
+        cur.scatter_reduce_(0, p[keep], d_t[h][keep], "amax",
+                            include_self=True)
+        sl = slice(h * W, (h + 1) * W)
+        out[:, sl] = cur[:, None] >= thr[sl][None, :]
+    return out
+
+
+def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int):
+    """K4 wrapper (replaces ``_compiled_scale.hop_masks``,
+    ``raphtory_tpu/engine/hopbatch.py:2129-2150``, in both its unrolled and
+    its ``RTPU_SCALE_MASKS=scan`` shape): the add-only scale path's masks
+    of one entity table. ``base [len]`` int32 (INT32_MIN = never seen),
+    ``d_pos``/``d_t [H, U]`` int32 padded update lists, ``thr [H*W]`` int32
+    column thresholds → ``[len, H*W]`` bool. The kernel holds an ``[H,
+    len]`` int32 snapshot of the hop states while it runs."""
+    name = "scale_hop_masks"
+    n = base.shape[0]
+    U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+    _expect(name, base, "base", (torch.int32,), (n,))
+    _expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
+    _expect(name, d_t, "d_t", (torch.int32,), (H, U))
+    _expect(name, thr, "thr", (torch.int32,), (H * W,))
+    _check_columns(name, H * W)
+    if not _on_cuda(name, base, d_pos, d_t, thr):
+        return scale_hop_masks_plain(base, d_pos, d_t, thr, H, W)
+    snap = torch.empty((H, n), dtype=torch.int32, device=base.device)
+    out = torch.empty((n, H * W), dtype=torch.bool, device=base.device)
+    launched = ctypes.c_int64(0)
+    err = _fn("masks", "rtpu_scale_hop_masks")(
+        n, H, W, U, _ptr(base), _ptr(d_pos), _ptr(d_t), _ptr(thr),
+        _ptr(snap), _ptr(out), _stream(out), ctypes.byref(launched))
+    _launch(name, err, launched.value)
+    return out
 
 
 # ---------------------------------------------------------------- K2a

@@ -154,3 +154,61 @@ def test_pagerank_program_functions_match_reference():
                                rtol=1e-5, atol=1e-7)
     reduced = prog.reduce(got, v)
     assert abs(reduced["sum"] - 1.0) < 1e-4 and reduced["top10"]
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("chunks", [1, 2, 3])
+@pytest.mark.parametrize("seed", [0, "gab"])
+def test_host_route_matches_reference(seed, chunks, warm, monkeypatch):
+    """``RTPU_FOLD=host`` on both sides: the host builds the ``[H,
+    m_pad]`` fold columns, and the masks come from them (K3's twin); every
+    dispatch ships its columns."""
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    jlog, hops = _log(seed)
+    windows = [1000, 25, None]
+    j, t = _both(jlog)
+    _check(j.run(hops, windows, chunks=chunks, warm_start=warm),
+           t.run(hops, windows, chunks=chunks, warm_start=warm),
+           warm and chunks > 1)
+    tb = t.tables
+    row = np.dtype(tb.tdtype).itemsize + 1
+    assert t.ship_bytes == len(hops) * (tb.m_pad + tb.n_pad) * row
+    assert t.host_column_bytes(len(hops)) == t.ship_bytes
+    monkeypatch.setenv("RTPU_FOLD", "delta")
+    assert t.host_column_bytes(len(hops)) == (tb.m_pad + tb.n_pad) * row
+
+
+def test_fold_route_toggle_keeps_the_delta_base_fresh(monkeypatch):
+    """Port of the reference's ``test_fold_mode_toggle_keeps_delta_base_
+    fresh``: a host-route run on a shared engine invalidates the running
+    host base and the device-resident base, so a later delta-route run
+    rebuilds them instead of scattering one hop onto a stale base."""
+    from raphtory_tpu_torch.engine import hopbatch as thb
+
+    jlog = random_log(np.random.default_rng(13), n_events=900, n_ids=40,
+                      t_span=1000)
+    log = event_log_from_arrays(jlog.arrays())
+    hb = HopBatchedPageRank(log, tol=0.0, max_steps=8, device="cpu")
+    h0s = []
+    real = thb.run_columns_delta
+
+    def spy(*a, **kw):
+        h0s.append(kw["h0_delta"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(thb, "run_columns_delta", spy)
+    monkeypatch.setenv("RTPU_FOLD", "delta")
+    hb.run([100, 200], [None])
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    hb.run([300, 400], [None])
+    assert hb._dev_base is None and hb._delta_base is None
+    monkeypatch.setenv("RTPU_FOLD", "delta")
+    got, steps = hb.run([500, 600], [None])
+    # the third run shipped a fresh base: no h0 catch-up onto stale state
+    assert h0s == [False, False]
+    ref, ref_steps = HopBatchedPageRank(log, tol=0.0, max_steps=8,
+                                        device="cpu").run([500, 600], [None])
+    assert np.array_equal(got.numpy(), ref.numpy()) and steps == ref_steps
+    want, _ = JHopBatched(jlog, tol=0.0, max_steps=8).run([500, 600], [None])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)

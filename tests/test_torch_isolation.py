@@ -31,6 +31,8 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/engine/bsp.py",
     "raphtory_tpu_torch/engine/device_sweep.py",
     "raphtory_tpu_torch/algorithms/degree.py",
+    "raphtory_tpu_torch/core/bulk.py",
+    "raphtory_tpu_torch/native/lib.py",
 )
 
 

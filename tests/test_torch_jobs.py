@@ -155,6 +155,43 @@ def test_sssp_range_job_matches_reference(weighted):
     assert got[-1]["result"]["reached"] > 3
 
 
+@pytest.mark.parametrize("jump", [100, 75])   # 6 hops (3 chunks) / 8 (4)
+def test_range_job_on_the_host_route_matches_the_delta_route(jump,
+                                                            monkeypatch):
+    """A PageRank Range job on ``RTPU_FOLD=host`` (host-built fold columns,
+    K3) gives the delta route's rows: the same masks, so the same ranks to
+    the bit, the same steps and the same reduced results."""
+    jlog = gab_like_log(1_500, 15_000, seed=5, t_span=1_000)
+    prog = program_from_params("PageRank", tol=1e-7, max_steps=20)
+    q = RangeQuery(start=450, end=1_000, jump=jump, windows=(1_000, 200, 50))
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    host = _run_port(jlog, prog, q)
+    monkeypatch.setenv("RTPU_FOLD", "delta")
+    delta = _run_port(jlog, prog, q)
+    _same_rows(host, delta, len(range(450, 1_001, jump)) * 3)
+
+
+def test_host_route_admission_guard_declines_oversized_sweeps(monkeypatch):
+    """The columnar route's host-memory guard reads the engine's
+    ``host_column_bytes`` by route: 1,000 hops of ``[m_pad]`` fold columns
+    pass it on the delta route (O(base)) and are declined on
+    ``RTPU_FOLD=host`` (O(H · m_pad)), where the job fails, naming the
+    guard, before any fold."""
+    from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
+
+    log = event_log_from_arrays(gab_like_log(20_000, 120_000, seed=3,
+                                             t_span=2_000).arrays())
+    hb = HopBatchedPageRank(log, device="cpu")
+    assert hb.host_column_bytes(1_000) <= 1 << 29
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    assert hb.host_column_bytes(1_000) > 1 << 29
+    mgr = AnalysisManager(TemporalGraph(log, device="cpu"), device="cpu")
+    job = mgr.submit(program_from_params("PageRank"),
+                     RangeQuery(start=1_000, end=1_999, jump=1, window=500))
+    assert job.wait(120) and job.status == "failed"
+    assert "memory guards" in job.error and mgr.results(job.id) == []
+
+
 def _run_jobs(mgr, jobs):
     """Submit (program, query) pairs one after another on ``mgr``; all
     rows in order."""

@@ -1,0 +1,259 @@
+"""K3 (``ops/columns.column_masks``) and K4 (``scale_hop_masks``) through
+their plain twins, and the bulk-loaded runners around them
+(``engine/hopbatch.run_columns`` over ``bulk_hop_columns``,
+``run_scale_columns`` over ``bulk_hop_deltas``), against the JAX package's
+functions on the same numpy inputs: masks bitwise, PageRank within the
+reference's own tolerance (rtol 1e-5 / atol 1e-7 — f32 sums in another
+order) with equal superstep counts, or, where a tol halting test sits on
+float noise, the check of ``test_torch_bsp.assert_pagerank_steps``."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_bsp import assert_pagerank_steps
+
+from raphtory_tpu.core import bulk as jbulk
+from raphtory_tpu.engine import hopbatch as jhb
+from raphtory_tpu_torch.core import bulk as tbulk
+from raphtory_tpu_torch.engine import hopbatch as thb
+from raphtory_tpu_torch.ops import columns
+
+T = torch.from_numpy
+
+
+@pytest.fixture(autouse=True)
+def _unbinned_reference(monkeypatch):
+    # the reference stays on the unbinned, untiled route at every size
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    monkeypatch.delenv("RTPU_SCALE_MASKS", raising=False)
+
+
+def _stream(seed, n_events=2500, n_ids=60, t_span=300):
+    """An add-only stream whose pair (0, 0) — engine position 0 of both
+    tables — gets an update in every hop of ``HOPS``."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_ids, n_events).astype(np.int64)
+    dst = rng.integers(0, n_ids, n_events).astype(np.int64)
+    times = rng.integers(0, t_span, n_events).astype(np.int64)
+    src[:8] = dst[:8] = 0
+    times[:8] = [5, 70, 90, 140, 160, 210, 250, 290]
+    order = np.argsort(times, kind="stable")
+    return src[order], dst[order], times[order]
+
+
+HOPS = [80, 150, 220, 299]
+WINDOWS = [100_000, 120, 40, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_k3(tdt):
+    return jax.jit(functools.partial(jhb._column_masks, jnp.dtype(tdt)))
+
+
+def _jax_masks(tdt, cols, hops, windows):
+    _, _, hop_of_col, T_col, w_col = jhb._column_layout(hops, windows)
+    me, mv = _jax_k3(np.dtype(tdt).name)(*cols, hop_of_col, T_col, w_col)
+    return np.asarray(me), np.asarray(mv)
+
+
+def _k3_args(cols, hops, windows, tdt):
+    H, C, hop_of_col, T_col, w_col = thb._column_layout(hops, windows)
+    info = np.iinfo(tdt)
+    lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+    return (*(T(a) for a in cols), T(hop_of_col), T(lo), T(w_col < 0))
+
+
+@pytest.mark.parametrize("windows", [
+    [-1], [1000, 25, -1], [7, 0],
+    # 3 hops x 11 windows = 33 columns: past one of the kernel's
+    # 32-column tiles
+    [-1, 0, 1, 3, 5, 7, 10, 20, 40, 80, 1000]],
+    ids=["unwindowed", "mixed", "windowed", "two_column_tiles"])
+@pytest.mark.parametrize("tdt", [np.int32, np.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_column_masks_twin_matches_jax(seed, tdt, windows):
+    """Random fold columns, times at the dtype's bounds among them."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(tdt)
+    vals = np.concatenate([[info.min, info.min + 1, info.max - 1, info.max],
+                           rng.integers(-100, 100, 40)])
+    H, m, n = 3, 300, 70
+    cols = (rng.choice(vals, (H, m)).astype(tdt), rng.random((H, m)) < 0.6,
+            rng.choice(vals, (H, n)).astype(tdt), rng.random((H, n)) < 0.6)
+    hops = [info.max - 2, 0, 50] if tdt == np.int32 else [1 << 61, 0, 50]
+    want = _jax_masks(tdt, cols, hops, windows)
+    got = columns.column_masks(*_k3_args(cols, hops, windows, tdt))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.bool and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("windows", [WINDOWS, [None], [40, 3]],
+                         ids=["mixed", "unwindowed", "windowed"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scale_hop_masks_twin_matches_jax_column_masks(seed, windows):
+    """K4's running scatter-max + threshold masks over the bulk deltas
+    equal the JAX package's masks over the host-built bulk columns — the
+    pads (position 0, INT32_MIN) are no-ops, and the real updates to
+    position 0 (the pair (0, 0), vertex 0) land."""
+    src, dst, times = _stream(seed)
+    jcols = jbulk.bulk_hop_columns(src, dst, times, HOPS)
+    want_e, want_v = _jax_masks(np.int32, jcols[1:], HOPS, windows)
+    bulk, base_e, base_v, d_e, d_v = tbulk.bulk_hop_deltas(src, dst, times,
+                                                           HOPS)
+    assert bulk.e_src[0] == bulk.e_dst[0] == 0
+    assert all(0 in p for p, _ in d_e[1:]) and all(0 in p for p, _ in d_v[1:])
+    _, _, de_pos, de_t, dv_pos, dv_t, thr, _ = thb.prepare_scale_payload(
+        d_e, d_v, HOPS, windows, device="cpu")
+    assert int((de_pos[1:] == 0).sum()) > len(HOPS) - 1   # pads at 0 too
+    H, W = len(HOPS), len(windows)
+    got_e = columns.scale_hop_masks(T(base_e), de_pos, de_t, thr, H, W)
+    got_v = columns.scale_hop_masks(T(base_v), dv_pos, dv_t, thr, H, W)
+    np.testing.assert_array_equal(got_e.numpy(), want_e)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    # ... and K3 over the port's own bulk columns gives the same bits
+    cols = tbulk.bulk_hop_columns(src, dst, times, HOPS)[1:]
+    k3_e, k3_v = columns.column_masks(*_k3_args(cols, HOPS, windows,
+                                                np.int32))
+    assert torch.equal(k3_e, got_e) and torch.equal(k3_v, got_v)
+
+
+def _pagerank_close(want, got, run_port, run_ref, tol):
+    """Ranks within the tolerance; equal supersteps, or (``tol`` > 0) a
+    halting test that sits on float noise (``test_torch_bsp``): the
+    ``run_*`` callables map a step count to that side's ranks at tol 0."""
+    (w, ws), (g, gs) = want, got
+    w = np.asarray(w)
+    assert g.shape == w.shape and g.dtype == torch.float32
+    np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-7)
+    if tol == 0.0:
+        assert gs == int(ws)
+    else:
+        assert_pagerank_steps(gs, ws, run_port, run_ref, tol)
+
+
+@pytest.mark.parametrize("max_steps, tol", [(12, 0.0), (40, 1e-7)])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_run_scale_columns_matches_jax(seed, max_steps, tol):
+    src, dst, times = _stream(seed)
+    jin = jbulk.bulk_hop_deltas(src, dst, times, HOPS)
+    tin = tbulk.bulk_hop_deltas(src, dst, times, HOPS)
+
+    def ref(steps, tol=0.0):
+        return jhb.run_scale_columns(*jin, HOPS, WINDOWS, tol=tol,
+                                     max_steps=steps)
+
+    def port(steps, tol=0.0):
+        return thb.run_scale_columns(*tin, HOPS, WINDOWS, tol=tol,
+                                     max_steps=steps, device="cpu")
+
+    got = port(max_steps, tol)
+    _pagerank_close(ref(max_steps, tol), got, lambda k: port(k)[0],
+                    lambda k: ref(k)[0], tol)
+    assert got[1] == max_steps or tol > 0
+    sums = got[0].double().sum(1)
+    assert torch.allclose(sums, torch.ones_like(sums), atol=1e-4)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_run_columns_matches_jax(seed, warm):
+    """The bulk host columns through ``run_columns`` (K3 + K2); the warm
+    start tiles the previous output's last hop's W rows per hop."""
+    src, dst, times = _stream(seed)
+    jbg, *jcols = jbulk.bulk_hop_columns(src, dst, times, HOPS)
+    tbg, *tcols = tbulk.bulk_hop_columns(src, dst, times, HOPS)
+    r_j = r_t = None
+    if warm:
+        prev = np.random.default_rng(seed).random((6, tbg.n_pad))
+        prev = (prev / prev.sum(1, keepdims=True)).astype(np.float32)
+        r_j, r_t = jnp.asarray(prev), T(prev)
+
+    def ref(steps, tol=0.0):
+        return jhb.run_columns(jbg, *jcols, HOPS, WINDOWS, r_init=r_j,
+                               tol=tol, max_steps=steps)
+
+    def port(steps, tol=0.0):
+        return thb.run_columns(tbg, *tcols, HOPS, WINDOWS, r_init=r_t,
+                               tol=tol, max_steps=steps, device="cpu")
+
+    _pagerank_close(ref(30, 1e-7), port(30, 1e-7), lambda k: port(k)[0],
+                    lambda k: ref(k)[0], 1e-7)
+
+
+def test_scale_and_host_column_routes_agree_bitwise():
+    """One add-only stream, two routes to the same masks (K4 from the
+    deltas, K3 from the host columns): equal ranks and steps, bit for
+    bit."""
+    src, dst, times = _stream(6)
+    kw = dict(tol=0.0, max_steps=10, device="cpu")
+    a = thb.run_scale_columns(*tbulk.bulk_hop_deltas(src, dst, times, HOPS),
+                              HOPS, WINDOWS, **kw)
+    b = thb.run_columns(*tbulk.bulk_hop_columns(src, dst, times, HOPS),
+                        HOPS, WINDOWS, **kw)
+    assert torch.equal(a[0], b[0]) and a[1] == b[1] == 10
+
+
+def test_prepared_payload_is_reused_and_checked():
+    src, dst, times = _stream(7)
+    bulk, base_e, base_v, d_e, d_v = tbulk.bulk_hop_deltas(src, dst, times,
+                                                           HOPS)
+    kw = dict(tol=0.0, max_steps=6, device="cpu")
+    prep = thb.prepare_scale_payload(d_e, d_v, HOPS, WINDOWS, device="cpu")
+    U_e, U_v = prep[:2]
+    assert U_e >= 1024 and U_v >= 1024
+    assert prep[2].shape == (len(HOPS), U_e) and prep[2].dtype == torch.int32
+    fresh = thb.run_scale_columns(bulk, base_e, base_v, d_e, d_v, HOPS,
+                                  WINDOWS, **kw)
+    reused = thb.run_scale_columns(bulk, T(base_e), T(base_v), d_e, d_v,
+                                   HOPS, WINDOWS, prepared=prep, **kw)
+    assert torch.equal(fresh[0], reused[0]) and fresh[1] == reused[1]
+    with pytest.raises(ValueError, match="different sweep grid"):
+        thb.run_scale_columns(bulk, base_e, base_v, d_e, d_v, HOPS,
+                              WINDOWS[:2], prepared=prep, **kw)
+    with pytest.raises(ValueError, match="different sweep grid"):
+        thb.run_scale_columns(bulk, base_e, base_v, d_e, d_v,
+                              [h + 1 for h in HOPS], WINDOWS,
+                              prepared=prep, **kw)
+    other = [d_e[0]] + [(p, t + 1) for p, t in d_e[1:]]
+    with pytest.raises(ValueError, match="DIFFERENT delta lists"):
+        thb.run_scale_columns(bulk, base_e, base_v, other, d_v, HOPS,
+                              WINDOWS, prepared=prep, **kw)
+
+
+def test_k3_k4_wrappers_check_inputs_and_count_only_launches():
+    columns.reset_launches()
+    H, m, n = 2, 8, 4
+    lat = torch.zeros((H, m), dtype=torch.int32)
+    alive = torch.ones((H, m), dtype=torch.bool)
+    vlat = torch.zeros((H, n), dtype=torch.int32)
+    valive = torch.ones((H, n), dtype=torch.bool)
+    hoc = torch.tensor([0, 1, 1], dtype=torch.int32)
+    lo = torch.zeros(3, dtype=torch.int32)
+    nowin = torch.zeros(3, dtype=torch.bool)
+    me, mv = columns.column_masks(lat, alive, vlat, valive, hoc, lo, nowin)
+    assert me.shape == (m, 3) and mv.shape == (n, 3) and bool(me.all())
+    with pytest.raises(TypeError, match="lo"):
+        columns.column_masks(lat, alive, vlat, valive, hoc, lo.long(), nowin)
+    with pytest.raises(ValueError, match="v_alive"):
+        columns.column_masks(lat, alive, vlat, valive[:, :2], hoc, lo, nowin)
+    with pytest.raises(ValueError, match="no hop"):
+        columns.column_masks(lat[:0], alive[:0], vlat[:0], valive[:0], hoc,
+                             lo, nowin)
+    base = torch.full((m,), -(2**31), dtype=torch.int32)
+    pos = torch.tensor([[0, 9], [m - 1, -1]], dtype=torch.int32)
+    t = torch.tensor([[4, 4], [2, 2]], dtype=torch.int32)
+    thr = torch.tensor([0, 3], dtype=torch.int32)
+    out = columns.scale_hop_masks(base, pos, t, thr, 2, 1)
+    # positions outside [0, len) are dropped; a max never lowers a state
+    assert out[:, 0].tolist() == [True] + [False] * (m - 1)
+    assert out[:, 1].tolist() == [True] + [False] * (m - 2) + [False]
+    with pytest.raises(TypeError, match="d_t"):
+        columns.scale_hop_masks(base, pos, t.long(), thr, 2, 1)
+    with pytest.raises(ValueError, match="thr"):
+        columns.scale_hop_masks(base, pos, t, thr, 2, 2)
+    assert columns.LAUNCHES == {k: 0 for k in columns.LAUNCHES}

@@ -9,6 +9,7 @@ LDBC-like generator."""
 
 import numpy as np
 import pytest
+import torch
 from test_sweep import random_log
 
 from raphtory_tpu.engine import hopbatch as jhb
@@ -208,3 +209,65 @@ def test_ldbc_like_log_matches_reference():
     assert unweighted.props.n == 0
     kinds = unweighted.column("kind")
     assert (kinds == 3).sum() == 30   # 10 % deletes
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["cc", "bfs", "sssp"])
+@pytest.mark.parametrize("seed", [0, "ldbc"])
+def test_host_route_matches_reference(seed, kind, chunks, monkeypatch):
+    """``RTPU_FOLD=host`` on both sides: the host-built ``[H, m_pad]`` fold
+    columns (SSSP's weight columns too) through K3's twin and K5 / K6,
+    bitwise with equal steps; the dispatches ship the columns."""
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    jlog, hops, _ = _log(seed)
+    j, t = _engines(kind, jlog)
+    _check(j.run(hops, WINDOWS, chunks=chunks),
+           t.run(hops, WINDOWS, chunks=chunks))
+    tb = t.tables
+    cols = len(hops) * (tb.m_pad + tb.n_pad) * (
+        np.dtype(tb.tdtype).itemsize + 1)
+    weights = len(hops) * tb.m_pad * 4 if kind == "sssp" else 0
+    assert t.ship_bytes == cols + weights
+    assert t.host_column_bytes(len(hops)) == cols + weights
+
+
+def _engine(kind, log):
+    if kind == "pagerank":
+        return thb.HopBatchedPageRank(log, tol=0.0, max_steps=8,
+                                      device="cpu")
+    if kind == "cc":
+        return thb.HopBatchedCC(log, max_steps=30, device="cpu")
+    if kind == "bfs":
+        return thb.HopBatchedBFS(log, (1, 2), max_steps=30, device="cpu")
+    return thb.HopBatchedSSSP(log, (1, 2), "w", max_steps=30, device="cpu")
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("kind", ["pagerank", "cc", "bfs", "sssp"])
+def test_host_route_matches_delta_route(kind, chunks, monkeypatch):
+    """Port of the reference's ``test_delta_fold_matches_host_columns``:
+    the device-rebuilt masks (K1, base + per-hop deltas) and the host-built
+    columns (K3) are the same masks, deletes and revivals included — so
+    every engine's two routes agree BITWISE with equal steps."""
+    log = carried(random_log(np.random.default_rng(11), n_events=900,
+                             n_ids=40, t_span=1000, props=True))
+    hops = [300, 500, 700, 900]
+    windows = [250, None]
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    host, s1 = _engine(kind, log).run(hops, windows, chunks=chunks)
+    monkeypatch.setenv("RTPU_FOLD", "delta")
+    delta, s2 = _engine(kind, log).run(hops, windows, chunks=chunks)
+    assert torch.equal(host, delta) and s1 == s2
+
+
+@pytest.mark.parametrize("kind", ["cc", "bfs"])
+def test_host_route_ignores_the_epoch_warm_seed(kind, monkeypatch):
+    """The min-merge epoch seed rides the delta route only (the reference's
+    host-column route has no warm plumbing): on ``RTPU_FOLD=host`` a
+    ``warm_state`` changes nothing."""
+    jlog = jsynth.gab_like_log(400, 3_000, seed=4, t_span=600)
+    monkeypatch.setenv("RTPU_FOLD", "host")
+    prev, _ = _engines(kind, jlog)[1].run([200, 300], [None])
+    got = _engines(kind, jlog)[1].run([400, 599], [None], warm_state=prev)
+    cold = _engines(kind, jlog)[1].run([400, 599], [None])
+    assert torch.equal(got[0], cold[0]) and got[1] == cold[1]
