@@ -22,8 +22,10 @@ printing one JSON line:
               apply, int32 and int64), K9b (window masks, k = 1 and 3)
               and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
               tables, int32 and int64) and K4 (scale masks at the scale
-              sweep's shape) bitwise. CUDA-event times, bounds, twin
-              times.
+              sweep's shape) bitwise; the binned kernels KB1, K2b-P
+              (also bitwise against K2b), K5-P, K6-P and K7-P (also
+              against K7) at the pcpm phase's layouts. CUDA-event times,
+              bounds, twin times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
               30k vertices / 300k edge events, 12 hops x 3 windows,
               chunks=3, warm start, tol 1e-7, 20 supersteps) through
@@ -71,13 +73,28 @@ printing one JSON line:
               steps), and
               ``run_columns`` over the bulk host columns (K3) bitwise equal
               to ``run_scale_columns`` on the card.
-13. scale   — the general-fold PageRank engine on a 5.3M-vertex /
+13. pcpm    — the destination-binned (PCPM) route with ``RTPU_PCPM``
+              unset (auto, the JAX package's default; phases 4-12 pin it
+              to 0 and measure the unbinned route as before): the
+              headline, cc_range, LDBC BFS / SSSP / SSSP chunks=2 on the
+              delta route and the first four on the host-column route
+              (KB1, K2b-P, K5-P, K6-P), and a cold GAB View at 0.90 x
+              t_span (K7-P) through the jobs layer and ``bsp.run``; each
+              held BITWISE with equal steps against the unbinned route on
+              the card and against the CPU (PageRank within rtol 1e-5 /
+              atol 1e-7); layout specs, build seconds and peak memory.
+              ``scale_bulk`` (12) runs its binned part on the same load
+              (the layout build, two timed sweeps, bitwise against the
+              unbinned ranks, KB1 and K2b-P against their twins at the
+              scale shape) and its crosscheck binned against the CPU.
+14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
               2^25-edge-event log, 4 hops x 3 windows, chunks=2.
 
 The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+Then a ``timing`` line (each phase's wall seconds, the binned route's
+share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``. Exits non-zero, with no result line, when any phase fails or no
 card is present. Imports nothing of JAX.
 """
@@ -106,8 +123,20 @@ BTC_SPAN = 2_600_000
 BTC_WINDOWS = [604_800, 86_400, 3_600]    # week / day / hour
 
 
+#: wall seconds of each phase of this run (the ``timing`` line)
+PHASE_S: dict = {}
+
+
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_S[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    return out
 
 
 def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -415,6 +444,256 @@ def mask_kernels(torch, np, columns, gab, dev):
         max_abs_err=0.0, library_ms=None,
         shape=f"len=33554432 H={H} W={W} U=65536 (len=5308416 U=131072 "
               "checked)", **k4)
+    return out
+
+
+def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
+                 dev):
+    """The destination-binned (PCPM) kernels against their twins at the
+    shapes of the ``pcpm`` phase's paths, with the layouts the knobs'
+    default (auto) gives them: KB1 (host-column form) and K2b-P on the
+    headline tables (P 16, pre-aggregated), K5-P on the GAB CC shape, K6-P
+    (unit and weighted, directed and undirected) on the LDBC shape, K7-P on
+    the cold GAB View's layout. KB1, K5-P, K6-P and K7-P's min/max and int
+    sums with ``torch.equal``; float sums within rtol 1e-5 / atol 1e-7 —
+    and K2b-P bitwise equal to K2b over the same masks (its walk keeps
+    K2b's order)."""
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(5)
+    out = {}
+    budget = partition.tile_budget_bytes()
+
+    def layout_of(t):
+        if not partition.pcpm_enabled(t.m_pad, "auto"):
+            raise AssertionError(f"m_pad {t.m_pad} does not bin under auto")
+        return partition.build_layout(
+            t.e_src, t.e_dst, t.n_pad, t.m,
+            partition.partition_count(t.n_pad, budget))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def binned_masks(t, lay, C):
+        me = rng.random((t.m_pad, C)) < 0.6
+        me[t.m:] = False
+        me[:, 1] = False                      # an all-masked column
+        mv = rng.random((t.n_pad, C)) < 0.8
+        mv[t.n:] = False
+        return (put(me[lay.perm] & lay.valid[:, None]), put(mv), put(me),
+                int(me.sum()))
+
+    # ---- KB1 (host-column form) at the headline: H 4 x W 3
+    lay = layout_of(gab)
+    spec = lay.spec
+    H, W = 4, 3
+    C = H * W
+    m, n, B = gab.m_pad, gab.n_pad, lay.B
+    info = np.iinfo(np.int32)
+    vals = np.concatenate([[info.min, info.max], rng.integers(-5000, 5000,
+                                                              60)])
+    T_col = np.repeat(np.array([info.max - 3, 0, 1000, 4000], np.int64), W)
+    w_col = np.tile(np.array([-1, 0, 1 << 40], np.int64), H)
+    args = [put(a) for a in (
+        rng.choice(vals, (H, m)).astype(np.int32), rng.random((H, m)) < 0.7,
+        rng.choice(vals, (H, n)).astype(np.int32), rng.random((H, n)) < 0.7,
+        np.repeat(np.arange(H, dtype=np.int32), W),
+        np.clip(T_col - w_col, info.min, info.max).astype(np.int32),
+        w_col < 0, lay.perm, lay.valid)]
+    got = columns.bin_column_masks(*args)
+    want = columns.bin_column_masks_plain(*args)
+    if not all(torch.equal(g, x) for g, x in zip(got, want)):
+        raise AssertionError("KB1 differs from its twin")
+    out["bin_masks"] = dict(
+        source="raphtory_tpu_torch/csrc/masks.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:283",
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: columns.bin_column_masks(*args)),
+        plain_ms=cuda_ms(torch, lambda: columns.bin_column_masks_plain(
+            *args)),
+        library_ms=None,
+        shape=f"host-column form B={B} m_pad={m} n_pad={n} H={H} C={C} "
+              f"int32 (P={spec.partitions})",
+        # the fold columns (lat i32 + alive), perm and valid, the column
+        # descriptors read once; the binned and vertex masks written once
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            H * (m + n) * 5 + B * 5 + C * 9 + (B + n) * C))))
+
+    # ---- K2b-P at the headline (pre-aggregated), against its twin and
+    # bitwise against K2b over the same masks in engine order
+    be = lay.device_edges(dev)
+    me_b, mv, me, nnz = binned_masks(gab, lay, C)
+    rd = put((rng.random((n, C)) * 1e-4).astype(np.float32))
+    got = columns.binned_pull_sum(me_b, rd, be)
+    want = columns.binned_pull_sum_plain(me_b, rd, be)
+    flat = columns.column_pull_sum(me, rd, *(put(a) for a in (
+        gab.e_src, gab.e_dst, gab.in_indptr)))
+    if not within_tol(got, want):
+        raise AssertionError(f"K2b-P differs from its twin: max abs err "
+                             f"{exact_err(got, want)}")
+    if not torch.equal(got, flat):
+        raise AssertionError("K2b-P differs from K2b over the same masks")
+    U, real = be.U, gab.m
+    out["binned_pull_sum"] = dict(
+        source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:242",
+        max_abs_err=exact_err(got, want),
+        ms=cuda_ms(torch, lambda: columns.binned_pull_sum(me_b, rd, be)),
+        plain_ms=cuda_ms(torch, lambda: columns.binned_pull_sum_plain(
+            me_b, rd, be)),
+        library_ms=None,
+        shape=f"B={B} m={real} n_pad={n} C={C} P={spec.partitions} "
+              f"cap={spec.cap} cap_u={spec.cap_u} preagg={spec.preagg}",
+        # the real slots' masks, walk, slots; the buckets' sources; rd and
+        # agg once; one add per masked edge
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            real * C + real * 8 + (n + 1) * 8 + U * 4 + 2 * n * C * 4,
+            nnz))))
+
+    def compare(what, step, plain, x0, frozen):
+        pair = []
+        for fn in (step, plain):
+            st = minplus.min_state(x0.clone())
+            st.halted[frozen] = True
+            fn(st)
+            pair.append(st)
+        got, want = pair
+        for a, b, name in ((got.cur, want.cur, "state"),
+                           (got.halted, want.halted, "halted"),
+                           (got.done, want.done, "done")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs from its twin "
+                                     f"(frozen {frozen})")
+        return exact_err(got.cur, want.cur)
+
+    # ---- K5-P at GAB, C = 12
+    C = 12
+    be = lay.device_edges(dev, reverse=True)
+    me_b, mv, _, nnz = binned_masks(gab, lay, C)
+    lab = torch.where(mv, put(rng.integers(0, n, (n, C)).astype(np.int32)),
+                      minplus.I32_MAX).contiguous()
+    err = 0.0
+    for frozen in ([2], [c for c in range(C) if c != 1]):
+        err = max(err, compare(
+            "K5-P", lambda st: minplus.binned_cc_superstep(st, me_b, mv, be),
+            lambda st: minplus.binned_cc_superstep_plain(st, me_b, mv, be),
+            lab, frozen))
+    st_k, st_p = minplus.min_state(lab.clone()), minplus.min_state(
+        lab.clone())
+    out["binned_cc_superstep"] = dict(
+        source="raphtory_tpu_torch/csrc/minplus_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:572",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: minplus.binned_cc_superstep(
+            st_k, me_b, mv, be)),
+        plain_ms=cuda_ms(torch, lambda: minplus.binned_cc_superstep_plain(
+            st_p, me_b, mv, be)),
+        library_ms=None, shape=f"n_pad={n} B={B} C={C} P={spec.partitions}",
+        # masks of the real slots (both walks) and the vertex mask, the
+        # slot ids and both walks, the bucket sources, state in and out;
+        # one compare per masked edge and direction
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            real * C + n * C + 4 * 4 * real + 2 * 8 * (n + 1) + U * 4
+            + 2 * 4 * n * C, 2 * nnz))))
+
+    # ---- K6-P at LDBC, C = 20 (10 hops x 2 windows)
+    llay = layout_of(ldbc)
+    H, W = 10, 2
+    C = H * W
+    lb = llay.device_edges(dev, reverse=True)
+    me_b, mv, _, nnz = binned_masks(ldbc, llay, C)
+    ln, lm = ldbc.n_pad, ldbc.m
+    dist = torch.where(
+        mv & put(rng.random((ln, C)) < 0.3),
+        put(rng.integers(0, 5, (ln, C)).astype(np.float32)),
+        minplus.INF).contiguous()
+    ew = put(rng.choice(np.array([-0.5, 0.0, 0.5, 1.0, 2.25, 4.99],
+                                 np.float32), (ldbc.m_pad, H))[llay.perm])
+    err = 0.0
+    for directed in (False, True):
+        for w in (None, ew):
+            for frozen in ([2], [c for c in range(C) if c != 1]):
+                err = max(err, compare(
+                    f"K6-P (directed={directed}, weighted={w is not None})",
+                    lambda st: minplus.binned_minplus_superstep(
+                        st, me_b, mv, lb, directed, w, W),
+                    lambda st: minplus.binned_minplus_superstep_plain(
+                        st, me_b, mv, lb, directed, w, W), dist, frozen))
+    st_k, st_p = minplus.min_state(dist.clone()), minplus.min_state(
+        dist.clone())
+    lspec = llay.spec
+    out["binned_minplus_superstep"] = dict(
+        source="raphtory_tpu_torch/csrc/minplus_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:653",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: minplus.binned_minplus_superstep(
+            st_k, me_b, mv, lb, False, ew, W)),
+        plain_ms=cuda_ms(torch, lambda: minplus.binned_minplus_superstep_plain(
+            st_p, me_b, mv, lb, False, ew, W)),
+        library_ms=None,
+        shape=f"n_pad={ln} B={llay.B} C={C} weighted undirected "
+              f"P={lspec.partitions} preagg={lspec.preagg}",
+        # as K5-P plus the real slots' [B, H] weights; an add and a compare
+        # per masked edge and direction
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            lm * C + ln * C + 4 * 4 * lm + 2 * 8 * (ln + 1) + lb.U * 4
+            + 2 * 4 * ln * C + 4 * lm * H, 4 * nnz))))
+
+    # ---- K7-P on the cold GAB View's layout: PageRank's f32 sum (k = 1),
+    # min/max and int sums (k = 1, 3), and against K7 over the same edges
+    with pcpm_route(None):
+        vlay = bsp._view_layout(gab_view)
+    if vlay is None:
+        raise AssertionError("the cold GAB View does not bin under auto")
+    vb = vlay.device_edges(dev)
+    walk = segment.PartitionWalk(vb.in_indptr, vb.in_order, vb.perm,
+                                 vb.valid)
+    vm, vn, vreal = gab_view.m_pad, gab_view.n_pad, int(gab_view.m_active)
+    flat = segment.SegmentCSR(put(gab_view.e_dst),
+                              put(gab_view.in_indptr.astype(np.int64)), None)
+    err, bad = 0.0, []
+    for op, dt, k in (("sum", "f32", 1), ("sum", "i32", 3), ("min", "i32", 1),
+                      ("max", "f32", 3), ("min", "f32", 1)):
+        mask = rng.random((k, vm)) < 0.7
+        mask[:, vreal:] = False
+        x = ((rng.random(k * vm) * 1e-4).astype(np.float32) if dt == "f32"
+             else rng.integers(-10**6, 10**6, k * vm).astype(np.int32))
+        x, mask = put(x), put(mask.reshape(-1))
+        got = segment.partition_reduce(x, walk, op, mask, k)
+        want = segment.partition_reduce_plain(x, walk, op, mask, k)
+        ref = segment.segment_combine(x, flat, op, mask, k)
+        ok = (within_tol(got, want) if op == "sum" and dt == "f32"
+              else torch.equal(got, want)) and torch.equal(got, ref)
+        err = max(err, exact_err(got, want))
+        if not ok:
+            bad.append(f"{op} {dt} k={k} (max abs err "
+                       f"{exact_err(got, want)})")
+    if bad:
+        raise AssertionError(f"K7-P differs from its twin or K7: {bad}")
+    mask = put(np.arange(vm) < vreal)
+    x = put((rng.random(vm) * 1e-4).astype(np.float32))
+    ids = put(gab_view.e_dst).long()
+    xm = torch.where(mask, x, 0.0)
+    vspec = vlay.spec
+    out["partition_segment_reduce"] = dict(
+        source="raphtory_tpu_torch/csrc/segment.cu",
+        replaces="raphtory_tpu/ops/segment.py:116",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: segment.partition_reduce(
+            x, walk, "sum", mask, 1)),
+        plain_ms=cuda_ms(torch, lambda: segment.partition_reduce_plain(
+            x, walk, "sum", mask, 1)),
+        # one call: index_add_ of the pre-masked payload at destination
+        library_ms=cuda_ms(torch, lambda: torch.zeros(
+            vn, device=dev).index_add_(0, ids, xm)),
+        shape=f"sum f32 k=1 F=1 n_pad={vn} m_pad={vm} B={vlay.B} "
+              f"P={vspec.partitions}",
+        # the real edges' payload and mask, their walk entries, perm and
+        # valid, the output; one add per edge
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(vreal * 5 + vreal * 9 + (vn + 1) * 8 + vn * 4,
+                         vreal))))
     return out
 
 
@@ -1275,6 +1554,203 @@ def phase_host_columns(torch, np, columns, log, ldbc, dev):
     return total
 
 
+class pcpm_route:
+    """``RTPU_PCPM`` set to ``mode`` inside the block, or unset (None: the
+    default, auto) — the engines read it at dispatch."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        self.prev = os.environ.get("RTPU_PCPM")
+        if self.mode is None:
+            os.environ.pop("RTPU_PCPM", None)
+        else:
+            os.environ["RTPU_PCPM"] = self.mode
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop("RTPU_PCPM", None)
+        else:
+            os.environ["RTPU_PCPM"] = self.prev
+
+
+def spec_of(lay) -> dict:
+    s = lay.spec
+    return dict(P=s.partitions, n_per=s.n_per, cap=s.cap, cap_u=s.cap_u,
+                preagg=s.preagg, B=lay.B)
+
+
+def phase_pcpm(torch, np, columns, log, ldbc, dev):
+    """The destination-binned (PCPM) route with the knob UNSET (auto, the
+    JAX package's default), on every path of the earlier phases whose
+    table bins: the headline PageRank, cc_range CC, LDBC BFS / SSSP /
+    SSSP chunks=2 (delta route), the same four on the host-column route,
+    and a cold GAB View (the descending-time PageRank View at 0.90 x
+    t_span, through the jobs layer and ``bsp.run``). Each run is held
+    against the unbinned route on the card (``torch.equal``, equal steps:
+    the binned walks keep the unbinned sum order, so PageRank too) and
+    against the binned run on the CPU (CC / BFS / SSSP bitwise, PageRank
+    within rtol 1e-5 / atol 1e-7, equal steps)."""
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
+                                                    HopBatchedCC,
+                                                    HopBatchedPageRank,
+                                                    HopBatchedSSSP)
+    from raphtory_tpu_torch.jobs.manager import ViewQuery
+    from raphtory_tpu_torch.ops import partition
+
+    hops, windows = headline_grid()
+    ldbc_hops = [int(T) for T in
+                 np.linspace(0.5 * LDBC_SPAN, LDBC_SPAN, 10).astype(np.int64)]
+    ldbc_windows = [1_300_000, 604_800]
+    budget = partition.tile_budget_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    layouts = {}
+    with pcpm_route(None):
+        for name, lg in (("gab", log), ("ldbc", ldbc)):
+            tables = HopBatchedCC(lg, device="cpu").tables
+            t0 = time.perf_counter()
+            lay = partition.resolve(lg, tables, budget)
+            build_s = time.perf_counter() - t0
+            if lay is None:
+                raise AssertionError(f"pcpm: the {name} table does not bin "
+                                     f"under auto (m_pad {tables.m_pad})")
+            layouts[name] = dict(spec_of(lay), m_pad=tables.m_pad,
+                                 layout_build_s=build_s)
+        kinds = {
+            "headline": (lambda d: HopBatchedPageRank(
+                log, tol=1e-7, max_steps=20, device=d), hops, windows,
+                dict(chunks=3, warm_start=True),
+                ("column_out_degree", "binned_pull_sum", "pagerank_update")),
+            "cc_range": (lambda d: HopBatchedCC(log, max_steps=50, device=d),
+                         hops, [GAB_SPAN], dict(chunks=1),
+                         ("binned_cc_superstep",)),
+            "ldbc_bfs": (lambda d: HopBatchedBFS(
+                ldbc, LDBC_SEEDS, directed=False, max_steps=32, device=d),
+                ldbc_hops, ldbc_windows, dict(chunks=1),
+                ("binned_minplus_superstep",)),
+            "ldbc_sssp": (lambda d: HopBatchedSSSP(
+                ldbc, LDBC_SEEDS, "weight", directed=False, max_steps=32,
+                device=d), ldbc_hops, ldbc_windows, dict(chunks=1),
+                ("binned_minplus_superstep", "weights_from_deltas")),
+            "ldbc_sssp_chunks2": (lambda d: HopBatchedSSSP(
+                ldbc, LDBC_SEEDS, "weight", directed=False, max_steps=32,
+                device=d), ldbc_hops, ldbc_windows, dict(chunks=2),
+                ("binned_minplus_superstep", "weights_from_deltas")),
+        }
+        total = {k: 0 for k in columns.LAUNCHES}
+        result, binned = {}, {}
+        for route in ("delta", "host"):
+            for name, (make, h, w, kw, kernels) in kinds.items():
+                if route == "host" and name == "ldbc_sssp_chunks2":
+                    continue
+                key = name if route == "delta" else f"host_{name}"
+                with fold_route(route):
+                    got, steps, launches, stats = timed_sweep(
+                        torch, columns, lambda: make(dev), h, w, **kw)
+                    spec = make(dev)._resolve_layout().spec
+                    with pcpm_route("0"):
+                        flat, flat_steps = make(dev).run(h, w, **kw)
+                    ref, ref_steps = make("cpu").run(h, w, **kw)
+                if not torch.equal(got, flat) or steps != flat_steps:
+                    raise AssertionError(
+                        f"pcpm {key}: the binned route differs from the "
+                        f"unbinned one on the card (steps {steps} vs "
+                        f"{flat_steps})")
+                got_c = got.cpu()
+                if name == "headline":
+                    err = float((got_c - ref).abs().max())
+                    if not within_tol(got_c, ref) or steps != ref_steps:
+                        raise AssertionError(
+                            f"pcpm {key} differs from the CPU run: max abs "
+                            f"err {err}, steps {steps} vs {ref_steps}")
+                    stats["max_abs_err_vs_cpu"] = err
+                else:
+                    bitwise_vs_cpu(f"pcpm {key}", got, steps, ref, ref_steps)
+                if route == "delta":
+                    binned[name] = got
+                    check_launched(f"pcpm {key}", launches,
+                                   ("masks_from_deltas",) + kernels)
+                else:
+                    if not torch.equal(got, binned[name]):
+                        raise AssertionError(f"pcpm {key}: the host-column "
+                                             "route differs from the delta "
+                                             "route")
+                    check_launched(f"pcpm {key}", launches,
+                                   ("bin_masks",) + tuple(
+                                       k for k in kernels
+                                       if k != "weights_from_deltas"))
+                flat_k = [k for k in ("column_pull_sum", "cc_superstep",
+                                      "minplus_superstep", "column_masks")
+                          if launches[k]]
+                if flat_k:
+                    raise AssertionError(f"pcpm {key}: unbinned kernels "
+                                         f"launched: {flat_k}")
+                for k, v in launches.items():
+                    total[k] += v
+                result[key] = dict(stats, spec=list(spec),
+                                   bitwise_vs_unbinned=True)
+
+        # the cold GAB View: a View at t_span, then one behind it at 0.90
+        # (the cold route, binned), through the jobs layer; then the same
+        # view through bsp.run, card binned against card unbinned and CPU
+        pr = PageRank(max_steps=20, tol=1e-7)
+        T0, T1 = GAB_SPAN, int(0.90 * GAB_SPAN)
+        jobs = [(pr, ViewQuery(T0, window=2_600_000)),
+                (pr, ViewQuery(T1, window=2_600_000))]
+        columns.reset_launches()
+        rows, secs, _, _ = run_view_jobs(log, dev, jobs)
+        torch.cuda.synchronize()
+        launches = dict(columns.LAUNCHES)
+        check_launched("pcpm cold_view", launches,
+                       ("partition_segment_reduce", "unpack_mask_bits"))
+        compare_rows("pcpm cold_view", rows,
+                     run_view_jobs(log, "cpu", jobs)[0])
+        for k, v in launches.items():
+            total[k] += v
+        view = build_view(log, T1)
+        lay = bsp._view_layout(view)
+        t0 = time.perf_counter()
+        got, steps = bsp.run(pr, view, window=2_600_000, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        with pcpm_route("0"):
+            t0 = time.perf_counter()
+            flat, flat_steps = bsp.run(pr, view, window=2_600_000,
+                                       device=dev)
+            torch.cuda.synchronize()
+            flat_s = time.perf_counter() - t0
+        ref, ref_steps = bsp.run(pr, view, window=2_600_000, device="cpu")
+        if not torch.equal(got, flat) or steps != flat_steps:
+            raise AssertionError("pcpm cold_view: the binned exchange differs "
+                                 "from the flat one on the card")
+        if not within_tol(got.cpu(), ref) or steps != ref_steps:
+            raise AssertionError("pcpm cold_view differs from the CPU run")
+        result["cold_view"] = dict(
+            view_s=secs, T=[T0, T1], bsp_run_s=run_s,
+            bsp_run_unbinned_s=flat_s, supersteps=steps,
+            spec=spec_of(lay), m_pad=view.m_pad, m_active=view.m_active,
+            launches=launches,
+            max_abs_err_vs_cpu=float((got.cpu() - ref).abs().max()))
+    emit("pcpm", layouts=layouts, runs=result, launches=total,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    # each binned kernel's launches on the path that runs it
+    runs = {k: v["launches"] for k, v in result.items()}
+    return {
+        "bin_masks": sum(v["bin_masks"] for k, v in runs.items()
+                         if k.startswith("host_")),
+        "binned_pull_sum": runs["headline"]["binned_pull_sum"],
+        "binned_cc_superstep": runs["cc_range"]["binned_cc_superstep"],
+        "binned_minplus_superstep": sum(
+            runs[k]["binned_minplus_superstep"]
+            for k in ("ldbc_bfs", "ldbc_sssp", "ldbc_sssp_chunks2")),
+        "partition_segment_reduce":
+            runs["cold_view"]["partition_segment_reduce"]}
+
+
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
@@ -1388,9 +1864,8 @@ def phase_scale_bulk(torch, np, columns, dev):
     if bool(((sums - 1.0).abs() > 1e-4).any()):
         raise AssertionError(f"scale_bulk rank sums off 1: {sums.tolist()}")
     # the sweep's last ranks, entity-major: uneven state for the kernel
-    # checks below
+    # checks below; the ranks themselves stay for the binned route's check
     r0 = ranks.t().contiguous()
-    del ranks
 
     # K4, K2a, K2b and K2c at this shape, on this run's payload and ranks,
     # each against its twin on the same card tensors; K2b and K2c then
@@ -1450,7 +1925,7 @@ def phase_scale_bulk(torch, np, columns, dev):
     if not (torch.equal(st.halted, st_p.halted)
             and torch.equal(st.done, st_p.done)):
         raise AssertionError("scale_bulk: K2c halting differs from its twin")
-    del st_p, r0
+    del st_p, r0, states
     k2b_ms = cuda_ms(torch, lambda: columns.column_pull_sum(
         me, st.rd, e_src, e_dst, indptr), iters=3)
     k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
@@ -1465,7 +1940,9 @@ def phase_scale_bulk(torch, np, columns, dev):
          k2b_ms_per_superstep=k2b_ms, k2c_ms_per_superstep=k2c_ms,
          peak_device_bytes=peak, launches=launches,
          max_abs_err_vs_twins=errs)
-    del kw, base_e, base_v, bulk, d_e, d_v
+    pcpm_launches, pcpm_errs = scale_bulk_pcpm(
+        torch, np, columns, bulk, base_e, base_v, sweep, kw, ranks, steps)
+    del kw, base_e, base_v, bulk, d_e, d_v, ranks
     torch.cuda.empty_cache()
 
     # ---- crosscheck: a small add-only stream over the same 16 x 8 grid,
@@ -1489,10 +1966,122 @@ def phase_scale_bulk(torch, np, columns, dev):
     if not torch.equal(host, got) or host_steps != steps:
         raise AssertionError("scale crosscheck: run_columns over the bulk "
                              "host columns differs from run_scale_columns")
+    t_phase = time.perf_counter()
+    with pcpm_route(None):
+        from raphtory_tpu_torch.ops import partition
+
+        lay = partition.resolve(loaded[0], loaded[0],
+                                partition.tile_budget_bytes())
+        if lay is None:
+            raise AssertionError("scale crosscheck: the stream does not bin "
+                                 "under auto")
+        got_b, steps_b = run_scale_columns(*loaded, hops, windows,
+                                           device=dev, **ckw)
+        ref_b, ref_steps_b = run_scale_columns(*loaded, hops, windows,
+                                               device="cpu", **ckw)
+        bg, *cols = bulk_hop_columns(src, dst, times, hops,
+                                     n_vertices=30_000)
+        host_b, host_steps_b = run_columns(
+            bg, *cols, hops, windows, device=dev,
+            layout=partition.resolve(bg, bg, partition.tile_budget_bytes()),
+            **ckw)
+    err_b = (got_b.cpu() - ref_b).abs()
+    if not within_tol(got_b.cpu(), ref_b) or steps_b != ref_steps_b:
+        raise AssertionError(f"binned scale crosscheck differs from the CPU "
+                             f"run: max abs err {float(err_b.max())}")
+    if not torch.equal(got_b, got) or steps_b != steps:
+        raise AssertionError("binned scale crosscheck differs from the "
+                             "unbinned route on the card")
+    if not torch.equal(host_b, got_b) or host_steps_b != steps_b:
+        raise AssertionError("binned scale crosscheck: the bulk host "
+                             "columns (KB1) differ from run_scale_columns")
+    PHASE_S["scale_bulk_crosscheck_pcpm"] = time.perf_counter() - t_phase
     emit("scale_bulk_crosscheck", n=loaded[0].n, m=loaded[0].m,
          views=len(hops) * len(windows), supersteps=steps,
          max_abs_err_vs_cpu=float(err.max()),
-         host_columns_bitwise=True)
+         host_columns_bitwise=True, pcpm_spec=spec_of(lay),
+         pcpm_max_abs_err_vs_cpu=float(err_b.max()),
+         pcpm_bitwise_vs_unbinned=True, pcpm_host_columns_bitwise=True)
+    return launches, errs, pcpm_launches, pcpm_errs
+
+
+def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
+                    flat_ranks, flat_steps):
+    """The binned route (knob unset: auto) on ``scale_bulk``'s load: the
+    layout built on the bulk graph (set-up, beside ``bulk_s``), one warm
+    call and two timed sweeps, the ranks held bitwise against the
+    unbinned sweep's; KB1's scale form and K2b-P (no pre-aggregation at
+    this shape) against their twins at this shape."""
+    from raphtory_tpu_torch.ops import partition
+
+    t_phase = time.perf_counter()
+    prep = kw["prepared"]
+    H, W = len(prep[7][0]), len(prep[7][1])
+    C = H * W
+    with pcpm_route(None):
+        t0 = time.perf_counter()
+        lay = partition.resolve(bulk, bulk, partition.tile_budget_bytes())
+        layout_build_s = time.perf_counter() - t0
+        if lay is None:
+            raise AssertionError("scale_bulk: the bulk table does not bin "
+                                 "under auto")
+        t0 = time.perf_counter()
+        be = lay.device_edges(kw["device"])
+        warm, _ = sweep()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        del warm
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(2):
+            columns.reset_launches()
+            t0 = time.perf_counter()
+            ranks, steps = sweep()
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+            launches = dict(columns.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    check_launched("scale_bulk pcpm", launches, (
+        "scale_hop_masks", "bin_masks", "column_out_degree",
+        "binned_pull_sum", "pagerank_update"))
+    if launches["column_pull_sum"]:
+        raise AssertionError("scale_bulk pcpm: the unbinned K2b launched")
+    if not torch.equal(ranks, flat_ranks) or steps != flat_steps:
+        raise AssertionError("scale_bulk pcpm: the binned ranks differ from "
+                             "the unbinned sweep's")
+    # KB1's scale form and K2b-P against their twins at this shape (the
+    # twins 32 columns at a time); K2b-P timed a superstep
+    errs = {}
+    me = columns.scale_hop_masks(base_e, *prep[2:4], prep[6], H, W,
+                                 perm=be.perm, valid=be.valid)
+    want = columns.scale_hop_masks_plain(base_e, *prep[2:4], prep[6], H, W)
+    if not torch.equal(me, want[be.perm.long()] & be.valid[:, None]):
+        raise AssertionError("scale_bulk pcpm: KB1 differs from its twin")
+    del want
+    errs["bin_masks"] = 0.0
+    rd = (ranks.t() * 0.5).contiguous()
+    del ranks
+    agg = columns.binned_pull_sum(me, rd, be)
+    want = torch.cat([columns.binned_pull_sum_plain(
+        me[:, c:c + 32].contiguous(), rd[:, c:c + 32].contiguous(), be)
+        for c in range(0, C, 32)], dim=1)
+    err = (agg - want).abs()
+    errs["binned_pull_sum"] = float(err.max())
+    if bool((err > 1e-7 + 1e-5 * want.abs()).any()):
+        raise AssertionError(f"scale_bulk pcpm: K2b-P differs from its twin "
+                             f"at the scale shape: {errs['binned_pull_sum']}")
+    del want, err
+    k2bp_ms = cuda_ms(torch, lambda: columns.binned_pull_sum(me, rd, be),
+                      iters=3)
+    del me, rd, agg
+    best = min(reps)
+    PHASE_S["scale_bulk_pcpm"] = time.perf_counter() - t_phase
+    emit("scale_bulk_pcpm", spec=spec_of(lay), layout_build_s=layout_build_s,
+         setup_s=setup_s, sweep_s=best, repeat_sweep_s=reps,
+         views_per_s=C / best, supersteps=steps,
+         k2bp_ms_per_superstep=k2bp_ms, peak_device_bytes=peak,
+         launches=launches, bitwise_vs_unbinned=True,
+         max_abs_err_vs_twins=errs)
     return launches, errs
 
 
@@ -1505,6 +2094,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
+
+    # the phases of the earlier slices measure the unbinned route they
+    # always measured; the pcpm phase (and scale_bulk's binned part) unset
+    # the knob, the JAX package's default
+    os.environ["RTPU_PCPM"] = "0"
 
     from raphtory_tpu_torch.core.snapshot import build_view
     from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
@@ -1521,6 +2115,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
+    t_main = time.perf_counter()
     build_s = columns.build()
     emit("build", seconds=build_s, ptxas={
         k: [ln.strip() for ln in v.splitlines()
@@ -1535,6 +2130,8 @@ def main() -> int:
         n_addresses=20_000, n_txs=200_000, t_span=BTC_SPAN),
         device=dev).tables
     ldbc_view = build_view(ldbc, int(0.9 * LDBC_SPAN))
+    PHASE_S["build_and_tables"] = time.perf_counter() - t_main
+    t0 = time.perf_counter()
     kernels = phase_kernels(torch, np, columns, tables, dev)
     kernels.update(minplus_kernels(torch, np, columns, minplus, tables,
                                    ldbc_tables, dev))
@@ -1542,33 +2139,52 @@ def main() -> int:
                                    btc_tables,
                                    (ldbc_view.n_pad, ldbc_view.m_pad), dev))
     kernels.update(mask_kernels(torch, np, columns, tables, dev))
+    PHASE_S["kernels"] = time.perf_counter() - t0
+    kernels.update(timed("pcpm_kernels", pcpm_kernels, torch, np, columns,
+                         minplus, segment, tables, ldbc_tables,
+                         build_view(log, int(0.90 * GAB_SPAN)), dev))
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
                                  if kk in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "max_abs_err",
                                            "shape")}
                              for k, v in kernels.items()})
-    launches = phase_headline(torch, np, columns, HopBatchedPageRank, log,
-                              dev)
-    cc_launches = phase_cc_range(torch, np, columns, log, dev)
-    ldbc_launches = phase_ldbc_traversal(torch, np, columns, ldbc, dev)
+    launches = timed("headline", phase_headline, torch, np, columns,
+                     HopBatchedPageRank, log, dev)
+    cc_launches = timed("cc_range", phase_cc_range, torch, np, columns, log,
+                        dev)
+    ldbc_launches = timed("ldbc_traversal", phase_ldbc_traversal, torch, np,
+                          columns, ldbc, dev)
     # each kernel's launches on the path that runs it
     launches["cc_superstep"] = cc_launches["cc_superstep"]
     for k in ("minplus_superstep", "weights_from_deltas"):
         launches[k] = ldbc_launches[k]
-    host_launches = phase_host_columns(torch, np, columns, log, ldbc, dev)
+    host_launches = timed("host_columns", phase_host_columns, torch, np,
+                          columns, log, ldbc, dev)
     launches["column_masks"] = host_launches["column_masks"]
-    phase_job(torch, np, columns, dev)
-    view_launches = phase_gab_pr_view(torch, np, columns, log, dev)
+    timed("job", phase_job, torch, np, columns, dev)
+    view_launches = timed("gab_pr_view", phase_gab_pr_view, torch, np,
+                          columns, log, dev)
     for k in RESIDENT_KERNELS:
         launches[k] = view_launches[k]
-    phase_bitcoin_range(torch, np, columns, dev)
-    cold_launches = phase_view_programs(torch, np, columns, ldbc, dev)
+    timed("bitcoin_range", phase_bitcoin_range, torch, np, columns, dev)
+    cold_launches = timed("view_programs", phase_view_programs, torch, np,
+                          columns, ldbc, dev)
     launches["unpack_mask_bits"] = cold_launches["unpack_mask_bits"]
-    bulk_launches, bulk_errs = phase_scale_bulk(torch, np, columns, dev)
+    launches.update(timed("pcpm", phase_pcpm, torch, np, columns, log, ldbc,
+                          dev))
+    bulk_launches, bulk_errs, _, pcpm_errs = timed(
+        "scale_bulk", phase_scale_bulk, torch, np, columns, dev)
     launches["scale_hop_masks"] = bulk_launches["scale_hop_masks"]
-    for k, err in bulk_errs.items():
+    for k, err in {**bulk_errs, **pcpm_errs}.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
-    phase_scale(torch, np, columns, HopBatchedPageRank, dev)
+    timed("scale", phase_scale, torch, np, columns, HopBatchedPageRank, dev)
+    # the binned route's share: its kernel checks, the pcpm phase, and the
+    # binned parts inside scale_bulk (layout build included)
+    pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",
+                                      "scale_bulk_pcpm",
+                                      "scale_bulk_crosscheck_pcpm"))
+    emit("timing", seconds=PHASE_S, pcpm_share_s=pcpm_s,
+         total_s=time.perf_counter() - t_main)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

@@ -75,6 +75,22 @@
 // (2 * H * len * 4 bytes of copies and H * len * 4 of transpose reads) on
 // top. H + 1 launches a call.
 //
+// KB1 — the binned mask emission of the destination-binned (PCPM) route.
+// Replaces raphtory_tpu/engine/hopbatch.py:283 `_bin_masks` (the host-
+// column route's permutation of K3's edge masks into the binned layout)
+// and the binned `col_of` of :2126-2137 (K4's columns read through the
+// layout permutation, hop state still advancing in engine order). Binned
+// slot b of the [B, C] output is
+//     out[b, c] = valid[b] && mask of edge perm[b] in column c
+// (perm, valid: ops/partition.py). One pass: K3's / K4's tiled transpose
+// whose read side gathers entity perm[b] instead of b, so the engine-order
+// [m_pad, C] masks are never materialised next to the binned ones. The
+// reads are no longer neighbouring words (slots sort by source within a
+// partition, engine positions by destination); the writes stay coalesced.
+// Bound: bytes — the input columns (or the snapshot) read once, perm and
+// valid once, B * C mask bytes written. The vertex masks are K3's.
+// One launch a call.
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/columns.py).
 // Every entry point launches on the caller's stream, allocates nothing,
 // adds the number of kernels it launched to the host integer `*launched`,
@@ -208,11 +224,17 @@ __device__ void load_column_tile(int64_t c0, int64_t C, int64_t W,
 }
 
 // One 32 x 32 tile of K3's masks: rows [i0, i0 + 32) of `out [len, C]`,
-// the block's columns [c0, c0 + 32). `alive` null: no alive test.
+// the block's columns [c0, c0 + 32), read from hop rows of `stride`
+// entities. `alive` null: no alive test. `perm` null: row i reads entity i;
+// else entity perm[i], and `valid[i]` false gives 0 (the binned rows of
+// KB1, which gather through the layout permutation).
 template <typename T>
-__device__ void mask_tile(int64_t i0, int64_t c0, int64_t len, int64_t C,
+__device__ void mask_tile(int64_t i0, int64_t c0, int64_t len,
+                          int64_t stride, int64_t C,
                           const T* __restrict__ lat,
                           const uint8_t* __restrict__ alive,
+                          const int32_t* __restrict__ perm,
+                          const uint8_t* __restrict__ valid,
                           const ColumnTile<T>* ct,
                           uint8_t* __restrict__ out,
                           uint8_t (*sh)[kTile + 1]) {
@@ -221,11 +243,14 @@ __device__ void mask_tile(int64_t i0, int64_t c0, int64_t len, int64_t C,
     const int rows = blockDim.x / kTile;
     const int ncol = C - c0 < kTile ? static_cast<int>(C - c0) : kTile;
     // read: lane = entity, so a warp reads 32 neighbouring words of a row
+    // (unbinned; binned rows gather within their partition)
     const int64_t i = i0 + lane;
+    const bool live = i < len && (!valid || valid[i]);
+    const int64_t src = live ? (perm ? static_cast<int64_t>(perm[i]) : i) : 0;
     for (int cl = row; cl < ncol; cl += rows) {
         uint8_t m = 0;
-        if (i < len) {
-            const int64_t k = ct->hop[cl] * len + i;
+        if (live) {
+            const int64_t k = ct->hop[cl] * stride + src;
             m = (!alive || alive[k])
                 && (ct->nowin[cl] || lat[k] >= ct->lo[cl]);
         }
@@ -242,8 +267,11 @@ __device__ void mask_tile(int64_t i0, int64_t c0, int64_t len, int64_t C,
 
 // K3 over edges then vertices in one grid: blockIdx.y is the column tile,
 // blockIdx.x strides over the edge row tiles, then the vertex row tiles.
+// (`me` has m rows read from hop rows of m_src edges, through perm/valid
+// when binned; see mask_tile.)
 template <typename T>
-__global__ void column_masks(int64_t m, int64_t n, int64_t H, int64_t C,
+__global__ void column_masks(int64_t m, int64_t m_src, int64_t n, int64_t H,
+                             int64_t C,
                              const T* __restrict__ e_lat,
                              const uint8_t* __restrict__ e_alive,
                              const T* __restrict__ v_lat,
@@ -251,6 +279,8 @@ __global__ void column_masks(int64_t m, int64_t n, int64_t H, int64_t C,
                              const int32_t* __restrict__ hop_of_col,
                              const T* __restrict__ lo,
                              const uint8_t* __restrict__ nowin,
+                             const int32_t* __restrict__ perm,
+                             const uint8_t* __restrict__ valid,
                              uint8_t* __restrict__ me,
                              uint8_t* __restrict__ mv) {
     __shared__ uint8_t sh[kTile][kTile + 1];
@@ -261,10 +291,11 @@ __global__ void column_masks(int64_t m, int64_t n, int64_t H, int64_t C,
     const int64_t total = te + (n + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
         if (t < te) {
-            mask_tile<T>(t * kTile, c0, m, C, e_lat, e_alive, &ct, me, sh);
+            mask_tile<T>(t * kTile, c0, m, m_src, C, e_lat, e_alive, perm,
+                         valid, &ct, me, sh);
         } else {
-            mask_tile<T>((t - te) * kTile, c0, n, C, v_lat, v_alive, &ct,
-                         mv, sh);
+            mask_tile<T>((t - te) * kTile, c0, n, n, C, v_lat, v_alive,
+                         nullptr, nullptr, &ct, mv, sh);
         }
     }
 }
@@ -283,10 +314,14 @@ __global__ void scatter_max_i32(int64_t len, int64_t U,
 }
 
 // K3's tiled transpose over one entity table (the K4 pass): no alive
-// column, every column windowed, hop c / W.
-__global__ void threshold_masks(int64_t len, int64_t C, int64_t W,
+// column, every column windowed, hop c / W. `out` has len rows read from
+// snapshot rows of `stride` entities, through perm/valid when binned (KB1).
+__global__ void threshold_masks(int64_t len, int64_t stride, int64_t C,
+                                int64_t W,
                                 const int32_t* __restrict__ snap,
                                 const int32_t* __restrict__ thr,
+                                const int32_t* __restrict__ perm,
+                                const uint8_t* __restrict__ valid,
                                 uint8_t* __restrict__ out) {
     __shared__ uint8_t sh[kTile][kTile + 1];
     __shared__ ColumnTile<int32_t> ct;
@@ -294,8 +329,8 @@ __global__ void threshold_masks(int64_t len, int64_t C, int64_t W,
     load_column_tile<int32_t>(c0, C, W, nullptr, thr, nullptr, &ct);
     const int64_t total = (len + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
-        mask_tile<int32_t>(t * kTile, c0, len, C, snap, nullptr, &ct, out,
-                           sh);
+        mask_tile<int32_t>(t * kTile, c0, len, stride, C, snap, nullptr,
+                           perm, valid, &ct, out, sh);
     }
 }
 
@@ -310,11 +345,12 @@ inline dim3 tile_grid(int64_t row_tiles, int64_t C) {
 }
 
 template <typename T>
-int column_masks_launch(int64_t m, int64_t n, int64_t H, int64_t C,
-                        const void* e_lat,
+int column_masks_launch(int64_t m, int64_t m_src, int64_t n, int64_t H,
+                        int64_t C, const void* e_lat,
                         const void* e_alive, const void* v_lat,
                         const void* v_alive, const void* hop_of_col,
-                        const void* lo, const void* nowin, void* me, void* mv,
+                        const void* lo, const void* nowin, const void* perm,
+                        const void* valid, void* me, void* mv,
                         void* stream) {
     if (C <= 0 || H <= 0 || m + n <= 0) {
         return static_cast<int>(cudaGetLastError());
@@ -322,11 +358,13 @@ int column_masks_launch(int64_t m, int64_t n, int64_t H, int64_t C,
     const int64_t rows = (m + kTile - 1) / kTile + (n + kTile - 1) / kTile;
     column_masks<T><<<tile_grid(rows, C), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        m, n, H, C, static_cast<const T*>(e_lat),
+        m, m_src, n, H, C, static_cast<const T*>(e_lat),
         static_cast<const uint8_t*>(e_alive), static_cast<const T*>(v_lat),
         static_cast<const uint8_t*>(v_alive),
         static_cast<const int32_t*>(hop_of_col), static_cast<const T*>(lo),
-        static_cast<const uint8_t*>(nowin), static_cast<uint8_t*>(me),
+        static_cast<const uint8_t*>(nowin),
+        static_cast<const int32_t*>(perm),
+        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(me),
         static_cast<uint8_t*>(mv));
     return static_cast<int>(cudaGetLastError());
 }
@@ -401,9 +439,9 @@ int rtpu_column_masks_i32(int64_t m, int64_t n, int64_t H, int64_t C,
                           const void* v_alive, const void* hop_of_col,
                           const void* lo, const void* nowin, void* me,
                           void* mv, void* stream) {
-    return column_masks_launch<int32_t>(m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin, me,
-                                        mv, stream);
+    return column_masks_launch<int32_t>(m, m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin,
+                                        nullptr, nullptr, me, mv, stream);
 }
 
 int rtpu_column_masks_i64(int64_t m, int64_t n, int64_t H, int64_t C,
@@ -412,14 +450,15 @@ int rtpu_column_masks_i64(int64_t m, int64_t n, int64_t H, int64_t C,
                           const void* v_alive, const void* hop_of_col,
                           const void* lo, const void* nowin, void* me,
                           void* mv, void* stream) {
-    return column_masks_launch<int64_t>(m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin, me,
-                                        mv, stream);
+    return column_masks_launch<int64_t>(m, m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin,
+                                        nullptr, nullptr, me, mv, stream);
 }
 
 // K4: len entities, H hops, W windows, U updates a hop | base [len],
 // d_pos, d_t [H, U] int32, thr [H*W] int32 | snap [H, len] int32 scratch,
-// out [len, H*W]. Adds the kernels it launched to *launched.
+// out [len, H*W] (null: build the snapshot only, for KB1's binned
+// transpose). Adds the kernels it launched to *launched.
 int rtpu_scale_hop_masks(int64_t len, int64_t H, int64_t W, int64_t U,
                          const void* base, const void* d_pos,
                          const void* d_t, const void* thr, void* snap,
@@ -444,15 +483,60 @@ int rtpu_scale_hop_masks(int64_t len, int64_t H, int64_t W, int64_t U,
             ++*launched;
         }
     }
-    if (W > 0) {
+    if (W > 0 && out != nullptr) {
         const int64_t C = H * W;
         threshold_masks<<<tile_grid((len + kTile - 1) / kTile, C), kThreads,
                           0, st>>>(
-            len, C, W, rows, static_cast<const int32_t*>(thr),
-            static_cast<uint8_t*>(out));
+            len, len, C, W, rows, static_cast<const int32_t*>(thr), nullptr,
+            nullptr, static_cast<uint8_t*>(out));
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
         ++*launched;
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// KB1 (host-column route): K3 with the edge masks emitted straight into
+// the binned layout — me [B, C] row b from edge perm[b] of the [H, m]
+// columns, 0 where !valid[b]; mv [n, C] as K3. One launch.
+int rtpu_bin_column_masks_i32(int64_t B, int64_t m, int64_t n, int64_t H,
+                              int64_t C, const void* e_lat,
+                              const void* e_alive, const void* v_lat,
+                              const void* v_alive, const void* hop_of_col,
+                              const void* lo, const void* nowin,
+                              const void* perm, const void* valid, void* me,
+                              void* mv, void* stream) {
+    return column_masks_launch<int32_t>(B, m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin, perm,
+                                        valid, me, mv, stream);
+}
+
+int rtpu_bin_column_masks_i64(int64_t B, int64_t m, int64_t n, int64_t H,
+                              int64_t C, const void* e_lat,
+                              const void* e_alive, const void* v_lat,
+                              const void* v_alive, const void* hop_of_col,
+                              const void* lo, const void* nowin,
+                              const void* perm, const void* valid, void* me,
+                              void* mv, void* stream) {
+    return column_masks_launch<int64_t>(B, m, n, H, C, e_lat, e_alive, v_lat,
+                                        v_alive, hop_of_col, lo, nowin, perm,
+                                        valid, me, mv, stream);
+}
+
+// KB1 (scale route): K4's transpose over its [H, len] snapshot (built by
+// rtpu_scale_hop_masks with out = null), emitted binned — out [B, H*W] row
+// b from entity perm[b], 0 where !valid[b]. One launch.
+int rtpu_bin_scale_masks(int64_t B, int64_t len, int64_t H, int64_t W,
+                         const void* snap, const void* thr, const void* perm,
+                         const void* valid, void* out, void* stream) {
+    if (B > 0 && H > 0 && W > 0) {
+        const int64_t C = H * W;
+        threshold_masks<<<tile_grid((B + kTile - 1) / kTile, C), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+            B, len, C, W, static_cast<const int32_t*>(snap),
+            static_cast<const int32_t*>(thr),
+            static_cast<const int32_t*>(perm),
+            static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(out));
     }
     return static_cast<int>(cudaGetLastError());
 }

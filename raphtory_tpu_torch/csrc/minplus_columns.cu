@@ -53,6 +53,20 @@
 // column. A row's threads walk its whole edge run, so a very high degree
 // serialises its warp — the same open item as K2b.
 //
+// K5-P / K6-P — the same superstep on the destination-binned (PCPM) route
+// (hopbatch.py:572-583 `_cc_columns`, :653-664 `_bfs_columns` with
+// `pcpm`): edges are binned slots (ops/partition.py), me is [B, C] and the
+// weights [B, H]. The in-direction reads through the pre-aggregation
+// buckets when the layout has them — a first kernel gathers vals[u, c] =
+// cur[u_src[u], c], one row per (partition, source), and slot s pays
+// vals[slot[s], c] — else cur[b_src[s], c]; its rows walk the layout's
+// destination walk (each destination's real slots, built once with the
+// layout). The reverse direction (`pull(e_dst, e_src, False)` over the
+// binned arrays) walks the layout's source walk and pays cur[b_dst[s], c].
+// Min is order-exact: labels and distances are bitwise the unbinned
+// route's and the reference's. The cap-pad slots are in neither walk.
+// One launch a superstep, two with the bucket gather.
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/minplus.py).
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -95,11 +109,17 @@ struct WeightPay {
 template <typename T>
 __device__ inline T tmin(T a, T b) { return b < a ? b : a; }
 
+// In-direction operands: row i's in-edges are in_order[j] (the edge j
+// itself when in_order is null) for j in [in_indptr[i], in_indptr[i+1]),
+// and edge s gathers row in_rows[s] of `gsrc` (cur unbinned; on the binned
+// route the bucket rows vals[slot[s]] or cur[b_src[s]]).
 template <typename T, typename Pay>
 __global__ void min_superstep(int64_t n, int64_t C, int64_t W, int both,
                               Pay pay,
                               const int64_t* __restrict__ in_indptr,
-                              const int32_t* __restrict__ e_src,
+                              const int32_t* __restrict__ in_order,
+                              const int32_t* __restrict__ in_rows,
+                              const T* __restrict__ gsrc,
                               const int64_t* __restrict__ out_indptr,
                               const int32_t* __restrict__ out_perm,
                               const int32_t* __restrict__ e_dst,
@@ -130,10 +150,11 @@ __global__ void min_superstep(int64_t n, int64_t C, int64_t W, int both,
             const T old = cur[k];
             T agg = MAXV;
             const int64_t e1 = in_indptr[i + 1];
-            for (int64_t e = in_indptr[i]; e < e1; ++e) {
+            for (int64_t j = in_indptr[i]; j < e1; ++j) {
+                const int64_t e = in_order ? in_order[j] : j;
                 if (me[e * C + c]) {
-                    agg = tmin(agg, pay(cur[static_cast<int64_t>(e_src[e]) * C
-                                            + c], e, h));
+                    agg = tmin(agg, pay(gsrc[static_cast<int64_t>(in_rows[e])
+                                             * C + c], e, h));
                 }
             }
             if (both) {
@@ -187,7 +208,8 @@ __global__ void min_superstep(int64_t n, int64_t C, int64_t W, int both,
 
 template <typename T, typename Pay>
 int launch(int64_t n, int64_t C, int64_t W, int64_t gx, int64_t both, Pay pay,
-           const void* in_indptr, const void* e_src, const void* out_indptr,
+           const void* in_indptr, const void* in_order, const void* in_rows,
+           const void* gsrc, const void* out_indptr,
            const void* out_perm, const void* e_dst, const void* me,
            const void* mv, const void* cur, void* nxt, void* halted,
            void* done, void* busy, void* ticket, void* stream) {
@@ -199,7 +221,9 @@ int launch(int64_t n, int64_t C, int64_t W, int64_t gx, int64_t both, Pay pay,
                                 0, static_cast<cudaStream_t>(stream)>>>(
             n, C, W, static_cast<int>(both), pay,
             static_cast<const int64_t*>(in_indptr),
-            static_cast<const int32_t*>(e_src),
+            static_cast<const int32_t*>(in_order),
+            static_cast<const int32_t*>(in_rows),
+            static_cast<const T*>(gsrc),
             static_cast<const int64_t*>(out_indptr),
             static_cast<const int32_t*>(out_perm),
             static_cast<const int32_t*>(e_dst),
@@ -209,6 +233,62 @@ int launch(int64_t n, int64_t C, int64_t W, int64_t gx, int64_t both, Pay pay,
             static_cast<int32_t*>(busy), static_cast<unsigned int*>(ticket));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// K5-P/K6-P's bucket gather: vals[u, c] = cur[u_src[u], c].
+template <typename T>
+__global__ void bucket_gather(int64_t U, int64_t C,
+                              const int32_t* __restrict__ u_src,
+                              const T* __restrict__ cur,
+                              T* __restrict__ vals) {
+    const int64_t total = U * C;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         k < total; k += stride) {
+        const int64_t u = k / C;
+        vals[k] = cur[static_cast<int64_t>(u_src[u]) * C + (k - u * C)];
+    }
+}
+
+inline unsigned blocks_for(int64_t n) {
+    int64_t b = (n + kThreads - 1) / kThreads;
+    if (b < 1) b = 1;
+    if (b > 132 * 32) b = 132 * 32;   // grid-stride loops cover the rest
+    return static_cast<unsigned>(b);
+}
+
+// The binned superstep: the bucket gather (when U > 0) then the template
+// over the layout's walks — in-edges of row i are its destination walk,
+// gathering vals[slot[s]] (U > 0) or cur[b_src[s]]; out-edges its source
+// walk, gathering cur[b_dst[s]]. Adds its launches to *launched.
+template <typename T, typename Pay>
+int binned(int64_t n, int64_t C, int64_t W, int64_t gx, int64_t both,
+           int64_t U, Pay pay, const void* in_indptr, const void* in_order,
+           const void* b_src, const void* slot, const void* u_src,
+           const void* out_indptr, const void* out_order, const void* b_dst,
+           const void* me, const void* mv, const void* cur, void* vals,
+           void* nxt, void* halted, void* done, void* busy, void* ticket,
+           void* stream, int64_t* launched) {
+    if (C <= 0 || gx <= 0) return static_cast<int>(cudaGetLastError());
+    const void* gsrc = cur;
+    const void* rows = b_src;
+    if (U > 0) {
+        bucket_gather<T><<<blocks_for(U * C), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+            U, C, static_cast<const int32_t*>(u_src),
+            static_cast<const T*>(cur), static_cast<T*>(vals));
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ++*launched;
+        gsrc = vals;
+        rows = slot;
+    }
+    const int err = launch<T, Pay>(n, C, W, gx, both, pay, in_indptr,
+                                   in_order, rows, gsrc, out_indptr,
+                                   out_order, b_dst, me, mv, cur, nxt,
+                                   halted, done, busy, ticket, stream);
+    if (err == 0) ++*launched;
+    return err;
 }
 
 }  // namespace
@@ -222,9 +302,9 @@ int rtpu_cc_superstep(int64_t n, int64_t C, int64_t gx, const void* in_indptr,
                       const void* mv, const void* cur, void* nxt,
                       void* halted, void* done, void* busy, void* ticket,
                       void* stream) {
-    return launch<int32_t>(n, C, 1, gx, 1, CcPay{}, in_indptr, e_src,
-                           out_indptr, out_perm, e_dst, me, mv, cur, nxt,
-                           halted, done, busy, ticket, stream);
+    return launch<int32_t>(n, C, 1, gx, 1, CcPay{}, in_indptr, nullptr,
+                           e_src, cur, out_indptr, out_perm, e_dst, me, mv,
+                           cur, nxt, halted, done, busy, ticket, stream);
 }
 
 // K6: BFS (ew == nullptr: unit weights) or SSSP (ew: [m_pad, H] f32, hop
@@ -239,14 +319,64 @@ int rtpu_minplus_superstep(int64_t n, int64_t C, int64_t W, int64_t H,
                            void* stream) {
     const int64_t both = directed ? 0 : 1;
     if (ew == nullptr) {
-        return launch<float>(n, C, W, gx, both, UnitPay{}, in_indptr, e_src,
-                             out_indptr, out_perm, e_dst, me, mv, cur, nxt,
-                             halted, done, busy, ticket, stream);
+        return launch<float>(n, C, W, gx, both, UnitPay{}, in_indptr,
+                             nullptr, e_src, cur, out_indptr, out_perm, e_dst,
+                             me, mv, cur, nxt, halted, done, busy, ticket,
+                             stream);
     }
     return launch<float>(n, C, W, gx, both,
                          WeightPay{static_cast<const float*>(ew), H},
-                         in_indptr, e_src, out_indptr, out_perm, e_dst, me,
-                         mv, cur, nxt, halted, done, busy, ticket, stream);
+                         in_indptr, nullptr, e_src, cur, out_indptr,
+                         out_perm, e_dst, me, mv, cur, nxt, halted, done,
+                         busy, ticket, stream);
+}
+
+// K5-P: binned CC, both directions, int32 labels | n, C, gx, U (buckets,
+// 0: no pre-aggregation) | in_indptr, in_order, b_src, slot, u_src,
+// out_indptr, out_order, b_dst, me [B, C], mv, cur, vals [U, C] scratch,
+// nxt, halted, done, busy, ticket, stream | launched.
+int rtpu_binned_cc_superstep(int64_t n, int64_t C, int64_t gx, int64_t U,
+                             const void* in_indptr, const void* in_order,
+                             const void* b_src, const void* slot,
+                             const void* u_src, const void* out_indptr,
+                             const void* out_order, const void* b_dst,
+                             const void* me, const void* mv, const void* cur,
+                             void* vals, void* nxt, void* halted, void* done,
+                             void* busy, void* ticket, void* stream,
+                             int64_t* launched) {
+    return binned<int32_t>(n, C, 1, gx, 1, U, CcPay{}, in_indptr, in_order,
+                           b_src, slot, u_src, out_indptr, out_order, b_dst,
+                           me, mv, cur, vals, nxt, halted, done, busy, ticket,
+                           stream, launched);
+}
+
+// K6-P: binned BFS (ew null) or SSSP (ew [B, H] f32, binned), f32
+// distances; the source walk only when undirected. Arguments as K5-P with
+// W, H, directed and ew after gx.
+int rtpu_binned_minplus_superstep(int64_t n, int64_t C, int64_t W, int64_t H,
+                                  int64_t gx, int64_t directed, int64_t U,
+                                  const void* ew, const void* in_indptr,
+                                  const void* in_order, const void* b_src,
+                                  const void* slot, const void* u_src,
+                                  const void* out_indptr,
+                                  const void* out_order, const void* b_dst,
+                                  const void* me, const void* mv,
+                                  const void* cur, void* vals, void* nxt,
+                                  void* halted, void* done, void* busy,
+                                  void* ticket, void* stream,
+                                  int64_t* launched) {
+    const int64_t both = directed ? 0 : 1;
+    if (ew == nullptr) {
+        return binned<float>(n, C, W, gx, both, U, UnitPay{}, in_indptr,
+                             in_order, b_src, slot, u_src, out_indptr,
+                             out_order, b_dst, me, mv, cur, vals, nxt,
+                             halted, done, busy, ticket, stream, launched);
+    }
+    return binned<float>(n, C, W, gx, both, U,
+                         WeightPay{static_cast<const float*>(ew), H},
+                         in_indptr, in_order, b_src, slot, u_src, out_indptr,
+                         out_order, b_dst, me, mv, cur, vals, nxt, halted,
+                         done, busy, ticket, stream, launched);
 }
 
 }  // extern "C"

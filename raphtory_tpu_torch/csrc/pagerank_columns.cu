@@ -53,6 +53,28 @@
 // capped grid a thread walks ~10^4 rows at n = 5.3M, C = 128, and an f32
 // running sum that long drifts from the twin's sum past its tolerance.
 //
+// K2b-P `rtpu_binned_pull_sum` — the pull-sum of the destination-binned
+// (PCPM) route, raphtory_tpu/engine/hopbatch.py:242-258. Edges are binned
+// slots (ops/partition.py: B = P * cap, sorted (src, dst) within each
+// destination partition, cap-pads with b_src = b_dst = n_pad-1 and valid
+// False); me is [B, C]. With pre-aggregation (U = P * cap_u > 0) a first
+// kernel gathers one state row per (partition, source) bucket,
+//     vals[u, c] = rd[u_src[u], c]
+// and the pull reads vals[slot[s], c]; without it the pull reads
+// rd[b_src[s], c] (the reference's plain binned gather, destinations
+// unsorted). Per (d, c):
+//     agg[d, c] = sum over j in [in_indptr[d], in_indptr[d+1]) of
+//                 (me[s, c] ? src_row(s)[c] : 0),   s = in_order[j]
+// The walk (`in_indptr`/`in_order`, built once with the layout) lists each
+// destination's real slots in source order — the order the engine's
+// (dst, src)-sorted table visits them — so the sum adds the same values in
+// the same order as K2b: the binned ranks equal the unbinned route's bit
+// for bit. The cap-pad slots are in no walk, so they never reach row
+// n_pad-1. No atomics. Bound: bytes — the mask (B * C), the walk and ids,
+// the gathered rows (U * C * 4 read and written by the bucket gather, or
+// the per-edge row gather) and agg written once. One launch, two with the
+// bucket gather.
+//
 // What bounds them on the H100: bytes. Per superstep K2b streams the mask
 // (m_pad * C bytes), the source ids (4 * m_pad) and the CSR offsets, and
 // gathers C-wide f32 rows of rd (n_pad * C * 4 bytes, small enough at the
@@ -110,6 +132,47 @@ __global__ void column_pull_sum(int64_t n, int64_t C,
         float acc = 0.0f;
         for (int64_t e = indptr[d]; e < e1; ++e) {
             if (me[e * C + c]) acc += rd[static_cast<int64_t>(src[e]) * C + c];
+        }
+        agg[k] = acc;
+    }
+}
+
+// K2b-P's bucket gather: vals[u, c] = rd[u_src[u], c] (row copies).
+__global__ void bucket_gather(int64_t U, int64_t C,
+                              const int32_t* __restrict__ u_src,
+                              const float* __restrict__ rd,
+                              float* __restrict__ vals) {
+    const int64_t total = U * C;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         k < total; k += stride) {
+        const int64_t u = k / C;
+        vals[k] = rd[static_cast<int64_t>(u_src[u]) * C + (k - u * C)];
+    }
+}
+
+// K2b-P's pull: rows[s] names the gathered row of slot s in `src`
+// (slot[] into vals with pre-aggregation, b_src[] into rd without).
+__global__ void binned_pull_sum(int64_t n, int64_t C,
+                                const int64_t* __restrict__ indptr,
+                                const int32_t* __restrict__ order,
+                                const int32_t* __restrict__ rows,
+                                const uint8_t* __restrict__ me,
+                                const float* __restrict__ src,
+                                float* __restrict__ agg) {
+    const int64_t total = n * C;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         k < total; k += stride) {
+        const int64_t d = k / C;
+        const int64_t c = k - d * C;
+        const int64_t j1 = indptr[d + 1];
+        float acc = 0.0f;
+        for (int64_t j = indptr[d]; j < j1; ++j) {
+            const int64_t s = order[j];
+            if (me[s * C + c]) {
+                acc = __fadd_rn(acc, src[static_cast<int64_t>(rows[s]) * C + c]);
+            }
         }
         agg[k] = acc;
     }
@@ -264,6 +327,40 @@ int rtpu_pagerank_update(int64_t n, int64_t C, int64_t gx, int64_t prime,
             static_cast<int32_t*>(busy), static_cast<unsigned int*>(ticket));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// K2b-P: n rows, C columns, U buckets (0: no pre-aggregation) | in_indptr
+// [n+1] int64, in_order [m] int32, b_src, slot [B] int32, u_src [U] int32,
+// me [B, C], rd [n, C] f32 | vals [U, C] f32 scratch (unused when U = 0),
+// agg [n, C]. Adds the kernels it launched to *launched.
+int rtpu_binned_pull_sum(int64_t n, int64_t C, int64_t U,
+                         const void* in_indptr, const void* in_order,
+                         const void* b_src, const void* slot,
+                         const void* u_src, const void* me, const void* rd,
+                         void* vals, void* agg, void* stream,
+                         int64_t* launched) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (n <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+    const float* src = static_cast<const float*>(rd);
+    const void* rows = b_src;
+    if (U > 0) {
+        bucket_gather<<<blocks_for(U * C), kThreads, 0, st>>>(
+            U, C, static_cast<const int32_t*>(u_src), src,
+            static_cast<float*>(vals));
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ++*launched;
+        src = static_cast<const float*>(vals);
+        rows = slot;
+    }
+    binned_pull_sum<<<blocks_for(n * C), kThreads, 0, st>>>(
+        n, C, static_cast<const int64_t*>(in_indptr),
+        static_cast<const int32_t*>(in_order),
+        static_cast<const int32_t*>(rows), static_cast<const uint8_t*>(me),
+        src, static_cast<float*>(agg));
+    const cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess) ++*launched;
+    return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -31,6 +31,28 @@
 // very high degree (Bitcoin's Pareto senders in the source direction)
 // serialises that thread; a row split is an open item.
 //
+// K7-P `rtpu_partition_reduce` — the destination-binned (PCPM) combine,
+// raphtory_tpu/ops/segment.py:116 `partition_segment_reduce` as the
+// superstep runner calls it (engine/bsp.py:127-141): each window's
+// per-edge payload is read through the layout permutation and its mask
+// through perm & valid, and every destination partition reduces into its
+// own dense n_per-row block (rows p*n_per .. (p+1)*n_per-1), the blocks
+// sliced to the first n rows:
+//
+//     out[w, r, f] = op over j in [indptr[r], indptr[r+1]) of
+//                    (valid[s] && mask[w*m + perm[s]] ?
+//                     x[(w*m + perm[s]), f] : neutral),   s = order[j]
+//
+// `indptr`/`order` is the layout's destination walk (each row's real slots
+// in source order, built once on the host), so a block of neighbouring
+// threads covers neighbouring rows of one partition's block. perm null:
+// slot s is payload row s (the [P, cap] payload of the reference's
+// signature); valid null: every slot real. One thread per (window, row,
+// feature), fixed order, no atomics: the sums add in the order K7 adds the
+// same edges, min/max are order-exact. Bound: bytes — the payload and mask
+// of every real edge once per window through perm, the walk once, the
+// output written once.
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/segment.py).
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError().
@@ -95,6 +117,58 @@ __global__ void segment_combine_kernel(int64_t k, int64_t n, int64_t m,
     }
 }
 
+template <typename T, int OP>
+__global__ void partition_reduce_kernel(int64_t k, int64_t n, int64_t m,
+                                        int64_t F,
+                                        const int64_t* __restrict__ indptr,
+                                        const int32_t* __restrict__ order,
+                                        const int32_t* __restrict__ perm,
+                                        const uint8_t* __restrict__ valid,
+                                        const T* __restrict__ x,
+                                        const uint8_t* __restrict__ mask,
+                                        T* __restrict__ out) {
+    const int64_t total = k * n * F;
+    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+         t < total; t += (int64_t)gridDim.x * blockDim.x) {
+        const int64_t f = t % F;
+        const int64_t r = (t / F) % n;
+        const int64_t w = t / (F * n);
+        const int64_t base = w * m;
+        T acc = neutral<T, OP>();
+        const int64_t j1 = indptr[r + 1];
+        for (int64_t j = indptr[r]; j < j1; ++j) {
+            const int64_t s = order[j];
+            if (valid && !valid[s]) continue;
+            const int64_t e = base + (perm ? (int64_t)perm[s] : s);
+            if (mask[e]) acc = combine<T, OP>(acc, x[e * F + f]);
+        }
+        out[t] = acc;
+    }
+}
+
+template <typename T>
+void launch_partition(int op, int64_t k, int64_t n, int64_t m, int64_t F,
+                      const int64_t* indptr, const int32_t* order,
+                      const int32_t* perm, const uint8_t* valid,
+                      const void* x, const uint8_t* mask, void* out,
+                      cudaStream_t s) {
+    const int64_t total = k * n * F;
+    int64_t blocks = (total + kThreads - 1) / kThreads;
+    if (blocks > 65535 * 8) blocks = 65535 * 8;
+    if (blocks < 1) blocks = 1;
+    const T* xt = static_cast<const T*>(x);
+    T* ot = static_cast<T*>(out);
+    if (op == kSum)
+        partition_reduce_kernel<T, kSum><<<blocks, kThreads, 0, s>>>(
+            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
+    else if (op == kMin)
+        partition_reduce_kernel<T, kMin><<<blocks, kThreads, 0, s>>>(
+            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
+    else
+        partition_reduce_kernel<T, kMax><<<blocks, kThreads, 0, s>>>(
+            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
+}
+
 template <typename T>
 void launch(int op, int64_t k, int64_t n, int64_t m, int64_t F,
             const int64_t* indptr, const int32_t* perm, const void* x,
@@ -137,6 +211,33 @@ int rtpu_segment_combine(int64_t k, int64_t n, int64_t m, int64_t F,
         launch<float>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
     else
         launch<int32_t>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
+    return (int)cudaGetLastError();
+}
+
+// K7-P. k windows, n rows, m payload rows per window, F features; op and
+// dtype as rtpu_segment_combine | indptr [n+1] int64, order int32 (the
+// destination walk), perm [B] int32 or null, valid [B] bool or null,
+// x [k*m, F], mask [k*m] | out [k*n, F].
+int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
+                          int64_t op, int64_t dtype, const void* indptr,
+                          const void* order, const void* perm,
+                          const void* valid, const void* x, const void* mask,
+                          void* out, void* stream) {
+    if (k * n * F == 0) return (int)cudaGetLastError();
+    if (op < 0 || op > 2 || dtype < 0 || dtype > 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t* ip = static_cast<const int64_t*>(indptr);
+    const int32_t* od = static_cast<const int32_t*>(order);
+    const int32_t* pp = static_cast<const int32_t*>(perm);
+    const uint8_t* vd = static_cast<const uint8_t*>(valid);
+    const uint8_t* mk = static_cast<const uint8_t*>(mask);
+    if (dtype == 0)
+        launch_partition<float>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
+                                out, s);
+    else
+        launch_partition<int32_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
+                                  out, s);
     return (int)cudaGetLastError();
 }
 

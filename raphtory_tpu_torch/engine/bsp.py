@@ -19,10 +19,16 @@ route: masks built on the host, shipped bit-packed, unpacked on the card
 by K8u) and the resident sweep (``engine/device_sweep.py``), which makes
 its masks on the card (K9b) and calls ``make_mask_runner`` directly.
 
-Not ported here, each raising ``NotImplementedError``: the PCPM
-destination-binned exchange (ROADMAP queue 2, K7/K8), ``combiner="custom"``
-(K7 ``segment_mode``) and occurrence programs (``needs_occurrences``,
-ROADMAP queue 1 item 4).
+The cold route takes the destination-binned (PCPM) exchange where
+``ops/partition.resolve`` bins the view's edge table (``RTPU_PCPM``, the
+reference's auto rule): the destination direction combines with K7-P
+(``ops/segment.partition_reduce``) over the view's layout, the reverse
+direction keeps K7. The resident sweep stays unbinned, as in the
+reference.
+
+Not ported here, each raising ``NotImplementedError``:
+``combiner="custom"`` (K7 ``segment_mode``) and occurrence programs
+(``needs_occurrences``, ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import numpy as np
 import torch
 
 from ..core.snapshot import INT64_MIN, GraphView
+from ..ops import partition as _partition
 from ..ops.resident import unpack_mask_bits
-from ..ops.segment import SegmentCSR, segment_combine
+from ..ops.segment import (PartitionWalk, SegmentCSR, partition_reduce,
+                           segment_combine)
 from ..utils.device import resolve_device
 from .device_sweep import DeviceEdges, normalize_windows
 from .program import Context, Edges, VertexProgram
@@ -66,7 +74,8 @@ def check_program(program: VertexProgram) -> None:
             "edge-add events) are not ported yet: ROADMAP queue 1 item 4")
 
 
-def make_mask_runner(program: VertexProgram, n: int, m: int, k: int):
+def make_mask_runner(program: VertexProgram, n: int, m: int, k: int,
+                     pcpm: PartitionWalk | None = None):
     """The superstep core over UNPACKED bool masks (``v_masks [k, n]``,
     ``e_masks [k, m]``) — ``raphtory_tpu/engine/bsp.py:70``. The returned
     ``run(v_masks, e_masks, vids, v_latest, v_first, edges, e_latest,
@@ -74,7 +83,10 @@ def make_mask_runner(program: VertexProgram, n: int, m: int, k: int):
     result leaves ``[k, n, ...]`` and the superstep count as an int.
     ``edges`` is a ``DeviceEdges`` (the (dst, src)-sorted endpoints and
     both CSRs over the real edges); arrays a program opts out of
-    (``needs_*`` False) may be None."""
+    (``needs_*`` False) may be None. ``pcpm`` (the view layout's
+    destination walk, through its ``perm``/``valid``) makes the
+    destination-direction combine the binned one (K7-P); the reverse
+    direction keeps K7's (``bsp.py:127-141``)."""
     check_program(program)
     op = program.combiner
 
@@ -104,6 +116,10 @@ def make_mask_runner(program: VertexProgram, n: int, m: int, k: int):
             return a if k == 1 else a.repeat((k,) + (1,) * (a.dim() - 1))
 
         def combine(tree, csr):
+            if pcpm is not None and csr is at_dst:
+                return tree_map(lambda x: partition_reduce(
+                    x, pcpm, op, em_flat, k).reshape((k, n) + x.shape[1:]),
+                    tree)
             return tree_map(lambda x: segment_combine(
                 x, csr, op, em_flat, k).reshape((k, n) + x.shape[1:]), tree)
 
@@ -181,6 +197,17 @@ def view_edges(view: GraphView, device) -> DeviceEdges:
                          for a in host))
 
 
+def _view_layout(view: GraphView):
+    """Destination-binned layout for a view's edge table, or None when
+    ``RTPU_PCPM`` keeps the flat exchange (``raphtory_tpu/engine/bsp.py:
+    255-271``). Knobs are read HERE, at dispatch. ``m`` is the REAL row
+    count: the pad tail must become invalid cap-pad slots, not edges."""
+    return _partition.resolve(
+        view, _partition.HostTables(view.e_src, view.e_dst, view.n_pad,
+                                    int(view.m_active)),
+        _partition.tile_budget_bytes(), tag="e")
+
+
 def _gather_props(view: GraphView, keys, kind: str, device) -> dict:
     out = {}
     for name in keys:
@@ -233,7 +260,17 @@ def run_async(program: VertexProgram, view: GraphView, *,
         return torch.from_numpy(a).to(device) if needed else None
 
     needs_vt, needs_et = program.needs_vertex_times, program.needs_edge_times
-    runner = make_mask_runner(program, n_pad, m_pad, k)
+    # the layout only where the binned exchange can engage: a custom
+    # exchange or an in-only program never takes the destination combine.
+    # The port is no TPU backend, so sum programs bin too (the reference's
+    # non-TPU branch, bsp.py:350-356)
+    binnable = program.direction in ("out", "both")
+    layout = _view_layout(view) if binnable else None
+    walk = None
+    if layout is not None:
+        be = layout.device_edges(device)
+        walk = PartitionWalk(be.in_indptr, be.in_order, be.perm, be.valid)
+    runner = make_mask_runner(program, n_pad, m_pad, k, walk)
     result, steps = runner(
         ship_bits(v_masks), ship_bits(e_masks),
         put(view.vids, program.needs_vids),

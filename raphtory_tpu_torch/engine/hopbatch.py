@@ -26,6 +26,17 @@ The per-dispatch start states stay in torch ops. Semantics match
 ``algorithms/``. Every iteration loops on the host and reads one
 all-halted flag per superstep.
 
+Destination-binned (PCPM) route: each run resolves the partition layout
+(``ops/partition.resolve``: ``RTPU_PCPM``, ``RTPU_PARTITIONS``,
+``RTPU_TILE_BUDGET_MB``, read at dispatch with the reference's auto rule),
+and where it bins every edge operand lives in the layout's binned space of
+``B = P * cap`` slots: the delta route bins the base on the host and remaps
+the delta positions (K1 then runs unchanged at length B), the host-column
+route and the scale route emit their masks binned (KB1), and the passes
+are K2b-P (``columns.binned_pull_sum``), K5-P and K6-P
+(``minplus.binned_cc_superstep`` / ``binned_minplus_superstep``); K2a and
+K2c run unchanged on the binned operands.
+
 Reference contrast: one pass per RANGE QUERY, where the reference runs its
 full actor handshake once per hop (``RangeAnalysisTask.scala:18-35``).
 """
@@ -42,6 +53,8 @@ import torch
 from ..core.events import EDGE_ADD, EventLog
 from ..core.sweep import SweepBuilder
 from ..ops import columns, minplus
+from ..ops import partition as _partition
+from ..ops.partition import BinnedEdges
 from ..utils.device import resolve_device
 from .device_sweep import (DeviceEdges, GlobalTables, _device_edges,
                            normalize_windows)
@@ -78,7 +91,7 @@ def _pad_hop_deltas(deltas, H: int, tdt):
 
 def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
                       damping: float, tol: float, max_steps: int,
-                      r_init=None):
+                      r_init=None, pcpm: BinnedEdges | None = None):
     """Power iteration over per-column masks ``me [m_pad, C]`` /
     ``mv [n_pad, C]`` — dangling redistribution, tol halting with
     converged-column freeze; semantics of ``algorithms/pagerank.py``.
@@ -89,7 +102,9 @@ def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
     newly-alive vertices get mass, and renormalised.
 
     Returns ``(ranks [C, n_pad], supersteps run)``. Edges are
-    (dst, src)-sorted with their destination CSR ``indptr``."""
+    (dst, src)-sorted with their destination CSR ``indptr``; with ``pcpm``
+    (a layout's ``BinnedEdges``) ``me``/``e_src``/``e_dst``/``indptr`` are
+    the binned ``[B(, C)]`` operands and the pull-sum is K2b-P."""
     out_deg = columns.column_out_degree(me, e_src, n_pad)
     n_act = torch.clamp(mv.to(torch.float32).sum(0), min=1.0)
     r = torch.where(mv, (1.0 / n_act)[None, :], 0.0)
@@ -105,7 +120,8 @@ def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
     # the reference's while_loop condition, read on the host: one
     # all-halted flag per superstep
     while steps < max_steps and not bool(st.done):
-        agg = columns.column_pull_sum(me, st.rd, e_src, e_dst, indptr)
+        agg = (columns.column_pull_sum(me, st.rd, e_src, e_dst, indptr)
+               if pcpm is None else columns.binned_pull_sum(me, st.rd, pcpm))
         columns.pagerank_update(st, agg, out_deg, mv, n_act, damping, tol)
         steps += 1
     return st.r.t(), steps
@@ -119,7 +135,11 @@ def _cc_columns(me, mv, edges, n_pad: int, max_steps: int, l_init=None):
     previous epoch's labels: the start is ``min(own index, l_init)``,
     equal to the cold result only when the graph merely GAINED
     edges/vertices since (the caller's gate, as in the reference).
-    Returns ``(labels [C, n_pad], supersteps run)``."""
+    ``edges`` is the ``DeviceEdges`` or, binned, a layout's ``BinnedEdges``
+    (``me`` then ``[B, C]``). Returns ``(labels [C, n_pad], supersteps
+    run)``."""
+    step = (minplus.binned_cc_superstep if isinstance(edges, BinnedEdges)
+            else minplus.cc_superstep)
     lab0 = torch.where(mv, torch.arange(n_pad, dtype=torch.int32,
                                         device=mv.device)[:, None],
                        minplus.I32_MAX)
@@ -128,7 +148,7 @@ def _cc_columns(me, mv, edges, n_pad: int, max_steps: int, l_init=None):
     st = minplus.min_state(lab0.contiguous())
     steps = 0
     while steps < max_steps and not bool(st.done):
-        minplus.cc_superstep(st, me, mv, edges)
+        step(st, me, mv, edges)
         steps += 1
     return st.cur.t(), steps
 
@@ -140,7 +160,11 @@ def _bfs_columns(me, mv, edges, n_pad: int, max_steps: int, directed: bool,
     weight block (hop ``c // W`` of column ``c``). ``d_init`` ([n_pad, C]
     f32) warm-starts with ``min(cold seed, d_init)``, valid when edges and
     vertices were only ADDED since (the caller's gate); weighted SSSP never
-    warm-starts. Returns ``(distances [C, n_pad], supersteps run)``."""
+    warm-starts. ``edges`` as for ``_cc_columns`` (binned: ``ew`` is the
+    binned ``[B, H]`` block). Returns ``(distances [C, n_pad], supersteps
+    run)``."""
+    step = (minplus.binned_minplus_superstep
+            if isinstance(edges, BinnedEdges) else minplus.minplus_superstep)
     d0 = torch.where(mv & seed_mask[:, None], 0.0, minplus.INF) \
         .to(torch.float32)
     if d_init is not None:
@@ -148,9 +172,18 @@ def _bfs_columns(me, mv, edges, n_pad: int, max_steps: int, directed: bool,
     st = minplus.min_state(d0.contiguous())
     steps = 0
     while steps < max_steps and not bool(st.done):
-        minplus.minplus_superstep(st, me, mv, edges, directed, ew, W)
+        step(st, me, mv, edges, directed, ew, W)
         steps += 1
     return st.cur.t(), steps
+
+
+def _pr_args(edges):
+    """``(e_src, e_dst, indptr, pcpm)`` of ``_pagerank_columns`` for
+    unbinned edge tables (``DeviceEdges`` or its first three fields) or a
+    layout's ``BinnedEdges``."""
+    if isinstance(edges, BinnedEdges):
+        return edges.b_src, edges.b_dst, edges.in_indptr, edges
+    return (*edges[:3], None)
 
 
 def _seed_mask(tables, seed_vids) -> np.ndarray:
@@ -194,9 +227,10 @@ def _tile_warm(r_init, H: int, W: int):
 
 
 def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
-                      windows, *, algo_args: tuple, edges, seed_mask=None,
-                      r_init=None, weight_base=None, weight_deltas=None,
-                      h0_delta: bool = False, ship_counter=None):
+                      windows, *, algo_args: tuple, edges=None,
+                      seed_mask=None, r_init=None, weight_base=None,
+                      weight_deltas=None, h0_delta: bool = False,
+                      ship_counter=None, layout=None, device=None):
     """Dispatch a delta-fed columnar kernel (``kind``: pagerank | cc | bfs)
     over ``_HopBatched._fold_deltas`` output; returns ``(result [H*W,
     n_pad], steps, advanced_base)``. ``base`` is a host snapshot (numpy)
@@ -208,7 +242,14 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     bfs into weighted SSSP with the weight state rebuilt on the device too
     (K6w); the advanced base then carries the weight state as a 5th
     element. ``r_init`` is the previous chunk's (or epoch's) full
-    ``[C_prev, n_pad]`` output: its last hop's W rows seed every hop."""
+    ``[C_prev, n_pad]`` output: its last hop's W rows seed every hop.
+
+    ``layout`` (``ops/partition.PartitionLayout``) routes the dispatch
+    through the destination-binned kernels: a host base is binned HERE (a
+    resident h0 base already is: it is the previous binned dispatch's
+    advanced state), the edge delta positions (and SSSP's weight ones) are
+    remapped to binned slots, K1/K6w run at length B, and ``edges`` is not
+    needed (``device`` names the card, None: the CUDA card)."""
     H, C, _, T_col, w_col = _column_layout(hop_times, windows)
     W = C // H
     tdt = tables.tdtype
@@ -217,6 +258,15 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     weighted = weight_base is not None
     if weighted:
         dw_pos, dw_val = _pad_weight_deltas(weight_deltas, H)
+    base = tuple(base)
+    if layout is not None:
+        if not h0_delta:
+            base = (*layout.bin_base(base[0], base[1]), *base[2:])
+            if weighted:
+                weight_base = layout.bin_values(weight_base)
+        de_pos = layout.remap_positions(de_pos)
+        if weighted:
+            dw_pos = layout.remap_positions(dw_pos)
     if ship_counter is not None:
         # FOLD-STATE host→device payload of THIS dispatch (padded shapes;
         # a device-resident h0 base, the cached tables and the per-engine
@@ -229,7 +279,10 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
             if not h0_delta:
                 shipped.append(weight_base)
         ship_counter(int(sum(a.nbytes for a in shipped)))
-    dev = edges.e_src.device
+    dev = (edges.e_src.device if edges is not None
+           else resolve_device(device))
+    if layout is not None:
+        edges = layout.device_edges(dev, reverse=kind != "pagerank")
 
     def put(a):
         return _put(a, dev)
@@ -249,8 +302,10 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     n_pad = tables.n_pad
     if kind == "pagerank":
         damping, tol, max_steps = algo_args
-        out, steps = _pagerank_columns(me, mv, *edges[:3], n_pad, damping,
-                                       tol, max_steps, r_init=warm)
+        e_src, e_dst, indptr, pcpm = _pr_args(edges)
+        out, steps = _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad,
+                                       damping, tol, max_steps, r_init=warm,
+                                       pcpm=pcpm)
     elif kind == "cc":
         (max_steps,) = algo_args
         out, steps = _cc_columns(me, mv, edges, n_pad, max_steps,
@@ -279,24 +334,39 @@ def _host_edges(tables, dev, full: bool):
     return DeviceEdges(*got) if full else got
 
 
-def _dispatch_columns(tables, cols, hop_times, windows, dev):
+def _dispatch_columns(tables, cols, hop_times, windows, dev, layout=None):
     """Upload the host fold columns ``cols = (e_lat, e_alive, v_lat,
     v_alive)`` (hop-major ``[H, m_pad]`` / ``[H, n_pad]``) and build the
-    window masks on the device (K3). Returns ``(H, W, me [m_pad, C], mv
-    [n_pad, C])``."""
+    window masks on the device: K3, or KB1 with a ``layout`` (the edge
+    masks emitted binned, ``[B, C]``). Returns ``(H, W, me, mv [n_pad,
+    C])``."""
     H, C, hop_of_col, T_col, w_col = _column_layout(hop_times, windows)
     tdt = tables.tdtype
     info = np.iinfo(tdt)
-    me, mv = columns.column_masks(
-        *(_put(a, dev) for a in cols), _put(hop_of_col, dev),
-        _put(np.clip(T_col - w_col, info.min, info.max).astype(tdt), dev),
-        _put(w_col < 0, dev))
+    args = (*(_put(a, dev) for a in cols), _put(hop_of_col, dev),
+            _put(np.clip(T_col - w_col, info.min, info.max).astype(tdt), dev),
+            _put(w_col < 0, dev))
+    if layout is None:
+        me, mv = columns.column_masks(*args)
+    else:
+        _, _, valid, _, _, perm = layout.device_args(dev)
+        me, mv = columns.bin_column_masks(*args, perm, valid)
     return H, C // H, me, mv
+
+
+def _column_edges(tables, dev, edges, layout, full: bool):
+    """The edge operands of a host-column dispatch: the layout's
+    ``BinnedEdges`` (``full``: with the source walk), else ``edges`` or the
+    tables' own upload."""
+    if layout is not None:
+        return layout.device_edges(dev, reverse=full)
+    return edges if edges is not None else _host_edges(tables, dev, full)
 
 
 def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
                 *, damping: float = 0.85, tol: float = 1e-7,
-                max_steps: int = 20, edges=None, r_init=None, device=None):
+                max_steps: int = 20, edges=None, r_init=None, device=None,
+                layout=None):
     """Columnar PageRank over prebuilt per-hop fold columns — the
     ``RTPU_FOLD=host`` route of ``HopBatchedPageRank`` and the add-only bulk
     loader's (``core/bulk.bulk_hop_columns``). ``tables`` needs the
@@ -304,51 +374,57 @@ def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
     ``in_indptr``, ``tdtype``); ``edges`` (device tensors, ``DeviceEdges``
     or its first three fields) skips their upload. ``r_init`` (the
     previous chunk's full ``[C_prev, n_pad]`` output, on the device)
-    warm-starts from its last hop's W rows, tiled per hop.
-    ``device=None`` is the CUDA card. Returns ``(ranks [H*W, n_pad]
-    hop-major, steps)``."""
+    warm-starts from its last hop's W rows, tiled per hop. ``layout``
+    (a ``PartitionLayout`` of ``tables``) takes the binned route (KB1,
+    K2b-P). ``device=None`` is the CUDA card. Returns ``(ranks [H*W,
+    n_pad] hop-major, steps)``."""
     dev = resolve_device(device)
     H, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev)
-    if edges is None:
-        edges = _host_edges(tables, dev, full=False)
-    return _pagerank_columns(me, mv, *edges[:3], tables.n_pad,
+                                     hop_times, windows, dev, layout)
+    e_src, e_dst, indptr, pcpm = _pr_args(
+        _column_edges(tables, dev, edges, layout, full=False))
+    return _pagerank_columns(me, mv, e_src, e_dst, indptr, tables.n_pad,
                              float(damping), float(tol), int(max_steps),
-                             r_init=_tile_warm(r_init, H, W))
+                             r_init=_tile_warm(r_init, H, W), pcpm=pcpm)
 
 
 def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
-                   windows, *, max_steps: int = 100, edges=None, device=None):
+                   windows, *, max_steps: int = 100, edges=None, device=None,
+                   layout=None):
     """Columnar connected components over prebuilt per-hop fold columns
-    (K3, then K5 per superstep). ``edges`` is the device ``DeviceEdges``
-    (uploaded from ``tables`` when None). Returns ``(labels [H*W, n_pad],
-    steps)``."""
+    (K3, then K5 per superstep; KB1 and K5-P with a ``layout``). ``edges``
+    is the device ``DeviceEdges`` (uploaded from ``tables`` when None).
+    Returns ``(labels [H*W, n_pad], steps)``."""
     dev = resolve_device(device)
     _, _, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev)
-    if edges is None:
-        edges = _host_edges(tables, dev, full=True)
-    return _cc_columns(me, mv, edges, tables.n_pad, int(max_steps))
+                                     hop_times, windows, dev, layout)
+    return _cc_columns(me, mv, _column_edges(tables, dev, edges, layout,
+                                             full=True),
+                       tables.n_pad, int(max_steps))
 
 
 def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
                     windows, seed_vids, *, directed: bool = False,
                     max_steps: int = 100, edges=None, weight_cols=None,
-                    device=None):
+                    device=None, layout=None):
     """Columnar min-plus traversal over prebuilt fold columns (K3, then K6
     per superstep); ``seed_vids`` are external vertex ids looked up in the
     global dense space (absent ids ignored). ``weight_cols`` (``[H,
     m_pad]`` f32, missing folded to 1.0) turns hop counting into weighted
-    SSSP: it uploads transposed, as the ``[m_pad, H]`` block K6 reads.
-    Returns ``(distances [H*W, n_pad], steps)``."""
+    SSSP: it uploads transposed, as the ``[m_pad, H]`` block K6 reads
+    (binned with a ``layout``: rows follow the layout permutation, ``[B,
+    H]``, as the reference's ``ew[perm]``). Returns ``(distances [H*W,
+    n_pad], steps)``."""
     dev = resolve_device(device)
     _, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev)
-    if edges is None:
-        edges = _host_edges(tables, dev, full=True)
+                                     hop_times, windows, dev, layout)
+    edges = _column_edges(tables, dev, edges, layout, full=True)
     ew = None
     if weight_cols is not None:
-        ew = _put(weight_cols, dev).t().contiguous()
+        ew = _put(weight_cols, dev).t()
+        if layout is not None:
+            ew = ew[edges.perm.long()]
+        ew = ew.contiguous()
     seed_mask = _put(_seed_mask(tables, seed_vids), dev)
     return _bfs_columns(me, mv, edges, tables.n_pad, int(max_steps),
                         bool(directed), seed_mask, ew, W)
@@ -430,7 +506,12 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
     device ``(e_src, e_dst, in_indptr)``, and ``prepared`` (from
     ``prepare_scale_payload``) the uploaded update lists, so repeated
     sweeps ship nothing; a payload prepared for another grid or other
-    deltas raises ``ValueError``. ``device=None`` is the CUDA card."""
+    deltas raises ``ValueError``. ``device=None`` is the CUDA card.
+
+    The partition layout resolves HERE on ``bulk`` (``ops/partition``
+    knobs, read at dispatch): binned, K4 advances the hop state in engine
+    order and KB1 emits the edge masks straight into the ``[B, H*W]``
+    binned layout, and the pull-sum is K2b-P."""
     dev = resolve_device(device)
     H = len(hop_times)
     wlist = normalize_windows(windows)
@@ -456,12 +537,21 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
                 "(per-hop length/checksum mismatch) — results would be "
                 "mislabelled; re-run prepare_scale_payload on these deltas")
     _, _, de_pos, de_t, dv_pos, dv_t, thr, _ = prepared
-    me = columns.scale_hop_masks(_put(base_e, dev), de_pos, de_t, thr, H, W)
-    mv = columns.scale_hop_masks(_put(base_v, dev), dv_pos, dv_t, thr, H, W)
-    if edges is None:
+    layout = _partition.resolve(bulk, bulk, _partition.tile_budget_bytes())
+    if layout is not None:
+        edges = layout.device_edges(dev)
+    elif edges is None:
         edges = _host_edges(bulk, dev, full=False)
-    return _pagerank_columns(me, mv, *edges[:3], bulk.n_pad, float(damping),
-                             float(tol), int(max_steps))
+    binned = isinstance(edges, BinnedEdges)
+    me = columns.scale_hop_masks(
+        _put(base_e, dev), de_pos, de_t, thr, H, W,
+        perm=edges.perm if binned else None,
+        valid=edges.valid if binned else None)
+    mv = columns.scale_hop_masks(_put(base_v, dev), dv_pos, dv_t, thr, H, W)
+    e_src, e_dst, indptr, pcpm = _pr_args(edges)
+    return _pagerank_columns(me, mv, e_src, e_dst, indptr, bulk.n_pad,
+                             float(damping), float(tol), int(max_steps),
+                             pcpm=pcpm)
 
 
 class _HopBatched:
@@ -510,13 +600,42 @@ class _HopBatched:
         # fold state, fed back as the next dispatch's base so follow-on
         # chunks and batches ship only deltas
         self._dev_base = None
+        # the PCPM layout spec the resident base is expressed in (None =
+        # engine order): a knob flip between batches must drop residency,
+        # never scatter one layout's delta onto the other's state
+        self._dev_base_spec = None
+        # the run's resolved partition layout (ops/partition.py), fixed
+        # for the whole run at its start — None on the unbinned route
+        self._active_layout = None
         # cross-epoch warm seed (run(..., warm_state=...)): seeds the FIRST
         # dispatch's iteration from a previous run's output
         self._epoch_seed = None
 
     @property
     def _edges(self):
+        """The unbinned device edge tables, or None on the binned route
+        (the binned dispatches read the layout's own device arrays)."""
+        if self._active_layout is not None:
+            return None
         return _device_edges(self._log, self.tables, self.device)
+
+    def _resolve_layout(self):
+        return _partition.resolve(self._log, self.tables,
+                                  _partition.tile_budget_bytes())
+
+    def _sync_layout(self):
+        """Resolve the partition layout ONCE per run (``RTPU_PCPM`` /
+        ``RTPU_PARTITIONS`` are dispatch-time knobs), and drop the
+        device-resident advanced base when it is expressed in another edge
+        layout than this run dispatches in — a catch-up delta remapped for
+        one layout scattered onto the other's state would be silently
+        wrong, not slow."""
+        lay = self._resolve_layout()
+        spec = None if lay is None else lay.spec
+        if self._dev_base is not None and self._dev_base_spec != spec:
+            self._dev_base = None
+        self._active_layout = lay
+        return lay
 
     def _use_delta_fold(self) -> bool:
         """The fold route, read at dispatch: ``RTPU_FOLD=host`` ships the
@@ -535,10 +654,16 @@ class _HopBatched:
             return (t.m_pad + t.n_pad) * per_row
         return n_hops * (t.m_pad + t.n_pad) * per_row
 
+    def _edge_len(self) -> int:
+        """Edge length of the masks the next run holds: m_pad, or the
+        binned layout's B where the knobs bin this log."""
+        lay = self._resolve_layout()
+        return self.tables.m_pad if lay is None else lay.B
+
     def device_mask_bytes(self, n_cols: int) -> int:
-        """Device bytes of the [m_pad+n_pad, C] bool masks every columnar
-        pass holds across its superstep loop."""
-        return (self.tables.m_pad + self.tables.n_pad) * n_cols
+        """Device bytes of the [m_pad+n_pad, C] bool masks ([B+n_pad, C]
+        binned) every columnar pass holds across its superstep loop."""
+        return (self._edge_len() + self.tables.n_pad) * n_cols
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         raise NotImplementedError
@@ -567,6 +692,8 @@ class _HopBatched:
             self._dev_base = None
             raise
         self._dev_base = adv
+        self._dev_base_spec = (None if self._active_layout is None
+                               else self._active_layout.spec)
         return out, steps
 
     def run(self, hop_times, windows, chunks: int = 1,
@@ -603,6 +730,7 @@ class _HopBatched:
             self._epoch_seed = warm_state
         hop_times = [int(x) for x in hop_times]
         chunks = max(1, min(int(chunks), len(hop_times)))
+        self._sync_layout()
         try:
             return self._run_chunks(hop_times, windows, chunks, warm_start,
                                     hop_callback)
@@ -803,7 +931,7 @@ class HopBatchedPageRank(_HopBatched):
         return run_columns(
             self.tables, *cols, hop_times, windows, damping=self.damping,
             tol=self.tol, max_steps=self.max_steps, edges=self._edges,
-            r_init=r_init, device=self.device)
+            r_init=r_init, device=self.device, layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         base, deltas_e, deltas_v = payload
@@ -814,7 +942,8 @@ class HopBatchedPageRank(_HopBatched):
             algo_args=(float(self.damping), float(self.tol),
                        int(self.max_steps)),
             edges=self._edges, r_init=r_init, h0_delta=h0,
-            ship_counter=self._count_ship))
+            ship_counter=self._count_ship, layout=self._active_layout,
+            device=self.device))
 
 
 class HopBatchedBFS(_HopBatched):
@@ -852,7 +981,8 @@ class HopBatchedBFS(_HopBatched):
         return run_bfs_columns(
             self.tables, *cols, hop_times, windows, self.seeds,
             directed=self.directed, max_steps=self.max_steps,
-            edges=self._edges, device=self.device)
+            edges=self._edges, device=self.device,
+            layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         # r_init is the cross-epoch warm seed (min-merged distances);
@@ -863,7 +993,8 @@ class HopBatchedBFS(_HopBatched):
             "bfs", self.tables, base, deltas_e, deltas_v, hop_times,
             windows, algo_args=(int(self.max_steps), bool(self.directed)),
             edges=self._edges, seed_mask=self._seed, r_init=r_init,
-            h0_delta=h0, ship_counter=self._count_ship))
+            h0_delta=h0, ship_counter=self._count_ship,
+            layout=self._active_layout, device=self.device))
 
 
 class HopBatchedSSSP(HopBatchedBFS):
@@ -888,11 +1019,11 @@ class HopBatchedSSSP(HopBatchedBFS):
         return super().host_column_bytes(n_hops) + extra
 
     def device_mask_bytes(self, n_cols: int) -> int:
-        # the reference's accounting ([m_pad, C] f32 weights), kept so the
-        # jobs layer's memory guard routes the same ranges; the port's
-        # [m_pad, H] block is W times smaller
+        # the reference's accounting ([m_pad, C] f32 weights, [B, C]
+        # binned), kept so the jobs layer's memory guard routes the same
+        # ranges; the port's [m_pad, H] block is W times smaller
         return (super().device_mask_bytes(n_cols)
-                + self.tables.m_pad * n_cols * 4)
+                + self._edge_len() * n_cols * 4)
 
     def __init__(self, log: EventLog, seeds, weight_prop: str,
                  directed: bool = False, max_steps: int = 100, device=None):
@@ -996,7 +1127,8 @@ class HopBatchedSSSP(HopBatchedBFS):
         return run_bfs_columns(
             self.tables, *cols, hop_times, windows, self.seeds,
             directed=self.directed, max_steps=self.max_steps,
-            edges=self._edges, weight_cols=wcols, device=self.device)
+            edges=self._edges, weight_cols=wcols, device=self.device,
+            layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         base, deltas_e, deltas_v, w_base, w_deltas = payload
@@ -1008,7 +1140,8 @@ class HopBatchedSSSP(HopBatchedBFS):
             windows, algo_args=(int(self.max_steps), bool(self.directed)),
             edges=self._edges, seed_mask=self._seed,
             weight_base=w_base, weight_deltas=w_deltas, h0_delta=h0,
-            ship_counter=self._count_ship))
+            ship_counter=self._count_ship, layout=self._active_layout,
+            device=self.device))
 
 
 class HopBatchedCC(_HopBatched):
@@ -1026,7 +1159,8 @@ class HopBatchedCC(_HopBatched):
         # r_init is never set here: no warm start on the host-column route
         return run_cc_columns(
             self.tables, *cols, hop_times, windows, max_steps=self.max_steps,
-            edges=self._edges, device=self.device)
+            edges=self._edges, device=self.device,
+            layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         # r_init is the cross-epoch warm seed (min-merged labels);
@@ -1036,4 +1170,5 @@ class HopBatchedCC(_HopBatched):
         return self._run_delta(lambda: run_columns_delta(
             "cc", self.tables, base, deltas_e, deltas_v, hop_times,
             windows, algo_args=(int(self.max_steps),), edges=self._edges,
-            r_init=r_init, h0_delta=h0, ship_counter=self._count_ship))
+            r_init=r_init, h0_delta=h0, ship_counter=self._count_ship,
+            layout=self._active_layout, device=self.device))

@@ -1,16 +1,18 @@
 """Kernels of the hop-batched columnar engine: K1 (with K6w, the weighted
 SSSP weight-state rebuild beside it), K3 (the host-column route's window
-masks), K4 (the bulk scale path's per-hop masks) and K2 (the edge passes
-and the superstep update of the PageRank power iteration); the build and
-launch
-plumbing that ``ops/minplus.py`` (K5/K6), ``ops/segment.py`` (K7) and
-``ops/resident.py`` (K9a, K9b, K8u) share.
+masks), K4 (the bulk scale path's per-hop masks), KB1 (K3's and K4's masks
+emitted straight into the destination-binned layout) and K2 (the edge
+passes and the superstep update of the PageRank power iteration, with
+K2b-P the binned pull-sum); the build and launch plumbing that
+``ops/minplus.py`` (K5/K6 and their binned K5-P/K6-P), ``ops/segment.py``
+(K7, K7-P) and ``ops/resident.py`` (K9a, K9b, K8u) share.
 
 Each kernel has three parts here:
 
 * a **wrapper** (``masks_from_deltas``, ``column_masks``,
-  ``scale_hop_masks``, ``column_out_degree``, ``column_pull_sum``,
-  ``pagerank_update``) that checks device, dtype, shape
+  ``scale_hop_masks``, ``bin_column_masks``, ``column_out_degree``,
+  ``column_pull_sum``, ``binned_pull_sum``, ``pagerank_update``) that
+  checks device, dtype, shape
   and contiguity, allocates the outputs, and routes by the tensors' device:
   CPU tensors take the plain twin, CUDA tensors launch the hand-written
   kernel (or raise — there is no fallback). Each kernel launch adds one to
@@ -47,13 +49,19 @@ _LIBS = {
                            "rtpu_masks_from_deltas_i64",
                            "rtpu_weights_from_deltas",
                            "rtpu_column_masks_i32", "rtpu_column_masks_i64",
-                           "rtpu_scale_hop_masks")),
+                           "rtpu_scale_hop_masks",
+                           "rtpu_bin_column_masks_i32",
+                           "rtpu_bin_column_masks_i64",
+                           "rtpu_bin_scale_masks")),
     "pagerank_columns": ("pagerank_columns.cu", ("rtpu_column_out_degree",
                                                  "rtpu_column_pull_sum",
-                                                 "rtpu_pagerank_update")),
-    "minplus_columns": ("minplus_columns.cu", ("rtpu_cc_superstep",
-                                               "rtpu_minplus_superstep")),
-    "segment": ("segment.cu", ("rtpu_segment_combine",)),
+                                                 "rtpu_pagerank_update",
+                                                 "rtpu_binned_pull_sum")),
+    "minplus_columns": ("minplus_columns.cu", (
+        "rtpu_cc_superstep", "rtpu_minplus_superstep",
+        "rtpu_binned_cc_superstep", "rtpu_binned_minplus_superstep")),
+    "segment": ("segment.cu", ("rtpu_segment_combine",
+                               "rtpu_partition_reduce")),
     "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
                            "rtpu_unpack_mask_bits")),
 }
@@ -97,6 +105,26 @@ _ARGTYPES = {
     "rtpu_window_masks": 4 * [ctypes.c_int64] + 9 * [ctypes.c_void_p],
     # rows, nbytes | packed, out, stream
     "rtpu_unpack_mask_bits": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
+    # B, m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
+    # perm, valid, me, mv, stream
+    "rtpu_bin_column_masks_i32": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
+    "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
+    # B, len, H, W | snap, thr, perm, valid, out, stream
+    "rtpu_bin_scale_masks": 4 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
+    # n, C, U | in_indptr, in_order, b_src, slot, u_src, me, rd, vals, agg,
+    # stream | launched
+    "rtpu_binned_pull_sum": 3 * [ctypes.c_int64] + 10 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
+    # n, C, gx, U | in_indptr, in_order, b_src, slot, u_src, out_indptr,
+    # out_order, b_dst, me, mv, cur, vals, nxt, halted, done, busy, ticket,
+    # stream | launched
+    "rtpu_binned_cc_superstep": 4 * [ctypes.c_int64] + 18 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
+    # n, C, W, H, gx, directed, U | ew, then as rtpu_binned_cc_superstep
+    "rtpu_binned_minplus_superstep": 7 * [ctypes.c_int64]
+    + 19 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
+    # k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask, out, stream
+    "rtpu_partition_reduce": 6 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
@@ -106,7 +134,9 @@ LAUNCHES = {"masks_from_deltas": 0, "column_masks": 0,
             "cc_superstep": 0, "minplus_superstep": 0,
             "weights_from_deltas": 0, "segment_combine": 0,
             "apply_delta_chunk": 0, "window_masks": 0,
-            "unpack_mask_bits": 0}
+            "unpack_mask_bits": 0, "bin_masks": 0, "binned_pull_sum": 0,
+            "binned_cc_superstep": 0, "binned_minplus_superstep": 0,
+            "partition_segment_reduce": 0}
 
 #: ``nvcc -Xptxas -v`` report of each library built by this process
 BUILD_LOG: dict[str, str] = {}
@@ -427,14 +457,20 @@ def scale_hop_masks_plain(base, d_pos, d_t, thr, H: int, W: int):
     return out
 
 
-def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int):
+def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
+                    valid=None):
     """K4 wrapper (replaces ``_compiled_scale.hop_masks``,
     ``raphtory_tpu/engine/hopbatch.py:2129-2150``, in both its unrolled and
     its ``RTPU_SCALE_MASKS=scan`` shape): the add-only scale path's masks
     of one entity table. ``base [len]`` int32 (INT32_MIN = never seen),
     ``d_pos``/``d_t [H, U]`` int32 padded update lists, ``thr [H*W]`` int32
     column thresholds → ``[len, H*W]`` bool. The kernel holds an ``[H,
-    len]`` int32 snapshot of the hop states while it runs."""
+    len]`` int32 snapshot of the hop states while it runs.
+
+    ``perm``/``valid`` (``[B]`` int32 / bool, a ``PartitionLayout``'s) emit
+    the masks binned instead, ``[B, H*W]`` (hopbatch.py:2126-2137): the hop
+    state advances in engine order (K4's scatters) and KB1 transposes the
+    snapshot through the permutation."""
     name = "scale_hop_masks"
     n = base.shape[0]
     U = d_pos.shape[1] if d_pos.dim() == 2 else -1
@@ -443,16 +479,88 @@ def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int):
     _expect(name, d_t, "d_t", (torch.int32,), (H, U))
     _expect(name, thr, "thr", (torch.int32,), (H * W,))
     _check_columns(name, H * W)
-    if not _on_cuda(name, base, d_pos, d_t, thr):
-        return scale_hop_masks_plain(base, d_pos, d_t, thr, H, W)
+    tensors = (base, d_pos, d_t, thr)
+    binned = perm is not None
+    if binned:
+        B = perm.shape[0] if perm.dim() == 1 else -1
+        _expect(name, perm, "perm", (torch.int32,), (B,))
+        _expect(name, valid, "valid", (torch.bool,), (B,))
+        tensors += (perm, valid)
+    if not _on_cuda(name, *tensors):
+        out = scale_hop_masks_plain(base, d_pos, d_t, thr, H, W)
+        return _bin_rows(out, perm, valid) if binned else out
     snap = torch.empty((H, n), dtype=torch.int32, device=base.device)
-    out = torch.empty((n, H * W), dtype=torch.bool, device=base.device)
+    out = torch.empty((B if binned else n, H * W), dtype=torch.bool,
+                      device=base.device)
     launched = ctypes.c_int64(0)
     err = _fn("masks", "rtpu_scale_hop_masks")(
         n, H, W, U, _ptr(base), _ptr(d_pos), _ptr(d_t), _ptr(thr),
-        _ptr(snap), _ptr(out), _stream(out), ctypes.byref(launched))
+        _ptr(snap), None if binned else _ptr(out), _stream(snap),
+        ctypes.byref(launched))
     _launch(name, err, launched.value)
+    if binned:
+        err = _fn("masks", "rtpu_bin_scale_masks")(
+            B, n, H, W, _ptr(snap), _ptr(thr), _ptr(perm), _ptr(valid),
+            _ptr(out), _stream(out))
+        _launch("bin_masks", err, 1 if B and H * W else 0)
     return out
+
+
+# ---------------------------------------------------------------- KB1
+
+def _bin_rows(me, perm, valid):
+    """Engine-order ``me [m, C]`` → binned ``[B, C]``: row b is row
+    ``perm[b]``, cleared where ``valid[b]`` is False (``_bin_masks``,
+    ``raphtory_tpu/engine/hopbatch.py:283``)."""
+    return me[perm.long()] & valid[:, None]
+
+
+def bin_column_masks_plain(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
+                           nowin, perm, valid):
+    """Twin of ``rtpu_bin_column_masks``: K3's masks, the edge masks then
+    permuted into the binned layout. Returns ``(me [B, C], mv [n, C])``."""
+    me, mv = column_masks_plain(e_lat, e_alive, v_lat, v_alive, hop_of_col,
+                                lo, nowin)
+    return _bin_rows(me, perm, valid), mv
+
+
+def bin_column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
+                     perm, valid):
+    """KB1 wrapper on the host-column route (replaces K3 + ``_bin_masks``,
+    ``raphtory_tpu/engine/hopbatch.py:50, 283``): the arguments of
+    ``column_masks`` plus a layout's ``perm``/``valid [B]``. Returns
+    ``(me [B, C] binned, mv [n, C])`` in one pass — edge row b read from
+    edge ``perm[b]`` of the hop-major columns, 0 on cap-pad slots."""
+    name = "bin_masks"
+    H, m = e_lat.shape if e_lat.dim() == 2 else (-1, -1)
+    n = v_lat.shape[1] if v_lat.dim() == 2 else -1
+    C = hop_of_col.shape[0] if hop_of_col.dim() == 1 else -1
+    B = perm.shape[0] if perm.dim() == 1 else -1
+    tdt = e_lat.dtype
+    _expect(name, e_lat, "e_lat", _TIME_DTYPES, (H, m))
+    _expect(name, e_alive, "e_alive", (torch.bool,), (H, m))
+    _expect(name, v_lat, "v_lat", (tdt,), (H, n))
+    _expect(name, v_alive, "v_alive", (torch.bool,), (H, n))
+    _expect(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
+    _expect(name, lo, "lo", (tdt,), (C,))
+    _expect(name, nowin, "nowin", (torch.bool,), (C,))
+    _expect(name, perm, "perm", (torch.int32,), (B,))
+    _expect(name, valid, "valid", (torch.bool,), (B,))
+    _check_columns(name, C)
+    if C and H <= 0:
+        raise ValueError(f"{name}: {C} columns over no hop")
+    tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin, perm,
+               valid)
+    if not _on_cuda(name, *tensors):
+        return bin_column_masks_plain(*tensors)
+    me = torch.empty((B, C), dtype=torch.bool, device=e_lat.device)
+    mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
+    fn = _fn("masks", "rtpu_bin_column_masks_i32" if tdt == torch.int32
+             else "rtpu_bin_column_masks_i64")
+    err = fn(B, m, n, H, C, *(_ptr(t) for t in tensors), _ptr(me), _ptr(mv),
+             _stream(me))
+    _launch(name, err, 1 if C and B + n else 0)
+    return me, mv
 
 
 # ---------------------------------------------------------------- K2a
@@ -513,6 +621,73 @@ def column_pull_sum(me, rd, e_src, e_dst, indptr):
     _launch(name, fn(n, C, _ptr(indptr), _ptr(e_src), _ptr(me), _ptr(rd),
                      _ptr(agg), _stream(agg)))
     return agg
+
+
+# ---------------------------------------------------------------- K2b-P
+
+def binned_pull_sum_plain(me, rd, be):
+    """Twin of ``rtpu_binned_pull_sum``: ``agg[d, c] = Σ_{s: b_dst[s]=d}
+    (me[s, c] ? vals[slot[s], c] : 0)`` with ``vals = rd[u_src]`` when the
+    layout pre-aggregates (``be.U > 0``), else ``rd[b_src[s], c]``
+    (``raphtory_tpu/engine/hopbatch.py:242-258``), f32 ``[n_pad, C]``."""
+    if be.U:
+        src = rd[be.u_src.long()][be.slot.long()]
+    else:
+        src = rd[be.b_src.long()]
+    payload = torch.where(me, src, 0.0)
+    return torch.zeros_like(rd).index_add_(0, be.b_dst, payload)
+
+
+def binned_pull_sum(me, rd, be):
+    """K2b-P wrapper (the binned pull-sum of
+    ``raphtory_tpu/engine/hopbatch.py:242-258``): ``me [B, C]`` bool binned
+    masks, ``rd [n_pad, C]`` f32, ``be`` the layout's ``BinnedEdges`` → f32
+    ``[n_pad, C]``. The kernel walks each destination's real slots in
+    source order (``be.in_indptr``/``in_order``), the twin scatters by
+    ``b_dst``; cap-pad slots must be masked, as ``bin_base``/KB1 leave
+    them."""
+    name = "binned_pull_sum"
+    B, C = me.shape
+    n = rd.shape[0]
+    _expect(name, me, "me", (torch.bool,), (B, C))
+    _expect(name, rd, "rd", (torch.float32,), (n, C))
+    _check_binned(name, be, B, n)
+    tensors = (me, rd, be.b_src, be.b_dst, be.slot, be.u_src, be.in_indptr,
+               be.in_order)
+    if not _on_cuda(name, *tensors):
+        return binned_pull_sum_plain(me, rd, be)
+    agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
+    vals = torch.empty((be.U, C), dtype=torch.float32, device=rd.device)
+    launched = ctypes.c_int64(0)
+    err = _fn("pagerank_columns", "rtpu_binned_pull_sum")(
+        n, C, be.U, _ptr(be.in_indptr), _ptr(be.in_order), _ptr(be.b_src),
+        _ptr(be.slot), _ptr(be.u_src), _ptr(me), _ptr(rd), _ptr(vals),
+        _ptr(agg), _stream(agg), ctypes.byref(launched))
+    _launch(name, err, launched.value)
+    return agg
+
+
+def _check_binned(name: str, be, B: int, n: int,
+                  reverse: bool = False) -> None:
+    """Shapes and dtypes of a ``BinnedEdges`` for ``B`` slots over ``n``
+    rows (``reverse``: the source walk too)."""
+    _expect(name, be.b_src, "b_src", (torch.int32,), (B,))
+    _expect(name, be.b_dst, "b_dst", (torch.int32,), (B,))
+    _expect(name, be.slot, "slot", (torch.int32,), (B,))
+    _expect(name, be.u_src, "u_src", (torch.int32,), (be.u_src.shape[0],))
+    if be.U and be.U != be.u_src.shape[0]:
+        raise ValueError(f"{name}: U={be.U} buckets, u_src has "
+                         f"{be.u_src.shape[0]}")
+    _expect(name, be.in_indptr, "in_indptr", (torch.int64,), (n + 1,))
+    _expect(name, be.in_order, "in_order", (torch.int32,),
+            (be.in_order.shape[0],))
+    if reverse:
+        if be.out_indptr is None:
+            raise ValueError(f"{name}: the layout's source walk is missing "
+                             "(device_edges(..., reverse=True))")
+        _expect(name, be.out_indptr, "out_indptr", (torch.int64,), (n + 1,))
+        _expect(name, be.out_order, "out_order", (torch.int32,),
+                (be.out_order.shape[0],))
 
 
 # ---------------------------------------------------------------- K2c

@@ -21,8 +21,11 @@ from dataclasses import dataclass
 
 import torch
 
+import ctypes
+
 from . import columns
-from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+from .columns import (_check_binned, _expect, _fn, _launch, _on_cuda, _ptr,
+                      _stream)
 
 I32_MAX = 2**31 - 1
 INF = float("inf")
@@ -174,4 +177,125 @@ def minplus_superstep(st: MinState, me, mv, edges, directed: bool,
         None if ew is None else _ptr(ew),
         *_launch_args(name, st, me, mv, edges))
     _launch(name, err)
+    st.cur, st.nxt = st.nxt, st.cur
+
+
+# ------------------------------------------------------------ K5-P / K6-P
+
+def _binned_in(cur, me, be, fill, w=None):
+    """The binned in-direction pull of the twins: ``min over slots s with
+    b_dst[s] = row of (me[s, c] ? src(s)[c] (+ w) : fill)``, ``src(s)`` the
+    bucket row ``cur[u_src][slot[s]]`` when the layout pre-aggregates, else
+    ``cur[b_src[s]]`` (``hopbatch.py:572-576``, ``:653-657``)."""
+    if be.U:
+        vals = cur[be.u_src.long()][be.slot.long()]
+    else:
+        vals = cur[be.b_src.long()]
+    if w is not None:
+        vals = vals + w
+    vals = torch.where(me, vals, fill)
+    idx = be.b_dst.long()[:, None].expand_as(vals)
+    return torch.full_like(cur, fill).scatter_reduce_(0, idx, vals, "amin")
+
+
+def _check_binned_step(name, st: MinState, me, mv, be, dtype, reverse):
+    n, C = st.cur.shape
+    B = me.shape[0]
+    _expect(name, st.cur, "cur", (dtype,), (n, C))
+    _expect(name, st.nxt, "nxt", (dtype,), (n, C))
+    _expect(name, me, "me", (torch.bool,), (B, C))
+    _expect(name, mv, "mv", (torch.bool,), (n, C))
+    _expect(name, st.halted, "halted", (torch.bool,), (C,))
+    _expect(name, st.done, "done", (torch.bool,), (1,))
+    _check_binned(name, be, B, n, reverse)
+    return n, C
+
+
+def _binned_args(name, st: MinState, me, mv, be):
+    _expect(name, st.busy, "busy", (torch.int32,),
+            (columns.update_grid(*st.cur.shape), st.cur.shape[1]))
+    _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
+    vals = torch.empty((be.U, st.cur.shape[1]), dtype=st.cur.dtype,
+                       device=st.cur.device)
+
+    def opt(t):
+        return None if t is None else _ptr(t)
+
+    return (_ptr(be.in_indptr), _ptr(be.in_order), _ptr(be.b_src),
+            _ptr(be.slot), _ptr(be.u_src), opt(be.out_indptr),
+            opt(be.out_order), _ptr(be.b_dst), _ptr(me), _ptr(mv),
+            _ptr(st.cur), _ptr(vals), _ptr(st.nxt), _ptr(st.halted),
+            _ptr(st.done), _ptr(st.busy), _ptr(st.ticket), _stream(st.cur))
+
+
+def _binned_tensors(st: MinState, me, mv, be):
+    return (st.cur, st.nxt, st.halted, st.done, st.busy, st.ticket, me, mv,
+            *(t for t in be[:-1] if t is not None))
+
+
+def binned_cc_superstep_plain(st: MinState, me, mv, be) -> None:
+    """Twin of ``rtpu_binned_cc_superstep``: one binned superstep of
+    min-label propagation — the in-direction through the buckets, the
+    reverse over the binned arrays (``hopbatch.py:572-588``)."""
+    agg = torch.minimum(
+        _binned_in(st.cur, me, be, I32_MAX),
+        _pull(st.cur, me, be.b_dst, be.b_src, I32_MAX))
+    _advance_plain(st, agg, mv, I32_MAX)
+
+
+def binned_cc_superstep(st: MinState, me, mv, be) -> None:
+    """K5-P wrapper (``_cc_columns`` with ``pcpm``,
+    ``raphtory_tpu/engine/hopbatch.py:572-576``): advances ``st`` (int32
+    labels) by one superstep over binned masks ``me [B, C]`` and the
+    layout's ``BinnedEdges`` (source walk included)."""
+    name = "binned_cc_superstep"
+    n, C = _check_binned_step(name, st, me, mv, be, torch.int32, True)
+    if not _on_cuda(name, *_binned_tensors(st, me, mv, be)):
+        return binned_cc_superstep_plain(st, me, mv, be)
+    launched = ctypes.c_int64(0)
+    err = _fn("minplus_columns", "rtpu_binned_cc_superstep")(
+        n, C, columns.update_grid(n, C), be.U,
+        *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
+    _launch(name, err, launched.value)
+    st.cur, st.nxt = st.nxt, st.cur
+
+
+def binned_minplus_superstep_plain(st: MinState, me, mv, be, directed: bool,
+                                   ew=None, W: int = 1) -> None:
+    """Twin of ``rtpu_binned_minplus_superstep``: one binned min-plus
+    relaxation (``hopbatch.py:653-670``), weights ``ew [B, H]`` binned."""
+    w = 1.0 if ew is None else ew.repeat_interleave(W, dim=1)  # hop-major
+    agg = _binned_in(st.cur, me, be, INF, w)
+    if not directed:
+        agg = torch.minimum(agg, _pull(st.cur, me, be.b_dst, be.b_src, INF,
+                                       w))
+    _advance_plain(st, agg, mv, INF)
+
+
+def binned_minplus_superstep(st: MinState, me, mv, be, directed: bool,
+                             ew=None, W: int = 1) -> None:
+    """K6-P wrapper (``_bfs_columns`` with ``pcpm``,
+    ``raphtory_tpu/engine/hopbatch.py:653-657``): advances ``st`` (f32
+    distances) by one superstep over binned masks ``me [B, C]``; ``ew`` is
+    None (hop counting) or the binned ``[B, H]`` weight block. The layout's
+    source walk is needed only when undirected."""
+    name = "binned_minplus_superstep"
+    n, C = _check_binned_step(name, st, me, mv, be, torch.float32,
+                              not directed)
+    tensors = _binned_tensors(st, me, mv, be)
+    H = C // W
+    if ew is not None:
+        if H * W != C:
+            raise ValueError(f"{name}: {C} columns are not H x W={W}")
+        _expect(name, ew, "ew", (torch.float32,), (me.shape[0], H))
+        tensors += (ew,)
+    if not _on_cuda(name, *tensors):
+        return binned_minplus_superstep_plain(st, me, mv, be, directed, ew,
+                                              W)
+    launched = ctypes.c_int64(0)
+    err = _fn("minplus_columns", "rtpu_binned_minplus_superstep")(
+        n, C, W, H, columns.update_grid(n, C), int(bool(directed)), be.U,
+        None if ew is None else _ptr(ew),
+        *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
+    _launch(name, err, launched.value)
     st.cur, st.nxt = st.nxt, st.cur

@@ -20,9 +20,15 @@ edges (what the kernel walks — one thread per (window, row, feature), no
 atomics, a fixed sum order). Pad edges lie outside the CSR and must be
 masked in every window, as every caller's are.
 
-``segment_sum_sorted_csr`` (TPU only), ``partition_segment_reduce`` (PCPM)
-and ``segment_mode`` (the custom-combiner exchange) are not ported yet
-(ROADMAP queue 2, K7).
+K7-P ``partition_reduce`` is the destination-binned (PCPM) combine
+(``raphtory_tpu/ops/segment.py:116`` ``partition_segment_reduce``): the
+payload read through a layout's permutation, each destination partition
+reduced into its own dense ``n_per``-row block, in the fixed order of a
+``PartitionWalk`` (``rtpu_partition_reduce``, the same source).
+``partition_segment_reduce`` keeps the reference's signature on top of it.
+
+``segment_sum_sorted_csr`` (TPU only) and ``segment_mode`` (the
+custom-combiner exchange) are not ported yet (ROADMAP queue 2, K7).
 """
 
 from __future__ import annotations
@@ -125,3 +131,136 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
         _ptr(out), _stream(data))
     _launch(name, err)
     return out
+
+
+# ---------------------------------------------------------------- K7-P
+
+@dataclass(frozen=True)
+class PartitionWalk:
+    """Where K7-P reads each destination row's payload: row r (of the
+    partition-major destination space, partition p owning rows p*n_per ..
+    (p+1)*n_per-1) combines the slots ``order[indptr[r]:indptr[r+1]]``, in
+    that order; slot s is payload row ``perm[s]`` (None: row s) and counts
+    only where ``valid[s]`` (None: every slot)."""
+    indptr: torch.Tensor            # int64 [n + 1]
+    order: torch.Tensor             # int32 [nnz] slots
+    perm: torch.Tensor | None       # int32 [B] slot → payload row
+    valid: torch.Tensor | None      # bool [B]
+
+    @property
+    def n(self) -> int:
+        """Destination rows (the output's rows per window)."""
+        return self.indptr.shape[0] - 1
+
+
+def partition_walk(local_ids, n_per: int, num_segments: int) -> PartitionWalk:
+    """The walk of the reference's operands: ``local_ids [P, cap]`` rows
+    within each partition (slot ``p * cap + i`` lands in row ``p * n_per +
+    local_ids[p, i]``; ids outside ``[0, n_per)`` and rows past
+    ``num_segments`` are dropped, as the reference's per-partition
+    segment ops and final slice drop them). Slots of a row keep their slot
+    order."""
+    P = local_ids.shape[0]
+    loc = local_ids.long()
+    dest = (loc + torch.arange(P, device=loc.device)[:, None] * n_per) \
+        .reshape(-1)
+    keep = ((loc >= 0) & (loc < n_per)).reshape(-1) & (dest < num_segments)
+    slots = torch.nonzero(keep).reshape(-1)
+    order = slots[torch.argsort(dest[slots], stable=True)]
+    indptr = torch.zeros(num_segments + 1, dtype=torch.int64,
+                         device=loc.device)
+    indptr[1:] = torch.cumsum(
+        torch.bincount(dest[slots], minlength=num_segments), 0)
+    return PartitionWalk(indptr, order.to(torch.int32), None, None)
+
+
+def partition_reduce_plain(data, walk: PartitionWalk, op: str, mask,
+                           k: int = 1):
+    """Twin of ``rtpu_partition_reduce``: ``data [k*m, ...]`` engine-order
+    payloads with ``mask bool[k*m]`` → ``[k*n, ...]``, window w's row r the
+    ``op`` over the walk's slots of r (payload ``perm[s]``, counted where
+    ``valid[s]`` and the mask are set) — ``raphtory_tpu/ops/segment.py:116``
+    over ``x[:, b_perm]``, ``mask[:, b_perm] & b_valid``
+    (``engine/bsp.py:131-141``)."""
+    n = walk.n
+    m = data.shape[0] // k if k else 0
+    tail = tuple(data.shape[1:])
+    x = data.reshape(k, m, -1)
+    fill = neutral(op, data.dtype)
+    slots = walk.order.long()
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=data.device), torch.diff(walk.indptr))
+    e = walk.perm.long()[slots] if walk.perm is not None else slots
+    keep = mask.reshape(k, m)[:, e]
+    if walk.valid is not None:
+        keep = keep & walk.valid[slots][None, :]
+    xs = torch.where(keep[:, :, None], x[:, e],
+                     torch.full_like(x[:, :1], fill))
+    out = torch.full((k, n, x.shape[2]), fill, dtype=data.dtype,
+                     device=data.device)
+    for w in range(k):
+        if op == "sum":
+            out[w].index_add_(0, rows, xs[w])
+        else:
+            out[w].scatter_reduce_(0, rows[:, None].expand_as(xs[w]), xs[w],
+                                   "amin" if op == "min" else "amax")
+    return out.reshape((k * n,) + tail)
+
+
+def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
+    """K7-P wrapper: the masked sum/min/max of ``data [k*m, ...]`` over the
+    walk's slots of each destination row, per window → ``[k*n, ...]``.
+    Float32 and int32 payloads on the card."""
+    name = "partition_segment_reduce"
+    if op not in _OPS:
+        raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
+                         f"{sorted(_OPS)}")
+    if data.dim() == 0 or k <= 0 or data.shape[0] % k:
+        raise ValueError(f"{name}: data has shape {tuple(data.shape)}, "
+                         f"want [k*m, ...] with k={k} windows")
+    m, n = data.shape[0] // k, walk.n
+    _expect(name, mask, "mask", (torch.bool,), (k * m,))
+    _expect(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
+    _expect(name, walk.order, "order", (torch.int32,),
+            (walk.order.shape[0],))
+    tensors = (data, mask, walk.indptr, walk.order)
+    for what, t, dt in (("perm", walk.perm, torch.int32),
+                        ("valid", walk.valid, torch.bool)):
+        if t is not None:
+            _expect(name, t, what, (dt,), (t.shape[0],))
+            tensors += (t,)
+    if not _on_cuda(name, *tensors):
+        return partition_reduce_plain(data, walk, op, mask, k)
+    if data.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
+                        f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
+    _expect(name, data, "data", (data.dtype,), tuple(data.shape))
+    F = data[0].numel() if k * m else 1
+    out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    err = _fn("segment", "rtpu_partition_reduce")(
+        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype], _ptr(walk.indptr),
+        _ptr(walk.order), None if walk.perm is None else _ptr(walk.perm),
+        None if walk.valid is None else _ptr(walk.valid), _ptr(data),
+        _ptr(mask), _ptr(out), _stream(data))
+    _launch(name, err)
+    return out
+
+
+def partition_segment_reduce(data, local_ids, n_per: int, num_segments: int,
+                             op: str = "sum", mask=None):
+    """``raphtory_tpu/ops/segment.py:116`` with its signature: ``data [P,
+    cap, ...]`` destination-binned payloads, ``local_ids [P, cap]`` rows
+    within each partition → ``[num_segments, ...]`` (masked rows, and empty
+    rows, give the combiner's neutral value). Runs K7-P over
+    ``partition_walk``."""
+    if op not in _OPS:
+        raise ValueError(f"unknown combiner {op!r}; use one of "
+                         f"{sorted(_OPS)}")
+    P, cap = local_ids.shape
+    flat = data.reshape((P * cap,) + tuple(data.shape[2:]))
+    if mask is None:
+        mask = torch.ones(P * cap, dtype=torch.bool, device=data.device)
+    return partition_reduce(flat, partition_walk(local_ids, n_per,
+                                                 num_segments),
+                            op, mask.reshape(-1))

@@ -263,3 +263,62 @@ def test_context_is_window_batched():
     assert seen == [("init", (k, n), (k, n), (k, 1), (k, 1), (k, 1), (k, 1)),
                     ("message", (k * m,), (k * m,)), ("update", (k, n)),
                     ("message", (k * m,), (k * m,)), ("update", (k, n))]
+
+
+# ------------------------------------------- the destination-binned route
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+@pytest.mark.parametrize("P", ["3", "7"])
+def test_binned_bsp_run_matches_reference(P, name, monkeypatch):
+    """The cold View on the binned exchange (``RTPU_PCPM=1``): the
+    destination direction combines through the view's layout (K7-P), the
+    reverse keeps K7 — against the JAX package's binned ``bsp.run``
+    (``tests/test_partition.py:312``); the layout bins the REAL rows only."""
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", P)
+    jlog, log = _logs(3)
+    jprog = PROGRAMS[name]
+    prog = port_program(jprog)
+    q = QUERIES["windows"]
+    want, wsteps = jbsp.run(jprog, jbuild_view(jlog, 60), **q)
+    view = build_view(log, 60)
+    got, gsteps = bsp.run(prog, view, device="cpu", **q)
+    if name == "pagerank":
+        def at(steps, port):
+            p = dataclasses.replace(jprog, max_steps=steps, tol=0.0)
+            if port:
+                return bsp.run(port_program(p), view, device="cpu", **q)[0]
+            return jbsp.run(p, jbuild_view(jlog, 60), **q)[0]
+
+        assert_pagerank_steps(gsteps, wsteps, lambda k: at(k, True),
+                              lambda k: at(k, False), jprog.tol)
+    else:
+        assert gsteps == int(wsteps)
+    assert_results_match(got, want, name == "pagerank")
+    lay = bsp._view_layout(view)
+    jlay = jbsp._view_layout(jbuild_view(jlog, 60), view.e_src, view.e_dst,
+                             False)
+    assert lay is not None and tuple(lay.spec) == tuple(jlay.spec)
+    assert lay.m == view.m_active and int(lay.valid.sum()) == view.m_active
+
+
+def test_binned_exchange_launches_the_partition_combine(monkeypatch):
+    """Where the layout bins, the destination combine is K7-P and the
+    reverse direction K7; the binned and flat exchanges agree."""
+    from raphtory_tpu_torch.engine import bsp as bsp_mod
+
+    calls = []
+    real = bsp_mod.partition_reduce
+    monkeypatch.setattr(bsp_mod, "partition_reduce",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    jlog, log = _logs(0)
+    view = build_view(log, 80)
+    prog = port_program(PROGRAMS["cc"])
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    flat, fsteps = bsp.run(prog, view, device="cpu", windows=[100, 20])
+    assert not calls
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    got, steps = bsp.run(prog, view, device="cpu", windows=[100, 20])
+    assert calls and steps == fsteps
+    assert all(np.array_equal(a, b) for a, b in zip(leaves(got),
+                                                    leaves(flat)))

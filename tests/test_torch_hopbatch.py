@@ -7,6 +7,7 @@ rtol 1e-5 / atol 1e-7 cold (``tests/test_hopbatch.py:145``), atol 1e-6 warm
 
 import numpy as np
 import pytest
+import torch
 from test_sweep import random_log
 
 from raphtory_tpu.engine.hopbatch import HopBatchedPageRank as JHopBatched
@@ -212,3 +213,61 @@ def test_fold_route_toggle_keeps_the_delta_base_fresh(monkeypatch):
     want, _ = JHopBatched(jlog, tol=0.0, max_steps=8).run([500, 600], [None])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-7)
+
+
+# ------------------------------------------- the destination-binned route
+
+def _binned(monkeypatch, P, fold):
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_FOLD", fold)
+    if P is None:
+        monkeypatch.delenv("RTPU_PARTITIONS", raising=False)
+    else:
+        monkeypatch.setenv("RTPU_PARTITIONS", P)
+
+
+@pytest.mark.parametrize("fold", ["delta", "host"])
+@pytest.mark.parametrize("P", ["1", "2", "7", None])
+def test_binned_route_matches_reference(P, fold, monkeypatch):
+    """Binned PageRank (``RTPU_PCPM=1``) against the JAX package's binned
+    run: within the reference's tolerance, steps equal or within
+    ``assert_pagerank_steps``; the layout the port resolved is the
+    reference's. The port's binned walk keeps the unbinned route's sum
+    order, so it also equals its own unbinned run bit for bit."""
+    from test_torch_bsp import assert_pagerank_steps
+
+    _binned(monkeypatch, P, fold)
+    jlog, hops = _log(0)
+    windows = [1000, 25, None]
+    log = event_log_from_arrays(jlog.arrays())
+    j, t = _both(jlog)
+    (w, ws), (g, gs) = j.run(hops, windows), t.run(hops, windows)
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                               atol=1e-7)
+    assert tuple(t._active_layout.spec) == tuple(j._active_layout.spec)
+    assert_pagerank_steps(
+        gs, ws,
+        lambda k: HopBatchedPageRank(log, tol=0.0, max_steps=k,
+                                     device="cpu").run(hops, windows)[0],
+        lambda k: JHopBatched(jlog, tol=0.0, max_steps=k).run(
+            hops, windows)[0], 1e-7)
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    u, us = HopBatchedPageRank(log, tol=1e-7, max_steps=20,
+                               device="cpu").run(hops, windows)
+    assert torch.equal(u, g) and us == gs
+
+
+@pytest.mark.parametrize("seed", [2, "gab"])
+def test_binned_chunked_resident_batches(seed, monkeypatch):
+    """Chunked warm sweeps plus a follow-on batch keep the device-resident
+    advanced base BINNED (its edge rows are the layout's B slots); results
+    within the reference's warm tolerance."""
+    _binned(monkeypatch, "5", "delta")
+    jlog, hops = _log(seed)
+    windows = [1000, 30]
+    j, t = _both(jlog)
+    _check(j.run(hops[:4], windows, chunks=2, warm_start=True),
+           t.run(hops[:4], windows, chunks=2, warm_start=True), True)
+    assert t._dev_base_spec is not None
+    assert t._dev_base[0].shape[0] == t._active_layout.B
+    _check(j.run(hops[4:], windows), t.run(hops[4:], windows), True)

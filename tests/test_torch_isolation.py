@@ -33,6 +33,7 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/algorithms/degree.py",
     "raphtory_tpu_torch/core/bulk.py",
     "raphtory_tpu_torch/native/lib.py",
+    "raphtory_tpu_torch/ops/partition.py",
 )
 
 

@@ -374,3 +374,31 @@ def test_hop_by_hop_range_job_of_a_property_program_matches_reference():
         np.testing.assert_allclose(g["result"], np.asarray(w["result"]),
                                    rtol=1e-5, atol=1e-7)
     assert float(np.asarray(got[-1]["result"]).sum()) > 0
+
+
+# ------------------------------------------- the destination-binned route
+
+def test_binned_range_and_view_jobs_match_reference(monkeypatch):
+    """With ``RTPU_PCPM=1`` the jobs reach the binned route through the
+    engines with no switch of their own: PageRank and CC Range jobs and a
+    cold PageRank View (behind the resident clock) equal the JAX
+    manager's binned rows; the admission guard counts the binned masks."""
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", "5")
+    jlog = ldbc_like_log(n_persons=600, n_knows=3_000, t_span=1_000)
+    jmgr, mgr, g = _view_managers(jlog)
+    pr = JPageRank(tol=1e-7, max_steps=20)
+    cc = JCC(max_steps=60)
+    jobs = [(pr, RangeQuery(start=450, end=1_000, jump=150,
+                            windows=(1_000, 200))),
+            (cc, RangeQuery(start=450, end=1_000, jump=150,
+                            windows=(1_000, 200))),
+            (pr, ViewQuery(timestamp=900, windows=(1_000, 300))),
+            (pr, ViewQuery(timestamp=500, windows=(1_000, 300)))]
+    got, want = _both(jmgr, mgr, jobs)
+    _same_view_rows(got, want)
+    from raphtory_tpu_torch.engine.hopbatch import HopBatchedCC
+
+    hb = HopBatchedCC(g.log, device="cpu")
+    assert hb.device_mask_bytes(1) == hb._resolve_layout().B \
+        + hb.tables.n_pad

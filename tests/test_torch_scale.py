@@ -257,3 +257,45 @@ def test_k3_k4_wrappers_check_inputs_and_count_only_launches():
     with pytest.raises(ValueError, match="thr"):
         columns.scale_hop_masks(base, pos, t, thr, 2, 2)
     assert columns.LAUNCHES == {k: 0 for k in columns.LAUNCHES}
+
+
+# ------------------------------------------- the destination-binned route
+
+@pytest.mark.parametrize("P", ["2", "7"])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_binned_run_scale_columns_matches_jax(seed, P, monkeypatch):
+    """``RTPU_PCPM=1``: both packages resolve the layout on the bulk graph;
+    K4 advances in engine order and KB1 emits the masks binned. Ranks
+    within the reference's tolerance, equal steps (tol 0), and bitwise the
+    port's unbinned scale route."""
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", P)
+    src, dst, times = _stream(seed)
+    jin = jbulk.bulk_hop_deltas(src, dst, times, HOPS)
+    tin = tbulk.bulk_hop_deltas(src, dst, times, HOPS)
+    kw = dict(tol=0.0, max_steps=12)
+    want = jhb.run_scale_columns(*jin, HOPS, WINDOWS, **kw)
+    got = thb.run_scale_columns(*tin, HOPS, WINDOWS, device="cpu", **kw)
+    _pagerank_close(want, got, None, None, 0.0)
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    flat = thb.run_scale_columns(*tin, HOPS, WINDOWS, device="cpu", **kw)
+    assert torch.equal(flat[0], got[0]) and flat[1] == got[1]
+
+
+def test_binned_scale_and_host_column_routes_agree_bitwise(monkeypatch):
+    """KB1's two emissions over one add-only stream — from K4's snapshot
+    and from the bulk host columns — give the same binned masks, so equal
+    ranks and steps, bit for bit."""
+    from raphtory_tpu_torch.ops import partition
+
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", "3")
+    src, dst, times = _stream(6)
+    kw = dict(tol=0.0, max_steps=10, device="cpu")
+    a = thb.run_scale_columns(*tbulk.bulk_hop_deltas(src, dst, times, HOPS),
+                              HOPS, WINDOWS, **kw)
+    bg, *cols = tbulk.bulk_hop_columns(src, dst, times, HOPS)
+    lay = partition.resolve(bg, bg, partition.tile_budget_bytes())
+    assert lay is not None and lay.spec.partitions == 3
+    b = thb.run_columns(bg, *cols, HOPS, WINDOWS, layout=lay, **kw)
+    assert torch.equal(a[0], b[0]) and a[1] == b[1] == 10

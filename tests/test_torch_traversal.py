@@ -271,3 +271,93 @@ def test_host_route_ignores_the_epoch_warm_seed(kind, monkeypatch):
     got = _engines(kind, jlog)[1].run([400, 599], [None], warm_state=prev)
     cold = _engines(kind, jlog)[1].run([400, 599], [None])
     assert torch.equal(got[0], cold[0]) and got[1] == cold[1]
+
+
+# ------------------------------------------- the destination-binned route
+
+def _binned(monkeypatch, P, fold="delta"):
+    """Both packages on the binned route: ``RTPU_PCPM=1``, ``P``
+    partitions (None: the budget's auto sizing), the fold route."""
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_FOLD", fold)
+    if P is None:
+        monkeypatch.delenv("RTPU_PARTITIONS", raising=False)
+    else:
+        monkeypatch.setenv("RTPU_PARTITIONS", str(P))
+
+
+@pytest.mark.parametrize("fold", ["delta", "host"])
+@pytest.mark.parametrize("P", [1, 2, 7, None])
+@pytest.mark.parametrize("kind", ["cc", "bfs", "sssp"])
+def test_binned_route_matches_reference(kind, P, fold, monkeypatch):
+    """Binned CC / BFS / weighted SSSP bitwise equal to the JAX package's
+    binned run, steps equal, over adversarial delete/tombstone logs; the
+    layout the port resolved is the reference's."""
+    _binned(monkeypatch, P, fold)
+    jlog, hops, _ = _log(0 if kind != "sssp" else 2)
+    j, t = _engines(kind, jlog)
+    _check(j.run(hops, WINDOWS), t.run(hops, WINDOWS))
+    assert t._active_layout is not None
+    assert tuple(t._active_layout.spec) == tuple(j._active_layout.spec)
+
+
+@pytest.mark.parametrize("kind", ["cc", "bfs", "sssp"])
+def test_binned_chunked_resident_batches(kind, monkeypatch):
+    """Chunked sweeps and a follow-on forward batch keep the device-resident
+    advanced base BINNED across dispatches (SSSP's weight state too)."""
+    _binned(monkeypatch, 5)
+    jlog, hops, _ = _log("ldbc")
+    j, t = _engines(kind, jlog, directed=kind == "bfs")
+    _check(j.run(hops[:4], WINDOWS, chunks=2),
+           t.run(hops[:4], WINDOWS, chunks=2))
+    assert t._dev_base is not None and t._dev_base_spec is not None
+    assert t._dev_base[0].shape[0] == t._active_layout.B
+    _check(j.run(hops[4:], WINDOWS), t.run(hops[4:], WINDOWS))
+
+
+def test_knob_flip_between_batches_drops_residency(monkeypatch):
+    """A resident base built in one layout must not receive the other
+    layout's catch-up delta (``tests/test_partition.py:207``): flipping
+    ``RTPU_PCPM`` between forward batches re-ships a fresh base and stays
+    right, in both flip directions."""
+    jlog = random_log(np.random.default_rng(13), n_events=700, n_ids=45,
+                      t_span=100)
+    log = carried(jlog)
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    ref = jhb.HopBatchedCC(jlog, max_steps=60)
+    w1 = np.asarray(ref.run([30, 50], [60])[0])
+    w2 = np.asarray(ref.run([70, 99], [60])[0])
+
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", "4")
+    hb = thb.HopBatchedCC(log, max_steps=60, device="cpu")
+    g1 = hb.run([30, 50], [60])[0]
+    assert hb._dev_base_spec is not None
+    monkeypatch.setenv("RTPU_PCPM", "0")        # flip: binned → engine
+    g2 = hb.run([70, 99], [60])[0]
+    assert hb._dev_base_spec is None and hb._active_layout is None
+    np.testing.assert_array_equal(g1.numpy(), w1)
+    np.testing.assert_array_equal(g2.numpy(), w2)
+
+    hb2 = thb.HopBatchedCC(log, max_steps=60, device="cpu")
+    h1 = hb2.run([30, 50], [60])[0]
+    monkeypatch.setenv("RTPU_PCPM", "1")        # flip: engine → binned
+    h2 = hb2.run([70, 99], [60])[0]
+    assert hb2._dev_base_spec is not None
+    np.testing.assert_array_equal(h1.numpy(), w1)
+    np.testing.assert_array_equal(h2.numpy(), w2)
+
+
+def test_knob_flip_never_scatters_across_layouts(monkeypatch):
+    """The guard is what keeps the flip right: with the drop disabled the
+    second batch's binned catch-up would land on the engine-order base."""
+    jlog = random_log(np.random.default_rng(13), n_events=700, n_ids=45,
+                      t_span=100)
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    hb = thb.HopBatchedCC(carried(jlog), max_steps=60, device="cpu")
+    hb.run([30, 50], [60])
+    base = hb._dev_base
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    hb._sync_layout()
+    assert hb._dev_base is None and base is not None
+    assert hb.device_mask_bytes(1) == hb._active_layout.B + hb.tables.n_pad
