@@ -43,7 +43,9 @@ printing one JSON line:
               device-resident weight state), each BITWISE against the CPU
               run with equal steps.
 7. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank, CC and
-              weighted SSSP Range jobs.
+              weighted SSSP Range jobs, and a PageRank Range of 1,025
+              views, one past the columnar route's cap, which declines
+              it: the job ends ``done`` on the resident ``DeviceSweep``.
 8. gab_pr_view — the GAB PageRank View (``bench.py:bench_gab_pr_view``):
               PageRank(max_steps=20, tol=1e-7) View jobs at 0.90 (cold:
               pin + first dispatch), then 0.92 .. 1.0 x t_span (warm),
@@ -88,7 +90,30 @@ printing one JSON line:
               unbinned ranks, KB1 and K2b-P against their twins at the
               scale shape) and its crosscheck binned against the CPU.
 14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
-              2^25-edge-event log, 4 hops x 3 windows, chunks=2.
+              2^25-edge-event log, 2 hops x 3 windows, chunks=2.
+15. features — ``bench.py:bench_scale_features`` uncut:
+              ``twitter_like_log(2^22, 2^25, seed 11)``, F 128, 2 rounds,
+              bf16, ``RTPU_PCPM`` unset; a set-up call at 0.8 t_span, then
+              four timed calls (T0 + 1 h / 2 h x month / day) through
+              ``FeatureAggregator`` on one ``DeviceSweep`` (K10, K9a):
+              views/s, fold / dispatch seconds, K10 ms a round, traffic
+              bytes and flops a call, peak memory, the resolved spec; every
+              row finite and unit norm; K10 against its twin at this shape
+              (f32 max abs err; bf16 elements that differ, max ulps).
+16. features_gab — the headline GAB log, F 128, f32 and bf16, with
+              ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P): card against the
+              CPU run (f32 atol 1e-6, bf16 2 ulps), binned against
+              unbinned on the card (``torch.equal``); K10-P timed and
+              held against its twin; ``TemporalEmbeddings.nearest`` /
+              ``drift`` on the card against the CPU.
+17. lpa     — ``LabelPropagation``: a cold View job on the GAB log at
+              0.90 t_span over (month, week, day), a hop-by-hop Range job
+              over the LDBC log (10 hops x 2 windows) and
+              ``DeviceSweep.run``, each BITWISE equal to the CPU run with
+              equal steps; K7-mode against its twin on a synthetic case
+              (a 100,003-row segment with ties, rows of 1, 32, 33, 4,096
+              and 4,097, masked and negative values, empty segments) and
+              timed at the View's shape.
 
 The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched.
@@ -1062,7 +1087,16 @@ def phase_job(torch, np, columns, dev):
                          SSSP_KERNELS)
     if not any(r["result"]["reached"] > 2 for r in rows):
         raise AssertionError("SSSP job reached no vertex past its seeds")
-    emit("job", pagerank=pr, cc=cc, sssp=sssp)
+    # one view past the columnar route's 1,024-view cap: the route
+    # declines and the job runs on the resident DeviceSweep
+    q = RangeQuery(start=48_800, end=100_000, jump=50, windows=(20_000,))
+    rows, past = run_job(gab, PageRank(tol=1e-7, max_steps=20), q,
+                         RESIDENT_KERNELS)
+    if past["launches"]["masks_from_deltas"] or len(rows) != 1_025:
+        raise AssertionError("past-cap job took the columnar route")
+    if any(abs(r["result"]["sum"] - 1.0) > 1e-4 for r in rows):
+        raise AssertionError("past-cap job rank sums off 1")
+    emit("job", pagerank=pr, cc=cc, sssp=sssp, pagerank_past_cap=past)
 
 
 def within_tol(got, want) -> bool:
@@ -1757,8 +1791,10 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     t0 = time.perf_counter()
     log = gab_like_log(5_300_000, 1 << 25, seed=11, t_span=GAB_SPAN)
     gen_s = time.perf_counter() - t0
+    # 2 hops (cut from 4, and from bench's 16 x 8, for the host fold's
+    # time: this phase measures the fold, not the device)
     hops = [int(T) for T in
-            np.linspace(0.45 * GAB_SPAN, GAB_SPAN, 4).astype(np.int64)]
+            np.linspace(0.45 * GAB_SPAN, GAB_SPAN, 2).astype(np.int64)]
     torch.cuda.reset_peak_memory_stats()
     columns.reset_launches()
     t0 = time.perf_counter()
@@ -2085,6 +2121,484 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     return launches, errs
 
 
+# ------------------------------------------------ slice 6: K10, K7-mode
+
+#: ``bench.py:bench_scale_features``: twitter_like_log(2^22, 2^25, seed 11,
+#: t_span 2.6M), F 128, 2 rounds, bf16 storage, self_weight 0.5
+FEAT_V, FEAT_E, FEAT_F, FEAT_ROUNDS = 1 << 22, 1 << 25, 128, 2
+FEAT_SPAN = 2_600_000
+
+
+def feature_calls():
+    """``bench_scale_features``'s set-up call and its four timed calls."""
+    t0 = int(0.8 * FEAT_SPAN)
+    return (t0, FEAT_SPAN), [(t0 + 3_600, FEAT_SPAN), (t0 + 3_600, 86_400),
+                             (t0 + 7_200, FEAT_SPAN), (t0 + 7_200, 86_400)]
+
+
+def bf16_ulps(torch, got, want):
+    """|got - want| in bf16 ulps of ``want`` (float32 tensors holding bf16
+    values); an element below its row's float32 noise floor (a
+    cancellation residue) counts in float32 ulps of its row's largest
+    element (``tests/test_torch_features._bf16_ulps``)."""
+    _, e = torch.frexp(want.abs())
+    ulp = torch.where(want == 0, 0.0,
+                      torch.ldexp(torch.ones_like(want), e - 8))
+    _, er = torch.frexp(want.abs().amax(dim=1, keepdim=True))
+    floor = torch.ldexp(torch.ones_like(er, dtype=want.dtype), er - 24)
+    return (got - want).abs() / torch.maximum(ulp, floor)
+
+
+def feature_bounds(torch, fa, H, binned_be=None):
+    """(bytes, operations) of one round: H read and written once, the edge
+    tables and masks of the real edges read once (CSR, sources or the
+    binned walk / perm / slot / buckets' sources, times, alive flags),
+    one add a live edge and feature plus the per-row epilogue."""
+    ds = fa.ds
+    e_lat, e_alive = ds.edge_state
+    fb, tb = H.element_size(), e_lat.element_size()
+    nbytes = 2 * H.numel() * fb + (ds.n_pad + 1) * 8 + ds.m * (4 + tb + 1)
+    if binned_be is not None:
+        nbytes += ds.m * 8 + binned_be.U * 4    # walk order + slot, u_src
+    return nbytes, fa.flops(1)
+
+
+def sparse_library_ms(torch, fa, lo, nowin, H):
+    """``torch.sparse.mm`` of the window-masked CSR in-adjacency by an f32
+    H: one round's sum, without the epilogue (the yardstick; the port
+    never calls it)."""
+    from raphtory_tpu_torch.ops.features import edge_mask
+
+    ds = fa.ds
+    e_lat, e_alive = ds.edge_state
+    vals = edge_mask(e_lat, e_alive, lo, nowin)[: ds.m].float()
+    A = torch.sparse_csr_tensor(ds.edges.in_indptr, ds.edges.e_src[: ds.m]
+                                .long(), vals, size=(ds.n_pad, ds.n_pad),
+                                check_invariants=False)
+    Hf = H.float()
+    ms = cuda_ms(torch, lambda: torch.sparse.mm(A, Hf), iters=5)
+    del A, Hf
+    return ms
+
+
+def phase_features(torch, np, columns, dev):
+    """``bench.py:bench_scale_features`` uncut, with ``RTPU_PCPM`` unset
+    (auto): the set-up call at 0.8 t_span (full window), then the four
+    timed calls, all on one ``DeviceSweep``; every row finite and unit
+    norm; K10 held against its twin at this shape (float32 and bf16)."""
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.engine.features import FeatureAggregator
+    from raphtory_tpu_torch.ops import features as ops_features
+    from raphtory_tpu_torch.utils.synth import twitter_like_log
+
+    t0 = time.perf_counter()
+    log = twitter_like_log(n_vertices=FEAT_V, n_edges=FEAT_E, seed=11,
+                           t_span=FEAT_SPAN)
+    gen_s = time.perf_counter() - t0
+    first, calls = feature_calls()
+    torch.cuda.reset_peak_memory_stats()
+    with pcpm_route(None):
+        t0 = time.perf_counter()
+        ds = DeviceSweep(log, device=dev)
+        fa = FeatureAggregator(ds, feature_dim=FEAT_F, dtype="bfloat16",
+                               self_weight=0.5)
+        X = fa.random_features(0)
+        H = fa.propagate(X, first[0], window=first[1], rounds=FEAT_ROUNDS)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        spec = fa._active_spec
+        del H
+        fold0, disp0 = ds.fold_seconds, ds.dispatch_seconds
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        outs = [fa.propagate(X, T, window=w, rounds=FEAT_ROUNDS)
+                for T, w in calls]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(columns.LAUNCHES)
+    kernel = "feature_propagate" if spec is None \
+        else "feature_propagate_binned"
+    check_launched("features", launches, (kernel, "apply_delta_chunk"))
+    # K10 one launch a round, K10-P two (the bucket fill, the reduce)
+    if launches[kernel] != len(calls) * FEAT_ROUNDS * (1 + (spec
+                                                          is not None)):
+        raise AssertionError(f"features: {launches[kernel]} K10 launches "
+                             f"for {len(calls)} calls")
+    for H in outs:
+        norms = torch.linalg.norm(H.float(), dim=1)
+        if not bool(torch.isfinite(norms).all()) \
+                or float((norms - 1.0).abs().max()) > 1e-2:
+            raise AssertionError("features: rows not finite / unit norm")
+    # K10 and K10-P alone, on the last call's state, at its day window
+    # and at the month window of the same T (most edges live)
+    e_lat, e_alive = ds.edge_state
+    T, w = calls[-1]
+    win = {"day": ops_features.window_bound(T, w, e_lat.dtype),
+           "month": ops_features.window_bound(T, FEAT_SPAN, e_lat.dtype)}
+    Hb = outs[-1]
+    del outs[:-1]
+    with pcpm_route("1"):
+        lay = fa._pcpm_layout()
+    be = lay.device_edges(dev)
+    k10 = {"feature_propagate": (
+        lambda H, lo, nw: ops_features.propagate_round(
+            H, ds.edges, e_lat, e_alive, lo, nw, 0.5),
+        lambda H, lo, nw: ops_features.propagate_round_plain(
+            H, ds.edges, e_lat, e_alive, lo, nw, 0.5), None),
+        "feature_propagate_binned": (
+        lambda H, lo, nw: ops_features.propagate_round_binned(
+            H, be, e_lat, e_alive, lo, nw, 0.5),
+        lambda H, lo, nw: ops_features.propagate_round_binned_plain(
+            H, be, e_lat, e_alive, lo, nw, 0.5), be)}
+    times, twin = {}, {}
+    for name, (kern, plain, b_e) in k10.items():
+        times[name] = {k: cuda_ms(torch, lambda: kern(Hb, *v), iters=10)
+                       for k, v in win.items()}
+        times[name]["plain"] = cuda_ms(torch, lambda: plain(Hb, *win["day"]),
+                                       iters=3)
+        # the twin check at this shape: bf16 (the path's storage), then f32
+        got = kern(Hb, *win["day"]).float()
+        want = plain(Hb, *win["day"]).float()
+        ulps = float(bf16_ulps(torch, got, want).max())
+        differ = int((got != want).sum())
+        del got, want
+        Hf = Hb.float()
+        got = kern(Hf, *win["day"])
+        want = plain(Hf, *win["day"])
+        f32_err = float((got - want).abs().max())
+        del got, want, Hf
+        torch.cuda.empty_cache()
+        if f32_err > 1e-5 or ulps > 2:
+            raise AssertionError(f"features: {name} differs from its twin "
+                                 f"(f32 {f32_err}, bf16 {ulps} ulps)")
+        twin[name] = dict(f32_max_abs_err=f32_err, bf16_elements_differ=differ,
+                          bf16_max_ulps=ulps,
+                          bound=bound(*feature_bounds(torch, fa, Hb, b_e)))
+    # the two routes add in one order: equal on the card
+    for v in win.values():
+        if not torch.equal(k10["feature_propagate"][0](Hb, *v),
+                           k10["feature_propagate_binned"][0](Hb, *v)):
+            raise AssertionError("features: K10-P differs from K10")
+    library_ms = sparse_library_ms(torch, fa, *win["day"], Hb)
+    path_ms = times[kernel]
+    live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
+            for k, v in win.items()}
+    emit("features", n_vertices=FEAT_V, n_edge_events=FEAT_E, n=ds.n,
+         m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad, F=FEAT_F,
+         rounds=FEAT_ROUNDS, dtype="bfloat16", tdtype=str(e_lat.dtype),
+         views=len(calls), views_per_s=len(calls) / elapsed,
+         sweep_s=elapsed, gen_s=gen_s, setup_s=setup_s,
+         fold_s=ds.fold_seconds - fold0,
+         dispatch_s=ds.dispatch_seconds - disp0,
+         spec=None if spec is None else spec._asdict(), path_kernel=kernel,
+         ms_per_round=times, live_edges=live,
+         # the path kernel's rounds over the timed sweep, half of the calls
+         # at each window
+         kernel_share_of_sweep=(path_ms["day"] + path_ms["month"])
+         * len(calls) * FEAT_ROUNDS / 2e3 / elapsed,
+         traffic_bytes_per_call=fa.traffic_bytes(FEAT_ROUNDS),
+         flops_per_call=fa.flops(FEAT_ROUNDS),
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, twin=twin, binned_equals_unbinned=True,
+         library_ms=library_ms)
+    entries = {name: dict(
+        source="raphtory_tpu_torch/csrc/features.cu",
+        replaces="raphtory_tpu/engine/features.py:36" if b_e is None
+        else "raphtory_tpu/engine/features.py:62",
+        max_abs_err=twin[name]["f32_max_abs_err"], ms=times[name]["day"],
+        plain_ms=times[name]["plain"], library_ms=library_ms,
+        shape=f"n_pad={ds.n_pad} m_pad={ds.m_pad} F={FEAT_F} bf16 "
+              f"{e_lat.dtype} day window"
+              + ("" if b_e is None else f" P={lay.spec.partitions} "
+                 f"cap={lay.spec.cap} cap_u={lay.spec.cap_u} U={b_e.U}"),
+        **dict(zip(("bound_ms", "bound_by"), twin[name]["bound"])))
+        for name, (_, _, b_e) in k10.items()}
+    del outs, X, Hb, fa, ds, log, be, lay
+    torch.cuda.empty_cache()
+    return launches, entries
+
+
+def row_scale_ulps(torch, got, want):
+    """|got - want| in bf16 ulps of each row's largest element: after a
+    round whose bf16 output differs by an ulp (the two sum orders round
+    apart), the next round mixes that difference into every row it
+    reaches, so a 2-round bf16 result is held at its rows' scale."""
+    _, e = torch.frexp(want.abs().amax(dim=1, keepdim=True))
+    return (got - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def phase_features_gab(torch, np, columns, log, dev):
+    """The headline GAB log, F 128, f32 and bf16: ``FeatureAggregator``
+    with ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P), 2 rounds, each against
+    the CPU twin run (f32 within atol 1e-6; bf16 within 2 bf16 ulps of
+    each row's largest element, cosine above 0.9999 a row), binned against
+    unbinned on the card (``torch.equal``); one round of each kernel
+    against its twin at this shape (bf16 2 ulps elementwise); then
+    ``TemporalEmbeddings`` ``nearest`` / ``drift`` on the card against the
+    CPU."""
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.engine.features import FeatureAggregator
+    from raphtory_tpu_torch.examples.embeddings import TemporalEmbeddings
+    from raphtory_tpu_torch.ops import features as ops_features
+
+    times = [(int(0.9 * GAB_SPAN), 604_800), (GAB_SPAN, None)]
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (DeviceSweep(log, device="cpu").n_pad, 128)).astype(np.float32))
+    runs, specs = {}, {}
+    errs = {"f32_max_abs_err": 0.0, "bf16_max_row_ulps": 0.0,
+            "bf16_max_elem_ulps": 0.0, "bf16_min_cosine": 1.0}
+    total = {k: 0 for k in columns.LAUNCHES}
+    for dt in ("float32", "bfloat16"):
+        per_mode = {}
+        for mode in ("0", "1"):
+            with pcpm_route(mode):
+                fas = {d: FeatureAggregator(DeviceSweep(log, device=d), 128,
+                                            dtype=dt) for d in (dev, "cpu")}
+                columns.reset_launches()
+                outs = []
+                for T, w in times:
+                    t0 = time.perf_counter()
+                    H = fas[dev].propagate(X, T, window=w, rounds=2)
+                    torch.cuda.synchronize()
+                    card_s = time.perf_counter() - t0
+                    ref = fas["cpu"].propagate(X, T, window=w,
+                                               rounds=2).float()
+                    got = H.float().cpu()
+                    if dt == "float32":
+                        err = float((got - ref).abs().max())
+                        errs["f32_max_abs_err"] = max(
+                            errs["f32_max_abs_err"], err)
+                        ok = err <= 1e-6
+                    else:
+                        err = float(row_scale_ulps(torch, got, ref).max())
+                        cos = float((torch.sum(got * ref, 1) / (
+                            torch.linalg.norm(got, dim=1)
+                            * torch.linalg.norm(ref, dim=1))).min())
+                        errs["bf16_max_row_ulps"] = max(
+                            errs["bf16_max_row_ulps"], err)
+                        errs["bf16_max_elem_ulps"] = max(
+                            errs["bf16_max_elem_ulps"],
+                            float(bf16_ulps(torch, got, ref).max()))
+                        errs["bf16_min_cosine"] = min(
+                            errs["bf16_min_cosine"], cos)
+                        ok = err <= 2 and cos > 0.9999
+                    if not ok:
+                        raise AssertionError(
+                            f"features_gab {dt} PCPM={mode} at {T}: card "
+                            f"differs from the CPU ({err})")
+                    outs.append((H, card_s))
+                launches = dict(columns.LAUNCHES)
+                kernel = "feature_propagate_binned" if mode == "1" \
+                    else "feature_propagate"
+                check_launched(f"features_gab {dt} PCPM={mode}", launches,
+                               (kernel,))
+                for k, v in launches.items():
+                    total[k] += v
+                spec = fas[dev]._active_spec
+                if (spec is None) != (mode == "0"):
+                    raise AssertionError(f"features_gab: PCPM={mode} gave "
+                                         f"spec {spec}")
+                specs[mode] = None if spec is None else spec._asdict()
+                per_mode[mode] = outs
+        for (a, _), (b, _) in zip(per_mode["0"], per_mode["1"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"features_gab {dt}: binned differs "
+                                     "from unbinned on the card")
+        runs[dt] = {m: [s for _, s in o] for m, o in per_mode.items()}
+    # one round of each kernel against its twin at this shape, and timed
+    with pcpm_route("1"):
+        fa = FeatureAggregator(DeviceSweep(log, device=dev), 128,
+                               dtype="bfloat16")
+        T, w = times[0]
+        H = fa.propagate(X, T, window=w, rounds=1)
+        lay = fa._pcpm_layout()
+    ds = fa.ds
+    be = lay.device_edges(dev)
+    e_lat, e_alive = ds.edge_state
+    lo, nowin = ops_features.window_bound(T, w, e_lat.dtype)
+    pairs = {"feature_propagate": (
+        lambda: ops_features.propagate_round(H, ds.edges, e_lat, e_alive, lo,
+                                             nowin, 0.5),
+        lambda: ops_features.propagate_round_plain(H, ds.edges, e_lat,
+                                                   e_alive, lo, nowin, 0.5)),
+        "feature_propagate_binned": (
+        lambda: ops_features.propagate_round_binned(H, be, e_lat, e_alive,
+                                                    lo, nowin, 0.5),
+        lambda: ops_features.propagate_round_binned_plain(
+            H, be, e_lat, e_alive, lo, nowin, 0.5))}
+    round_check = {}
+    for name, (kern, plain) in pairs.items():
+        ulps = float(bf16_ulps(torch, kern().float(), plain().float()).max())
+        if ulps > 2:
+            raise AssertionError(f"features_gab: {name} differs from its "
+                                 f"twin ({ulps} ulps)")
+        round_check[name] = dict(bf16_max_ulps_vs_twin=ulps,
+                                 ms=cuda_ms(torch, kern),
+                                 plain_ms=cuda_ms(torch, plain, iters=5))
+    # the embeddings example on the card against the CPU (same seed: the
+    # features are drawn on the host)
+    with pcpm_route(None):
+        emb = {d: TemporalEmbeddings(log, dim=64, device=d)
+               for d in (dev, "cpu")}
+        vid = int(emb["cpu"].ds.uv[7])
+        near = {d: e.nearest(vid, int(0.95 * GAB_SPAN), window=604_800,
+                             k=5) for d, e in emb.items()}
+        drift = {d: e.drift(int(0.96 * GAB_SPAN), GAB_SPAN, 604_800)
+                 for d, e in emb.items()}
+    nsims = [[s for _, s in near[d]] for d in (dev, "cpu")]
+    drift_err = float(np.abs(drift[dev] - drift["cpu"]).max())
+    if len(nsims[0]) != len(nsims[1]) or drift_err > 1e-5 or max(
+            abs(a - b) for a, b in zip(*nsims)) > 1e-5:
+        raise AssertionError("features_gab: embeddings differ from the CPU")
+    emit("features_gab", n=ds.n, m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad,
+         F=128, specs=specs, call_s=runs, vs_cpu=errs,
+         binned_equals_unbinned=True, one_round_bf16=round_check,
+         layout=spec_of(lay), nearest=[(v, s) for v, s in near[dev]],
+         nearest_cpu=[(v, s) for v, s in near["cpu"]],
+         drift_max_abs_err_vs_cpu=drift_err, launches=total)
+    return total
+
+
+def mode_kernel_check(torch, np, segment, dev):
+    """K7-mode against its twin on a synthetic case: one segment of
+    100,003 rows with ties, rows of 1, 32, 33, 4,096 and 4,097, masked and
+    negative values, empty segments, k = 1 and 3, both CSR forms."""
+    rng = np.random.default_rng(0)
+    lens = [100_003, 1, 32, 33, 4_096, 4_097, 0, 0, 5, 200]
+    lens += [int(x) for x in rng.integers(0, 40, 3_000)]
+    n, m_real = len(lens), int(sum(lens))
+    m = m_real + 17                              # pad rows, masked
+    ids = np.concatenate([np.repeat(np.arange(n), lens),
+                          np.full(m - m_real, n - 1)]).astype(np.int32)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    cases = 0
+    for k in (1, 3):
+        vals = rng.integers(0, 50, k * m).astype(np.int32)
+        vals[:100_003] = rng.integers(0, 4, 100_003)   # big tied runs
+        vals[rng.random(k * m) < 0.05] = -7
+        mask = rng.random(k * m) < 0.9
+        mask.reshape(k, m)[:, m_real:] = False
+        for permuted in (False, True):
+            if permuted:
+                p = rng.permutation(m_real).astype(np.int32)
+                pid = np.full(m, n - 1, np.int32)
+                pid[p] = ids[:m_real]
+                seg = (pid, indptr, p)
+            else:
+                seg = (ids, indptr, None)
+            dseg = segment.SegmentCSR(*(None if a is None else
+                                        torch.from_numpy(a).to(dev)
+                                        for a in seg))
+            v, mk = (torch.from_numpy(a).to(dev) for a in (vals, mask))
+            got = segment.segment_mode(v, dseg, k * n, mk, -1, k)
+            want = segment.segment_mode_plain(v, dseg, k * n, mk, -1, k)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K7-mode differs from its twin (k={k},"
+                                     f" permuted={permuted})")
+            cases += 1
+    return dict(cases=cases, longest_row=max(lens), rows=n)
+
+
+def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
+    """LabelPropagation on the card, each run BITWISE equal to the CPU's
+    with equal steps: a cold View job on the GAB log at 0.90 t_span over
+    (month, week, day), a hop-by-hop Range job over the LDBC log (10 hops
+    x 2 windows) and ``DeviceSweep.run`` on the GAB log; K7-mode against
+    its twin on the synthetic long-row case and timed at the View's
+    shape."""
+    from raphtory_tpu_torch.algorithms import LabelPropagation
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.jobs.manager import RangeQuery, ViewQuery
+
+    prog = LabelPropagation(max_steps=30)
+    T = int(0.90 * GAB_SPAN)
+    view_job = [(prog, ViewQuery(T, windows=tuple(WINDOWS)))]
+    columns.reset_launches()
+    rows, secs, _, g = run_view_jobs(log, dev, view_job)
+    torch.cuda.synchronize()
+    launches = dict(columns.LAUNCHES)
+    check_launched("lpa view", launches, ("segment_mode",) + COLD_KERNELS)
+    if g._resident is not None:
+        raise AssertionError("lpa: the View rode the resident sweep")
+    compare_rows("lpa view", rows, run_view_jobs(log, "cpu", view_job)[0])
+    jump = (LDBC_SPAN // 2) // 9
+    q = RangeQuery(start=LDBC_SPAN // 2, end=LDBC_SPAN // 2 + 9 * jump,
+                   jump=jump, windows=(1_300_000, 604_800))
+    hops = list(range(q.start, q.end + 1, q.jump))
+    range_job = [(prog, q)]
+    columns.reset_launches()
+    t0 = time.perf_counter()
+    rrows, _, _, _ = run_view_jobs(ldbc, dev, range_job)
+    range_s = time.perf_counter() - t0
+    range_launches = dict(columns.LAUNCHES)
+    check_launched("lpa range", range_launches,
+                   ("segment_mode",) + COLD_KERNELS)
+    if len(rrows) != len(range(q.start, q.end + 1, q.jump)) * 2:
+        raise AssertionError(f"lpa range: {len(rrows)} rows")
+    compare_rows("lpa range", rrows, run_view_jobs(ldbc, "cpu",
+                                                   range_job)[0])
+    # the resident route, directly
+    card, cpu = DeviceSweep(log, device=dev), DeviceSweep(log, device="cpu")
+    columns.reset_launches()
+    got, s = card.run(prog, T, windows=WINDOWS)
+    torch.cuda.synchronize()
+    sweep_launches = dict(columns.LAUNCHES)
+    check_launched("lpa DeviceSweep", sweep_launches,
+                   ("segment_mode", "window_masks", "segment_combine"))
+    ref, xs = cpu.run(prog, T, windows=WINDOWS)
+    if s != xs or not torch.equal(got.cpu(), ref):
+        raise AssertionError(f"lpa DeviceSweep differs from the CPU (steps "
+                             f"{s} vs {xs})")
+    synthetic = mode_kernel_check(torch, np, segment, dev)
+    # K7-mode alone at the cold View's shape: 3 windows, labels in
+    # [0, n_pad), the view's window masks
+    view = build_view(log, T)
+    e = bsp.view_edges(view, dev)
+    seg = segment.SegmentCSR(e.e_dst, e.in_indptr, None)
+    k, m, n = len(WINDOWS), view.m_pad, view.n_pad
+    rng = np.random.default_rng(9)
+    emasks = np.stack([view.e_mask & (view.e_latest_time >= view.time - w)
+                       for w in WINDOWS]).reshape(-1)
+    vals = torch.from_numpy(rng.integers(0, n, k * m).astype(np.int32)) \
+        .to(dev)
+    mk = torch.from_numpy(emasks).to(dev)
+    got = segment.segment_mode(vals, seg, k * n, mk, -1, k)
+    want = segment.segment_mode_plain(vals, seg, k * n, mk, -1, k)
+    if not torch.equal(got, want):
+        raise AssertionError("K7-mode differs from its twin at the View's "
+                             "shape")
+    mode_ms = cuda_ms(torch, lambda: segment.segment_mode(
+        vals, seg, k * n, mk, -1, k))
+    mode_plain = cuda_ms(torch, lambda: segment.segment_mode_plain(
+        vals, seg, k * n, mk, -1, k), iters=5)
+    m_real = int(view.m_active)
+    emit("lpa", view=dict(time=T, windows=WINDOWS, view_s=secs[0],
+                          viewTime_ms=[r["viewTime"] for r in rows],
+                          steps=rows[0]["steps"],
+                          communities=[r["result"]["communities"]
+                                       for r in rows], launches=launches),
+         range=dict(hops=len(hops), windows=2, rows=len(rrows),
+                    wall_s=range_s,
+                    viewTime_ms=[r["viewTime"] for r in rrows],
+                    steps=[r["steps"] for r in rrows],
+                    launches=range_launches),
+         device_sweep=dict(steps=s, launches=sweep_launches),
+         synthetic=synthetic, bitwise_vs_cpu=True)
+    entry = dict(
+        source="raphtory_tpu_torch/csrc/segment.cu",
+        replaces="raphtory_tpu/ops/segment.py:155",
+        max_abs_err=exact_err(got, want), ms=mode_ms, plain_ms=mode_plain,
+        library_ms=None,
+        shape=f"dst n_pad={n} m_pad={m} k={k} int32 labels",
+        # the real rows' values and masks a window, the CSR, the output
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            k * m_real * 5 + (n + 1) * 8 + k * n * 4, k * m_real))))
+    return launches, entry
+
+
 def main() -> int:
     import torch
 
@@ -2178,6 +2692,19 @@ def main() -> int:
     for k, err in {**bulk_errs, **pcpm_errs}.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], err)
     timed("scale", phase_scale, torch, np, columns, HopBatchedPageRank, dev)
+    # slice 6: K10 at the scale shape, K10-P on the GAB log, LPA / K7-mode
+    feat_launches, feat_entries = timed("features", phase_features, torch,
+                                        np, columns, dev)
+    kernels.update(feat_entries)
+    gab_launches = timed("features_gab", phase_features_gab, torch, np,
+                         columns, log, dev)
+    lpa_launches, kernels["segment_mode"] = timed(
+        "lpa", phase_lpa, torch, np, columns, segment, log, ldbc, dev)
+    # each feature kernel's launches on the path that runs it: the scale
+    # path's own route, the other one from the GAB runs
+    for k in ("feature_propagate", "feature_propagate_binned"):
+        launches[k] = feat_launches[k] or gab_launches[k]
+    launches["segment_mode"] = lpa_launches["segment_mode"]
     # the binned route's share: its kernel checks, the pcpm phase, and the
     # binned parts inside scale_bulk (layout build included)
     pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",

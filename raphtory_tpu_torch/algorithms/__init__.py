@@ -2,7 +2,9 @@
 
 from .connected_components import ConnectedComponents
 from .degree import DegreeBasic
+from .lpa import LabelPropagation
 from .pagerank import PageRank
 from .traversal import BFS, SSSP
 
-__all__ = ["BFS", "SSSP", "ConnectedComponents", "DegreeBasic", "PageRank"]
+__all__ = ["BFS", "SSSP", "ConnectedComponents", "DegreeBasic",
+           "LabelPropagation", "PageRank"]

@@ -53,6 +53,36 @@
 // of every real edge once per window through perm, the walk once, the
 // output written once.
 //
+// K7-mode `rtpu_segment_mode` — raphtory_tpu/ops/segment.py:155
+// `segment_mode`, the custom-combiner exchange of LabelPropagation: for each
+// (window w, row r) the most frequent value among
+//
+//     { x[w*m + e] : e in the CSR run of r, mask[w*m + e], x >= 0 }
+//
+// ties to the smallest value, `dflt` where the set is empty. The reference
+// sorts packed (segment << 31 | value) keys over all k*m rows; here each
+// inbox is already one CSR run (the destination direction walks `indptr`,
+// the source direction `perm`), so no global sort is needed. A block of
+// eight warps owns eight consecutive (window, row) outputs:
+//   * a run of <= 32 rows stays in its warp: each lane holds one value,
+//     __match_any_sync groups equal values, __popc counts them, and a warp
+//     max of (count << 32 | 2^31-1 - value) picks the largest count, then
+//     the smallest value;
+//   * a longer run is done by the whole block after the warps: its valid
+//     values (invalid ones as -1) are copied into shared memory (runs of
+//     <= kSmemRows) or into their disjoint slice of the global `scratch`
+//     (w*m + indptr[r] .., longer runs), sorted with an all-ascending
+//     bitonic network (a partner past the run's end is a virtual +inf and
+//     is skipped, so no padding is written), and each run start of the
+//     sorted values finds its run's end by binary search; a block max of
+//     the same key picks the result.
+// Every candidate is an integer and the pick does not depend on the order
+// of the rows, so the result is exact and equals the reference's bit for
+// bit; nothing is truncated, whatever the run's length. Bound: bytes — the
+// values and mask of every real row once per window, the CSR once, the
+// output once; a long run costs O(L log^2 L) compare-exchanges in one
+// block (the GAB and LDBC inboxes are short).
+//
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/segment.py).
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError().
@@ -190,6 +220,135 @@ void launch(int op, int64_t k, int64_t n, int64_t m, int64_t F,
             k, n, m, F, indptr, perm, xt, mask, ot);
 }
 
+constexpr int kModeWarps = 8;          // rows (warps) a block owns
+constexpr int kSmemRows = 4096;        // longest run sorted in shared memory
+
+__device__ inline unsigned long long mode_key(int v, int count) {
+    // largest count first, then the smallest value; 0 = no candidate
+    return v < 0 ? 0ull
+                 : ((unsigned long long)count << 32)
+                       | (unsigned long long)(0x7fffffff - v);
+}
+
+__device__ inline int mode_value(unsigned long long key, int dflt) {
+    return key ? 0x7fffffff - (int)(key & 0xffffffffull) : dflt;
+}
+
+__device__ inline unsigned long long warp_max(unsigned long long x) {
+    for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
+        x = y > x ? y : x;
+    }
+    return x;
+}
+
+// All-ascending bitonic sort of a[0..L) by the block (virtual +inf past L).
+__device__ void block_sort(int* a, int64_t L) {
+    int64_t Lp = 1;
+    while (Lp < L) Lp <<= 1;
+    const int64_t half = Lp >> 1;
+    for (int64_t kk = 2; kk <= Lp; kk <<= 1) {
+        for (int64_t jj = kk >> 1; jj > 0; jj >>= 1) {
+            for (int64_t t = threadIdx.x; t < half; t += blockDim.x) {
+                int64_t i, j;
+                if (jj == (kk >> 1)) {          // the flip of each stage
+                    const int64_t h = kk >> 1, b = t / h, o = t % h;
+                    i = b * kk + o;
+                    j = b * kk + kk - 1 - o;
+                } else {
+                    i = (t / jj) * 2 * jj + (t % jj);
+                    j = i + jj;
+                }
+                if (j < L && a[j] < a[i]) {
+                    const int x = a[i];
+                    a[i] = a[j];
+                    a[j] = x;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+__global__ void segment_mode_kernel(int64_t k, int64_t n, int64_t m,
+                                    int dflt,
+                                    const int64_t* __restrict__ indptr,
+                                    const int32_t* __restrict__ perm,
+                                    const int32_t* __restrict__ x,
+                                    const uint8_t* __restrict__ mask,
+                                    int32_t* scratch,
+                                    int32_t* __restrict__ out) {
+    __shared__ int sv[kSmemRows];
+    __shared__ int64_t longrow[kModeWarps];
+    __shared__ unsigned long long wbest[kModeWarps];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t rows = k * n;
+    const int64_t groups = (rows + kModeWarps - 1) / kModeWarps;
+    for (int64_t g = blockIdx.x; g < groups; g += gridDim.x) {
+        // ---- short runs, one warp each
+        const int64_t row = g * kModeWarps + warp;
+        int64_t lr = -1;
+        if (row < rows) {
+            const int64_t w = row / n, r = row % n;
+            const int64_t j0 = indptr[r], L = indptr[r + 1] - j0;
+            if (L > 32) {
+                lr = row;
+            } else {
+                int v = -1;
+                if (lane < L) {
+                    const int64_t j = j0 + lane;
+                    const int64_t e = w * m + (perm ? (int64_t)perm[j] : j);
+                    if (mask[e] && x[e] >= 0) v = x[e];
+                }
+                const unsigned grp = __match_any_sync(0xffffffffu, v);
+                const unsigned long long best =
+                    warp_max(mode_key(v, __popc(grp)));
+                if (lane == 0) out[row] = mode_value(best, dflt);
+            }
+        }
+        if (lane == 0) longrow[warp] = lr;
+        __syncthreads();
+        // ---- long runs, the whole block each
+        for (int q = 0; q < kModeWarps; ++q) {
+            const int64_t lrow = longrow[q];
+            if (lrow < 0) continue;                 // block-uniform
+            const int64_t w = lrow / n, r = lrow % n;
+            const int64_t j0 = indptr[r], L = indptr[r + 1] - j0;
+            int* a = L <= kSmemRows ? sv : scratch + w * m + j0;
+            for (int64_t t = threadIdx.x; t < L; t += blockDim.x) {
+                const int64_t j = j0 + t;
+                const int64_t e = w * m + (perm ? (int64_t)perm[j] : j);
+                a[t] = (mask[e] && x[e] >= 0) ? x[e] : -1;
+            }
+            __syncthreads();
+            block_sort(a, L);
+            unsigned long long best = 0;
+            for (int64_t t = threadIdx.x; t < L; t += blockDim.x) {
+                const int v = a[t];
+                if (v < 0 || (t > 0 && a[t - 1] == v)) continue;
+                int64_t lo = t + 1, hi = L;          // first index > v
+                while (lo < hi) {
+                    const int64_t mid = (lo + hi) >> 1;
+                    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+                }
+                const unsigned long long key = mode_key(v, (int)(lo - t));
+                best = key > best ? key : best;
+            }
+            best = warp_max(best);
+            if (lane == 0) wbest[warp] = best;
+            __syncthreads();
+            if (threadIdx.x == 0) {
+                unsigned long long b = 0;
+                for (int i = 0; i < kModeWarps; ++i)
+                    b = wbest[i] > b ? wbest[i] : b;
+                out[lrow] = mode_value(b, dflt);
+            }
+            __syncthreads();
+        }
+        __syncthreads();   // longrow[] is rewritten by the next group
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,6 +397,25 @@ int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
     else
         launch_partition<int32_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
                                   out, s);
+    return (int)cudaGetLastError();
+}
+
+// K7-mode. k windows, n rows, m payload rows per window | indptr [n+1]
+// int64, perm [m_real] int32 or null, x [k*m] int32, mask [k*m] bool,
+// scratch [k*m] int32 (the long runs' sort space) | out [k*n] int32.
+int rtpu_segment_mode(int64_t k, int64_t n, int64_t m, int64_t dflt,
+                      const void* indptr, const void* perm, const void* x,
+                      const void* mask, void* scratch, void* out,
+                      void* stream) {
+    if (k * n == 0) return (int)cudaGetLastError();
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int64_t blocks = (k * n + kModeWarps - 1) / kModeWarps;
+    if (blocks > 65535 * 8) blocks = 65535 * 8;
+    segment_mode_kernel<<<blocks, kModeWarps * 32, 0, s>>>(
+        k, n, m, (int)dflt, static_cast<const int64_t*>(indptr),
+        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(x),
+        static_cast<const uint8_t*>(mask), static_cast<int32_t*>(scratch),
+        static_cast<int32_t*>(out));
     return (int)cudaGetLastError();
 }
 

@@ -26,9 +26,12 @@ reference's auto rule): the destination direction combines with K7-P
 direction keeps K7. The resident sweep stays unbinned, as in the
 reference.
 
-Not ported here, each raising ``NotImplementedError``:
-``combiner="custom"`` (K7 ``segment_mode``) and occurrence programs
-(``needs_occurrences``, ROADMAP queue 1 item 4).
+A ``combiner="custom"`` program reduces its payloads with its own
+``exchange`` (``program.py``; LabelPropagation's K7-mode ``segment_mode``)
+over the direction's ``SegmentCSR``, on every route, never binned.
+
+Not ported: occurrence programs (``needs_occurrences``, ROADMAP queue 1
+item 4), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,16 +65,19 @@ def tree_map(fn, *trees):
 def check_program(program: VertexProgram) -> None:
     """Refuse what this engine does not carry yet, naming the ROADMAP
     item."""
-    if program.combiner == "custom":
-        raise NotImplementedError(
-            "combiner='custom' (the program's own exchange, segment_mode) "
-            "is not ported yet: ROADMAP queue 2, K7")
-    if program.combiner not in _ELEM:
+    if program.combiner not in _ELEM and program.combiner != "custom":
         raise ValueError(f"unknown combiner {program.combiner!r}")
     if program.needs_occurrences:
         raise NotImplementedError(
             "occurrence programs (needs_occurrences: the multigraph of "
             "edge-add events) are not ported yet: ROADMAP queue 1 item 4")
+
+
+def _check_custom(program: VertexProgram) -> None:
+    if program.combiner == "custom" and program.direction == "both":
+        raise ValueError(
+            "combiner='custom' requires direction 'out' or 'in' — merging "
+            "two custom aggregations is not well-defined")
 
 
 def make_mask_runner(program: VertexProgram, n: int, m: int, k: int,
@@ -88,7 +94,9 @@ def make_mask_runner(program: VertexProgram, n: int, m: int, k: int,
     destination-direction combine the binned one (K7-P); the reverse
     direction keeps K7's (``bsp.py:127-141``)."""
     check_program(program)
+    _check_custom(program)
     op = program.combiner
+    custom = op == "custom"
 
     def run(v_masks, e_masks, vids, v_latest, v_first, edges: DeviceEdges,
             e_latest, e_first, time: int, windows, eprops, vprops):
@@ -116,6 +124,9 @@ def make_mask_runner(program: VertexProgram, n: int, m: int, k: int,
             return a if k == 1 else a.repeat((k,) + (1,) * (a.dim() - 1))
 
         def combine(tree, csr):
+            if custom:
+                return tree_map(lambda a: a.reshape((k, n) + a.shape[1:]),
+                                program.exchange(tree, csr, k * n, em_flat))
             if pcpm is not None and csr is at_dst:
                 return tree_map(lambda x: partition_reduce(
                     x, pcpm, op, em_flat, k).reshape((k, n) + x.shape[1:]),
@@ -229,6 +240,7 @@ def run_async(program: VertexProgram, view: GraphView, *,
     windows=[w0 > w1 > ...]   → batched windows, one result per window
                                 (BWindowed*; leading axis on the result).
     """
+    _check_custom(program)
     device = resolve_device(device)
     check_program(program)
     batched = windows is not None
@@ -264,7 +276,8 @@ def run_async(program: VertexProgram, view: GraphView, *,
     # exchange or an in-only program never takes the destination combine.
     # The port is no TPU backend, so sum programs bin too (the reference's
     # non-TPU branch, bsp.py:350-356)
-    binnable = program.direction in ("out", "both")
+    binnable = (program.combiner != "custom"
+                and program.direction in ("out", "both"))
     layout = _view_layout(view) if binnable else None
     walk = None
     if layout is not None:

@@ -256,6 +256,13 @@ class DeviceSweep:
         # the buffers — the next fold must restage the full state
         self._stale = False
 
+    @property
+    def edge_state(self) -> tuple:
+        """The resident ``(e_lat, e_alive)`` buffers (engine edge order,
+        ``tdtype`` times) at ``t_now`` — what the feature aggregation
+        (``engine/features.py``, K10) masks its edges with."""
+        return self._bufs[3], self._bufs[4]
+
     # ---- sweep driving ----
 
     def advance(self, time: int) -> None:

@@ -14,7 +14,8 @@ array functions over the WHOLE vertex/edge set at once:
 
 Messages flow along edges (``direction`` 'out', 'in' or 'both') and are
 combined at the receiver by an associative-commutative ``combiner``
-('sum' | 'min' | 'max'). The generic superstep engine (``engine/bsp.py``)
+('sum' | 'min' | 'max'), or by the program's own ``exchange``
+(``combiner='custom'``, LabelPropagation's ``segment_mode``). The generic superstep engine (``engine/bsp.py``)
 drives these functions for every program; the hop-batched columnar engine
 runs PageRank's, CC's and BFS/SSSP's semantics directly.
 
@@ -131,14 +132,21 @@ class VertexProgram:
         it is called once per direction."""
         raise NotImplementedError
 
-    def exchange(self, payload: Any, seg_ids: torch.Tensor,
-                 num_segments: int, mask: torch.Tensor) -> Any:
-        """combiner='custom' only: the program's own reduction of the flat
-        per-edge payloads. The custom exchange (``segment_mode``) is not
-        ported yet."""
-        raise NotImplementedError(
-            "combiner='custom' (the program's own exchange) is not ported "
-            "yet: ROADMAP queue 2, K7 segment_mode")
+    def exchange(self, payload: Any, seg: Any, num_segments: int,
+                 mask: torch.Tensor) -> Any:
+        """combiner='custom' only: reduce the flat per-edge ``payload``
+        (leaves ``[k*m, ...]``) into per-vertex aggregates (leaves
+        ``[num_segments, ...]``, ``num_segments = k*n``); rows with
+        ``mask`` False must not contribute (``raphtory_tpu/engine/
+        program.py:177-190``). Where the reference passes each payload's
+        flat segment id, the port passes the direction's
+        ``ops.segment.SegmentCSR``: window w's row e goes to segment
+        ``w*n + seg.ids[e]``, and ``seg.indptr``/``seg.perm`` walk each
+        segment's rows — what ``ops.segment.segment_combine`` and
+        ``segment_mode`` take (``k = num_segments // seg.n``). Restricted
+        to direction 'out' or 'in' (merging two custom aggregations is not
+        well-defined)."""
+        raise NotImplementedError
 
     def update(self, state: Any, agg: Any, ctx: Context):
         """Fold the combined inbox into new state; return (state, halt_votes)

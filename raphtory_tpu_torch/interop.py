@@ -9,11 +9,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from .algorithms import BFS, SSSP, ConnectedComponents, DegreeBasic, PageRank
+from .algorithms import (BFS, SSSP, ConnectedComponents, DegreeBasic,
+                         LabelPropagation, PageRank)
 from .core.events import EventLog
 
 _PROGRAMS = {"PageRank": PageRank, "ConnectedComponents": ConnectedComponents,
-             "SSSP": SSSP, "BFS": BFS, "DegreeBasic": DegreeBasic}
+             "SSSP": SSSP, "BFS": BFS, "DegreeBasic": DegreeBasic,
+             "LabelPropagation": LabelPropagation}
 
 
 def event_log_from_arrays(cols: dict[str, np.ndarray],

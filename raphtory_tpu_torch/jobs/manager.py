@@ -10,15 +10,19 @@ handshake per timestamp. Here a job is a host thread:
   sweep's clock, the program needs properties or its reducer needs the
   full view, the fence has not passed, or the log has 2^31 ids or more);
   then the cold route folds a host view and runs ``engine/bsp.run``;
-* a **Range** query of PageRank, ConnectedComponents or SSSP/BFS runs as
-  columns of one hop-batched sweep (``engine/hopbatch``); any other
-  program runs on a ``DeviceSweep`` hop by hop when the whole range is
-  behind the fence, else hop by hop through the View routes.
+* a **Range** query tries the reference's routes in its order
+  (``jobs/manager.py:316-340``, without the mesh routes): the columnar
+  hop-batched sweep (``engine/hopbatch``) for PageRank,
+  ConnectedComponents and SSSP/BFS; then a ``DeviceSweep`` hop by hop;
+  then the View routes hop by hop, behind the watermark fence. Each
+  route declines (the range is not behind the fence, past the columnar
+  route's view cap or memory guards, a program it does not carry) and
+  the next one runs.
 
-A Live query, a custom-combiner program and an occurrence program raise
-``NotImplementedError`` at submit, naming the ROADMAP item that brings
-them. A failed dispatch fails the job (``status`` / ``error``): the
-resident route drops its sweep and does NOT fall back to the cold route.
+A Live query and an occurrence program raise ``NotImplementedError`` at
+submit, naming the ROADMAP item that brings them. A failed dispatch fails
+the job (``status`` / ``error``): the resident route drops its sweep and
+does NOT fall back to the cold route.
 """
 
 from __future__ import annotations
@@ -77,10 +81,6 @@ class LiveQuery:
     windows: tuple | None = None
 
 
-class StaleRangeError(RuntimeError):
-    """The watermark fence did not pass the range's end in time."""
-
-
 class _Shell:
     """The reducer-facing slice of a GraphView over the global dense space:
     enough for host reducers (vids / v_mask / window_masks)."""
@@ -99,10 +99,6 @@ class _Shell:
         lo = self.time - w
         v = self.v_mask[None, :] & (self.v_latest_time[None, :] >= lo)
         return v, None  # the shell carries no edge masks
-
-
-#: the programs a Range job runs on a columnar engine
-_COLUMNAR = (PageRank, ConnectedComponents, SSSP)
 
 
 def _shell_from_fold(tables, sw, T):
@@ -180,11 +176,10 @@ class Job:
             q = self.query
             if isinstance(q, ViewQuery):
                 self._run_at(q.timestamp, q)
-            elif type(self.program) in _COLUMNAR:
-                self._run_range(q)
-            elif not self._try_range_device(q):
+            elif not (self._try_range_hopbatch(q)
+                      or self._try_range_device(q)):
                 # hop by hop behind the watermark fence (the reference's
-                # RangeAnalysisTask loop, jobs/manager.py:331-340): fold
+                # RangeAnalysisTask loop, jobs/manager.py:316-340): fold
                 # incrementally when the whole range is already safe
                 sweep = (SweepBuilder(self.graph.log)
                          if self.graph.safe_time() >= q.end else None)
@@ -352,37 +347,39 @@ class Job:
 
     def _columnar_range_prep(self, q: RangeQuery):
         """``(hops, windows, engine)`` for the whole-range columnar sweep,
-        with the reference's size guards (``jobs/manager.py:546``). A range
-        past them would need the per-hop engines, which this slice does not
-        carry."""
+        or None where the reference declines the route
+        (``jobs/manager.py:546-572``): no hops or more than 1024 views, a
+        program without a columnar engine or an engine that cannot be
+        built (TypeError, ValueError, MemoryError: an immutable SSSP
+        weight key, the id space), or a range past either memory guard.
+        The job then takes the next route."""
         hops = list(range(int(q.start), int(q.end) + 1, int(q.jump)))
         windows = list(q.windows) if q.windows is not None else [q.window]
         if not hops or len(hops) * len(windows) > 1024:
-            raise NotImplementedError(
-                f"{len(hops)} hops x {len(windows)} windows is outside the "
-                "columnar route (1 to 1024 views); the per-hop engines are "
-                "ROADMAP queue 1 items 4-5")
-        hb = self._columnar_builder()
+            return None   # the cheap guard, before paying for tables
+        try:
+            hb = self._columnar_builder()
+        except (TypeError, ValueError, MemoryError):
+            return None
         if hb.device_mask_bytes(len(hops) * len(windows)) > 1 << 32 \
                 or hb.host_column_bytes(len(hops)) > 1 << 29:
-            raise NotImplementedError(
-                "range too large for the columnar route's memory guards; "
-                "the per-hop engines are ROADMAP queue 1 items 4-5")
+            return None
         return hops, windows, hb
 
-    def _run_range(self, q: RangeQuery) -> None:
+    def _try_range_hopbatch(self, q: RangeQuery) -> bool:
         """Whole-range columnar sweep: every (hop, window) view is a column
         of one pass (``engine/hopbatch``), pipelined in equal hop chunks
-        (warm-started where the engine's iteration is a contraction),
-        behind the watermark fence at ``q.end``."""
-        if not self.graph.watermarks.wait_for(int(q.end),
-                                              timeout=self.wait_timeout):
-            raise StaleRangeError(
-                f"range end {q.end} not yet safe: watermark="
-                f"{self.graph.safe_time()} ({self.graph.watermarks.snapshot()})")
-        hops, windows, hb = self._columnar_range_prep(q)
+        (warm-started where the engine's iteration is a contraction).
+        Declines (False) while the range is not behind the fence, or where
+        ``_columnar_range_prep`` declines (``jobs/manager.py:575-588``)."""
+        if self.graph.safe_time() < q.end:
+            return False
+        prep = self._columnar_range_prep(q)
+        if prep is None:
+            return False
+        hops, windows, hb = prep
         if self._kill.is_set():
-            return
+            return True
         shells = {}
 
         def grab_shell(T, sw):
@@ -398,6 +395,7 @@ class Job:
         ranks = ranks.cpu().numpy()
         self._emit_columnar(hops, windows, ranks, shells, steps,
                             _time.perf_counter() - t0)
+        return True
 
     def _emit_columnar(self, hops, windows, ranks, shells, steps,
                        elapsed) -> None:
@@ -443,7 +441,7 @@ class AnalysisManager:
         if not isinstance(query, (ViewQuery, RangeQuery)):
             raise NotImplementedError(
                 f"{type(query).__name__} is not carried yet: Live queries "
-                "come with the jobs/serving slice, ROADMAP queue 1 item 7")
+                "come with the live epoch engine, ROADMAP queue 1 item 5")
         bsp.check_program(program)
         with self._lock:
             if job_id is None:

@@ -5,7 +5,8 @@ emitted straight into the destination-binned layout) and K2 (the edge
 passes and the superstep update of the PageRank power iteration, with
 K2b-P the binned pull-sum); the build and launch plumbing that
 ``ops/minplus.py`` (K5/K6 and their binned K5-P/K6-P), ``ops/segment.py``
-(K7, K7-P) and ``ops/resident.py`` (K9a, K9b, K8u) share.
+(K7, K7-P, K7-mode), ``ops/resident.py`` (K9a, K9b, K8u) and
+``ops/features.py`` (K10, K10-P) share.
 
 Each kernel has three parts here:
 
@@ -61,7 +62,10 @@ _LIBS = {
         "rtpu_cc_superstep", "rtpu_minplus_superstep",
         "rtpu_binned_cc_superstep", "rtpu_binned_minplus_superstep")),
     "segment": ("segment.cu", ("rtpu_segment_combine",
-                               "rtpu_partition_reduce")),
+                               "rtpu_partition_reduce",
+                               "rtpu_segment_mode")),
+    "features": ("features.cu", ("rtpu_feature_propagate",
+                                 "rtpu_feature_propagate_binned")),
     "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
                            "rtpu_unpack_mask_bits")),
 }
@@ -125,6 +129,18 @@ _ARGTYPES = {
     + 19 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     # k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask, out, stream
     "rtpu_partition_reduce": 6 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
+    # k, n, m, default | indptr, perm, values, mask, scratch, out, stream
+    "rtpu_segment_mode": 4 * [ctypes.c_int64] + 7 * [ctypes.c_void_p],
+    # n_pad, F, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr, e_src,
+    # e_lat, e_alive, H, out, stream
+    "rtpu_feature_propagate": 6 * [ctypes.c_int64] + 2 * [ctypes.c_float]
+    + 7 * [ctypes.c_void_p],
+    # n_pad, F, U, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr,
+    # in_order, perm, slot, u_src, e_lat, e_alive, H, vals, out, stream |
+    # launched
+    "rtpu_feature_propagate_binned": 7 * [ctypes.c_int64]
+    + 2 * [ctypes.c_float] + 11 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
@@ -136,7 +152,8 @@ LAUNCHES = {"masks_from_deltas": 0, "column_masks": 0,
             "apply_delta_chunk": 0, "window_masks": 0,
             "unpack_mask_bits": 0, "bin_masks": 0, "binned_pull_sum": 0,
             "binned_cc_superstep": 0, "binned_minplus_superstep": 0,
-            "partition_segment_reduce": 0}
+            "partition_segment_reduce": 0, "segment_mode": 0,
+            "feature_propagate": 0, "feature_propagate_binned": 0}
 
 #: ``nvcc -Xptxas -v`` report of each library built by this process
 BUILD_LOG: dict[str, str] = {}

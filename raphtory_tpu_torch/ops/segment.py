@@ -27,8 +27,18 @@ reduced into its own dense ``n_per``-row block, in the fixed order of a
 ``PartitionWalk`` (``rtpu_partition_reduce``, the same source).
 ``partition_segment_reduce`` keeps the reference's signature on top of it.
 
-``segment_sum_sorted_csr`` (TPU only) and ``segment_mode`` (the
-custom-combiner exchange) are not ported yet (ROADMAP queue 2, K7).
+K7-mode ``segment_mode`` (``raphtory_tpu/ops/segment.py:155``) is the
+custom-combiner exchange ``LabelPropagation`` runs: the most frequent value
+of each (window, segment) inbox, ties to the smallest value, masked rows
+and values outside [0, 2^31) counting as no message, an empty inbox
+giving ``default``. Its twin ``segment_mode_plain`` is the reference's
+sort of packed ``(segment << 31) | value`` keys; the kernel
+``rtpu_segment_mode`` walks each inbox through the same ``SegmentCSR``
+as K7 (no global sort: a window's inbox is one CSR run) and is bitwise
+equal to it, the result being an integer picked by count and value.
+
+``segment_sum_sorted_csr`` (a segmented scan the reference takes only on
+a TPU backend) is not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -129,6 +139,97 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
         k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype], _ptr(csr.indptr),
         None if csr.perm is None else _ptr(csr.perm), _ptr(data), _ptr(mask),
         _ptr(out), _stream(data))
+    _launch(name, err)
+    return out
+
+
+# ---------------------------------------------------------------- K7-mode
+
+#: segment_mode's value budget: non-negative values below 2^31
+_V_BITS = 31
+
+
+def _mode_args(name, values, seg: SegmentCSR, num_segments: int, mask,
+               k: int):
+    m, n = seg.ids.shape[0], seg.n
+    if num_segments != k * n:
+        raise ValueError(f"{name}: num_segments {num_segments} != k={k} "
+                         f"windows x n={n} segments")
+    if values.dim() != 1 or values.shape[0] != k * m:
+        raise ValueError(f"{name}: values has shape {tuple(values.shape)}, "
+                         f"want [{k * m}] (k={k} windows x m={m} edges)")
+    if mask is None:
+        mask = torch.ones(k * m, dtype=torch.bool, device=values.device)
+    _expect(name, mask, "mask", (torch.bool,), (k * m,))
+    return m, n, mask
+
+
+def segment_mode_plain(values, seg: SegmentCSR, num_segments: int,
+                       mask=None, default: int = -1, k: int = 1):
+    """Twin of ``rtpu_segment_mode``, the reference's algorithm
+    (``raphtory_tpu/ops/segment.py:155-205``): window w's row e lands in
+    segment ``w*n + ids[e]``; rows masked off or with a value outside
+    [0, 2^31) are parked past the last segment; the packed int64 keys
+    ``(segment << 31) | value`` are sorted, equal runs counted, and each
+    segment keeps the run of the largest ``count * 2^31 + (2^31 - 1 -
+    value)``. ``[k*n]`` in the values' dtype."""
+    m, n, mask = _mode_args("segment_mode", values, seg, num_segments, mask,
+                            k)
+    dev = values.device
+    ids = (seg.ids.long()[None, :]
+           + torch.arange(k, device=dev)[:, None] * n).reshape(-1)
+    v = values.long()
+    ok = (v >= 0) & (v < (1 << _V_BITS)) & mask
+    s = torch.where(ok, ids, torch.full_like(ids, num_segments))
+    v = torch.where(ok, v, torch.zeros_like(v))
+    ks = torch.sort((s << _V_BITS) | v).values
+    ss = ks >> _V_BITS
+    vs = ks & ((1 << _V_BITS) - 1)
+    start = torch.ones_like(ks, dtype=torch.bool)
+    start[1:] = ks[1:] != ks[:-1]
+    run_id = torch.cumsum(start, 0) - 1
+    run_len = torch.bincount(run_id, minlength=ks.shape[0])
+    score = run_len[run_id] * (1 << _V_BITS) + ((1 << _V_BITS) - 1 - vs)
+    score = torch.where(start, score, torch.full_like(score, -1))
+    seg_of_row = torch.clamp(ss, max=num_segments)
+    best = torch.full((num_segments + 1,), torch.iinfo(torch.int64).min,
+                      dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, seg_of_row, score, "amax")
+    best = best[:num_segments]
+    val = ((1 << _V_BITS) - 1) - (best & ((1 << _V_BITS) - 1))
+    return torch.where(best > 0, val, torch.full_like(val, default)) \
+        .to(values.dtype)
+
+
+def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
+                 default: int = -1, k: int = 1):
+    """K7-mode wrapper (``raphtory_tpu/ops/segment.py:155``
+    ``segment_mode``, as ``LabelPropagation.exchange`` calls it): the most
+    frequent value of each of the ``num_segments = k*n`` (window, segment)
+    inboxes of ``values [k*m]`` under ``mask bool[k*m]`` (None: every row),
+    ties to the smallest value, ``default`` where nothing counts. Int32
+    payloads on the card."""
+    name = "segment_mode"
+    m, n, mask = _mode_args(name, values, seg, num_segments, mask, k)
+    _expect(name, seg.ids, "ids", (torch.int32,), (m,))
+    _expect(name, seg.indptr, "indptr", (torch.int64,), (n + 1,))
+    tensors = (values, mask, seg.ids, seg.indptr)
+    if seg.perm is not None:
+        _expect(name, seg.perm, "perm", (torch.int32,), (seg.perm.shape[0],))
+        tensors += (seg.perm,)
+    if not _on_cuda(name, *tensors):
+        return segment_mode_plain(values, seg, num_segments, mask, default, k)
+    _expect(name, values, "values", (torch.int32,), (k * m,))
+    if not -(1 << 31) <= int(default) < (1 << 31):
+        raise ValueError(f"{name}: default {default} is not an int32")
+    out = torch.empty(k * n, dtype=torch.int32, device=values.device)
+    # the long inboxes' sort space: row r of window w sorts in place at
+    # w*m + indptr[r] .. (disjoint runs, so one buffer serves every row)
+    scratch = torch.empty(k * m, dtype=torch.int32, device=values.device)
+    err = _fn("segment", "rtpu_segment_mode")(
+        k, n, m, int(default), _ptr(seg.indptr),
+        None if seg.perm is None else _ptr(seg.perm), _ptr(values),
+        _ptr(mask), _ptr(scratch), _ptr(out), _stream(values))
     _launch(name, err)
     return out
 

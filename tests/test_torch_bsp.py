@@ -207,22 +207,46 @@ def test_view_edges_csr_walk_matches_ids():
 
 
 def test_unported_programs_raise():
+    """What the port refuses or fails, it refuses or fails as the reference
+    does: a custom-combiner program without its own functions raises the
+    base class's NotImplementedError in both packages, and with direction
+    'both' the reference's ValueError; occurrence programs are still to
+    port (ROADMAP)."""
+    from raphtory_tpu.engine.program import VertexProgram as JVertexProgram
     from raphtory_tpu_torch.engine.program import VertexProgram
 
     class Custom(VertexProgram):
         combiner = "custom"
 
+    class JCustom(JVertexProgram):
+        combiner = "custom"
+
+    class CustomBoth(Custom):
+        direction = "both"
+
+    class JCustomBoth(JCustom):
+        direction = "both"
+
     class Occurrences(VertexProgram):
         needs_occurrences = True
 
-    _, log = _logs(1)
-    view = build_view(log, 50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    jlog, log = _logs(1)
+    view, jview = build_view(log, 50), jbuild_view(jlog, 50)
+    with pytest.raises(NotImplementedError):
+        jbsp.run(JCustom(), jview)
+    with pytest.raises(NotImplementedError):
         bsp.run(Custom(), view, device="cpu")
+    for run, prog, v, kw in ((jbsp.run, JCustomBoth(), jview, {}),
+                             (bsp.run, CustomBoth(), view,
+                              {"device": "cpu"})):
+        with pytest.raises(ValueError, match="custom"):
+            run(prog, v, **kw)
+    with pytest.raises(NotImplementedError):
+        JCustom().exchange(None, None, 0, None)
+    with pytest.raises(NotImplementedError):
+        Custom().exchange(None, None, 0, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bsp.run(Occurrences(), view, device="cpu")
-    with pytest.raises(NotImplementedError, match="custom"):
-        Custom().exchange(None, None, 0, None)
     with pytest.raises(ValueError, match="non-empty"):
         bsp.run(port_program(JCC()), view, windows=[], device="cpu")
 

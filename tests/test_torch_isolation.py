@@ -34,6 +34,10 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/core/bulk.py",
     "raphtory_tpu_torch/native/lib.py",
     "raphtory_tpu_torch/ops/partition.py",
+    "raphtory_tpu_torch/ops/features.py",
+    "raphtory_tpu_torch/engine/features.py",
+    "raphtory_tpu_torch/examples/embeddings.py",
+    "raphtory_tpu_torch/algorithms/lpa.py",
 )
 
 
@@ -110,8 +114,12 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from raphtory_tpu_torch.engine import bsp
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
 
+    from raphtory_tpu_torch.examples.embeddings import TemporalEmbeddings
+
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceSweep(log)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TemporalEmbeddings(log)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bsp.run(PageRank(), build_view(log, 2))
     # the explicit CPU request is honoured

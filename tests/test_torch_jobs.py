@@ -69,44 +69,106 @@ def test_range_job_matches_reference(jump):
 
 
 def test_unported_queries_raise_and_failures_fail_the_job():
+    """Live queries and occurrence programs are still to port and raise at
+    submit; a custom-combiner program without its own functions, and a
+    Range whose fence never passes, fail the job as the reference's do."""
+    from raphtory_tpu.engine.program import VertexProgram as JVertexProgram
     from raphtory_tpu_torch.engine.program import VertexProgram
 
     class Custom(VertexProgram):
         combiner = "custom"
 
+    class JCustom(JVertexProgram):
+        combiner = "custom"
+
     class Occurrences(VertexProgram):
         needs_occurrences = True
 
-    g = TemporalGraph(event_log_from_arrays(
-        gab_like_log(50, 200, t_span=100).arrays()), device="cpu")
+    jlog = gab_like_log(50, 200, t_span=100)
+    g = TemporalGraph(event_log_from_arrays(jlog.arrays()), device="cpu")
     mgr = AnalysisManager(g, device="cpu")
+    jg = JTemporalGraph(jlog)
+    jmgr = JAnalysisManager(jg)
     prog = program_from_params("PageRank")
     with pytest.raises(NotImplementedError, match="Live"):
         mgr.submit(prog, LiveQuery(repeat=1.0))
-    for unported in (Custom(), Occurrences()):
-        for q in (ViewQuery(timestamp=50),
-                  RangeQuery(start=0, end=50, jump=10)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                mgr.submit(unported, q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        program_from_params("LabelPropagation")
+    for q in (ViewQuery(timestamp=50), RangeQuery(start=0, end=50, jump=10)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mgr.submit(Occurrences(), q)
+    # the base class's functions raise inside the job, in both packages
+    for q, jq in ((ViewQuery(timestamp=50), JViewQuery(timestamp=50)),
+                  (RangeQuery(start=0, end=50, jump=10),
+                   JRangeQuery(start=0, end=50, jump=10))):
+        for m, p, qq in ((mgr, Custom(), q), (jmgr, JCustom(), jq)):
+            job = m.submit(p, qq)
+            assert job.wait(60) and job.status == "failed"
+            assert "NotImplementedError" in job.error
+            assert m.results(job.id) == []
     with pytest.raises(ValueError, match="jump"):
         RangeQuery(start=0, end=10, jump=0)
-    # past the columnar route's view cap: no fallback route, the job fails
-    job = mgr.submit(prog, RangeQuery(start=0, end=2_000, jump=1,
-                                      windows=(10,)))
-    assert job.wait(60) and job.status == "failed"
-    assert "NotImplementedError" in job.error and mgr.results(job.id) == []
-    # the watermark fence: a source that never passes the range's end
-    g.watermarks.register("feed")
-    job = mgr.submit(prog, RangeQuery(start=0, end=50, jump=10),
-                     wait_timeout=0.05)
-    assert job.wait(60) and job.status == "failed"
-    assert "StaleRangeError" in job.error
+    # the watermark fence: a source that never passes the range's end; the
+    # columnar and resident routes decline, the first hop's view times out
+    for graph in (g, jg):
+        graph.watermarks.register("feed")
+    for m, q in ((mgr, RangeQuery(start=0, end=50, jump=10)),
+                 (jmgr, JRangeQuery(start=0, end=50, jump=10))):
+        job = m.submit(prog if m is mgr else JPageRank(), q,
+                       wait_timeout=0.05)
+        assert job.wait(60) and job.status == "failed"
+        assert "StaleViewError" in job.error and m.results(job.id) == []
     # ... and a View behind it: the cold route owns the wait, and fails
     job = mgr.submit(prog, ViewQuery(timestamp=50), wait_timeout=0.05)
     assert job.wait(60) and job.status == "failed"
     assert "StaleViewError" in job.error and g._resident is None
+
+
+def test_range_past_the_view_cap_matches_reference():
+    """1,025 views, one past the columnar route's cap: the route declines
+    and the job runs on the resident DeviceSweep (``_try_range_device``),
+    as the reference's does, with the reference's rows (CC: exact; a
+    PageRank row may halt a superstep apart on float noise, see
+    ``test_torch_bsp.assert_pagerank_steps``)."""
+    jlog = gab_like_log(50, 200, t_span=100)
+    jprog = JCC(max_steps=60)
+    prog = program_from_params("ConnectedComponents",
+                               **dataclasses.asdict(jprog))
+    q = RangeQuery(start=0, end=1_024, jump=1, windows=(10,))
+    want = _run_jax(jlog, jprog, q)
+    got = _run_port(jlog, prog, q)
+    _same_rows(got, want, 1_025)
+
+
+def test_unsafe_range_runs_hop_by_hop_behind_the_fence():
+    """A source whose watermark is behind the range's end: the columnar
+    and resident routes decline, and the job runs hop by hop behind the
+    fence, each hop waiting for the watermark to pass it — the rows equal
+    the reference's job on the same graph and feed."""
+    import threading
+
+    jlog = ldbc_like_log(n_persons=300, n_knows=2_000, t_span=1_000)
+    jprog = JCC(max_steps=60)
+    prog = program_from_params("ConnectedComponents",
+                               **dataclasses.asdict(jprog))
+    q = RangeQuery(start=200, end=1_000, jump=200, windows=(1_000, 300))
+    rows = []
+    for port in (False, True):
+        if port:
+            graph = TemporalGraph(event_log_from_arrays(jlog.arrays()),
+                                  device="cpu")
+            mgr = AnalysisManager(graph, device="cpu")
+        else:
+            graph = JTemporalGraph(jlog)
+            mgr = JAnalysisManager(graph)
+        graph.watermarks.register("feed")
+        graph.watermarks.advance("feed", 500)
+        assert graph.safe_time() < q.end
+        job = mgr.submit(prog if port else jprog,
+                         q if port else JRangeQuery(**dataclasses.asdict(q)))
+        threading.Timer(0.5, graph.watermarks.advance,
+                        ("feed", 2_000)).start()
+        assert job.wait(300) and job.status == "done", job.error
+        rows.append(mgr.results(job.id))
+    _same_rows(rows[1], rows[0], 5 * 2)
 
 
 def _run_port(jlog, prog, q):
@@ -175,21 +237,25 @@ def test_host_route_admission_guard_declines_oversized_sweeps(monkeypatch):
     """The columnar route's host-memory guard reads the engine's
     ``host_column_bytes`` by route: 1,000 hops of ``[m_pad]`` fold columns
     pass it on the delta route (O(base)) and are declined on
-    ``RTPU_FOLD=host`` (O(H · m_pad)), where the job fails, naming the
-    guard, before any fold."""
-    from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
+    ``RTPU_FOLD=host`` (O(H · m_pad)). Declined, the job runs on the
+    resident DeviceSweep, as the reference's does, with the reference's
+    rows."""
+    from raphtory_tpu_torch.engine.hopbatch import HopBatchedCC
 
-    log = event_log_from_arrays(gab_like_log(20_000, 120_000, seed=3,
-                                             t_span=2_000).arrays())
-    hb = HopBatchedPageRank(log, device="cpu")
+    jlog = gab_like_log(20_000, 120_000, seed=3, t_span=2_000)
+    log = event_log_from_arrays(jlog.arrays())
+    hb = HopBatchedCC(log, device="cpu")
     assert hb.host_column_bytes(1_000) <= 1 << 29
     monkeypatch.setenv("RTPU_FOLD", "host")
     assert hb.host_column_bytes(1_000) > 1 << 29
+    jprog = JCC(max_steps=60)
+    prog = program_from_params("ConnectedComponents",
+                               **dataclasses.asdict(jprog))
+    q = RangeQuery(start=1_000, end=1_999, jump=1, window=500)
     mgr = AnalysisManager(TemporalGraph(log, device="cpu"), device="cpu")
-    job = mgr.submit(program_from_params("PageRank"),
-                     RangeQuery(start=1_000, end=1_999, jump=1, window=500))
-    assert job.wait(120) and job.status == "failed"
-    assert "memory guards" in job.error and mgr.results(job.id) == []
+    job = mgr.submit(prog, q)
+    assert job.wait(300) and job.status == "done", job.error
+    _same_rows(mgr.results(job.id), _run_jax(jlog, jprog, q), 1_000)
 
 
 def _run_jobs(mgr, jobs):
