@@ -115,8 +115,32 @@ printing one JSON line:
               and 4,097, masked and negative values, empty segments) and
               timed at the View's shape.
 
+18. mesh_one — the mesh path on ONE rank (no process group, the card):
+              ``AnalysisManager(TemporalGraph(gab log), mesh=make_mesh(1,
+              1))`` PageRank Range at the headline grid and CC Range at the
+              month window (the column-sharded route, K12), a CC Range with
+              the columnar route declined (``ShardedSweep``, K11 a hop),
+              PageRank and CC Views at 0.90 t_span x (month, week, day)
+              (K11); every row against the single-device port on the card
+              (CC bitwise; PageRank rtol 1e-5 / atol 1e-7, equal steps),
+              and K12 against the single-device host-column runners.
+19. mesh_ranks — 4 ranks on the card under gloo (``cluster.bootstrap.
+              spawn``, share_card, hard timeout): on the headline log,
+              ``sharded.run`` PageRank on 2 x 2 and 1 x 4 meshes over
+              all_gather and halo, CC over all_gather, halo and sparse, a
+              12-hop ``ShardedSweep`` PageRank, ``run_columns_sharded``
+              PageRank and CC at the headline grid (36 columns, 9 a rank);
+              on the ``sparse_collectives`` stream (``bench.py:3268-3297``)
+              CC and BFS from its 3 hubs over all_gather and sparse. Each
+              against the single-device port on the card (CC / BFS
+              bitwise, PageRank within the tolerance) and ``mesh_one``;
+              bytes and supersteps per route; ``halo_pack``,
+              ``frontier_compact`` and ``frontier_merge_min`` timed and
+              held against their twins at the inputs the ranks gave them.
+
 The launch counts are zeroed just before each path's timed run and read
-just after it; each path fails if one of its kernels never launched.
+just after it; each path fails if one of its kernels never launched (the
+mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -2599,6 +2623,381 @@ def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
     return launches, entry
 
 
+K12_KERNELS = ("column_masks", "column_out_degree", "column_pull_sum",
+               "pagerank_update", "cc_superstep")
+MESH_TARGET = "raphtory_tpu_torch.cluster.tasks:run_requests"
+ZIPF = dict(n_vertices=4096, n_events=160_000, seed=11)
+ZIPF_T, ZIPF_WINDOWS = 1000, [800, 400, 200, 100]
+
+
+def run_jobs(mgr, jobs):
+    """Rows of each ``(program, query)`` job, submitted one after
+    another."""
+    out = []
+    for prog, q in jobs:
+        job = mgr.submit(prog, q)
+        if not job.wait(900) or job.status != "done":
+            raise AssertionError(f"{type(prog).__name__} job {job.status}: "
+                                 f"{job.error}")
+        out.append(mgr.results(job.id))
+    return out
+
+
+def reduced_rows(prog, vectors, T, windows, steps, view):
+    """The job rows ``prog.reduce`` makes of per-window result vectors."""
+    return [{"time": T, "windowsize": w, "steps": steps,
+             "result": prog.reduce(vectors[i], view, window=w)}
+            for i, w in enumerate(windows)]
+
+
+def phase_mesh_one(torch, np, columns, log, dev):
+    """The mesh path on one rank through ``AnalysisManager(..., mesh=)``:
+    K12 Ranges, a K11 Range (columnar route declined) and K11 Views, each
+    against the single-device port on the card. Returns the K12 vectors
+    (PageRank, CC month) for ``mesh_ranks``."""
+    import types
+
+    from raphtory_tpu_torch.algorithms import ConnectedComponents, PageRank
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp, hopbatch
+    from raphtory_tpu_torch.jobs import manager
+    from raphtory_tpu_torch.jobs.manager import (AnalysisManager,
+                                                 RangeQuery, ViewQuery)
+    from raphtory_tpu_torch.parallel import sharded
+    from raphtory_tpu_torch.parallel.columns import run_columns_sharded
+
+    mesh = sharded.make_mesh(1, 1, device=dev)
+    hops, _ = headline_grid()
+    pr, cc = PageRank(max_steps=20, tol=1e-7), ConnectedComponents(
+        max_steps=50)
+    span = dict(start=hops[0], end=hops[-1], jump=hops[1] - hops[0])
+    q_pr = RangeQuery(windows=tuple(WINDOWS), **span)
+    q_cc = RangeQuery(window=WINDOWS[0], **span)
+    if list(range(q_pr.start, q_pr.end + 1, q_pr.jump)) != hops:
+        raise AssertionError("mesh_one: the Range is not the headline grid")
+    T = int(0.90 * GAB_SPAN)
+    q_view = ViewQuery(T, windows=tuple(WINDOWS))
+    mgr = AnalysisManager(TemporalGraph(log, device=dev), mesh=mesh)
+    out = {}
+    columns.reset_launches()
+    t0 = time.perf_counter()
+    pr_rows, cc_rows = run_jobs(mgr, [(pr, q_pr), (cc, q_cc)])
+    torch.cuda.synchronize()
+    out["k12_jobs_s"] = time.perf_counter() - t0
+    out["k12_launches"] = dict(columns.LAUNCHES)
+    check_launched("mesh_one K12", out["k12_launches"], K12_KERNELS)
+    # the columnar route declined: on the mesh the static-partition sweep
+    # (K11 a hop), on one device the resident DeviceSweep (its rows carry
+    # each hop's own steps)
+    mgr1 = AnalysisManager(TemporalGraph(log, device=dev), device=dev)
+    orig = manager.Job._columnar_range_prep
+    manager.Job._columnar_range_prep = lambda self, q: None
+    try:
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        (cc_k11_rows,) = run_jobs(mgr, [(cc, q_cc)])
+        torch.cuda.synchronize()
+        out["k11_range_s"] = time.perf_counter() - t0
+        out["k11_range_launches"] = dict(columns.LAUNCHES)
+        (one_hops_rows,) = run_jobs(mgr1, [(cc, q_cc)])
+    finally:
+        manager.Job._columnar_range_prep = orig
+    check_launched("mesh_one K11 Range", out["k11_range_launches"],
+                   ("segment_combine",))
+    columns.reset_launches()
+    t0 = time.perf_counter()
+    pr_view_rows, cc_view_rows = run_jobs(mgr, [(pr, q_view), (cc, q_view)])
+    torch.cuda.synchronize()
+    out["k11_views_s"] = time.perf_counter() - t0
+    out["k11_view_launches"] = dict(columns.LAUNCHES)
+    check_launched("mesh_one K11 Views", out["k11_view_launches"],
+                   ("segment_combine",))
+
+    # the single-device port on the card
+    hb = hopbatch.HopBatchedPageRank(log, tol=1e-7, max_steps=20,
+                                     device=dev)
+    _, cols = hb._fold_columns(hops)
+    want_pr, s_pr = hopbatch.run_columns(hb.tables, *cols, hops, WINDOWS,
+                                         tol=1e-7, max_steps=20, device=dev)
+    got_pr, g_pr = run_columns_sharded(hb.tables, *cols, hops, WINDOWS, mesh,
+                                       kind="pagerank", tol=1e-7,
+                                       max_steps=20)
+    if g_pr != s_pr or not within_tol(got_pr, want_pr):
+        raise AssertionError(f"mesh_one K12 PageRank differs from "
+                             f"run_columns (steps {g_pr} vs {s_pr})")
+    shell = types.SimpleNamespace(vids=hb.tables.vids)
+    W = len(WINDOWS)
+    want_rows = [row for j, T_ in enumerate(hops) for row in reduced_rows(
+        pr, want_pr[j * W:(j + 1) * W].cpu().numpy(), T_, WINDOWS, s_pr,
+        shell)]
+    compare_rows("mesh_one PageRank Range", pr_rows, want_rows)
+    want_cc, s_cc = hopbatch.run_cc_columns(hb.tables, *cols, hops,
+                                            [WINDOWS[0]], max_steps=50,
+                                            device=dev)
+    got_cc, g_cc = run_columns_sharded(hb.tables, *cols, hops, [WINDOWS[0]],
+                                       mesh, kind="cc", max_steps=50)
+    if g_cc != s_cc or not torch.equal(got_cc, want_cc):
+        raise AssertionError("mesh_one K12 CC differs from run_cc_columns")
+    (one_cc_rows,) = run_jobs(mgr1, [(cc, q_cc)])
+    compare_rows("mesh_one CC Range", cc_rows, one_cc_rows)
+    compare_rows("mesh_one CC Range on K11", cc_k11_rows, one_hops_rows)
+    view = build_view(log, T)
+    for prog, rows in ((pr, pr_view_rows), (cc, cc_view_rows)):
+        res, steps = bsp.run(prog, view, windows=WINDOWS, device=dev)
+        compare_rows(f"mesh_one {type(prog).__name__} View", rows,
+                     reduced_rows(prog, res.cpu().numpy(), T, WINDOWS,
+                                  steps, view))
+    out.update(
+        rows=dict(pagerank_range=len(pr_rows), cc_range=len(cc_rows),
+                  cc_range_k11=len(cc_k11_rows), views=len(pr_view_rows)
+                  + len(cc_view_rows)),
+        steps=dict(pagerank_range=g_pr, cc_range=g_cc,
+                   cc_range_k11=[r["steps"] for r in cc_k11_rows],
+                   pagerank_view=pr_view_rows[0]["steps"],
+                   cc_view=cc_view_rows[0]["steps"]),
+        k12_max_abs_err_vs_run_columns=exact_err(got_pr, want_pr))
+    emit("mesh_one", **out)
+    return {"pagerank": (got_pr, g_pr), "cc_month": (got_cc, g_cc)}
+
+
+def mesh_kernels(torch, np, samples, dev):
+    """``halo_pack``, ``frontier_compact`` and ``frontier_merge_min`` at
+    the largest inputs rank 0 gave them in ``mesh_ranks``, against their
+    twins (``torch.equal``) and one library call each."""
+    from raphtory_tpu_torch.ops import exchange
+
+    if set(samples) != {"halo_pack", "frontier_compact",
+                        "frontier_merge_min"}:
+        raise AssertionError(f"mesh_ranks kept samples of {sorted(samples)}")
+    out = {}
+    a, send = (t.to(dev) for t in samples["halo_pack"][1])
+    got = exchange.halo_pack(a, send)
+    want = exchange.halo_pack_plain(a, send)
+    if not torch.equal(got, want):
+        raise AssertionError("halo_pack differs from its twin")
+    send_l = send.long()
+    rows, row_b = a.shape[0] * send.shape[0], a[0, 0].numel() * a.element_size()
+    out["halo_pack"] = dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/sharded.py:704",
+        max_abs_err=exact_err(got, want),
+        ms=cuda_ms(torch, lambda: exchange.halo_pack(a, send)),
+        plain_ms=cuda_ms(torch, lambda: exchange.halo_pack_plain(a, send)),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(a, 1, send_l)),
+        shape=f"state {tuple(a.shape)} {a.dtype}, S*h {send.shape[0]}",
+        # the rows gathered read once, the page written once, the index
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * rows * row_b + send.shape[0] * 4))))
+    vals, changed, B, ident = samples["frontier_compact"][1]
+    vals, changed = vals.to(dev), changed.to(dev)
+    counted = exchange.frontier_count(changed)
+    gi, gv = exchange.frontier_compact(vals, changed, B, ident, counted)
+    wi, wv = exchange.frontier_compact_plain(vals, changed, B, ident)
+    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+        raise AssertionError("frontier_compact differs from its twin")
+
+    def library_compact():
+        idx = torch.nonzero(changed).reshape(-1)
+        return idx, torch.index_select(vals, 0, idx)
+
+    n, cnt = changed.shape[0], counted.total
+    row_b = vals[0].numel() * vals.element_size() if n else 0
+    out["frontier_compact"] = dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/frontier.py:459",
+        max_abs_err=max(exact_err(gi, wi), exact_err(gv, wv)),
+        ms=cuda_ms(torch, lambda: exchange.frontier_compact(
+            vals, changed, B, ident)),
+        plain_ms=cuda_ms(torch, lambda: exchange.frontier_compact_plain(
+            vals, changed, B, ident)),
+        library_ms=cuda_ms(torch, library_compact),
+        shape=f"N {n} {vals.dtype}, {cnt} changed, bucket {B}",
+        # the mask and the set rows read once, the bucket written once
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n + cnt * row_b + B * (8 + row_b)))))
+    rep, idx, val, counts = (t.to(dev) for t in
+                             samples["frontier_merge_min"][1])
+    got, want = rep.clone(), rep.clone()
+    exchange.frontier_merge_min(got, idx, val, counts)
+    exchange.frontier_merge_min_plain(want, idx, val, counts)
+    if not torch.equal(got, want):
+        raise AssertionError("frontier_merge_min differs from its twin")
+    R = counts.shape[0]
+    bucket = idx.shape[0] // R
+    live = (torch.arange(bucket, device=dev)[None, :]
+            < counts[:, None]).reshape(-1)
+    live_idx, live_val = idx[live], val[live]
+    work = rep.clone()
+    n_live = int(live.sum())
+    row_b = rep[0].numel() * rep.element_size()
+    out["frontier_merge_min"] = dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/frontier.py:499",
+        max_abs_err=exact_err(got, want),
+        ms=cuda_ms(torch, lambda: exchange.frontier_merge_min(
+            work, idx, val, counts)),
+        plain_ms=cuda_ms(torch, lambda: exchange.frontier_merge_min_plain(
+            work, idx, val, counts)),
+        library_ms=cuda_ms(torch, lambda: work.scatter_reduce_(
+            0, live_idx, live_val, "amin")),
+        shape=f"replica {tuple(rep.shape)} {rep.dtype}, R {R} x B "
+              f"{bucket}, {n_live} live",
+        # the live slots read once, the rows they name read and written
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n_live * (8 + row_b) + 2 * n_live * row_b
+                         + R * 8))))
+    return out
+
+
+def phase_mesh_ranks(torch, np, columns, log, one, dev):
+    """4 ranks on the card under gloo, one spawned group: K11 over
+    all_gather / halo / sparse, the K11 sweep and K12, each against the
+    single-device port on the card (and ``mesh_one``'s K12 vectors); the
+    mesh kernels against their twins at the ranks' inputs. Returns
+    ``(launches, kernel entries)``."""
+    from raphtory_tpu_torch.algorithms import BFS, ConnectedComponents
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.cluster.bootstrap import spawn
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.utils.synth import zipf_hub_log, zipf_hubs
+
+    hops, _ = headline_grid()
+    T = int(0.90 * GAB_SPAN)
+    hubs = zipf_hubs(**ZIPF)
+    progs = {"pagerank": PageRank(max_steps=20, tol=1e-7),
+             "cc": ConnectedComponents(max_steps=50),
+             "bfs": BFS(seeds=hubs, directed=False)}
+
+    def spec(name):
+        import dataclasses
+
+        p = progs[name]
+        return (type(p).__name__, dataclasses.asdict(p))
+
+    cases = ([("gab", "pagerank", m, c) for m in ((2, 2), (4, 1))
+              for c in ("all_gather", "halo")]
+             + [("gab", "cc", (4, 1), c)
+                for c in ("all_gather", "halo", "sparse")]
+             + [("zipf", p, (4, 1), c) for p in ("cc", "bfs")
+                for c in ("all_gather", "sparse")])
+    reqs = [dict(op="sharded", log=lg, program=spec(p), mesh=m, comm=c,
+                 T=T if lg == "gab" else ZIPF_T,
+                 windows=WINDOWS if lg == "gab" else ZIPF_WINDOWS)
+            for lg, p, m, c in cases]
+    reqs.append(dict(op="sweep", log="gab", times=hops,
+                     program=spec("pagerank"), mesh=(4, 1),
+                     windows=WINDOWS))
+    for kind, params in (("pagerank", dict(tol=1e-7, max_steps=20)),
+                         ("cc", dict(max_steps=50))):
+        reqs.append(dict(op="columns", log="gab", kind=kind, hops=hops,
+                         windows=WINDOWS, mesh=(4, 1), params=params))
+    logs = {"gab": {"synth": "gab_like_log",
+                    "kwargs": dict(n_vertices=30_000, n_edges=300_000,
+                                   t_span=GAB_SPAN)},
+            "zipf": {"synth": "zipf_hub_log", "kwargs": ZIPF}}
+    t0 = time.perf_counter()
+    out = spawn(MESH_TARGET, 4, ({"logs": logs, "requests": reqs,
+                                  "samples": True},), timeout=480,
+                device="cuda", share_card=True)
+    spawn_s = time.perf_counter() - t0
+    res = out[0]["results"]
+    for other in out[1:]:
+        for a, b in zip(res, other["results"]):
+            for key in ("result", "hops"):
+                if key in a and not _same_tree(np, a[key], b[key]):
+                    raise AssertionError("mesh_ranks: the ranks disagree")
+
+    # the single-device port on the card
+    gab_view = build_view(log, T)
+    zipf_view = build_view(zipf_hub_log(**ZIPF), ZIPF_T)
+    refs = {}
+    report = []
+    for (lg, p, m, c), r in zip(cases, res):
+        view, windows = ((gab_view, WINDOWS) if lg == "gab"
+                         else (zipf_view, ZIPF_WINDOWS))
+        if (lg, p) not in refs:
+            want, ws = bsp.run(progs[p], view, windows=windows, device=dev)
+            refs[(lg, p)] = (want.cpu(), ws)
+        want, ws = refs[(lg, p)]
+        got = torch.from_numpy(r["result"])
+        ok = (within_tol(got, want) if p == "pagerank"
+              else torch.equal(got, want))
+        if not ok or r["steps"] != ws:
+            raise AssertionError(f"mesh_ranks {lg} {p} {m} {c} differs from "
+                                 f"bsp.run on the card (steps {r['steps']} "
+                                 f"vs {ws})")
+        report.append(dict(log=lg, program=p, mesh=f"{m[1]}x{m[0]}",
+                           route=c, steps=r["steps"],
+                           seconds=r["seconds"], routes=r["routes"],
+                           launches=r["launches"]))
+    sweep_r, pr_cols, cc_cols = res[len(cases):]
+    ds = DeviceSweep(log, device=dev)
+    want_sw, want_steps = ds.run_sweep(progs["pagerank"], hops,
+                                       windows=WINDOWS)
+    for j, hop in enumerate(sweep_r["hops"]):
+        if hop["steps"] != want_steps[j] or not within_tol(
+                torch.from_numpy(hop["result"]), want_sw[j].cpu()):
+            raise AssertionError(f"mesh_ranks ShardedSweep hop {j} differs "
+                                 "from DeviceSweep on the card")
+    one_pr, one_pr_steps = one["pagerank"]
+    if pr_cols["steps"] != one_pr_steps or not within_tol(
+            torch.from_numpy(pr_cols["result"]), one_pr.cpu()):
+        raise AssertionError("mesh_ranks K12 PageRank differs from mesh_one")
+    from raphtory_tpu_torch.engine import hopbatch
+
+    hb = hopbatch.HopBatchedCC(log, max_steps=50, device=dev)
+    _, cols = hb._fold_columns(hops)
+    want_cc, s_cc = hopbatch.run_cc_columns(hb.tables, *cols, hops, WINDOWS,
+                                            max_steps=50, device=dev)
+    if cc_cols["steps"] != s_cc or not torch.equal(
+            torch.from_numpy(cc_cols["result"]), want_cc.cpu()):
+        raise AssertionError("mesh_ranks K12 CC differs from run_cc_columns")
+    month = torch.from_numpy(cc_cols["result"][::len(WINDOWS)])
+    if not torch.equal(month, one["cc_month"][0].cpu()):
+        raise AssertionError("mesh_ranks K12 CC month differs from mesh_one")
+
+    launches = {k: 0 for k in ("halo_pack", "frontier_compact",
+                               "frontier_merge_min")}
+    for r in res:
+        for k in launches:
+            launches[k] += r["launches"].get(k, 0)
+    check_launched("mesh_ranks", launches, tuple(launches))
+    for r, ks in ((pr_cols, ("column_masks", "column_pull_sum",
+                             "pagerank_update")),
+                  (cc_cols, ("column_masks", "cc_superstep")),
+                  *((r, ("segment_combine",)) for r in res[:len(cases)]),
+                  (sweep_r, ("segment_combine",))):
+        check_launched("mesh_ranks", {k: r["launches"].get(k, 0)
+                                      for k in ks}, ks)
+    entries = mesh_kernels(torch, np, out[0]["samples"], dev)
+    emit("mesh_ranks", ranks=4, backend="gloo", share_card=True,
+         staged=out[0]["staged"], spawn_s=spawn_s, runs=report,
+         sweep=dict(hops=len(hops), steps=[h["steps"] for h in
+                                           sweep_r["hops"]],
+                    seconds=sweep_r["seconds"], routes=sweep_r["routes"]),
+         columns={k: dict(steps=r["steps"], seconds=r["seconds"],
+                          launches=r["launches"])
+                  for k, r in (("pagerank", pr_cols), ("cc", cc_cols))},
+         launches=launches,
+         kernels={k: {kk: v[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "shape")}
+                  for k, v in entries.items()})
+    return launches, entries
+
+
+def _same_tree(np, a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_tree(np, x, y)
+                                        for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+
 def main() -> int:
     import torch
 
@@ -2705,6 +3104,12 @@ def main() -> int:
     for k in ("feature_propagate", "feature_propagate_binned"):
         launches[k] = feat_launches[k] or gab_launches[k]
     launches["segment_mode"] = lpa_launches["segment_mode"]
+    # slice 7: the mesh path, one rank then 4 ranks on the card
+    one = timed("mesh_one", phase_mesh_one, torch, np, columns, log, dev)
+    mesh_launches, mesh_entries = timed("mesh_ranks", phase_mesh_ranks,
+                                        torch, np, columns, log, one, dev)
+    kernels.update(mesh_entries)
+    launches.update(mesh_launches)
     # the binned route's share: its kernel checks, the pcpm phase, and the
     # binned parts inside scale_bulk (layout build included)
     pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",

@@ -27,6 +27,13 @@ superstep do not grow with k: ``Context.time``, ``window`` and
 ``vids`` and the vertex times ``[n]`` (shared by every window);
 ``global_sum``/``global_max`` reduce over the vertex axis and keep it.
 ``message`` sees flat window-major edge tensors ``[k*m]``.
+
+**Sharding context.** On a mesh (``parallel/sharded.py``) a program sees
+only its rank's rows: ``n`` is the local row count, ``v_offset`` the
+global index of local row 0 and ``axis`` the vertex axis of the mesh
+(``cluster.bootstrap.Axis``), over which ``global_sum``, ``global_max``
+and the engine's ``n_active`` all-reduce. On one device ``axis`` is None
+and ``v_offset`` 0 (``raphtory_tpu/engine/program.py:83-110``).
 """
 
 from __future__ import annotations
@@ -74,6 +81,8 @@ class Context:
     n_active: torch.Tensor     # i32[k, 1] active vertex count per window
     step: int = 0              # current superstep
     vprops: dict[str, torch.Tensor] = field(default_factory=dict)
+    v_offset: int = 0          # global index of local row 0
+    axis: Any = None           # the mesh's vertex axis (None: one device)
 
     @property
     def num_vertices(self) -> torch.Tensor:
@@ -83,21 +92,26 @@ class Context:
     def global_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the vertex axis, per window (``[k, 1]``). A float32 sum
         accumulates in float64 and rounds once, so its value does not hang
-        on the reduction order (the card's and the CPU's differ)."""
+        on the reduction order (the card's and the CPU's differ); on a mesh
+        the float64 partials are all-reduced before the one rounding."""
         if x.dtype == torch.float32:
-            return torch.sum(x, dim=-1, keepdim=True,
-                             dtype=torch.float64).to(torch.float32)
-        return torch.sum(x, dim=-1, keepdim=True)
+            s = torch.sum(x, dim=-1, keepdim=True, dtype=torch.float64)
+            if self.axis is not None:
+                s = self.axis.all_reduce(s, "sum")
+            return s.to(torch.float32)
+        s = torch.sum(x, dim=-1, keepdim=True)
+        return s if self.axis is None else self.axis.all_reduce(s, "sum")
 
     def global_max(self, x: torch.Tensor) -> torch.Tensor:
         """Max over the vertex axis, per window (``[k, 1]``)."""
-        return torch.amax(x, dim=-1, keepdim=True)
+        s = torch.amax(x, dim=-1, keepdim=True)
+        return s if self.axis is None else self.axis.all_reduce(s, "max")
 
     def global_index(self) -> torch.Tensor:
-        """i32[n]: the global padded index of each row (CC labels); on one
-        device the row itself."""
+        """i32[n]: the global padded index of each row (CC labels): the
+        row plus ``v_offset``."""
         return torch.arange(self.n, dtype=torch.int32,
-                            device=self.v_mask.device)
+                            device=self.v_mask.device) + self.v_offset
 
 
 class VertexProgram:
@@ -122,6 +136,19 @@ class VertexProgram:
     # window_masks()[0]) — the amortised sweep engines hand reducers a
     # lightweight shell without edge masks or property joins.
     reduce_shell_safe: bool = False
+    # Monotone min-merge declaration, the sparse frontier route's
+    # eligibility gate (``parallel/frontier.py``; the reference's contract,
+    # ``raphtory_tpu/engine/program.py:141-155``): combiner "min", a single
+    # state leaf, ``update`` an elementwise masked min whose pad is the
+    # dtype's min identity, votes exactly ``new == state``, and no read of
+    # the degrees. ConnectedComponents and SSSP/BFS declare it.
+    monotone_min: bool = False
+
+    @property
+    def cost_label(self) -> str:
+        """Algorithm label the route decisions are filed under (class name
+        by default)."""
+        return type(self).__name__
 
     def init(self, ctx: Context) -> Any:
         raise NotImplementedError

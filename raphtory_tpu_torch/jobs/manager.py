@@ -11,18 +11,27 @@ handshake per timestamp. Here a job is a host thread:
   full view, the fence has not passed, or the log has 2^31 ids or more);
   then the cold route folds a host view and runs ``engine/bsp.run``;
 * a **Range** query tries the reference's routes in its order
-  (``jobs/manager.py:316-340``, without the mesh routes): the columnar
-  hop-batched sweep (``engine/hopbatch``) for PageRank,
-  ConnectedComponents and SSSP/BFS; then a ``DeviceSweep`` hop by hop;
-  then the View routes hop by hop, behind the watermark fence. Each
-  route declines (the range is not behind the fence, past the columnar
-  route's view cap or memory guards, a program it does not carry) and
-  the next one runs.
+  (``jobs/manager.py:316-340``): on a mesh the column-sharded sweep
+  (``parallel/columns``) and the static-partition ``ShardedSweep``
+  (``parallel/sweep``); then the columnar hop-batched sweep
+  (``engine/hopbatch``) for PageRank, ConnectedComponents and SSSP/BFS;
+  then a ``DeviceSweep`` hop by hop; then the View routes hop by hop,
+  behind the watermark fence. Each route declines (the range is not
+  behind the fence, past the columnar route's view cap or memory guards,
+  a program it does not carry; the single-device routes under a mesh)
+  and the next one runs.
+
+With ``mesh=`` (``parallel/sharded.make_mesh``) every rank of the mesh
+submits the same job: View queries run ``sharded.run`` (the resident
+route declines, as the reference's does), Range queries try the two
+mesh routes first. Every rank emits the same rows; rank 0's are the
+job's answer.
 
 A Live query and an occurrence program raise ``NotImplementedError`` at
 submit, naming the ROADMAP item that brings them. A failed dispatch fails
 the job (``status`` / ``error``): the resident route drops its sweep and
-does NOT fall back to the cold route.
+does NOT fall back to the cold route, and a failed mesh dispatch fails the
+job instead of falling to the next route (the reference falls back).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..engine.device_sweep import DeviceSweep, IdSpaceError, supported
 from ..engine.hopbatch import (HopBatchedBFS, HopBatchedCC,
                                HopBatchedPageRank, HopBatchedSSSP)
 from ..engine.program import VertexProgram
+from ..parallel.sweep import _Shell
 from ..utils.device import resolve_device
 
 
@@ -81,26 +91,6 @@ class LiveQuery:
     windows: tuple | None = None
 
 
-class _Shell:
-    """The reducer-facing slice of a GraphView over the global dense space:
-    enough for host reducers (vids / v_mask / window_masks)."""
-
-    def __init__(self, time, n_pad, vids, v_mask, v_latest_time,
-                 v_first_time):
-        self.time = time
-        self.n_pad = n_pad
-        self.vids = vids
-        self.v_mask = v_mask
-        self.v_latest_time = v_latest_time
-        self.v_first_time = v_first_time
-
-    def window_masks(self, windows):
-        w = np.asarray(windows, np.int64).reshape(-1, 1)
-        lo = self.time - w
-        v = self.v_mask[None, :] & (self.v_latest_time[None, :] >= lo)
-        return v, None  # the shell carries no edge masks
-
-
 def _shell_from_fold(tables, sw, T):
     """Reducer-facing vertex shell from a SweepBuilder's fold state at T
     (vertex-side fields only — gated by ``reduce_shell_safe``)."""
@@ -134,12 +124,14 @@ class _DeviceShell:
 
 class Job:
     def __init__(self, job_id: str, program: VertexProgram, query,
-                 graph: TemporalGraph, device, wait_timeout: float = 30.0):
+                 graph: TemporalGraph, device, wait_timeout: float = 30.0,
+                 mesh=None):
         self.id = job_id
         self.program = program
         self.query = query
         self.graph = graph
         self.device = device
+        self.mesh = mesh
         self.wait_timeout = wait_timeout
         self.results: list[dict] = []
         self._results_mu = threading.Lock()
@@ -176,7 +168,9 @@ class Job:
             q = self.query
             if isinstance(q, ViewQuery):
                 self._run_at(q.timestamp, q)
-            elif not (self._try_range_hopbatch(q)
+            elif not (self._try_range_mesh_columns(q)
+                      or self._try_range_mesh(q)
+                      or self._try_range_hopbatch(q)
                       or self._try_range_device(q)):
                 # hop by hop behind the watermark fence (the reference's
                 # RangeAnalysisTask loop, jobs/manager.py:316-340): fold
@@ -208,10 +202,10 @@ class Job:
     def _try_view_resident(self, t: int, q) -> bool:
         """Warm View dispatch through the graph's shared resident
         DeviceSweep: delta-advance + one dispatch. Returns False only on
-        the reference's declines (fence, program, clock, id space); a
-        failure DURING the dispatch drops the sweep and fails the job — it
-        never falls back to the cold route."""
-        if self.graph.safe_time() < int(t):
+        the reference's declines (a mesh, fence, program, clock, id
+        space); a failure DURING the dispatch drops the sweep and fails the
+        job — it never falls back to the cold route."""
+        if self.mesh is not None or self.graph.safe_time() < int(t):
             return False   # the cold route owns the fence wait
         if not self._device_engine_ok():
             return False
@@ -267,6 +261,11 @@ class Job:
             self._emit(t, q.window, _to_host(result), view, steps, t0)
 
     def _execute(self, view, window=None, windows=None):
+        if self.mesh is not None:
+            from ..parallel import sharded
+
+            return sharded.run(self.program, view, self.mesh,
+                               window=window, windows=windows)
         return bsp.run(self.program, view, window=window, windows=windows,
                        device=self.device)
 
@@ -274,8 +273,9 @@ class Job:
         """Range sweep on a DeviceSweep: device-resident fold state, O(delta)
         per-hop uploads, one dispatch per hop. Declines (False) when the
         range is not yet behind the fence, the program is not eligible, or
-        the log's id space overflows."""
-        if self.graph.safe_time() < q.end or not self._device_engine_ok():
+        the log's id space overflows, or under a mesh."""
+        if (self.mesh is not None or self.graph.safe_time() < q.end
+                or not self._device_engine_ok()):
             return False
         try:
             sweep = DeviceSweep(self.graph.log, device=self.device)
@@ -287,6 +287,31 @@ class Job:
             return sweep.run(self.program, window=q.window, windows=windows)
 
         self._range_amortised(q, sweep.advance, run, shell.freeze)
+        return True
+
+    def _try_range_mesh(self, q: RangeQuery) -> bool:
+        """Amortised mesh Range sweep (``jobs/manager.py:491``): one static
+        partition for the whole range (``parallel/sweep.ShardedSweep``),
+        per-hop O(delta) updates, K11 a hop. Declines without a mesh,
+        before the fence, for a program the device engines do not carry,
+        or when the vertex shards do not divide the global pad."""
+        if self.mesh is None or self.graph.safe_time() < q.end:
+            return False
+        if not self._device_engine_ok():
+            return False
+        from ..parallel.sharded import V_AXIS
+        from ..parallel.sweep import ShardedSweep
+
+        try:
+            sweep = ShardedSweep(self.graph.log, self.mesh.shape[V_AXIS])
+        except ValueError:
+            return False   # shard count does not divide the global pad
+
+        def run(windows):
+            return sweep.run(self.program, mesh=self.mesh, window=q.window,
+                             windows=windows)
+
+        self._range_amortised(q, sweep.advance, run, sweep.reduce_view)
         return True
 
     def _range_amortised(self, q: RangeQuery, advance, run,
@@ -370,9 +395,10 @@ class Job:
         """Whole-range columnar sweep: every (hop, window) view is a column
         of one pass (``engine/hopbatch``), pipelined in equal hop chunks
         (warm-started where the engine's iteration is a contraction).
-        Declines (False) while the range is not behind the fence, or where
-        ``_columnar_range_prep`` declines (``jobs/manager.py:575-588``)."""
-        if self.graph.safe_time() < q.end:
+        Declines (False) under a mesh, while the range is not behind the
+        fence, or where ``_columnar_range_prep`` declines
+        (``jobs/manager.py:575-588``)."""
+        if self.mesh is not None or self.graph.safe_time() < q.end:
             return False
         prep = self._columnar_range_prep(q)
         if prep is None:
@@ -395,6 +421,44 @@ class Job:
         ranks = ranks.cpu().numpy()
         self._emit_columnar(hops, windows, ranks, shells, steps,
                             _time.perf_counter() - t0)
+        return True
+
+    def _try_range_mesh_columns(self, q: RangeQuery) -> bool:
+        """View-axis mesh parallelism (``jobs/manager.py:652``): the (hop,
+        window) columns spread over every rank (``parallel/columns``), the
+        tables replicated. Declines without a mesh, before the fence, or
+        where ``_columnar_range_prep`` declines."""
+        if self.mesh is None or self.graph.safe_time() < q.end:
+            return False
+        prep = self._columnar_range_prep(q)
+        if prep is None:
+            return False
+        hops, windows, hb = prep
+        if self._kill.is_set():
+            return True
+        from ..parallel.columns import run_columns_sharded
+
+        if isinstance(hb, HopBatchedPageRank):
+            kw = dict(kind="pagerank", damping=hb.damping, tol=hb.tol,
+                      max_steps=hb.max_steps)
+        elif isinstance(hb, HopBatchedCC):
+            kw = dict(kind="cc", max_steps=hb.max_steps)
+        else:
+            kw = dict(kind="bfs", seeds=hb.seeds, directed=hb.directed,
+                      max_steps=hb.max_steps)
+        shells = {}
+
+        def grab_shell(T, sw):
+            shells[int(T)] = _shell_from_fold(hb.tables, sw, int(T))
+
+        t0 = _time.perf_counter()
+        _, cols = hb._fold_columns(hops, grab_shell)
+        if isinstance(hb, HopBatchedSSSP):
+            *cols, kw["weight_cols"] = cols
+        ranks, steps = run_columns_sharded(hb.tables, *cols, hops, windows,
+                                           self.mesh, **kw)
+        self._emit_columnar(hops, windows, ranks.cpu().numpy(), shells,
+                            steps, _time.perf_counter() - t0)
         return True
 
     def _emit_columnar(self, hops, windows, ranks, shells, steps,
@@ -426,17 +490,21 @@ class Job:
 class AnalysisManager:
     """Job registry + submission surface (``AnalysisManager.scala:49-70``
     job tracking for RequestResults/KillTask). ``device=None`` means the
-    CUDA card (and raises without one)."""
+    CUDA card (and raises without one), or the mesh's device when a
+    ``mesh`` is given; ``mesh`` (``parallel/sharded.make_mesh``) is every
+    job's default mesh."""
 
-    def __init__(self, graph: TemporalGraph, device=None):
+    def __init__(self, graph: TemporalGraph, device=None, mesh=None):
         self.graph = graph
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self._jobs: dict[str, Job] = {}
         self._counter = itertools.count()
         self._lock = threading.Lock()
 
     def submit(self, program: VertexProgram, query,
-               job_id: str | None = None,
+               job_id: str | None = None, mesh=None,
                wait_timeout: float = 30.0) -> Job:
         if not isinstance(query, (ViewQuery, RangeQuery)):
             raise NotImplementedError(
@@ -449,7 +517,8 @@ class AnalysisManager:
             if job_id in self._jobs:
                 raise KeyError(f"job {job_id!r} already exists")
             job = Job(job_id, program, query, self.graph, self.device,
-                      wait_timeout=wait_timeout)
+                      wait_timeout=wait_timeout,
+                      mesh=mesh if mesh is not None else self.mesh)
             self._jobs[job_id] = job
         return job.start()
 

@@ -6,7 +6,8 @@ passes and the superstep update of the PageRank power iteration, with
 K2b-P the binned pull-sum); the build and launch plumbing that
 ``ops/minplus.py`` (K5/K6 and their binned K5-P/K6-P), ``ops/segment.py``
 (K7, K7-P, K7-mode), ``ops/resident.py`` (K9a, K9b, K8u) and
-``ops/features.py`` (K10, K10-P) share.
+``ops/features.py`` (K10, K10-P) and ``ops/exchange.py`` (the mesh
+path's ``halo_pack``, ``frontier_compact``, ``frontier_merge_min``) share.
 
 Each kernel has three parts here:
 
@@ -68,6 +69,9 @@ _LIBS = {
                                  "rtpu_feature_propagate_binned")),
     "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
                            "rtpu_unpack_mask_bits")),
+    "exchange": ("exchange.cu", ("rtpu_halo_pack", "rtpu_frontier_count",
+                                 "rtpu_frontier_compact",
+                                 "rtpu_frontier_merge_min")),
 }
 _ARGTYPES = {
     # len, H, W, U, h0 | d_pos, d_lat, d_alive, lo, nowin, cur_l, cur_a,
@@ -141,6 +145,15 @@ _ARGTYPES = {
     "rtpu_feature_propagate_binned": 7 * [ctypes.c_int64]
     + 2 * [ctypes.c_float] + 11 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
+    # k, n, S*h, row_bytes | send_idx, src, out, stream
+    "rtpu_halo_pack": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p],
+    # n | changed, counts, offsets, total, stream
+    "rtpu_frontier_count": [ctypes.c_int64] + 5 * [ctypes.c_void_p],
+    # n, B, count, F, esize, identity bits | changed, offsets, values,
+    # out_idx, out_val, stream
+    "rtpu_frontier_compact": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
+    # R, B, F, n, dtype | counts, idx, val, replica, stream
+    "rtpu_frontier_merge_min": 5 * [ctypes.c_int64] + 5 * [ctypes.c_void_p],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
@@ -153,7 +166,8 @@ LAUNCHES = {"masks_from_deltas": 0, "column_masks": 0,
             "unpack_mask_bits": 0, "bin_masks": 0, "binned_pull_sum": 0,
             "binned_cc_superstep": 0, "binned_minplus_superstep": 0,
             "partition_segment_reduce": 0, "segment_mode": 0,
-            "feature_propagate": 0, "feature_propagate_binned": 0}
+            "feature_propagate": 0, "feature_propagate_binned": 0,
+            "halo_pack": 0, "frontier_compact": 0, "frontier_merge_min": 0}
 
 #: ``nvcc -Xptxas -v`` report of each library built by this process
 BUILD_LOG: dict[str, str] = {}

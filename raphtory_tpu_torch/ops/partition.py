@@ -1,7 +1,7 @@
 """Partition-centric (PCPM) edge layout — destination-binned segments.
 
-The port's copy of ``raphtory_tpu/ops/partition.py`` (without the sparse
-frontier helpers). Edges are binned by DESTINATION PARTITION — a
+The port's copy of ``raphtory_tpu/ops/partition.py``, with the sparse
+frontier route's bucket helpers (``frontier_bucket``). Edges are binned by DESTINATION PARTITION — a
 contiguous ``n_per``-row slice of the dense vertex space sized so a
 partition's accumulator block stays cache-resident — and messages from one
 source into a partition can be combined in a per-(partition, source)
@@ -46,6 +46,39 @@ AUTO_MIN_PAIRS = 1 << 17
 #: model below
 CACHE_BYTES = 2 << 20
 CACHELINE = 64
+
+#: default floor for sparse-frontier slice buckets (slots). Small enough
+#: that a near-quiescent superstep ships ~KBs; large enough that the
+#: power-of-two ladder above it has only ~log2(n/floor) rungs, so the set
+#: of collective shapes stays bounded
+SPARSE_BUCKET_FLOOR = 256
+
+
+def sparse_bucket_floor() -> int:
+    """Resolved ``RTPU_SPARSE_BUCKETS`` (slot floor for frontier-slice
+    buckets), read at dispatch time by the sparse comm route."""
+    try:
+        v = int(os.environ.get("RTPU_SPARSE_BUCKETS", SPARSE_BUCKET_FLOOR))
+    except ValueError:
+        v = SPARSE_BUCKET_FLOOR
+    return max(8, v)
+
+
+def frontier_bucket(count: int, floor: int | None = None,
+                    cap: int | None = None) -> int:
+    """Bucketed capacity for a compacted frontier slice: the smallest
+    power of two >= ``count``, floored at ``floor`` slots (default: the
+    resolved ``RTPU_SPARSE_BUCKETS``), so every frontier size in a
+    power-of-two band reuses one collective shape. ``cap`` (when given)
+    bounds the bucket from above — the dense-slice size, past which
+    padding buys nothing."""
+    floor = sparse_bucket_floor() if floor is None else max(1, int(floor))
+    b = floor
+    while b < count:
+        b <<= 1
+    if cap is not None:
+        b = min(b, max(int(cap), 1))
+    return b
 
 
 class PartitionSpec(NamedTuple):

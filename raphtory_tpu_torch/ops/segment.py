@@ -43,6 +43,7 @@ a TPU backend) is not ported (ROADMAP queue 2).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -90,7 +91,7 @@ def segment_combine_plain(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     into segment ``w*n + ids[e]`` (``raphtory_tpu/ops/segment.py:35``)."""
     m, n = csr.ids.shape[0], csr.n
     tail = tuple(data.shape[1:])
-    x = data.reshape(k * m, -1)
+    x = data.reshape(k * m, math.prod(tail))    # an empty block too
     fill = neutral(op, data.dtype)
     x = torch.where(mask[:, None], x, torch.full_like(x, fill))
     ids = (csr.ids.long()[None, :]

@@ -155,3 +155,34 @@ def twitter_like_log(
     the vertex state stops fitting any host cache."""
     return gab_like_log(n_vertices=n_vertices, n_edges=n_edges, seed=seed,
                         t_span=t_span)
+
+
+def zipf_hub_arrays(n_vertices: int = 4096, n_events: int = 160_000,
+                    seed: int = 11):
+    """The ``sparse_collectives`` stream's ``(src, dst, times)``
+    (``bench.py:3268-3297``, statement for statement): Zipf(1.3) hub
+    sources, uniform destinations, sorted times in [0, 1000) — the skewed
+    shape the sparse comm route exists for."""
+    rng = np.random.default_rng(seed)
+    src = ((rng.zipf(1.3, n_events) - 1) % n_vertices).astype(np.int64)
+    dst = rng.integers(0, n_vertices, n_events).astype(np.int64)
+    ts = np.sort(rng.integers(0, 1000, n_events)).astype(np.int64)
+    return src, dst, ts
+
+
+def zipf_hub_log(n_vertices: int = 4096, n_events: int = 160_000,
+                 seed: int = 11) -> EventLog:
+    """``zipf_hub_arrays`` as an edge-add log."""
+    src, dst, ts = zipf_hub_arrays(n_vertices, n_events, seed)
+    log = EventLog()
+    log.append_batch(ts, np.full(n_events, EDGE_ADD, np.uint8), src, dst)
+    return log
+
+
+def zipf_hubs(n_vertices: int = 4096, n_events: int = 160_000,
+              seed: int = 11) -> tuple:
+    """The stream's three most frequent sources, the BFS seeds of the
+    ``sparse_collectives`` bench."""
+    src, _, _ = zipf_hub_arrays(n_vertices, n_events, seed)
+    return tuple(int(v) for v in
+                 np.argsort(np.bincount(src, minlength=n_vertices))[-3:])

@@ -38,6 +38,13 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/engine/features.py",
     "raphtory_tpu_torch/examples/embeddings.py",
     "raphtory_tpu_torch/algorithms/lpa.py",
+    "raphtory_tpu_torch/cluster/bootstrap.py",
+    "raphtory_tpu_torch/cluster/tasks.py",
+    "raphtory_tpu_torch/ops/exchange.py",
+    "raphtory_tpu_torch/parallel/sharded.py",
+    "raphtory_tpu_torch/parallel/frontier.py",
+    "raphtory_tpu_torch/parallel/sweep.py",
+    "raphtory_tpu_torch/parallel/columns.py",
 )
 
 
@@ -122,6 +129,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         TemporalEmbeddings(log)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bsp.run(PageRank(), build_view(log, 2))
+    from raphtory_tpu_torch.parallel.sharded import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(1, 1)
     # the explicit CPU request is honoured
     assert HopBatchedPageRank(log, device="cpu").device.type == "cpu"
 
