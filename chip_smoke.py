@@ -134,7 +134,11 @@ printing one JSON line:
               CC and BFS from its 3 hubs over all_gather and sparse. Each
               against the single-device port on the card (CC / BFS
               bitwise, PageRank within the tolerance) and ``mesh_one``;
-              bytes and supersteps per route; ``halo_pack``,
+              bytes, supersteps and dispatch seconds per route (the
+              view and its partition built before the clock); then
+              measuring replays of a few cases: one that keeps the
+              exchange kernels' inputs, one that times each collective
+              (a sync before and after it). ``halo_pack``,
               ``frontier_compact`` and ``frontier_merge_min`` timed and
               held against their twins at the inputs the ranks gave them.
 
@@ -2784,7 +2788,9 @@ def mesh_kernels(torch, np, samples, dev):
         max_abs_err=exact_err(got, want),
         ms=cuda_ms(torch, lambda: exchange.halo_pack(a, send)),
         plain_ms=cuda_ms(torch, lambda: exchange.halo_pack_plain(a, send)),
-        library_ms=cuda_ms(torch, lambda: torch.index_select(a, 1, send_l)),
+        # the slot-major page: index_select on the transposed leaf
+        library_ms=cuda_ms(torch, lambda: torch.index_select(
+            a.transpose(0, 1), 0, send_l)),
         shape=f"state {tuple(a.shape)} {a.dtype}, S*h {send.shape[0]}",
         # the rows gathered read once, the page written once, the index
         **dict(zip(("bound_ms", "bound_by"),
@@ -2883,10 +2889,13 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                 for c in ("all_gather", "halo", "sparse")]
              + [("zipf", p, (4, 1), c) for p in ("cc", "bfs")
                 for c in ("all_gather", "sparse")])
-    reqs = [dict(op="sharded", log=lg, program=spec(p), mesh=m, comm=c,
-                 T=T if lg == "gab" else ZIPF_T,
-                 windows=WINDOWS if lg == "gab" else ZIPF_WINDOWS)
-            for lg, p, m, c in cases]
+    def case_req(case):
+        lg, p, m, c = case
+        return dict(op="sharded", log=lg, program=spec(p), mesh=m, comm=c,
+                    T=T if lg == "gab" else ZIPF_T,
+                    windows=WINDOWS if lg == "gab" else ZIPF_WINDOWS)
+
+    reqs = [case_req(c) for c in cases]
     reqs.append(dict(op="sweep", log="gab", times=hops,
                      program=spec("pagerank"), mesh=(4, 1),
                      windows=WINDOWS))
@@ -2894,14 +2903,26 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                          ("cc", dict(max_steps=50))):
         reqs.append(dict(op="columns", log="gab", kind=kind, hops=hops,
                          windows=WINDOWS, mesh=(4, 1), params=params))
+    n_timed = len(reqs)
+    # measuring replays after the timed requests, so that neither the
+    # kernels' input copies (sample) nor the syncs around each collective
+    # (collectives) reach a timed dispatch
+    replays = ([(c, dict(sample=True)) for c in
+                (("gab", "pagerank", (2, 2), "halo"),
+                 ("gab", "cc", (4, 1), "sparse"))]
+               + [(c, dict(collectives=True)) for c in
+                  (("gab", "pagerank", (4, 1), "all_gather"),
+                   ("gab", "pagerank", (4, 1), "halo"),
+                   ("gab", "cc", (4, 1), "all_gather"),
+                   ("gab", "cc", (4, 1), "sparse"))])
+    reqs += [dict(case_req(c), **flags) for c, flags in replays]
     logs = {"gab": {"synth": "gab_like_log",
                     "kwargs": dict(n_vertices=30_000, n_edges=300_000,
                                    t_span=GAB_SPAN)},
             "zipf": {"synth": "zipf_hub_log", "kwargs": ZIPF}}
     t0 = time.perf_counter()
-    out = spawn(MESH_TARGET, 4, ({"logs": logs, "requests": reqs,
-                                  "samples": True},), timeout=480,
-                device="cuda", share_card=True)
+    out = spawn(MESH_TARGET, 4, ({"logs": logs, "requests": reqs},),
+                timeout=480, device="cuda", share_card=True)
     spawn_s = time.perf_counter() - t0
     res = out[0]["results"]
     for other in out[1:]:
@@ -2933,7 +2954,21 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                            route=c, steps=r["steps"],
                            seconds=r["seconds"], routes=r["routes"],
                            launches=r["launches"]))
-    sweep_r, pr_cols, cc_cols = res[len(cases):]
+    sweep_r, pr_cols, cc_cols = res[len(cases):n_timed]
+    replay_report = []
+    for (case, flags), r in zip(replays, res[n_timed:]):
+        timed = res[cases.index(case)]
+        if r["steps"] != timed["steps"] or not np.array_equal(
+                r["result"], timed["result"]):
+            raise AssertionError(f"mesh_ranks replay of {case} differs "
+                                 "from its timed run")
+        if flags.get("collectives"):
+            lg, p, m, c = case
+            replay_report.append(dict(
+                log=lg, program=p, mesh=f"{m[1]}x{m[0]}", route=c,
+                timed_seconds=timed["seconds"], seconds=r["seconds"],
+                collectives={k: dict(calls=v[0], seconds=v[1])
+                             for k, v in r["collectives"].items()}))
     ds = DeviceSweep(log, device=dev)
     want_sw, want_steps = ds.run_sweep(progs["pagerank"], hops,
                                        windows=WINDOWS)
@@ -2961,7 +2996,7 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
 
     launches = {k: 0 for k in ("halo_pack", "frontier_compact",
                                "frontier_merge_min")}
-    for r in res:
+    for r in res[:n_timed]:
         for k in launches:
             launches[k] += r["launches"].get(k, 0)
     check_launched("mesh_ranks", launches, tuple(launches))
@@ -2975,6 +3010,7 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
     entries = mesh_kernels(torch, np, out[0]["samples"], dev)
     emit("mesh_ranks", ranks=4, backend="gloo", share_card=True,
          staged=out[0]["staged"], spawn_s=spawn_s, runs=report,
+         collective_replays=replay_report,
          sweep=dict(hops=len(hops), steps=[h["steps"] for h in
                                            sweep_r["hops"]],
                     seconds=sweep_r["seconds"], routes=sweep_r["routes"]),

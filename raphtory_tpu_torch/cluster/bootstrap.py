@@ -28,6 +28,7 @@ every rank is killed and ``spawn`` raises with the ranks' error output.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import importlib
 import os
@@ -46,6 +47,11 @@ import torch
 #: collectives that staged CUDA tensors through host memory (gloo on a
 #: card) since the process started
 STAGED: set = set()
+
+#: when a dict, each collective's calls and wall seconds by name, the
+#: device synchronised before and after each call so that no queued
+#: kernel is counted in (``[calls, seconds]``); None: not timed
+TIMES: dict | None = None
 
 _STATE: dict = {"device": None, "backend": None}
 
@@ -133,12 +139,29 @@ def topology() -> Topology:
     return Topology(1, 0, None, None)
 
 
+@contextlib.contextmanager
+def _timed(name: str, t: torch.Tensor):
+    if TIMES is None:
+        yield
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = _time.perf_counter()
+    yield
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    entry = TIMES.setdefault(name, [0, 0.0])
+    entry[0] += 1
+    entry[1] += _time.perf_counter() - t0
+
+
 class Axis:
     """The collectives of one mesh axis: the ranks ``ranks`` (global rank
     numbers, in axis order), this rank's ``index`` among them, and their
     process group. A one-rank axis is the identity and calls nothing.
     Under gloo a CUDA tensor is staged through host memory and back,
-    explicitly (the name lands in ``STAGED``)."""
+    explicitly (the name lands in ``STAGED``); ``TIMES`` times the calls
+    when it is set."""
 
     def __init__(self, ranks, index: int, group=None):
         self.ranks = tuple(int(r) for r in ranks)
@@ -160,21 +183,25 @@ class Axis:
         dist = _dist()
         ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
-        x, staged = self._staged("all_reduce", t)
-        x = x.clone() if x is t else x
-        dist.all_reduce(x, op=ops[op], group=self.group)
-        return x.to(t.device) if staged else x
+        with _timed("all_reduce", t):
+            x, staged = self._staged("all_reduce", t)
+            x = x.clone() if x is t else x
+            dist.all_reduce(x, op=ops[op], group=self.group)
+            x = x.to(t.device) if staged else x
+        return x
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[size, *t.shape]``: every rank's ``t`` in axis order."""
         if self.size == 1:
             return t[None]
         dist = _dist()
-        x, staged = self._staged("all_gather", t)
-        out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
-                          device=x.device)
-        dist.all_gather(list(out.unbind(0)), x, group=self.group)
-        return out.to(t.device) if staged else out
+        with _timed("all_gather", t):
+            x, staged = self._staged("all_gather", t)
+            out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
+                              device=x.device)
+            dist.all_gather(list(out.unbind(0)), x, group=self.group)
+            out = out.to(t.device) if staged else out
+        return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """``t``'s leading axis split into ``size`` equal chunks, chunk r
@@ -182,10 +209,12 @@ class Axis:
         if self.size == 1:
             return t
         dist = _dist()
-        x, staged = self._staged("all_to_all", t)
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
-        return out.to(t.device) if staged else out
+        with _timed("all_to_all", t):
+            x, staged = self._staged("all_to_all", t)
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=self.group)
+            out = out.to(t.device) if staged else out
+        return out
 
 
 # ---------------------------------------------------------------- spawner
@@ -195,16 +224,21 @@ def _package_root() -> str:
 
 
 def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
-          device: str = "cpu", share_card: bool = False,
-          threads: int = 1) -> list:
+          device=None, share_card: bool = False) -> list:
     """Run ``target`` (``"module:function"``, importable from the
     package's root) as ``world`` ranks in fresh interpreters and return
     each rank's return value, in rank order. Each rank joins the group
     with ``bootstrap`` (a ``FileStore`` in a private temporary directory;
-    ``device``/``share_card`` as there) and calls ``function(*args)``.
-    The ranks' ``PYTHONPATH`` is the package's root alone, so they import
-    nothing the caller's path would add. If a rank fails, or ``timeout``
-    seconds pass, every rank is killed and this raises."""
+    ``device``/``share_card`` as there: the ranks run on CUDA unless
+    ``device="cpu"``, and this raises before starting any rank when there
+    is no card) and calls ``function(*args)``. The ranks' ``PYTHONPATH``
+    is the package's root alone, so they import nothing the caller's path
+    would add. If a rank fails, or ``timeout`` seconds pass, every rank is
+    killed and this raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("spawn: CUDA is not available: pass "
+                           "device='cpu' to run the ranks on the CPU")
     tmp = Path(tempfile.mkdtemp(prefix="rtpu_ranks_"))
     procs, logs = [], []
     try:
@@ -212,15 +246,15 @@ def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
             pickle.dump(tuple(args), f)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env.update(PYTHONPATH=_package_root(), WORLD_SIZE=str(world),
-                   OMP_NUM_THREADS=str(threads),
+                   OMP_NUM_THREADS="1",
                    GLOO_SOCKET_IFNAME=env.get("GLOO_SOCKET_IFNAME", "lo"))
         for r in range(world):
             log = open(tmp / f"rank{r}.log", "w")
             logs.append(log)
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "raphtory_tpu_torch.cluster.bootstrap",
-                 str(tmp), target, device, "1" if share_card else "0",
-                 str(threads), str(timeout)],
+                 str(tmp), target, str(dev), "1" if share_card else "0",
+                 str(timeout)],
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                 stdout=log, stderr=subprocess.STDOUT, cwd=str(tmp),
                 start_new_session=True))
@@ -279,9 +313,9 @@ def _kill(procs) -> None:
 
 
 def _rank_main(argv) -> int:
-    tmp, target, device, share, threads, timeout = argv
+    tmp, target, device, share, timeout = argv
     tmp = Path(tmp)
-    torch.set_num_threads(int(threads))
+    torch.set_num_threads(1)
     rank = int(os.environ["RANK"])
     bootstrap(init_method=f"file://{tmp / 'store'}", device=device,
               share_card=share == "1", timeout_s=float(timeout))

@@ -8,7 +8,14 @@ spawner's target, ``"raphtory_tpu_torch.cluster.tasks:run_requests"``)
 runs them in order on every rank — the same collectives in the same order
 — and returns each request's results as numpy, with what it moved
 (``COLLECTIVES`` routes before and after), the kernel launches and the
-wall seconds. Requests:
+wall seconds of its dispatch alone: the view, its partition, the engine
+and its fold columns are built before the clock starts, and the clock
+stops when the device has finished, before the results are copied to
+the host. Two flags make a request a measuring replay instead: with
+``sample`` it keeps the exchange kernels' largest inputs
+(``ops.exchange.SAMPLES``, a host copy and a sync a call) and reports no
+seconds; with ``collectives`` it times each collective
+(``bootstrap.TIMES``, a device sync before and after each). Requests:
 
 * ``sharded`` — ``parallel.sharded.run`` of a program on ``build_view``
   at ``T`` (``mesh``: ``[S, W]``; ``windows``/``window``; ``comm``);
@@ -22,6 +29,7 @@ wall seconds. Requests:
 from __future__ import annotations
 
 import time as _time
+from contextlib import contextmanager
 
 import torch
 
@@ -66,17 +74,37 @@ def _windows(req):
     return {k: req[k] for k in ("window", "windows") if k in req}
 
 
-def _sharded(req, logs):
+class _Clock:
+    """Wall seconds of the blocks it times, each ended by a device sync."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    @contextmanager
+    def __call__(self):
+        t0 = _time.perf_counter()
+        yield
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.seconds += _time.perf_counter() - t0
+
+
+def _sharded(req, logs, clock):
     from ..core.snapshot import build_view
     from ..parallel import sharded
 
     view = build_view(logs[req["log"]], int(req["T"]))
-    res, steps = sharded.run(_program(req), view, _mesh(req),
-                             comm=req.get("comm", "auto"), **_windows(req))
+    mesh, prog = _mesh(req), _program(req)
+    sv = sharded.partition_view(view, mesh.shape[sharded.V_AXIS],
+                                tuple(prog.edge_props))
+    with clock():
+        res, steps = sharded.run(prog, view, mesh, sharded_view=sv,
+                                 comm=req.get("comm", "auto"),
+                                 **_windows(req))
     return {"result": _numpy(res), "steps": int(steps)}
 
 
-def _sweep(req, logs):
+def _sweep(req, logs, clock):
     from ..parallel.sweep import ShardedSweep
 
     mesh = _mesh(req)
@@ -84,8 +112,10 @@ def _sweep(req, logs):
     prog = _program(req)
     out = []
     for T in req["times"]:
-        res, steps = sw.run(prog, int(T), mesh=mesh,
-                            comm=req.get("comm", "auto"), **_windows(req))
+        with clock():
+            res, steps = sw.run(prog, int(T), mesh=mesh,
+                                comm=req.get("comm", "auto"),
+                                **_windows(req))
         out.append({"result": _numpy(res), "steps": int(steps)})
     return {"hops": out, "uv": sw.t.uv}
 
@@ -104,7 +134,7 @@ def _engine(kind, log, params, device):
     return HopBatchedBFS(log, params.get("seeds", ()), device=device)
 
 
-def _columns_req(req, logs):
+def _columns_req(req, logs, clock):
     from ..parallel.columns import run_columns_sharded
 
     mesh = _mesh(req)
@@ -115,13 +145,14 @@ def _columns_req(req, logs):
     weight_prop = params.pop("weight_prop", None)
     if weight_prop:
         *cols, params["weight_cols"] = cols
-    res, steps = run_columns_sharded(hb.tables, *cols, hops,
-                                     req["windows"], mesh, kind=kind,
-                                     **params)
+    with clock():
+        res, steps = run_columns_sharded(hb.tables, *cols, hops,
+                                         req["windows"], mesh, kind=kind,
+                                         **params)
     return {"result": res.cpu().numpy(), "steps": int(steps)}
 
 
-def _job(req, logs):
+def _job(req, logs, clock):
     from ..core.service import TemporalGraph
     from ..jobs.manager import AnalysisManager, RangeQuery, ViewQuery
 
@@ -130,16 +161,17 @@ def _job(req, logs):
     mgr = AnalysisManager(graph, mesh=mesh)
     kind, kw = req["query"]
     q = ViewQuery(**kw) if kind == "view" else RangeQuery(**kw)
-    job = mgr.submit(_program(req), q)
-    if not job.wait(req.get("timeout", 600)):
-        raise TimeoutError(f"job {job.id} did not finish")
+    with clock():
+        job = mgr.submit(_program(req), q)
+        if not job.wait(req.get("timeout", 600)):
+            raise TimeoutError(f"job {job.id} did not finish")
     if job.status != "done":
         raise RuntimeError(f"job {job.id} {job.status}: {job.error}")
     return {"rows": [{k: v for k, v in row.items() if k != "viewTime"}
                      for row in job.results_snapshot()]}
 
 
-def _fail(req, logs):
+def _fail(req, logs, clock):
     if _boot.topology().rank == req.get("rank", 0):
         raise RuntimeError("requested failure")
     import torch.distributed as dist
@@ -153,23 +185,31 @@ _OPS = {"sharded": _sharded, "sweep": _sweep, "columns": _columns_req,
 
 
 def run_requests(spec: dict) -> dict:
-    """Run ``spec["requests"]`` in order over the logs ``spec["logs"]``;
-    ``spec["samples"]`` keeps the exchange kernels' largest inputs
-    (``ops.exchange.SAMPLES``). Returns ``{"results": [...], "staged":
-    [...], "samples": ...}``, each result with its ``seconds``, its
-    ``launches`` and its ``routes`` delta."""
+    """Run ``spec["requests"]`` in order over the logs ``spec["logs"]``.
+    Returns ``{"results": [...], "staged": [...], "samples": ...}``, each
+    result with its dispatch ``seconds`` (None for a ``sample`` replay),
+    its ``launches``, its ``routes`` delta and, for a ``collectives``
+    replay, ``collectives``: ``{name: [calls, seconds]}``. ``samples``
+    holds the ``sample`` replays' kernel inputs (None without one)."""
     from ..parallel.sharded import COLLECTIVES
 
     logs = {name: build_log(d) for name, d in spec.get("logs", {}).items()}
-    if spec.get("samples"):
-        _exchange.SAMPLES = {}
+    samples = None
     results = []
     for req in spec["requests"]:
         before = COLLECTIVES.snapshot()["routes"]
         _columns.reset_launches()
-        t0 = _time.perf_counter()
-        out = _OPS[req["op"]](req, logs)
-        out["seconds"] = _time.perf_counter() - t0
+        if req.get("sample"):
+            samples = {} if samples is None else samples
+            _exchange.SAMPLES = samples
+        _boot.TIMES = {} if req.get("collectives") else None
+        clock = _Clock()
+        out = _OPS[req["op"]](req, logs, clock)
+        _exchange.SAMPLES = None
+        out["seconds"] = None if req.get("sample") else clock.seconds
+        if req.get("collectives"):
+            out["collectives"] = _boot.TIMES
+        _boot.TIMES = None
         out["launches"] = {k: v for k, v in _columns.LAUNCHES.items() if v}
         after = COLLECTIVES.snapshot()["routes"]
         out["routes"] = {
@@ -178,8 +218,6 @@ def run_requests(spec: dict) -> dict:
             for key, v in after.items()
             if v["dispatches"] != before.get(key, {}).get("dispatches", 0)}
         results.append(out)
-    samples = _exchange.SAMPLES
-    _exchange.SAMPLES = None
     return {"results": results, "staged": sorted(_boot.STAGED),
             "samples": samples}
 

@@ -5,9 +5,11 @@
 // raphtory_tpu/parallel/sharded.py:704 (`exchange_halo`): the rows
 // `send_idx[j]` (int32 [S*h], chunk r = the local rows requester r
 // referenced; pad slots point at row n-1) of a state leaf [k, n, row]
-// gathered into the send page [k, S*h, row]. Any dtype: a row is copied as
-// 8-, 4-, 2- or 1-byte words. An index outside [0, n) writes zeros (the
-// partition never makes one). One thread per (window, slot, word).
+// gathered into the send page, written slot-major [S*h, k, row]: the
+// layout all_to_all splits into one contiguous chunk a peer, so no copy
+// reorders it. Any dtype: a row is copied as 8-, 4-, 2- or 1-byte words.
+// An index outside [0, n) writes zeros (the partition never makes one).
+// One thread per (slot, window, word).
 //
 // `rtpu_frontier_count` + `rtpu_frontier_compact` replace the host
 // compaction of raphtory_tpu/parallel/frontier.py:458-485
@@ -56,12 +58,12 @@ __global__ void halo_pack_kernel(int64_t k, int64_t n, int64_t sh,
                                  const int32_t* __restrict__ send_idx,
                                  const W* __restrict__ src,
                                  W* __restrict__ out) {
-    const int64_t total = k * sh * words;
+    const int64_t total = sh * k * words;
     for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
          t < total; t += (int64_t)gridDim.x * blockDim.x) {
         const int64_t w = t % words;
-        const int64_t j = (t / words) % sh;
-        const int64_t kk = t / (words * sh);
+        const int64_t kk = (t / words) % k;
+        const int64_t j = t / (words * k);
         const int64_t s = send_idx[j];
         out[t] = (s >= 0 && s < n) ? src[(kk * n + s) * words + w] : W(0);
     }

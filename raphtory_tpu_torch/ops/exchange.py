@@ -10,7 +10,8 @@ source.
 
 * ``halo_pack`` — the send page of ``exchange_halo``
   (``raphtory_tpu/parallel/sharded.py:697-708``): rows ``send_idx`` of a
-  local state leaf ``[k, n_loc, *trail]``, ``[k, S*h, *trail]``.
+  local state leaf ``[k, n_loc, *trail]``, written slot-major ``[S*h, k,
+  *trail]``, the layout ``all_to_all`` sends as it stands.
 * ``frontier_count`` + ``frontier_compact`` — the host compaction of
   ``raphtory_tpu/parallel/frontier.py:458-485``: the changed rows'
   ascending flat indices (``np.flatnonzero``'s order, int64) and their
@@ -53,7 +54,7 @@ def min_identity(dtype: torch.dtype):
 def _keep(name: str, size: int, *tensors) -> None:
     if SAMPLES is None:
         return
-    if name not in SAMPLES or size >= SAMPLES[name][0]:
+    if name not in SAMPLES or size > SAMPLES[name][0]:
         SAMPLES[name] = (size, tuple(t.detach().cpu().clone()
                                      if isinstance(t, torch.Tensor) else t
                                      for t in tensors))
@@ -63,14 +64,15 @@ def _keep(name: str, size: int, *tensors) -> None:
 
 def halo_pack_plain(a, send_idx):
     """Twin of ``rtpu_halo_pack``: ``a [k, n, *trail]`` rows ``send_idx``
-    (every index in ``[0, n)``) → ``[k, len(send_idx), *trail]``."""
-    return torch.index_select(a, 1, send_idx.long())
+    (every index in ``[0, n)``) → ``[len(send_idx), k, *trail]``."""
+    return torch.index_select(a, 1, send_idx.long()).transpose(0, 1) \
+        .contiguous()
 
 
 def halo_pack(a, send_idx):
     """K11 halo send page: rows ``send_idx`` (int32 ``[S*h]``) of the
-    local leaf ``a [k, n_loc, *trail]`` (any dtype) → ``[k, S*h,
-    *trail]``."""
+    local leaf ``a [k, n_loc, *trail]`` (any dtype) → slot-major ``[S*h,
+    k, *trail]``."""
     name = "halo_pack"
     if a.dim() < 2:
         raise ValueError(f"{name}: leaf has shape {tuple(a.shape)}, want "
@@ -83,7 +85,7 @@ def halo_pack(a, send_idx):
         return halo_pack_plain(a, send_idx)
     k, n = a.shape[0], a.shape[1]
     sh = send_idx.shape[0]
-    out = torch.empty((k, sh) + tuple(a.shape[2:]), dtype=a.dtype,
+    out = torch.empty((sh, k) + tuple(a.shape[2:]), dtype=a.dtype,
                       device=a.device)
     row_bytes = a[0, 0].numel() * a.element_size() if k * n else 0
     err = _fn("exchange", "rtpu_halo_pack")(

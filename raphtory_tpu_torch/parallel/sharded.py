@@ -81,21 +81,17 @@ class CollectiveStats:
 
     def note_exchange(self, route: str, direction: str, *, rows: int,
                       bytes_: int, seconds: float, supersteps: int,
-                      barrier_wait: float = 0.0,
-                      async_dispatch: bool = False) -> None:
+                      barrier_wait: float = 0.0) -> None:
         with self._lock:
             d = self._routes.setdefault((route, direction), {
                 "dispatches": 0, "supersteps": 0, "rows": 0, "bytes": 0,
-                "seconds": 0.0, "barrier_wait_seconds": 0.0,
-                "async_dispatches": 0})
+                "seconds": 0.0, "barrier_wait_seconds": 0.0})
             d["dispatches"] += 1
             d["supersteps"] += int(supersteps)
             d["rows"] += int(rows)
             d["bytes"] += int(bytes_)
             d["seconds"] += float(seconds)
             d["barrier_wait_seconds"] += float(barrier_wait)
-            if async_dispatch:
-                d["async_dispatches"] += 1
 
     def note_skew_refresh(self, skew: dict) -> None:
         with self._lock:
@@ -677,11 +673,11 @@ def _run_local(program: VertexProgram, sv: ShardedView, mesh: Mesh,
         return tree_map(leaf, st)
 
     def exchange_halo(st, send):
-        # the send page goes out slot-major: chunk r of S equal chunks to
-        # rank r; chunk o of what comes back is owner o's page for us
+        # halo_pack writes the send page slot-major: chunk r of S equal
+        # chunks goes to rank r; chunk o of what comes back is owner o's
+        # page for us
         def leaf(a):
-            page = halo_pack(a, send).transpose(0, 1).contiguous()
-            recv = v_axis.all_to_all(page).transpose(0, 1)
+            recv = v_axis.all_to_all(halo_pack(a, send)).transpose(0, 1)
             return torch.cat([a, recv], dim=1)
         return tree_map(leaf, st)
 

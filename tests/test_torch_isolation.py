@@ -133,6 +133,11 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh(1, 1)
+    from raphtory_tpu_torch.cluster.bootstrap import spawn
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn("raphtory_tpu_torch.cluster.tasks:run_requests", 2,
+              ({"requests": []},), timeout=60)
     # the explicit CPU request is honoured
     assert HopBatchedPageRank(log, device="cpu").device.type == "cpu"
 

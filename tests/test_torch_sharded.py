@@ -79,18 +79,19 @@ def jax_mesh(S, W):
     return jsharded.make_mesh(S, W, devices=jax.devices()[:S * W])
 
 
-def run_ranks(logs, requests, timeout=240, world=4):
+def run_ranks(logs, requests, timeout=240, world=4, whole=False):
     """Spawn ``world`` gloo CPU ranks once for ``requests``: rank 0's
-    results, after checking every rank got the same."""
+    results (``whole``: all rank 0 returned), after checking every rank
+    got the same."""
     out = spawn(TARGET, world, ({"logs": logs, "requests": requests},),
-                timeout=timeout)
+                timeout=timeout, device="cpu")
     for other in out[1:]:
         for a, b in zip(out[0]["results"], other["results"]):
             assert a.keys() == b.keys()
             for key in ("result", "steps", "rows", "hops"):
                 if key in a:
                     assert_tree_equal(a[key], b[key])
-    return out[0]["results"]
+    return out[0] if whole else out[0]["results"]
 
 
 def assert_tree_equal(a, b):
@@ -210,7 +211,7 @@ def test_failing_rank_stops_the_group():
     with its error, well inside the timeout."""
     with pytest.raises(RuntimeError, match="requested failure"):
         spawn(TARGET, 2, ({"requests": [dict(op="fail", rank=1)]},),
-              timeout=60)
+              timeout=60, device="cpu")
 
 
 def test_mesh_shape_must_match_the_ranks():

@@ -88,16 +88,59 @@ def logs():
     return {"adv": adv_log(), "zipf": zipf_log()}
 
 
+#: measuring replays of two cases: (case, request flags)
+REPLAYS = ((("adv", "cc", (4, 1), "sparse"), dict(sample=True)),
+           (("adv", "cc", (4, 1), "halo"), dict(sample=True,
+                                                collectives=True)))
+
+
+def request(case):
+    log_name, p, mesh, route = case
+    T, windows = query(log_name)
+    return dict(op="sharded", log=log_name, T=T, mesh=mesh,
+                program=spec(program(log_name, p)), windows=windows,
+                comm=route)
+
+
 @pytest.fixture(scope="module")
-def ranks(logs):
-    reqs = []
-    for log_name, p, mesh, route in CASES:
-        T, windows = query(log_name)
-        reqs.append(dict(op="sharded", log=log_name, T=T, mesh=mesh,
-                         program=spec(program(log_name, p)),
-                         windows=windows, comm=route))
-    out = run_ranks({k: log_desc(v) for k, v in logs.items()}, reqs)
-    return dict(zip(CASES, out))
+def group(logs):
+    reqs = ([request(c) for c in CASES]
+            + [dict(request(c), **flags) for c, flags in REPLAYS])
+    return run_ranks({k: log_desc(v) for k, v in logs.items()}, reqs,
+                     whole=True)
+
+
+@pytest.fixture(scope="module")
+def ranks(group):
+    return dict(zip(CASES, group["results"]))
+
+
+def test_measuring_replays_keep_their_inputs_apart_from_the_timing(group):
+    """A ``sample`` replay keeps the exchange kernels' inputs and reports
+    no seconds; a ``collectives`` replay times each collective; the timed
+    requests carry neither, and every replay gives the timed answer."""
+    results = group["results"]
+    for r in results[:len(CASES)]:
+        assert r["seconds"] > 0 and "collectives" not in r
+    for (case, flags), r in zip(REPLAYS, results[len(CASES):]):
+        timed = results[CASES.index(case)]
+        np.testing.assert_array_equal(r["result"], timed["result"])
+        assert r["steps"] == timed["steps"] and r["seconds"] is None
+        if flags.get("collectives"):
+            calls = {k: v[0] for k, v in r["collectives"].items()}
+            # CC reads both directions: two all_to_alls a superstep (one
+            # state leaf); a halting all_reduce a superstep; the results'
+            # all_gather at the end
+            assert calls["all_to_all"] == 2 * r["steps"]
+            assert calls["all_gather"] >= 1 and calls["all_reduce"] >= 1
+            assert all(v[1] >= 0 for v in r["collectives"].values())
+    samples = group["samples"]
+    assert set(samples) == {"halo_pack", "frontier_compact",
+                            "frontier_merge_min"}
+    a, send = samples["halo_pack"][1]
+    assert samples["halo_pack"][0] == a.numel()
+    assert exchange.halo_pack_plain(a, send).shape[:2] == (send.shape[0],
+                                                           a.shape[0])
 
 
 def test_zipf_stream_is_the_bench_stream(logs):
@@ -218,7 +261,8 @@ def test_halo_pack_twin_gathers_the_send_rows():
         a = (rng.random((3, 64, 2)) * 1e6).astype(dtype)
         send = rng.integers(0, 64, 4 * 8).astype(np.int32)
         got = exchange.halo_pack(torch.from_numpy(a), torch.from_numpy(send))
-        np.testing.assert_array_equal(got.numpy(), a[:, send])
+        np.testing.assert_array_equal(got.numpy(),
+                                      a[:, send].transpose(1, 0, 2))
 
 
 # ---------------------------------------------------------------- accounting
