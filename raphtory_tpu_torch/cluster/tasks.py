@@ -9,9 +9,9 @@ runs them in order on every rank — the same collectives in the same order
 — and returns each request's results as numpy, with what it moved
 (``COLLECTIVES`` routes before and after), the kernel launches and the
 wall seconds of its dispatch alone: the view, its partition, the engine
-and its fold columns are built before the clock starts, and the clock
-stops when the device has finished, before the results are copied to
-the host. Two flags make a request a measuring replay instead: with
+and its fold columns are built before the clock starts (a ``job``
+request times the whole job), and the clock stops when the device has
+finished, before the results are copied to the host. Two flags make a request a measuring replay instead: with
 ``sample`` it keeps the exchange kernels' largest inputs
 (``ops.exchange.SAMPLES``, a host copy and a sync a call) and reports no
 seconds; with ``collectives`` it times each collective
