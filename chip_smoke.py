@@ -99,7 +99,8 @@ printing one JSON line:
               views/s, fold / dispatch seconds, K10 ms a round, traffic
               bytes and flops a call, peak memory, the resolved spec; every
               row finite and unit norm; K10 against its twin at this shape
-              (f32 max abs err; bf16 elements that differ, max ulps).
+              (f32 max abs err; bf16 elements that differ, max ulps);
+              ``torch.sparse.mm`` timed at both windows as the yardstick.
 16. features_gab — the headline GAB log, F 128, f32 and bf16, with
               ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P): card against the
               CPU run (f32 atol 1e-6, bf16 2 ulps), binned against
@@ -140,7 +141,21 @@ printing one JSON line:
               exchange kernels' inputs, one that times each collective
               (a sync before and after it). ``halo_pack``,
               ``frontier_compact`` and ``frontier_merge_min`` timed and
-              held against their twins at the inputs the ranks gave them.
+              held against their twins at the inputs the ranks gave them;
+              ``halo_pack`` and ``frontier_merge_min`` also at the
+              deployment shape (the ``scale_bulk`` graph's vertex state on
+              4 ranks: its halo page from ``_build_halo``, a CC replica
+              of 8 x 5,308,416 rows with 1 % and 20 % of each rank's rows
+              live), each timed beside its library call in alternating
+              rounds (the median of 7 batches of 200 calls: the card's
+              timeline and, over the same batch, the host clock) and its
+              device time taken from a profiler trace, and bitwise in
+              their edge cases (every word width,
+              trailing dimensions, offset leaves, pad slots, NaN, empty
+              slices, strided counts). Then a ``program_bounds`` line:
+              the K11 / K13 / K12 programs' bounds, each the sum of its
+              kernels' bounds at the launches a dispatch made on rank 0,
+              beside the bytes its collectives moved.
 
 The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched (the
@@ -318,7 +333,7 @@ def phase_kernels(torch, np, columns, tables, dev):
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:154",
         max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
-        shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
+        columns=C, shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
         **dict(zip(("bound_ms", "bound_by"),
                    bound(m_pad * C + m_pad * 4 + n_pad * C * 4))))
 
@@ -340,7 +355,7 @@ def phase_kernels(torch, np, columns, tables, dev):
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:154",
         max_abs_err=float(err.max()), ms=b_ms, plain_ms=b_plain,
-        library_ms=None, shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
+        library_ms=None, columns=C, shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
         **dict(zip(("bound_ms", "bound_by"),
                    bound(m * C + m * 4 + (n_pad + 1) * 8
                          + 2 * n_pad * C * 4, int(me_np.sum())))))
@@ -400,7 +415,7 @@ def phase_kernels(torch, np, columns, tables, dev):
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:259",
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain, library_ms=None,
-        shape=f"n_pad={n_pad} C={C}",
+        columns=C, shape=f"n_pad={n_pad} C={C}",
         # reads agg, deg, r (f32) and mv (bool); writes r and rd (f32);
         # ~10 f32 operations per (v, c)
         **dict(zip(("bound_ms", "bound_by"),
@@ -448,7 +463,7 @@ def mask_kernels(torch, np, columns, gab, dev):
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:50",
         max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
-        shape=f"m_pad={m} n_pad={n} H={H} C={C} int32",
+        columns=C, shape=f"m_pad={m} n_pad={n} H={H} C={C} int32",
         # the fold columns (lat i32 + alive) and the column descriptors
         # read once, the masks written once
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -565,7 +580,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         ms=cuda_ms(torch, lambda: columns.bin_column_masks(*args)),
         plain_ms=cuda_ms(torch, lambda: columns.bin_column_masks_plain(
             *args)),
-        library_ms=None,
+        library_ms=None, columns=C,
         shape=f"host-column form B={B} m_pad={m} n_pad={n} H={H} C={C} "
               f"int32 (P={spec.partitions})",
         # the fold columns (lat i32 + alive), perm and valid, the column
@@ -596,7 +611,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         plain_ms=cuda_ms(torch, lambda: columns.binned_pull_sum_plain(
             me_b, rd, be)),
         library_ms=None,
-        shape=f"B={B} m={real} n_pad={n} C={C} P={spec.partitions} "
+        columns=C, shape=f"B={B} m={real} n_pad={n} C={C} P={spec.partitions} "
               f"cap={spec.cap} cap_u={spec.cap_u} preagg={spec.preagg}",
         # the real slots' masks, walk, slots; the buckets' sources; rd and
         # agg once; one add per masked edge
@@ -642,7 +657,8 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
             st_k, me_b, mv, be)),
         plain_ms=cuda_ms(torch, lambda: minplus.binned_cc_superstep_plain(
             st_p, me_b, mv, be)),
-        library_ms=None, shape=f"n_pad={n} B={B} C={C} P={spec.partitions}",
+        library_ms=None, columns=C,
+        shape=f"n_pad={n} B={B} C={C} P={spec.partitions}",
         # masks of the real slots (both walks) and the vertex mask, the
         # slot ids and both walks, the bucket sources, state in and out;
         # one compare per masked edge and direction
@@ -685,7 +701,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         plain_ms=cuda_ms(torch, lambda: minplus.binned_minplus_superstep_plain(
             st_p, me_b, mv, lb, False, ew, W)),
         library_ms=None,
-        shape=f"n_pad={ln} B={llay.B} C={C} weighted undirected "
+        columns=C, shape=f"n_pad={ln} B={llay.B} C={C} weighted undirected "
               f"P={lspec.partitions} preagg={lspec.preagg}",
         # as K5-P plus the real slots' [B, H] weights; an add and a compare
         # per masked edge and direction
@@ -835,7 +851,7 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
         ms=cuda_ms(torch, lambda: minplus.cc_superstep(st_k, me, mv, e)),
         plain_ms=cuda_ms(torch, lambda: minplus.cc_superstep_plain(
             st_p, me, mv, e)),
-        library_ms=None, shape=f"n_pad={n} m_pad={gab.m_pad} C={C}",
+        library_ms=None, columns=C, shape=f"n_pad={n} m_pad={gab.m_pad} C={C}",
         # mask and vertex mask, edge ids, both CSRs and the source index,
         # state in and out, each once; one compare per masked edge and
         # direction
@@ -877,7 +893,7 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
             st_k, me, mv, e, False, ew, W)),
         plain_ms=cuda_ms(torch, lambda: minplus.minplus_superstep_plain(
             st_p, me, mv, e, False, ew, W)),
-        library_ms=None,
+        library_ms=None, columns=C,
         shape=f"n_pad={n} m_pad={ldbc.m_pad} C={C} weighted undirected",
         # as K5 plus the [m_pad, H] weights; an add and a compare per
         # masked edge and direction
@@ -2308,6 +2324,7 @@ def phase_features(torch, np, columns, dev):
                            k10["feature_propagate_binned"][0](Hb, *v)):
             raise AssertionError("features: K10-P differs from K10")
     library_ms = sparse_library_ms(torch, fa, *win["day"], Hb)
+    library_ms_month = sparse_library_ms(torch, fa, *win["month"], Hb)
     path_ms = times[kernel]
     live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
             for k, v in win.items()}
@@ -2328,7 +2345,7 @@ def phase_features(torch, np, columns, dev):
          flops_per_call=fa.flops(FEAT_ROUNDS),
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, twin=twin, binned_equals_unbinned=True,
-         library_ms=library_ms)
+         library_ms=library_ms, library_ms_month_window=library_ms_month)
     entries = {name: dict(
         source="raphtory_tpu_torch/csrc/features.cu",
         replaces="raphtory_tpu/engine/features.py:36" if b_e is None
@@ -2765,10 +2782,340 @@ def phase_mesh_one(torch, np, columns, log, dev):
     return {"pagerank": (got_pr, g_pr), "cc_month": (got_cc, g_cc)}
 
 
+def device_ms(torch, fn, iters: int = 20) -> tuple[float, str]:
+    """Device milliseconds of one ``fn()``: the summed durations of the
+    device's activities (kernels, copies, sets) in a ``torch.profiler``
+    trace of ``iters`` calls, over ``iters`` ("profiler"); where the trace
+    holds no device activity, CUDA events around single calls with a sync
+    each ("events": this counts the launch latency in)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us > 0:
+        return us / iters / 1e3, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters, "events"
+
+
+def bits_equal(torch, got, want) -> bool:
+    """``torch.equal`` of the bit patterns; NaNs must sit at the same
+    places, whatever their payload (``np.minimum``'s rule: a NaN wins)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    gb, wb = (t.contiguous().view(ints[t.element_size()])
+              for t in (got, want))
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(gb[~nan], wb[~nan]))
+
+
+#: calls a batch of ``paired_ms`` times, and the rounds it takes the
+#: median of: at the mesh path's shape a call is a few µs of host time,
+#: and one batch of 20 calls left the host's jitter in the number
+EXCHANGE_ITERS = 200
+EXCHANGE_ROUNDS = 7
+
+
+def paired_ms(torch, kern, lib) -> dict:
+    """The kernel's and the library call's ``ms`` and ``host_ms``, taken
+    in the same loops: ``EXCHANGE_ROUNDS`` rounds, each a batch of
+    ``EXCHANGE_ITERS`` calls of the kernel and then one of the library
+    call, CUDA events around each batch (``ms``, a call's share of the
+    card's timeline) and the host clock over the same batch up to its last
+    launch (``host_ms``, what the caller's thread spends: checks,
+    allocation, the launch); each the median of its rounds. The rounds
+    alternate, so both calls are timed under the same host load, which at
+    a few µs a call decides which is faster; ``ms`` is at least
+    ``host_ms`` but for the first launch's latency. ``device_ms`` is the
+    device's own time (``device_ms``)."""
+    import statistics
+
+    fns = {"": kern, "library_": lib}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    got = {p: ([], []) for p in fns}
+    for _ in range(EXCHANGE_ROUNDS):
+        for p, fn in fns.items():
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(EXCHANGE_ITERS):
+                fn()
+            host = time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+            got[p][0].append(start.elapsed_time(end) / EXCHANGE_ITERS)
+            got[p][1].append(host / EXCHANGE_ITERS * 1e3)
+    out = {}
+    for p, fn in fns.items():
+        out[f"{p}ms"] = statistics.median(got[p][0])
+        out[f"{p}host_ms"] = statistics.median(got[p][1])
+        out[f"{p}device_ms"], by = device_ms(torch, fn)
+        if not p:
+            out["device_by"] = by
+    return out
+
+
+def halo_entry(torch, exchange, a, send, what: str) -> dict:
+    """``halo_pack`` at one shape: held bitwise against its twin, timed
+    beside the twin and ``index_select`` on the transposed leaf (the same
+    function), each call split into host and device time; the bound from
+    the bytes this page needs (the referenced rows read once, the page
+    written once, the index read once) and, beside it, the same with each
+    read counted as the 32-byte sectors the referenced rows fall in."""
+    got = exchange.halo_pack(a, send)
+    want = exchange.halo_pack_plain(a, send)
+    if not bits_equal(torch, got, want):
+        raise AssertionError(f"halo_pack differs from its twin ({what})")
+    send_l = send.long()
+    k = a.shape[0]
+    row_b = a[0, 0].numel() * a.element_size()
+    uniq = torch.unique(send_l)
+    sectors = torch.unique(uniq * row_b // 32).numel() \
+        if row_b < 32 else 0
+    page_b = got.numel() * got.element_size()
+    idx_b = send.numel() * 4
+    bound_ms, bound_by = bound(k * uniq.numel() * row_b + page_b + idx_b)
+    kern = lambda: exchange.halo_pack(a, send)
+    lib = lambda: torch.index_select(a.transpose(0, 1), 0, send_l)
+    return dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/sharded.py:704",
+        max_abs_err=exact_err(got, want),
+        plain_ms=cuda_ms(torch, lambda: exchange.halo_pack_plain(a, send)),
+        **paired_ms(torch, kern, lib),
+        bound_ms=bound_ms, bound_by=bound_by,
+        sector_bound_ms=(bound(k * sectors * 32 + page_b + idx_b)[0]
+                         if sectors else bound_ms),
+        shape=f"state {tuple(a.shape)} {a.dtype}, S*h {send.shape[0]}, "
+              f"{uniq.numel()} rows referenced ({what})")
+
+
+def merge_entry(torch, exchange, rep, idx, val, counts, what: str) -> dict:
+    """``frontier_merge_min`` at one shape: bitwise against its twin,
+    timed beside the twin and ``scatter_reduce_`` amin over the live slots,
+    host / device split; the bound from the live slots (index and value
+    read once, the row they name read and written once) and, beside it,
+    the same with the rows counted as the 32-byte sectors they fall in."""
+    got, want = rep.clone(), rep.clone()
+    exchange.frontier_merge_min(got, idx, val, counts)
+    exchange.frontier_merge_min_plain(want, idx, val, counts)
+    if not bits_equal(torch, got, want):
+        raise AssertionError(f"frontier_merge_min differs from its twin "
+                             f"({what})")
+    R = counts.shape[0]
+    bucket = idx.shape[0] // R
+    live = (torch.arange(bucket, device=idx.device)[None, :]
+            < counts[:, None]).reshape(-1)
+    live_idx, live_val = idx[live], val[live]
+    n_live = live_idx.numel()
+    row_b = rep[0].numel() * rep.element_size()
+    sectors = torch.unique(live_idx * row_b // 32).numel() \
+        if row_b < 32 else 0
+    slots_b = n_live * (8 + row_b) + R * 8
+    work = rep.clone()
+    kern = lambda: exchange.frontier_merge_min(work, idx, val, counts)
+    lib = lambda: work.scatter_reduce_(0, live_idx, live_val, "amin")
+    bound_ms, bound_by = bound(slots_b + 2 * n_live * row_b)
+    return dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/frontier.py:499",
+        max_abs_err=exact_err(got, want),
+        plain_ms=cuda_ms(torch, lambda: exchange.frontier_merge_min_plain(
+            work, idx, val, counts)),
+        **paired_ms(torch, kern, lib),
+        bound_ms=bound_ms, bound_by=bound_by,
+        sector_bound_ms=(bound(slots_b + 2 * sectors * 32)[0]
+                         if sectors else bound_ms),
+        shape=f"replica {tuple(rep.shape)} {rep.dtype}, R {R} x B "
+              f"{bucket}, {n_live} live ({what})")
+
+
+def exchange_edge_cases(torch, exchange, dev) -> int:
+    """``halo_pack`` and ``frontier_merge_min`` held bitwise against their
+    twins on the card in the cases the mesh shapes do not reach: every
+    word width (16, 8, 4, 2 and 1 bytes), a trailing dimension, rows too
+    wide to stage, a leaf that is not 16-byte aligned, pad slots naming
+    row n-1, empty pages; int32 / int64 / float32 / float64 merges with a
+    trailing dimension, NaN on either side, a slice with count 0, a
+    bucket of 0 and strided counts. Returns the cases checked."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    checked = 0
+
+    def leaf(shape, dtype):
+        if dtype == torch.bool:
+            return torch.rand(shape, generator=g, device=dev) < 0.5
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        return torch.randint(-1000, 1000, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    for k, n, trail, dtype in ((3, 5000, (), torch.float32),
+                               (2, 4096, (), torch.int64),
+                               (3, 777, (3,), torch.float64),
+                               (4, 1000, (4,), torch.float32),
+                               (2, 999, (), torch.float16),
+                               (3, 1001, (3,), torch.int8),
+                               (1, 500, (), torch.bool),
+                               (2, 64, (8192,), torch.float32),
+                               (8, 3000, (), torch.int32)):
+        a = leaf((k, n) + trail, dtype)
+        sh = 4 * 300
+        send = torch.randint(0, n, (sh,), generator=g, device=dev,
+                             dtype=torch.int32)
+        send[-17:] = n - 1                     # pad slots
+        for src in (a, torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:]
+                    .reshape(a.shape)):        # aligned, then offset
+            if not bits_equal(torch, exchange.halo_pack(src, send),
+                              exchange.halo_pack_plain(src, send)):
+                raise AssertionError(f"halo_pack differs from its twin: k "
+                                     f"{k}, n {n}, trail {trail}, {dtype}")
+            checked += 1
+    empty = exchange.halo_pack(leaf((3, 10), torch.float32),
+                               torch.zeros(0, dtype=torch.int32, device=dev))
+    if empty.shape != (0, 3):
+        raise AssertionError("halo_pack of an empty page")
+    checked += 1
+
+    for dtype, trail in ((torch.int32, ()), (torch.float32, ()),
+                         (torch.float64, (3,)), (torch.int64, (2,)),
+                         (torch.float32, (40,))):
+        N, R, B = 6000, 4, 700
+        rep = leaf((N,) + trail, dtype)
+        owner = torch.randint(0, R, (N,), generator=g, device=dev)
+        counts = torch.zeros(R, 2, dtype=torch.int64, device=dev)
+        idx = torch.zeros(R, B, dtype=torch.int64, device=dev)
+        val = leaf((R, B) + trail, dtype)
+        for r in range(R):
+            rows = torch.nonzero(owner == r).reshape(-1)[:B if r else 0]
+            counts[r, 0] = rows.numel()         # slice 0: count 0
+            idx[r, :rows.numel()] = rows
+        if dtype.is_floating_point:
+            rep[::7] = float("nan")             # NaN in the replica
+            val[1, ::5] = float("nan")          # and in the slices
+        for cnt in (counts[:, 0], counts[:, 0].contiguous()):
+            got, want = rep.clone(), rep.clone()
+            exchange.frontier_merge_min(got, idx.reshape(-1),
+                                        val.reshape((-1,) + trail), cnt)
+            exchange.frontier_merge_min_plain(want, idx.reshape(-1),
+                                              val.reshape((-1,) + trail),
+                                              cnt)
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"frontier_merge_min differs from its "
+                                     f"twin: {dtype}, trail {trail}")
+            checked += 1
+    rep = leaf((100,), torch.int32)
+    got = rep.clone()
+    exchange.frontier_merge_min(
+        got, torch.zeros(0, dtype=torch.int64, device=dev),
+        torch.zeros(0, dtype=torch.int32, device=dev),
+        torch.zeros(4, dtype=torch.int64, device=dev))   # a bucket of 0
+    if not torch.equal(got, rep):
+        raise AssertionError("frontier_merge_min changed the replica with a "
+                             "bucket of 0")
+    torch.cuda.synchronize()
+    return checked + 1
+
+
+#: the scale_bulk graph (``bench.py:bench_scale_pagerank``) with its
+#: vertex state sharded over 4 ranks: the deployment shape of the mesh
+#: kernels
+DEPLOY = dict(n_vertices=5_300_000, n_edges=1 << 25, seed=11, n_pad=5_308_416,
+              ranks=4, windows=8)
+
+
+def deploy_halo_page(np):
+    """Rank 0's halo send page for the scale_bulk edge list on 4 vertex
+    shards: the dst-partitioned blocks' source references through
+    ``sharded._build_halo``, as ``partition_view`` builds them (pads name
+    row n_pad - 1). Returns ``(page int32 [S*h], h, seconds)``."""
+    from raphtory_tpu_torch.parallel import sharded
+    from raphtory_tpu_torch.utils.synth import gab_like_arrays
+
+    t0 = time.perf_counter()
+    src, dst, _ = gab_like_arrays(DEPLOY["n_vertices"], DEPLOY["n_edges"],
+                                  seed=DEPLOY["seed"])
+    S, n_pad = DEPLOY["ranks"], DEPLOY["n_pad"]
+    n_loc = n_pad // S
+    owner = dst // n_loc
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner, minlength=S)
+    idx_g = np.full((S, sharded._pow2(int(counts.max()))), n_pad - 1,
+                    np.int32)
+    off = 0
+    for sh in range(S):
+        c = int(counts[sh])
+        idx_g[sh, :c] = src[order[off:off + c]]
+        off += c
+    del src, dst, order
+    h, _, send, _ = sharded._build_halo(idx_g, n_loc, S)
+    return send[0], h, time.perf_counter() - t0
+
+
+def deploy_merge(torch, np, exchange, density: float, dev):
+    """A CC replica of k * n_pad int32 rows and R = 4 gathered slices, each
+    rank's slice the ascending flat indices of about ``density`` of the
+    rows it owns (its vertex block in every window), as
+    ``frontier_compact`` writes them, in a bucket of
+    ``frontier_bucket(max count)`` slots."""
+    from raphtory_tpu_torch.ops.partition import frontier_bucket
+
+    k, n_pad, R = DEPLOY["windows"], DEPLOY["n_pad"], DEPLOY["ranks"]
+    n_loc = n_pad // R
+    g = torch.Generator(device=dev).manual_seed(int(density * 1000))
+    rep = torch.randint(0, 1 << 30, (k * n_pad,), generator=g, device=dev,
+                        dtype=torch.int32)
+    rows = []
+    for r in range(R):
+        kk, i = torch.nonzero(torch.rand(k, n_loc, generator=g, device=dev)
+                              < density, as_tuple=True)
+        rows.append(kk * n_pad + r * n_loc + i)
+    counts = torch.tensor([x.numel() for x in rows], dtype=torch.int64,
+                          device=dev)
+    B = frontier_bucket(int(counts.max()), cap=k * n_pad)
+    idx = torch.zeros(R, B, dtype=torch.int64, device=dev)
+    val = torch.full((R, B), exchange.min_identity(torch.int32),
+                     dtype=torch.int32, device=dev)
+    for r, x in enumerate(rows):
+        idx[r, :x.numel()] = x
+        val[r, :x.numel()] = torch.randint(0, 1 << 30, (x.numel(),),
+                                           generator=g, device=dev,
+                                           dtype=torch.int32)
+    return rep, idx.reshape(-1), val.reshape(-1), counts
+
+
 def mesh_kernels(torch, np, samples, dev):
     """``halo_pack``, ``frontier_compact`` and ``frontier_merge_min`` at
     the largest inputs rank 0 gave them in ``mesh_ranks``, against their
-    twins (``torch.equal``) and one library call each."""
+    twins (bitwise) and one library call each; ``halo_pack`` and
+    ``frontier_merge_min`` also at the deployment shape (``DEPLOY``), with
+    each call split into host and device time, and in their edge cases.
+    Returns ``(kernel entries, the deployment entries, edge cases
+    checked, page build seconds)``."""
     from raphtory_tpu_torch.ops import exchange
 
     if set(samples) != {"halo_pack", "frontier_compact",
@@ -2776,25 +3123,7 @@ def mesh_kernels(torch, np, samples, dev):
         raise AssertionError(f"mesh_ranks kept samples of {sorted(samples)}")
     out = {}
     a, send = (t.to(dev) for t in samples["halo_pack"][1])
-    got = exchange.halo_pack(a, send)
-    want = exchange.halo_pack_plain(a, send)
-    if not torch.equal(got, want):
-        raise AssertionError("halo_pack differs from its twin")
-    send_l = send.long()
-    rows, row_b = a.shape[0] * send.shape[0], a[0, 0].numel() * a.element_size()
-    out["halo_pack"] = dict(
-        source="raphtory_tpu_torch/csrc/exchange.cu",
-        replaces="raphtory_tpu/parallel/sharded.py:704",
-        max_abs_err=exact_err(got, want),
-        ms=cuda_ms(torch, lambda: exchange.halo_pack(a, send)),
-        plain_ms=cuda_ms(torch, lambda: exchange.halo_pack_plain(a, send)),
-        # the slot-major page: index_select on the transposed leaf
-        library_ms=cuda_ms(torch, lambda: torch.index_select(
-            a.transpose(0, 1), 0, send_l)),
-        shape=f"state {tuple(a.shape)} {a.dtype}, S*h {send.shape[0]}",
-        # the rows gathered read once, the page written once, the index
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(2 * rows * row_b + send.shape[0] * 4))))
+    out["halo_pack"] = halo_entry(torch, exchange, a, send, "mesh path")
     vals, changed, B, ident = samples["frontier_compact"][1]
     vals, changed = vals.to(dev), changed.to(dev)
     counted = exchange.frontier_count(changed)
@@ -2824,36 +3153,26 @@ def mesh_kernels(torch, np, samples, dev):
                    bound(n + cnt * row_b + B * (8 + row_b)))))
     rep, idx, val, counts = (t.to(dev) for t in
                              samples["frontier_merge_min"][1])
-    got, want = rep.clone(), rep.clone()
-    exchange.frontier_merge_min(got, idx, val, counts)
-    exchange.frontier_merge_min_plain(want, idx, val, counts)
-    if not torch.equal(got, want):
-        raise AssertionError("frontier_merge_min differs from its twin")
-    R = counts.shape[0]
-    bucket = idx.shape[0] // R
-    live = (torch.arange(bucket, device=dev)[None, :]
-            < counts[:, None]).reshape(-1)
-    live_idx, live_val = idx[live], val[live]
-    work = rep.clone()
-    n_live = int(live.sum())
-    row_b = rep[0].numel() * rep.element_size()
-    out["frontier_merge_min"] = dict(
-        source="raphtory_tpu_torch/csrc/exchange.cu",
-        replaces="raphtory_tpu/parallel/frontier.py:499",
-        max_abs_err=exact_err(got, want),
-        ms=cuda_ms(torch, lambda: exchange.frontier_merge_min(
-            work, idx, val, counts)),
-        plain_ms=cuda_ms(torch, lambda: exchange.frontier_merge_min_plain(
-            work, idx, val, counts)),
-        library_ms=cuda_ms(torch, lambda: work.scatter_reduce_(
-            0, live_idx, live_val, "amin")),
-        shape=f"replica {tuple(rep.shape)} {rep.dtype}, R {R} x B "
-              f"{bucket}, {n_live} live",
-        # the live slots read once, the rows they name read and written
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(n_live * (8 + row_b) + 2 * n_live * row_b
-                         + R * 8))))
-    return out
+    out["frontier_merge_min"] = merge_entry(torch, exchange, rep, idx, val,
+                                            counts, "mesh path")
+    checked = exchange_edge_cases(torch, exchange, dev)
+
+    page, h, page_s = deploy_halo_page(np)
+    k, n_loc = DEPLOY["windows"], DEPLOY["n_pad"] // DEPLOY["ranks"]
+    leaf = torch.randn(k, n_loc, generator=torch.Generator(device=dev)
+                       .manual_seed(11), device=dev)
+    deploy = {"halo_pack": halo_entry(torch, exchange, leaf,
+                                      torch.from_numpy(page).to(dev),
+                                      f"scale_bulk on 4 ranks, h {h}")}
+    del leaf
+    for density in (0.01, 0.20):
+        args = deploy_merge(torch, np, exchange, density, dev)
+        deploy[f"frontier_merge_min_{int(density * 100)}pct"] = merge_entry(
+            torch, exchange, *args,
+            f"scale_bulk CC replica on 4 ranks, {density:.0%} live")
+        del args
+    torch.cuda.empty_cache()
+    return out, deploy, checked, page_s
 
 
 def phase_mesh_ranks(torch, np, columns, log, one, dev):
@@ -2951,6 +3270,7 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                                  f"bsp.run on the card (steps {r['steps']} "
                                  f"vs {ws})")
         report.append(dict(log=lg, program=p, mesh=f"{m[1]}x{m[0]}",
+                           shards=m[0], window_groups=m[1],
                            route=c, steps=r["steps"],
                            seconds=r["seconds"], routes=r["routes"],
                            launches=r["launches"]))
@@ -3007,7 +3327,8 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                   (sweep_r, ("segment_combine",))):
         check_launched("mesh_ranks", {k: r["launches"].get(k, 0)
                                       for k in ks}, ks)
-    entries = mesh_kernels(torch, np, out[0]["samples"], dev)
+    entries, deploy, edge_cases, page_s = mesh_kernels(
+        torch, np, out[0]["samples"], dev)
     emit("mesh_ranks", ranks=4, backend="gloo", share_card=True,
          staged=out[0]["staged"], spawn_s=spawn_s, runs=report,
          collective_replays=replay_report,
@@ -3018,10 +3339,92 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                           launches=r["launches"])
                   for k, r in (("pagerank", pr_cols), ("cc", cc_cols))},
          launches=launches,
-         kernels={k: {kk: v[kk] for kk in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "shape")}
-                  for k, v in entries.items()})
-    return launches, entries
+         kernels={k: {kk: v[kk] for kk in SPLIT_KEYS if kk in v}
+                  for k, v in entries.items()},
+         deploy={k: {kk: v[kk] for kk in SPLIT_KEYS}
+                 for k, v in deploy.items()},
+         deploy_page_build_s=page_s, edge_cases_bitwise=edge_cases)
+    return launches, entries, dict(
+        runs=report, columns={k: dict(launches=r["launches"], columns=len(
+            hops) * len(WINDOWS) // 4, routes=r["routes"],
+            seconds=r["seconds"]) for k, r in (("pagerank", pr_cols),
+                                               ("cc", cc_cols))})
+
+
+#: the mesh path's own kernels
+MESH_KERNELS = ("halo_pack", "frontier_compact", "frontier_merge_min")
+#: what the mesh_ranks line reports of each exchange kernel
+SPLIT_KEYS = ("ms", "plain_ms", "library_ms", "host_ms", "device_ms",
+              "device_by", "library_host_ms", "library_device_ms",
+              "bound_ms", "sector_bound_ms", "shape")
+
+
+def program_bounds(np, log, kernels, mesh) -> dict:
+    """Bounds of the mesh programs (K11 ``_sharded_runner``, K13 the
+    sparse route, K12 ``run_columns_sharded``): for each timed GAB
+    dispatch of ``mesh_ranks``, the sum over the kernels rank 0 launched
+    of launches times one launch's byte bound, with the bytes the
+    dispatch's collectives moved beside it (``COLLECTIVES``). One launch's
+    bound: ``segment_combine`` (K7) from rank 0's shard of the View (k
+    windows of the shard's real edges: payload and mask read, the CSR
+    read, the k x n_loc result written; the mean of the dst- and
+    src-partitioned shards); the exchange kernels at the largest inputs
+    rank 0 gave them (the kernels line); K12's per-rank K3 / K2 / K5 from
+    the kernels line scaled by the rank's columns over the entry's."""
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.parallel import sharded
+
+    view = build_view(log, int(0.90 * GAB_SPAN))
+    shards = {}
+    for S in sorted({r["shards"] for r in mesh["runs"]}):
+        sv = sharded.partition_view(view, S)
+        shards[S] = (int(sv.d_count[0]), int(sv.s_count[0]), sv.n_loc)
+
+    def k7_ms(S, k):
+        m_d, m_s, n_loc = shards[S]
+        return float(np.mean([bound(k * m * 5 + (n_loc + 1) * 8
+                                    + k * n_loc * 4)[0]
+                              for m in (m_d, m_s)]))
+
+    out = {"dispatches": [], "columns": {}}
+    for r in mesh["runs"]:
+        if r["log"] != "gab":
+            continue
+        k = -(-len(WINDOWS) // r["window_groups"])
+        per = {name: (k7_ms(r["shards"], k) if name == "segment_combine"
+                      else kernels[name]["bound_ms"])
+               for name, n in r["launches"].items() if n and (
+                   name == "segment_combine" or name in MESH_KERNELS)}
+        # frontier_compact counts 3 launches a superstep: the count pass
+        # (2, reading the mask its compaction's bound already reads) and
+        # the compaction
+        runs = {name: (r["launches"][name] // 3 if name == "frontier_compact"
+                       else r["launches"][name]) for name in per}
+        out["dispatches"].append(dict(
+            program=r["program"], mesh=r["mesh"], route=r["route"],
+            bound_ms=sum(runs[name] * per[name] for name in per),
+            launches={name: r["launches"][name] for name in per},
+            collective_bytes=sum(v.get("bytes", 0)
+                                 for v in r["routes"].values()),
+            seconds=r["seconds"]))
+    for kind, c in mesh["columns"].items():
+        per = {}
+        for name, n in c["launches"].items():
+            if not n:
+                continue
+            if "columns" not in kernels.get(name, {}):
+                raise KeyError(f"program_bounds: K12 {kind} launched {name}, "
+                               "which has no column kernel entry to bound")
+            per[name] = (kernels[name]["bound_ms"] * c["columns"]
+                         / kernels[name]["columns"])
+        out["columns"][kind] = dict(
+            bound_ms=sum(c["launches"][name] * per[name] for name in per),
+            launches={name: c["launches"][name] for name in per},
+            columns_a_rank=c["columns"],
+            collective_bytes=sum(v.get("bytes", 0)
+                                 for v in c["routes"].values()),
+            seconds=c["seconds"])
+    return out
 
 
 def _same_tree(np, a, b) -> bool:
@@ -3142,10 +3545,11 @@ def main() -> int:
     launches["segment_mode"] = lpa_launches["segment_mode"]
     # slice 7: the mesh path, one rank then 4 ranks on the card
     one = timed("mesh_one", phase_mesh_one, torch, np, columns, log, dev)
-    mesh_launches, mesh_entries = timed("mesh_ranks", phase_mesh_ranks,
-                                        torch, np, columns, log, one, dev)
+    mesh_launches, mesh_entries, mesh = timed(
+        "mesh_ranks", phase_mesh_ranks, torch, np, columns, log, one, dev)
     kernels.update(mesh_entries)
     launches.update(mesh_launches)
+    emit("program_bounds", **program_bounds(np, log, kernels, mesh))
     # the binned route's share: its kernel checks, the pcpm phase, and the
     # binned parts inside scale_bulk (layout build included)
     pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",

@@ -23,7 +23,10 @@ arguments, and chooses the backend explicitly:
 (``python -m raphtory_tpu_torch.cluster.bootstrap``), rendezvousing over a
 ``FileStore`` in a private temporary directory, so concurrent groups never
 collide. It has a hard timeout: when it passes, or when any rank fails,
-every rank is killed and ``spawn`` raises with the ranks' error output.
+every rank is killed and ``spawn`` raises with the ranks' error output,
+how each rank ended, and the machine's free memory and load — a rank
+that SIGKILL ended before ``spawn`` stopped the group (the kernel's
+out-of-memory killer, or a memory limit) is named as killed from outside.
 """
 
 from __future__ import annotations
@@ -248,6 +251,7 @@ def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
         env.update(PYTHONPATH=_package_root(), WORLD_SIZE=str(world),
                    OMP_NUM_THREADS="1",
                    GLOO_SOCKET_IFNAME=env.get("GLOO_SOCKET_IFNAME", "lo"))
+        t0 = _time.monotonic()
         for r in range(world):
             log = open(tmp / f"rank{r}.log", "w")
             logs.append(log)
@@ -256,9 +260,10 @@ def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
                  str(tmp), target, str(dev), "1" if share_card else "0",
                  str(timeout)],
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-                stdout=log, stderr=subprocess.STDOUT, cwd=str(tmp),
+                stdin=subprocess.DEVNULL, stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(tmp),
                 start_new_session=True))
-        deadline = _time.monotonic() + timeout
+        deadline = t0 + timeout
         failed = None
         while True:
             codes = [p.poll() for p in procs]
@@ -275,17 +280,19 @@ def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
             _time.sleep(0.05)
         codes = [p.poll() for p in procs]
         if not all(c == 0 for c in codes):
+            elapsed = _time.monotonic() - t0
             _kill(procs)
             for log in logs:
                 log.flush()
             tails = "\n".join(
-                f"--- rank {r} (exit {c}) ---\n"
+                f"--- rank {r} ({_ended(c)}) ---\n"
                 + (tmp / f"rank{r}.log").read_text()[-4000:]
                 for r, c in enumerate(codes))
             what = (f"rank(s) {failed} failed" if failed
                     else f"timed out after {timeout} s")
-            raise RuntimeError(f"spawn({target!r}, {world}): {what}; every "
-                               f"rank was stopped\n{tails}")
+            raise RuntimeError(
+                f"spawn({target!r}, {world}): {what} after {elapsed:.1f} s; "
+                f"every rank was stopped. {_diagnosis(codes)}\n{tails}")
         out = []
         for r in range(world):
             with open(tmp / f"out{r}.pkl", "rb") as f:
@@ -296,6 +303,46 @@ def spawn(target: str, world: int, args: tuple = (), *, timeout: float,
         for log in logs:
             log.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ended(code) -> str:
+    if code is None:
+        return "still running, stopped by spawn"
+    if code < 0:
+        try:
+            return f"killed by {signal.Signals(-code).name}"
+        except ValueError:
+            return f"killed by signal {-code}"
+    return f"exit {code}"
+
+
+def _machine() -> str:
+    """The machine's free memory and load, where ``/proc`` has them."""
+    try:
+        mem = dict(line.split(":", 1) for line in
+                   Path("/proc/meminfo").read_text().splitlines())
+        free = int(mem["MemAvailable"].split()[0]) >> 10
+        total = int(mem["MemTotal"].split()[0]) >> 10
+        load = Path("/proc/loadavg").read_text().split()[:3]
+    except (OSError, KeyError, ValueError):
+        return "memory and load not readable"
+    return (f"MemAvailable {free} of {total} MiB, load {' '.join(load)} on "
+            f"{os.cpu_count()} cores")
+
+
+def _diagnosis(codes) -> str:
+    """Why the group ended, as far as the ranks' exits say. ``codes`` are
+    read before ``spawn`` stops any rank, so a rank that SIGKILL ended was
+    killed from outside the group; ranks that raised beside it most often
+    lost it as a peer."""
+    killed = [r for r, c in enumerate(codes) if c == -signal.SIGKILL]
+    if killed:
+        return (f"Rank(s) {killed} were killed by SIGKILL before spawn "
+                "stopped the group: something outside the group killed them "
+                "(on Linux most often the kernel's out-of-memory killer or a "
+                "memory limit of the machine), and a rank that raised beside "
+                f"them most often lost its peer. The machine: {_machine()}.")
+    return f"The machine: {_machine()}."
 
 
 def _kill(procs) -> None:

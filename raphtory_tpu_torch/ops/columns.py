@@ -145,15 +145,15 @@ _ARGTYPES = {
     "rtpu_feature_propagate_binned": 7 * [ctypes.c_int64]
     + 2 * [ctypes.c_float] + 11 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
-    # k, n, S*h, row_bytes | send_idx, src, out, stream
-    "rtpu_halo_pack": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p],
+    # plan (int64 [10]), send_idx, src, out, stream
+    "rtpu_halo_pack": 5 * [ctypes.c_void_p],
     # n | changed, counts, offsets, total, stream
     "rtpu_frontier_count": [ctypes.c_int64] + 5 * [ctypes.c_void_p],
     # n, B, count, F, esize, identity bits | changed, offsets, values,
     # out_idx, out_val, stream
     "rtpu_frontier_compact": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
-    # R, B, F, n, dtype | counts, idx, val, replica, stream
-    "rtpu_frontier_merge_min": 5 * [ctypes.c_int64] + 5 * [ctypes.c_void_p],
+    # plan (int64 [9]), counts, idx, val, replica, stream
+    "rtpu_frontier_merge_min": 6 * [ctypes.c_void_p],
 }
 
 #: kernel launches per wrapper since the last ``reset_launches()``
@@ -237,10 +237,17 @@ def build() -> float:
     return _time.perf_counter() - t0
 
 
+#: each C entry point's ctypes function, bound once after its build
+_bound: dict = {}
+
+
 def _fn(lib: str, fn: str):
-    if lib not in _loaded:
-        build()
-    return getattr(_loaded[lib], fn)
+    f = _bound.get(fn)
+    if f is None:
+        if lib not in _loaded:
+            build()
+        f = _bound[fn] = getattr(_loaded[lib], fn)
+    return f
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -280,12 +287,15 @@ def _launch(name: str, err: int, launched: int = 1) -> None:
     LAUNCHES[name] += launched
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+#: the raw handle of a card's current stream, read without building a
+#: ``torch.cuda.Stream`` (absent from CPU-only builds, where no tensor
+#: reaches a kernel); every entry point's pointers, this one included,
+#: are declared ``c_void_p``, so ctypes takes the ints as they are
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    return _raw_stream(t.get_device())
 
 
 _TIME_DTYPES = (torch.int32, torch.int64)
@@ -353,9 +363,10 @@ def masks_from_deltas(base_lat, base_alive, d_pos, d_lat, d_alive, lo, nowin,
     fn = _fn("masks", "rtpu_masks_from_deltas_i32" if tdt == torch.int32
              else "rtpu_masks_from_deltas_i64")
     launched = ctypes.c_int64(0)
-    err = fn(n, H, W, U, int(bool(h0)), _ptr(d_pos), _ptr(d_lat),
-             _ptr(d_alive), _ptr(lo), _ptr(nowin), _ptr(cur_l), _ptr(cur_a),
-             _ptr(out), _stream(out), ctypes.byref(launched))
+    err = fn(n, H, W, U, int(bool(h0)), d_pos.data_ptr(), d_lat.data_ptr(),
+             d_alive.data_ptr(), lo.data_ptr(), nowin.data_ptr(),
+             cur_l.data_ptr(), cur_a.data_ptr(), out.data_ptr(), _stream(out),
+             ctypes.byref(launched))
     _launch(name, err, launched.value)
     return out, cur_l, cur_a
 
@@ -398,8 +409,8 @@ def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
     out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
     launched = ctypes.c_int64(0)
     err = _fn("masks", "rtpu_weights_from_deltas")(
-        n, H, U, int(bool(h0)), _ptr(d_pos), _ptr(d_val), _ptr(cur),
-        _ptr(out), _stream(out), ctypes.byref(launched))
+        n, H, U, int(bool(h0)), d_pos.data_ptr(), d_val.data_ptr(),
+        cur.data_ptr(), out.data_ptr(), _stream(out), ctypes.byref(launched))
     _launch(name, err, launched.value)
     return out, cur
 
@@ -461,8 +472,8 @@ def column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin):
     mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
     fn = _fn("masks", "rtpu_column_masks_i32" if tdt == torch.int32
              else "rtpu_column_masks_i64")
-    err = fn(m, n, H, C, *(_ptr(t) for t in tensors), _ptr(me), _ptr(mv),
-             _stream(me))
+    err = fn(m, n, H, C, *(t.data_ptr() for t in tensors), me.data_ptr(),
+             mv.data_ptr(), _stream(me))
     _launch(name, err, 1 if C and m + n else 0)
     return me, mv
 
@@ -525,14 +536,14 @@ def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
                       device=base.device)
     launched = ctypes.c_int64(0)
     err = _fn("masks", "rtpu_scale_hop_masks")(
-        n, H, W, U, _ptr(base), _ptr(d_pos), _ptr(d_t), _ptr(thr),
-        _ptr(snap), None if binned else _ptr(out), _stream(snap),
-        ctypes.byref(launched))
+        n, H, W, U, base.data_ptr(), d_pos.data_ptr(), d_t.data_ptr(),
+        thr.data_ptr(), snap.data_ptr(), None if binned else out.data_ptr(),
+        _stream(snap), ctypes.byref(launched))
     _launch(name, err, launched.value)
     if binned:
         err = _fn("masks", "rtpu_bin_scale_masks")(
-            B, n, H, W, _ptr(snap), _ptr(thr), _ptr(perm), _ptr(valid),
-            _ptr(out), _stream(out))
+            B, n, H, W, snap.data_ptr(), thr.data_ptr(), perm.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), _stream(out))
         _launch("bin_masks", err, 1 if B and H * W else 0)
     return out
 
@@ -588,8 +599,8 @@ def bin_column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
     mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
     fn = _fn("masks", "rtpu_bin_column_masks_i32" if tdt == torch.int32
              else "rtpu_bin_column_masks_i64")
-    err = fn(B, m, n, H, C, *(_ptr(t) for t in tensors), _ptr(me), _ptr(mv),
-             _stream(me))
+    err = fn(B, m, n, H, C, *(t.data_ptr() for t in tensors), me.data_ptr(),
+             mv.data_ptr(), _stream(me))
     _launch(name, err, 1 if C and B + n else 0)
     return me, mv
 
@@ -616,7 +627,8 @@ def column_out_degree(me, e_src, n_pad: int):
         return column_out_degree_plain(me, e_src, n_pad)
     deg = torch.zeros((n_pad, C), dtype=torch.int32, device=me.device)
     fn = _fn("pagerank_columns", "rtpu_column_out_degree")
-    _launch(name, fn(m, C, _ptr(me), _ptr(e_src), _ptr(deg), _stream(deg)))
+    _launch(name, fn(m, C, me.data_ptr(), e_src.data_ptr(), deg.data_ptr(),
+                     _stream(deg)))
     return deg.to(torch.float32)
 
 
@@ -649,8 +661,8 @@ def column_pull_sum(me, rd, e_src, e_dst, indptr):
         return column_pull_sum_plain(me, rd, e_src, e_dst)
     agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
     fn = _fn("pagerank_columns", "rtpu_column_pull_sum")
-    _launch(name, fn(n, C, _ptr(indptr), _ptr(e_src), _ptr(me), _ptr(rd),
-                     _ptr(agg), _stream(agg)))
+    _launch(name, fn(n, C, indptr.data_ptr(), e_src.data_ptr(), me.data_ptr(),
+                     rd.data_ptr(), agg.data_ptr(), _stream(agg)))
     return agg
 
 
@@ -691,9 +703,10 @@ def binned_pull_sum(me, rd, be):
     vals = torch.empty((be.U, C), dtype=torch.float32, device=rd.device)
     launched = ctypes.c_int64(0)
     err = _fn("pagerank_columns", "rtpu_binned_pull_sum")(
-        n, C, be.U, _ptr(be.in_indptr), _ptr(be.in_order), _ptr(be.b_src),
-        _ptr(be.slot), _ptr(be.u_src), _ptr(me), _ptr(rd), _ptr(vals),
-        _ptr(agg), _stream(agg), ctypes.byref(launched))
+        n, C, be.U, be.in_indptr.data_ptr(), be.in_order.data_ptr(),
+        be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
+        me.data_ptr(), rd.data_ptr(), vals.data_ptr(), agg.data_ptr(),
+        _stream(agg), ctypes.byref(launched))
     _launch(name, err, launched.value)
     return agg
 
@@ -826,7 +839,9 @@ def pagerank_update(st: RankState, agg, deg, mv, n_act, damping: float,
     _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
     fn = _fn("pagerank_columns", "rtpu_pagerank_update")
     _launch(name, fn(n, C, gx, int(bool(prime)), 1.0 - damping, damping, tol,
-                     None if prime else _ptr(agg), _ptr(deg), _ptr(mv),
-                     _ptr(n_act), _ptr(st.r), _ptr(st.rd), _ptr(st.dangling),
-                     _ptr(st.halted), _ptr(st.done), _ptr(st.part),
-                     _ptr(st.busy), _ptr(st.ticket), _stream(st.r)))
+                     None if prime else agg.data_ptr(), deg.data_ptr(),
+                     mv.data_ptr(), n_act.data_ptr(), st.r.data_ptr(),
+                     st.rd.data_ptr(), st.dangling.data_ptr(),
+                     st.halted.data_ptr(), st.done.data_ptr(),
+                     st.part.data_ptr(), st.busy.data_ptr(),
+                     st.ticket.data_ptr(), _stream(st.r)))

@@ -23,6 +23,15 @@ source.
   into the replica in place. Each row has ONE owner, so no two live slots
   name the same row; the kernel needs no atomics and is exact for floats.
 
+``halo_pack`` and ``frontier_merge_min`` run once a superstep on small
+inputs, so their host path is kept lean: each checks its inputs in full
+once per signature (shapes, dtypes, strides and devices of every tensor)
+and caches the result with the launch plan, so a later call with the same
+signature costs a dict lookup, and a call with any other signature (a
+wrong one included) takes the full check again and raises as before. The
+plan's integers reach the C entry point as one cached array; the stream
+is read raw (``columns._stream``).
+
 ``SAMPLES``, when set to a dict, keeps host copies of the inputs of each
 kernel's largest call (``chip_smoke.py`` times the kernels at the shapes
 the mesh path gave them).
@@ -30,11 +39,12 @@ the mesh path gave them).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
 
-from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
 #: inputs of each wrapper's largest call, on the host (None: not kept)
 SAMPLES: dict | None = None
@@ -62,6 +72,61 @@ def _keep(name: str, size: int, *tensors) -> None:
 
 # ---------------------------------------------------------------- halo
 
+#: threads a block of the halo and merge kernels
+THREADS = 256
+#: shared bytes a halo block stages its slots in, at most
+STAGE_BYTES = 16384
+#: blocks the plans aim for before they widen a tile (two waves on the
+#: H100's 132 SMs)
+MIN_BLOCKS = 264
+#: signatures kept by each wrapper's cache before it starts over
+_SIG_CAP = 64
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _lanes(words: int) -> int:
+    """Threads that share one slot: the row's words, to a power of two,
+    at most a warp."""
+    return min(32, _pow2_ceil(words))
+
+
+def halo_plan(k: int, sh: int, row_bytes: int, align: int):
+    """The launch plan of one ``rtpu_halo_pack`` call: ``(word, lanes,
+    tile, staged, grid, smem)``. ``align`` is the largest power of two (at
+    most 16) dividing both the leaf's and the page's addresses.
+
+    * ``word``: the widest of 16, 8, 4, 2 and 1 bytes that divides the row
+      bytes and ``align``;
+    * ``lanes`` threads a slot (``THREADS // lanes`` slots a pass);
+    * staged (the page 16-byte aligned and a pass's slots fit in
+      ``STAGE_BYTES``): ``tile`` slots a block, a multiple of 16 so that
+      every tile starts 16-byte aligned in the page, widened by powers of
+      two while the grid keeps ``MIN_BLOCKS`` blocks and the tile fits;
+      ``smem`` is the tile's bytes. Otherwise a pass's slots a block,
+      copied straight to the page."""
+    word = 16
+    while word > 1 and (row_bytes % word or align % word):
+        word //= 2
+    lanes = _lanes(row_bytes // word)
+    rows = THREADS // lanes
+    slot = k * row_bytes
+    base = max(rows, 16)
+    staged = align >= 16 and 0 < base * slot <= STAGE_BYTES
+    if staged:
+        tile = base
+        while (tile * 2 * slot <= STAGE_BYTES and tile < 4 * base
+               and -(-sh // (tile * 2)) >= MIN_BLOCKS):
+            tile *= 2
+        smem = tile * slot
+    else:
+        tile, smem = rows, 0
+    grid = -(-sh // tile) if sh * slot else 0
+    return word, lanes, tile, int(staged), grid, smem
+
+
 def halo_pack_plain(a, send_idx):
     """Twin of ``rtpu_halo_pack``: ``a [k, n, *trail]`` rows ``send_idx``
     (every index in ``[0, n)``) → ``[len(send_idx), k, *trail]``."""
@@ -69,28 +134,82 @@ def halo_pack_plain(a, send_idx):
         .contiguous()
 
 
-def halo_pack(a, send_idx):
-    """K11 halo send page: rows ``send_idx`` (int32 ``[S*h]``) of the
-    local leaf ``a [k, n_loc, *trail]`` (any dtype) → slot-major ``[S*h,
-    k, *trail]``."""
+#: halo_pack signature → None (CPU: the twin) or (the page's template, [k,
+#: n, S*h, row bytes], {the addresses' low bits: plan array
+#: (``_plan_array``)}, the C entry point). The template is one element
+#: expanded to the page's shape: ``torch.empty_like`` of it allocates a
+#: contiguous page for less host time than a shape-parsing ``empty``.
+_HALO_SIGS: dict = {}
+
+
+def _halo_signature(key, a, send_idx):
+    """The full checks of ``halo_pack`` (raising on a bad input), then the
+    signature's cache entry."""
     name = "halo_pack"
+    for what, t in (("a", a), ("send_idx", send_idx)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} is {type(t).__name__}, want a "
+                            "tensor")
     if a.dim() < 2:
         raise ValueError(f"{name}: leaf has shape {tuple(a.shape)}, want "
                          "[k, n_loc, ...]")
     _expect(name, send_idx, "send_idx", (torch.int32,),
             (send_idx.shape[0],))
     _expect(name, a, "a", (a.dtype,), tuple(a.shape))
-    _keep(name, a.numel(), a, send_idx)
     if not _on_cuda(name, a, send_idx):
+        entry = None
+    else:
+        k, n, sh = a.shape[0], a.shape[1], send_idx.shape[0]
+        trail = tuple(a.shape[2:])
+        row_bytes = a.element_size()
+        for d in trail:
+            row_bytes *= d
+        if k * row_bytes >= 1 << 31:
+            raise ValueError(f"{name}: a slot of {k} x {row_bytes} bytes is "
+                             "past the kernel's 32-bit slot offsets")
+        template = a.new_empty(()).expand((sh, k) + trail)
+        entry = (template, [k, n, sh, row_bytes], {},
+                 _fn("exchange", "rtpu_halo_pack"))
+    if len(_HALO_SIGS) >= _SIG_CAP:
+        _HALO_SIGS.clear()
+    _HALO_SIGS[key] = entry
+    return entry
+
+
+def _plan_array(values):
+    """``values`` as a C ``int64_t`` array: ``(its address, the array)``,
+    the array kept alive beside the address the launches pass."""
+    arr = (ctypes.c_int64 * len(values))(*values)
+    return ctypes.addressof(arr), arr
+
+
+def halo_pack(a, send_idx):
+    """K11 halo send page: rows ``send_idx`` (int32 ``[S*h]``) of the
+    local leaf ``a [k, n_loc, *trail]`` (any dtype) → slot-major ``[S*h,
+    k, *trail]``."""
+    try:
+        key = (a.shape, a.stride(), a.dtype, a.device, send_idx.shape,
+               send_idx.stride(), send_idx.dtype, send_idx.device)
+        sig = _HALO_SIGS.get(key, False)
+    except AttributeError:          # not a tensor: the full check raises
+        key, sig = None, False
+    if sig is False:
+        sig = _halo_signature(key, a, send_idx)
+    if SAMPLES is not None:
+        _keep("halo_pack", a.numel(), a, send_idx)
+    if sig is None:
         return halo_pack_plain(a, send_idx)
-    k, n = a.shape[0], a.shape[1]
-    sh = send_idx.shape[0]
-    out = torch.empty((sh, k) + tuple(a.shape[2:]), dtype=a.dtype,
-                      device=a.device)
-    row_bytes = a[0, 0].numel() * a.element_size() if k * n else 0
-    err = _fn("exchange", "rtpu_halo_pack")(
-        k, n, sh, row_bytes, _ptr(send_idx), _ptr(a), _ptr(out), _stream(a))
-    _launch(name, err)
+    template, dims, plans, fn = sig
+    out = torch.empty_like(template)
+    src, dst = a.data_ptr(), out.data_ptr()
+    low = (src | dst) & 15
+    plan = plans.get(low)
+    if plan is None:
+        k, _, sh, row_bytes = dims
+        plan = plans[low] = _plan_array(dims + list(halo_plan(
+            k, sh, row_bytes, low & -low if low else 16)))
+    err = fn(plan[0], send_idx.data_ptr(), src, dst, _stream(a))
+    _launch("halo_pack", err)
     return out
 
 
@@ -123,8 +242,8 @@ def frontier_count(changed) -> FrontierCount:
     scratch = torch.empty(2 * g + 1, dtype=torch.int64, device=changed.device)
     counts, offsets, total = scratch[:g], scratch[g:2 * g], scratch[2 * g:]
     err = _fn("exchange", "rtpu_frontier_count")(
-        n, _ptr(changed), _ptr(counts), _ptr(offsets), _ptr(total),
-        _stream(changed))
+        n, changed.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+        total.data_ptr(), _stream(changed))
     _launch(name, err, launched=2)
     return FrontierCount(int(total.item()), offsets)
 
@@ -180,9 +299,9 @@ def frontier_compact(values, changed, bucket: int, identity,
                           dtype=values.dtype, device=values.device)
     err = _fn("exchange", "rtpu_frontier_compact")(
         n, bucket, count, f, values.element_size(),
-        _ident_bits(identity, values.dtype), _ptr(changed),
-        _ptr(counted.offsets), _ptr(values), _ptr(out_idx), _ptr(out_val),
-        _stream(values))
+        _ident_bits(identity, values.dtype),
+        changed.data_ptr(), counted.offsets.data_ptr(), values.data_ptr(),
+        out_idx.data_ptr(), out_val.data_ptr(), _stream(values))
     _launch(name, err)
     return out_idx, out_val
 
@@ -199,15 +318,36 @@ def frontier_merge_min_plain(replica, idx, val, counts):
     return replica
 
 
-def frontier_merge_min(replica, idx, val, counts):
-    """K13 merge: ``replica [N, *trail]`` min-merged IN PLACE with the
-    ``R`` gathered slices ``idx int64 [R*B]`` / ``val [R*B, *trail]``, the
-    first ``counts[r]`` slots of slice r live (``counts`` int64 ``[R]``).
-    Rows must have one owner (no row named by two live slots)."""
+def merge_plan(R: int, bucket: int, f: int):
+    """The launch plan of one ``rtpu_frontier_merge_min`` call: ``(lanes,
+    tile, grid_x)`` — ``lanes`` threads a slot (the row's elements, to a
+    power of two, at most a warp), a tile of one pass's slots
+    (``THREADS // lanes``) a block, and the grid's x the tiles of one
+    slice (its y is the slice)."""
+    lanes = _lanes(f)
+    tile = THREADS // lanes
+    return lanes, tile, (-(-bucket // tile) if R * bucket * f else 0)
+
+
+#: frontier_merge_min signature → None (CPU: the twin) or (its plan
+#: array's address, the array, the C entry point)
+_MERGE_SIGS: dict = {}
+
+
+def _merge_signature(key, replica, idx, val, counts):
     name = "frontier_merge_min"
+    for what, t in (("replica", replica), ("idx", idx), ("val", val),
+                    ("counts", counts)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} is {type(t).__name__}, want a "
+                            "tensor")
     n = replica.shape[0]
     R = counts.shape[0]
-    _expect(name, counts, "counts", (torch.int64,), (R,))
+    # the counts may be a strided column (``counts[:, 0]`` of the
+    # all-gathered [R, 2]); everything else is contiguous
+    if counts.dim() != 1 or counts.dtype != torch.int64:
+        raise TypeError(f"{name}: counts has dtype {counts.dtype} and shape "
+                        f"{tuple(counts.shape)}, want int64 [R]")
     _expect(name, idx, "idx", (torch.int64,), (idx.shape[0],))
     if R and idx.shape[0] % R:
         raise ValueError(f"{name}: {idx.shape[0]} slots do not split into "
@@ -215,17 +355,53 @@ def frontier_merge_min(replica, idx, val, counts):
     _expect(name, val, "val", (replica.dtype,),
             (idx.shape[0],) + tuple(replica.shape[1:]))
     _expect(name, replica, "replica", (replica.dtype,), tuple(replica.shape))
-    if SAMPLES is not None:
-        _keep(name, int(counts.sum()), replica, idx, val, counts)
     if not _on_cuda(name, replica, idx, val, counts):
+        entry = None
+    else:
+        if replica.dtype not in _MERGE_DTYPES:
+            raise TypeError(f"{name}: state dtype {replica.dtype} has no "
+                            "kernel (want one of "
+                            f"{sorted(map(str, _MERGE_DTYPES))})")
+        if R > 65535:
+            raise ValueError(f"{name}: {R} slices, at most 65,535 (the "
+                             "grid's y)")
+        bucket = idx.shape[0] // R if R else 0
+        f = 1
+        for d in replica.shape[1:]:
+            f *= d
+        entry = (*_plan_array([R, bucket, f, n,
+                               _MERGE_DTYPES[replica.dtype],
+                               counts.stride(0) if R else 1,
+                               *merge_plan(R, bucket, f)]),
+                 _fn("exchange", "rtpu_frontier_merge_min"))
+    if len(_MERGE_SIGS) >= _SIG_CAP:
+        _MERGE_SIGS.clear()
+    _MERGE_SIGS[key] = entry
+    return entry
+
+
+def frontier_merge_min(replica, idx, val, counts):
+    """K13 merge: ``replica [N, *trail]`` min-merged IN PLACE with the
+    ``R`` gathered slices ``idx int64 [R*B]`` / ``val [R*B, *trail]``, the
+    first ``counts[r]`` slots of slice r live (``counts`` int64 ``[R]``,
+    any stride). Rows must have one owner (no row named by two live
+    slots)."""
+    try:
+        key = (replica.shape, replica.stride(), replica.dtype,
+               replica.device, idx.shape, idx.stride(), idx.dtype,
+               idx.device, val.shape, val.stride(), val.dtype, val.device,
+               counts.shape, counts.stride(), counts.dtype, counts.device)
+        plan = _MERGE_SIGS.get(key, False)
+    except AttributeError:          # not a tensor: the full check raises
+        key, plan = None, False
+    if plan is False:
+        plan = _merge_signature(key, replica, idx, val, counts)
+    if SAMPLES is not None:
+        _keep("frontier_merge_min", int(counts.sum()), replica, idx, val,
+              counts)
+    if plan is None:
         return frontier_merge_min_plain(replica, idx, val, counts)
-    if replica.dtype not in _MERGE_DTYPES:
-        raise TypeError(f"{name}: state dtype {replica.dtype} has no kernel "
-                        f"(want one of {sorted(map(str, _MERGE_DTYPES))})")
-    bucket = idx.shape[0] // R if R else 0
-    f = replica[0].numel() if n else 1
-    err = _fn("exchange", "rtpu_frontier_merge_min")(
-        R, bucket, f, n, _MERGE_DTYPES[replica.dtype], _ptr(counts),
-        _ptr(idx), _ptr(val), _ptr(replica), _stream(replica))
-    _launch(name, err)
+    err = plan[2](plan[0], counts.data_ptr(), idx.data_ptr(),
+                  val.data_ptr(), replica.data_ptr(), _stream(replica))
+    _launch("frontier_merge_min", err)
     return replica

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
 #: feature storage dtypes (the kernels' ``fdtype`` codes)
 FEATURE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,8 +128,8 @@ def propagate_round(H, edges, e_lat, e_alive, lo: int, nowin: bool,
     err = _fn("features", "rtpu_feature_propagate")(
         n_pad, F, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize, int(lo),
         int(nowin), float(self_weight), float(1.0 - self_weight),
-        _ptr(edges.in_indptr), _ptr(edges.e_src), _ptr(e_lat),
-        _ptr(e_alive), _ptr(H), _ptr(out), _stream(H))
+        edges.in_indptr.data_ptr(), edges.e_src.data_ptr(), e_lat.data_ptr(),
+        e_alive.data_ptr(), H.data_ptr(), out.data_ptr(), _stream(H))
     _launch(name, err)
     return out
 
@@ -192,10 +192,11 @@ def propagate_round_binned(H, be, e_lat, e_alive, lo: int, nowin: bool,
     vals = torch.empty((be.U, F), dtype=H.dtype, device=H.device)
     launched = ctypes.c_int64(0)
     err = _fn("features", "rtpu_feature_propagate_binned")(
-        n_pad, F, be.U, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize,
-        int(lo), int(nowin), float(self_weight), float(1.0 - self_weight),
-        _ptr(be.in_indptr), _ptr(be.in_order), _ptr(be.perm), _ptr(be.slot),
-        _ptr(be.u_src), _ptr(e_lat), _ptr(e_alive), _ptr(H), _ptr(vals),
-        _ptr(out), _stream(H), ctypes.byref(launched))
+        n_pad, F, be.U, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize, int(lo),
+        int(nowin), float(self_weight), float(1.0 - self_weight),
+        be.in_indptr.data_ptr(), be.in_order.data_ptr(), be.perm.data_ptr(),
+        be.slot.data_ptr(), be.u_src.data_ptr(), e_lat.data_ptr(),
+        e_alive.data_ptr(), H.data_ptr(), vals.data_ptr(), out.data_ptr(),
+        _stream(H), ctypes.byref(launched))
     _launch(name, err, launched.value)
     return out

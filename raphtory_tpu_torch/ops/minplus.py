@@ -24,7 +24,7 @@ import torch
 import ctypes
 
 from . import columns
-from .columns import (_check_binned, _expect, _fn, _launch, _on_cuda, _ptr,
+from .columns import (_check_binned, _expect, _fn, _launch, _on_cuda,
                       _stream)
 
 I32_MAX = 2**31 - 1
@@ -102,10 +102,12 @@ def _launch_args(name, st: MinState, me, mv, edges):
     _expect(name, st.busy, "busy", (torch.int32,),
             (columns.update_grid(*st.cur.shape), st.cur.shape[1]))
     _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
-    return (_ptr(edges.in_indptr), _ptr(edges.e_src), _ptr(edges.out_indptr),
-            _ptr(edges.out_perm), _ptr(edges.e_dst), _ptr(me), _ptr(mv),
-            _ptr(st.cur), _ptr(st.nxt), _ptr(st.halted), _ptr(st.done),
-            _ptr(st.busy), _ptr(st.ticket), _stream(st.cur))
+    return (edges.in_indptr.data_ptr(), edges.e_src.data_ptr(),
+            edges.out_indptr.data_ptr(), edges.out_perm.data_ptr(),
+            edges.e_dst.data_ptr(), me.data_ptr(), mv.data_ptr(),
+            st.cur.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
+            st.done.data_ptr(), st.busy.data_ptr(), st.ticket.data_ptr(),
+            _stream(st.cur))
 
 
 def _tensors(st: MinState, me, mv, edges):
@@ -174,7 +176,7 @@ def minplus_superstep(st: MinState, me, mv, edges, directed: bool,
         return minplus_superstep_plain(st, me, mv, edges, directed, ew, W)
     err = _fn("minplus_columns", "rtpu_minplus_superstep")(
         n, C, W, H, columns.update_grid(n, C), int(bool(directed)),
-        None if ew is None else _ptr(ew),
+        None if ew is None else ew.data_ptr(),
         *_launch_args(name, st, me, mv, edges))
     _launch(name, err)
     st.cur, st.nxt = st.nxt, st.cur
@@ -219,13 +221,14 @@ def _binned_args(name, st: MinState, me, mv, be):
                        device=st.cur.device)
 
     def opt(t):
-        return None if t is None else _ptr(t)
+        return None if t is None else t.data_ptr()
 
-    return (_ptr(be.in_indptr), _ptr(be.in_order), _ptr(be.b_src),
-            _ptr(be.slot), _ptr(be.u_src), opt(be.out_indptr),
-            opt(be.out_order), _ptr(be.b_dst), _ptr(me), _ptr(mv),
-            _ptr(st.cur), _ptr(vals), _ptr(st.nxt), _ptr(st.halted),
-            _ptr(st.done), _ptr(st.busy), _ptr(st.ticket), _stream(st.cur))
+    return (be.in_indptr.data_ptr(), be.in_order.data_ptr(),
+            be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
+            opt(be.out_indptr), opt(be.out_order), be.b_dst.data_ptr(),
+            me.data_ptr(), mv.data_ptr(), st.cur.data_ptr(), vals.data_ptr(),
+            st.nxt.data_ptr(), st.halted.data_ptr(), st.done.data_ptr(),
+            st.busy.data_ptr(), st.ticket.data_ptr(), _stream(st.cur))
 
 
 def _binned_tensors(st: MinState, me, mv, be):
@@ -295,7 +298,7 @@ def binned_minplus_superstep(st: MinState, me, mv, be, directed: bool,
     launched = ctypes.c_int64(0)
     err = _fn("minplus_columns", "rtpu_binned_minplus_superstep")(
         n, C, W, H, columns.update_grid(n, C), int(bool(directed)), be.U,
-        None if ew is None else _ptr(ew),
+        None if ew is None else ew.data_ptr(),
         *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
     _launch(name, err, launched.value)
     st.cur, st.nxt = st.nxt, st.cur

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
 _TIME_DTYPES = (torch.int32, torch.int64)
 
@@ -78,7 +78,7 @@ def apply_delta_chunk(bufs, chunk) -> None:
         return apply_delta_chunk_plain(bufs, chunk)
     err = _fn("sweep", "rtpu_apply_delta_chunk")(
         n_pad, m_pad, cap_v, cap_e, tdt.itemsize,
-        *(_ptr(t) for t in bufs), *(_ptr(t) for t in chunk),
+        *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in chunk),
         _stream(bufs[0]))
     _launch(name, err)
 
@@ -121,9 +121,9 @@ def window_masks(v_lat, v_alive, e_lat, e_alive, T: int, windows):
     v_out = torch.empty((k, n), dtype=torch.bool, device=v_lat.device)
     e_out = torch.empty((k, m), dtype=torch.bool, device=v_lat.device)
     err = _fn("sweep", "rtpu_window_masks")(
-        k, n, m, tdt.itemsize, _ptr(v_lat), _ptr(v_alive), _ptr(e_lat),
-        _ptr(e_alive), _ptr(lo), _ptr(nowin), _ptr(v_out), _ptr(e_out),
-        _stream(v_lat))
+        k, n, m, tdt.itemsize, v_lat.data_ptr(), v_alive.data_ptr(),
+        e_lat.data_ptr(), e_alive.data_ptr(), lo.data_ptr(), nowin.data_ptr(),
+        v_out.data_ptr(), e_out.data_ptr(), _stream(v_lat))
     _launch(name, err)
     return v_out, e_out
 
@@ -151,6 +151,6 @@ def unpack_mask_bits(packed):
     out = torch.empty((rows, nbytes * 8), dtype=torch.bool,
                       device=packed.device)
     err = _fn("sweep", "rtpu_unpack_mask_bits")(
-        rows, nbytes, _ptr(packed), _ptr(out), _stream(packed))
+        rows, nbytes, packed.data_ptr(), out.data_ptr(), _stream(packed))
     _launch(name, err)
     return out

@@ -48,7 +48,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .columns import _expect, _fn, _launch, _on_cuda, _ptr, _stream
+from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
 _OPS = {"sum": 0, "min": 1, "max": 2}
 #: payload dtypes the kernel takes (the twin takes any)
@@ -137,9 +137,10 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     err = _fn("segment", "rtpu_segment_combine")(
-        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype], _ptr(csr.indptr),
-        None if csr.perm is None else _ptr(csr.perm), _ptr(data), _ptr(mask),
-        _ptr(out), _stream(data))
+        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
+        csr.indptr.data_ptr(),
+        None if csr.perm is None else csr.perm.data_ptr(), data.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), _stream(data))
     _launch(name, err)
     return out
 
@@ -228,9 +229,9 @@ def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
     # w*m + indptr[r] .. (disjoint runs, so one buffer serves every row)
     scratch = torch.empty(k * m, dtype=torch.int32, device=values.device)
     err = _fn("segment", "rtpu_segment_mode")(
-        k, n, m, int(default), _ptr(seg.indptr),
-        None if seg.perm is None else _ptr(seg.perm), _ptr(values),
-        _ptr(mask), _ptr(scratch), _ptr(out), _stream(values))
+        k, n, m, int(default), seg.indptr.data_ptr(),
+        None if seg.perm is None else seg.perm.data_ptr(), values.data_ptr(),
+        mask.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(values))
     _launch(name, err)
     return out
 
@@ -341,10 +342,11 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     err = _fn("segment", "rtpu_partition_reduce")(
-        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype], _ptr(walk.indptr),
-        _ptr(walk.order), None if walk.perm is None else _ptr(walk.perm),
-        None if walk.valid is None else _ptr(walk.valid), _ptr(data),
-        _ptr(mask), _ptr(out), _stream(data))
+        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
+        walk.indptr.data_ptr(), walk.order.data_ptr(),
+        None if walk.perm is None else walk.perm.data_ptr(),
+        None if walk.valid is None else walk.valid.data_ptr(), data.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), _stream(data))
     _launch(name, err)
     return out
 

@@ -305,8 +305,7 @@ def run_sparse(program: VertexProgram, view, mesh, sv, wlist,
         # min-merge every rank's slice into the replica: identity pads and
         # own rows are no-ops and merge order cannot matter
         base = leaves(state)[0].reshape((k * n_pad,) + trailing).clone()
-        frontier_merge_min(base, idx_all, val_all,
-                           counts[:, 0].contiguous())
+        frontier_merge_min(base, idx_all, val_all, counts[:, 0])
         merged = base.reshape((k, n_pad) + trailing)
         state = tree_map(lambda _: merged, state)
         rows_step = B * n_procs

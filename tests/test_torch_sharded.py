@@ -14,9 +14,20 @@ equal to the port's single-device ``bsp.run`` and to the reference's but
 for the documented float-noise case (``test_torch_bsp.
 assert_pagerank_steps``). Every rank holds the same result. Also the
 host partition (``partition_view``, ``_build_halo``) bitwise, and the
-spawner's failure path."""
+spawner's failure path.
 
+The test session's rank groups start one after another
+(``one_group_at_a_time``): under pytest-xdist every worker holds the JAX
+package's 8 virtual devices, and several groups of 4 rank interpreters at
+once beside them are what a loaded machine does not need."""
+
+import contextlib
 import dataclasses
+import fcntl
+import os
+import tempfile
+import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -30,7 +41,7 @@ from raphtory_tpu.algorithms import LabelPropagation as JLPA
 from raphtory_tpu.algorithms import PageRank as JPageRank
 from raphtory_tpu.core.snapshot import build_view as jbuild_view
 from raphtory_tpu.parallel import sharded as jsharded
-from raphtory_tpu_torch.cluster.bootstrap import spawn
+from raphtory_tpu_torch.cluster.bootstrap import _machine, spawn
 from raphtory_tpu_torch.core.snapshot import build_view
 from raphtory_tpu_torch.engine import bsp
 from raphtory_tpu_torch.interop import (event_log_from_arrays,
@@ -79,12 +90,48 @@ def jax_mesh(S, W):
     return jsharded.make_mesh(S, W, devices=jax.devices()[:S * W])
 
 
+def _groups_base() -> Path:
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", str(os.getpid()))
+    return Path(tempfile.gettempdir()) / f"rtpu_rank_groups_{run}"
+
+
+def _trace(what: str) -> None:
+    test = os.environ.get("PYTEST_CURRENT_TEST", "-").split(" ")[0]
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "-")
+    with open(f"{_groups_base()}.log", "a") as log:
+        log.write(f"{time.strftime('%H:%M:%S')} {worker} {what} {test}: "
+                  f"{_machine()}\n")
+
+
+@contextlib.contextmanager
+def one_group_at_a_time():
+    """Hold the test session's rank-group lock (a file lock shared by the
+    session's pytest-xdist workers), so that its groups of ranks run one
+    after another. Each group's start and end, with the machine's free
+    memory and load, go to ``rtpu_rank_groups_<run>.log`` beside the lock
+    in the temp directory: a worker lost inside a group leaves a start
+    with no end, and the memory the machine had left."""
+    with open(f"{_groups_base()}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            _trace("start")
+            yield
+        except BaseException:
+            _trace("raised")
+            raise
+        else:
+            _trace("end")
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def run_ranks(logs, requests, timeout=240, world=4, whole=False):
     """Spawn ``world`` gloo CPU ranks once for ``requests``: rank 0's
     results (``whole``: all rank 0 returned), after checking every rank
     got the same."""
-    out = spawn(TARGET, world, ({"logs": logs, "requests": requests},),
-                timeout=timeout, device="cpu")
+    with one_group_at_a_time():
+        out = spawn(TARGET, world, ({"logs": logs, "requests": requests},),
+                    timeout=timeout, device="cpu")
     for other in out[1:]:
         for a, b in zip(out[0]["results"], other["results"]):
             assert a.keys() == b.keys()
@@ -209,9 +256,56 @@ def test_build_halo_matches_reference():
 def test_failing_rank_stops_the_group():
     """A rank that raises brings every rank down, and the spawner raises
     with its error, well inside the timeout."""
-    with pytest.raises(RuntimeError, match="requested failure"):
+    with one_group_at_a_time(), \
+            pytest.raises(RuntimeError, match="requested failure"):
         spawn(TARGET, 2, ({"requests": [dict(op="fail", rank=1)]},),
               timeout=60, device="cpu")
+
+
+def test_rank_groups_leave_a_trace():
+    """Every group run under the lock appends its start and its end (or
+    that it raised) with the machine's memory and load to the session's
+    trace."""
+    log = Path(f"{_groups_base()}.log")
+    before = log.read_text() if log.exists() else ""
+    with pytest.raises(RuntimeError, match="inside"):
+        with one_group_at_a_time():
+            raise RuntimeError("inside")
+    with one_group_at_a_time():
+        pass
+    new = log.read_text()[len(before):].splitlines()
+    mine = [line for line in new
+            if "test_rank_groups_leave_a_trace" in line]
+    assert [line.split()[2] for line in mine] == ["start", "raised",
+                                                 "start", "end"]
+    assert all("MemAvailable" in line or "not readable" in line
+               for line in mine)
+
+
+def test_a_rank_killed_from_outside_is_named():
+    """A rank that SIGKILL ends (here each rank sends it to itself once
+    it has joined, as the out-of-memory killer would) is reported as
+    killed from outside the group, with the machine's free memory, even
+    when the other rank raised first on losing its peer."""
+    with one_group_at_a_time(), pytest.raises(
+            RuntimeError, match="(?s)outside the group.*The machine: "
+            "(MemAvailable|memory and load not readable).*"
+            "rank [01] \\(killed by SIGKILL\\)"):
+        spawn("signal:raise_signal", 2, (9,), timeout=60, device="cpu")
+
+
+def test_spawn_diagnosis_reads_the_exit_codes():
+    from raphtory_tpu_torch.cluster import bootstrap
+
+    assert bootstrap._ended(None) == "still running, stopped by spawn"
+    assert bootstrap._ended(-9) == "killed by SIGKILL"
+    assert bootstrap._ended(1) == "exit 1"
+    assert "outside the group" in bootstrap._diagnosis([0, -9, None])
+    # a peer that raised on losing the killed rank does not hide the kill
+    assert "outside the group" in bootstrap._diagnosis([1, -9, None])
+    # a rank's own crash is named in its tail, not as a kill from outside
+    assert "outside the group" not in bootstrap._diagnosis([1, -11, None])
+    assert "The machine:" in bootstrap._diagnosis([None, None])
 
 
 def test_mesh_shape_must_match_the_ranks():
