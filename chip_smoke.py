@@ -98,9 +98,12 @@ printing one JSON line:
               ``FeatureAggregator`` on one ``DeviceSweep`` (K10, K9a):
               views/s, fold / dispatch seconds, K10 ms a round, traffic
               bytes and flops a call, peak memory, the resolved spec; every
-              row finite and unit norm; K10 against its twin at this shape
-              (f32 max abs err; bf16 elements that differ, max ulps);
-              ``torch.sparse.mm`` timed at both windows as the yardstick.
+              row finite and unit norm; K10 and K10-P (one launch a round
+              each) against their twins at this shape (f32 max abs err;
+              bf16 elements that differ, max ulps), K10-P bitwise K10 at
+              the day and the month window; both timed at both windows
+              with the row gathers' GB/s, and ``torch.sparse.mm`` timed
+              at both windows as the yardstick, in the same call.
 16. features_gab — the headline GAB log, F 128, f32 and bf16, with
               ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P): card against the
               CPU run (f32 atol 1e-6, bf16 2 ulps), binned against
@@ -142,11 +145,12 @@ printing one JSON line:
               (a sync before and after it). ``halo_pack``,
               ``frontier_compact`` and ``frontier_merge_min`` timed and
               held against their twins at the inputs the ranks gave them;
-              ``halo_pack`` and ``frontier_merge_min`` also at the
-              deployment shape (the ``scale_bulk`` graph's vertex state on
-              4 ranks: its halo page from ``_build_halo``, a CC replica
-              of 8 x 5,308,416 rows with 1 % and 20 % of each rank's rows
-              live), each timed beside its library call in alternating
+              each also at the deployment shape (the ``scale_bulk``
+              graph's vertex state on 4 ranks: its halo page from
+              ``_build_halo``, a CC replica of 8 x 5,308,416 rows with 1 %
+              and 20 % of each rank's rows live, a rank's 8 x 1,327,104
+              rows with 1 % and 20 % changed), each timed beside its
+              library call in alternating
               rounds (the median of 7 batches of 200 calls: the card's
               timeline and, over the same batch, the host clock) and its
               device time taken from a profiler trace, and bitwise in
@@ -2193,17 +2197,18 @@ def bf16_ulps(torch, got, want):
     return (got - want).abs() / torch.maximum(ulp, floor)
 
 
-def feature_bounds(torch, fa, H, binned_be=None):
+def feature_bounds(torch, fa, H, binned: bool):
     """(bytes, operations) of one round: H read and written once, the edge
-    tables and masks of the real edges read once (CSR, sources or the
-    binned walk / perm / slot / buckets' sources, times, alive flags),
-    one add a live edge and feature plus the per-row epilogue."""
+    metadata of the real edges read once — the CSR, each edge's time and
+    alive flag, and its source (K10: ``e_src``, 4 bytes) or its walk pair
+    (K10-P: ``binned_walk``'s source row and edge, 8 bytes, which carry
+    ``u_src[slot[s]]`` and ``perm[s]``) — one add a live edge and feature
+    plus the per-row epilogue."""
     ds = fa.ds
     e_lat, e_alive = ds.edge_state
     fb, tb = H.element_size(), e_lat.element_size()
-    nbytes = 2 * H.numel() * fb + (ds.n_pad + 1) * 8 + ds.m * (4 + tb + 1)
-    if binned_be is not None:
-        nbytes += ds.m * 8 + binned_be.U * 4    # walk order + slot, u_src
+    nbytes = (2 * H.numel() * fb + (ds.n_pad + 1) * 8
+              + ds.m * ((8 if binned else 4) + tb + 1))
     return nbytes, fa.flops(1)
 
 
@@ -2263,9 +2268,8 @@ def phase_features(torch, np, columns, dev):
     kernel = "feature_propagate" if spec is None \
         else "feature_propagate_binned"
     check_launched("features", launches, (kernel, "apply_delta_chunk"))
-    # K10 one launch a round, K10-P two (the bucket fill, the reduce)
-    if launches[kernel] != len(calls) * FEAT_ROUNDS * (1 + (spec
-                                                          is not None)):
+    # K10 and K10-P: one launch a round each
+    if launches[kernel] != len(calls) * FEAT_ROUNDS:
         raise AssertionError(f"features: {launches[kernel]} K10 launches "
                              f"for {len(calls)} calls")
     for H in outs:
@@ -2317,17 +2321,31 @@ def phase_features(torch, np, columns, dev):
                                  f"(f32 {f32_err}, bf16 {ulps} ulps)")
         twin[name] = dict(f32_max_abs_err=f32_err, bf16_elements_differ=differ,
                           bf16_max_ulps=ulps,
-                          bound=bound(*feature_bounds(torch, fa, Hb, b_e)))
-    # the two routes add in one order: equal on the card
-    for v in win.values():
-        if not torch.equal(k10["feature_propagate"][0](Hb, *v),
-                           k10["feature_propagate_binned"][0](Hb, *v)):
-            raise AssertionError("features: K10-P differs from K10")
+                          bound=bound(*feature_bounds(torch, fa, Hb,
+                                                      b_e is not None)))
+    # the two routes add in one order: equal on the card, K10-P's rows in
+    # flight kept either way (registers or a cp.async ring), each timed
+    loads_ms = {}
+    for way in ("batch", "ring"):
+        ops_features.BINNED_LOADS = way
+        for v in win.values():
+            if not torch.equal(k10["feature_propagate"][0](Hb, *v),
+                               k10["feature_propagate_binned"][0](Hb, *v)):
+                raise AssertionError(f"features: K10-P ({way}) differs "
+                                     "from K10")
+        loads_ms[way] = {k: cuda_ms(torch, lambda: k10[
+            "feature_propagate_binned"][0](Hb, *v), iters=10)
+            for k, v in win.items()}
+    ops_features.BINNED_LOADS = "batch"
     library_ms = sparse_library_ms(torch, fa, *win["day"], Hb)
     library_ms_month = sparse_library_ms(torch, fa, *win["month"], Hb)
     path_ms = times[kernel]
     live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
             for k, v in win.items()}
+    # the row gathers' rate: live edges x row bytes over a round
+    gather_gbps = {name: {k: live[k] * FEAT_F * Hb.element_size()
+                          / (t[k] * 1e6) for k in win}
+                   for name, t in times.items()}
     emit("features", n_vertices=FEAT_V, n_edge_events=FEAT_E, n=ds.n,
          m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad, F=FEAT_F,
          rounds=FEAT_ROUNDS, dtype="bfloat16", tdtype=str(e_lat.dtype),
@@ -2336,7 +2354,8 @@ def phase_features(torch, np, columns, dev):
          fold_s=ds.fold_seconds - fold0,
          dispatch_s=ds.dispatch_seconds - disp0,
          spec=None if spec is None else spec._asdict(), path_kernel=kernel,
-         ms_per_round=times, live_edges=live,
+         ms_per_round=times, live_edges=live, gather_gb_per_s=gather_gbps,
+         binned_loads_ms=loads_ms, walk_bytes=ds.m * 8,
          # the path kernel's rounds over the timed sweep, half of the calls
          # at each window
          kernel_share_of_sweep=(path_ms["day"] + path_ms["month"])
@@ -2955,14 +2974,68 @@ def merge_entry(torch, exchange, rep, idx, val, counts, what: str) -> dict:
               f"{bucket}, {n_live} live ({what})")
 
 
+def compact_entry(torch, exchange, vals, changed, B, ident,
+                  what: str) -> dict:
+    """``frontier_compact`` at one shape as the sparse route calls it (the
+    count-and-compact pass, then the pad): bitwise against its twin and,
+    over the set rows, against ``nonzero`` + ``index_select`` (the library
+    call, which reads its count back); timed beside the twin, and beside
+    the library call in one ``paired_ms`` loop, the count pass included;
+    the bound from the bytes (the mask read once, the set rows' values read
+    once, the bucket written once) and, beside it, the same with the set
+    rows' values counted as the 32-byte sectors they fall in."""
+    counted = exchange.frontier_count(changed, vals)
+    gi, gv = exchange.frontier_compact(vals, changed, B, ident, counted)
+    wi, wv = exchange.frontier_compact_plain(vals, changed, B, ident)
+    li = torch.nonzero(changed).reshape(-1)
+    lv = torch.index_select(vals, 0, li)
+    cnt = li.numel()
+    if not (counted.total == cnt and torch.equal(gi, wi)
+            and bits_equal(torch, gv, wv) and torch.equal(gi[:cnt], li)
+            and bits_equal(torch, gv[:cnt], lv)):
+        raise AssertionError(f"frontier_compact differs from its twin or "
+                             f"nonzero + index_select ({what})")
+    n = changed.shape[0]
+    row_b = vals[0].numel() * vals.element_size() if n else 0
+    sectors = torch.unique(li * row_b // 32).numel() if row_b < 32 else 0
+    out_b = B * (8 + row_b)
+    bound_ms, bound_by = bound(n + cnt * row_b + out_b)
+
+    def kern():
+        return exchange.frontier_compact(
+            vals, changed, B, ident, exchange.frontier_count(changed, vals))
+
+    def lib():
+        idx = torch.nonzero(changed).reshape(-1)
+        return idx, torch.index_select(vals, 0, idx)
+
+    return dict(
+        source="raphtory_tpu_torch/csrc/exchange.cu",
+        replaces="raphtory_tpu/parallel/frontier.py:459",
+        max_abs_err=max(exact_err(gi, wi), exact_err(gv, wv)),
+        plain_ms=cuda_ms(torch, lambda: exchange.frontier_compact_plain(
+            vals, changed, B, ident)),
+        **paired_ms(torch, kern, lib),
+        bound_ms=bound_ms, bound_by=bound_by,
+        sector_bound_ms=(bound(n + sectors * 32 + out_b)[0]
+                         if sectors else bound_ms),
+        shape=f"N {n} {vals.dtype}, {cnt} changed, bucket {B} ({what})")
+
+
 def exchange_edge_cases(torch, exchange, dev) -> int:
-    """``halo_pack`` and ``frontier_merge_min`` held bitwise against their
-    twins on the card in the cases the mesh shapes do not reach: every
+    """``halo_pack``, ``frontier_compact`` and ``frontier_merge_min`` held
+    bitwise against their twins on the card in the cases the mesh shapes
+    do not reach: every
     word width (16, 8, 4, 2 and 1 bytes), a trailing dimension, rows too
     wide to stage, a leaf that is not 16-byte aligned, pad slots naming
     row n-1, empty pages; int32 / int64 / float32 / float64 merges with a
     trailing dimension, NaN on either side, a slice with count 0, a
-    bucket of 0 and strided counts. Returns the cases checked."""
+    bucket of 0 and strided counts; compactions of count 0 and count N,
+    into a bucket of exactly the count, with trailing dimensions, a mask
+    that is not 16-byte aligned, and back to back. Returns the cases
+    checked."""
+    from raphtory_tpu_torch.ops.partition import frontier_bucket
+
     g = torch.Generator(device=dev).manual_seed(5)
     checked = 0
 
@@ -3028,6 +3101,31 @@ def exchange_edge_cases(torch, exchange, dev) -> int:
                 raise AssertionError(f"frontier_merge_min differs from its "
                                      f"twin: {dtype}, trail {trail}")
             checked += 1
+    # the compaction: count 0, count N, a bucket of exactly the count,
+    # trailing dimensions, a mask off 16 bytes (the flags' byte loads), and
+    # two calls back to back on one scratch (a new epoch each)
+    for n, trail, dtype, density, offset in (
+            (98_304, (), torch.int32, 0.0, 0),
+            (98_304, (), torch.int32, 1.0, 0),
+            (100_003, (3,), torch.float32, 0.3, 1),
+            (4_097, (2,), torch.int64, 0.5, 0),
+            (77_777, (), torch.float64, 0.05, 7)):
+        ch = (torch.rand(n + offset, generator=g, device=dev)
+              < density)[offset:]
+        vals = leaf((n,) + trail, dtype)
+        ident = exchange.min_identity(dtype)
+        cnt = int(ch.sum())
+        for B in (cnt, frontier_bucket(cnt, cap=n)):
+            for _ in range(2):
+                got = exchange.frontier_compact(
+                    vals, ch, B, ident, exchange.frontier_count(ch, vals))
+                want = exchange.frontier_compact_plain(vals, ch, B, ident)
+                if not (torch.equal(got[0], want[0])
+                        and bits_equal(torch, got[1], want[1])):
+                    raise AssertionError(
+                        f"frontier_compact differs from its twin: N {n}, "
+                        f"trail {trail}, {dtype}, {cnt} set, bucket {B}")
+                checked += 1
     rep = leaf((100,), torch.int32)
     got = rep.clone()
     exchange.frontier_merge_min(
@@ -3108,12 +3206,28 @@ def deploy_merge(torch, np, exchange, density: float, dev):
     return rep, idx.reshape(-1), val.reshape(-1), counts
 
 
+def deploy_compact(torch, exchange, density: float, dev):
+    """A rank's CC state at the deployment shape, as the sparse route
+    compacts it: ``k * n_loc`` = 8 x 1,327,104 int32 rows, about
+    ``density`` of them changed, into a bucket of ``frontier_bucket(count,
+    cap=N)`` slots. Returns ``(values, changed, bucket, identity)``."""
+    from raphtory_tpu_torch.ops.partition import frontier_bucket
+
+    N = DEPLOY["windows"] * (DEPLOY["n_pad"] // DEPLOY["ranks"])
+    g = torch.Generator(device=dev).manual_seed(int(density * 1000) + 1)
+    vals = torch.randint(0, 1 << 30, (N,), generator=g, device=dev,
+                         dtype=torch.int32)
+    changed = torch.rand(N, generator=g, device=dev) < density
+    return (vals, changed, frontier_bucket(int(changed.sum()), cap=N),
+            exchange.min_identity(torch.int32))
+
+
 def mesh_kernels(torch, np, samples, dev):
     """``halo_pack``, ``frontier_compact`` and ``frontier_merge_min`` at
     the largest inputs rank 0 gave them in ``mesh_ranks``, against their
-    twins (bitwise) and one library call each; ``halo_pack`` and
-    ``frontier_merge_min`` also at the deployment shape (``DEPLOY``), with
-    each call split into host and device time, and in their edge cases.
+    twins (bitwise) and one library call each, and at the deployment shape
+    (``DEPLOY``), with each call split into host and device time, and in
+    their edge cases.
     Returns ``(kernel entries, the deployment entries, edge cases
     checked, page build seconds)``."""
     from raphtory_tpu_torch.ops import exchange
@@ -3125,32 +3239,9 @@ def mesh_kernels(torch, np, samples, dev):
     a, send = (t.to(dev) for t in samples["halo_pack"][1])
     out["halo_pack"] = halo_entry(torch, exchange, a, send, "mesh path")
     vals, changed, B, ident = samples["frontier_compact"][1]
-    vals, changed = vals.to(dev), changed.to(dev)
-    counted = exchange.frontier_count(changed)
-    gi, gv = exchange.frontier_compact(vals, changed, B, ident, counted)
-    wi, wv = exchange.frontier_compact_plain(vals, changed, B, ident)
-    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
-        raise AssertionError("frontier_compact differs from its twin")
-
-    def library_compact():
-        idx = torch.nonzero(changed).reshape(-1)
-        return idx, torch.index_select(vals, 0, idx)
-
-    n, cnt = changed.shape[0], counted.total
-    row_b = vals[0].numel() * vals.element_size() if n else 0
-    out["frontier_compact"] = dict(
-        source="raphtory_tpu_torch/csrc/exchange.cu",
-        replaces="raphtory_tpu/parallel/frontier.py:459",
-        max_abs_err=max(exact_err(gi, wi), exact_err(gv, wv)),
-        ms=cuda_ms(torch, lambda: exchange.frontier_compact(
-            vals, changed, B, ident)),
-        plain_ms=cuda_ms(torch, lambda: exchange.frontier_compact_plain(
-            vals, changed, B, ident)),
-        library_ms=cuda_ms(torch, library_compact),
-        shape=f"N {n} {vals.dtype}, {cnt} changed, bucket {B}",
-        # the mask and the set rows read once, the bucket written once
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(n + cnt * row_b + B * (8 + row_b)))))
+    out["frontier_compact"] = compact_entry(
+        torch, exchange, vals.to(dev), changed.to(dev), B, ident,
+        "mesh path")
     rep, idx, val, counts = (t.to(dev) for t in
                              samples["frontier_merge_min"][1])
     out["frontier_merge_min"] = merge_entry(torch, exchange, rep, idx, val,
@@ -3170,6 +3261,10 @@ def mesh_kernels(torch, np, samples, dev):
         deploy[f"frontier_merge_min_{int(density * 100)}pct"] = merge_entry(
             torch, exchange, *args,
             f"scale_bulk CC replica on 4 ranks, {density:.0%} live")
+        args = deploy_compact(torch, exchange, density, dev)
+        deploy[f"frontier_compact_{int(density * 100)}pct"] = compact_entry(
+            torch, exchange, *args,
+            f"a rank's scale_bulk CC state, {density:.0%} changed")
         del args
     torch.cuda.empty_cache()
     return out, deploy, checked, page_s
@@ -3395,10 +3490,9 @@ def program_bounds(np, log, kernels, mesh) -> dict:
                       else kernels[name]["bound_ms"])
                for name, n in r["launches"].items() if n and (
                    name == "segment_combine" or name in MESH_KERNELS)}
-        # frontier_compact counts 3 launches a superstep: the count pass
-        # (2, reading the mask its compaction's bound already reads) and
-        # the compaction
-        runs = {name: (r["launches"][name] // 3 if name == "frontier_compact"
+        # frontier_compact counts 2 launches a superstep, whose bound is
+        # one entry's: the count-and-compact pass and the pad
+        runs = {name: (r["launches"][name] // 2 if name == "frontier_compact"
                        else r["launches"][name]) for name in per}
         out["dispatches"].append(dict(
             program=r["program"], mesh=r["mesh"], route=r["route"],

@@ -27,18 +27,31 @@
 // plan (word, lanes, tile, grid, shared bytes) comes from the wrapper,
 // computed once per input signature (ops/exchange.py `halo_plan`).
 //
-// `rtpu_frontier_count` + `rtpu_frontier_compact` replace the host
+// `rtpu_frontier_compact` + `rtpu_frontier_pad` replace the host
 // compaction of raphtory_tpu/parallel/frontier.py:458-485
-// (`np.flatnonzero(changed)` and the bucket fill): a count pass (one block
-// per 4,096-row chunk counts its set flags; one block scans the chunk
-// counts into exclusive offsets and the total, which the host reads to
-// agree the bucket length B with the other ranks), then the compaction:
-// each block walks its chunk in 256-row tiles, ranks its set rows with a
-// warp ballot and a block scan, and writes their flat indices (int64) and
-// value rows at its offset — ascending, np.flatnonzero's order, the same
-// every run. Slots [count, B) get index 0 and the min identity. No
-// atomics. Bound: bytes (a compare or a copy per element).
-//
+// (`np.flatnonzero(changed)` and the bucket fill). The first counts and
+// compacts in one pass, a decoupled look-back scan (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016):
+// each block takes a tile of 4,096 rows by an atomic ticket (so a tile
+// only ever waits on tiles that have started), reads its flags 16 a
+// thread, scans their counts in the block, publishes its count, looks
+// back over its predecessors' status words (a warp reads 32 at a time,
+// summing counts until it meets an inclusive prefix), publishes its own
+// inclusive prefix, and writes its set rows' int64 flat indices and value
+// rows at their ranks: ascending, np.flatnonzero's order, the same every
+// run. A status word carries the call's epoch beside its flag and value,
+// so words of earlier calls read as "not yet" and no launch clears them;
+// the tile with the last ticket sets the ticket back to 0 (every tile has
+// taken its own by then) and writes the total to device memory. The
+// output buffers hold N rows (the bucket never exceeds N), so the count
+// needs no read-back before the compaction: the ranks agree the bucket
+// from the device count afterwards. `rtpu_frontier_pad` then fills slots
+// [count, B) with index 0 and the min identity, reading the count from
+// device memory.
+//   Bound: bytes (the flags read once, the set rows read and written once,
+// the pads written once). The flags arrive as one 16-byte load a thread
+// where the mask is 16-byte aligned.
+
 // `rtpu_frontier_merge_min` replaces the `np.minimum.at` merge of
 // frontier.py:498-502: for each of the R gathered slices and each slot
 // below that slice's count, replica[idx] = min(replica[idx], val) with
@@ -65,14 +78,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 4096;            // rows per count/compact block
-constexpr int kScanThreads = 1024;
-
-inline int64_t blocks_for(int64_t total) {
-    int64_t b = (total + kThreads - 1) / kThreads;
-    if (b > 65535 * 8) b = 65535 * 8;
-    return b < 1 ? 1 : b;
-}
 
 template <typename W>
 __global__ void __launch_bounds__(256) halo_pack_kernel(
@@ -112,98 +117,138 @@ __global__ void __launch_bounds__(256) halo_pack_kernel(
         page[i] = sw[i];
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
+// the one-pass compaction: a tile a block, kTileThreads threads of
+// kTileRows / kTileThreads rows each
+constexpr int kTileThreads = 256;
+constexpr int kThreadRows = 16;
+constexpr int kTileRows = kTileThreads * kThreadRows;
+// a tile's status word: epoch (22 bits) | flag (2) | value (40)
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;
+constexpr unsigned long long kValueMask = (1ull << 40) - 1;
+
+__device__ __forceinline__ unsigned long long status_word(
+        unsigned long long epoch, unsigned long long flag, int64_t value) {
+    return (epoch << 42) | (flag << 40) | (unsigned long long)value;
+}
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long w) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" :: "l"(p), "l"(w)
+                 : "memory");
+}
+__device__ __forceinline__ unsigned long long load_status(
+        const unsigned long long* p) {
+    unsigned long long w;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(w) : "l"(p)
+                 : "memory");
+    return w;
 }
 
-__global__ void count_kernel(int64_t n, const uint8_t* __restrict__ changed,
-                             int64_t* __restrict__ counts) {
-    __shared__ int part[kThreads / 32];
-    const int64_t lo = (int64_t)blockIdx.x * kChunk;
-    const int64_t hi = lo + kChunk < n ? lo + kChunk : n;
-    int c = 0;
-    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) c += changed[i] != 0;
-    c = warp_sum(c);
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = c;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int64_t s = 0;
-        for (int w = 0; w < kThreads / 32; ++w) s += part[w];
-        counts[blockIdx.x] = s;
-    }
-}
-
-// one block: exclusive scan of the G chunk counts, and their total
-__global__ void scan_kernel(int64_t g, const int64_t* __restrict__ counts,
-                            int64_t* __restrict__ offsets,
-                            int64_t* __restrict__ total) {
-    __shared__ int64_t buf[kScanThreads];
-    __shared__ int64_t carry;
-    if (threadIdx.x == 0) carry = 0;
-    __syncthreads();
-    for (int64_t base = 0; base < g; base += kScanThreads) {
-        const int64_t i = base + threadIdx.x;
-        const int64_t v = i < g ? counts[i] : 0;
-        buf[threadIdx.x] = v;
-        __syncthreads();
-        // Hillis-Steele inclusive scan over the tile
-        for (int o = 1; o < kScanThreads; o <<= 1) {
-            const int64_t add = threadIdx.x >= o ? buf[threadIdx.x - o] : 0;
-            __syncthreads();
-            buf[threadIdx.x] += add;
-            __syncthreads();
-        }
-        if (i < g) offsets[i] = carry + buf[threadIdx.x] - v;
-        __syncthreads();
-        if (threadIdx.x == 0) carry += buf[kScanThreads - 1];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) *total = carry;
-}
-
+// scratch[0] the ticket, scratch[1 + t] tile t's status word
 template <typename T>
-__global__ void compact_kernel(int64_t n, int64_t bucket, int64_t count,
-                               int64_t f, uint64_t ident_bits,
-                               const uint8_t* __restrict__ changed,
-                               const int64_t* __restrict__ offsets,
-                               const T* __restrict__ values,
-                               int64_t* __restrict__ out_idx,
-                               T* __restrict__ out_val) {
-    __shared__ int warp_tot[kThreads / 32];
+__global__ void __launch_bounds__(kTileThreads) compact_kernel(
+        int64_t n, int64_t f, int64_t tiles, unsigned long long epoch,
+        const uint8_t* __restrict__ changed, const T* __restrict__ values,
+        int64_t* __restrict__ out_idx, T* __restrict__ out_val,
+        int64_t* __restrict__ count, unsigned long long* __restrict__ scratch) {
+    __shared__ int64_t s_tile, s_excl;
+    __shared__ int warp_total[kTileThreads / 32];
+    unsigned long long* status = scratch + 1;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if ((int64_t)blockIdx.x * kChunk < n) {
-        const int64_t lo = (int64_t)blockIdx.x * kChunk;
-        const int64_t hi = lo + kChunk < n ? lo + kChunk : n;
-        int64_t pos = offsets[blockIdx.x];
-        for (int64_t start = lo; start < hi; start += kThreads) {
-            const int64_t i = start + threadIdx.x;
-            const bool set = i < hi && changed[i] != 0;
-            const unsigned bal = __ballot_sync(0xffffffffu, set);
-            if (lane == 0) warp_tot[warp] = __popc(bal);
-            __syncthreads();
-            int before = 0, tile = 0;
-            for (int w = 0; w < kThreads / 32; ++w) {
-                before += w < warp ? warp_tot[w] : 0;
-                tile += warp_tot[w];
+    if (threadIdx.x == 0) {
+        const int64_t t = (int64_t)atomicAdd(scratch, 1ull);
+        if (t == tiles - 1) atomicExch(scratch, 0ull);
+        s_tile = t;
+    }
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t base = tile * kTileRows + (int64_t)threadIdx.x * kThreadRows;
+    unsigned bits = 0;                       // bit k: row base + k is set
+    if (base + kThreadRows <= n
+            && (reinterpret_cast<uintptr_t>(changed) & 15) == 0) {
+        const uint4 v = *reinterpret_cast<const uint4*>(changed + base);
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < kThreadRows; ++k)
+            bits |= ((w[k >> 2] >> (8 * (k & 3))) & 0xffu) ? 1u << k : 0u;
+    } else {
+        for (int k = 0; k < kThreadRows; ++k)
+            if (base + k < n && changed[base + k]) bits |= 1u << k;
+    }
+    // the block's exclusive scan of the threads' counts
+    const int c = __popc(bits);
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_total[warp] = incl;
+    __syncthreads();
+    int before = 0, aggregate = 0;
+    for (int w = 0; w < kTileThreads / 32; ++w) {
+        before += w < warp ? warp_total[w] : 0;
+        aggregate += warp_total[w];
+    }
+    // the look-back: the rows set in the tiles before this one
+    if (warp == 0) {
+        int64_t excl = 0;
+        if (tile == 0) {
+            if (lane == 0)
+                store_status(status, status_word(epoch, kPrefix, aggregate));
+        } else {
+            if (lane == 0)
+                store_status(status + tile,
+                             status_word(epoch, kAggregate, aggregate));
+            for (int64_t pred = tile - 1;; pred -= 32) {
+                const int64_t i = pred - lane;
+                unsigned long long w = status_word(epoch, kPrefix, 0);
+                if (i >= 0) {
+                    do {
+                        w = load_status(status + i);
+                    } while ((w >> 42) != epoch);
+                }
+                const unsigned done = __ballot_sync(
+                    0xffffffffu, ((w >> 40) & 3) == kPrefix);
+                const int cut = done ? __ffs(done) - 1 : 31;
+                int64_t v = lane <= cut ? (int64_t)(w & kValueMask) : 0;
+                for (int o = 16; o > 0; o >>= 1)
+                    v += __shfl_xor_sync(0xffffffffu, v, o);
+                excl += v;
+                if (done) break;
             }
-            if (set) {
-                const int64_t at =
-                    pos + before + __popc(bal & ((1u << lane) - 1u));
-                out_idx[at] = i;
-                for (int64_t e = 0; e < f; ++e) out_val[at * f + e] = values[i * f + e];
-            }
-            pos += tile;
-            __syncthreads();
+            if (lane == 0)
+                store_status(status + tile,
+                             status_word(epoch, kPrefix, excl + aggregate));
+        }
+        if (lane == 0) {
+            s_excl = excl;
+            if (tile == tiles - 1) *count = excl + aggregate;
         }
     }
+    __syncthreads();
+    int64_t pos = s_excl + before + incl - c;
+    while (bits) {
+        const int k = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int64_t row = base + k;
+        out_idx[pos] = row;
+        for (int64_t e = 0; e < f; ++e) out_val[pos * f + e] = values[row * f + e];
+        ++pos;
+    }
+}
+
+// slots [count, bucket): index 0 and the identity
+template <typename T>
+__global__ void pad_kernel(int64_t bucket, int64_t f, uint64_t ident_bits,
+                           const int64_t* __restrict__ count,
+                           int64_t* __restrict__ out_idx,
+                           T* __restrict__ out_val) {
     T ident;
     memcpy(&ident, &ident_bits, sizeof(T));
-    for (int64_t j = count + blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         j < bucket; j += (int64_t)gridDim.x * blockDim.x) {
-        out_idx[j] = 0;
-        for (int64_t e = 0; e < f; ++e) out_val[j * f + e] = ident;
-    }
+    const int64_t c = *count;
+    const int64_t t0 = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+    const int64_t step = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t j = c + t0; j < bucket; j += step) out_idx[j] = 0;
+    for (int64_t e = c * f + t0; e < bucket * f; e += step) out_val[e] = ident;
 }
 
 template <typename T>
@@ -293,43 +338,53 @@ int rtpu_halo_pack(const void* plan, const void* send_idx, const void* src,
     return cudaGetLastError();
 }
 
-// launches 2 kernels: the chunk counts, then their scan and total
-int rtpu_frontier_count(int64_t n, const void* changed, void* counts,
-                        void* offsets, void* total, void* stream) {
+// plan (ops/exchange.py `_count_signature`): N, F (elements a row),
+// element bytes, tiles | epoch (1 .. 2^22 - 1, new each call on this
+// scratch) | changed [N] bool, values [N, F], out_idx [>= N] int64,
+// out_val [>= N, F], count [1] int64, scratch [1 + tiles] (zeroed once)
+int rtpu_frontier_compact(const void* plan, int64_t epoch,
+                          const void* changed, const void* values,
+                          void* out_idx, void* out_val, void* count,
+                          void* scratch, void* stream) {
+    const auto* p = static_cast<const int64_t*>(plan);
+    const int64_t n = p[0], f = p[1], tiles = p[3];
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t g = n > 0 ? (n + kChunk - 1) / kChunk : 1;
-    count_kernel<<<g, kThreads, 0, s>>>(
-        n, static_cast<const uint8_t*>(changed),
-        static_cast<int64_t*>(counts));
-    scan_kernel<<<1, kScanThreads, 0, s>>>(
-        g, static_cast<const int64_t*>(counts),
-        static_cast<int64_t*>(offsets), static_cast<int64_t*>(total));
+    const auto* ch = static_cast<const uint8_t*>(changed);
+    auto* oi = static_cast<int64_t*>(out_idx);
+    auto* cnt = static_cast<int64_t*>(count);
+    auto* sc = static_cast<unsigned long long*>(scratch);
+    const auto ep = static_cast<unsigned long long>(epoch);
+    if (p[2] == 4) {
+        compact_kernel<uint32_t><<<(unsigned)tiles, kTileThreads, 0, s>>>(
+            n, f, tiles, ep, ch, static_cast<const uint32_t*>(values), oi,
+            static_cast<uint32_t*>(out_val), cnt, sc);
+    } else if (p[2] == 8) {
+        compact_kernel<uint64_t><<<(unsigned)tiles, kTileThreads, 0, s>>>(
+            n, f, tiles, ep, ch, static_cast<const uint64_t*>(values), oi,
+            static_cast<uint64_t*>(out_val), cnt, sc);
+    } else {
+        return cudaErrorInvalidValue;
+    }
     return cudaGetLastError();
 }
 
-int rtpu_frontier_compact(int64_t n, int64_t bucket, int64_t count,
-                          int64_t f, int64_t esize, int64_t ident_bits,
-                          const void* changed, const void* offsets,
-                          const void* values, void* out_idx, void* out_val,
-                          void* stream) {
+// plan (ops/exchange.py `_pad_signature`): bucket, F, element bytes, the
+// identity's bits, grid | count [1] int64, out_idx, out_val
+int rtpu_frontier_pad(const void* plan, const void* count, void* out_idx,
+                      void* out_val, void* stream) {
+    const auto* p = static_cast<const int64_t*>(plan);
+    const int64_t bucket = p[0], f = p[1], grid = p[4];
+    if (grid == 0) return cudaGetLastError();
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t g = n > 0 ? (n + kChunk - 1) / kChunk : 1;
-    const int64_t pads = bucket > count ? bucket - count : 0;
-    int64_t grid = g > blocks_for(pads) ? g : blocks_for(pads);
-    const auto bits = static_cast<uint64_t>(ident_bits);
-    const auto* ch = static_cast<const uint8_t*>(changed);
-    const auto* off = static_cast<const int64_t*>(offsets);
+    const auto bits = static_cast<uint64_t>(p[3]);
+    const auto* cnt = static_cast<const int64_t*>(count);
     auto* oi = static_cast<int64_t*>(out_idx);
-    if (esize == 4) {
-        compact_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-            n, bucket, count, f, bits, ch, off,
-            static_cast<const uint32_t*>(values), oi,
-            static_cast<uint32_t*>(out_val));
-    } else if (esize == 8) {
-        compact_kernel<uint64_t><<<grid, kThreads, 0, s>>>(
-            n, bucket, count, f, bits, ch, off,
-            static_cast<const uint64_t*>(values), oi,
-            static_cast<uint64_t*>(out_val));
+    if (p[2] == 4) {
+        pad_kernel<uint32_t><<<(unsigned)grid, kThreads, 0, s>>>(
+            bucket, f, bits, cnt, oi, static_cast<uint32_t*>(out_val));
+    } else if (p[2] == 8) {
+        pad_kernel<uint64_t><<<(unsigned)grid, kThreads, 0, s>>>(
+            bucket, f, bits, cnt, oi, static_cast<uint64_t*>(out_val));
     } else {
         return cudaErrorInvalidValue;
     }

@@ -11,9 +11,9 @@ the window mask ``alive & latest >= T - W`` is computed inside the kernel
 from the resident ``(e_lat, e_alive)`` buffers, nothing ships per call
 but the sweep's own deltas. Each round is one launch of K10
 (``ops/features.propagate_round``) over the destination CSR or, where the
-reference bins (``_pcpm_layout``), K10-P's two (bucket fill, reduce) over
-the destination-binned layout (``propagate_round_binned``). Storage is float32 or bfloat16,
-accumulation float32.
+reference bins (``_pcpm_layout``), one of K10-P over the
+destination-binned layout's walk (``propagate_round_binned``). Storage is
+float32 or bfloat16, accumulation float32.
 """
 
 from __future__ import annotations

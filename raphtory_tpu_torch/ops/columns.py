@@ -69,8 +69,8 @@ _LIBS = {
                                  "rtpu_feature_propagate_binned")),
     "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
                            "rtpu_unpack_mask_bits")),
-    "exchange": ("exchange.cu", ("rtpu_halo_pack", "rtpu_frontier_count",
-                                 "rtpu_frontier_compact",
+    "exchange": ("exchange.cu", ("rtpu_halo_pack", "rtpu_frontier_compact",
+                                 "rtpu_frontier_pad",
                                  "rtpu_frontier_merge_min")),
 }
 _ARGTYPES = {
@@ -139,19 +139,18 @@ _ARGTYPES = {
     # e_lat, e_alive, H, out, stream
     "rtpu_feature_propagate": 6 * [ctypes.c_int64] + 2 * [ctypes.c_float]
     + 7 * [ctypes.c_void_p],
-    # n_pad, F, U, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr,
-    # in_order, perm, slot, u_src, e_lat, e_alive, H, vals, out, stream |
-    # launched
+    # n_pad, F, fdtype, tbytes, lo, nowin, ring | sw, 1-sw | in_indptr,
+    # walk, e_lat, e_alive, H, out, stream
     "rtpu_feature_propagate_binned": 7 * [ctypes.c_int64]
-    + 2 * [ctypes.c_float] + 11 * [ctypes.c_void_p]
-    + [ctypes.POINTER(ctypes.c_int64)],
+    + 2 * [ctypes.c_float] + 7 * [ctypes.c_void_p],
     # plan (int64 [10]), send_idx, src, out, stream
     "rtpu_halo_pack": 5 * [ctypes.c_void_p],
-    # n | changed, counts, offsets, total, stream
-    "rtpu_frontier_count": [ctypes.c_int64] + 5 * [ctypes.c_void_p],
-    # n, B, count, F, esize, identity bits | changed, offsets, values,
-    # out_idx, out_val, stream
-    "rtpu_frontier_compact": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
+    # plan (int64 [4]), epoch | changed, values, out_idx, out_val, count,
+    # scratch, stream
+    "rtpu_frontier_compact": [ctypes.c_void_p, ctypes.c_int64]
+    + 7 * [ctypes.c_void_p],
+    # plan (int64 [5]), count, out_idx, out_val, stream
+    "rtpu_frontier_pad": 5 * [ctypes.c_void_p],
     # plan (int64 [9]), counts, idx, val, replica, stream
     "rtpu_frontier_merge_min": 6 * [ctypes.c_void_p],
 }

@@ -16,15 +16,17 @@ source.
   ``raphtory_tpu/parallel/frontier.py:458-485``: the changed rows'
   ascending flat indices (``np.flatnonzero``'s order, int64) and their
   values, padded to the agreed bucket length with index 0 and the min
-  identity. The count pass runs first, alone, because the bucket length
-  depends on every rank's count.
+  identity. On the card the first launch counts and compacts in one pass
+  into buffers of N slots and leaves the count on the device, so the
+  ranks agree the bucket length from the all-gathered counts without a
+  read-back of their own; the second pads the agreed bucket.
 * ``frontier_merge_min`` — the ``np.minimum.at`` merge of
   ``frontier.py:498-502``: every gathered slice's live slots min-merged
   into the replica in place. Each row has ONE owner, so no two live slots
   name the same row; the kernel needs no atomics and is exact for floats.
 
-``halo_pack`` and ``frontier_merge_min`` run once a superstep on small
-inputs, so their host path is kept lean: each checks its inputs in full
+The kernels run once a superstep on small inputs, so their host path is
+kept lean: each wrapper checks its inputs in full
 once per signature (shapes, dtypes, strides and devices of every tensor)
 and caches the result with the launch plan, so a later call with the same
 signature costs a dict lookup, and a call with any other signature (a
@@ -40,7 +42,7 @@ the mesh path gave them).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +70,13 @@ def _keep(name: str, size: int, *tensors) -> None:
         SAMPLES[name] = (size, tuple(t.detach().cpu().clone()
                                      if isinstance(t, torch.Tensor) else t
                                      for t in tensors))
+
+
+def _tensors(name, **tensors):
+    for what, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} is {type(t).__name__}, want a "
+                            "tensor")
 
 
 # ---------------------------------------------------------------- halo
@@ -146,10 +155,7 @@ def _halo_signature(key, a, send_idx):
     """The full checks of ``halo_pack`` (raising on a bad input), then the
     signature's cache entry."""
     name = "halo_pack"
-    for what, t in (("a", a), ("send_idx", send_idx)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: {what} is {type(t).__name__}, want a "
-                            "tensor")
+    _tensors(name, a=a, send_idx=send_idx)
     if a.dim() < 2:
         raise ValueError(f"{name}: leaf has shape {tuple(a.shape)}, want "
                          "[k, n_loc, ...]")
@@ -215,12 +221,27 @@ def halo_pack(a, send_idx):
 
 # ---------------------------------------------------------------- frontier
 
-@dataclass(frozen=True)
-class FrontierCount:
-    """The count pass of one compaction: the set rows' total, and (on the
-    card) each 4,096-row chunk's exclusive offset."""
-    total: int
-    offsets: torch.Tensor | None
+#: rows a block of the one-pass compaction takes (``csrc/exchange.cu``)
+TILE_ROWS = 4096
+#: epochs a compaction scratch serves before it is cleared (the status
+#: words' 22-bit epoch field; 0 is never used)
+_EPOCHS = 1 << 22
+
+
+class FrontierCount(NamedTuple):
+    """The first pass of one compaction (``frontier_count``): the set rows'
+    count, an int64 ``[1]`` tensor on the mask's device (on the card
+    nothing is read back), and on the card the compacted rows already in
+    place — the ascending flat indices ``idx`` and their rows ``val``, in
+    buffers whose slots ``frontier_compact`` pads up to the bucket."""
+    count: torch.Tensor
+    idx: torch.Tensor | None = None
+    val: torch.Tensor | None = None
+
+    @property
+    def total(self) -> int:
+        """The count on the host (on the card, a read-back)."""
+        return int(self.count)
 
 
 def _check_changed(name, values, changed):
@@ -230,22 +251,100 @@ def _check_changed(name, values, changed):
     return n
 
 
-def frontier_count(changed) -> FrontierCount:
-    """The count pass (two launches on the card: chunk counts, then their
-    scan); the total comes back to the host."""
+#: frontier_count signature → None (CPU: the count alone) or (the idx,
+#: val and count templates, the plan's address, the plan, tiles, the C
+#: entry point)
+_COUNT_SIGS: dict = {}
+#: (card, stream) → [scratch int64 [1 + tiles]: the ticket, then a status
+#: word a tile; the last epoch used]
+_SCRATCH: dict = {}
+
+
+def _count_signature(key, changed, values, capacity):
     name = "frontier_compact"
-    _expect(name, changed, "changed", (torch.bool,), (changed.shape[0],))
-    if not _on_cuda(name, changed):
-        return FrontierCount(int(changed.sum()), None)
-    n = changed.shape[0]
-    g = max(1, -(-n // 4096))
-    scratch = torch.empty(2 * g + 1, dtype=torch.int64, device=changed.device)
-    counts, offsets, total = scratch[:g], scratch[g:2 * g], scratch[2 * g:]
-    err = _fn("exchange", "rtpu_frontier_count")(
-        n, changed.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        total.data_ptr(), _stream(changed))
-    _launch(name, err, launched=2)
-    return FrontierCount(int(total.item()), offsets)
+    _tensors(name, changed=changed)
+    if values is None:
+        _expect(name, changed, "changed", (torch.bool,), (changed.shape[0],))
+        if _on_cuda(name, changed):
+            raise TypeError(f"{name}: on the card the count pass also "
+                            "compacts: pass the values")
+        entry = None
+    else:
+        _tensors(name, values=values)
+        n = _check_changed(name, values, changed)
+        if not _on_cuda(name, values, changed):
+            entry = None
+        else:
+            if values.element_size() not in (4, 8):
+                raise TypeError(f"{name}: state dtype {values.dtype} has no "
+                                "kernel (4- or 8-byte elements)")
+            cap = max(n, 1) if capacity is None else int(capacity)
+            if cap < n:
+                raise ValueError(f"{name}: capacity {cap} < {n} rows")
+            trail = tuple(values.shape[1:])
+            f = 1
+            for d in trail:
+                f *= d
+            tiles = max(1, -(-n // TILE_ROWS))
+            one = values.new_empty(())
+            entry = (one.new_empty((), dtype=torch.int64).expand(cap),
+                     one.expand((cap,) + trail),
+                     one.new_empty((), dtype=torch.int64).expand(1),
+                     *_plan_array([n, f, values.element_size(), tiles]),
+                     tiles, _fn("exchange", "rtpu_frontier_compact"))
+    if key is not None:
+        if len(_COUNT_SIGS) >= _SIG_CAP:
+            _COUNT_SIGS.clear()
+        _COUNT_SIGS[key] = entry
+    return entry
+
+
+def _scratch(values, stream: int, tiles: int):
+    """The compaction scratch of ``values``' card and ``stream`` (grown to
+    ``tiles`` status words, cleared when the epochs run out) and the
+    call's epoch."""
+    key = (values.get_device(), stream)
+    st = _SCRATCH.get(key)
+    if st is None or st[0].shape[0] <= tiles:
+        st = _SCRATCH[key] = [torch.zeros(1 + tiles, dtype=torch.int64,
+                                          device=values.device), 0]
+    elif st[1] + 1 >= _EPOCHS:
+        st[0].zero_()
+        st[1] = 0
+    st[1] += 1
+    return st[0], st[1]
+
+
+def frontier_count(changed, values=None,
+                   capacity: int | None = None) -> FrontierCount:
+    """The first pass of a compaction: the set rows of ``changed bool[N]``
+    counted and, on the card, compacted as ``frontier_compact`` returns
+    them (ascending flat indices, then the rows of ``values [N, *trail]``)
+    into buffers of ``capacity`` slots (default ``max(N, 1)``, the largest
+    bucket the sparse route asks for) — one launch, no read-back. The card
+    needs ``values``; on the CPU it counts only."""
+    try:
+        key = (changed.shape, changed.stride(), changed.dtype, changed.device,
+               None if values is None else (values.shape, values.stride(),
+                                            values.dtype, values.device),
+               capacity)
+        sig = _COUNT_SIGS.get(key, False)
+    except AttributeError:          # not a tensor: the full check raises
+        key, sig = None, False
+    if sig is False:
+        sig = _count_signature(key, changed, values, capacity)
+    if sig is None:
+        return FrontierCount(changed.sum(dtype=torch.int64).reshape(1))
+    idx_t, val_t, cnt_t, plan, _, tiles, fn = sig
+    idx, val, cnt = (torch.empty_like(idx_t), torch.empty_like(val_t),
+                     torch.empty_like(cnt_t))
+    stream = _stream(values)
+    scratch, epoch = _scratch(values, stream, tiles)
+    err = fn(plan, epoch, changed.data_ptr(), values.data_ptr(),
+             idx.data_ptr(), val.data_ptr(), cnt.data_ptr(),
+             scratch.data_ptr(), stream)
+    _launch("frontier_compact", err)
+    return FrontierCount(cnt, idx, val)
 
 
 def frontier_compact_plain(values, changed, bucket: int, identity):
@@ -271,39 +370,79 @@ def _ident_bits(identity, dtype: torch.dtype) -> int:
     return int(t.view(torch.int64).item())
 
 
+#: frontier_compact signature → None (CPU: the twin) or (the pad plan's
+#: address, the plan, the C entry point)
+_PAD_SIGS: dict = {}
+
+
+def _pad_signature(key, values, changed, bucket, identity):
+    name = "frontier_compact"
+    _tensors(name, values=values, changed=changed)
+    _check_changed(name, values, changed)
+    bucket = int(bucket)
+    if bucket < 0:
+        raise ValueError(f"{name}: bucket {bucket} < 0")
+    if not _on_cuda(name, values, changed):
+        entry = None
+    else:
+        if values.element_size() not in (4, 8):
+            raise TypeError(f"{name}: state dtype {values.dtype} has no "
+                            "kernel (4- or 8-byte elements)")
+        f = values[0].numel() if values.shape[0] else 1
+        grid = min(1024, -(-bucket * f // THREADS))
+        entry = (*_plan_array([bucket, f, values.element_size(),
+                               _ident_bits(identity, values.dtype), grid]),
+                 _fn("exchange", "rtpu_frontier_pad"))
+    if key is not None:
+        if len(_PAD_SIGS) >= _SIG_CAP:
+            _PAD_SIGS.clear()
+        _PAD_SIGS[key] = entry
+    return entry
+
+
 def frontier_compact(values, changed, bucket: int, identity,
                      counted: FrontierCount | None = None):
     """K13 compaction: the rows of ``values [N, *trail]`` where ``changed
     bool[N]`` is set, as ``(idx int64 [bucket], val [bucket, *trail])`` —
     ascending flat indices, then index 0 / ``identity`` pads. ``counted``
-    is this mask's ``frontier_count`` (run here when None)."""
+    is ``frontier_count(changed, values)`` of these tensors, whose count
+    the caller has checked against ``bucket`` (the sparse route does, from
+    the all-gathered counts); on the card this call then pads the rows
+    already compacted (one launch). When None, the wrapper runs the count
+    pass, reads the count back and raises past ``bucket``."""
+    try:
+        key = (values.shape, values.stride(), values.dtype, values.device,
+               changed.shape, changed.stride(), changed.dtype,
+               changed.device, bucket, identity)
+        sig = _PAD_SIGS.get(key, False)
+    except AttributeError:          # not a tensor: the full check raises
+        key, sig = None, False
+    if sig is False:
+        sig = _pad_signature(key, values, changed, bucket, identity)
     name = "frontier_compact"
-    n = _check_changed(name, values, changed)
-    if not _on_cuda(name, values, changed):
+    if sig is None:
         if SAMPLES is not None:
             _keep(name, int(changed.sum()), values, changed, int(bucket),
                   identity)
         return frontier_compact_plain(values, changed, bucket, identity)
-    if values.element_size() not in (4, 8):
-        raise TypeError(f"{name}: state dtype {values.dtype} has no kernel "
-                        "(4- or 8-byte elements)")
     if counted is None:
-        counted = frontier_count(changed)
-    count = counted.total
-    if count > bucket:
-        raise ValueError(f"{name}: {count} set rows > bucket {bucket}")
-    _keep(name, count, values, changed, int(bucket), identity)
-    f = values[0].numel() if n else 1
-    out_idx = torch.empty(bucket, dtype=torch.int64, device=values.device)
-    out_val = torch.empty((bucket,) + tuple(values.shape[1:]),
-                          dtype=values.dtype, device=values.device)
-    err = _fn("exchange", "rtpu_frontier_compact")(
-        n, bucket, count, f, values.element_size(),
-        _ident_bits(identity, values.dtype),
-        changed.data_ptr(), counted.offsets.data_ptr(), values.data_ptr(),
-        out_idx.data_ptr(), out_val.data_ptr(), _stream(values))
+        counted = frontier_count(changed, values,
+                                 max(values.shape[0], bucket, 1))
+        if counted.total > bucket:
+            raise ValueError(f"{name}: {counted.total} set rows > bucket "
+                             f"{bucket}")
+    cap = counted.idx.shape[0]
+    if cap < bucket:
+        raise ValueError(f"{name}: bucket {bucket} > the count pass's "
+                         f"{cap} slots")
+    if SAMPLES is not None:
+        _keep(name, counted.total, values, changed, int(bucket), identity)
+    err = sig[2](sig[0], counted.count.data_ptr(), counted.idx.data_ptr(),
+                 counted.val.data_ptr(), _stream(values))
     _launch(name, err)
-    return out_idx, out_val
+    if cap == bucket:
+        return counted.idx, counted.val
+    return counted.idx[:bucket], counted.val[:bucket]
 
 
 def frontier_merge_min_plain(replica, idx, val, counts):
@@ -336,11 +475,7 @@ _MERGE_SIGS: dict = {}
 
 def _merge_signature(key, replica, idx, val, counts):
     name = "frontier_merge_min"
-    for what, t in (("replica", replica), ("idx", idx), ("val", val),
-                    ("counts", counts)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: {what} is {type(t).__name__}, want a "
-                            "tensor")
+    _tensors(name, replica=replica, idx=idx, val=val, counts=counts)
     n = replica.shape[0]
     R = counts.shape[0]
     # the counts may be a strided column (``counts[:, 0]`` of the

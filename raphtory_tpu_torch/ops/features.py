@@ -20,8 +20,9 @@ they share:
 
 * the **wrappers** ``propagate_round`` (the unbinned route: one kernel a
   round over the destination CSR) and ``propagate_round_binned`` (the
-  destination-binned PCPM route over a ``BinnedEdges`` layout: a bucket
-  gather of each distinct (partition, source) row, then the reduce) —
+  destination-binned PCPM route over a ``BinnedEdges`` layout: one
+  kernel a round that walks each row's slots and gathers the source rows
+  straight from ``H``) —
   CPU tensors take the twin, CUDA tensors launch ``csrc/features.cu`` or
   raise;
 * the **plain twins** (``*_plain``): the reference's chunked scan, edge
@@ -33,9 +34,8 @@ they share:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
@@ -159,13 +159,37 @@ def propagate_round_binned_plain(H, be, e_lat, e_alive, lo: int,
     return _epilogue(H, agg, deg, self_weight)
 
 
+#: ``BinnedEdges.in_order`` → its walk pairs (``binned_walk``), kept while
+#: the layout's device arrays live
+_WALKS = WeakIdKeyDictionary()
+
+#: how K10-P keeps rows in flight: ``"batch"`` (registers) or ``"ring"``
+#: (a ``cp.async`` ring in shared memory)
+BINNED_LOADS = "batch"
+
+
+def binned_walk(be):
+    """``int32 [m, 2]``: for each entry ``j`` of the layout's destination
+    walk (slot ``s = in_order[j]``), the source row ``u_src[slot[s]]`` and
+    the engine edge ``perm[s]`` — what K10-P reads a slot, one 8-byte load
+    instead of three dependent ones. Derived on ``be``'s device at the
+    first call (m * 8 bytes) and cached with ``be``."""
+    got = _WALKS.get(be.in_order)
+    if got is None:
+        s = be.in_order.long()
+        got = torch.stack([be.u_src[be.slot[s].long()], be.perm[s]], dim=1)
+        _WALKS[be.in_order] = got
+    return got
+
+
 def propagate_round_binned(H, be, e_lat, e_alive, lo: int, nowin: bool,
                            self_weight: float, chunk: int = 1 << 22):
     """K10-P wrapper: one round over a pre-aggregating layout's
-    ``BinnedEdges`` (``ops/partition.PartitionLayout.device_edges``). The
-    kernel fills the ``[U, F]`` buckets, then each destination row walks
-    its real slots in the layout's destination walk (source order), so it
-    adds in K10's order and its result equals K10's bit for bit."""
+    ``BinnedEdges`` (``ops/partition.PartitionLayout.device_edges``), one
+    launch. Each destination row walks its real slots in the layout's
+    destination walk (source order) through ``binned_walk`` and gathers
+    each source row straight from ``H`` (no bucket buffer), so it adds in
+    K10's order and its result equals K10's bit for bit."""
     name = "feature_propagate_binned"
     m_pad = e_lat.shape[0]
     n_pad, F = _check(name, H, e_lat, e_alive, m_pad)
@@ -188,15 +212,13 @@ def propagate_round_binned(H, be, e_lat, e_alive, lo: int, nowin: bool,
         return propagate_round_binned_plain(H, be, e_lat, e_alive, lo, nowin,
                                             self_weight, chunk)
     _check_kernel_shape(name, H)
+    walk = binned_walk(be)
     out = torch.empty_like(H)
-    vals = torch.empty((be.U, F), dtype=H.dtype, device=H.device)
-    launched = ctypes.c_int64(0)
     err = _fn("features", "rtpu_feature_propagate_binned")(
-        n_pad, F, be.U, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize, int(lo),
-        int(nowin), float(self_weight), float(1.0 - self_weight),
-        be.in_indptr.data_ptr(), be.in_order.data_ptr(), be.perm.data_ptr(),
-        be.slot.data_ptr(), be.u_src.data_ptr(), e_lat.data_ptr(),
-        e_alive.data_ptr(), H.data_ptr(), vals.data_ptr(), out.data_ptr(),
-        _stream(H), ctypes.byref(launched))
-    _launch(name, err, launched.value)
+        n_pad, F, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize, int(lo),
+        int(nowin), int(BINNED_LOADS == "ring"), float(self_weight),
+        float(1.0 - self_weight), be.in_indptr.data_ptr(), walk.data_ptr(),
+        e_lat.data_ptr(), e_alive.data_ptr(), H.data_ptr(), out.data_ptr(),
+        _stream(H))
+    _launch(name, err)
     return out

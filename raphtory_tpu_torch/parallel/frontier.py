@@ -10,8 +10,9 @@ FRONTIER:
   shard: the rank at window coordinate 0). A row's complete aggregate is
   computed by its owner; non-owned rows keep the replica's value.
 * The changed rows are compacted on the device (``ops/exchange.
-  frontier_compact``: a count pass, then the ascending indices and values
-  into a bucket of ``ops.partition.frontier_bucket`` slots).
+  frontier_count``: one pass writes the ascending indices and values and
+  leaves the count on the device; ``frontier_compact`` pads them to a
+  bucket of ``ops.partition.frontier_bucket`` slots).
 * One all-gather of every rank's ``(count, unhalted)`` agrees the bucket
   length and the halting vote, one all-gather moves the slices, and
   ``frontier_merge_min`` min-merges them into every replica. Monotonicity
@@ -286,18 +287,23 @@ def run_sparse(program: VertexProgram, view, mesh, sv, wlist,
         new, changed, unhalted = sup.step(state, steps)
         ch = changed.reshape(-1)
         flat_new = leaves(new)[0].reshape((k * n_pad,) + trailing)
-        counted = frontier_count(ch)
+        # the count pass compacts too and leaves the count on the device
+        counted = frontier_count(ch, flat_new)
         # counts first: ONE agreement round fixes the bucket length and
-        # the halting vote for every rank
+        # the halting vote for every rank; reading it is the superstep's
+        # one host sync
         t_bar = _time.perf_counter()
-        mine = torch.stack([torch.tensor(counted.total, device=ch.device),
-                            unhalted.to(torch.int64)])
+        mine = torch.cat([counted.count,
+                          unhalted.to(torch.int64).reshape(1)])
         counts = world.all_gather(mine)
         counts_h = counts.cpu()
         cmax = int(counts_h[:, 0].max())
         cglobal = int(counts_h[:, 0].sum())
         unh_g = int(counts_h[:, 1].sum())
         B = frontier_bucket(cmax, floor, cap=k * n_pad)
+        if cmax > B:
+            raise ValueError(f"sparse route: {cmax} changed rows > bucket "
+                             f"{B}")
         idx, val = frontier_compact(flat_new, ch, B, identity, counted)
         idx_all = world.all_gather(idx).reshape(-1)
         val_all = world.all_gather(val).reshape((-1,) + trailing)

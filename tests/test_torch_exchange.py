@@ -16,6 +16,12 @@ replace, their cached input checks, and their launch plans.
   of each wrapper driven on the CPU with the C entry point replaced by a
   numpy model of its kernel that reads the same plan array: the plan the
   wrapper hands over, the model's page and merge bitwise the twins'.
+* ``frontier_count`` + ``frontier_compact`` (K13's compaction) through
+  the models of the one-pass kernel, whose tiles finish in a random
+  order, and of the pad fill: bitwise the twin (count 0, count N, a
+  bucket of exactly the count, trailing dimensions, int32 / int64 /
+  float32 / float64), the scratch's epochs across calls and their wrap,
+  and every check raising after a good call.
 """
 
 import ctypes
@@ -343,17 +349,92 @@ def _model_merge(plan, counts, idx, val, replica, stream):
     return 0
 
 
+#: the order the modelled compaction's tiles take their steps in
+_TILE_ORDER = np.random.default_rng(0)
+_TILE_ROWS = 4096
+_EPOCH_SHIFT, _FLAG_SHIFT = 42, 40
+
+
+def _model_compact(plan, epoch, changed, values, out_idx, out_val, count,
+                   scratch, stream):
+    """``compact_kernel`` as numpy over the plan array (N, F, element
+    bytes, tiles) and the scratch the wrapper hands over (the ticket, then
+    a status word a tile): every tile publishes its count, then looks back
+    and publishes its inclusive prefix and writes its rows — each step
+    taken by the tiles in a random order, as blocks finish on the card.
+    Holds the wrapper to the scratch's contract: the ticket starts at 0,
+    the epoch is new to every status word, and the look-back only ever
+    meets words of this call's epoch."""
+    n, f, esize, tiles = (ctypes.c_int64 * 4).from_address(plan)
+    assert 0 < epoch < 1 << 22 and tiles == max(1, -(-n // _TILE_ROWS))
+    sc = np.ctypeslib.as_array((ctypes.c_int64 * (1 + tiles)).from_address(
+        scratch)).view(np.uint64)
+    status = sc[1:]
+    assert sc[0] == 0
+    assert not ((status >> np.uint64(_EPOCH_SHIFT)) == epoch).any()
+    ch = _read(changed, n).astype(bool)
+    dt = np.dtype(f"u{esize}")
+    vals = _read(values, n * f * esize).view(dt).reshape(n, f)
+
+    def word(flag, value):
+        return np.uint64((epoch << _EPOCH_SHIFT) | (flag << _FLAG_SHIFT)
+                         | int(value))
+
+    agg = [int(ch[t * _TILE_ROWS:(t + 1) * _TILE_ROWS].sum())
+           for t in range(tiles)]
+    for t in _TILE_ORDER.permutation(tiles):
+        status[t] = word(2 if t == 0 else 1, agg[t])
+    total = int(ch.sum())
+    idx = _read(out_idx, total * 8).view(np.int64)
+    out = _read(out_val, total * f * esize).view(dt).reshape(total, f)
+    for t in _TILE_ORDER.permutation(tiles):
+        excl, p = 0, t - 1
+        while p >= 0:
+            w = int(status[p])
+            assert w >> _EPOCH_SHIFT == epoch
+            excl += w & ((1 << _FLAG_SHIFT) - 1)
+            if (w >> _FLAG_SHIFT) & 3 == 2:
+                break
+            p -= 1
+        status[t] = word(2, excl + agg[t])
+        rows = t * _TILE_ROWS + np.flatnonzero(
+            ch[t * _TILE_ROWS:(t + 1) * _TILE_ROWS])
+        idx[excl:excl + len(rows)] = rows
+        out[excl:excl + len(rows)] = vals[rows]
+    _read(count, 8).view(np.int64)[0] = total
+    sc[0] = 0                                 # the last ticket resets it
+    return 0
+
+
+def _model_pad(plan, count, out_idx, out_val, stream):
+    """``pad_kernel`` as numpy over the plan array (bucket, F, element
+    bytes, the identity's bits, grid): slots [count, bucket) get index 0
+    and the identity, the count read from its device word."""
+    bucket, f, esize, bits, grid = (ctypes.c_int64 * 5).from_address(plan)
+    assert grid == min(1024, -(-bucket * f // exchange.THREADS))
+    c = int(_read(count, 8).view(np.int64)[0])
+    dt = np.dtype(f"u{esize}")
+    _read(out_idx, bucket * 8).view(np.int64)[c:] = 0
+    _read(out_val, bucket * f * esize).view(dt)[c * f:] = \
+        np.uint64(bits & ((1 << 8 * esize) - 1)).astype(dt)
+    return 0
+
+
 @pytest.fixture
 def card_branch(monkeypatch):
     """Each wrapper's card branch on CPU tensors: ``_on_cuda`` says True,
-    the C entry points are the numpy models, fresh signature caches."""
+    the C entry points are the numpy models, fresh signature caches and
+    compaction scratch."""
     monkeypatch.setattr(exchange, "_on_cuda", lambda name, *t: True)
     monkeypatch.setattr(exchange, "_stream", lambda t: 0)
     models = {"rtpu_halo_pack": _model_halo,
-              "rtpu_frontier_merge_min": _model_merge}
+              "rtpu_frontier_merge_min": _model_merge,
+              "rtpu_frontier_compact": _model_compact,
+              "rtpu_frontier_pad": _model_pad}
     monkeypatch.setattr(exchange, "_fn", lambda lib, fn: models[fn])
-    monkeypatch.setattr(exchange, "_HALO_SIGS", {})
-    monkeypatch.setattr(exchange, "_MERGE_SIGS", {})
+    for cache in ("_HALO_SIGS", "_MERGE_SIGS", "_COUNT_SIGS", "_PAD_SIGS",
+                  "_SCRATCH"):
+        monkeypatch.setattr(exchange, cache, {})
     columns.reset_launches()
     yield
     columns.reset_launches()
@@ -393,3 +474,121 @@ def test_merge_card_branch_matches_twin(card_branch, dtype, trail, nan):
                                     torch.from_numpy(val), cnt)
         assert_merged(got.numpy(), want)
     assert columns.LAUNCHES["frontier_merge_min"] == 2
+
+
+def _compact_cases(rng, n):
+    """(changed, bucket): count 0, count N, a bucket of exactly the count,
+    a sparse frontier in a power-of-two bucket, one row."""
+    yield np.zeros(n, bool), 8
+    yield np.ones(n, bool), n
+    few = rng.random(n) < 0.07
+    yield few, int(few.sum())
+    yield rng.random(n) < 0.2, 1 << (n - 1).bit_length() - 1
+    one = np.zeros(n, bool)
+    one[n - 1] = True
+    yield one, 1
+
+
+@pytest.mark.parametrize("dtype,trail", [
+    (np.int32, ()), (np.float32, (3,)), (np.int64, ()), (np.float64, (2,))])
+@pytest.mark.parametrize("n", [3 * 4096 + 17, 1000])
+def test_compact_card_branch_matches_twin(card_branch, dtype, trail, n):
+    """Both launches through their models, back to back on one scratch
+    (each call a new epoch): bitwise the twin, ``np.flatnonzero``'s order
+    whatever order the tiles finish in, through the sparse route's calls
+    (the count pass, then the pad with the pass handed over) and through
+    ``frontier_compact`` alone; two launches a compaction."""
+    rng = np.random.default_rng(n)
+    values = torch.from_numpy(_leaf(rng, (n,) + trail, dtype))
+    ident = exchange.min_identity(values.dtype)
+    calls = 0
+    for changed, bucket in _compact_cases(rng, n):
+        ch = torch.from_numpy(changed)
+        want = exchange.frontier_compact_plain(values, ch, bucket, ident)
+        counted = exchange.frontier_count(ch, values)
+        assert counted.total == int(changed.sum())
+        assert counted.idx.shape == (n,)
+        for got in (exchange.frontier_compact(values, ch, bucket, ident,
+                                              counted),
+                    exchange.frontier_compact(values, ch, bucket, ident)):
+            assert got[0].shape == (bucket,)
+            np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+            np.testing.assert_array_equal(_bits(got[1].numpy()),
+                                          _bits(want[1].numpy()))
+        calls += 2
+    assert columns.LAUNCHES["frontier_compact"] == 2 * calls
+    # the scratch: one epoch a call, the ticket back at 0
+    (scratch, epoch), = exchange._SCRATCH.values()
+    assert epoch == calls and int(scratch[0]) == 0
+
+
+def test_compact_epochs_wrap_by_clearing_the_scratch(card_branch,
+                                                     monkeypatch):
+    """Past the last epoch the scratch is cleared and the epochs start
+    again at 1: no status word of an earlier call can pass for the new
+    one's (the model asserts it)."""
+    monkeypatch.setattr(exchange, "_EPOCHS", 3)
+    values = torch.arange(9000, dtype=torch.int32)
+    ch = torch.from_numpy(np.random.default_rng(4).random(9000) < 0.3)
+    want = exchange.frontier_compact_plain(values, ch, 4096, 2**31 - 1)
+    seen = []
+    for _ in range(5):
+        got = exchange.frontier_compact(values, ch, 4096, 2**31 - 1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        seen.append(next(iter(exchange._SCRATCH.values()))[1])
+    assert seen == [1, 2, 1, 2, 1]
+
+
+def _compact_good():
+    return (torch.arange(50, dtype=torch.int32),
+            torch.arange(50) % 3 == 0, 32, 2**31 - 1)
+
+
+def _compact_bad():
+    v, ch, B, ident = _compact_good()
+    meta = torch.empty(50, dtype=torch.bool, device="meta")
+    return [
+        ((v, ch.int(), B, ident), TypeError, "changed has dtype"),
+        ((v, ch[:-1], B, ident), ValueError, "changed has shape"),
+        ((torch.zeros(2, 50, dtype=torch.int32).t(), ch, B, ident),
+         ValueError, "values is not contiguous"),
+        ((v, ch.numpy(), B, ident), TypeError, "want a tensor"),
+        ((v, meta, B, ident), ValueError, "several devices"),
+        ((v, ch, -1, ident), ValueError, "bucket -1"),
+    ]
+
+
+@pytest.mark.parametrize("card", [False, True])
+@pytest.mark.parametrize("case", range(len(_compact_bad())))
+def test_compact_checks_raise_after_a_good_call(case, card, monkeypatch):
+    """A wrong input after good calls of the same shapes still takes the
+    full checks and raises (the signature caches), on the CPU and through
+    the card branch; on the card the count pass needs the values."""
+    if card:
+        on_cuda = exchange._on_cuda       # still raises on several devices
+        monkeypatch.setattr(exchange, "_on_cuda",
+                            lambda name, *t: on_cuda(name, *t) or True)
+        monkeypatch.setattr(exchange, "_stream", lambda t: 0)
+        monkeypatch.setattr(exchange, "_fn", lambda lib, fn: {
+            "rtpu_frontier_compact": _model_compact,
+            "rtpu_frontier_pad": _model_pad}[fn])
+        for cache in ("_COUNT_SIGS", "_PAD_SIGS", "_SCRATCH"):
+            monkeypatch.setattr(exchange, cache, {})
+    args, err, match = _compact_bad()[case]
+    for _ in range(2):
+        v, ch, B, ident = _compact_good()
+        exchange.frontier_compact(v, ch, B, ident,
+                                  exchange.frontier_count(ch, v))
+        with pytest.raises(err, match=match):
+            exchange.frontier_compact(*args)
+        if case < 5:
+            with pytest.raises(err, match=match):
+                exchange.frontier_count(args[1], args[0])
+    if card:
+        with pytest.raises(TypeError, match="pass the values"):
+            exchange.frontier_count(ch)
+        with pytest.raises(ValueError, match="> bucket"):
+            exchange.frontier_compact(v, ch, 4, ident)
+        with pytest.raises(ValueError, match="bucket 64 > the count pass"):
+            exchange.frontier_compact(v, ch, 64, ident,
+                                      exchange.frontier_count(ch, v))

@@ -14,9 +14,12 @@ largest element instead (``_bf16_ulps``). Covers windowed and unwindowed calls, 
 to 64, an incremental sweep over ascending T, the binned (PCPM) route
 with ``RTPU_PCPM=1`` and ``RTPU_PARTITIONS`` (the same spec as the
 reference's), ``traffic_bytes`` and ``flops`` equal to the reference's,
-and the embeddings' ``at`` / ``nearest`` / ``drift``.
+the embeddings' ``at`` / ``nearest`` / ``drift``, and K10-P's card
+branch driven on the CPU with its C entry point replaced by a numpy model
+of the kernel (one launch a round, no bucket buffer, the layout's walk).
 """
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -33,6 +36,7 @@ from raphtory_tpu_torch.engine import device_sweep as tds
 from raphtory_tpu_torch.engine import features as tfeat
 from raphtory_tpu_torch.examples import embeddings as temb
 from raphtory_tpu_torch.interop import event_log_from_arrays
+from raphtory_tpu_torch.ops import columns, partition
 from raphtory_tpu_torch.ops import features as ops_features
 
 
@@ -311,3 +315,146 @@ def test_twitter_like_log_is_the_reference_generator():
     want = jsynth.twitter_like_log(1 << 12, 1 << 15).arrays()
     for k in ("time", "kind", "src", "dst"):
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# ------------------------------------- K10-P's card branch, kernel modelled
+
+def _view(addr, dtype, n):
+    """``n`` elements of ``dtype`` at a host address, as numpy."""
+    if not n:
+        return np.zeros(0, dtype)
+    nbytes = n * np.dtype(dtype).itemsize
+    return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(
+        addr)).view(dtype)
+
+
+def _model_binned(calls):
+    """``binned_kernel`` as numpy, over the raw host addresses the wrapper
+    passes: each destination row walks ``walk`` from ``in_indptr``, reads
+    the mask at each entry's own edge and adds the source rows of ``H`` in
+    walk order (float32 adds, one at a time), then the epilogue. Records
+    each call's arguments in ``calls``."""
+    def model(n_pad, F, fdtype, tbytes, lo, nowin, ring, sw, sw1, indptr,
+              walk, e_lat, e_alive, H, out, stream):
+        calls.append(dict(indptr=indptr, walk=walk, H=H, out=out, ring=ring,
+                          n_pad=n_pad, F=F))
+        ip = _view(indptr, np.int64, n_pad + 1)
+        wk = _view(walk, np.int32, 2 * int(ip[-1])).reshape(-1, 2)
+        m_pad = int(wk[:, 1].max()) + 1 if len(wk) else 0
+        lat = _view(e_lat, np.int32 if tbytes == 4 else np.int64, m_pad)
+        alive = _view(e_alive, np.uint8, m_pad)
+        store = np.float32 if fdtype == 0 else np.uint16
+        h = _view(H, store, n_pad * F).reshape(n_pad, F)
+        h = (h if fdtype == 0 else (h.astype(np.uint32) << 16)
+             .view(np.float32))
+        sw, sw1 = np.float32(sw), np.float32(sw1)
+        rows = np.zeros((n_pad, F), np.float32)
+        for r in range(n_pad):
+            acc = np.zeros(F, np.float32)
+            deg = 0
+            for src, e in wk[ip[r]:ip[r + 1]]:
+                if alive[e] and (nowin or lat[e] >= lo):
+                    acc = acc + h[src]
+                    deg += 1
+            inv = np.float32(1) / np.float32(max(deg, 1))
+            rows[r] = sw * h[r] + sw1 * (acc * inv)
+        nrm = np.maximum(np.sqrt(np.sum(rows * rows, axis=1,
+                                        dtype=np.float32)), np.float32(1e-12))
+        y = torch.from_numpy(rows / nrm[:, None])
+        y = y if fdtype == 0 else y.to(torch.bfloat16).view(torch.int16)
+        _view(out, store, n_pad * F)[:] = y.numpy().reshape(-1).view(store)
+        return 0
+    return model
+
+
+@pytest.fixture
+def binned_card_branch(monkeypatch):
+    """K10-P's card branch on CPU tensors: ``_on_cuda`` says True and the
+    C entry point is ``_model_binned``; records the model's calls and the
+    shapes every ``torch.empty*`` allocated."""
+    calls, shapes = [], []
+    monkeypatch.setattr(ops_features, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(ops_features, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops_features, "_fn",
+                        lambda lib, fn: _model_binned(calls))
+    for fn in ("empty", "empty_like"):
+        real = getattr(torch, fn)
+
+        def record(*a, _real=real, **kw):
+            t = _real(*a, **kw)
+            shapes.append(tuple(t.shape))
+            return t
+        monkeypatch.setattr(torch, fn, record)
+    columns.reset_launches()
+    yield calls, shapes
+    columns.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", ["2", "5"])
+def test_binned_card_branch_is_one_launch_a_round(binned_card_branch, P,
+                                                  dtype, monkeypatch):
+    """``FeatureAggregator`` on the binned route through K10-P's card
+    branch: one launch a round, no ``[U, F]`` bucket buffer, the layout's
+    CSR and its walk pairs handed to the kernel; the modelled kernel
+    equals the twin and the JAX package's binned route within the module
+    docstring's tolerance."""
+    calls, shapes = binned_card_branch
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", P)
+    jfa, fa, X = _pair(5, n_events=1_500, n_ids=120, dtype=dtype)
+    for T, window in ((50, None), (99, 30)):
+        want = jfa.propagate(jnp.asarray(X), T, window=window, rounds=2)
+        columns.reset_launches()
+        del calls[:], shapes[:]
+        got = fa.propagate(torch.from_numpy(X), T, window=window, rounds=2)
+        assert columns.LAUNCHES["feature_propagate_binned"] == 2
+        assert len(calls) == 2
+        assert_features_match(got, want, dtype)
+        lay = fa._pcpm_layout()
+        be = lay.device_edges(fa.ds.device)
+        assert (be.U, fa.F) not in shapes
+        walk = ops_features.binned_walk(be)
+        s = be.in_order.long()
+        assert calls[0]["indptr"] == be.in_indptr.data_ptr()
+        assert calls[0]["walk"] == walk.data_ptr()
+        assert calls[0]["ring"] == int(ops_features.BINNED_LOADS == "ring")
+        assert torch.equal(walk, torch.stack(
+            [be.u_src[be.slot[s].long()], be.perm[s]], 1))
+        # against the twin round by round
+        e_lat, e_alive = fa.ds.edge_state
+        lo, nowin = ops_features.window_bound(
+            T, -1 if window is None else window, e_lat.dtype)
+        H = torch.from_numpy(X).to(fa.dtype)
+        one = ops_features.propagate_round_binned(H, be, e_lat, e_alive, lo,
+                                                  nowin, fa.self_weight)
+        twin = ops_features.propagate_round_binned_plain(
+            H, be, e_lat, e_alive, lo, nowin, fa.self_weight)
+        assert_features_match(one, twin, dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("P", [2, 5, 64])
+def test_binned_walk_reaches_k10s_edges_in_k10s_order(P, seed):
+    """Why K10-P equals K10 bit for bit: the layout's destination walk
+    visits the engine edges in engine order (``perm[in_order[j]] == j``)
+    and each entry's bucket names the edge's source
+    (``u_src[slot[in_order[j]]] == e_src[j]``), so the walk pairs are
+    ``(e_src[j], j)``. The kernel reads the pairs and never relies on
+    this."""
+    rng = np.random.default_rng(seed)
+    n_pad, m = 512, 3_000
+    pairs = np.unique(rng.integers(0, 400, (m, 2)), axis=0)
+    pairs = pairs[np.lexsort((pairs[:, 0], pairs[:, 1]))]   # (dst, src)
+    m = len(pairs)
+    e_src = np.full(m + 77, n_pad - 1, np.int32)
+    e_dst = np.full(m + 77, n_pad - 1, np.int32)
+    e_src[:m], e_dst[:m] = pairs[:, 0], pairs[:, 1]
+    lay = partition.build_layout(e_src, e_dst, n_pad, m, P)
+    assert lay.spec.partitions == P
+    _, order = lay.walk()
+    np.testing.assert_array_equal(lay.perm[order], np.arange(m))
+    np.testing.assert_array_equal(lay.u_src[lay.slot[order]], e_src[:m])
+    walk = ops_features.binned_walk(lay.device_edges("cpu"))
+    np.testing.assert_array_equal(walk.numpy(), np.stack(
+        [e_src[:m], np.arange(m, dtype=np.int32)], 1))
