@@ -32,14 +32,15 @@
 // (`np.flatnonzero(changed)` and the bucket fill). The first counts and
 // compacts in one pass, a decoupled look-back scan (Merrill & Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016):
-// each block takes a tile of 4,096 rows by an atomic ticket (so a tile
-// only ever waits on tiles that have started), reads its flags 16 a
-// thread, scans their counts in the block, publishes its count, looks
-// back over its predecessors' status words (a warp reads 32 at a time,
-// summing counts until it meets an inclusive prefix), publishes its own
-// inclusive prefix, and writes its set rows' int64 flat indices and value
-// rows at their ranks: ascending, np.flatnonzero's order, the same every
-// run. A status word carries the call's epoch beside its flag and value,
+// each block takes a tile of 8,192 rows by an atomic ticket (so a tile
+// only ever waits on tiles that have started), reads its flags 32 a
+// thread, scans their counts, stages each warp's set rows in order in
+// shared memory, publishes its count, looks back over its predecessors'
+// status words (a warp reads 32 at a time, summing counts until it meets
+// an inclusive prefix), publishes its own inclusive prefix, and writes its
+// set rows' int64 flat indices and value rows at their ranks, a warp's
+// run from consecutive lanes: ascending, np.flatnonzero's order, the same
+// every run. A status word carries the call's epoch beside its flag and value,
 // so words of earlier calls read as "not yet" and no launch clears them;
 // the tile with the last ticket sets the ticket back to 0 (every tile has
 // taken its own by then) and writes the total to device memory. The
@@ -49,8 +50,8 @@
 // [count, B) with index 0 and the min identity, reading the count from
 // device memory.
 //   Bound: bytes (the flags read once, the set rows read and written once,
-// the pads written once). The flags arrive as one 16-byte load a thread
-// where the mask is 16-byte aligned.
+// the pads written once). The flags arrive as two 16-byte loads a thread
+// where the mask is 16-byte aligned; the writes are coalesced.
 
 // `rtpu_frontier_merge_min` replaces the `np.minimum.at` merge of
 // frontier.py:498-502: for each of the R gathered slices and each slot
@@ -117,10 +118,10 @@ __global__ void __launch_bounds__(256) halo_pack_kernel(
         page[i] = sw[i];
 }
 
-// the one-pass compaction: a tile a block, kTileThreads threads of
-// kTileRows / kTileThreads rows each
+// the one-pass compaction: a tile of kTileRows rows a block, kThreadRows
+// rows a thread (two 16-byte loads of flags)
 constexpr int kTileThreads = 256;
-constexpr int kThreadRows = 16;
+constexpr int kThreadRows = 32;
 constexpr int kTileRows = kTileThreads * kThreadRows;
 // a tile's status word: epoch (22 bits) | flag (2) | value (40)
 constexpr unsigned long long kAggregate = 1, kPrefix = 2;
@@ -152,29 +153,38 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
         int64_t* __restrict__ count, unsigned long long* __restrict__ scratch) {
     __shared__ int64_t s_tile, s_excl;
     __shared__ int warp_total[kTileThreads / 32];
+    // each warp's set rows (offsets in the tile), in order
+    __shared__ uint16_t s_rows[kTileRows];
     unsigned long long* status = scratch + 1;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (threadIdx.x == 0) {
         const int64_t t = (int64_t)atomicAdd(scratch, 1ull);
-        if (t == tiles - 1) atomicExch(scratch, 0ull);
+        if (t == tiles - 1) atomicExch(scratch, 0ull);   // all are taken
         s_tile = t;
     }
     __syncthreads();
     const int64_t tile = s_tile;
-    const int64_t base = tile * kTileRows + (int64_t)threadIdx.x * kThreadRows;
+    const int first = threadIdx.x * kThreadRows;       // in the tile
+    const int64_t base = tile * kTileRows + first;
     unsigned bits = 0;                       // bit k: row base + k is set
     if (base + kThreadRows <= n
             && (reinterpret_cast<uintptr_t>(changed) & 15) == 0) {
-        const uint4 v = *reinterpret_cast<const uint4*>(changed + base);
-        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+        const uint4* p = reinterpret_cast<const uint4*>(changed + base);
 #pragma unroll
-        for (int k = 0; k < kThreadRows; ++k)
-            bits |= ((w[k >> 2] >> (8 * (k & 3))) & 0xffu) ? 1u << k : 0u;
+        for (int h = 0; h < 2; ++h) {
+            const uint4 v = p[h];
+            const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int k = 0; k < 16; ++k)
+                bits |= ((w[k >> 2] >> (8 * (k & 3))) & 0xffu)
+                    ? 1u << (16 * h + k) : 0u;
+        }
     } else {
         for (int k = 0; k < kThreadRows; ++k)
             if (base + k < n && changed[base + k]) bits |= 1u << k;
     }
-    // the block's exclusive scan of the threads' counts
+    // the warp's scan of the threads' counts; each thread stages its set
+    // rows at its rank in the warp's run of s_rows
     const int c = __popc(bits);
     int incl = c;
     for (int o = 1; o < 32; o <<= 1) {
@@ -182,13 +192,16 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
         if (lane >= o) incl += y;
     }
     if (lane == 31) warp_total[warp] = incl;
+    uint16_t* run = s_rows + warp * 32 * kThreadRows;
+    for (unsigned b = bits, at = incl - c; b; b &= b - 1, ++at)
+        run[at] = (uint16_t)(first + __ffs(b) - 1);
     __syncthreads();
     int before = 0, aggregate = 0;
     for (int w = 0; w < kTileThreads / 32; ++w) {
         before += w < warp ? warp_total[w] : 0;
         aggregate += warp_total[w];
     }
-    // the look-back: the rows set in the tiles before this one
+    // the look-back (warp 0): the rows set in the tiles before this one
     if (warp == 0) {
         int64_t excl = 0;
         if (tile == 0) {
@@ -225,14 +238,14 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
         }
     }
     __syncthreads();
-    int64_t pos = s_excl + before + incl - c;
-    while (bits) {
-        const int k = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const int64_t row = base + k;
-        out_idx[pos] = row;
-        for (int64_t e = 0; e < f; ++e) out_val[pos * f + e] = values[row * f + e];
-        ++pos;
+    // each warp writes its run: consecutive lanes, consecutive slots
+    const int64_t out0 = s_excl + before;
+    const int64_t tile0 = tile * kTileRows;
+    for (int i = lane; i < warp_total[warp]; i += 32) {
+        const int64_t row = tile0 + run[i];
+        out_idx[out0 + i] = row;
+        for (int64_t e = 0; e < f; ++e)
+            out_val[(out0 + i) * f + e] = values[row * f + e];
     }
 }
 
