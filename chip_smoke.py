@@ -2323,20 +2323,11 @@ def phase_features(torch, np, columns, dev):
                           bf16_max_ulps=ulps,
                           bound=bound(*feature_bounds(torch, fa, Hb,
                                                       b_e is not None)))
-    # the two routes add in one order: equal on the card, K10-P's rows in
-    # flight kept either way (registers or a cp.async ring), each timed
-    loads_ms = {}
-    for way in ("batch", "ring"):
-        ops_features.BINNED_LOADS = way
-        for v in win.values():
-            if not torch.equal(k10["feature_propagate"][0](Hb, *v),
-                               k10["feature_propagate_binned"][0](Hb, *v)):
-                raise AssertionError(f"features: K10-P ({way}) differs "
-                                     "from K10")
-        loads_ms[way] = {k: cuda_ms(torch, lambda: k10[
-            "feature_propagate_binned"][0](Hb, *v), iters=10)
-            for k, v in win.items()}
-    ops_features.BINNED_LOADS = "batch"
+    # the two routes add in one order: equal on the card at both windows
+    for v in win.values():
+        if not torch.equal(k10["feature_propagate"][0](Hb, *v),
+                           k10["feature_propagate_binned"][0](Hb, *v)):
+            raise AssertionError("features: K10-P differs from K10")
     library_ms = sparse_library_ms(torch, fa, *win["day"], Hb)
     library_ms_month = sparse_library_ms(torch, fa, *win["month"], Hb)
     path_ms = times[kernel]
@@ -2355,7 +2346,7 @@ def phase_features(torch, np, columns, dev):
          dispatch_s=ds.dispatch_seconds - disp0,
          spec=None if spec is None else spec._asdict(), path_kernel=kernel,
          ms_per_round=times, live_edges=live, gather_gb_per_s=gather_gbps,
-         binned_loads_ms=loads_ms, walk_bytes=ds.m * 8,
+         walk_bytes=ds.m * 8,
          # the path kernel's rounds over the timed sweep, half of the calls
          # at each window
          kernel_share_of_sweep=(path_ms["day"] + path_ms["month"])

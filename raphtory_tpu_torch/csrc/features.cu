@@ -48,14 +48,18 @@
 // row gather, and the mask is read at the slot's own edge (the kernel does
 // not assume perm[in_order[j]] == j). The walk visits a row's edges in the
 // order K10 does, so the two results are equal bit for bit.
-//   Several rows in flight: for each ballot of 32 slots the warp loads up
-// to D set slots' rows (D = 8 at F <= 128) before it adds any of them,
-// then adds them in slot order with __fadd_rn — the sum order, and so the
-// result, stays K10's. The loads go either to registers (a batch of D,
-// drained before the next) or through a per-warp ring of D rows in shared
-// memory filled with cp.async (one row issued as the oldest is added, so D
-// stay in flight); `ring` picks. The stored row of the epilogue is loaded
-// before the walk. Bound: bytes, as K10 (the walk pair instead of e_src).
+//   Several rows in flight: for each ballot of 32 slots the warp keeps up
+// to D set slots' rows (D = 8 at F <= 128) in flight in a per-warp ring of
+// D rows in shared memory, filled with cp.async: D issued ahead, then one
+// issued into each slot as its row is added, so D stay in flight. Each
+// lane copies and later adds only its own feature groups, so the ring
+// needs no barrier. The rows are added in slot order with __fadd_rn — the
+// sum order, and so the result, stays K10's. (A batch of D rows loaded
+// into registers and drained before the next was slower on the H100:
+// 3.04 / 4.39 ms a round at the day / month window of the `features`
+// shape against the ring's 1.64 / 3.17, chip_smoke.py's features phase
+// with both built.) The stored row of the epilogue is loaded before the
+// walk. Bound: bytes, as K10 (the walk pair instead of e_src).
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/features.py).
 // Launches on the caller's stream, allocates nothing, returns
@@ -73,6 +77,10 @@ constexpr int kMaxGroups = 4;    // groups of 4 features a lane: F <= 512
 template <typename T> struct Feat;
 template <> struct Feat<float> {
     using Vec = float4;
+    __device__ static void load(const float* p, float v[4]) {
+        const float4 x = *reinterpret_cast<const float4*>(p);
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    }
     __device__ static Vec raw(const float* p) {
         return *reinterpret_cast<const float4*>(p);
     }
@@ -85,6 +93,14 @@ template <> struct Feat<float> {
 };
 template <> struct Feat<__nv_bfloat16> {
     using Vec = uint2;
+    __device__ static void load(const __nv_bfloat16* p, float v[4]) {
+        const uint2 x = *reinterpret_cast<const uint2*>(p);
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+        v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    }
     __device__ static Vec raw(const __nv_bfloat16* p) {
         return *reinterpret_cast<const uint2*>(p);
     }
@@ -156,17 +172,22 @@ __device__ __forceinline__ void add_row(float (&acc)[NG][4],
     }
 }
 
-// K10: the unbinned walk over the destination CSR, one row load at a time
+// K10. order == nullptr: the unbinned walk (edge j itself, source row
+// e_src[j] of `rows` = H), the one K10 takes; else a binned one (slot
+// order[j], edge perm[slot], bucket row slot_of[slot] of `rows`), which
+// no caller takes since K10-P has its own kernel below.
 template <typename T, typename TT>
 __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
                                  float sw, float sw1,
                                  const int64_t* __restrict__ indptr,
-                                 const int32_t* __restrict__ e_src,
+                                 const int32_t* __restrict__ order,
+                                 const int32_t* __restrict__ perm,
+                                 const int32_t* __restrict__ row_of,
                                  const TT* __restrict__ e_lat,
                                  const uint8_t* __restrict__ e_alive,
+                                 const T* __restrict__ rows,
                                  const T* __restrict__ H,
                                  T* __restrict__ out) {
-    using Vec = typename Feat<T>::Vec;
     const int lane = threadIdx.x & 31;
     const int G = F >> 2;
     for (int64_t r = blockIdx.x * (int64_t)kWarps + (threadIdx.x >> 5);
@@ -182,8 +203,10 @@ __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
             bool mk = false;
             int src = 0;
             if (j < j1) {
-                mk = e_alive[j] && (nowin || (int64_t)e_lat[j] >= lo);
-                src = e_src[j];
+                const int64_t s = order ? (int64_t)order[j] : j;
+                const int64_t e = order ? (int64_t)perm[s] : j;
+                mk = e_alive[e] && (nowin || (int64_t)e_lat[e] >= lo);
+                src = row_of[s];
             }
             unsigned bits = __ballot_sync(0xffffffffu, mk);
             deg += __popc(bits);
@@ -191,21 +214,50 @@ __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
                 const int i = __ffs(bits) - 1;
                 bits &= bits - 1;
                 const T* row =
-                    H + (int64_t)__shfl_sync(0xffffffffu, src, i) * F;
-                Vec v[kMaxGroups];
+                    rows + (int64_t)__shfl_sync(0xffffffffu, src, i) * F;
 #pragma unroll
-                for (int q = 0; q < kMaxGroups; ++q)
-                    if (lane + 32 * q < G) v[q] = Feat<T>::raw(row + 4 * (lane + 32 * q));
-                add_row<T, kMaxGroups>(acc, v, G, lane);
+                for (int q = 0; q < kMaxGroups; ++q) {
+                    const int g = lane + 32 * q;
+                    if (g < G) {
+                        float v[4];
+                        Feat<T>::load(row + 4 * g, v);
+                        for (int c = 0; c < 4; ++c)
+                            acc[q][c] = __fadd_rn(acc[q][c], v[c]);
+                    }
+                }
             }
         }
-        Vec self[kMaxGroups];
+        // mean, mix with the stored row, L2-normalise
+        const float inv = __fdiv_rn(1.0f, fmaxf((float)deg, 1.0f));
+        const T* self = H + r * F;
+        float ss = 0.0f;
 #pragma unroll
-        for (int q = 0; q < kMaxGroups; ++q)
-            if (lane + 32 * q < G)
-                self[q] = Feat<T>::raw(H + r * F + 4 * (lane + 32 * q));
-        finish_row<T, kMaxGroups>(acc, self, deg, G, lane, sw, sw1,
-                                  out + r * F);
+        for (int q = 0; q < kMaxGroups; ++q) {
+            const int g = lane + 32 * q;
+            if (g < G) {
+                float h[4];
+                Feat<T>::load(self + 4 * g, h);
+                for (int c = 0; c < 4; ++c) {
+                    const float x = __fadd_rn(
+                        __fmul_rn(sw, h[c]),
+                        __fmul_rn(sw1, __fmul_rn(acc[q][c], inv)));
+                    acc[q][c] = x;
+                    ss = __fadd_rn(ss, __fmul_rn(x, x));
+                }
+            }
+        }
+        for (int o = 16; o > 0; o >>= 1)
+            ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+        const float nrm = fmaxf(__fsqrt_rn(ss), 1e-12f);
+#pragma unroll
+        for (int q = 0; q < kMaxGroups; ++q) {
+            const int g = lane + 32 * q;
+            if (g < G) {
+                float y[4];
+                for (int c = 0; c < 4; ++c) y[c] = __fdiv_rn(acc[q][c], nrm);
+                Feat<T>::store(out + r * F + 4 * g, y);
+            }
+        }
     }
 }
 
@@ -230,7 +282,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows in flight a warp: 8 at F <= 128, fewer for wider rows
-template <int NG> struct Depth { static constexpr int D = NG == 1 ? 8 : NG == 2 ? 4 : 2; };
+template <int NG> struct Depth {
+    static constexpr int D = NG == 1 ? 8 : NG == 2 ? 4 : 2;
+};
 
 // the next set slot of `bits` (warp-uniform): its source row
 template <typename T>
@@ -241,7 +295,7 @@ __device__ __forceinline__ const T* next_row(unsigned& bits, int src,
     return H + (int64_t)__shfl_sync(0xffffffffu, src, i) * F;
 }
 
-template <typename T, typename TT, int NG, bool kRing>
+template <typename T, typename TT, int NG>
 __global__ void __launch_bounds__(kWarps * 32) binned_kernel(
         int64_t n_pad, int F, int64_t lo, int nowin, float sw, float sw1,
         const int64_t* __restrict__ indptr, const int2* __restrict__ walk,
@@ -249,7 +303,7 @@ __global__ void __launch_bounds__(kWarps * 32) binned_kernel(
         const T* __restrict__ H, T* __restrict__ out) {
     using Vec = typename Feat<T>::Vec;
     constexpr int D = Depth<NG>::D;
-    // kRing: a ring of D rows a warp; a lane's own words at
+    // a ring of D rows a warp; a lane's own words at
     // [(slot * NG + q) * 32 + lane], so a lane only ever reads what it copied
     extern __shared__ __align__(16) unsigned char ring_bytes[];
     Vec* ring = reinterpret_cast<Vec*>(ring_bytes)
@@ -282,59 +336,38 @@ __global__ void __launch_bounds__(kWarps * 32) binned_kernel(
             const int n = __popc(bits);
             deg += n;
             if (n == 0) continue;
-            if constexpr (kRing) {
-                // issue D rows ahead, then add the oldest and issue the
-                // next into its slot; a commit every step keeps the count
-                // of groups in flight at D (the empty ones complete at once)
+            // issue D rows ahead, then add the oldest and issue the next
+            // into its slot; a commit every step keeps the count of groups
+            // in flight at D (the empty ones complete at once)
 #pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    if (d < n) {
-                        const T* row = next_row(bits, src, H, F);
+            for (int d = 0; d < D; ++d) {
+                if (d < n) {
+                    const T* row = next_row(bits, src, H, F);
 #pragma unroll
-                        for (int q = 0; q < NG; ++q)
-                            if (lane + 32 * q < G)
-                                cp_async<sizeof(Vec)>(
-                                    ring + (d * NG + q) * 32 + lane,
-                                    row + 4 * (lane + 32 * q));
-                    }
-                    cp_async_commit();
+                    for (int q = 0; q < NG; ++q)
+                        if (lane + 32 * q < G)
+                            cp_async<sizeof(Vec)>(
+                                ring + (d * NG + q) * 32 + lane,
+                                row + 4 * (lane + 32 * q));
                 }
-                for (int k = 0; k < n; ++k) {
-                    cp_async_wait<D - 1>();
-                    Vec* slot = ring + (k & (D - 1)) * NG * 32 + lane;
-                    Vec v[NG];
+                cp_async_commit();
+            }
+            for (int k = 0; k < n; ++k) {
+                cp_async_wait<D - 1>();
+                Vec* slot = ring + (k & (D - 1)) * NG * 32 + lane;
+                Vec v[NG];
 #pragma unroll
-                    for (int q = 0; q < NG; ++q) v[q] = slot[q * 32];
-                    add_row<T, NG>(acc, v, G, lane);
-                    if (k + D < n) {
-                        const T* row = next_row(bits, src, H, F);
+                for (int q = 0; q < NG; ++q) v[q] = slot[q * 32];
+                add_row<T, NG>(acc, v, G, lane);
+                if (k + D < n) {
+                    const T* row = next_row(bits, src, H, F);
 #pragma unroll
-                        for (int q = 0; q < NG; ++q)
-                            if (lane + 32 * q < G)
-                                cp_async<sizeof(Vec)>(
-                                    slot + q * 32, row + 4 * (lane + 32 * q));
-                    }
-                    cp_async_commit();
+                    for (int q = 0; q < NG; ++q)
+                        if (lane + 32 * q < G)
+                            cp_async<sizeof(Vec)>(slot + q * 32,
+                                                  row + 4 * (lane + 32 * q));
                 }
-            } else {
-                // a batch of up to D rows loaded into registers, then added
-                for (int k0 = 0; k0 < n; k0 += D) {
-                    Vec v[D][NG];
-#pragma unroll
-                    for (int d = 0; d < D; ++d) {
-                        if (k0 + d < n) {
-                            const T* row = next_row(bits, src, H, F);
-#pragma unroll
-                            for (int q = 0; q < NG; ++q)
-                                if (lane + 32 * q < G)
-                                    v[d][q] = Feat<T>::raw(
-                                        row + 4 * (lane + 32 * q));
-                        }
-                    }
-#pragma unroll
-                    for (int d = 0; d < D; ++d)
-                        if (k0 + d < n) add_row<T, NG>(acc, v[d], G, lane);
-                }
+                cp_async_commit();
             }
         }
         finish_row<T, NG>(acc, self, deg, G, lane, sw, sw1, out + r * F);
@@ -349,70 +382,79 @@ int64_t row_blocks(int64_t n) {
 
 template <typename T, typename TT>
 void launch(int64_t n_pad, int F, int64_t lo, int nowin, float sw, float sw1,
-            const int64_t* indptr, const int32_t* e_src, const void* e_lat,
-            const uint8_t* e_alive, const void* H, void* out,
-            cudaStream_t s) {
+            const int64_t* indptr, const int32_t* order, const int32_t* perm,
+            const int32_t* row_of, const void* e_lat, const uint8_t* e_alive,
+            const void* rows, const void* H, void* out, cudaStream_t s) {
     propagate_kernel<T, TT><<<row_blocks(n_pad), kWarps * 32, 0, s>>>(
-        n_pad, F, lo, nowin, sw, sw1, indptr, e_src,
-        static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(H),
-        static_cast<T*>(out));
+        n_pad, F, lo, nowin, sw, sw1, indptr, order, perm, row_of,
+        static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(rows),
+        static_cast<const T*>(H), static_cast<T*>(out));
 }
 
-template <typename T, typename TT, int NG, bool kRing>
+template <typename T>
+void launch_t(int64_t tbytes, int64_t n_pad, int F, int64_t lo, int nowin,
+              float sw, float sw1, const int64_t* indptr,
+              const int32_t* order, const int32_t* perm,
+              const int32_t* row_of, const void* e_lat,
+              const uint8_t* e_alive, const void* rows, const void* H,
+              void* out, cudaStream_t s) {
+    if (tbytes == 4)
+        launch<T, int32_t>(n_pad, F, lo, nowin, sw, sw1, indptr, order, perm,
+                           row_of, e_lat, e_alive, rows, H, out, s);
+    else
+        launch<T, int64_t>(n_pad, F, lo, nowin, sw, sw1, indptr, order, perm,
+                           row_of, e_lat, e_alive, rows, H, out, s);
+}
+
+template <typename T, typename TT, int NG>
 void launch_binned_ng(int64_t n_pad, int F, int64_t lo, int nowin, float sw,
                       float sw1, const int64_t* indptr, const int2* walk,
                       const void* e_lat, const uint8_t* e_alive,
                       const void* H, void* out, cudaStream_t s) {
     using Vec = typename Feat<T>::Vec;
-    const size_t smem =
-        kRing ? (size_t)kWarps * Depth<NG>::D * NG * 32 * sizeof(Vec) : 0;
-    binned_kernel<T, TT, NG, kRing><<<row_blocks(n_pad), kWarps * 32, smem,
-                                      s>>>(
+    const size_t smem = (size_t)kWarps * Depth<NG>::D * NG * 32 * sizeof(Vec);
+    binned_kernel<T, TT, NG><<<row_blocks(n_pad), kWarps * 32, smem, s>>>(
         n_pad, F, lo, nowin, sw, sw1, indptr, walk,
         static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(H),
         static_cast<T*>(out));
 }
 
-template <typename T, typename TT, bool kRing>
+template <typename T, typename TT>
 void launch_binned(int64_t n_pad, int F, int64_t lo, int nowin, float sw,
                    float sw1, const int64_t* indptr, const int2* walk,
                    const void* e_lat, const uint8_t* e_alive, const void* H,
                    void* out, cudaStream_t s) {
     switch ((F / 4 + 31) / 32) {    // groups of 4 features a lane
     case 1:
-        launch_binned_ng<T, TT, 1, kRing>(n_pad, F, lo, nowin, sw, sw1,
-                                          indptr, walk, e_lat, e_alive, H,
-                                          out, s);
+        launch_binned_ng<T, TT, 1>(n_pad, F, lo, nowin, sw, sw1, indptr,
+                                    walk, e_lat, e_alive, H, out, s);
         break;
     case 2:
-        launch_binned_ng<T, TT, 2, kRing>(n_pad, F, lo, nowin, sw, sw1,
-                                          indptr, walk, e_lat, e_alive, H,
-                                          out, s);
+        launch_binned_ng<T, TT, 2>(n_pad, F, lo, nowin, sw, sw1, indptr,
+                                    walk, e_lat, e_alive, H, out, s);
         break;
     case 3:
-        launch_binned_ng<T, TT, 3, kRing>(n_pad, F, lo, nowin, sw, sw1,
-                                          indptr, walk, e_lat, e_alive, H,
-                                          out, s);
+        launch_binned_ng<T, TT, 3>(n_pad, F, lo, nowin, sw, sw1, indptr,
+                                    walk, e_lat, e_alive, H, out, s);
         break;
     default:
-        launch_binned_ng<T, TT, 4, kRing>(n_pad, F, lo, nowin, sw, sw1,
-                                          indptr, walk, e_lat, e_alive, H,
-                                          out, s);
+        launch_binned_ng<T, TT, 4>(n_pad, F, lo, nowin, sw, sw1, indptr,
+                                    walk, e_lat, e_alive, H, out, s);
     }
 }
 
-template <typename T, bool kRing>
+template <typename T>
 void launch_binned_t(int64_t tbytes, int64_t n_pad, int F, int64_t lo,
                      int nowin, float sw, float sw1, const int64_t* indptr,
                      const int2* walk, const void* e_lat,
                      const uint8_t* e_alive, const void* H, void* out,
                      cudaStream_t s) {
     if (tbytes == 4)
-        launch_binned<T, int32_t, kRing>(n_pad, F, lo, nowin, sw, sw1, indptr,
-                                         walk, e_lat, e_alive, H, out, s);
+        launch_binned<T, int32_t>(n_pad, F, lo, nowin, sw, sw1, indptr, walk,
+                                  e_lat, e_alive, H, out, s);
     else
-        launch_binned<T, int64_t, kRing>(n_pad, F, lo, nowin, sw, sw1, indptr,
-                                         walk, e_lat, e_alive, H, out, s);
+        launch_binned<T, int64_t>(n_pad, F, lo, nowin, sw, sw1, indptr, walk,
+                                  e_lat, e_alive, H, out, s);
 }
 
 bool bad_args(int64_t F, int64_t fdtype, int64_t tbytes) {
@@ -440,32 +482,23 @@ int rtpu_feature_propagate(int64_t n_pad, int64_t F, int64_t fdtype,
     const int64_t* ip = static_cast<const int64_t*>(in_indptr);
     const int32_t* src = static_cast<const int32_t*>(e_src);
     const uint8_t* al = static_cast<const uint8_t*>(e_alive);
-    if (fdtype == 0) {
-        if (tbytes == 4)
-            launch<float, int32_t>(n_pad, (int)F, lo, (int)nowin, sw, sw1, ip,
-                                   src, e_lat, al, H, out, s);
-        else
-            launch<float, int64_t>(n_pad, (int)F, lo, (int)nowin, sw, sw1, ip,
-                                   src, e_lat, al, H, out, s);
-    } else {
-        if (tbytes == 4)
-            launch<__nv_bfloat16, int32_t>(n_pad, (int)F, lo, (int)nowin, sw,
-                                           sw1, ip, src, e_lat, al, H, out, s);
-        else
-            launch<__nv_bfloat16, int64_t>(n_pad, (int)F, lo, (int)nowin, sw,
-                                           sw1, ip, src, e_lat, al, H, out, s);
-    }
+    if (fdtype == 0)
+        launch_t<float>(tbytes, n_pad, (int)F, lo, (int)nowin, sw, sw1, ip,
+                        nullptr, nullptr, src, e_lat, al, H, H, out, s);
+    else
+        launch_t<__nv_bfloat16>(tbytes, n_pad, (int)F, lo, (int)nowin, sw,
+                                sw1, ip, nullptr, nullptr, src, e_lat, al, H,
+                                H, out, s);
     return (int)cudaGetLastError();
 }
 
-// K10-P. As K10, plus ring (0 the register batch, 1 the cp.async ring) |
-// in_indptr [n_pad+1] int64 (the layout's destination walk: each row's
+// K10-P. As K10 | in_indptr [n_pad+1] int64 (the layout's destination walk: each row's
 // real slots, in source order), walk [m, 2] int32 (each walk entry's
 // source row u_src[slot[s]] and edge perm[s]) | e_lat, e_alive [m_pad] |
 // H | out. One launch.
 int rtpu_feature_propagate_binned(int64_t n_pad, int64_t F, int64_t fdtype,
                                   int64_t tbytes, int64_t lo, int64_t nowin,
-                                  int64_t ring, float sw, float sw1,
+                                  float sw, float sw1,
                                   const void* in_indptr, const void* walk,
                                   const void* e_lat, const void* e_alive,
                                   const void* H, void* out, void* stream) {
@@ -475,25 +508,12 @@ int rtpu_feature_propagate_binned(int64_t n_pad, int64_t F, int64_t fdtype,
     const int64_t* ip = static_cast<const int64_t*>(in_indptr);
     const int2* wk = static_cast<const int2*>(walk);
     const uint8_t* al = static_cast<const uint8_t*>(e_alive);
-    if (fdtype == 0) {
-        if (ring)
-            launch_binned_t<float, true>(tbytes, n_pad, (int)F, lo,
-                                         (int)nowin, sw, sw1, ip, wk, e_lat,
-                                         al, H, out, s);
-        else
-            launch_binned_t<float, false>(tbytes, n_pad, (int)F, lo,
-                                          (int)nowin, sw, sw1, ip, wk, e_lat,
-                                          al, H, out, s);
-    } else {
-        if (ring)
-            launch_binned_t<__nv_bfloat16, true>(tbytes, n_pad, (int)F, lo,
-                                                 (int)nowin, sw, sw1, ip, wk,
-                                                 e_lat, al, H, out, s);
-        else
-            launch_binned_t<__nv_bfloat16, false>(tbytes, n_pad, (int)F, lo,
-                                                  (int)nowin, sw, sw1, ip, wk,
-                                                  e_lat, al, H, out, s);
-    }
+    if (fdtype == 0)
+        launch_binned_t<float>(tbytes, n_pad, (int)F, lo, (int)nowin, sw, sw1,
+                               ip, wk, e_lat, al, H, out, s);
+    else
+        launch_binned_t<__nv_bfloat16>(tbytes, n_pad, (int)F, lo, (int)nowin,
+                                       sw, sw1, ip, wk, e_lat, al, H, out, s);
     return (int)cudaGetLastError();
 }
 

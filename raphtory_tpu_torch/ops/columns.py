@@ -139,9 +139,9 @@ _ARGTYPES = {
     # e_lat, e_alive, H, out, stream
     "rtpu_feature_propagate": 6 * [ctypes.c_int64] + 2 * [ctypes.c_float]
     + 7 * [ctypes.c_void_p],
-    # n_pad, F, fdtype, tbytes, lo, nowin, ring | sw, 1-sw | in_indptr,
-    # walk, e_lat, e_alive, H, out, stream
-    "rtpu_feature_propagate_binned": 7 * [ctypes.c_int64]
+    # n_pad, F, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr, walk,
+    # e_lat, e_alive, H, out, stream
+    "rtpu_feature_propagate_binned": 6 * [ctypes.c_int64]
     + 2 * [ctypes.c_float] + 7 * [ctypes.c_void_p],
     # plan (int64 [10]), send_idx, src, out, stream
     "rtpu_halo_pack": 5 * [ctypes.c_void_p],

@@ -222,7 +222,7 @@ def halo_pack(a, send_idx):
 # ---------------------------------------------------------------- frontier
 
 #: rows a block of the one-pass compaction takes (``csrc/exchange.cu``)
-TILE_ROWS = 8192
+TILE_ROWS = 16384
 #: epochs a compaction scratch serves before it is cleared (the status
 #: words' 22-bit epoch field; 0 is never used)
 _EPOCHS = 1 << 22
@@ -388,7 +388,9 @@ def _pad_signature(key, values, changed, bucket, identity):
         if values.element_size() not in (4, 8):
             raise TypeError(f"{name}: state dtype {values.dtype} has no "
                             "kernel (4- or 8-byte elements)")
-        f = values[0].numel() if values.shape[0] else 1
+        f = 1
+        for d in values.shape[1:]:
+            f *= d
         grid = min(1024, -(-bucket * f // THREADS))
         entry = (*_plan_array([bucket, f, values.element_size(),
                                _ident_bits(identity, values.dtype), grid]),

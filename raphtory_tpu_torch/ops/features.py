@@ -163,11 +163,6 @@ def propagate_round_binned_plain(H, be, e_lat, e_alive, lo: int,
 #: the layout's device arrays live
 _WALKS = WeakIdKeyDictionary()
 
-#: how K10-P keeps rows in flight: ``"batch"`` (registers) or ``"ring"``
-#: (a ``cp.async`` ring in shared memory)
-BINNED_LOADS = "batch"
-
-
 def binned_walk(be):
     """``int32 [m, 2]``: for each entry ``j`` of the layout's destination
     walk (slot ``s = in_order[j]``), the source row ``u_src[slot[s]]`` and
@@ -216,8 +211,8 @@ def propagate_round_binned(H, be, e_lat, e_alive, lo: int, nowin: bool,
     out = torch.empty_like(H)
     err = _fn("features", "rtpu_feature_propagate_binned")(
         n_pad, F, FEATURE_DTYPES[H.dtype], e_lat.dtype.itemsize, int(lo),
-        int(nowin), int(BINNED_LOADS == "ring"), float(self_weight),
-        float(1.0 - self_weight), be.in_indptr.data_ptr(), walk.data_ptr(),
+        int(nowin), float(self_weight), float(1.0 - self_weight),
+        be.in_indptr.data_ptr(), walk.data_ptr(),
         e_lat.data_ptr(), e_alive.data_ptr(), H.data_ptr(), out.data_ptr(),
         _stream(H))
     _launch(name, err)

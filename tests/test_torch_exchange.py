@@ -351,7 +351,7 @@ def _model_merge(plan, counts, idx, val, replica, stream):
 
 #: the order the modelled compaction's tiles take their steps in
 _TILE_ORDER = np.random.default_rng(0)
-_TILE_ROWS = 8192
+_TILE_ROWS = 16384
 _EPOCH_SHIFT, _FLAG_SHIFT = 42, 40
 
 
@@ -491,7 +491,7 @@ def _compact_cases(rng, n):
 
 @pytest.mark.parametrize("dtype,trail", [
     (np.int32, ()), (np.float32, (3,)), (np.int64, ()), (np.float64, (2,))])
-@pytest.mark.parametrize("n", [3 * 8192 + 17, 1000])
+@pytest.mark.parametrize("n", [3 * 16384 + 17, 1000])
 def test_compact_card_branch_matches_twin(card_branch, dtype, trail, n):
     """Both launches through their models, back to back on one scratch
     (each call a new epoch): bitwise the twin, ``np.flatnonzero``'s order
@@ -520,6 +520,21 @@ def test_compact_card_branch_matches_twin(card_branch, dtype, trail, n):
     # the scratch: one epoch a call, the ticket back at 0
     (scratch, epoch), = exchange._SCRATCH.values()
     assert epoch == calls and int(scratch[0]) == 0
+
+
+@pytest.mark.parametrize("trail", [(), (3,)])
+def test_compact_card_branch_of_an_empty_state(card_branch, trail):
+    """N = 0: one tile counts nothing, and the pad fills every slot of the
+    bucket with the whole row's identity (trailing dimensions included)."""
+    values = torch.zeros((0,) + trail, dtype=torch.float32)
+    ch = torch.zeros(0, dtype=torch.bool)
+    for bucket in (0, 1):
+        want = exchange.frontier_compact_plain(values, ch, bucket, np.inf)
+        for counted in (exchange.frontier_count(ch, values), None):
+            got = exchange.frontier_compact(values, ch, bucket, np.inf,
+                                            counted)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 def test_compact_epochs_wrap_by_clearing_the_scratch(card_branch,

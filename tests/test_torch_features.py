@@ -334,9 +334,9 @@ def _model_binned(calls):
     the mask at each entry's own edge and adds the source rows of ``H`` in
     walk order (float32 adds, one at a time), then the epilogue. Records
     each call's arguments in ``calls``."""
-    def model(n_pad, F, fdtype, tbytes, lo, nowin, ring, sw, sw1, indptr,
-              walk, e_lat, e_alive, H, out, stream):
-        calls.append(dict(indptr=indptr, walk=walk, H=H, out=out, ring=ring,
+    def model(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, indptr, walk,
+              e_lat, e_alive, H, out, stream):
+        calls.append(dict(indptr=indptr, walk=walk, H=H, out=out,
                           n_pad=n_pad, F=F))
         ip = _view(indptr, np.int64, n_pad + 1)
         wk = _view(walk, np.int32, 2 * int(ip[-1])).reshape(-1, 2)
@@ -418,7 +418,6 @@ def test_binned_card_branch_is_one_launch_a_round(binned_card_branch, P,
         s = be.in_order.long()
         assert calls[0]["indptr"] == be.in_indptr.data_ptr()
         assert calls[0]["walk"] == walk.data_ptr()
-        assert calls[0]["ring"] == int(ops_features.BINNED_LOADS == "ring")
         assert torch.equal(walk, torch.stack(
             [be.u_src[be.slot[s].long()], be.perm[s]], 1))
         # against the twin round by round
