@@ -32,11 +32,11 @@
 // (`np.flatnonzero(changed)` and the bucket fill). The first counts and
 // compacts in one pass, a decoupled look-back scan (Merrill & Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016):
-// each block takes a tile of 16,384 rows by an atomic ticket (so a tile
-// only ever waits on tiles that have started), reads its flags 64 a
+// each block takes a tile of 8,192 rows by an atomic ticket (so a tile
+// only ever waits on tiles that have started), reads its flags 32 a
 // thread, scans their counts, stages each warp's set rows in order in
 // shared memory, publishes its count, looks back over its predecessors'
-// status words (a warp reads 128 at a time, nearest first, summing counts
+// status words (a warp reads 32 at a time, nearest first, summing counts
 // until it meets an inclusive prefix), publishes its own inclusive
 // prefix, and writes its set rows' int64 flat indices and value rows at
 // their ranks, a warp's run from consecutive lanes: ascending,
@@ -44,20 +44,19 @@
 // call's epoch beside its flag and value, so words of earlier calls read
 // as "not yet" and no launch clears them; the tile with the last ticket
 // sets the ticket back to 0 (every tile has taken its own by then) and
-// writes the total to device memory. The
-// output buffers hold N rows (the bucket never exceeds N), so the count
-// needs no read-back before the compaction: the ranks agree the bucket
-// from the device count afterwards. `rtpu_frontier_pad` then fills slots
-// [count, B) with index 0 and the min identity, reading the count from
-// device memory.
+// writes the total to device memory. The output buffers hold N rows (the
+// bucket never exceeds N), so the count needs no read-back before the
+// compaction: the ranks agree the bucket from the device count
+// afterwards. `rtpu_frontier_pad` then fills slots [count, B) with index
+// 0 and the min identity, reading the count from device memory.
 //   Bound: bytes (the flags read once, the set rows read and written once,
 // the pads written once), and at small N the chain of latencies a block
-// waits through: the tiles are large enough that the deployment shape's
-// 10.6M rows fit in one wave of blocks, and a look-back step reads 128
-// predecessors. The flags arrive as four 16-byte loads a thread where the
-// mask is 16-byte aligned; the writes are coalesced; scalar rows' values
-// are loaded kAhead a lane before any is stored, the first batch before
-// the look-back, so their latency overlaps it.
+// waits through, which keeps tiles small enough that the mesh shape's
+// 98,304 rows spread over 12 blocks. The flags arrive as two 16-byte
+// loads a thread where the mask is 16-byte aligned; the writes are
+// coalesced; scalar rows' values are loaded kAhead a lane before any is
+// stored, the first batch before the look-back, so their latency
+// overlaps it.
 
 // `rtpu_frontier_merge_min` replaces the `np.minimum.at` merge of
 // frontier.py:498-502: for each of the R gathered slices and each slot
@@ -125,12 +124,11 @@ __global__ void __launch_bounds__(256) halo_pack_kernel(
 }
 
 // the one-pass compaction: a tile of kTileRows rows a block, kThreadRows
-// rows a thread (four 16-byte loads of flags)
+// rows a thread (two 16-byte loads of flags)
 constexpr int kTileThreads = 256;
-constexpr int kThreadRows = 64;
+constexpr int kThreadRows = 32;
 constexpr int kTileRows = kTileThreads * kThreadRows;
 constexpr int kAhead = 4;               // values a lane loads before storing
-constexpr int kLook = 4;                // status words a lane reads a step
 // a tile's status word: epoch (22 bits) | flag (2) | value (40)
 constexpr unsigned long long kAggregate = 1, kPrefix = 2;
 constexpr unsigned long long kValueMask = (1ull << 40) - 1;
@@ -158,7 +156,8 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
         int64_t n, int64_t f, int64_t tiles, unsigned long long epoch,
         const uint8_t* __restrict__ changed, const T* __restrict__ values,
         int64_t* __restrict__ out_idx, T* __restrict__ out_val,
-        int64_t* __restrict__ count, unsigned long long* __restrict__ scratch) {
+        int64_t* __restrict__ count,
+        unsigned long long* __restrict__ scratch) {
     __shared__ int64_t s_tile, s_excl;
     __shared__ int warp_total[kTileThreads / 32];
     // each warp's set rows (offsets in the tile), in order
@@ -174,7 +173,7 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
     const int64_t tile = s_tile;
     const int first = threadIdx.x * kThreadRows;       // in the tile
     const int64_t base = tile * kTileRows + first;
-    unsigned long long bits = 0;             // bit k: row base + k is set
+    unsigned bits = 0;                       // bit k: row base + k is set
     if (base + kThreadRows <= n
             && (reinterpret_cast<uintptr_t>(changed) & 15) == 0) {
         const uint4* p = reinterpret_cast<const uint4*>(changed + base);
@@ -187,15 +186,15 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
 #pragma unroll
             for (int k = 0; k < 16; ++k)
                 bits |= ((w[k >> 2] >> (8 * (k & 3))) & 0xffu)
-                    ? 1ull << (16 * h + k) : 0ull;
+                    ? 1u << (16 * h + k) : 0u;
         }
     } else {
         for (int k = 0; k < kThreadRows; ++k)
-            if (base + k < n && changed[base + k]) bits |= 1ull << k;
+            if (base + k < n && changed[base + k]) bits |= 1u << k;
     }
     // the warp's scan of the threads' counts; each thread stages its set
     // rows at its rank in the warp's run of s_rows
-    const int c = __popcll(bits);
+    const int c = __popc(bits);
     int incl = c;
     for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, incl, o);
@@ -205,8 +204,8 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
     const int run_len = __shfl_sync(0xffffffffu, incl, 31);
     uint16_t* run = s_rows + warp * 32 * kThreadRows;
     int at = incl - c;
-    for (unsigned long long b = bits; b; b &= b - 1, ++at)
-        run[at] = (uint16_t)(first + __ffsll(b) - 1);
+    for (unsigned b = bits; b; b &= b - 1, ++at)
+        run[at] = (uint16_t)(first + __ffs(b) - 1);
     __syncwarp();
     // scalar rows: the run's first kAhead x 32 values are loaded now, so
     // their latency hides behind the look-back
@@ -235,35 +234,22 @@ __global__ void __launch_bounds__(kTileThreads) compact_kernel(
             if (lane == 0)
                 store_status(status + tile,
                              status_word(epoch, kAggregate, aggregate));
-            // kLook x 32 predecessors a step, nearest first: step k of
-            // lane l reads tile pred - 32 k - l
-            for (int64_t pred = tile - 1;; pred -= 32 * kLook) {
-                unsigned long long w[kLook];
-#pragma unroll
-                for (int k = 0; k < kLook; ++k) {
-                    const int64_t i = pred - 32 * k - lane;
-                    w[k] = status_word(epoch, kPrefix, 0);
-                    if (i >= 0) {
-                        do {
-                            w[k] = load_status(status + i);
-                        } while ((w[k] >> 42) != epoch);
-                    }
+            for (int64_t pred = tile - 1;; pred -= 32) {
+                const int64_t i = pred - lane;
+                unsigned long long w = status_word(epoch, kPrefix, 0);
+                if (i >= 0) {
+                    do {
+                        w = load_status(status + i);
+                    } while ((w >> 42) != epoch);
                 }
-                int64_t v = 0;
-                bool found = false;
-#pragma unroll
-                for (int k = 0; k < kLook; ++k) {
-                    if (found) break;               // warp-uniform
-                    const unsigned done = __ballot_sync(
-                        0xffffffffu, ((w[k] >> 40) & 3) == kPrefix);
-                    const int cut = done ? __ffs(done) - 1 : 31;
-                    v += lane <= cut ? (int64_t)(w[k] & kValueMask) : 0;
-                    found = done != 0;
-                }
+                const unsigned done = __ballot_sync(
+                    0xffffffffu, ((w >> 40) & 3) == kPrefix);
+                const int cut = done ? __ffs(done) - 1 : 31;
+                int64_t v = lane <= cut ? (int64_t)(w & kValueMask) : 0;
                 for (int o = 16; o > 0; o >>= 1)
                     v += __shfl_xor_sync(0xffffffffu, v, o);
                 excl += v;
-                if (found) break;
+                if (done) break;
             }
             if (lane == 0)
                 store_status(status + tile,

@@ -492,10 +492,10 @@ int rtpu_feature_propagate(int64_t n_pad, int64_t F, int64_t fdtype,
     return (int)cudaGetLastError();
 }
 
-// K10-P. As K10 | in_indptr [n_pad+1] int64 (the layout's destination walk: each row's
-// real slots, in source order), walk [m, 2] int32 (each walk entry's
-// source row u_src[slot[s]] and edge perm[s]) | e_lat, e_alive [m_pad] |
-// H | out. One launch.
+// K10-P. As K10 | in_indptr [n_pad+1] int64 (the layout's destination
+// walk: each row's real slots, in source order), walk [m, 2] int32 (each
+// walk entry's source row u_src[slot[s]] and edge perm[s]) | e_lat,
+// e_alive [m_pad] | H | out. One launch.
 int rtpu_feature_propagate_binned(int64_t n_pad, int64_t F, int64_t fdtype,
                                   int64_t tbytes, int64_t lo, int64_t nowin,
                                   float sw, float sw1,

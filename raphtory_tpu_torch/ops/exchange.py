@@ -222,7 +222,7 @@ def halo_pack(a, send_idx):
 # ---------------------------------------------------------------- frontier
 
 #: rows a block of the one-pass compaction takes (``csrc/exchange.cu``)
-TILE_ROWS = 16384
+TILE_ROWS = 8192
 #: epochs a compaction scratch serves before it is cleared (the status
 #: words' 22-bit epoch field; 0 is never used)
 _EPOCHS = 1 << 22

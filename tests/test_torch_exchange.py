@@ -351,7 +351,7 @@ def _model_merge(plan, counts, idx, val, replica, stream):
 
 #: the order the modelled compaction's tiles take their steps in
 _TILE_ORDER = np.random.default_rng(0)
-_TILE_ROWS = 16384
+_TILE_ROWS = 8192
 _EPOCH_SHIFT, _FLAG_SHIFT = 42, 40
 
 
@@ -491,7 +491,7 @@ def _compact_cases(rng, n):
 
 @pytest.mark.parametrize("dtype,trail", [
     (np.int32, ()), (np.float32, (3,)), (np.int64, ()), (np.float64, (2,))])
-@pytest.mark.parametrize("n", [3 * 16384 + 17, 1000])
+@pytest.mark.parametrize("n", [3 * 8192 + 17, 1000])
 def test_compact_card_branch_matches_twin(card_branch, dtype, trail, n):
     """Both launches through their models, back to back on one scratch
     (each call a new epoch): bitwise the twin, ``np.flatnonzero``'s order
