@@ -108,7 +108,9 @@ printing one JSON line:
               ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P): card against the
               CPU run (f32 atol 1e-6, bf16 2 ulps), binned against
               unbinned on the card (``torch.equal``); K10-P timed and
-              held against its twin; ``TemporalEmbeddings.nearest`` /
+              held against its twin, and at F 132 / 260 / 388 / 512 (f32
+              and bf16) bitwise K10 and against its twin;
+              ``TemporalEmbeddings.nearest`` /
               ``drift`` on the card against the CPU.
 17. lpa     — ``LabelPropagation``: a cold View job on the GAB log at
               0.90 t_span over (month, week, day), a hop-by-hop Range job
@@ -2388,7 +2390,9 @@ def phase_features_gab(torch, np, columns, log, dev):
     the CPU twin run (f32 within atol 1e-6; bf16 within 2 bf16 ulps of
     each row's largest element, cosine above 0.9999 a row), binned against
     unbinned on the card (``torch.equal``); one round of each kernel
-    against its twin at this shape (bf16 2 ulps elementwise); then
+    against its twin at this shape (bf16 2 ulps elementwise); K10-P at
+    F 132 / 260 / 388 / 512, f32 and bf16, bitwise K10 and against its
+    twin (f32 atol 1e-5, bf16 2 ulps); then
     ``TemporalEmbeddings`` ``nearest`` / ``drift`` on the card against the
     CPU."""
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
@@ -2490,6 +2494,31 @@ def phase_features_gab(torch, np, columns, log, dev):
         round_check[name] = dict(bf16_max_ulps_vs_twin=ulps,
                                  ms=cuda_ms(torch, kern),
                                  plain_ms=cuda_ms(torch, plain, iters=5))
+    # every ring depth of K10-P (F 132 / 260 / 388 / 512: 2, 3 and 4
+    # groups of 4 features a lane; F 512 float32 holds the widest ring),
+    # float32 and bfloat16: bitwise K10, and equal to its twin
+    widths = {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for F in (132, 260, 388, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            Hw = torch.randn((ds.n_pad, F), generator=g, device=dev).to(dt)
+            got = ops_features.propagate_round_binned(
+                Hw, be, e_lat, e_alive, lo, nowin, 0.5)
+            k10w = ops_features.propagate_round(Hw, ds.edges, e_lat, e_alive,
+                                                lo, nowin, 0.5)
+            want = ops_features.propagate_round_binned_plain(
+                Hw, be, e_lat, e_alive, lo, nowin, 0.5)
+            if dt == torch.float32:
+                err = float((got - want).abs().max())
+                ok = err <= 1e-5
+            else:
+                err = float(bf16_ulps(torch, got.float(), want.float()).max())
+                ok = err <= 2
+            if not torch.equal(got, k10w) or not ok:
+                raise AssertionError(
+                    f"features_gab: K10-P at F {F} {dt} differs from K10 "
+                    f"({torch.equal(got, k10w)}) or its twin ({err})")
+            widths[f"F{F}_{str(dt).split('.')[-1]}"] = err
     # the embeddings example on the card against the CPU (same seed: the
     # features are drawn on the host)
     with pcpm_route(None):
@@ -2508,6 +2537,7 @@ def phase_features_gab(torch, np, columns, log, dev):
     emit("features_gab", n=ds.n, m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad,
          F=128, specs=specs, call_s=runs, vs_cpu=errs,
          binned_equals_unbinned=True, one_round_bf16=round_check,
+         wide_vs_twin=widths,
          layout=spec_of(lay), nearest=[(v, s) for v, s in near[dev]],
          nearest_cpu=[(v, s) for v, s in near["cpu"]],
          drift_max_abs_err_vs_cpu=drift_err, launches=total)
@@ -2993,8 +3023,11 @@ def compact_entry(torch, exchange, vals, changed, B, ident,
     bound_ms, bound_by = bound(n + cnt * row_b + out_b)
 
     def kern():
+        # the count on the host, as the sparse route holds it from the
+        # all-gathered counts: the pad's bucket check reads nothing back
         return exchange.frontier_compact(
-            vals, changed, B, ident, exchange.frontier_count(changed, vals))
+            vals, changed, B, ident,
+            exchange.frontier_count(changed, vals)._replace(host=cnt))
 
     def lib():
         idx = torch.nonzero(changed).reshape(-1)
@@ -3023,8 +3056,9 @@ def exchange_edge_cases(torch, exchange, dev) -> int:
     trailing dimension, NaN on either side, a slice with count 0, a
     bucket of 0 and strided counts; compactions of count 0 and count N,
     into a bucket of exactly the count, with trailing dimensions, a mask
-    that is not 16-byte aligned, and back to back. Returns the cases
-    checked."""
+    that is not 16-byte aligned, back to back, with the count held on the
+    host or read back, and past the bucket (which raises). Returns the
+    cases checked."""
     from raphtory_tpu_torch.ops.partition import frontier_bucket
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -3107,9 +3141,10 @@ def exchange_edge_cases(torch, exchange, dev) -> int:
         ident = exchange.min_identity(dtype)
         cnt = int(ch.sum())
         for B in (cnt, frontier_bucket(cnt, cap=n)):
-            for _ in range(2):
+            for host in (None, cnt):
                 got = exchange.frontier_compact(
-                    vals, ch, B, ident, exchange.frontier_count(ch, vals))
+                    vals, ch, B, ident, exchange.frontier_count(
+                        ch, vals)._replace(host=host))
                 want = exchange.frontier_compact_plain(vals, ch, B, ident)
                 if not (torch.equal(got[0], want[0])
                         and bits_equal(torch, got[1], want[1])):
@@ -3117,6 +3152,20 @@ def exchange_edge_cases(torch, exchange, dev) -> int:
                         f"frontier_compact differs from its twin: N {n}, "
                         f"trail {trail}, {dtype}, {cnt} set, bucket {B}")
                 checked += 1
+        # more set rows than the bucket holds: raises, the count read back
+        # or held on the host
+        for host in ((None, cnt) if cnt else ()):
+            try:
+                exchange.frontier_compact(
+                    vals, ch, cnt - 1, ident, exchange.frontier_count(
+                        ch, vals)._replace(host=host))
+            except ValueError as e:
+                if "> bucket" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"frontier_compact took {cnt} set rows "
+                                     f"into a bucket of {cnt - 1}")
+            checked += 1
     rep = leaf((100,), torch.int32)
     got = rep.clone()
     exchange.frontier_merge_min(

@@ -172,20 +172,14 @@ __device__ __forceinline__ void add_row(float (&acc)[NG][4],
     }
 }
 
-// K10. order == nullptr: the unbinned walk (edge j itself, source row
-// e_src[j] of `rows` = H), the one K10 takes; else a binned one (slot
-// order[j], edge perm[slot], bucket row slot_of[slot] of `rows`), which
-// no caller takes since K10-P has its own kernel below.
+// K10: the unbinned walk, edge j itself and its source row e_src[j].
 template <typename T, typename TT>
 __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
                                  float sw, float sw1,
                                  const int64_t* __restrict__ indptr,
-                                 const int32_t* __restrict__ order,
-                                 const int32_t* __restrict__ perm,
-                                 const int32_t* __restrict__ row_of,
+                                 const int32_t* __restrict__ e_src,
                                  const TT* __restrict__ e_lat,
                                  const uint8_t* __restrict__ e_alive,
-                                 const T* __restrict__ rows,
                                  const T* __restrict__ H,
                                  T* __restrict__ out) {
     const int lane = threadIdx.x & 31;
@@ -203,10 +197,8 @@ __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
             bool mk = false;
             int src = 0;
             if (j < j1) {
-                const int64_t s = order ? (int64_t)order[j] : j;
-                const int64_t e = order ? (int64_t)perm[s] : j;
-                mk = e_alive[e] && (nowin || (int64_t)e_lat[e] >= lo);
-                src = row_of[s];
+                mk = e_alive[j] && (nowin || (int64_t)e_lat[j] >= lo);
+                src = e_src[j];
             }
             unsigned bits = __ballot_sync(0xffffffffu, mk);
             deg += __popc(bits);
@@ -214,7 +206,7 @@ __global__ void propagate_kernel(int64_t n_pad, int F, int64_t lo, int nowin,
                 const int i = __ffs(bits) - 1;
                 bits &= bits - 1;
                 const T* row =
-                    rows + (int64_t)__shfl_sync(0xffffffffu, src, i) * F;
+                    H + (int64_t)__shfl_sync(0xffffffffu, src, i) * F;
 #pragma unroll
                 for (int q = 0; q < kMaxGroups; ++q) {
                     const int g = lane + 32 * q;
@@ -382,28 +374,27 @@ int64_t row_blocks(int64_t n) {
 
 template <typename T, typename TT>
 void launch(int64_t n_pad, int F, int64_t lo, int nowin, float sw, float sw1,
-            const int64_t* indptr, const int32_t* order, const int32_t* perm,
-            const int32_t* row_of, const void* e_lat, const uint8_t* e_alive,
-            const void* rows, const void* H, void* out, cudaStream_t s) {
+            const int64_t* indptr, const int32_t* e_src, const void* e_lat,
+            const uint8_t* e_alive, const void* H, void* out,
+            cudaStream_t s) {
     propagate_kernel<T, TT><<<row_blocks(n_pad), kWarps * 32, 0, s>>>(
-        n_pad, F, lo, nowin, sw, sw1, indptr, order, perm, row_of,
-        static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(rows),
-        static_cast<const T*>(H), static_cast<T*>(out));
+        n_pad, F, lo, nowin, sw, sw1, indptr, e_src,
+        static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(H),
+        static_cast<T*>(out));
 }
 
 template <typename T>
 void launch_t(int64_t tbytes, int64_t n_pad, int F, int64_t lo, int nowin,
               float sw, float sw1, const int64_t* indptr,
-              const int32_t* order, const int32_t* perm,
-              const int32_t* row_of, const void* e_lat,
-              const uint8_t* e_alive, const void* rows, const void* H,
-              void* out, cudaStream_t s) {
+              const int32_t* e_src, const void* e_lat,
+              const uint8_t* e_alive, const void* H, void* out,
+              cudaStream_t s) {
     if (tbytes == 4)
-        launch<T, int32_t>(n_pad, F, lo, nowin, sw, sw1, indptr, order, perm,
-                           row_of, e_lat, e_alive, rows, H, out, s);
+        launch<T, int32_t>(n_pad, F, lo, nowin, sw, sw1, indptr, e_src,
+                           e_lat, e_alive, H, out, s);
     else
-        launch<T, int64_t>(n_pad, F, lo, nowin, sw, sw1, indptr, order, perm,
-                           row_of, e_lat, e_alive, rows, H, out, s);
+        launch<T, int64_t>(n_pad, F, lo, nowin, sw, sw1, indptr, e_src,
+                           e_lat, e_alive, H, out, s);
 }
 
 template <typename T, typename TT, int NG>
@@ -412,7 +403,11 @@ void launch_binned_ng(int64_t n_pad, int F, int64_t lo, int nowin, float sw,
                       const void* e_lat, const uint8_t* e_alive,
                       const void* H, void* out, cudaStream_t s) {
     using Vec = typename Feat<T>::Vec;
-    const size_t smem = (size_t)kWarps * Depth<NG>::D * NG * 32 * sizeof(Vec);
+    constexpr size_t smem = (size_t)kWarps * Depth<NG>::D * NG * 32
+                            * sizeof(Vec);
+    // the ring stays within the 48 KB a launch takes without opting in:
+    // at most 32 KB for float32, 16 KB for bfloat16 (D falls as rows widen)
+    static_assert(smem <= 48 * 1024, "K10-P ring over 48 KB");
     binned_kernel<T, TT, NG><<<row_blocks(n_pad), kWarps * 32, smem, s>>>(
         n_pad, F, lo, nowin, sw, sw1, indptr, walk,
         static_cast<const TT*>(e_lat), e_alive, static_cast<const T*>(H),
@@ -484,11 +479,10 @@ int rtpu_feature_propagate(int64_t n_pad, int64_t F, int64_t fdtype,
     const uint8_t* al = static_cast<const uint8_t*>(e_alive);
     if (fdtype == 0)
         launch_t<float>(tbytes, n_pad, (int)F, lo, (int)nowin, sw, sw1, ip,
-                        nullptr, nullptr, src, e_lat, al, H, H, out, s);
+                        src, e_lat, al, H, out, s);
     else
         launch_t<__nv_bfloat16>(tbytes, n_pad, (int)F, lo, (int)nowin, sw,
-                                sw1, ip, nullptr, nullptr, src, e_lat, al, H,
-                                H, out, s);
+                                sw1, ip, src, e_lat, al, H, out, s);
     return (int)cudaGetLastError();
 }
 

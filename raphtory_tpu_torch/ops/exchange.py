@@ -233,15 +233,19 @@ class FrontierCount(NamedTuple):
     count, an int64 ``[1]`` tensor on the mask's device (on the card
     nothing is read back), and on the card the compacted rows already in
     place — the ascending flat indices ``idx`` and their rows ``val``, in
-    buffers whose slots ``frontier_compact`` pads up to the bucket."""
+    buffers whose slots ``frontier_compact`` pads up to the bucket.
+    ``host`` is the count as the caller already holds it on the host
+    (``counted._replace(host=n)``; the sparse route's all-gathered counts),
+    which spares ``frontier_compact`` a read-back."""
     count: torch.Tensor
     idx: torch.Tensor | None = None
     val: torch.Tensor | None = None
+    host: int | None = None
 
     @property
     def total(self) -> int:
-        """The count on the host (on the card, a read-back)."""
-        return int(self.count)
+        """The count on the host: ``host`` when known, else a read-back."""
+        return int(self.count) if self.host is None else self.host
 
 
 def _check_changed(name, values, changed):
@@ -279,8 +283,6 @@ def _count_signature(key, changed, values, capacity):
                 raise TypeError(f"{name}: state dtype {values.dtype} has no "
                                 "kernel (4- or 8-byte elements)")
             cap = max(n, 1) if capacity is None else int(capacity)
-            if cap < n:
-                raise ValueError(f"{name}: capacity {cap} < {n} rows")
             trail = tuple(values.shape[1:])
             f = 1
             for d in trail:
@@ -315,14 +317,19 @@ def _scratch(values, stream: int, tiles: int):
     return st[0], st[1]
 
 
-def frontier_count(changed, values=None,
-                   capacity: int | None = None) -> FrontierCount:
+def frontier_count(changed, values=None) -> FrontierCount:
     """The first pass of a compaction: the set rows of ``changed bool[N]``
     counted and, on the card, compacted as ``frontier_compact`` returns
     them (ascending flat indices, then the rows of ``values [N, *trail]``)
-    into buffers of ``capacity`` slots (default ``max(N, 1)``, the largest
-    bucket the sparse route asks for) — one launch, no read-back. The card
-    needs ``values``; on the CPU it counts only."""
+    into buffers of ``max(N, 1)`` slots, the largest bucket the sparse
+    route asks for — one launch, no read-back. The card needs ``values``;
+    on the CPU it counts only (``values`` may be left out)."""
+    return _count_pass(changed, values, None)
+
+
+def _count_pass(changed, values, capacity: int | None) -> FrontierCount:
+    """``frontier_count`` into buffers of ``capacity`` slots (None:
+    ``max(N, 1)``)."""
     try:
         key = (changed.shape, changed.stride(), changed.dtype, changed.device,
                None if values is None else (values.shape, values.stride(),
@@ -406,12 +413,13 @@ def frontier_compact(values, changed, bucket: int, identity,
                      counted: FrontierCount | None = None):
     """K13 compaction: the rows of ``values [N, *trail]`` where ``changed
     bool[N]`` is set, as ``(idx int64 [bucket], val [bucket, *trail])`` —
-    ascending flat indices, then index 0 / ``identity`` pads. ``counted``
-    is ``frontier_count(changed, values)`` of these tensors, whose count
-    the caller has checked against ``bucket`` (the sparse route does, from
-    the all-gathered counts); on the card this call then pads the rows
-    already compacted (one launch). When None, the wrapper runs the count
-    pass, reads the count back and raises past ``bucket``."""
+    ascending flat indices, then index 0 / ``identity`` pads; raises when
+    more than ``bucket`` rows are set. ``counted`` is
+    ``frontier_count(changed, values)`` of these tensors; on the card this
+    call then pads the rows already compacted (one launch), checking the
+    count against ``bucket`` from ``counted.host`` when the caller holds it
+    (no sync; the sparse route does) or else from a read-back. When None,
+    the wrapper runs the count pass and reads the count back once."""
     try:
         key = (values.shape, values.stride(), values.dtype, values.device,
                changed.shape, changed.stride(), changed.dtype,
@@ -428,17 +436,17 @@ def frontier_compact(values, changed, bucket: int, identity,
                   identity)
         return frontier_compact_plain(values, changed, bucket, identity)
     if counted is None:
-        counted = frontier_count(changed, values,
-                                 max(values.shape[0], bucket, 1))
-        if counted.total > bucket:
-            raise ValueError(f"{name}: {counted.total} set rows > bucket "
-                             f"{bucket}")
+        counted = _count_pass(changed, values,
+                              max(values.shape[0], bucket, 1))
+    total = counted.total
+    if total > bucket:
+        raise ValueError(f"{name}: {total} set rows > bucket {bucket}")
     cap = counted.idx.shape[0]
     if cap < bucket:
         raise ValueError(f"{name}: bucket {bucket} > the count pass's "
                          f"{cap} slots")
     if SAMPLES is not None:
-        _keep(name, counted.total, values, changed, int(bucket), identity)
+        _keep(name, total, values, changed, int(bucket), identity)
     err = sig[2](sig[0], counted.count.data_ptr(), counted.idx.data_ptr(),
                  counted.val.data_ptr(), _stream(values))
     _launch(name, err)

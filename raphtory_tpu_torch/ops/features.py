@@ -163,6 +163,7 @@ def propagate_round_binned_plain(H, be, e_lat, e_alive, lo: int,
 #: the layout's device arrays live
 _WALKS = WeakIdKeyDictionary()
 
+
 def binned_walk(be):
     """``int32 [m, 2]``: for each entry ``j`` of the layout's destination
     walk (slot ``s = in_order[j]``), the source row ``u_src[slot[s]]`` and

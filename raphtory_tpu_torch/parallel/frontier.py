@@ -304,7 +304,9 @@ def run_sparse(program: VertexProgram, view, mesh, sv, wlist,
         if cmax > B:
             raise ValueError(f"sparse route: {cmax} changed rows > bucket "
                              f"{B}")
-        idx, val = frontier_compact(flat_new, ch, B, identity, counted)
+        idx, val = frontier_compact(
+            flat_new, ch, B, identity,
+            counted._replace(host=int(counts_h[world.index, 0])))
         idx_all = world.all_gather(idx).reshape(-1)
         val_all = world.all_gather(val).reshape((-1,) + trailing)
         barrier_wait += _time.perf_counter() - t_bar

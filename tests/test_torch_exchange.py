@@ -537,6 +537,30 @@ def test_compact_card_branch_of_an_empty_state(card_branch, trail):
             assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("host", [False, True])
+def test_compact_card_branch_refuses_more_rows_than_the_bucket(card_branch,
+                                                               host):
+    """With the count pass handed over, a bucket smaller than the count
+    raises before the pad launches, whether the count is read back or held
+    on the host (``counted.host``, as the sparse route holds it), and the
+    host's count spares the read-back."""
+    values = torch.arange(9000, dtype=torch.int32)
+    ch = torch.from_numpy(np.random.default_rng(6).random(9000) < 0.3)
+    cnt = int(ch.sum())
+    ident = exchange.min_identity(values.dtype)
+    counted = exchange.frontier_count(ch, values)
+    if host:
+        counted = counted._replace(host=cnt)
+        assert counted._replace(count=None).total == cnt
+    with pytest.raises(ValueError, match=f"{cnt} set rows > bucket "
+                                         f"{cnt - 1}"):
+        exchange.frontier_compact(values, ch, cnt - 1, ident, counted)
+    assert columns.LAUNCHES["frontier_compact"] == 1       # no pad
+    want = exchange.frontier_compact_plain(values, ch, cnt, ident)
+    got = exchange.frontier_compact(values, ch, cnt, ident, counted)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_compact_epochs_wrap_by_clearing_the_scratch(card_branch,
                                                      monkeypatch):
     """Past the last epoch the scratch is cleared and the epochs start
