@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``raphtory_tpu_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA card, ``nvidia-smi`` and the CUDA toolkit (``nvcc``); builds
 the kernels from ``raphtory_tpu_torch/csrc`` on first use. Phases, each
@@ -12,7 +12,10 @@ printing one JSON line:
 3. kernels  — each kernel against its plain PyTorch twin on the card, at
               the shapes of the path that runs it: K1 and K2a bitwise; K2b,
               and K2c's ranks, pull-sum input and dangling mass, within
-              rtol 1e-5 / atol 1e-7; K2c's halting flags exact; K5 (CC
+              rtol 1e-5 / atol 1e-7; K2c's halting flags exact, and at
+              C = 1, 9, 12, 127, 128, 129, 300 and with an unaligned ``r``
+              against its twin, two launches from one state bitwise
+              equal; K5 (CC
               superstep, GAB shapes), K6 (BFS/SSSP superstep, unit and
               weighted, directed and undirected, LDBC shapes) and K6w (the
               weight rebuild, pads, with and without h0) bitwise
@@ -23,7 +26,9 @@ printing one JSON line:
               and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
               tables, int32 and int64) and K4 (scale masks at the scale
               sweep's shape) bitwise; the binned kernels KB1, K2b-P
-              (also bitwise against K2b), K5-P, K6-P and K7-P (also
+              (bitwise against K2b on a pre-aggregating layout at C = 1,
+              9, 12, 36, 129, 300 and an unaligned ``rd``, and on one that
+              does not pre-aggregate), K5-P, K6-P and K7-P (also
               against K7) at the pcpm phase's layouts. CUDA-event times,
               bounds, twin times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
@@ -70,11 +75,12 @@ printing one JSON line:
               ``run_scale_columns`` (K4, K2); one warm call then two timed
               sweeps; every column finite and summing to 1 +- 1e-4; K4
               and K2a/b/c against their twins at this shape (K4, K2a
-              bitwise). Then a crosscheck on a 30k / 300k stream over the
-              same grid: card against CPU (rtol 1e-5 / atol 1e-7, equal
-              steps), and
-              ``run_columns`` over the bulk host columns (K3) bitwise equal
-              to ``run_scale_columns`` on the card.
+              bitwise; K2c twice from one state bitwise), K2a/b/c timed
+              beside their bounds at this shape. Then a crosscheck on a
+              30k / 300k stream over the same grid: card against CPU
+              (rtol 1e-5 / atol 1e-7, equal steps), and ``run_columns``
+              over the bulk host columns (K3) bitwise equal to
+              ``run_scale_columns`` on the card.
 13. pcpm    — the destination-binned (PCPM) route with ``RTPU_PCPM``
               unset (auto, the JAX package's default; phases 4-12 pin it
               to 0 and measure the unbinned route as before): the
@@ -88,7 +94,10 @@ printing one JSON line:
               ``scale_bulk`` (12) runs its binned part on the same load
               (the layout build, two timed sweeps, bitwise against the
               unbinned ranks, KB1 and K2b-P against their twins at the
-              scale shape) and its crosscheck binned against the CPU.
+              scale shape, K2b-P timed beside its table bound and its
+              gather bound with the mask's live share) and its crosscheck
+              binned against the CPU; the headline's binned run makes one
+              K2b-P launch a superstep.
 14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
               2^25-edge-event log, 2 hops x 3 windows, chunks=2.
 15. features — ``bench.py:bench_scale_features`` uncut:
@@ -167,6 +176,13 @@ The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
+With ``--parent DIR`` (another tree of the repo, e.g. an earlier
+commit unpacked with ``git archive``), K2b-P and K2c as DIR's
+``pagerank_columns.cu`` builds them are held against this tree's
+(K2b-P's sums and K2c's primed ``rd`` bitwise, K2c's update within rtol
+1e-5 / atol 1e-7 with equal halting) and timed in turns with them at the
+headline and scale shapes: a ``parent`` line before ``timing``.
+
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 ...}``. Exits non-zero, with no result line, when any phase fails or no
@@ -235,6 +251,111 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: with ``--parent DIR``: K2b-P and K2c as the tree at DIR builds them
+#: (``ParentK2``), timed in turns with this tree's on the same inputs
+PARENT = None
+#: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
+PARENT_MS: dict = {}
+
+
+class ParentK2:
+    """``binned_pull_sum`` (K2b-P) and ``pagerank_update`` (K2c) of another
+    tree's ``raphtory_tpu_torch/csrc/pagerank_columns.cu``, through the C
+    entry points they had before their redesign: K2b-P with its bucket
+    buffer (``rtpu_binned_pull_sum(n, C, U, in_indptr, in_order, b_src,
+    slot, u_src, me, rd, vals, agg, stream, launched)``), K2c on a grid of
+    at most 264 blocks along the rows with f32 partials (``gx``, one
+    partial a block). Built with ``columns.build``'s nvcc flags. Its
+    launches count nowhere."""
+
+    def __init__(self, columns, root: str):
+        import ctypes
+        import hashlib
+
+        src = os.path.join(root, "raphtory_tpu_torch", "csrc",
+                           "pagerank_columns.cu")
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(f.read()).hexdigest()[:16]
+        out = columns._BUILD / f"libparent_pagerank_columns_{tag}.so"
+        if not out.exists():
+            columns._BUILD.mkdir(exist_ok=True)
+            subprocess.run(
+                [columns._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                 "-o", str(out), src], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(out))
+        self._c = columns
+        self._pull = lib.rtpu_binned_pull_sum
+        self._pull.argtypes = (3 * [ctypes.c_int64] + 10 * [ctypes.c_void_p]
+                               + [ctypes.POINTER(ctypes.c_int64)])
+        self._update = lib.rtpu_pagerank_update
+        self._update.argtypes = (4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
+                                 + 13 * [ctypes.c_void_p])
+        self._pull.restype = self._update.restype = ctypes.c_int
+        self._scratch: dict = {}
+        self.source = src
+
+    def binned_pull_sum(self, me, rd, be):
+        import ctypes
+        import torch
+
+        n, C = rd.shape
+        agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
+        vals = torch.empty((be.U, C), dtype=torch.float32, device=rd.device)
+        launched = ctypes.c_int64(0)
+        err = self._pull(n, C, be.U, be.in_indptr.data_ptr(),
+                         be.in_order.data_ptr(), be.b_src.data_ptr(),
+                         be.slot.data_ptr(), be.u_src.data_ptr(),
+                         me.data_ptr(), rd.data_ptr(), vals.data_ptr(),
+                         agg.data_ptr(), self._c._stream(agg),
+                         ctypes.byref(launched))
+        if err:
+            raise RuntimeError(f"parent K2b-P: cudaError {err}")
+        return agg
+
+    def pagerank_update(self, st, agg, deg, mv, n_act, damping: float,
+                        tol: float, prime: bool = False) -> None:
+        import torch
+
+        n, C = st.r.shape
+        gx = max(1, min(-(-n // (256 // max(1, min(C, 256)))), 264))
+        key = (gx, C, st.r.device)
+        if key not in self._scratch:
+            dev = st.r.device
+            self._scratch[key] = (
+                torch.empty((gx, C), dtype=torch.float32, device=dev),
+                torch.empty((gx, C), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+        part, busy, ticket = self._scratch[key]
+        err = self._update(
+            n, C, gx, int(bool(prime)), 1.0 - damping, damping, tol,
+            None if prime else agg.data_ptr(), deg.data_ptr(),
+            mv.data_ptr(), n_act.data_ptr(), st.r.data_ptr(),
+            st.rd.data_ptr(), st.dangling.data_ptr(), st.halted.data_ptr(),
+            st.done.data_ptr(), part.data_ptr(), busy.data_ptr(),
+            ticket.data_ptr(), self._c._stream(st.r))
+        if err:
+            raise RuntimeError(f"parent K2c: cudaError {err}")
+
+
+def vs_parent(torch, key: str, new, old, iters: int = 20, **facts) -> None:
+    """``new`` and the parent's ``old`` timed in turns — parent, new, new,
+    parent; ``cuda_ms`` over ``iters`` calls each — then each one's device
+    time (``device_ms``: at the headline shape a call is host-bound, and
+    the parent's is a bare ctypes call without the wrapper's checks), into
+    ``PARENT_MS[key]``."""
+    p1 = cuda_ms(torch, old, iters)
+    n1 = cuda_ms(torch, new, iters)
+    n2 = cuda_ms(torch, new, iters)
+    p2 = cuda_ms(torch, old, iters)
+    dn, by_n = device_ms(torch, new, iters)
+    dp, by_p = device_ms(torch, old, iters)
+    PARENT_MS[key] = dict(ms=[n1, n2], parent_ms=[p1, p2],
+                          ratio=(n1 + n2) / (p1 + p2), device_ms=dn,
+                          parent_device_ms=dp, device_ratio=dn / dp,
+                          device_by=[by_n, by_p], **facts)
 
 
 def headline_grid():
@@ -410,6 +531,8 @@ def phase_kernels(torch, np, columns, tables, dev):
     st_k = columns.rank_state(r0.clone())
     columns.pagerank_update(st_k, None, deg, mv, n_act, 0.85, 1e-7,
                             prime=True)
+    repeat_bitwise(torch, columns, st_k, agg, deg, mv, n_act, 1e-7,
+                   "K2c at the headline shape")
     st_p = columns.rank_state(r0.clone())
     columns.pagerank_update_plain(st_p, None, deg, mv, n_act, 0.85, 1e-7,
                                   prime=True)
@@ -417,17 +540,154 @@ def phase_kernels(torch, np, columns, tables, dev):
         st_k, agg, deg, mv, n_act, 0.85, 1e-7))
     c_plain = cuda_ms(torch, lambda: columns.pagerank_update_plain(
         st_p, agg, deg, mv, n_act, 0.85, 1e-7))
+    if PARENT is not None:
+        # the primed rd is one product per element in both; the update
+        # reads the dangling mass, which the parent summed in f32 partials
+        one, cp = (columns.rank_state(r0.clone()) for _ in range(2))
+        PARENT.pagerank_update(one, None, deg, mv, n_act, 0.85, 1e-7,
+                               prime=True)
+        columns.pagerank_update(cp, None, deg, mv, n_act, 0.85, 1e-7,
+                                prime=True)
+        if not torch.equal(cp.rd, one.rd):
+            raise AssertionError("K2c's primed rd differs from the parent's")
+        PARENT.pagerank_update(one, agg, deg, mv, n_act, 0.85, 1e-7)
+        columns.pagerank_update(cp, agg, deg, mv, n_act, 0.85, 1e-7)
+        if not (within_tol(cp.r, one.r) and within_tol(cp.rd, one.rd)
+                and torch.equal(cp.halted, one.halted)):
+            raise AssertionError("K2c's update differs from the parent's")
+        st_o = columns.rank_state(r0.clone())
+        PARENT.pagerank_update(st_o, None, deg, mv, n_act, 0.85, 1e-7,
+                               prime=True)
+        vs_parent(torch, "pagerank_update headline", lambda: (
+            columns.pagerank_update(st_k, agg, deg, mv, n_act, 0.85, 1e-7)),
+            lambda: PARENT.pagerank_update(st_o, agg, deg, mv, n_act, 0.85,
+                                           1e-7), shape=f"n={n_pad} C={C}")
+    edge = k2c_edge_cases(torch, np, columns, dev)
+    c_err = max(c_err, max(edge.values()))
     out["pagerank_update"] = dict(
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:259",
         max_abs_err=c_err, ms=c_ms, plain_ms=c_plain, library_ms=None,
-        columns=C, shape=f"n_pad={n_pad} C={C}",
+        columns=C, shape=f"n_pad={n_pad} C={C}", edge_cases=edge,
         # reads agg, deg, r (f32) and mv (bool); writes r and rd (f32);
         # ~10 f32 operations per (v, c)
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(n_pad * C * (4 * 3 + 1 + 4 * 2),
-                         10 * n_pad * C))))
+        **dict(zip(("bound_ms", "bound_by"), k2c_bound(n_pad, C))))
     return out
+
+
+def k2c_bound(n: int, C: int) -> tuple[float, str]:
+    """K2c's bound: agg, deg, r (f32) and mv (bool) read once, r and rd
+    (f32) written once; ~10 f32 operations per (v, c)."""
+    return bound(n * C * (4 * 3 + 1 + 4 * 2), 10 * n * C)
+
+
+def k2bp_bound(m: int, n: int, C: int, nnz: int) -> tuple[float, str]:
+    """K2b-P's bound, its inputs read once: the m real slots' mask rows and
+    walk pairs, the walk's offsets, rd, and agg written once; one add per
+    masked (slot, column)."""
+    return bound(m * C + m * 8 + (n + 1) * 8 + 2 * n * C * 4, nnz)
+
+
+def repeat_bitwise(torch, columns, st, agg, deg, mv, n_act, tol,
+                   what: str) -> None:
+    """K2c twice from the same state (two copies of ``st``): ``r``,
+    ``rd``, ``dangling``, ``halted`` and ``done`` equal bit for bit — the
+    cross-block sums do not depend on block scheduling. ``st`` is left as
+    it was."""
+    runs = []
+    off = st.r.data_ptr() % 16 // 4     # keep r's alignment (and path)
+    for _ in range(2):
+        buf = torch.empty(st.r.numel() + off, dtype=torch.float32,
+                          device=st.r.device)
+        cp = columns.rank_state(buf[off:].view(st.r.shape))
+        cp.r.copy_(st.r)
+        for f in ("rd", "dangling", "halted", "done"):
+            getattr(cp, f).copy_(getattr(st, f))
+        columns.pagerank_update(cp, agg, deg, mv, n_act, 0.85, tol)
+        runs.append(cp)
+        del cp
+    a, b = runs
+    for f in ("r", "rd", "dangling", "halted", "done"):
+        if not bits_equal(torch, getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: two launches from the same state "
+                                 f"differ in {f}")
+
+
+#: K2c's edge cases: column counts (a K12 rank's 9, the headline chunk's
+#: 12, both sides of a 128-column row and of a 256-quad block tile), and
+#: one with ``r`` 4 bytes off 16-byte alignment (the per-element path)
+K2C_CASES = ((1, False), (9, False), (12, False), (127, False),
+             (128, False), (129, False), (300, False), (128, True))
+
+
+def k2c_edge_cases(torch, np, columns, dev, n: int = 4_099) -> dict:
+    """K2c against its twin at each ``K2C_CASES`` shape over ``n`` rows:
+    ranks, ``rd`` and the dangling mass within rtol 1e-5 / atol 1e-7,
+    ``halted`` and ``done`` bitwise, after a prime and one update with a
+    frozen column, an empty column and a column of one alive row; then
+    every live column frozen (the all-halted flag); and two launches from
+    one state bitwise equal. Returns each case's max abs error."""
+    rng = np.random.default_rng(9)
+    errs = {}
+    for C, offset in K2C_CASES:
+        mv = torch.from_numpy(rng.random((n, C)) < 0.8).to(dev)
+        if C > 1:
+            mv[:, 1] = False                          # an empty column
+        if C > 3:
+            mv[:, 3] = False
+            mv[n // 2, 3] = True                      # one alive row
+        deg = torch.from_numpy(rng.integers(0, 3, (n, C)).astype(
+            np.float32)).to(dev)
+        n_act = torch.clamp(mv.to(torch.float32).sum(0), min=1.0)
+        r0 = torch.where(mv, torch.from_numpy(rng.random((n, C)).astype(
+            np.float32)).to(dev), 0.0)
+        r0 = r0 / r0.sum(0).clamp(min=1e-30)
+        agg = torch.from_numpy((rng.random((n, C)) * 1e-4).astype(
+            np.float32)).to(dev)
+        err = 0.0
+        # a frozen column; then every live column frozen (column 1 has
+        # no alive row and halts at once): the all-halted flag
+        frozen_sets = ([2] if C > 2 else [], [c for c in range(C) if c != 1])
+        for every, frozen in enumerate(frozen_sets):
+            pair = []
+            for update in (columns.pagerank_update,
+                           columns.pagerank_update_plain):
+                if offset:    # a contiguous view 4 bytes into its buffer
+                    buf = torch.empty(n * C + 1, dtype=torch.float32,
+                                      device=dev)
+                    r = buf[1:].view(n, C)
+                    r.copy_(r0)
+                else:
+                    r = r0.clone()
+                st = columns.rank_state(r)
+                update(st, None, deg, mv, n_act, 0.85, 1e-7, prime=True)
+                primed = (st.rd.clone(), st.dangling.clone())
+                st.halted[frozen] = True
+                if update is columns.pagerank_update:
+                    repeat_bitwise(torch, columns, st, agg, deg, mv, n_act,
+                                   1e-7, f"K2c C={C} offset={offset}")
+                update(st, agg, deg, mv, n_act, 0.85, 1e-7)
+                pair.append((primed, st))
+            (p_got, got), (p_want, want) = pair
+            for g, x, what in ((p_got[0], p_want[0], "primed rd"),
+                               (p_got[1], p_want[1], "primed dangling"),
+                               (got.r, want.r, "r"), (got.rd, want.rd, "rd"),
+                               (got.dangling, want.dangling, "dangling")):
+                e = (g - x).abs()
+                err = max(err, float(e.max()))
+                if bool((e > 1e-7 + 1e-5 * x.abs()).any()):
+                    raise AssertionError(
+                        f"K2c C={C} offset={offset}: {what} differs from its "
+                        f"twin: max abs err {float(e.max())}")
+            if not (torch.equal(got.halted, want.halted)
+                    and torch.equal(got.done, want.done)):
+                raise AssertionError(f"K2c C={C} offset={offset}: halting "
+                                     "differs from its twin")
+            if every and not bool(got.done):
+                raise AssertionError(f"K2c C={C}: every column halted, flag "
+                                     "unset")
+        errs[f"C={C}" + (" offset" if offset else "")] = err
+    return errs
 
 
 def mask_kernels(torch, np, columns, gab, dev):
@@ -552,7 +812,8 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
     def binned_masks(t, lay, C):
         me = rng.random((t.m_pad, C)) < 0.6
         me[t.m:] = False
-        me[:, 1] = False                      # an all-masked column
+        if C > 1:
+            me[:, 1] = False                  # an all-masked column
         mv = rng.random((t.n_pad, C)) < 0.8
         mv[t.n:] = False
         return (put(me[lay.perm] & lay.valid[:, None]), put(mv), put(me),
@@ -595,35 +856,72 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
             H * (m + n) * 5 + B * 5 + C * 9 + (B + n) * C))))
 
     # ---- K2b-P at the headline (pre-aggregated), against its twin and
-    # bitwise against K2b over the same masks in engine order
+    # bitwise against K2b over the same masks in engine order; then on a
+    # layout that does not pre-aggregate, and at other column counts
     be = lay.device_edges(dev)
     me_b, mv, me, nnz = binned_masks(gab, lay, C)
     rd = put((rng.random((n, C)) * 1e-4).astype(np.float32))
+    flat_edges = tuple(put(a) for a in (gab.e_src, gab.e_dst,
+                                        gab.in_indptr))
     got = columns.binned_pull_sum(me_b, rd, be)
     want = columns.binned_pull_sum_plain(me_b, rd, be)
-    flat = columns.column_pull_sum(me, rd, *(put(a) for a in (
-        gab.e_src, gab.e_dst, gab.in_indptr)))
+    flat = columns.column_pull_sum(me, rd, *flat_edges)
     if not within_tol(got, want):
         raise AssertionError(f"K2b-P differs from its twin: max abs err "
                              f"{exact_err(got, want)}")
     if not torch.equal(got, flat):
         raise AssertionError("K2b-P differs from K2b over the same masks")
+    k2bp_err = exact_err(got, want)
+    k2bp_ms = cuda_ms(torch, lambda: columns.binned_pull_sum(me_b, rd, be))
+    if PARENT is not None:
+        if not torch.equal(PARENT.binned_pull_sum(me_b, rd, be), got):
+            raise AssertionError("K2b-P differs from the parent's")
+        vs_parent(torch, "binned_pull_sum headline",
+                  lambda: columns.binned_pull_sum(me_b, rd, be),
+                  lambda: PARENT.binned_pull_sum(me_b, rd, be),
+                  shape=f"B={B} n_pad={n} C={C} P={spec.partitions} "
+                        f"preagg={spec.preagg}")
+    cases = {}
+    for P in (1024, 4096, n):
+        flay = partition.build_layout(gab.e_src, gab.e_dst, n, gab.m, P)
+        if not flay.spec.preagg:
+            break
+    else:
+        raise AssertionError("no layout of the headline table without "
+                             "pre-aggregation")
+    for what, blay, Cs in (("no preagg", flay, (C,)),
+                           ("preagg", lay, (1, 9, 36, 129, 300))):
+        bb = blay.device_edges(dev)
+        for Ck in Cs:
+            mk_b, _, mk, _ = binned_masks(gab, blay, Ck)
+            rk = put((rng.random((n, Ck)) * 1e-4).astype(np.float32))
+            got = columns.binned_pull_sum(mk_b, rk, bb)
+            ok = torch.equal(got, columns.column_pull_sum(mk, rk,
+                                                          *flat_edges))
+            k2bp_err = max(k2bp_err, exact_err(
+                got, columns.binned_pull_sum_plain(mk_b, rk, bb)))
+            if Ck == 36:      # rd 4 bytes off 16-byte alignment
+                buf = torch.empty(rk.numel() + 1, device=dev)
+                ro = buf[1:].view(rk.shape)
+                ro.copy_(rk)
+                ok = ok and torch.equal(columns.binned_pull_sum(mk_b, ro, bb),
+                                        got)
+            if not ok:
+                raise AssertionError(f"K2b-P ({what}, C={Ck}) differs from "
+                                     "K2b over the same masks")
+            cases[f"{what} C={Ck} P={blay.spec.partitions}"] = True
     U, real = be.U, gab.m
     out["binned_pull_sum"] = dict(
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:242",
-        max_abs_err=exact_err(got, want),
-        ms=cuda_ms(torch, lambda: columns.binned_pull_sum(me_b, rd, be)),
+        max_abs_err=k2bp_err, ms=k2bp_ms,
         plain_ms=cuda_ms(torch, lambda: columns.binned_pull_sum_plain(
             me_b, rd, be)),
-        library_ms=None,
+        library_ms=None, bitwise_vs_k2b=cases,
         columns=C, shape=f"B={B} m={real} n_pad={n} C={C} P={spec.partitions} "
               f"cap={spec.cap} cap_u={spec.cap_u} preagg={spec.preagg}",
-        # the real slots' masks, walk, slots; the buckets' sources; rd and
-        # agg once; one add per masked edge
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            real * C + real * 8 + (n + 1) * 8 + U * 4 + 2 * n * C * 4,
-            nnz))))
+        **dict(zip(("bound_ms", "bound_by"),
+                   k2bp_bound(real, n, C, nnz))))
 
     def compare(what, step, plain, x0, frozen):
         pair = []
@@ -805,7 +1103,8 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
     def masks(t, C):
         me = rng.random((t.m_pad, C)) < 0.6
         me[t.m:] = False                      # pad edges carry no mask
-        me[:, 1] = False                      # an all-masked column
+        if C > 1:
+            me[:, 1] = False                  # an all-masked column
         mv = rng.random((t.n_pad, C)) < 0.8
         mv[t.n:] = False                      # pad rows
         return (torch.from_numpy(me).to(dev), torch.from_numpy(mv).to(dev),
@@ -1767,6 +2066,14 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
                                    ("bin_masks",) + tuple(
                                        k for k in kernels
                                        if k != "weights_from_deltas"))
+                if name == "headline" and launches["binned_pull_sum"] != \
+                        launches["pagerank_update"] - kw["chunks"]:
+                    # a prime a chunk, then a pull and an update a superstep
+                    raise AssertionError(
+                        f"pcpm {key}: not one K2b-P launch a superstep "
+                        f"({launches['binned_pull_sum']} K2b-P, "
+                        f"{launches['pagerank_update']} K2c, "
+                        f"{kw['chunks']} chunks)")
                 flat_k = [k for k in ("column_pull_sum", "cc_superstep",
                                       "minplus_superstep", "column_masks")
                           if launches[k]]
@@ -2012,10 +2319,32 @@ def phase_scale_bulk(torch, np, columns, dev):
             and torch.equal(st.done, st_p.done)):
         raise AssertionError("scale_bulk: K2c halting differs from its twin")
     del st_p, r0, states
+    repeat_bitwise(torch, columns, st, agg, deg, mv, n_act, 0.0,
+                   "K2c at the scale shape")
+    k2a_ms = cuda_ms(torch, lambda: columns.column_out_degree(
+        me, e_src, bulk.n_pad), iters=3)
     k2b_ms = cuda_ms(torch, lambda: columns.column_pull_sum(
         me, st.rd, e_src, e_dst, indptr), iters=3)
     k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
         st, agg, deg, mv, n_act, 0.85, 0.0), iters=3)
+    if PARENT is not None:
+        st_o = columns.rank_state(st.r.clone())
+        PARENT.pagerank_update(st_o, None, deg, mv, n_act, 0.85, 0.0,
+                               prime=True)
+        vs_parent(torch, "pagerank_update scale", lambda: (
+            columns.pagerank_update(st, agg, deg, mv, n_act, 0.85, 0.0)),
+            lambda: PARENT.pagerank_update(st_o, agg, deg, mv, n_act, 0.85,
+                                           0.0),
+            iters=3, shape=f"n={bulk.n_pad} C={C}",
+            bound_ms=k2c_bound(bulk.n_pad, C)[0])
+        del st_o
+    # the bounds at this shape (inputs read once, outputs written once)
+    m_pad, n_pad = bulk.m_pad, bulk.n_pad
+    k2_bounds = dict(
+        k2a_bound_ms=bound(m_pad * C + m_pad * 4 + n_pad * C * 4)[0],
+        k2b_bound_ms=bound(bulk.m * C + bulk.m * 4 + (n_pad + 1) * 8
+                           + 2 * n_pad * C * 4)[0],
+        k2c_bound_ms=k2c_bound(n_pad, C)[0])
     del me, mv, deg, st, agg
     best = min(reps)
     emit("scale_bulk", n_edge_events=1 << 25, n=bulk.n, m=bulk.m,
@@ -2023,7 +2352,8 @@ def phase_scale_bulk(torch, np, columns, dev):
          views=n_views, U_e=kw["prepared"][0], U_v=kw["prepared"][1],
          gen_s=gen_s, bulk_s=bulk_s, setup_s=setup_s, sweep_s=best,
          repeat_sweep_s=reps, views_per_s=n_views / best, supersteps=steps,
-         k2b_ms_per_superstep=k2b_ms, k2c_ms_per_superstep=k2c_ms,
+         k2a_ms_per_call=k2a_ms, k2b_ms_per_superstep=k2b_ms,
+         k2c_ms_per_superstep=k2c_ms, **k2_bounds,
          peak_device_bytes=peak, launches=launches,
          max_abs_err_vs_twins=errs)
     pcpm_launches, pcpm_errs = scale_bulk_pcpm(
@@ -2159,13 +2489,36 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     del want, err
     k2bp_ms = cuda_ms(torch, lambda: columns.binned_pull_sum(me, rd, be),
                       iters=3)
+    # the bounds: the table's (inputs read once) and the gather's — every
+    # live (slot, 4-column group) reads its 16 bytes of rd from HBM (rd is
+    # 2.7 GB, far past the L2), beside the mask rows, pairs, offsets and
+    # agg; the same counted in the 32-byte sectors the groups fall in
+    real, n_pad = bulk.m, bulk.n_pad
+    groups = int((me.view(torch.int32) != 0).sum())
+    sectors = int((me.view(torch.int64) != 0).sum())
+    nnz = int(me.sum())
+    rest = real * C + real * 8 + (n_pad + 1) * 8 + n_pad * C * 4
+    k2bp = dict(
+        k2bp_bound_ms=k2bp_bound(real, n_pad, C, nnz)[0],
+        k2bp_gather_bound_ms=bound(rest + 16 * groups)[0],
+        k2bp_gather_sector_bound_ms=bound(rest + 32 * sectors)[0],
+        k2bp_live_share=groups / (real * C / 4),
+        k2bp_live_sector_share=sectors / (real * C / 8))
+    if PARENT is not None:
+        if not torch.equal(PARENT.binned_pull_sum(me, rd, be), agg):
+            raise AssertionError("scale_bulk pcpm: K2b-P differs from the "
+                                 "parent's")
+        vs_parent(torch, "binned_pull_sum scale",
+                  lambda: columns.binned_pull_sum(me, rd, be),
+                  lambda: PARENT.binned_pull_sum(me, rd, be), iters=3,
+                  shape=f"B={lay.B} n_pad={n_pad} C={C}", **k2bp)
     del me, rd, agg
     best = min(reps)
     PHASE_S["scale_bulk_pcpm"] = time.perf_counter() - t_phase
     emit("scale_bulk_pcpm", spec=spec_of(lay), layout_build_s=layout_build_s,
          setup_s=setup_s, sweep_s=best, repeat_sweep_s=reps,
          views_per_s=C / best, supersteps=steps,
-         k2bp_ms_per_superstep=k2bp_ms, peak_device_bytes=peak,
+         k2bp_ms_per_superstep=k2bp_ms, **k2bp, peak_device_bytes=peak,
          launches=launches, bitwise_vs_unbinned=True,
          max_abs_err_vs_twins=errs)
     return launches, errs
@@ -3591,6 +3944,13 @@ def main() -> int:
     from raphtory_tpu_torch.ops import columns, minplus, resident, segment
     from raphtory_tpu_torch.utils.synth import bitcoin_like_log, gab_like_log
 
+    global PARENT
+    args = sys.argv[1:]
+    if args[:1] == ["--parent"] and len(args) == 2:
+        PARENT = ParentK2(columns, args[1])
+    elif args:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3689,6 +4049,8 @@ def main() -> int:
     pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",
                                       "scale_bulk_pcpm",
                                       "scale_bulk_crosscheck_pcpm"))
+    if PARENT is not None:
+        emit("parent", source=PARENT.source, entries=PARENT_MS)
     emit("timing", seconds=PHASE_S, pcpm_share_s=pcpm_s,
          total_s=time.perf_counter() - t_main)
 

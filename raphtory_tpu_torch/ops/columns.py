@@ -41,6 +41,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC / "_build"
@@ -95,7 +96,7 @@ _ARGTYPES = {
     # n, C | indptr, src, me, rd, agg, stream
     "rtpu_column_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # n, C, gx, prime | 1-damping, damping, tol | agg, deg, mv, n_act, r, rd,
-    # dangling, halted, done, part, busy, ticket, stream
+    # dangling, halted, done, part (f64), busy, ticket, stream
     "rtpu_pagerank_update": 4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
     + 13 * [ctypes.c_void_p],
     # n, C, gx | in_indptr, e_src, out_indptr, out_perm, e_dst, me, mv, cur,
@@ -119,10 +120,8 @@ _ARGTYPES = {
     "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
     # B, len, H, W | snap, thr, perm, valid, out, stream
     "rtpu_bin_scale_masks": 4 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
-    # n, C, U | in_indptr, in_order, b_src, slot, u_src, me, rd, vals, agg,
-    # stream | launched
-    "rtpu_binned_pull_sum": 3 * [ctypes.c_int64] + 10 * [ctypes.c_void_p]
-    + [ctypes.POINTER(ctypes.c_int64)],
+    # n, C | in_indptr, pairs, me, rd, agg, stream
+    "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # n, C, gx, U | in_indptr, in_order, b_src, slot, u_src, out_indptr,
     # out_order, b_dst, me, mv, cur, vals, nxt, halted, done, busy, ticket,
     # stream | launched
@@ -680,14 +679,47 @@ def binned_pull_sum_plain(me, rd, be):
     return torch.zeros_like(rd).index_add_(0, be.b_dst, payload)
 
 
+#: ``BinnedEdges.in_order`` → its pull-sum walk pairs
+#: (``binned_pull_walk``), kept while the layout's device arrays live
+_PULL_WALKS = WeakIdKeyDictionary()
+
+
+def binned_pull_walk(be):
+    """``int32 [m, 2]``: for each entry ``j`` of the layout's destination
+    walk (slot ``s = in_order[j]``), the source row ``b_src[s]`` and ``s`` —
+    what K2b-P reads a walk entry, one 8-byte load. On a pre-aggregating
+    layout (``be.U > 0``) the twin and the reference read the slot's bucket
+    row ``u_src[slot[s]]`` instead, so that must be ``b_src[s]`` on every
+    real slot: checked here, once, and a layout that breaks it is refused.
+    Derived on ``be``'s device at the first call (m * 8 bytes) and cached
+    with ``be``."""
+    got = _PULL_WALKS.get(be.in_order)
+    if got is None:
+        s = be.in_order.long()
+        src = be.b_src[s]
+        if be.U:
+            bad = torch.nonzero(be.u_src[be.slot[s].long()] != src)
+            if bad.numel():
+                j = int(bad[0, 0])
+                raise ValueError(
+                    f"binned_pull_sum: walk entry {j} (slot {int(s[j])}) "
+                    f"reads bucket source {int(be.u_src[be.slot[s[j]]])}, "
+                    f"not its slot's source {int(src[j])}: the layout's "
+                    "buckets do not match its slots")
+        got = torch.stack([src, be.in_order], dim=1)
+        _PULL_WALKS[be.in_order] = got
+    return got
+
+
 def binned_pull_sum(me, rd, be):
     """K2b-P wrapper (the binned pull-sum of
     ``raphtory_tpu/engine/hopbatch.py:242-258``): ``me [B, C]`` bool binned
     masks, ``rd [n_pad, C]`` f32, ``be`` the layout's ``BinnedEdges`` → f32
-    ``[n_pad, C]``. The kernel walks each destination's real slots in
-    source order (``be.in_indptr``/``in_order``), the twin scatters by
-    ``b_dst``; cap-pad slots must be masked, as ``bin_base``/KB1 leave
-    them."""
+    ``[n_pad, C]``, one launch. The kernel walks each destination's real
+    slots in source order (``be.in_indptr`` and ``binned_pull_walk``'s
+    pairs) and reads each slot's source row straight from ``rd``, so it
+    adds in K2b's order; the twin scatters by ``b_dst``. Cap-pad slots must
+    be masked, as ``bin_base``/KB1 leave them."""
     name = "binned_pull_sum"
     B, C = me.shape
     n = rd.shape[0]
@@ -698,15 +730,12 @@ def binned_pull_sum(me, rd, be):
                be.in_order)
     if not _on_cuda(name, *tensors):
         return binned_pull_sum_plain(me, rd, be)
+    pairs = binned_pull_walk(be)
     agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
-    vals = torch.empty((be.U, C), dtype=torch.float32, device=rd.device)
-    launched = ctypes.c_int64(0)
     err = _fn("pagerank_columns", "rtpu_binned_pull_sum")(
-        n, C, be.U, be.in_indptr.data_ptr(), be.in_order.data_ptr(),
-        be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
-        me.data_ptr(), rd.data_ptr(), vals.data_ptr(), agg.data_ptr(),
-        _stream(agg), ctypes.byref(launched))
-    _launch(name, err, launched.value)
+        n, C, be.in_indptr.data_ptr(), pairs.data_ptr(), me.data_ptr(),
+        rd.data_ptr(), agg.data_ptr(), _stream(agg))
+    _launch(name, err, 1 if n and C else 0)
     return agg
 
 
@@ -735,17 +764,29 @@ def _check_binned(name: str, be, B: int, n: int,
 
 # ---------------------------------------------------------------- K2c
 
-#: K2c's block: 256 threads, columns fastest (``csrc/pagerank_columns.cu``)
+#: K2c's block: 256 threads, a thread 4 adjacent columns of a row
+#: (``csrc/pagerank_columns.cu``)
 _UPDATE_THREADS = 256
-#: most blocks along K2c's rows: its last block sums one partial per block
+#: rows a K2c thread keeps in flight (the kernel's ``kUpdateRows``)
+_UPDATE_ROWS = 4
+#: most blocks of K2c's grid: the 2 an SM its registers leave resident, on
+#: the H100's 132; its last block sums one partial per block along the rows
 _UPDATE_BLOCKS = 2 * 132
 
 
 def update_grid(n: int, C: int) -> int:
     """Blocks along the rows of K2c's grid for ``[n, C]`` state — the row
-    count of its per-block partials."""
-    rows = _UPDATE_THREADS // max(1, min(C, _UPDATE_THREADS))
-    return max(1, min(-(-n // rows), _UPDATE_BLOCKS))
+    count of its per-block partials. A block holds whole rows of up to 256
+    quads (4 columns); wider C tiles the quads over the grid's second
+    dimension, and the rows get what is left of ``_UPDATE_BLOCKS`` (at
+    least one block), or fewer blocks where that would leave a thread
+    fewer than ``_UPDATE_ROWS`` rows."""
+    quads = max(1, -(-C // 4))
+    tile = min(quads, _UPDATE_THREADS)
+    rows = _UPDATE_THREADS // tile
+    tiles = -(-quads // tile)
+    return max(1, min(-(-n // (rows * _UPDATE_ROWS)),
+                      _UPDATE_BLOCKS // tiles))
 
 
 @dataclass
@@ -758,7 +799,7 @@ class RankState:
     dangling: torch.Tensor   # [C] f32 mass on alive zero-out-degree rows
     halted: torch.Tensor     # [C] bool converged (frozen) columns
     done: torch.Tensor       # [1] bool every column halted
-    part: torch.Tensor       # [gx, C] f32 per-block dangling partials
+    part: torch.Tensor       # [gx, C] f64 per-block dangling partials
     busy: torch.Tensor       # [gx, C] int32 per-block "not converged"
     ticket: torch.Tensor     # [1] int32 blocks finished (reset by the last)
 
@@ -774,7 +815,7 @@ def rank_state(r: torch.Tensor) -> RankState:
         dangling=torch.zeros(C, dtype=torch.float32, device=dev),
         halted=torch.zeros(C, dtype=torch.bool, device=dev),
         done=torch.zeros(1, dtype=torch.bool, device=dev),
-        part=torch.empty((gx, C), dtype=torch.float32, device=dev),
+        part=torch.empty((gx, C), dtype=torch.float64, device=dev),
         busy=torch.empty((gx, C), dtype=torch.int32, device=dev),
         ticket=torch.zeros(1, dtype=torch.int32, device=dev))
 
@@ -833,7 +874,7 @@ def pagerank_update(st: RankState, agg, deg, mv, n_act, damping: float,
         return pagerank_update_plain(st, agg, deg, mv, n_act, damping, tol,
                                      prime)
     gx = update_grid(n, C)
-    _expect(name, st.part, "part", (torch.float32,), (gx, C))
+    _expect(name, st.part, "part", (torch.float64,), (gx, C))
     _expect(name, st.busy, "busy", (torch.int32,), (gx, C))
     _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
     fn = _fn("pagerank_columns", "rtpu_pagerank_update")

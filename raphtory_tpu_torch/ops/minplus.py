@@ -23,12 +23,24 @@ import torch
 
 import ctypes
 
-from . import columns
 from .columns import (_check_binned, _expect, _fn, _launch, _on_cuda,
                       _stream)
 
 I32_MAX = 2**31 - 1
 INF = float("inf")
+
+#: K5/K6's block: 256 threads, columns fastest (``csrc/minplus_columns.cu``)
+_THREADS = 256
+#: most blocks along K5/K6's rows: its last block reads one busy word per
+#: block
+_BLOCKS = 2 * 132
+
+
+def superstep_grid(n: int, C: int) -> int:
+    """Blocks along the rows of K5/K6's grid for ``[n, C]`` state — the row
+    count of ``MinState.busy``."""
+    rows = _THREADS // max(1, min(C, _THREADS))
+    return max(1, min(-(-n // rows), _BLOCKS))
 
 
 @dataclass
@@ -52,7 +64,7 @@ def min_state(x0: torch.Tensor) -> MinState:
         cur=x0, nxt=torch.empty_like(x0),
         halted=torch.zeros(C, dtype=torch.bool, device=dev),
         done=torch.zeros(1, dtype=torch.bool, device=dev),
-        busy=torch.empty((columns.update_grid(n, C), C), dtype=torch.int32,
+        busy=torch.empty((superstep_grid(n, C), C), dtype=torch.int32,
                          device=dev),
         ticket=torch.zeros(1, dtype=torch.int32, device=dev))
 
@@ -100,7 +112,7 @@ def _check(name, st: MinState, me, mv, edges, dtype):
 
 def _launch_args(name, st: MinState, me, mv, edges):
     _expect(name, st.busy, "busy", (torch.int32,),
-            (columns.update_grid(*st.cur.shape), st.cur.shape[1]))
+            (superstep_grid(*st.cur.shape), st.cur.shape[1]))
     _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
     return (edges.in_indptr.data_ptr(), edges.e_src.data_ptr(),
             edges.out_indptr.data_ptr(), edges.out_perm.data_ptr(),
@@ -136,7 +148,7 @@ def cc_superstep(st: MinState, me, mv, edges) -> None:
     if not _on_cuda(name, *_tensors(st, me, mv, edges)):
         return cc_superstep_plain(st, me, mv, edges)
     err = _fn("minplus_columns", "rtpu_cc_superstep")(
-        n, C, columns.update_grid(n, C),
+        n, C, superstep_grid(n, C),
         *_launch_args(name, st, me, mv, edges))
     _launch(name, err)
     st.cur, st.nxt = st.nxt, st.cur
@@ -175,7 +187,7 @@ def minplus_superstep(st: MinState, me, mv, edges, directed: bool,
     if not _on_cuda(name, *tensors):
         return minplus_superstep_plain(st, me, mv, edges, directed, ew, W)
     err = _fn("minplus_columns", "rtpu_minplus_superstep")(
-        n, C, W, H, columns.update_grid(n, C), int(bool(directed)),
+        n, C, W, H, superstep_grid(n, C), int(bool(directed)),
         None if ew is None else ew.data_ptr(),
         *_launch_args(name, st, me, mv, edges))
     _launch(name, err)
@@ -215,7 +227,7 @@ def _check_binned_step(name, st: MinState, me, mv, be, dtype, reverse):
 
 def _binned_args(name, st: MinState, me, mv, be):
     _expect(name, st.busy, "busy", (torch.int32,),
-            (columns.update_grid(*st.cur.shape), st.cur.shape[1]))
+            (superstep_grid(*st.cur.shape), st.cur.shape[1]))
     _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
     vals = torch.empty((be.U, st.cur.shape[1]), dtype=st.cur.dtype,
                        device=st.cur.device)
@@ -257,7 +269,7 @@ def binned_cc_superstep(st: MinState, me, mv, be) -> None:
         return binned_cc_superstep_plain(st, me, mv, be)
     launched = ctypes.c_int64(0)
     err = _fn("minplus_columns", "rtpu_binned_cc_superstep")(
-        n, C, columns.update_grid(n, C), be.U,
+        n, C, superstep_grid(n, C), be.U,
         *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
     _launch(name, err, launched.value)
     st.cur, st.nxt = st.nxt, st.cur
@@ -297,7 +309,7 @@ def binned_minplus_superstep(st: MinState, me, mv, be, directed: bool,
                                               W)
     launched = ctypes.c_int64(0)
     err = _fn("minplus_columns", "rtpu_binned_minplus_superstep")(
-        n, C, W, H, columns.update_grid(n, C), int(bool(directed)), be.U,
+        n, C, W, H, superstep_grid(n, C), int(bool(directed)), be.U,
         None if ew is None else ew.data_ptr(),
         *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
     _launch(name, err, launched.value)

@@ -213,12 +213,22 @@ def test_pagerank_update_twin_freezes_halts_and_primes():
 
 def test_pagerank_update_checks_inputs_and_sizes_its_scratch():
     columns.reset_launches()
-    for n, C in ((10, 12), (32_768, 12), (5, 300), (100_000, 1)):
-        st = columns.rank_state(torch.zeros((n, C)))
+    for n, C in ((10, 12), (32_768, 12), (5, 300), (100_000, 1), (0, 4),
+                 (5_308_416, 128), (7, 2_000_000)):
         gx = columns.update_grid(n, C)
-        rows = 256 // min(C, 256)
-        assert 1 <= gx <= 264 and (gx == 264 or gx * rows >= n)
-        assert st.part.shape == st.busy.shape == (gx, C)
+        quads = -(-C // 4)
+        tile = min(quads, 256)
+        rows, tiles = 256 // tile, -(-quads // tile)
+        # at most 264 blocks a grid (2 an SM) where the column tiles leave
+        # room, every row reached, 4 rows a thread before the grid grows
+        assert 1 <= gx and (gx == 1 or gx * tiles <= 264)
+        assert gx * rows * 4 >= n or gx == max(1, 264 // tiles)
+        assert gx == 1 or (gx - 1) * rows * 4 < n
+        if n * C <= 10**6:
+            st = columns.rank_state(torch.zeros((n, C)))
+            assert st.part.shape == st.busy.shape == (gx, C)
+            assert st.part.dtype == torch.float64
+            assert st.busy.dtype == torch.int32
     st = columns.rank_state(torch.zeros((4, 2)))
     mv = torch.ones((4, 2), dtype=torch.bool)
     deg, n_act = torch.ones((4, 2)), torch.ones(2)
@@ -233,3 +243,53 @@ def test_pagerank_update_checks_inputs_and_sizes_its_scratch():
     columns.pagerank_update(st, torch.zeros((4, 2)), deg, mv, n_act, 0.85,
                             1e-7)
     assert columns.LAUNCHES == {k: 0 for k in columns.LAUNCHES}
+
+
+#: (n, C) -> K2c's blocks along the rows: whole rows of ceil(C / 4) quads
+#: a block of 256 threads, 4 rows a thread, 264 blocks at most
+_GRIDS = {(4_099, 1): 5, (4_099, 9): 13, (4_099, 128): 129,
+          (4_099, 300): 264, (5_308_416, 1): 264, (5_308_416, 9): 264,
+          (5_308_416, 128): 264, (5_308_416, 300): 264, (3, 300): 1}
+
+
+@pytest.mark.parametrize("C", [1, 9, 128, 300])
+def test_update_grid_and_scratch_at_each_column_count(C, monkeypatch):
+    """K2c's grid and its cross-block scratch at the column counts the
+    engines give it (one column, a K12 rank's 9, the scale sweep's 128,
+    past a 256-column tile): the wrapper hands the kernel ``update_grid``
+    blocks and ``[gx, C]`` f64 / int32 partials, one launch a call."""
+    for n in (4_099, 5_308_416, 3):
+        if (n, C) in _GRIDS:
+            assert columns.update_grid(n, C) == _GRIDS[n, C]
+    n = 4_099
+    gx = columns.update_grid(n, C)
+    rng = np.random.default_rng(C)
+    mv = T(rng.random((n, C)) < 0.8)
+    deg = T(rng.integers(0, 3, (n, C)).astype(np.float32))
+    n_act = torch.clamp(mv.float().sum(0), min=1.0)
+    st = columns.rank_state(torch.where(mv, 1.0 / n_act, 0.0))
+    assert (st.part.shape, st.part.dtype) == ((gx, C), torch.float64)
+    assert (st.busy.shape, st.busy.dtype) == ((gx, C), torch.int32)
+    calls = []
+
+    def kernel(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: kernel)
+    columns.reset_launches()
+    columns.pagerank_update(st, None, deg, mv, n_act, 0.85, 1e-7, prime=True)
+    columns.pagerank_update(st, torch.zeros((n, C)), deg, mv, n_act, 0.85,
+                            1e-7)
+    assert columns.LAUNCHES["pagerank_update"] == 2
+    (a0, a1) = calls
+    assert a0[:4] == (n, C, gx, 1) and a1[:4] == (n, C, gx, 0)
+    assert a0[7] is None and a1[7] is not None      # agg only to update
+    assert a1[16:19] == (st.part.data_ptr(), st.busy.data_ptr(),
+                         st.ticket.data_ptr())
+    st.part = torch.empty((gx, C), dtype=torch.float32)
+    with pytest.raises(TypeError, match="part"):
+        columns.pagerank_update(st, None, deg, mv, n_act, 0.85, 1e-7,
+                                prime=True)
+    columns.reset_launches()

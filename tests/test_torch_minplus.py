@@ -308,3 +308,16 @@ def test_superstep_wrappers_check_inputs_and_count_only_launches():
     minplus.minplus_superstep(fst, me, mv, edges, False)
     assert bool(st.done) and bool(fst.done)
     assert columns.LAUNCHES == {k: 0 for k in columns.LAUNCHES}
+
+
+def test_superstep_grid_keeps_k5_k6_within_264_blocks():
+    """K5/K6 keep their grid (K2c's changed beside them): at most 264
+    blocks along the rows, one busy word a block and column, every row
+    reached."""
+    for n, C in ((10, 12), (32_768, 12), (5, 300), (100_000, 1),
+                 (4_099, 9)):
+        gx = minplus.superstep_grid(n, C)
+        rows = 256 // min(C, 256)
+        assert 1 <= gx <= 264 and (gx == 264 or gx * rows >= n)
+        st = minplus.min_state(torch.zeros((n, C), dtype=torch.int32))
+        assert st.busy.shape == (gx, C) and st.busy.dtype == torch.int32

@@ -13,6 +13,7 @@ destination's slots in source order — the unbinned route's order — so its
 binned PageRank equals its unbinned PageRank bit for bit, which is checked
 too."""
 
+import ctypes
 import functools
 
 import jax
@@ -362,6 +363,118 @@ def test_binned_pull_sum_forms_agree():
     a = columns.binned_pull_sum(T(me_b), rd, be)
     b = columns.binned_pull_sum(T(me_b), rd, be._replace(U=0))
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [3, 16])
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_binned_pull_walk_pairs_each_walk_entry_with_its_source(kind, P):
+    """K2b-P's walk pairs: ``(b_src[s], s)`` for each walk entry's slot
+    ``s = in_order[j]``, derived once per layout and cached; on a
+    pre-aggregating layout each real slot's bucket reads the same source
+    row (``u_src[slot[s]] == b_src[s]``), which is why the kernel may read
+    ``rd`` at ``b_src`` where the twin reads the bucket."""
+    t, lay = _layout(kind, P)
+    be = lay.device_edges("cpu")
+    pairs = columns.binned_pull_walk(be)
+    _, order = lay.walk()
+    assert pairs.dtype == torch.int32 and pairs.shape == (t.m, 2)
+    np.testing.assert_array_equal(
+        pairs.numpy(), np.stack([lay.b_src[order], order], 1))
+    assert columns.binned_pull_walk(be) is pairs
+    assert columns.binned_pull_walk(lay.device_edges("cpu")) is pairs
+    real = np.flatnonzero(lay.valid)
+    np.testing.assert_array_equal(lay.u_src[lay.slot[real]], lay.b_src[real])
+
+
+def test_binned_pull_walk_refuses_buckets_that_miss_their_slots():
+    """A pre-aggregating layout whose bucket of some real slot names
+    another source than the slot is refused where the pairs are derived
+    (the kernel and the twin would read different rows)."""
+    t, lay = _layout("gab", 4)
+    assert lay.spec.preagg
+    be = lay.device_edges("cpu")
+    s = int(be.in_order[7])
+    bad = be.u_src.clone()
+    bad[be.slot[s]] = (bad[be.slot[s]] + 1) % t.n_pad
+    # a fresh walk tensor: the pairs are cached by the walk's identity
+    broken = be._replace(u_src=bad, in_order=be.in_order.clone())
+    with pytest.raises(ValueError, match="walk entry 7"):
+        columns.binned_pull_walk(broken)
+    me_b, _ = _binned_masks(t, lay, np.random.default_rng(0), 4)
+    with pytest.raises(ValueError, match="do not match"):
+        _on_card(columns.binned_pull_sum, T(me_b),
+                 torch.ones((t.n_pad, 4)), broken)
+
+
+def _view(addr, dtype, n):
+    """``n`` elements of ``dtype`` at a host address, as numpy."""
+    if not n:
+        return np.zeros(0, dtype)
+    nbytes = n * np.dtype(dtype).itemsize
+    return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(
+        addr)).view(dtype)
+
+
+def _model_pull(calls):
+    """``rtpu_binned_pull_sum`` as numpy over the raw host addresses the
+    wrapper passes: each destination row walks the pairs from
+    ``in_indptr``, reads the mask at each entry's slot and adds ``rd`` at
+    its source row in walk order (f32 adds, one entry at a time)."""
+    def model(n, C, indptr, pairs, me, rd, agg, stream):
+        calls.append(dict(pairs=pairs, indptr=indptr, n=n, C=C))
+        ip = _view(indptr, np.int64, n + 1)
+        pr = _view(pairs, np.int32, 2 * int(ip[-1])).reshape(-1, 2)
+        B = int(pr[:, 1].max()) + 1 if len(pr) else 0
+        mk = _view(me, np.uint8, B * C).reshape(B, C) != 0
+        r = _view(rd, np.float32, n * C).reshape(n, C)
+        out = _view(agg, np.float32, n * C).reshape(n, C)
+        for d in range(n):
+            acc = np.zeros(C, np.float32)
+            for src, s in pr[ip[d]:ip[d + 1]]:
+                acc = np.where(mk[s], acc + r[src], acc)
+            out[d] = acc
+        return 0
+    return model
+
+
+def _on_card(fn, *args, calls=None):
+    """``fn(*args)`` with K2b-P's card branch taken on CPU tensors (the C
+    entry point is ``_model_pull``); the other kernels keep their twins."""
+    calls = [] if calls is None else calls
+    saved = columns._on_cuda, columns._fn, columns._stream
+    columns._on_cuda = lambda name, *t: name == "binned_pull_sum"
+    columns._fn = lambda lib, f: _model_pull(calls)
+    columns._stream = lambda t: 0
+    try:
+        return fn(*args)
+    finally:
+        columns._on_cuda, columns._fn, columns._stream = saved
+
+
+@pytest.mark.parametrize("P", [3, 16])
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_binned_pagerank_card_branch_is_one_launch_a_superstep(kind, P):
+    """The binned power iteration through K2b-P's card branch (the
+    modelled kernel): one launch a superstep, over the layout's cached walk
+    pairs and no bucket buffer, with ranks bitwise the twin loop's."""
+    t, lay = _layout(kind, P)
+    rng = np.random.default_rng(P)
+    C = 5
+    me_b, mv = _binned_masks(t, lay, rng, C)
+    be = lay.device_edges("cpu")
+    args = (T(me_b), T(mv), be.b_src, be.b_dst, be.in_indptr, t.n_pad, 0.85,
+            1e-7, 30)
+    want, want_steps = thb._pagerank_columns(*args, pcpm=be)
+    columns.reset_launches()
+    calls = []
+    got, steps = _on_card(
+        lambda: thb._pagerank_columns(*args, pcpm=be), calls=calls)
+    assert torch.equal(got, want) and steps == want_steps > 1
+    assert columns.LAUNCHES["binned_pull_sum"] == len(calls) == steps
+    pairs = columns.binned_pull_walk(be)
+    assert {c["pairs"] for c in calls} == {pairs.data_ptr()}
+    assert {c["indptr"] for c in calls} == {be.in_indptr.data_ptr()}
+    columns.reset_launches()
 
 
 @functools.lru_cache(maxsize=None)
