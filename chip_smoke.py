@@ -130,7 +130,22 @@ printing one JSON line:
               and 4,097, masked and negative values, empty segments) and
               timed at the View's shape.
 
-18. mesh_one — the mesh path on ONE rank (no process group, the card):
+18. taint   — ``TaintTracking`` (the reference's Ethereum taint
+              tracking with its exchange stop-list) over the multigraph of
+              edge-add events of ``bitcoin_like_log(2^21, 2^23, seed 11,
+              one week)``: a View job at the week's end over (week, day,
+              hour) and a Range job (4 daily hops x (day, hour)) through
+              ``AnalysisManager``, binned (``RTPU_PCPM`` unset: K7-P on
+              int64) and unbinned (``=0``: K7 on int64), BITWISE equal
+              with equal supersteps; the View equal to the CPU job, the
+              Range's first hop to the CPU run; fold / layout / dispatch
+              seconds, views/s and the fold share, tainted counts,
+              peak memory; K7 and K7-P int64 against their twins at
+              this shape (timed beside ``scatter_reduce_``) and on edge
+              cases (empty segments, a fully masked window, INT64_MIN /
+              INT64_MAX, k = 1 and 3, an unaligned edge count).
+
+19. mesh_one — the mesh path on ONE rank (no process group, the card):
               ``AnalysisManager(TemporalGraph(gab log), mesh=make_mesh(1,
               1))`` PageRank Range at the headline grid and CC Range at the
               month window (the column-sharded route, K12), a CC Range with
@@ -139,16 +154,19 @@ printing one JSON line:
               (K11); every row against the single-device port on the card
               (CC bitwise; PageRank rtol 1e-5 / atol 1e-7, equal steps),
               and K12 against the single-device host-column runners.
-19. mesh_ranks — 4 ranks on the card under gloo (``cluster.bootstrap.
+20. mesh_ranks — 4 ranks on the card under gloo (``cluster.bootstrap.
               spawn``, share_card, hard timeout): on the headline log,
               ``sharded.run`` PageRank on 2 x 2 and 1 x 4 meshes over
               all_gather and halo, CC over all_gather, halo and sparse, a
               12-hop ``ShardedSweep`` PageRank, ``run_columns_sharded``
               PageRank and CC at the headline grid (36 columns, 9 a rank);
               on the ``sparse_collectives`` stream (``bench.py:3268-3297``)
-              CC and BFS from its 3 hubs over all_gather and sparse. Each
-              against the single-device port on the card (CC / BFS
-              bitwise, PageRank within the tolerance) and ``mesh_one``;
+              CC and BFS from its 3 hubs over all_gather and sparse;
+              TaintTracking over the occurrence partition of the
+              ``bitcoin_range`` log, plain and windowed, on 1 x 4
+              (all_gather, halo) and 2 x 2. Each
+              against the single-device port on the card (CC / BFS /
+              taint bitwise, PageRank within the tolerance) and ``mesh_one``;
               bytes, supersteps and dispatch seconds per route (the
               view and its partition built before the clock); then
               measuring replays of a few cases: one that keeps the
@@ -3039,6 +3057,372 @@ def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
 
 K12_KERNELS = ("column_masks", "column_out_degree", "column_pull_sum",
                "pagerank_update", "cc_superstep")
+#: the taint deployment: the reference's Ethereum taint tracking
+#: (EthereumTaintTracking.scala:93-127, exchange stop-list) over one week
+#: of payment events, at the volume of a week of Ethereum mainnet
+TAINT_LOG = dict(n_addresses=1 << 21, n_txs=1 << 23, seed=11,
+                 t_span=604_800)
+TAINT_T, TAINT_WINDOWS = 604_800, (604_800, 86_400, 3_600)
+TAINT_RANGE = dict(start=345_600, end=604_800, jump=86_400,
+                   windows=(86_400, 3_600))
+TAINT_START = 86_400
+#: the taint path's kernels besides its exchange: the per-window degrees
+#: (int32 K7) and the mask unpack (K8u)
+TAINT_KERNELS = ("segment_combine", "unpack_mask_bits")
+IMAX = (1 << 63) - 1
+
+
+def nonzero(launches: dict) -> dict:
+    """The kernels a run launched, with their counts."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def taint_program(np, log, start_time: int, max_steps: int = 50):
+    """TaintTracking on ``log``: the 8 addresses with the most sends as
+    the exchange stop-list; 16 other addresses that send at least once,
+    drawn with ``default_rng(11)``, as the seeds."""
+    from raphtory_tpu_torch.algorithms import TaintTracking
+
+    ids, sends = np.unique(log.column("src"), return_counts=True)
+    stop = ids[np.argsort(-sends, kind="stable")[:8]]
+    seeds = np.random.default_rng(11).choice(np.setdiff1d(ids, stop), 16,
+                                             replace=False)
+    return TaintTracking(seeds=tuple(sorted(int(s) for s in seeds)),
+                         start_time=int(start_time),
+                         stop_list=tuple(sorted(int(s) for s in stop)),
+                         max_steps=max_steps)
+
+
+def taint_edge_cases(torch, np, segment, partition, dev) -> int:
+    """K7 and K7-P on int64 against their twins, bitwise: empty segments,
+    a fully masked window, INT64_MIN / INT64_MAX and wrapping sums, k = 1
+    and 3, an unaligned edge count, a feature axis; K7 in both directions,
+    K7-P through a layout's perm / valid. Returns the cases held."""
+    rng = np.random.default_rng(3)
+    n, n_real, m_real, m_pad = 1_000, 977, 4_099, 4_104
+    src = rng.integers(0, n_real, m_real)
+    dst = rng.integers(0, n_real - 40, m_real)      # rows that get nothing
+    order = np.lexsort((src, dst))
+    e_src = np.full(m_pad, n - 1, np.int32)
+    e_dst = np.full(m_pad, n - 1, np.int32)
+    e_src[:m_real], e_dst[:m_real] = src[order], dst[order]
+
+    def indptr(ids):
+        out = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(ids, minlength=n), out=out[1:])
+        return out
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    csrs = {"dst": segment.SegmentCSR(put(e_dst), put(indptr(e_dst[:m_real])),
+                                      None),
+            "src": segment.SegmentCSR(
+                put(e_src), put(indptr(e_src[:m_real])),
+                put(np.argsort(e_src[:m_real], kind="stable").astype(
+                    np.int32)))}
+    lay = partition.build_layout(e_src, e_dst, n, m_real, 3)
+    be = lay.device_edges(dev)
+    walk = segment.PartitionWalk(be.in_indptr, be.in_order, be.perm,
+                                 be.valid)
+    extremes = np.array([-(1 << 63), -(1 << 63) + 1, -1, 0, 1, IMAX - 1,
+                         IMAX])
+    cases = 0
+    for k in (1, 3):
+        for F in (0, 2):
+            shape = (k * m_pad,) + ((F,) if F else ())
+            x = rng.integers(-(1 << 62), 1 << 62, shape)
+            pick = rng.random(shape) < 0.3
+            x[pick] = rng.choice(extremes, int(pick.sum()))
+            mask = rng.random(k * m_pad) < 0.7
+            mask.reshape(k, m_pad)[:, m_real:] = False
+            if k > 1:
+                mask.reshape(k, m_pad)[1] = False     # a window with nothing
+            xd, md = put(x), put(mask)
+            for op in ("sum", "min", "max"):
+                for name, csr in csrs.items():
+                    got = segment.segment_combine(xd, csr, op, md, k)
+                    want = segment.segment_combine_plain(xd, csr, op, md, k)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K7 int64 differs from its twin ({op}, {name},"
+                            f" k={k}, F={F})")
+                    cases += 1
+                got = segment.partition_reduce(xd, walk, op, md, k)
+                want = segment.partition_reduce_plain(xd, walk, op, md, k)
+                flat = segment.segment_combine_plain(xd, csrs["dst"], op, md,
+                                                     k)
+                if not (torch.equal(got, want) and torch.equal(got, flat)):
+                    raise AssertionError(f"K7-P int64 differs from its twin "
+                                         f"({op}, k={k}, F={F})")
+                cases += 1
+    return cases
+
+
+def taint_kernels(torch, np, segment, bsp, view, lay, k, dev) -> dict:
+    """K7 and K7-P on int64 at the taint View's shape: the exchange of a
+    superstep (k windows' min over the occurrence rows, the windows'
+    masks, messages that are taint times where the sender is tainted and
+    IMAX elsewhere), each bitwise against its twin and timed beside the
+    twin and the one PyTorch call of the same function,
+    ``scatter_reduce_(..., "amin", include_self=True)`` over the flat
+    payload. Bounds from this view's real rows and this layout's bytes."""
+    e = bsp.view_edges(view, dev, occurrences=True)
+    be = lay.device_edges(dev)
+    csr = segment.SegmentCSR(e.e_dst, e.in_indptr, None)
+    walk = segment.PartitionWalk(be.in_indptr, be.in_order, be.perm,
+                                 be.valid)
+    n, m = view.n_pad, len(view.occ_src)
+    o = bsp._occ_count(view)
+    rng = np.random.default_rng(5)
+    lo = np.array([TAINT_T - w for w in TAINT_WINDOWS[:k]])[:, None]
+    mask = view.occ_mask[None, :] & (view.occ_time[None, :] >= lo)
+    occ_t = np.broadcast_to(view.occ_time, (k, m))
+    msg = np.where(rng.random((k, m)) < 0.1, occ_t, IMAX).reshape(-1)
+    x = torch.from_numpy(np.ascontiguousarray(msg)).to(dev)
+    mk = torch.from_numpy(np.ascontiguousarray(mask.reshape(-1))).to(dev)
+    flat_dst = (e.e_dst.long()[None, :]
+                + torch.arange(k, device=dev)[:, None] * n).reshape(-1)
+    imax = torch.tensor(IMAX, dtype=torch.int64, device=dev)
+
+    def library():
+        return torch.full((k * n,), IMAX, dtype=torch.int64,
+                          device=dev).scatter_reduce_(
+            0, flat_dst, torch.where(mk, x, imax), "amin", include_self=True)
+
+    ref = library()
+    live = int(mk.sum())
+    # the kernels read a row's payload only where its window's mask is
+    # set: count the 32-byte sectors of the flat [k*m] payload that hold a
+    # live row (4 int64 rows a sector)
+    pad = torch.zeros((-mk.numel()) % 4, dtype=torch.bool, device=dev)
+    payload = 32 * int(torch.cat([mk, pad]).view(-1, 4).any(1).sum())
+    out = {}
+    for name, run, plain, nbytes in (
+            ("segment_combine_i64",
+             lambda: segment.segment_combine(x, csr, "min", mk, k),
+             lambda: segment.segment_combine_plain(x, csr, "min", mk, k),
+             # the live payload's sectors, the real rows' mask in every
+             # window, the CSR, the output
+             payload + k * o + (n + 1) * 8 + k * n * 8),
+            ("partition_segment_reduce_i64",
+             lambda: segment.partition_reduce(x, walk, "min", mk, k),
+             lambda: segment.partition_reduce_plain(x, walk, "min", mk, k),
+             # the live payload's sectors, the real slots' mask in every
+             # window, the walk (indptr, order), perm and valid over every
+             # binned slot, the output
+             payload + k * o + (n + 1) * 8 + walk.order.numel() * 4
+             + walk.perm.numel() * 5 + k * n * 8)):
+        got, want = run(), plain()
+        if not (torch.equal(got, want) and torch.equal(got, ref)):
+            raise AssertionError(f"{name} differs from its twin at the "
+                                 "taint shape")
+        out[name] = dict(
+            source="raphtory_tpu_torch/csrc/segment.cu",
+            replaces=("raphtory_tpu/ops/segment.py:35" if "combine" in name
+                      else "raphtory_tpu/ops/segment.py:116"),
+            max_abs_err=exact_err(got, want),
+            ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain, iters=5),
+            library_ms=cuda_ms(torch, library),
+            shape=f"min int64 k={k} n_pad={n} o_pad={m} o={o} live={live}"
+                  f" live_payload_bytes={payload}",
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, live))))
+    return out
+
+
+def phase_taint(torch, np, columns, segment, dev):
+    """TaintTracking over the edge-event multigraph at the week-of-Ethereum
+    scale: a View job (k = 3) and a hop-by-hop Range job (4 hops x 2
+    windows) through ``AnalysisManager``, binned (``RTPU_PCPM`` unset: K7-P
+    on int64) and unbinned (``=0``: K7 on int64), bitwise equal with equal
+    supersteps; the View bitwise equal to the CPU job, the Range's first
+    hop to the CPU run. K7 / K7-P int64 against their twins at this shape
+    and on edge cases. Returns ``(launches, kernel entries)``."""
+    from raphtory_tpu_torch.core import sweep as _sweep
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.jobs.manager import (AnalysisManager,
+                                                 RangeQuery, ViewQuery)
+    from raphtory_tpu_torch.ops import partition
+    from raphtory_tpu_torch.utils.synth import bitcoin_like_log
+
+    def knob(value):
+        if value is None:
+            os.environ.pop("RTPU_PCPM", None)
+        else:
+            os.environ["RTPU_PCPM"] = value
+
+    def job_rows(mgr, q):
+        job = mgr.submit(prog, q)
+        if not job.wait(900) or job.status != "done":
+            raise AssertionError(f"taint job {job.status}: {job.error}")
+        return mgr.results(job.id)
+
+    def same_rows(what, got, want):
+        keys = ("time", "windowsize", "steps", "result")
+        if len(got) != len(want) or any(g[kk] != w[kk] for g, w in
+                                        zip(got, want) for kk in keys):
+            raise AssertionError(f"taint {what}: rows differ")
+
+    t0 = time.perf_counter()
+    log = bitcoin_like_log(**TAINT_LOG)
+    gen_s = time.perf_counter() - t0
+    prog = taint_program(np, log, TAINT_START)
+    try:
+        # ---- the View: fold, layout and dispatch on their own clocks
+        t0 = time.perf_counter()
+        view = build_view(log, TAINT_T, include_occurrences=True)
+        fold_s = time.perf_counter() - t0
+        knob(None)
+        t0 = time.perf_counter()
+        lay = bsp._view_layout(view, True)      # cached for the view
+        layout_s = time.perf_counter() - t0
+        if lay is None:
+            raise AssertionError("taint: RTPU_PCPM auto did not bin the "
+                                 "occurrence rows")
+        g, cpu_g = TemporalGraph(log, device=dev), TemporalGraph(
+            log, device="cpu")
+        for graph in (g, cpu_g):               # the jobs reuse the fold
+            graph.cache_put(TAINT_T, view, True)
+        mgr, cpu_mgr = AnalysisManager(g, device=dev), AnalysisManager(
+            cpu_g, device="cpu")
+        q = ViewQuery(TAINT_T, windows=TAINT_WINDOWS)
+        view_runs, results = {}, {}
+        for route, value in (("binned", None), ("unbinned", "0")):
+            knob(value)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            columns.reset_launches()
+            t0 = time.perf_counter()
+            res, steps = bsp.run(prog, view, windows=list(TAINT_WINDOWS),
+                                 device=dev)
+            torch.cuda.synchronize()
+            dispatch_s = time.perf_counter() - t0
+            launches = dict(columns.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            columns.reset_launches()
+            t0 = time.perf_counter()
+            rows = job_rows(mgr, q)
+            job_s = time.perf_counter() - t0
+            job_launches = dict(columns.LAUNCHES)
+            results[route] = (res.cpu(), steps, rows)
+            view_runs[route] = dict(
+                dispatch_s=dispatch_s, job_s=job_s, supersteps=steps,
+                tainted=[int(v) for v in (res < IMAX).sum(dim=1).cpu()],
+                launches=nonzero(launches),
+                job_launches=nonzero(job_launches), peak_device_bytes=peak)
+        exchange = {"binned": "partition_segment_reduce_i64",
+                    "unbinned": "segment_combine_i64"}
+        for route, r in view_runs.items():
+            for what in ("launches", "job_launches"):
+                ks = (exchange[route],) + TAINT_KERNELS
+                check_launched(f"taint View {route} ({what})",
+                               {kk: r[what].get(kk, 0) for kk in ks}, ks)
+        if view_runs["binned"]["launches"].get("segment_combine_i64"):
+            raise AssertionError("taint: the binned View ran K7 on int64")
+        (b, bs, brows), (u, us, urows) = results["binned"], \
+            results["unbinned"]
+        if not torch.equal(b, u) or bs != us:
+            raise AssertionError(f"taint View: binned != unbinned on the "
+                                 f"card (steps {bs} vs {us})")
+        same_rows("View binned vs unbinned jobs", brows, urows)
+        knob("0")
+        t0 = time.perf_counter()
+        cpu_rows = job_rows(cpu_mgr, q)
+        cpu_view_s = time.perf_counter() - t0
+        same_rows("View card vs CPU jobs", brows, cpu_rows)
+        if [r["steps"] for r in brows] != [bs] * len(TAINT_WINDOWS) or [
+                r["result"]["tainted"] for r in brows] \
+                != view_runs["binned"]["tainted"]:
+            raise AssertionError("taint View: the job's rows do not match "
+                                 "its dispatch")
+        kernels = taint_kernels(torch, np, segment, bsp, view, lay,
+                                len(TAINT_WINDOWS), dev)
+        edge_cases = taint_edge_cases(torch, np, segment, partition, dev)
+        occ_shape = dict(n=view.n_active, n_pad=view.n_pad,
+                         o=bsp._occ_count(view), o_pad=len(view.occ_src),
+                         k=len(TAINT_WINDOWS), spec=spec_of(lay))
+        del view, lay, g, mgr, res, b, u
+
+        # ---- the Range, hop by hop over SweepBuilder(include_occurrences)
+        knob(None)
+        g = TemporalGraph(log, device=dev)
+        mgr = AnalysisManager(g, device=dev)
+        rq = RangeQuery(**TAINT_RANGE)
+        hops = list(range(rq.start, rq.end + 1, rq.jump))
+        fold_clock = []
+        real_view_at = _sweep.SweepBuilder.view_at
+
+        def view_at(self, t):
+            t0 = time.perf_counter()
+            out = real_view_at(self, t)
+            fold_clock.append(time.perf_counter() - t0)
+            return out
+
+        columns.reset_launches()
+        _sweep.SweepBuilder.view_at = view_at
+        try:
+            t0 = time.perf_counter()
+            rows = job_rows(mgr, rq)
+            range_s = time.perf_counter() - t0
+        finally:
+            _sweep.SweepBuilder.view_at = real_view_at
+        range_launches = dict(columns.LAUNCHES)
+        check_launched("taint Range", range_launches,
+                       ("partition_segment_reduce_i64",) + TAINT_KERNELS)
+        range_launches = nonzero(range_launches)
+        if len(fold_clock) != len(hops) or len(rows) != len(hops) * len(
+                rq.windows):
+            raise AssertionError("taint Range: not hop by hop over the "
+                                 "sweep builder")
+        knob("0")
+        hop_steps, hop_tainted = [], []
+        for j, T in enumerate(hops):
+            hv = g.view_at(T, include_occurrences=True)  # the job's fold
+            res, steps = bsp.run(prog, hv, windows=list(rq.windows),
+                                 device=dev)
+            res = res.cpu()
+            want = reduced_rows(prog, res.numpy(), T, rq.windows, steps, hv)
+            same_rows(f"Range hop {T} binned vs unbinned",
+                      [{kk: r[kk] for kk in want[0]} for r in
+                       rows[j * len(rq.windows):(j + 1) * len(rq.windows)]],
+                      want)
+            if j == 0:
+                cpu, cpu_steps = bsp.run(prog, hv, windows=list(rq.windows),
+                                         device="cpu")
+                if not torch.equal(res, cpu) or steps != cpu_steps:
+                    raise AssertionError(f"taint Range hop {T}: card != CPU "
+                                         f"(steps {steps} vs {cpu_steps})")
+            hop_steps.append(steps)
+            hop_tainted.append([int(v) for v in (res < IMAX).sum(dim=1)])
+    finally:
+        os.environ["RTPU_PCPM"] = "0"
+    launches = {"segment_combine_i64":
+                view_runs["unbinned"]["launches"]["segment_combine_i64"],
+                "partition_segment_reduce_i64":
+                view_runs["binned"]["launches"][
+                    "partition_segment_reduce_i64"]}
+    fold_share = sum(fold_clock) / range_s
+    emit("taint", log=TAINT_LOG, events=int(TAINT_LOG["n_txs"]),
+         gen_s=gen_s, **occ_shape,
+         seeds=len(prog.seeds), stop_list=len(prog.stop_list),
+         start_time=prog.start_time, max_steps=prog.max_steps,
+         view=dict(T=TAINT_T, windows=TAINT_WINDOWS, fold_s=fold_s,
+                   layout_s=layout_s, cpu_job_s=cpu_view_s, **view_runs),
+         range=dict(hops=hops, windows=rq.windows, views=len(rows),
+                    seconds=range_s, views_per_s=len(rows) / range_s,
+                    fold_s=fold_clock, fold_share=fold_share,
+                    supersteps=hop_steps, tainted=hop_tainted,
+                    launches=range_launches),
+         kernels={kk: {x: v[x] for x in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err", "shape")}
+                  for kk, v in kernels.items()},
+         edge_cases_bitwise=edge_cases)
+    return launches, kernels
+
+
 MESH_TARGET = "raphtory_tpu_torch.cluster.tasks:run_requests"
 ZIPF = dict(n_vertices=4096, n_events=160_000, seed=11)
 ZIPF_T, ZIPF_WINDOWS = 1000, [800, 400, 200, 100]
@@ -3675,7 +4059,8 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
     from raphtory_tpu_torch.core.snapshot import build_view
     from raphtory_tpu_torch.engine import bsp
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
-    from raphtory_tpu_torch.utils.synth import zipf_hub_log, zipf_hubs
+    from raphtory_tpu_torch.utils.synth import (bitcoin_like_log,
+                                                zipf_hub_log, zipf_hubs)
 
     hops, _ = headline_grid()
     T = int(0.90 * GAB_SPAN)
@@ -3684,9 +4069,9 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
              "cc": ConnectedComponents(max_steps=50),
              "bfs": BFS(seeds=hubs, directed=False)}
 
-    def spec(name):
-        import dataclasses
+    import dataclasses
 
+    def spec(name):
         p = progs[name]
         return (type(p).__name__, dataclasses.asdict(p))
 
@@ -3723,10 +4108,21 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                    ("gab", "cc", (4, 1), "all_gather"),
                    ("gab", "cc", (4, 1), "sparse"))])
     reqs += [dict(case_req(c), **flags) for c, flags in replays]
+    # TaintTracking over the occurrence partition: (mesh, comm, windowed)
+    btc_kw = dict(n_addresses=20_000, n_txs=200_000, t_span=BTC_SPAN)
+    btc = bitcoin_like_log(**btc_kw)
+    taint = taint_program(np, btc, BTC_SPAN // 2)
+    taint_cases = [((4, 1), "all_gather", False), ((4, 1), "halo", True),
+                   ((2, 2), "all_gather", True), ((2, 2), "halo", False)]
+    reqs += [dict(op="sharded", log="btc", program=(
+        "TaintTracking", dataclasses.asdict(taint)), mesh=m, comm=c,
+        T=BTC_SPAN, **({"windows": BTC_WINDOWS} if windowed else {}))
+        for m, c, windowed in taint_cases]
     logs = {"gab": {"synth": "gab_like_log",
                     "kwargs": dict(n_vertices=30_000, n_edges=300_000,
                                    t_span=GAB_SPAN)},
-            "zipf": {"synth": "zipf_hub_log", "kwargs": ZIPF}}
+            "zipf": {"synth": "zipf_hub_log", "kwargs": ZIPF},
+            "btc": {"synth": "bitcoin_like_log", "kwargs": btc_kw}}
     t0 = time.perf_counter()
     out = spawn(MESH_TARGET, 4, ({"logs": logs, "requests": reqs},),
                 timeout=480, device="cuda", share_card=True)
@@ -3763,6 +4159,26 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
                            seconds=r["seconds"], routes=r["routes"],
                            launches=r["launches"]))
     sweep_r, pr_cols, cc_cols = res[len(cases):n_timed]
+    btc_view = build_view(btc, BTC_SPAN, include_occurrences=True)
+    taint_report = []
+    for (m, c, windowed), r in zip(taint_cases, res[-len(taint_cases):]):
+        kw = {"windows": BTC_WINDOWS} if windowed else {}
+        want, ws = bsp.run(taint, btc_view, device=dev, **kw)
+        if r["steps"] != ws or not torch.equal(
+                torch.from_numpy(r["result"]), want.cpu()):
+            raise AssertionError(f"mesh_ranks taint {m} {c} windowed="
+                                 f"{windowed} differs from bsp.run on the "
+                                 f"card (steps {r['steps']} vs {ws})")
+        ks = ("segment_combine_i64", "segment_combine")
+        check_launched(f"mesh_ranks taint {m} {c}",
+                       {k: r["launches"].get(k, 0) for k in ks}, ks)
+        taint_report.append(dict(
+            mesh=f"{m[1]}x{m[0]}", route=c, windowed=windowed,
+            steps=r["steps"], seconds=r["seconds"],
+            tainted=[int(v) for v in np.atleast_2d(
+                r["result"] < IMAX).sum(axis=1)],
+            launches={k: r["launches"].get(k, 0) for k in (
+                "segment_combine_i64", "segment_combine", "halo_pack")}))
     replay_report = []
     for (case, flags), r in zip(replays, res[n_timed:]):
         timed = res[cases.index(case)]
@@ -3819,7 +4235,7 @@ def phase_mesh_ranks(torch, np, columns, log, one, dev):
         torch, np, out[0]["samples"], dev)
     emit("mesh_ranks", ranks=4, backend="gloo", share_card=True,
          staged=out[0]["staged"], spawn_s=spawn_s, runs=report,
-         collective_replays=replay_report,
+         collective_replays=replay_report, taint=taint_report,
          sweep=dict(hops=len(hops), steps=[h["steps"] for h in
                                            sweep_r["hops"]],
                     seconds=sweep_r["seconds"], routes=sweep_r["routes"]),
@@ -4037,6 +4453,11 @@ def main() -> int:
     for k in ("feature_propagate", "feature_propagate_binned"):
         launches[k] = feat_launches[k] or gab_launches[k]
     launches["segment_mode"] = lpa_launches["segment_mode"]
+    # TaintTracking over the occurrence rows: K7 / K7-P on int64
+    taint_launches, taint_entries = timed("taint", phase_taint, torch, np,
+                                          columns, segment, dev)
+    kernels.update(taint_entries)
+    launches.update(taint_launches)
     # slice 7: the mesh path, one rank then 4 ranks on the card
     one = timed("mesh_one", phase_mesh_one, torch, np, columns, log, dev)
     mesh_launches, mesh_entries, mesh = timed(

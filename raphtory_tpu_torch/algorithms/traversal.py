@@ -21,12 +21,15 @@ from ..engine.program import Context, Edges, VertexProgram
 FINF = float("inf")
 
 
-def _member(vids, ids: tuple):
-    """bool[n]: which rows' ids are among ``ids``."""
+def _member(vids: torch.Tensor, ids: tuple) -> torch.Tensor:
+    """bool[n]: which rows' ids are among ``ids`` — one sorted search per
+    row, not an ``[n, len(ids)]`` compare."""
     if not ids:
         return torch.zeros(vids.shape, dtype=torch.bool, device=vids.device)
-    ids_arr = torch.tensor(ids, dtype=vids.dtype, device=vids.device)
-    return (vids[:, None] == ids_arr[None, :]).any(dim=1)
+    table = torch.tensor(sorted(set(int(i) for i in ids)), dtype=vids.dtype,
+                         device=vids.device)
+    pos = torch.searchsorted(table, vids).clamp_(max=table.shape[0] - 1)
+    return table[pos] == vids
 
 
 @dataclass(frozen=True)

@@ -18,7 +18,8 @@ seconds; with ``collectives`` it times each collective
 (``bootstrap.TIMES``, a device sync before and after each). Requests:
 
 * ``sharded`` — ``parallel.sharded.run`` of a program on ``build_view``
-  at ``T`` (``mesh``: ``[S, W]``; ``windows``/``window``; ``comm``);
+  at ``T`` (``mesh``: ``[S, W]``; ``windows``/``window``; ``comm``; the
+  view carries the occurrence rows when the program needs them);
 * ``sweep`` — ``parallel.sweep.ShardedSweep.run`` at each of ``times``;
 * ``columns`` — ``parallel.columns.run_columns_sharded`` over a
   hop-batched engine's host fold columns;
@@ -93,10 +94,12 @@ def _sharded(req, logs, clock):
     from ..core.snapshot import build_view
     from ..parallel import sharded
 
-    view = build_view(logs[req["log"]], int(req["T"]))
     mesh, prog = _mesh(req), _program(req)
+    view = build_view(logs[req["log"]], int(req["T"]),
+                      include_occurrences=prog.needs_occurrences)
     sv = sharded.partition_view(view, mesh.shape[sharded.V_AXIS],
-                                tuple(prog.edge_props))
+                                tuple(prog.edge_props),
+                                occurrences=prog.needs_occurrences)
     with clock():
         res, steps = sharded.run(prog, view, mesh, sharded_view=sv,
                                  comm=req.get("comm", "auto"),

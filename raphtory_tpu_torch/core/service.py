@@ -65,37 +65,50 @@ class TemporalGraph:
     # ---- views (the GraphLens surface) ----
 
     def view_at(self, time: int, *, exact: bool = True,
-                wait_timeout: float = 0.0) -> GraphView:
+                wait_timeout: float = 0.0,
+                include_occurrences: bool = False) -> GraphView:
         """Host snapshot at ``time``. ``exact=True`` enforces the watermark
         fence, polling up to ``wait_timeout`` seconds; ``exact=False``
-        serves a best-effort live view."""
+        serves a best-effort live view. ``include_occurrences`` attaches
+        the occurrence rows (part of the cache key)."""
         if exact and not self.watermarks.wait_for(time,
                                                   timeout=wait_timeout):
             raise StaleViewError(
                 f"view at {time} not yet safe: watermark="
                 f"{self.safe_time()} ({self.watermarks.snapshot()})")
         version = self.log.version
-        key = (version, int(time))
+        key = (version, int(time), bool(include_occurrences))
         with self._cache_lock:
             hit = self._cache.get(key)
             if hit is not None:
                 self._cache.move_to_end(key)
                 return hit
-        view = build_view(self.log, int(time))
-        self.cache_put(int(time), view, version=version)
+        view = build_view(self.log, int(time),
+                          include_occurrences=include_occurrences)
+        self.cache_put(int(time), view, include_occurrences, version=version)
         return view
 
-    def cache_put(self, time: int, view: GraphView, *,
+    def cache_put(self, time: int, view: GraphView,
+                  include_occurrences: bool = False, *,
                   version: int | None = None) -> None:
         """Insert an externally built view (e.g. a SweepBuilder hop) into the
         cache. ``version`` must be the log version the view was BUILT from
         (a sweep's pinned log), not the current one."""
         if version is None:
             version = self.log.version
+        key = (version, int(time), bool(include_occurrences))
         with self._cache_lock:
-            self._cache[(version, int(time))] = view
+            self._cache[key] = view
             while len(self._cache) > self._cache_size:
                 self._cache.popitem(last=False)
+
+    def live_view(self, include_occurrences: bool = False) -> GraphView:
+        """View at the current safe watermark (LiveAnalysisTask semantics:
+        timestamp = min over the sources' watermarks,
+        ``LiveAnalysisTask.scala:55-105``)."""
+        t = min(self.safe_time(), self.latest_time)
+        return self.view_at(t, exact=False,
+                            include_occurrences=include_occurrences)
 
     def resident_acquire(self, time: int):
         """Acquire the shared resident ``DeviceSweep`` for a warm View

@@ -115,6 +115,13 @@ class GraphView:
     out_indptr: np.ndarray          # i32[n_pad+1] CSR over out_order edges
     out_deg: np.ndarray             # i32[n_pad]
     in_deg: np.ndarray              # i32[n_pad]
+    # optional multigraph occurrence arrays (one row per edge-add event of
+    # an edge alive at T; TaintTracking), (dst, src)-sorted like the edges
+    occ_src: np.ndarray | None = None   # i32[o_pad], pad n_pad-1
+    occ_dst: np.ndarray | None = None   # i32[o_pad], pad n_pad-1
+    occ_time: np.ndarray | None = None  # i64[o_pad], pad INT64_MIN
+    occ_mask: np.ndarray | None = None  # bool[o_pad]
+    _occ_rows: np.ndarray | None = field(default=None, repr=False)  # i64[o_pad] log rows, -1 pad
     _log: EventLog | None = field(default=None, repr=False)
     _eadd_rows: np.ndarray | None = field(default=None, repr=False)
     _vadd_rows: np.ndarray | None = field(default=None, repr=False)
@@ -154,6 +161,41 @@ class GraphView:
             keys=(log.column("src")[rows], log.column("dst")[rows]),
             lookup_keys=(gsrc, gdst), default=default,
         )
+
+    def occ_prop(self, name: str, default: float = np.nan) -> np.ndarray:
+        """f64[o_pad]: the property value attached to each occurrence's OWN
+        edge-add event (per-transaction values, e.g. the amount a
+        value-weighted taint gates on) — unlike ``edge_prop``, which folds
+        to the latest value per deduplicated edge
+        (``raphtory_tpu/core/snapshot.py:197``)."""
+        rows = self._occ_rows
+        if rows is None:
+            raise ValueError("view was built without include_occurrences")
+        out = np.full(len(rows), default, np.float64)
+        log = self._log
+        if log is None or name not in log.props._key_ids:
+            return out
+        kid = log.props._key_ids[name]
+        pk = log.props.column("key")
+        sel = (pk == kid) & (log.props.column("tag") == log.props.NUM_TAG)
+        if not sel.any():
+            return out
+        ev = log.props.column("event")[sel]
+        val = log.props.column("num")[sel]
+        order = np.argsort(ev, kind="stable")  # last write per event wins
+        ev, val = ev[order], val[order]
+        pos = np.searchsorted(ev, rows, side="right") - 1
+        ok = (pos >= 0) & (rows >= 0)
+        ok &= ev[np.clip(pos, 0, None)] == rows
+        out[ok] = val[pos[ok]]
+        return out
+
+    def local_index(self, global_ids) -> np.ndarray:
+        """Map global vertex ids → local indices (-1 if absent/padded)."""
+        # vids[:n_active] is sorted ascending by construction
+        return _lex_lookup((self.vids[: self.n_active],),
+                           (np.asarray(global_ids, np.int64),)
+                           ).astype(np.int64)
 
 
 def _materialise_prop(log, rows, name, T, keys, lookup_keys, default):
@@ -242,13 +284,15 @@ def build_view(
     log: EventLog,
     time: int,
     *,
+    include_occurrences: bool = False,
     pad: str = "pow2",
 ) -> GraphView:
     """Fold the event log into a GraphView at `time`.
 
     This is the semantic core: the deterministic multiset fold described in
     ``events.py`` (vertex revive-via-edge-add, vertex-delete → incident edge
-    tombstones, delete-wins tie-break).
+    tombstones, delete-wins tie-break). ``include_occurrences`` attaches
+    the multigraph occurrence rows (``_attach_occurrences``).
     """
     log = log.pin()  # consistent columns; immune to concurrent compaction
     t_all = log.column("time")
@@ -309,10 +353,13 @@ def build_view(
     ae_latest = e_latest_t[e_is_alive]
     ae_first = e_first_t[e_is_alive]
 
+    occ = None
+    if include_occurrences:
+        occ = (rows[is_ea], t[is_ea], s[is_ea], d[is_ea])
     return _assemble_view(
         log, int(time), act_vids, act_latest, act_first,
         ae_s, ae_d, ae_latest, ae_first, pad,
-        rows[is_ea], rows[is_va],
+        rows[is_ea], rows[is_va], occ,
     )
 
 
@@ -332,12 +379,13 @@ def _unique_pairs(s: np.ndarray, d: np.ndarray) -> tuple[np.ndarray, np.ndarray]
 def _assemble_view(
     log, time, act_vids, act_latest, act_first,
     ae_s, ae_d, ae_latest, ae_first, pad,
-    eadd_rows, vadd_rows, locs=None,
+    eadd_rows, vadd_rows, occ=None, locs=None,
 ) -> GraphView:
     """Alive vertex/edge fold state → padded device-ready GraphView.
 
     Shared tail of ``build_view`` and the incremental ``SweepBuilder``
-    (``core/sweep.py``). `locs` is an
+    (``core/sweep.py``); `occ` is (ea_rows, ea_t, ea_s, ea_d) of the
+    in-time edge-add events when occurrence arrays are asked for. `locs` is an
     optional (src_loc, dst_loc, eorder) precomputation: local endpoint
     indices for the alive edges plus the (dst, src) sort permutation — the
     sweep derives these O(1)-ish from its dense dictionary, skipping the
@@ -414,6 +462,8 @@ def _assemble_view(
         _eadd_rows=eadd_rows,
         _vadd_rows=vadd_rows,
     )
+    if occ is not None:
+        _attach_occurrences(view, *occ)
     return view
 
 
@@ -455,3 +505,55 @@ def _indptr(sorted_ids: np.ndarray, n: int) -> np.ndarray:
     indptr = np.zeros(n + 1, np.int32)
     np.cumsum(counts, out=indptr[1:])
     return indptr
+
+
+def _attach_occurrences(view: GraphView, ea_rows, ea_t, ea_s, ea_d,
+                        locs=None) -> None:
+    """Multigraph occurrence arrays (``raphtory_tpu/core/snapshot.py:655``):
+    one row per edge-add event whose edge is alive in the view — the
+    analogue of iterating raw edge history
+    (``VertexVisitor.getOutgoingNeighborsAfter``, ``EdgeVisitor.getTimeAfter``)
+    that temporal algorithms like EthereumTaintTracking read. Rows are
+    (dst, src)-sorted (stable, so equal pairs keep event order); the pad
+    rows have dst = src = n_pad-1, ``occ_mask`` False and ``occ_time``
+    INT64_MIN. ``locs`` is an optional (src_loc, dst_loc) of the events'
+    local endpoint indices (-1 where the vertex is not in the view), which
+    the sweep reads off its dense dictionary instead of searching.
+
+    The reference filters the events by a search of each one's (dst, src)
+    key among the alive edges, then lexsorts the survivors; here the keys
+    are sorted first (a stable sort of the packed key is that lexsort) and
+    searched in order — the same rows in the same order, without the
+    cache misses of unsorted queries."""
+    if locs is None:
+        sl, dl = view.local_index(ea_s), view.local_index(ea_d)
+    else:
+        sl, dl = (np.asarray(a, np.int64) for a in locs)
+    cand = np.flatnonzero((sl >= 0) & (dl >= 0))
+    key = dl[cand] * (view.n_pad + 1) + sl[cand]
+    order = np.argsort(key, kind="stable")
+    cand, key = cand[order], key[order]
+    # restrict to occurrences of edges alive at T
+    key_view = view.e_dst.astype(np.int64) * (view.n_pad + 1) + view.e_src
+    alive_keys = np.sort(key_view[view.e_mask])
+    if len(alive_keys):
+        pos = np.minimum(np.searchsorted(alive_keys, key),
+                         len(alive_keys) - 1)
+        idx = cand[alive_keys[pos] == key]
+    else:
+        idx = cand[:0]
+    o = len(idx)
+    o_pad = _pad_bucket(o)
+    occ_src = np.full(o_pad, view.n_pad - 1, np.int32)
+    occ_dst = np.full(o_pad, view.n_pad - 1, np.int32)
+    occ_time = np.full(o_pad, INT64_MIN, np.int64)
+    occ_mask = np.zeros(o_pad, bool)
+    occ_rows = np.full(o_pad, -1, np.int64)
+    occ_src[:o] = sl[idx]
+    occ_dst[:o] = dl[idx]
+    occ_time[:o] = np.asarray(ea_t)[idx]
+    occ_mask[:o] = True
+    occ_rows[:o] = np.asarray(ea_rows)[idx]
+    view.occ_src, view.occ_dst = occ_src, occ_dst
+    view.occ_time, view.occ_mask = occ_time, occ_mask
+    view._occ_rows = occ_rows

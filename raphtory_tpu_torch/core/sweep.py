@@ -58,9 +58,13 @@ class SweepBuilder:
     overflow the 32-bit pack, it falls back to full ``build_view`` per call.
     """
 
-    def __init__(self, log: EventLog, *, pad: str = "pow2",
-                 track_rows: bool = True, preseed_pairs: bool = False):
+    def __init__(self, log: EventLog, *, include_occurrences: bool = False,
+                 pad: str = "pow2", track_rows: bool = True,
+                 preseed_pairs: bool = False):
+        if include_occurrences and not track_rows:
+            raise ValueError("occurrence views need the add-row lists")
         self.log = log.pin()
+        self.include_occurrences = include_occurrences
         self.pad = pad
         self.track_rows = track_rows
         self._t = self.log.column("time")
@@ -174,7 +178,9 @@ class SweepBuilder:
     def view_at(self, time: int) -> GraphView:
         time = int(time)
         if not self._ok or (self.t_prev is not None and time < self.t_prev):
-            return build_view(self.log, time, pad=self.pad)
+            return build_view(self.log, time,
+                              include_occurrences=self.include_occurrences,
+                              pad=self.pad)
         if self.t_prev is None or time > self.t_prev:
             self._advance(time)
         return self._emit(time)
@@ -380,8 +386,15 @@ class SweepBuilder:
             (dst_loc.astype(np.int64) << _ENC_SHIFT) | src_loc, kind="stable")
         locs = (src_loc, dst_loc, eorder)
 
+        occ = None
+        if self.include_occurrences:
+            rows = self._ea_rows
+            occ = (rows, self._t[rows], self._s[rows], self._d[rows])
+            if self._sd_all is not None:
+                # the events' local endpoints off the dense dictionary
+                occ += ((lut[self._sd_all[rows]], lut[self._dd_all[rows]]),)
         return _assemble_view(
             self.log, time, act_vids, act_latest, act_first,
             ae_s, ae_d, ae_latest, ae_first, self.pad,
-            self._ea_rows, self._va_rows, locs,
+            self._ea_rows, self._va_rows, occ, locs,
         )

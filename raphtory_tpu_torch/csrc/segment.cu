@@ -10,8 +10,10 @@
 //                    (mask[w*m + e] ? x[(w*m + e), f] : neutral)
 //
 // with op in {sum, min, max} and neutral 0 / the type's max (+inf) / the
-// type's min (-inf). Empty and fully masked runs give the neutral value, as
-// the reference's masked segment ops do.
+// type's min (-inf), for float32, int32 and int64 payloads (int64: the
+// taint times of TaintTracking, min-combined, INT64_MAX the neutral).
+// Empty and fully masked runs give the neutral value, as the reference's
+// masked segment ops do.
 //
 // The reference scatters each edge's payload into its segment. Here the
 // edges of a row are found through a CSR over the REAL edges: the
@@ -106,6 +108,15 @@ template <> struct Lim<int32_t> {
     __device__ static int32_t hi() { return INT32_MAX; }
     __device__ static int32_t lo() { return INT32_MIN; }
     __device__ static int32_t add(int32_t a, int32_t b) { return a + b; }
+};
+// TaintTracking's exchange: int64 taint times, IMAX = INT64_MAX the
+// "clean" value. The sum wraps as two's complement, as torch's does.
+template <> struct Lim<int64_t> {
+    __device__ static int64_t hi() { return INT64_MAX; }
+    __device__ static int64_t lo() { return INT64_MIN; }
+    __device__ static int64_t add(int64_t a, int64_t b) {
+        return (int64_t)((uint64_t)a + (uint64_t)b);
+    }
 };
 
 template <typename T, int OP>
@@ -353,14 +364,15 @@ __global__ void segment_mode_kernel(int64_t k, int64_t n, int64_t m,
 
 extern "C" {
 
-// op: 0 sum, 1 min, 2 max; dtype: 0 float32, 1 int32. perm may be null
-// (the destination direction: the CSR runs are the edges themselves).
+// op: 0 sum, 1 min, 2 max; dtype: 0 float32, 1 int32, 2 int64. perm may
+// be null (the destination direction: the CSR runs are the edges
+// themselves).
 int rtpu_segment_combine(int64_t k, int64_t n, int64_t m, int64_t F,
                          int64_t op, int64_t dtype, const void* indptr,
                          const void* perm, const void* x, const void* mask,
                          void* out, void* stream) {
     if (k * n * F == 0) return (int)cudaGetLastError();
-    if (op < 0 || op > 2 || dtype < 0 || dtype > 1)
+    if (op < 0 || op > 2 || dtype < 0 || dtype > 2)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t* ip = static_cast<const int64_t*>(indptr);
@@ -368,8 +380,10 @@ int rtpu_segment_combine(int64_t k, int64_t n, int64_t m, int64_t F,
     const uint8_t* mk = static_cast<const uint8_t*>(mask);
     if (dtype == 0)
         launch<float>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
-    else
+    else if (dtype == 1)
         launch<int32_t>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
+    else
+        launch<int64_t>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
     return (int)cudaGetLastError();
 }
 
@@ -383,7 +397,7 @@ int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
                           const void* valid, const void* x, const void* mask,
                           void* out, void* stream) {
     if (k * n * F == 0) return (int)cudaGetLastError();
-    if (op < 0 || op > 2 || dtype < 0 || dtype > 1)
+    if (op < 0 || op > 2 || dtype < 0 || dtype > 2)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t* ip = static_cast<const int64_t*>(indptr);
@@ -394,8 +408,11 @@ int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
     if (dtype == 0)
         launch_partition<float>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
                                 out, s);
-    else
+    else if (dtype == 1)
         launch_partition<int32_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
+                                  out, s);
+    else
+        launch_partition<int64_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
                                   out, s);
     return (int)cudaGetLastError();
 }

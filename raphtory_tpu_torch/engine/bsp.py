@@ -30,8 +30,11 @@ A ``combiner="custom"`` program reduces its payloads with its own
 ``exchange`` (``program.py``; LabelPropagation's K7-mode ``segment_mode``)
 over the direction's ``SegmentCSR``, on every route, never binned.
 
-Not ported: occurrence programs (``needs_occurrences``, ROADMAP queue 1
-item 4), which raise ``NotImplementedError``.
+An occurrence program (``needs_occurrences``: TaintTracking) runs the same
+superstep over the multigraph of edge-add events instead of the
+deduplicated edge table (``raphtory_tpu/engine/bsp.py:320-327``): the
+view's ``occ_*`` rows are its edges, each with its own event time, and
+its int64 state moves through the int64 instantiations of K7 / K7-P.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.snapshot import INT64_MIN, GraphView
+from ..core.snapshot import INT64_MIN, GraphView, _indptr
 from ..ops import partition as _partition
 from ..ops.resident import unpack_mask_bits
 from ..ops.segment import (PartitionWalk, SegmentCSR, partition_reduce,
@@ -63,14 +66,9 @@ def tree_map(fn, *trees):
 
 
 def check_program(program: VertexProgram) -> None:
-    """Refuse what this engine does not carry yet, naming the ROADMAP
-    item."""
+    """Refuse a combiner this engine does not know."""
     if program.combiner not in _ELEM and program.combiner != "custom":
         raise ValueError(f"unknown combiner {program.combiner!r}")
-    if program.needs_occurrences:
-        raise NotImplementedError(
-            "occurrence programs (needs_occurrences: the multigraph of "
-            "edge-add events) are not ported yet: ROADMAP queue 1 item 4")
 
 
 def _check_custom(program: VertexProgram) -> None:
@@ -196,36 +194,59 @@ def make_mask_runner(program: VertexProgram, n: int, m: int, k: int,
     return run
 
 
-def view_edges(view: GraphView, device) -> DeviceEdges:
+def _occ_count(view: GraphView) -> int:
+    """The real occurrence rows of a view (they lead; the pads follow)."""
+    return int((view._occ_rows >= 0).sum())
+
+
+def view_edges(view: GraphView, device,
+               occurrences: bool = False) -> DeviceEdges:
     """A view's edge tables on ``device``: its (dst, src)-sorted endpoints
     (pads dst = src = n_pad-1), the destination CSR and the source-ordered
-    index over the REAL edges only (the pads stay out of both CSRs)."""
-    m = int(view.m_active)
-    host = (view.e_src, view.e_dst, view.in_indptr.astype(np.int64),
-            view.out_order[:m].astype(np.int32),
-            view.out_indptr.astype(np.int64))
+    index over the REAL edges only (the pads stay out of both CSRs).
+    ``occurrences``: the same over the occurrence rows, whose CSRs the
+    view does not carry (built here from ``occ_dst`` / ``occ_src``)."""
+    if occurrences:
+        o, n = _occ_count(view), view.n_pad
+        src = view.occ_src[:o]
+        host = (view.occ_src, view.occ_dst,
+                _indptr(view.occ_dst[:o], n).astype(np.int64),
+                np.argsort(src, kind="stable").astype(np.int32),
+                _indptr(src, n).astype(np.int64))
+    else:
+        m = int(view.m_active)
+        host = (view.e_src, view.e_dst, view.in_indptr.astype(np.int64),
+                view.out_order[:m].astype(np.int32),
+                view.out_indptr.astype(np.int64))
     return DeviceEdges(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                          for a in host))
 
 
-def _view_layout(view: GraphView):
-    """Destination-binned layout for a view's edge table, or None when
-    ``RTPU_PCPM`` keeps the flat exchange (``raphtory_tpu/engine/bsp.py:
-    255-271``). Knobs are read HERE, at dispatch. ``m`` is the REAL row
-    count: the pad tail must become invalid cap-pad slots, not edges."""
-    return _partition.resolve(
-        view, _partition.HostTables(view.e_src, view.e_dst, view.n_pad,
-                                    int(view.m_active)),
-        _partition.tile_budget_bytes(), tag="e")
+def _view_layout(view: GraphView, occurrences: bool = False):
+    """Destination-binned layout for a view's edge table (or its
+    occurrence rows), or None when ``RTPU_PCPM`` keeps the flat exchange
+    (``raphtory_tpu/engine/bsp.py:255-271``). Knobs are read HERE, at
+    dispatch. ``m`` is the REAL row count: the pad tail must become invalid
+    cap-pad slots, not edges that grow the last partition by the pad
+    count."""
+    if occurrences:
+        tables = _partition.HostTables(view.occ_src, view.occ_dst,
+                                       view.n_pad, _occ_count(view))
+    else:
+        tables = _partition.HostTables(view.e_src, view.e_dst, view.n_pad,
+                                       int(view.m_active))
+    return _partition.resolve(view, tables, _partition.tile_budget_bytes(),
+                              tag="occ" if occurrences else "e")
 
 
 def _gather_props(view: GraphView, keys, kind: str, device) -> dict:
-    out = {}
-    for name in keys:
-        arr = view.edge_prop(name) if kind == "e" else view.vertex_prop(name)
-        out[name] = torch.from_numpy(
-            np.asarray(arr, np.float32)).to(device)
-    return out
+    """Each property as f32 on ``device``: per vertex (``"v"``), per
+    deduplicated edge (``"e"``) or per occurrence, the value of its own
+    event (``"occ"``)."""
+    read = {"v": view.vertex_prop, "e": view.edge_prop,
+            "occ": view.occ_prop}[kind]
+    return {name: torch.from_numpy(np.asarray(read(name), np.float32))
+            .to(device) for name in keys}
 
 
 def run_async(program: VertexProgram, view: GraphView, *,
@@ -250,18 +271,33 @@ def run_async(program: VertexProgram, view: GraphView, *,
         windows = [window if window is not None else -1]
     wlist = normalize_windows(windows)
     k = len(wlist)
-    n_pad, m_pad = view.n_pad, len(view.e_src)
+
+    # an occurrence program's edges are the edge-add events of the edges
+    # alive at T, each with its own time (``getOutgoingNeighborsAfter``,
+    # VertexVisitor.scala:33)
+    occ = program.needs_occurrences
+    if occ:
+        if view.occ_src is None:
+            raise ValueError(
+                "program needs occurrences: build the view with "
+                "include_occurrences=True")
+        e_latest = e_first = view.occ_time
+        e_base_mask = view.occ_mask
+    else:
+        e_latest, e_first = view.e_latest_time, view.e_first_time
+        e_base_mask = view.e_mask
+    n_pad, m_pad = view.n_pad, len(e_base_mask)
 
     v_masks = np.empty((k, n_pad), bool)
     e_masks = np.empty((k, m_pad), bool)
     for i, w in enumerate(wlist):
         if w < 0:
             v_masks[i] = view.v_mask
-            e_masks[i] = view.e_mask
+            e_masks[i] = e_base_mask
         else:
             vm, _ = view.window_masks([w])
             v_masks[i] = vm[0]
-            e_masks[i] = view.e_mask & (view.e_latest_time >= view.time - w)
+            e_masks[i] = e_base_mask & (e_latest >= view.time - w)
 
     def ship_bits(a):
         # bit-packed over the link, unpacked on the device (K8u)
@@ -278,7 +314,7 @@ def run_async(program: VertexProgram, view: GraphView, *,
     # non-TPU branch, bsp.py:350-356)
     binnable = (program.combiner != "custom"
                 and program.direction in ("out", "both"))
-    layout = _view_layout(view) if binnable else None
+    layout = _view_layout(view, occ) if binnable else None
     walk = None
     if layout is not None:
         be = layout.device_edges(device)
@@ -288,10 +324,11 @@ def run_async(program: VertexProgram, view: GraphView, *,
         ship_bits(v_masks), ship_bits(e_masks),
         put(view.vids, program.needs_vids),
         put(view.v_latest_time, needs_vt), put(view.v_first_time, needs_vt),
-        view_edges(view, device),
-        put(view.e_latest_time, needs_et), put(view.e_first_time, needs_et),
+        view_edges(view, device, occ),
+        put(e_latest, needs_et), put(e_first, needs_et),
         int(view.time), wlist,
-        _gather_props(view, program.edge_props, "e", device),
+        _gather_props(view, program.edge_props, "occ" if occ else "e",
+                      device),
         _gather_props(view, program.vertex_props, "v", device))
     if not batched:
         result = tree_map(lambda a: a[0], result)

@@ -10,12 +10,13 @@ from __future__ import annotations
 import numpy as np
 
 from .algorithms import (BFS, SSSP, ConnectedComponents, DegreeBasic,
-                         LabelPropagation, PageRank)
+                         LabelPropagation, PageRank, TaintTracking)
 from .core.events import EventLog
 
 _PROGRAMS = {"PageRank": PageRank, "ConnectedComponents": ConnectedComponents,
              "SSSP": SSSP, "BFS": BFS, "DegreeBasic": DegreeBasic,
-             "LabelPropagation": LabelPropagation}
+             "LabelPropagation": LabelPropagation,
+             "TaintTracking": TaintTracking}
 
 
 def event_log_from_arrays(cols: dict[str, np.ndarray],
@@ -59,7 +60,7 @@ def program_from_params(name: str, **hyper):
     cls = _PROGRAMS.get(name)
     if cls is None:
         raise NotImplementedError(
-            f"program {name!r} is not ported yet: this slice carries "
-            f"{sorted(_PROGRAMS)}; the other algorithms are ROADMAP queue 1 "
-            "item 4")
+            f"program {name!r} is not ported yet: the port carries "
+            f"{sorted(_PROGRAMS)}; DegreeRanking, StarNode, Density, "
+            "FlowGraph and BinaryDiffusion are ROADMAP queue 1 item 4")
     return cls(**hyper)

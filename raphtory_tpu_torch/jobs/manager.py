@@ -27,8 +27,12 @@ route declines, as the reference's does), Range queries try the two
 mesh routes first. Every rank emits the same rows; rank 0's are the
 job's answer.
 
-A Live query and an occurrence program raise ``NotImplementedError`` at
-submit, naming the ROADMAP item that brings them. A failed dispatch fails
+An occurrence program (``needs_occurrences``: TaintTracking) takes the
+cold route: a View folds ``build_view(..., include_occurrences=True)``, a
+Range a ``SweepBuilder(include_occurrences=True)`` hop by hop; the
+columnar, resident and static-partition routes decline it, as the
+reference's do. A Live query raises ``NotImplementedError`` at submit,
+naming the ROADMAP item that brings it. A failed dispatch fails
 the job (``status`` / ``error``): the resident route drops its sweep and
 does NOT fall back to the cold route, and a failed mesh dispatch fails the
 job instead of falling to the next route (the reference falls back).
@@ -175,8 +179,10 @@ class Job:
                 # hop by hop behind the watermark fence (the reference's
                 # RangeAnalysisTask loop, jobs/manager.py:316-340): fold
                 # incrementally when the whole range is already safe
-                sweep = (SweepBuilder(self.graph.log)
-                         if self.graph.safe_time() >= q.end else None)
+                sweep = (SweepBuilder(
+                    self.graph.log,
+                    include_occurrences=self.program.needs_occurrences)
+                    if self.graph.safe_time() >= q.end else None)
                 t = q.start
                 while t <= q.end and not self._kill.is_set():
                     self._run_at(t, q, sweep=sweep)
@@ -192,8 +198,9 @@ class Job:
 
     def _device_engine_ok(self) -> bool:
         """Eligibility of the device-resident engines (warm View, resident
-        Range): no occurrences or property joins (``supported``), and a
-        reducer that accepts the vertex-side shell view."""
+        Range, the mesh's static partition): no occurrences or property
+        joins (``supported``), and a reducer that accepts the vertex-side
+        shell view. Read before any of them builds anything."""
         if not supported(self.program):
             return False
         return (type(self.program).reduce is VertexProgram.reduce
@@ -244,12 +251,15 @@ class Job:
         if sweep is None and self._try_view_resident(t, q):
             return
         t0 = _time.perf_counter()
+        occ = self.program.needs_occurrences
         if sweep is not None:
             view = sweep.view_at(int(t))
-            self.graph.cache_put(int(t), view, version=sweep.log.version)
+            self.graph.cache_put(int(t), view, occ,
+                                 version=sweep.log.version)
         else:
             view = self.graph.view_at(int(t), exact=exact,
-                                      wait_timeout=self.wait_timeout)
+                                      wait_timeout=self.wait_timeout,
+                                      include_occurrences=occ)
         if q.windows is not None:
             result, steps = self._execute(view, windows=list(q.windows))
             result = _to_host(result)

@@ -160,6 +160,7 @@ LAUNCHES = {"masks_from_deltas": 0, "column_masks": 0,
             "column_pull_sum": 0, "pagerank_update": 0,
             "cc_superstep": 0, "minplus_superstep": 0,
             "weights_from_deltas": 0, "segment_combine": 0,
+            "segment_combine_i64": 0, "partition_segment_reduce_i64": 0,
             "apply_delta_chunk": 0, "window_masks": 0,
             "unpack_mask_bits": 0, "bin_masks": 0, "binned_pull_sum": 0,
             "binned_cc_superstep": 0, "binned_minplus_superstep": 0,

@@ -52,7 +52,14 @@ from .columns import _expect, _fn, _launch, _on_cuda, _stream
 
 _OPS = {"sum": 0, "min": 1, "max": 2}
 #: payload dtypes the kernel takes (the twin takes any)
-_KERNEL_DTYPES = {torch.float32: 0, torch.int32: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
+
+
+def _counted(name: str, dtype: torch.dtype) -> str:
+    """The ``LAUNCHES`` key of a K7 / K7-P launch: int64 payloads (the
+    taint exchange) count apart, so a path that needs the int64
+    instantiation shows that it ran."""
+    return f"{name}_i64" if dtype == torch.int64 else name
 
 
 def neutral(op: str, dtype: torch.dtype):
@@ -110,7 +117,8 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     """K7 wrapper (``raphtory_tpu/ops/segment.py:35`` ``segment_combine``,
     as the superstep runner calls it at ``engine/bsp.py:145,152,154``):
     the masked sum/min/max of ``data [k*m, ...]`` per (window, segment),
-    ``[k*n, ...]``. Float32 and int32 payloads on the card."""
+    ``[k*n, ...]``. Float32, int32 and int64 payloads on the card (an
+    int64 launch counts as ``segment_combine_i64``)."""
     name = "segment_combine"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -141,7 +149,7 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
         csr.indptr.data_ptr(),
         None if csr.perm is None else csr.perm.data_ptr(), data.data_ptr(),
         mask.data_ptr(), out.data_ptr(), _stream(data))
-    _launch(name, err)
+    _launch(_counted(name, data.dtype), err)
     return out
 
 
@@ -313,7 +321,8 @@ def partition_reduce_plain(data, walk: PartitionWalk, op: str, mask,
 def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
     """K7-P wrapper: the masked sum/min/max of ``data [k*m, ...]`` over the
     walk's slots of each destination row, per window → ``[k*n, ...]``.
-    Float32 and int32 payloads on the card."""
+    Float32, int32 and int64 payloads on the card (an int64 launch counts
+    as ``partition_segment_reduce_i64``)."""
     name = "partition_segment_reduce"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -347,7 +356,7 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
         None if walk.perm is None else walk.perm.data_ptr(),
         None if walk.valid is None else walk.valid.data_ptr(), data.data_ptr(),
         mask.data_ptr(), out.data_ptr(), _stream(data))
-    _launch(name, err)
+    _launch(_counted(name, data.dtype), err)
     return out
 
 

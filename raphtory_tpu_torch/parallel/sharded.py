@@ -29,9 +29,13 @@ one-card mesh.
 
 ``CollectiveStats`` / ``COLLECTIVES`` keep the reference's accounting of
 what each route moved; the chooser reads its measured frontier density.
+An occurrence program (TaintTracking) runs over the view's occurrence rows:
+``partition_view(..., occurrences=True)`` scatters the multigraph's
+edge-add events, each with its own time and ``occ_prop`` values, into the
+blocks (``sharded.py:595-613``), and its int64 state moves through the
+same all_gather / halo exchange and the int64 K7.
 The reference's tracing, journal, ledger, metrics and mesh-sanitizer hooks
-are not ported (ROADMAP queue 1 items 6-8). Occurrence programs raise
-(``engine/bsp.check_program``).
+are not ported (ROADMAP queue 1 items 6-8).
 """
 
 from __future__ import annotations
@@ -457,6 +461,7 @@ class ShardedView:
     view: GraphView
     d_count: np.ndarray        # i64[S] real slots of each dst block
     s_count: np.ndarray        # i64[S]
+    occurrences: bool = False  # blocks hold occ_* (multigraph) rows
     # halo structures: h_* is the per-(requester, owner) slot capacity;
     # *_h remaps the global ref array into [local | halo] space
     # [0, n_loc + S*h); *_send[S, S*h] is each owner's all_to_all send page
@@ -529,11 +534,14 @@ def _build_halo(idx_g: np.ndarray, n_loc: int, S: int):
 
 
 def partition_view(view: GraphView, n_shards: int,
-                   edge_props: tuple = ()) -> ShardedView:
+                   edge_props: tuple = (),
+                   occurrences: bool = False) -> ShardedView:
     """Range-partition the padded vertex space into contiguous shards and
     scatter edges into per-shard blocks (dst- and src-partitioned), plus
     the halo exchange layout (``sharded.py:588``, bitwise the reference's
-    arrays; the occurrence rows wait for ROADMAP queue 1 item 4)."""
+    arrays). With ``occurrences=True`` the blocks hold the multigraph
+    occurrence rows (per-event times and props) instead of the
+    deduplicated edges."""
     if view.n_pad % n_shards:
         raise ValueError(
             f"vertex shard count {n_shards} must divide the padded vertex "
@@ -541,12 +549,22 @@ def partition_view(view: GraphView, n_shards: int,
     n_loc = view.n_pad // n_shards
     S = n_shards
 
-    act = view.e_mask
-    esrc = view.e_src[act].astype(np.int64)
-    edst = view.e_dst[act].astype(np.int64)
-    etime = view.e_latest_time[act]
-    efirst = view.e_first_time[act]
-    props = {k: view.edge_prop(k)[act] for k in edge_props}
+    if occurrences:
+        if view.occ_src is None:
+            raise ValueError("program needs occurrences: build the view "
+                             "with include_occurrences=True")
+        act = view.occ_mask
+        esrc = view.occ_src[act].astype(np.int64)
+        edst = view.occ_dst[act].astype(np.int64)
+        etime = efirst = view.occ_time[act]
+        props = {k: view.occ_prop(k)[act] for k in edge_props}
+    else:
+        act = view.e_mask
+        esrc = view.e_src[act].astype(np.int64)
+        edst = view.e_dst[act].astype(np.int64)
+        etime = view.e_latest_time[act]
+        efirst = view.e_first_time[act]
+        props = {k: view.edge_prop(k)[act] for k in edge_props}
 
     def _partition(owner_of, local_of, global_of):
         owner = owner_of // n_loc
@@ -598,7 +616,7 @@ def partition_view(view: GraphView, n_shards: int,
         s_time=s_time, s_first=s_first,
         d_props=d_props, s_props=s_props, view=view,
         d_count=shard_counts[0], s_count=shard_counts[1],
-        h_d=h_d, d_src_h=d_src_h, d_send=d_send,
+        occurrences=occurrences, h_d=h_d, d_src_h=d_src_h, d_send=d_send,
         h_s=h_s, s_dst_h=s_dst_h, s_send=s_send,
         skew=skew,
     )
@@ -797,10 +815,13 @@ def run(program: VertexProgram, view: GraphView, mesh: Mesh, *,
     wlist_p = wlist + [wlist[-1]] * (k_pad - k)
     k_loc = k_pad // W
 
+    occurrences = bool(program.needs_occurrences)
     sv = sharded_view
     if (sv is None or sv.n_shards != S or sv.view is not view
+            or sv.occurrences != occurrences
             or not set(program.edge_props) <= set(sv.d_props)):
-        sv = partition_view(view, S, tuple(program.edge_props))
+        sv = partition_view(view, S, tuple(program.edge_props),
+                            occurrences=occurrences)
 
     if comm not in ("auto",) + COMM_ROUTES:
         raise ValueError(

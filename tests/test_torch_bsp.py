@@ -210,8 +210,8 @@ def test_unported_programs_raise():
     """What the port refuses or fails, it refuses or fails as the reference
     does: a custom-combiner program without its own functions raises the
     base class's NotImplementedError in both packages, and with direction
-    'both' the reference's ValueError; occurrence programs are still to
-    port (ROADMAP)."""
+    'both' the reference's ValueError; an occurrence program on a view
+    built without its occurrence rows raises the reference's ValueError."""
     from raphtory_tpu.engine.program import VertexProgram as JVertexProgram
     from raphtory_tpu_torch.engine.program import VertexProgram
 
@@ -230,6 +230,9 @@ def test_unported_programs_raise():
     class Occurrences(VertexProgram):
         needs_occurrences = True
 
+    class JOccurrences(JVertexProgram):
+        needs_occurrences = True
+
     jlog, log = _logs(1)
     view, jview = build_view(log, 50), jbuild_view(jlog, 50)
     with pytest.raises(NotImplementedError):
@@ -245,8 +248,11 @@ def test_unported_programs_raise():
         JCustom().exchange(None, None, 0, None)
     with pytest.raises(NotImplementedError):
         Custom().exchange(None, None, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bsp.run(Occurrences(), view, device="cpu")
+    for run, prog, v, kw in ((jbsp.run, JOccurrences(), jview, {}),
+                             (bsp.run, Occurrences(), view,
+                              {"device": "cpu"})):
+        with pytest.raises(ValueError, match="include_occurrences"):
+            run(prog, v, **kw)
     with pytest.raises(ValueError, match="non-empty"):
         bsp.run(port_program(JCC()), view, windows=[], device="cpu")
 

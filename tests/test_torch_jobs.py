@@ -69,9 +69,10 @@ def test_range_job_matches_reference(jump):
 
 
 def test_unported_queries_raise_and_failures_fail_the_job():
-    """Live queries and occurrence programs are still to port and raise at
-    submit; a custom-combiner program without its own functions, and a
-    Range whose fence never passes, fail the job as the reference's do."""
+    """Live queries are still to port and raise at submit; a
+    custom-combiner program and an occurrence program without their own
+    functions, and a Range whose fence never passes, fail the job as the
+    reference's do."""
     from raphtory_tpu.engine.program import VertexProgram as JVertexProgram
     from raphtory_tpu_torch.engine.program import VertexProgram
 
@@ -84,6 +85,9 @@ def test_unported_queries_raise_and_failures_fail_the_job():
     class Occurrences(VertexProgram):
         needs_occurrences = True
 
+    class JOccurrences(JVertexProgram):
+        needs_occurrences = True
+
     jlog = gab_like_log(50, 200, t_span=100)
     g = TemporalGraph(event_log_from_arrays(jlog.arrays()), device="cpu")
     mgr = AnalysisManager(g, device="cpu")
@@ -92,14 +96,14 @@ def test_unported_queries_raise_and_failures_fail_the_job():
     prog = program_from_params("PageRank")
     with pytest.raises(NotImplementedError, match="Live"):
         mgr.submit(prog, LiveQuery(repeat=1.0))
-    for q in (ViewQuery(timestamp=50), RangeQuery(start=0, end=50, jump=10)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mgr.submit(Occurrences(), q)
-    # the base class's functions raise inside the job, in both packages
+    # the base class's functions raise inside the job, in both packages:
+    # the occurrence program's on the cold route, with its occurrence rows
     for q, jq in ((ViewQuery(timestamp=50), JViewQuery(timestamp=50)),
                   (RangeQuery(start=0, end=50, jump=10),
                    JRangeQuery(start=0, end=50, jump=10))):
-        for m, p, qq in ((mgr, Custom(), q), (jmgr, JCustom(), jq)):
+        for m, p, qq in ((mgr, Custom(), q), (jmgr, JCustom(), jq),
+                         (mgr, Occurrences(), q),
+                         (jmgr, JOccurrences(), jq)):
             job = m.submit(p, qq)
             assert job.wait(60) and job.status == "failed"
             assert "NotImplementedError" in job.error

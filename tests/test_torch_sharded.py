@@ -12,7 +12,10 @@ combiner; the degenerate 1 x 1 mesh in this process. CC and LPA labels
 bitwise with equal steps; PageRank within rtol 1e-5 / atol 1e-7, steps
 equal to the port's single-device ``bsp.run`` and to the reference's but
 for the documented float-noise case (``test_torch_bsp.
-assert_pagerank_steps``). Every rank holds the same result. Also the
+assert_pagerank_steps``). TaintTracking over the occurrence partition
+(int64 state, a stop-list, a value gate) on the same meshes and routes,
+in the same rank group: bitwise the reference's and the port's
+single-device ``bsp.run``, equal steps. Every rank holds the same result. Also the
 host partition (``partition_view``, ``_build_halo``) bitwise, and the
 spawner's failure path.
 
@@ -39,6 +42,7 @@ from test_torch_bsp import assert_pagerank_steps
 from raphtory_tpu.algorithms import ConnectedComponents as JCC
 from raphtory_tpu.algorithms import LabelPropagation as JLPA
 from raphtory_tpu.algorithms import PageRank as JPageRank
+from raphtory_tpu.algorithms import TaintTracking as JTaint
 from raphtory_tpu.core.snapshot import build_view as jbuild_view
 from raphtory_tpu.parallel import sharded as jsharded
 from raphtory_tpu_torch.cluster.bootstrap import _machine, spawn
@@ -59,6 +63,9 @@ PROGRAMS = {"pagerank": JPageRank(max_steps=30, tol=1e-7),
 CASES = [(p, mesh, comm) for p in ("pagerank", "cc")
          for mesh in ((4, 1), (2, 2)) for comm in ("all_gather", "halo")] \
     + [("lpa", (4, 1), "halo"), ("lpa", (2, 2), "all_gather")]
+#: TaintTracking over the occurrence rows: (mesh [S, W], comm, value gate)
+TAINT_CASES = [((4, 1), "halo", False), ((4, 1), "all_gather", True),
+               ((2, 2), "all_gather", False), ((2, 2), "halo", True)]
 
 
 def jax_log(seed=11):
@@ -81,6 +88,19 @@ def spec(jprog):
     return (type(jprog).__name__, dataclasses.asdict(jprog))
 
 
+def taint_prog(value: bool):
+    """The reference's TaintTracking on the test log's own ids: 3 seeds at
+    t 20, a stop-listed vertex and, with ``value``, a gate on each
+    event's ``w``."""
+    view = jbuild_view(jax_log(), T)
+    ids = [int(v) for v in view.vids[:view.n_active]]
+    kw = dict(seeds=tuple(ids[:3]), start_time=20, stop_list=(ids[5],),
+              max_steps=30)
+    if value:
+        kw.update(value_prop="w", min_value=2.0)
+    return JTaint(**kw)
+
+
 def port_prog(jprog):
     name, params = spec(jprog)
     return program_from_params(name, **params)
@@ -95,12 +115,17 @@ def _groups_base() -> Path:
     return Path(tempfile.gettempdir()) / f"rtpu_rank_groups_{run}"
 
 
-def _trace(what: str) -> None:
+def _trace(what: str, error: BaseException | None = None) -> None:
     test = os.environ.get("PYTEST_CURRENT_TEST", "-").split(" ")[0]
     worker = os.environ.get("PYTEST_XDIST_WORKER", "-")
+    lines = [f"{time.strftime('%H:%M:%S')} {worker} {what} {test}: "
+             f"{_machine()}"]
+    if error is not None:
+        # spawn's text: how each rank ended and the tail of its output
+        text = f"{type(error).__name__}: {error}"
+        lines += [f"    | {line}" for line in text.splitlines()]
     with open(f"{_groups_base()}.log", "a") as log:
-        log.write(f"{time.strftime('%H:%M:%S')} {worker} {what} {test}: "
-                  f"{_machine()}\n")
+        log.write("\n".join(lines) + "\n")
 
 
 @contextlib.contextmanager
@@ -110,14 +135,17 @@ def one_group_at_a_time():
     after another. Each group's start and end, with the machine's free
     memory and load, go to ``rtpu_rank_groups_<run>.log`` beside the lock
     in the temp directory: a worker lost inside a group leaves a start
-    with no end, and the memory the machine had left."""
+    with no end, and the memory the machine had left. A group that
+    raised leaves the exception's type and text under its line, each
+    line prefixed ``    | `` (for ``spawn``: each rank's exit and the
+    tail of its output)."""
     with open(f"{_groups_base()}.lock", "w") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             _trace("start")
             yield
-        except BaseException:
-            _trace("raised")
+        except BaseException as error:
+            _trace("raised", error)
             raise
         else:
             _trace("end")
@@ -169,7 +197,35 @@ def ranks():
     reqs = [dict(op="sharded", log="g", T=T, program=spec(PROGRAMS[p]),
                  mesh=mesh, windows=WINDOWS, comm=comm)
             for p, mesh, comm in CASES]
-    return dict(zip(CASES, run_ranks({"g": log_desc(jlog)}, reqs)))
+    reqs += [dict(op="sharded", log="g", T=T, program=spec(taint_prog(value)),
+                  mesh=mesh, windows=WINDOWS, comm=comm)
+             for mesh, comm, value in TAINT_CASES]
+    keys = CASES + [("taint",) + c for c in TAINT_CASES]
+    return dict(zip(keys, run_ranks({"g": log_desc(jlog)}, reqs)))
+
+
+@pytest.mark.parametrize("case", TAINT_CASES, ids=lambda c: f"{c[0][1]}x"
+                         f"{c[0][0]}-{c[1]}{'-value' if c[2] else ''}")
+def test_sharded_taint_matches_reference(ranks, case):
+    """The occurrence partition (``sharded.py:604-613``): int64 taint
+    times through all_gather / halo and the int64 K7, bitwise."""
+    (S, W), comm, value = case
+    got = ranks[("taint",) + case]
+    jlog = jax_log()
+    jprog = taint_prog(value)
+    want, wsteps = jsharded.run(
+        jprog, jbuild_view(jlog, T, include_occurrences=True),
+        jax_mesh(S, W), windows=WINDOWS, comm=comm)
+    single, steps = bsp.run(
+        port_prog(jprog), build_view(port_log(jlog), T,
+                                     include_occurrences=True),
+        windows=WINDOWS, device="cpu")
+    assert got["result"].dtype == np.int64
+    np.testing.assert_array_equal(got["result"], np.asarray(want))
+    np.testing.assert_array_equal(got["result"], single.numpy())
+    assert got["steps"] == steps == int(wsteps)
+    assert got["routes"][f"{comm}/out"]["supersteps"] == got["steps"]
+    assert (got["result"] < np.iinfo(np.int64).max).any()
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-"
@@ -264,22 +320,41 @@ def test_failing_rank_stops_the_group():
 
 def test_rank_groups_leave_a_trace():
     """Every group run under the lock appends its start and its end (or
-    that it raised) with the machine's memory and load to the session's
-    trace."""
+    that it raised, with the exception's type and text) with the
+    machine's memory and load to the session's trace. A failed spawn's
+    text, with each rank's exit and output, is kept whole."""
     log = Path(f"{_groups_base()}.log")
     before = log.read_text() if log.exists() else ""
     with pytest.raises(RuntimeError, match="inside"):
         with one_group_at_a_time():
-            raise RuntimeError("inside")
+            raise RuntimeError("inside\nsecond line")
+    with pytest.raises(RuntimeError, match="failed") as failed:
+        with one_group_at_a_time():
+            spawn("sys:exit", 2, (3,), timeout=60, device="cpu")
     with one_group_at_a_time():
         pass
     new = log.read_text()[len(before):].splitlines()
-    mine = [line for line in new
+    mine = [i for i, line in enumerate(new)
             if "test_rank_groups_leave_a_trace" in line]
-    assert [line.split()[2] for line in mine] == ["start", "raised",
-                                                 "start", "end"]
-    assert all("MemAvailable" in line or "not readable" in line
-               for line in mine)
+    assert [new[i].split()[2] for i in mine] == [
+        "start", "raised", "start", "raised", "start", "end"]
+    assert all("MemAvailable" in new[i] or "not readable" in new[i]
+               for i in mine)
+
+    def text_under(i):
+        # a raised line and its text are one write under the lock; other
+        # workers' groups may write between this test's own groups
+        lines = []
+        for line in new[i + 1:]:
+            if not line.startswith("    | "):
+                break
+            lines.append(line[len("    | "):])
+        return lines
+
+    assert text_under(mine[1]) == ["RuntimeError: inside", "second line"]
+    kept = "\n".join(text_under(mine[3]))
+    assert kept == f"RuntimeError: {failed.value}".rstrip("\n")
+    assert "rank 0 (exit 3)" in kept and "rank 1 (exit 3)" in kept
 
 
 def test_a_rank_killed_from_outside_is_named():
@@ -326,7 +401,9 @@ def test_programs_the_mesh_does_not_carry_raise():
 
     view = build_view(port_log(jax_log()), T)
     mesh = sharded.make_mesh(1, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="occurrence"):
+    # a view without occurrence rows: the reference's ValueError
+    # (``raphtory_tpu/parallel/sharded.py:605-607``)
+    with pytest.raises(ValueError, match="include_occurrences"):
         sharded.run(Occ(), view, mesh)
     with pytest.raises(ValueError, match="custom"):
         sharded.run(CustomBoth(), view, mesh)
