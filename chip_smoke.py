@@ -12,7 +12,10 @@ printing one JSON line:
 3. kernels  — each kernel against its plain PyTorch twin on the card, at
               the shapes of the path that runs it: K1 and K2a bitwise; K2b,
               and K2c's ranks, pull-sum input and dangling mass, within
-              rtol 1e-5 / atol 1e-7; K2c's halting flags exact, and at
+              rtol 1e-5 / atol 1e-7 (K2b also bitwise its twin run on the
+              CPU, which adds in edge order; K2a and K2b at C = 1, 9, 12,
+              36, 129, 300, off alignment, and K2a over a layout's source
+              walk); K2c's halting flags exact, and at
               C = 1, 9, 12, 127, 128, 129, 300 and with an unaligned ``r``
               against its twin, two launches from one state bitwise
               equal; K5 (CC
@@ -75,8 +78,13 @@ printing one JSON line:
               ``run_scale_columns`` (K4, K2); one warm call then two timed
               sweeps; every column finite and summing to 1 +- 1e-4; K4
               and K2a/b/c against their twins at this shape (K4, K2a
-              bitwise; K2c twice from one state bitwise), K2a/b/c timed
-              beside their bounds at this shape. Then a crosscheck on a
+              bitwise; K2c twice from one state bitwise), K2a/b/c and
+              K4's edge and vertex calls timed beside their bounds at
+              this shape (K2b's gathers also counted in 32-byte sectors),
+              K2a beside its library call (``index_add_`` of the int32
+              mask, whole or in 32-column blocks where it does not fit),
+              the source walk's set-up seconds and the largest degrees.
+              Then a crosscheck on a
               30k / 300k stream over the same grid: card against CPU
               (rtol 1e-5 / atol 1e-7, equal steps), and ``run_columns``
               over the bulk host columns (K3) bitwise equal to
@@ -93,9 +101,11 @@ printing one JSON line:
               atol 1e-7); layout specs, build seconds and peak memory.
               ``scale_bulk`` (12) runs its binned part on the same load
               (the layout build, two timed sweeps, bitwise against the
-              unbinned ranks, KB1 and K2b-P against their twins at the
-              scale shape, K2b-P timed beside its table bound and its
-              gather bound with the mask's live share) and its crosscheck
+              unbinned ranks, KB1, K2b-P and K2a over the layout's source
+              walk against their twins at the scale shape, K2b-P bitwise
+              K2b over the same masks, K2b-P and K2a timed, K2b-P beside
+              its table bound and its gather bound with the mask's live
+              share) and its crosscheck
               binned against the CPU; the headline's binned run makes one
               K2b-P launch a superstep.
 14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
@@ -194,12 +204,13 @@ The launch counts are zeroed just before each path's timed run and read
 just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
-With ``--parent DIR`` (another tree of the repo, e.g. an earlier
-commit unpacked with ``git archive``), K2b-P and K2c as DIR's
-``pagerank_columns.cu`` builds them are held against this tree's
-(K2b-P's sums and K2c's primed ``rd`` bitwise, K2c's update within rtol
-1e-5 / atol 1e-7 with equal halting) and timed in turns with them at the
-headline and scale shapes: a ``parent`` line before ``timing``.
+With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
+unpacked with ``git archive``: ``ParentK2`` binds its C entry points),
+K2a, K2b, K2b-P and K2c as DIR's ``pagerank_columns.cu`` builds them are
+held against this tree's (K2a, K2b, K2b-P and K2c's primed ``rd``
+bitwise, K2c's update within rtol 1e-5 / atol 1e-7 with equal halting)
+and timed in turns with them at the headline and scale shapes: a
+``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -271,22 +282,25 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K2b-P and K2c as the tree at DIR builds them
-#: (``ParentK2``), timed in turns with this tree's on the same inputs
+#: with ``--parent DIR``: K2a, K2b, K2b-P and K2c as the tree at DIR
+#: builds them (``ParentK2``), timed in turns with this tree's on the same
+#: inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
 class ParentK2:
-    """``binned_pull_sum`` (K2b-P) and ``pagerank_update`` (K2c) of another
-    tree's ``raphtory_tpu_torch/csrc/pagerank_columns.cu``, through the C
-    entry points they had before their redesign: K2b-P with its bucket
-    buffer (``rtpu_binned_pull_sum(n, C, U, in_indptr, in_order, b_src,
-    slot, u_src, me, rd, vals, agg, stream, launched)``), K2c on a grid of
-    at most 264 blocks along the rows with f32 partials (``gx``, one
-    partial a block). Built with ``columns.build``'s nvcc flags. Its
-    launches count nowhere."""
+    """K2a ``column_out_degree``, K2b ``column_pull_sum``, K2b-P
+    ``binned_pull_sum`` and K2c ``pagerank_update`` of another tree's
+    ``raphtory_tpu_torch/csrc/pagerank_columns.cu``, through the C entry
+    points they had before K2a and K2b were redesigned (the tree of PR 11):
+    K2a ``(m, C, me, src, deg, stream)`` — int32 atomics into a zeroed
+    ``[n, C]`` scratch, which its wrapper then converted to f32, as this
+    class does — K2b ``(n, C, indptr, src, me, rd, agg, stream)``, K2b-P
+    ``(n, C, in_indptr, pairs, me, rd, agg, stream)`` and K2c on
+    ``columns.update_grid`` blocks with f64 partials. Built with
+    ``columns.build``'s nvcc flags. Its launches count nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
@@ -305,32 +319,53 @@ class ParentK2:
                  "-o", str(out), src], check=True, capture_output=True)
         lib = ctypes.CDLL(str(out))
         self._c = columns
+        self._deg = lib.rtpu_column_out_degree
+        self._deg.argtypes = 2 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+        self._flat = lib.rtpu_column_pull_sum
+        self._flat.argtypes = 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p]
         self._pull = lib.rtpu_binned_pull_sum
-        self._pull.argtypes = (3 * [ctypes.c_int64] + 10 * [ctypes.c_void_p]
-                               + [ctypes.POINTER(ctypes.c_int64)])
+        self._pull.argtypes = 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p]
         self._update = lib.rtpu_pagerank_update
         self._update.argtypes = (4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
                                  + 13 * [ctypes.c_void_p])
-        self._pull.restype = self._update.restype = ctypes.c_int
+        for f in (self._deg, self._flat, self._pull, self._update):
+            f.restype = ctypes.c_int
         self._scratch: dict = {}
         self.source = src
 
-    def binned_pull_sum(self, me, rd, be):
-        import ctypes
+    def _ok(self, what: str, err: int) -> None:
+        if err:
+            raise RuntimeError(f"parent {what}: cudaError {err}")
+
+    def column_out_degree(self, me, e_src, n_pad: int):
+        import torch
+
+        m, C = me.shape
+        deg = torch.zeros((n_pad, C), dtype=torch.int32, device=me.device)
+        self._ok("K2a", self._deg(m, C, me.data_ptr(), e_src.data_ptr(),
+                                  deg.data_ptr(), self._c._stream(deg)))
+        return deg.to(torch.float32)
+
+    def column_pull_sum(self, me, rd, e_src, indptr):
         import torch
 
         n, C = rd.shape
         agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
-        vals = torch.empty((be.U, C), dtype=torch.float32, device=rd.device)
-        launched = ctypes.c_int64(0)
-        err = self._pull(n, C, be.U, be.in_indptr.data_ptr(),
-                         be.in_order.data_ptr(), be.b_src.data_ptr(),
-                         be.slot.data_ptr(), be.u_src.data_ptr(),
-                         me.data_ptr(), rd.data_ptr(), vals.data_ptr(),
-                         agg.data_ptr(), self._c._stream(agg),
-                         ctypes.byref(launched))
-        if err:
-            raise RuntimeError(f"parent K2b-P: cudaError {err}")
+        self._ok("K2b", self._flat(n, C, indptr.data_ptr(), e_src.data_ptr(),
+                                   me.data_ptr(), rd.data_ptr(),
+                                   agg.data_ptr(), self._c._stream(agg)))
+        return agg
+
+    def binned_pull_sum(self, me, rd, be):
+        import torch
+
+        n, C = rd.shape
+        agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
+        pairs = self._c.binned_pull_walk(be)
+        self._ok("K2b-P", self._pull(n, C, be.in_indptr.data_ptr(),
+                                     pairs.data_ptr(), me.data_ptr(),
+                                     rd.data_ptr(), agg.data_ptr(),
+                                     self._c._stream(agg)))
         return agg
 
     def pagerank_update(self, st, agg, deg, mv, n_act, damping: float,
@@ -338,24 +373,22 @@ class ParentK2:
         import torch
 
         n, C = st.r.shape
-        gx = max(1, min(-(-n // (256 // max(1, min(C, 256)))), 264))
+        gx = self._c.update_grid(n, C)
         key = (gx, C, st.r.device)
         if key not in self._scratch:
             dev = st.r.device
             self._scratch[key] = (
-                torch.empty((gx, C), dtype=torch.float32, device=dev),
+                torch.empty((gx, C), dtype=torch.float64, device=dev),
                 torch.empty((gx, C), dtype=torch.int32, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
         part, busy, ticket = self._scratch[key]
-        err = self._update(
+        self._ok("K2c", self._update(
             n, C, gx, int(bool(prime)), 1.0 - damping, damping, tol,
             None if prime else agg.data_ptr(), deg.data_ptr(),
             mv.data_ptr(), n_act.data_ptr(), st.r.data_ptr(),
             st.rd.data_ptr(), st.dangling.data_ptr(), st.halted.data_ptr(),
             st.done.data_ptr(), part.data_ptr(), busy.data_ptr(),
-            ticket.data_ptr(), self._c._stream(st.r))
-        if err:
-            raise RuntimeError(f"parent K2c: cudaError {err}")
+            ticket.data_ptr(), self._c._stream(st.r)))
 
 
 def vs_parent(torch, key: str, new, old, iters: int = 20, **facts) -> None:
@@ -455,33 +488,31 @@ def phase_kernels(torch, np, columns, tables, dev):
         shape=f"edges len={m_pad} H={H} W={W} U=16384 int32 h0",
         **dict(zip(("bound_ms", "bound_by"), bound(k1_bytes))))
 
-    # ---- K2: the headline's real (dst, src)-sorted edge tables
-    e_src, e_dst, indptr = (torch.from_numpy(a).to(dev) for a in
-                            (tables.e_src, tables.e_dst, tables.in_indptr))
+    # ---- K2: the headline's real (dst, src)-sorted edge tables, and
+    # their source walk (K2a's)
+    e_src, e_dst, indptr, out_indptr, out_perm = (
+        torch.from_numpy(a).to(dev) for a in (
+            tables.e_src, tables.e_dst, tables.in_indptr, tables.out_indptr,
+            tables.out_perm))
+    walk = (out_indptr, out_perm)
+    m = tables.m
     me_np = rng.random((m_pad, C)) < 0.6
     me_np[:, 0] = False                     # an all-masked column
-    me_np[tables.m:] = False                # pad edges carry no mask
+    me_np[m:] = False                       # pad edges carry no mask
     me = torch.from_numpy(me_np).to(dev)
-    deg = columns.column_out_degree(me, e_src, n_pad)
+    deg = columns.column_out_degree(me, e_src, n_pad, walk)
     want = columns.column_out_degree_plain(me, e_src, n_pad)
     a_err = float((deg - want).abs().max())
     if not torch.equal(deg, want):
         raise AssertionError(f"K2a differs from its twin: max abs err "
                              f"{a_err}")
     mef = me.to(torch.float32)
-    a_ms = cuda_ms(torch, lambda: columns.column_out_degree(me, e_src, n_pad))
+    a_ms = cuda_ms(torch, lambda: columns.column_out_degree(me, e_src, n_pad,
+                                                            walk))
     a_plain = cuda_ms(torch, lambda: columns.column_out_degree_plain(
         me, e_src, n_pad))
     a_lib = cuda_ms(torch, lambda: torch.zeros(
         (n_pad, C), dtype=torch.float32, device=dev).index_add_(0, e_src, mef))
-    out["column_out_degree"] = dict(
-        source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
-        replaces="raphtory_tpu/engine/hopbatch.py:154",
-        max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
-        columns=C, shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(m_pad * C + m_pad * 4 + n_pad * C * 4))))
-
     rd = torch.from_numpy(
         (rng.random((n_pad, C)) * 1e-4).astype(np.float32)).to(dev)
     got = columns.column_pull_sum(me, rd, e_src, e_dst, indptr)
@@ -490,20 +521,47 @@ def phase_kernels(torch, np, columns, tables, dev):
     if bool((err > 1e-7 + 1e-5 * want.abs()).any()):
         raise AssertionError(f"K2b differs from its twin: max abs err "
                              f"{float(err.max())}")
+    # the twin on the CPU adds in edge order, as the kernel does
+    if not torch.equal(got.cpu(), columns.column_pull_sum_plain(
+            me.cpu(), rd.cpu(), e_src.cpu(), e_dst.cpu())):
+        raise AssertionError("K2b differs from its twin run on the CPU")
     b_ms = cuda_ms(torch, lambda: columns.column_pull_sum(
         me, rd, e_src, e_dst, indptr))
     b_plain = cuda_ms(torch, lambda: columns.column_pull_sum_plain(
         me, rd, e_src, e_dst))
+    if PARENT is not None:
+        if not torch.equal(PARENT.column_out_degree(me, e_src, n_pad), deg):
+            raise AssertionError("K2a differs from the parent's")
+        if not torch.equal(PARENT.column_pull_sum(me, rd, e_src, indptr),
+                           got):
+            raise AssertionError("K2b differs from the parent's")
+        shape = f"m_pad={m_pad} n_pad={n_pad} C={C}"
+        vs_parent(torch, "column_out_degree headline",
+                  lambda: columns.column_out_degree(me, e_src, n_pad, walk),
+                  lambda: PARENT.column_out_degree(me, e_src, n_pad),
+                  shape=shape)
+        vs_parent(torch, "column_pull_sum headline",
+                  lambda: columns.column_pull_sum(me, rd, e_src, e_dst,
+                                                  indptr),
+                  lambda: PARENT.column_pull_sum(me, rd, e_src, indptr),
+                  shape=shape)
+    edge = k2_edge_cases(torch, np, columns, tables, dev)
+    out["column_out_degree"] = dict(
+        source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
+        replaces="raphtory_tpu/engine/hopbatch.py:154",
+        max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=a_lib,
+        columns=C, shape=f"m_pad={m_pad} m={m} n_pad={n_pad} C={C}",
+        edge_cases=edge,
+        **dict(zip(("bound_ms", "bound_by"), k2a_bound(m, n_pad, C))))
     # the kernel walks the m real edges of the CSR (the pads lie past it)
-    m = tables.m
     out["column_pull_sum"] = dict(
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:154",
         max_abs_err=float(err.max()), ms=b_ms, plain_ms=b_plain,
-        library_ms=None, columns=C, shape=f"m_pad={m_pad} n_pad={n_pad} C={C}",
+        library_ms=None, columns=C, edge_cases=edge,
+        shape=f"m_pad={m_pad} m={m} n_pad={n_pad} C={C}",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(m * C + m * 4 + (n_pad + 1) * 8
-                         + 2 * n_pad * C * 4, int(me_np.sum())))))
+                   k2b_bound(m, n_pad, C, int(me_np.sum())))))
 
     # ---- K2c: the superstep update, on the real out-degrees; column 1
     # has no alive vertex (halts at once), column 2 is already frozen; a
@@ -604,6 +662,121 @@ def k2bp_bound(m: int, n: int, C: int, nnz: int) -> tuple[float, str]:
     walk pairs, the walk's offsets, rd, and agg written once; one add per
     masked (slot, column)."""
     return bound(m * C + m * 8 + (n + 1) * 8 + 2 * n * C * 4, nnz)
+
+
+def k2a_bound(m: int, n: int, C: int) -> tuple[float, str]:
+    """K2a's bound: the m real edges' mask rows, the source walk (4 bytes
+    an edge and the offsets) read once, deg (f32) written once."""
+    return bound(m * C + m * 4 + (n + 1) * 8 + n * C * 4)
+
+
+def k2b_bound(m: int, n: int, C: int, nnz: int) -> tuple[float, str]:
+    """K2b's bound, its inputs read once: the m real edges' mask rows and
+    source ids, the CSR offsets, rd, and agg written once; one add per
+    masked (edge, column)."""
+    return bound(m * C + m * 4 + (n + 1) * 8 + 2 * n * C * 4, nnz)
+
+
+def gather_bounds(torch, me, m: int, n: int, C: int, walk_bytes: int):
+    """The pull-sum's gather bounds on these masks (``me [rows, C]`` bool,
+    every row but the m real ones masked): every live (edge, 4-column
+    group) reads its 16 bytes of rd from HBM — at the scale shape rd is far
+    past the L2 — beside the m mask rows, the walk (``walk_bytes`` an
+    entry), the offsets and agg; the same counted in the 32-byte sectors
+    the groups fall in. Returns the two bounds (ms) and the live shares."""
+    groups = int((me.view(torch.int32) != 0).sum())
+    sectors = int((me.view(torch.int64) != 0).sum())
+    rest = m * C + m * walk_bytes + (n + 1) * 8 + n * C * 4
+    return dict(gather_bound_ms=bound(rest + 16 * groups)[0],
+                gather_sector_bound_ms=bound(rest + 32 * sectors)[0],
+                live_share=groups / (m * C / 4),
+                live_sector_share=sectors / (m * C / 8))
+
+
+def k2_edge_cases(torch, np, columns, tables, dev) -> dict:
+    """K2a and K2b on the headline tables at C = 1, 9, 12, 36, 129, 300:
+    K2a bitwise its twin, K2b bitwise its twin run on the CPU (edge order)
+    and within rtol 1e-5 / atol 1e-7 of it on the card; at C 36 each also
+    with ``me`` (and K2b's ``rd``) off their alignment (the per-element
+    path), bitwise the aligned call; and K2a on binned masks over a
+    layout's source walk (P 16, cap-pad slots) bitwise its twin. Returns
+    each case's max abs error against the card twin."""
+    from raphtory_tpu_torch.ops import partition
+
+    rng = np.random.default_rng(13)
+    n_pad, m_pad, m = tables.n_pad, tables.m_pad, tables.m
+    e_src, e_dst, indptr, out_indptr, out_perm = (
+        torch.from_numpy(a).to(dev) for a in (
+            tables.e_src, tables.e_dst, tables.in_indptr, tables.out_indptr,
+            tables.out_perm))
+    walk = (out_indptr, out_perm)
+
+    def offset(t):
+        """A copy of ``t`` at one element past an aligned address."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        o = buf[1:].view(t.shape)
+        o.copy_(t)
+        return o
+
+    errs = {}
+    for C in (1, 9, 12, 36, 129, 300):
+        me_np = rng.random((m_pad, C)) < 0.5
+        me_np[m:] = False
+        me = torch.from_numpy(me_np).to(dev)
+        rd = torch.from_numpy((rng.random((n_pad, C)) * 1e-4).astype(
+            np.float32)).to(dev)
+        deg = columns.column_out_degree(me, e_src, n_pad, walk)
+        if not torch.equal(deg, columns.column_out_degree_plain(me, e_src,
+                                                                n_pad)):
+            raise AssertionError(f"K2a C={C} differs from its twin")
+        agg = columns.column_pull_sum(me, rd, e_src, e_dst, indptr)
+        want = columns.column_pull_sum_plain(me, rd, e_src, e_dst)
+        if not (within_tol(agg, want) and torch.equal(
+                agg.cpu(), columns.column_pull_sum_plain(
+                    me.cpu(), rd.cpu(), e_src.cpu(), e_dst.cpu()))):
+            raise AssertionError(f"K2b C={C} differs from its twin")
+        errs[f"C={C}"] = exact_err(agg, want)
+        if C == 36:
+            mo, ro = offset(me), offset(rd)
+            if not (torch.equal(columns.column_out_degree(
+                    mo, e_src, n_pad, walk), deg)
+                    and torch.equal(columns.column_pull_sum(
+                        mo, ro, e_src, e_dst, indptr), agg)):
+                raise AssertionError("K2a / K2b off alignment differ from "
+                                     "the aligned call")
+            errs["C=36 offset"] = errs["C=36"]
+    lay = partition.build_layout(tables.e_src, tables.e_dst, n_pad, m, 16)
+    be = lay.device_edges(dev, reverse=True)
+    me_b = torch.from_numpy((rng.random((lay.B, 12)) < 0.5)
+                            & lay.valid[:, None]).to(dev)
+    if not torch.equal(columns.column_out_degree(
+            me_b, be.b_src, n_pad, (be.out_indptr, be.out_order)),
+            columns.column_out_degree_plain(me_b, be.b_src, n_pad)):
+        raise AssertionError("K2a over a layout's source walk differs from "
+                             "its twin")
+    errs["binned C=12 P=16"] = 0.0
+    return errs
+
+
+def k2a_library_ms(torch, me, e_src, n_pad: int) -> tuple[float, str]:
+    """One PyTorch call for K2a's function (never called by the port):
+    ``index_add_`` of the int32 mask into a zeroed int32 ``[n_pad, C]``,
+    then ``.to(float32)``, the int32 mask made beforehand. That mask is 4
+    bytes a mask byte (17 GB at the scale shape): where it does not fit in
+    the card's free memory beside the phase's tensors, the call is timed
+    in 32-column blocks and their times summed. Returns (ms, "whole" or
+    "32-column blocks")."""
+    m, C = me.shape
+    whole = m * C * 4 + n_pad * C * 8 + (2 << 30) < torch.cuda.mem_get_info()[0]
+    total = 0.0
+    for c in ((0,) if whole else range(0, C, 32)):
+        mi = (me if whole else me[:, c:c + 32]).to(torch.int32)
+        k = mi.shape[1]
+        total += cuda_ms(torch, lambda: torch.zeros(
+            (n_pad, k), dtype=torch.int32, device=me.device).index_add_(
+                0, e_src, mi).to(torch.float32), iters=3)
+        del mi
+    return total, "whole" if whole else "32-column blocks"
 
 
 def repeat_bitwise(torch, columns, st, agg, deg, mv, n_act, tol,
@@ -923,7 +1096,8 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
                 ro = buf[1:].view(rk.shape)
                 ro.copy_(rk)
                 ok = ok and torch.equal(columns.binned_pull_sum(mk_b, ro, bb),
-                                        got)
+                                        got) and torch.equal(
+                    columns.column_pull_sum(mk, ro, *flat_edges), got)
             if not ok:
                 raise AssertionError(f"K2b-P ({what}, C={Ck}) differs from "
                                      "K2b over the same masks")
@@ -2245,6 +2419,22 @@ def phase_scale_bulk(torch, np, columns, dev):
               prepared=prepare_scale_payload(d_e, d_v, hops, windows,
                                              device=dev))
     base_e, base_v = (torch.from_numpy(a).to(dev) for a in (base_e, base_v))
+    # K2a's source walk over the bulk graph: built on the card at the
+    # first sweep's first call (here, so that its time shows apart) and
+    # checked there once; both cached with the edge table
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e_src = kw["edges"][0]
+    walk = columns.source_walk(e_src, bulk.m, bulk.n_pad)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    columns._check_walk("column_out_degree", e_src, walk, bulk.n_pad)
+    walk_check_s = time.perf_counter() - t1
+    skew = dict(
+        max_out_degree=int((walk[0][1:] - walk[0][:-1]).max()),
+        max_in_degree=int((kw["edges"][2][1:] - kw["edges"][2][:-1]).max()),
+        mean_degree=bulk.m / bulk.n)
 
     def sweep():
         return run_scale_columns(bulk, base_e, base_v, d_e, d_v, hops,
@@ -2309,10 +2499,11 @@ def phase_scale_bulk(torch, np, columns, dev):
                                  f"at the scale shape: max abs err "
                                  f"{errs[name]}")
 
-    deg = columns.column_out_degree(me, e_src, bulk.n_pad)
+    n_pad, m_pad, m = bulk.n_pad, bulk.m_pad, bulk.m
+    deg = columns.column_out_degree(me, e_src, n_pad, walk)
     if not torch.equal(deg, by_columns(
             lambda s: columns.column_out_degree_plain(me[:, s], e_src,
-                                                      bulk.n_pad))):
+                                                      n_pad))):
         raise AssertionError("scale_bulk: K2a differs from its twin at the "
                              "scale shape")
     errs["column_out_degree"] = 0.0
@@ -2339,13 +2530,56 @@ def phase_scale_bulk(torch, np, columns, dev):
     del st_p, r0, states
     repeat_bitwise(torch, columns, st, agg, deg, mv, n_act, 0.0,
                    "K2c at the scale shape")
+    # K2b's input: the updated state's rd (agg above read the primed one)
+    rd = st.rd.clone()
+    agg = columns.column_pull_sum(me, rd, e_src, e_dst, indptr)
     k2a_ms = cuda_ms(torch, lambda: columns.column_out_degree(
-        me, e_src, bulk.n_pad), iters=3)
+        me, e_src, n_pad, walk), iters=3)
     k2b_ms = cuda_ms(torch, lambda: columns.column_pull_sum(
-        me, st.rd, e_src, e_dst, indptr), iters=3)
+        me, rd, e_src, e_dst, indptr), iters=3)
     k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
         st, agg, deg, mv, n_act, 0.85, 0.0), iters=3)
+    # K4's two calls alone on this payload: the edge table's and (no run
+    # had timed it) the vertex table's
+    U_e, U_v = prep[0], prep[1]
+    k4 = dict(
+        k4_edge_ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
+            base_e, *prep[2:4], prep[6], H, W), iters=3),
+        k4_edge_bound_ms=bound(m_pad * 4 + H * U_e * 8 + C * 4
+                               + m_pad * C)[0],
+        k4_vertex_ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
+            base_v, *prep[4:7], H, W), iters=3),
+        k4_vertex_bound_ms=bound(n_pad * 4 + H * U_v * 8 + C * 4
+                                 + n_pad * C)[0])
+    # the bounds at this shape (inputs read once, outputs written once;
+    # K2b's gathers also counted, as K2b-P's, on these masks)
+    k2_bounds = dict(
+        k2a_bound_ms=k2a_bound(m, n_pad, C)[0],
+        k2b_bound_ms=k2b_bound(m, n_pad, C, 0)[0],
+        k2c_bound_ms=k2c_bound(n_pad, C)[0],
+        **{f"k2b_{k}": v for k, v in gather_bounds(
+            torch, me, m, n_pad, C, 4).items()})
+    k2a_lib_ms, k2a_lib_by = k2a_library_ms(torch, me, e_src, n_pad)
     if PARENT is not None:
+        if not torch.equal(PARENT.column_out_degree(me, e_src, n_pad), deg):
+            raise AssertionError("scale_bulk: K2a differs from the parent's")
+        if not torch.equal(PARENT.column_pull_sum(me, rd, e_src, indptr),
+                           agg):
+            raise AssertionError("scale_bulk: K2b differs from the parent's")
+        shape = f"m_pad={m_pad} m={m} n_pad={n_pad} C={C}"
+        vs_parent(torch, "column_out_degree scale",
+                  lambda: columns.column_out_degree(me, e_src, n_pad, walk),
+                  lambda: PARENT.column_out_degree(me, e_src, n_pad),
+                  iters=3, shape=shape, bound_ms=k2_bounds["k2a_bound_ms"],
+                  library_ms=k2a_lib_ms, library_by=k2a_lib_by)
+        vs_parent(torch, "column_pull_sum scale",
+                  lambda: columns.column_pull_sum(me, rd, e_src, e_dst,
+                                                  indptr),
+                  lambda: PARENT.column_pull_sum(me, rd, e_src, indptr),
+                  iters=3, shape=shape,
+                  bound_ms=k2_bounds["k2b_bound_ms"],
+                  gather_sector_bound_ms=k2_bounds[
+                      "k2b_gather_sector_bound_ms"])
         st_o = columns.rank_state(st.r.clone())
         PARENT.pagerank_update(st_o, None, deg, mv, n_act, 0.85, 0.0,
                                prime=True)
@@ -2353,25 +2587,20 @@ def phase_scale_bulk(torch, np, columns, dev):
             columns.pagerank_update(st, agg, deg, mv, n_act, 0.85, 0.0)),
             lambda: PARENT.pagerank_update(st_o, agg, deg, mv, n_act, 0.85,
                                            0.0),
-            iters=3, shape=f"n={bulk.n_pad} C={C}",
-            bound_ms=k2c_bound(bulk.n_pad, C)[0])
+            iters=3, shape=f"n={n_pad} C={C}",
+            bound_ms=k2c_bound(n_pad, C)[0])
         del st_o
-    # the bounds at this shape (inputs read once, outputs written once)
-    m_pad, n_pad = bulk.m_pad, bulk.n_pad
-    k2_bounds = dict(
-        k2a_bound_ms=bound(m_pad * C + m_pad * 4 + n_pad * C * 4)[0],
-        k2b_bound_ms=bound(bulk.m * C + bulk.m * 4 + (n_pad + 1) * 8
-                           + 2 * n_pad * C * 4)[0],
-        k2c_bound_ms=k2c_bound(n_pad, C)[0])
-    del me, mv, deg, st, agg
+    del me, mv, deg, st, agg, rd
     best = min(reps)
-    emit("scale_bulk", n_edge_events=1 << 25, n=bulk.n, m=bulk.m,
-         n_pad=bulk.n_pad, m_pad=bulk.m_pad, hops=H, windows=W,
-         views=n_views, U_e=kw["prepared"][0], U_v=kw["prepared"][1],
-         gen_s=gen_s, bulk_s=bulk_s, setup_s=setup_s, sweep_s=best,
+    emit("scale_bulk", n_edge_events=1 << 25, n=bulk.n, m=m, n_pad=n_pad,
+         m_pad=m_pad, hops=H, windows=W, views=n_views, U_e=U_e, U_v=U_v,
+         gen_s=gen_s, bulk_s=bulk_s, setup_s=setup_s,
+         source_walk_s=walk_s, source_walk_check_s=walk_check_s,
+         source_walk_bytes=m * 4 + (n_pad + 1) * 8, **skew, sweep_s=best,
          repeat_sweep_s=reps, views_per_s=n_views / best, supersteps=steps,
-         k2a_ms_per_call=k2a_ms, k2b_ms_per_superstep=k2b_ms,
-         k2c_ms_per_superstep=k2c_ms, **k2_bounds,
+         k2a_ms_per_call=k2a_ms, k2a_library_ms=k2a_lib_ms,
+         k2a_library_by=k2a_lib_by, k2b_ms_per_superstep=k2b_ms,
+         k2c_ms_per_superstep=k2c_ms, **k2_bounds, **k4,
          peak_device_bytes=peak, launches=launches,
          max_abs_err_vs_twins=errs)
     pcpm_launches, pcpm_errs = scale_bulk_pcpm(
@@ -2460,7 +2689,9 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
             raise AssertionError("scale_bulk: the bulk table does not bin "
                                  "under auto")
         t0 = time.perf_counter()
-        be = lay.device_edges(kw["device"])
+        lay.walk(True)                 # K2a's source walk of the layout
+        rev_walk_s = time.perf_counter() - t0
+        be = lay.device_edges(kw["device"], reverse=True)
         warm, _ = sweep()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -2505,23 +2736,35 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
         raise AssertionError(f"scale_bulk pcpm: K2b-P differs from its twin "
                              f"at the scale shape: {errs['binned_pull_sum']}")
     del want, err
+    # K2b over the same masks in engine order: bitwise K2b-P
+    e_src, e_dst, indptr = kw["edges"]
+    me_flat = columns.scale_hop_masks(base_e, *prep[2:4], prep[6], H, W)
+    if not torch.equal(columns.column_pull_sum(me_flat, rd, e_src, e_dst,
+                                               indptr), agg):
+        raise AssertionError("scale_bulk pcpm: K2b-P differs from K2b over "
+                             "the same masks at the scale shape")
+    del me_flat
+    # K2a on the binned masks, over the layout's source walk
+    bwalk = (be.out_indptr, be.out_order)
+    deg = columns.column_out_degree(me, be.b_src, bulk.n_pad, bwalk)
+    if not torch.equal(deg, torch.cat([columns.column_out_degree_plain(
+            me[:, c:c + 32], be.b_src, bulk.n_pad) for c in range(0, C, 32)],
+            dim=1)):
+        raise AssertionError("scale_bulk pcpm: K2a over the layout's source "
+                             "walk differs from its twin")
+    del deg
+    errs["column_out_degree"] = 0.0
+    k2a_ms = cuda_ms(torch, lambda: columns.column_out_degree(
+        me, be.b_src, bulk.n_pad, bwalk), iters=3)
     k2bp_ms = cuda_ms(torch, lambda: columns.binned_pull_sum(me, rd, be),
                       iters=3)
-    # the bounds: the table's (inputs read once) and the gather's — every
-    # live (slot, 4-column group) reads its 16 bytes of rd from HBM (rd is
-    # 2.7 GB, far past the L2), beside the mask rows, pairs, offsets and
-    # agg; the same counted in the 32-byte sectors the groups fall in
+    # the bounds: the table's (inputs read once) and the gathers' (the
+    # cap-pad rows are masked, so the binned masks count as the m real
+    # slots'), with the 8-byte walk pairs
     real, n_pad = bulk.m, bulk.n_pad
-    groups = int((me.view(torch.int32) != 0).sum())
-    sectors = int((me.view(torch.int64) != 0).sum())
-    nnz = int(me.sum())
-    rest = real * C + real * 8 + (n_pad + 1) * 8 + n_pad * C * 4
-    k2bp = dict(
-        k2bp_bound_ms=k2bp_bound(real, n_pad, C, nnz)[0],
-        k2bp_gather_bound_ms=bound(rest + 16 * groups)[0],
-        k2bp_gather_sector_bound_ms=bound(rest + 32 * sectors)[0],
-        k2bp_live_share=groups / (real * C / 4),
-        k2bp_live_sector_share=sectors / (real * C / 8))
+    k2bp = dict(k2bp_bound_ms=k2bp_bound(real, n_pad, C, int(me.sum()))[0],
+                **{f"k2bp_{k}": v for k, v in gather_bounds(
+                    torch, me, real, n_pad, C, 8).items()})
     if PARENT is not None:
         if not torch.equal(PARENT.binned_pull_sum(me, rd, be), agg):
             raise AssertionError("scale_bulk pcpm: K2b-P differs from the "
@@ -2534,9 +2777,10 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     best = min(reps)
     PHASE_S["scale_bulk_pcpm"] = time.perf_counter() - t_phase
     emit("scale_bulk_pcpm", spec=spec_of(lay), layout_build_s=layout_build_s,
-         setup_s=setup_s, sweep_s=best, repeat_sweep_s=reps,
-         views_per_s=C / best, supersteps=steps,
-         k2bp_ms_per_superstep=k2bp_ms, **k2bp, peak_device_bytes=peak,
+         source_walk_s=rev_walk_s, setup_s=setup_s, sweep_s=best,
+         repeat_sweep_s=reps, views_per_s=C / best, supersteps=steps,
+         k2a_ms_per_call=k2a_ms, k2bp_ms_per_superstep=k2bp_ms, **k2bp,
+         bitwise_vs_k2b=True, peak_device_bytes=peak,
          launches=launches, bitwise_vs_unbinned=True,
          max_abs_err_vs_twins=errs)
     return launches, errs

@@ -10,24 +10,39 @@
 // in one row they would serialise that row's threads for m_pad - m edges.
 //
 // K2a `rtpu_column_out_degree`, once per dispatch:
-//     deg[src[e], c] += me[e, c]
-// over unsorted sources, with int32 atomics into a zeroed [n_pad, C]
-// scratch the wrapper converts to f32. Counts are integers, so the result
-// is exact and deterministic whatever order the atomics land in — the same
-// values as JAX's f32 segment-sum of 0/1 (exact below 2^24).
+//     deg[v, c] = number of e with src[e] = v and me[e, c]
+// over a SOURCE walk (`out_indptr [n+1]`, `out_order [m]`): each source
+// row's real edge rows, one contiguous run a row (GlobalTables' `out_perm`,
+// a layout's `walk(reverse=True)`, or the bulk graph's stable sort of its
+// sources, ops/columns.py `source_walk`). The reference scatter-adds 0/1
+// into a segment-sum by source; edges are (dst, src)-sorted, so a scatter
+// hits source rows at random, and at the scale shape the [n_pad, C] counts
+// (2.7 GB) are far past the L2: the parent kernel's int32 atomics paid a
+// DRAM read and write-back a live sector, into a zero-filled scratch that
+// a second pass converted to f32 (18.2 ms against a 2.13 ms bound). Walked
+// by source, the count is a gather: a group of lanes owns a source row, 4
+// columns a lane, and reads each out-edge's mask row (one 128-byte line at
+// C 128, a 32-bit word a lane) with kDegBatch (8) entries in flight, counts
+// in registers, and writes its f32 counts once (16-byte stores): no
+// atomics, no scratch, no conversion pass. Counts are integers below 2^24,
+// so the f32 result is exact in any order — the bits of JAX's f32
+// segment-sum of 0/1. A source with a very large out-degree serialises its
+// group, as a large in-degree does K2b's.
 //
 // K2b `rtpu_column_pull_sum`, once per superstep:
 //     agg[d, c] = sum over e in [indptr[d], indptr[d+1]) of
 //                 (me[e, c] ? rd[src[e], c] : 0)
-// over the destination CSR. One thread per (d, c): neighbouring threads
-// take neighbouring columns of one destination row (and the next row's), so
-// a warp reads one edge's mask row and gathered state row as contiguous
-// bytes. Each thread accumulates in edge order in an f32 register, with no
-// atomics: the result is identical from run to run and follows the same
-// sequential order as XLA's CPU sorted segment-sum, so the two agree to f32
-// rounding. Empty rows write 0. A row's threads walk its whole edge run, so
-// a destination with a very large in-degree serialises its warp — fine for
-// the GAB shapes (in-degree ~10), an open item for power-law graphs.
+// over the destination CSR: K2b-P's kernel (below) with the walk entry j
+// read as the pair (src[j], j) straight from the source ids — 4 bytes an
+// entry, no pair array: on the (dst, src)-sorted table the CSR's j-th
+// entry IS edge j. So K2b has K2b-P's layout (a lane group a row, 4
+// columns a lane, kPullBatch rd segments staged with cp.async) and its sum
+// order — __fadd_rn in edge order, the sequential order of XLA's CPU sorted
+// segment-sum — and the binned and unbinned ranks stay equal bit for bit.
+// (The parent kernel, one thread a (row, column) with one-byte mask loads
+// and one gather in flight, took 10.2 ms a superstep at the scale shape
+// against a 2.96 ms table bound.) Empty rows write 0. A row walks its
+// whole edge run, so a very large in-degree serialises its group.
 //
 // K2c `rtpu_pagerank_update`, once per superstep after K2b (and once per
 // dispatch with `prime` set): the superstep epilogue of the loop body
@@ -99,16 +114,15 @@
 // H100 at the scale shape, and so did 2 to 4.) C % 4 != 0 or an unaligned
 // tensor takes the same walk per element from registers. No atomics.
 //
-// What bounds them on the H100: bytes. Per superstep K2b streams the mask
-// (m_pad * C bytes), the source ids (4 * m_pad) and the CSR offsets, and
-// gathers C-wide f32 rows of rd (n_pad * C * 4 bytes, small enough at the
-// headline shapes to stay in the 50 MB L2); it does one add per edge and
-// column. K2b-P moves the same mask and the pairs (8 bytes a slot), and
-// gathers 16 bytes per live (slot, quad); at the scale shape rd (2.7 GB)
-// is far past the L2, so the gathers, not the inputs read once, set its
-// pace. K2a is one pass over the mask and the source ids. K2c reads agg,
-// deg, mv and r and writes r and rd once: 21 bytes per (v, c) and a dozen
-// flops. No kernel allocates; the wrapper zeros K2a's scratch and owns
+// What bounds them on the H100: bytes. Per superstep K2b and K2b-P read
+// the live mask rows (m * C bytes), the walk (4 bytes an edge for K2b, 8 a
+// slot for K2b-P's pairs) and the CSR offsets, write agg once, and gather
+// 16 bytes of rd per live (edge, quad); at the headline shapes rd stays in
+// the 50 MB L2, at the scale shape (2.7 GB) it is far past it, so the
+// gathers — counted in the 32-byte sectors they touch — set their pace. K2a
+// reads the walk, each walked edge's mask row and the offsets, and writes
+// deg once. K2c reads agg, deg, mv and r and writes r and rd once: 21
+// bytes per (v, c) and a dozen flops. No kernel allocates; the wrapper owns
 // K2c's partials and ticket.
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/columns.py).
@@ -122,49 +136,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-inline unsigned blocks_for(int64_t n) {
-    int64_t b = (n + kThreads - 1) / kThreads;
-    if (b < 1) b = 1;
-    if (b > 132 * 32) b = 132 * 32;   // grid-stride loops cover the rest
-    return static_cast<unsigned>(b);
-}
-
-__global__ void column_out_degree(int64_t m, int64_t C,
-                                  const uint8_t* __restrict__ me,
-                                  const int32_t* __restrict__ src,
-                                  int32_t* __restrict__ deg) {
-    const int64_t total = m * C;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         k < total; k += stride) {
-        if (!me[k]) continue;
-        const int64_t e = k / C;
-        atomicAdd(deg + static_cast<int64_t>(src[e]) * C + (k - e * C), 1);
-    }
-}
-
-__global__ void column_pull_sum(int64_t n, int64_t C,
-                                const int64_t* __restrict__ indptr,
-                                const int32_t* __restrict__ src,
-                                const uint8_t* __restrict__ me,
-                                const float* __restrict__ rd,
-                                float* __restrict__ agg) {
-    const int64_t total = n * C;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         k < total; k += stride) {
-        const int64_t d = k / C;
-        const int64_t c = k - d * C;
-        const int64_t e1 = indptr[d + 1];
-        float acc = 0.0f;
-        for (int64_t e = indptr[d]; e < e1; ++e) {
-            if (me[e * C + c]) acc += rd[static_cast<int64_t>(src[e]) * C + c];
-        }
-        agg[k] = acc;
-    }
-}
-
-// ---------------------------------------------------------------- K2b-P
+// ------------------------------------------------------ K2b, K2b-P, K2a
 
 constexpr int kPullBatch = 6;     // walk entries a lane keeps in flight
 constexpr int kPullTile = 128;    // columns of a lane group: 32 lanes x 4
@@ -207,10 +179,28 @@ __device__ __forceinline__ void add_masked(float (&acc)[4], uint32_t w,
         if ((w >> (8 * b)) & 0xffu) acc[b] = __fadd_rn(acc[b], v[b]);
 }
 
+// a lane's 4 columns [c, c + 4) of a row written once: one 16-byte store,
+// or per element (columns past C dropped)
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads) binned_pull_sum(
+__device__ __forceinline__ void store_quad(float* __restrict__ out,
+                                           int64_t C, int64_t c,
+                                           const float (&x)[4]) {
+    if (VEC) {
+        *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+            if (c + b < C) out[b] = x[b];
+    }
+}
+
+// the pull-sum of K2b (PAIRS false: walk entry j is the pair (src[j], j),
+// `walk` the int32 source ids of the (dst, src)-sorted table) and K2b-P
+// (PAIRS: `walk` the int2 pairs (source row, slot) of the layout's walk)
+template <bool VEC, bool PAIRS>
+__global__ void __launch_bounds__(kThreads) pull_sum(
         int64_t n, int64_t C, int G, const int64_t* __restrict__ indptr,
-        const int2* __restrict__ pairs, const uint8_t* __restrict__ me,
+        const void* __restrict__ walk, const uint8_t* __restrict__ me,
         const float* __restrict__ rd, float* __restrict__ agg) {
     // a lane's staged rd segments: entry k at stage[k * kThreads + thread]
     __shared__ float4 stage[kPullBatch * kThreads];
@@ -219,19 +209,26 @@ __global__ void __launch_bounds__(kThreads) binned_pull_sum(
     const int64_t c = static_cast<int64_t>(blockIdx.y) * kPullTile
                       + 4 * (threadIdx.x % G);
     if (d >= n || c >= C) return;
+    const int2* __restrict__ pairs = static_cast<const int2*>(walk);
+    const int32_t* __restrict__ src = static_cast<const int32_t*>(walk);
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     const int64_t j1 = indptr[d + 1];
     for (int64_t j = indptr[d]; j < j1; j += kPullBatch) {
         const int64_t cnt = j1 - j;
         int2 p[kPullBatch];
 #pragma unroll
-        for (int k = 0; k < kPullBatch; ++k)
-            p[k] = k < cnt ? __ldg(pairs + j + k) : make_int2(0, 0);
+        for (int k = 0; k < kPullBatch; ++k) {
+            if (PAIRS)
+                p[k] = k < cnt ? __ldg(pairs + j + k) : make_int2(0, 0);
+            else
+                p[k] = make_int2(k < cnt ? __ldg(src + j + k) : 0, 0);
+        }
         uint32_t w[kPullBatch];
 #pragma unroll
         for (int k = 0; k < kPullBatch; ++k)
-            w[k] = k < cnt ? mask_word<VEC>(me, p[k].y, C, c) : 0u;
-        // the adds run in walk order: the sum order of K2b
+            w[k] = k < cnt ? mask_word<VEC>(me, PAIRS ? p[k].y : j + k, C, c)
+                           : 0u;
+        // the adds run in walk order: the (dst, src) edge order
         if (VEC) {
             // every entry's 16 bytes staged in shared memory at once (an
             // entry whose mask word is 0 reads nothing), then added
@@ -262,15 +259,48 @@ __global__ void __launch_bounds__(kThreads) binned_pull_sum(
             for (int k = 0; k < kPullBatch; ++k) add_masked(acc, w[k], v[k]);
         }
     }
-    float* out = agg + d * C + c;
-    if (VEC) {
-        *reinterpret_cast<float4*>(out) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
+    store_quad<VEC>(agg + d * C + c, C, c, acc);
+}
+
+constexpr int kDegBatch = 8;      // K2a's walk entries a lane keeps in flight
+
+// K2a: a group of G lanes a source row, 4 columns a lane, over the source
+// walk; counts in registers, written once
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads) out_degree(
+        int64_t n, int64_t C, int G, const int64_t* __restrict__ indptr,
+        const int32_t* __restrict__ order, const uint8_t* __restrict__ me,
+        float* __restrict__ deg) {
+    const int64_t v = static_cast<int64_t>(blockIdx.x) * (blockDim.x / G)
+                      + threadIdx.x / G;
+    const int64_t c = static_cast<int64_t>(blockIdx.y) * kPullTile
+                      + 4 * (threadIdx.x % G);
+    if (v >= n || c >= C) return;
+    unsigned cnt[4] = {0u, 0u, 0u, 0u};
+    const int64_t j1 = indptr[v + 1];
+    for (int64_t j = indptr[v]; j < j1; j += kDegBatch) {
+        const int64_t left = j1 - j;
+        int32_t e[kDegBatch];
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-            if (c + b < C) out[b] = acc[b];
+        for (int k = 0; k < kDegBatch; ++k)
+            e[k] = k < left ? __ldg(order + j + k) : 0;
+        uint32_t w[kDegBatch];
+#pragma unroll
+        for (int k = 0; k < kDegBatch; ++k)
+            w[k] = k < left ? mask_word<VEC>(me, e[k], C, c) : 0u;
+#pragma unroll
+        for (int k = 0; k < kDegBatch; ++k) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                cnt[b] += (w[k] >> (8 * b)) & 0xffu ? 1u : 0u;
+        }
     }
+    // integer counts below 2^24: exact in f32
+    const float out[4] = {static_cast<float>(cnt[0]),
+                          static_cast<float>(cnt[1]),
+                          static_cast<float>(cnt[2]),
+                          static_cast<float>(cnt[3])};
+    store_quad<VEC>(deg + v * C + c, C, c, out);
 }
 
 // ---------------------------------------------------------------- K2c
@@ -488,33 +518,62 @@ bool aligned(const void* p, uintptr_t to) {
     return (reinterpret_cast<uintptr_t>(p) & (to - 1)) == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-int rtpu_column_out_degree(int64_t m, int64_t C, const void* me,
-                           const void* src, void* deg, void* stream) {
-    if (m > 0 && C > 0) {
-        column_out_degree<<<blocks_for(m * C), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-            m, C, static_cast<const uint8_t*>(me),
-            static_cast<const int32_t*>(src), static_cast<int32_t*>(deg));
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-
-int rtpu_column_pull_sum(int64_t n, int64_t C, const void* indptr,
-                         const void* src, const void* me, const void* rd,
-                         void* agg, void* stream) {
+// K2b / K2b-P: a lane group a row, ceil(C / 128) column tiles
+template <bool PAIRS>
+int launch_pull(int64_t n, int64_t C, const void* indptr, const void* walk,
+                const void* me, const void* rd, void* agg, void* stream) {
     if (n > 0 && C > 0) {
-        column_pull_sum<<<blocks_for(n * C), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-            n, C, static_cast<const int64_t*>(indptr),
-            static_cast<const int32_t*>(src),
+        const int G = pull_group(C);
+        const int rows = kThreads / G;
+        const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows),
+                        static_cast<unsigned>((C + kPullTile - 1)
+                                              / kPullTile));
+        const bool vec = C % 4 == 0 && aligned(me, 4) && aligned(rd, 16)
+                         && aligned(agg, 16);
+        auto* f = vec ? pull_sum<true, PAIRS> : pull_sum<false, PAIRS>;
+        f<<<grid, static_cast<unsigned>(rows * G), 0,
+            static_cast<cudaStream_t>(stream)>>>(
+            n, C, G, static_cast<const int64_t*>(indptr), walk,
             static_cast<const uint8_t*>(me), static_cast<const float*>(rd),
             static_cast<float*>(agg));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2a: n rows, C columns | out_indptr [n+1] int64, out_order [m] int32
+// (the source walk: each source row's real edge rows), me [rows, C] bool |
+// deg [n, C] f32. One launch.
+int rtpu_column_out_degree(int64_t n, int64_t C, const void* out_indptr,
+                           const void* out_order, const void* me, void* deg,
+                           void* stream) {
+    if (n > 0 && C > 0) {
+        const int G = pull_group(C);
+        const int rows = kThreads / G;
+        const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows),
+                        static_cast<unsigned>((C + kPullTile - 1)
+                                              / kPullTile));
+        const bool vec = C % 4 == 0 && aligned(me, 4) && aligned(deg, 16);
+        auto* f = vec ? out_degree<true> : out_degree<false>;
+        f<<<grid, static_cast<unsigned>(rows * G), 0,
+            static_cast<cudaStream_t>(stream)>>>(
+            n, C, G, static_cast<const int64_t*>(out_indptr),
+            static_cast<const int32_t*>(out_order),
+            static_cast<const uint8_t*>(me), static_cast<float*>(deg));
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K2b: n rows, C columns | indptr [n+1] int64 (the destination CSR of the
+// (dst, src)-sorted table), src [m_pad] int32, me [m_pad, C] bool, rd
+// [n, C] f32 | agg [n, C] f32. One launch.
+int rtpu_column_pull_sum(int64_t n, int64_t C, const void* indptr,
+                         const void* src, const void* me, const void* rd,
+                         void* agg, void* stream) {
+    return launch_pull<false>(n, C, indptr, src, me, rd, agg, stream);
 }
 
 // K2c: n rows, C columns, gx blocks along the rows (columns.update_grid),
@@ -556,22 +615,7 @@ int rtpu_pagerank_update(int64_t n, int64_t C, int64_t gx, int64_t prime,
 int rtpu_binned_pull_sum(int64_t n, int64_t C, const void* in_indptr,
                          const void* pairs, const void* me, const void* rd,
                          void* agg, void* stream) {
-    if (n > 0 && C > 0) {
-        const int G = pull_group(C);
-        const int rows = kThreads / G;
-        const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows),
-                        static_cast<unsigned>((C + kPullTile - 1)
-                                              / kPullTile));
-        const bool vec = C % 4 == 0 && aligned(me, 4) && aligned(rd, 16)
-                         && aligned(agg, 16);
-        auto* f = vec ? binned_pull_sum<true> : binned_pull_sum<false>;
-        f<<<grid, static_cast<unsigned>(rows * G), 0,
-            static_cast<cudaStream_t>(stream)>>>(
-            n, C, G, static_cast<const int64_t*>(in_indptr),
-            static_cast<const int2*>(pairs), static_cast<const uint8_t*>(me),
-            static_cast<const float*>(rd), static_cast<float*>(agg));
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch_pull<true>(n, C, in_indptr, pairs, me, rd, agg, stream);
 }
 
 }  // extern "C"

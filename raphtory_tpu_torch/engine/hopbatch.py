@@ -34,8 +34,8 @@ and where it bins every edge operand lives in the layout's binned space of
 the delta positions (K1 then runs unchanged at length B), the host-column
 route and the scale route emit their masks binned (KB1), and the passes
 are K2b-P (``columns.binned_pull_sum``), K5-P and K6-P
-(``minplus.binned_cc_superstep`` / ``binned_minplus_superstep``); K2a and
-K2c run unchanged on the binned operands.
+(``minplus.binned_cc_superstep`` / ``binned_minplus_superstep``); K2a runs
+on the binned operands over the layout's source walk, and K2c as it is.
 
 Reference contrast: one pass per RANGE QUERY, where the reference runs its
 full actor handshake once per hop (``RangeAnalysisTask.scala:18-35``).
@@ -91,7 +91,8 @@ def _pad_hop_deltas(deltas, H: int, tdt):
 
 def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
                       damping: float, tol: float, max_steps: int,
-                      r_init=None, pcpm: BinnedEdges | None = None):
+                      r_init=None, pcpm: BinnedEdges | None = None,
+                      walk=None):
     """Power iteration over per-column masks ``me [m_pad, C]`` /
     ``mv [n_pad, C]`` — dangling redistribution, tol halting with
     converged-column freeze; semantics of ``algorithms/pagerank.py``.
@@ -104,8 +105,10 @@ def _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad: int,
     Returns ``(ranks [C, n_pad], supersteps run)``. Edges are
     (dst, src)-sorted with their destination CSR ``indptr``; with ``pcpm``
     (a layout's ``BinnedEdges``) ``me``/``e_src``/``e_dst``/``indptr`` are
-    the binned ``[B(, C)]`` operands and the pull-sum is K2b-P."""
-    out_deg = columns.column_out_degree(me, e_src, n_pad)
+    the binned ``[B(, C)]`` operands and the pull-sum is K2b-P. ``walk``
+    is the edges' source walk ``(out_indptr, out_order)`` K2a counts over
+    (``_pr_args``; the CPU twin needs none)."""
+    out_deg = columns.column_out_degree(me, e_src, n_pad, walk)
     n_act = torch.clamp(mv.to(torch.float32).sum(0), min=1.0)
     r = torch.where(mv, (1.0 / n_act)[None, :], 0.0)
     if r_init is not None:
@@ -177,13 +180,21 @@ def _bfs_columns(me, mv, edges, n_pad: int, max_steps: int, directed: bool,
     return st.cur.t(), steps
 
 
-def _pr_args(edges):
-    """``(e_src, e_dst, indptr, pcpm)`` of ``_pagerank_columns`` for
-    unbinned edge tables (``DeviceEdges`` or its first three fields) or a
-    layout's ``BinnedEdges``."""
+def _pr_args(edges, tables):
+    """``(e_src, e_dst, indptr, pcpm, walk)`` of ``_pagerank_columns`` for
+    a layout's ``BinnedEdges`` (K2a walks its source walk, ``device_edges(
+    ..., reverse=True)``), the ``DeviceEdges`` of ``GlobalTables`` (its
+    ``out_indptr``/``out_perm``) or the first three fields of a
+    ``core/bulk.BulkGraph``'s, which has no source index: K2a's walk is
+    then ``columns.source_walk``, built on the device at first use and
+    cached with ``e_src``."""
     if isinstance(edges, BinnedEdges):
-        return edges.b_src, edges.b_dst, edges.in_indptr, edges
-    return (*edges[:3], None)
+        return (edges.b_src, edges.b_dst, edges.in_indptr, edges,
+                (edges.out_indptr, edges.out_order))
+    if isinstance(edges, DeviceEdges):
+        return (*edges[:3], None, (edges.out_indptr, edges.out_perm))
+    return (*edges[:3], None,
+            columns.source_walk(edges[0], tables.m, tables.n_pad))
 
 
 def _seed_mask(tables, seed_vids) -> np.ndarray:
@@ -282,7 +293,7 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     dev = (edges.e_src.device if edges is not None
            else resolve_device(device))
     if layout is not None:
-        edges = layout.device_edges(dev, reverse=kind != "pagerank")
+        edges = layout.device_edges(dev, reverse=True)
 
     def put(a):
         return _put(a, dev)
@@ -302,10 +313,10 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     n_pad = tables.n_pad
     if kind == "pagerank":
         damping, tol, max_steps = algo_args
-        e_src, e_dst, indptr, pcpm = _pr_args(edges)
+        e_src, e_dst, indptr, pcpm, walk = _pr_args(edges, tables)
         out, steps = _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad,
                                        damping, tol, max_steps, r_init=warm,
-                                       pcpm=pcpm)
+                                       pcpm=pcpm, walk=walk)
     elif kind == "cc":
         (max_steps,) = algo_args
         out, steps = _cc_columns(me, mv, edges, n_pad, max_steps,
@@ -324,14 +335,17 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     return out, steps, adv
 
 
-def _host_edges(tables, dev, full: bool):
+def _host_edges(tables, dev):
     """The static edge tables of ``tables`` uploaded to ``dev``: the whole
-    ``DeviceEdges`` (``full``: the min-combine kernels walk both
-    directions) or its first three fields, all the PageRank passes read (a
-    ``core/bulk.BulkGraph`` has no source-ordered index)."""
-    fields = DeviceEdges._fields if full else DeviceEdges._fields[:3]
-    got = tuple(_put(getattr(tables, f), dev) for f in fields)
-    return DeviceEdges(*got) if full else got
+    ``DeviceEdges`` of ``GlobalTables``, or the first three fields of a
+    ``core/bulk.BulkGraph``, which has no source-ordered index (the
+    min-combine kernels need one; PageRank's K2a builds it,
+    ``_pr_args``)."""
+    if not hasattr(tables, "out_perm"):
+        return tuple(_put(getattr(tables, f), dev)
+                     for f in DeviceEdges._fields[:3])
+    return DeviceEdges(*(_put(getattr(tables, f), dev)
+                         for f in DeviceEdges._fields))
 
 
 def _dispatch_columns(tables, cols, hop_times, windows, dev, layout=None):
@@ -354,13 +368,13 @@ def _dispatch_columns(tables, cols, hop_times, windows, dev, layout=None):
     return H, C // H, me, mv
 
 
-def _column_edges(tables, dev, edges, layout, full: bool):
+def _column_edges(tables, dev, edges, layout):
     """The edge operands of a host-column dispatch: the layout's
-    ``BinnedEdges`` (``full``: with the source walk), else ``edges`` or the
-    tables' own upload."""
+    ``BinnedEdges`` with its source walk, else ``edges`` or the tables' own
+    upload."""
     if layout is not None:
-        return layout.device_edges(dev, reverse=full)
-    return edges if edges is not None else _host_edges(tables, dev, full)
+        return layout.device_edges(dev, reverse=True)
+    return edges if edges is not None else _host_edges(tables, dev)
 
 
 def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
@@ -381,11 +395,12 @@ def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
     dev = resolve_device(device)
     H, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
                                      hop_times, windows, dev, layout)
-    e_src, e_dst, indptr, pcpm = _pr_args(
-        _column_edges(tables, dev, edges, layout, full=False))
+    e_src, e_dst, indptr, pcpm, walk = _pr_args(
+        _column_edges(tables, dev, edges, layout), tables)
     return _pagerank_columns(me, mv, e_src, e_dst, indptr, tables.n_pad,
                              float(damping), float(tol), int(max_steps),
-                             r_init=_tile_warm(r_init, H, W), pcpm=pcpm)
+                             r_init=_tile_warm(r_init, H, W), pcpm=pcpm,
+                             walk=walk)
 
 
 def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
@@ -398,8 +413,7 @@ def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     dev = resolve_device(device)
     _, _, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
                                      hop_times, windows, dev, layout)
-    return _cc_columns(me, mv, _column_edges(tables, dev, edges, layout,
-                                             full=True),
+    return _cc_columns(me, mv, _column_edges(tables, dev, edges, layout),
                        tables.n_pad, int(max_steps))
 
 
@@ -418,7 +432,7 @@ def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     dev = resolve_device(device)
     _, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
                                      hop_times, windows, dev, layout)
-    edges = _column_edges(tables, dev, edges, layout, full=True)
+    edges = _column_edges(tables, dev, edges, layout)
     ew = None
     if weight_cols is not None:
         ew = _put(weight_cols, dev).t()
@@ -503,7 +517,9 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
     column (K2). Returns ``(ranks [H*W, n_pad] hop-major, steps)``;
     unwindowed views use a negative window (``run_columns``' convention).
     ``base_e``/``base_v`` may already be device tensors, ``edges`` the
-    device ``(e_src, e_dst, in_indptr)``, and ``prepared`` (from
+    device ``(e_src, e_dst, in_indptr)`` (K2a's source walk is built from
+    its ``e_src`` at the first call and cached with it,
+    ``columns.source_walk``), and ``prepared`` (from
     ``prepare_scale_payload``) the uploaded update lists, so repeated
     sweeps ship nothing; a payload prepared for another grid or other
     deltas raises ``ValueError``. ``device=None`` is the CUDA card.
@@ -539,19 +555,19 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
     _, _, de_pos, de_t, dv_pos, dv_t, thr, _ = prepared
     layout = _partition.resolve(bulk, bulk, _partition.tile_budget_bytes())
     if layout is not None:
-        edges = layout.device_edges(dev)
+        edges = layout.device_edges(dev, reverse=True)
     elif edges is None:
-        edges = _host_edges(bulk, dev, full=False)
+        edges = _host_edges(bulk, dev)
     binned = isinstance(edges, BinnedEdges)
     me = columns.scale_hop_masks(
         _put(base_e, dev), de_pos, de_t, thr, H, W,
         perm=edges.perm if binned else None,
         valid=edges.valid if binned else None)
     mv = columns.scale_hop_masks(_put(base_v, dev), dv_pos, dv_t, thr, H, W)
-    e_src, e_dst, indptr, pcpm = _pr_args(edges)
+    e_src, e_dst, indptr, pcpm, walk = _pr_args(edges, bulk)
     return _pagerank_columns(me, mv, e_src, e_dst, indptr, bulk.n_pad,
                              float(damping), float(tol), int(max_steps),
-                             pcpm=pcpm)
+                             pcpm=pcpm, walk=walk)
 
 
 class _HopBatched:

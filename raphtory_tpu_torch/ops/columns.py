@@ -37,6 +37,7 @@ import os
 import subprocess
 import threading
 import time as _time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -91,8 +92,8 @@ _ARGTYPES = {
     # len, H, W, U | base, d_pos, d_t, thr, snap, out, stream | launched
     "rtpu_scale_hop_masks": 4 * [ctypes.c_int64] + 7 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
-    # m, C | me, src, deg, stream
-    "rtpu_column_out_degree": 2 * [ctypes.c_int64] + 4 * [ctypes.c_void_p],
+    # n, C | out_indptr, out_order, me, deg, stream
+    "rtpu_column_out_degree": 2 * [ctypes.c_int64] + 5 * [ctypes.c_void_p],
     # n, C | indptr, src, me, rd, agg, stream
     "rtpu_column_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # n, C, gx, prime | 1-damping, damping, tol | agg, deg, mv, n_act, r, rd,
@@ -604,7 +605,121 @@ def bin_column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
     return me, mv
 
 
+# ---------------------------------------------------------------- K2
+
+#: K2 card-branch input signature → (weak references to its tensors, what
+#: the launch needs); see ``_k2_checked``
+_K2_SIGS: dict = {}
+#: signatures kept before the cache is cleared
+_SIG_CAP = 256
+
+
+def _k2_checked(name: str, tensors, extra, check):
+    """``check()`` — a K2 wrapper's full checks of ``tensors``, raising on a
+    bad input and returning None for the twin's branch, else what the
+    launch needs — run once per input signature on the card branch: the
+    power iteration calls each wrapper with the same tensors every
+    superstep, and later calls skip the checks. The signature is each
+    tensor's identity and version counter (plus ``extra``): every in-place
+    change of a tensor, of its data or of its shape, strides or storage,
+    bumps the counter, so a live tensor with the same version has the
+    shape, dtype, device, contiguity and address it was checked with; the
+    identity is held by weak reference. A changed signature is checked
+    again. (Reading each tensor's shape, strides, dtype, device and address
+    into a key costs the host as much as the checks it would skip.)"""
+    try:
+        key = (name, extra, *map(id, tensors),
+               *[t._version for t in tensors])
+        card = _on_cuda(name, tensors[0])
+    except AttributeError:          # not a tensor: the full check raises
+        key, card = None, False
+    got = _K2_SIGS.get(key) if card else None
+    if got is not None and all([r() is t for r, t in zip(got[0], tensors)]):
+        return got[1]
+    val = check()
+    if val is not None and key is not None:
+        if len(_K2_SIGS) >= _SIG_CAP:
+            _K2_SIGS.clear()
+        _K2_SIGS[key] = ([weakref.ref(t) for t in tensors], val)
+    return val
+
+
 # ---------------------------------------------------------------- K2a
+
+#: ``e_src`` → ((m, n_pad, its version), its source walk): ``source_walk``'s,
+#: kept while the edge table's device tensor lives
+_SOURCE_WALKS = WeakIdKeyDictionary()
+#: a source walk's ``out_order`` → (weak references to the ``e_src`` and
+#: ``out_indptr`` it was checked with, their versions, its own, n_pad):
+#: ``_check_walk``'s last pass
+_WALKS_CHECKED = WeakIdKeyDictionary()
+
+
+def source_walk(e_src, m: int, n_pad: int):
+    """``(out_indptr [n_pad + 1] int64, out_order [m] int32)``: the first
+    ``m`` rows of ``e_src`` (an edge table's real edges) grouped by source,
+    each source's rows in table order — a stable sort by source, as
+    ``GlobalTables.out_perm`` is built — with the source CSR. K2a's walk
+    for an edge table that carries none (``core/bulk.BulkGraph``): built on
+    ``e_src``'s device at the first call (m * 4 + n_pad * 8 bytes) and
+    cached with ``e_src``."""
+    got = _SOURCE_WALKS.get(e_src)
+    if got is None or got[0] != (m, n_pad, e_src._version):
+        src = e_src[:m]
+        order = torch.sort(src, stable=True).indices.to(torch.int32)
+        indptr = torch.zeros(n_pad + 1, dtype=torch.int64,
+                             device=e_src.device)
+        torch.cumsum(torch.bincount(src, minlength=n_pad), 0,
+                     out=indptr[1:])
+        got = _SOURCE_WALKS[e_src] = ((m, n_pad, e_src._version),
+                                      (indptr, order))
+    return got[1]
+
+
+def _check_walk(name: str, e_src, walk, n_pad: int) -> None:
+    """Refuse a source walk K2a would miscount with. ``walk = (out_indptr,
+    out_order)`` must list rows of ``e_src`` once each, grouped by source
+    in ascending order, ``e_src[out_order]`` agreeing with the CSR
+    ``out_indptr``; a row it leaves out must be a pad (source ``n_pad - 1``,
+    the pad edges' and cap-pad slots' source, masked in every column), so
+    its length is the real row count. Checked once per walk and edge table
+    (a few values read back), then remembered."""
+    indptr, order = walk
+    _expect(name, indptr, "out_indptr", (torch.int64,), (n_pad + 1,))
+    k = order.shape[0] if order.dim() == 1 else -1
+    _expect(name, order, "out_order", (torch.int32,), (k,))
+    sig = (e_src._version, indptr._version, order._version, n_pad)
+    seen = _WALKS_CHECKED.get(order)
+    if seen is not None and seen[0]() is e_src and seen[1]() is indptr \
+            and seen[2] == sig:
+        return
+    rows = e_src.shape[0]
+    o = order.long()
+    if int(indptr[0]) != 0 or int(indptr[-1]) != k \
+            or bool((indptr[1:] < indptr[:-1]).any()):
+        raise ValueError(f"{name}: out_indptr is not the CSR of a walk of "
+                         f"{k} entries")
+    if k and (int(o.min()) < 0 or int(o.max()) >= rows):
+        raise ValueError(f"{name}: the source walk names rows outside "
+                         f"[0, {rows})")
+    walked = torch.zeros(rows, dtype=torch.bool, device=e_src.device)
+    walked[o] = True
+    if int(walked.sum()) != k:
+        raise ValueError(f"{name}: the source walk names a row twice")
+    src = e_src[o].long()
+    if k and (int(src.min()) < 0 or int(src.max()) >= n_pad
+              or bool((src[1:] < src[:-1]).any())):
+        raise ValueError(f"{name}: the source walk's rows are not in "
+                         "ascending source order")
+    if not torch.equal(torch.bincount(src, minlength=n_pad),
+                       indptr[1:] - indptr[:-1]):
+        raise ValueError(f"{name}: out_indptr does not match the sources "
+                         "of the walk's rows")
+    if bool((~walked & (e_src != n_pad - 1)).any()):
+        raise ValueError(f"{name}: the source walk leaves out a real row "
+                         f"(a row whose source is not the pad {n_pad - 1})")
+    _WALKS_CHECKED[order] = (weakref.ref(e_src), weakref.ref(indptr), sig)
+
 
 def column_out_degree_plain(me, e_src, n_pad: int):
     """Twin of ``rtpu_column_out_degree``: integer per-column out-degree
@@ -614,21 +729,41 @@ def column_out_degree_plain(me, e_src, n_pad: int):
     return deg.index_add_(0, e_src, me.to(torch.int32)).to(torch.float32)
 
 
-def column_out_degree(me, e_src, n_pad: int):
+def column_out_degree(me, e_src, n_pad: int, walk=None):
     """K2a wrapper (the out-degree segment-sum of
-    ``raphtory_tpu/engine/hopbatch.py:154``): ``me [m_pad, C]`` bool,
-    ``e_src [m_pad]`` int32 → f32 ``[n_pad, C]``."""
+    ``raphtory_tpu/engine/hopbatch.py:154``): ``me [rows, C]`` bool,
+    ``e_src [rows]`` int32 → f32 ``[n_pad, C]``. The twin scatters by
+    ``e_src``; the kernel gathers over the source walk ``walk =
+    (out_indptr, out_order)`` (``DeviceEdges.out_indptr``/``out_perm``, a
+    layout's ``walk(reverse=True)``, or ``source_walk``), which a CUDA call
+    must give and any call's walk must pass ``_check_walk``. Rows the walk
+    leaves out (the pads) must be masked in every column."""
     name = "column_out_degree"
-    m, C = me.shape
-    _expect(name, me, "me", (torch.bool,), (m, C))
-    _expect(name, e_src, "e_src", (torch.int32,), (m,))
-    if not _on_cuda(name, me, e_src):
+    tensors = (me, e_src) if walk is None else (me, e_src, *walk)
+
+    def check():
+        m, C = me.shape if isinstance(me, torch.Tensor) and me.dim() == 2 \
+            else (-1, -1)
+        _expect(name, me, "me", (torch.bool,), (m, C))
+        _expect(name, e_src, "e_src", (torch.int32,), (m,))
+        if walk is not None:
+            _check_walk(name, e_src, walk, n_pad)
+        if not _on_cuda(name, *tensors):
+            return None
+        if walk is None:
+            raise ValueError(f"{name}: the kernel counts over a source walk "
+                             "(out_indptr, out_order); none was given")
+        return ()
+
+    if _k2_checked(name, tensors, (n_pad, walk is None), check) is None:
         return column_out_degree_plain(me, e_src, n_pad)
-    deg = torch.zeros((n_pad, C), dtype=torch.int32, device=me.device)
-    fn = _fn("pagerank_columns", "rtpu_column_out_degree")
-    _launch(name, fn(m, C, me.data_ptr(), e_src.data_ptr(), deg.data_ptr(),
-                     _stream(deg)))
-    return deg.to(torch.float32)
+    C = me.shape[1]
+    deg = torch.empty((n_pad, C), dtype=torch.float32, device=me.device)
+    err = _fn("pagerank_columns", "rtpu_column_out_degree")(
+        n_pad, C, walk[0].data_ptr(), walk[1].data_ptr(), me.data_ptr(),
+        deg.data_ptr(), _stream(deg))
+    _launch(name, err, 1 if n_pad and C else 0)
+    return deg
 
 
 # ---------------------------------------------------------------- K2b
@@ -645,23 +780,32 @@ def column_pull_sum(me, rd, e_src, e_dst, indptr):
     ``raphtory_tpu/engine/hopbatch.py:154``): ``me [m_pad, C]`` bool,
     ``rd [n_pad, C]`` f32, (dst, src)-sorted ``e_src``/``e_dst [m_pad]``
     int32 and their destination CSR ``indptr [n_pad + 1]`` int64 → f32
-    ``[n_pad, C]``. The twin reads ``e_dst``, the kernel ``indptr``; edges
-    past ``indptr[n_pad]`` (the pad edges) must be masked in every column,
-    where the twin adds their zeros and the kernel skips them."""
+    ``[n_pad, C]``. The twin reads ``e_dst``, the kernel ``indptr`` and
+    ``e_src`` (K2b-P's kernel with walk entry j the pair (e_src[j], j));
+    edges past ``indptr[n_pad]`` (the pad edges) must be masked in every
+    column, where the twin adds their zeros and the kernel skips them."""
     name = "column_pull_sum"
-    m, C = me.shape
-    n = rd.shape[0]
-    _expect(name, me, "me", (torch.bool,), (m, C))
-    _expect(name, rd, "rd", (torch.float32,), (n, C))
-    _expect(name, e_src, "e_src", (torch.int32,), (m,))
-    _expect(name, e_dst, "e_dst", (torch.int32,), (m,))
-    _expect(name, indptr, "indptr", (torch.int64,), (n + 1,))
-    if not _on_cuda(name, me, rd, e_src, e_dst, indptr):
+    tensors = (me, rd, e_src, e_dst, indptr)
+
+    def check():
+        m, C = me.shape if isinstance(me, torch.Tensor) and me.dim() == 2 \
+            else (-1, -1)
+        n = rd.shape[0] if isinstance(rd, torch.Tensor) else -1
+        _expect(name, me, "me", (torch.bool,), (m, C))
+        _expect(name, rd, "rd", (torch.float32,), (n, C))
+        _expect(name, e_src, "e_src", (torch.int32,), (m,))
+        _expect(name, e_dst, "e_dst", (torch.int32,), (m,))
+        _expect(name, indptr, "indptr", (torch.int64,), (n + 1,))
+        return () if _on_cuda(name, *tensors) else None
+
+    if _k2_checked(name, tensors, None, check) is None:
         return column_pull_sum_plain(me, rd, e_src, e_dst)
+    n, C = rd.shape
     agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
-    fn = _fn("pagerank_columns", "rtpu_column_pull_sum")
-    _launch(name, fn(n, C, indptr.data_ptr(), e_src.data_ptr(), me.data_ptr(),
-                     rd.data_ptr(), agg.data_ptr(), _stream(agg)))
+    err = _fn("pagerank_columns", "rtpu_column_pull_sum")(
+        n, C, indptr.data_ptr(), e_src.data_ptr(), me.data_ptr(),
+        rd.data_ptr(), agg.data_ptr(), _stream(agg))
+    _launch(name, err, 1 if n and C else 0)
     return agg
 
 
@@ -722,15 +866,21 @@ def binned_pull_sum(me, rd, be):
     adds in K2b's order; the twin scatters by ``b_dst``. Cap-pad slots must
     be masked, as ``bin_base``/KB1 leave them."""
     name = "binned_pull_sum"
-    B, C = me.shape
-    n = rd.shape[0]
-    _expect(name, me, "me", (torch.bool,), (B, C))
-    _expect(name, rd, "rd", (torch.float32,), (n, C))
-    _check_binned(name, be, B, n)
     tensors = (me, rd, be.b_src, be.b_dst, be.slot, be.u_src, be.in_indptr,
                be.in_order)
-    if not _on_cuda(name, *tensors):
+
+    def check():
+        B, C = me.shape if isinstance(me, torch.Tensor) and me.dim() == 2 \
+            else (-1, -1)
+        n = rd.shape[0] if isinstance(rd, torch.Tensor) else -1
+        _expect(name, me, "me", (torch.bool,), (B, C))
+        _expect(name, rd, "rd", (torch.float32,), (n, C))
+        _check_binned(name, be, B, n)
+        return () if _on_cuda(name, *tensors) else None
+
+    if _k2_checked(name, tensors, be.U, check) is None:
         return binned_pull_sum_plain(me, rd, be)
+    n, C = rd.shape
     pairs = binned_pull_walk(be)
     agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
     err = _fn("pagerank_columns", "rtpu_binned_pull_sum")(
@@ -857,27 +1007,38 @@ def pagerank_update(st: RankState, agg, deg, mv, n_act, damping: float,
     the f32 out-degree ``deg [n, C]``, the vertex mask ``mv [n, C]`` and
     the per-column alive counts ``n_act [C]``."""
     name = "pagerank_update"
+    # agg is K2b's new output every superstep: checked at every call, the
+    # rest once per signature
+    tensors = (st.r, st.rd, deg, mv, n_act, st.dangling, st.halted, st.done,
+               st.part, st.busy, st.ticket)
+
+    def check():
+        n, C = st.r.shape if isinstance(st.r, torch.Tensor) \
+            and st.r.dim() == 2 else (-1, -1)
+        _expect(name, st.r, "r", (torch.float32,), (n, C))
+        _expect(name, st.rd, "rd", (torch.float32,), (n, C))
+        _expect(name, deg, "deg", (torch.float32,), (n, C))
+        _expect(name, mv, "mv", (torch.bool,), (n, C))
+        _expect(name, n_act, "n_act", (torch.float32,), (C,))
+        _expect(name, st.dangling, "dangling", (torch.float32,), (C,))
+        _expect(name, st.halted, "halted", (torch.bool,), (C,))
+        _expect(name, st.done, "done", (torch.bool,), (1,))
+        if not _on_cuda(name, *tensors):
+            return None
+        gx = update_grid(n, C)
+        _expect(name, st.part, "part", (torch.float64,), (gx, C))
+        _expect(name, st.busy, "busy", (torch.int32,), (gx, C))
+        _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
+        return gx
+
+    gx = _k2_checked(name, tensors, bool(prime), check)
     n, C = st.r.shape
-    _expect(name, st.r, "r", (torch.float32,), (n, C))
-    _expect(name, st.rd, "rd", (torch.float32,), (n, C))
-    _expect(name, deg, "deg", (torch.float32,), (n, C))
-    _expect(name, mv, "mv", (torch.bool,), (n, C))
-    _expect(name, n_act, "n_act", (torch.float32,), (C,))
-    _expect(name, st.dangling, "dangling", (torch.float32,), (C,))
-    _expect(name, st.halted, "halted", (torch.bool,), (C,))
-    _expect(name, st.done, "done", (torch.bool,), (1,))
-    tensors = [st.r, st.rd, deg, mv, n_act, st.dangling, st.halted, st.done,
-               st.part, st.busy, st.ticket]
     if not prime:
         _expect(name, agg, "agg", (torch.float32,), (n, C))
-        tensors.append(agg)
-    if not _on_cuda(name, *tensors):
+        _on_cuda(name, st.r, agg)     # raises off the state's device
+    if gx is None:
         return pagerank_update_plain(st, agg, deg, mv, n_act, damping, tol,
                                      prime)
-    gx = update_grid(n, C)
-    _expect(name, st.part, "part", (torch.float64,), (gx, C))
-    _expect(name, st.busy, "busy", (torch.int32,), (gx, C))
-    _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
     fn = _fn("pagerank_columns", "rtpu_pagerank_update")
     _launch(name, fn(n, C, gx, int(bool(prime)), 1.0 - damping, damping, tol,
                      None if prime else agg.data_ptr(), deg.data_ptr(),

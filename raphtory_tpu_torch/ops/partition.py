@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..native import lib as _native
+
 #: alignment of the per-partition block capacities — keeps pad overhead
 #: ~0.1% instead of the up-to-2x a power-of-two pad would cost
 _ALIGN = 64
@@ -169,7 +171,10 @@ class PartitionLayout:
             return got
         if reverse:
             real = np.flatnonzero(self.valid)
-            order = real[np.argsort(self.b_src[real], kind="stable")]
+            # a stable sort by source (the parallel native radix: numpy's
+            # stable sort took ~5 s at the scale shape's 35M slots)
+            order = real[_native.radix_argsort_u64(
+                self.b_src[real].astype(np.uint64))]
             got = (_csr(self.b_src[real], self.n_pad),
                    order.astype(np.int32))
         else:

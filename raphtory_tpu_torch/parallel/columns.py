@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from ..engine.hopbatch import (_bfs_columns, _cc_columns, _column_layout,
-                               _host_edges, _pagerank_columns, _put,
-                               _seed_mask)
+                               _host_edges, _pagerank_columns, _pr_args,
+                               _put, _seed_mask)
 from ..ops import columns as _columns
 
 
@@ -81,10 +81,12 @@ def run_columns_sharded(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
         _put(np.ascontiguousarray(hop_of_col[mine]), dev),
         _put(np.ascontiguousarray(lo[mine]), dev),
         _put(np.ascontiguousarray(w_col[mine] < 0), dev))
-    edges = _host_edges(tables, dev, full=kind != "pagerank")
+    edges = _host_edges(tables, dev)
     if kind == "pagerank":
-        out, steps = _pagerank_columns(me, mv, *edges, n_pad, float(damping),
-                                       float(tol), int(max_steps))
+        e_src, e_dst, indptr, _, walk = _pr_args(edges, tables)
+        out, steps = _pagerank_columns(me, mv, e_src, e_dst, indptr, n_pad,
+                                       float(damping), float(tol),
+                                       int(max_steps), walk=walk)
     elif kind == "cc":
         out, steps = _cc_columns(me, mv, edges, n_pad, int(max_steps))
     else:

@@ -4,6 +4,7 @@ the same numpy inputs: K1 bitwise, K2 within the reference's own PageRank
 tolerance (rtol 1e-5 / atol 1e-7, ``tests/test_hopbatch.py:145`` — f32 sums
 in another order) with equal superstep counts."""
 
+import ctypes
 import functools
 
 import jax
@@ -15,11 +16,13 @@ from test_sweep import random_log
 
 from raphtory_tpu.engine import hopbatch as jhb
 from raphtory_tpu.utils.synth import gab_like_log
+from raphtory_tpu_torch.core import bulk as tbulk
 from raphtory_tpu_torch.engine import hopbatch as thb
 from raphtory_tpu_torch.engine.device_sweep import GlobalTables
 from raphtory_tpu_torch.core.sweep import SweepBuilder
 from raphtory_tpu_torch.interop import event_log_from_arrays
 from raphtory_tpu_torch.ops import columns
+from raphtory_tpu_torch.ops import partition as part
 
 T = torch.from_numpy
 
@@ -292,4 +295,320 @@ def test_update_grid_and_scratch_at_each_column_count(C, monkeypatch):
     with pytest.raises(TypeError, match="part"):
         columns.pagerank_update(st, None, deg, mv, n_act, 0.85, 1e-7,
                                 prime=True)
+    columns.reset_launches()
+
+
+# ---------------------------------------------------- K2a's source walk
+
+def _bulk():
+    """A bulk graph with pad edges (m < m_pad)."""
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, 50, 2000).astype(np.int64)
+    dst = rng.integers(0, 50, 2000).astype(np.int64)
+    times = np.sort(rng.integers(0, 300, 2000)).astype(np.int64)
+    bulk = tbulk.bulk_hop_deltas(src, dst, times, [150, 299])[0]
+    assert bulk.m < bulk.m_pad
+    return bulk
+
+
+def _walk_of(kind):
+    """(e_src, walk, the real rows) of each source of K2a's walk: a
+    GlobalTables' ``out_indptr``/``out_perm``, a bulk graph's
+    ``source_walk``, a layout with cap-pad slots' ``walk(reverse=True)``."""
+    if kind == "tables":
+        t = _tables("gab")
+        return (t.e_src, (T(t.out_indptr), T(t.out_perm)), np.arange(t.m),
+                t.n_pad)
+    if kind == "bulk":
+        b = _bulk()
+        e_src = T(b.e_src)
+        return (b.e_src, columns.source_walk(e_src, b.m, b.n_pad),
+                np.arange(b.m), b.n_pad)
+    t = _tables("gab")
+    lay = part.build_layout(t.e_src, t.e_dst, t.n_pad, t.m, 16)
+    assert not lay.valid.all()                 # cap-pad slots
+    return (lay.b_src, tuple(map(T, lay.walk(True))),
+            np.flatnonzero(lay.valid), t.n_pad)
+
+
+@pytest.mark.parametrize("kind", ["tables", "bulk", "layout"])
+def test_source_walk_lists_each_real_row_once_by_source(kind):
+    """Every real edge (or slot) once, grouped by ascending source with the
+    CSR's runs, each source's rows in table order; no pad row."""
+    e_src, (indptr, order), real, n_pad = _walk_of(kind)
+    order, indptr = order.numpy(), indptr.numpy()
+    assert order.dtype == np.int32 and indptr.dtype == np.int64
+    np.testing.assert_array_equal(np.sort(order), real)
+    srcs = e_src[order]
+    assert (np.diff(srcs) >= 0).all()
+    np.testing.assert_array_equal(np.repeat(np.arange(n_pad),
+                                            np.diff(indptr)), srcs)
+    # stable: within a source, the rows in table order
+    same = np.diff(srcs) == 0
+    assert (np.diff(order)[same] > 0).all()
+    np.testing.assert_array_equal(order, real[np.argsort(e_src[real],
+                                                         kind="stable")])
+    columns._check_walk("test", T(np.ascontiguousarray(e_src)),
+                        (T(indptr), T(order)), n_pad)
+
+
+def test_source_walk_of_tables_is_their_out_perm():
+    t = _tables("random")
+    e_src = T(t.e_src)
+    indptr, order = columns.source_walk(e_src, t.m, t.n_pad)
+    assert torch.equal(order, T(t.out_perm))
+    assert torch.equal(indptr, T(t.out_indptr))
+    # built once and cached with the table
+    assert columns.source_walk(e_src, t.m, t.n_pad)[1] is order
+
+
+def _out_degree_by_walk(me, walk):
+    """The out-degree summed over the source walk, a run of rows a
+    source: ``me``'s rows gathered in walk order, integer prefix sums,
+    their differences at the CSR offsets."""
+    indptr, order = walk
+    rows = me[order.long()].to(torch.int64)
+    cs = torch.cat([torch.zeros((1, me.shape[1]), dtype=torch.int64),
+                    rows.cumsum(0)])
+    return (cs[indptr[1:]] - cs[indptr[:-1]]).to(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_out_degree_through_the_walk_matches_jax_segment_sum(kind):
+    t = _tables(kind)
+    rng = np.random.default_rng(11)
+    C = 5
+    me = rng.random((t.m_pad, C)) < 0.5
+    me[t.m:] = False
+    want = np.asarray(jax.ops.segment_sum(me.astype(np.float32), t.e_src,
+                                          num_segments=t.n_pad))
+    walk = (T(t.out_indptr), T(t.out_perm))
+    got = _out_degree_by_walk(T(me), walk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper with the walk (the twin on the CPU, the walk checked)
+    deg = columns.column_out_degree(T(me), T(t.e_src), t.n_pad, walk)
+    np.testing.assert_array_equal(deg.numpy(), want)
+
+
+def test_out_degree_refuses_a_bad_walk(monkeypatch):
+    t = _tables("random")
+    me = torch.ones((t.m_pad, 2), dtype=torch.bool)
+    e_src = T(t.e_src)
+    indptr, order = T(t.out_indptr), T(t.out_perm)
+
+    def refused(walk, match, exc=ValueError):
+        with pytest.raises(exc, match=match):
+            columns.column_out_degree(me, e_src, t.n_pad, walk)
+
+    # two rows of different sources swapped: sources out of order
+    k = int(np.flatnonzero(np.diff(t.e_src[t.out_perm]) > 0)[0])
+    swapped = order.clone()
+    swapped[[k, k + 1]] = swapped[[k + 1, k]]
+    refused((indptr, swapped), "ascending source order")
+    twice = order.clone()
+    twice[1] = twice[0]
+    refused((indptr, twice), "twice")
+    refused((indptr[:-1], order), "out_indptr")
+    shifted = indptr.clone()
+    shifted[1:-1] += 1
+    shifted[1:-1] = torch.minimum(shifted[1:-1], indptr[-1])
+    refused((shifted, order), "does not match")
+    # a real edge left out: the walk is shorter than the real row count
+    short = indptr.clone()
+    last = int(t.e_src[t.out_perm[-1]])
+    short[last + 1:] -= 1
+    refused((short, order[:-1]), "leaves out a real row")
+    refused((indptr, order.long()), "dtype", TypeError)
+    out = order.clone()
+    out[0] = t.m_pad
+    refused((indptr, out), "outside")
+    # a walk that passed, then changed in place, is checked again
+    walk = (indptr, order.clone())
+    columns.column_out_degree(me, e_src, t.n_pad, walk)
+    walk[1][[k, k + 1]] = walk[1][[k + 1, k]]
+    refused(walk, "ascending source order")
+    # the card branch counts over a walk and has none to fall back on
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    with pytest.raises(ValueError, match="source walk"):
+        columns.column_out_degree(me, e_src, t.n_pad)
+
+
+# ------------------------------------- the card branch (modelled kernels)
+
+def _view(addr, dtype, n):
+    """``n`` elements of ``dtype`` at a host address, as numpy."""
+    if not n:
+        return np.zeros(0, dtype)
+    nbytes = n * np.dtype(dtype).itemsize
+    return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(
+        addr)).view(dtype)
+
+
+def _model_out_degree(calls, rows):
+    """``rtpu_column_out_degree`` as numpy over the wrapper's raw host
+    addresses: each source row counts the set mask bytes of the rows its
+    walk run names."""
+    def model(n, C, indptr, order, me, deg, stream):
+        calls.append(dict(indptr=indptr, order=order, n=n, C=C))
+        ip = _view(indptr, np.int64, n + 1)
+        od = _view(order, np.int32, int(ip[-1]))
+        mk = _view(me, np.uint8, rows * C).reshape(rows, C) != 0
+        out = _view(deg, np.float32, n * C).reshape(n, C)
+        for v in range(n):
+            out[v] = mk[od[ip[v]:ip[v + 1]]].sum(0)
+        return 0
+    return model
+
+
+def _model_pull_sum(calls, rows):
+    """``rtpu_column_pull_sum`` as numpy: each destination row walks its
+    CSR run, entry j the pair (src[j], j), and adds ``rd`` at the source
+    row where the mask is set, in walk order (f32 adds)."""
+    def model(n, C, indptr, src, me, rd, agg, stream):
+        calls.append(dict(indptr=indptr, src=src, n=n, C=C))
+        ip = _view(indptr, np.int64, n + 1)
+        sr = _view(src, np.int32, rows)
+        mk = _view(me, np.uint8, rows * C).reshape(rows, C) != 0
+        r = _view(rd, np.float32, n * C).reshape(n, C)
+        out = _view(agg, np.float32, n * C).reshape(n, C)
+        for d in range(n):
+            acc = np.zeros(C, np.float32)
+            for j in range(ip[d], ip[d + 1]):
+                acc = np.where(mk[j], acc + r[sr[j]], acc)
+            out[d] = acc
+        return 0
+    return model
+
+
+@pytest.fixture
+def k2_card(monkeypatch):
+    """K2a's and K2b's card branch on CPU tensors through the numpy models
+    (K2c keeps its twin), with a fresh signature cache."""
+    calls = {"rtpu_column_out_degree": [], "rtpu_column_pull_sum": []}
+    rows = {}
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *t: name in (
+        "column_out_degree", "column_pull_sum"))
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    models = {"rtpu_column_out_degree": _model_out_degree,
+              "rtpu_column_pull_sum": _model_pull_sum}
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: models[fn](
+        calls[fn], rows["m"]))
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    columns.reset_launches()
+    yield calls, rows
+    columns.reset_launches()
+
+
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_unbinned_pagerank_card_branch_launches_once_a_step(k2_card, kind):
+    """The unbinned power iteration through K2a's and K2b's card branches
+    (the modelled kernels): K2a one launch over the tables' source walk,
+    K2b one a superstep over the destination CSR and the source ids,
+    ranks bitwise the twins' loop."""
+    calls, rows = k2_card
+    t = _tables(kind)
+    rows["m"] = t.m_pad
+    rng = np.random.default_rng(7)
+    C = 6
+    me = rng.random((t.m_pad, C)) < 0.7
+    me[t.m:] = False
+    mv = rng.random((t.n_pad, C)) < 0.8
+    mv[t.n:] = False
+    args = (T(me), T(mv), T(t.e_src), T(t.e_dst), T(t.in_indptr), t.n_pad,
+            0.85, 1e-7, 30)
+    walk = (T(t.out_indptr), T(t.out_perm))
+    saved = columns._on_cuda
+    columns._on_cuda = lambda name, *ts: False
+    try:
+        want, want_steps = thb._pagerank_columns(*args)
+    finally:
+        columns._on_cuda = saved
+    got, steps = thb._pagerank_columns(*args, walk=walk)
+    assert torch.equal(got, want) and steps == want_steps > 1
+    assert columns.LAUNCHES["column_out_degree"] == 1
+    assert columns.LAUNCHES["column_pull_sum"] == steps
+    (a,) = calls["rtpu_column_out_degree"]
+    assert (a["indptr"], a["order"]) == (walk[0].data_ptr(),
+                                        walk[1].data_ptr())
+    assert {c["src"] for c in calls["rtpu_column_pull_sum"]} == {
+        args[2].data_ptr()}
+    assert {c["indptr"] for c in calls["rtpu_column_pull_sum"]} == {
+        args[4].data_ptr()}
+
+
+def test_binned_out_degree_card_branch_walks_the_layout(k2_card):
+    """K2a on binned operands over the layout's source walk (its real
+    slots only): the twin's counts, bit for bit."""
+    calls, rows = k2_card
+    t = _tables("gab")
+    lay = part.build_layout(t.e_src, t.e_dst, t.n_pad, t.m, 16)
+    be = lay.device_edges("cpu", reverse=True)
+    rows["m"] = lay.B
+    rng = np.random.default_rng(3)
+    me = rng.random((lay.B, 7)) < 0.6
+    me &= lay.valid[:, None]
+    got = columns.column_out_degree(T(me), be.b_src, t.n_pad,
+                                    (be.out_indptr, be.out_order))
+    want = columns.column_out_degree_plain(T(me), be.b_src, t.n_pad)
+    assert torch.equal(got, want)
+    assert columns.LAUNCHES["column_out_degree"] == 1
+
+
+def test_k2_wrappers_check_a_changed_signature_again(monkeypatch):
+    """The card branch checks each input signature once: a second call
+    with the same tensors skips the checks, and a wrong dtype or shape —
+    a new tensor, or a cached one changed in place — still raises."""
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: lambda *a: 0)
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    checks = []
+    expect = columns._expect
+    monkeypatch.setattr(columns, "_expect", lambda *a: (checks.append(a[2]),
+                                                        expect(*a)))
+    columns.reset_launches()
+    n, m, C = 8, 20, 4
+    me = torch.zeros((m, C), dtype=torch.bool)
+    rd = torch.zeros((n, C))
+    src = torch.zeros(m, dtype=torch.int32)
+    indptr = torch.zeros(n + 1, dtype=torch.int64)
+    for _ in range(3):
+        columns.column_pull_sum(me, rd, src, src, indptr)
+    assert checks.count("rd") == 1
+    with pytest.raises(TypeError, match="rd"):
+        columns.column_pull_sum(me, rd.double(), src, src, indptr)
+    with pytest.raises(ValueError, match="indptr"):
+        columns.column_pull_sum(me, rd, src, src, indptr[:-1])
+    rd.unsqueeze_(0)                          # the cached tensor, reshaped
+    with pytest.raises(ValueError, match="rd"):
+        columns.column_pull_sum(me, rd, src, src, indptr)
+    rd.squeeze_(0)
+    columns.column_pull_sum(me, rd, src, src, indptr)
+
+    st = columns.rank_state(torch.zeros((n, C)))
+    deg, mv, n_act = torch.ones((n, C)), torch.ones((n, C), dtype=bool), \
+        torch.ones(C)
+    checks.clear()
+    for _ in range(3):
+        columns.pagerank_update(st, rd, deg, mv, n_act, 0.85, 1e-7)
+    assert checks.count("deg") == 1 and checks.count("agg") == 3
+    with pytest.raises(TypeError, match="agg"):
+        columns.pagerank_update(st, rd.double(), deg, mv, n_act, 0.85, 1e-7)
+    st.part = st.part.float()
+    with pytest.raises(TypeError, match="part"):
+        columns.pagerank_update(st, rd, deg, mv, n_act, 0.85, 1e-7)
+
+    t = _tables("random")
+    mk = torch.zeros((t.m_pad, C), dtype=torch.bool)
+    walk = (T(t.out_indptr), T(t.out_perm))
+    e_src = T(t.e_src)
+    checks.clear()
+    for _ in range(2):
+        columns.column_out_degree(mk, e_src, t.n_pad, walk)
+    assert checks.count("me") == 1
+    with pytest.raises(TypeError, match="e_src"):
+        columns.column_out_degree(mk, e_src.long(), t.n_pad, walk)
+    assert columns.LAUNCHES["column_pull_sum"] == 4
+    assert columns.LAUNCHES["pagerank_update"] == 3
+    assert columns.LAUNCHES["column_out_degree"] == 2
     columns.reset_launches()
