@@ -20,18 +20,23 @@ printing one JSON line:
               against its twin, two launches from one state bitwise
               equal; K5 (CC
               superstep, GAB shapes), K6 (BFS/SSSP superstep, unit and
-              weighted, directed and undirected, LDBC shapes) and K6w (the
-              weight rebuild, pads, with and without h0) bitwise
+              weighted, directed and undirected, LDBC shapes; each of K5,
+              K6, K5-P, K6-P one launch a superstep, with its device time
+              from the profiler) and K6w (the weight rebuild, pads, with
+              and without h0) bitwise
               (``torch.equal``); K7 (segment combine: sum / min / max,
               float32 / int32, both directions, k = 1 and 3) bitwise but
               for its float sums (rtol 1e-5 / atol 1e-7), K9a (delta
               apply, int32 and int64), K9b (window masks, k = 1 and 3)
               and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
               tables, int32 and int64) and K4 (scale masks at the scale
-              sweep's shape) bitwise; the binned kernels KB1, K2b-P
+              sweep's shape, engine-order and binned through a synthetic
+              layout, two launches a call, and ``k4_edge_cases``)
+              bitwise; the binned kernels KB1, K2b-P
               (bitwise against K2b on a pre-aggregating layout at C = 1,
               9, 12, 36, 129, 300 and an unaligned ``rd``, and on one that
-              does not pre-aggregate), K5-P, K6-P and K7-P (also
+              does not pre-aggregate), K5-P (on a layout with buckets
+              and one without), K6-P and K7-P (also
               against K7) at the pcpm phase's layouts. CUDA-event times,
               bounds, twin times.
 4. headline — the north-star windowed PageRank Range query (GAB-like log,
@@ -76,11 +81,13 @@ printing one JSON line:
               over ``gab_like_arrays(5.3M, 2^25, seed 11)``, 16 one-hour
               hops x 8 windows = 128 columns, tol 0, 10 supersteps through
               ``run_scale_columns`` (K4, K2); one warm call then two timed
-              sweeps; every column finite and summing to 1 +- 1e-4; K4
+              sweeps (K4 at most 4 launches a sweep); every column finite
+              and summing to 1 +- 1e-4; K4
               and K2a/b/c against their twins at this shape (K4, K2a
               bitwise; K2c twice from one state bitwise), K2a/b/c and
               K4's edge and vertex calls timed beside their bounds at
-              this shape (K2b's gathers also counted in 32-byte sectors),
+              this shape (K2b's gathers also counted in 32-byte sectors;
+              K4's calls with their device time),
               K2a beside its library call (``index_add_`` of the int32
               mask, whole or in 32-column blocks where it does not fit),
               the source walk's set-up seconds and the largest degrees.
@@ -101,8 +108,9 @@ printing one JSON line:
               atol 1e-7); layout specs, build seconds and peak memory.
               ``scale_bulk`` (12) runs its binned part on the same load
               (the layout build, two timed sweeps, bitwise against the
-              unbinned ranks, KB1, K2b-P and K2a over the layout's source
-              walk against their twins at the scale shape, K2b-P bitwise
+              unbinned ranks, the binned K4, K2b-P and K2a over the
+              layout's source walk against their twins at the scale
+              shape, K2b-P bitwise
               K2b over the same masks, K2b-P and K2a timed, K2b-P beside
               its table bound and its gather bound with the mask's live
               share) and its crosscheck
@@ -205,12 +213,14 @@ just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
-unpacked with ``git archive``: ``ParentK2`` binds its C entry points),
-K2a, K2b, K2b-P and K2c as DIR's ``pagerank_columns.cu`` builds them are
-held against this tree's (K2a, K2b, K2b-P and K2c's primed ``rd``
-bitwise, K2c's update within rtol 1e-5 / atol 1e-7 with equal halting)
-and timed in turns with them at the headline and scale shapes: a
-``parent`` line before ``timing``.
+unpacked with ``git archive``: ``Parent`` binds its C entry points), K4
+(engine-order and binned) and the min-combine supersteps K5, K6, K5-P and
+K6-P as DIR's ``masks.cu`` and ``minplus_columns.cu`` build them are held
+BITWISE against this tree's and timed in turns with them (CUDA events,
+and device time from the profiler) at the kernels phase's shapes and on
+``scale_bulk``'s payload; ``scale_bulk`` and its binned part also run one
+sweep with the parent's K4 (ranks bitwise, seconds and peak device bytes
+beside this tree's): a ``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -282,113 +292,166 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K2a, K2b, K2b-P and K2c as the tree at DIR
-#: builds them (``ParentK2``), timed in turns with this tree's on the same
-#: inputs
+#: with ``--parent DIR``: K4 and the min-combine supersteps (K5, K6, K5-P,
+#: K6-P) as the tree at DIR builds them (``Parent``), held against this
+#: tree's and timed in turns with them on the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
-class ParentK2:
-    """K2a ``column_out_degree``, K2b ``column_pull_sum``, K2b-P
-    ``binned_pull_sum`` and K2c ``pagerank_update`` of another tree's
-    ``raphtory_tpu_torch/csrc/pagerank_columns.cu``, through the C entry
-    points they had before K2a and K2b were redesigned (the tree of PR 11):
-    K2a ``(m, C, me, src, deg, stream)`` — int32 atomics into a zeroed
-    ``[n, C]`` scratch, which its wrapper then converted to f32, as this
-    class does — K2b ``(n, C, indptr, src, me, rd, agg, stream)``, K2b-P
-    ``(n, C, in_indptr, pairs, me, rd, agg, stream)`` and K2c on
-    ``columns.update_grid`` blocks with f64 partials. Built with
-    ``columns.build``'s nvcc flags. Its launches count nowhere."""
+class Parent:
+    """K4 ``scale_hop_masks`` (with its binned form, KB1's scale entry) and
+    the min-combine supersteps of another tree's ``masks.cu`` and
+    ``minplus_columns.cu``, through the C entry points they had before
+    this tree redesigned them: K4 ``(len, H, W, U, base, d_pos, d_t, thr,
+    snap, out, stream, launched)`` over an ``[H, len]`` int32 snapshot
+    (``out`` null: the snapshot only, then ``rtpu_bin_scale_masks(B, len,
+    H, W, snap, thr, perm, valid, out, stream)``); K5 / K6 ``(n, C, gx,
+    in_indptr, e_src, out_indptr, out_perm, e_dst, me, mv, cur, nxt,
+    halted, done, busy, ticket, stream)`` (K6 with ``W, H, ..., directed,
+    ew`` first) on a grid of one thread a (row, column), ``256 // min(C,
+    256)`` rows a block, at most 264 blocks; K5-P / K6-P with the bucket
+    gather into a ``[U, C]`` scratch first. Built with ``columns.build``'s
+    nvcc flags, both sources at once. Its launches count nowhere; its
+    supersteps keep their own busy scratch."""
 
     def __init__(self, columns, root: str):
         import ctypes
         import hashlib
 
-        src = os.path.join(root, "raphtory_tpu_torch", "csrc",
-                           "pagerank_columns.cu")
-        with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:16]
-        out = columns._BUILD / f"libparent_pagerank_columns_{tag}.so"
-        if not out.exists():
-            columns._BUILD.mkdir(exist_ok=True)
-            subprocess.run(
-                [columns._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-o", str(out), src], check=True, capture_output=True)
-        lib = ctypes.CDLL(str(out))
-        self._c = columns
-        self._deg = lib.rtpu_column_out_degree
-        self._deg.argtypes = 2 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
-        self._flat = lib.rtpu_column_pull_sum
-        self._flat.argtypes = 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p]
-        self._pull = lib.rtpu_binned_pull_sum
-        self._pull.argtypes = 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p]
-        self._update = lib.rtpu_pagerank_update
-        self._update.argtypes = (4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
-                                 + 13 * [ctypes.c_void_p])
-        for f in (self._deg, self._flat, self._pull, self._update):
+        libs = {}
+        procs = []
+        for name in ("masks", "minplus_columns"):
+            src = os.path.join(root, "raphtory_tpu_torch", "csrc",
+                               f"{name}.cu")
+            with open(src, "rb") as f:
+                tag = hashlib.sha256(f.read()).hexdigest()[:16]
+            out = columns._BUILD / f"libparent_{name}_{tag}.so"
+            libs[name] = out
+            if not out.exists():
+                columns._BUILD.mkdir(exist_ok=True)
+                procs.append(subprocess.Popen(
+                    [columns._nvcc(), "-gencode",
+                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                     "-shared", "-Xcompiler", "-fPIC", "-o", str(out), src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for proc in procs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"parent build failed:\n{log.decode()}")
+        masks = ctypes.CDLL(str(libs["masks"]))
+        mp = ctypes.CDLL(str(libs["minplus_columns"]))
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        launched = ctypes.POINTER(ctypes.c_int64)
+        self._k4 = masks.rtpu_scale_hop_masks
+        self._k4.argtypes = 4 * [i64] + 7 * [ptr] + [launched]
+        self._kb1 = masks.rtpu_bin_scale_masks
+        self._kb1.argtypes = 4 * [i64] + 6 * [ptr]
+        self._cc = mp.rtpu_cc_superstep
+        self._cc.argtypes = 3 * [i64] + 14 * [ptr]
+        self._mp = mp.rtpu_minplus_superstep
+        self._mp.argtypes = 6 * [i64] + 15 * [ptr]
+        self._bcc = mp.rtpu_binned_cc_superstep
+        self._bcc.argtypes = 4 * [i64] + 18 * [ptr] + [launched]
+        self._bmp = mp.rtpu_binned_minplus_superstep
+        self._bmp.argtypes = 7 * [i64] + 19 * [ptr] + [launched]
+        for f in (self._k4, self._kb1, self._cc, self._mp, self._bcc,
+                  self._bmp):
             f.restype = ctypes.c_int
+        self._c = columns
+        self._ct = ctypes
         self._scratch: dict = {}
-        self.source = src
+        self.source = str(root)
 
     def _ok(self, what: str, err: int) -> None:
         if err:
             raise RuntimeError(f"parent {what}: cudaError {err}")
 
-    def column_out_degree(self, me, e_src, n_pad: int):
+    def scale_hop_masks(self, base, d_pos, d_t, thr, H: int, W: int,
+                        perm=None, valid=None):
         import torch
 
-        m, C = me.shape
-        deg = torch.zeros((n_pad, C), dtype=torch.int32, device=me.device)
-        self._ok("K2a", self._deg(m, C, me.data_ptr(), e_src.data_ptr(),
-                                  deg.data_ptr(), self._c._stream(deg)))
-        return deg.to(torch.float32)
+        n, U = base.shape[0], d_pos.shape[1]
+        snap = torch.empty((H, n), dtype=torch.int32, device=base.device)
+        rows = n if perm is None else perm.shape[0]
+        out = torch.empty((rows, H * W), dtype=torch.bool,
+                          device=base.device)
+        st = self._c._stream(out)
+        k = self._ct.c_int64(0)
+        self._ok("K4", self._k4(
+            n, H, W, U, base.data_ptr(), d_pos.data_ptr(), d_t.data_ptr(),
+            thr.data_ptr(), snap.data_ptr(),
+            out.data_ptr() if perm is None else None, st,
+            self._ct.byref(k)))
+        if perm is not None:
+            self._ok("KB1", self._kb1(rows, n, H, W, snap.data_ptr(),
+                                      thr.data_ptr(), perm.data_ptr(),
+                                      valid.data_ptr(), out.data_ptr(), st))
+        return out
 
-    def column_pull_sum(self, me, rd, e_src, indptr):
+    def _state(self, st):
+        """(gx, busy, ticket) of the parent's grid for ``st``."""
         import torch
 
-        n, C = rd.shape
-        agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
-        self._ok("K2b", self._flat(n, C, indptr.data_ptr(), e_src.data_ptr(),
-                                   me.data_ptr(), rd.data_ptr(),
-                                   agg.data_ptr(), self._c._stream(agg)))
-        return agg
-
-    def binned_pull_sum(self, me, rd, be):
-        import torch
-
-        n, C = rd.shape
-        agg = torch.empty((n, C), dtype=torch.float32, device=rd.device)
-        pairs = self._c.binned_pull_walk(be)
-        self._ok("K2b-P", self._pull(n, C, be.in_indptr.data_ptr(),
-                                     pairs.data_ptr(), me.data_ptr(),
-                                     rd.data_ptr(), agg.data_ptr(),
-                                     self._c._stream(agg)))
-        return agg
-
-    def pagerank_update(self, st, agg, deg, mv, n_act, damping: float,
-                        tol: float, prime: bool = False) -> None:
-        import torch
-
-        n, C = st.r.shape
-        gx = self._c.update_grid(n, C)
-        key = (gx, C, st.r.device)
+        n, C = st.cur.shape
+        gx = max(1, min(-(-n // (256 // min(C, 256))), 264))
+        key = (gx, C, st.cur.device)
         if key not in self._scratch:
-            dev = st.r.device
             self._scratch[key] = (
-                torch.empty((gx, C), dtype=torch.float64, device=dev),
-                torch.empty((gx, C), dtype=torch.int32, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))
-        part, busy, ticket = self._scratch[key]
-        self._ok("K2c", self._update(
-            n, C, gx, int(bool(prime)), 1.0 - damping, damping, tol,
-            None if prime else agg.data_ptr(), deg.data_ptr(),
-            mv.data_ptr(), n_act.data_ptr(), st.r.data_ptr(),
-            st.rd.data_ptr(), st.dangling.data_ptr(), st.halted.data_ptr(),
-            st.done.data_ptr(), part.data_ptr(), busy.data_ptr(),
-            ticket.data_ptr(), self._c._stream(st.r)))
+                torch.empty((gx, C), dtype=torch.int32, device=st.cur.device),
+                torch.zeros(1, dtype=torch.int32, device=st.cur.device))
+        return (gx, *self._scratch[key])
+
+    def superstep(self, st, me, mv, edges, directed=None, ew=None,
+                  W: int = 1) -> None:
+        """K5 (``directed`` None) or K6 over ``DeviceEdges``."""
+        n, C = st.cur.shape
+        gx, busy, ticket = self._state(st)
+        e = edges
+        tail = (e.in_indptr.data_ptr(), e.e_src.data_ptr(),
+                e.out_indptr.data_ptr(), e.out_perm.data_ptr(),
+                e.e_dst.data_ptr(), me.data_ptr(), mv.data_ptr(),
+                st.cur.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
+                st.done.data_ptr(), busy.data_ptr(), ticket.data_ptr(),
+                self._c._stream(st.cur))
+        if directed is None:
+            self._ok("K5", self._cc(n, C, gx, *tail))
+        else:
+            self._ok("K6", self._mp(n, C, W, C // W, gx, int(bool(directed)),
+                                    None if ew is None else ew.data_ptr(),
+                                    *tail))
+        st.cur, st.nxt = st.nxt, st.cur
+
+    def binned_superstep(self, st, me, mv, be, directed=None, ew=None,
+                         W: int = 1) -> None:
+        """K5-P (``directed`` None) or K6-P over a layout's
+        ``BinnedEdges``, the buckets gathered first where it has them."""
+        import torch
+
+        n, C = st.cur.shape
+        gx, busy, ticket = self._state(st)
+        vals = torch.empty((be.U, C), dtype=st.cur.dtype,
+                           device=st.cur.device)
+
+        def opt(t):
+            return None if t is None else t.data_ptr()
+
+        tail = (be.in_indptr.data_ptr(), be.in_order.data_ptr(),
+                be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
+                opt(be.out_indptr), opt(be.out_order), be.b_dst.data_ptr(),
+                me.data_ptr(), mv.data_ptr(), st.cur.data_ptr(),
+                vals.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
+                st.done.data_ptr(), busy.data_ptr(), ticket.data_ptr(),
+                self._c._stream(st.cur), self._ct.byref(self._ct.c_int64(0)))
+        if directed is None:
+            self._ok("K5-P", self._bcc(n, C, gx, be.U, *tail))
+        else:
+            self._ok("K6-P", self._bmp(n, C, W, C // W, gx,
+                                       int(bool(directed)), be.U,
+                                       None if ew is None else ew.data_ptr(),
+                                       *tail))
+        st.cur, st.nxt = st.nxt, st.cur
 
 
 def vs_parent(torch, key: str, new, old, iters: int = 20, **facts) -> None:
@@ -529,22 +592,6 @@ def phase_kernels(torch, np, columns, tables, dev):
         me, rd, e_src, e_dst, indptr))
     b_plain = cuda_ms(torch, lambda: columns.column_pull_sum_plain(
         me, rd, e_src, e_dst))
-    if PARENT is not None:
-        if not torch.equal(PARENT.column_out_degree(me, e_src, n_pad), deg):
-            raise AssertionError("K2a differs from the parent's")
-        if not torch.equal(PARENT.column_pull_sum(me, rd, e_src, indptr),
-                           got):
-            raise AssertionError("K2b differs from the parent's")
-        shape = f"m_pad={m_pad} n_pad={n_pad} C={C}"
-        vs_parent(torch, "column_out_degree headline",
-                  lambda: columns.column_out_degree(me, e_src, n_pad, walk),
-                  lambda: PARENT.column_out_degree(me, e_src, n_pad),
-                  shape=shape)
-        vs_parent(torch, "column_pull_sum headline",
-                  lambda: columns.column_pull_sum(me, rd, e_src, e_dst,
-                                                  indptr),
-                  lambda: PARENT.column_pull_sum(me, rd, e_src, indptr),
-                  shape=shape)
     edge = k2_edge_cases(torch, np, columns, tables, dev)
     out["column_out_degree"] = dict(
         source="raphtory_tpu_torch/csrc/pagerank_columns.cu",
@@ -616,28 +663,6 @@ def phase_kernels(torch, np, columns, tables, dev):
         st_k, agg, deg, mv, n_act, 0.85, 1e-7))
     c_plain = cuda_ms(torch, lambda: columns.pagerank_update_plain(
         st_p, agg, deg, mv, n_act, 0.85, 1e-7))
-    if PARENT is not None:
-        # the primed rd is one product per element in both; the update
-        # reads the dangling mass, which the parent summed in f32 partials
-        one, cp = (columns.rank_state(r0.clone()) for _ in range(2))
-        PARENT.pagerank_update(one, None, deg, mv, n_act, 0.85, 1e-7,
-                               prime=True)
-        columns.pagerank_update(cp, None, deg, mv, n_act, 0.85, 1e-7,
-                                prime=True)
-        if not torch.equal(cp.rd, one.rd):
-            raise AssertionError("K2c's primed rd differs from the parent's")
-        PARENT.pagerank_update(one, agg, deg, mv, n_act, 0.85, 1e-7)
-        columns.pagerank_update(cp, agg, deg, mv, n_act, 0.85, 1e-7)
-        if not (within_tol(cp.r, one.r) and within_tol(cp.rd, one.rd)
-                and torch.equal(cp.halted, one.halted)):
-            raise AssertionError("K2c's update differs from the parent's")
-        st_o = columns.rank_state(r0.clone())
-        PARENT.pagerank_update(st_o, None, deg, mv, n_act, 0.85, 1e-7,
-                               prime=True)
-        vs_parent(torch, "pagerank_update headline", lambda: (
-            columns.pagerank_update(st_k, agg, deg, mv, n_act, 0.85, 1e-7)),
-            lambda: PARENT.pagerank_update(st_o, agg, deg, mv, n_act, 0.85,
-                                           1e-7), shape=f"n={n_pad} C={C}")
     edge = k2c_edge_cases(torch, np, columns, dev)
     c_err = max(c_err, max(edge.values()))
     out["pagerank_update"] = dict(
@@ -885,8 +910,10 @@ def mask_kernels(torch, np, columns, gab, dev):
     """K3 at the headline's tables and one headline chunk (H = 4 hops x 3
     windows; int32 times, int64 checked too) and K4 at the scale sweep's
     shape (``bench.py:bench_scale_pagerank``: m_pad 33,554,432, n_pad
-    5,308,416, 16 hops x 8 windows, U_e 65,536, U_v 131,072), each against
-    its twin with ``torch.equal``."""
+    5,308,416, 16 hops x 8 windows, U_e 65,536, U_v 131,072; the edge
+    call also binned through a synthetic layout) and on ``k4_edge_cases``,
+    each against its twin (and, with ``--parent``, the parent's kernel)
+    with ``torch.equal``; K4's calls timed, with their device time."""
     rng = np.random.default_rng(2)
     out = {}
 
@@ -928,8 +955,12 @@ def mask_kernels(torch, np, columns, gab, dev):
 
     # ---- K4 at the scale shape: random base states (half never seen),
     # half-full update lists padded with (0, INT32_MIN), a real update
-    # to position 0, thresholds with unwindowed (0) columns among them
+    # to position 0, thresholds with unwindowed (0) columns among them;
+    # the edge table's also binned through a synthetic layout (slots in a
+    # random order, 5 % cap-pad slots, the last 4,096 positions — the
+    # engine's pad rows — in no slot)
     H, W = 16, 8
+    C = H * W
     gen = torch.Generator(device=dev).manual_seed(3)
     i32min = torch.iinfo(torch.int32).min
 
@@ -937,7 +968,7 @@ def mask_kernels(torch, np, columns, gab, dev):
         return torch.randint(0, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    thr = rand((H * W,), 2_600_000)
+    thr = rand((C,), 2_600_000)
     thr[::5] = 0
     k4 = {}
     for length, U in ((33_554_432, 65_536), (5_308_416, 131_072)):
@@ -947,29 +978,150 @@ def mask_kernels(torch, np, columns, gab, dev):
         pos[:, U // 2:] = 0
         t[:, U // 2:] = i32min
         pos[3, 0], t[3, 0] = 0, 2_500_000
-        got = columns.scale_hop_masks(base, pos, t, thr, H, W)
-        want = columns.scale_hop_masks_plain(base, pos, t, thr, H, W)
+        args = (base, pos, t, thr, H, W)
+        launched = columns.LAUNCHES["scale_hop_masks"]
+        got = columns.scale_hop_masks(*args)
+        if columns.LAUNCHES["scale_hop_masks"] - launched != 2:
+            raise AssertionError("K4: not two launches a call")
+        want = columns.scale_hop_masks_plain(*args)
         if not torch.equal(got, want):
             raise AssertionError(f"K4 differs from its twin (len={length})")
+        if PARENT is not None and not torch.equal(
+                PARENT.scale_hop_masks(*args), got):
+            raise AssertionError(f"K4 differs from the parent's "
+                                 f"(len={length})")
+        edge = length == 33_554_432
+        shape = f"len={length} H={H} W={W} U={U}"
+        if edge:
+            real = length - 4096
+            B = -(-(real * 21 // 20) // 64) * 64
+            slots = torch.randperm(B, generator=gen, device=dev)[:real]
+            perm = torch.full((B,), length - 1, dtype=torch.int32,
+                              device=dev)
+            perm[slots] = torch.randperm(real, generator=gen, device=dev) \
+                .to(torch.int32)
+            valid = torch.zeros(B, dtype=torch.bool, device=dev)
+            valid[slots] = True
+            pos[5, :64] = length - 1 - torch.arange(64, device=dev,
+                                                    dtype=torch.int32)
+            want = columns.scale_hop_masks_plain(*args)
+            got_b = columns.scale_hop_masks(*args, perm=perm, valid=valid)
+            if not torch.equal(got_b, want[perm.long()] & valid[:, None]):
+                raise AssertionError("binned K4 differs from its twin")
+            if PARENT is not None and not torch.equal(
+                    PARENT.scale_hop_masks(*args, perm=perm, valid=valid),
+                    got_b):
+                raise AssertionError("binned K4 differs from the parent's")
+            del got_b
         del got, want
-        if length == 33_554_432:
-            k4 = dict(
-                ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
-                    base, pos, t, thr, H, W), iters=5),
-                plain_ms=cuda_ms(torch, lambda: columns.scale_hop_masks_plain(
-                    base, pos, t, thr, H, W), iters=2),
-                # base and the update lists read once, thresholds, the
-                # [len, H*W] masks written once
-                **dict(zip(("bound_ms", "bound_by"), bound(
-                    length * 4 + H * U * 8 + H * W * 4 + length * H * W))))
+        key = "edge" if edge else "vertex"
+        k4[f"{key}_ms"] = cuda_ms(torch, lambda: columns.scale_hop_masks(
+            *args), iters=5)
+        k4[f"{key}_device_ms"], k4[f"{key}_device_by"] = device_ms(
+            torch, lambda: columns.scale_hop_masks(*args), iters=5)
+        # base and the update lists read once, thresholds, the
+        # [len, H*W] masks written once
+        k4[f"{key}_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
+                                      + length * C)[0]
+        if PARENT is not None:
+            vs_parent(torch, f"scale_hop_masks {key}",
+                      lambda: columns.scale_hop_masks(*args),
+                      lambda: PARENT.scale_hop_masks(*args), iters=5,
+                      shape=shape, bound_ms=k4[f"{key}_bound_ms"])
+        if edge:
+            k4["plain_ms"] = cuda_ms(
+                torch, lambda: columns.scale_hop_masks_plain(*args), iters=2)
+            bargs = dict(perm=perm, valid=valid)
+            k4["binned_ms"] = cuda_ms(torch, lambda: columns.scale_hop_masks(
+                *args, **bargs), iters=5)
+            k4["binned_device_ms"], _ = device_ms(
+                torch, lambda: columns.scale_hop_masks(*args, **bargs),
+                iters=5)
+            # as the edge call, plus perm and valid read once, B rows out
+            k4["binned_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
+                                          + B * 5 + B * C)[0]
+            if PARENT is not None:
+                vs_parent(torch, "scale_hop_masks binned",
+                          lambda: columns.scale_hop_masks(*args, **bargs),
+                          lambda: PARENT.scale_hop_masks(*args, **bargs),
+                          iters=5, shape=f"B={B} {shape}",
+                          bound_ms=k4["binned_bound_ms"])
+            del perm, valid, slots
         del base, pos, t
     out["scale_hop_masks"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:2129",
-        max_abs_err=0.0, library_ms=None,
+        max_abs_err=0.0, library_ms=None, ms=k4["edge_ms"],
+        device_ms=k4["edge_device_ms"], plain_ms=k4["plain_ms"],
+        edge_cases=k4_edge_cases(torch, columns, dev), calls=k4,
         shape=f"len=33554432 H={H} W={W} U=65536 (len=5308416 U=131072 "
-              "checked)", **k4)
+              "and binned checked)",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            33_554_432 * 4 + H * 65_536 * 8 + C * 4 + 33_554_432 * C))))
     return out
+
+
+def k4_edge_cases(torch, columns, dev) -> int:
+    """K4 bitwise its twin (and the parent's kernel, with ``--parent``) on
+    small payloads, engine-order and binned: a row updated in every hop,
+    an update below its row's base, positions < 0 and >= len, the (0,
+    INT32_MIN) pads, unwindowed (0) and extreme thresholds, never-seen and
+    INT32_MAX bases, C = 1, 12, 15, 16, 33, 256, 4,112 (past the
+    row-mapped pass) and 8,193 (past the thresholds staged in shared
+    memory), no updates at all, and updates on the engine's pad rows,
+    which no binned slot holds. Returns the count."""
+    imin, imax = -2**31, 2**31 - 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def ri(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases = 0
+    for length, H, W, U in ((37, 3, 4, 6), (200, 3, 5, 9), (64, 2, 8, 0),
+                            (1000, 1, 1, 50), (301, 3, 11, 17),
+                            (50, 4, 64, 11), (30, 2, 2056, 7),
+                            (40, 3, 2731, 5)):
+        C = H * W
+        base = ri((length,), -50, 50)
+        base[::7] = imin
+        base[1] = imax
+        pos, t = ri((H, U), -3, length + 3), ri((H, U), -60, 60)
+        if U:
+            pos[:, -2:], t[:, -2:] = 0, imin                  # pads
+            pos[:, 0] = 2                                     # every hop
+            t[:, 0] = 40 + torch.arange(H, device=dev, dtype=torch.int32)
+            pos[-1, 1], t[-1, 1] = 1, -60        # below its INT32_MAX base
+            pos[0, 2], pos[0, 3] = -1, length    # outside [0, len)
+            pos[0, 4] = length - 1               # an engine pad row
+        thr = ri((C,), -55, 55)
+        thr[::3] = 0
+        if C > 2:
+            thr[1], thr[-1] = imin, imax
+        real = length - 3
+        B = real + 5
+        slots = torch.randperm(B, generator=gen, device=dev)[:real]
+        perm = torch.full((B,), length - 1, dtype=torch.int32, device=dev)
+        perm[slots] = torch.randperm(real, generator=gen, device=dev).to(
+            torch.int32)
+        valid = torch.zeros(B, dtype=torch.bool, device=dev)
+        valid[slots] = True
+        args = (base, pos, t, thr, H, W)
+        for kw in ({}, dict(perm=perm, valid=valid)):
+            got = columns.scale_hop_masks(*args, **kw)
+            want = columns.scale_hop_masks_plain(*args)
+            if kw:
+                want = want[perm.long()] & valid[:, None]
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4 differs from its twin (len="
+                                     f"{length}, C={C}, U={U}, binned="
+                                     f"{bool(kw)})")
+            if PARENT is not None and not torch.equal(
+                    PARENT.scale_hop_masks(*args, **kw), got):
+                raise AssertionError(f"K4 differs from the parent's (len="
+                                     f"{length}, C={C}, binned={bool(kw)})")
+            cases += 1
+    return cases
 
 
 def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
@@ -1064,14 +1216,6 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         raise AssertionError("K2b-P differs from K2b over the same masks")
     k2bp_err = exact_err(got, want)
     k2bp_ms = cuda_ms(torch, lambda: columns.binned_pull_sum(me_b, rd, be))
-    if PARENT is not None:
-        if not torch.equal(PARENT.binned_pull_sum(me_b, rd, be), got):
-            raise AssertionError("K2b-P differs from the parent's")
-        vs_parent(torch, "binned_pull_sum headline",
-                  lambda: columns.binned_pull_sum(me_b, rd, be),
-                  lambda: PARENT.binned_pull_sum(me_b, rd, be),
-                  shape=f"B={B} n_pad={n} C={C} P={spec.partitions} "
-                        f"preagg={spec.preagg}")
     cases = {}
     for P in (1024, 4096, n):
         flay = partition.build_layout(gab.e_src, gab.e_dst, n, gab.m, P)
@@ -1115,21 +1259,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         **dict(zip(("bound_ms", "bound_by"),
                    k2bp_bound(real, n, C, nnz))))
 
-    def compare(what, step, plain, x0, frozen):
-        pair = []
-        for fn in (step, plain):
-            st = minplus.min_state(x0.clone())
-            st.halted[frozen] = True
-            fn(st)
-            pair.append(st)
-        got, want = pair
-        for a, b, name in ((got.cur, want.cur, "state"),
-                           (got.halted, want.halted, "halted"),
-                           (got.done, want.done, "done")):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what}: {name} differs from its twin "
-                                     f"(frozen {frozen})")
-        return exact_err(got.cur, want.cur)
+    compare = superstep_compare(torch, columns, minplus)
 
     # ---- K5-P at GAB, C = 12
     C = 12
@@ -1137,24 +1267,32 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
     me_b, mv, _, nnz = binned_masks(gab, lay, C)
     lab = torch.where(mv, put(rng.integers(0, n, (n, C)).astype(np.int32)),
                       minplus.I32_MAX).contiguous()
+    step = (lambda st: minplus.binned_cc_superstep(st, me_b, mv, be))
+    plain = (lambda st: minplus.binned_cc_superstep_plain(st, me_b, mv, be))
+    parent = None if PARENT is None else (
+        lambda st: PARENT.binned_superstep(st, me_b, mv, be))
     err = 0.0
     for frozen in ([2], [c for c in range(C) if c != 1]):
-        err = max(err, compare(
-            "K5-P", lambda st: minplus.binned_cc_superstep(st, me_b, mv, be),
-            lambda st: minplus.binned_cc_superstep_plain(st, me_b, mv, be),
-            lab, frozen))
-    st_k, st_p = minplus.min_state(lab.clone()), minplus.min_state(
-        lab.clone())
+        err = max(err, compare("K5-P", "binned_cc_superstep", step, plain,
+                               lab, frozen, parent))
+    # and on a layout of the same table that does not pre-aggregate
+    be_flat = flay.device_edges(dev, reverse=True)
+    mf_b, mf_v, _, _ = binned_masks(gab, flay, C)
+    err = max(err, compare(
+        "K5-P (no preagg)", "binned_cc_superstep",
+        lambda st: minplus.binned_cc_superstep(st, mf_b, mf_v, be_flat),
+        lambda st: minplus.binned_cc_superstep_plain(st, mf_b, mf_v,
+                                                     be_flat), lab, [2],
+        None if PARENT is None else (
+            lambda st: PARENT.binned_superstep(st, mf_b, mf_v, be_flat))))
+    shape = (f"n_pad={n} B={B} C={C} P={spec.partitions} "
+             f"preagg={spec.preagg} U={be.U}")
     out["binned_cc_superstep"] = dict(
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:572",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: minplus.binned_cc_superstep(
-            st_k, me_b, mv, be)),
-        plain_ms=cuda_ms(torch, lambda: minplus.binned_cc_superstep_plain(
-            st_p, me_b, mv, be)),
-        library_ms=None, columns=C,
-        shape=f"n_pad={n} B={B} C={C} P={spec.partitions}",
+        max_abs_err=err, library_ms=None, columns=C, shape=shape,
+        **step_times(torch, "binned_cc_superstep", step, plain, parent, lab,
+                     minplus, shape=shape),
         # masks of the real slots (both walks) and the vertex mask, the
         # slot ids and both walks, the bucket sources, state in and out;
         # one compare per masked edge and direction
@@ -1181,24 +1319,31 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
             for frozen in ([2], [c for c in range(C) if c != 1]):
                 err = max(err, compare(
                     f"K6-P (directed={directed}, weighted={w is not None})",
+                    "binned_minplus_superstep",
                     lambda st: minplus.binned_minplus_superstep(
                         st, me_b, mv, lb, directed, w, W),
                     lambda st: minplus.binned_minplus_superstep_plain(
-                        st, me_b, mv, lb, directed, w, W), dist, frozen))
-    st_k, st_p = minplus.min_state(dist.clone()), minplus.min_state(
-        dist.clone())
+                        st, me_b, mv, lb, directed, w, W), dist, frozen,
+                    None if PARENT is None else (
+                        lambda st: PARENT.binned_superstep(
+                            st, me_b, mv, lb, directed, w, W))))
     lspec = llay.spec
+    shape = (f"n_pad={ln} B={llay.B} C={C} weighted undirected "
+             f"P={lspec.partitions} preagg={lspec.preagg} U={lb.U}")
     out["binned_minplus_superstep"] = dict(
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:653",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: minplus.binned_minplus_superstep(
-            st_k, me_b, mv, lb, False, ew, W)),
-        plain_ms=cuda_ms(torch, lambda: minplus.binned_minplus_superstep_plain(
-            st_p, me_b, mv, lb, False, ew, W)),
-        library_ms=None,
-        columns=C, shape=f"n_pad={ln} B={llay.B} C={C} weighted undirected "
-              f"P={lspec.partitions} preagg={lspec.preagg}",
+        max_abs_err=err, library_ms=None, columns=C, shape=shape,
+        **step_times(
+            torch, "binned_minplus_superstep",
+            lambda st: minplus.binned_minplus_superstep(st, me_b, mv, lb,
+                                                        False, ew, W),
+            lambda st: minplus.binned_minplus_superstep_plain(
+                st, me_b, mv, lb, False, ew, W),
+            None if PARENT is None else (
+                lambda st: PARENT.binned_superstep(st, me_b, mv, lb, False,
+                                                   ew, W)),
+            dist, minplus, shape=shape),
         # as K5-P plus the real slots' [B, H] weights; an add and a compare
         # per masked edge and direction
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -1270,6 +1415,15 @@ def check_launched(path: str, launches: dict, kernels) -> None:
                              f"{idle} ({launches})")
 
 
+def one_launch_a_superstep(path: str, launches: dict, kernel: str,
+                           steps: int) -> None:
+    """Fail unless ``kernel`` launched once a superstep in a one-dispatch
+    sweep of ``steps`` supersteps."""
+    if launches[kernel] != steps:
+        raise AssertionError(f"{path}: {launches[kernel]} {kernel} launches "
+                             f"for {steps} supersteps")
+
+
 def exact_err(got, want) -> float:
     """Max abs difference of two equal-shaped tensors, 0 where they are
     equal (so inf == inf counts as no error)."""
@@ -1278,6 +1432,56 @@ def exact_err(got, want) -> float:
     diff = torch.where(got == want, 0.0,
                        (got.double() - want.double()).abs())
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def superstep_compare(torch, columns, minplus):
+    """``compare(what, name, step, plain, x0, frozen, parent=None)``: one
+    superstep of the kernel (``step``, which must add exactly one launch to
+    ``LAUNCHES[name]``), of its twin and (``parent``, with ``--parent``) of
+    the parent's kernel from the same state, columns ``frozen`` halted
+    before it; state, halted flags and the all-halted flag bitwise the
+    twin's and the parent's. Returns the max abs err against the twin."""
+
+    def compare(what, name, step, plain, x0, frozen, parent=None):
+        states = []
+        for i, fn in enumerate((step, plain, parent)):
+            if fn is None:
+                continue
+            st = minplus.min_state(x0.clone())
+            st.halted[frozen] = True
+            launched = columns.LAUNCHES[name]
+            fn(st)
+            if i == 0 and columns.LAUNCHES[name] - launched != 1:
+                raise AssertionError(f"{what}: not one launch a superstep "
+                                     f"({columns.LAUNCHES[name] - launched})")
+            states.append(st)
+        got = states[0]
+        for other, whose in zip(states[1:], ("its twin", "the parent's")):
+            for a, b, part in ((got.cur, other.cur, "state"),
+                               (got.halted, other.halted, "halted"),
+                               (got.done, other.done, "done")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what}: {part} differs from "
+                                         f"{whose} (frozen {frozen})")
+        return exact_err(got.cur, states[1].cur)
+
+    return compare
+
+
+def step_times(torch, key: str, step, plain, parent, x0, minplus, **facts):
+    """``ms`` (CUDA events over 20 calls: the wrapper's host path counts
+    in), ``device_ms`` (the profiler's device time a call), ``plain_ms``,
+    each from its own state started at ``x0``; with ``--parent`` the
+    parent's kernel timed in turns with this one (``vs_parent``)."""
+    sts = [minplus.min_state(x0.clone()) for _ in range(4)]
+    out = dict(ms=cuda_ms(torch, lambda: step(sts[0])),
+               plain_ms=cuda_ms(torch, lambda: plain(sts[1])))
+    out["device_ms"], out["device_by"] = device_ms(torch,
+                                                   lambda: step(sts[0]))
+    if parent is not None:
+        vs_parent(torch, key, lambda: step(sts[2]), lambda: parent(sts[3]),
+                  **facts)
+    return out
 
 
 def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
@@ -1302,23 +1506,7 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
         return (torch.from_numpy(me).to(dev), torch.from_numpy(mv).to(dev),
                 int(me.sum()))
 
-    def compare(what, step, plain, x0, frozen):
-        """One superstep of the kernel and of its twin from the same state
-        (columns ``frozen`` halted before it); returns the max abs err."""
-        pair = []
-        for fn in (step, plain):
-            st = minplus.min_state(x0.clone())
-            st.halted[frozen] = True
-            fn(st)
-            pair.append(st)
-        got, want = pair
-        for a, b, name in ((got.cur, want.cur, "state"),
-                           (got.halted, want.halted, "halted"),
-                           (got.done, want.done, "done")):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what}: {name} differs from its twin "
-                                     f"(frozen {frozen})")
-        return exact_err(got.cur, want.cur)
+    compare = superstep_compare(torch, columns, minplus)
 
     # ---- K5 at GAB: n_pad 32,768, m_pad 327,680, C = 12 (12 hops x 1)
     C = 12
@@ -1327,28 +1515,27 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
     lab = torch.where(mv, torch.from_numpy(rng.integers(
         0, gab.n_pad, (gab.n_pad, C)).astype(np.int32)).to(dev),
         minplus.I32_MAX).contiguous()
+    step = (lambda st: minplus.cc_superstep(st, me, mv, e))
+    plain = (lambda st: minplus.cc_superstep_plain(st, me, mv, e))
+    parent = None if PARENT is None else (
+        lambda st: PARENT.superstep(st, me, mv, e))
     err = 0.0
     for frozen in ([2], [c for c in range(C) if c != 1]):
-        err = max(err, compare(
-            "K5", lambda st: minplus.cc_superstep(st, me, mv, e),
-            lambda st: minplus.cc_superstep_plain(st, me, mv, e), lab,
-            frozen))
+        err = max(err, compare("K5", "cc_superstep", step, plain, lab,
+                               frozen, parent))
     # every column unchanged → all halt, and the flag is set
     settled = minplus.min_state(torch.full_like(lab, minplus.I32_MAX))
     minplus.cc_superstep(settled, me, torch.zeros_like(mv), e)
     if not bool(settled.done) or not bool(settled.halted.all()):
         raise AssertionError("K5: every column settled, flag unset")
-    st_k = minplus.min_state(lab.clone())
-    st_p = minplus.min_state(lab.clone())
     n, m = gab.n_pad, gab.m
+    shape = f"n_pad={n} m_pad={gab.m_pad} C={C}"
     out["cc_superstep"] = dict(
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:538",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: minplus.cc_superstep(st_k, me, mv, e)),
-        plain_ms=cuda_ms(torch, lambda: minplus.cc_superstep_plain(
-            st_p, me, mv, e)),
-        library_ms=None, columns=C, shape=f"n_pad={n} m_pad={gab.m_pad} C={C}",
+        max_abs_err=err, library_ms=None, columns=C, shape=shape,
+        **step_times(torch, "cc_superstep", step, plain, parent, lab,
+                     minplus, shape=shape),
         # mask and vertex mask, edge ids, both CSRs and the source index,
         # state in and out, each once; one compare per masked edge and
         # direction
@@ -1375,23 +1562,29 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
             for frozen in ([2], [c for c in range(C) if c != 1]):
                 err = max(err, compare(
                     f"K6 (directed={directed}, weighted={w is not None})",
+                    "minplus_superstep",
                     lambda st: minplus.minplus_superstep(
                         st, me, mv, e, directed, w, W),
                     lambda st: minplus.minplus_superstep_plain(
-                        st, me, mv, e, directed, w, W), dist, frozen))
-    st_k = minplus.min_state(dist.clone())
-    st_p = minplus.min_state(dist.clone())
+                        st, me, mv, e, directed, w, W), dist, frozen,
+                    None if PARENT is None else (
+                        lambda st: PARENT.superstep(st, me, mv, e, directed,
+                                                    w, W))))
     n, m = ldbc.n_pad, ldbc.m
+    shape = f"n_pad={n} m_pad={ldbc.m_pad} C={C} weighted undirected"
     out["minplus_superstep"] = dict(
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:620",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: minplus.minplus_superstep(
-            st_k, me, mv, e, False, ew, W)),
-        plain_ms=cuda_ms(torch, lambda: minplus.minplus_superstep_plain(
-            st_p, me, mv, e, False, ew, W)),
-        library_ms=None, columns=C,
-        shape=f"n_pad={n} m_pad={ldbc.m_pad} C={C} weighted undirected",
+        max_abs_err=err, library_ms=None, columns=C, shape=shape,
+        **step_times(
+            torch, "minplus_superstep",
+            lambda st: minplus.minplus_superstep(st, me, mv, e, False, ew,
+                                                 W),
+            lambda st: minplus.minplus_superstep_plain(st, me, mv, e, False,
+                                                       ew, W),
+            None if PARENT is None else (
+                lambda st: PARENT.superstep(st, me, mv, e, False, ew, W)),
+            dist, minplus, shape=shape),
         # as K5 plus the [m_pad, H] weights; an add and a compare per
         # masked edge and direction
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -1475,6 +1668,7 @@ def phase_cc_range(torch, np, columns, log, dev):
         torch, columns, lambda: HopBatchedCC(log, max_steps=50, device=dev),
         hops, windows, chunks=1)
     check_launched("cc_range", launches, CC_KERNELS)
+    one_launch_a_superstep("cc_range", launches, "cc_superstep", steps)
     ref, ref_steps = HopBatchedCC(log, max_steps=50, device="cpu").run(
         hops, windows)
     bitwise_vs_cpu("cc_range", labels, steps, ref, ref_steps)
@@ -1525,6 +1719,9 @@ def phase_ldbc_traversal(torch, np, columns, log, dev):
         ref, ref_steps = make("cpu").run(hops, windows, chunks=chunks)
         bitwise_vs_cpu(f"ldbc_traversal {name}", dist, steps, ref,
                        ref_steps)
+        if chunks == 1:
+            one_launch_a_superstep(f"ldbc_traversal {name}", launches,
+                                   "minplus_superstep", steps)
         reached = int(torch.isfinite(ref[-1]).sum())
         if reached <= len(seeds):
             raise AssertionError(f"ldbc {name}: only {reached} reached")
@@ -2258,6 +2455,12 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
                                    ("bin_masks",) + tuple(
                                        k for k in kernels
                                        if k != "weights_from_deltas"))
+                step_kernel = {"cc_range": "binned_cc_superstep",
+                               "ldbc_bfs": "binned_minplus_superstep",
+                               "ldbc_sssp": "binned_minplus_superstep"}
+                if name in step_kernel:           # chunks=1: one dispatch
+                    one_launch_a_superstep(f"pcpm {key}", launches,
+                                           step_kernel[name], steps)
                 if name == "headline" and launches["binned_pull_sum"] != \
                         launches["pagerank_update"] - kw["chunks"]:
                     # a prime a chunk, then a pull and an update a superstep
@@ -2455,6 +2658,12 @@ def phase_scale_bulk(torch, np, columns, dev):
         launches = dict(columns.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check_launched("scale_bulk", launches, SCALE_KERNELS)
+    if launches["scale_hop_masks"] > 4:
+        raise AssertionError(f"scale_bulk: K4 launched "
+                             f"{launches['scale_hop_masks']} times in a "
+                             "sweep (two calls, two launches each)")
+    parent_sweep = (parent_k4_sweep(torch, columns, sweep, ranks, steps)
+                    if PARENT is not None else {})
     if steps != iters:
         raise AssertionError(f"scale_bulk ran {steps} supersteps, not "
                              f"{iters} (tol 0 never halts)")
@@ -2539,18 +2748,29 @@ def phase_scale_bulk(torch, np, columns, dev):
         me, rd, e_src, e_dst, indptr), iters=3)
     k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
         st, agg, deg, mv, n_act, 0.85, 0.0), iters=3)
-    # K4's two calls alone on this payload: the edge table's and (no run
-    # had timed it) the vertex table's
+    # K4's two calls alone on this payload, with their device time (and
+    # the parent's kernel on the same payload, bitwise, timed in turns)
     U_e, U_v = prep[0], prep[1]
-    k4 = dict(
-        k4_edge_ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
-            base_e, *prep[2:4], prep[6], H, W), iters=3),
-        k4_edge_bound_ms=bound(m_pad * 4 + H * U_e * 8 + C * 4
-                               + m_pad * C)[0],
-        k4_vertex_ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
-            base_v, *prep[4:7], H, W), iters=3),
-        k4_vertex_bound_ms=bound(n_pad * 4 + H * U_v * 8 + C * 4
-                                 + n_pad * C)[0])
+    k4 = {}
+    for key, args, length, U in (
+            ("edge", (base_e, *prep[2:4], prep[6], H, W), m_pad, U_e),
+            ("vertex", (base_v, *prep[4:7], H, W), n_pad, U_v)):
+        k4[f"k4_{key}_ms"] = cuda_ms(
+            torch, lambda: columns.scale_hop_masks(*args), iters=3)
+        k4[f"k4_{key}_device_ms"], _ = device_ms(
+            torch, lambda: columns.scale_hop_masks(*args), iters=3)
+        k4[f"k4_{key}_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
+                                         + length * C)[0]
+        if PARENT is not None:
+            if not torch.equal(PARENT.scale_hop_masks(*args),
+                               me if key == "edge" else mv):
+                raise AssertionError(f"scale_bulk: K4's {key} call differs "
+                                     "from the parent's")
+            vs_parent(torch, f"scale_hop_masks {key} scale_bulk",
+                      lambda: columns.scale_hop_masks(*args),
+                      lambda: PARENT.scale_hop_masks(*args), iters=3,
+                      shape=f"len={length} H={H} W={W} U={U}",
+                      bound_ms=k4[f"k4_{key}_bound_ms"])
     # the bounds at this shape (inputs read once, outputs written once;
     # K2b's gathers also counted, as K2b-P's, on these masks)
     k2_bounds = dict(
@@ -2560,36 +2780,6 @@ def phase_scale_bulk(torch, np, columns, dev):
         **{f"k2b_{k}": v for k, v in gather_bounds(
             torch, me, m, n_pad, C, 4).items()})
     k2a_lib_ms, k2a_lib_by = k2a_library_ms(torch, me, e_src, n_pad)
-    if PARENT is not None:
-        if not torch.equal(PARENT.column_out_degree(me, e_src, n_pad), deg):
-            raise AssertionError("scale_bulk: K2a differs from the parent's")
-        if not torch.equal(PARENT.column_pull_sum(me, rd, e_src, indptr),
-                           agg):
-            raise AssertionError("scale_bulk: K2b differs from the parent's")
-        shape = f"m_pad={m_pad} m={m} n_pad={n_pad} C={C}"
-        vs_parent(torch, "column_out_degree scale",
-                  lambda: columns.column_out_degree(me, e_src, n_pad, walk),
-                  lambda: PARENT.column_out_degree(me, e_src, n_pad),
-                  iters=3, shape=shape, bound_ms=k2_bounds["k2a_bound_ms"],
-                  library_ms=k2a_lib_ms, library_by=k2a_lib_by)
-        vs_parent(torch, "column_pull_sum scale",
-                  lambda: columns.column_pull_sum(me, rd, e_src, e_dst,
-                                                  indptr),
-                  lambda: PARENT.column_pull_sum(me, rd, e_src, indptr),
-                  iters=3, shape=shape,
-                  bound_ms=k2_bounds["k2b_bound_ms"],
-                  gather_sector_bound_ms=k2_bounds[
-                      "k2b_gather_sector_bound_ms"])
-        st_o = columns.rank_state(st.r.clone())
-        PARENT.pagerank_update(st_o, None, deg, mv, n_act, 0.85, 0.0,
-                               prime=True)
-        vs_parent(torch, "pagerank_update scale", lambda: (
-            columns.pagerank_update(st, agg, deg, mv, n_act, 0.85, 0.0)),
-            lambda: PARENT.pagerank_update(st_o, agg, deg, mv, n_act, 0.85,
-                                           0.0),
-            iters=3, shape=f"n={n_pad} C={C}",
-            bound_ms=k2c_bound(n_pad, C)[0])
-        del st_o
     del me, mv, deg, st, agg, rd
     best = min(reps)
     emit("scale_bulk", n_edge_events=1 << 25, n=bulk.n, m=m, n_pad=n_pad,
@@ -2602,7 +2792,7 @@ def phase_scale_bulk(torch, np, columns, dev):
          k2a_library_by=k2a_lib_by, k2b_ms_per_superstep=k2b_ms,
          k2c_ms_per_superstep=k2c_ms, **k2_bounds, **k4,
          peak_device_bytes=peak, launches=launches,
-         max_abs_err_vs_twins=errs)
+         max_abs_err_vs_twins=errs, **parent_sweep)
     pcpm_launches, pcpm_errs = scale_bulk_pcpm(
         torch, np, columns, bulk, base_e, base_v, sweep, kw, ranks, steps)
     del kw, base_e, base_v, bulk, d_e, d_v, ranks
@@ -2668,12 +2858,35 @@ def phase_scale_bulk(torch, np, columns, dev):
     return launches, errs, pcpm_launches, pcpm_errs
 
 
+def parent_k4_sweep(torch, columns, sweep, ranks, steps) -> dict:
+    """One ``sweep()`` with K4 the parent's kernel (``--parent``): its
+    ranks bitwise ``ranks``, its seconds and peak device bytes beside this
+    tree's (the same payload, the same K2)."""
+    own = columns.scale_hop_masks
+    columns.scale_hop_masks = PARENT.scale_hop_masks
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, got_steps = sweep()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        columns.scale_hop_masks = own
+    if not torch.equal(got, ranks) or got_steps != steps:
+        raise AssertionError("scale_bulk: the ranks with the parent's K4 "
+                             "differ from this tree's")
+    return dict(parent_k4_sweep_s=secs,
+                parent_k4_peak_device_bytes=torch.cuda.max_memory_allocated(),
+                ranks_bitwise_vs_parent_k4=True)
+
+
 def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
                     flat_ranks, flat_steps):
     """The binned route (knob unset: auto) on ``scale_bulk``'s load: the
     layout built on the bulk graph (set-up, beside ``bulk_s``), one warm
     call and two timed sweeps, the ranks held bitwise against the
-    unbinned sweep's; KB1's scale form and K2b-P (no pre-aggregation at
+    unbinned sweep's; the binned K4 and K2b-P (no pre-aggregation at
     this shape) against their twins at this shape."""
     from raphtory_tpu_torch.ops import partition
 
@@ -2707,23 +2920,50 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
             launches = dict(columns.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
     check_launched("scale_bulk pcpm", launches, (
-        "scale_hop_masks", "bin_masks", "column_out_degree",
-        "binned_pull_sum", "pagerank_update"))
-    if launches["column_pull_sum"]:
-        raise AssertionError("scale_bulk pcpm: the unbinned K2b launched")
+        "scale_hop_masks", "column_out_degree", "binned_pull_sum",
+        "pagerank_update"))
+    if launches["column_pull_sum"] or launches["bin_masks"]:
+        raise AssertionError("scale_bulk pcpm: the unbinned K2b or KB1 "
+                             "launched")
+    if launches["scale_hop_masks"] > 4:
+        raise AssertionError(f"scale_bulk pcpm: K4 launched "
+                             f"{launches['scale_hop_masks']} times a sweep")
     if not torch.equal(ranks, flat_ranks) or steps != flat_steps:
         raise AssertionError("scale_bulk pcpm: the binned ranks differ from "
                              "the unbinned sweep's")
-    # KB1's scale form and K2b-P against their twins at this shape (the
+    parent_sweep = {}
+    if PARENT is not None:
+        with pcpm_route(None):
+            parent_sweep = parent_k4_sweep(torch, columns, sweep, ranks,
+                                           steps)
+    # the binned K4 and K2b-P against their twins at this shape (the
     # twins 32 columns at a time); K2b-P timed a superstep
     errs = {}
-    me = columns.scale_hop_masks(base_e, *prep[2:4], prep[6], H, W,
-                                 perm=be.perm, valid=be.valid)
-    want = columns.scale_hop_masks_plain(base_e, *prep[2:4], prep[6], H, W)
+    k4_args = (base_e, *prep[2:4], prep[6], H, W)
+    bins = dict(perm=be.perm, valid=be.valid)
+    me = columns.scale_hop_masks(*k4_args, **bins)
+    want = columns.scale_hop_masks_plain(*k4_args)
     if not torch.equal(me, want[be.perm.long()] & be.valid[:, None]):
-        raise AssertionError("scale_bulk pcpm: KB1 differs from its twin")
+        raise AssertionError("scale_bulk pcpm: the binned K4 differs from "
+                             "its twin")
     del want
-    errs["bin_masks"] = 0.0
+    k4 = dict(k4_binned_ms=cuda_ms(torch, lambda: columns.scale_hop_masks(
+        *k4_args, **bins), iters=3))
+    k4["k4_binned_device_ms"], _ = device_ms(
+        torch, lambda: columns.scale_hop_masks(*k4_args, **bins), iters=3)
+    # the edge call's bytes, perm and valid read once, B rows written
+    k4["k4_binned_bound_ms"] = bound(
+        bulk.m_pad * 4 + H * prep[0] * 8 + C * 4 + lay.B * (5 + C))[0]
+    if PARENT is not None:
+        if not torch.equal(PARENT.scale_hop_masks(*k4_args, **bins), me):
+            raise AssertionError("scale_bulk pcpm: the binned K4 differs "
+                                 "from the parent's")
+        vs_parent(torch, "scale_hop_masks binned scale_bulk",
+                  lambda: columns.scale_hop_masks(*k4_args, **bins),
+                  lambda: PARENT.scale_hop_masks(*k4_args, **bins), iters=3,
+                  shape=f"B={lay.B} len={bulk.m_pad} C={C}",
+                  bound_ms=k4["k4_binned_bound_ms"])
+    errs["scale_hop_masks"] = 0.0
     rd = (ranks.t() * 0.5).contiguous()
     del ranks
     agg = columns.binned_pull_sum(me, rd, be)
@@ -2765,14 +3005,6 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     k2bp = dict(k2bp_bound_ms=k2bp_bound(real, n_pad, C, int(me.sum()))[0],
                 **{f"k2bp_{k}": v for k, v in gather_bounds(
                     torch, me, real, n_pad, C, 8).items()})
-    if PARENT is not None:
-        if not torch.equal(PARENT.binned_pull_sum(me, rd, be), agg):
-            raise AssertionError("scale_bulk pcpm: K2b-P differs from the "
-                                 "parent's")
-        vs_parent(torch, "binned_pull_sum scale",
-                  lambda: columns.binned_pull_sum(me, rd, be),
-                  lambda: PARENT.binned_pull_sum(me, rd, be), iters=3,
-                  shape=f"B={lay.B} n_pad={n_pad} C={C}", **k2bp)
     del me, rd, agg
     best = min(reps)
     PHASE_S["scale_bulk_pcpm"] = time.perf_counter() - t_phase
@@ -2780,9 +3012,9 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
          source_walk_s=rev_walk_s, setup_s=setup_s, sweep_s=best,
          repeat_sweep_s=reps, views_per_s=C / best, supersteps=steps,
          k2a_ms_per_call=k2a_ms, k2bp_ms_per_superstep=k2bp_ms, **k2bp,
-         bitwise_vs_k2b=True, peak_device_bytes=peak,
+         bitwise_vs_k2b=True, peak_device_bytes=peak, **k4,
          launches=launches, bitwise_vs_unbinned=True,
-         max_abs_err_vs_twins=errs)
+         max_abs_err_vs_twins=errs, **parent_sweep)
     return launches, errs
 
 
@@ -4607,7 +4839,7 @@ def main() -> int:
     global PARENT
     args = sys.argv[1:]
     if args[:1] == ["--parent"] and len(args) == 2:
-        PARENT = ParentK2(columns, args[1])
+        PARENT = Parent(columns, args[1])
     elif args:
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
@@ -4650,9 +4882,9 @@ def main() -> int:
                          minplus, segment, tables, ldbc_tables,
                          build_view(log, int(0.90 * GAB_SPAN)), dev))
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
-                                 if kk in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms", "max_abs_err",
-                                           "shape")}
+                                 if kk in ("ms", "device_ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "max_abs_err", "shape")}
                              for k, v in kernels.items()})
     launches = timed("headline", phase_headline, torch, np, columns,
                      HopBatchedPageRank, log, dev)

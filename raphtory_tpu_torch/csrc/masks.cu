@@ -64,32 +64,46 @@
 //     out[i, h*W + w] = cur[i] >= thr[h*W + w]
 // (thr = max(T - w, 0), or 0 unwindowed; never-seen entities hold
 // INT32_MIN). Pads are (pos 0, INT32_MIN): a max no-op at a VALID index, so
-// position 0 is not skipped — only positions outside [0, len) are. atomicMax
-// on int32 is exact, so the state, and the masks, are the same bits in any
-// order. Design: hop h's state is a row of an [H, len] int32 snapshot — a
-// device copy of row h-1 (the base for h = 0), then one scatter-max launch
-// over hop h's list — and one launch of K3's tiled transpose (no alive
-// column, no unwindowed flag, hop c / W of column c) writes every mask row
-// once, coalesced. Bound: bytes, the base and the update lists read once
-// and len * H * W mask bytes written; the design moves the snapshot
-// (2 * H * len * 4 bytes of copies and H * len * 4 of transpose reads) on
-// top. H + 1 launches a call.
+// position 0 is not skipped — only positions outside [0, len) are.
+//   Design: the state is never built. A running max reaches a threshold
+// exactly when one of its terms does, so
+//     out[i, c] = base[i] >= thr[c]
+//                 || some update (h', i, t) with h' <= c / W has t >= thr[c]
+// for any int32 values (the pads and an unwindowed thr of 0 need no special
+// case). Pass A writes the first term for every row: a thread owns 16
+// columns of a row, built from one base value and 16 thresholds held in
+// registers and written as one 16-byte store, so a 128-column row is one
+// 128-byte line written once by 8 neighbouring threads, each thread with
+// 4 rows' base values in flight (C not a multiple of 16 takes flat
+// 16-byte chunks across row ends, the thresholds in shared memory, byte
+// by byte where a chunk is short). Pass B, after it on the stream, adds
+// the second: a warp loads 32 updates (h, u) at once and takes them in
+// turn, its lanes over the columns [h * W, C) of the update's row, each
+// storing a 1 where t >= thr[c]. Bits are only ever set to 1, so several
+// updates of one row need no atomics and no order. Bound: bytes — the
+// base and the update lists read once and len * H * W mask bytes written;
+// pass A moves exactly that, pass B one line of each updated row. Two
+// launches a call (one with no updates), no snapshot, no device copy.
 //
 // KB1 — the binned mask emission of the destination-binned (PCPM) route.
 // Replaces raphtory_tpu/engine/hopbatch.py:283 `_bin_masks` (the host-
-// column route's permutation of K3's edge masks into the binned layout)
-// and the binned `col_of` of :2126-2137 (K4's columns read through the
-// layout permutation, hop state still advancing in engine order). Binned
-// slot b of the [B, C] output is
+// column route's permutation of K3's edge masks into the binned layout).
+// Binned slot b of the [B, C] output is
 //     out[b, c] = valid[b] && mask of edge perm[b] in column c
-// (perm, valid: ops/partition.py). One pass: K3's / K4's tiled transpose
-// whose read side gathers entity perm[b] instead of b, so the engine-order
+// (perm, valid: ops/partition.py). One pass: K3's tiled transpose whose
+// read side gathers entity perm[b] instead of b, so the engine-order
 // [m_pad, C] masks are never materialised next to the binned ones. The
 // reads are no longer neighbouring words (slots sort by source within a
 // partition, engine positions by destination); the writes stay coalesced.
-// Bound: bytes — the input columns (or the snapshot) read once, perm and
-// valid once, B * C mask bytes written. The vertex masks are K3's.
-// One launch a call.
+// Bound: bytes — the input columns read once, perm and valid once, B * C
+// mask bytes written. The vertex masks are K3's. One launch a call.
+//   K4 binned (the binned `col_of` of hopbatch.py:2126-2137: the hop state
+// advances in engine order, its columns are read through the layout
+// permutation) is K4's two passes over the [B, C] output: pass A reads row
+// b's base at perm[b] (0 where !valid[b]), pass B writes an update of
+// engine position p into slot inv[p], the device inverse of perm
+// (ops/columns.py `slot_inverse`: -1 where no valid slot holds p, as for
+// the engine's pad rows, which pass B then skips).
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/columns.py).
 // Every entry point launches on the caller's stream, allocates nothing,
@@ -197,8 +211,7 @@ int masks_from_deltas(int64_t len, int64_t H, int64_t W, int64_t U, int64_t h0,
 constexpr int kTile = 32;   // K3 tile: 32 entities x 32 columns
 
 // The 32 columns of a block's column tile [c0, c0 + 32): hop row, bound and
-// unwindowed flag, read once per block (no division per mask byte).
-// `hop_of_col` null: hop c / W; `nowin` null: every column windowed.
+// unwindowed flag, read once per block.
 template <typename T>
 struct ColumnTile {
     int64_t hop[kTile];
@@ -207,7 +220,7 @@ struct ColumnTile {
 };
 
 template <typename T>
-__device__ void load_column_tile(int64_t c0, int64_t C, int64_t W,
+__device__ void load_column_tile(int64_t c0, int64_t C,
                                  const int32_t* __restrict__ hop_of_col,
                                  const T* __restrict__ lo,
                                  const uint8_t* __restrict__ nowin,
@@ -215,9 +228,9 @@ __device__ void load_column_tile(int64_t c0, int64_t C, int64_t W,
     if (threadIdx.x < kTile) {
         const int64_t c = c0 + threadIdx.x;
         if (c < C) {
-            ct->hop[threadIdx.x] = hop_of_col ? hop_of_col[c] : c / W;
+            ct->hop[threadIdx.x] = hop_of_col[c];
             ct->lo[threadIdx.x] = lo[c];
-            ct->nowin[threadIdx.x] = nowin ? nowin[c] : 0;
+            ct->nowin[threadIdx.x] = nowin[c];
         }
     }
     __syncthreads();
@@ -225,7 +238,7 @@ __device__ void load_column_tile(int64_t c0, int64_t C, int64_t W,
 
 // One 32 x 32 tile of K3's masks: rows [i0, i0 + 32) of `out [len, C]`,
 // the block's columns [c0, c0 + 32), read from hop rows of `stride`
-// entities. `alive` null: no alive test. `perm` null: row i reads entity i;
+// entities. `perm` null: row i reads entity i;
 // else entity perm[i], and `valid[i]` false gives 0 (the binned rows of
 // KB1, which gather through the layout permutation).
 template <typename T>
@@ -251,8 +264,7 @@ __device__ void mask_tile(int64_t i0, int64_t c0, int64_t len,
         uint8_t m = 0;
         if (live) {
             const int64_t k = ct->hop[cl] * stride + src;
-            m = (!alive || alive[k])
-                && (ct->nowin[cl] || lat[k] >= ct->lo[cl]);
+            m = alive[k] && (ct->nowin[cl] || lat[k] >= ct->lo[cl]);
         }
         sh[lane][cl] = m;
     }
@@ -286,7 +298,7 @@ __global__ void column_masks(int64_t m, int64_t m_src, int64_t n, int64_t H,
     __shared__ uint8_t sh[kTile][kTile + 1];
     __shared__ ColumnTile<T> ct;
     const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
-    load_column_tile<T>(c0, C, 1, hop_of_col, lo, nowin, &ct);
+    load_column_tile<T>(c0, C, hop_of_col, lo, nowin, &ct);
     const int64_t te = (m + kTile - 1) / kTile;
     const int64_t total = te + (n + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
@@ -300,41 +312,222 @@ __global__ void column_masks(int64_t m, int64_t m_src, int64_t n, int64_t H,
     }
 }
 
-__global__ void scatter_max_i32(int64_t len, int64_t U,
-                                const int32_t* __restrict__ pos,
-                                const int32_t* __restrict__ t,
-                                int32_t* __restrict__ cur) {
+// ---------------------------------------------------------------- K4
+
+constexpr int kChunk = 16;          // output bytes a pass-A thread writes
+constexpr int64_t kThrShared = 8192;   // most thresholds staged in shared
+
+// one threshold compare as a mask byte
+__device__ __forceinline__ uint32_t ge(int32_t v, int32_t t) {
+    return v >= t ? 1u : 0u;
+}
+
+// pass A's value of output row r: base[r], or (BINNED) base[perm[r]] where
+// valid[r] (live false, and no read, elsewhere)
+template <bool BINNED>
+__device__ __forceinline__ int32_t row_value(int64_t r,
+                                             const int32_t* __restrict__ base,
+                                             const int32_t* __restrict__ perm,
+                                             const uint8_t* __restrict__ valid,
+                                             bool& live) {
+    if (!BINNED) {
+        live = true;
+        return base[r];
+    }
+    live = valid[r] != 0;
+    return live ? base[perm[r]] : 0;
+}
+
+constexpr int kRowsInFlight = 4;     // rows a pass-A thread loads at once
+
+// Pass A where C % 16 == 0 and C <= 16 * 256: out[r, c] = live(r) &&
+// val(r) >= thr[c]. A thread owns the 16 columns [16 q, 16 q + 16) of
+// every row it writes (q = thread % (C / 16), its thresholds held in
+// registers), a block C / 16 threads a row and 256 / (C / 16) rows at a
+// time; a thread loads kRowsInFlight rows' values before it writes any,
+// then writes each as one 16-byte store — no division in the loop.
+template <bool BINNED>
+__global__ void __launch_bounds__(kThreads) threshold_rows(
+        int64_t rows, int64_t C, const int32_t* __restrict__ base,
+        const int32_t* __restrict__ thr, const int32_t* __restrict__ perm,
+        const uint8_t* __restrict__ valid, uint8_t* __restrict__ out) {
+    const int cpr = static_cast<int>(C / kChunk);
+    const int rpb = blockDim.x / cpr;
+    const int64_t c = static_cast<int64_t>(kChunk) * (threadIdx.x % cpr);
+    int32_t th[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) th[i] = __ldg(thr + c + i);
+    const int64_t step = static_cast<int64_t>(gridDim.x) * rpb * kRowsInFlight;
+    for (int64_t r0 = static_cast<int64_t>(blockIdx.x) * rpb * kRowsInFlight
+                      + threadIdx.x / cpr;
+         r0 < rows; r0 += step) {
+        int32_t v[kRowsInFlight];
+        bool live[kRowsInFlight];
+#pragma unroll
+        for (int k = 0; k < kRowsInFlight; ++k) {
+            const int64_t r = r0 + static_cast<int64_t>(k) * rpb;
+            live[k] = false;
+            v[k] = r < rows ? row_value<BINNED>(r, base, perm, valid, live[k])
+                            : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsInFlight; ++k) {
+            const int64_t r = r0 + static_cast<int64_t>(k) * rpb;
+            if (r >= rows) break;
+            uint32_t w[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                w[q] = live[k] ? (ge(v[k], th[4 * q])
+                                  | ge(v[k], th[4 * q + 1]) << 8
+                                  | ge(v[k], th[4 * q + 2]) << 16
+                                  | ge(v[k], th[4 * q + 3]) << 24)
+                               : 0u;
+            }
+            *reinterpret_cast<uint4*>(out + r * C + c) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+        }
+    }
+}
+
+// Pass A for any other C: the flat [rows, C] bytes, 16 a thread, the
+// chunk running across row ends (one 16-byte store where it is whole,
+// byte stores at the end); thresholds staged in shared memory up to
+// kThrShared columns, read from global memory past that.
+template <bool BINNED>
+__global__ void __launch_bounds__(kThreads) threshold_pass(
+        int64_t rows, int64_t C, const int32_t* __restrict__ base,
+        const int32_t* __restrict__ thr, const int32_t* __restrict__ perm,
+        const uint8_t* __restrict__ valid, uint8_t* __restrict__ out) {
+    extern __shared__ int32_t s_thr[];
+    const bool staged = C <= kThrShared;
+    if (staged) {
+        for (int64_t c = threadIdx.x; c < C; c += blockDim.x) s_thr[c] = thr[c];
+        __syncthreads();
+    }
+    const int32_t* t_of = staged ? s_thr : thr;
+    const int64_t total = rows * C;
+    const int64_t chunks = (total + kChunk - 1) / kChunk;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         u < U; u += stride) {
-        const int64_t p = pos[u];
-        if (p < 0 || p >= len) continue;   // outside the table (pad 0 is valid)
-        atomicMax(cur + p, t[u]);
+    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         k < chunks; k += stride) {
+        const int64_t f = k * kChunk;
+        int64_t r = f / C;
+        int64_t c = f - r * C;
+        bool live;
+        int32_t v = row_value<BINNED>(r, base, perm, valid, live);
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        const int n = total - f < kChunk ? static_cast<int>(total - f)
+                                         : kChunk;
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+            if (i < n) {
+                if (c == C) {            // the next row starts in the chunk
+                    c = 0;
+                    ++r;
+                    v = row_value<BINNED>(r, base, perm, valid, live);
+                }
+                if (live && v >= t_of[c]) w[i >> 2] |= 1u << (8 * (i & 3));
+                ++c;
+            }
+        }
+        if (n == kChunk) {
+            *reinterpret_cast<uint4*>(out + f) = make_uint4(w[0], w[1], w[2],
+                                                            w[3]);
+        } else {
+            for (int i = 0; i < n; ++i)
+                out[f + i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
+        }
     }
 }
 
-// K3's tiled transpose over one entity table (the K4 pass): no alive
-// column, every column windowed, hop c / W. `out` has len rows read from
-// snapshot rows of `stride` entities, through perm/valid when binned (KB1).
-__global__ void threshold_masks(int64_t len, int64_t stride, int64_t C,
-                                int64_t W,
-                                const int32_t* __restrict__ snap,
-                                const int32_t* __restrict__ thr,
-                                const int32_t* __restrict__ perm,
-                                const uint8_t* __restrict__ valid,
-                                uint8_t* __restrict__ out) {
-    __shared__ uint8_t sh[kTile][kTile + 1];
-    __shared__ ColumnTile<int32_t> ct;
-    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
-    load_column_tile<int32_t>(c0, C, W, nullptr, thr, nullptr, &ct);
-    const int64_t total = (len + kTile - 1) / kTile;
-    for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
-        mask_tile<int32_t>(t * kTile, c0, len, stride, C, snap, nullptr,
-                           perm, valid, &ct, out, sh);
+// Pass B: updates g = (h, u) of the [H, U] lists, 32 a warp at a time —
+// each lane loads one update's (pos, t) and its row, so 32 loads are in
+// flight, then the warp takes the live ones in turn (broadcast by
+// shuffle), its lanes over the columns [h * W, C) of the update's row,
+// storing a 1 where t >= thr[c]. An update at a position outside [0, len)
+// is skipped, and so (BINNED) is one whose position no slot holds
+// (inv[p] = -1), and one with t = INT32_MIN (the pads): it could only set
+// a column whose threshold is INT32_MIN, which pass A set on every live
+// row. Only 1s are stored, so racing updates of one row agree.
+template <bool BINNED>
+__global__ void __launch_bounds__(kThreads) update_pass(
+        int64_t len, int64_t W, int64_t U, int64_t C, int64_t updates,
+        const int32_t* __restrict__ pos, const int32_t* __restrict__ t,
+        const int32_t* __restrict__ thr, const int32_t* __restrict__ inv,
+        uint8_t* __restrict__ out) {
+    extern __shared__ int32_t s_thr[];
+    const bool staged = C <= kThrShared;
+    if (staged) {
+        for (int64_t c = threadIdx.x; c < C; c += blockDim.x) s_thr[c] = thr[c];
+        __syncthreads();
+    }
+    const int32_t* t_of = staged ? s_thr : thr;
+    const unsigned all = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+    for (int64_t g0 = ((static_cast<int64_t>(blockIdx.x) * blockDim.x
+                        + threadIdx.x) >> 5) * 32;
+         g0 < updates; g0 += warps * 32) {
+        const int64_t g = g0 + lane;
+        long long row = -1;
+        int32_t tt = INT32_MIN;
+        long long c0 = 0;
+        if (g < updates) {
+            const int64_t p = pos[g];
+            tt = t[g];
+            if (p >= 0 && p < len) row = BINNED ? inv[p] : p;
+            c0 = (g / U) * W;
+        }
+        unsigned live = __ballot_sync(all, row >= 0 && tt != INT32_MIN);
+        while (live) {
+            const int k = __ffs(live) - 1;
+            live &= live - 1;
+            const long long r = __shfl_sync(all, row, k);
+            const int32_t tk = __shfl_sync(all, tt, k);
+            uint8_t* o = out + r * C;
+            for (long long c = __shfl_sync(all, c0, k) + lane; c < C; c += 32)
+                if (tk >= t_of[c]) o[c] = 1;
+        }
     }
 }
 
-// Grid of a K3 / K4 pass: one block row per column tile (y), the row tiles
+template <bool BINNED>
+int scale_passes(int64_t rows, int64_t len, int64_t H, int64_t W, int64_t U,
+                 const int32_t* base, const int32_t* pos, const int32_t* t,
+                 const int32_t* thr, const int32_t* perm,
+                 const uint8_t* valid, const int32_t* inv, uint8_t* out,
+                 cudaStream_t st, int64_t* launched) {
+    const int64_t C = H * W;
+    if (rows <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+    if (C % kChunk == 0 && C <= kChunk * kThreads) {
+        const int cpr = static_cast<int>(C / kChunk);
+        const int rpb = kThreads / cpr;
+        threshold_rows<BINNED><<<blocks_for((rows + kRowsInFlight - 1)
+                                            / kRowsInFlight * cpr),
+                                 rpb * cpr, 0, st>>>(rows, C, base, thr, perm,
+                                                     valid, out);
+    } else {
+        const size_t smem = C <= kThrShared ? static_cast<size_t>(C) * 4 : 0;
+        threshold_pass<BINNED><<<blocks_for((rows * C + kChunk - 1) / kChunk),
+                                 kThreads, smem, st>>>(rows, C, base, thr,
+                                                       perm, valid, out);
+    }
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+    if (U > 0 && len > 0) {
+        const int64_t updates = H * U;
+        const size_t smem = C <= kThrShared ? static_cast<size_t>(C) * 4 : 0;
+        update_pass<BINNED><<<blocks_for(updates), kThreads, smem, st>>>(
+            len, W, U, C, updates, pos, t, thr, inv, out);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ++*launched;
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Grid of a K3 pass: one block row per column tile (y), the row tiles
 // strided over x, about 132 * 32 blocks in all.
 inline dim3 tile_grid(int64_t row_tiles, int64_t C) {
     const int64_t ct = (C + kTile - 1) / kTile;
@@ -455,45 +648,33 @@ int rtpu_column_masks_i64(int64_t m, int64_t n, int64_t H, int64_t C,
                                         nullptr, nullptr, me, mv, stream);
 }
 
-// K4: len entities, H hops, W windows, U updates a hop | base [len],
-// d_pos, d_t [H, U] int32, thr [H*W] int32 | snap [H, len] int32 scratch,
-// out [len, H*W] (null: build the snapshot only, for KB1's binned
-// transpose). Adds the kernels it launched to *launched.
-int rtpu_scale_hop_masks(int64_t len, int64_t H, int64_t W, int64_t U,
-                         const void* base, const void* d_pos,
-                         const void* d_t, const void* thr, void* snap,
-                         void* out, void* stream, int64_t* launched) {
+// K4: rows output rows (len; B binned), len entities, H hops, W windows,
+// U updates a hop | base [len], d_pos, d_t [H, U] int32, thr [H*W] int32,
+// perm [B] int32 / valid [B] bool / inv [len] int32 (all null unbinned),
+// out [rows, H*W] bool, 16-byte aligned. Adds the kernels it launched
+// (pass A, then pass B when there are updates) to *launched.
+int rtpu_scale_hop_masks(int64_t rows, int64_t len, int64_t H, int64_t W,
+                         int64_t U, const void* base, const void* d_pos,
+                         const void* d_t, const void* thr, const void* perm,
+                         const void* valid, const void* inv, void* out,
+                         void* stream, int64_t* launched) {
+    if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+        return static_cast<int>(cudaErrorMisalignedAddress);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* b = static_cast<const int32_t*>(base);
     const int32_t* pos = static_cast<const int32_t*>(d_pos);
     const int32_t* t = static_cast<const int32_t*>(d_t);
-    int32_t* rows = static_cast<int32_t*>(snap);
-    if (len <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-    for (int64_t h = 0; h < H; ++h) {
-        const void* prev = h ? static_cast<const void*>(rows + (h - 1) * len)
-                             : base;
-        cudaError_t e = cudaMemcpyAsync(rows + h * len, prev,
-                                        static_cast<size_t>(len) * 4,
-                                        cudaMemcpyDeviceToDevice, st);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        if (U > 0) {
-            scatter_max_i32<<<blocks_for(U), kThreads, 0, st>>>(
-                len, U, pos + h * U, t + h * U, rows + h * len);
-            e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
-            ++*launched;
-        }
+    const int32_t* th = static_cast<const int32_t*>(thr);
+    uint8_t* o = static_cast<uint8_t*>(out);
+    if (perm != nullptr) {
+        return scale_passes<true>(rows, len, H, W, U, b, pos, t, th,
+                                  static_cast<const int32_t*>(perm),
+                                  static_cast<const uint8_t*>(valid),
+                                  static_cast<const int32_t*>(inv), o, st,
+                                  launched);
     }
-    if (W > 0 && out != nullptr) {
-        const int64_t C = H * W;
-        threshold_masks<<<tile_grid((len + kTile - 1) / kTile, C), kThreads,
-                          0, st>>>(
-            len, len, C, W, rows, static_cast<const int32_t*>(thr), nullptr,
-            nullptr, static_cast<uint8_t*>(out));
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return static_cast<int>(e);
-        ++*launched;
-    }
-    return static_cast<int>(cudaGetLastError());
+    return scale_passes<false>(rows, len, H, W, U, b, pos, t, th, nullptr,
+                               nullptr, nullptr, o, st, launched);
 }
 
 // KB1 (host-column route): K3 with the edge masks emitted straight into
@@ -521,24 +702,6 @@ int rtpu_bin_column_masks_i64(int64_t B, int64_t m, int64_t n, int64_t H,
     return column_masks_launch<int64_t>(B, m, n, H, C, e_lat, e_alive, v_lat,
                                         v_alive, hop_of_col, lo, nowin, perm,
                                         valid, me, mv, stream);
-}
-
-// KB1 (scale route): K4's transpose over its [H, len] snapshot (built by
-// rtpu_scale_hop_masks with out = null), emitted binned — out [B, H*W] row
-// b from entity perm[b], 0 where !valid[b]. One launch.
-int rtpu_bin_scale_masks(int64_t B, int64_t len, int64_t H, int64_t W,
-                         const void* snap, const void* thr, const void* perm,
-                         const void* valid, void* out, void* stream) {
-    if (B > 0 && H > 0 && W > 0) {
-        const int64_t C = H * W;
-        threshold_masks<<<tile_grid((B + kTile - 1) / kTile, C), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-            B, len, C, W, static_cast<const int32_t*>(snap),
-            static_cast<const int32_t*>(thr),
-            static_cast<const int32_t*>(perm),
-            static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(out));
-    }
-    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -32,7 +32,8 @@ Destination-binned (PCPM) route: each run resolves the partition layout
 and where it bins every edge operand lives in the layout's binned space of
 ``B = P * cap`` slots: the delta route bins the base on the host and remaps
 the delta positions (K1 then runs unchanged at length B), the host-column
-route and the scale route emit their masks binned (KB1), and the passes
+route emits its masks binned (KB1) and the scale route its (K4 through the
+layout's permutation and its device inverse), and the passes
 are K2b-P (``columns.binned_pull_sum``), K5-P and K6-P
 (``minplus.binned_cc_superstep`` / ``binned_minplus_superstep``); K2a runs
 on the binned operands over the layout's source walk, and K2c as it is.
@@ -525,9 +526,9 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
     deltas raises ``ValueError``. ``device=None`` is the CUDA card.
 
     The partition layout resolves HERE on ``bulk`` (``ops/partition``
-    knobs, read at dispatch): binned, K4 advances the hop state in engine
-    order and KB1 emits the edge masks straight into the ``[B, H*W]``
-    binned layout, and the pull-sum is K2b-P."""
+    knobs, read at dispatch): binned, K4 emits the edge masks straight into
+    the ``[B, H*W]`` binned layout (the hop state advancing in engine order,
+    as the reference's), and the pull-sum is K2b-P."""
     dev = resolve_device(device)
     H = len(hop_times)
     wlist = normalize_windows(windows)

@@ -1,7 +1,8 @@
 """Kernels of the hop-batched columnar engine: K1 (with K6w, the weighted
 SSSP weight-state rebuild beside it), K3 (the host-column route's window
-masks), K4 (the bulk scale path's per-hop masks), KB1 (K3's and K4's masks
-emitted straight into the destination-binned layout) and K2 (the edge
+masks), K4 (the bulk scale path's per-hop masks, engine-order or binned),
+KB1 (K3's masks emitted straight into the destination-binned layout) and
+K2 (the edge
 passes and the superstep update of the PageRank power iteration, with
 K2b-P the binned pull-sum); the build and launch plumbing that
 ``ops/minplus.py`` (K5/K6 and their binned K5-P/K6-P), ``ops/segment.py``
@@ -55,15 +56,13 @@ _LIBS = {
                            "rtpu_column_masks_i32", "rtpu_column_masks_i64",
                            "rtpu_scale_hop_masks",
                            "rtpu_bin_column_masks_i32",
-                           "rtpu_bin_column_masks_i64",
-                           "rtpu_bin_scale_masks")),
+                           "rtpu_bin_column_masks_i64")),
     "pagerank_columns": ("pagerank_columns.cu", ("rtpu_column_out_degree",
                                                  "rtpu_column_pull_sum",
                                                  "rtpu_pagerank_update",
                                                  "rtpu_binned_pull_sum")),
     "minplus_columns": ("minplus_columns.cu", (
-        "rtpu_cc_superstep", "rtpu_minplus_superstep",
-        "rtpu_binned_cc_superstep", "rtpu_binned_minplus_superstep")),
+        "rtpu_cc_superstep", "rtpu_minplus_superstep")),
     "segment": ("segment.cu", ("rtpu_segment_combine",
                                "rtpu_partition_reduce",
                                "rtpu_segment_mode")),
@@ -89,8 +88,9 @@ _ARGTYPES = {
     # me, mv, stream
     "rtpu_column_masks_i32": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
     "rtpu_column_masks_i64": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
-    # len, H, W, U | base, d_pos, d_t, thr, snap, out, stream | launched
-    "rtpu_scale_hop_masks": 4 * [ctypes.c_int64] + 7 * [ctypes.c_void_p]
+    # rows, len, H, W, U | base, d_pos, d_t, thr, perm, valid, inv, out,
+    # stream | launched
+    "rtpu_scale_hop_masks": 5 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
     # n, C | out_indptr, out_order, me, deg, stream
     "rtpu_column_out_degree": 2 * [ctypes.c_int64] + 5 * [ctypes.c_void_p],
@@ -100,11 +100,11 @@ _ARGTYPES = {
     # dangling, halted, done, part (f64), busy, ticket, stream
     "rtpu_pagerank_update": 4 * [ctypes.c_int64] + 3 * [ctypes.c_float]
     + 13 * [ctypes.c_void_p],
-    # n, C, gx | in_indptr, e_src, out_indptr, out_perm, e_dst, me, mv, cur,
-    # nxt, halted, done, busy, ticket, stream
-    "rtpu_cc_superstep": 3 * [ctypes.c_int64] + 14 * [ctypes.c_void_p],
+    # n, C, gx | in_indptr, in_order, in_rows, out_indptr, out_order,
+    # out_rows, me, mv, cur, nxt, halted, done, busy, ticket, stream
+    "rtpu_cc_superstep": 3 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
     # n, C, W, H, gx, directed | ew, then as rtpu_cc_superstep
-    "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
+    "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 16 * [ctypes.c_void_p],
     # k, n, m, F, op, dtype | indptr, perm, x, mask, out, stream
     "rtpu_segment_combine": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # n_pad, m_pad, cap_v, cap_e, tbytes | six buffers, eight chunk
@@ -119,18 +119,8 @@ _ARGTYPES = {
     # perm, valid, me, mv, stream
     "rtpu_bin_column_masks_i32": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
     "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
-    # B, len, H, W | snap, thr, perm, valid, out, stream
-    "rtpu_bin_scale_masks": 4 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # n, C | in_indptr, pairs, me, rd, agg, stream
     "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
-    # n, C, gx, U | in_indptr, in_order, b_src, slot, u_src, out_indptr,
-    # out_order, b_dst, me, mv, cur, vals, nxt, halted, done, busy, ticket,
-    # stream | launched
-    "rtpu_binned_cc_superstep": 4 * [ctypes.c_int64] + 18 * [ctypes.c_void_p]
-    + [ctypes.POINTER(ctypes.c_int64)],
-    # n, C, W, H, gx, directed, U | ew, then as rtpu_binned_cc_superstep
-    "rtpu_binned_minplus_superstep": 7 * [ctypes.c_int64]
-    + 19 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     # k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask, out, stream
     "rtpu_partition_reduce": 6 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
     # k, n, m, default | indptr, perm, values, mask, scratch, out, stream
@@ -417,7 +407,7 @@ def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
 
 # ---------------------------------------------------------------- K3
 
-#: most mask columns K3/K4 take: their grid has one block row per 32
+#: most mask columns K3 and KB1 take: their grid has one block row per 32
 #: columns, and a CUDA grid at most 65,535 rows
 _MAX_MASK_COLUMNS = 65_535 * 32
 
@@ -499,6 +489,38 @@ def scale_hop_masks_plain(base, d_pos, d_t, thr, H: int, W: int):
     return out
 
 
+#: a layout's ``perm`` → ((length, versions, weak ``valid``), its inverse):
+#: ``slot_inverse``'s, kept while the layout's device arrays live
+_SLOT_INVERSES = WeakIdKeyDictionary()
+
+
+def slot_inverse(perm, valid, length: int):
+    """``int32 [length]``: engine position → the binned slot that holds it
+    (``inv[perm[b]] = b`` for each valid slot b), -1 where no valid slot
+    does — the engine's pad rows among them (the host layout's ``inv``
+    sends those to slot ``B - 1``, which may be a real slot). Binned K4's
+    second pass writes an update through it. Built on ``perm``'s device at
+    the first call (one scatter) and cached with ``perm``; a layout whose
+    valid slots name a position outside ``[0, length)`` or one position
+    twice is refused."""
+    sig = (length, perm._version, valid._version)
+    got = _SLOT_INVERSES.get(perm)
+    if got is not None and got[0][:3] == sig and got[0][3]() is valid:
+        return got[1]
+    slots = torch.nonzero(valid).squeeze(1)
+    pos = perm[slots].long()
+    if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) >= length):
+        raise ValueError(f"scale_hop_masks: the layout's valid slots name "
+                         f"positions outside [0, {length})")
+    inv = torch.full((length,), -1, dtype=torch.int32, device=perm.device)
+    inv[pos] = slots.to(torch.int32)
+    if int((inv >= 0).sum()) != pos.numel():
+        raise ValueError("scale_hop_masks: two valid slots of the layout "
+                         "hold one engine position")
+    _SLOT_INVERSES[perm] = ((*sig, weakref.ref(valid)), inv)
+    return inv
+
+
 def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
                     valid=None):
     """K4 wrapper (replaces ``_compiled_scale.hop_masks``,
@@ -506,13 +528,16 @@ def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
     its ``RTPU_SCALE_MASKS=scan`` shape): the add-only scale path's masks
     of one entity table. ``base [len]`` int32 (INT32_MIN = never seen),
     ``d_pos``/``d_t [H, U]`` int32 padded update lists, ``thr [H*W]`` int32
-    column thresholds → ``[len, H*W]`` bool. The kernel holds an ``[H,
-    len]`` int32 snapshot of the hop states while it runs.
+    column thresholds → ``[len, H*W]`` bool. The twin runs the reference's
+    scatter-max; the kernel never builds the hop state (two passes over the
+    output: the base's compares, then each update's 1s, ``csrc/masks.cu``)
+    and the call allocates only the output.
 
     ``perm``/``valid`` (``[B]`` int32 / bool, a ``PartitionLayout``'s) emit
-    the masks binned instead, ``[B, H*W]`` (hopbatch.py:2126-2137): the hop
-    state advances in engine order (K4's scatters) and KB1 transposes the
-    snapshot through the permutation."""
+    the masks binned instead, ``[B, H*W]`` (hopbatch.py:2126-2137): row b is
+    row ``perm[b]`` of the engine-order masks, 0 where ``valid[b]`` is
+    False. The kernel reads the base through ``perm`` and writes the
+    updates through ``slot_inverse`` (cached with ``perm``)."""
     name = "scale_hop_masks"
     n = base.shape[0]
     U = d_pos.shape[1] if d_pos.dim() == 2 else -1
@@ -520,7 +545,6 @@ def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
     _expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
     _expect(name, d_t, "d_t", (torch.int32,), (H, U))
     _expect(name, thr, "thr", (torch.int32,), (H * W,))
-    _check_columns(name, H * W)
     tensors = (base, d_pos, d_t, thr)
     binned = perm is not None
     if binned:
@@ -531,20 +555,17 @@ def scale_hop_masks(base, d_pos, d_t, thr, H: int, W: int, perm=None,
     if not _on_cuda(name, *tensors):
         out = scale_hop_masks_plain(base, d_pos, d_t, thr, H, W)
         return _bin_rows(out, perm, valid) if binned else out
-    snap = torch.empty((H, n), dtype=torch.int32, device=base.device)
-    out = torch.empty((B if binned else n, H * W), dtype=torch.bool,
-                      device=base.device)
+    rows = B if binned else n
+    out = torch.empty((rows, H * W), dtype=torch.bool, device=base.device)
+    extra = ((perm.data_ptr(), valid.data_ptr(),
+              slot_inverse(perm, valid, n).data_ptr()) if binned
+             else (None, None, None))
     launched = ctypes.c_int64(0)
     err = _fn("masks", "rtpu_scale_hop_masks")(
-        n, H, W, U, base.data_ptr(), d_pos.data_ptr(), d_t.data_ptr(),
-        thr.data_ptr(), snap.data_ptr(), None if binned else out.data_ptr(),
-        _stream(snap), ctypes.byref(launched))
+        rows, n, H, W, U, base.data_ptr(), d_pos.data_ptr(), d_t.data_ptr(),
+        thr.data_ptr(), *extra, out.data_ptr(), _stream(out),
+        ctypes.byref(launched))
     _launch(name, err, launched.value)
-    if binned:
-        err = _fn("masks", "rtpu_bin_scale_masks")(
-            B, n, H, W, snap.data_ptr(), thr.data_ptr(), perm.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), _stream(out))
-        _launch("bin_masks", err, 1 if B and H * W else 0)
     return out
 
 
@@ -827,31 +848,40 @@ def binned_pull_sum_plain(me, rd, be):
 #: ``BinnedEdges.in_order`` → its pull-sum walk pairs
 #: (``binned_pull_walk``), kept while the layout's device arrays live
 _PULL_WALKS = WeakIdKeyDictionary()
+#: ``BinnedEdges.in_order`` of the layouts ``check_bucket_sources`` passed
+_BUCKETS_CHECKED = WeakIdKeyDictionary()
+
+
+def check_bucket_sources(name: str, be) -> None:
+    """On a pre-aggregating layout (``be.U > 0``) the twins and the
+    reference read a walked slot's bucket row ``u_src[slot[s]]``, where the
+    kernels read its source row ``b_src[s]`` straight from the state: the
+    two must agree on every real slot. Checked once per layout (a gather
+    and a compare on its device); a layout that breaks it is refused."""
+    if not be.U or be.in_order in _BUCKETS_CHECKED:
+        return
+    s = be.in_order.long()
+    src = be.b_src[s]
+    bad = torch.nonzero(be.u_src[be.slot[s].long()] != src)
+    if bad.numel():
+        j = int(bad[0, 0])
+        raise ValueError(
+            f"{name}: walk entry {j} (slot {int(s[j])}) reads bucket source "
+            f"{int(be.u_src[be.slot[s[j]]])}, not its slot's source "
+            f"{int(src[j])}: the layout's buckets do not match its slots")
+    _BUCKETS_CHECKED[be.in_order] = True
 
 
 def binned_pull_walk(be):
     """``int32 [m, 2]``: for each entry ``j`` of the layout's destination
     walk (slot ``s = in_order[j]``), the source row ``b_src[s]`` and ``s`` —
-    what K2b-P reads a walk entry, one 8-byte load. On a pre-aggregating
-    layout (``be.U > 0``) the twin and the reference read the slot's bucket
-    row ``u_src[slot[s]]`` instead, so that must be ``b_src[s]`` on every
-    real slot: checked here, once, and a layout that breaks it is refused.
-    Derived on ``be``'s device at the first call (m * 8 bytes) and cached
-    with ``be``."""
+    what K2b-P reads a walk entry, one 8-byte load (``check_bucket_sources``
+    first). Derived on ``be``'s device at the first call (m * 8 bytes) and
+    cached with ``be``."""
     got = _PULL_WALKS.get(be.in_order)
     if got is None:
-        s = be.in_order.long()
-        src = be.b_src[s]
-        if be.U:
-            bad = torch.nonzero(be.u_src[be.slot[s].long()] != src)
-            if bad.numel():
-                j = int(bad[0, 0])
-                raise ValueError(
-                    f"binned_pull_sum: walk entry {j} (slot {int(s[j])}) "
-                    f"reads bucket source {int(be.u_src[be.slot[s[j]]])}, "
-                    f"not its slot's source {int(src[j])}: the layout's "
-                    "buckets do not match its slots")
-        got = torch.stack([src, be.in_order], dim=1)
+        check_bucket_sources("binned_pull_sum", be)
+        got = torch.stack([be.b_src[be.in_order.long()], be.in_order], dim=1)
         _PULL_WALKS[be.in_order] = got
     return got
 

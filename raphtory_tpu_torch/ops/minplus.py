@@ -1,12 +1,17 @@
 """Kernels of the columnar min-combine traversals: K5 (connected components,
 min-label propagation) and K6 (BFS / weighted SSSP, min-plus relaxation),
-one superstep each.
+one superstep each, and their destination-binned forms K5-P / K6-P.
 
 Same three parts as ``ops/columns.py``, whose build and launch plumbing
-they share: a **wrapper** (``cc_superstep``, ``minplus_superstep``) that
-checks its inputs and routes by device (CPU tensors take the twin, CUDA
-tensors launch the kernel or raise), a **plain twin** (``*_plain``) with
-the same math, and the **CUDA source** ``csrc/minplus_columns.cu``.
+they share: a **wrapper** (``cc_superstep``, ``minplus_superstep``,
+``binned_cc_superstep``, ``binned_minplus_superstep``) that checks its
+inputs and routes by device (CPU tensors take the twin, CUDA tensors
+launch the kernel or raise), a **plain twin** (``*_plain``) with the same
+math, and the **CUDA source** ``csrc/minplus_columns.cu``: one kernel and
+one launch a superstep on every route. The card branch checks each input
+signature once (``columns._k2_checked``: each tensor's identity and
+version counter); ``cur`` and ``nxt`` swap every superstep, so a loop
+sees two signatures.
 
 A superstep is synchronous: it reads ``MinState.cur`` and writes
 ``MinState.nxt``, then the wrapper swaps the two, so every row sees the
@@ -21,15 +26,14 @@ from dataclasses import dataclass
 
 import torch
 
-import ctypes
-
-from .columns import (_check_binned, _expect, _fn, _launch, _on_cuda,
-                      _stream)
+from .columns import (_check_binned, _expect, _fn, _k2_checked, _launch,
+                      _on_cuda, _stream, check_bucket_sources)
 
 I32_MAX = 2**31 - 1
 INF = float("inf")
 
-#: K5/K6's block: 256 threads, columns fastest (``csrc/minplus_columns.cu``)
+#: K5/K6's block: 256 threads, a lane 4 adjacent columns of a row, a row's
+#: lanes (its group) up to 32 (``csrc/minplus_columns.cu``)
 _THREADS = 256
 #: most blocks along K5/K6's rows: its last block reads one busy word per
 #: block
@@ -38,8 +42,10 @@ _BLOCKS = 2 * 132
 
 def superstep_grid(n: int, C: int) -> int:
     """Blocks along the rows of K5/K6's grid for ``[n, C]`` state — the row
-    count of ``MinState.busy``."""
-    rows = _THREADS // max(1, min(C, _THREADS))
+    count of ``MinState.busy``. A block holds ``256 // G`` rows of ``G =
+    min(ceil(C / 4), 32)`` lanes (wider C tiles the columns over the
+    grid's second dimension)."""
+    rows = _THREADS // max(1, min(-(-C // 4), 32))
     return max(1, min(-(-n // rows), _BLOCKS))
 
 
@@ -107,24 +113,58 @@ def _check(name, st: MinState, me, mv, edges, dtype):
     _expect(name, edges.out_indptr, "out_indptr", (torch.int64,), (n + 1,))
     _expect(name, edges.out_perm, "out_perm", (torch.int32,),
             (edges.out_perm.shape[0],))
-    return n, C
 
 
-def _launch_args(name, st: MinState, me, mv, edges):
-    _expect(name, st.busy, "busy", (torch.int32,),
-            (superstep_grid(*st.cur.shape), st.cur.shape[1]))
-    _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
-    return (edges.in_indptr.data_ptr(), edges.e_src.data_ptr(),
-            edges.out_indptr.data_ptr(), edges.out_perm.data_ptr(),
-            edges.e_dst.data_ptr(), me.data_ptr(), mv.data_ptr(),
-            st.cur.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
-            st.done.data_ptr(), st.busy.data_ptr(), st.ticket.data_ptr(),
-            _stream(st.cur))
+def _check_weights(name, C: int, W: int, ew, rows: int) -> None:
+    """``ew`` (when given) must be the f32 ``[rows, H]`` weight block of
+    ``C = H * W`` columns."""
+    if ew is not None:
+        if C % W:
+            raise ValueError(f"{name}: {C} columns are not H x W={W}")
+        _expect(name, ew, "ew", (torch.float32,), (rows, C // W))
 
 
-def _tensors(st: MinState, me, mv, edges):
-    return (st.cur, st.nxt, st.halted, st.done, st.busy, st.ticket, me, mv,
-            *edges)
+def _card_args(name, st: MinState, me, mv, walks, ew, extra, check):
+    """The C call's arguments but the stream — ``(gx, in_indptr,
+    in_order, in_rows, out_indptr, out_order, out_rows, me, mv, cur, nxt,
+    halted, done, busy, ticket)`` as pointers, None for an absent walk
+    array — or None for the twin's branch. ``check()`` (the wrapper's
+    full checks, raising on a bad input) and the scratch's checks run once
+    per input signature (``columns._k2_checked``)."""
+    tensors = (st.cur, st.nxt, st.halted, st.done, st.busy, st.ticket, me,
+               mv, *(t for t in walks if t is not None))
+    if ew is not None:
+        tensors += (ew,)
+
+    def full():
+        check()
+        if not _on_cuda(name, *tensors):
+            return None
+        gx = superstep_grid(*st.cur.shape)
+        _expect(name, st.busy, "busy", (torch.int32,),
+                (gx, st.cur.shape[1]))
+        _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
+        return (gx, *(None if t is None else t.data_ptr() for t in walks),
+                me.data_ptr(), mv.data_ptr(), st.cur.data_ptr(),
+                st.nxt.data_ptr(), st.halted.data_ptr(), st.done.data_ptr(),
+                st.busy.data_ptr(), st.ticket.data_ptr())
+
+    return _k2_checked(name, tensors, extra, full)
+
+
+def _flat_walks(edges):
+    """A ``DeviceEdges``' walks: the destination CSR over the (dst, src)
+    table itself (entry j is edge j, far end ``e_src[j]``) and the source
+    index (``out_perm``, far end ``e_dst``)."""
+    return (edges.in_indptr, None, edges.e_src, edges.out_indptr,
+            edges.out_perm, edges.e_dst)
+
+
+def _binned_walks(be):
+    """A layout's walks: its destination walk (far end ``b_src``) and its
+    source walk (far end ``b_dst``; None unless asked for)."""
+    return (be.in_indptr, be.in_order, be.b_src, be.out_indptr,
+            be.out_order, be.b_dst)
 
 
 # ---------------------------------------------------------------- K5
@@ -144,13 +184,13 @@ def cc_superstep(st: MinState, me, mv, edges) -> None:
     superstep over the column masks ``me [m_pad, C]`` / ``mv [n_pad, C]``
     and the device edge tables ``edges`` (``DeviceEdges``)."""
     name = "cc_superstep"
-    n, C = _check(name, st, me, mv, edges, torch.int32)
-    if not _on_cuda(name, *_tensors(st, me, mv, edges)):
+    args = _card_args(name, st, me, mv, _flat_walks(edges), None, None,
+                      lambda: _check(name, st, me, mv, edges, torch.int32))
+    if args is None:
         return cc_superstep_plain(st, me, mv, edges)
-    err = _fn("minplus_columns", "rtpu_cc_superstep")(
-        n, C, superstep_grid(n, C),
-        *_launch_args(name, st, me, mv, edges))
-    _launch(name, err)
+    n, C = st.cur.shape
+    _launch(name, _fn("minplus_columns", "rtpu_cc_superstep")(
+        n, C, *args, _stream(st.cur)))
     st.cur, st.nxt = st.nxt, st.cur
 
 
@@ -176,21 +216,19 @@ def minplus_superstep(st: MinState, me, mv, edges, directed: bool,
     superstep. ``ew`` is None for hop counting or the ``[m_pad, H]`` f32
     weight block of K6w (``C = H * W``, hop-major columns)."""
     name = "minplus_superstep"
-    n, C = _check(name, st, me, mv, edges, torch.float32)
-    tensors = _tensors(st, me, mv, edges)
-    H = C // W
-    if ew is not None:
-        if H * W != C:
-            raise ValueError(f"{name}: {C} columns are not H x W={W}")
-        _expect(name, ew, "ew", (torch.float32,), (me.shape[0], H))
-        tensors += (ew,)
-    if not _on_cuda(name, *tensors):
+
+    def check():
+        _check(name, st, me, mv, edges, torch.float32)
+        _check_weights(name, st.cur.shape[1], W, ew, me.shape[0])
+
+    args = _card_args(name, st, me, mv, _flat_walks(edges), ew,
+                      (bool(directed), W), check)
+    if args is None:
         return minplus_superstep_plain(st, me, mv, edges, directed, ew, W)
-    err = _fn("minplus_columns", "rtpu_minplus_superstep")(
-        n, C, W, H, superstep_grid(n, C), int(bool(directed)),
-        None if ew is None else ew.data_ptr(),
-        *_launch_args(name, st, me, mv, edges))
-    _launch(name, err)
+    n, C = st.cur.shape
+    _launch(name, _fn("minplus_columns", "rtpu_minplus_superstep")(
+        n, C, W, C // W, args[0], int(bool(directed)),
+        None if ew is None else ew.data_ptr(), *args[1:], _stream(st.cur)))
     st.cur, st.nxt = st.nxt, st.cur
 
 
@@ -222,30 +260,7 @@ def _check_binned_step(name, st: MinState, me, mv, be, dtype, reverse):
     _expect(name, st.halted, "halted", (torch.bool,), (C,))
     _expect(name, st.done, "done", (torch.bool,), (1,))
     _check_binned(name, be, B, n, reverse)
-    return n, C
-
-
-def _binned_args(name, st: MinState, me, mv, be):
-    _expect(name, st.busy, "busy", (torch.int32,),
-            (superstep_grid(*st.cur.shape), st.cur.shape[1]))
-    _expect(name, st.ticket, "ticket", (torch.int32,), (1,))
-    vals = torch.empty((be.U, st.cur.shape[1]), dtype=st.cur.dtype,
-                       device=st.cur.device)
-
-    def opt(t):
-        return None if t is None else t.data_ptr()
-
-    return (be.in_indptr.data_ptr(), be.in_order.data_ptr(),
-            be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
-            opt(be.out_indptr), opt(be.out_order), be.b_dst.data_ptr(),
-            me.data_ptr(), mv.data_ptr(), st.cur.data_ptr(), vals.data_ptr(),
-            st.nxt.data_ptr(), st.halted.data_ptr(), st.done.data_ptr(),
-            st.busy.data_ptr(), st.ticket.data_ptr(), _stream(st.cur))
-
-
-def _binned_tensors(st: MinState, me, mv, be):
-    return (st.cur, st.nxt, st.halted, st.done, st.busy, st.ticket, me, mv,
-            *(t for t in be[:-1] if t is not None))
+    check_bucket_sources(name, be)
 
 
 def binned_cc_superstep_plain(st: MinState, me, mv, be) -> None:
@@ -262,16 +277,18 @@ def binned_cc_superstep(st: MinState, me, mv, be) -> None:
     """K5-P wrapper (``_cc_columns`` with ``pcpm``,
     ``raphtory_tpu/engine/hopbatch.py:572-576``): advances ``st`` (int32
     labels) by one superstep over binned masks ``me [B, C]`` and the
-    layout's ``BinnedEdges`` (source walk included)."""
+    layout's ``BinnedEdges`` (source walk included). One launch: the kernel
+    reads each slot's source row straight from the state, where the twin
+    reads a pre-aggregating layout's buckets."""
     name = "binned_cc_superstep"
-    n, C = _check_binned_step(name, st, me, mv, be, torch.int32, True)
-    if not _on_cuda(name, *_binned_tensors(st, me, mv, be)):
+    args = _card_args(name, st, me, mv, _binned_walks(be), None, be.U,
+                      lambda: _check_binned_step(name, st, me, mv, be,
+                                                 torch.int32, True))
+    if args is None:
         return binned_cc_superstep_plain(st, me, mv, be)
-    launched = ctypes.c_int64(0)
-    err = _fn("minplus_columns", "rtpu_binned_cc_superstep")(
-        n, C, superstep_grid(n, C), be.U,
-        *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
-    _launch(name, err, launched.value)
+    n, C = st.cur.shape
+    _launch(name, _fn("minplus_columns", "rtpu_cc_superstep")(
+        n, C, *args, _stream(st.cur)))
     st.cur, st.nxt = st.nxt, st.cur
 
 
@@ -293,24 +310,24 @@ def binned_minplus_superstep(st: MinState, me, mv, be, directed: bool,
     ``raphtory_tpu/engine/hopbatch.py:653-657``): advances ``st`` (f32
     distances) by one superstep over binned masks ``me [B, C]``; ``ew`` is
     None (hop counting) or the binned ``[B, H]`` weight block. The layout's
-    source walk is needed only when undirected."""
+    source walk is needed only when undirected. One launch, as K5-P."""
     name = "binned_minplus_superstep"
-    n, C = _check_binned_step(name, st, me, mv, be, torch.float32,
-                              not directed)
-    tensors = _binned_tensors(st, me, mv, be)
-    H = C // W
-    if ew is not None:
-        if H * W != C:
-            raise ValueError(f"{name}: {C} columns are not H x W={W}")
-        _expect(name, ew, "ew", (torch.float32,), (me.shape[0], H))
-        tensors += (ew,)
-    if not _on_cuda(name, *tensors):
+
+    def check():
+        _check_binned_step(name, st, me, mv, be, torch.float32,
+                           not directed)
+        _check_weights(name, st.cur.shape[1], W, ew, me.shape[0])
+
+    walks = _binned_walks(be)
+    if directed:
+        walks = walks[:3] + (None, None, None)
+    args = _card_args(name, st, me, mv, walks, ew, (bool(directed), W, be.U),
+                      check)
+    if args is None:
         return binned_minplus_superstep_plain(st, me, mv, be, directed, ew,
                                               W)
-    launched = ctypes.c_int64(0)
-    err = _fn("minplus_columns", "rtpu_binned_minplus_superstep")(
-        n, C, W, H, superstep_grid(n, C), int(bool(directed)), be.U,
-        None if ew is None else ew.data_ptr(),
-        *_binned_args(name, st, me, mv, be), ctypes.byref(launched))
-    _launch(name, err, launched.value)
+    n, C = st.cur.shape
+    _launch(name, _fn("minplus_columns", "rtpu_minplus_superstep")(
+        n, C, W, C // W, args[0], int(bool(directed)),
+        None if ew is None else ew.data_ptr(), *args[1:], _stream(st.cur)))
     st.cur, st.nxt = st.nxt, st.cur

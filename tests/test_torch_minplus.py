@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from test_sweep import random_log
+from test_torch_columns import _view
 
 from raphtory_tpu.engine import hopbatch as jhb
 from raphtory_tpu.utils.synth import gab_like_log
@@ -311,13 +312,200 @@ def test_superstep_wrappers_check_inputs_and_count_only_launches():
 
 
 def test_superstep_grid_keeps_k5_k6_within_264_blocks():
-    """K5/K6 keep their grid (K2c's changed beside them): at most 264
-    blocks along the rows, one busy word a block and column, every row
-    reached."""
+    """K5/K6's grid: a block holds 256 // G rows of G = min(ceil(C / 4),
+    32) lanes (a lane 4 columns; wider C tiles the columns over the
+    grid's second dimension); at most 264 blocks along the rows, one busy
+    word a block and column, every row reached."""
     for n, C in ((10, 12), (32_768, 12), (5, 300), (100_000, 1),
-                 (4_099, 9)):
+                 (4_099, 9), (16_384, 20)):
         gx = minplus.superstep_grid(n, C)
-        rows = 256 // min(C, 256)
+        rows = 256 // min(-(-C // 4), 32)
         assert 1 <= gx <= 264 and (gx == 264 or gx * rows >= n)
         st = minplus.min_state(torch.zeros((n, C), dtype=torch.int32))
         assert st.busy.shape == (gx, C) and st.busy.dtype == torch.int32
+
+
+# ------------------------------------- the card branch (modelled kernel)
+
+def _model_min(calls, rows, cc):
+    """``rtpu_cc_superstep`` (``cc``) / ``rtpu_minplus_superstep`` as numpy
+    over the wrapper's raw host addresses: per row the min over its
+    in-walk entries (entry j the edge ``in_order[j]``, or j itself when
+    ``in_order`` is null; far end ``in_rows[e]``) and, CC or undirected,
+    its out-walk's, of the masked payloads (``cur`` at the far end, plus 1
+    or ``ew[e, c // W]`` as one f32 add); then the epilogue — mask, the
+    halting test over every row, the freeze — into ``nxt``."""
+    def model(*a):
+        if cc:
+            (n, C, gx, ip, order, in_rows, op_, oorder, out_rows, me, mv,
+             cur, nxt, halted, done, busy, ticket, stream) = a
+            W, H, directed, ew = 1, C, False, None
+            dt, fill = np.int32, I32_MAX
+        else:
+            (n, C, W, H, gx, directed, ew, ip, order, in_rows, op_, oorder,
+             out_rows, me, mv, cur, nxt, halted, done, busy, ticket,
+             stream) = a
+            dt, fill = np.float32, np.float32(np.inf)
+        calls.append(dict(order=order, in_rows=in_rows, out_order=oorder,
+                          out_rows=out_rows, gx=gx, directed=directed))
+        m = rows["m"]
+        mk = _view(me, np.uint8, m * C).reshape(m, C) != 0
+        x = _view(cur, dt, n * C).reshape(n, C)
+        w = None if ew is None else np.repeat(
+            _view(ew, np.float32, m * H).reshape(m, H), W, axis=1)
+        agg = np.full((n, C), fill, dt)
+
+        def walk(indptr, order, far):
+            ipa = _view(indptr, np.int64, n + 1)
+            k = int(ipa[-1])
+            e = (np.arange(k) if order is None
+                 else _view(order, np.int32, k).astype(np.int64))
+            vals = x[_view(far, np.int32, m)[e]]
+            if not cc:
+                vals = vals + (np.float32(1) if w is None else w[e])
+            vals = np.where(mk[e], vals, fill)
+            np.minimum.at(agg, np.repeat(np.arange(n), np.diff(ipa)), vals)
+
+        walk(ip, order, in_rows)
+        if not directed:
+            walk(op_, oorder, out_rows)
+        alive = _view(mv, np.uint8, n * C).reshape(n, C) != 0
+        new = np.where(alive, np.minimum(x, agg), fill)
+        hl = _view(halted, np.uint8, C)
+        settled = (new == x).all(0)
+        _view(nxt, dt, n * C).reshape(n, C)[:] = np.where(hl[None, :] != 0,
+                                                          x, new)
+        hl[:] = hl | settled
+        _view(done, np.uint8, 1)[0] = hl.all()
+        return 0
+    return model
+
+
+@pytest.fixture
+def min_card(monkeypatch):
+    """K5 / K6 / K5-P / K6-P's card branch on CPU tensors through the numpy
+    model, with a fresh signature cache; ``rows["m"]`` is the mask's row
+    count."""
+    calls, rows = [], {}
+    names = ("cc_superstep", "minplus_superstep", "binned_cc_superstep",
+             "binned_minplus_superstep")
+    for mod in (columns, minplus):
+        monkeypatch.setattr(mod, "_on_cuda", lambda name, *t: name in names)
+    monkeypatch.setattr(minplus, "_stream", lambda t: 0)
+    monkeypatch.setattr(minplus, "_fn", lambda lib, fn: _model_min(
+        calls, rows, fn == "rtpu_cc_superstep"))
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    columns.reset_launches()
+    yield calls, rows
+    columns.reset_launches()
+
+
+def _twins(fn):
+    """``fn()`` with every kernel on its twin."""
+    saved = minplus._on_cuda, columns._on_cuda
+    minplus._on_cuda = columns._on_cuda = lambda name, *t: False
+    try:
+        return fn()
+    finally:
+        minplus._on_cuda, columns._on_cuda = saved
+
+
+@pytest.mark.parametrize("op", ["cc", "bfs", "sssp", "sssp_directed"])
+@pytest.mark.parametrize("route", ["flat", "preagg", "no_preagg"])
+def test_min_card_branch_is_one_launch_a_superstep(min_card, route, op):
+    """The CC / BFS / SSSP loops through the modelled kernel's card
+    branch, unbinned and binned on layouts with and without buckets: one
+    launch a superstep, the walks passed as they are (the unbinned
+    destination walk the table itself; binned, the layout's walk reading
+    ``b_src`` straight, no bucket buffer), results bitwise the twins'."""
+    from raphtory_tpu_torch.ops import partition as part
+
+    calls, rows = min_card
+    t = _tables("gab")
+    rng = np.random.default_rng(13)
+    H, W = 3, 2
+    C = H * W
+    me, mv = _masks(t, rng, C)
+    ew = rng.choice(np.array([-0.25, 0.0, 0.5, 2.75], np.float32),
+                    (t.m_pad, H))
+    edges = _edges(t)
+    if route != "flat":
+        for P in ((3,) if route == "preagg" else (64, 256, t.n_pad)):
+            lay = part.build_layout(t.e_src, t.e_dst, t.n_pad, t.m, P)
+            if lay.spec.preagg == (route == "preagg"):
+                break
+        assert lay.spec.preagg == (route == "preagg")
+        edges = lay.device_edges("cpu", reverse=True)
+        me, ew = me[lay.perm] & lay.valid[:, None], ew[lay.perm]
+    rows["m"] = me.shape[0]
+    seed = np.zeros(t.n_pad, bool)
+    seed[[0, 5, 9]] = True
+    if op == "cc":
+        run = functools.partial(thb._cc_columns, T(me), T(mv), edges,
+                                t.n_pad, 40)
+    else:
+        run = functools.partial(
+            thb._bfs_columns, T(me), T(mv), edges, t.n_pad, 40,
+            op == "sssp_directed", T(seed),
+            None if op == "bfs" else T(ew), W)
+    want, want_steps = _twins(run)
+    got, steps = run()
+    assert torch.equal(got, want) and steps == want_steps > 1
+    name = ("binned_" if route != "flat" else "") + (
+        "cc_superstep" if op == "cc" else "minplus_superstep")
+    assert columns.LAUNCHES[name] == len(calls) == steps
+    assert sum(columns.LAUNCHES.values()) == steps
+    order = None if route == "flat" else edges.in_order.data_ptr()
+    far = (edges.e_src if route == "flat" else edges.b_src).data_ptr()
+    assert {(c["order"], c["in_rows"]) for c in calls} == {(order, far)}
+    if op == "sssp_directed" and route != "flat":
+        assert {c["out_order"] for c in calls} == {None}
+
+
+def test_min_wrappers_check_a_changed_signature_again(monkeypatch):
+    """The card branch checks each input signature once — a loop sees two,
+    ``cur`` and ``nxt`` swapping every superstep — and a wrong dtype or
+    shape, a new tensor or a cached one changed in place, still raises."""
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(minplus, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(minplus, "_stream", lambda t: 0)
+    monkeypatch.setattr(minplus, "_fn", lambda lib, fn: lambda *a: 0)
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    checks = []
+    expect = minplus._expect
+    monkeypatch.setattr(minplus, "_expect", lambda *a: (
+        checks.append(a[2]), expect(*a)))
+    t = _tables("random")
+    edges = _edges(t)
+    C = 4
+    me = torch.zeros((t.m_pad, C), dtype=torch.bool)
+    mv = torch.ones((t.n_pad, C), dtype=torch.bool)
+    st = minplus.min_state(torch.zeros((t.n_pad, C), dtype=torch.int32))
+    for _ in range(5):
+        minplus.cc_superstep(st, me, mv, edges)
+    assert checks.count("cur") == 2 and checks.count("busy") == 2
+    with pytest.raises(TypeError, match="me"):
+        minplus.cc_superstep(st, me.to(torch.uint8), mv, edges)
+    with pytest.raises(ValueError, match="me has shape"):
+        minplus.cc_superstep(st, me[:, :-1], mv, edges)
+    mv.unsqueeze_(0)                          # the cached tensor, reshaped
+    with pytest.raises(ValueError, match="mv"):
+        minplus.cc_superstep(st, me, mv, edges)
+    mv.squeeze_(0)
+    checks.clear()
+    st.halted[0] = True                       # an in-place change
+    minplus.cc_superstep(st, me, mv, edges)
+    assert checks.count("halted") == 1
+    # K6 keys its checks on the weights, the direction and W too
+    fst = minplus.min_state(torch.zeros((t.n_pad, C)))
+    ew = torch.ones((t.m_pad, 2))
+    for _ in range(3):
+        minplus.minplus_superstep(fst, me, mv, edges, False, ew, 2)
+    with pytest.raises(ValueError, match="ew"):
+        minplus.minplus_superstep(fst, me, mv, edges, False, ew[:, :1], 2)
+    with pytest.raises(ValueError, match="H x W"):
+        minplus.minplus_superstep(fst, me, mv, edges, False, ew, 3)
+    ew.unsqueeze_(0)
+    with pytest.raises(ValueError, match="ew"):
+        minplus.minplus_superstep(fst, me, mv, edges, False, ew, 2)
+    assert columns.LAUNCHES["cc_superstep"] == 6

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_sweep import random_log
+from test_torch_scale import _jax_hop_masks
 
 from raphtory_tpu.engine import hopbatch as jhb
 from raphtory_tpu.ops import partition as jpart
@@ -595,3 +596,125 @@ def test_partition_reduce_through_a_layout(k):
         T(x), segment.SegmentCSR(T(t.e_dst), T(t.in_indptr), None), "sum",
         T(em), k)
     assert torch.equal(got, flat)
+
+
+# ------------------------------------- binned K4's device inverse map
+
+@pytest.mark.parametrize("P", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["gab", "random"])
+def test_slot_inverse_maps_real_positions_and_marks_the_rest(kind, P):
+    """``columns.slot_inverse`` (built on the tensors' device, here the
+    CPU) equals the host layout's ``inv`` on the real positions and is -1
+    on the engine's pad rows, which the host ``inv`` sends to slot B-1 —
+    a real slot on a full last partition; cached with ``perm``."""
+    t, lay = _layout(kind, P)
+    perm, valid = T(lay.perm), T(lay.valid)
+    inv = columns.slot_inverse(perm, valid, t.m_pad)
+    assert inv.dtype == torch.int32 and inv.shape == (t.m_pad,)
+    np.testing.assert_array_equal(inv.numpy()[:t.m], lay.inv[:t.m])
+    assert (inv.numpy()[t.m:] == -1).all()
+    assert (lay.inv[t.m:] == lay.B - 1).all()
+    assert columns.slot_inverse(perm, valid, t.m_pad) is inv
+    # each real position's slot holds it back
+    real = inv[:t.m].long()
+    assert torch.equal(perm[real], torch.arange(t.m, dtype=torch.int32))
+    assert bool(valid[real].all())
+
+
+def test_slot_inverse_refuses_a_layout_it_cannot_invert():
+    t, lay = _layout("random", 3)
+    s = np.flatnonzero(lay.valid)
+    twice = lay.perm.copy()
+    twice[s[1]] = twice[s[0]]
+    with pytest.raises(ValueError, match="two valid slots"):
+        columns.slot_inverse(T(twice), T(lay.valid), t.m_pad)
+    past = lay.perm.copy()
+    past[s[0]] = t.m_pad
+    with pytest.raises(ValueError, match="outside"):
+        columns.slot_inverse(T(past), T(lay.valid), t.m_pad)
+    # a cached map is rebuilt when perm changes in place
+    perm = T(lay.perm.copy())
+    valid = T(lay.valid)
+    columns.slot_inverse(perm, valid, t.m_pad)
+    perm[s[0]] = t.m_pad
+    with pytest.raises(ValueError, match="outside"):
+        columns.slot_inverse(perm, valid, t.m_pad)
+
+
+def test_binned_scale_masks_update_on_an_engine_pad_row_matches_jax():
+    """Binned K4 with updates at the engine's pad positions [m, m_pad)
+    (no slot holds them; the host ``inv`` would send them to slot B-1):
+    the twin and the reference leave every slot's masks as they were."""
+    t, lay = _layout("gab", 5)
+    rng = np.random.default_rng(9)
+    H, W, U = 3, 2, 32
+    base = np.where(rng.random(t.m_pad) < 0.5,
+                    rng.integers(0, 500, t.m_pad),
+                    np.iinfo(np.int32).min).astype(np.int32)
+    pos = rng.integers(0, t.m, (H, U)).astype(np.int32)
+    tt = rng.integers(0, 900, (H, U)).astype(np.int32)
+    pos[:, :6] = rng.integers(t.m, t.m_pad, (H, 6))     # engine pad rows
+    tt[:, :6] = 899
+    pos[:, -2:], tt[:, -2:] = 0, np.iinfo(np.int32).min
+    thr = rng.integers(0, 900, H * W).astype(np.int32)
+    assert (lay.inv[pos[:, :6]] == lay.B - 1).all()
+    want = _jax_hop_masks(base, pos, tt, thr, H, W, lay.perm, lay.valid)
+    got = columns.scale_hop_masks(T(base), T(pos), T(tt), T(thr), H, W,
+                                  perm=T(lay.perm), valid=T(lay.valid))
+    np.testing.assert_array_equal(got.numpy(), want)
+    calm = tt.copy()
+    calm[:, :6] = np.iinfo(np.int32).min
+    np.testing.assert_array_equal(got.numpy(), _jax_hop_masks(
+        base, pos, calm, thr, H, W, lay.perm, lay.valid))
+
+
+# ------------------------- K5-P / K6-P twins against the unbinned twins
+
+def _flat_layout(t):
+    """A layout of ``t`` that does not pre-aggregate (U = 0)."""
+    for P in (64, 256, t.n_pad):
+        lay = part.build_layout(t.e_src, t.e_dst, t.n_pad, t.m, P)
+        if not lay.spec.preagg:
+            return lay
+    raise AssertionError("every layout of the table pre-aggregates")
+
+
+@pytest.mark.parametrize("op", ["cc", "bfs", "sssp_directed"])
+@pytest.mark.parametrize("preagg", [True, False], ids=["U>0", "U=0"])
+def test_binned_min_twins_bitwise_the_unbinned(preagg, op):
+    """K5-P's and K6-P's twins (their buckets where the layout has them)
+    give the unbinned K5 / K6 twins' labels and distances bit for bit,
+    with equal supersteps, on the same masks."""
+    from raphtory_tpu_torch.engine.device_sweep import DeviceEdges
+
+    t, lay = _layout("gab", 3)
+    if not preagg:
+        lay = _flat_layout(t)
+    assert lay.spec.preagg == preagg
+    be = lay.device_edges("cpu", reverse=True)
+    assert (be.U > 0) == preagg
+    edges = DeviceEdges(*(T(getattr(t, f)) for f in DeviceEdges._fields))
+    rng = np.random.default_rng(5)
+    H, W = 3, 2
+    C = H * W
+    me = rng.random((t.m_pad, C)) < 0.6
+    me[t.m:] = False
+    me[:, 1] = False
+    mv = rng.random((t.n_pad, C)) < 0.85
+    mv[t.n:] = False
+    me_b = me[lay.perm] & lay.valid[:, None]
+    if op == "cc":
+        want = thb._cc_columns(T(me), T(mv), edges, t.n_pad, 40)
+        got = thb._cc_columns(T(me_b), T(mv), be, t.n_pad, 40)
+    else:
+        seed = np.zeros(t.n_pad, bool)
+        seed[rng.choice(t.n, 3, replace=False)] = True
+        ew = rng.choice(np.array([-0.25, 0.0, 0.5, 2.75], np.float32),
+                        (t.m_pad, H))
+        directed = op == "sssp_directed"
+        w, w_b = (None, None) if op == "bfs" else (T(ew), T(ew[lay.perm]))
+        want = thb._bfs_columns(T(me), T(mv), edges, t.n_pad, 40, directed,
+                                T(seed), w, W)
+        got = thb._bfs_columns(T(me_b), T(mv), be, t.n_pad, 40, directed,
+                               T(seed), w_b, W)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1] > 1

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_bsp import assert_pagerank_steps
+from test_torch_columns import _view
 
 from raphtory_tpu.core import bulk as jbulk
 from raphtory_tpu.engine import hopbatch as jhb
@@ -299,3 +300,173 @@ def test_binned_scale_and_host_column_routes_agree_bitwise(monkeypatch):
     assert lay is not None and lay.spec.partitions == 3
     b = thb.run_columns(bg, *cols, HOPS, WINDOWS, layout=lay, **kw)
     assert torch.equal(a[0], b[0]) and a[1] == b[1] == 10
+
+
+# ------------------------------------------- K4's edge cases, two passes
+
+I32_MIN = np.iinfo(np.int32).min
+I32_MAX = np.iinfo(np.int32).max
+
+
+def _jax_hop_masks(base, d_pos, d_t, thr, H, W, perm=None, valid=None):
+    """``_compiled_scale.hop_masks`` as the reference writes it
+    (``raphtory_tpu/engine/hopbatch.py:2129-2150``, its unrolled shape;
+    binned, its ``col_of`` through ``perm``/``valid``), on jnp arrays."""
+    def run(base, d_pos, d_t, thr, perm, valid):
+        def col_of(cur, th):
+            if perm is not None:
+                return (cur[perm][:, None] >= th[None, :]) & valid[:, None]
+            return cur[:, None] >= th[None, :]
+
+        cur, cols = base, []
+        for h in range(H):
+            cur = cur.at[d_pos[h]].max(d_t[h])
+            cols.append(col_of(cur, thr[h * W:(h + 1) * W]))
+        return jnp.concatenate(cols, axis=1)
+
+    return np.asarray(jax.jit(run)(base, d_pos, d_t, thr, perm, valid))
+
+
+def _k4_payload(seed, length, H, W, U, negative=False):
+    """A K4 payload with every edge case the kernel must keep: row 2
+    updated in every hop (times rising, then falling), row 1's INT32_MAX
+    base with an update below it, never-seen (INT32_MIN) bases, positions
+    >= len (and, with ``negative``, < 0: the reference never ships those,
+    its pads sit at 0, and JAX would wrap them), the (0, INT32_MIN) pads,
+    unwindowed (0) and extreme thresholds, and the last positions updated
+    (the engine's pad rows in ``_k4_layout``)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-50, 50, length).astype(np.int32)
+    base[::7] = I32_MIN
+    base[1] = I32_MAX
+    pos = rng.integers(0, length, (H, U)).astype(np.int32)
+    t = rng.integers(-60, 60, (H, U)).astype(np.int32)
+    pos[:, -2:], t[:, -2:] = 0, I32_MIN                  # the pads
+    pos[:, 0] = 2
+    t[:, 0] = 40 - 20 * np.abs(np.arange(H) - H // 2)    # row 2, every hop
+    pos[-1, 1], t[-1, 1] = 1, -60                        # below its base
+    pos[0, 2] = length                                   # past the table
+    pos[0, 3] = -1 if negative else length + 5
+    pos[0, 4] = length - 1                               # a last row
+    thr = rng.integers(-55, 55, H * W).astype(np.int32)
+    thr[::3] = 0                                         # unwindowed
+    if H * W > 2:
+        thr[1], thr[-1] = I32_MIN, I32_MAX
+    return base, pos, t, thr
+
+
+def _k4_layout(seed, length):
+    """A synthetic binned layout over ``length`` engine positions: slots in
+    a random order, 5 cap-pad slots (perm ``length - 1``, invalid), the
+    last 3 positions — the engine's pad rows — in no slot."""
+    rng = np.random.default_rng(seed)
+    real = length - 3
+    B = real + 5
+    slots = rng.permutation(B)[:real]
+    perm = np.full(B, length - 1, np.int32)
+    perm[slots] = rng.permutation(real).astype(np.int32)
+    valid = np.zeros(B, bool)
+    valid[slots] = True
+    return perm, valid
+
+
+K4_SHAPES = [(37, 3, 4, 6), (200, 3, 5, 9), (64, 2, 8, 7), (90, 1, 1, 12),
+             (101, 3, 11, 17), (50, 4, 32, 11)]
+K4_IDS = ["C12", "C15", "C16", "C1", "C33", "C128"]
+
+
+@pytest.mark.parametrize("binned", [False, True], ids=["flat", "binned"])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=K4_IDS)
+def test_scale_hop_masks_edge_cases_match_jax(shape, binned):
+    """K4's twin on ``_k4_payload`` against the reference's hop masks,
+    engine-order and binned (an update on an engine pad row included),
+    bitwise."""
+    length, H, W, U = shape
+    base, pos, t, thr = _k4_payload(sum(shape), length, H, W, U)
+    perm, valid = _k4_layout(length, length) if binned else (None, None)
+    want = _jax_hop_masks(base, pos, t, thr, H, W, perm, valid)
+    kw = dict(perm=T(perm), valid=T(valid)) if binned else {}
+    got = columns.scale_hop_masks(T(base), T(pos), T(t), T(thr), H, W, **kw)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _model_scale_hop_masks(calls):
+    """``rtpu_scale_hop_masks`` as numpy over the wrapper's raw host
+    addresses, the kernel's two passes: pass A ``out[r] = live(r) &
+    (val(r) >= thr)`` (binned: ``val`` read at ``perm[r]``, live where
+    ``valid``), then pass B's 1s — each update at a position in ``[0,
+    len)`` with ``t != INT32_MIN``, into row ``p`` (binned: ``inv[p]``,
+    skipped where -1), at the columns ``[h * W, C)`` it reaches."""
+    def model(rows, n, H, W, U, base, pos, t, thr, perm, valid, inv, out,
+              stream, launched):
+        C = H * W
+        calls.append(dict(rows=rows, perm=perm, valid=valid, inv=inv,
+                          out=out))
+        b = _view(base, np.int32, n)
+        th = _view(thr, np.int32, C)
+        o = _view(out, np.uint8, rows * C).reshape(rows, C)
+        if perm is None:
+            live, v = np.ones(rows, bool), b
+        else:
+            live = _view(valid, np.uint8, rows) != 0
+            v = np.where(live, b[np.where(live, _view(perm, np.int32, rows),
+                                          0)], 0)
+        o[:] = live[:, None] & (v[:, None] >= th[None, :])
+        k = 1
+        if U > 0 and n > 0:
+            k = 2
+            p = _view(pos, np.int32, H * U).astype(np.int64)
+            tt = _view(t, np.int32, H * U)
+            iv = None if perm is None else _view(inv, np.int32, n)
+            for g in range(H * U):
+                if not 0 <= p[g] < n or tt[g] == I32_MIN:
+                    continue
+                r = p[g] if iv is None else iv[p[g]]
+                if r < 0:
+                    continue
+                c0 = (g // U) * W
+                o[r, c0:] |= tt[g] >= th[c0:]
+        launched._obj.value += k
+        return 0
+    return model
+
+
+@pytest.mark.parametrize("binned", [False, True], ids=["flat", "binned"])
+@pytest.mark.parametrize("shape", K4_SHAPES + [(64, 2, 8, 0)],
+                         ids=K4_IDS + ["no_updates"])
+def test_scale_hop_masks_card_branch_two_passes(monkeypatch, shape, binned):
+    """K4's card branch on CPU tensors through the numpy model of its two
+    passes: bitwise the twin's scatter-max on ``_k4_payload`` (negative
+    positions included), two launches a call (one with no updates), the
+    binned call given ``slot_inverse``'s map, only the output allocated."""
+    length, H, W, U = shape
+    base, pos, t, thr = (T(a) for a in _k4_payload(
+        sum(shape), length, H, W, max(U, 5), negative=True))
+    pos, t = pos[:, :U].contiguous(), t[:, :U].contiguous()
+    kw = {}
+    if binned:
+        perm, valid = (T(a) for a in _k4_layout(length, length))
+        kw = dict(perm=perm, valid=valid)
+    want = columns.scale_hop_masks(base, pos, t, thr, H, W, **kw)
+    calls = []
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: (
+        _model_scale_hop_masks(calls)))
+    columns.reset_launches()
+    got = columns.scale_hop_masks(base, pos, t, thr, H, W, **kw)
+    assert torch.equal(got, want)
+    assert columns.LAUNCHES["scale_hop_masks"] == (2 if U else 1)
+    assert sum(columns.LAUNCHES.values()) == columns.LAUNCHES[
+        "scale_hop_masks"]                       # no KB1 beside it
+    (call,) = calls
+    assert call["out"] == got.data_ptr()
+    if binned:
+        inv = columns.slot_inverse(perm, valid, length)
+        assert call["inv"] == inv.data_ptr()
+        assert (call["perm"], call["valid"]) == (perm.data_ptr(),
+                                                 valid.data_ptr())
+    else:
+        assert call["perm"] is call["inv"] is None
+    columns.reset_launches()
