@@ -10,7 +10,10 @@ printing one JSON line:
 1. device   — card name and power limit (nvidia-smi).
 2. build    — nvcc build of every kernel library, one process per source.
 3. kernels  — each kernel against its plain PyTorch twin on the card, at
-              the shapes of the path that runs it: K1 and K2a bitwise; K2b,
+              the shapes of the path that runs it: K1 (one launch a
+              call; at the headline's edge and vertex calls and on
+              ``k1_edge_cases``: int32 / int64 at their limits, h0 on and
+              off, H 1 to 70, groups of hops chained) and K2a bitwise; K2b,
               and K2c's ranks, pull-sum input and dangling mass, within
               rtol 1e-5 / atol 1e-7 (K2b also bitwise its twin run on the
               CPU, which adds in edge order; K2a and K2b at C = 1, 9, 12,
@@ -117,7 +120,10 @@ printing one JSON line:
               binned against the CPU; the headline's binned run makes one
               K2b-P launch a superstep.
 14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
-              2^25-edge-event log, 2 hops x 3 windows, chunks=2.
+              2^25-edge-event log, 2 hops x 3 windows, chunks=2; K1 on
+              the sweep's edge payload (33,554,432 rows: its own h0 call,
+              and both hops as one call of H 2 without h0) bitwise its
+              twin, timed with its device time and bound (``k1_edge``).
 15. features — ``bench.py:bench_scale_features`` uncut:
               ``twitter_like_log(2^22, 2^25, seed 11)``, F 128, 2 rounds,
               bf16, ``RTPU_PCPM`` unset; a set-up call at 0.8 t_span, then
@@ -145,8 +151,10 @@ printing one JSON line:
               ``DeviceSweep.run``, each BITWISE equal to the CPU run with
               equal steps; K7-mode against its twin on a synthetic case
               (a 100,003-row segment with ties, rows of 1, 32, 33, 4,096
-              and 4,097, masked and negative values, empty segments) and
-              timed at the View's shape.
+              and 4,097, runs at the short rows' lane widths, masked and
+              negative values, empty segments, k = 1, 2, 3, with and
+              without a mask) and timed at the GAB View's shape (k 3)
+              and at the LDBC Range's (k 2, ``ldbc_range_shape``).
 
 18. taint   — ``TaintTracking`` (the reference's Ethereum taint
               tracking with its exchange stop-list) over the multigraph of
@@ -213,14 +221,14 @@ just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
-unpacked with ``git archive``: ``Parent`` binds its C entry points), K4
-(engine-order and binned) and the min-combine supersteps K5, K6, K5-P and
-K6-P as DIR's ``masks.cu`` and ``minplus_columns.cu`` build them are held
-BITWISE against this tree's and timed in turns with them (CUDA events,
-and device time from the profiler) at the kernels phase's shapes and on
-``scale_bulk``'s payload; ``scale_bulk`` and its binned part also run one
-sweep with the parent's K4 (ranks bitwise, seconds and peak device bytes
-beside this tree's): a ``parent`` line before ``timing``.
+unpacked with ``git archive``: ``Parent`` binds its C entry points), K1
+``masks_from_deltas`` and K7-mode ``segment_mode`` as DIR's ``masks.cu``
+and ``segment.cu`` build them are held BITWISE against this tree's and
+timed in turns with them (CUDA events, and device time from the
+profiler): K1 at the headline's edge and vertex calls, on its edge cases
+and on the ``scale`` phase's edge payload; K7-mode on its synthetic
+inboxes, at the cold GAB View's shape and at the LDBC Range's: a
+``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -292,29 +300,26 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K4 and the min-combine supersteps (K5, K6, K5-P,
-#: K6-P) as the tree at DIR builds them (``Parent``), held against this
-#: tree's and timed in turns with them on the same inputs
+#: with ``--parent DIR``: K1 and K7-mode as the tree at DIR builds them
+#: (``Parent``), held against this tree's and timed in turns with them on
+#: the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
 class Parent:
-    """K4 ``scale_hop_masks`` (with its binned form, KB1's scale entry) and
-    the min-combine supersteps of another tree's ``masks.cu`` and
-    ``minplus_columns.cu``, through the C entry points they had before
-    this tree redesigned them: K4 ``(len, H, W, U, base, d_pos, d_t, thr,
-    snap, out, stream, launched)`` over an ``[H, len]`` int32 snapshot
-    (``out`` null: the snapshot only, then ``rtpu_bin_scale_masks(B, len,
-    H, W, snap, thr, perm, valid, out, stream)``); K5 / K6 ``(n, C, gx,
-    in_indptr, e_src, out_indptr, out_perm, e_dst, me, mv, cur, nxt,
-    halted, done, busy, ticket, stream)`` (K6 with ``W, H, ..., directed,
-    ew`` first) on a grid of one thread a (row, column), ``256 // min(C,
-    256)`` rows a block, at most 264 blocks; K5-P / K6-P with the bucket
-    gather into a ``[U, C]`` scratch first. Built with ``columns.build``'s
-    nvcc flags, both sources at once. Its launches count nowhere; its
-    supersteps keep their own busy scratch."""
+    """K1 ``masks_from_deltas`` and K7-mode ``segment_mode`` of another
+    tree's ``masks.cu`` and ``segment.cu``, through the C entry points they
+    had before this tree redesigned them, each inside a copy of that tree's
+    wrapper (its input checks, allocations and call; the kernels line's
+    ``ms`` has always timed the wrapper): K1 ``(len, H, W, U, h0 | d_pos,
+    d_lat, d_alive, lo, nowin, cur_l, cur_a, out, stream | launched)`` on
+    clones of the base (a scatter and a column pass a hop); K7-mode ``(k,
+    n, m, default | indptr, perm, values, mask, scratch, out, stream)``
+    with a ``[k*m]`` scratch (and a mask of ones where none is given)
+    allocated every call. Built with ``columns.build``'s nvcc flags, both
+    sources at once. Its launches count nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
@@ -322,7 +327,7 @@ class Parent:
 
         libs = {}
         procs = []
-        for name in ("masks", "minplus_columns"):
+        for name in ("masks", "segment"):
             src = os.path.join(root, "raphtory_tpu_torch", "csrc",
                                f"{name}.cu")
             with open(src, "rb") as f:
@@ -341,135 +346,174 @@ class Parent:
             if proc.returncode:
                 raise RuntimeError(f"parent build failed:\n{log.decode()}")
         masks = ctypes.CDLL(str(libs["masks"]))
-        mp = ctypes.CDLL(str(libs["minplus_columns"]))
+        seg = ctypes.CDLL(str(libs["segment"]))
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        launched = ctypes.POINTER(ctypes.c_int64)
-        self._k4 = masks.rtpu_scale_hop_masks
-        self._k4.argtypes = 4 * [i64] + 7 * [ptr] + [launched]
-        self._kb1 = masks.rtpu_bin_scale_masks
-        self._kb1.argtypes = 4 * [i64] + 6 * [ptr]
-        self._cc = mp.rtpu_cc_superstep
-        self._cc.argtypes = 3 * [i64] + 14 * [ptr]
-        self._mp = mp.rtpu_minplus_superstep
-        self._mp.argtypes = 6 * [i64] + 15 * [ptr]
-        self._bcc = mp.rtpu_binned_cc_superstep
-        self._bcc.argtypes = 4 * [i64] + 18 * [ptr] + [launched]
-        self._bmp = mp.rtpu_binned_minplus_superstep
-        self._bmp.argtypes = 7 * [i64] + 19 * [ptr] + [launched]
-        for f in (self._k4, self._kb1, self._cc, self._mp, self._bcc,
-                  self._bmp):
+        self._k1 = {"i32": masks.rtpu_masks_from_deltas_i32,
+                    "i64": masks.rtpu_masks_from_deltas_i64}
+        for f in self._k1.values():
+            f.argtypes = 5 * [i64] + 9 * [ptr] + [ctypes.POINTER(i64)]
             f.restype = ctypes.c_int
+        self._mode = seg.rtpu_segment_mode
+        self._mode.argtypes = 4 * [i64] + 7 * [ptr]
+        self._mode.restype = ctypes.c_int
         self._c = columns
         self._ct = ctypes
-        self._scratch: dict = {}
         self.source = str(root)
 
     def _ok(self, what: str, err: int) -> None:
         if err:
             raise RuntimeError(f"parent {what}: cudaError {err}")
 
-    def scale_hop_masks(self, base, d_pos, d_t, thr, H: int, W: int,
-                        perm=None, valid=None):
+    def masks_from_deltas(self, base_lat, base_alive, d_pos, d_lat, d_alive,
+                          lo, nowin, H: int, W: int, h0: bool = False):
         import torch
 
-        n, U = base.shape[0], d_pos.shape[1]
-        snap = torch.empty((H, n), dtype=torch.int32, device=base.device)
-        rows = n if perm is None else perm.shape[0]
-        out = torch.empty((rows, H * W), dtype=torch.bool,
-                          device=base.device)
-        st = self._c._stream(out)
-        k = self._ct.c_int64(0)
-        self._ok("K4", self._k4(
-            n, H, W, U, base.data_ptr(), d_pos.data_ptr(), d_t.data_ptr(),
-            thr.data_ptr(), snap.data_ptr(),
-            out.data_ptr() if perm is None else None, st,
-            self._ct.byref(k)))
-        if perm is not None:
-            self._ok("KB1", self._kb1(rows, n, H, W, snap.data_ptr(),
-                                      thr.data_ptr(), perm.data_ptr(),
-                                      valid.data_ptr(), out.data_ptr(), st))
+        name, ex = "masks_from_deltas", self._c._expect
+        n, tdt = base_lat.shape[0], base_lat.dtype
+        U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+        ex(name, base_lat, "base_lat", (torch.int32, torch.int64), (n,))
+        ex(name, base_alive, "base_alive", (torch.bool,), (n,))
+        ex(name, d_pos, "d_pos", (torch.int32,), (H, U))
+        ex(name, d_lat, "d_lat", (tdt,), (H, U))
+        ex(name, d_alive, "d_alive", (torch.bool,), (H, U))
+        ex(name, lo, "lo", (tdt,), (H * W,))
+        ex(name, nowin, "nowin", (torch.bool,), (H * W,))
+        self._c._on_cuda(name, base_lat, base_alive, d_pos, d_lat, d_alive,
+                         lo, nowin)
+        cur_l, cur_a = base_lat.clone(), base_alive.clone()
+        out = torch.empty((n, H * W), dtype=torch.bool,
+                          device=base_lat.device)
+        fn = self._k1["i32" if base_lat.dtype == torch.int32 else "i64"]
+        self._ok("K1", fn(n, H, W, U, int(bool(h0)), d_pos.data_ptr(),
+                          d_lat.data_ptr(), d_alive.data_ptr(),
+                          lo.data_ptr(), nowin.data_ptr(), cur_l.data_ptr(),
+                          cur_a.data_ptr(), out.data_ptr(),
+                          self._c._stream(out),
+                          self._ct.byref(self._ct.c_int64(0))))
+        return out, cur_l, cur_a
+
+    def segment_mode(self, values, seg, num_segments: int, mask=None,
+                     default: int = -1, k: int = 1):
+        import torch
+
+        name, ex = "segment_mode", self._c._expect
+        m, n = seg.ids.shape[0], seg.n
+        if num_segments != k * n or values.dim() != 1 \
+                or values.shape[0] != k * m:
+            raise ValueError(f"parent {name}: bad shapes")
+        dev = values.device
+        if mask is None:
+            mask = torch.ones(k * m, dtype=torch.bool, device=dev)
+        ex(name, mask, "mask", (torch.bool,), (k * m,))
+        ex(name, seg.ids, "ids", (torch.int32,), (m,))
+        ex(name, seg.indptr, "indptr", (torch.int64,), (n + 1,))
+        tensors = (values, mask, seg.ids, seg.indptr)
+        if seg.perm is not None:
+            ex(name, seg.perm, "perm", (torch.int32,), (seg.perm.shape[0],))
+            tensors += (seg.perm,)
+        self._c._on_cuda(name, *tensors)
+        ex(name, values, "values", (torch.int32,), (k * m,))
+        if not -(1 << 31) <= int(default) < (1 << 31):
+            raise ValueError(f"parent {name}: default is not an int32")
+        out = torch.empty(k * n, dtype=torch.int32, device=dev)
+        scratch = torch.empty(k * m, dtype=torch.int32, device=dev)
+        self._ok("K7-mode", self._mode(
+            k, n, m, int(default), seg.indptr.data_ptr(),
+            None if seg.perm is None else seg.perm.data_ptr(),
+            values.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), self._c._stream(values)))
         return out
 
-    def _state(self, st):
-        """(gx, busy, ticket) of the parent's grid for ``st``."""
-        import torch
 
-        n, C = st.cur.shape
-        gx = max(1, min(-(-n // (256 // min(C, 256))), 264))
-        key = (gx, C, st.cur.device)
-        if key not in self._scratch:
-            self._scratch[key] = (
-                torch.empty((gx, C), dtype=torch.int32, device=st.cur.device),
-                torch.zeros(1, dtype=torch.int32, device=st.cur.device))
-        return (gx, *self._scratch[key])
-
-    def superstep(self, st, me, mv, edges, directed=None, ew=None,
-                  W: int = 1) -> None:
-        """K5 (``directed`` None) or K6 over ``DeviceEdges``."""
-        n, C = st.cur.shape
-        gx, busy, ticket = self._state(st)
-        e = edges
-        tail = (e.in_indptr.data_ptr(), e.e_src.data_ptr(),
-                e.out_indptr.data_ptr(), e.out_perm.data_ptr(),
-                e.e_dst.data_ptr(), me.data_ptr(), mv.data_ptr(),
-                st.cur.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
-                st.done.data_ptr(), busy.data_ptr(), ticket.data_ptr(),
-                self._c._stream(st.cur))
-        if directed is None:
-            self._ok("K5", self._cc(n, C, gx, *tail))
-        else:
-            self._ok("K6", self._mp(n, C, W, C // W, gx, int(bool(directed)),
-                                    None if ew is None else ew.data_ptr(),
-                                    *tail))
-        st.cur, st.nxt = st.nxt, st.cur
-
-    def binned_superstep(self, st, me, mv, be, directed=None, ew=None,
-                         W: int = 1) -> None:
-        """K5-P (``directed`` None) or K6-P over a layout's
-        ``BinnedEdges``, the buckets gathered first where it has them."""
-        import torch
-
-        n, C = st.cur.shape
-        gx, busy, ticket = self._state(st)
-        vals = torch.empty((be.U, C), dtype=st.cur.dtype,
-                           device=st.cur.device)
-
-        def opt(t):
-            return None if t is None else t.data_ptr()
-
-        tail = (be.in_indptr.data_ptr(), be.in_order.data_ptr(),
-                be.b_src.data_ptr(), be.slot.data_ptr(), be.u_src.data_ptr(),
-                opt(be.out_indptr), opt(be.out_order), be.b_dst.data_ptr(),
-                me.data_ptr(), mv.data_ptr(), st.cur.data_ptr(),
-                vals.data_ptr(), st.nxt.data_ptr(), st.halted.data_ptr(),
-                st.done.data_ptr(), busy.data_ptr(), ticket.data_ptr(),
-                self._c._stream(st.cur), self._ct.byref(self._ct.c_int64(0)))
-        if directed is None:
-            self._ok("K5-P", self._bcc(n, C, gx, be.U, *tail))
-        else:
-            self._ok("K6-P", self._bmp(n, C, W, C // W, gx,
-                                       int(bool(directed)), be.U,
-                                       None if ew is None else ew.data_ptr(),
-                                       *tail))
-        st.cur, st.nxt = st.nxt, st.cur
+#: alternating rounds ``vs_parent`` times this tree's and the parent's call
+PARENT_ROUNDS = 7
 
 
 def vs_parent(torch, key: str, new, old, iters: int = 20, **facts) -> None:
-    """``new`` and the parent's ``old`` timed in turns — parent, new, new,
-    parent; ``cuda_ms`` over ``iters`` calls each — then each one's device
-    time (``device_ms``: at the headline shape a call is host-bound, and
-    the parent's is a bare ctypes call without the wrapper's checks), into
-    ``PARENT_MS[key]``."""
-    p1 = cuda_ms(torch, old, iters)
-    n1 = cuda_ms(torch, new, iters)
-    n2 = cuda_ms(torch, new, iters)
-    p2 = cuda_ms(torch, old, iters)
+    """``new`` and the parent's ``old`` timed in turns: ``PARENT_ROUNDS``
+    rounds, each ``cuda_ms`` over ``iters`` calls of one then the other
+    (the order alternating, so both see the same host load: at the
+    headline shapes a call is host-bound), compared by their medians; then
+    each one's device time (``device_ms``; both calls run their wrapper's
+    checks, as the parent's wrapper did), into ``PARENT_MS[key]``."""
+    import statistics
+
+    ms, pms = [], []
+    for r in range(PARENT_ROUNDS):
+        for fn, got in ((old, pms), (new, ms))[::1 if r % 2 else -1]:
+            got.append(cuda_ms(torch, fn, iters))
     dn, by_n = device_ms(torch, new, iters)
     dp, by_p = device_ms(torch, old, iters)
-    PARENT_MS[key] = dict(ms=[n1, n2], parent_ms=[p1, p2],
-                          ratio=(n1 + n2) / (p1 + p2), device_ms=dn,
-                          parent_device_ms=dp, device_ratio=dn / dp,
-                          device_by=[by_n, by_p], **facts)
+    PARENT_MS[key] = dict(ms=ms, parent_ms=pms,
+                          ratio=statistics.median(ms) / statistics.median(pms),
+                          device_ms=dn, parent_device_ms=dp,
+                          device_ratio=dn / dp, device_by=[by_n, by_p],
+                          **facts)
+
+
+def k1_bound(length: int, C: int, updates: int, tbytes: int) -> float:
+    """K1's bound (ms): the base state read once, the advanced state and
+    the ``[len, C]`` masks written once, each live update's (pos, lat,
+    alive) and the column bounds (lo, nowin) read once."""
+    return bound(length * (tbytes + 1) * 2 + length * C
+                 + updates * (4 + tbytes + 1) + C * (tbytes + 1))[0]
+
+
+def k1_edge_cases(torch, np, columns, dev) -> int:
+    """K1 bitwise its twin (and, with ``--parent``, the parent's kernel) on
+    small payloads: int32 and int64 times with the bases, updates and
+    column bounds at the dtype's limits (``lo`` clipped, unwindowed
+    columns), ``h0`` on and off, H = 1, 2, 8, 9, 33, 64, 65 and 70 (one,
+    two and three touch-word widths, groups chained; one applied hop on the
+    dense path and on the touch path), W = 1, 3 and 16 (C a multiple of 16
+    or not), rows every hop touches, positions < 0 and >= len, pad rows,
+    and no updates at all (U = 0; H = 1 without ``h0``). Returns the
+    count."""
+    rng = np.random.default_rng(7)
+    cases = 0
+    for tdt in (np.int32, np.int64):
+        info = np.iinfo(tdt)
+        vals = np.concatenate([[info.min, info.min + 1, info.max - 1,
+                                info.max], rng.integers(-40, 40, 30)])
+        for length, H, W, U, h0 in (
+                (37, 1, 3, 5, False), (37, 1, 3, 5, True),
+                (101, 2, 3, 9, False), (40, 2, 3, 6, False),
+                (64, 8, 16, 7, True), (90, 9, 3, 11, False),
+                (45, 33, 1, 6, True), (77, 64, 3, 8, False),
+                (50, 65, 3, 5, True), (61, 70, 2, 9, False),
+                (33, 3, 3, 0, True), (1000, 4, 3, 300, True)):
+            base_lat = torch.from_numpy(rng.choice(vals, length).astype(
+                tdt)).to(dev)
+            base_alive = torch.from_numpy(rng.random(length) < 0.6).to(dev)
+            pos = np.full((H, U), 2**31 - 1, np.int32)
+            for h in range(H):
+                k = int(rng.integers(0, U + 1))
+                pos[h, :k] = rng.choice(np.arange(2, length), k,
+                                        replace=False)
+                if U >= 3:
+                    pos[h, 0] = 1                     # every hop
+                    pos[h, -1] = -1 - h % 3           # outside [0, len)
+            lat = rng.choice(vals, (H, U)).astype(tdt)
+            alive = rng.random((H, U)) < 0.5
+            T_col = np.repeat(rng.choice(vals, H), W).astype(np.int64)
+            w_col = np.tile(rng.choice([-1, 0, 5, 1 << 40], W), H)
+            lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+            args = [base_lat, base_alive] + [torch.from_numpy(a).to(dev)
+                                             for a in (pos, lat, alive, lo,
+                                                       w_col < 0)]
+            got = columns.masks_from_deltas(*args, H, W, h0)
+            want = columns.masks_from_deltas_plain(*args, H, W, h0)
+            what = (f"tdt={tdt.__name__}, len={length}, H={H}, W={W}, "
+                    f"U={U}, h0={h0}")
+            if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"K1 differs from its twin ({what})")
+            if PARENT is not None and not all(
+                    torch.equal(g, x) for g, x in zip(
+                        PARENT.masks_from_deltas(*args, H, W, h0), got)):
+                raise AssertionError(f"K1 differs from the parent's "
+                                     f"({what})")
+            cases += 1
+    return cases
 
 
 def headline_grid():
@@ -489,7 +533,7 @@ def phase_kernels(torch, np, columns, tables, dev):
     out = {}
 
     # ---- K1: int32 and int64 times near the dtype bounds, pad rows, h0
-    k1_ms = k1_plain = k1_bytes = None
+    k1 = {}
     k1_err = 0.0
     for tdt in (np.int32, np.int64):
         info = np.iinfo(tdt)
@@ -523,33 +567,57 @@ def phase_kernels(torch, np, columns, tables, dev):
                 args = [torch.from_numpy(a).to(dev) for a in
                         (base_lat, base_alive, pos, lat, alive, lo,
                          w_col < 0)]
+                launched = columns.LAUNCHES["masks_from_deltas"]
                 got = columns.masks_from_deltas(*args, H, W, h0)
+                if columns.LAUNCHES["masks_from_deltas"] - launched != 1:
+                    raise AssertionError("K1: not one launch a call")
                 want = columns.masks_from_deltas_plain(*args, H, W, h0)
+                what = f"tdt={tdt.__name__}, h0={h0}, len={length}"
                 for g, x in zip(got, want):
                     k1_err = max(k1_err, float(
                         (g.double() - x.double()).abs().max()))
                     if not torch.equal(g, x):
-                        raise AssertionError(
-                            f"K1 differs from its twin (tdt={tdt.__name__},"
-                            f" h0={h0}, len={length})")
-                if tdt == np.int32 and h0 and length == m_pad:
-                    k1_ms = cuda_ms(torch, lambda: columns.masks_from_deltas(
-                        *args, H, W, h0))
-                    k1_plain = cuda_ms(
-                        torch, lambda: columns.masks_from_deltas_plain(
-                            *args, H, W, h0), iters=3)
+                        raise AssertionError(f"K1 differs from its twin "
+                                             f"({what})")
+                if PARENT is not None and not all(
+                        torch.equal(g, x) for g, x in zip(
+                            PARENT.masks_from_deltas(*args, H, W, h0),
+                            got)):
+                    raise AssertionError(f"K1 differs from the parent's "
+                                         f"({what})")
+                if tdt == np.int32 and h0:
+                    key = "edge" if length == m_pad else "vertex"
                     valid = int((pos < length).sum())
-                    k1_bytes = (length * 5            # base lat i32 + alive
-                                + valid * (4 + 4 + 1)  # live delta rows
-                                + C * 5                # lo + nowin
-                                + length * C           # mask out
-                                + length * 5)          # advanced base out
+                    k1[f"{key}_ms"] = cuda_ms(
+                        torch, lambda: columns.masks_from_deltas(
+                            *args, H, W, h0))
+                    k1[f"{key}_device_ms"], k1[f"{key}_device_by"] = \
+                        device_ms(torch, lambda: columns.masks_from_deltas(
+                            *args, H, W, h0))
+                    k1[f"{key}_bound_ms"] = k1_bound(length, C, valid, 4)
+                    if key == "edge":
+                        k1["plain_ms"] = cuda_ms(
+                            torch, lambda: columns.masks_from_deltas_plain(
+                                *args, H, W, h0), iters=3)
+                    if PARENT is not None:
+                        vs_parent(torch, f"masks_from_deltas {key}",
+                                  lambda: columns.masks_from_deltas(
+                                      *args, H, W, h0),
+                                  lambda: PARENT.masks_from_deltas(
+                                      *args, H, W, h0), iters=100,
+                                  shape=f"len={length} H={H} W={W} U={U} "
+                                        "int32 h0",
+                                  bound_ms=k1[f"{key}_bound_ms"])
     out["masks_from_deltas"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:66",
-        max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
+        max_abs_err=k1_err, ms=k1["edge_ms"],
+        device_ms=k1["edge_device_ms"], plain_ms=k1["plain_ms"],
+        library_ms=None, calls=k1,
+        edge_cases=k1_edge_cases(torch, np, columns, dev),
         shape=f"edges len={m_pad} H={H} W={W} U=16384 int32 h0",
-        **dict(zip(("bound_ms", "bound_by"), bound(k1_bytes))))
+        bound_ms=k1["edge_bound_ms"],
+        bound_by="bytes")
 
     # ---- K2: the headline's real (dst, src)-sorted edge tables, and
     # their source walk (K2a's)
@@ -912,8 +980,8 @@ def mask_kernels(torch, np, columns, gab, dev):
     shape (``bench.py:bench_scale_pagerank``: m_pad 33,554,432, n_pad
     5,308,416, 16 hops x 8 windows, U_e 65,536, U_v 131,072; the edge
     call also binned through a synthetic layout) and on ``k4_edge_cases``,
-    each against its twin (and, with ``--parent``, the parent's kernel)
-    with ``torch.equal``; K4's calls timed, with their device time."""
+    each against its twin with ``torch.equal``; K4's calls timed, with
+    their device time."""
     rng = np.random.default_rng(2)
     out = {}
 
@@ -986,10 +1054,6 @@ def mask_kernels(torch, np, columns, gab, dev):
         want = columns.scale_hop_masks_plain(*args)
         if not torch.equal(got, want):
             raise AssertionError(f"K4 differs from its twin (len={length})")
-        if PARENT is not None and not torch.equal(
-                PARENT.scale_hop_masks(*args), got):
-            raise AssertionError(f"K4 differs from the parent's "
-                                 f"(len={length})")
         edge = length == 33_554_432
         shape = f"len={length} H={H} W={W} U={U}"
         if edge:
@@ -1008,10 +1072,6 @@ def mask_kernels(torch, np, columns, gab, dev):
             got_b = columns.scale_hop_masks(*args, perm=perm, valid=valid)
             if not torch.equal(got_b, want[perm.long()] & valid[:, None]):
                 raise AssertionError("binned K4 differs from its twin")
-            if PARENT is not None and not torch.equal(
-                    PARENT.scale_hop_masks(*args, perm=perm, valid=valid),
-                    got_b):
-                raise AssertionError("binned K4 differs from the parent's")
             del got_b
         del got, want
         key = "edge" if edge else "vertex"
@@ -1023,11 +1083,6 @@ def mask_kernels(torch, np, columns, gab, dev):
         # [len, H*W] masks written once
         k4[f"{key}_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
                                       + length * C)[0]
-        if PARENT is not None:
-            vs_parent(torch, f"scale_hop_masks {key}",
-                      lambda: columns.scale_hop_masks(*args),
-                      lambda: PARENT.scale_hop_masks(*args), iters=5,
-                      shape=shape, bound_ms=k4[f"{key}_bound_ms"])
         if edge:
             k4["plain_ms"] = cuda_ms(
                 torch, lambda: columns.scale_hop_masks_plain(*args), iters=2)
@@ -1040,12 +1095,6 @@ def mask_kernels(torch, np, columns, gab, dev):
             # as the edge call, plus perm and valid read once, B rows out
             k4["binned_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
                                           + B * 5 + B * C)[0]
-            if PARENT is not None:
-                vs_parent(torch, "scale_hop_masks binned",
-                          lambda: columns.scale_hop_masks(*args, **bargs),
-                          lambda: PARENT.scale_hop_masks(*args, **bargs),
-                          iters=5, shape=f"B={B} {shape}",
-                          bound_ms=k4["binned_bound_ms"])
             del perm, valid, slots
         del base, pos, t
     out["scale_hop_masks"] = dict(
@@ -1062,9 +1111,9 @@ def mask_kernels(torch, np, columns, gab, dev):
 
 
 def k4_edge_cases(torch, columns, dev) -> int:
-    """K4 bitwise its twin (and the parent's kernel, with ``--parent``) on
-    small payloads, engine-order and binned: a row updated in every hop,
-    an update below its row's base, positions < 0 and >= len, the (0,
+    """K4 bitwise its twin on small payloads, engine-order and binned: a
+    row updated in every hop, an update below its row's base, positions
+    < 0 and >= len, the (0,
     INT32_MIN) pads, unwindowed (0) and extreme thresholds, never-seen and
     INT32_MAX bases, C = 1, 12, 15, 16, 33, 256, 4,112 (past the
     row-mapped pass) and 8,193 (past the thresholds staged in shared
@@ -1116,10 +1165,6 @@ def k4_edge_cases(torch, columns, dev) -> int:
                 raise AssertionError(f"K4 differs from its twin (len="
                                      f"{length}, C={C}, U={U}, binned="
                                      f"{bool(kw)})")
-            if PARENT is not None and not torch.equal(
-                    PARENT.scale_hop_masks(*args, **kw), got):
-                raise AssertionError(f"K4 differs from the parent's (len="
-                                     f"{length}, C={C}, binned={bool(kw)})")
             cases += 1
     return cases
 
@@ -1269,12 +1314,10 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
                       minplus.I32_MAX).contiguous()
     step = (lambda st: minplus.binned_cc_superstep(st, me_b, mv, be))
     plain = (lambda st: minplus.binned_cc_superstep_plain(st, me_b, mv, be))
-    parent = None if PARENT is None else (
-        lambda st: PARENT.binned_superstep(st, me_b, mv, be))
     err = 0.0
     for frozen in ([2], [c for c in range(C) if c != 1]):
         err = max(err, compare("K5-P", "binned_cc_superstep", step, plain,
-                               lab, frozen, parent))
+                               lab, frozen))
     # and on a layout of the same table that does not pre-aggregate
     be_flat = flay.device_edges(dev, reverse=True)
     mf_b, mf_v, _, _ = binned_masks(gab, flay, C)
@@ -1282,17 +1325,14 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         "K5-P (no preagg)", "binned_cc_superstep",
         lambda st: minplus.binned_cc_superstep(st, mf_b, mf_v, be_flat),
         lambda st: minplus.binned_cc_superstep_plain(st, mf_b, mf_v,
-                                                     be_flat), lab, [2],
-        None if PARENT is None else (
-            lambda st: PARENT.binned_superstep(st, mf_b, mf_v, be_flat))))
+                                                     be_flat), lab, [2]))
     shape = (f"n_pad={n} B={B} C={C} P={spec.partitions} "
              f"preagg={spec.preagg} U={be.U}")
     out["binned_cc_superstep"] = dict(
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:572",
         max_abs_err=err, library_ms=None, columns=C, shape=shape,
-        **step_times(torch, "binned_cc_superstep", step, plain, parent, lab,
-                     minplus, shape=shape),
+        **step_times(torch, step, plain, lab, minplus),
         # masks of the real slots (both walks) and the vertex mask, the
         # slot ids and both walks, the bucket sources, state in and out;
         # one compare per masked edge and direction
@@ -1323,10 +1363,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
                     lambda st: minplus.binned_minplus_superstep(
                         st, me_b, mv, lb, directed, w, W),
                     lambda st: minplus.binned_minplus_superstep_plain(
-                        st, me_b, mv, lb, directed, w, W), dist, frozen,
-                    None if PARENT is None else (
-                        lambda st: PARENT.binned_superstep(
-                            st, me_b, mv, lb, directed, w, W))))
+                        st, me_b, mv, lb, directed, w, W), dist, frozen))
     lspec = llay.spec
     shape = (f"n_pad={ln} B={llay.B} C={C} weighted undirected "
              f"P={lspec.partitions} preagg={lspec.preagg} U={lb.U}")
@@ -1335,15 +1372,11 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         replaces="raphtory_tpu/engine/hopbatch.py:653",
         max_abs_err=err, library_ms=None, columns=C, shape=shape,
         **step_times(
-            torch, "binned_minplus_superstep",
+            torch,
             lambda st: minplus.binned_minplus_superstep(st, me_b, mv, lb,
                                                         False, ew, W),
             lambda st: minplus.binned_minplus_superstep_plain(
-                st, me_b, mv, lb, False, ew, W),
-            None if PARENT is None else (
-                lambda st: PARENT.binned_superstep(st, me_b, mv, lb, False,
-                                                   ew, W)),
-            dist, minplus, shape=shape),
+                st, me_b, mv, lb, False, ew, W), dist, minplus),
         # as K5-P plus the real slots' [B, H] weights; an add and a compare
         # per masked edge and direction
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -1435,18 +1468,15 @@ def exact_err(got, want) -> float:
 
 
 def superstep_compare(torch, columns, minplus):
-    """``compare(what, name, step, plain, x0, frozen, parent=None)``: one
-    superstep of the kernel (``step``, which must add exactly one launch to
-    ``LAUNCHES[name]``), of its twin and (``parent``, with ``--parent``) of
-    the parent's kernel from the same state, columns ``frozen`` halted
-    before it; state, halted flags and the all-halted flag bitwise the
-    twin's and the parent's. Returns the max abs err against the twin."""
+    """``compare(what, name, step, plain, x0, frozen)``: one superstep of
+    the kernel (``step``, which must add exactly one launch to
+    ``LAUNCHES[name]``) and of its twin from the same state, columns
+    ``frozen`` halted before it; state, halted flags and the all-halted
+    flag bitwise the twin's. Returns the max abs err against the twin."""
 
-    def compare(what, name, step, plain, x0, frozen, parent=None):
+    def compare(what, name, step, plain, x0, frozen):
         states = []
-        for i, fn in enumerate((step, plain, parent)):
-            if fn is None:
-                continue
+        for i, fn in enumerate((step, plain)):
             st = minplus.min_state(x0.clone())
             st.halted[frozen] = True
             launched = columns.LAUNCHES[name]
@@ -1455,32 +1485,27 @@ def superstep_compare(torch, columns, minplus):
                 raise AssertionError(f"{what}: not one launch a superstep "
                                      f"({columns.LAUNCHES[name] - launched})")
             states.append(st)
-        got = states[0]
-        for other, whose in zip(states[1:], ("its twin", "the parent's")):
-            for a, b, part in ((got.cur, other.cur, "state"),
-                               (got.halted, other.halted, "halted"),
-                               (got.done, other.done, "done")):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{what}: {part} differs from "
-                                         f"{whose} (frozen {frozen})")
-        return exact_err(got.cur, states[1].cur)
+        got, other = states
+        for a, b, part in ((got.cur, other.cur, "state"),
+                           (got.halted, other.halted, "halted"),
+                           (got.done, other.done, "done")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {part} differs from its twin "
+                                     f"(frozen {frozen})")
+        return exact_err(got.cur, other.cur)
 
     return compare
 
 
-def step_times(torch, key: str, step, plain, parent, x0, minplus, **facts):
+def step_times(torch, step, plain, x0, minplus):
     """``ms`` (CUDA events over 20 calls: the wrapper's host path counts
     in), ``device_ms`` (the profiler's device time a call), ``plain_ms``,
-    each from its own state started at ``x0``; with ``--parent`` the
-    parent's kernel timed in turns with this one (``vs_parent``)."""
-    sts = [minplus.min_state(x0.clone()) for _ in range(4)]
+    each from its own state started at ``x0``."""
+    sts = [minplus.min_state(x0.clone()) for _ in range(2)]
     out = dict(ms=cuda_ms(torch, lambda: step(sts[0])),
                plain_ms=cuda_ms(torch, lambda: plain(sts[1])))
     out["device_ms"], out["device_by"] = device_ms(torch,
                                                    lambda: step(sts[0]))
-    if parent is not None:
-        vs_parent(torch, key, lambda: step(sts[2]), lambda: parent(sts[3]),
-                  **facts)
     return out
 
 
@@ -1517,12 +1542,10 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
         minplus.I32_MAX).contiguous()
     step = (lambda st: minplus.cc_superstep(st, me, mv, e))
     plain = (lambda st: minplus.cc_superstep_plain(st, me, mv, e))
-    parent = None if PARENT is None else (
-        lambda st: PARENT.superstep(st, me, mv, e))
     err = 0.0
     for frozen in ([2], [c for c in range(C) if c != 1]):
         err = max(err, compare("K5", "cc_superstep", step, plain, lab,
-                               frozen, parent))
+                               frozen))
     # every column unchanged → all halt, and the flag is set
     settled = minplus.min_state(torch.full_like(lab, minplus.I32_MAX))
     minplus.cc_superstep(settled, me, torch.zeros_like(mv), e)
@@ -1534,8 +1557,7 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
         source="raphtory_tpu_torch/csrc/minplus_columns.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:538",
         max_abs_err=err, library_ms=None, columns=C, shape=shape,
-        **step_times(torch, "cc_superstep", step, plain, parent, lab,
-                     minplus, shape=shape),
+        **step_times(torch, step, plain, lab, minplus),
         # mask and vertex mask, edge ids, both CSRs and the source index,
         # state in and out, each once; one compare per masked edge and
         # direction
@@ -1566,10 +1588,7 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
                     lambda st: minplus.minplus_superstep(
                         st, me, mv, e, directed, w, W),
                     lambda st: minplus.minplus_superstep_plain(
-                        st, me, mv, e, directed, w, W), dist, frozen,
-                    None if PARENT is None else (
-                        lambda st: PARENT.superstep(st, me, mv, e, directed,
-                                                    w, W))))
+                        st, me, mv, e, directed, w, W), dist, frozen))
     n, m = ldbc.n_pad, ldbc.m
     shape = f"n_pad={n} m_pad={ldbc.m_pad} C={C} weighted undirected"
     out["minplus_superstep"] = dict(
@@ -1577,14 +1596,11 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
         replaces="raphtory_tpu/engine/hopbatch.py:620",
         max_abs_err=err, library_ms=None, columns=C, shape=shape,
         **step_times(
-            torch, "minplus_superstep",
+            torch,
             lambda st: minplus.minplus_superstep(st, me, mv, e, False, ew,
                                                  W),
             lambda st: minplus.minplus_superstep_plain(st, me, mv, e, False,
-                                                       ew, W),
-            None if PARENT is None else (
-                lambda st: PARENT.superstep(st, me, mv, e, False, ew, W)),
-            dist, minplus, shape=shape),
+                                                       ew, W), dist, minplus),
         # as K5 plus the [m_pad, H] weights; an add and a compare per
         # masked edge and direction
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -2552,10 +2568,18 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     t0 = time.perf_counter()
     hb = HopBatchedPageRank(log, tol=1e-7, max_steps=20, device=dev)
     setup_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks, steps = hb.run(hops, WINDOWS, chunks=2, warm_start=True)
-    torch.cuda.synchronize()
-    sweep_s = time.perf_counter() - t0
+    # K1's calls of the sweep, kept for ``scale_k1`` (a list append each)
+    k1_calls = []
+    own = columns.masks_from_deltas
+    columns.masks_from_deltas = (
+        lambda *a: k1_calls.append(a) or own(*a))
+    try:
+        t0 = time.perf_counter()
+        ranks, steps = hb.run(hops, WINDOWS, chunks=2, warm_start=True)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    finally:
+        columns.masks_from_deltas = own
     launches = dict(columns.LAUNCHES)
     check_launched("scale", launches, PAGERANK_KERNELS)
     if not bool(torch.isfinite(ranks).all()):
@@ -2571,7 +2595,64 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
          device_s=sweep_s - hb.fold_seconds,
          views_per_s=n_views / sweep_s, supersteps=steps,
          peak_device_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches)
+         launches=launches,
+         k1_edge=scale_k1(torch, columns, k1_calls, hb.tables.m_pad))
+
+
+def scale_k1(torch, columns, calls, m_pad: int) -> dict:
+    """K1 on the ``scale`` sweep's edge payload: the sweep's own edge calls
+    (two dispatches of one hop, the second with ``h0`` and the hop's
+    catch-up deltas) timed as they ran, and the two hops as one call of H 2
+    without ``h0`` (the first dispatch's base, the second's deltas and
+    column bounds), each bitwise its twin (and the parent's kernel, timed
+    in turns, with ``--parent``), with its device time and bound."""
+    edge = [c for c in calls if c[0].shape[0] == m_pad]
+    if len(edge) != 2 or edge[0][9] or not edge[1][9]:
+        raise AssertionError(f"scale: K1's edge calls were {len(edge)}, "
+                             "not one without h0 and one with it")
+    (bl, ba, p0, l0, a0, lo0, nw0, _, W, _), second = edge
+    p1, l1, a1, lo1, nw1 = second[2:7]
+    U = max(p0.shape[1], p1.shape[1])
+
+    def two(first, row, fill):
+        out = torch.full((2, U), fill, dtype=row.dtype, device=row.device)
+        out[0, :first.shape[1]] = first[0]
+        out[1, :row.shape[1]] = row[0]
+        return out
+
+    tbytes = bl.element_size()
+    out = {}
+    for key, args in (
+            ("h0_call", second),
+            ("H2", (bl, ba, two(p0, p1, 2**31 - 1), two(l0, l1, 0),
+                    two(a0, a1, False), torch.cat([lo0, lo1]),
+                    torch.cat([nw0, nw1]), 2, W, False))):
+        H = args[7]
+        got = columns.masks_from_deltas(*args)
+        if not all(torch.equal(g, x) for g, x in zip(
+                got, columns.masks_from_deltas_plain(*args))):
+            raise AssertionError(f"scale: K1's {key} differs from its twin")
+        if PARENT is not None and not all(torch.equal(g, x) for g, x in zip(
+                got, PARENT.masks_from_deltas(*args))):
+            raise AssertionError(f"scale: K1's {key} differs from the "
+                                 "parent's")
+        del got
+        pos = args[2]
+        live = int(((pos >= 0) & (pos < m_pad))[0 if args[9] else 1:].sum())
+        entry = dict(shape=f"len={m_pad} H={H} W={W} U={pos.shape[1]} "
+                           f"h0={args[9]} live_updates={live}",
+                     ms=cuda_ms(torch, lambda: columns.masks_from_deltas(
+                         *args), iters=5),
+                     bound_ms=k1_bound(m_pad, H * W, live, tbytes))
+        entry["device_ms"], entry["device_by"] = device_ms(
+            torch, lambda: columns.masks_from_deltas(*args), iters=5)
+        if PARENT is not None:
+            vs_parent(torch, f"masks_from_deltas scale {key}",
+                      lambda: columns.masks_from_deltas(*args),
+                      lambda: PARENT.masks_from_deltas(*args), iters=5,
+                      shape=entry["shape"], bound_ms=entry["bound_ms"])
+        out[key] = entry
+    return out
 
 
 #: ``bench.py:bench_scale_pagerank``'s sweep: 16 one-hour hops from
@@ -2662,8 +2743,6 @@ def phase_scale_bulk(torch, np, columns, dev):
         raise AssertionError(f"scale_bulk: K4 launched "
                              f"{launches['scale_hop_masks']} times in a "
                              "sweep (two calls, two launches each)")
-    parent_sweep = (parent_k4_sweep(torch, columns, sweep, ranks, steps)
-                    if PARENT is not None else {})
     if steps != iters:
         raise AssertionError(f"scale_bulk ran {steps} supersteps, not "
                              f"{iters} (tol 0 never halts)")
@@ -2748,8 +2827,7 @@ def phase_scale_bulk(torch, np, columns, dev):
         me, rd, e_src, e_dst, indptr), iters=3)
     k2c_ms = cuda_ms(torch, lambda: columns.pagerank_update(
         st, agg, deg, mv, n_act, 0.85, 0.0), iters=3)
-    # K4's two calls alone on this payload, with their device time (and
-    # the parent's kernel on the same payload, bitwise, timed in turns)
+    # K4's two calls alone on this payload, with their device time
     U_e, U_v = prep[0], prep[1]
     k4 = {}
     for key, args, length, U in (
@@ -2761,16 +2839,6 @@ def phase_scale_bulk(torch, np, columns, dev):
             torch, lambda: columns.scale_hop_masks(*args), iters=3)
         k4[f"k4_{key}_bound_ms"] = bound(length * 4 + H * U * 8 + C * 4
                                          + length * C)[0]
-        if PARENT is not None:
-            if not torch.equal(PARENT.scale_hop_masks(*args),
-                               me if key == "edge" else mv):
-                raise AssertionError(f"scale_bulk: K4's {key} call differs "
-                                     "from the parent's")
-            vs_parent(torch, f"scale_hop_masks {key} scale_bulk",
-                      lambda: columns.scale_hop_masks(*args),
-                      lambda: PARENT.scale_hop_masks(*args), iters=3,
-                      shape=f"len={length} H={H} W={W} U={U}",
-                      bound_ms=k4[f"k4_{key}_bound_ms"])
     # the bounds at this shape (inputs read once, outputs written once;
     # K2b's gathers also counted, as K2b-P's, on these masks)
     k2_bounds = dict(
@@ -2792,7 +2860,7 @@ def phase_scale_bulk(torch, np, columns, dev):
          k2a_library_by=k2a_lib_by, k2b_ms_per_superstep=k2b_ms,
          k2c_ms_per_superstep=k2c_ms, **k2_bounds, **k4,
          peak_device_bytes=peak, launches=launches,
-         max_abs_err_vs_twins=errs, **parent_sweep)
+         max_abs_err_vs_twins=errs)
     pcpm_launches, pcpm_errs = scale_bulk_pcpm(
         torch, np, columns, bulk, base_e, base_v, sweep, kw, ranks, steps)
     del kw, base_e, base_v, bulk, d_e, d_v, ranks
@@ -2858,29 +2926,6 @@ def phase_scale_bulk(torch, np, columns, dev):
     return launches, errs, pcpm_launches, pcpm_errs
 
 
-def parent_k4_sweep(torch, columns, sweep, ranks, steps) -> dict:
-    """One ``sweep()`` with K4 the parent's kernel (``--parent``): its
-    ranks bitwise ``ranks``, its seconds and peak device bytes beside this
-    tree's (the same payload, the same K2)."""
-    own = columns.scale_hop_masks
-    columns.scale_hop_masks = PARENT.scale_hop_masks
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        got, got_steps = sweep()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        columns.scale_hop_masks = own
-    if not torch.equal(got, ranks) or got_steps != steps:
-        raise AssertionError("scale_bulk: the ranks with the parent's K4 "
-                             "differ from this tree's")
-    return dict(parent_k4_sweep_s=secs,
-                parent_k4_peak_device_bytes=torch.cuda.max_memory_allocated(),
-                ranks_bitwise_vs_parent_k4=True)
-
-
 def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
                     flat_ranks, flat_steps):
     """The binned route (knob unset: auto) on ``scale_bulk``'s load: the
@@ -2931,11 +2976,6 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     if not torch.equal(ranks, flat_ranks) or steps != flat_steps:
         raise AssertionError("scale_bulk pcpm: the binned ranks differ from "
                              "the unbinned sweep's")
-    parent_sweep = {}
-    if PARENT is not None:
-        with pcpm_route(None):
-            parent_sweep = parent_k4_sweep(torch, columns, sweep, ranks,
-                                           steps)
     # the binned K4 and K2b-P against their twins at this shape (the
     # twins 32 columns at a time); K2b-P timed a superstep
     errs = {}
@@ -2954,15 +2994,6 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     # the edge call's bytes, perm and valid read once, B rows written
     k4["k4_binned_bound_ms"] = bound(
         bulk.m_pad * 4 + H * prep[0] * 8 + C * 4 + lay.B * (5 + C))[0]
-    if PARENT is not None:
-        if not torch.equal(PARENT.scale_hop_masks(*k4_args, **bins), me):
-            raise AssertionError("scale_bulk pcpm: the binned K4 differs "
-                                 "from the parent's")
-        vs_parent(torch, "scale_hop_masks binned scale_bulk",
-                  lambda: columns.scale_hop_masks(*k4_args, **bins),
-                  lambda: PARENT.scale_hop_masks(*k4_args, **bins), iters=3,
-                  shape=f"B={lay.B} len={bulk.m_pad} C={C}",
-                  bound_ms=k4["k4_binned_bound_ms"])
     errs["scale_hop_masks"] = 0.0
     rd = (ranks.t() * 0.5).contiguous()
     del ranks
@@ -3014,7 +3045,7 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
          k2a_ms_per_call=k2a_ms, k2bp_ms_per_superstep=k2bp_ms, **k2bp,
          bitwise_vs_k2b=True, peak_device_bytes=peak, **k4,
          launches=launches, bitwise_vs_unbinned=True,
-         max_abs_err_vs_twins=errs, **parent_sweep)
+         max_abs_err_vs_twins=errs)
     return launches, errs
 
 
@@ -3338,9 +3369,12 @@ def phase_features_gab(torch, np, columns, log, dev):
         if ulps > 2:
             raise AssertionError(f"features_gab: {name} differs from its "
                                  f"twin ({ulps} ulps)")
-        round_check[name] = dict(bf16_max_ulps_vs_twin=ulps,
-                                 ms=cuda_ms(torch, kern),
-                                 plain_ms=cuda_ms(torch, plain, iters=5))
+        round_check[name] = dict(
+            bf16_max_ulps_vs_twin=ulps, ms=cuda_ms(torch, kern),
+            plain_ms=cuda_ms(torch, plain, iters=5),
+            # the GAB shape's bound (one round, this H and layout)
+            **dict(zip(("bound_ms", "bound_by"), bound(*feature_bounds(
+                torch, fa, H, name == "feature_propagate_binned")))))
     # every ring depth of K10-P (F 132 / 260 / 388 / 512: 2, 3 and 4
     # groups of 4 features a lane; F 512 float32 holds the widest ring),
     # float32 and bfloat16: bitwise K10, and equal to its twin
@@ -3392,11 +3426,16 @@ def phase_features_gab(torch, np, columns, log, dev):
 
 
 def mode_kernel_check(torch, np, segment, dev):
-    """K7-mode against its twin on a synthetic case: one segment of
-    100,003 rows with ties, rows of 1, 32, 33, 4,096 and 4,097, masked and
-    negative values, empty segments, k = 1 and 3, both CSR forms."""
+    """K7-mode against its twin (and, with ``--parent``, the parent's
+    kernel) on a synthetic case: one segment of 100,003 rows with ties,
+    rows of 1, 32, 33, 4,096 and 4,097, runs at the short rows' lane
+    widths (1-9, 15-17, 31-33, 64, 65; a warp's 16 rows of 32, of 31 and
+    1, of 8), masked and negative values, empty segments, k = 1, 2 and 3,
+    both CSR forms, with and without a mask (pad rows negative)."""
     rng = np.random.default_rng(0)
     lens = [100_003, 1, 32, 33, 4_096, 4_097, 0, 0, 5, 200]
+    lens += [2, 3, 4, 6, 7, 8, 9, 15, 16, 17, 31, 32, 33, 64, 65]
+    lens += [32] * 16 + [31, 1] * 8 + [8] * 16 + [16] * 16
     lens += [int(x) for x in rng.integers(0, 40, 3_000)]
     n, m_real = len(lens), int(sum(lens))
     m = m_real + 17                              # pad rows, masked
@@ -3405,10 +3444,11 @@ def mode_kernel_check(torch, np, segment, dev):
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(lens, out=indptr[1:])
     cases = 0
-    for k in (1, 3):
+    for k in (1, 2, 3):
         vals = rng.integers(0, 50, k * m).astype(np.int32)
         vals[:100_003] = rng.integers(0, 4, 100_003)   # big tied runs
         vals[rng.random(k * m) < 0.05] = -7
+        vals.reshape(k, m)[:, m_real:] = -1             # pads: no message
         mask = rng.random(k * m) < 0.9
         mask.reshape(k, m)[:, m_real:] = False
         for permuted in (False, True):
@@ -3422,14 +3462,69 @@ def mode_kernel_check(torch, np, segment, dev):
             dseg = segment.SegmentCSR(*(None if a is None else
                                         torch.from_numpy(a).to(dev)
                                         for a in seg))
-            v, mk = (torch.from_numpy(a).to(dev) for a in (vals, mask))
-            got = segment.segment_mode(v, dseg, k * n, mk, -1, k)
-            want = segment.segment_mode_plain(v, dseg, k * n, mk, -1, k)
-            if not torch.equal(got, want):
-                raise AssertionError(f"K7-mode differs from its twin (k={k},"
-                                     f" permuted={permuted})")
-            cases += 1
+            v = torch.from_numpy(vals).to(dev)
+            for mk in (torch.from_numpy(mask).to(dev), None):
+                got = segment.segment_mode(v, dseg, k * n, mk, -1, k)
+                want = segment.segment_mode_plain(v, dseg, k * n, mk, -1, k)
+                what = f"k={k}, permuted={permuted}, mask={mk is not None}"
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K7-mode differs from its twin "
+                                         f"({what})")
+                if PARENT is not None and not torch.equal(
+                        PARENT.segment_mode(v, dseg, k * n, mk, -1, k), got):
+                    raise AssertionError(f"K7-mode differs from the "
+                                         f"parent's ({what})")
+                cases += 1
     return dict(cases=cases, longest_row=max(lens), rows=n)
+
+
+def mode_at(torch, np, segment, bsp, view, windows, dev, seed: int,
+            key: str) -> dict:
+    """K7-mode alone at a cold View's shape: its destination CSR, labels
+    in [0, n_pad), the view's window masks; bitwise its twin (and the
+    parent's kernel, timed in turns, with ``--parent``), timed with its
+    device time and bound. Returns the entry (with ``got`` / ``want``)."""
+    e = bsp.view_edges(view, dev)
+    seg = segment.SegmentCSR(e.e_dst, e.in_indptr, None)
+    k, m, n = len(windows), view.m_pad, view.n_pad
+    rng = np.random.default_rng(seed)
+    emasks = np.stack([view.e_mask & (view.e_latest_time >= view.time - w)
+                       for w in windows]).reshape(-1)
+    vals = torch.from_numpy(rng.integers(0, n, k * m).astype(np.int32)) \
+        .to(dev)
+    mk = torch.from_numpy(emasks).to(dev)
+    args = (vals, seg, k * n, mk, -1, k)
+    got = segment.segment_mode(*args)
+    want = segment.segment_mode_plain(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K7-mode differs from its twin at the {key} "
+                             "shape")
+    if PARENT is not None and not torch.equal(PARENT.segment_mode(*args),
+                                              got):
+        raise AssertionError(f"K7-mode differs from the parent's at the "
+                             f"{key} shape")
+    m_real = int(view.m_active)
+    lens = torch.diff(e.in_indptr)
+    shape = (f"dst n_pad={n} m_pad={m} k={k} int32 labels, "
+             f"{int((lens > 32).sum())} runs past 32 (longest "
+             f"{int(lens.max())})")
+    entry = dict(
+        got=got, want=want, shape=shape,
+        ms=cuda_ms(torch, lambda: segment.segment_mode(*args)),
+        plain_ms=cuda_ms(torch, lambda: segment.segment_mode_plain(*args),
+                         iters=5),
+        # the real rows' values and masks a window, the CSR, the output
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            k * m_real * 5 + (n + 1) * 8 + k * n * 4, k * m_real))))
+    entry["device_ms"], entry["device_by"] = device_ms(
+        torch, lambda: segment.segment_mode(*args))
+    if PARENT is not None:
+        vs_parent(torch, f"segment_mode {key}",
+                  lambda: segment.segment_mode(*args),
+                  lambda: PARENT.segment_mode(*args), iters=100, shape=shape,
+                  bound_ms=entry["bound_ms"])
+    return entry
+
 
 
 def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
@@ -3437,8 +3532,8 @@ def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
     with equal steps: a cold View job on the GAB log at 0.90 t_span over
     (month, week, day), a hop-by-hop Range job over the LDBC log (10 hops
     x 2 windows) and ``DeviceSweep.run`` on the GAB log; K7-mode against
-    its twin on the synthetic long-row case and timed at the View's
-    shape."""
+    its twin on the synthetic inboxes and timed at the GAB View's shape
+    (the ``kernels`` entry) and at the LDBC Range's (``mode_at``)."""
     from raphtory_tpu_torch.algorithms import LabelPropagation
     from raphtory_tpu_torch.core.snapshot import build_view
     from raphtory_tpu_torch.engine import bsp
@@ -3485,28 +3580,15 @@ def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
         raise AssertionError(f"lpa DeviceSweep differs from the CPU (steps "
                              f"{s} vs {xs})")
     synthetic = mode_kernel_check(torch, np, segment, dev)
-    # K7-mode alone at the cold View's shape: 3 windows, labels in
-    # [0, n_pad), the view's window masks
+    # K7-mode alone at the cold GAB View's shape (3 windows) and at the
+    # LDBC Range's (its last hop's View, 2 windows)
     view = build_view(log, T)
-    e = bsp.view_edges(view, dev)
-    seg = segment.SegmentCSR(e.e_dst, e.in_indptr, None)
-    k, m, n = len(WINDOWS), view.m_pad, view.n_pad
-    rng = np.random.default_rng(9)
-    emasks = np.stack([view.e_mask & (view.e_latest_time >= view.time - w)
-                       for w in WINDOWS]).reshape(-1)
-    vals = torch.from_numpy(rng.integers(0, n, k * m).astype(np.int32)) \
-        .to(dev)
-    mk = torch.from_numpy(emasks).to(dev)
-    got = segment.segment_mode(vals, seg, k * n, mk, -1, k)
-    want = segment.segment_mode_plain(vals, seg, k * n, mk, -1, k)
-    if not torch.equal(got, want):
-        raise AssertionError("K7-mode differs from its twin at the View's "
-                             "shape")
-    mode_ms = cuda_ms(torch, lambda: segment.segment_mode(
-        vals, seg, k * n, mk, -1, k))
-    mode_plain = cuda_ms(torch, lambda: segment.segment_mode_plain(
-        vals, seg, k * n, mk, -1, k), iters=5)
-    m_real = int(view.m_active)
+    gab = mode_at(torch, np, segment, bsp, view, WINDOWS, dev, 9, "GAB View")
+    ldbc_view = build_view(ldbc, hops[-1])
+    at_ldbc = mode_at(torch, np, segment, bsp, ldbc_view, list(q.windows),
+                      dev, 10, "LDBC Range")
+    got, want = gab.pop("got"), gab.pop("want")
+    del at_ldbc["got"], at_ldbc["want"]
     emit("lpa", view=dict(time=T, windows=WINDOWS, view_s=secs[0],
                           viewTime_ms=[r["viewTime"] for r in rows],
                           steps=rows[0]["steps"],
@@ -3518,16 +3600,12 @@ def phase_lpa(torch, np, columns, segment, log, ldbc, dev):
                     steps=[r["steps"] for r in rrows],
                     launches=range_launches),
          device_sweep=dict(steps=s, launches=sweep_launches),
-         synthetic=synthetic, bitwise_vs_cpu=True)
+         synthetic=synthetic, ldbc_range_shape=at_ldbc, bitwise_vs_cpu=True)
     entry = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:155",
-        max_abs_err=exact_err(got, want), ms=mode_ms, plain_ms=mode_plain,
-        library_ms=None,
-        shape=f"dst n_pad={n} m_pad={m} k={k} int32 labels",
-        # the real rows' values and masks a window, the CSR, the output
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            k * m_real * 5 + (n + 1) * 8 + k * n * 4, k * m_real))))
+        max_abs_err=exact_err(got, want), library_ms=None, **gab,
+        ldbc_range_shape=at_ldbc)
     return launches, entry
 
 
@@ -4884,7 +4962,8 @@ def main() -> int:
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
                                  if kk in ("ms", "device_ms", "plain_ms",
                                            "library_ms", "bound_ms",
-                                           "max_abs_err", "shape")}
+                                           "max_abs_err", "shape", "calls",
+                                           "edge_cases")}
                              for k, v in kernels.items()})
     launches = timed("headline", phase_headline, torch, np, columns,
                      HopBatchedPageRank, log, dev)

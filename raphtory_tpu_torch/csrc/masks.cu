@@ -3,34 +3,62 @@
 //
 // Replaces raphtory_tpu/engine/hopbatch.py:66 `_masks_from_deltas`, the
 // first half of the jitted `_compiled_delta` program. For each hop h of a
-// dispatch it scatter-SETS hop h's touched-entity deltas (pos, lat, alive)
-// into the running state (hop 0 only when `h0`: the base is then the
-// previous dispatch's device-resident advanced state and delta[0] is the
-// catch-up), then writes the hop's W window columns
+// dispatch the reference scatter-SETS hop h's touched-entity deltas (pos,
+// lat, alive) into the running state (hop 0 only when `h0`: the base is
+// then the previous dispatch's device-resident advanced state and delta[0]
+// is the catch-up), then writes the hop's W window columns
 //     out[i, h*W + w] = alive[i] && (w_col < 0 || lat[i] >= lo[h*W + w])
-// straight into the entity-major [len, H*W] bool output. The running state
-// is updated in place: after the last hop it IS the advanced base the caller
-// keeps resident for the next dispatch.
+// into the entity-major [len, H*W] bool output, and returns the state after
+// the last hop (the advanced base the caller keeps resident).
 //
-// What bounds it on the H100: bytes. Per hop it reads the state (len *
-// (sizeof(T) + 1) bytes, from L2 after the first hop at the headline shapes)
-// and writes len * W mask bytes; the scatter moves O(delta) bytes. There is
-// no arithmetic to speak of. The design keeps the hop loop on the host side
-// of one C call (2 launches per hop on one stream, 2H-1 without `h0`, so
-// hop h's scatter is ordered before its columns and after hop h-1's; the
-// call reports how many kernels it launched), lets each column thread
-// write one output byte with neighbouring threads on neighbouring bytes of
-// one row, and never materialises the per-hop [H, len] state columns the
-// host-column route ships. Within one hop the host fold emits each touched
-// position once, so the scatter-set is race-free and deterministic. Pad
-// rows carry position 2^31-1 and are skipped explicitly (JAX drops them
-// with mode="drop").
-//
-// K6w — the weight-state rebuild of weighted SSSP, the same scatter with
-// f32 values and no window compare. Replaces raphtory_tpu/engine/
-// hopbatch.py:374-384 (inside `_compiled_delta`): for each hop h it
-// scatter-sets hop h's (pos, val) weight deltas into the running weight
-// state (hop 0 only with `h0`; pad positions skipped as above; the host
+// What bounds it on the H100: bytes — the base read once (len * (sizeof(T)
+// + 1)), the mask (len * H * W) and the advanced state written once, the
+// delta rows read; no arithmetic to speak of. At the headline shapes (len
+// 327,680) each pass takes a few microseconds, so launches (and the host
+// time each costs) weigh as much as the bytes do.
+//   Design: the hop-by-hop state is never rebuilt. The host fold emits each
+// position once per hop, so under set semantics hop h's state of row i is
+// the value of i's latest update at a hop <= h, or the base where there is
+// none. Three passes a group of hops, in ONE cooperative launch (grid syncs
+// between the passes; pass B0 is skipped where one hop of the group applies
+// updates, since no later hop can touch a row, and both B passes where
+// none does):
+//   * pass A, a block a tile of 1,024 rows: the tile's base values staged
+//     in shared memory by coalesced loads, which also copy the base into
+//     the advanced state (no clone) and clear the rows' hop-touch words;
+//     then all the group's columns of the tile written from the staged
+//     values, a thread a 16-byte chunk of the tile's flat bytes (neighbour
+//     threads on neighbour chunks; byte stores where a group's columns are
+//     not whole rows);
+//   * pass B0, a thread an update: ORs bit h into touch[pos] (order-free);
+//   * pass B1, a thread an update: next = the lowest touch bit above h, or
+//     the group's end; it writes columns [h*W, next*W) of its row from the
+//     update's (lat, alive), as the widest aligned stores the range allows,
+//     and the advanced state where no later hop of the group touches the
+//     row.
+// A group whose one applied hop is its last (H 2 without `h0`, or H 1
+// with it: the `scale` path's calls) and whose updates are dense (U >=
+// len / 8) takes a row pass instead of the update rows' random mask writes:
+// the base copied into the advanced state, the updates scattered into it,
+// then one row pass writing the hop's columns from the advanced state and
+// the earlier ones from the base (both staged in shared memory).
+// After pass A exactly one thread writes each output byte and each
+// advanced-state entry, so there are no atomics on the output and the
+// result does not depend on the order of the threads: it is bitwise the
+// twin's. Updates of hop 0 without `h0`, and pad positions (outside
+// [0, len): 2^31-1, negatives), are skipped by both B passes. `w_col < 0`
+// folds into the threshold (the type's minimum, which every lat reaches).
+// The touch word is 1, 4 or 8 bytes a row (groups of 8, 32 or 64 hops;
+// 1-byte words are ORed through their aligned 32-bit word); a longer call
+// chains groups the way `h0` chains dispatches: group g + 1 takes group
+// g's advanced state as its base and writes its own column range.
+
+// K6w — the weight-state rebuild of weighted SSSP: K1's state with f32
+// values and no window compare, still rebuilt hop by hop. Replaces
+// raphtory_tpu/engine/hopbatch.py:374-384 (inside `_compiled_delta`): for
+// each hop h it scatter-sets hop h's (pos, val) weight deltas into the
+// running weight state (hop 0 only with `h0`; pad positions, outside
+// [0, len), skipped; the host
 // removes duplicate positions within a hop, last wins) and writes the
 // state as column h of the [len, H] weight block the K6 superstep reads
 // (minplus_columns.cu). The state is updated in place and is the advanced
@@ -110,6 +138,7 @@
 // adds the number of kernels it launched to the host integer `*launched`,
 // and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -124,37 +153,353 @@ inline unsigned blocks_for(int64_t n) {
     return static_cast<unsigned>(b);
 }
 
+// ---------------------------------------------------------------- K1
+
+template <typename T> struct TimeMin;
+template <> struct TimeMin<int32_t> {
+    __device__ static int32_t v() { return INT32_MIN; }
+};
+template <> struct TimeMin<int64_t> {
+    __device__ static int64_t v() { return INT64_MIN; }
+};
+
+constexpr int kK1Tile = 1024;            // rows a pass-A tile stages
+constexpr int64_t kK1ThrShared = 2048;   // most thresholds staged in shared
+
+// a tile's two staged states (before and after the updates: the dense
+// path's split) and the group's thresholds
 template <typename T>
-__global__ void scatter_set(int64_t len, int64_t U,
-                            const int32_t* __restrict__ pos,
-                            const T* __restrict__ lat,
-                            const uint8_t* __restrict__ alive,
-                            T* __restrict__ cur_l, uint8_t* __restrict__ cur_a) {
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         u < U; u += stride) {
-        const int64_t p = pos[u];
-        if (p < 0 || p >= len) continue;   // pad row
-        cur_l[p] = lat[u];
-        cur_a[p] = alive[u];
+constexpr size_t k1_smem_bytes() {
+    return 2 * kK1Tile * (sizeof(T) + 1) + kK1ThrShared * sizeof(T);
+}
+
+// One call's operands (the kernel's one parameter).
+template <typename T>
+struct K1Args {
+    int64_t len, H, W, U, tw, h0;
+    const T* base_l;
+    const uint8_t* base_a;
+    const int32_t* pos;
+    const T* d_lat;
+    const uint8_t* d_alive;
+    const T* lo;
+    const uint8_t* nowin;
+    T* adv_l;
+    uint8_t* adv_a;
+    uint8_t* touch;
+    uint8_t* out;
+};
+
+// the thresholds of one group of hops, columns [c0, c0 + Cg): staged in
+// shared memory where they fit, else taken from global memory; a column
+// with no window takes the type's minimum, which every lat reaches
+template <typename T>
+struct K1Thr {
+    const T* s;
+    const T* lo;
+    const uint8_t* nowin;
+    int64_t c0;
+    bool staged;
+    __device__ __forceinline__ T operator()(int64_t c) const {
+        if (staged) return s[c];
+        return nowin[c0 + c] ? TimeMin<T>::v() : lo[c0 + c];
+    }
+};
+
+__device__ __forceinline__ void k1_clear(uint8_t* touch, int64_t tw,
+                                         int64_t r) {
+    if (tw == 1) touch[r] = 0;
+    else if (tw == 4) reinterpret_cast<uint32_t*>(touch)[r] = 0u;
+    else reinterpret_cast<unsigned long long*>(touch)[r] = 0ull;
+}
+
+// OR bit h into row p's touch word (1-byte words through their aligned
+// 32-bit word; the buffer is padded to a multiple of 4 bytes)
+__device__ __forceinline__ void k1_touch(uint8_t* touch, int64_t tw,
+                                         int64_t p, int h) {
+    if (tw == 1) {
+        atomicOr(reinterpret_cast<unsigned int*>(touch + (p & ~int64_t(3))),
+                 1u << (h + 8 * static_cast<int>(p & 3)));
+    } else if (tw == 4) {
+        atomicOr(reinterpret_cast<unsigned int*>(touch) + p, 1u << h);
+    } else {
+        atomicOr(reinterpret_cast<unsigned long long*>(touch) + p, 1ull << h);
     }
 }
 
+__device__ __forceinline__ unsigned long long k1_touched(
+        const uint8_t* touch, int64_t tw, int64_t p) {
+    if (tw == 1) return touch[p];
+    if (tw == 4) return reinterpret_cast<const uint32_t*>(touch)[p];
+    return reinterpret_cast<const unsigned long long*>(touch)[p];
+}
+
+// A row pass over the tiles of kK1Tile rows: the tile's states staged in
+// shared memory (coalesced loads), then the group's columns written from
+// them. Columns before `split` (group-local) take the state (pl, pa),
+// the rest (ql, qa): pass A's split is the group's width (the base state
+// alone), the dense path's is its one applied hop's first column. `copy`
+// also copies (pl, pa) into the advanced state, `clear` clears the rows'
+// touch words. `flat` (one group: its columns are whole rows, and the
+// tile's C-byte lines are whole 16-byte chunks): a thread a 16-byte chunk,
+// its row and column from one 32-bit division, one 16-byte store,
+// neighbouring threads on neighbouring chunks; else a thread a byte of
+// the group's columns.
 template <typename T>
-__global__ void write_columns(int64_t len, int64_t W, int64_t C, int64_t col0,
-                              const T* __restrict__ cur_l,
-                              const uint8_t* __restrict__ cur_a,
-                              const T* __restrict__ lo,
-                              const uint8_t* __restrict__ nowin,
-                              uint8_t* __restrict__ out) {
-    const int64_t total = len * W;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         k < total; k += stride) {
-        const int64_t i = k / W;
-        const int64_t c = col0 + (k - i * W);
-        out[i * C + c] = cur_a[i] && (nowin[c] || cur_l[i] >= lo[c]);
+__device__ void k1_rows(const K1Args<T>& a, const T* pl, const uint8_t* pa,
+                        const T* ql, const uint8_t* qa, int64_t split,
+                        bool copy, bool clear, int64_t c0, int64_t Cg,
+                        const K1Thr<T>& thr, unsigned char* smem) {
+    T* s_pl = reinterpret_cast<T*>(smem);
+    T* s_ql = s_pl + kK1Tile;
+    uint8_t* s_pa = smem + 2 * kK1Tile * sizeof(T);
+    uint8_t* s_qa = s_pa + kK1Tile;
+    const int64_t C = a.H * a.W;
+    const bool flat = Cg == C;
+    const bool both = split < Cg;
+    const int sp = static_cast<int>(split);
+    const int64_t tiles = (a.len + kK1Tile - 1) / kK1Tile;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int64_t r0 = t * kK1Tile;
+        const int nr = a.len - r0 < kK1Tile ? static_cast<int>(a.len - r0)
+                                            : kK1Tile;
+        for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+            const T l = pl[r0 + i];
+            const uint8_t al = pa[r0 + i];
+            s_pl[i] = l;
+            s_pa[i] = al;
+            if (both) {
+                s_ql[i] = ql[r0 + i];
+                s_qa[i] = qa[r0 + i];
+            }
+            if (copy) {
+                a.adv_l[r0 + i] = l;
+                a.adv_a[r0 + i] = al;
+            }
+            if (clear) k1_clear(a.touch, a.tw, r0 + i);
+        }
+        __syncthreads();
+        auto bit = [&](int i, int c) -> bool {
+            return c < sp ? (s_pa[i] && s_pl[i] >= thr(c))
+                          : (s_qa[i] && s_ql[i] >= thr(c));
+        };
+        if (flat) {
+            const int Ci = static_cast<int>(C);
+            const int nb = nr * Ci;
+            uint8_t* o = a.out + r0 * C;
+            for (int k = threadIdx.x; k * 16 < nb; k += blockDim.x) {
+                const int f = k * 16;
+                int i = f / Ci;
+                int c = f - i * Ci;
+                const int n = nb - f < 16 ? nb - f : 16;
+                unsigned long long w0 = 0ull, w1 = 0ull;
+#pragma unroll
+                for (int b = 0; b < 16; ++b) {
+                    if (b < n) {
+                        const unsigned long long v = bit(i, c) ? 1ull : 0ull;
+                        if (b < 8) w0 |= v << (8 * b);
+                        else w1 |= v << (8 * (b - 8));
+                        if (++c == Ci) {
+                            c = 0;
+                            ++i;
+                        }
+                    }
+                }
+                if (n == 16) {
+                    *reinterpret_cast<uint4*>(o + f) = make_uint4(
+                        static_cast<uint32_t>(w0),
+                        static_cast<uint32_t>(w0 >> 32),
+                        static_cast<uint32_t>(w1),
+                        static_cast<uint32_t>(w1 >> 32));
+                } else {
+                    for (int b = 0; b < n; ++b)
+                        o[f + b] = static_cast<uint8_t>(
+                            (b < 8 ? w0 >> (8 * b) : w1 >> (8 * (b - 8)))
+                            & 0xffull);
+                }
+            }
+        } else {
+            const int Cgi = static_cast<int>(Cg);
+            for (int f = threadIdx.x; f < nr * Cgi; f += blockDim.x) {
+                const int i = f / Cgi, c = f - i * Cgi;
+                a.out[(r0 + i) * C + c0 + c] = bit(i, c);
+            }
+        }
+        __syncthreads();
     }
+}
+
+// mask bytes [cb, ce) of one output row from one (lat, alive): the widest
+// aligned stores the range allows (bytes, then 16-bit, then 32-bit words)
+template <typename T>
+__device__ __forceinline__ void k1_write_range(uint8_t* row, int64_t cb,
+                                               int64_t ce, uint8_t al, T v,
+                                               const K1Thr<T>& thr) {
+    int64_t c = cb;
+    auto bit = [&](int64_t x) -> uint32_t {
+        return (al && v >= thr(x)) ? 1u : 0u;
+    };
+    if (c < ce && (reinterpret_cast<uintptr_t>(row + c) & 1)) {
+        row[c] = static_cast<uint8_t>(bit(c));
+        ++c;
+    }
+    if (c + 2 <= ce && (reinterpret_cast<uintptr_t>(row + c) & 2)) {
+        *reinterpret_cast<uint16_t*>(row + c) =
+            static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
+        c += 2;
+    }
+    for (; c + 4 <= ce; c += 4) {
+        *reinterpret_cast<uint32_t*>(row + c) =
+            bit(c) | bit(c + 1) << 8 | bit(c + 2) << 16 | bit(c + 3) << 24;
+    }
+    if (c + 2 <= ce) {
+        *reinterpret_cast<uint16_t*>(row + c) =
+            static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
+        c += 2;
+    }
+    if (c < ce) row[c] = static_cast<uint8_t>(bit(c));
+}
+
+// K1, one cooperative launch: for each group of 8 * tw hops, pass A, grid
+// sync, pass B0 (more than one applied hop), grid sync, pass B1, and a
+// grid sync before the next group, which reads this one's advanced state.
+// A group with ONE applied hop (its last) and dense updates (U >= len / 8:
+// the update rows' random mask writes would cost more than a row pass)
+// takes the dense path instead: the base copied into the advanced state,
+// grid sync, the updates scattered into it (no touch words: no later hop),
+// grid sync, one row pass writing the columns before the hop from the base
+// and the rest from the advanced state. Every branch around a grid sync is
+// uniform over the grid.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
+    extern __shared__ __align__(16) unsigned char k1_smem[];
+    T* s_thr = reinterpret_cast<T*>(k1_smem + 2 * kK1Tile * (sizeof(T) + 1));
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    const int64_t C = a.H * a.W;
+    const int64_t hops = 8 * a.tw;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                        + threadIdx.x;
+    for (int64_t g0 = 0; g0 < a.H; g0 += hops) {
+        const int Hg = static_cast<int>(a.H - g0 < hops ? a.H - g0 : hops);
+        const int64_t c0 = g0 * a.W, Cg = Hg * a.W;
+        K1Thr<T> thr{s_thr, a.lo, a.nowin, c0, Cg <= kK1ThrShared};
+        if (thr.staged) {
+            for (int64_t c = threadIdx.x; c < Cg; c += blockDim.x)
+                s_thr[c] = a.nowin[c0 + c] ? TimeMin<T>::v() : a.lo[c0 + c];
+        }
+        __syncthreads();
+        const bool first = g0 == 0;
+        const T* bl = first ? a.base_l : a.adv_l;     // the group's base
+        const uint8_t* ba = first ? a.base_a : a.adv_a;
+        const int h1 = (first && !a.h0) ? 1 : 0;      // hop 0 applies with h0
+        const bool multi = Hg - h1 > 1;
+        // the group's applied updates are contiguous in the [H, U] lists
+        const int64_t at = (g0 + h1) * a.U;
+        const int64_t nup = a.U > 0 && Hg > h1 ? (Hg - h1) * a.U : 0;
+        if (nup && !multi && a.U * 8 >= a.len) {
+            if (first) {
+                for (int64_t r = tid; r < a.len; r += stride) {
+                    a.adv_l[r] = a.base_l[r];
+                    a.adv_a[r] = a.base_a[r];
+                }
+            }
+            grid.sync();
+            for (int64_t g = tid; g < nup; g += stride) {
+                const int64_t p = a.pos[at + g];
+                if (p >= 0 && p < a.len) {
+                    a.adv_l[p] = a.d_lat[at + g];
+                    a.adv_a[p] = a.d_alive[at + g];
+                }
+            }
+            grid.sync();
+            if (h1) {               // hop 0's columns from the base
+                k1_rows<T>(a, bl, ba, a.adv_l, a.adv_a, h1 * a.W, false,
+                           false, c0, Cg, thr, k1_smem);
+            } else {                // every column after the scatter
+                k1_rows<T>(a, a.adv_l, a.adv_a, a.adv_l, a.adv_a, Cg, false,
+                           false, c0, Cg, thr, k1_smem);
+            }
+        } else {
+            k1_rows<T>(a, bl, ba, bl, ba, Cg, first, true, c0, Cg, thr,
+                       k1_smem);
+            if (nup && multi) {
+                grid.sync();
+                for (int64_t g = tid; g < nup; g += stride) {
+                    const int64_t p = a.pos[at + g];
+                    if (p >= 0 && p < a.len)
+                        k1_touch(a.touch, a.tw, p,
+                                 h1 + static_cast<int>(g / a.U));
+                }
+            }
+            if (nup) {
+                grid.sync();
+                for (int64_t g = tid; g < nup; g += stride) {
+                    const int64_t p = a.pos[at + g];
+                    if (p < 0 || p >= a.len) continue;       // pad row
+                    const int h = h1 + static_cast<int>(g / a.U);
+                    const T v = a.d_lat[at + g];
+                    const uint8_t al = a.d_alive[at + g];
+                    int next = Hg;
+                    if (multi && h + 1 < 64) {
+                        const unsigned long long above =
+                            k1_touched(a.touch, a.tw, p) >> (h + 1);
+                        if (above)
+                            next = h + __ffsll(static_cast<long long>(above));
+                    }
+                    k1_write_range<T>(a.out + p * C + c0, h * a.W,
+                                      next * a.W, al, v, thr);
+                    if (next == Hg) {
+                        a.adv_l[p] = v;
+                        a.adv_a[p] = al;
+                    }
+                }
+            }
+        }
+        if (g0 + hops < a.H) grid.sync();
+    }
+}
+
+// the most blocks of k1_kernel<T> that fit on the card at once (a
+// cooperative launch must not exceed it), asked once per process
+template <typename T>
+int k1_max_blocks() {
+    static int blocks = [] {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, k1_kernel<T>, kThreads, k1_smem_bytes<T>());
+        return sms * per_sm;
+    }();
+    return blocks;
+}
+
+template <typename T>
+int masks_from_deltas(const K1Args<T>& a, cudaStream_t st,
+                      int64_t* launched) {
+    if (a.len <= 0 || a.H <= 0) return static_cast<int>(cudaGetLastError());
+    if (a.tw != 1 && a.tw != 4 && a.tw != 8)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (a.H * a.W > 0 && reinterpret_cast<uintptr_t>(a.out) % 16 != 0)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    if (a.H * a.W * kK1Tile >= (int64_t(1) << 31))   // tile indices in int
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int cap = k1_max_blocks<T>();
+    if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int64_t tiles = (a.len + kK1Tile - 1) / kK1Tile;
+    const int64_t ups = (a.H * a.U + kThreads - 1) / kThreads;
+    int64_t blocks = tiles > ups ? tiles : ups;
+    if (blocks > cap) blocks = cap;
+    K1Args<T> arg = a;
+    void* params[] = {&arg};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(k1_kernel<T>),
+        dim3(static_cast<unsigned>(blocks)), dim3(kThreads), params,
+        k1_smem_bytes<T>(), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+    return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void scatter_set_f32(int64_t len, int64_t U,
@@ -178,33 +523,6 @@ __global__ void write_weight_column(int64_t len, int64_t H, int64_t h,
          i < len; i += stride) {
         out[i * H + h] = cur[i];
     }
-}
-
-template <typename T>
-int masks_from_deltas(int64_t len, int64_t H, int64_t W, int64_t U, int64_t h0,
-                      const int32_t* d_pos, const T* d_lat,
-                      const uint8_t* d_alive, const T* lo,
-                      const uint8_t* nowin, T* cur_l, uint8_t* cur_a,
-                      uint8_t* out, cudaStream_t stream, int64_t* launched) {
-    const int64_t C = H * W;
-    for (int64_t h = 0; h < H; ++h) {
-        if (h > 0 || h0) {
-            scatter_set<T><<<blocks_for(U), kThreads, 0, stream>>>(
-                len, U, d_pos + h * U, d_lat + h * U, d_alive + h * U,
-                cur_l, cur_a);
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
-            ++*launched;
-        }
-        if (len > 0 && W > 0) {
-            write_columns<T><<<blocks_for(len * W), kThreads, 0, stream>>>(
-                len, W, C, h * W, cur_l, cur_a, lo, nowin, out);
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
-            ++*launched;
-        }
-    }
-    return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -562,38 +880,60 @@ int column_masks_launch(int64_t m, int64_t m_src, int64_t n, int64_t H,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int k1_entry(int64_t len, int64_t H, int64_t W, int64_t U, int64_t h0,
+             int64_t tw, const void* base_l, const void* base_a,
+             const void* d_pos, const void* d_lat, const void* d_alive,
+             const void* lo, const void* nowin, void* adv_l, void* adv_a,
+             void* touch, void* out, void* stream, int64_t* launched) {
+    const K1Args<T> a{len, H, W, U, tw, h0,
+                      static_cast<const T*>(base_l),
+                      static_cast<const uint8_t*>(base_a),
+                      static_cast<const int32_t*>(d_pos),
+                      static_cast<const T*>(d_lat),
+                      static_cast<const uint8_t*>(d_alive),
+                      static_cast<const T*>(lo),
+                      static_cast<const uint8_t*>(nowin),
+                      static_cast<T*>(adv_l), static_cast<uint8_t*>(adv_a),
+                      static_cast<uint8_t*>(touch),
+                      static_cast<uint8_t*>(out)};
+    return masks_from_deltas<T>(a, static_cast<cudaStream_t>(stream),
+                                launched);
+}
+
 }  // namespace
 
 extern "C" {
 
+// K1: len rows, H hops, W windows, U updates a hop, h0, tw (touch word
+// bytes: 1, 4 or 8 — groups of 8, 32 or 64 hops) | base_l [len], base_a
+// [len] bool, d_pos [H, U] int32 (pads outside [0, len)), d_lat [H, U],
+// d_alive [H, U] bool, lo [H*W], nowin [H*W] bool | adv_l, adv_a [len] (the
+// advanced state, never the base's own buffers), touch [len] words
+// (scratch, a multiple of 4 bytes), out [len, H*W] bool, 16-byte aligned.
+// One cooperative launch (none for len 0); adds it to *launched.
 int rtpu_masks_from_deltas_i32(int64_t len, int64_t H, int64_t W, int64_t U,
-                               int64_t h0, const void* d_pos, const void* d_lat,
-                               const void* d_alive, const void* lo,
-                               const void* nowin, void* cur_l, void* cur_a,
-                               void* out, void* stream,
-                               int64_t* launched) {
-    return masks_from_deltas<int32_t>(
-        len, H, W, U, h0, static_cast<const int32_t*>(d_pos),
-        static_cast<const int32_t*>(d_lat),
-        static_cast<const uint8_t*>(d_alive), static_cast<const int32_t*>(lo),
-        static_cast<const uint8_t*>(nowin), static_cast<int32_t*>(cur_l),
-        static_cast<uint8_t*>(cur_a), static_cast<uint8_t*>(out),
-        static_cast<cudaStream_t>(stream), launched);
+                               int64_t h0, int64_t tw, const void* base_l,
+                               const void* base_a, const void* d_pos,
+                               const void* d_lat, const void* d_alive,
+                               const void* lo, const void* nowin, void* adv_l,
+                               void* adv_a, void* touch, void* out,
+                               void* stream, int64_t* launched) {
+    return k1_entry<int32_t>(len, H, W, U, h0, tw, base_l, base_a, d_pos,
+                             d_lat, d_alive, lo, nowin, adv_l, adv_a, touch,
+                             out, stream, launched);
 }
 
 int rtpu_masks_from_deltas_i64(int64_t len, int64_t H, int64_t W, int64_t U,
-                               int64_t h0, const void* d_pos, const void* d_lat,
-                               const void* d_alive, const void* lo,
-                               const void* nowin, void* cur_l, void* cur_a,
-                               void* out, void* stream,
-                               int64_t* launched) {
-    return masks_from_deltas<int64_t>(
-        len, H, W, U, h0, static_cast<const int32_t*>(d_pos),
-        static_cast<const int64_t*>(d_lat),
-        static_cast<const uint8_t*>(d_alive), static_cast<const int64_t*>(lo),
-        static_cast<const uint8_t*>(nowin), static_cast<int64_t*>(cur_l),
-        static_cast<uint8_t*>(cur_a), static_cast<uint8_t*>(out),
-        static_cast<cudaStream_t>(stream), launched);
+                               int64_t h0, int64_t tw, const void* base_l,
+                               const void* base_a, const void* d_pos,
+                               const void* d_lat, const void* d_alive,
+                               const void* lo, const void* nowin, void* adv_l,
+                               void* adv_a, void* touch, void* out,
+                               void* stream, int64_t* launched) {
+    return k1_entry<int64_t>(len, H, W, U, h0, tw, base_l, base_a, d_pos,
+                             d_lat, d_alive, lo, nowin, adv_l, adv_a, touch,
+                             out, stream, launched);
 }
 
 int rtpu_weights_from_deltas(int64_t len, int64_t H, int64_t U, int64_t h0,

@@ -64,26 +64,37 @@
 // ties to the smallest value, `dflt` where the set is empty. The reference
 // sorts packed (segment << 31 | value) keys over all k*m rows; here each
 // inbox is already one CSR run (the destination direction walks `indptr`,
-// the source direction `perm`), so no global sort is needed. A block of
-// eight warps owns eight consecutive (window, row) outputs:
-//   * a run of <= 32 rows stays in its warp: each lane holds one value,
-//     __match_any_sync groups equal values, __popc counts them, and a warp
-//     max of (count << 32 | 2^31-1 - value) picks the largest count, then
-//     the smallest value;
-//   * a longer run is done by the whole block after the warps: its valid
-//     values (invalid ones as -1) are copied into shared memory (runs of
-//     <= kSmemRows) or into their disjoint slice of the global `scratch`
-//     (w*m + indptr[r] .., longer runs), sorted with an all-ascending
-//     bitonic network (a partner past the run's end is a virtual +inf and
-//     is skipped, so no padding is written), and each run start of the
-//     sorted values finds its run's end by binary search; a block max of
-//     the same key picks the result.
+// the source direction `perm`), so no global sort is needed. The window is
+// blockIdx.y (no division). The blocks along x come in two kinds, in one
+// launch:
+//   * the first `nl` blocks take the long rows (runs of more than 32
+//     entries), one a block, from the list `long_rows` the wrapper builds
+//     once per CSR: the run's valid values (invalid ones as -1) are copied
+//     into shared memory (runs of <= kSmemRows) or into their disjoint
+//     slice of the global `scratch` (w*m + indptr[r] .., longer runs;
+//     allocated only when the list holds one), sorted with an all-ascending
+//     bitonic network (a partner past the run's end is a virtual +inf and is
+//     skipped), and each run start of the sorted values finds its run's end
+//     by binary search; a block max of (count << 32 | 2^31-1 - value) picks
+//     the largest count, then the smallest value;
+//   * the rest take the short rows, a warp kTileRows consecutive rows: the
+//     rows' runs (a long row counts as empty; an empty row gets `dflt` at
+//     once) are packed end to end over the warp's 32 lanes, a lane an entry,
+//     so a row's lane group is exactly as wide as its inbox and one warp
+//     carries several rows; a round takes the rows that fit, each lane
+//     finds its row by a binary search over the running sums (shuffles),
+//     __match_any_sync over the full warp ANDed with the row's lane mask
+//     counts its value inside its own group, and a segmented shuffle max of
+//     the same key leaves the pick in the group's first lane. Runs of one
+//     round lie next to each other in the CSR, so (perm null) a round reads
+//     neighbouring values. No short row waits on a sort.
 // Every candidate is an integer and the pick does not depend on the order
 // of the rows, so the result is exact and equals the reference's bit for
 // bit; nothing is truncated, whatever the run's length. Bound: bytes — the
 // values and mask of every real row once per window, the CSR once, the
 // output once; a long run costs O(L log^2 L) compare-exchanges in one
-// block (the GAB and LDBC inboxes are short).
+// block (the GAB and LDBC inboxes are short: median 8, at most a few above
+// 32).
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/segment.py).
 // Launches on the caller's stream, allocates nothing, returns
@@ -231,8 +242,10 @@ void launch(int op, int64_t k, int64_t n, int64_t m, int64_t F,
             k, n, m, F, indptr, perm, xt, mask, ot);
 }
 
-constexpr int kModeWarps = 8;          // rows (warps) a block owns
+constexpr int kModeThreads = 256;      // a block: 8 warps
+constexpr int kTileRows = 16;          // short rows a warp takes
 constexpr int kSmemRows = 4096;        // longest run sorted in shared memory
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ inline unsigned long long mode_key(int v, int count) {
     // largest count first, then the smallest value; 0 = no candidate
@@ -247,7 +260,7 @@ __device__ inline int mode_value(unsigned long long key, int dflt) {
 
 __device__ inline unsigned long long warp_max(unsigned long long x) {
     for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
+        const unsigned long long y = __shfl_xor_sync(kAll, x, o);
         x = y > x ? y : x;
     }
     return x;
@@ -281,83 +294,130 @@ __device__ void block_sort(int* a, int64_t L) {
     }
 }
 
-__global__ void segment_mode_kernel(int64_t k, int64_t n, int64_t m,
-                                    int dflt,
-                                    const int64_t* __restrict__ indptr,
-                                    const int32_t* __restrict__ perm,
-                                    const int32_t* __restrict__ x,
-                                    const uint8_t* __restrict__ mask,
-                                    int32_t* scratch,
-                                    int32_t* __restrict__ out) {
-    __shared__ int sv[kSmemRows];
-    __shared__ int64_t longrow[kModeWarps];
-    __shared__ unsigned long long wbest[kModeWarps];
+// entry j of a run in window offset xw: its value, or -1 where it is
+// masked off or negative (both loads issued before either is tested)
+__device__ __forceinline__ int mode_entry(int64_t xw, int64_t j,
+                                          const int32_t* __restrict__ perm,
+                                          const int32_t* __restrict__ x,
+                                          const uint8_t* __restrict__ mask) {
+    const int64_t e = xw + (perm ? (int64_t)perm[j] : j);
+    const int v = x[e];
+    const bool on = mask ? mask[e] != 0 : true;
+    return on && v >= 0 ? v : -1;
+}
+
+// a long row r of window w (xw = w*m), by the whole block
+__device__ void mode_long_row(int64_t r, int64_t xw, int dflt,
+                              const int64_t* __restrict__ indptr,
+                              const int32_t* __restrict__ perm,
+                              const int32_t* __restrict__ x,
+                              const uint8_t* __restrict__ mask,
+                              int32_t* scratch, int* sv,
+                              unsigned long long* wbest, int32_t* out) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int64_t rows = k * n;
-    const int64_t groups = (rows + kModeWarps - 1) / kModeWarps;
-    for (int64_t g = blockIdx.x; g < groups; g += gridDim.x) {
-        // ---- short runs, one warp each
-        const int64_t row = g * kModeWarps + warp;
-        int64_t lr = -1;
-        if (row < rows) {
-            const int64_t w = row / n, r = row % n;
-            const int64_t j0 = indptr[r], L = indptr[r + 1] - j0;
-            if (L > 32) {
-                lr = row;
-            } else {
-                int v = -1;
-                if (lane < L) {
-                    const int64_t j = j0 + lane;
-                    const int64_t e = w * m + (perm ? (int64_t)perm[j] : j);
-                    if (mask[e] && x[e] >= 0) v = x[e];
-                }
-                const unsigned grp = __match_any_sync(0xffffffffu, v);
-                const unsigned long long best =
-                    warp_max(mode_key(v, __popc(grp)));
-                if (lane == 0) out[row] = mode_value(best, dflt);
-            }
+    const int64_t j0 = indptr[r], L = indptr[r + 1] - j0;
+    int* a = L <= kSmemRows ? sv : scratch + xw + j0;
+    for (int64_t t = threadIdx.x; t < L; t += blockDim.x)
+        a[t] = mode_entry(xw, j0 + t, perm, x, mask);
+    __syncthreads();
+    block_sort(a, L);
+    unsigned long long best = 0;
+    for (int64_t t = threadIdx.x; t < L; t += blockDim.x) {
+        const int v = a[t];
+        if (v < 0 || (t > 0 && a[t - 1] == v)) continue;
+        int64_t lo = t + 1, hi = L;          // first index > v
+        while (lo < hi) {
+            const int64_t mid = (lo + hi) >> 1;
+            if (a[mid] <= v) lo = mid + 1; else hi = mid;
         }
-        if (lane == 0) longrow[warp] = lr;
-        __syncthreads();
-        // ---- long runs, the whole block each
-        for (int q = 0; q < kModeWarps; ++q) {
-            const int64_t lrow = longrow[q];
-            if (lrow < 0) continue;                 // block-uniform
-            const int64_t w = lrow / n, r = lrow % n;
-            const int64_t j0 = indptr[r], L = indptr[r + 1] - j0;
-            int* a = L <= kSmemRows ? sv : scratch + w * m + j0;
-            for (int64_t t = threadIdx.x; t < L; t += blockDim.x) {
-                const int64_t j = j0 + t;
-                const int64_t e = w * m + (perm ? (int64_t)perm[j] : j);
-                a[t] = (mask[e] && x[e] >= 0) ? x[e] : -1;
-            }
-            __syncthreads();
-            block_sort(a, L);
-            unsigned long long best = 0;
-            for (int64_t t = threadIdx.x; t < L; t += blockDim.x) {
-                const int v = a[t];
-                if (v < 0 || (t > 0 && a[t - 1] == v)) continue;
-                int64_t lo = t + 1, hi = L;          // first index > v
-                while (lo < hi) {
-                    const int64_t mid = (lo + hi) >> 1;
-                    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-                }
-                const unsigned long long key = mode_key(v, (int)(lo - t));
-                best = key > best ? key : best;
-            }
-            best = warp_max(best);
-            if (lane == 0) wbest[warp] = best;
-            __syncthreads();
-            if (threadIdx.x == 0) {
-                unsigned long long b = 0;
-                for (int i = 0; i < kModeWarps; ++i)
-                    b = wbest[i] > b ? wbest[i] : b;
-                out[lrow] = mode_value(b, dflt);
-            }
-            __syncthreads();
-        }
-        __syncthreads();   // longrow[] is rewritten by the next group
+        const unsigned long long key = mode_key(v, (int)(lo - t));
+        best = key > best ? key : best;
     }
+    best = warp_max(best);
+    if (lane == 0) wbest[warp] = best;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned long long b = 0;
+        for (int i = 0; i < kModeThreads / 32; ++i)
+            b = wbest[i] > b ? wbest[i] : b;
+        out[r] = mode_value(b, dflt);
+    }
+}
+
+// the short rows [r0, r0 + kTileRows) of window offset xw, by one warp
+__device__ void mode_short_rows(int64_t r0, int64_t n, int64_t xw, int dflt,
+                                const int64_t* __restrict__ indptr,
+                                const int32_t* __restrict__ perm,
+                                const int32_t* __restrict__ x,
+                                const uint8_t* __restrict__ mask,
+                                int32_t* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    long long a = 0;
+    int eff = 0;                                // lanes the row takes
+    if (lane < kTileRows && r0 + lane < n) {
+        a = indptr[r0 + lane];
+        const int64_t L = indptr[r0 + lane + 1] - a;
+        if (L == 0) out[r0 + lane] = dflt;
+        eff = L <= 32 ? (int)L : 0;             // long rows: their blocks
+    }
+    int P = eff;                                // running sum, inclusive
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, P, o);
+        if (lane >= o) P += y;
+    }
+    const int total = __shfl_sync(kAll, P, 31);
+    const int Pk = lane < kTileRows ? P : 0x7fffffff;
+    int base = 0;                               // entries done
+    while (base < total) {                      // warp-uniform
+        const int q = base + lane;              // this lane's entry
+        int i = 0;                              // its row: first P > q
+        for (int s = 16; s > 0; s >>= 1) {
+            if (__shfl_sync(kAll, Pk, i + s - 1) <= q) i += s;
+        }
+        const int Pi = __shfl_sync(kAll, Pk, i);
+        const int Li = __shfl_sync(kAll, eff, i);
+        const long long ai = __shfl_sync(kAll, a, i);
+        const bool in = q < total && Pi <= base + 32;
+        int start = lane, end = lane + 1;       // the row's lanes
+        int v = -1;
+        if (in) {
+            start = Pi - Li - base;
+            end = Pi - base;
+            v = mode_entry(xw, ai + (q - (Pi - Li)), perm, x, mask);
+        }
+        const unsigned seg = (end >= 32 ? kAll : (1u << end) - 1u)
+                             & ~((1u << start) - 1u);
+        unsigned long long key =
+            mode_key(v, __popc(__match_any_sync(kAll, v) & seg));
+        for (int o = 1; o < 32; o <<= 1) {      // max over [lane, end)
+            const unsigned long long y = __shfl_down_sync(kAll, key, o);
+            if (lane + o < end) key = y > key ? y : key;
+        }
+        if (in && lane == start) out[r0 + i] = mode_value(key, dflt);
+        base = (int)__reduce_max_sync(
+            kAll, lane < kTileRows && P <= base + 32 ? (unsigned)P : 0u);
+    }
+}
+
+__global__ void __launch_bounds__(kModeThreads) segment_mode_kernel(
+        int64_t n, int64_t m, int dflt, int64_t nl,
+        const int64_t* __restrict__ indptr, const int32_t* __restrict__ perm,
+        const int32_t* __restrict__ x, const uint8_t* __restrict__ mask,
+        const int32_t* __restrict__ long_rows, int32_t* scratch,
+        int32_t* __restrict__ out) {
+    __shared__ int sv[kSmemRows];
+    __shared__ unsigned long long wbest[kModeThreads / 32];
+    const int64_t xw = (int64_t)blockIdx.y * m;
+    int32_t* ow = out + (int64_t)blockIdx.y * n;
+    if (blockIdx.x < nl) {                      // block-uniform
+        mode_long_row(long_rows[blockIdx.x], xw, dflt, indptr, perm, x, mask,
+                      scratch, sv, wbest, ow);
+        return;
+    }
+    const int64_t r0 = ((int64_t)(blockIdx.x - nl) * (kModeThreads / 32)
+                        + (threadIdx.x >> 5)) * kTileRows;
+    if (r0 < n)                                 // warp-uniform
+        mode_short_rows(r0, n, xw, dflt, indptr, perm, x, mask, ow);
 }
 
 }  // namespace
@@ -417,22 +477,28 @@ int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
     return (int)cudaGetLastError();
 }
 
-// K7-mode. k windows, n rows, m payload rows per window | indptr [n+1]
-// int64, perm [m_real] int32 or null, x [k*m] int32, mask [k*m] bool,
-// scratch [k*m] int32 (the long runs' sort space) | out [k*n] int32.
+// K7-mode. k windows (at most 65,535), n rows, m payload rows per
+// window, nl long rows | indptr [n+1] int64, perm [m_real] int32 or null,
+// x [k*m] int32, mask [k*m] bool or null (every row), long_rows [nl] int32
+// (the rows whose runs exceed 32 entries), scratch [k*m] int32 or null
+// (needed only where a long row exceeds kSmemRows) | out [k*n] int32. One
+// launch.
 int rtpu_segment_mode(int64_t k, int64_t n, int64_t m, int64_t dflt,
-                      const void* indptr, const void* perm, const void* x,
-                      const void* mask, void* scratch, void* out,
-                      void* stream) {
+                      int64_t nl, const void* indptr, const void* perm,
+                      const void* x, const void* mask, const void* long_rows,
+                      void* scratch, void* out, void* stream) {
     if (k * n == 0) return (int)cudaGetLastError();
+    if (k > 65535 || nl < 0 || nl > n) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int64_t blocks = (k * n + kModeWarps - 1) / kModeWarps;
-    if (blocks > 65535 * 8) blocks = 65535 * 8;
-    segment_mode_kernel<<<blocks, kModeWarps * 32, 0, s>>>(
-        k, n, m, (int)dflt, static_cast<const int64_t*>(indptr),
+    const int64_t rows_a_block = (int64_t)(kModeThreads / 32) * kTileRows;
+    const dim3 grid((unsigned)(nl + (n + rows_a_block - 1) / rows_a_block),
+                    (unsigned)k);
+    segment_mode_kernel<<<grid, kModeThreads, 0, s>>>(
+        n, m, (int)dflt, nl, static_cast<const int64_t*>(indptr),
         static_cast<const int32_t*>(perm), static_cast<const int32_t*>(x),
-        static_cast<const uint8_t*>(mask), static_cast<int32_t*>(scratch),
-        static_cast<int32_t*>(out));
+        static_cast<const uint8_t*>(mask),
+        static_cast<const int32_t*>(long_rows),
+        static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
     return (int)cudaGetLastError();
 }
 

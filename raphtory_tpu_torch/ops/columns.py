@@ -19,8 +19,9 @@ Each kernel has three parts here:
   and contiguity, allocates the outputs, and routes by the tensors' device:
   CPU tensors take the plain twin, CUDA tensors launch the hand-written
   kernel (or raise — there is no fallback). Each kernel launch adds one to
-  ``LAUNCHES[name]``; nothing else does (K1's C entry point runs a hop loop
-  and reports how many kernels it launched).
+  ``LAUNCHES[name]``; nothing else does (an entry point that launches
+  several passes, as K1's, K4's and K6w's do, reports how many it
+  launched).
 * a **plain twin** (``*_plain``): PyTorch code with the same math. The CPU
   tests hold it against the JAX package, and the chip smoke run holds each
   kernel against it on the card.
@@ -75,12 +76,12 @@ _LIBS = {
                                  "rtpu_frontier_merge_min")),
 }
 _ARGTYPES = {
-    # len, H, W, U, h0 | d_pos, d_lat, d_alive, lo, nowin, cur_l, cur_a,
-    # out, stream | launched
-    "rtpu_masks_from_deltas_i32": 5 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
-    + [ctypes.POINTER(ctypes.c_int64)],
-    "rtpu_masks_from_deltas_i64": 5 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
-    + [ctypes.POINTER(ctypes.c_int64)],
+    # len, H, W, U, h0, tw | base_l, base_a, d_pos, d_lat, d_alive, lo,
+    # nowin, adv_l, adv_a, touch, out, stream | launched
+    "rtpu_masks_from_deltas_i32": 6 * [ctypes.c_int64]
+    + 12 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
+    "rtpu_masks_from_deltas_i64": 6 * [ctypes.c_int64]
+    + 12 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     # len, H, U, h0 | d_pos, d_val, cur_w, out, stream | launched
     "rtpu_weights_from_deltas": 4 * [ctypes.c_int64]
     + 5 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
@@ -123,8 +124,9 @@ _ARGTYPES = {
     "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask, out, stream
     "rtpu_partition_reduce": 6 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
-    # k, n, m, default | indptr, perm, values, mask, scratch, out, stream
-    "rtpu_segment_mode": 4 * [ctypes.c_int64] + 7 * [ctypes.c_void_p],
+    # k, n, m, default, nl | indptr, perm, values, mask, long_rows,
+    # scratch, out, stream
+    "rtpu_segment_mode": 5 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
     # n_pad, F, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr, e_src,
     # e_lat, e_alive, H, out, stream
     "rtpu_feature_propagate": 6 * [ctypes.c_int64] + 2 * [ctypes.c_float]
@@ -262,7 +264,7 @@ def _expect(name: str, t: torch.Tensor, what: str, dtypes, shape) -> None:
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: {what} has dtype {t.dtype}, want one of "
                         f"{dtypes}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):          # torch.Size against a tuple
         raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, want "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -327,13 +329,41 @@ def masks_from_deltas_plain(base_lat, base_alive, d_pos, d_lat, d_alive,
     return out, cur_l, cur_a
 
 
+#: (card, stream handle) → K1's hop-touch scratch, grown to the largest
+#: call's ``len`` words; a stream's calls run in order, so one buffer serves
+#: them all
+_TOUCH: dict = {}
+
+
+def _touch_words(H: int) -> int:
+    """Bytes of K1's hop-touch word for an ``H``-hop call: 1, 4 or 8 (groups
+    of 8, 32 or 64 hops)."""
+    return 1 if H <= 8 else 4 if H <= 32 else 8
+
+
+def _touch_scratch(dev: torch.device, stream: int, nbytes: int):
+    """At least ``nbytes`` bytes of K1 touch scratch for ``stream``."""
+    key = (dev, stream)
+    buf = _TOUCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        if len(_TOUCH) >= _SIG_CAP:
+            _TOUCH.clear()
+        buf = _TOUCH[key] = torch.empty(max(nbytes, 8), dtype=torch.uint8,
+                                        device=dev)
+    return buf
+
+
 def masks_from_deltas(base_lat, base_alive, d_pos, d_lat, d_alive, lo, nowin,
                       H: int, W: int, h0: bool = False):
     """K1 wrapper (replaces ``raphtory_tpu/engine/hopbatch.py:66``): the
     per-hop fold-state rebuild and window masks of one dispatch. ``lo`` is
     ``clip(T_col - w_col)`` already in the time dtype and ``nowin`` is
     ``w_col < 0``, both ``[H*W]``. Returns ``(mask [len, H*W] bool, advanced
-    lat, advanced alive)``."""
+    lat, advanced alive)``. The kernel never rebuilds the hop state (three
+    passes a group of up to 64 hops in one cooperative launch,
+    ``csrc/masks.cu``): the call allocates the outputs, the advanced state
+    included, and takes the hop-touch scratch from ``_touch_scratch``; the
+    base is read, never copied."""
     name = "masks_from_deltas"
     n = base_lat.shape[0]
     tdt = base_lat.dtype
@@ -348,17 +378,21 @@ def masks_from_deltas(base_lat, base_alive, d_pos, d_lat, d_alive, lo, nowin,
     tensors = (base_lat, base_alive, d_pos, d_lat, d_alive, lo, nowin)
     if not _on_cuda(name, *tensors):
         return masks_from_deltas_plain(*tensors, H, W, h0)
-    cur_l, cur_a = base_lat.clone(), base_alive.clone()
-    out = torch.empty((n, H * W), dtype=torch.bool, device=base_lat.device)
+    out = base_alive.new_empty((n, H * W))
+    adv_l, adv_a = base_lat.new_empty(n), base_alive.new_empty(n)
+    tw = _touch_words(H)
+    stream = _stream(out)
+    touch = _touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
     fn = _fn("masks", "rtpu_masks_from_deltas_i32" if tdt == torch.int32
              else "rtpu_masks_from_deltas_i64")
     launched = ctypes.c_int64(0)
-    err = fn(n, H, W, U, int(bool(h0)), d_pos.data_ptr(), d_lat.data_ptr(),
+    err = fn(n, H, W, U, int(bool(h0)), tw, base_lat.data_ptr(),
+             base_alive.data_ptr(), d_pos.data_ptr(), d_lat.data_ptr(),
              d_alive.data_ptr(), lo.data_ptr(), nowin.data_ptr(),
-             cur_l.data_ptr(), cur_a.data_ptr(), out.data_ptr(), _stream(out),
-             ctypes.byref(launched))
+             adv_l.data_ptr(), adv_a.data_ptr(), touch.data_ptr(),
+             out.data_ptr(), stream, ctypes.byref(launched))
     _launch(name, err, launched.value)
-    return out, cur_l, cur_a
+    return out, adv_l, adv_a
 
 
 # ---------------------------------------------------------------- K6w

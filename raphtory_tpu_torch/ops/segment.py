@@ -44,6 +44,7 @@ a TPU backend) is not ported (ROADMAP queue 2).
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -157,21 +158,22 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
 
 #: segment_mode's value budget: non-negative values below 2^31
 _V_BITS = 31
+#: most windows K7-mode takes: the window is its grid's y index
+_MAX_MODE_WINDOWS = 65_535
 
 
 def _mode_args(name, values, seg: SegmentCSR, num_segments: int, mask,
                k: int):
-    m, n = seg.ids.shape[0], seg.n
+    m, n = seg.ids.shape[0], seg.indptr.shape[0] - 1
     if num_segments != k * n:
         raise ValueError(f"{name}: num_segments {num_segments} != k={k} "
                          f"windows x n={n} segments")
-    if values.dim() != 1 or values.shape[0] != k * m:
+    if values.shape != (k * m,):
         raise ValueError(f"{name}: values has shape {tuple(values.shape)}, "
                          f"want [{k * m}] (k={k} windows x m={m} edges)")
-    if mask is None:
-        mask = torch.ones(k * m, dtype=torch.bool, device=values.device)
-    _expect(name, mask, "mask", (torch.bool,), (k * m,))
-    return m, n, mask
+    if mask is not None:
+        _expect(name, mask, "mask", (torch.bool,), (k * m,))
+    return m, n
 
 
 def segment_mode_plain(values, seg: SegmentCSR, num_segments: int,
@@ -183,9 +185,10 @@ def segment_mode_plain(values, seg: SegmentCSR, num_segments: int,
     ``(segment << 31) | value`` are sorted, equal runs counted, and each
     segment keeps the run of the largest ``count * 2^31 + (2^31 - 1 -
     value)``. ``[k*n]`` in the values' dtype."""
-    m, n, mask = _mode_args("segment_mode", values, seg, num_segments, mask,
-                            k)
+    m, n = _mode_args("segment_mode", values, seg, num_segments, mask, k)
     dev = values.device
+    if mask is None:
+        mask = torch.ones(k * m, dtype=torch.bool, device=dev)
     ids = (seg.ids.long()[None, :]
            + torch.arange(k, device=dev)[:, None] * n).reshape(-1)
     v = values.long()
@@ -211,6 +214,82 @@ def segment_mode_plain(values, seg: SegmentCSR, num_segments: int,
         .to(values.dtype)
 
 
+#: the longest run the kernel's short-row path takes (a warp's lanes);
+#: longer runs are ``ModePlan.long_rows``, a block each
+SHORT_RUN = 32
+#: the longest run a long-row block sorts in shared memory
+#: (``kSmemRows``); a longer one sorts in the call's global scratch
+SMEM_RUN = 4096
+
+
+@dataclass(frozen=True)
+class ModePlan:
+    """What K7-mode's launch needs of a ``SegmentCSR``, derived once per CSR
+    (``mode_plan``): the rows whose runs exceed ``SHORT_RUN`` entries, and
+    whether one exceeds ``SMEM_RUN`` (the call then allocates the sort
+    scratch)."""
+    long_rows: torch.Tensor         # int32 [nl], ascending
+    needs_scratch: bool
+
+
+def mode_plan(seg: SegmentCSR, m: int) -> ModePlan:
+    """Check ``seg`` as K7-mode walks it and list its long rows, on the
+    CSR's device (two values read back): ``indptr`` must start at 0, never
+    fall, and end within the edges (``m``, or ``perm``'s length), and
+    ``perm`` name edges in ``[0, m)``; raises otherwise."""
+    name = "segment_mode"
+    indptr, n = seg.indptr, seg.n
+    nnz = m if seg.perm is None else seg.perm.shape[0]
+    lens = indptr[1:] - indptr[:-1]
+    stats = [indptr[0], indptr[-1], lens.min() if n else indptr[0],
+             lens.max() if n else indptr[0]]
+    if seg.perm is not None and int(indptr[-1]) > 0:
+        walked = seg.perm[:int(indptr[-1])]
+        stats += [walked.min().long(), walked.max().long()]
+    first, last, shortest, longest, *named = torch.stack(stats).tolist()
+    if first != 0 or shortest < 0 or last > nnz:
+        raise ValueError(f"{name}: indptr is not a CSR over the {nnz} "
+                         f"edges (starts at {first}, ends at {last}, a run "
+                         f"of {shortest})")
+    if named and (named[0] < 0 or named[1] >= m):
+        raise ValueError(f"{name}: perm names edges outside [0, {m})")
+    rows = torch.nonzero(lens > SHORT_RUN).reshape(-1).to(torch.int32)
+    return ModePlan(rows, longest > SMEM_RUN)
+
+
+def _check_csr(name: str, seg: SegmentCSR, m: int) -> None:
+    _expect(name, seg.ids, "ids", (torch.int32,), (m,))
+    _expect(name, seg.indptr, "indptr", (torch.int64,), (seg.n + 1,))
+    if seg.perm is not None:
+        _expect(name, seg.perm, "perm", (torch.int32,), (seg.perm.shape[0],))
+
+
+#: ``id`` of a ``SegmentCSR`` → (a weak reference to it, its tensors'
+#: versions and edge count when checked, its ``ModePlan``); a frozen CSR
+#: keeps its tensors, so identity and versions pin what was checked
+_MODE_PLANS: dict = {}
+#: CSRs kept before the cache is cleared
+_MODE_PLAN_CAP = 256
+
+
+def _mode_plan_of(name: str, seg: SegmentCSR, m: int) -> ModePlan:
+    """``seg``'s checks and ``mode_plan``, once per CSR and version: a CSR
+    changed in place is checked and listed again."""
+    perm = seg.perm
+    sig = (m, seg.indptr._version, seg.ids._version,
+           None if perm is None else perm._version)
+    got = _MODE_PLANS.get(id(seg))
+    if got is not None and got[0]() is seg and got[1] == sig:
+        return got[2]
+    _check_csr(name, seg, m)
+    _on_cuda(name, seg.indptr, seg.ids, *(() if perm is None else (perm,)))
+    plan = mode_plan(seg, m)
+    if len(_MODE_PLANS) >= _MODE_PLAN_CAP:
+        _MODE_PLANS.clear()
+    _MODE_PLANS[id(seg)] = (weakref.ref(seg), sig, plan)
+    return plan
+
+
 def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
                  default: int = -1, k: int = 1):
     """K7-mode wrapper (``raphtory_tpu/ops/segment.py:155``
@@ -218,28 +297,37 @@ def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
     frequent value of each of the ``num_segments = k*n`` (window, segment)
     inboxes of ``values [k*m]`` under ``mask bool[k*m]`` (None: every row),
     ties to the smallest value, ``default`` where nothing counts. Int32
-    payloads on the card."""
+    payloads on the card, one launch a call: the CSR is checked and its
+    long rows listed once per CSR and version (``_mode_plan_of``), the
+    values and mask at every call; the sort scratch is allocated only for
+    a CSR with a run past ``SMEM_RUN``."""
     name = "segment_mode"
-    m, n, mask = _mode_args(name, values, seg, num_segments, mask, k)
-    _expect(name, seg.ids, "ids", (torch.int32,), (m,))
-    _expect(name, seg.indptr, "indptr", (torch.int64,), (n + 1,))
-    tensors = (values, mask, seg.ids, seg.indptr)
-    if seg.perm is not None:
-        _expect(name, seg.perm, "perm", (torch.int32,), (seg.perm.shape[0],))
-        tensors += (seg.perm,)
-    if not _on_cuda(name, *tensors):
+    m, n = _mode_args(name, values, seg, num_segments, mask, k)
+    if not _on_cuda(name, values, seg.indptr,
+                    *(() if mask is None else (mask,))):
+        _check_csr(name, seg, m)
         return segment_mode_plain(values, seg, num_segments, mask, default, k)
-    _expect(name, values, "values", (torch.int32,), (k * m,))
-    if not -(1 << 31) <= int(default) < (1 << 31):
+    if values.dtype != torch.int32 or not values.is_contiguous():
+        raise TypeError(f"{name}: values must be contiguous int32 on the "
+                        f"card, not {values.dtype}")
+    default = int(default)
+    if not -(1 << 31) <= default < (1 << 31):
         raise ValueError(f"{name}: default {default} is not an int32")
-    out = torch.empty(k * n, dtype=torch.int32, device=values.device)
-    # the long inboxes' sort space: row r of window w sorts in place at
-    # w*m + indptr[r] .. (disjoint runs, so one buffer serves every row)
-    scratch = torch.empty(k * m, dtype=torch.int32, device=values.device)
+    if k > _MAX_MODE_WINDOWS:
+        raise ValueError(f"{name}: {k} windows, more than the kernel's "
+                         f"{_MAX_MODE_WINDOWS}")
+    plan = _mode_plan_of(name, seg, m)
+    out = values.new_empty(k * n)
+    # the long inboxes' sort space past shared memory: row r of window w
+    # sorts in place at w*m + indptr[r] .. (disjoint runs, one buffer)
+    scratch = values.new_empty(k * m) if plan.needs_scratch else None
     err = _fn("segment", "rtpu_segment_mode")(
-        k, n, m, int(default), seg.indptr.data_ptr(),
+        k, n, m, default, plan.long_rows.shape[0], seg.indptr.data_ptr(),
         None if seg.perm is None else seg.perm.data_ptr(), values.data_ptr(),
-        mask.data_ptr(), scratch.data_ptr(), out.data_ptr(), _stream(values))
+        None if mask is None else mask.data_ptr(),
+        plan.long_rows.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        _stream(values))
     _launch(name, err)
     return out
 

@@ -6,6 +6,7 @@ in another order) with equal superstep counts."""
 
 import ctypes
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -86,6 +87,93 @@ def test_masks_from_deltas_twin_bitwise(seed, tdt, h0):
         np.testing.assert_array_equal(alive.numpy(),
                                       np.asarray(want_adv[1]))
         assert lat.dtype == T(inputs[side][0]).dtype
+
+
+def _k1_hops(rng, tdt, length, H, W, hot=5, share=3):
+    """K1 inputs over ``H`` hops: deltas at random positions plus ``hot``
+    positions every hop touches (several hops in a row, hop 0 among them,
+    which applies only with ``h0``; up to ``length / share`` a hop), lat at
+    the dtype's limits among small values; hop times and windows reaching
+    the limits too (``lo`` clips)."""
+    info = np.iinfo(tdt)
+    edge = np.array([info.min, info.min + 1, info.max - 1, info.max],
+                    np.int64)
+    vals = np.concatenate([edge, rng.integers(-100, 100, 40)])
+    base_lat = rng.choice(vals, length).astype(tdt)
+    base_alive = rng.random(length) < 0.6
+    deltas = []
+    for _ in range(H):
+        k = int(rng.integers(0, length // share))
+        pos = np.unique(np.concatenate([
+            np.arange(hot), rng.choice(length, k, replace=False)]))
+        pos = rng.permutation(pos).astype(np.int32)
+        deltas.append((pos, rng.choice(vals, len(pos)).astype(tdt),
+                       rng.random(len(pos)) < 0.5))
+    span = (1 << 61) if tdt == np.int64 else (1 << 29)
+    hops = rng.integers(-span, span, H)
+    hops[: min(H, 3)] = [info.max - 2, info.min + 2, 0][: min(H, 3)]
+    windows = [-1, 0, 1 << 40, 20][:W]
+    return base_lat, base_alive, deltas, hops, windows
+
+
+def _k1_call(tdt, H, W, h0, base_lat, base_alive, deltas, hops, windows):
+    """(the wrapper's torch inputs, the JAX function's answer) of one
+    table's K1 call."""
+    _, pos, lat, alive = thb._pad_hop_deltas(deltas, H, tdt)
+    _, C, _, T_col, w_col = thb._column_layout(hops, windows)
+    info = np.iinfo(tdt)
+    lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+    args = tuple(T(a) for a in (base_lat, base_alive, pos, lat, alive, lo,
+                                w_col < 0))
+    return args, T_col, w_col
+
+
+@pytest.mark.parametrize("tdt,H,h0", [
+    (np.int32, 1, False), (np.int32, 1, True), (np.int32, 33, True),
+    (np.int32, 65, False), (np.int64, 1, True), (np.int64, 33, False),
+    (np.int64, 65, True)], ids=lambda v: getattr(v, "__name__", str(v)))
+def test_masks_from_deltas_twin_bitwise_across_hops(tdt, H, h0):
+    """The twin against the JAX ``_masks_from_deltas`` at H = 1, 33 and 65
+    (one, two and three of the kernel's hop groups), with positions every
+    hop touches and hop-0 deltas that apply only with ``h0``: masks and
+    advanced state bitwise, for int32 and int64 times at their limits."""
+    rng = np.random.default_rng(H)
+    W = 3
+    sides = {side: _k1_hops(rng, tdt, length, H, W)
+             for side, length in (("e", 120), ("v", 40))}
+    hops, windows = sides["e"][3:]
+    calls = {side: _k1_call(tdt, H, W, h0, *v[:3], hops, windows)
+             for side, v in sides.items()}
+    T_col, w_col = calls["e"][1:]
+    e_args, v_args = calls["e"][0], calls["v"][0]
+    me, mv, adv = _jax_k1(tdt, H, W, h0)(
+        *(a.numpy() for a in e_args[:2]), *(a.numpy() for a in v_args[:2]),
+        *(a.numpy() for a in e_args[2:5]), *(a.numpy() for a in v_args[2:5]),
+        T_col, w_col)
+    for args, want_mask, want_adv in ((e_args, me, adv[:2]),
+                                      (v_args, mv, adv[2:])):
+        mask, lat, alive = columns.masks_from_deltas(*args, H, W, h0)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+        np.testing.assert_array_equal(lat.numpy(), np.asarray(want_adv[0]))
+        np.testing.assert_array_equal(alive.numpy(),
+                                      np.asarray(want_adv[1]))
+
+
+def test_masks_from_deltas_refuses_a_position_twice_in_a_hop():
+    """The host fold emits each position once a hop; the twin refuses a
+    delta that sets one twice (the kernel, which would race, relies on
+    it)."""
+    rng = np.random.default_rng(5)
+    base_lat, base_alive, deltas, hops, windows = _k1_hops(
+        rng, np.int32, 50, 2, 2)
+    pos, lat, alive = deltas[1]
+    deltas[1] = (np.concatenate([pos, pos[:1]]),
+                 np.concatenate([lat, lat[:1]]),
+                 np.concatenate([alive, alive[:1]]))
+    args, _, _ = _k1_call(np.int32, 2, 2, False, base_lat, base_alive,
+                          deltas, hops, windows)
+    with pytest.raises(ValueError, match="hop 1 .* position twice"):
+        columns.masks_from_deltas(*args, 2, 2)
 
 
 def _tables(kind):
@@ -433,6 +521,36 @@ def test_out_degree_refuses_a_bad_walk(monkeypatch):
         columns.column_out_degree(me, e_src, t.n_pad)
 
 
+def _c_params(src: str, fn: str):
+    """The parameter declarations of C entry point ``fn`` in ``src``."""
+    m = re.search(r"\bint\s+" + fn + r"\s*\(([^)]*)\)\s*\{", src)
+    assert m, f"{fn} not found"
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
+
+
+def _ctype_of(param: str):
+    """The ctypes type a C parameter declaration is bound with."""
+    if re.match(r"(const\s+)?int64_t\s*\*", param):
+        return ctypes.POINTER(ctypes.c_int64)
+    if "*" in param:
+        return ctypes.c_void_p
+    return {"int64_t": ctypes.c_int64, "float": ctypes.c_float}[
+        param.split()[0]]
+
+
+@pytest.mark.parametrize("lib", sorted(columns._LIBS))
+def test_argtypes_match_the_c_entry_points(lib):
+    """Every C entry point is bound with one ctypes type a parameter, in
+    order, as its source declares it: a wrong count or kind would pass
+    garbage (or crash the process) on the card, where nothing else
+    checks it."""
+    cu, fns = columns._LIBS[lib]
+    src = (columns._CSRC / cu).read_text()
+    for fn in fns:
+        want = [_ctype_of(p) for p in _c_params(src, fn)]
+        assert columns._ARGTYPES[fn] == want, fn
+
+
 # ------------------------------------- the card branch (modelled kernels)
 
 def _view(addr, dtype, n):
@@ -442,6 +560,140 @@ def _view(addr, dtype, n):
     nbytes = n * np.dtype(dtype).itemsize
     return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(
         addr)).view(dtype)
+
+
+_TOUCH_DTYPES = {1: np.uint8, 4: np.uint32, 8: np.uint64}
+
+
+def _model_k1(calls, tdt, order_rng):
+    """``rtpu_masks_from_deltas_*`` as numpy over the wrapper's raw host
+    addresses, the kernel's passes (one launch, grid syncs between them)
+    for each group of ``8 * tw`` hops: pass A
+    writes the group's columns from its base (group 0: the base, copied into
+    the advanced state; later groups: the advanced state) and clears the
+    touch words; B0 (where more than one hop of the group applies) sets bit
+    h of each update's row; B1, its updates taken
+    in a random order, writes columns ``[h W, next W)`` of the row and the
+    advanced state where no later hop of the group touches it. Pads
+    (positions outside ``[0, len)``) and hop 0 without ``h0`` are
+    skipped. A group whose one applied hop is its last, with dense updates
+    (``U * 8 >= len``), takes the dense path: the base copied into the
+    advanced state, the updates scattered into it, one row pass split at
+    the hop's first column."""
+    def model(n, H, W, U, h0, tw, base_l, base_a, pos, lat, alive, lo,
+              nowin, adv_l, adv_a, touch, out, stream, launched):
+        C = H * W
+        dense = []
+        calls.append(dict(base=(base_l, base_a), adv=(adv_l, adv_a),
+                          touch=touch, out=out, tw=tw, H=H, n=n,
+                          dense=dense))
+        assert out % 16 == 0 and adv_l not in (base_l, base_a)
+        bl, ba = _view(base_l, tdt, n), _view(base_a, np.uint8, n)
+        p = _view(pos, np.int32, H * U).reshape(H, U).astype(np.int64)
+        lt = _view(lat, tdt, H * U).reshape(H, U)
+        al = _view(alive, np.uint8, H * U).reshape(H, U)
+        thr = np.where(_view(nowin, np.uint8, C) != 0, np.iinfo(tdt).min,
+                       _view(lo, tdt, C))
+        l_out, a_out = _view(adv_l, tdt, n), _view(adv_a, np.uint8, n)
+        words = _view(touch, _TOUCH_DTYPES[tw], n)
+        o = _view(out, np.uint8, n * C).reshape(n, C)
+        for g0 in range(0, H, 8 * tw):
+            Hg = min(8 * tw, H - g0)
+            cols = slice(g0 * W, (g0 + Hg) * W)
+            src_l, src_a = (bl, ba) if g0 == 0 else (l_out.copy(),
+                                                     a_out.copy())
+            h1 = 1 if g0 == 0 and not h0 else 0
+            ups = [(h, u) for h in range(h1, Hg) for u in range(U)
+                   if 0 <= p[g0 + h, u] < n]
+            if U > 0 and Hg - h1 == 1 and U * 8 >= n:
+                # dense: copy, scatter the one hop, a row pass split at it
+                if g0 == 0:
+                    l_out[:], a_out[:] = bl, ba
+                for h, u in ups:
+                    l_out[p[g0 + h, u]] = lt[g0 + h, u]
+                    a_out[p[g0 + h, u]] = al[g0 + h, u]
+                pre = slice(g0 * W, (g0 + h1) * W)
+                post = slice((g0 + h1) * W, (g0 + Hg) * W)
+                o[:, pre] = (src_a[:, None] != 0) & (src_l[:, None]
+                                                     >= thr[None, pre])
+                o[:, post] = (a_out[:, None] != 0) & (l_out[:, None]
+                                                      >= thr[None, post])
+                dense.append(g0)
+                continue
+            o[:, cols] = (src_a[:, None] != 0) & (src_l[:, None]
+                                                  >= thr[None, cols])
+            if g0 == 0:
+                l_out[:], a_out[:] = bl, ba
+            words[:] = 0
+            if U <= 0 or Hg <= h1:
+                continue
+            if Hg - h1 > 1:                     # B0
+                for h, u in ups:
+                    words[p[g0 + h, u]] |= _TOUCH_DTYPES[tw](1) << h
+            for i in order_rng.permutation(len(ups)):
+                h, u = ups[i]
+                r = p[g0 + h, u]
+                above = int(words[r]) >> (h + 1)
+                nxt = h + 1 + ((above & -above).bit_length() - 1) if above \
+                    else Hg
+                c = slice((g0 + h) * W, (g0 + nxt) * W)
+                o[r, c] = (al[g0 + h, u] != 0) & (lt[g0 + h, u] >= thr[c])
+                if nxt == Hg:
+                    l_out[r], a_out[r] = lt[g0 + h, u], al[g0 + h, u]
+        launched._obj.value += 1                # one cooperative launch
+        return 0
+    return model
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("H,length", [(1, 90), (1, 2100), (2, 90), (2, 2100),
+                                      (4, 90), (9, 90), (33, 90), (70, 90)])
+@pytest.mark.parametrize("tdt", [np.int32, np.int64], ids=["i32", "i64"])
+def test_masks_from_deltas_card_branch_one_launch(monkeypatch, tdt, H, length,
+                                                  h0):
+    """K1's card branch on CPU tensors through the numpy model of its
+    passes: bitwise the twin (negative and pad positions, positions touched
+    in many hops, hop 0 without ``h0``, groups of hops chained past a touch
+    word; a single applied hop on the dense path at 90 rows, the touch
+    path at 2,100), one launch a call whatever H, the touch word sized to
+    H, the advanced state written by the kernel into fresh tensors, no
+    clone."""
+    rng = np.random.default_rng(H)
+    W = 3
+    base_lat, base_alive, deltas, hops, windows = _k1_hops(
+        rng, tdt, length, H, W, hot=7, share=3 if length == 90 else 60)
+    deltas[-1] = (np.concatenate([deltas[-1][0], [-3, -1]]).astype(np.int32),
+                  np.concatenate([deltas[-1][1], deltas[-1][1][:2]]),
+                  np.concatenate([deltas[-1][2], [True, True]]))
+    args, _, _ = _k1_call(tdt, H, W, h0, base_lat, base_alive, deltas, hops,
+                          windows)
+    want = columns.masks_from_deltas(*args, H, W, h0)
+    calls = []
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_TOUCH", {})
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: _model_k1(
+        calls, tdt, np.random.default_rng(0)))
+
+    def no_clone(*a, **k):
+        raise AssertionError("K1's card branch cloned a tensor")
+    monkeypatch.setattr(torch.Tensor, "clone", no_clone)
+    columns.reset_launches()
+    got = columns.masks_from_deltas(*args, H, W, h0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    tw = 1 if H <= 8 else 4 if H <= 32 else 8
+    (call,) = calls
+    assert call["tw"] == tw
+    assert call["adv"] == (got[1].data_ptr(), got[2].data_ptr())
+    assert call["base"] == (args[0].data_ptr(), args[1].data_ptr())
+    (scratch,) = columns._TOUCH.values()
+    assert call["touch"] == scratch.data_ptr()
+    assert scratch.numel() >= length * tw
+    assert columns.LAUNCHES["masks_from_deltas"] == 1
+    single = H - (not h0) == 1
+    assert call["dense"] == ([0] if single and length == 90 else [])
+    columns.reset_launches()
 
 
 def _model_out_degree(calls, rows):

@@ -14,6 +14,7 @@ JAX package, on the same numpy inputs:
   'both' raising ``ValueError``; and the shape of ``reduce``.
 """
 
+import ctypes
 import dataclasses
 
 import jax.numpy as jnp
@@ -41,7 +42,7 @@ from raphtory_tpu_torch.interop import event_log_from_arrays, \
     program_from_params
 from raphtory_tpu_torch.jobs.manager import (AnalysisManager, RangeQuery,
                                              ViewQuery)
-from raphtory_tpu_torch.ops import segment
+from raphtory_tpu_torch.ops import columns, segment
 
 
 @pytest.fixture(autouse=True)
@@ -61,6 +62,15 @@ def _flat_csr(ids, n):
     return segment.SegmentCSR(torch.from_numpy(ids),
                               torch.from_numpy(indptr),
                               torch.from_numpy(perm))
+
+
+def _view(addr, dtype, n):
+    """``n`` elements of ``dtype`` at a host address, as numpy."""
+    if not n:
+        return np.zeros(0, dtype)
+    nbytes = n * np.dtype(dtype).itemsize
+    return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(
+        addr)).view(dtype)
 
 
 def _kernel_walk(vals, csr, k, mask, default):
@@ -178,6 +188,208 @@ def test_segment_mode_wrapper_checks():
         segment.segment_mode(vals, csr, 3)
     with pytest.raises(ValueError, match="values"):
         segment.segment_mode(vals[:2], csr, 2)
+
+
+# K7-mode's inbox lengths at the kernel's edges: empty, one, the widths of
+# lane groups of 8 and 16 around them, a warp (31 / 32 / 33: the last short
+# run and the first long one), and the long runs sorted in shared memory
+# (4,096) or in the call's scratch (4,097)
+EDGE_RUNS = [0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 4096, 4097]
+
+
+def _edge_inboxes(rng, k, permuted, runs=EDGE_RUNS, copies=3):
+    """(values, ids, SegmentCSR, mask) over rows of every length in
+    ``runs`` (each ``copies`` times, rows shuffled) plus pad rows (outside
+    the CSR: masked, and negative so that they carry no message without
+    the mask either): values with ties, masked and negative rows; the
+    source-style CSR through a permutation when ``permuted``."""
+    lens = rng.permutation(np.repeat(runs, copies))
+    n, m_real = len(lens), int(lens.sum())
+    m = m_real + 5                                  # pad rows, masked
+    ids = np.concatenate([np.repeat(np.arange(n), lens),
+                          np.full(m - m_real, n - 1)]).astype(np.int32)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    perm = None
+    if permuted:
+        perm = rng.permutation(m_real).astype(np.int32)
+        pid = np.full(m, n - 1, np.int32)
+        pid[perm] = ids[:m_real]
+        ids = pid
+    vals = rng.integers(0, 6, k * m).astype(np.int32)
+    vals[rng.random(k * m) < 0.05] = -3
+    vals.reshape(k, m)[:, m_real:] = -1     # no message even unmasked
+    mask = rng.random(k * m) < 0.85
+    mask.reshape(k, m)[:, m_real:] = False
+    csr = segment.SegmentCSR(torch.from_numpy(ids), torch.from_numpy(indptr),
+                             None if perm is None else torch.from_numpy(perm))
+    return vals, ids, csr, mask
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["dst", "src"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_segment_mode_edge_runs_match_jax(k, permuted):
+    """The twin against the JAX ``segment_mode`` (and the plain walk of the
+    kernel's pick) on inboxes of every length in ``EDGE_RUNS``, k windows,
+    both CSR forms."""
+    rng = np.random.default_rng(10 * k + permuted)
+    vals, ids, csr, mask = _edge_inboxes(rng, k, permuted)
+    got, want = _both(vals, ids, csr.n, mask, -1, k, csr)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _kernel_walk(vals, csr, k, mask, -1))
+
+
+def _model_mode(calls):
+    """``rtpu_segment_mode`` as numpy over the wrapper's raw host addresses,
+    step by step as the kernel takes it: the listed long rows by a sort and
+    a count; the short rows a warp of 32 lanes 16 rows at a time — their
+    runs packed end to end over the lanes (long rows taking none, empty
+    rows ``dflt`` at once), a round per fill of the lanes, each lane's row
+    found by binary lifting over the running sums, its value counted among
+    equal values of its row's lanes, and the shuffle-down max bounded by
+    the row's last lane. Refuses a long-row list that is not exactly the
+    runs past 32 entries, and a missing scratch where a run exceeds 4,096."""
+    def model(k, n, m, dflt, nl, indptr, perm, x, mask, long_rows, scratch,
+              out, stream):
+        calls.append(dict(nl=nl, mask=mask, scratch=scratch))
+        ip = _view(indptr, np.int64, n + 1)
+        lens = np.diff(ip)
+        pm = None if perm is None else _view(perm, np.int32, int(ip[-1]))
+        xs = _view(x, np.int32, k * m)
+        mk = None if mask is None else _view(mask, np.uint8, k * m)
+        lr = _view(long_rows, np.int32, nl)
+        assert lr.tolist() == np.flatnonzero(lens > 32).tolist()
+        assert scratch is not None or lens.max(initial=0) <= 4096
+        o = _view(out, np.int32, k * n)
+        lane = np.arange(32)
+
+        def entry(xw, j):
+            e = xw + (j if pm is None else int(pm[j]))
+            on = mk is None or mk[e]
+            return int(xs[e]) if on and xs[e] >= 0 else -1
+
+        def key(v, c):
+            return 0 if v < 0 else (c << 32) | (0x7FFFFFFF - v)
+
+        def value(kk):
+            return 0x7FFFFFFF - (kk & 0xFFFFFFFF) if kk else dflt
+
+        for w in range(k):
+            xw = w * m
+            for r in lr:
+                vs = np.array([entry(xw, j) for j in range(ip[r], ip[r + 1])])
+                vs = vs[vs >= 0]
+                u, c = np.unique(vs, return_counts=True)
+                o[w * n + r] = value(max((key(int(a), int(b))
+                                          for a, b in zip(u, c)), default=0))
+            for r0 in range(0, n, 16):
+                a = np.zeros(32, np.int64)
+                eff = np.zeros(32, np.int64)
+                for l in range(16):
+                    if r0 + l < n:
+                        a[l] = ip[r0 + l]
+                        if lens[r0 + l] == 0:
+                            o[w * n + r0 + l] = dflt
+                        eff[l] = lens[r0 + l] if lens[r0 + l] <= 32 else 0
+                P = np.cumsum(eff)
+                total = int(P[31])
+                Pk = np.where(lane < 16, P, 2**31 - 1)
+                base = 0
+                while base < total:
+                    q = base + lane
+                    i = np.zeros(32, np.int64)
+                    for s in (16, 8, 4, 2, 1):
+                        i = np.where(Pk[i + s - 1] <= q, i + s, i)
+                    Pi, Li, ai = Pk[i], eff[i], a[i]
+                    inn = (q < total) & (Pi <= base + 32)
+                    start = np.where(inn, Pi - Li - base, lane)
+                    end = np.where(inn, Pi - base, lane + 1)
+                    v = [entry(xw, int(ai[l] + q[l] - (Pi[l] - Li[l])))
+                         if inn[l] else -1 for l in range(32)]
+                    keys = [key(v[l], sum(v[t] == v[l] for t in
+                                          range(start[l], end[l])))
+                            for l in range(32)]
+                    for off in (1, 2, 4, 8, 16):
+                        keys = [max(keys[l], keys[l + off])
+                                if l + off < end[l] else keys[l]
+                                for l in range(32)]
+                    for l in range(32):
+                        if inn[l] and l == start[l]:
+                            o[w * n + r0 + i[l]] = value(keys[l])
+                    base = int(max(P[l] for l in range(16)
+                                   if P[l] <= base + 32))
+        return 0
+    return model
+
+
+@pytest.fixture
+def mode_card(monkeypatch):
+    """K7-mode's card branch on CPU tensors through the numpy model, with
+    a fresh signature cache."""
+    calls = []
+    monkeypatch.setattr(segment, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(segment, "_stream", lambda t: 0)
+    monkeypatch.setattr(segment, "_fn", lambda lib, fn: _model_mode(calls))
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    columns.reset_launches()
+    yield calls
+    columns.reset_launches()
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["dst", "src"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_segment_mode_card_branch_packs_short_rows(mode_card, k, permuted):
+    """The card branch through the model of the kernel's steps on every
+    ``EDGE_RUNS`` length (rows of 4,097 entries: the scratch allocated) and
+    on short rows only (no long row, no scratch, no mask): the twin's modes
+    bit for bit, one launch a call."""
+    rng = np.random.default_rng(3 + k + permuted)
+    for runs, copies in ((EDGE_RUNS, 2), (list(range(0, 33)), 3)):
+        vals, ids, csr, mask = _edge_inboxes(rng, k, permuted, runs, copies)
+        v = torch.from_numpy(vals)
+        for mk in (torch.from_numpy(mask), None):
+            want = segment.segment_mode_plain(v, csr, k * csr.n, mk, -1, k)
+            got = segment.segment_mode(v, csr, k * csr.n, mk, -1, k)
+            assert torch.equal(got, want)
+            long = max(runs) > 4096
+            assert (mode_card[-1]["scratch"] is not None) == long
+            assert (mode_card[-1]["mask"] is None) == (mk is None)
+    assert columns.LAUNCHES["segment_mode"] == len(mode_card) == 4
+
+
+def test_segment_mode_lists_long_rows_again_after_an_in_place_change(
+        mode_card):
+    """The long-row list is derived once per CSR signature: a second call
+    with the same CSR reuses it, and a CSR changed in place (a short row
+    made long) is checked and listed again; a CSR that is not one
+    raises."""
+    rng = np.random.default_rng(1)
+    vals, ids, csr, mask = _edge_inboxes(rng, 2, False, [3, 40, 10], 4)
+    v, mk = torch.from_numpy(vals), torch.from_numpy(mask)
+    plans = []
+    mode_plan = segment.mode_plan
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(segment, "mode_plan", lambda seg, m: plans.append(
+            seg) or mode_plan(seg, m))
+        for _ in range(2):
+            got = segment.segment_mode(v, csr, 2 * csr.n, mk, -1, 2)
+        assert len(plans) == 1
+        # a long row and its short neighbour swap lengths in place: the
+        # CSR's version changes, and so does its long-row list
+        ip = csr.indptr
+        lens = np.diff(ip.numpy())
+        r = int(np.flatnonzero((lens[:-1] > 32) != (lens[1:] > 32))[0])
+        ip[r + 1] = ip[r] + int(lens[r + 1])
+        ids = np.repeat(np.arange(csr.n), np.diff(ip.numpy()))
+        csr.ids[: len(ids)] = torch.from_numpy(ids.astype(np.int32))
+        got = segment.segment_mode(v, csr, 2 * csr.n, mk, -1, 2)
+        assert len(plans) == 2
+    want = segment.segment_mode_plain(v, csr, 2 * csr.n, mk, -1, 2)
+    assert torch.equal(got, want)
+    bad = segment.SegmentCSR(csr.ids, csr.indptr.flip(0).contiguous(), None)
+    with pytest.raises(ValueError, match="not a CSR"):
+        segment.segment_mode(v, bad, 2 * csr.n, mk, -1, 2)
 
 
 # ------------------------------------------------------------------ LPA
