@@ -26,10 +26,14 @@ printing one JSON line:
               weighted, directed and undirected, LDBC shapes; each of K5,
               K6, K5-P, K6-P one launch a superstep, with its device time
               from the profiler) and K6w (the weight rebuild, pads, with
-              and without h0) bitwise
+              and without h0, at the LDBC length, a binned length and H
+              70; one launch a call) bitwise
               (``torch.equal``); K7 (segment combine: sum / min / max,
-              float32 / int32, both directions, k = 1 and 3) bitwise but
-              for its float sums (rtol 1e-5 / atol 1e-7), K9a (delta
+              float32 / int32, both directions, k = 1 and 3, one launch a
+              call; also ``segment_combine_out_degree``, bitcoin_range's
+              int32 out-degree call over its Pareto senders, timed beside
+              ``index_add_``) bitwise but for its float sums against the
+              twin on the card (rtol 1e-5 / atol 1e-7), K9a (delta
               apply, int32 and int64), K9b (window masks, k = 1 and 3)
               and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
               tables, int32 and int64) and K4 (scale masks at the scale
@@ -57,7 +61,7 @@ printing one JSON line:
               undirected, max_steps 32: ``HopBatchedBFS`` and
               ``HopBatchedSSSP`` (chunks=1), and SSSP with chunks=2 (the
               device-resident weight state), each BITWISE against the CPU
-              run with equal steps.
+              run with equal steps; K6w one launch a dispatch.
 7. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank, CC and
               weighted SSSP Range jobs, and a PageRank Range of 1,025
               views, one past the columnar route's cap, which declines
@@ -70,7 +74,9 @@ printing one JSON line:
               (rtol 1e-5 / atol 1e-7, equal steps).
 9. bitcoin_range — ``bitcoin_like_log(20_000, 200_000)``, 10 hops over
               [0.5, 1.0] x t_span x windows (week, day, hour), PageRank
-              through ``DeviceSweep.run_sweep`` (serial), against the CPU.
+              through ``DeviceSweep.run_sweep`` (serial), against the CPU;
+              the warm-up sweep counts K7's source-direction calls (the
+              out-degree entry's launches).
 10. view_programs — on the LDBC log: CC, DegreeBasic and undirected BFS
               View jobs on the resident route, weighted SSSP and a
               descending-time PageRank View on the cold ``bsp.run`` route
@@ -222,13 +228,20 @@ mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
 unpacked with ``git archive``: ``Parent`` binds its C entry points), K1
-``masks_from_deltas`` and K7-mode ``segment_mode`` as DIR's ``masks.cu``
-and ``segment.cu`` build them are held BITWISE against this tree's and
-timed in turns with them (CUDA events, and device time from the
-profiler): K1 at the headline's edge and vertex calls, on its edge cases
-and on the ``scale`` phase's edge payload; K7-mode on its synthetic
-inboxes, at the cold GAB View's shape and at the LDBC Range's: a
-``parent`` line before ``timing``.
+``masks_from_deltas``, K6w ``weights_from_deltas``, K7
+``segment_combine``, K7-P ``partition_reduce`` and K7-mode
+``segment_mode`` as DIR's ``masks.cu`` and ``segment.cu`` build them,
+each inside a copy of DIR's wrapper, are held BITWISE against this
+tree's and timed in turns with them (CUDA events, and device time from
+the profiler): K1 at the headline's edge and vertex calls, on its edge
+cases and on the ``scale`` phase's edge payload; K6w on both ``h0``
+settings at the LDBC length, a binned length and an H 70 call (timed at
+the first); K7 on every case of the kernels line (timed at the GAB View's
+f32 sum and at ``bitcoin_range``'s out-degree call) and its int64 edge
+cases, K7-P on the cold GAB View's layout (timed there) and both at the
+taint shape (timed); K7-mode on its synthetic inboxes, at the cold GAB
+View's shape and at the LDBC Range's: a ``parent`` line before
+``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -300,26 +313,32 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K1 and K7-mode as the tree at DIR builds them
-#: (``Parent``), held against this tree's and timed in turns with them on
-#: the same inputs
+#: with ``--parent DIR``: K1, K6w, K7, K7-P and K7-mode as the tree at DIR
+#: builds them (``Parent``), held against this tree's and timed in turns
+#: with them on the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
 class Parent:
-    """K1 ``masks_from_deltas`` and K7-mode ``segment_mode`` of another
-    tree's ``masks.cu`` and ``segment.cu``, through the C entry points they
-    had before this tree redesigned them, each inside a copy of that tree's
-    wrapper (its input checks, allocations and call; the kernels line's
-    ``ms`` has always timed the wrapper): K1 ``(len, H, W, U, h0 | d_pos,
-    d_lat, d_alive, lo, nowin, cur_l, cur_a, out, stream | launched)`` on
-    clones of the base (a scatter and a column pass a hop); K7-mode ``(k,
-    n, m, default | indptr, perm, values, mask, scratch, out, stream)``
-    with a ``[k*m]`` scratch (and a mask of ones where none is given)
-    allocated every call. Built with ``columns.build``'s nvcc flags, both
-    sources at once. Its launches count nowhere."""
+    """K1 ``masks_from_deltas``, K6w ``weights_from_deltas``, K7
+    ``segment_combine``, K7-P ``partition_reduce`` and K7-mode
+    ``segment_mode`` of another tree's ``masks.cu`` and ``segment.cu``,
+    through the C entry points they had before this tree redesigned K6w,
+    K7 and K7-P, each inside a copy of that tree's wrapper (its input
+    checks, allocations and call; the kernels line's ``ms`` has always
+    timed the wrapper): K1 ``(len, H, W, U, h0, tw | base_l, base_a,
+    d_pos, d_lat, d_alive, lo, nowin, adv_l, adv_a, touch, out, stream |
+    launched)``; K6w ``(len, H, U, h0 | d_pos, d_val, cur_w, out, stream |
+    launched)`` on a clone of the base (a scatter and a column pass a hop);
+    K7 ``(k, n, m, F, op, dtype | indptr, perm, x, mask, out, stream)`` and
+    K7-P ``(k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask,
+    out, stream)``, one thread a (window, row, feature), every input
+    checked at every call; K7-mode ``(k, n, m, default, nl | indptr, perm,
+    values, mask, long_rows, scratch, out, stream)`` over this tree's
+    ``mode_plan``. Built with ``columns.build``'s nvcc flags, both sources
+    at once. Its launches count nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
@@ -348,14 +367,20 @@ class Parent:
         masks = ctypes.CDLL(str(libs["masks"]))
         seg = ctypes.CDLL(str(libs["segment"]))
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        self._k1 = {"i32": masks.rtpu_masks_from_deltas_i32,
-                    "i64": masks.rtpu_masks_from_deltas_i64}
-        for f in self._k1.values():
-            f.argtypes = 5 * [i64] + 9 * [ptr] + [ctypes.POINTER(i64)]
-            f.restype = ctypes.c_int
-        self._mode = seg.rtpu_segment_mode
-        self._mode.argtypes = 4 * [i64] + 7 * [ptr]
-        self._mode.restype = ctypes.c_int
+        ref = ctypes.POINTER(i64)
+
+        def bind(f, args):
+            f.argtypes, f.restype = args, ctypes.c_int
+            return f
+
+        self._k1 = {t: bind(getattr(masks, f"rtpu_masks_from_deltas_{t}"),
+                            6 * [i64] + 12 * [ptr] + [ref])
+                    for t in ("i32", "i64")}
+        self._k6w = bind(masks.rtpu_weights_from_deltas,
+                         4 * [i64] + 5 * [ptr] + [ref])
+        self._k7 = bind(seg.rtpu_segment_combine, 6 * [i64] + 6 * [ptr])
+        self._k7p = bind(seg.rtpu_partition_reduce, 6 * [i64] + 8 * [ptr])
+        self._mode = bind(seg.rtpu_segment_mode, 5 * [i64] + 8 * [ptr])
         self._c = columns
         self._ct = ctypes
         self.source = str(root)
@@ -368,7 +393,7 @@ class Parent:
                           lo, nowin, H: int, W: int, h0: bool = False):
         import torch
 
-        name, ex = "masks_from_deltas", self._c._expect
+        name, ex, c = "masks_from_deltas", self._c._expect, self._c
         n, tdt = base_lat.shape[0], base_lat.dtype
         U = d_pos.shape[1] if d_pos.dim() == 2 else -1
         ex(name, base_lat, "base_lat", (torch.int32, torch.int64), (n,))
@@ -378,50 +403,136 @@ class Parent:
         ex(name, d_alive, "d_alive", (torch.bool,), (H, U))
         ex(name, lo, "lo", (tdt,), (H * W,))
         ex(name, nowin, "nowin", (torch.bool,), (H * W,))
-        self._c._on_cuda(name, base_lat, base_alive, d_pos, d_lat, d_alive,
-                         lo, nowin)
-        cur_l, cur_a = base_lat.clone(), base_alive.clone()
-        out = torch.empty((n, H * W), dtype=torch.bool,
-                          device=base_lat.device)
-        fn = self._k1["i32" if base_lat.dtype == torch.int32 else "i64"]
-        self._ok("K1", fn(n, H, W, U, int(bool(h0)), d_pos.data_ptr(),
+        c._on_cuda(name, base_lat, base_alive, d_pos, d_lat, d_alive, lo,
+                   nowin)
+        out = base_alive.new_empty((n, H * W))
+        adv_l, adv_a = base_lat.new_empty(n), base_alive.new_empty(n)
+        tw = c._touch_words(H)
+        stream = c._stream(out)
+        touch = c._touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
+        fn = self._k1["i32" if tdt == torch.int32 else "i64"]
+        self._ok("K1", fn(n, H, W, U, int(bool(h0)), tw, base_lat.data_ptr(),
+                          base_alive.data_ptr(), d_pos.data_ptr(),
                           d_lat.data_ptr(), d_alive.data_ptr(),
-                          lo.data_ptr(), nowin.data_ptr(), cur_l.data_ptr(),
-                          cur_a.data_ptr(), out.data_ptr(),
-                          self._c._stream(out),
-                          self._ct.byref(self._ct.c_int64(0))))
-        return out, cur_l, cur_a
+                          lo.data_ptr(), nowin.data_ptr(), adv_l.data_ptr(),
+                          adv_a.data_ptr(), touch.data_ptr(), out.data_ptr(),
+                          stream, self._ct.byref(self._ct.c_int64(0))))
+        return out, adv_l, adv_a
+
+    def weights_from_deltas(self, base_w, d_pos, d_val, H: int,
+                            h0: bool = False):
+        import torch
+
+        name, ex = "weights_from_deltas", self._c._expect
+        n = base_w.shape[0]
+        U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+        ex(name, base_w, "base_w", (torch.float32,), (n,))
+        ex(name, d_pos, "d_pos", (torch.int32,), (H, U))
+        ex(name, d_val, "d_val", (torch.float32,), (H, U))
+        self._c._on_cuda(name, base_w, d_pos, d_val)
+        cur = base_w.clone()
+        out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
+        self._ok("K6w", self._k6w(
+            n, H, U, int(bool(h0)), d_pos.data_ptr(), d_val.data_ptr(),
+            cur.data_ptr(), out.data_ptr(), self._c._stream(out),
+            self._ct.byref(self._ct.c_int64(0))))
+        return out, cur
+
+    def _payload(self, name, data, k: int, m: int):
+        """(F, dtype code) of a K7 / K7-P payload, checked as the parent's
+        wrappers checked it."""
+        from raphtory_tpu_torch.ops import segment
+
+        if data.dtype not in segment._KERNEL_DTYPES:
+            raise TypeError(f"parent {name}: no kernel for {data.dtype}")
+        self._c._expect(name, data, "data", (data.dtype,), tuple(data.shape))
+        return (data[0].numel() if k * m else 1,
+                segment._KERNEL_DTYPES[data.dtype])
+
+    def segment_combine(self, data, csr, op: str, mask, k: int = 1):
+        import torch
+
+        from raphtory_tpu_torch.ops import segment
+
+        name, ex = "segment_combine", self._c._expect
+        m, n = csr.ids.shape[0], csr.n
+        if data.dim() == 0 or data.shape[0] != k * m:
+            raise ValueError(f"parent {name}: bad payload shape")
+        ex(name, mask, "mask", (torch.bool,), (k * m,))
+        ex(name, csr.ids, "ids", (torch.int32,), (m,))
+        ex(name, csr.indptr, "indptr", (torch.int64,), (n + 1,))
+        tensors = (data, mask, csr.ids, csr.indptr)
+        if csr.perm is not None:
+            ex(name, csr.perm, "perm", (torch.int32,), (csr.perm.shape[0],))
+            tensors += (csr.perm,)
+        self._c._on_cuda(name, *tensors)
+        F, dt = self._payload(name, data, k, m)
+        out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                          device=data.device)
+        self._ok("K7", self._k7(
+            k, n, m, F, segment._OPS[op], dt, csr.indptr.data_ptr(),
+            None if csr.perm is None else csr.perm.data_ptr(),
+            data.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            self._c._stream(data)))
+        return out
+
+    def partition_reduce(self, data, walk, op: str, mask, k: int = 1):
+        import torch
+
+        from raphtory_tpu_torch.ops import segment
+
+        name, ex = "partition_segment_reduce", self._c._expect
+        if data.dim() == 0 or k <= 0 or data.shape[0] % k:
+            raise ValueError(f"parent {name}: bad payload shape")
+        m, n = data.shape[0] // k, walk.n
+        ex(name, mask, "mask", (torch.bool,), (k * m,))
+        ex(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
+        ex(name, walk.order, "order", (torch.int32,), (walk.order.shape[0],))
+        tensors = (data, mask, walk.indptr, walk.order)
+        for what, t, dt in (("perm", walk.perm, torch.int32),
+                            ("valid", walk.valid, torch.bool)):
+            if t is not None:
+                ex(name, t, what, (dt,), (t.shape[0],))
+                tensors += (t,)
+        self._c._on_cuda(name, *tensors)
+        F, dt = self._payload(name, data, k, m)
+        out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                          device=data.device)
+        self._ok("K7-P", self._k7p(
+            k, n, m, F, segment._OPS[op], dt, walk.indptr.data_ptr(),
+            walk.order.data_ptr(),
+            None if walk.perm is None else walk.perm.data_ptr(),
+            None if walk.valid is None else walk.valid.data_ptr(),
+            data.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            self._c._stream(data)))
+        return out
 
     def segment_mode(self, values, seg, num_segments: int, mask=None,
                      default: int = -1, k: int = 1):
         import torch
 
-        name, ex = "segment_mode", self._c._expect
-        m, n = seg.ids.shape[0], seg.n
-        if num_segments != k * n or values.dim() != 1 \
-                or values.shape[0] != k * m:
-            raise ValueError(f"parent {name}: bad shapes")
-        dev = values.device
-        if mask is None:
-            mask = torch.ones(k * m, dtype=torch.bool, device=dev)
-        ex(name, mask, "mask", (torch.bool,), (k * m,))
-        ex(name, seg.ids, "ids", (torch.int32,), (m,))
-        ex(name, seg.indptr, "indptr", (torch.int64,), (n + 1,))
-        tensors = (values, mask, seg.ids, seg.indptr)
-        if seg.perm is not None:
-            ex(name, seg.perm, "perm", (torch.int32,), (seg.perm.shape[0],))
-            tensors += (seg.perm,)
-        self._c._on_cuda(name, *tensors)
-        ex(name, values, "values", (torch.int32,), (k * m,))
+        from raphtory_tpu_torch.ops import segment
+
+        name = "segment_mode"
+        m, n = segment._mode_args(name, values, seg, num_segments, mask, k)
+        self._c._on_cuda(name, values, seg.indptr,
+                         *(() if mask is None else (mask,)))
+        if values.dtype != torch.int32 or not values.is_contiguous():
+            raise TypeError(f"parent {name}: values must be contiguous "
+                            "int32")
         if not -(1 << 31) <= int(default) < (1 << 31):
             raise ValueError(f"parent {name}: default is not an int32")
-        out = torch.empty(k * n, dtype=torch.int32, device=dev)
-        scratch = torch.empty(k * m, dtype=torch.int32, device=dev)
+        plan = segment._mode_plan_of(name, seg, m)
+        out = values.new_empty(k * n)
+        scratch = values.new_empty(k * m) if plan.needs_scratch else None
         self._ok("K7-mode", self._mode(
-            k, n, m, int(default), seg.indptr.data_ptr(),
+            k, n, m, int(default), plan.long_rows.shape[0],
+            seg.indptr.data_ptr(),
             None if seg.perm is None else seg.perm.data_ptr(),
-            values.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), self._c._stream(values)))
+            values.data_ptr(), None if mask is None else mask.data_ptr(),
+            plan.long_rows.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            self._c._stream(values)))
         return out
 
 
@@ -1408,23 +1519,37 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         ref = segment.segment_combine(x, flat, op, mask, k)
         ok = (within_tol(got, want) if op == "sum" and dt == "f32"
               else torch.equal(got, want)) and torch.equal(got, ref)
+        if PARENT is not None:
+            ok = ok and torch.equal(got, PARENT.partition_reduce(
+                x, walk, op, mask, k))
         err = max(err, exact_err(got, want))
         if not ok:
             bad.append(f"{op} {dt} k={k} (max abs err "
                        f"{exact_err(got, want)})")
     if bad:
-        raise AssertionError(f"K7-P differs from its twin or K7: {bad}")
+        raise AssertionError(f"K7-P differs from its twin, K7 or the "
+                             f"parent's: {bad}")
     mask = put(np.arange(vm) < vreal)
     x = put((rng.random(vm) * 1e-4).astype(np.float32))
     ids = put(gab_view.e_dst).long()
     xm = torch.where(mask, x, 0.0)
     vspec = vlay.spec
+
+    def k7p():
+        return segment.partition_reduce(x, walk, "sum", mask, 1)
+    # the real edges' payload and mask, their walk entries, perm and
+    # valid, the output; one add per edge
+    k7p_bound = bound(vreal * 5 + vreal * 9 + (vn + 1) * 8 + vn * 4, vreal)
+    if PARENT is not None:
+        vs_parent(torch, "partition_segment_reduce gab_view", k7p,
+                  lambda: PARENT.partition_reduce(x, walk, "sum", mask, 1),
+                  iters=100, shape=f"sum f32 k=1 n_pad={vn} B={vlay.B}",
+                  bound_ms=k7p_bound[0])
     out["partition_segment_reduce"] = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:116",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: segment.partition_reduce(
-            x, walk, "sum", mask, 1)),
+        max_abs_err=err, ms=cuda_ms(torch, k7p),
+        device_ms=device_ms(torch, k7p)[0],
         plain_ms=cuda_ms(torch, lambda: segment.partition_reduce_plain(
             x, walk, "sum", mask, 1)),
         # one call: index_add_ of the pre-masked payload at destination
@@ -1432,11 +1557,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
             vn, device=dev).index_add_(0, ids, xm)),
         shape=f"sum f32 k=1 F=1 n_pad={vn} m_pad={vm} B={vlay.B} "
               f"P={vspec.partitions}",
-        # the real edges' payload and mask, their walk entries, perm and
-        # valid, the output; one add per edge
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(vreal * 5 + vreal * 9 + (vn + 1) * 8 + vn * 4,
-                         vreal))))
+        **dict(zip(("bound_ms", "bound_by"), k7p_bound)))
     return out
 
 
@@ -1607,38 +1728,76 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
             m * C + n * C + 3 * 4 * m + 2 * 8 * (n + 1) + 2 * 4 * n * C
             + 4 * m * H, 4 * nnz))))
 
-    # ---- K6w at LDBC: len m_pad, H = 10, U = 8,192 weight updates a hop
+    # ---- K6w at LDBC: len m_pad, H = 10, U = 8,192 weight updates a hop;
+    # the same at a binned length (the LDBC layout's B) and an H 70 call
+    # (two touch-word groups chained), each on both h0 settings
+    from raphtory_tpu_torch.ops import partition
+
+    def k6w_inputs(length, H, U, real):
+        base = torch.from_numpy(rng.random(length).astype(np.float32)).to(
+            dev)
+        pos = np.full((H, U), 2**31 - 1, np.int32)
+        val = np.zeros((H, U), np.float32)
+        for h in range(H):
+            k = int(rng.integers(U // 2, U))
+            pos[h, :k] = rng.choice(real, k, replace=False)
+            val[h, :k] = rng.random(k) * 5 - 0.5
+        return (base, *(torch.from_numpy(a).to(dev) for a in (pos, val)),
+                int((pos < length).sum()))
+
     U = 8192
     length = ldbc.m_pad
-    base = torch.from_numpy(rng.random(length).astype(np.float32)).to(dev)
-    pos = np.full((H, U), 2**31 - 1, np.int32)
-    val = np.zeros((H, U), np.float32)
-    for h in range(H):
-        k = int(rng.integers(U // 2, U))
-        pos[h, :k] = rng.choice(ldbc.m, k, replace=False)
-        val[h, :k] = rng.random(k) * 5 - 0.5
-    d_pos, d_val = (torch.from_numpy(a).to(dev) for a in (pos, val))
-    err = 0.0
-    for h0 in (False, True):
-        got = columns.weights_from_deltas(base, d_pos, d_val, H, h0)
-        want = columns.weights_from_deltas_plain(base, d_pos, d_val, H, h0)
-        for g, x in zip(got, want):
-            if not torch.equal(g, x):
-                raise AssertionError(f"K6w differs from its twin (h0={h0})")
-            err = max(err, exact_err(g, x))
-    valid = int((pos < length).sum())
+    B = partition.build_layout(ldbc.e_src, ldbc.e_dst, ldbc.n_pad, ldbc.m,
+                               8).B
+    calls = {"unbinned": (length, H, U, ldbc.m),
+             "binned": (B, H, U, B), "h70": (50_000, 70, 512, 50_000)}
+    err, k6w_calls = 0.0, {}
+    for what, (n_rows, Hc, Uc, real) in calls.items():
+        base, d_pos, d_val, valid = k6w_inputs(n_rows, Hc, Uc, real)
+        for h0 in (False, True):
+            before = columns.LAUNCHES["weights_from_deltas"]
+            got = columns.weights_from_deltas(base, d_pos, d_val, Hc, h0)
+            if columns.LAUNCHES["weights_from_deltas"] - before != 1:
+                raise AssertionError("K6w: not one launch a call")
+            want = columns.weights_from_deltas_plain(base, d_pos, d_val, Hc,
+                                                     h0)
+            for g, x in zip(got, want):
+                if not torch.equal(g, x):
+                    raise AssertionError(f"K6w differs from its twin "
+                                         f"({what}, h0={h0})")
+                err = max(err, exact_err(g, x))
+            if PARENT is not None and not all(
+                    torch.equal(g, x) for g, x in zip(
+                        got, PARENT.weights_from_deltas(base, d_pos, d_val,
+                                                        Hc, h0))):
+                raise AssertionError(f"K6w differs from the parent's "
+                                     f"({what}, h0={h0})")
+        k6w_calls[what] = dict(len=n_rows, H=Hc, U=Uc, live=valid)
+        if what == "unbinned":
+            timed = (base, d_pos, d_val, valid)
+    base, d_pos, d_val, valid = timed
+    # base in, live delta rows, the [len, H] block and the state out
+    k6w_bound = bound(length * 4 + valid * 8 + length * H * 4 + length * 4)
+
+    def k6w():
+        return columns.weights_from_deltas(base, d_pos, d_val, H, True)
+    k6w_dev, k6w_by = device_ms(torch, k6w)
+    if PARENT is not None:
+        vs_parent(torch, "weights_from_deltas", k6w,
+                  lambda: PARENT.weights_from_deltas(base, d_pos, d_val, H,
+                                                     True), iters=100,
+                  shape=f"len={length} H={H} U={U} h0",
+                  bound_ms=k6w_bound[0])
     out["weights_from_deltas"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:374",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: columns.weights_from_deltas(
-            base, d_pos, d_val, H, True)),
+        max_abs_err=err, ms=cuda_ms(torch, k6w), device_ms=k6w_dev,
+        device_by=k6w_by,
         plain_ms=cuda_ms(torch, lambda: columns.weights_from_deltas_plain(
             base, d_pos, d_val, H, True), iters=3),
         library_ms=None, shape=f"len={length} H={H} U={U} h0",
-        # base in, live delta rows, the [len, H] block and the state out
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            length * 4 + valid * 8 + length * H * 4 + length * 4))))
+        calls=k6w_calls,
+        **dict(zip(("bound_ms", "bound_by"), k6w_bound)))
     return out
 
 
@@ -1738,6 +1897,11 @@ def phase_ldbc_traversal(torch, np, columns, log, dev):
         if chunks == 1:
             one_launch_a_superstep(f"ldbc_traversal {name}", launches,
                                    "minplus_superstep", steps)
+        if name.startswith("sssp") and \
+                launches["weights_from_deltas"] != chunks:
+            raise AssertionError(f"ldbc_traversal {name}: "
+                                 f"{launches['weights_from_deltas']} K6w "
+                                 f"launches for {chunks} dispatches")
         reached = int(torch.isfinite(ref[-1]).sum())
         if reached <= len(seeds):
             raise AssertionError(f"ldbc {name}: only {reached} reached")
@@ -1853,6 +2017,14 @@ def phase_job(torch, np, columns, dev):
     emit("job", pagerank=pr, cc=cc, sssp=sssp, pagerank_past_cap=past)
 
 
+def k7_launches() -> int:
+    """K7's launches so far, every payload dtype."""
+    from raphtory_tpu_torch.ops import columns
+
+    return (columns.LAUNCHES["segment_combine"]
+            + columns.LAUNCHES["segment_combine_i64"])
+
+
 def within_tol(got, want) -> bool:
     """The float-sum tolerance: |got - want| <= 1e-7 + 1e-5 |want|."""
     err = (got.double() - want.double()).abs()
@@ -1895,32 +2067,49 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
              ("sum", "i32", "src", gab, 1), ("min", "i32", "src", gab, 1),
              ("min", "f32", "dst", gab, 1), ("max", "f32", "src", gab, 1),
              ("sum", "f32", "dst", btc, 3), ("sum", "i32", "src", btc, 3),
-             ("min", "i32", "dst", btc, 3)]
+             ("min", "i32", "dst", btc, 3), ("sum", "f32", "src", btc, 3),
+             ("max", "f32", "src", btc, 3), ("min", "f32", "src", btc, 1),
+             ("max", "i32", "src", btc, 3)]
     for op, dt, direction, t, k in cases:
         csr = csr_of(t, direction)
         x, mask, _ = inputs(t, k, dt)
+        before = k7_launches()
         got = segment.segment_combine(x, csr, op, mask, k)
+        if k7_launches() - before != 1:
+            raise AssertionError("K7: not one launch a call")
         want = segment.segment_combine_plain(x, csr, op, mask, k)
         ok = (within_tol(got, want) if op == "sum" and dt == "f32"
               else torch.equal(got, want))
+        if PARENT is not None:
+            ok = ok and torch.equal(got, PARENT.segment_combine(
+                x, csr, op, mask, k))
         err7 = max(err7, exact_err(got, want))
         if not ok:
             bad.append(f"{op} {dt} {direction} k={k} (max abs err "
                        f"{exact_err(got, want)})")
     if bad:
-        raise AssertionError(f"K7 differs from its twin: {bad}")
+        raise AssertionError(f"K7 differs from its twin or the parent's: "
+                             f"{bad}")
     # the timed call: PageRank's message combine on the GAB View (k = 1)
     csr = csr_of(gab, "dst")
     x, mask, nnz = inputs(gab, 1, "f32")
     ids = csr.ids.long()
     xm = torch.where(mask, x, 0.0)
     m, n = gab.m, gab.n_pad
+
+    def k7():
+        return segment.segment_combine(x, csr, "sum", mask, 1)
+    k7_bound = bound(m * 5 + (n + 1) * 8 + n * 4, nnz)
+    if PARENT is not None:
+        vs_parent(torch, "segment_combine gab_view", k7,
+                  lambda: PARENT.segment_combine(x, csr, "sum", mask, 1),
+                  iters=100, shape=f"sum f32 dst n_pad={n} k=1",
+                  bound_ms=k7_bound[0])
     out["segment_combine"] = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:35",
-        max_abs_err=err7,
-        ms=cuda_ms(torch, lambda: segment.segment_combine(
-            x, csr, "sum", mask, 1)),
+        max_abs_err=err7, ms=cuda_ms(torch, k7),
+        device_ms=device_ms(torch, k7)[0],
         plain_ms=cuda_ms(torch, lambda: segment.segment_combine_plain(
             x, csr, "sum", mask, 1)),
         # one call: index_add_ of the pre-masked payload
@@ -1929,8 +2118,55 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
         shape=f"sum f32 dst n_pad={n} m_pad={gab.m_pad} k=1 F=1",
         # the real edges' payload and mask, the CSR, the output; one add
         # per masked edge
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(m * 5 + (n + 1) * 8 + n * 4, nnz))))
+        **dict(zip(("bound_ms", "bound_by"), k7_bound)))
+
+    # ---- K7 at bitcoin_range's out-degree call: int32 sum of ones in the
+    # source direction through out_perm, k = 3 (Pareto senders: runs to
+    # 4,119 entries, each past 32 a block of the launch)
+    csr = csr_of(btc, "src")
+    k, m, n = 3, btc.m, btc.n_pad
+    ones = torch.ones(k * btc.m_pad, dtype=torch.int32, device=dev)
+    _, mask, live = inputs(btc, k, "i32")
+    lens = np.diff(btc.out_indptr)
+
+    def k7_src():
+        return segment.segment_combine(ones, csr, "sum", mask, k)
+    got = k7_src()
+    if not torch.equal(got, segment.segment_combine_plain(
+            ones, csr, "sum", mask, k)) or (PARENT is not None and not
+            torch.equal(got, PARENT.segment_combine(ones, csr, "sum", mask,
+                                                    k))):
+        raise AssertionError("K7 differs from its twin or the parent's at "
+                             "the out-degree call")
+    flat = (csr.ids.long()[None, :] + torch.arange(
+        k, device=dev)[:, None] * n).reshape(-1)
+    ones_m = torch.where(mask, ones, 0)
+    # the walk (out_perm, indptr) once, each window's mask of the real
+    # edges, the live entries' payload, the output; an add per live entry
+    src_bound = bound(4 * m + 8 * (n + 1) + k * m + 4 * live + 4 * k * n,
+                      live)
+    if PARENT is not None:
+        vs_parent(torch, "segment_combine out_degree", k7_src,
+                  lambda: PARENT.segment_combine(ones, csr, "sum", mask, k),
+                  iters=20, shape=f"sum i32 src k={k} n_pad={n}",
+                  bound_ms=src_bound[0])
+    out["segment_combine_out_degree"] = dict(
+        source="raphtory_tpu_torch/csrc/segment.cu",
+        replaces="raphtory_tpu/ops/segment.py:35",
+        max_abs_err=exact_err(got, segment.segment_combine_plain(
+            ones, csr, "sum", mask, k)),
+        ms=cuda_ms(torch, k7_src), device_ms=device_ms(torch, k7_src)[0],
+        plain_ms=cuda_ms(torch, lambda: segment.segment_combine_plain(
+            ones, csr, "sum", mask, k)),
+        # one call: index_add_ of the pre-masked ones at the flat sources
+        library_ms=cuda_ms(torch, lambda: torch.zeros(
+            k * n, dtype=torch.int32, device=dev).index_add_(0, flat,
+                                                             ones_m)),
+        shape=f"sum i32 src k={k} n_pad={n} m_pad={btc.m_pad} "
+              f"runs_past_32={int((lens > 32).sum())} "
+              f"runs_past_1024={int((lens > 1024).sum())} "
+              f"longest={int(lens.max())} live={live}",
+        **dict(zip(("bound_ms", "bound_by"), src_bound)))
 
     # ---- K9a: the GAB resident buffers and chunk capacities
     n_pad, m_pad = gab.n_pad, gab.m_pad
@@ -2178,8 +2414,28 @@ def phase_bitcoin_range(torch, np, columns, dev):
     hops = [int(t) for t in
             np.linspace(0.5 * BTC_SPAN, BTC_SPAN, 10).astype(np.int64)]
     prog = PageRank(max_steps=20, tol=1e-7)
-    DeviceSweep(log, device=dev).run_sweep(prog, hops, windows=BTC_WINDOWS)
-    torch.cuda.synchronize()                           # warm-up
+    # the warm-up run is the measured runs' twin: it tallies K7's calls in
+    # the source direction (the per-window out-degrees, int32 through
+    # out_perm: the kernels line's ``segment_combine_out_degree``)
+    from raphtory_tpu_torch.engine import bsp
+
+    combine, src_calls = bsp.segment_combine, []
+
+    def tally(data, csr, op, mask, k=1):
+        src_calls.append(csr.perm is not None)
+        return combine(data, csr, op, mask, k)
+    columns.reset_launches()
+    bsp.segment_combine = tally
+    try:
+        DeviceSweep(log, device=dev).run_sweep(prog, hops,
+                                               windows=BTC_WINDOWS)
+    finally:
+        bsp.segment_combine = combine
+    torch.cuda.synchronize()
+    if columns.LAUNCHES["segment_combine"] != len(src_calls):
+        raise AssertionError(f"bitcoin_range: {len(src_calls)} K7 calls, "
+                             f"{columns.LAUNCHES['segment_combine']} "
+                             "launches")
     reps = []
     for _ in range(2):
         ds = DeviceSweep(log, device=dev)
@@ -2206,8 +2462,9 @@ def phase_bitcoin_range(torch, np, columns, dev):
          views=n_views, views_per_s=n_views / best[0], sweep_s=best[0],
          fold_s=best[1], dispatch_s=best[2], ship_bytes=best[3],
          repeat_sweep_s=[r[0] for r in reps], supersteps=steps,
-         launches=launches, max_abs_err_vs_cpu=err)
-    return launches
+         launches=launches, segment_combine_out_degree=sum(src_calls),
+         max_abs_err_vs_cpu=err)
+    return launches, sum(src_calls)
 
 
 def phase_view_programs(torch, np, columns, log, dev):
@@ -3697,18 +3954,25 @@ def taint_edge_cases(torch, np, segment, partition, dev) -> int:
                 for name, csr in csrs.items():
                     got = segment.segment_combine(xd, csr, op, md, k)
                     want = segment.segment_combine_plain(xd, csr, op, md, k)
-                    if not torch.equal(got, want):
+                    if not torch.equal(got, want) or (
+                            PARENT is not None and not torch.equal(
+                                got, PARENT.segment_combine(xd, csr, op, md,
+                                                            k))):
                         raise AssertionError(
-                            f"K7 int64 differs from its twin ({op}, {name},"
-                            f" k={k}, F={F})")
+                            f"K7 int64 differs from its twin or the "
+                            f"parent's ({op}, {name}, k={k}, F={F})")
                     cases += 1
                 got = segment.partition_reduce(xd, walk, op, md, k)
                 want = segment.partition_reduce_plain(xd, walk, op, md, k)
                 flat = segment.segment_combine_plain(xd, csrs["dst"], op, md,
                                                      k)
-                if not (torch.equal(got, want) and torch.equal(got, flat)):
+                if not (torch.equal(got, want) and torch.equal(got, flat)) \
+                        or (PARENT is not None and not torch.equal(
+                            got, PARENT.partition_reduce(xd, walk, op, md,
+                                                         k))):
                     raise AssertionError(f"K7-P int64 differs from its twin "
-                                         f"({op}, k={k}, F={F})")
+                                         f"or the parent's ({op}, k={k}, "
+                                         f"F={F})")
                 cases += 1
     return cases
 
@@ -3771,12 +4035,23 @@ def taint_kernels(torch, np, segment, bsp, view, lay, k, dev) -> dict:
         if not (torch.equal(got, want) and torch.equal(got, ref)):
             raise AssertionError(f"{name} differs from its twin at the "
                                  "taint shape")
+        if PARENT is not None:
+            old = ((lambda: PARENT.segment_combine(x, csr, "min", mk, k))
+                   if "combine" in name else
+                   (lambda: PARENT.partition_reduce(x, walk, "min", mk, k)))
+            if not torch.equal(got, old()):
+                raise AssertionError(f"{name} differs from the parent's at "
+                                     "the taint shape")
+            vs_parent(torch, f"{name} taint", run, old, iters=20,
+                      shape=f"min int64 k={k} n_pad={n} o_pad={m}",
+                      bound_ms=bound(nbytes, live)[0])
         out[name] = dict(
             source="raphtory_tpu_torch/csrc/segment.cu",
             replaces=("raphtory_tpu/ops/segment.py:35" if "combine" in name
                       else "raphtory_tpu/ops/segment.py:116"),
             max_abs_err=exact_err(got, want),
-            ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain, iters=5),
+            ms=cuda_ms(torch, run), device_ms=device_ms(torch, run)[0],
+            plain_ms=cuda_ms(torch, plain, iters=5),
             library_ms=cuda_ms(torch, library),
             shape=f"min int64 k={k} n_pad={n} o_pad={m} o={o} live={live}"
                   f" live_payload_bytes={payload}",
@@ -4983,7 +5258,11 @@ def main() -> int:
                           columns, log, dev)
     for k in RESIDENT_KERNELS:
         launches[k] = view_launches[k]
-    timed("bitcoin_range", phase_bitcoin_range, torch, np, columns, dev)
+    btc_launches, out_degree_calls = timed(
+        "bitcoin_range", phase_bitcoin_range, torch, np, columns, dev)
+    # K7's launches on the path that runs it most (96 f32 + 20 int32, k 3)
+    launches["segment_combine"] = btc_launches["segment_combine"]
+    launches["segment_combine_out_degree"] = out_degree_calls
     cold_launches = timed("view_programs", phase_view_programs, torch, np,
                           columns, ldbc, dev)
     launches["unpack_mask_bits"] = cold_launches["unpack_mask_bits"]

@@ -1,5 +1,6 @@
 // K1 — per-hop fold-state rebuild and window masks of the hop-batched
-// columnar engine.
+// columnar engine; K6w, weighted SSSP's weight rebuild, on the same
+// template.
 //
 // Replaces raphtory_tpu/engine/hopbatch.py:66 `_masks_from_deltas`, the
 // first half of the jitted `_compiled_delta` program. For each hop h of a
@@ -53,18 +54,27 @@
 // chains groups the way `h0` chains dispatches: group g + 1 takes group
 // g's advanced state as its base and writes its own column range.
 
-// K6w — the weight-state rebuild of weighted SSSP: K1's state with f32
-// values and no window compare, still rebuilt hop by hop. Replaces
+// K6w — the weight-state rebuild of weighted SSSP. Replaces
 // raphtory_tpu/engine/hopbatch.py:374-384 (inside `_compiled_delta`): for
 // each hop h it scatter-sets hop h's (pos, val) weight deltas into the
 // running weight state (hop 0 only with `h0`; pad positions, outside
-// [0, len), skipped; the host
-// removes duplicate positions within a hop, last wins) and writes the
-// state as column h of the [len, H] weight block the K6 superstep reads
-// (minplus_columns.cu). The state is updated in place and is the advanced
-// weight state the caller keeps resident. Bound: bytes, len * 4 per hop
-// written plus the delta rows; 2 launches per hop (2H-1 without `h0`).
-//
+// [0, len), skipped; the host removes duplicate positions within a hop,
+// last wins) and writes the state as column h of the [len, H] f32 weight
+// block the K6 superstep reads (minplus_columns.cu), and returns the
+// advanced weight state the caller keeps resident. Bound: bytes — the base
+// read once, the [len, H] block and the advanced state written once, the
+// live delta rows read.
+//   Design: K1's, from the same template (`k1_kernel<WeightCell>`): the
+// state is an f32 weight with no alive byte, W = 1 and no window compare,
+// and a cell is the weight itself. One cooperative launch a call, not two a
+// hop (a scatter, then a strided column pass storing one 4-byte word a row
+// 4H bytes apart, would be 2H launches): pass A stages a tile's base weights,
+// copies them into the advanced state (no clone) and writes the tile's H
+// columns as flat 16-byte chunks (four weights); B0 marks each update's
+// hop in its row's touch word; B1 writes columns [h, next) of its row and
+// the advanced state where no later hop touches the row. Values are moved,
+// never computed, so the block is bitwise the twin's.
+
 // K3 — host fold columns to window masks (the host-column route). Replaces
 // raphtory_tpu/engine/hopbatch.py:50 `_column_masks`, the head of the
 // jitted `_compiled`, `_compiled_cc` and `_compiled_bfs` programs: from the
@@ -163,31 +173,61 @@ template <> struct TimeMin<int64_t> {
     __device__ static int64_t v() { return INT64_MIN; }
 };
 
+// What a row's state is and what it writes into a column: K1 keeps (lat,
+// alive) and writes one mask byte a (hop, window) column; K6w keeps an f32
+// weight and writes it, W = 1, no window compare.
+template <typename T>
+struct MaskCell {
+    using V = T;                  // the state's value
+    using O = uint8_t;            // an output cell
+    static constexpr bool kAlive = true;
+};
+struct WeightCell {
+    using V = float;
+    using O = float;
+    static constexpr bool kAlive = false;
+};
+
+__device__ __forceinline__ uint32_t cell_bits(uint8_t x) { return x; }
+__device__ __forceinline__ uint32_t cell_bits(float x) {
+    return __float_as_uint(x);
+}
+template <typename O> __device__ __forceinline__ O cell_of(uint32_t x);
+template <> __device__ __forceinline__ uint8_t cell_of<uint8_t>(uint32_t x) {
+    return static_cast<uint8_t>(x & 0xffu);
+}
+template <> __device__ __forceinline__ float cell_of<float>(uint32_t x) {
+    return __uint_as_float(x);
+}
+
 constexpr int kK1Tile = 1024;            // rows a pass-A tile stages
 constexpr int64_t kK1ThrShared = 2048;   // most thresholds staged in shared
 
 // a tile's two staged states (before and after the updates: the dense
 // path's split) and the group's thresholds
-template <typename T>
+template <typename V>
 constexpr size_t k1_smem_bytes() {
-    return 2 * kK1Tile * (sizeof(T) + 1) + kK1ThrShared * sizeof(T);
+    return 2 * kK1Tile * (sizeof(V) + 1) + kK1ThrShared * sizeof(V);
 }
 
-// One call's operands (the kernel's one parameter).
-template <typename T>
+// One call's operands (the kernel's one parameter); the alive bytes, lo and
+// nowin are K1's (null for K6w).
+template <typename C>
 struct K1Args {
+    using V = typename C::V;
+    using O = typename C::O;
     int64_t len, H, W, U, tw, h0;
-    const T* base_l;
+    const V* base_l;
     const uint8_t* base_a;
     const int32_t* pos;
-    const T* d_lat;
+    const V* d_lat;
     const uint8_t* d_alive;
-    const T* lo;
+    const V* lo;
     const uint8_t* nowin;
-    T* adv_l;
+    V* adv_l;
     uint8_t* adv_a;
     uint8_t* touch;
-    uint8_t* out;
+    O* out;
 };
 
 // the thresholds of one group of hops, columns [c0, c0 + Cg): staged in
@@ -241,21 +281,25 @@ __device__ __forceinline__ unsigned long long k1_touched(
 // alone), the dense path's is its one applied hop's first column. `copy`
 // also copies (pl, pa) into the advanced state, `clear` clears the rows'
 // touch words. `flat` (one group: its columns are whole rows, and the
-// tile's C-byte lines are whole 16-byte chunks): a thread a 16-byte chunk,
-// its row and column from one 32-bit division, one 16-byte store,
-// neighbouring threads on neighbouring chunks; else a thread a byte of
-// the group's columns.
-template <typename T>
-__device__ void k1_rows(const K1Args<T>& a, const T* pl, const uint8_t* pa,
-                        const T* ql, const uint8_t* qa, int64_t split,
-                        bool copy, bool clear, int64_t c0, int64_t Cg,
-                        const K1Thr<T>& thr, unsigned char* smem) {
-    T* s_pl = reinterpret_cast<T*>(smem);
-    T* s_ql = s_pl + kK1Tile;
-    uint8_t* s_pa = smem + 2 * kK1Tile * sizeof(T);
+// tile's C-cell lines are whole 16-byte chunks): a thread a 16-byte chunk
+// (16 mask bytes or 4 weights), its row and column from one 32-bit
+// division, one 16-byte store, neighbouring threads on neighbouring
+// chunks; else a thread a cell of the group's columns.
+template <typename C>
+__device__ void k1_rows(const K1Args<C>& a, const typename C::V* pl,
+                        const uint8_t* pa, const typename C::V* ql,
+                        const uint8_t* qa, int64_t split, bool copy,
+                        bool clear, int64_t c0, int64_t Cg,
+                        const K1Thr<typename C::V>& thr,
+                        unsigned char* smem) {
+    using V = typename C::V;
+    using O = typename C::O;
+    V* s_pl = reinterpret_cast<V*>(smem);
+    V* s_ql = s_pl + kK1Tile;
+    uint8_t* s_pa = smem + 2 * kK1Tile * sizeof(V);
     uint8_t* s_qa = s_pa + kK1Tile;
-    const int64_t C = a.H * a.W;
-    const bool flat = Cg == C;
+    const int64_t Cw = a.H * a.W;
+    const bool flat = Cg == Cw;
     const bool both = split < Cg;
     const int sp = static_cast<int>(split);
     const int64_t tiles = (a.len + kK1Tile - 1) / kK1Tile;
@@ -264,118 +308,123 @@ __device__ void k1_rows(const K1Args<T>& a, const T* pl, const uint8_t* pa,
         const int nr = a.len - r0 < kK1Tile ? static_cast<int>(a.len - r0)
                                             : kK1Tile;
         for (int i = threadIdx.x; i < nr; i += blockDim.x) {
-            const T l = pl[r0 + i];
-            const uint8_t al = pa[r0 + i];
+            const V l = pl[r0 + i];
             s_pl[i] = l;
-            s_pa[i] = al;
-            if (both) {
-                s_ql[i] = ql[r0 + i];
-                s_qa[i] = qa[r0 + i];
-            }
-            if (copy) {
-                a.adv_l[r0 + i] = l;
-                a.adv_a[r0 + i] = al;
+            if (both) s_ql[i] = ql[r0 + i];
+            if (copy) a.adv_l[r0 + i] = l;
+            if constexpr (C::kAlive) {
+                const uint8_t al = pa[r0 + i];
+                s_pa[i] = al;
+                if (both) s_qa[i] = qa[r0 + i];
+                if (copy) a.adv_a[r0 + i] = al;
             }
             if (clear) k1_clear(a.touch, a.tw, r0 + i);
         }
         __syncthreads();
-        auto bit = [&](int i, int c) -> bool {
-            return c < sp ? (s_pa[i] && s_pl[i] >= thr(c))
-                          : (s_qa[i] && s_ql[i] >= thr(c));
+        auto cell = [&](int i, int c) -> O {
+            if constexpr (C::kAlive) {
+                return c < sp ? (s_pa[i] && s_pl[i] >= thr(c))
+                              : (s_qa[i] && s_ql[i] >= thr(c));
+            } else {
+                return c < sp ? s_pl[i] : s_ql[i];
+            }
         };
         if (flat) {
-            const int Ci = static_cast<int>(C);
+            constexpr int kPer = 16 / static_cast<int>(sizeof(O));
+            constexpr int kWord = 4 / static_cast<int>(sizeof(O));
+            const int Ci = static_cast<int>(Cw);
             const int nb = nr * Ci;
-            uint8_t* o = a.out + r0 * C;
-            for (int k = threadIdx.x; k * 16 < nb; k += blockDim.x) {
-                const int f = k * 16;
+            O* o = a.out + r0 * Cw;
+            for (int k = threadIdx.x; k * kPer < nb; k += blockDim.x) {
+                const int f = k * kPer;
                 int i = f / Ci;
                 int c = f - i * Ci;
-                const int n = nb - f < 16 ? nb - f : 16;
-                unsigned long long w0 = 0ull, w1 = 0ull;
+                const int n = nb - f < kPer ? nb - f : kPer;
+                uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-                for (int b = 0; b < 16; ++b) {
+                for (int b = 0; b < kPer; ++b) {
                     if (b < n) {
-                        const unsigned long long v = bit(i, c) ? 1ull : 0ull;
-                        if (b < 8) w0 |= v << (8 * b);
-                        else w1 |= v << (8 * (b - 8));
+                        w[b / kWord] |= cell_bits(cell(i, c))
+                                        << (8 * sizeof(O) * (b % kWord));
                         if (++c == Ci) {
                             c = 0;
                             ++i;
                         }
                     }
                 }
-                if (n == 16) {
-                    *reinterpret_cast<uint4*>(o + f) = make_uint4(
-                        static_cast<uint32_t>(w0),
-                        static_cast<uint32_t>(w0 >> 32),
-                        static_cast<uint32_t>(w1),
-                        static_cast<uint32_t>(w1 >> 32));
+                if (n == kPer) {
+                    *reinterpret_cast<uint4*>(o + f) =
+                        make_uint4(w[0], w[1], w[2], w[3]);
                 } else {
                     for (int b = 0; b < n; ++b)
-                        o[f + b] = static_cast<uint8_t>(
-                            (b < 8 ? w0 >> (8 * b) : w1 >> (8 * (b - 8)))
-                            & 0xffull);
+                        o[f + b] = cell_of<O>(
+                            w[b / kWord] >> (8 * sizeof(O) * (b % kWord)));
                 }
             }
         } else {
             const int Cgi = static_cast<int>(Cg);
             for (int f = threadIdx.x; f < nr * Cgi; f += blockDim.x) {
                 const int i = f / Cgi, c = f - i * Cgi;
-                a.out[(r0 + i) * C + c0 + c] = bit(i, c);
+                a.out[(r0 + i) * Cw + c0 + c] = cell(i, c);
             }
         }
         __syncthreads();
     }
 }
 
-// mask bytes [cb, ce) of one output row from one (lat, alive): the widest
-// aligned stores the range allows (bytes, then 16-bit, then 32-bit words)
-template <typename T>
-__device__ __forceinline__ void k1_write_range(uint8_t* row, int64_t cb,
-                                               int64_t ce, uint8_t al, T v,
-                                               const K1Thr<T>& thr) {
+// cells [cb, ce) of one output row from one update (v, al). K1: mask bytes
+// by the widest aligned stores the range allows (bytes, then 16-bit, then
+// 32-bit words); K6w: the weight in each column.
+template <typename C>
+__device__ __forceinline__ void k1_write_range(
+        typename C::O* row, int64_t cb, int64_t ce, uint8_t al,
+        typename C::V v, const K1Thr<typename C::V>& thr) {
     int64_t c = cb;
-    auto bit = [&](int64_t x) -> uint32_t {
-        return (al && v >= thr(x)) ? 1u : 0u;
-    };
-    if (c < ce && (reinterpret_cast<uintptr_t>(row + c) & 1)) {
-        row[c] = static_cast<uint8_t>(bit(c));
-        ++c;
+    if constexpr (!C::kAlive) {
+        for (; c < ce; ++c) row[c] = v;
+    } else {
+        auto bit = [&](int64_t x) -> uint32_t {
+            return (al && v >= thr(x)) ? 1u : 0u;
+        };
+        if (c < ce && (reinterpret_cast<uintptr_t>(row + c) & 1)) {
+            row[c] = static_cast<uint8_t>(bit(c));
+            ++c;
+        }
+        if (c + 2 <= ce && (reinterpret_cast<uintptr_t>(row + c) & 2)) {
+            *reinterpret_cast<uint16_t*>(row + c) =
+                static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
+            c += 2;
+        }
+        for (; c + 4 <= ce; c += 4) {
+            *reinterpret_cast<uint32_t*>(row + c) =
+                bit(c) | bit(c + 1) << 8 | bit(c + 2) << 16 | bit(c + 3) << 24;
+        }
+        if (c + 2 <= ce) {
+            *reinterpret_cast<uint16_t*>(row + c) =
+                static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
+            c += 2;
+        }
+        if (c < ce) row[c] = static_cast<uint8_t>(bit(c));
     }
-    if (c + 2 <= ce && (reinterpret_cast<uintptr_t>(row + c) & 2)) {
-        *reinterpret_cast<uint16_t*>(row + c) =
-            static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
-        c += 2;
-    }
-    for (; c + 4 <= ce; c += 4) {
-        *reinterpret_cast<uint32_t*>(row + c) =
-            bit(c) | bit(c + 1) << 8 | bit(c + 2) << 16 | bit(c + 3) << 24;
-    }
-    if (c + 2 <= ce) {
-        *reinterpret_cast<uint16_t*>(row + c) =
-            static_cast<uint16_t>(bit(c) | bit(c + 1) << 8);
-        c += 2;
-    }
-    if (c < ce) row[c] = static_cast<uint8_t>(bit(c));
 }
 
-// K1, one cooperative launch: for each group of 8 * tw hops, pass A, grid
-// sync, pass B0 (more than one applied hop), grid sync, pass B1, and a
-// grid sync before the next group, which reads this one's advanced state.
-// A group with ONE applied hop (its last) and dense updates (U >= len / 8:
-// the update rows' random mask writes would cost more than a row pass)
+// K1 and K6w, one cooperative launch: for each group of 8 * tw hops, pass
+// A, grid sync, pass B0 (more than one applied hop), grid sync, pass B1,
+// and a grid sync before the next group, which reads this one's advanced
+// state. A group with ONE applied hop (its last) and dense updates (U >=
+// len / 8: the update rows' random writes would cost more than a row pass)
 // takes the dense path instead: the base copied into the advanced state,
 // grid sync, the updates scattered into it (no touch words: no later hop),
 // grid sync, one row pass writing the columns before the hop from the base
 // and the rest from the advanced state. Every branch around a grid sync is
 // uniform over the grid.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
+template <typename C>
+__global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<C> a) {
+    using V = typename C::V;
     extern __shared__ __align__(16) unsigned char k1_smem[];
-    T* s_thr = reinterpret_cast<T*>(k1_smem + 2 * kK1Tile * (sizeof(T) + 1));
+    V* s_thr = reinterpret_cast<V*>(k1_smem + 2 * kK1Tile * (sizeof(V) + 1));
     cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-    const int64_t C = a.H * a.W;
+    const int64_t Cw = a.H * a.W;
     const int64_t hops = 8 * a.tw;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
     const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x
@@ -383,14 +432,17 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
     for (int64_t g0 = 0; g0 < a.H; g0 += hops) {
         const int Hg = static_cast<int>(a.H - g0 < hops ? a.H - g0 : hops);
         const int64_t c0 = g0 * a.W, Cg = Hg * a.W;
-        K1Thr<T> thr{s_thr, a.lo, a.nowin, c0, Cg <= kK1ThrShared};
-        if (thr.staged) {
-            for (int64_t c = threadIdx.x; c < Cg; c += blockDim.x)
-                s_thr[c] = a.nowin[c0 + c] ? TimeMin<T>::v() : a.lo[c0 + c];
+        K1Thr<V> thr{s_thr, a.lo, a.nowin, c0, Cg <= kK1ThrShared};
+        if constexpr (C::kAlive) {
+            if (thr.staged) {
+                for (int64_t c = threadIdx.x; c < Cg; c += blockDim.x)
+                    s_thr[c] = a.nowin[c0 + c] ? TimeMin<V>::v()
+                                               : a.lo[c0 + c];
+            }
+            __syncthreads();
         }
-        __syncthreads();
         const bool first = g0 == 0;
-        const T* bl = first ? a.base_l : a.adv_l;     // the group's base
+        const V* bl = first ? a.base_l : a.adv_l;     // the group's base
         const uint8_t* ba = first ? a.base_a : a.adv_a;
         const int h1 = (first && !a.h0) ? 1 : 0;      // hop 0 applies with h0
         const bool multi = Hg - h1 > 1;
@@ -401,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
             if (first) {
                 for (int64_t r = tid; r < a.len; r += stride) {
                     a.adv_l[r] = a.base_l[r];
-                    a.adv_a[r] = a.base_a[r];
+                    if constexpr (C::kAlive) a.adv_a[r] = a.base_a[r];
                 }
             }
             grid.sync();
@@ -409,19 +461,19 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
                 const int64_t p = a.pos[at + g];
                 if (p >= 0 && p < a.len) {
                     a.adv_l[p] = a.d_lat[at + g];
-                    a.adv_a[p] = a.d_alive[at + g];
+                    if constexpr (C::kAlive) a.adv_a[p] = a.d_alive[at + g];
                 }
             }
             grid.sync();
             if (h1) {               // hop 0's columns from the base
-                k1_rows<T>(a, bl, ba, a.adv_l, a.adv_a, h1 * a.W, false,
+                k1_rows<C>(a, bl, ba, a.adv_l, a.adv_a, h1 * a.W, false,
                            false, c0, Cg, thr, k1_smem);
             } else {                // every column after the scatter
-                k1_rows<T>(a, a.adv_l, a.adv_a, a.adv_l, a.adv_a, Cg, false,
+                k1_rows<C>(a, a.adv_l, a.adv_a, a.adv_l, a.adv_a, Cg, false,
                            false, c0, Cg, thr, k1_smem);
             }
         } else {
-            k1_rows<T>(a, bl, ba, bl, ba, Cg, first, true, c0, Cg, thr,
+            k1_rows<C>(a, bl, ba, bl, ba, Cg, first, true, c0, Cg, thr,
                        k1_smem);
             if (nup && multi) {
                 grid.sync();
@@ -438,8 +490,9 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
                     const int64_t p = a.pos[at + g];
                     if (p < 0 || p >= a.len) continue;       // pad row
                     const int h = h1 + static_cast<int>(g / a.U);
-                    const T v = a.d_lat[at + g];
-                    const uint8_t al = a.d_alive[at + g];
+                    const V v = a.d_lat[at + g];
+                    uint8_t al = 1;
+                    if constexpr (C::kAlive) al = a.d_alive[at + g];
                     int next = Hg;
                     if (multi && h + 1 < 64) {
                         const unsigned long long above =
@@ -447,11 +500,11 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
                         if (above)
                             next = h + __ffsll(static_cast<long long>(above));
                     }
-                    k1_write_range<T>(a.out + p * C + c0, h * a.W,
+                    k1_write_range<C>(a.out + p * Cw + c0, h * a.W,
                                       next * a.W, al, v, thr);
                     if (next == Hg) {
                         a.adv_l[p] = v;
-                        a.adv_a[p] = al;
+                        if constexpr (C::kAlive) a.adv_a[p] = al;
                     }
                 }
             }
@@ -460,23 +513,24 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(K1Args<T> a) {
     }
 }
 
-// the most blocks of k1_kernel<T> that fit on the card at once (a
+// the most blocks of k1_kernel<C> that fit on the card at once (a
 // cooperative launch must not exceed it), asked once per process
-template <typename T>
+template <typename C>
 int k1_max_blocks() {
     static int blocks = [] {
         int dev = 0, sms = 0, per_sm = 0;
         cudaGetDevice(&dev);
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, k1_kernel<T>, kThreads, k1_smem_bytes<T>());
+            &per_sm, k1_kernel<C>, kThreads,
+            k1_smem_bytes<typename C::V>());
         return sms * per_sm;
     }();
     return blocks;
 }
 
-template <typename T>
-int masks_from_deltas(const K1Args<T>& a, cudaStream_t st,
+template <typename C>
+int masks_from_deltas(const K1Args<C>& a, cudaStream_t st,
                       int64_t* launched) {
     if (a.len <= 0 || a.H <= 0) return static_cast<int>(cudaGetLastError());
     if (a.tw != 1 && a.tw != 4 && a.tw != 8)
@@ -485,46 +539,22 @@ int masks_from_deltas(const K1Args<T>& a, cudaStream_t st,
         return static_cast<int>(cudaErrorMisalignedAddress);
     if (a.H * a.W * kK1Tile >= (int64_t(1) << 31))   // tile indices in int
         return static_cast<int>(cudaErrorInvalidValue);
-    const int cap = k1_max_blocks<T>();
+    const int cap = k1_max_blocks<C>();
     if (cap <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int64_t tiles = (a.len + kK1Tile - 1) / kK1Tile;
     const int64_t ups = (a.H * a.U + kThreads - 1) / kThreads;
     int64_t blocks = tiles > ups ? tiles : ups;
     if (blocks > cap) blocks = cap;
-    K1Args<T> arg = a;
+    K1Args<C> arg = a;
     void* params[] = {&arg};
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(k1_kernel<T>),
+        reinterpret_cast<const void*>(k1_kernel<C>),
         dim3(static_cast<unsigned>(blocks)), dim3(kThreads), params,
-        k1_smem_bytes<T>(), st);
+        k1_smem_bytes<typename C::V>(), st);
     if (e != cudaSuccess) return static_cast<int>(e);
     ++*launched;
     return static_cast<int>(cudaGetLastError());
 }
-
-__global__ void scatter_set_f32(int64_t len, int64_t U,
-                                const int32_t* __restrict__ pos,
-                                const float* __restrict__ val,
-                                float* __restrict__ cur) {
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         u < U; u += stride) {
-        const int64_t p = pos[u];
-        if (p < 0 || p >= len) continue;   // pad row
-        cur[p] = val[u];
-    }
-}
-
-__global__ void write_weight_column(int64_t len, int64_t H, int64_t h,
-                                    const float* __restrict__ cur,
-                                    float* __restrict__ out) {
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < len; i += stride) {
-        out[i * H + h] = cur[i];
-    }
-}
-
 
 constexpr int kTile = 32;   // K3 tile: 32 entities x 32 columns
 
@@ -886,19 +916,20 @@ int k1_entry(int64_t len, int64_t H, int64_t W, int64_t U, int64_t h0,
              const void* d_pos, const void* d_lat, const void* d_alive,
              const void* lo, const void* nowin, void* adv_l, void* adv_a,
              void* touch, void* out, void* stream, int64_t* launched) {
-    const K1Args<T> a{len, H, W, U, tw, h0,
-                      static_cast<const T*>(base_l),
-                      static_cast<const uint8_t*>(base_a),
-                      static_cast<const int32_t*>(d_pos),
-                      static_cast<const T*>(d_lat),
-                      static_cast<const uint8_t*>(d_alive),
-                      static_cast<const T*>(lo),
-                      static_cast<const uint8_t*>(nowin),
-                      static_cast<T*>(adv_l), static_cast<uint8_t*>(adv_a),
-                      static_cast<uint8_t*>(touch),
-                      static_cast<uint8_t*>(out)};
-    return masks_from_deltas<T>(a, static_cast<cudaStream_t>(stream),
-                                launched);
+    const K1Args<MaskCell<T>> a{len, H, W, U, tw, h0,
+                                static_cast<const T*>(base_l),
+                                static_cast<const uint8_t*>(base_a),
+                                static_cast<const int32_t*>(d_pos),
+                                static_cast<const T*>(d_lat),
+                                static_cast<const uint8_t*>(d_alive),
+                                static_cast<const T*>(lo),
+                                static_cast<const uint8_t*>(nowin),
+                                static_cast<T*>(adv_l),
+                                static_cast<uint8_t*>(adv_a),
+                                static_cast<uint8_t*>(touch),
+                                static_cast<uint8_t*>(out)};
+    return masks_from_deltas<MaskCell<T>>(
+        a, static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // namespace
@@ -936,31 +967,26 @@ int rtpu_masks_from_deltas_i64(int64_t len, int64_t H, int64_t W, int64_t U,
                              out, stream, launched);
 }
 
+// K6w: len rows, H hops, U updates a hop, h0, tw (touch word bytes, as
+// K1's) | base [len] f32, d_pos [H, U] int32 (pads outside [0, len)),
+// d_val [H, U] f32 | adv [len] f32 (the advanced state, never the base),
+// touch [len] words (scratch, a multiple of 4 bytes), out [len, H] f32,
+// 16-byte aligned. One cooperative launch (none for len 0); adds it to
+// *launched.
 int rtpu_weights_from_deltas(int64_t len, int64_t H, int64_t U, int64_t h0,
+                             int64_t tw, const void* base,
                              const void* d_pos, const void* d_val,
-                             void* cur_w, void* out, void* stream,
-                             int64_t* launched) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int32_t* pos = static_cast<const int32_t*>(d_pos);
-    const float* val = static_cast<const float*>(d_val);
-    float* cur = static_cast<float*>(cur_w);
-    for (int64_t h = 0; h < H; ++h) {
-        if (h > 0 || h0) {
-            scatter_set_f32<<<blocks_for(U), kThreads, 0, st>>>(
-                len, U, pos + h * U, val + h * U, cur);
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
-            ++*launched;
-        }
-        if (len > 0) {
-            write_weight_column<<<blocks_for(len), kThreads, 0, st>>>(
-                len, H, h, cur, static_cast<float*>(out));
-            const cudaError_t e = cudaGetLastError();
-            if (e != cudaSuccess) return static_cast<int>(e);
-            ++*launched;
-        }
-    }
-    return static_cast<int>(cudaGetLastError());
+                             void* adv, void* touch, void* out,
+                             void* stream, int64_t* launched) {
+    const K1Args<WeightCell> a{len, H, 1, U, tw, h0,
+                               static_cast<const float*>(base), nullptr,
+                               static_cast<const int32_t*>(d_pos),
+                               static_cast<const float*>(d_val), nullptr,
+                               nullptr, nullptr, static_cast<float*>(adv),
+                               nullptr, static_cast<uint8_t*>(touch),
+                               static_cast<float*>(out)};
+    return masks_from_deltas<WeightCell>(
+        a, static_cast<cudaStream_t>(stream), launched);
 }
 
 // K3: m edges and n vertices, H hops, C columns | e_lat, e_alive [H, m],

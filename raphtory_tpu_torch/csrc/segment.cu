@@ -21,17 +21,7 @@
 // (perm = null, the edge itself), the source direction walks the source-
 // ordered index (`perm[j]` = engine position of the j-th edge in source
 // order). Pad edges lie outside both CSRs; they are masked in every window
-// anyway. One thread owns one (window, row, feature) and walks its run in
-// CSR order, so there are no atomics and the sum order is fixed: the
-// result is deterministic and, in the destination direction, adds in the
-// same order as a sequential scatter over the sorted edges. Floats add
-// with __fadd_rn so no contraction can move them.
-//
-// What bounds it on the H100: bytes — the mask and the payload of every
-// edge read once per window, the CSR once, the output written once; one
-// operation per masked edge. A row's thread walks its whole run, so a
-// very high degree (Bitcoin's Pareto senders in the source direction)
-// serialises that thread; a row split is an open item.
+// anyway.
 //
 // K7-P `rtpu_partition_reduce` — the destination-binned (PCPM) combine,
 // raphtory_tpu/ops/segment.py:116 `partition_segment_reduce` as the
@@ -46,15 +36,39 @@
 //                     x[(w*m + perm[s]), f] : neutral),   s = order[j]
 //
 // `indptr`/`order` is the layout's destination walk (each row's real slots
-// in source order, built once on the host), so a block of neighbouring
-// threads covers neighbouring rows of one partition's block. perm null:
-// slot s is payload row s (the [P, cap] payload of the reference's
-// signature); valid null: every slot real. One thread per (window, row,
-// feature), fixed order, no atomics: the sums add in the order K7 adds the
-// same edges, min/max are order-exact. Bound: bytes — the payload and mask
-// of every real edge once per window through perm, the walk once, the
-// output written once.
+// in source order); perm null: slot s is payload row s; valid null: every
+// slot real. K7 is the same walk with order = its CSR's perm (or the entry
+// itself), so one kernel serves both (`combine_kernel`).
 //
+// What bounds them on the H100: bytes — the walk (indptr, order, perm,
+// valid) read once, the mask and payload of every real entry once per
+// window, the output written once; one operation per masked entry.
+//   Design. (1) Windows: blockIdx.y is (window group, feature), no 64-bit
+// division anywhere. Where k <= 3 and the k * n (window, row) pairs reach
+// 2^20 (the taint shape's 3 x 2^21), one walk serves all k windows, a
+// thread keeping k accumulators; below that (the 32,768-row GAB and
+// Bitcoin tables) a thread takes one window, since there the card is short
+// of threads, not of bytes (on the H100 one walk for 3 windows was the
+// slower there and the faster at the taint shape). (2) Short rows (runs of
+// at most 32 entries): a thread a row, neighbouring threads on
+// neighbouring rows (whose runs lie next to each other in the walk), 8
+// entries in flight (2 for a walk of 3 windows), each stage (walk, mask,
+// payload) issued for all of them before the next; the destination CSR is
+// its own instantiation (the DIRECT walk, entry j payload row j). (3) Long rows (more than 32
+// entries, listed once per walk by the wrapper, longest first: Bitcoin's
+// Pareto senders run to 4,119) take the launch's first blocks, a block a
+// row, 1,024 entries at a time, 4 a thread in flight, neighbouring threads
+// on neighbouring entries. (4) Order: every row combines in walk order
+// with __fadd_rn for floats — a short row in its thread; a long row's
+// float values are staged in shared memory and thread w combines window
+// w's in order — so f32 sums are bitwise a sequential walk's (the CPU
+// twins and the reference add in that order) and a min or max of +0 and
+// -0 keeps the first, as the sequential walk does. Integer sums (two's
+// complement, wrapping), mins and maxes are exact in any order: a long
+// row's integers combine in registers, then across the block. Empty and
+// fully masked rows give the neutral value; no atomics, so the result is
+// deterministic.
+
 // K7-mode `rtpu_segment_mode` — raphtory_tpu/ops/segment.py:155
 // `segment_mode`, the custom-combiner exchange of LabelPropagation: for each
 // (window w, row r) the most frequent value among
@@ -106,6 +120,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kAll = 0xffffffffu;
 
 enum Op { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -118,7 +133,9 @@ template <> struct Lim<float> {
 template <> struct Lim<int32_t> {
     __device__ static int32_t hi() { return INT32_MAX; }
     __device__ static int32_t lo() { return INT32_MIN; }
-    __device__ static int32_t add(int32_t a, int32_t b) { return a + b; }
+    __device__ static int32_t add(int32_t a, int32_t b) {
+        return (int32_t)((uint32_t)a + (uint32_t)b);
+    }
 };
 // TaintTracking's exchange: int64 taint times, IMAX = INT64_MAX the
 // "clean" value. The sum wraps as two's complement, as torch's does.
@@ -131,121 +148,322 @@ template <> struct Lim<int64_t> {
 };
 
 template <typename T, int OP>
-__device__ inline T neutral() {
+__device__ __forceinline__ T neutral() {
     if (OP == kSum) return T(0);
     if (OP == kMin) return Lim<T>::hi();
     return Lim<T>::lo();
 }
 
 template <typename T, int OP>
-__device__ inline T combine(T a, T b) {
+__device__ __forceinline__ T combine(T a, T b) {
     if (OP == kSum) return Lim<T>::add(a, b);
     if (OP == kMin) return b < a ? b : a;
     return b > a ? b : a;
 }
 
-template <typename T, int OP>
-__global__ void segment_combine_kernel(int64_t k, int64_t n, int64_t m,
-                                       int64_t F,
-                                       const int64_t* __restrict__ indptr,
-                                       const int32_t* __restrict__ perm,
-                                       const T* __restrict__ x,
-                                       const uint8_t* __restrict__ mask,
-                                       T* __restrict__ out) {
-    const int64_t total = k * n * F;
-    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         t < total; t += (int64_t)gridDim.x * blockDim.x) {
-        const int64_t f = t % F;
-        const int64_t r = (t / F) % n;
-        const int64_t w = t / (F * n);
-        const int64_t base = w * m;
-        T acc = neutral<T, OP>();
-        const int64_t j1 = indptr[r + 1];
-        for (int64_t j = indptr[r]; j < j1; ++j) {
-            const int64_t e = base + (perm ? (int64_t)perm[j] : j);
-            if (mask[e]) acc = combine<T, OP>(acc, x[e * F + f]);
+// floats keep the walk order in every op (a sum is not associative, and
+// a min or max of +0 and -0 keeps the first); integers combine in any order
+template <typename T> struct InOrder { static constexpr bool v = false; };
+template <> struct InOrder<float> { static constexpr bool v = true; };
+
+constexpr int kMaxWin = 3;         // most windows one walk serves
+constexpr int kShortRun = 32;      // longest run the short-row path takes
+constexpr int kLongBatch = 4;      // entries a long-row thread keeps in flight
+constexpr int kLongChunk = kThreads * kLongBatch;   // entries a block stages
+// (window, row) pairs from which one walk serves all k windows: below it a
+// thread takes one window, so that the card has threads enough
+constexpr int64_t kWalkOnceRows = int64_t(1) << 20;
+// entries a short-row thread keeps in flight: 8, 2 where it serves 3
+// windows (their values in registers; at the taint shape 2 in flight ran
+// faster than 4 or 8)
+template <int KW> struct ShortBatch {
+    static constexpr int v = KW == 3 ? 2 : 8;
+};
+
+// Where walk entry j's payload lies: slot s = order[j] (order null: j),
+// counted only where valid[s] (valid null: every slot), payload row
+// perm[s] (perm null: s). K7 is the walk with order = its CSR's perm; the
+// destination CSR (all three null) is the DIRECT walk, entry j payload row
+// j, which the kernels take as its own instantiation: its addresses are a
+// base and small offsets, so every load of a batch issues before any use.
+struct Walk {
+    const int64_t* indptr;
+    const int32_t* order;
+    const int32_t* perm;
+    const uint8_t* valid;
+};
+
+// Entries q0 + q*stride (q < N) of a run of L entries from j0, read in
+// stages, each issued for all N before the next: in[q] whether the entry
+// counts (inside the run, its slot real), e[q] its payload row; then the
+// masks on[w][q] of windows w0 .. w0+KW-1 (mk = mask + w0*m), then the
+// payloads v[w][q] where the mask is set (xw = x + w0*m*F + f; F == 1, the
+// programs' scalar messages, takes its own loads, a base and an offset).
+template <typename T, int KW, bool DIRECT, int N>
+__device__ __forceinline__ void load_entries(
+        const Walk& wk, int64_t j0, int64_t L, int64_t q0, int stride,
+        int64_t m, int64_t F, const uint8_t* __restrict__ mk,
+        const T* __restrict__ xw, uint8_t (*on)[N], T (*v)[N]) {
+    bool in[N];
+    int64_t e[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+        in[q] = q0 + q * stride < L;
+        e[q] = j0 + q0 + q * stride;
+    }
+    if constexpr (!DIRECT) {
+        if (wk.order) {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+                e[q] = in[q] ? (int64_t)wk.order[e[q]] : 0;
         }
-        out[t] = acc;
+        if (wk.valid) {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+                in[q] = in[q] && wk.valid[e[q]];
+        }
+        if (wk.perm) {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+                e[q] = in[q] ? (int64_t)wk.perm[e[q]] : 0;
+        }
+    }
+#pragma unroll
+    for (int w = 0; w < KW; ++w) {
+#pragma unroll
+        for (int q = 0; q < N; ++q)
+            on[w][q] = in[q] ? mk[w * m + e[q]] : 0;
+    }
+    if (F == 1) {
+#pragma unroll
+        for (int w = 0; w < KW; ++w) {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+                v[w][q] = on[w][q] ? xw[w * m + e[q]] : T(0);
+        }
+    } else {
+#pragma unroll
+        for (int w = 0; w < KW; ++w) {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+                v[w][q] = on[w][q] ? xw[(w * m + e[q]) * F] : T(0);
+        }
     }
 }
 
-template <typename T, int OP>
-__global__ void partition_reduce_kernel(int64_t k, int64_t n, int64_t m,
-                                        int64_t F,
-                                        const int64_t* __restrict__ indptr,
-                                        const int32_t* __restrict__ order,
-                                        const int32_t* __restrict__ perm,
-                                        const uint8_t* __restrict__ valid,
-                                        const T* __restrict__ x,
-                                        const uint8_t* __restrict__ mask,
-                                        T* __restrict__ out) {
-    const int64_t total = k * n * F;
-    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         t < total; t += (int64_t)gridDim.x * blockDim.x) {
-        const int64_t f = t % F;
-        const int64_t r = (t / F) % n;
-        const int64_t w = t / (F * n);
-        const int64_t base = w * m;
-        T acc = neutral<T, OP>();
-        const int64_t j1 = indptr[r + 1];
-        for (int64_t j = indptr[r]; j < j1; ++j) {
-            const int64_t s = order[j];
-            if (valid && !valid[s]) continue;
-            const int64_t e = base + (perm ? (int64_t)perm[s] : s);
-            if (mask[e]) acc = combine<T, OP>(acc, x[e * F + f]);
+// A short row r (at most kShortRun entries) of feature f, windows w0 ..
+// w0+KW-1, by one thread: its run read N entries at a time and combined
+// into the KW accumulators in walk order, whatever the op and type.
+// Neighbouring threads take neighbouring rows, whose runs lie next to
+// each other in the walk. A long row is left to its block.
+template <typename T, int OP, int KW, bool DIRECT>
+__device__ void combine_short(int64_t r, int64_t n, int64_t m,
+                              int64_t F, int64_t f, int64_t w0,
+                              const Walk& wk, const T* __restrict__ x,
+                              const uint8_t* __restrict__ mask,
+                              T* __restrict__ out) {
+    constexpr int N = ShortBatch<KW>::v;
+    const int64_t j0 = wk.indptr[r], L = wk.indptr[r + 1] - j0;
+    if (L > kShortRun) return;
+    const uint8_t* mk = mask + w0 * m;
+    const T* xw = x + w0 * m * F + f;
+    T acc[KW];
+#pragma unroll
+    for (int w = 0; w < KW; ++w) acc[w] = neutral<T, OP>();
+    for (int64_t c = 0; c < L; c += N) {
+        uint8_t on[KW][N];
+        T v[KW][N];
+        load_entries<T, KW, DIRECT, N>(wk, j0, L, c, 1, m, F, mk, xw, on, v);
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+#pragma unroll
+            for (int w = 0; w < KW; ++w)
+                if (on[w][q]) acc[w] = combine<T, OP>(acc[w], v[w][q]);
         }
-        out[t] = acc;
+    }
+#pragma unroll
+    for (int w = 0; w < KW; ++w) out[((w0 + w) * n + r) * F + f] = acc[w];
+}
+
+// A long row r (more than kShortRun entries) of feature f, windows w0 ..
+// w0+KW-1, by the whole block, kLongChunk entries at a time: thread t
+// takes entries t, t + 256, .. of the chunk (neighbouring threads on
+// neighbouring entries), kLongBatch of them in flight. Integers combine in
+// registers and across the block in any order (exact). Floats stage the
+// chunk's values and mask bytes in shared memory and thread w then
+// combines window w's in walk order.
+template <typename T, int OP, int KW, bool DIRECT>
+__device__ void combine_long(int64_t r, int64_t n, int64_t m,
+                             int64_t F, int64_t f, int64_t w0,
+                             const Walk& wk, const T* __restrict__ x,
+                             const uint8_t* __restrict__ mask,
+                             T* __restrict__ out, T* s_v, uint8_t* s_on,
+                             T* s_part) {
+    constexpr int N = kLongBatch;
+    const int t = threadIdx.x;
+    const int64_t j0 = wk.indptr[r], L = wk.indptr[r + 1] - j0;
+    const uint8_t* mk = mask + w0 * m;
+    const T* xw = x + w0 * m * F + f;
+    T acc[KW];
+#pragma unroll
+    for (int w = 0; w < KW; ++w) acc[w] = neutral<T, OP>();
+    for (int64_t c0 = 0; c0 < L; c0 += kLongChunk) {
+        uint8_t on[KW][N];
+        T v[KW][N];
+        load_entries<T, KW, DIRECT, N>(wk, j0, L, c0 + t, kThreads, m, F,
+                                       mk, xw, on, v);
+        if constexpr (InOrder<T>::v) {
+#pragma unroll
+            for (int w = 0; w < KW; ++w) {
+#pragma unroll
+                for (int q = 0; q < N; ++q) {
+                    s_on[w * kLongChunk + t + kThreads * q] = on[w][q];
+                    s_v[w * kLongChunk + t + kThreads * q] = v[w][q];
+                }
+            }
+            __syncthreads();
+            if (t < KW) {
+                const int cl = L - c0 < kLongChunk ? (int)(L - c0)
+                                                   : kLongChunk;
+                const uint8_t* so = s_on + t * kLongChunk;
+                const T* sv = s_v + t * kLongChunk;
+#pragma unroll 8
+                for (int q = 0; q < cl; ++q)
+                    if (so[q]) acc[0] = combine<T, OP>(acc[0], sv[q]);
+            }
+            __syncthreads();
+        } else {
+#pragma unroll
+            for (int w = 0; w < KW; ++w) {
+#pragma unroll
+                for (int q = 0; q < N; ++q)
+                    if (on[w][q]) acc[w] = combine<T, OP>(acc[w], v[w][q]);
+            }
+        }
+    }
+    if constexpr (InOrder<T>::v) {
+        if (t < KW) out[((w0 + t) * n + r) * F + f] = acc[0];
+    } else {
+        const int warp = t >> 5, lane = t & 31;
+#pragma unroll
+        for (int w = 0; w < KW; ++w) {
+            for (int o = 16; o > 0; o >>= 1)
+                acc[w] = combine<T, OP>(acc[w],
+                                       __shfl_xor_sync(kAll, acc[w], o));
+            if (lane == 0) s_part[warp * KW + w] = acc[w];
+        }
+        __syncthreads();
+        if (t < KW) {
+            T b = neutral<T, OP>();
+            for (int i = 0; i < kThreads / 32; ++i)
+                b = combine<T, OP>(b, s_part[i * KW + t]);
+            out[((w0 + t) * n + r) * F + f] = b;
+        }
     }
 }
 
-template <typename T>
-void launch_partition(int op, int64_t k, int64_t n, int64_t m, int64_t F,
-                      const int64_t* indptr, const int32_t* order,
-                      const int32_t* perm, const uint8_t* valid,
-                      const void* x, const uint8_t* mask, void* out,
-                      cudaStream_t s) {
-    const int64_t total = k * n * F;
-    int64_t blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 65535 * 8) blocks = 65535 * 8;
-    if (blocks < 1) blocks = 1;
-    const T* xt = static_cast<const T*>(x);
-    T* ot = static_cast<T*>(out);
-    if (op == kSum)
-        partition_reduce_kernel<T, kSum><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
-    else if (op == kMin)
-        partition_reduce_kernel<T, kMin><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
-    else
-        partition_reduce_kernel<T, kMax><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, order, perm, valid, xt, mask, ot);
+// K7 and K7-P: blockIdx.y is (window group, feature) — group g serves
+// windows g*KW .. g*KW+KW-1, KW dividing k — so no 64-bit division; along
+// x the first `nl` blocks take the long rows (longest first, from the
+// plan), the rest kThreads consecutive rows each, a thread a row.
+template <typename T, int OP, int KW, bool DIRECT>
+__global__ void __launch_bounds__(kThreads) combine_kernel(
+        int64_t n, int64_t m, int64_t F, int64_t nl, Walk wk,
+        const int32_t* __restrict__ long_rows, const T* __restrict__ x,
+        const uint8_t* __restrict__ mask, T* __restrict__ out) {
+    constexpr int kStage = InOrder<T>::v ? KW * kLongChunk : 1;
+    __shared__ T s_v[kStage];
+    __shared__ uint8_t s_on[kStage];
+    __shared__ T s_part[kThreads / 32 * KW];
+    const unsigned Fu = (unsigned)F;
+    const int64_t f = blockIdx.y % Fu;
+    const int64_t w0 = (int64_t)(blockIdx.y / Fu) * KW;
+    if (blockIdx.x < nl) {                      // block-uniform
+        combine_long<T, OP, KW, DIRECT>(long_rows[blockIdx.x], n, m, F, f,
+                                        w0, wk, x, mask, out, s_v, s_on,
+                                        s_part);
+        return;
+    }
+    const int64_t r = (int64_t)(blockIdx.x - nl) * kThreads + threadIdx.x;
+    if (r < n)
+        combine_short<T, OP, KW, DIRECT>(r, n, m, F, f, w0, wk, x, mask,
+                                         out);
 }
 
+template <typename T, int OP, int KW>
+void launch_op(dim3 grid, int64_t n, int64_t m, int64_t F, int64_t nl,
+               const Walk& wk, const int32_t* long_rows, const T* x,
+               const uint8_t* mask, T* out, cudaStream_t s) {
+    if (!wk.order && !wk.perm && !wk.valid)
+        combine_kernel<T, OP, KW, true><<<grid, kThreads, 0, s>>>(
+            n, m, F, nl, wk, long_rows, x, mask, out);
+    else
+        combine_kernel<T, OP, KW, false><<<grid, kThreads, 0, s>>>(
+            n, m, F, nl, wk, long_rows, x, mask, out);
+}
+
+template <typename T, int KW>
+void launch_kw(int op, dim3 grid, int64_t n, int64_t m, int64_t F,
+               int64_t nl, const Walk& wk, const int32_t* long_rows,
+               const T* x, const uint8_t* mask, T* out, cudaStream_t s) {
+    if (op == kSum)
+        launch_op<T, kSum, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+                               out, s);
+    else if (op == kMin)
+        launch_op<T, kMin, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+                               out, s);
+    else
+        launch_op<T, kMax, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+                               out, s);
+}
+
+// One walk serves all k windows (KW = k) where k <= 3 and the k*n (window,
+// row) pairs are many enough to fill the card; else a thread a window.
 template <typename T>
-void launch(int op, int64_t k, int64_t n, int64_t m, int64_t F,
-            const int64_t* indptr, const int32_t* perm, const void* x,
-            const uint8_t* mask, void* out, cudaStream_t s) {
-    const int64_t total = k * n * F;
-    int64_t blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 65535 * 8) blocks = 65535 * 8;
-    if (blocks < 1) blocks = 1;
+int launch_combine(int op, int64_t k, int64_t n, int64_t m, int64_t F,
+                   int64_t nl, const Walk& wk, const int32_t* long_rows,
+                   const void* x, const uint8_t* mask, void* out,
+                   cudaStream_t s) {
+    const int KW = k <= kMaxWin && k * n >= kWalkOnceRows ? (int)k : 1;
+    const int64_t gy = F * (k / KW);
+    const int64_t gx = nl + (n + kThreads - 1) / kThreads;
+    if (gy > 65535 || gx >= (int64_t(1) << 31))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)gx, (unsigned)gy);
     const T* xt = static_cast<const T*>(x);
     T* ot = static_cast<T*>(out);
-    if (op == kSum)
-        segment_combine_kernel<T, kSum><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, perm, xt, mask, ot);
-    else if (op == kMin)
-        segment_combine_kernel<T, kMin><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, perm, xt, mask, ot);
+    if (KW == 1)
+        launch_kw<T, 1>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
+    else if (KW == 2)
+        launch_kw<T, 2>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
     else
-        segment_combine_kernel<T, kMax><<<blocks, kThreads, 0, s>>>(
-            k, n, m, F, indptr, perm, xt, mask, ot);
+        launch_kw<T, 3>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
+    return (int)cudaGetLastError();
+}
+
+int combine_entry(int64_t k, int64_t n, int64_t m, int64_t F, int64_t op,
+                  int64_t dtype, int64_t nl, const Walk& wk,
+                  const void* long_rows, const void* x, const void* mask,
+                  void* out, void* stream) {
+    if (k * n * F == 0) return (int)cudaGetLastError();
+    if (op < 0 || op > 2 || dtype < 0 || dtype > 2 || nl < 0 || nl > n)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int32_t* lr = static_cast<const int32_t*>(long_rows);
+    const uint8_t* mk = static_cast<const uint8_t*>(mask);
+    if (dtype == 0)
+        return launch_combine<float>((int)op, k, n, m, F, nl, wk, lr, x, mk,
+                                     out, s);
+    if (dtype == 1)
+        return launch_combine<int32_t>((int)op, k, n, m, F, nl, wk, lr, x,
+                                       mk, out, s);
+    return launch_combine<int64_t>((int)op, k, n, m, F, nl, wk, lr, x, mk,
+                                   out, s);
 }
 
 constexpr int kModeThreads = 256;      // a block: 8 warps
 constexpr int kTileRows = 16;          // short rows a warp takes
 constexpr int kSmemRows = 4096;        // longest run sorted in shared memory
-constexpr unsigned kAll = 0xffffffffu;
 
 __device__ inline unsigned long long mode_key(int v, int count) {
     // largest count first, then the smallest value; 0 = no candidate
@@ -424,57 +642,38 @@ __global__ void __launch_bounds__(kModeThreads) segment_mode_kernel(
 
 extern "C" {
 
-// op: 0 sum, 1 min, 2 max; dtype: 0 float32, 1 int32, 2 int64. perm may
-// be null (the destination direction: the CSR runs are the edges
-// themselves).
+// K7. op: 0 sum, 1 min, 2 max; dtype: 0 float32, 1 int32, 2 int64. k
+// windows, n rows, m payload rows per window, F features, nl long rows |
+// indptr [n+1] int64, perm int32 or null (the destination direction: the
+// CSR runs are the edges themselves), long_rows [nl] int32 (the rows whose
+// runs exceed 32 entries, longest first), x [k*m, F], mask [k*m] bool |
+// out [k*n, F]. One launch; F * ceil(k / 4) at most 65,535.
 int rtpu_segment_combine(int64_t k, int64_t n, int64_t m, int64_t F,
-                         int64_t op, int64_t dtype, const void* indptr,
-                         const void* perm, const void* x, const void* mask,
-                         void* out, void* stream) {
-    if (k * n * F == 0) return (int)cudaGetLastError();
-    if (op < 0 || op > 2 || dtype < 0 || dtype > 2)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t* ip = static_cast<const int64_t*>(indptr);
-    const int32_t* pp = static_cast<const int32_t*>(perm);
-    const uint8_t* mk = static_cast<const uint8_t*>(mask);
-    if (dtype == 0)
-        launch<float>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
-    else if (dtype == 1)
-        launch<int32_t>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
-    else
-        launch<int64_t>((int)op, k, n, m, F, ip, pp, x, mk, out, s);
-    return (int)cudaGetLastError();
+                         int64_t op, int64_t dtype, int64_t nl,
+                         const void* indptr, const void* perm,
+                         const void* long_rows, const void* x,
+                         const void* mask, void* out, void* stream) {
+    const Walk wk{static_cast<const int64_t*>(indptr),
+                  static_cast<const int32_t*>(perm), nullptr, nullptr};
+    return combine_entry(k, n, m, F, op, dtype, nl, wk, long_rows, x, mask,
+                         out, stream);
 }
 
-// K7-P. k windows, n rows, m payload rows per window, F features; op and
-// dtype as rtpu_segment_combine | indptr [n+1] int64, order int32 (the
-// destination walk), perm [B] int32 or null, valid [B] bool or null,
-// x [k*m, F], mask [k*m] | out [k*n, F].
+// K7-P. As rtpu_segment_combine, the walk through indptr [n+1] int64,
+// order int32 (the destination walk), perm [B] int32 or null, valid [B]
+// bool or null.
 int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
-                          int64_t op, int64_t dtype, const void* indptr,
-                          const void* order, const void* perm,
-                          const void* valid, const void* x, const void* mask,
-                          void* out, void* stream) {
-    if (k * n * F == 0) return (int)cudaGetLastError();
-    if (op < 0 || op > 2 || dtype < 0 || dtype > 2)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t* ip = static_cast<const int64_t*>(indptr);
-    const int32_t* od = static_cast<const int32_t*>(order);
-    const int32_t* pp = static_cast<const int32_t*>(perm);
-    const uint8_t* vd = static_cast<const uint8_t*>(valid);
-    const uint8_t* mk = static_cast<const uint8_t*>(mask);
-    if (dtype == 0)
-        launch_partition<float>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
-                                out, s);
-    else if (dtype == 1)
-        launch_partition<int32_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
-                                  out, s);
-    else
-        launch_partition<int64_t>((int)op, k, n, m, F, ip, od, pp, vd, x, mk,
-                                  out, s);
-    return (int)cudaGetLastError();
+                          int64_t op, int64_t dtype, int64_t nl,
+                          const void* indptr, const void* order,
+                          const void* perm, const void* valid,
+                          const void* long_rows, const void* x,
+                          const void* mask, void* out, void* stream) {
+    const Walk wk{static_cast<const int64_t*>(indptr),
+                  static_cast<const int32_t*>(order),
+                  static_cast<const int32_t*>(perm),
+                  static_cast<const uint8_t*>(valid)};
+    return combine_entry(k, n, m, F, op, dtype, nl, wk, long_rows, x, mask,
+                         out, stream);
 }
 
 // K7-mode. k windows (at most 65,535), n rows, m payload rows per

@@ -20,8 +20,8 @@ Each kernel has three parts here:
   CPU tensors take the plain twin, CUDA tensors launch the hand-written
   kernel (or raise — there is no fallback). Each kernel launch adds one to
   ``LAUNCHES[name]``; nothing else does (an entry point that launches
-  several passes, as K1's, K4's and K6w's do, reports how many it
-  launched).
+  several passes, as K4's does, or none, as K1's and K6w's for an empty
+  table, reports how many it launched).
 * a **plain twin** (``*_plain``): PyTorch code with the same math. The CPU
   tests hold it against the JAX package, and the chip smoke run holds each
   kernel against it on the card.
@@ -82,9 +82,10 @@ _ARGTYPES = {
     + 12 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     "rtpu_masks_from_deltas_i64": 6 * [ctypes.c_int64]
     + 12 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
-    # len, H, U, h0 | d_pos, d_val, cur_w, out, stream | launched
-    "rtpu_weights_from_deltas": 4 * [ctypes.c_int64]
-    + 5 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
+    # len, H, U, h0, tw | base, d_pos, d_val, adv, touch, out, stream |
+    # launched
+    "rtpu_weights_from_deltas": 5 * [ctypes.c_int64]
+    + 7 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
     # m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
     # me, mv, stream
     "rtpu_column_masks_i32": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
@@ -106,8 +107,9 @@ _ARGTYPES = {
     "rtpu_cc_superstep": 3 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
     # n, C, W, H, gx, directed | ew, then as rtpu_cc_superstep
     "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 16 * [ctypes.c_void_p],
-    # k, n, m, F, op, dtype | indptr, perm, x, mask, out, stream
-    "rtpu_segment_combine": 6 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
+    # k, n, m, F, op, dtype, nl | indptr, perm, long_rows, x, mask, out,
+    # stream
+    "rtpu_segment_combine": 7 * [ctypes.c_int64] + 7 * [ctypes.c_void_p],
     # n_pad, m_pad, cap_v, cap_e, tbytes | six buffers, eight chunk
     # arrays, stream
     "rtpu_apply_delta_chunk": 5 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
@@ -122,8 +124,9 @@ _ARGTYPES = {
     "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
     # n, C | in_indptr, pairs, me, rd, agg, stream
     "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
-    # k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask, out, stream
-    "rtpu_partition_reduce": 6 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
+    # k, n, m, F, op, dtype, nl | indptr, order, perm, valid, long_rows, x,
+    # mask, out, stream
+    "rtpu_partition_reduce": 7 * [ctypes.c_int64] + 9 * [ctypes.c_void_p],
     # k, n, m, default, nl | indptr, perm, values, mask, long_rows,
     # scratch, out, stream
     "rtpu_segment_mode": 5 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
@@ -420,23 +423,36 @@ def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
     ``raphtory_tpu/engine/hopbatch.py:374-384``): ``base_w [len]`` f32,
     ``d_pos [H, U]`` int32 (pad 2^31-1), ``d_val [H, U]`` f32 → ``(ew
     [len, H] f32 — hop h's weight state in column h, the block K6 reads,
-    advanced state [len])``."""
+    advanced state [len])``. K1's kernel with an f32 state (``csrc/
+    masks.cu``): one cooperative launch a call, the hop-touch scratch from
+    ``_touch_scratch``, the base read and never copied; the inputs are
+    checked once per signature (``_k2_checked``)."""
     name = "weights_from_deltas"
-    n = base_w.shape[0]
-    U = d_pos.shape[1] if d_pos.dim() == 2 else -1
-    _expect(name, base_w, "base_w", (torch.float32,), (n,))
-    _expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
-    _expect(name, d_val, "d_val", (torch.float32,), (H, U))
-    if not _on_cuda(name, base_w, d_pos, d_val):
+
+    def check():
+        n = base_w.shape[0]
+        U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+        _expect(name, base_w, "base_w", (torch.float32,), (n,))
+        _expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
+        _expect(name, d_val, "d_val", (torch.float32,), (H, U))
+        return (n, U) if _on_cuda(name, base_w, d_pos, d_val) else None
+
+    got = _k2_checked(name, (base_w, d_pos, d_val), H, check)
+    if got is None:
         return weights_from_deltas_plain(base_w, d_pos, d_val, H, h0)
-    cur = base_w.clone()
-    out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
+    n, U = got
+    out = base_w.new_empty((n, H))
+    adv = base_w.new_empty(n)
+    tw = _touch_words(H)
+    stream = _stream(out)
+    touch = _touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
     launched = ctypes.c_int64(0)
     err = _fn("masks", "rtpu_weights_from_deltas")(
-        n, H, U, int(bool(h0)), d_pos.data_ptr(), d_val.data_ptr(),
-        cur.data_ptr(), out.data_ptr(), _stream(out), ctypes.byref(launched))
+        n, H, U, int(bool(h0)), tw, base_w.data_ptr(), d_pos.data_ptr(),
+        d_val.data_ptr(), adv.data_ptr(), touch.data_ptr(), out.data_ptr(),
+        stream, ctypes.byref(launched))
     _launch(name, err, launched.value)
-    return out, cur
+    return out, adv
 
 
 # ---------------------------------------------------------------- K3

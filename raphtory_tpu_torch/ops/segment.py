@@ -16,15 +16,19 @@ raise), the **plain twin** ``segment_combine_plain`` (``index_add_`` /
 
 Where a payload goes is a ``SegmentCSR``: the segment id of every edge
 (what the twin scatters by) and the same mapping as a CSR over the REAL
-edges (what the kernel walks — one thread per (window, row, feature), no
-atomics, a fixed sum order). Pad edges lie outside the CSR and must be
-masked in every window, as every caller's are.
+edges (what the kernel walks — each run read once for up to four windows,
+short runs packed over a warp's lanes, runs past 32 entries a block each,
+no atomics; every row combines in its CSR order, so float sums are
+bitwise a sequential walk's). Pad edges lie outside the CSR and must be
+masked in every window, as every caller's are. The runs past 32 entries
+are listed once per CSR (``combine_plan``, which also checks it).
 
 K7-P ``partition_reduce`` is the destination-binned (PCPM) combine
 (``raphtory_tpu/ops/segment.py:116`` ``partition_segment_reduce``): the
 payload read through a layout's permutation, each destination partition
 reduced into its own dense ``n_per``-row block, in the fixed order of a
-``PartitionWalk`` (``rtpu_partition_reduce``, the same source).
+``PartitionWalk`` (``rtpu_partition_reduce``: the same kernel, its walk
+read through ``order``, ``perm`` and ``valid``).
 ``partition_segment_reduce`` keeps the reference's signature on top of it.
 
 K7-mode ``segment_mode`` (``raphtory_tpu/ops/segment.py:155``) is the
@@ -49,7 +53,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .columns import _expect, _fn, _launch, _on_cuda, _stream
+from .columns import _expect, _fn, _k2_checked, _launch, _on_cuda, _stream
 
 _OPS = {"sum": 0, "min": 1, "max": 2}
 #: payload dtypes the kernel takes (the twin takes any)
@@ -114,12 +118,92 @@ def segment_combine_plain(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     return out.reshape((k * n,) + tail)
 
 
+#: most grid rows of a K7 / K7-P launch: the kernel's blockIdx.y is (window
+#: group, feature), at most F * k rows
+_MAX_GRID_ROWS = 65_535
+
+
+def combine_plan(indptr, order, perm, valid, m: int) -> torch.Tensor:
+    """What K7 / K7-P need of a walk beyond its tensors: its long rows, the
+    rows whose runs exceed ``SHORT_RUN`` entries (int32, longest first;
+    each takes a block of its own, the first blocks of the launch). Checks
+    the walk as the kernel reads it, on the walk's device (one read-back):
+    ``indptr`` must start at 0, never fall and end within the entries
+    (``order``'s length, or ``m`` without one); ``order`` must name slots
+    inside ``perm`` / ``valid`` (or the ``m`` payload rows), and ``perm``
+    payload rows in ``[0, m)`` at every slot the walk counts. Raises
+    ``ValueError`` otherwise."""
+    n = indptr.shape[0] - 1
+    nnz = m if order is None else order.shape[0]
+    # slot s is payload row perm[s], or s itself without a perm
+    slots = (perm.shape[0] if perm is not None
+             else m if valid is None else min(m, valid.shape[0]))
+    lens = indptr[1:] - indptr[:-1]
+    zero = indptr[:1].reshape(())
+    stats = [indptr[0], indptr[-1], lens.min() if n else zero]
+    walked = None
+    if order is not None and order.numel():
+        walked = order.long()
+        stats += [walked.min(), walked.max()]
+    first, last, shortest, *named = torch.stack(stats).tolist()
+    what = "the walk" if order is not None else "the CSR"
+    if first != 0 or shortest < 0 or last > nnz:
+        raise ValueError(f"{what} is not a CSR over its {nnz} entries "
+                         f"(starts at {first}, ends at {last}, a run of "
+                         f"{shortest})")
+    if named and (named[0] < 0 or named[1] >= slots):
+        raise ValueError(f"{what} names slots outside [0, {slots})")
+    if perm is not None and last:
+        s = walked[:last] if walked is not None else torch.arange(
+            last, device=indptr.device)
+        rows = perm[s].long()
+        if valid is not None:
+            rows = rows[valid[s]]
+        if rows.numel() and not bool(((rows >= 0) & (rows < m)).all()):
+            raise ValueError(f"perm names payload rows outside [0, {m})")
+    rows = torch.nonzero(lens > SHORT_RUN).reshape(-1)
+    return rows[torch.argsort(lens[rows], descending=True,
+                              stable=True)].to(torch.int32)
+
+
+def _plan_of(name: str, m: int, indptr, order, perm, valid):
+    """``combine_plan`` of a walk, once per walk and version
+    (``columns._k2_checked``: each tensor's identity and version); the
+    caller has checked the tensors' types and devices."""
+    tensors = tuple(t for t in (indptr, order, perm, valid) if t is not None)
+    return _k2_checked(f"{name} walk", tensors,
+                       (m, order is None, perm is None, valid is None),
+                       lambda: combine_plan(indptr, order, perm, valid, m))
+
+
+def _payload_f(name: str, data, mask, k: int) -> int:
+    """The checks a K7 / K7-P launch makes at every call (the walk and the
+    mask are checked once per signature): the payload's dtype, contiguity
+    and device, and the grid rows its features and windows take. Returns
+    F, the features a payload row holds."""
+    if data.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
+                        f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
+    if not data.is_contiguous():
+        raise ValueError(f"{name}: data is not contiguous")
+    if data.device != mask.device:
+        raise ValueError(f"{name}: data on {data.device}, the mask on "
+                         f"{mask.device}")
+    F = math.prod(data.shape[1:])
+    if F * k > _MAX_GRID_ROWS:
+        raise ValueError(f"{name}: {F} features x {k} windows is more "
+                         f"than the kernel's {_MAX_GRID_ROWS} grid rows")
+    return F
+
+
 def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     """K7 wrapper (``raphtory_tpu/ops/segment.py:35`` ``segment_combine``,
     as the superstep runner calls it at ``engine/bsp.py:145,152,154``):
     the masked sum/min/max of ``data [k*m, ...]`` per (window, segment),
     ``[k*n, ...]``. Float32, int32 and int64 payloads on the card (an
-    int64 launch counts as ``segment_combine_i64``)."""
+    int64 launch counts as ``segment_combine_i64``), one launch a call:
+    the CSR and the mask are checked once per signature and the CSR's
+    long rows listed once (``combine_plan``), the payload at every call."""
     name = "segment_combine"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -128,28 +212,30 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     if data.dim() == 0 or data.shape[0] != k * m:
         raise ValueError(f"{name}: data has shape {tuple(data.shape)}, want "
                          f"[{k * m}, ...] (k={k} windows x m={m} edges)")
-    _expect(name, mask, "mask", (torch.bool,), (k * m,))
-    _expect(name, csr.ids, "ids", (torch.int32,), (m,))
-    _expect(name, csr.indptr, "indptr", (torch.int64,), (n + 1,))
-    tensors = (data, mask, csr.ids, csr.indptr)
-    if csr.perm is not None:
-        _expect(name, csr.perm, "perm", (torch.int32,),
-                (csr.perm.shape[0],))
-        tensors += (csr.perm,)
-    if not _on_cuda(name, *tensors):
+    perm = () if csr.perm is None else (csr.perm,)
+
+    def check():
+        _expect(name, mask, "mask", (torch.bool,), (k * m,))
+        _check_csr(name, csr, m)
+        if not _on_cuda(name, data, mask, csr.ids, csr.indptr, *perm):
+            return None
+        return _plan_of(name, m, csr.indptr, csr.perm, None, None)
+
+    long_rows = _k2_checked(name, (mask, csr.ids, csr.indptr, *perm), k,
+                            check)
+    if long_rows is None:
         return segment_combine_plain(data, csr, op, mask, k)
-    if data.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
-                        f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
-    _expect(name, data, "data", (data.dtype,), tuple(data.shape))
-    F = data[0].numel() if k * m else 1
+    F = _payload_f(name, data, mask, k)
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
+    if not out.numel():
+        return out
     err = _fn("segment", "rtpu_segment_combine")(
         k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
-        csr.indptr.data_ptr(),
-        None if csr.perm is None else csr.perm.data_ptr(), data.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), _stream(data))
+        long_rows.shape[0], csr.indptr.data_ptr(),
+        None if csr.perm is None else csr.perm.data_ptr(),
+        long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), _stream(data))
     _launch(_counted(name, data.dtype), err)
     return out
 
@@ -410,7 +496,8 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
     """K7-P wrapper: the masked sum/min/max of ``data [k*m, ...]`` over the
     walk's slots of each destination row, per window → ``[k*n, ...]``.
     Float32, int32 and int64 payloads on the card (an int64 launch counts
-    as ``partition_segment_reduce_i64``)."""
+    as ``partition_segment_reduce_i64``), one launch a call, the walk and
+    the mask checked once per signature as K7's are."""
     name = "partition_segment_reduce"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -419,31 +506,45 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
         raise ValueError(f"{name}: data has shape {tuple(data.shape)}, "
                          f"want [k*m, ...] with k={k} windows")
     m, n = data.shape[0] // k, walk.n
-    _expect(name, mask, "mask", (torch.bool,), (k * m,))
-    _expect(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
-    _expect(name, walk.order, "order", (torch.int32,),
-            (walk.order.shape[0],))
-    tensors = (data, mask, walk.indptr, walk.order)
-    for what, t, dt in (("perm", walk.perm, torch.int32),
-                        ("valid", walk.valid, torch.bool)):
-        if t is not None:
-            _expect(name, t, what, (dt,), (t.shape[0],))
-            tensors += (t,)
-    if not _on_cuda(name, *tensors):
+    extra = tuple(t for t in (walk.perm, walk.valid) if t is not None)
+
+    def check():
+        _expect(name, mask, "mask", (torch.bool,), (k * m,))
+        _expect(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
+        _expect(name, walk.order, "order", (torch.int32,),
+                (walk.order.shape[0],))
+        for what, t, dt in (("perm", walk.perm, torch.int32),
+                            ("valid", walk.valid, torch.bool)):
+            if t is not None:
+                _expect(name, t, what, (dt,), (t.shape[0],))
+        if (walk.perm is not None and walk.valid is not None
+                and walk.perm.shape != walk.valid.shape):
+            raise ValueError(f"{name}: perm and valid have "
+                             f"{walk.perm.shape[0]} and "
+                             f"{walk.valid.shape[0]} slots")
+        if not _on_cuda(name, data, mask, walk.indptr, walk.order, *extra):
+            return None
+        return _plan_of(name, m, walk.indptr, walk.order, walk.perm,
+                        walk.valid)
+
+    long_rows = _k2_checked(name, (mask, walk.indptr, walk.order, *extra),
+                            (k, walk.perm is None, walk.valid is None),
+                            check)
+    if long_rows is None:
         return partition_reduce_plain(data, walk, op, mask, k)
-    if data.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
-                        f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
-    _expect(name, data, "data", (data.dtype,), tuple(data.shape))
-    F = data[0].numel() if k * m else 1
+    F = _payload_f(name, data, mask, k)
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
+    if not out.numel():
+        return out
     err = _fn("segment", "rtpu_partition_reduce")(
         k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
-        walk.indptr.data_ptr(), walk.order.data_ptr(),
+        long_rows.shape[0], walk.indptr.data_ptr(),
+        walk.order.data_ptr(),
         None if walk.perm is None else walk.perm.data_ptr(),
-        None if walk.valid is None else walk.valid.data_ptr(), data.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), _stream(data))
+        None if walk.valid is None else walk.valid.data_ptr(),
+        long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), _stream(data))
     _launch(_counted(name, data.dtype), err)
     return out
 

@@ -565,21 +565,83 @@ def _view(addr, dtype, n):
 _TOUCH_DTYPES = {1: np.uint8, 4: np.uint32, 8: np.uint64}
 
 
-def _model_k1(calls, tdt, order_rng):
-    """``rtpu_masks_from_deltas_*`` as numpy over the wrapper's raw host
-    addresses, the kernel's passes (one launch, grid syncs between them)
-    for each group of ``8 * tw`` hops: pass A
-    writes the group's columns from its base (group 0: the base, copied into
-    the advanced state; later groups: the advanced state) and clears the
-    touch words; B0 (where more than one hop of the group applies) sets bit
-    h of each update's row; B1, its updates taken
+def _k1_passes(n, H, W, U, h0, tw, bl, ba, p, lt, al, cell, l_out, a_out,
+               words, o, order_rng):
+    """The passes of ``k1_kernel`` (K1 and K6w) as numpy, for each group of
+    ``8 * tw`` hops: pass A writes the group's columns from its base (group
+    0: the base, copied into the advanced state; later groups: the advanced
+    state) and clears the touch words; B0 (where more than one hop of the
+    group applies) sets bit h of each update's row; B1, its updates taken
     in a random order, writes columns ``[h W, next W)`` of the row and the
     advanced state where no later hop of the group touches it. Pads
-    (positions outside ``[0, len)``) and hop 0 without ``h0`` are
-    skipped. A group whose one applied hop is its last, with dense updates
-    (``U * 8 >= len``), takes the dense path: the base copied into the
-    advanced state, the updates scattered into it, one row pass split at
-    the hop's first column."""
+    (positions outside ``[0, len)``) and hop 0 without ``h0`` are skipped.
+    A group whose one applied hop is its last, with dense updates (``U * 8
+    >= len``), takes the dense path: the base copied into the advanced
+    state, the updates scattered into it, one row pass split at the hop's
+    first column. ``cell(values, alive, columns)`` is a state's cells (K6w:
+    no alive, its value in every column). Returns the groups that took the
+    dense path."""
+    dense = []
+    alive = ba is not None
+    for g0 in range(0, H, 8 * tw):
+        Hg = min(8 * tw, H - g0)
+        cols = slice(g0 * W, (g0 + Hg) * W)
+        src_l = bl if g0 == 0 else l_out.copy()
+        src_a = (ba if g0 == 0 else a_out.copy()) if alive else None
+        h1 = 1 if g0 == 0 and not h0 else 0
+        ups = [(h, u) for h in range(h1, Hg) for u in range(U)
+               if 0 <= p[g0 + h, u] < n]
+
+        def upd(h, u):
+            return lt[g0 + h, u], (al[g0 + h, u] if alive else None)
+
+        def put_state(r, v, a):
+            l_out[r] = v
+            if alive:
+                a_out[r] = a
+        if U > 0 and Hg - h1 == 1 and U * 8 >= n:
+            # dense: copy, scatter the one hop, a row pass split at it
+            if g0 == 0:
+                l_out[:] = bl
+                if alive:
+                    a_out[:] = ba
+            for h, u in ups:
+                put_state(p[g0 + h, u], *upd(h, u))
+            pre = slice(g0 * W, (g0 + h1) * W)
+            post = slice((g0 + h1) * W, (g0 + Hg) * W)
+            o[:, pre] = cell(src_l, src_a, pre)
+            o[:, post] = cell(l_out, a_out if alive else None, post)
+            dense.append(g0)
+            continue
+        o[:, cols] = cell(src_l, src_a, cols)
+        if g0 == 0:
+            l_out[:] = bl
+            if alive:
+                a_out[:] = ba
+        words[:] = 0
+        if U <= 0 or Hg <= h1:
+            continue
+        if Hg - h1 > 1:                     # B0
+            for h, u in ups:
+                words[p[g0 + h, u]] |= _TOUCH_DTYPES[tw](1) << h
+        for i in order_rng.permutation(len(ups)):
+            h, u = ups[i]
+            r = p[g0 + h, u]
+            above = int(words[r]) >> (h + 1)
+            nxt = h + 1 + ((above & -above).bit_length() - 1) if above \
+                else Hg
+            c = slice((g0 + h) * W, (g0 + nxt) * W)
+            v, a = upd(h, u)
+            o[r, c] = cell(v, a, c)
+            if nxt == Hg:
+                put_state(r, v, a)
+    return dense
+
+
+def _model_k1(calls, tdt, order_rng):
+    """``rtpu_masks_from_deltas_*`` as numpy over the wrapper's raw host
+    addresses: one launch of ``_k1_passes`` (grid syncs between them) with
+    mask cells ``alive && lat >= thr``."""
     def model(n, H, W, U, h0, tw, base_l, base_a, pos, lat, alive, lo,
               nowin, adv_l, adv_a, touch, out, stream, launched):
         C = H * W
@@ -588,58 +650,47 @@ def _model_k1(calls, tdt, order_rng):
                           touch=touch, out=out, tw=tw, H=H, n=n,
                           dense=dense))
         assert out % 16 == 0 and adv_l not in (base_l, base_a)
-        bl, ba = _view(base_l, tdt, n), _view(base_a, np.uint8, n)
-        p = _view(pos, np.int32, H * U).reshape(H, U).astype(np.int64)
-        lt = _view(lat, tdt, H * U).reshape(H, U)
-        al = _view(alive, np.uint8, H * U).reshape(H, U)
         thr = np.where(_view(nowin, np.uint8, C) != 0, np.iinfo(tdt).min,
                        _view(lo, tdt, C))
-        l_out, a_out = _view(adv_l, tdt, n), _view(adv_a, np.uint8, n)
-        words = _view(touch, _TOUCH_DTYPES[tw], n)
-        o = _view(out, np.uint8, n * C).reshape(n, C)
-        for g0 in range(0, H, 8 * tw):
-            Hg = min(8 * tw, H - g0)
-            cols = slice(g0 * W, (g0 + Hg) * W)
-            src_l, src_a = (bl, ba) if g0 == 0 else (l_out.copy(),
-                                                     a_out.copy())
-            h1 = 1 if g0 == 0 and not h0 else 0
-            ups = [(h, u) for h in range(h1, Hg) for u in range(U)
-                   if 0 <= p[g0 + h, u] < n]
-            if U > 0 and Hg - h1 == 1 and U * 8 >= n:
-                # dense: copy, scatter the one hop, a row pass split at it
-                if g0 == 0:
-                    l_out[:], a_out[:] = bl, ba
-                for h, u in ups:
-                    l_out[p[g0 + h, u]] = lt[g0 + h, u]
-                    a_out[p[g0 + h, u]] = al[g0 + h, u]
-                pre = slice(g0 * W, (g0 + h1) * W)
-                post = slice((g0 + h1) * W, (g0 + Hg) * W)
-                o[:, pre] = (src_a[:, None] != 0) & (src_l[:, None]
-                                                     >= thr[None, pre])
-                o[:, post] = (a_out[:, None] != 0) & (l_out[:, None]
-                                                      >= thr[None, post])
-                dense.append(g0)
-                continue
-            o[:, cols] = (src_a[:, None] != 0) & (src_l[:, None]
-                                                  >= thr[None, cols])
-            if g0 == 0:
-                l_out[:], a_out[:] = bl, ba
-            words[:] = 0
-            if U <= 0 or Hg <= h1:
-                continue
-            if Hg - h1 > 1:                     # B0
-                for h, u in ups:
-                    words[p[g0 + h, u]] |= _TOUCH_DTYPES[tw](1) << h
-            for i in order_rng.permutation(len(ups)):
-                h, u = ups[i]
-                r = p[g0 + h, u]
-                above = int(words[r]) >> (h + 1)
-                nxt = h + 1 + ((above & -above).bit_length() - 1) if above \
-                    else Hg
-                c = slice((g0 + h) * W, (g0 + nxt) * W)
-                o[r, c] = (al[g0 + h, u] != 0) & (lt[g0 + h, u] >= thr[c])
-                if nxt == Hg:
-                    l_out[r], a_out[r] = lt[g0 + h, u], al[g0 + h, u]
+
+        def cell(v, a, c):
+            return ((np.asarray(a)[..., None] != 0)
+                    & (np.asarray(v)[..., None] >= thr[c]))
+        dense += _k1_passes(
+            n, H, W, U, h0, tw, _view(base_l, tdt, n),
+            _view(base_a, np.uint8, n),
+            _view(pos, np.int32, H * U).reshape(H, U).astype(np.int64),
+            _view(lat, tdt, H * U).reshape(H, U),
+            _view(alive, np.uint8, H * U).reshape(H, U), cell,
+            _view(adv_l, tdt, n), _view(adv_a, np.uint8, n),
+            _view(touch, _TOUCH_DTYPES[tw], n),
+            _view(out, np.uint8, n * C).reshape(n, C), order_rng)
+        launched._obj.value += 1                # one cooperative launch
+        return 0
+    return model
+
+
+def _model_k6w(calls, order_rng):
+    """``rtpu_weights_from_deltas`` as numpy over the wrapper's raw host
+    addresses: one launch of ``_k1_passes`` with W 1 and the weight itself
+    as the cell."""
+    def model(n, H, U, h0, tw, base, pos, val, adv, touch, out, stream,
+              launched):
+        dense = []
+        calls.append(dict(base=base, adv=adv, touch=touch, out=out, tw=tw,
+                          dense=dense))
+        assert out % 16 == 0 and adv != base
+
+        def cell(v, a, c):
+            v = np.asarray(v, np.float32)[..., None]
+            return np.broadcast_to(v, v.shape[:-1] + (c.stop - c.start,))
+        dense += _k1_passes(
+            n, H, 1, U, h0, tw, _view(base, np.float32, n), None,
+            _view(pos, np.int32, H * U).reshape(H, U).astype(np.int64),
+            _view(val, np.float32, H * U).reshape(H, U), None, cell,
+            _view(adv, np.float32, n), None,
+            _view(touch, _TOUCH_DTYPES[tw], n),
+            _view(out, np.float32, n * H).reshape(n, H), order_rng)
         launched._obj.value += 1                # one cooperative launch
         return 0
     return model
@@ -691,6 +742,77 @@ def test_masks_from_deltas_card_branch_one_launch(monkeypatch, tdt, H, length,
     assert call["touch"] == scratch.data_ptr()
     assert scratch.numel() >= length * tw
     assert columns.LAUNCHES["masks_from_deltas"] == 1
+    single = H - (not h0) == 1
+    assert call["dense"] == ([0] if single and length == 90 else [])
+    columns.reset_launches()
+
+
+def _k6w_inputs(rng, length, H, U, hot=5):
+    """K6w's operands: an f32 base with -0.0 and an infinity, H hops of U
+    (pos, val) updates with pads (2^31-1) and negative positions, ``hot``
+    rows updated at many hops and the rest drawn afresh each hop."""
+    base = (rng.random(length) * 6 - 2).astype(np.float32)
+    base[:2] = [-0.0, np.inf]
+    pos = np.full((H, U), 2**31 - 1, np.int32)
+    val = np.zeros((H, U), np.float32)
+    for h in range(H):
+        k = int(rng.integers(0, U + 1))
+        hot_rows = rng.choice(hot, min(hot, k), replace=False) + 2
+        cold = rng.choice(np.arange(hot + 2, length), k - len(hot_rows),
+                          replace=False)
+        pos[h, :k] = np.concatenate([hot_rows, cold])
+        val[h, :k] = rng.random(k) * 5 - 0.5
+        if U >= 3 and h % 4 == 1:
+            pos[h, -1] = -1 - h % 3              # outside [0, len)
+    return T(base), T(pos), T(val)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("H,length,U", [(1, 90, 12), (2, 90, 12),
+                                        (2, 2100, 12), (10, 3000, 40),
+                                        (33, 500, 9), (70, 400, 9)])
+def test_weights_from_deltas_card_branch_one_launch(monkeypatch, H, length,
+                                                    U, h0):
+    """K6w's card branch on CPU tensors through the numpy model of K1's
+    passes with f32 cells: bitwise the twin (pads, negative positions, rows
+    updated at many hops; groups of hops chained past a touch word at H 70;
+    one applied hop on the dense path at 90 rows, the touch path at 2,100),
+    one launch a call whatever H, the touch word sized to H, the advanced
+    state written by the kernel into a fresh tensor, no clone, the checks
+    made once per signature."""
+    rng = np.random.default_rng(H * 7 + h0)
+    args = _k6w_inputs(rng, length, H, U)
+    want = columns.weights_from_deltas(*args, H, h0)
+    calls = []
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_TOUCH", {})
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: _model_k6w(
+        calls, np.random.default_rng(0)))
+    checks = []
+    expect = columns._expect
+    monkeypatch.setattr(columns, "_expect",
+                        lambda *a: checks.append(a[2]) or expect(*a))
+
+    def no_clone(*a, **k):
+        raise AssertionError("K6w's card branch cloned a tensor")
+    monkeypatch.setattr(torch.Tensor, "clone", no_clone)
+    columns.reset_launches()
+    for _ in range(2):
+        got = columns.weights_from_deltas(*args, H, h0)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert checks == ["base_w", "d_pos", "d_val"]     # the first call's
+    tw = 1 if H <= 8 else 4 if H <= 32 else 8
+    call = calls[-1]
+    assert call["tw"] == tw
+    assert call["adv"] == got[1].data_ptr()
+    assert call["base"] == args[0].data_ptr()
+    (scratch,) = columns._TOUCH.values()
+    assert call["touch"] == scratch.data_ptr()
+    assert scratch.numel() >= length * tw
+    assert columns.LAUNCHES["weights_from_deltas"] == len(calls) == 2
     single = H - (not h0) == 1
     assert call["dense"] == ([0] if single and length == 90 else [])
     columns.reset_launches()

@@ -269,6 +269,49 @@ def test_weights_from_deltas_twin():
             torch.zeros((2, 2)), 2, False)
 
 
+def _jax_weight_rebuild(base, pos, val, H, h0):
+    """``raphtory_tpu/engine/hopbatch.py:374-384``'s weight rebuild (inside
+    the jitted ``_compiled_delta``) on its own: the hop's (pos, val) deltas
+    scatter-set into the running state (``mode="drop"``: pads fall away),
+    the state the hop's column. W = 1: the reference broadcasts each
+    column to the hop's W windows, the port keeps it once."""
+    import jax.numpy as jnp
+
+    cur, cols = jnp.asarray(base), []
+    for h in range(H):
+        if h or h0:
+            cur = cur.at[jnp.asarray(pos[h])].set(jnp.asarray(val[h]),
+                                                  mode="drop")
+        cols.append(cur)
+    return np.asarray(jnp.stack(cols, axis=1)), np.asarray(cur)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+def test_weights_from_deltas_twin_matches_the_jax_rebuild_at_h70(h0):
+    """K6w's twin against the JAX rebuild at H 70 (two groups of 64 hops
+    on the card's path): rows updated at many hops, at one, and never; pads
+    (2^31-1, the host's only pad); the [len, H] block and the advanced
+    state bitwise."""
+    H, length, U = 70, 300, 9
+    rng = np.random.default_rng(70 + h0)
+    base = (rng.random(length) * 4 - 1).astype(np.float32)
+    pos = np.full((H, U), 2**31 - 1, np.int32)
+    val = np.zeros((H, U), np.float32)
+    for h in range(H):
+        k = int(rng.integers(1, U + 1))
+        every = [3] if h % 5 else [3, 4]          # row 3 in every hop
+        rest = rng.choice(np.arange(5, length), k - len(every),
+                          replace=False) if k > len(every) else []
+        pos[h, :k] = np.concatenate([every, rest])[:k]
+        val[h, :k] = rng.random(k) * 5 - 0.5
+    want_ew, want_cur = _jax_weight_rebuild(base, pos, val, H, h0)
+    ew, cur = columns.weights_from_deltas(T(base), T(pos), T(val), H, h0)
+    np.testing.assert_array_equal(ew.numpy(), want_ew)
+    np.testing.assert_array_equal(cur.numpy(), want_cur)
+    touched = np.unique(pos[0 if h0 else 1:][pos[0 if h0 else 1:] < length])
+    assert 3 in touched and len(touched) < length          # some never
+
+
 @pytest.mark.parametrize("kind", ["gab", "random"])
 def test_source_index_orders_the_real_edges(kind):
     t = _tables(kind)

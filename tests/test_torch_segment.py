@@ -18,12 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_columns import _view
+
 from raphtory_tpu.engine import bsp as jbsp
 from raphtory_tpu.engine import device_sweep as jds
 from raphtory_tpu.ops import segment as jseg
-from raphtory_tpu_torch.ops import resident, segment
+from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
+from raphtory_tpu_torch.ops import columns, partition, resident, segment
+from raphtory_tpu_torch.utils.synth import bitcoin_like_log
 
 N_REAL, N_PAD, M_REAL, M_PAD = 13, 16, 50, 64
+T = torch.from_numpy
 
 
 def _edges(seed):
@@ -334,3 +339,324 @@ def test_wrappers_refuse_other_devices():
     meta = torch.zeros((2, 4), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         resident.unpack_mask_bits(meta)
+
+
+# ------------------------- K7 / K7-P long rows (Pareto senders) and plans
+
+@pytest.fixture(scope="module")
+def pareto():
+    """A cut ``bitcoin_like_log``'s tables: its source CSR is Pareto, with
+    runs past 32 entries (the long rows, a block each) and past 1,024 (more
+    than one chunk a long-row block stages at once)."""
+    t = HopBatchedPageRank(bitcoin_like_log(n_addresses=4_000, n_txs=60_000,
+                                            t_span=2_600_000),
+                           device="cpu").tables
+    lens = np.diff(t.out_indptr)
+    assert (lens > 32).sum() > 100 and (lens > 1024).any()
+    return t
+
+
+def _long_rows(indptr):
+    """numpy reference of ``combine_plan``'s list: the runs past 32
+    entries, longest first, ties by row."""
+    lens = np.diff(indptr)
+    rows = np.flatnonzero(lens > segment.SHORT_RUN)
+    return rows[np.argsort(-lens[rows], kind="stable")]
+
+
+def _source_bins(t, P):
+    """The reference's binned operands over the SOURCE rows of ``t``:
+    partition ``src // n_per``, slots in engine order within it, cap-pad
+    slots with an out-of-block local id (dropped). Returns ``(n_per, slot
+    of each real edge [m], local_ids [P, cap])``."""
+    n_per = -(-t.n_pad // P)
+    part = t.e_src[:t.m] // n_per
+    order = np.argsort(part, kind="stable")
+    counts = np.bincount(part, minlength=P)
+    cap = int(counts.max())
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.empty(t.m, np.int64)
+    slot[order] = (part[order] * cap
+                   + np.arange(t.m) - starts[part[order]])
+    loc = np.full(P * cap, n_per, np.int32)
+    loc[slot] = t.e_src[:t.m] - part * n_per
+    return n_per, slot, loc.reshape(P, cap)
+
+
+def test_combine_plan_lists_the_long_runs_longest_first(pareto):
+    """``combine_plan`` against numpy on the Pareto source CSR, the
+    destination CSR and K7-P's walks (a destination layout's, and one over
+    the source rows), and its refusals: an ``indptr`` that is not a CSR,
+    slots outside the walk's slots, a perm naming payload rows outside
+    ``[0, m)`` at a counted slot (an uncounted slot may hold anything)."""
+    t = pareto
+    rows = segment.combine_plan(T(t.out_indptr), T(t.out_perm), None, None,
+                                t.m_pad)
+    assert rows.dtype == torch.int32
+    want = _long_rows(t.out_indptr)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    lens = np.diff(t.out_indptr)[want]
+    assert lens[0] > 1024 and lens[-1] == lens.min() > 32
+    np.testing.assert_array_equal(
+        segment.combine_plan(T(t.in_indptr), None, None, None,
+                             t.m_pad).numpy(),
+        _long_rows(t.in_indptr))
+    be = partition.build_layout(t.e_src, t.e_dst, t.n_pad, t.m,
+                                3).device_edges(torch.device("cpu"))
+    np.testing.assert_array_equal(
+        segment.combine_plan(be.in_indptr, be.in_order, be.perm, be.valid,
+                             t.m_pad).numpy(),
+        _long_rows(be.in_indptr.numpy()))
+    n_per, _, loc = _source_bins(t, 4)
+    walk = segment.partition_walk(T(loc), n_per, t.n_pad)
+    got = segment.combine_plan(walk.indptr, walk.order, None, None,
+                               loc.size).numpy()
+    np.testing.assert_array_equal(got, want)
+    ip, order = T(t.out_indptr), T(t.out_perm)
+    for bad, what in ((ip + 1, "not a CSR"), (ip.flip(0).contiguous(),
+                                               "not a CSR")):
+        with pytest.raises(ValueError, match=what):
+            segment.combine_plan(bad, order, None, None, t.m_pad)
+    with pytest.raises(ValueError, match="slots outside"):
+        segment.combine_plan(ip, order, None, None, t.m - 1)
+    perm = be.perm.clone()
+    counted = be.in_order[:int(be.in_indptr[-1])].long()
+    s = int(counted[be.valid[counted]][0])
+    perm[s] = t.m_pad
+    with pytest.raises(ValueError, match="payload rows outside"):
+        segment.combine_plan(be.in_indptr, be.in_order, perm, be.valid,
+                             t.m_pad)
+    free = torch.nonzero(~be.valid).reshape(-1)
+    if free.numel():
+        perm = be.perm.clone()
+        perm[free] = -7
+        segment.combine_plan(be.in_indptr, be.in_order, perm, be.valid,
+                             t.m_pad)
+
+
+def _pareto_payload(rng, dtype, shape):
+    if dtype == np.float32:
+        return rng.normal(size=shape).astype(np.float32)
+    if dtype == np.int32:
+        return rng.integers(-10**6, 10**6, shape).astype(np.int32)
+    x = rng.integers(-(1 << 62), 1 << 62, shape)
+    pick = rng.random(shape) < 0.2
+    x[pick] = rng.choice([-(1 << 63), (1 << 63) - 1, -1, 0], int(pick.sum()))
+    return x
+
+
+def _in_order(x, mask, indptr, order, op, k, m, n):
+    """The sequential walk the kernel keeps for every row: window w's row r
+    combines its entries in walk order (f32 sums bitwise)."""
+    fn = {"sum": np.add, "min": np.minimum, "max": np.maximum}[op]
+    out = np.full((k * n,) + x.shape[1:],
+                  segment.neutral(op, torch.from_numpy(x[:0]).dtype),
+                  x.dtype)
+    with np.errstate(over="ignore"):
+        for w in range(k):
+            for r in range(n):
+                for j in range(indptr[r], indptr[r + 1]):
+                    e = w * m + (j if order is None else order[j])
+                    if mask[e]:
+                        out[w * n + r] = fn(out[w * n + r], x[e])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int64])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_combine_twins_match_jax_on_pareto_sources(pareto, op, dtype):
+    """K7's and K7-P's twins at k 3 in the source direction of the Pareto
+    CSR (runs of up to 1,176 entries), every op and dtype: against the JAX
+    ``segment_combine`` over the flat source ids and the JAX
+    ``partition_segment_reduce`` over the same edges binned by source (K7-P
+    through ``partition_walk``, window by window); min, max and integer sums
+    bitwise, f32 sums within rtol 1e-5 / atol 1e-7 of JAX's scatter and
+    bitwise the sequential walk the kernel keeps."""
+    t, k = pareto, 3
+    rng = np.random.default_rng(11)
+    x = _pareto_payload(rng, dtype, k * t.m_pad)
+    mask = rng.random(k * t.m_pad) < 0.7
+    mask.reshape(k, t.m_pad)[:, t.m:] = False
+    csr = segment.SegmentCSR(T(t.e_src), T(t.out_indptr), T(t.out_perm))
+    flat = (t.e_src.astype(np.int64)[None, :]
+            + np.arange(k)[:, None] * t.n_pad).reshape(-1)
+    want = np.asarray(jseg.segment_combine(
+        jnp.asarray(x), jnp.asarray(flat, jnp.int32), k * t.n_pad, op,
+        jnp.asarray(mask), indices_are_sorted=False))
+    got = segment.segment_combine(T(x), csr, op, T(mask), k).numpy()
+    _same(got, want, op)
+    seq = _in_order(x, mask, t.out_indptr, t.out_perm, op, k, t.m_pad,
+                    t.n_pad)
+    np.testing.assert_array_equal(got, seq)
+    # K7-P: the same edges binned by source, the reference per window
+    P = 4
+    n_per, slot, loc = _source_bins(t, P)
+    B = loc.size
+    xb = np.zeros((k, B), x.dtype)
+    mb = np.zeros((k, B), bool)
+    xb[:, slot] = x.reshape(k, t.m_pad)[:, :t.m]
+    mb[:, slot] = mask.reshape(k, t.m_pad)[:, :t.m]
+    walk = segment.partition_walk(T(loc), n_per, t.n_pad)
+    got = segment.partition_reduce(T(xb.reshape(-1)), walk, op,
+                                   T(mb.reshape(-1)), k).numpy()
+    for w in range(k):
+        ref = np.asarray(jseg.partition_segment_reduce(
+            jnp.asarray(xb[w].reshape(P, -1)), jnp.asarray(loc), n_per,
+            t.n_pad, op, jnp.asarray(mb[w].reshape(P, -1))))
+        _same(got.reshape(k, t.n_pad)[w], ref, op)
+    np.testing.assert_array_equal(got, seq)
+
+
+def _model_combine(calls, kind):
+    """``rtpu_segment_combine`` (``kind`` "k7") or ``rtpu_partition_reduce``
+    ("k7p") as numpy over the wrapper's raw host addresses, as the kernel
+    takes it: the listed long rows (refused unless exactly the runs past 32
+    entries, longest first) and the short rows each combine in walk order,
+    except a long row's integers, which combine in a shuffled order (any
+    order is exact for them)."""
+    shuffle = np.random.default_rng(0)
+
+    def model(k, n, m, F, op, dtype, nl, indptr, *rest):
+        if kind == "k7":
+            order, long_rows, x, mask, out, _ = rest
+            perm = valid = None
+        else:
+            order, perm, valid, long_rows, x, mask, out, _ = rest
+        ip = _view(indptr, np.int64, n + 1)
+        lr = _view(long_rows, np.int32, nl)
+        assert lr.tolist() == _long_rows(ip).tolist()
+        nnz = int(ip[-1])
+        od = None if order is None else _view(order, np.int32, nnz)
+        B = int(od.max()) + 1 if od is not None and nnz else m
+        pm = None if perm is None else _view(perm, np.int32, B)
+        vd = None if valid is None else _view(valid, np.uint8, B)
+        dt = {0: np.float32, 1: np.int32, 2: np.int64}[dtype]
+        xs = _view(x, dt, k * m * F).reshape(k * m, F)
+        mk = _view(mask, np.uint8, k * m)
+        o = _view(out, dt, k * n * F).reshape(k * n, F)
+        fn = (np.add, np.minimum, np.maximum)[op]
+        calls.append(dict(nl=nl))
+        with np.errstate(over="ignore"):
+            for r in range(n):
+                js = np.arange(ip[r], ip[r + 1])
+                if r in set(lr.tolist()) and dt != np.float32:
+                    js = shuffle.permutation(js)
+                for w in range(k):
+                    acc = np.full(F, segment.neutral(
+                        ("sum", "min", "max")[op],
+                        torch.from_numpy(np.zeros(0, dt)).dtype), dt)
+                    for j in js:
+                        s = j if od is None else int(od[j])
+                        if vd is not None and not vd[s]:
+                            continue
+                        e = w * m + (s if pm is None else int(pm[s]))
+                        if mk[e]:
+                            acc = fn(acc, xs[e])
+                    o[w * n + r] = acc
+        return 0
+    return model
+
+
+@pytest.fixture
+def combine_card(monkeypatch):
+    """K7's and K7-P's card branch on CPU tensors through the numpy model,
+    a fresh signature cache, and the plans counted."""
+    calls, plans = [], []
+    plan = segment.combine_plan
+    monkeypatch.setattr(segment, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(segment, "_stream", lambda t: 0)
+    monkeypatch.setattr(segment, "_fn", lambda lib, fn: _model_combine(
+        calls, "k7" if fn == "rtpu_segment_combine" else "k7p"))
+    monkeypatch.setattr(segment, "combine_plan",
+                        lambda *a: plans.append(a) or plan(*a))
+    monkeypatch.setattr(columns, "_K2_SIGS", {})
+    columns.reset_launches()
+    yield calls, plans
+    columns.reset_launches()
+
+
+def _runs_csr(rng, runs, permuted):
+    """A CSR whose rows have the given run lengths (long rows of 33, 40 and
+    1,100 entries among short ones), its edges in engine order shuffled
+    when ``permuted`` (the source direction: walked through ``perm``, a
+    stable sort by row, as ``out_perm`` is)."""
+    ids = np.repeat(np.arange(len(runs)), runs).astype(np.int32)
+    m = len(ids)
+    indptr = np.concatenate([[0], np.cumsum(runs)]).astype(np.int64)
+    if not permuted:
+        return segment.SegmentCSR(T(ids), T(indptr), None), m
+    e_ids = ids[rng.permutation(m)]
+    perm = np.argsort(e_ids, kind="stable").astype(np.int32)
+    return segment.SegmentCSR(T(e_ids), T(indptr), T(perm)), m
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["dst", "src"])
+def test_combine_card_branch_one_launch_checks_once(combine_card, permuted):
+    """The card branch of K7 and K7-P through the model: every op and dtype
+    at k 1 and 3 with a feature axis, bitwise the twins (f32 sums too: both
+    add in walk order), one launch a call, the long rows passed; the walk's
+    plan made once for every call over it, and again after an in-place
+    change of the walk."""
+    calls, plans = combine_card
+    rng = np.random.default_rng(2 + permuted)
+    runs = [0, 3, 33, 7, 40, 1, 0, 1100, 32, 5]
+    csr, m = _runs_csr(rng, runs, permuted)
+    walk = segment.PartitionWalk(csr.indptr, csr.perm if permuted else
+                                 T(np.arange(m, dtype=np.int32)), None, None)
+    n = len(runs)
+    cases = 0
+    for dtype in (np.float32, np.int32, np.int64):
+        for k, F in ((1, 0), (3, 2)):
+            x = T(_pareto_payload(rng, dtype, (k * m,) + ((F,) if F else ())))
+            mask = T(rng.random(k * m) < 0.8)
+            for op in ("sum", "min", "max"):
+                got = segment.segment_combine(x, csr, op, mask, k)
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(segment, "_on_cuda", lambda *a: False)
+                    mp.setattr(columns, "_on_cuda", lambda *a: False)
+                    want = segment.segment_combine(x, csr, op, mask, k)
+                    wantp = segment.partition_reduce(x, walk, op, mask, k)
+                assert got.shape == (k * n,) + x.shape[1:]
+                assert torch.equal(got, want)
+                assert torch.equal(segment.partition_reduce(
+                    x, walk, op, mask, k), wantp)
+                assert torch.equal(wantp, want)
+                cases += 2
+    assert columns.LAUNCHES["segment_combine"] \
+        + columns.LAUNCHES["segment_combine_i64"] == cases // 2
+    assert columns.LAUNCHES["partition_segment_reduce"] \
+        + columns.LAUNCHES["partition_segment_reduce_i64"] == cases // 2
+    assert len(calls) == cases and all(c["nl"] == 3 for c in calls)
+    assert len(plans) == 2                    # one a walk, K7's and K7-P's
+    # a walk changed in place is planned again (row 1 made long, row 2
+    # short)
+    csr.indptr[2] += 30
+    x = T(_pareto_payload(rng, np.int32, m))
+    mask = T(rng.random(m) < 0.8)
+    segment.segment_combine(x, csr, "sum", mask, 1)
+    assert len(plans) == 3 and calls[-1]["nl"] == 3
+    csr.indptr[1] = -1
+    with pytest.raises(ValueError, match="not a CSR"):
+        segment.segment_combine(x, csr, "sum", mask, 1)
+
+
+def test_combine_card_branch_checks_the_payload_every_call(combine_card):
+    """The walk and the mask are checked once a signature; the payload at
+    every call: its dtype, contiguity, device, and the grid rows its
+    features and windows take."""
+    rng = np.random.default_rng(4)
+    csr, m = _runs_csr(rng, [2, 3, 1], False)
+    mask = T(np.ones(m, bool))
+    x = T(np.arange(m, dtype=np.float32))
+    segment.segment_combine(x, csr, "sum", mask, 1)
+    with pytest.raises(TypeError, match="no kernel"):
+        segment.segment_combine(x.double(), csr, "sum", mask, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment.segment_combine(T(np.zeros((2, m), np.float32)).t(), csr,
+                                "sum", mask, 1)
+    with pytest.raises(ValueError, match="grid rows"):
+        segment.segment_combine(torch.zeros((m, 70_000)), csr, "sum", mask,
+                                1)
+    with pytest.raises(ValueError, match="several devices|mask on"):
+        segment.segment_combine(x.to("meta"), csr, "sum", mask, 1)
