@@ -33,9 +33,20 @@ printing one JSON line:
               call; also ``segment_combine_out_degree``, bitcoin_range's
               int32 out-degree call over its Pareto senders, timed beside
               ``index_add_``) bitwise but for its float sums against the
-              twin on the card (rtol 1e-5 / atol 1e-7), K9a (delta
-              apply, int32 and int64), K9b (window masks, k = 1 and 3)
-              and K8u (mask unpack) bitwise; K3 (host-column masks, GAB
+              twin on the card (rtol 1e-5 / atol 1e-7); K7, K7-P and
+              K7-mode past 65,535 grid rows (F * k features x windows,
+              k windows) one launch a group of 65,535, bitwise their
+              twins, and one launch at the limit (``grid_split``); K9a
+              (one packed chunk a call, staged in pinned memory and
+              uploaded in one non-blocking copy, int32 and int64, at the
+              GAB and the past-cap job's capacities; ``calls`` gives the
+              hop's upload + wrapper), K9b (bounds by value, 32 windows a
+              launch: GAB k 1, Bitcoin k 3, GAB k 40, int64) and K8u
+              (mask unpack) bitwise; a ``sync_check`` line: one resident
+              hop's chunk upload, K9a and K9b under
+              ``torch.cuda.set_sync_debug_mode("error")``, and their
+              synchronizing calls counted under ``"warn"`` (the
+              parent's too); K3 (host-column masks, GAB
               tables, int32 and int64) and K4 (scale masks at the scale
               sweep's shape, engine-order and binned through a synthetic
               layout, two launches a call, and ``k4_edge_cases``)
@@ -65,7 +76,12 @@ printing one JSON line:
 7. job      — ``TemporalGraph`` + ``AnalysisManager`` PageRank, CC and
               weighted SSSP Range jobs, and a PageRank Range of 1,025
               views, one past the columnar route's cap, which declines
-              it: the job ends ``done`` on the resident ``DeviceSweep``.
+              it: the job ends ``done`` on the resident ``DeviceSweep``
+              (one K9a and one K9b launch a hop; the kernels line's K9a /
+              K9b launches are this job's), its 1,025 rows held against
+              the same job on the CPU twins (rtol 1e-5 / atol 1e-7, equal
+              supersteps); each job's wall seconds and views/s, the
+              past-cap sweep's ``fold_s`` / ``dispatch_s`` / ``ship_bytes``.
 8. gab_pr_view — the GAB PageRank View (``bench.py:bench_gab_pr_view``):
               PageRank(max_steps=20, tol=1e-7) View jobs at 0.90 (cold:
               pin + first dispatch), then 0.92 .. 1.0 x t_span (warm),
@@ -229,19 +245,22 @@ mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
 unpacked with ``git archive``: ``Parent`` binds its C entry points), K1
 ``masks_from_deltas``, K6w ``weights_from_deltas``, K7
-``segment_combine``, K7-P ``partition_reduce`` and K7-mode
-``segment_mode`` as DIR's ``masks.cu`` and ``segment.cu`` build them,
-each inside a copy of DIR's wrapper, are held BITWISE against this
-tree's and timed in turns with them (CUDA events, and device time from
-the profiler): K1 at the headline's edge and vertex calls, on its edge
-cases and on the ``scale`` phase's edge payload; K6w on both ``h0``
-settings at the LDBC length, a binned length and an H 70 call (timed at
-the first); K7 on every case of the kernels line (timed at the GAB View's
-f32 sum and at ``bitcoin_range``'s out-degree call) and its int64 edge
-cases, K7-P on the cold GAB View's layout (timed there) and both at the
-taint shape (timed); K7-mode on its synthetic inboxes, at the cold GAB
-View's shape and at the LDBC Range's: a ``parent`` line before
-``timing``.
+``segment_combine``, K7-P ``partition_reduce``, K7-mode ``segment_mode``,
+K9a ``apply_delta_chunk`` and K9b ``window_masks`` as DIR's ``masks.cu``,
+``segment.cu`` and ``sweep.cu`` build them, each inside a copy of DIR's
+wrapper (K9a behind DIR's eight-upload staging), are held BITWISE
+against this tree's and timed in turns with them (CUDA events, and
+device time from the profiler): K1 at the headline's edge and vertex
+calls, on its edge cases and on the ``scale`` phase's edge payload; K6w
+on both ``h0`` settings at the LDBC length, a binned length and an H 70
+call (timed at the first); K7 on every case of the kernels line (timed
+at the GAB View's f32 sum and at ``bitcoin_range``'s out-degree call)
+and its int64 edge cases, K7-P on the cold GAB View's layout (timed
+there) and both at the taint shape (timed); K7-mode on its synthetic
+inboxes, at the cold GAB View's shape and at the LDBC Range's; K9a's hop
+(upload + wrapper) on a GAB chunk and on the past-cap job's chunk shape,
+K9b at GAB k 1, Bitcoin k 3 and GAB k 40 (timed), int64 (held): a
+``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -313,9 +332,9 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K1, K6w, K7, K7-P and K7-mode as the tree at DIR
-#: builds them (``Parent``), held against this tree's and timed in turns
-#: with them on the same inputs
+#: with ``--parent DIR``: K1, K6w, K7, K7-P, K7-mode, K9a and K9b as the
+#: tree at DIR builds them (``Parent``), held against this tree's and timed
+#: in turns with them on the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
@@ -323,22 +342,30 @@ PARENT_MS: dict = {}
 
 class Parent:
     """K1 ``masks_from_deltas``, K6w ``weights_from_deltas``, K7
-    ``segment_combine``, K7-P ``partition_reduce`` and K7-mode
-    ``segment_mode`` of another tree's ``masks.cu`` and ``segment.cu``,
-    through the C entry points they had before this tree redesigned K6w,
-    K7 and K7-P, each inside a copy of that tree's wrapper (its input
-    checks, allocations and call; the kernels line's ``ms`` has always
-    timed the wrapper): K1 ``(len, H, W, U, h0, tw | base_l, base_a,
-    d_pos, d_lat, d_alive, lo, nowin, adv_l, adv_a, touch, out, stream |
-    launched)``; K6w ``(len, H, U, h0 | d_pos, d_val, cur_w, out, stream |
-    launched)`` on a clone of the base (a scatter and a column pass a hop);
-    K7 ``(k, n, m, F, op, dtype | indptr, perm, x, mask, out, stream)`` and
-    K7-P ``(k, n, m, F, op, dtype | indptr, order, perm, valid, x, mask,
-    out, stream)``, one thread a (window, row, feature), every input
-    checked at every call; K7-mode ``(k, n, m, default, nl | indptr, perm,
+    ``segment_combine``, K7-P ``partition_reduce``, K7-mode
+    ``segment_mode``, K9a ``apply_delta_chunk`` and K9b ``window_masks`` of
+    another tree's ``masks.cu``, ``segment.cu`` and ``sweep.cu``, through
+    the C entry points they had before this tree split K7 / K7-mode past
+    65,535 grid rows and redesigned K9a and K9b, each inside a copy of that
+    tree's wrapper (its input checks, allocations and call; the kernels
+    line's ``ms`` has always timed the wrapper): K1 ``(len, H, W, U, h0,
+    tw | base_l, base_a, d_pos, d_lat, d_alive, lo, nowin, adv_l, adv_a,
+    touch, out, stream | launched)``; K6w ``(len, H, U, h0, tw | base,
+    d_pos, d_val, adv, touch, out, stream | launched)``; K7 ``(k, n, m, F,
+    op, dtype, nl | indptr, perm, long_rows, x, mask, out, stream)`` and
+    K7-P ``(k, n, m, F, op, dtype, nl | indptr, order, perm, valid,
+    long_rows, x, mask, out, stream)`` over this tree's ``combine_plan``,
+    the walk and mask checked once per signature (one launch, at most
+    65,535 grid rows); K7-mode ``(k, n, m, default, nl | indptr, perm,
     values, mask, long_rows, scratch, out, stream)`` over this tree's
-    ``mode_plan``. Built with ``columns.build``'s nvcc flags, both sources
-    at once. Its launches count nowhere."""
+    ``mode_plan``; K9a ``(n_pad, m_pad, cap_v, cap_e, tbytes | six
+    buffers, eight chunk arrays, stream)``, its 14 inputs checked every
+    call, behind the parent's staging (``apply_hop``: eight padded arrays,
+    each uploaded with its own blocking ``.to``); K9b ``(k, n, m, tbytes |
+    v_lat, v_alive, e_lat, e_alive, lo, nowin, v_out, e_out, stream)``, its
+    bounds made as two device tensors every call. Built with
+    ``columns.build``'s nvcc flags, all sources at once. Its launches count
+    nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
@@ -346,7 +373,7 @@ class Parent:
 
         libs = {}
         procs = []
-        for name in ("masks", "segment"):
+        for name in ("masks", "segment", "sweep"):
             src = os.path.join(root, "raphtory_tpu_torch", "csrc",
                                f"{name}.cu")
             with open(src, "rb") as f:
@@ -366,6 +393,7 @@ class Parent:
                 raise RuntimeError(f"parent build failed:\n{log.decode()}")
         masks = ctypes.CDLL(str(libs["masks"]))
         seg = ctypes.CDLL(str(libs["segment"]))
+        sweep = ctypes.CDLL(str(libs["sweep"]))
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         ref = ctypes.POINTER(i64)
 
@@ -377,10 +405,13 @@ class Parent:
                             6 * [i64] + 12 * [ptr] + [ref])
                     for t in ("i32", "i64")}
         self._k6w = bind(masks.rtpu_weights_from_deltas,
-                         4 * [i64] + 5 * [ptr] + [ref])
-        self._k7 = bind(seg.rtpu_segment_combine, 6 * [i64] + 6 * [ptr])
-        self._k7p = bind(seg.rtpu_partition_reduce, 6 * [i64] + 8 * [ptr])
+                         5 * [i64] + 7 * [ptr] + [ref])
+        self._k7 = bind(seg.rtpu_segment_combine, 7 * [i64] + 7 * [ptr])
+        self._k7p = bind(seg.rtpu_partition_reduce, 7 * [i64] + 9 * [ptr])
         self._mode = bind(seg.rtpu_segment_mode, 5 * [i64] + 8 * [ptr])
+        self._k9a = bind(sweep.rtpu_apply_delta_chunk,
+                         5 * [i64] + 15 * [ptr])
+        self._k9b = bind(sweep.rtpu_window_masks, 4 * [i64] + 9 * [ptr])
         self._c = columns
         self._ct = ctypes
         self.source = str(root)
@@ -423,57 +454,75 @@ class Parent:
                             h0: bool = False):
         import torch
 
-        name, ex = "weights_from_deltas", self._c._expect
-        n = base_w.shape[0]
-        U = d_pos.shape[1] if d_pos.dim() == 2 else -1
-        ex(name, base_w, "base_w", (torch.float32,), (n,))
-        ex(name, d_pos, "d_pos", (torch.int32,), (H, U))
-        ex(name, d_val, "d_val", (torch.float32,), (H, U))
-        self._c._on_cuda(name, base_w, d_pos, d_val)
-        cur = base_w.clone()
-        out = torch.empty((n, H), dtype=torch.float32, device=cur.device)
-        self._ok("K6w", self._k6w(
-            n, H, U, int(bool(h0)), d_pos.data_ptr(), d_val.data_ptr(),
-            cur.data_ptr(), out.data_ptr(), self._c._stream(out),
-            self._ct.byref(self._ct.c_int64(0))))
-        return out, cur
+        name, c = "weights_from_deltas", self._c
 
-    def _payload(self, name, data, k: int, m: int):
-        """(F, dtype code) of a K7 / K7-P payload, checked as the parent's
-        wrappers checked it."""
+        def check():
+            n = base_w.shape[0]
+            U = d_pos.shape[1] if d_pos.dim() == 2 else -1
+            c._expect(name, base_w, "base_w", (torch.float32,), (n,))
+            c._expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
+            c._expect(name, d_val, "d_val", (torch.float32,), (H, U))
+            c._on_cuda(name, base_w, d_pos, d_val)
+            return n, U
+
+        n, U = c._k2_checked("parent " + name, (base_w, d_pos, d_val), H,
+                             check)
+        out = base_w.new_empty((n, H))
+        adv = base_w.new_empty(n)
+        tw = c._touch_words(H)
+        stream = c._stream(out)
+        touch = c._touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
+        self._ok("K6w", self._k6w(
+            n, H, U, int(bool(h0)), tw, base_w.data_ptr(), d_pos.data_ptr(),
+            d_val.data_ptr(), adv.data_ptr(), touch.data_ptr(),
+            out.data_ptr(), stream, self._ct.byref(self._ct.c_int64(0))))
+        return out, adv
+
+    def _payload(self, name, data, k: int):
+        """F of a K7 / K7-P payload, checked as the parent's wrappers
+        checked it (at most 65,535 grid rows)."""
+        import math
+
         from raphtory_tpu_torch.ops import segment
 
         if data.dtype not in segment._KERNEL_DTYPES:
             raise TypeError(f"parent {name}: no kernel for {data.dtype}")
-        self._c._expect(name, data, "data", (data.dtype,), tuple(data.shape))
-        return (data[0].numel() if k * m else 1,
-                segment._KERNEL_DTYPES[data.dtype])
+        if not data.is_contiguous():
+            raise ValueError(f"parent {name}: data is not contiguous")
+        F = math.prod(data.shape[1:])
+        if F * k > 65_535:
+            raise ValueError(f"parent {name}: {F} features x {k} windows")
+        return F
 
     def segment_combine(self, data, csr, op: str, mask, k: int = 1):
         import torch
 
         from raphtory_tpu_torch.ops import segment
 
-        name, ex = "segment_combine", self._c._expect
+        name, c = "segment_combine", self._c
         m, n = csr.ids.shape[0], csr.n
         if data.dim() == 0 or data.shape[0] != k * m:
             raise ValueError(f"parent {name}: bad payload shape")
-        ex(name, mask, "mask", (torch.bool,), (k * m,))
-        ex(name, csr.ids, "ids", (torch.int32,), (m,))
-        ex(name, csr.indptr, "indptr", (torch.int64,), (n + 1,))
-        tensors = (data, mask, csr.ids, csr.indptr)
-        if csr.perm is not None:
-            ex(name, csr.perm, "perm", (torch.int32,), (csr.perm.shape[0],))
-            tensors += (csr.perm,)
-        self._c._on_cuda(name, *tensors)
-        F, dt = self._payload(name, data, k, m)
+        perm = () if csr.perm is None else (csr.perm,)
+
+        def check():
+            c._expect(name, mask, "mask", (torch.bool,), (k * m,))
+            segment._check_csr(name, csr, m)
+            c._on_cuda(name, data, mask, csr.ids, csr.indptr, *perm)
+            return segment.combine_plan(csr.indptr, csr.perm, None, None, m)
+
+        long_rows = c._k2_checked("parent " + name,
+                                  (mask, csr.ids, csr.indptr, *perm), k,
+                                  check)
+        F = self._payload(name, data, k)
         out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                           device=data.device)
         self._ok("K7", self._k7(
-            k, n, m, F, segment._OPS[op], dt, csr.indptr.data_ptr(),
+            k, n, m, F, segment._OPS[op], segment._KERNEL_DTYPES[data.dtype],
+            long_rows.shape[0], csr.indptr.data_ptr(),
             None if csr.perm is None else csr.perm.data_ptr(),
-            data.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            self._c._stream(data)))
+            long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), c._stream(data)))
         return out
 
     def partition_reduce(self, data, walk, op: str, mask, k: int = 1):
@@ -481,30 +530,34 @@ class Parent:
 
         from raphtory_tpu_torch.ops import segment
 
-        name, ex = "partition_segment_reduce", self._c._expect
+        name, c = "partition_segment_reduce", self._c
         if data.dim() == 0 or k <= 0 or data.shape[0] % k:
             raise ValueError(f"parent {name}: bad payload shape")
         m, n = data.shape[0] // k, walk.n
-        ex(name, mask, "mask", (torch.bool,), (k * m,))
-        ex(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
-        ex(name, walk.order, "order", (torch.int32,), (walk.order.shape[0],))
-        tensors = (data, mask, walk.indptr, walk.order)
-        for what, t, dt in (("perm", walk.perm, torch.int32),
-                            ("valid", walk.valid, torch.bool)):
-            if t is not None:
-                ex(name, t, what, (dt,), (t.shape[0],))
-                tensors += (t,)
-        self._c._on_cuda(name, *tensors)
-        F, dt = self._payload(name, data, k, m)
+        extra = tuple(t for t in (walk.perm, walk.valid) if t is not None)
+
+        def check():
+            c._expect(name, mask, "mask", (torch.bool,), (k * m,))
+            c._expect(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
+            c._expect(name, walk.order, "order", (torch.int32,),
+                      (walk.order.shape[0],))
+            c._on_cuda(name, data, mask, walk.indptr, walk.order, *extra)
+            return segment.combine_plan(walk.indptr, walk.order, walk.perm,
+                                        walk.valid, m)
+
+        long_rows = c._k2_checked(
+            "parent " + name, (mask, walk.indptr, walk.order, *extra),
+            (k, walk.perm is None, walk.valid is None), check)
+        F = self._payload(name, data, k)
         out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                           device=data.device)
         self._ok("K7-P", self._k7p(
-            k, n, m, F, segment._OPS[op], dt, walk.indptr.data_ptr(),
-            walk.order.data_ptr(),
+            k, n, m, F, segment._OPS[op], segment._KERNEL_DTYPES[data.dtype],
+            long_rows.shape[0], walk.indptr.data_ptr(), walk.order.data_ptr(),
             None if walk.perm is None else walk.perm.data_ptr(),
             None if walk.valid is None else walk.valid.data_ptr(),
-            data.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            self._c._stream(data)))
+            long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), c._stream(data)))
         return out
 
     def segment_mode(self, values, seg, num_segments: int, mask=None,
@@ -522,6 +575,8 @@ class Parent:
                             "int32")
         if not -(1 << 31) <= int(default) < (1 << 31):
             raise ValueError(f"parent {name}: default is not an int32")
+        if k > 65_535:
+            raise ValueError(f"parent {name}: {k} windows")
         plan = segment._mode_plan_of(name, seg, m)
         out = values.new_empty(k * n)
         scratch = values.new_empty(k * m) if plan.needs_scratch else None
@@ -534,6 +589,74 @@ class Parent:
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             self._c._stream(values)))
         return out
+
+    def apply_delta_chunk(self, bufs, chunk) -> None:
+        """The parent's K9a wrapper over eight chunk tensors on the card."""
+        import torch
+
+        name, ex = "apply_delta_chunk", self._c._expect
+        n_pad, m_pad = bufs[0].shape[0], bufs[3].shape[0]
+        cap_v, cap_e = chunk[0].shape[0], chunk[4].shape[0]
+        tdt = bufs[0].dtype
+        for t, what, dts, shape in (
+                (bufs[0], "v_lat", (tdt,), (n_pad,)),
+                (bufs[1], "v_alive", (torch.bool,), (n_pad,)),
+                (bufs[2], "v_first", (tdt,), (n_pad,)),
+                (bufs[3], "e_lat", (tdt,), (m_pad,)),
+                (bufs[4], "e_alive", (torch.bool,), (m_pad,)),
+                (bufs[5], "e_first", (tdt,), (m_pad,)),
+                (chunk[0], "v_idx", (torch.int32,), (cap_v,)),
+                (chunk[1], "vd_lat", (tdt,), (cap_v,)),
+                (chunk[2], "vd_alive", (torch.bool,), (cap_v,)),
+                (chunk[3], "vd_first", (tdt,), (cap_v,)),
+                (chunk[4], "e_idx", (torch.int32,), (cap_e,)),
+                (chunk[5], "ed_lat", (tdt,), (cap_e,)),
+                (chunk[6], "ed_alive", (torch.bool,), (cap_e,)),
+                (chunk[7], "ed_first", (tdt,), (cap_e,))):
+            ex(name, t, what, dts, shape)
+        self._c._on_cuda(name, *bufs, *chunk)
+        self._ok("K9a", self._k9a(
+            n_pad, m_pad, cap_v, cap_e, tdt.itemsize,
+            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in chunk),
+            self._c._stream(bufs[0])))
+
+    def apply_hop(self, bufs, arrays) -> None:
+        """The parent's device half of one chunk: the eight padded host
+        arrays (``DeviceSweep._stage_chunk``'s) each uploaded with a
+        blocking ``.to``, then its K9a wrapper."""
+        import torch
+
+        dev = bufs[0].device
+        self.apply_delta_chunk(bufs, tuple(torch.from_numpy(a).to(dev)
+                                           for a in arrays))
+
+    def window_masks(self, v_lat, v_alive, e_lat, e_alive, T: int,
+                     windows):
+        """The parent's K9b wrapper: its bounds two device tensors."""
+        import torch
+
+        name, ex = "window_masks", self._c._expect
+        n, m, k = v_lat.shape[0], e_lat.shape[0], len(windows)
+        tdt = v_lat.dtype
+        ex(name, v_lat, "v_lat", (tdt,), (n,))
+        ex(name, v_alive, "v_alive", (torch.bool,), (n,))
+        ex(name, e_lat, "e_lat", (tdt,), (m,))
+        ex(name, e_alive, "e_alive", (torch.bool,), (m,))
+        info = torch.iinfo(tdt)
+        lo = torch.tensor([min(max(int(T) - int(w), info.min), info.max)
+                           for w in windows], dtype=tdt,
+                          device=v_lat.device)
+        nowin = torch.tensor([int(w) < 0 for w in windows], dtype=torch.bool,
+                             device=v_lat.device)
+        self._c._on_cuda(name, v_lat, v_alive, e_lat, e_alive)
+        v_out = torch.empty((k, n), dtype=torch.bool, device=v_lat.device)
+        e_out = torch.empty((k, m), dtype=torch.bool, device=v_lat.device)
+        self._ok("K9b", self._k9b(
+            k, n, m, tdt.itemsize, v_lat.data_ptr(), v_alive.data_ptr(),
+            e_lat.data_ptr(), e_alive.data_ptr(), lo.data_ptr(),
+            nowin.data_ptr(), v_out.data_ptr(), e_out.data_ptr(),
+            self._c._stream(v_lat)))
+        return v_out, e_out
 
 
 #: alternating rounds ``vs_parent`` times this tree's and the parent's call
@@ -1966,14 +2089,16 @@ def phase_job(torch, np, columns, dev):
         PageRank
     from raphtory_tpu_torch.core.service import TemporalGraph
     from raphtory_tpu_torch.jobs.manager import AnalysisManager, RangeQuery
-    from raphtory_tpu_torch.utils.synth import gab_like_log, ldbc_like_log
+    from raphtory_tpu_torch.utils.synth import ldbc_like_log
 
     def run_job(log, prog, q, kernels):
         mgr = AnalysisManager(TemporalGraph(log, device=dev), device=dev)
         columns.reset_launches()
+        t0 = time.perf_counter()
         job = mgr.submit(prog, q)
         if not job.wait(600):
             raise AssertionError("job did not finish in 600 s")
+        seconds = time.perf_counter() - t0
         launches = dict(columns.LAUNCHES)
         rows = mgr.results(job.id)
         n_rows = len(range(q.start, q.end + 1, q.jump)) * len(q.windows)
@@ -1982,9 +2107,10 @@ def phase_job(torch, np, columns, dev):
                                  f"{len(rows)} rows, error {job.error}")
         check_launched(f"{type(prog).__name__} job", launches, kernels)
         return rows, dict(status=job.status, rows=len(rows),
-                          steps=rows[0]["steps"], launches=launches)
+                          steps=rows[0]["steps"], launches=launches,
+                          job_s=seconds, views_per_s=len(rows) / seconds)
 
-    gab = gab_like_log(3_000, 30_000, seed=3, t_span=100_000)
+    gab = past_cap_log()
     q = RangeQuery(start=40_000, end=100_000, jump=10_000,
                    windows=(100_000, 20_000, 5_000))
     rows, pr = run_job(gab, PageRank(tol=1e-7, max_steps=20), q,
@@ -2006,15 +2132,34 @@ def phase_job(torch, np, columns, dev):
     if not any(r["result"]["reached"] > 2 for r in rows):
         raise AssertionError("SSSP job reached no vertex past its seeds")
     # one view past the columnar route's 1,024-view cap: the route
-    # declines and the job runs on the resident DeviceSweep
-    q = RangeQuery(start=48_800, end=100_000, jump=50, windows=(20_000,))
-    rows, past = run_job(gab, PageRank(tol=1e-7, max_steps=20), q,
-                         RESIDENT_KERNELS)
+    # declines and the job runs on the resident DeviceSweep (one K9a chunk
+    # apply and one K9b call a hop, then the supersteps); its sweep is
+    # kept to read its fold and dispatch seconds
+    from raphtory_tpu_torch.jobs import manager
+
+    q = RangeQuery(**PAST_CAP_QUERY)
+    sweeps, made = [], manager.DeviceSweep
+    manager.DeviceSweep = lambda *a, **kw: sweeps.append(
+        made(*a, **kw)) or sweeps[-1]
+    try:
+        rows, past = run_job(gab, PageRank(tol=1e-7, max_steps=20), q,
+                             RESIDENT_KERNELS)
+    finally:
+        manager.DeviceSweep = made
     if past["launches"]["masks_from_deltas"] or len(rows) != 1_025:
         raise AssertionError("past-cap job took the columnar route")
     if any(abs(r["result"]["sum"] - 1.0) > 1e-4 for r in rows):
         raise AssertionError("past-cap job rank sums off 1")
+    ds = sweeps[-1]
+    past.update(fold_s=ds.fold_seconds, dispatch_s=ds.dispatch_seconds,
+                ship_bytes=ds.ship_bytes, n_pad=ds.n_pad, m_pad=ds.m_pad,
+                cap_v=ds.cap_v, cap_e=ds.cap_e)
+    # the same job on the CPU twins: every row within the PageRank
+    # tolerance, equal supersteps
+    cpu_rows, past["cpu_job_s"] = past_cap_cpu_rows()
+    compare_rows("past-cap job", rows, cpu_rows)
     emit("job", pagerank=pr, cc=cc, sssp=sssp, pagerank_past_cap=past)
+    return past["launches"]
 
 
 def k7_launches() -> int:
@@ -2031,12 +2176,343 @@ def within_tol(got, want) -> bool:
     return not bool((err > 1e-7 + 1e-5 * want.double().abs()).any())
 
 
+def past_cap_log():
+    """The ``job`` phase's GAB log, whose 1,025-view PageRank Range runs
+    on the resident ``DeviceSweep`` (the past-cap route)."""
+    from raphtory_tpu_torch.utils.synth import gab_like_log
+
+    return gab_like_log(3_000, 30_000, seed=3, t_span=100_000)
+
+
+#: the past-cap job's query (``phase_job``)
+PAST_CAP_QUERY = dict(start=48_800, end=100_000, jump=50, windows=(20_000,))
+#: the child process running the past-cap job on the CPU twins
+#: (``start_past_cap_cpu``), started before the kernels are built
+PAST_CAP_CPU = None
+#: the child's program: the past-cap job on the CPU, its rows and wall
+#: seconds as one JSON line
+PAST_CAP_CPU_CODE = """
+import json, os, sys, time
+os.nice(19)
+import torch
+torch.set_num_threads(1)
+import chip_smoke as cs
+from raphtory_tpu_torch.algorithms import PageRank
+from raphtory_tpu_torch.core.service import TemporalGraph
+from raphtory_tpu_torch.jobs.manager import AnalysisManager, RangeQuery
+mgr = AnalysisManager(TemporalGraph(cs.past_cap_log(), device="cpu"),
+                      device="cpu")
+t0 = time.perf_counter()
+job = mgr.submit(PageRank(tol=1e-7, max_steps=20),
+                 RangeQuery(**cs.PAST_CAP_QUERY))
+if not job.wait(1200) or job.status != "done":
+    sys.exit(f"CPU past-cap job {job.status}: {job.error}")
+print(json.dumps(dict(job_s=time.perf_counter() - t0,
+                      rows=mgr.results(job.id))))
+"""
+
+
+def start_past_cap_cpu():
+    """Start the past-cap job on the CPU twins in a child process (one
+    torch thread, lowest priority), so that its 1,025 reference rows are
+    made while the kernels build; ``phase_job`` reads them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.Popen([sys.executable, "-c", PAST_CAP_CPU_CODE],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def past_cap_cpu_rows():
+    """The CPU reference of the past-cap job (``start_past_cap_cpu``'s
+    child): its rows and wall seconds."""
+    out, err = PAST_CAP_CPU.communicate(timeout=1200)
+    if PAST_CAP_CPU.returncode:
+        raise AssertionError(f"CPU past-cap job exited "
+                             f"{PAST_CAP_CPU.returncode}: {err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    return got["rows"], got["job_s"]
+
+
+#: with ``--parent``: the past-cap job on the card in a child process of
+#: either tree (``past_cap_in_turns``), after a warm-up of two resident
+#: hops; its wall, fold and dispatch seconds, the host seconds its hops
+#: spent staging delta chunks (``stage_s``, inside ``fold_s``), shipping and
+#: applying them (``apply_s``: the chunk hops' ``_apply_staged``, K9a) and
+#: making the window masks (``masks_s``, K9b), both inside
+#: ``dispatch_s``, and its rows, as one JSON line
+PAST_CAP_CARD_CODE = """
+import json, sys, time
+import torch
+from raphtory_tpu_torch.algorithms import PageRank
+from raphtory_tpu_torch.core.service import TemporalGraph
+from raphtory_tpu_torch.engine import device_sweep as tds
+from raphtory_tpu_torch.jobs import manager
+from raphtory_tpu_torch.ops import columns
+from raphtory_tpu_torch.utils.synth import gab_like_log
+spent = dict(stage_s=0.0, apply_s=0.0, masks_s=0.0)
+def clocked(fn, key, when=lambda *a: True):
+    def run(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            if when(*a):
+                spent[key] += time.perf_counter() - t
+    return run
+D = tds.DeviceSweep
+D._stage_chunk = clocked(D._stage_chunk, "stage_s")
+D._apply_staged = clocked(D._apply_staged, "apply_s",
+                          lambda ds, p: p["kind"] == "chunks")
+tds.window_masks = clocked(tds.window_masks, "masks_s")
+columns.build()
+log = gab_like_log(3_000, 30_000, seed=3, t_span=100_000)
+warm = D(log, device="cuda")
+for T in (60_000, 60_050):
+    warm.run(PageRank(tol=1e-7, max_steps=20), T, windows=[20_000])
+spent.update(stage_s=0.0, apply_s=0.0, masks_s=0.0)
+sweeps, made = [], manager.DeviceSweep
+manager.DeviceSweep = lambda *a, **kw: sweeps.append(
+    made(*a, **kw)) or sweeps[-1]
+mgr = manager.AnalysisManager(TemporalGraph(log, device="cuda"),
+                              device="cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+job = mgr.submit(PageRank(tol=1e-7, max_steps=20), manager.RangeQuery(
+    start=48_800, end=100_000, jump=50, windows=(20_000,)))
+if not job.wait(600) or job.status != "done":
+    sys.exit(f"past-cap job {job.status}: {job.error}")
+torch.cuda.synchronize()
+job_s = time.perf_counter() - t0
+ds = sweeps[-1]
+print(json.dumps(dict(job_s=job_s, fold_s=ds.fold_seconds,
+                      dispatch_s=ds.dispatch_seconds,
+                      ship_bytes=ds.ship_bytes, **spent,
+                      rows=mgr.results(job.id))))
+"""
+
+
+def past_cap_in_turns(root: str) -> dict:
+    """The past-cap job on the card through the parent's whole package
+    (``root`` must hold it) and this tree's, each in a child process of
+    its own, in turns: parent, this, this, parent, parent, this (medians
+    of 3). Every run's rows held against the first's (the PageRank
+    tolerance, equal supersteps)."""
+    import statistics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.exists(os.path.join(root, "raphtory_tpu_torch",
+                                       "__init__.py")):
+        return dict(skipped=f"{root} holds no raphtory_tpu_torch package")
+    runs, first = {"parent": [], "this": []}, None
+    for who in ("parent", "this", "this", "parent", "parent", "this"):
+        tree = root if who == "parent" else here
+        proc = subprocess.run(
+            [sys.executable, "-c", PAST_CAP_CARD_CODE], cwd=tree,
+            env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"past-cap job in {who}'s tree exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows = got.pop("rows")
+        if first is None:
+            first = rows
+        compare_rows(f"past-cap job, {who}'s tree", rows, first)
+        runs[who].append(got)
+    med = {who: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for who, rs in runs.items()}
+    return dict(runs=runs, median=med, ratio={
+        k: med["this"][k] / med["parent"][k]
+        for k in ("job_s", "dispatch_s", "fold_s", "stage_s", "apply_s",
+                  "masks_s")})
+
+
+def past_cap_shape(dev) -> tuple:
+    """``(n_pad, m_pad)`` of the past-cap job's resident buffers."""
+    from raphtory_tpu_torch.engine.device_sweep import GlobalTables
+    from raphtory_tpu_torch.core.sweep import SweepBuilder
+
+    t = GlobalTables(SweepBuilder(past_cap_log(), track_rows=False,
+                                  preseed_pairs=True))
+    return t.n_pad, t.m_pad
+
+
+def k9a_case(torch, np, resident, rng, n_pad, m_pad, cap_v, cap_e, tdt, tt,
+             dev) -> dict:
+    """One K9a chunk (rows over half to all of each capacity, an index
+    past the buffer and a negative one, times at the dtype's limits)
+    staged as the path stages it (``pack_chunk`` in pinned memory, one
+    non-blocking upload) and applied, held BITWISE against the twin on the
+    same chunk and (``--parent``) against the parent's staging and
+    kernel (its eight padded arrays uploaded one by one)."""
+    info = np.iinfo(tdt)
+    edge = np.array([info.min, info.min + 1, -5, 0, 7, info.max - 1,
+                     info.max], tdt)
+
+    def rows(cap, length):
+        kk = min(int(rng.integers(cap // 2, cap + 1)), length)
+        idx = rng.choice(length, kk, replace=False).astype(np.int32)
+        if kk >= 3:
+            idx[0], idx[1] = length, -1                 # skipped
+        return (idx, rng.choice(edge, kk).astype(tdt), rng.random(kk) < 0.5,
+                rng.choice(edge, kk).astype(tdt))
+
+    arrays = rows(cap_v, n_pad) + rows(cap_e, m_pad)
+    live = sum(int(((a >= 0) & (a < ln)).sum())
+               for a, ln in ((arrays[0], n_pad), (arrays[4], m_pad)))
+    packed = resident.pack_chunk(arrays, cap_v, cap_e, tt, pin=True)
+    padded = tuple(a.numpy().copy() for a in packed.arrays())
+    base = tuple(torch.from_numpy(rng.choice(edge, ln).astype(tdt)).to(dev)
+                 if i % 3 != 1 else
+                 torch.from_numpy(rng.random(ln) < 0.5).to(dev)
+                 for i, ln in enumerate((n_pad,) * 3 + (m_pad,) * 3))
+    got = tuple(b.clone() for b in base)
+    want = tuple(b.clone() for b in base)
+    par = tuple(b.clone() for b in base)
+    resident.apply_delta_chunk(got, packed._replace(
+        data=packed.data.to(dev, non_blocking=True)))
+    on_card = tuple(torch.from_numpy(a).to(dev) for a in padded)
+    resident.apply_delta_chunk_plain(want, on_card)
+    if PARENT is not None:
+        PARENT.apply_hop(par, padded)
+    err = 0.0
+    for g, w, x in zip(got, want, par if PARENT is not None else want):
+        if not (torch.equal(g, w) and torch.equal(g, x)):
+            raise AssertionError(f"K9a differs from its twin or the "
+                                 f"parent's (n_pad={n_pad}, "
+                                 f"{tdt.__name__})")
+        err = max(err, exact_err(g, w))
+    return dict(err=err, got=got, want=want, packed=packed, padded=padded,
+                parent_bufs=par, on_card=on_card, live=live, cap_v=cap_v,
+                cap_e=cap_e, n_pad=n_pad, m_pad=m_pad,
+                shape=f"n_pad={n_pad} m_pad={m_pad} cap_v={cap_v} "
+                      f"cap_e={cap_e} {tdt.__name__} live={live}")
+
+
+def sync_check(torch, np, resident, dev) -> dict:
+    """One resident hop of the past-cap job's sweep — its chunk upload
+    (``DeviceSweep._apply_staged``: one non-blocking copy from pinned
+    memory) plus K9a, then K9b — under ``torch.cuda.set_sync_debug_mode(
+    "error")``: it raises on a synchronizing call. Then the same hop's
+    synchronizing calls counted under ``"warn"``, this tree's and (with
+    ``--parent``) the parent's staging, K9a and K9b."""
+    import warnings
+
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+
+    ds = DeviceSweep(past_cap_log(), device=dev)
+    ds.advance(48_800)                       # the first hop: a full state
+    par = tuple(b.clone() for b in ds._bufs)
+    payloads = [ds._fold_hop_inner(T) for T in (48_850, 48_900)]
+    if any(p["kind"] != "chunks" for p in payloads):
+        raise AssertionError("sync check: a hop took no delta chunk")
+    windows = [20_000]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ds._apply_staged(payloads[0])
+        v_lat, v_alive, _, e_lat, e_alive, _ = ds._bufs
+        resident.window_masks(v_lat, v_alive, e_lat, e_alive, 48_850,
+                              windows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    def count(fn) -> int:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in rec)
+
+    def this_tree():
+        ds._apply_staged(payloads[1])
+        resident.window_masks(*(ds._bufs[i] for i in (0, 1, 3, 4)), 48_900,
+                              windows)
+
+    out = dict(error_mode="passed", chunks=len(payloads[1]["chunks"]),
+               warnings=count(this_tree))
+    if PARENT is not None:
+        arrays = [tuple(a.numpy() for a in c.arrays())
+                  for c in payloads[1]["chunks"]]
+
+        def parent():
+            for a in arrays:
+                PARENT.apply_hop(par, a)
+            PARENT.window_masks(*(par[i] for i in (0, 1, 3, 4)), 48_900,
+                                windows)
+        out["parent_warnings"] = count(parent)
+    return out
+
+
+def grid_split_cases(torch, np, segment, dev) -> dict:
+    """K7, K7-P and K7-mode past the 65,535 grid rows of one launch (F * k
+    features x windows for K7 / K7-P, k windows for K7-mode), on a small
+    CSR with an empty row: one launch a group of 65,535 rows, BITWISE the
+    twin (int32 sum, f32 max), and at the limit one launch."""
+    from raphtory_tpu_torch.ops import columns
+
+    rng = np.random.default_rng(16)
+    runs = [2, 0, 3, 1, 40, 7]
+    n, m = len(runs), int(sum(runs))
+    ids = np.repeat(np.arange(n), runs).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(runs)]).astype(np.int64)
+    csr = segment.SegmentCSR(torch.from_numpy(ids).to(dev),
+                             torch.from_numpy(indptr).to(dev), None)
+    walk = segment.PartitionWalk(csr.indptr, torch.arange(
+        m, dtype=torch.int32, device=dev), None, None)
+    cases = []
+    for k, F, want_l in ((1, 65_535, 1), (1, 65_537, 2), (3, 21_846, 2)):
+        for dt, op in (("i32", "sum"), ("f32", "max")):
+            x = (rng.integers(-1000, 1000, (k * m, F)).astype(np.int32)
+                 if dt == "i32" else
+                 rng.random((k * m, F)).astype(np.float32))
+            x = torch.from_numpy(x).to(dev)
+            mask = torch.from_numpy(rng.random(k * m) < 0.8).to(dev)
+            want = segment.segment_combine_plain(x, csr, op, mask, k)
+            for name, fn in (("segment_combine", lambda: segment.
+                              segment_combine(x, csr, op, mask, k)),
+                             ("partition_segment_reduce", lambda: segment.
+                              partition_reduce(x, walk, op, mask, k))):
+                before = columns.LAUNCHES[name]
+                got = fn()
+                launched = columns.LAUNCHES[name] - before
+                if launched != want_l or not torch.equal(got, want):
+                    raise AssertionError(f"{name} past the grid-row limit: "
+                                         f"k={k} F={F} {op} {dt}, "
+                                         f"{launched} launches")
+                cases.append(f"{name} k={k} F={F} {op} {dt}: {launched}")
+    for k, want_l in ((65_535, 1), (65_538, 2)):
+        v = torch.from_numpy(rng.integers(-1, 5, k * m).astype(
+            np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random(k * m) < 0.85).to(dev)
+        before = columns.LAUNCHES["segment_mode"]
+        got = segment.segment_mode(v, csr, k * n, mask, -1, k)
+        launched = columns.LAUNCHES["segment_mode"] - before
+        if launched != want_l or not torch.equal(
+                got, segment.segment_mode_plain(v, csr, k * n, mask, -1, k)):
+            raise AssertionError(f"segment_mode past the window limit: "
+                                 f"k={k}, {launched} launches")
+        cases.append(f"segment_mode k={k}: {launched}")
+    return dict(bitwise=len(cases), launches=cases)
+
+
 def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
                     dev):
     """K7, K9a, K9b and K8u against their twins on the card, at the shapes
     of the paths that run them: GAB (gab_pr_view, k = 1) and Bitcoin
-    (bitcoin_range, k = 3) tables, the GAB resident buffers and chunk
-    capacities, the LDBC cold view's masks."""
+    (bitcoin_range, k = 3) tables, the GAB and past-cap resident buffers
+    and chunk capacities, the LDBC cold view's masks; K7 / K7-P / K7-mode
+    past 65,535 grid rows (``grid_split_cases``); the ``sync_check``
+    line."""
+    from raphtory_tpu_torch.ops.columns import LAUNCHES
+
     rng = np.random.default_rng(2)
     out = {}
 
@@ -2168,103 +2644,128 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
               f"longest={int(lens.max())} live={live}",
         **dict(zip(("bound_ms", "bound_by"), src_bound)))
 
-    # ---- K9a: the GAB resident buffers and chunk capacities
-    n_pad, m_pad = gab.n_pad, gab.m_pad
-    cap_v, cap_e = max(1024, n_pad // 4), max(4096, m_pad // 16)
-    err9a, timed = 0.0, None
-    for tdt, tt in ((np.int32, torch.int32), (np.int64, torch.int64)):
-        info = np.iinfo(tdt)
-        edge = np.array([info.min, info.min + 1, -5, 0, 7, info.max - 1,
-                         info.max], tdt)
+    out["segment_combine"]["grid_split"] = grid_split_cases(
+        torch, np, segment, dev)
 
-        def rows(cap, length):
-            kk = int(rng.integers(cap // 2, cap))
-            idx = np.full(cap, 2**31 - 1, np.int32)
-            idx[:kk] = rng.choice(length, kk, replace=False)
-            return (idx, rng.choice(edge, cap).astype(tdt),
-                    rng.random(cap) < 0.5, rng.choice(edge, cap).astype(tdt))
+    # ---- K9a: one packed chunk a call (one upload from pinned memory),
+    # at the GAB resident buffers' capacities and at the past-cap job's
+    err9a, hops = 0.0, {}
+    for what, n_pad, m_pad in (("gab", gab.n_pad, gab.m_pad),
+                               ("past_cap", *past_cap_shape(dev))):
+        cap_v, cap_e = max(1024, n_pad // 4), max(4096, m_pad // 16)
+        for tdt, tt in ((np.int32, torch.int32), (np.int64, torch.int64)):
+            case = k9a_case(torch, np, resident, rng, n_pad, m_pad, cap_v,
+                            cap_e, tdt, tt, dev)
+            err9a = max(err9a, case["err"])
+            if tdt == np.int32:
+                hops[what] = case
+    calls9a = {}
+    for what, c in hops.items():
+        got, packed, padded, par = c["got"], c["packed"], c["padded"], \
+            c["parent_bufs"]
 
-        chunk = tuple(torch.from_numpy(a).to(dev)
-                      for a in rows(cap_v, n_pad) + rows(cap_e, m_pad))
-        base = (torch.full((n_pad,), info.min, dtype=tt, device=dev),
-                torch.zeros(n_pad, dtype=torch.bool, device=dev),
-                torch.full((n_pad,), info.min, dtype=tt, device=dev),
-                torch.full((m_pad,), info.min, dtype=tt, device=dev),
-                torch.zeros(m_pad, dtype=torch.bool, device=dev),
-                torch.full((m_pad,), info.min, dtype=tt, device=dev))
-        got = tuple(b.clone() for b in base)
-        want = tuple(b.clone() for b in base)
-        resident.apply_delta_chunk(got, chunk)
-        resident.apply_delta_chunk_plain(want, chunk)
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"K9a differs from its twin "
-                                     f"({tdt.__name__})")
-            err9a = max(err9a, exact_err(g, w))
-        if tdt == np.int32:
-            timed = (got, want, chunk)
-    got, want, chunk = timed
-    valid = [(c < 2**31 - 1) for c in (chunk[0], chunk[4])]
-    nv, ne = (int(v.sum()) for v in valid)
+        def hop(got=got, packed=packed):
+            resident.apply_delta_chunk(got, packed._replace(
+                data=packed.data.to(dev, non_blocking=True)))
+        bnd = bound((c["cap_v"] + c["cap_e"]) * 13 + c["live"] * 9)
+        if PARENT is not None:
+            vs_parent(torch, f"apply_delta_chunk hop {what}", hop,
+                      lambda par=par, padded=padded: PARENT.apply_hop(
+                          par, padded),
+                      iters=50, shape=c["shape"], bound_ms=bnd[0])
+        calls9a[what] = dict(hop_ms=cuda_ms(torch, hop, 50),
+                             hop_device_ms=device_ms(torch, hop, 50)[0],
+                             bound_ms=bnd[0], shape=c["shape"])
+    c = hops["gab"]
+    got, chunk = c["got"], c["on_card"]
+    valid = [(x >= 0) & (x < ln) for x, ln in ((chunk[0], c["n_pad"]),
+                                              (chunk[4], c["m_pad"]))]
     lib_rows = [(b, chunk[i].long()[valid[i // 4]], chunk[j][valid[i // 4]])
                 for b, i, j in ((got[0], 0, 1), (got[1], 0, 2),
                                 (got[2], 0, 3), (got[3], 4, 5),
                                 (got[4], 4, 6), (got[5], 4, 7))]
+    on_card = c["packed"]._replace(data=c["packed"].data.to(dev))
 
     def library():
         for b, p, v in lib_rows:
             b.index_put_((p,), v)
 
+    def k9a():
+        resident.apply_delta_chunk(got, on_card)
     out["apply_delta_chunk"] = dict(
         source="raphtory_tpu_torch/csrc/sweep.cu",
         replaces="raphtory_tpu/engine/device_sweep.py:239",
         max_abs_err=err9a,
-        ms=cuda_ms(torch, lambda: resident.apply_delta_chunk(got, chunk)),
+        # the wrapper and kernel on a chunk already on the card, as the
+        # kernels line always timed it; a hop's upload + wrapper in calls
+        ms=cuda_ms(torch, k9a), device_ms=device_ms(torch, k9a)[0],
         plain_ms=cuda_ms(torch, lambda: resident.apply_delta_chunk_plain(
-            want, chunk), iters=3),
+            c["want"], chunk), iters=3),
         # six index_put_ calls on the unpadded rows
         library_ms=cuda_ms(torch, library),
-        shape=f"n_pad={n_pad} m_pad={m_pad} cap_v={cap_v} cap_e={cap_e} "
-              "int32",
+        shape=c["shape"], calls=calls9a,
         # the chunk read once (4 + 4 + 1 + 4 bytes a row), the live rows
         # written once (4 + 1 + 4 bytes)
         **dict(zip(("bound_ms", "bound_by"), bound(
-            (cap_v + cap_e) * 13 + (nv + ne) * 9))))
+            (c["cap_v"] + c["cap_e"]) * 13 + c["live"] * 9))))
 
-    # ---- K9b: GAB buffers (k = 1, the View's window) and Bitcoin (k = 3)
-    err9b, timed = 0.0, None
-    for t, windows, T in ((gab, [2_600_000], 2_400_000),
-                          (btc, BTC_WINDOWS, 2_000_000),
-                          (gab, [-1, 0, 1 << 40], 2_400_000)):
-        lat = [torch.from_numpy(rng.integers(0, 2_600_000, s).astype(
-            np.int32)).to(dev) for s in (t.n_pad, t.m_pad)]
+    # ---- K9b: the bounds by value, 32 windows a launch; GAB (k 1, the
+    # View's window), Bitcoin (k 3), GAB past the launch's window group
+    # (k 40), GAB int64 with unbounded and clamped windows
+    err9b, calls9b, timed = 0.0, {}, None
+    for what, t, windows, T, tt in (
+            ("gab_k1", gab, [2_600_000], 2_400_000, torch.int32),
+            ("btc_k3", btc, BTC_WINDOWS, 2_000_000, torch.int32),
+            ("gab_k40", gab, [int(w) for w in rng.integers(
+                -1, 2_600_000, 40)], 2_400_000, torch.int32),
+            ("gab_i64", gab, [-1, 0, 1 << 62], 2_400_000, torch.int64)):
+        lat = [torch.from_numpy(rng.integers(0, 2_600_000, s)).to(
+            dev, tt) for s in (t.n_pad, t.m_pad)]
         alive = [torch.from_numpy(rng.random(s) < 0.8).to(dev)
                  for s in (t.n_pad, t.m_pad)]
         args = (lat[0], alive[0], lat[1], alive[1])
+        before = LAUNCHES["window_masks"]
         got = resident.window_masks(*args, T, windows)
-        lo, nowin = resident.window_bounds(T, windows, torch.int32, dev)
+        if LAUNCHES["window_masks"] - before != -(-len(windows) // 32):
+            raise AssertionError(f"K9b: not one launch a group of 32 "
+                                 f"windows ({what})")
+        lo, nowin = resident.window_bounds(T, windows, tt, dev)
         want = resident.window_masks_plain(*args, lo, nowin)
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(f"K9b differs from its twin "
-                                     f"(windows {windows})")
+        par = (PARENT.window_masks(*args, T, windows)
+               if PARENT is not None else want)
+        for g, w, x in zip(got, want, par):
+            if not (torch.equal(g, w) and torch.equal(g, x)):
+                raise AssertionError(f"K9b differs from its twin or the "
+                                     f"parent's ({what})")
             err9b = max(err9b, exact_err(g, w))
+        k = len(windows)
+
+        def k9b(args=args, T=T, windows=windows):
+            return resident.window_masks(*args, T, windows)
+        # lat + alive read, k masks written
+        bnd = bound((t.n_pad + t.m_pad) * (tt.itemsize + 1 + k))
+        shape = f"n_pad={t.n_pad} m_pad={t.m_pad} k={k} {tt}"
+        if PARENT is not None and what != "gab_i64":
+            vs_parent(torch, f"window_masks {what}", k9b,
+                      lambda args=args, T=T, windows=windows:
+                      PARENT.window_masks(*args, T, windows),
+                      iters=50, shape=shape, bound_ms=bnd[0])
+        calls9b[what] = dict(ms=cuda_ms(torch, k9b, 50),
+                             device_ms=device_ms(torch, k9b, 50)[0],
+                             bound_ms=bnd[0], shape=shape)
         if timed is None:
-            timed = (args, T, windows, lo, nowin, t)
-    args, T, windows, lo, nowin, t = timed
-    k = len(windows)
+            timed = (args, T, windows, lo, nowin, t, bnd, shape)
+    args, T, windows, lo, nowin, t, bnd, shape = timed
     out["window_masks"] = dict(
         source="raphtory_tpu_torch/csrc/sweep.cu",
         replaces="raphtory_tpu/engine/device_sweep.py:273",
         max_abs_err=err9b,
-        ms=cuda_ms(torch, lambda: resident.window_masks(*args, T, windows)),
+        ms=calls9b["gab_k1"]["ms"], device_ms=calls9b["gab_k1"]["device_ms"],
         plain_ms=cuda_ms(torch, lambda: resident.window_masks_plain(
             *args, lo, nowin)),
-        library_ms=None,
-        shape=f"n_pad={t.n_pad} m_pad={t.m_pad} k={k} int32",
-        # lat + alive read, k masks written
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            (t.n_pad + t.m_pad) * (5 + k)))))
+        library_ms=None, shape=shape, calls=calls9b,
+        **dict(zip(("bound_ms", "bound_by"), bnd)))
+    emit("sync_check", **sync_check(torch, np, resident, dev))
 
     # ---- K8u: the cold LDBC view's vertex and edge masks (2 windows)
     err8, packed = 0.0, None
@@ -5197,6 +5698,20 @@ def main() -> int:
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    global PAST_CAP_CPU
+    PAST_CAP_CPU = start_past_cap_cpu()
+    try:
+        return run_phases(torch, np, columns, minplus, resident, segment,
+                          build_view, HopBatchedPageRank, bitcoin_like_log,
+                          gab_like_log, dev)
+    finally:
+        if PAST_CAP_CPU.poll() is None:
+            PAST_CAP_CPU.kill()
+            PAST_CAP_CPU.wait()
+
+
+def run_phases(torch, np, columns, minplus, resident, segment, build_view,
+               HopBatchedPageRank, bitcoin_like_log, gab_like_log, dev):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -5238,7 +5753,7 @@ def main() -> int:
                                  if kk in ("ms", "device_ms", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "max_abs_err", "shape", "calls",
-                                           "edge_cases")}
+                                           "edge_cases", "grid_split")}
                              for k, v in kernels.items()})
     launches = timed("headline", phase_headline, torch, np, columns,
                      HopBatchedPageRank, log, dev)
@@ -5253,11 +5768,15 @@ def main() -> int:
     host_launches = timed("host_columns", phase_host_columns, torch, np,
                           columns, log, ldbc, dev)
     launches["column_masks"] = host_launches["column_masks"]
-    timed("job", phase_job, torch, np, columns, dev)
+    job_launches = timed("job", phase_job, torch, np, columns, dev)
     view_launches = timed("gab_pr_view", phase_gab_pr_view, torch, np,
                           columns, log, dev)
     for k in RESIDENT_KERNELS:
         launches[k] = view_launches[k]
+    # K9a's and K9b's launches on the path that runs them most: the
+    # past-cap job, one of each a hop
+    for k in ("apply_delta_chunk", "window_masks"):
+        launches[k] = job_launches[k]
     btc_launches, out_degree_calls = timed(
         "bitcoin_range", phase_bitcoin_range, torch, np, columns, dev)
     # K7's launches on the path that runs it most (96 f32 + 20 int32, k 3)
@@ -5305,6 +5824,8 @@ def main() -> int:
                                       "scale_bulk_pcpm",
                                       "scale_bulk_crosscheck_pcpm"))
     if PARENT is not None:
+        PARENT_MS["past_cap_job"] = timed(
+            "past_cap_in_turns", past_cap_in_turns, PARENT.source)
         emit("parent", source=PARENT.source, entries=PARENT_MS)
     emit("timing", seconds=PHASE_S, pcpm_share_s=pcpm_s,
          total_s=time.perf_counter() - t_main)

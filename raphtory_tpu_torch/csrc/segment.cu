@@ -43,8 +43,11 @@
 // What bounds them on the H100: bytes — the walk (indptr, order, perm,
 // valid) read once, the mask and payload of every real entry once per
 // window, the output written once; one operation per masked entry.
-//   Design. (1) Windows: blockIdx.y is (window group, feature), no 64-bit
-// division anywhere. Where k <= 3 and the k * n (window, row) pairs reach
+//   Design. (1) Windows: the grid's y index is (window group, feature), no
+// 64-bit division anywhere; past 65,535 grid rows the C entry launches
+// again for each further group of 65,535 rows (a y offset the kernel adds
+// to blockIdx.y), so a call of any F * k returns one output and a call
+// under the limit is one launch. Where k <= 3 and the k * n (window, row) pairs reach
 // 2^20 (the taint shape's 3 x 2^21), one walk serves all k windows, a
 // thread keeping k accumulators; below that (the 32,768-row GAB and
 // Bitcoin tables) a thread takes one window, since there the card is short
@@ -79,8 +82,9 @@
 // sorts packed (segment << 31 | value) keys over all k*m rows; here each
 // inbox is already one CSR run (the destination direction walks `indptr`,
 // the source direction `perm`), so no global sort is needed. The window is
-// blockIdx.y (no division). The blocks along x come in two kinds, in one
-// launch:
+// blockIdx.y plus the launch's y offset (no division; past 65,535 windows
+// the C entry launches once a group of 65,535). The blocks along x come in
+// two kinds, in one launch:
 //   * the first `nl` blocks take the long rows (runs of more than 32
 //     entries), one a block, from the list `long_rows` the wrapper builds
 //     once per CSR: the run's valid values (invalid ones as -1) are copied
@@ -362,22 +366,23 @@ __device__ void combine_long(int64_t r, int64_t n, int64_t m,
     }
 }
 
-// K7 and K7-P: blockIdx.y is (window group, feature) — group g serves
-// windows g*KW .. g*KW+KW-1, KW dividing k — so no 64-bit division; along
+// K7 and K7-P: grid row y = blockIdx.y + y0 is (window group, feature) —
+// group g serves windows g*KW .. g*KW+KW-1, KW dividing k — so no 64-bit
+// division; along
 // x the first `nl` blocks take the long rows (longest first, from the
 // plan), the rest kThreads consecutive rows each, a thread a row.
 template <typename T, int OP, int KW, bool DIRECT>
 __global__ void __launch_bounds__(kThreads) combine_kernel(
-        int64_t n, int64_t m, int64_t F, int64_t nl, Walk wk,
+        int64_t n, int64_t m, int64_t F, int64_t nl, unsigned y0, Walk wk,
         const int32_t* __restrict__ long_rows, const T* __restrict__ x,
         const uint8_t* __restrict__ mask, T* __restrict__ out) {
     constexpr int kStage = InOrder<T>::v ? KW * kLongChunk : 1;
     __shared__ T s_v[kStage];
     __shared__ uint8_t s_on[kStage];
     __shared__ T s_part[kThreads / 32 * KW];
-    const unsigned Fu = (unsigned)F;
-    const int64_t f = blockIdx.y % Fu;
-    const int64_t w0 = (int64_t)(blockIdx.y / Fu) * KW;
+    const unsigned Fu = (unsigned)F, y = blockIdx.y + y0;
+    const int64_t f = y % Fu;
+    const int64_t w0 = (int64_t)(y / Fu) * KW;
     if (blockIdx.x < nl) {                      // block-uniform
         combine_long<T, OP, KW, DIRECT>(long_rows[blockIdx.x], n, m, F, f,
                                         w0, wk, x, mask, out, s_v, s_on,
@@ -392,59 +397,76 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
 
 template <typename T, int OP, int KW>
 void launch_op(dim3 grid, int64_t n, int64_t m, int64_t F, int64_t nl,
-               const Walk& wk, const int32_t* long_rows, const T* x,
-               const uint8_t* mask, T* out, cudaStream_t s) {
+               unsigned y0, const Walk& wk, const int32_t* long_rows,
+               const T* x, const uint8_t* mask, T* out, cudaStream_t s) {
     if (!wk.order && !wk.perm && !wk.valid)
         combine_kernel<T, OP, KW, true><<<grid, kThreads, 0, s>>>(
-            n, m, F, nl, wk, long_rows, x, mask, out);
+            n, m, F, nl, y0, wk, long_rows, x, mask, out);
     else
         combine_kernel<T, OP, KW, false><<<grid, kThreads, 0, s>>>(
-            n, m, F, nl, wk, long_rows, x, mask, out);
+            n, m, F, nl, y0, wk, long_rows, x, mask, out);
 }
 
 template <typename T, int KW>
 void launch_kw(int op, dim3 grid, int64_t n, int64_t m, int64_t F,
-               int64_t nl, const Walk& wk, const int32_t* long_rows,
-               const T* x, const uint8_t* mask, T* out, cudaStream_t s) {
+               int64_t nl, unsigned y0, const Walk& wk,
+               const int32_t* long_rows, const T* x, const uint8_t* mask,
+               T* out, cudaStream_t s) {
     if (op == kSum)
-        launch_op<T, kSum, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+        launch_op<T, kSum, KW>(grid, n, m, F, nl, y0, wk, long_rows, x, mask,
                                out, s);
     else if (op == kMin)
-        launch_op<T, kMin, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+        launch_op<T, kMin, KW>(grid, n, m, F, nl, y0, wk, long_rows, x, mask,
                                out, s);
     else
-        launch_op<T, kMax, KW>(grid, n, m, F, nl, wk, long_rows, x, mask,
+        launch_op<T, kMax, KW>(grid, n, m, F, nl, y0, wk, long_rows, x, mask,
                                out, s);
 }
 
+// most grid rows of one launch (gridDim.y)
+constexpr int64_t kGridRows = 65535;
+
 // One walk serves all k windows (KW = k) where k <= 3 and the k*n (window,
-// row) pairs are many enough to fill the card; else a thread a window.
+// row) pairs are many enough to fill the card; else a thread a window. The
+// F * k / KW grid rows go in launches of at most kGridRows, each with its
+// y offset; *launched counts them.
 template <typename T>
 int launch_combine(int op, int64_t k, int64_t n, int64_t m, int64_t F,
                    int64_t nl, const Walk& wk, const int32_t* long_rows,
                    const void* x, const uint8_t* mask, void* out,
-                   cudaStream_t s) {
+                   cudaStream_t s, int64_t* launched) {
     const int KW = k <= kMaxWin && k * n >= kWalkOnceRows ? (int)k : 1;
     const int64_t gy = F * (k / KW);
     const int64_t gx = nl + (n + kThreads - 1) / kThreads;
-    if (gy > 65535 || gx >= (int64_t(1) << 31))
+    if (gy >= (int64_t(1) << 32) || gx >= (int64_t(1) << 31))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)gx, (unsigned)gy);
     const T* xt = static_cast<const T*>(x);
     T* ot = static_cast<T*>(out);
-    if (KW == 1)
-        launch_kw<T, 1>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
-    else if (KW == 2)
-        launch_kw<T, 2>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
-    else
-        launch_kw<T, 3>(op, grid, n, m, F, nl, wk, long_rows, xt, mask, ot, s);
-    return (int)cudaGetLastError();
+    for (int64_t y0 = 0; y0 < gy; y0 += kGridRows) {
+        const int64_t rows = gy - y0 < kGridRows ? gy - y0 : kGridRows;
+        const dim3 grid((unsigned)gx, (unsigned)rows);
+        const unsigned yo = (unsigned)y0;
+        if (KW == 1)
+            launch_kw<T, 1>(op, grid, n, m, F, nl, yo, wk, long_rows, xt,
+                            mask, ot, s);
+        else if (KW == 2)
+            launch_kw<T, 2>(op, grid, n, m, F, nl, yo, wk, long_rows, xt,
+                            mask, ot, s);
+        else
+            launch_kw<T, 3>(op, grid, n, m, F, nl, yo, wk, long_rows, xt,
+                            mask, ot, s);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        ++*launched;
+    }
+    return (int)cudaSuccess;
 }
 
 int combine_entry(int64_t k, int64_t n, int64_t m, int64_t F, int64_t op,
                   int64_t dtype, int64_t nl, const Walk& wk,
                   const void* long_rows, const void* x, const void* mask,
-                  void* out, void* stream) {
+                  void* out, void* stream, int64_t* launched) {
+    *launched = 0;
     if (k * n * F == 0) return (int)cudaGetLastError();
     if (op < 0 || op > 2 || dtype < 0 || dtype > 2 || nl < 0 || nl > n)
         return (int)cudaErrorInvalidValue;
@@ -453,12 +475,12 @@ int combine_entry(int64_t k, int64_t n, int64_t m, int64_t F, int64_t op,
     const uint8_t* mk = static_cast<const uint8_t*>(mask);
     if (dtype == 0)
         return launch_combine<float>((int)op, k, n, m, F, nl, wk, lr, x, mk,
-                                     out, s);
+                                     out, s, launched);
     if (dtype == 1)
         return launch_combine<int32_t>((int)op, k, n, m, F, nl, wk, lr, x,
-                                       mk, out, s);
+                                       mk, out, s, launched);
     return launch_combine<int64_t>((int)op, k, n, m, F, nl, wk, lr, x, mk,
-                                   out, s);
+                                   out, s, launched);
 }
 
 constexpr int kModeThreads = 256;      // a block: 8 warps
@@ -618,15 +640,16 @@ __device__ void mode_short_rows(int64_t r0, int64_t n, int64_t xw, int dflt,
 }
 
 __global__ void __launch_bounds__(kModeThreads) segment_mode_kernel(
-        int64_t n, int64_t m, int dflt, int64_t nl,
+        int64_t n, int64_t m, int dflt, int64_t nl, unsigned y0,
         const int64_t* __restrict__ indptr, const int32_t* __restrict__ perm,
         const int32_t* __restrict__ x, const uint8_t* __restrict__ mask,
         const int32_t* __restrict__ long_rows, int32_t* scratch,
         int32_t* __restrict__ out) {
     __shared__ int sv[kSmemRows];
     __shared__ unsigned long long wbest[kModeThreads / 32];
-    const int64_t xw = (int64_t)blockIdx.y * m;
-    int32_t* ow = out + (int64_t)blockIdx.y * n;
+    const int64_t w = (int64_t)blockIdx.y + y0;
+    const int64_t xw = w * m;
+    int32_t* ow = out + w * n;
     if (blockIdx.x < nl) {                      // block-uniform
         mode_long_row(long_rows[blockIdx.x], xw, dflt, indptr, perm, x, mask,
                       scratch, sv, wbest, ow);
@@ -647,16 +670,18 @@ extern "C" {
 // indptr [n+1] int64, perm int32 or null (the destination direction: the
 // CSR runs are the edges themselves), long_rows [nl] int32 (the rows whose
 // runs exceed 32 entries, longest first), x [k*m, F], mask [k*m] bool |
-// out [k*n, F]. One launch; F * ceil(k / 4) at most 65,535.
+// out [k*n, F] | launched: the launches made, one a group of 65,535 grid
+// rows (F * k rows, or F where one walk serves all k windows).
 int rtpu_segment_combine(int64_t k, int64_t n, int64_t m, int64_t F,
                          int64_t op, int64_t dtype, int64_t nl,
                          const void* indptr, const void* perm,
                          const void* long_rows, const void* x,
-                         const void* mask, void* out, void* stream) {
+                         const void* mask, void* out, void* stream,
+                         int64_t* launched) {
     const Walk wk{static_cast<const int64_t*>(indptr),
                   static_cast<const int32_t*>(perm), nullptr, nullptr};
     return combine_entry(k, n, m, F, op, dtype, nl, wk, long_rows, x, mask,
-                         out, stream);
+                         out, stream, launched);
 }
 
 // K7-P. As rtpu_segment_combine, the walk through indptr [n+1] int64,
@@ -667,38 +692,48 @@ int rtpu_partition_reduce(int64_t k, int64_t n, int64_t m, int64_t F,
                           const void* indptr, const void* order,
                           const void* perm, const void* valid,
                           const void* long_rows, const void* x,
-                          const void* mask, void* out, void* stream) {
+                          const void* mask, void* out, void* stream,
+                          int64_t* launched) {
     const Walk wk{static_cast<const int64_t*>(indptr),
                   static_cast<const int32_t*>(order),
                   static_cast<const int32_t*>(perm),
                   static_cast<const uint8_t*>(valid)};
     return combine_entry(k, n, m, F, op, dtype, nl, wk, long_rows, x, mask,
-                         out, stream);
+                         out, stream, launched);
 }
 
-// K7-mode. k windows (at most 65,535), n rows, m payload rows per
-// window, nl long rows | indptr [n+1] int64, perm [m_real] int32 or null,
-// x [k*m] int32, mask [k*m] bool or null (every row), long_rows [nl] int32
-// (the rows whose runs exceed 32 entries), scratch [k*m] int32 or null
-// (needed only where a long row exceeds kSmemRows) | out [k*n] int32. One
-// launch.
+// K7-mode. k windows, n rows, m payload rows per window, nl long rows |
+// indptr [n+1] int64, perm [m_real] int32 or null, x [k*m] int32, mask
+// [k*m] bool or null (every row), long_rows [nl] int32 (the rows whose runs
+// exceed 32 entries), scratch [k*m] int32 or null (needed only where a long
+// row exceeds kSmemRows) | out [k*n] int32 | launched: one launch a group
+// of 65,535 windows.
 int rtpu_segment_mode(int64_t k, int64_t n, int64_t m, int64_t dflt,
                       int64_t nl, const void* indptr, const void* perm,
                       const void* x, const void* mask, const void* long_rows,
-                      void* scratch, void* out, void* stream) {
+                      void* scratch, void* out, void* stream,
+                      int64_t* launched) {
+    *launched = 0;
     if (k * n == 0) return (int)cudaGetLastError();
-    if (k > 65535 || nl < 0 || nl > n) return (int)cudaErrorInvalidValue;
+    if (k >= (int64_t(1) << 32) || nl < 0 || nl > n)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t rows_a_block = (int64_t)(kModeThreads / 32) * kTileRows;
-    const dim3 grid((unsigned)(nl + (n + rows_a_block - 1) / rows_a_block),
-                    (unsigned)k);
-    segment_mode_kernel<<<grid, kModeThreads, 0, s>>>(
-        n, m, (int)dflt, nl, static_cast<const int64_t*>(indptr),
-        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(x),
-        static_cast<const uint8_t*>(mask),
-        static_cast<const int32_t*>(long_rows),
-        static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
-    return (int)cudaGetLastError();
+    const unsigned gx = (unsigned)(nl + (n + rows_a_block - 1) / rows_a_block);
+    for (int64_t y0 = 0; y0 < k; y0 += kGridRows) {
+        const int64_t rows = k - y0 < kGridRows ? k - y0 : kGridRows;
+        segment_mode_kernel<<<dim3(gx, (unsigned)rows), kModeThreads, 0, s>>>(
+            n, m, (int)dflt, nl, (unsigned)y0,
+            static_cast<const int64_t*>(indptr),
+            static_cast<const int32_t*>(perm), static_cast<const int32_t*>(x),
+            static_cast<const uint8_t*>(mask),
+            static_cast<const int32_t*>(long_rows),
+            static_cast<int32_t*>(scratch), static_cast<int32_t*>(out));
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        ++*launched;
+    }
+    return (int)cudaSuccess;
 }
 
 }  // extern "C"

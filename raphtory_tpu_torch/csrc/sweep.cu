@@ -8,8 +8,16 @@
 // reference drops a pad row through an out-of-range index (2^31-1) under
 // mode="drop"; here every index outside [0, len) is skipped explicitly.
 // The host fold emits each entity at most once per chunk, so the writes
-// never race. One thread per chunk row: threads [0, cap_v) take the vertex
-// rows, the next cap_e threads the edge rows.
+// never race.
+//   The chunk arrives as ONE byte buffer (one upload a chunk from pinned
+// host memory, raphtory_tpu_torch/ops/resident.py `pack_chunk`): the eight
+// arrays v_idx (int32), v_lat (T), v_alive (u8), v_first (T), e_idx, e_lat,
+// e_alive, e_first, each capacity long, in that order, each starting at a
+// multiple of 16 bytes (`chunk_offset` below; the wrapper's
+// `chunk_offsets` is the same rule). A thread takes 4 consecutive rows of
+// one side: its indices, times and alive flags in one 16-byte (int32) or
+// two (int64) loads a field, neighbouring threads on neighbouring rows;
+// the vertex rows take the first blocks, the edge rows the rest.
 //
 // K9b `rtpu_window_masks` replaces the mask half of device_sweep.py:261
 // `_compiled_run` (:273-277):
@@ -17,7 +25,15 @@
 // for the vertices and the edges in one launch, over the resident times in
 // their narrow dtype (int32 or int64); lo[w] = clamp(T - win[w]) into that
 // dtype's range is computed by the wrapper (a clamped lo only widens the
-// window past every real time).
+// window past every real time) and arrives BY VALUE: the C entry copies up
+// to 32 windows' bounds (lo, and nowin as a bit mask) into a kernel
+// parameter, so no bound lives in device memory and the host makes no
+// copy; a call with more windows launches once a group of 32, over the same
+// state. A thread takes 16 consecutive elements of the vertices or of the
+// edges (separate block ranges, no division), loads their times and alive
+// flags once (16-byte loads), and writes each window's 16 mask bytes as
+// one 16-byte store (byte stores where a row is not 16-byte aligned or at
+// the ragged end).
 //
 // K8u `rtpu_unpack_mask_bits` replaces raphtory_tpu/engine/bsp.py:39
 // `_unpack_bits`: u8[rows, nbytes] in little bit order to bool[rows,
@@ -25,11 +41,13 @@
 // them on the card. One thread per output byte.
 //
 // What bounds them on the H100: bytes (one compare or shift per element).
-// K9a moves O(chunk) bytes and is launch-bound at the path's shapes.
+// K9a and K9b move well under a megabyte on the resident paths and are
+// launch-bound there: their designs cut the host's part of a call (one
+// upload and no synchronizing copy a call).
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/
-// resident.py). Each entry point launches one kernel on the caller's
-// stream, allocates nothing and returns cudaGetLastError().
+// resident.py). Each entry point launches on the caller's stream,
+// allocates nothing and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,6 +55,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWinGroup = 32;          // windows a K9b launch carries
+constexpr int kSpan = 16;              // elements a K9b thread takes
+constexpr int kRows = 4;               // chunk rows a K9a thread takes
 
 inline int64_t blocks_for(int64_t total) {
     int64_t b = (total + kThreads - 1) / kThreads;
@@ -44,66 +65,184 @@ inline int64_t blocks_for(int64_t total) {
     return b < 1 ? 1 : b;
 }
 
+inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------- K9a
+
+// byte offset of field f (0..7) of a packed chunk; f == 8: its size
+__host__ __device__ inline int64_t chunk_offset(int f, int64_t cap_v,
+                                               int64_t cap_e, int64_t tb) {
+    const int64_t width[4] = {4, tb, 1, tb};
+    int64_t off = 0;
+    for (int i = 0; i < f; ++i)
+        off += ((i < 4 ? cap_v : cap_e) * width[i % 4] + 15) / 16 * 16;
+    return off;
+}
+
+// kRows consecutive T values from p (16-byte aligned where whole), or the
+// first `cnt` of them
 template <typename T>
-__global__ void apply_delta_kernel(int64_t n_pad, int64_t m_pad,
-                                   int64_t cap_v, int64_t cap_e,
-                                   T* __restrict__ v_lat,
-                                   uint8_t* __restrict__ v_alive,
-                                   T* __restrict__ v_first,
-                                   T* __restrict__ e_lat,
-                                   uint8_t* __restrict__ e_alive,
-                                   T* __restrict__ e_first,
-                                   const int32_t* __restrict__ v_idx,
-                                   const T* __restrict__ vd_lat,
-                                   const uint8_t* __restrict__ vd_alive,
-                                   const T* __restrict__ vd_first,
-                                   const int32_t* __restrict__ e_idx,
-                                   const T* __restrict__ ed_lat,
-                                   const uint8_t* __restrict__ ed_alive,
-                                   const T* __restrict__ ed_first) {
-    const int64_t total = cap_v + cap_e;
-    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         t < total; t += (int64_t)gridDim.x * blockDim.x) {
-        if (t < cap_v) {
-            const int64_t p = v_idx[t];
-            if (p < 0 || p >= n_pad) continue;       // pad row
-            v_lat[p] = vd_lat[t];
-            v_alive[p] = vd_alive[t];
-            v_first[p] = vd_first[t];
+__device__ __forceinline__ void load_rows(const T* p, int cnt, T (&v)[kRows]) {
+    if (cnt == kRows) {
+        if constexpr (sizeof(T) == 4) {
+            const int4 a = *reinterpret_cast<const int4*>(p);
+            v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
         } else {
-            const int64_t i = t - cap_v;
-            const int64_t p = e_idx[i];
-            if (p < 0 || p >= m_pad) continue;       // pad row
-            e_lat[p] = ed_lat[i];
-            e_alive[p] = ed_alive[i];
-            e_first[p] = ed_first[i];
+            const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
+            const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
+            v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+        }
+    } else {
+        for (int q = 0; q < kRows; ++q) v[q] = q < cnt ? p[q] : T(0);
+    }
+}
+
+// one side of the chunk (vertices or edges): rows [q0, q0 + kRows) of cap
+template <typename T>
+__device__ __forceinline__ void apply_rows(int64_t q0, int64_t cap,
+                                           int64_t len, const uint8_t* base,
+                                           int64_t o_idx, int64_t o_lat,
+                                           int64_t o_alive, int64_t o_first,
+                                           T* lat, uint8_t* alive, T* first) {
+    const int cnt = cap - q0 < kRows ? (int)(cap - q0) : kRows;
+    int32_t idx[kRows];
+    T lt[kRows], ft[kRows];
+    load_rows<int32_t>(reinterpret_cast<const int32_t*>(base + o_idx) + q0,
+                       cnt, idx);
+    load_rows<T>(reinterpret_cast<const T*>(base + o_lat) + q0, cnt, lt);
+    load_rows<T>(reinterpret_cast<const T*>(base + o_first) + q0, cnt, ft);
+    const uint8_t* al = base + o_alive + q0;
+    uint32_t a = 0;
+    if (cnt == kRows)
+        a = *reinterpret_cast<const uint32_t*>(al);     // q0 % 4 == 0
+    else
+        for (int q = 0; q < cnt; ++q) a |= (uint32_t)al[q] << (8 * q);
+    for (int q = 0; q < cnt; ++q) {
+        const int64_t p = idx[q];
+        if (p < 0 || p >= len) continue;                // pad row
+        lat[p] = lt[q];
+        alive[p] = (uint8_t)(a >> (8 * q));
+        first[p] = ft[q];
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) apply_delta_kernel(
+        int64_t n_pad, int64_t m_pad, int64_t cap_v, int64_t cap_e,
+        int64_t vblocks, T* __restrict__ v_lat, uint8_t* __restrict__ v_alive,
+        T* __restrict__ v_first, T* __restrict__ e_lat,
+        uint8_t* __restrict__ e_alive, T* __restrict__ e_first,
+        const uint8_t* __restrict__ packed) {
+    constexpr int64_t tb = sizeof(T);
+    if (blockIdx.x < vblocks) {                         // block-uniform
+        const int64_t q0 =
+            ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kRows;
+        if (q0 < cap_v)
+            apply_rows<T>(q0, cap_v, n_pad, packed,
+                          chunk_offset(0, cap_v, cap_e, tb),
+                          chunk_offset(1, cap_v, cap_e, tb),
+                          chunk_offset(2, cap_v, cap_e, tb),
+                          chunk_offset(3, cap_v, cap_e, tb),
+                          v_lat, v_alive, v_first);
+        return;
+    }
+    const int64_t q0 =
+        ((int64_t)(blockIdx.x - vblocks) * kThreads + threadIdx.x) * kRows;
+    if (q0 < cap_e)
+        apply_rows<T>(q0, cap_e, m_pad, packed,
+                      chunk_offset(4, cap_v, cap_e, tb),
+                      chunk_offset(5, cap_v, cap_e, tb),
+                      chunk_offset(6, cap_v, cap_e, tb),
+                      chunk_offset(7, cap_v, cap_e, tb),
+                      e_lat, e_alive, e_first);
+}
+
+// ---------------------------------------------------------------- K9b
+
+// one launch's windows, by value: lo[w] (in the times' dtype's range) and
+// bit w of nowin set where window w is unbounded
+struct WinBounds {
+    int64_t lo[kWinGroup];
+    uint32_t nowin;
+    int32_t kw;
+};
+
+// elements [i0, i0 + kSpan) of one side: lat / alive in, kw mask rows out
+// (row w at out + w * len)
+template <typename T>
+__device__ __forceinline__ void mask_span(int64_t i0, int64_t len,
+                                          const T* __restrict__ lat,
+                                          const uint8_t* __restrict__ alive,
+                                          uint8_t* __restrict__ out,
+                                          const WinBounds& b) {
+    const int cnt = len - i0 < kSpan ? (int)(len - i0) : kSpan;
+    T l[kSpan];
+    union { uint4 v; uint8_t c[kSpan]; } al;
+    const bool whole = cnt == kSpan && aligned16(lat + i0)
+                       && aligned16(alive + i0);
+    if (whole) {
+        if constexpr (sizeof(T) == 4) {
+            #pragma unroll
+            for (int q = 0; q < kSpan / 4; ++q) {
+                const int4 v = reinterpret_cast<const int4*>(lat + i0)[q];
+                l[4 * q] = v.x; l[4 * q + 1] = v.y;
+                l[4 * q + 2] = v.z; l[4 * q + 3] = v.w;
+            }
+        } else {
+            #pragma unroll
+            for (int q = 0; q < kSpan / 2; ++q) {
+                const longlong2 v =
+                    reinterpret_cast<const longlong2*>(lat + i0)[q];
+                l[2 * q] = v.x; l[2 * q + 1] = v.y;
+            }
+        }
+        al.v = *reinterpret_cast<const uint4*>(alive + i0);
+    } else {
+        #pragma unroll
+        for (int q = 0; q < kSpan; ++q) {
+            l[q] = q < cnt ? lat[i0 + q] : T(0);
+            al.c[q] = q < cnt ? alive[i0 + q] : 0;
+        }
+    }
+    for (int w = 0; w < b.kw; ++w) {
+        union { uint4 v; uint8_t c[kSpan]; } o;
+        if ((b.nowin >> w) & 1u) {
+            #pragma unroll
+            for (int q = 0; q < kSpan; ++q) o.c[q] = al.c[q] != 0;
+        } else {
+            const T lo = (T)b.lo[w];
+            #pragma unroll
+            for (int q = 0; q < kSpan; ++q)
+                o.c[q] = (al.c[q] != 0) & (l[q] >= lo);
+        }
+        uint8_t* dst = out + w * len + i0;
+        if (cnt == kSpan && aligned16(dst)) {
+            *reinterpret_cast<uint4*>(dst) = o.v;
+        } else {
+            for (int q = 0; q < cnt; ++q) dst[q] = o.c[q];
         }
     }
 }
 
 template <typename T>
-__global__ void window_masks_kernel(int64_t k, int64_t n, int64_t m,
-                                    const T* __restrict__ v_lat,
-                                    const uint8_t* __restrict__ v_alive,
-                                    const T* __restrict__ e_lat,
-                                    const uint8_t* __restrict__ e_alive,
-                                    const T* __restrict__ lo,
-                                    const uint8_t* __restrict__ nowin,
-                                    uint8_t* __restrict__ v_out,
-                                    uint8_t* __restrict__ e_out) {
-    const int64_t nv = k * n;
-    const int64_t total = nv + k * m;
-    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         t < total; t += (int64_t)gridDim.x * blockDim.x) {
-        if (t < nv) {
-            const int64_t w = t / n, i = t - w * n;
-            v_out[t] = v_alive[i] && (nowin[w] || v_lat[i] >= lo[w]);
-        } else {
-            const int64_t u = t - nv;
-            const int64_t w = u / m, i = u - w * m;
-            e_out[u] = e_alive[i] && (nowin[w] || e_lat[i] >= lo[w]);
-        }
+__global__ void __launch_bounds__(kThreads) window_masks_kernel(
+        int64_t n, int64_t m, int64_t vblocks, const T* __restrict__ v_lat,
+        const uint8_t* __restrict__ v_alive, const T* __restrict__ e_lat,
+        const uint8_t* __restrict__ e_alive, uint8_t* __restrict__ v_out,
+        uint8_t* __restrict__ e_out, const __grid_constant__ WinBounds b) {
+    if (blockIdx.x < vblocks) {                         // block-uniform
+        const int64_t i0 =
+            ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kSpan;
+        if (i0 < n) mask_span<T>(i0, n, v_lat, v_alive, v_out, b);
+        return;
     }
+    const int64_t i0 =
+        ((int64_t)(blockIdx.x - vblocks) * kThreads + threadIdx.x) * kSpan;
+    if (i0 < m) mask_span<T>(i0, m, e_lat, e_alive, e_out, b);
 }
 
 __global__ void unpack_bits_kernel(int64_t total,
@@ -120,71 +259,81 @@ __global__ void unpack_bits_kernel(int64_t total,
 
 extern "C" {
 
-// tbytes: 4 (int32 times) or 8 (int64 times)
+// K9a. tbytes: 4 (int32 times) or 8 (int64 times) | the six resident
+// buffers, packed: the chunk's bytes (chunk_offset(8, ...) of them, on the
+// card).
 int rtpu_apply_delta_chunk(int64_t n_pad, int64_t m_pad, int64_t cap_v,
                            int64_t cap_e, int64_t tbytes, void* v_lat,
                            void* v_alive, void* v_first, void* e_lat,
-                           void* e_alive, void* e_first, const void* v_idx,
-                           const void* vd_lat, const void* vd_alive,
-                           const void* vd_first, const void* e_idx,
-                           const void* ed_lat, const void* ed_alive,
-                           const void* ed_first, void* stream) {
+                           void* e_alive, void* e_first, const void* packed,
+                           void* stream) {
+    if (cap_v < 0 || cap_e < 0) return (int)cudaErrorInvalidValue;
+    if (cap_v + cap_e == 0) return (int)cudaGetLastError();
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t b = blocks_for(cap_v + cap_e);
+    const int64_t vb = ceil_div(cap_v, (int64_t)kThreads * kRows);
+    const int64_t eb = ceil_div(cap_e, (int64_t)kThreads * kRows);
+    const auto* pk = static_cast<const uint8_t*>(packed);
     auto u8 = [](void* p) { return static_cast<uint8_t*>(p); };
-    auto cu8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
-    auto ci32 = [](const void* p) { return static_cast<const int32_t*>(p); };
     if (tbytes == 4) {
         using T = int32_t;
-        apply_delta_kernel<T><<<b, kThreads, 0, s>>>(
-            n_pad, m_pad, cap_v, cap_e, static_cast<T*>(v_lat), u8(v_alive),
-            static_cast<T*>(v_first), static_cast<T*>(e_lat), u8(e_alive),
-            static_cast<T*>(e_first), ci32(v_idx),
-            static_cast<const T*>(vd_lat), cu8(vd_alive),
-            static_cast<const T*>(vd_first), ci32(e_idx),
-            static_cast<const T*>(ed_lat), cu8(ed_alive),
-            static_cast<const T*>(ed_first));
+        apply_delta_kernel<T><<<vb + eb, kThreads, 0, s>>>(
+            n_pad, m_pad, cap_v, cap_e, vb, static_cast<T*>(v_lat),
+            u8(v_alive), static_cast<T*>(v_first), static_cast<T*>(e_lat),
+            u8(e_alive), static_cast<T*>(e_first), pk);
     } else if (tbytes == 8) {
         using T = int64_t;
-        apply_delta_kernel<T><<<b, kThreads, 0, s>>>(
-            n_pad, m_pad, cap_v, cap_e, static_cast<T*>(v_lat), u8(v_alive),
-            static_cast<T*>(v_first), static_cast<T*>(e_lat), u8(e_alive),
-            static_cast<T*>(e_first), ci32(v_idx),
-            static_cast<const T*>(vd_lat), cu8(vd_alive),
-            static_cast<const T*>(vd_first), ci32(e_idx),
-            static_cast<const T*>(ed_lat), cu8(ed_alive),
-            static_cast<const T*>(ed_first));
+        apply_delta_kernel<T><<<vb + eb, kThreads, 0, s>>>(
+            n_pad, m_pad, cap_v, cap_e, vb, static_cast<T*>(v_lat),
+            u8(v_alive), static_cast<T*>(v_first), static_cast<T*>(e_lat),
+            u8(e_alive), static_cast<T*>(e_first), pk);
     } else {
         return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
 
+// K9b. k windows, n vertices, m edges, tbytes 4 or 8 | v_lat [n], v_alive
+// [n], e_lat [m], e_alive [m] on the card; bounds: a HOST array of 2k int64,
+// lo[0..k) (each inside the times' dtype's range) then nowin[0..k) (0 or
+// 1); v_out [k, n] and e_out [k, m] on the card | launched: one launch a
+// group of 32 windows.
 int rtpu_window_masks(int64_t k, int64_t n, int64_t m, int64_t tbytes,
                       const void* v_lat, const void* v_alive,
-                      const void* e_lat, const void* e_alive, const void* lo,
-                      const void* nowin, void* v_out, void* e_out,
-                      void* stream) {
+                      const void* e_lat, const void* e_alive,
+                      const int64_t* bounds, void* v_out, void* e_out,
+                      void* stream, int64_t* launched) {
+    *launched = 0;
+    if (tbytes != 4 && tbytes != 8) return (int)cudaErrorInvalidValue;
+    if (k <= 0 || n + m == 0) return (int)cudaGetLastError();
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t b = blocks_for(k * (n + m));
-    auto cu8 = [](const void* p) { return static_cast<const uint8_t*>(p); };
-    auto u8 = [](void* p) { return static_cast<uint8_t*>(p); };
-    if (tbytes == 4) {
-        using T = int32_t;
-        window_masks_kernel<T><<<b, kThreads, 0, s>>>(
-            k, n, m, static_cast<const T*>(v_lat), cu8(v_alive),
-            static_cast<const T*>(e_lat), cu8(e_alive),
-            static_cast<const T*>(lo), cu8(nowin), u8(v_out), u8(e_out));
-    } else if (tbytes == 8) {
-        using T = int64_t;
-        window_masks_kernel<T><<<b, kThreads, 0, s>>>(
-            k, n, m, static_cast<const T*>(v_lat), cu8(v_alive),
-            static_cast<const T*>(e_lat), cu8(e_alive),
-            static_cast<const T*>(lo), cu8(nowin), u8(v_out), u8(e_out));
-    } else {
-        return (int)cudaErrorInvalidValue;
+    const int64_t vb = ceil_div(ceil_div(n, kSpan), kThreads);
+    const int64_t eb = ceil_div(ceil_div(m, kSpan), kThreads);
+    for (int64_t w0 = 0; w0 < k; w0 += kWinGroup) {
+        WinBounds b{};
+        b.kw = (int32_t)(k - w0 < kWinGroup ? k - w0 : kWinGroup);
+        for (int w = 0; w < b.kw; ++w) {
+            b.lo[w] = bounds[w0 + w];
+            if (bounds[k + w0 + w]) b.nowin |= 1u << w;
+        }
+        uint8_t* vo = static_cast<uint8_t*>(v_out) + w0 * n;
+        uint8_t* eo = static_cast<uint8_t*>(e_out) + w0 * m;
+        if (tbytes == 4)
+            window_masks_kernel<int32_t><<<vb + eb, kThreads, 0, s>>>(
+                n, m, vb, static_cast<const int32_t*>(v_lat),
+                static_cast<const uint8_t*>(v_alive),
+                static_cast<const int32_t*>(e_lat),
+                static_cast<const uint8_t*>(e_alive), vo, eo, b);
+        else
+            window_masks_kernel<int64_t><<<vb + eb, kThreads, 0, s>>>(
+                n, m, vb, static_cast<const int64_t*>(v_lat),
+                static_cast<const uint8_t*>(v_alive),
+                static_cast<const int64_t*>(e_lat),
+                static_cast<const uint8_t*>(e_alive), vo, eo, b);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        ++*launched;
     }
-    return (int)cudaGetLastError();
+    return (int)cudaSuccess;
 }
 
 int rtpu_unpack_mask_bits(int64_t rows, int64_t nbytes, const void* packed,

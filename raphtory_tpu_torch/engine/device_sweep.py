@@ -10,7 +10,9 @@ the device ONCE per log and every hop ships only fold-state deltas.
 ``DeviceSweep`` (``raphtory_tpu/engine/device_sweep.py:296``) keeps the
 per-entity fold state (latest time, alive, first time) in six resident
 device buffers, mirrors each hop's touched rows into them (K9a,
-``ops/resident.apply_delta_chunk``), derives the window masks on the device
+``ops/resident.apply_delta_chunk``: each chunk staged as one packed byte
+buffer in pinned host memory and shipped in one non-blocking copy),
+derives the window masks on the device
 (K9b, ``ops/resident.window_masks``) and runs the generic superstep engine
 (``engine/bsp.make_mask_runner``, K7) over them. Results are in the GLOBAL
 dense vertex space: row i is vertex ``uv[i]``.
@@ -34,7 +36,7 @@ from ..core.events import EDGE_ADD, EDGE_DELETE
 from ..core.snapshot import INT64_MIN, _pad_bucket
 from ..core.sweep import _ENC_MASK, _ENC_SHIFT, SweepBuilder
 from ..native import lib as _native
-from ..ops.resident import apply_delta_chunk, window_masks
+from ..ops.resident import apply_delta_chunk, pack_chunk, window_masks
 from ..utils.device import resolve_device
 from .program import VertexProgram
 
@@ -343,9 +345,12 @@ class DeviceSweep:
                                    for a in arrays)
             else:
                 for chunk in payload["chunks"]:
-                    self.ship_bytes += sum(a.nbytes for a in chunk)
-                    apply_delta_chunk(self._bufs, tuple(
-                        torch.from_numpy(a).to(self.device) for a in chunk))
+                    self.ship_bytes += chunk.payload_bytes
+                    # one copy from pinned memory: the host does not wait
+                    # (the caching host allocator keeps the block until the
+                    # copy is done)
+                    apply_delta_chunk(self._bufs, chunk._replace(
+                        data=chunk.data.to(self.device, non_blocking=True)))
         except BaseException:
             # t_now already reflects this payload's fold but the buffers
             # may not — the next fold must take the full-refresh path
@@ -358,25 +363,16 @@ class DeviceSweep:
         return self.tables.cast_times(a)
 
     def _stage_chunk(self, v_idx, v_lat, v_alive, v_first,
-                     e_idx, e_lat, e_alive, e_first) -> tuple:
-        """Pad one delta chunk to the fixed capacities; pad rows carry the
+                     e_idx, e_lat, e_alive, e_first):
+        """One delta chunk packed into one host byte buffer (pinned for a
+        card), padded to the fixed capacities; pad rows carry the
         out-of-range index 2^31-1, which K9a skips."""
-        def pad(a, cap, dtype):
-            out = np.full(cap, 2**31 - 1 if dtype == np.int32 else 0, dtype)
-            out[: len(a)] = a
-            return out
-
-        tdt = self.tdtype
-        return (
-            pad(v_idx, self.cap_v, np.int32),
-            pad(self._cast_t(v_lat), self.cap_v, tdt),
-            pad(v_alive, self.cap_v, bool),
-            pad(self._cast_t(v_first), self.cap_v, tdt),
-            pad(e_idx, self.cap_e, np.int32),
-            pad(self._cast_t(e_lat), self.cap_e, tdt),
-            pad(e_alive, self.cap_e, bool),
-            pad(self._cast_t(e_first), self.cap_e, tdt),
-        )
+        cast = self._cast_t
+        return pack_chunk(
+            (v_idx, cast(v_lat), v_alive, cast(v_first),
+             e_idx, cast(e_lat), e_alive, cast(e_first)),
+            self.cap_v, self.cap_e, self._bufs[0].dtype,
+            pin=self.device.type == "cuda")
 
     def _apply_chunk(self, v_idx, v_lat, v_alive, v_first,
                      e_idx, e_lat, e_alive, e_first) -> None:

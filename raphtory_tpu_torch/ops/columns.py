@@ -108,14 +108,17 @@ _ARGTYPES = {
     # n, C, W, H, gx, directed | ew, then as rtpu_cc_superstep
     "rtpu_minplus_superstep": 6 * [ctypes.c_int64] + 16 * [ctypes.c_void_p],
     # k, n, m, F, op, dtype, nl | indptr, perm, long_rows, x, mask, out,
+    # stream | launched
+    "rtpu_segment_combine": 7 * [ctypes.c_int64] + 7 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
+    # n_pad, m_pad, cap_v, cap_e, tbytes | six buffers, the packed chunk,
     # stream
-    "rtpu_segment_combine": 7 * [ctypes.c_int64] + 7 * [ctypes.c_void_p],
-    # n_pad, m_pad, cap_v, cap_e, tbytes | six buffers, eight chunk
-    # arrays, stream
-    "rtpu_apply_delta_chunk": 5 * [ctypes.c_int64] + 15 * [ctypes.c_void_p],
-    # k, n, m, tbytes | v_lat, v_alive, e_lat, e_alive, lo, nowin, v_out,
-    # e_out, stream
-    "rtpu_window_masks": 4 * [ctypes.c_int64] + 9 * [ctypes.c_void_p],
+    "rtpu_apply_delta_chunk": 5 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
+    # k, n, m, tbytes | v_lat, v_alive, e_lat, e_alive | bounds (host, 2k
+    # int64) | v_out, e_out, stream | launched
+    "rtpu_window_masks": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)] + 3 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # rows, nbytes | packed, out, stream
     "rtpu_unpack_mask_bits": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
     # B, m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
@@ -125,11 +128,13 @@ _ARGTYPES = {
     # n, C | in_indptr, pairs, me, rd, agg, stream
     "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # k, n, m, F, op, dtype, nl | indptr, order, perm, valid, long_rows, x,
-    # mask, out, stream
-    "rtpu_partition_reduce": 7 * [ctypes.c_int64] + 9 * [ctypes.c_void_p],
+    # mask, out, stream | launched
+    "rtpu_partition_reduce": 7 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # k, n, m, default, nl | indptr, perm, values, mask, long_rows,
-    # scratch, out, stream
-    "rtpu_segment_mode": 5 * [ctypes.c_int64] + 8 * [ctypes.c_void_p],
+    # scratch, out, stream | launched
+    "rtpu_segment_mode": 5 * [ctypes.c_int64] + 8 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # n_pad, F, fdtype, tbytes, lo, nowin | sw, 1-sw | in_indptr, e_src,
     # e_lat, e_alive, H, out, stream
     "rtpu_feature_propagate": 6 * [ctypes.c_int64] + 2 * [ctypes.c_float]

@@ -47,6 +47,7 @@ a TPU backend) is not ported (ROADMAP queue 2).
 
 from __future__ import annotations
 
+import ctypes
 import math
 import weakref
 from dataclasses import dataclass
@@ -118,11 +119,6 @@ def segment_combine_plain(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     return out.reshape((k * n,) + tail)
 
 
-#: most grid rows of a K7 / K7-P launch: the kernel's blockIdx.y is (window
-#: group, feature), at most F * k rows
-_MAX_GRID_ROWS = 65_535
-
-
 def combine_plan(indptr, order, perm, valid, m: int) -> torch.Tensor:
     """What K7 / K7-P need of a walk beyond its tensors: its long rows, the
     rows whose runs exceed ``SHORT_RUN`` entries (int32, longest first;
@@ -176,11 +172,11 @@ def _plan_of(name: str, m: int, indptr, order, perm, valid):
                        lambda: combine_plan(indptr, order, perm, valid, m))
 
 
-def _payload_f(name: str, data, mask, k: int) -> int:
+def _payload_f(name: str, data, mask) -> int:
     """The checks a K7 / K7-P launch makes at every call (the walk and the
     mask are checked once per signature): the payload's dtype, contiguity
-    and device, and the grid rows its features and windows take. Returns
-    F, the features a payload row holds."""
+    and device. Returns F, the features a payload row holds (the kernel's
+    grid rows are F * k, launched in groups of 65,535 by the C entry)."""
     if data.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{name}: payload dtype {data.dtype} has no kernel "
                         f"(want one of {sorted(map(str, _KERNEL_DTYPES))})")
@@ -189,11 +185,15 @@ def _payload_f(name: str, data, mask, k: int) -> int:
     if data.device != mask.device:
         raise ValueError(f"{name}: data on {data.device}, the mask on "
                          f"{mask.device}")
-    F = math.prod(data.shape[1:])
-    if F * k > _MAX_GRID_ROWS:
-        raise ValueError(f"{name}: {F} features x {k} windows is more "
-                         f"than the kernel's {_MAX_GRID_ROWS} grid rows")
-    return F
+    return math.prod(data.shape[1:])
+
+
+def _run(counted: str, fn, *args) -> None:
+    """Call a K7 / K7-P / K7-mode C entry (its last parameter the launches
+    it made: one a group of 65,535 grid rows) and count its launches."""
+    launched = ctypes.c_int64(0)
+    err = fn(*args, ctypes.byref(launched))
+    _launch(counted, err, launched.value)
 
 
 def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
@@ -201,9 +201,11 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
     as the superstep runner calls it at ``engine/bsp.py:145,152,154``):
     the masked sum/min/max of ``data [k*m, ...]`` per (window, segment),
     ``[k*n, ...]``. Float32, int32 and int64 payloads on the card (an
-    int64 launch counts as ``segment_combine_i64``), one launch a call:
-    the CSR and the mask are checked once per signature and the CSR's
-    long rows listed once (``combine_plan``), the payload at every call."""
+    int64 launch counts as ``segment_combine_i64``), one launch a call up
+    to 65,535 grid rows (features x windows), one a group of them past
+    that: the CSR and the mask are checked once per signature and the
+    CSR's long rows listed once (``combine_plan``), the payload at every
+    call."""
     name = "segment_combine"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -225,18 +227,18 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
                             check)
     if long_rows is None:
         return segment_combine_plain(data, csr, op, mask, k)
-    F = _payload_f(name, data, mask, k)
+    F = _payload_f(name, data, mask)
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     if not out.numel():
         return out
-    err = _fn("segment", "rtpu_segment_combine")(
-        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
-        long_rows.shape[0], csr.indptr.data_ptr(),
-        None if csr.perm is None else csr.perm.data_ptr(),
-        long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), _stream(data))
-    _launch(_counted(name, data.dtype), err)
+    _run(_counted(name, data.dtype),
+         _fn("segment", "rtpu_segment_combine"),
+         k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
+         long_rows.shape[0], csr.indptr.data_ptr(),
+         None if csr.perm is None else csr.perm.data_ptr(),
+         long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+         out.data_ptr(), _stream(data))
     return out
 
 
@@ -244,8 +246,6 @@ def segment_combine(data, csr: SegmentCSR, op: str, mask, k: int = 1):
 
 #: segment_mode's value budget: non-negative values below 2^31
 _V_BITS = 31
-#: most windows K7-mode takes: the window is its grid's y index
-_MAX_MODE_WINDOWS = 65_535
 
 
 def _mode_args(name, values, seg: SegmentCSR, num_segments: int, mask,
@@ -383,7 +383,8 @@ def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
     frequent value of each of the ``num_segments = k*n`` (window, segment)
     inboxes of ``values [k*m]`` under ``mask bool[k*m]`` (None: every row),
     ties to the smallest value, ``default`` where nothing counts. Int32
-    payloads on the card, one launch a call: the CSR is checked and its
+    payloads on the card, one launch a call up to 65,535 windows (one a
+    group of 65,535 past that): the CSR is checked and its
     long rows listed once per CSR and version (``_mode_plan_of``), the
     values and mask at every call; the sort scratch is allocated only for
     a CSR with a run past ``SMEM_RUN``."""
@@ -399,22 +400,18 @@ def segment_mode(values, seg: SegmentCSR, num_segments: int, mask=None,
     default = int(default)
     if not -(1 << 31) <= default < (1 << 31):
         raise ValueError(f"{name}: default {default} is not an int32")
-    if k > _MAX_MODE_WINDOWS:
-        raise ValueError(f"{name}: {k} windows, more than the kernel's "
-                         f"{_MAX_MODE_WINDOWS}")
     plan = _mode_plan_of(name, seg, m)
     out = values.new_empty(k * n)
     # the long inboxes' sort space past shared memory: row r of window w
     # sorts in place at w*m + indptr[r] .. (disjoint runs, one buffer)
     scratch = values.new_empty(k * m) if plan.needs_scratch else None
-    err = _fn("segment", "rtpu_segment_mode")(
-        k, n, m, default, plan.long_rows.shape[0], seg.indptr.data_ptr(),
-        None if seg.perm is None else seg.perm.data_ptr(), values.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        plan.long_rows.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-        _stream(values))
-    _launch(name, err)
+    _run(name, _fn("segment", "rtpu_segment_mode"),
+         k, n, m, default, plan.long_rows.shape[0], seg.indptr.data_ptr(),
+         None if seg.perm is None else seg.perm.data_ptr(),
+         values.data_ptr(), None if mask is None else mask.data_ptr(),
+         plan.long_rows.data_ptr(),
+         None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+         _stream(values))
     return out
 
 
@@ -496,8 +493,9 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
     """K7-P wrapper: the masked sum/min/max of ``data [k*m, ...]`` over the
     walk's slots of each destination row, per window → ``[k*n, ...]``.
     Float32, int32 and int64 payloads on the card (an int64 launch counts
-    as ``partition_segment_reduce_i64``), one launch a call, the walk and
-    the mask checked once per signature as K7's are."""
+    as ``partition_segment_reduce_i64``), launched as K7 is (one launch a
+    call up to 65,535 grid rows), the walk and the mask checked once per
+    signature as K7's are."""
     name = "partition_segment_reduce"
     if op not in _OPS:
         raise ValueError(f"{name}: unknown combiner {op!r}; use one of "
@@ -532,20 +530,19 @@ def partition_reduce(data, walk: PartitionWalk, op: str, mask, k: int = 1):
                             check)
     if long_rows is None:
         return partition_reduce_plain(data, walk, op, mask, k)
-    F = _payload_f(name, data, mask, k)
+    F = _payload_f(name, data, mask)
     out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     if not out.numel():
         return out
-    err = _fn("segment", "rtpu_partition_reduce")(
-        k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
-        long_rows.shape[0], walk.indptr.data_ptr(),
-        walk.order.data_ptr(),
-        None if walk.perm is None else walk.perm.data_ptr(),
-        None if walk.valid is None else walk.valid.data_ptr(),
-        long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), _stream(data))
-    _launch(_counted(name, data.dtype), err)
+    _run(_counted(name, data.dtype),
+         _fn("segment", "rtpu_partition_reduce"),
+         k, n, m, F, _OPS[op], _KERNEL_DTYPES[data.dtype],
+         long_rows.shape[0], walk.indptr.data_ptr(), walk.order.data_ptr(),
+         None if walk.perm is None else walk.perm.data_ptr(),
+         None if walk.valid is None else walk.valid.data_ptr(),
+         long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
+         out.data_ptr(), _stream(data))
     return out
 
 

@@ -239,19 +239,28 @@ def test_segment_mode_edge_runs_match_jax(k, permuted):
     np.testing.assert_array_equal(got, _kernel_walk(vals, csr, k, mask, -1))
 
 
+#: the C entry's launch groups: at most this many windows a launch
+MODE_GRID_ROWS = 65_535
+
+
 def _model_mode(calls):
     """``rtpu_segment_mode`` as numpy over the wrapper's raw host addresses,
-    step by step as the kernel takes it: the listed long rows by a sort and
-    a count; the short rows a warp of 32 lanes 16 rows at a time — their
-    runs packed end to end over the lanes (long rows taking none, empty
-    rows ``dflt`` at once), a round per fill of the lanes, each lane's row
-    found by binary lifting over the running sums, its value counted among
-    equal values of its row's lanes, and the shuffle-down max bounded by
-    the row's last lane. Refuses a long-row list that is not exactly the
-    runs past 32 entries, and a missing scratch where a run exceeds 4,096."""
+    step by step as the C entry and the kernel take it: the k windows in
+    launches of at most 65,535 (counted in ``launched``), each launch's
+    windows side by side; the listed long rows by a sort and a count; the
+    short rows a warp of 32 lanes 16 rows at a time — their runs packed end
+    to end over the lanes (long rows taking none, empty rows ``dflt`` at
+    once), a round per fill of the lanes, each lane's row found by binary
+    lifting over the running sums, its value counted among equal values of
+    its row's lanes, and the shuffle-down max bounded by the row's last
+    lane. Refuses a long-row list that is not exactly the runs past 32
+    entries, and a missing scratch where a run exceeds 4,096."""
     def model(k, n, m, dflt, nl, indptr, perm, x, mask, long_rows, scratch,
-              out, stream):
-        calls.append(dict(nl=nl, mask=mask, scratch=scratch))
+              out, stream, launched):
+        groups = [np.arange(y0, min(k, y0 + MODE_GRID_ROWS))
+                  for y0 in range(0, k, MODE_GRID_ROWS)]
+        calls.append(dict(nl=nl, mask=mask, scratch=scratch,
+                          launches=len(groups)))
         ip = _view(indptr, np.int64, n + 1)
         lens = np.diff(ip)
         pm = None if perm is None else _view(perm, np.int32, int(ip[-1]))
@@ -260,28 +269,34 @@ def _model_mode(calls):
         lr = _view(long_rows, np.int32, nl)
         assert lr.tolist() == np.flatnonzero(lens > 32).tolist()
         assert scratch is not None or lens.max(initial=0) <= 4096
-        o = _view(out, np.int32, k * n)
+        o = _view(out, np.int32, k * n).reshape(k, n)
         lane = np.arange(32)
 
-        def entry(xw, j):
-            e = xw + (j if pm is None else int(pm[j]))
-            on = mk is None or mk[e]
-            return int(xs[e]) if on and xs[e] >= 0 else -1
+        def entries(ws, j):
+            """The values of entries ``j`` (an int array) in windows
+            ``ws``: ``[len(ws), len(j)]``, -1 where masked or negative."""
+            e = ws[:, None] * m + (j if pm is None
+                                   else pm[j].astype(np.int64))[None, :]
+            v = xs[e]
+            on = v >= 0 if mk is None else (mk[e] != 0) & (v >= 0)
+            return np.where(on, v, -1).astype(np.int64)
 
         def key(v, c):
-            return 0 if v < 0 else (c << 32) | (0x7FFFFFFF - v)
+            return np.where(v < 0, 0, (c << 32) | (0x7FFFFFFF - v))
 
         def value(kk):
-            return 0x7FFFFFFF - (kk & 0xFFFFFFFF) if kk else dflt
+            return np.where(kk != 0, 0x7FFFFFFF - (kk & 0xFFFFFFFF), dflt)
 
-        for w in range(k):
-            xw = w * m
+        for ws in groups:
+            launched._obj.value += 1
             for r in lr:
-                vs = np.array([entry(xw, j) for j in range(ip[r], ip[r + 1])])
-                vs = vs[vs >= 0]
-                u, c = np.unique(vs, return_counts=True)
-                o[w * n + r] = value(max((key(int(a), int(b))
-                                          for a, b in zip(u, c)), default=0))
+                vs = entries(ws, np.arange(ip[r], ip[r + 1]))
+                for i, w in enumerate(ws):
+                    v = vs[i][vs[i] >= 0]
+                    u, c = np.unique(v, return_counts=True)
+                    o[w, r] = value(max(
+                        (int(key(np.int64(a), np.int64(b)))
+                         for a, b in zip(u, c)), default=0))
             for r0 in range(0, n, 16):
                 a = np.zeros(32, np.int64)
                 eff = np.zeros(32, np.int64)
@@ -289,7 +304,7 @@ def _model_mode(calls):
                     if r0 + l < n:
                         a[l] = ip[r0 + l]
                         if lens[r0 + l] == 0:
-                            o[w * n + r0 + l] = dflt
+                            o[ws, r0 + l] = dflt
                         eff[l] = lens[r0 + l] if lens[r0 + l] <= 32 else 0
                 P = np.cumsum(eff)
                 total = int(P[31])
@@ -304,18 +319,22 @@ def _model_mode(calls):
                     inn = (q < total) & (Pi <= base + 32)
                     start = np.where(inn, Pi - Li - base, lane)
                     end = np.where(inn, Pi - base, lane + 1)
-                    v = [entry(xw, int(ai[l] + q[l] - (Pi[l] - Li[l])))
-                         if inn[l] else -1 for l in range(32)]
-                    keys = [key(v[l], sum(v[t] == v[l] for t in
-                                          range(start[l], end[l])))
-                            for l in range(32)]
+                    j = np.where(inn, ai + q - (Pi - Li), 0)
+                    v = np.where(inn[None, :], entries(ws, j), -1)
+                    cnt = np.stack([(v[:, start[l]:end[l]]
+                                     == v[:, l:l + 1]).sum(1)
+                                    for l in range(32)], 1)
+                    keys = key(v, cnt)
                     for off in (1, 2, 4, 8, 16):
-                        keys = [max(keys[l], keys[l + off])
-                                if l + off < end[l] else keys[l]
-                                for l in range(32)]
+                        nxt = keys.copy()
+                        for l in range(32):
+                            if l + off < end[l]:
+                                nxt[:, l] = np.maximum(keys[:, l],
+                                                       keys[:, l + off])
+                        keys = nxt
                     for l in range(32):
                         if inn[l] and l == start[l]:
-                            o[w * n + r0 + i[l]] = value(keys[l])
+                            o[ws, r0 + i[l]] = value(keys[:, l])
                     base = int(max(P[l] for l in range(16)
                                    if P[l] <= base + 32))
         return 0

@@ -207,8 +207,8 @@ def test_apply_delta_chunk_twin_matches_jax(tdt):
     for _ in range(3):                       # three chunks in a row
         chunk = _chunk(rng, n, m, cap_v, cap_e, tdt)
         jbufs = apply(*jbufs, *(jnp.asarray(a) for a in chunk))
-        resident.apply_delta_chunk(
-            tbufs, tuple(torch.from_numpy(a) for a in chunk))
+        resident.apply_delta_chunk(tbufs, resident.pack_chunk(
+            chunk, cap_v, cap_e, tbufs[0].dtype))
         for g, w in zip(tbufs, jbufs):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -218,15 +218,14 @@ def test_apply_delta_chunk_refuses_bad_inputs():
             torch.zeros(8, dtype=torch.int32),
             torch.zeros(16, dtype=torch.int32), torch.zeros(16, dtype=bool),
             torch.zeros(16, dtype=torch.int32))
-    dup = (torch.tensor([1, 1], dtype=torch.int32),
-           torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=bool),
-           torch.zeros(2, dtype=torch.int32),
-           torch.tensor([2**31 - 1], dtype=torch.int32),
-           torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=bool),
-           torch.zeros(1, dtype=torch.int32))
+    dup = (np.array([1, 1], np.int32), np.zeros(2, np.int32),
+           np.zeros(2, bool), np.zeros(2, np.int32),
+           np.array([2**31 - 1], np.int32), np.zeros(1, np.int32),
+           np.zeros(1, bool), np.zeros(1, np.int32))
     with pytest.raises(ValueError, match="twice"):
-        resident.apply_delta_chunk(bufs, dup)
-    wide = dup[:1] + (dup[1].long(),) + dup[2:]
+        resident.apply_delta_chunk(bufs, resident.pack_chunk(
+            dup, 2, 1, torch.int32))
+    wide = resident.pack_chunk(dup, 2, 1, torch.int64)
     with pytest.raises(TypeError, match="vd_lat"):
         resident.apply_delta_chunk(bufs, wide)
 
@@ -507,21 +506,28 @@ def test_combine_twins_match_jax_on_pareto_sources(pareto, op, dtype):
     np.testing.assert_array_equal(got, seq)
 
 
+#: the C entry's launch groups: at most this many grid rows a launch
+GRID_ROWS = 65_535
+
+
 def _model_combine(calls, kind):
     """``rtpu_segment_combine`` (``kind`` "k7") or ``rtpu_partition_reduce``
-    ("k7p") as numpy over the wrapper's raw host addresses, as the kernel
-    takes it: the listed long rows (refused unless exactly the runs past 32
-    entries, longest first) and the short rows each combine in walk order,
-    except a long row's integers, which combine in a shuffled order (any
-    order is exact for them)."""
+    ("k7p") as numpy over the wrapper's raw host addresses, as the C entry
+    and the kernel take it: the F * k / KW grid rows (KW = k where k <= 3
+    and k * n >= 2^20, else 1) in launches of at most 65,535, each launch
+    writing only its rows' (window group, feature) pairs and counted in
+    ``launched``; in each, the listed long rows (refused unless exactly the
+    runs past 32 entries, longest first) and the short rows each combine in
+    walk order, except a long row's integers, which combine in a shuffled
+    order (any order is exact for them)."""
     shuffle = np.random.default_rng(0)
 
     def model(k, n, m, F, op, dtype, nl, indptr, *rest):
         if kind == "k7":
-            order, long_rows, x, mask, out, _ = rest
+            order, long_rows, x, mask, out, _, launched = rest
             perm = valid = None
         else:
-            order, perm, valid, long_rows, x, mask, out, _ = rest
+            order, perm, valid, long_rows, x, mask, out, _, launched = rest
         ip = _view(indptr, np.int64, n + 1)
         lr = _view(long_rows, np.int32, nl)
         assert lr.tolist() == _long_rows(ip).tolist()
@@ -535,24 +541,32 @@ def _model_combine(calls, kind):
         mk = _view(mask, np.uint8, k * m)
         o = _view(out, dt, k * n * F).reshape(k * n, F)
         fn = (np.add, np.minimum, np.maximum)[op]
-        calls.append(dict(nl=nl))
+        fill = segment.neutral(("sum", "min", "max")[op],
+                               torch.from_numpy(np.zeros(0, dt)).dtype)
+        kw = k if k <= 3 and k * n >= 1 << 20 else 1
+        gy = F * (k // kw)
+        groups = [np.arange(y0, min(gy, y0 + GRID_ROWS))
+                  for y0 in range(0, gy, GRID_ROWS)]
+        calls.append(dict(nl=nl, launches=len(groups)))
         with np.errstate(over="ignore"):
-            for r in range(n):
-                js = np.arange(ip[r], ip[r + 1])
-                if r in set(lr.tolist()) and dt != np.float32:
-                    js = shuffle.permutation(js)
-                for w in range(k):
-                    acc = np.full(F, segment.neutral(
-                        ("sum", "min", "max")[op],
-                        torch.from_numpy(np.zeros(0, dt)).dtype), dt)
-                    for j in js:
-                        s = j if od is None else int(od[j])
-                        if vd is not None and not vd[s]:
-                            continue
-                        e = w * m + (s if pm is None else int(pm[s]))
-                        if mk[e]:
-                            acc = fn(acc, xs[e])
-                    o[w * n + r] = acc
+            for ys in groups:
+                launched._obj.value += 1
+                for g in np.unique(ys // F):
+                    fs = ys[ys // F == g] % F
+                    for r in range(n):
+                        js = np.arange(ip[r], ip[r + 1])
+                        if r in set(lr.tolist()) and dt != np.float32:
+                            js = shuffle.permutation(js)
+                        for w in range(g * kw, g * kw + kw):
+                            acc = np.full(len(fs), fill, dt)
+                            for j in js:
+                                s = j if od is None else int(od[j])
+                                if vd is not None and not vd[s]:
+                                    continue
+                                e = w * m + (s if pm is None else int(pm[s]))
+                                if mk[e]:
+                                    acc = fn(acc, xs[e, fs])
+                            o[w * n + r, fs] = acc
         return 0
     return model
 
@@ -643,8 +657,9 @@ def test_combine_card_branch_one_launch_checks_once(combine_card, permuted):
 
 def test_combine_card_branch_checks_the_payload_every_call(combine_card):
     """The walk and the mask are checked once a signature; the payload at
-    every call: its dtype, contiguity, device, and the grid rows its
-    features and windows take."""
+    every call: its dtype, contiguity and device. A payload past the
+    kernel's 65,535 grid rows (features x windows) is not refused: the
+    C entry launches once a group of them, the output the twin's."""
     rng = np.random.default_rng(4)
     csr, m = _runs_csr(rng, [2, 3, 1], False)
     mask = T(np.ones(m, bool))
@@ -655,8 +670,11 @@ def test_combine_card_branch_checks_the_payload_every_call(combine_card):
     with pytest.raises(ValueError, match="contiguous"):
         segment.segment_combine(T(np.zeros((2, m), np.float32)).t(), csr,
                                 "sum", mask, 1)
-    with pytest.raises(ValueError, match="grid rows"):
-        segment.segment_combine(torch.zeros((m, 70_000)), csr, "sum", mask,
-                                1)
+    wide = T(rng.random((m, 70_000)).astype(np.float32))
+    before = columns.LAUNCHES["segment_combine"]
+    got = segment.segment_combine(wide, csr, "sum", mask, 1)
+    assert columns.LAUNCHES["segment_combine"] - before == 2
+    assert torch.equal(got, segment.segment_combine_plain(wide, csr, "sum",
+                                                          mask, 1))
     with pytest.raises(ValueError, match="several devices|mask on"):
         segment.segment_combine(x.to("meta"), csr, "sum", mask, 1)
