@@ -43,11 +43,14 @@ printing one JSON line:
               hop's upload + wrapper), K9b (bounds by value, 32 windows a
               launch: GAB k 1, Bitcoin k 3, GAB k 40, int64) and K8u
               (mask unpack) bitwise; a ``sync_check`` line: one resident
-              hop's chunk upload, K9a and K9b under
+              hop's chunk upload, K9a and K9b, and the host-column mask
+              step (K3 and KB1 on fold columns already on the card) under
               ``torch.cuda.set_sync_debug_mode("error")``, and their
               synchronizing calls counted under ``"warn"`` (the
-              parent's too); K3 (host-column masks, GAB
-              tables, int32 and int64) and K4 (scale masks at the scale
+              parent's mask step too); K3 (host-column masks, the column
+              bounds by value, a launch a group of 64 columns: the
+              headline chunk, int32 and int64, the LDBC dispatch's shape
+              and C 70) and K4 (scale masks at the scale
               sweep's shape, engine-order and binned through a synthetic
               layout, two launches a call, and ``k4_edge_cases``)
               bitwise; the binned kernels KB1, K2b-P
@@ -157,8 +160,13 @@ printing one JSON line:
               each) against their twins at this shape (f32 max abs err;
               bf16 elements that differ, max ulps), K10-P bitwise K10 at
               the day and the month window; both timed at both windows
-              with the row gathers' GB/s, and ``torch.sparse.mm`` timed
-              at both windows as the yardstick, in the same call.
+              with the row gathers' GB/s beside two bounds ("H read
+              once", and with every live edge's row gathered, by bytes
+              and in 32-byte sectors), and ``torch.sparse.mm`` timed
+              at both windows as the yardstick, in the same call; then
+              the four calls again under ``RTPU_PCPM=0``, two hops on
+              (``unbinned``: K10's 8 launches, views/s, fold / dispatch
+              seconds).
 16. features_gab — the headline GAB log, F 128, f32 and bf16, with
               ``RTPU_PCPM=0`` (K10) and ``=1`` (K10-P): card against the
               CPU run (f32 atol 1e-6, bf16 2 ulps), binned against
@@ -243,24 +251,18 @@ just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
-unpacked with ``git archive``: ``Parent`` binds its C entry points), K1
-``masks_from_deltas``, K6w ``weights_from_deltas``, K7
-``segment_combine``, K7-P ``partition_reduce``, K7-mode ``segment_mode``,
-K9a ``apply_delta_chunk`` and K9b ``window_masks`` as DIR's ``masks.cu``,
-``segment.cu`` and ``sweep.cu`` build them, each inside a copy of DIR's
-wrapper (K9a behind DIR's eight-upload staging), are held BITWISE
-against this tree's and timed in turns with them (CUDA events, and
-device time from the profiler): K1 at the headline's edge and vertex
-calls, on its edge cases and on the ``scale`` phase's edge payload; K6w
-on both ``h0`` settings at the LDBC length, a binned length and an H 70
-call (timed at the first); K7 on every case of the kernels line (timed
-at the GAB View's f32 sum and at ``bitcoin_range``'s out-degree call)
-and its int64 edge cases, K7-P on the cold GAB View's layout (timed
-there) and both at the taint shape (timed); K7-mode on its synthetic
-inboxes, at the cold GAB View's shape and at the LDBC Range's; K9a's hop
-(upload + wrapper) on a GAB chunk and on the past-cap job's chunk shape,
-K9b at GAB k 1, Bitcoin k 3 and GAB k 40 (timed), int64 (held): a
-``parent`` line before ``timing``.
+unpacked with ``git archive``: ``Parent`` binds its C entry points), K10
+``feature_propagate``, K10-P ``feature_propagate_binned``, K3
+``column_masks`` and KB1 ``bin_column_masks`` as DIR's ``features.cu``
+and ``masks.cu`` build them, each inside a copy of DIR's wrapper, are held
+BITWISE against this tree's and timed in turns with them (CUDA events,
+and device time from the profiler): K10 and K10-P at the ``features``
+state's day and month windows (bf16, F 128) and at ``features_gab`` (one
+round, bf16 and f32; K10 also at F 132 / 260 / 388 / 512, held), K3 at
+the headline chunk and the LDBC shape and KB1 on the headline layout,
+each against the parent's mask step (its three column-bound uploads and
+its call; C 70 held); ``sync_check`` counts the parent mask step's
+synchronizing calls: a ``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -332,40 +334,31 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K1, K6w, K7, K7-P, K7-mode, K9a and K9b as the
-#: tree at DIR builds them (``Parent``), held against this tree's and timed
-#: in turns with them on the same inputs
+#: with ``--parent DIR``: K10, K10-P, K3 and KB1 as the tree at DIR builds
+#: them (``Parent``), held against this tree's and timed in turns with them
+#: on the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
 class Parent:
-    """K1 ``masks_from_deltas``, K6w ``weights_from_deltas``, K7
-    ``segment_combine``, K7-P ``partition_reduce``, K7-mode
-    ``segment_mode``, K9a ``apply_delta_chunk`` and K9b ``window_masks`` of
-    another tree's ``masks.cu``, ``segment.cu`` and ``sweep.cu``, through
-    the C entry points they had before this tree split K7 / K7-mode past
-    65,535 grid rows and redesigned K9a and K9b, each inside a copy of that
-    tree's wrapper (its input checks, allocations and call; the kernels
-    line's ``ms`` has always timed the wrapper): K1 ``(len, H, W, U, h0,
-    tw | base_l, base_a, d_pos, d_lat, d_alive, lo, nowin, adv_l, adv_a,
-    touch, out, stream | launched)``; K6w ``(len, H, U, h0, tw | base,
-    d_pos, d_val, adv, touch, out, stream | launched)``; K7 ``(k, n, m, F,
-    op, dtype, nl | indptr, perm, long_rows, x, mask, out, stream)`` and
-    K7-P ``(k, n, m, F, op, dtype, nl | indptr, order, perm, valid,
-    long_rows, x, mask, out, stream)`` over this tree's ``combine_plan``,
-    the walk and mask checked once per signature (one launch, at most
-    65,535 grid rows); K7-mode ``(k, n, m, default, nl | indptr, perm,
-    values, mask, long_rows, scratch, out, stream)`` over this tree's
-    ``mode_plan``; K9a ``(n_pad, m_pad, cap_v, cap_e, tbytes | six
-    buffers, eight chunk arrays, stream)``, its 14 inputs checked every
-    call, behind the parent's staging (``apply_hop``: eight padded arrays,
-    each uploaded with its own blocking ``.to``); K9b ``(k, n, m, tbytes |
-    v_lat, v_alive, e_lat, e_alive, lo, nowin, v_out, e_out, stream)``, its
-    bounds made as two device tensors every call. Built with
-    ``columns.build``'s nvcc flags, all sources at once. Its launches count
-    nowhere."""
+    """K10 ``rtpu_feature_propagate``, K10-P
+    ``rtpu_feature_propagate_binned``, K3 ``rtpu_column_masks_*`` and KB1
+    ``rtpu_bin_column_masks_*`` of another tree's ``features.cu`` and
+    ``masks.cu``, through the C entry points they had before this tree put
+    K10 on K10-P's ring and passed K3 / KB1's column bounds by value, each
+    inside a copy of that tree's wrapper (its input checks, allocations and
+    call; the kernels line's ``ms`` has always timed the wrapper): K10 /
+    K10-P ``(n_pad, F, fdtype, tbytes, lo, nowin | sw, 1 - sw | in_indptr,
+    e_src or walk, e_lat, e_alive, H, out, stream)`` — the signature this
+    tree keeps; K3 ``(m, n, H, C | e_lat, e_alive, v_lat, v_alive,
+    hop_of_col, lo, nowin, me, mv, stream)`` and KB1 ``(B, m, n, H, C |
+    e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin, perm, valid, me,
+    mv, stream)``, the bounds three device tensors (``column_masks_step``
+    uploads them as that tree's ``hopbatch._dispatch_columns`` did: three
+    blocking ``.to`` calls). Built with ``columns.build``'s nvcc flags, both
+    sources at once. Its launches count nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
@@ -373,7 +366,7 @@ class Parent:
 
         libs = {}
         procs = []
-        for name in ("masks", "segment", "sweep"):
+        for name in ("features", "masks"):
             src = os.path.join(root, "raphtory_tpu_torch", "csrc",
                                f"{name}.cu")
             with open(src, "rb") as f:
@@ -391,272 +384,137 @@ class Parent:
             log, _ = proc.communicate(timeout=900)
             if proc.returncode:
                 raise RuntimeError(f"parent build failed:\n{log.decode()}")
+        feats = ctypes.CDLL(str(libs["features"]))
         masks = ctypes.CDLL(str(libs["masks"]))
-        seg = ctypes.CDLL(str(libs["segment"]))
-        sweep = ctypes.CDLL(str(libs["sweep"]))
-        i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        ref = ctypes.POINTER(i64)
+        i64, ptr, f32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_float
 
         def bind(f, args):
             f.argtypes, f.restype = args, ctypes.c_int
             return f
 
-        self._k1 = {t: bind(getattr(masks, f"rtpu_masks_from_deltas_{t}"),
-                            6 * [i64] + 12 * [ptr] + [ref])
-                    for t in ("i32", "i64")}
-        self._k6w = bind(masks.rtpu_weights_from_deltas,
-                         5 * [i64] + 7 * [ptr] + [ref])
-        self._k7 = bind(seg.rtpu_segment_combine, 7 * [i64] + 7 * [ptr])
-        self._k7p = bind(seg.rtpu_partition_reduce, 7 * [i64] + 9 * [ptr])
-        self._mode = bind(seg.rtpu_segment_mode, 5 * [i64] + 8 * [ptr])
-        self._k9a = bind(sweep.rtpu_apply_delta_chunk,
-                         5 * [i64] + 15 * [ptr])
-        self._k9b = bind(sweep.rtpu_window_masks, 4 * [i64] + 9 * [ptr])
+        self._k10 = bind(feats.rtpu_feature_propagate,
+                         6 * [i64] + 2 * [f32] + 7 * [ptr])
+        self._k10p = bind(feats.rtpu_feature_propagate_binned,
+                          6 * [i64] + 2 * [f32] + 7 * [ptr])
+        self._k3 = {t: bind(getattr(masks, f"rtpu_column_masks_{t}"),
+                            4 * [i64] + 10 * [ptr]) for t in ("i32", "i64")}
+        self._kb1 = {t: bind(getattr(masks, f"rtpu_bin_column_masks_{t}"),
+                             5 * [i64] + 12 * [ptr]) for t in ("i32", "i64")}
         self._c = columns
-        self._ct = ctypes
         self.source = str(root)
 
     def _ok(self, what: str, err: int) -> None:
         if err:
             raise RuntimeError(f"parent {what}: cudaError {err}")
 
-    def masks_from_deltas(self, base_lat, base_alive, d_pos, d_lat, d_alive,
-                          lo, nowin, H: int, W: int, h0: bool = False):
+    def _round(self, fn, what, H, walk_args, e_lat, e_alive, lo, nowin,
+               sw):
         import torch
 
-        name, ex, c = "masks_from_deltas", self._c._expect, self._c
-        n, tdt = base_lat.shape[0], base_lat.dtype
-        U = d_pos.shape[1] if d_pos.dim() == 2 else -1
-        ex(name, base_lat, "base_lat", (torch.int32, torch.int64), (n,))
-        ex(name, base_alive, "base_alive", (torch.bool,), (n,))
-        ex(name, d_pos, "d_pos", (torch.int32,), (H, U))
-        ex(name, d_lat, "d_lat", (tdt,), (H, U))
-        ex(name, d_alive, "d_alive", (torch.bool,), (H, U))
-        ex(name, lo, "lo", (tdt,), (H * W,))
-        ex(name, nowin, "nowin", (torch.bool,), (H * W,))
-        c._on_cuda(name, base_lat, base_alive, d_pos, d_lat, d_alive, lo,
-                   nowin)
-        out = base_alive.new_empty((n, H * W))
-        adv_l, adv_a = base_lat.new_empty(n), base_alive.new_empty(n)
-        tw = c._touch_words(H)
-        stream = c._stream(out)
-        touch = c._touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
-        fn = self._k1["i32" if tdt == torch.int32 else "i64"]
-        self._ok("K1", fn(n, H, W, U, int(bool(h0)), tw, base_lat.data_ptr(),
-                          base_alive.data_ptr(), d_pos.data_ptr(),
-                          d_lat.data_ptr(), d_alive.data_ptr(),
-                          lo.data_ptr(), nowin.data_ptr(), adv_l.data_ptr(),
-                          adv_a.data_ptr(), touch.data_ptr(), out.data_ptr(),
-                          stream, self._ct.byref(self._ct.c_int64(0))))
-        return out, adv_l, adv_a
+        from raphtory_tpu_torch.ops import features
 
-    def weights_from_deltas(self, base_w, d_pos, d_val, H: int,
-                            h0: bool = False):
-        import torch
-
-        name, c = "weights_from_deltas", self._c
-
-        def check():
-            n = base_w.shape[0]
-            U = d_pos.shape[1] if d_pos.dim() == 2 else -1
-            c._expect(name, base_w, "base_w", (torch.float32,), (n,))
-            c._expect(name, d_pos, "d_pos", (torch.int32,), (H, U))
-            c._expect(name, d_val, "d_val", (torch.float32,), (H, U))
-            c._on_cuda(name, base_w, d_pos, d_val)
-            return n, U
-
-        n, U = c._k2_checked("parent " + name, (base_w, d_pos, d_val), H,
-                             check)
-        out = base_w.new_empty((n, H))
-        adv = base_w.new_empty(n)
-        tw = c._touch_words(H)
-        stream = c._stream(out)
-        touch = c._touch_scratch(out.device, stream, -(-n * tw // 4) * 4)
-        self._ok("K6w", self._k6w(
-            n, H, U, int(bool(h0)), tw, base_w.data_ptr(), d_pos.data_ptr(),
-            d_val.data_ptr(), adv.data_ptr(), touch.data_ptr(),
-            out.data_ptr(), stream, self._ct.byref(self._ct.c_int64(0))))
-        return out, adv
-
-    def _payload(self, name, data, k: int):
-        """F of a K7 / K7-P payload, checked as the parent's wrappers
-        checked it (at most 65,535 grid rows)."""
-        import math
-
-        from raphtory_tpu_torch.ops import segment
-
-        if data.dtype not in segment._KERNEL_DTYPES:
-            raise TypeError(f"parent {name}: no kernel for {data.dtype}")
-        if not data.is_contiguous():
-            raise ValueError(f"parent {name}: data is not contiguous")
-        F = math.prod(data.shape[1:])
-        if F * k > 65_535:
-            raise ValueError(f"parent {name}: {F} features x {k} windows")
-        return F
-
-    def segment_combine(self, data, csr, op: str, mask, k: int = 1):
-        import torch
-
-        from raphtory_tpu_torch.ops import segment
-
-        name, c = "segment_combine", self._c
-        m, n = csr.ids.shape[0], csr.n
-        if data.dim() == 0 or data.shape[0] != k * m:
-            raise ValueError(f"parent {name}: bad payload shape")
-        perm = () if csr.perm is None else (csr.perm,)
-
-        def check():
-            c._expect(name, mask, "mask", (torch.bool,), (k * m,))
-            segment._check_csr(name, csr, m)
-            c._on_cuda(name, data, mask, csr.ids, csr.indptr, *perm)
-            return segment.combine_plan(csr.indptr, csr.perm, None, None, m)
-
-        long_rows = c._k2_checked("parent " + name,
-                                  (mask, csr.ids, csr.indptr, *perm), k,
-                                  check)
-        F = self._payload(name, data, k)
-        out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
-                          device=data.device)
-        self._ok("K7", self._k7(
-            k, n, m, F, segment._OPS[op], segment._KERNEL_DTYPES[data.dtype],
-            long_rows.shape[0], csr.indptr.data_ptr(),
-            None if csr.perm is None else csr.perm.data_ptr(),
-            long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), c._stream(data)))
+        out = torch.empty_like(H)
+        n_pad, F = H.shape
+        self._ok(what, fn(n_pad, F, features.FEATURE_DTYPES[H.dtype],
+                          e_lat.dtype.itemsize, int(lo), int(nowin),
+                          float(sw), float(1.0 - sw), *walk_args,
+                          e_lat.data_ptr(), e_alive.data_ptr(),
+                          H.data_ptr(), out.data_ptr(), self._c._stream(H)))
         return out
 
-    def partition_reduce(self, data, walk, op: str, mask, k: int = 1):
+    def propagate_round(self, H, edges, e_lat, e_alive, lo, nowin, sw):
+        """The parent's K10 wrapper (card branch)."""
         import torch
 
-        from raphtory_tpu_torch.ops import segment
+        from raphtory_tpu_torch.ops import features
 
-        name, c = "partition_segment_reduce", self._c
-        if data.dim() == 0 or k <= 0 or data.shape[0] % k:
-            raise ValueError(f"parent {name}: bad payload shape")
-        m, n = data.shape[0] // k, walk.n
-        extra = tuple(t for t in (walk.perm, walk.valid) if t is not None)
+        name, ex = "feature_propagate", self._c._expect
+        m_pad = edges.e_src.shape[0]
+        n_pad, F = features._check(name, H, e_lat, e_alive, m_pad)
+        ex(name, edges.e_src, "e_src", (torch.int32,), (m_pad,))
+        ex(name, edges.e_dst, "e_dst", (torch.int32,), (m_pad,))
+        ex(name, edges.in_indptr, "in_indptr", (torch.int64,), (n_pad + 1,))
+        self._c._on_cuda(name, H, e_lat, e_alive, edges.e_src,
+                         edges.in_indptr)
+        features._check_kernel_shape(name, H)
+        return self._round(self._k10, "K10", H, (
+            edges.in_indptr.data_ptr(), edges.e_src.data_ptr()), e_lat,
+            e_alive, lo, nowin, sw)
 
-        def check():
-            c._expect(name, mask, "mask", (torch.bool,), (k * m,))
-            c._expect(name, walk.indptr, "indptr", (torch.int64,), (n + 1,))
-            c._expect(name, walk.order, "order", (torch.int32,),
-                      (walk.order.shape[0],))
-            c._on_cuda(name, data, mask, walk.indptr, walk.order, *extra)
-            return segment.combine_plan(walk.indptr, walk.order, walk.perm,
-                                        walk.valid, m)
-
-        long_rows = c._k2_checked(
-            "parent " + name, (mask, walk.indptr, walk.order, *extra),
-            (k, walk.perm is None, walk.valid is None), check)
-        F = self._payload(name, data, k)
-        out = torch.empty((k * n,) + tuple(data.shape[1:]), dtype=data.dtype,
-                          device=data.device)
-        self._ok("K7-P", self._k7p(
-            k, n, m, F, segment._OPS[op], segment._KERNEL_DTYPES[data.dtype],
-            long_rows.shape[0], walk.indptr.data_ptr(), walk.order.data_ptr(),
-            None if walk.perm is None else walk.perm.data_ptr(),
-            None if walk.valid is None else walk.valid.data_ptr(),
-            long_rows.data_ptr(), data.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), c._stream(data)))
-        return out
-
-    def segment_mode(self, values, seg, num_segments: int, mask=None,
-                     default: int = -1, k: int = 1):
+    def propagate_round_binned(self, H, be, e_lat, e_alive, lo, nowin, sw):
+        """The parent's K10-P wrapper (card branch)."""
         import torch
 
-        from raphtory_tpu_torch.ops import segment
+        from raphtory_tpu_torch.ops import features
 
-        name = "segment_mode"
-        m, n = segment._mode_args(name, values, seg, num_segments, mask, k)
-        self._c._on_cuda(name, values, seg.indptr,
-                         *(() if mask is None else (mask,)))
-        if values.dtype != torch.int32 or not values.is_contiguous():
-            raise TypeError(f"parent {name}: values must be contiguous "
-                            "int32")
-        if not -(1 << 31) <= int(default) < (1 << 31):
-            raise ValueError(f"parent {name}: default is not an int32")
-        if k > 65_535:
-            raise ValueError(f"parent {name}: {k} windows")
-        plan = segment._mode_plan_of(name, seg, m)
-        out = values.new_empty(k * n)
-        scratch = values.new_empty(k * m) if plan.needs_scratch else None
-        self._ok("K7-mode", self._mode(
-            k, n, m, int(default), plan.long_rows.shape[0],
-            seg.indptr.data_ptr(),
-            None if seg.perm is None else seg.perm.data_ptr(),
-            values.data_ptr(), None if mask is None else mask.data_ptr(),
-            plan.long_rows.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            self._c._stream(values)))
-        return out
+        name, ex = "feature_propagate_binned", self._c._expect
+        n_pad, F = features._check(name, H, e_lat, e_alive, e_lat.shape[0])
+        B = be.perm.shape[0]
+        for t, what, dt, shape in ((be.perm, "perm", torch.int32, (B,)),
+                                   (be.valid, "valid", torch.bool, (B,)),
+                                   (be.b_dst, "b_dst", torch.int32, (B,)),
+                                   (be.slot, "slot", torch.int32, (B,)),
+                                   (be.u_src, "u_src", torch.int32, (be.U,)),
+                                   (be.in_indptr, "in_indptr", torch.int64,
+                                    (n_pad + 1,)),
+                                   (be.in_order, "in_order", torch.int32,
+                                    (be.in_order.shape[0],))):
+            ex(name, t, what, (dt,), shape)
+        self._c._on_cuda(name, H, e_lat, e_alive, be.perm, be.slot, be.u_src,
+                         be.in_indptr, be.in_order)
+        features._check_kernel_shape(name, H)
+        walk = features.binned_walk(be)
+        return self._round(self._k10p, "K10-P", H, (
+            be.in_indptr.data_ptr(), walk.data_ptr()), e_lat, e_alive, lo,
+            nowin, sw)
 
-    def apply_delta_chunk(self, bufs, chunk) -> None:
-        """The parent's K9a wrapper over eight chunk tensors on the card."""
+    def column_masks(self, e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
+                     nowin, perm=None, valid=None):
+        """The parent's K3 wrapper (KB1's with ``perm`` / ``valid``): the
+        column bounds device tensors, seven (nine) tensors checked."""
         import torch
 
-        name, ex = "apply_delta_chunk", self._c._expect
-        n_pad, m_pad = bufs[0].shape[0], bufs[3].shape[0]
-        cap_v, cap_e = chunk[0].shape[0], chunk[4].shape[0]
-        tdt = bufs[0].dtype
-        for t, what, dts, shape in (
-                (bufs[0], "v_lat", (tdt,), (n_pad,)),
-                (bufs[1], "v_alive", (torch.bool,), (n_pad,)),
-                (bufs[2], "v_first", (tdt,), (n_pad,)),
-                (bufs[3], "e_lat", (tdt,), (m_pad,)),
-                (bufs[4], "e_alive", (torch.bool,), (m_pad,)),
-                (bufs[5], "e_first", (tdt,), (m_pad,)),
-                (chunk[0], "v_idx", (torch.int32,), (cap_v,)),
-                (chunk[1], "vd_lat", (tdt,), (cap_v,)),
-                (chunk[2], "vd_alive", (torch.bool,), (cap_v,)),
-                (chunk[3], "vd_first", (tdt,), (cap_v,)),
-                (chunk[4], "e_idx", (torch.int32,), (cap_e,)),
-                (chunk[5], "ed_lat", (tdt,), (cap_e,)),
-                (chunk[6], "ed_alive", (torch.bool,), (cap_e,)),
-                (chunk[7], "ed_first", (tdt,), (cap_e,))):
-            ex(name, t, what, dts, shape)
-        self._c._on_cuda(name, *bufs, *chunk)
-        self._ok("K9a", self._k9a(
-            n_pad, m_pad, cap_v, cap_e, tdt.itemsize,
-            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in chunk),
-            self._c._stream(bufs[0])))
+        name, ex, c = "column_masks", self._c._expect, self._c
+        H, m = e_lat.shape
+        n = v_lat.shape[1]
+        C = hop_of_col.shape[0]
+        tdt = e_lat.dtype
+        ex(name, e_lat, "e_lat", (torch.int32, torch.int64), (H, m))
+        ex(name, e_alive, "e_alive", (torch.bool,), (H, m))
+        ex(name, v_lat, "v_lat", (tdt,), (H, n))
+        ex(name, v_alive, "v_alive", (torch.bool,), (H, n))
+        ex(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
+        ex(name, lo, "lo", (tdt,), (C,))
+        ex(name, nowin, "nowin", (torch.bool,), (C,))
+        tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin)
+        t = "i32" if tdt == torch.int32 else "i64"
+        if perm is None:
+            c._on_cuda(name, *tensors)
+            rows, fn, extra = m, self._k3[t], ()
+        else:
+            B = perm.shape[0]
+            ex(name, perm, "perm", (torch.int32,), (B,))
+            ex(name, valid, "valid", (torch.bool,), (B,))
+            c._on_cuda(name, *tensors, perm, valid)
+            rows, fn, extra = B, self._kb1[t], (perm, valid)
+        me = torch.empty((rows, C), dtype=torch.bool, device=e_lat.device)
+        mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
+        dims = (m, n, H, C) if perm is None else (rows, m, n, H, C)
+        self._ok("K3" if perm is None else "KB1", fn(
+            *dims, *(x.data_ptr() for x in tensors + extra), me.data_ptr(),
+            mv.data_ptr(), c._stream(me)))
+        return me, mv
 
-    def apply_hop(self, bufs, arrays) -> None:
-        """The parent's device half of one chunk: the eight padded host
-        arrays (``DeviceSweep._stage_chunk``'s) each uploaded with a
-        blocking ``.to``, then its K9a wrapper."""
+    def column_masks_step(self, cols, bounds, pv=()):
+        """The parent's mask step of a host-column dispatch, the fold
+        columns already on the card: the three column bounds uploaded
+        (``_put``: a blocking ``.to`` each), then its K3 (KB1 with
+        ``pv``) wrapper."""
         import torch
 
-        dev = bufs[0].device
-        self.apply_delta_chunk(bufs, tuple(torch.from_numpy(a).to(dev)
-                                           for a in arrays))
-
-    def window_masks(self, v_lat, v_alive, e_lat, e_alive, T: int,
-                     windows):
-        """The parent's K9b wrapper: its bounds two device tensors."""
-        import torch
-
-        name, ex = "window_masks", self._c._expect
-        n, m, k = v_lat.shape[0], e_lat.shape[0], len(windows)
-        tdt = v_lat.dtype
-        ex(name, v_lat, "v_lat", (tdt,), (n,))
-        ex(name, v_alive, "v_alive", (torch.bool,), (n,))
-        ex(name, e_lat, "e_lat", (tdt,), (m,))
-        ex(name, e_alive, "e_alive", (torch.bool,), (m,))
-        info = torch.iinfo(tdt)
-        lo = torch.tensor([min(max(int(T) - int(w), info.min), info.max)
-                           for w in windows], dtype=tdt,
-                          device=v_lat.device)
-        nowin = torch.tensor([int(w) < 0 for w in windows], dtype=torch.bool,
-                             device=v_lat.device)
-        self._c._on_cuda(name, v_lat, v_alive, e_lat, e_alive)
-        v_out = torch.empty((k, n), dtype=torch.bool, device=v_lat.device)
-        e_out = torch.empty((k, m), dtype=torch.bool, device=v_lat.device)
-        self._ok("K9b", self._k9b(
-            k, n, m, tdt.itemsize, v_lat.data_ptr(), v_alive.data_ptr(),
-            e_lat.data_ptr(), e_alive.data_ptr(), lo.data_ptr(),
-            nowin.data_ptr(), v_out.data_ptr(), e_out.data_ptr(),
-            self._c._stream(v_lat)))
-        return v_out, e_out
+        dev = cols[0].device
+        return self.column_masks(*cols, *(torch.from_numpy(a).to(dev)
+                                          for a in bounds), *pv)
 
 
 #: alternating rounds ``vs_parent`` times this tree's and the parent's call
@@ -741,11 +599,6 @@ def k1_edge_cases(torch, np, columns, dev) -> int:
                     f"U={U}, h0={h0}")
             if not all(torch.equal(g, x) for g, x in zip(got, want)):
                 raise AssertionError(f"K1 differs from its twin ({what})")
-            if PARENT is not None and not all(
-                    torch.equal(g, x) for g, x in zip(
-                        PARENT.masks_from_deltas(*args, H, W, h0), got)):
-                raise AssertionError(f"K1 differs from the parent's "
-                                     f"({what})")
             cases += 1
     return cases
 
@@ -813,12 +666,6 @@ def phase_kernels(torch, np, columns, tables, dev):
                     if not torch.equal(g, x):
                         raise AssertionError(f"K1 differs from its twin "
                                              f"({what})")
-                if PARENT is not None and not all(
-                        torch.equal(g, x) for g, x in zip(
-                            PARENT.masks_from_deltas(*args, H, W, h0),
-                            got)):
-                    raise AssertionError(f"K1 differs from the parent's "
-                                         f"({what})")
                 if tdt == np.int32 and h0:
                     key = "edge" if length == m_pad else "vertex"
                     valid = int((pos < length).sum())
@@ -833,15 +680,6 @@ def phase_kernels(torch, np, columns, tables, dev):
                         k1["plain_ms"] = cuda_ms(
                             torch, lambda: columns.masks_from_deltas_plain(
                                 *args, H, W, h0), iters=3)
-                    if PARENT is not None:
-                        vs_parent(torch, f"masks_from_deltas {key}",
-                                  lambda: columns.masks_from_deltas(
-                                      *args, H, W, h0),
-                                  lambda: PARENT.masks_from_deltas(
-                                      *args, H, W, h0), iters=100,
-                                  shape=f"len={length} H={H} W={W} U={U} "
-                                        "int32 h0",
-                                  bound_ms=k1[f"{key}_bound_ms"])
     out["masks_from_deltas"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:66",
@@ -1208,52 +1046,92 @@ def k2c_edge_cases(torch, np, columns, dev, n: int = 4_099) -> dict:
     return errs
 
 
-def mask_kernels(torch, np, columns, gab, dev):
-    """K3 at the headline's tables and one headline chunk (H = 4 hops x 3
-    windows; int32 times, int64 checked too) and K4 at the scale sweep's
-    shape (``bench.py:bench_scale_pagerank``: m_pad 33,554,432, n_pad
-    5,308,416, 16 hops x 8 windows, U_e 65,536, U_v 131,072; the edge
-    call also binned through a synthetic layout) and on ``k4_edge_cases``,
-    each against its twin with ``torch.equal``; K4's calls timed, with
-    their device time."""
+def mask_kernels(torch, np, columns, gab, ldbc, dev):
+    """K3 (its column bounds by value, a launch a group of 64 columns) at
+    the headline's tables and one headline chunk (H = 4 hops x 3 windows;
+    int32 timed, int64 checked too), at the LDBC dispatch's shape (H 10 x
+    W 2 over its tables) and at C 70 (two launches), each BITWISE its twin
+    and (``--parent``) the parent's kernel, timed in turns with the
+    parent's mask step (its three bound uploads and its call); and K4 at
+    the scale sweep's shape (``bench.py:bench_scale_pagerank``: m_pad
+    33,554,432, n_pad 5,308,416, 16 hops x 8 windows, U_e 65,536, U_v
+    131,072; the edge call also binned through a synthetic layout) and on
+    ``k4_edge_cases``, each against its twin with ``torch.equal``; the
+    calls timed, with their device time."""
     rng = np.random.default_rng(2)
     out = {}
 
     # ---- K3: random fold columns, times at the dtype's bounds among them
-    H, W = 4, 3
-    C = H * W
-    m, n = gab.m_pad, gab.n_pad
-    hop_of_col = np.repeat(np.arange(H, dtype=np.int32), W)
-    for tdt in (np.int32, np.int64):
-        info = np.iinfo(tdt)
-        vals = np.concatenate([[info.min, info.min + 1, info.max - 1,
-                                info.max], rng.integers(-5000, 5000, 60)])
-        T_col = np.repeat(np.array([info.max - 3, 0, 1000, 4000],
-                                   np.int64), W)
-        w_col = np.tile(np.array([-1, 0, 1 << 40], np.int64), H)
-        lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
-        args = [torch.from_numpy(a).to(dev) for a in (
-            rng.choice(vals, (H, m)).astype(tdt), rng.random((H, m)) < 0.7,
-            rng.choice(vals, (H, n)).astype(tdt), rng.random((H, n)) < 0.7,
-            hop_of_col, lo, w_col < 0)]
-        got = columns.column_masks(*args)
-        want = columns.column_masks_plain(*args)
-        if not all(torch.equal(g, x) for g, x in zip(got, want)):
-            raise AssertionError(f"K3 differs from its twin "
-                                 f"(tdt={tdt.__name__})")
-        if tdt == np.int32:
-            k3_ms = cuda_ms(torch, lambda: columns.column_masks(*args))
-            k3_plain = cuda_ms(torch,
-                               lambda: columns.column_masks_plain(*args))
+    t_pool = np.array([0, 1000, 4000, -5], np.int64)
+    w_pool = np.array([-1, 0, 1 << 40, 300, 2_000, 86_400, 7, 64, 5_000, 1],
+                      np.int64)
+    calls, k3_err = {}, 0.0
+    for key, t, H, W, tdts in (("headline", gab, 4, 3, (np.int32, np.int64)),
+                               ("ldbc", ldbc, 10, 2, (np.int32,)),
+                               ("c70", gab, 7, 10, (np.int32, np.int64))):
+        C = H * W
+        m, n = t.m_pad, t.n_pad
+        hop_of_col = np.repeat(np.arange(H, dtype=np.int32), W)
+        for tdt in tdts:
+            info = np.iinfo(tdt)
+            vals = np.concatenate([[info.min, info.min + 1, info.max - 1,
+                                    info.max], rng.integers(-5000, 5000, 60)])
+            T_col = np.repeat(t_pool[np.arange(H) % 4], W)
+            T_col[:W] = info.max - 3
+            w_col = np.tile(w_pool[:W], H)
+            bounds = (hop_of_col, np.clip(T_col - w_col, info.min,
+                                          info.max).astype(tdt), w_col < 0)
+            cols = [torch.from_numpy(a).to(dev) for a in (
+                rng.choice(vals, (H, m)).astype(tdt),
+                rng.random((H, m)) < 0.7,
+                rng.choice(vals, (H, n)).astype(tdt),
+                rng.random((H, n)) < 0.7)]
+            tb = [torch.from_numpy(a).to(dev) for a in bounds]
+            before = columns.LAUNCHES["column_masks"]
+            got = columns.column_masks(*cols, *bounds)
+            if columns.LAUNCHES["column_masks"] - before != -(-C // 64):
+                raise AssertionError(f"K3: not one launch a group of 64 "
+                                     f"columns ({key})")
+            want = columns.column_masks_plain(*cols, *tb)
+            par = PARENT.column_masks(*cols, *tb) if PARENT else want
+            what = f"{key}, tdt={tdt.__name__}"
+            for g, x, y in zip(got, want, par):
+                if not (torch.equal(g, x) and torch.equal(g, y)):
+                    raise AssertionError(f"K3 differs from its twin or the "
+                                         f"parent's ({what})")
+                k3_err = max(k3_err, exact_err(g, x))
+            if tdt != np.int32:
+                continue
+
+            def k3(cols=cols, bounds=bounds):
+                return columns.column_masks(*cols, *bounds)
+            # the fold columns (lat + alive) and the column bounds read
+            # once, the masks written once
+            bnd = bound(H * (m + n) * (info.bits // 8 + 1) + C * 17
+                        + (m + n) * C)
+            shape = f"m_pad={m} n_pad={n} H={H} C={C} int32"
+            entry = dict(ms=cuda_ms(torch, k3, 50), bound_ms=bnd[0],
+                         shape=shape, launches_a_call=-(-C // 64))
+            entry["device_ms"], entry["device_by"] = device_ms(torch, k3, 50)
+            if key == "headline":
+                entry["plain_ms"] = cuda_ms(
+                    torch, lambda: columns.column_masks_plain(*cols, *tb))
+                head = bnd
+            if PARENT is not None:
+                vs_parent(torch, f"column_masks {key}", k3,
+                          lambda cols=cols, bounds=bounds:
+                          PARENT.column_masks_step(cols, bounds), iters=50,
+                          shape=shape + " (bounds' upload + the call)",
+                          bound_ms=bnd[0])
+            calls[key] = entry
     out["column_masks"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:50",
-        max_abs_err=0.0, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
-        columns=C, shape=f"m_pad={m} n_pad={n} H={H} C={C} int32",
-        # the fold columns (lat i32 + alive) and the column descriptors
-        # read once, the masks written once
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            H * (m + n) * 5 + C * 9 + (m + n) * C))))
+        max_abs_err=k3_err, ms=calls["headline"]["ms"],
+        device_ms=calls["headline"]["device_ms"],
+        plain_ms=calls["headline"]["plain_ms"], library_ms=None, calls=calls,
+        columns=12, shape=calls["headline"]["shape"],
+        **dict(zip(("bound_ms", "bound_by"), head)))
 
     # ---- K4 at the scale shape: random base states (half never seen),
     # half-full update lists padded with (0, INT32_MIN), a real update
@@ -1441,41 +1319,69 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         return (put(me[lay.perm] & lay.valid[:, None]), put(mv), put(me),
                 int(me.sum()))
 
-    # ---- KB1 (host-column form) at the headline: H 4 x W 3
+    # ---- KB1 (host-column form) at the headline: H 4 x W 3 (timed, in
+    # turns with the parent's mask step under --parent) and C 70 (two
+    # launches), the column bounds by value
     lay = layout_of(gab)
     spec = lay.spec
-    H, W = 4, 3
-    C = H * W
     m, n, B = gab.m_pad, gab.n_pad, lay.B
     info = np.iinfo(np.int32)
     vals = np.concatenate([[info.min, info.max], rng.integers(-5000, 5000,
                                                               60)])
-    T_col = np.repeat(np.array([info.max - 3, 0, 1000, 4000], np.int64), W)
-    w_col = np.tile(np.array([-1, 0, 1 << 40], np.int64), H)
-    args = [put(a) for a in (
-        rng.choice(vals, (H, m)).astype(np.int32), rng.random((H, m)) < 0.7,
-        rng.choice(vals, (H, n)).astype(np.int32), rng.random((H, n)) < 0.7,
-        np.repeat(np.arange(H, dtype=np.int32), W),
-        np.clip(T_col - w_col, info.min, info.max).astype(np.int32),
-        w_col < 0, lay.perm, lay.valid)]
-    got = columns.bin_column_masks(*args)
-    want = columns.bin_column_masks_plain(*args)
-    if not all(torch.equal(g, x) for g, x in zip(got, want)):
-        raise AssertionError("KB1 differs from its twin")
+    pv = (put(lay.perm), put(lay.valid))
+    kb1_err, timed_kb1 = 0.0, None
+    for H, W in ((4, 3), (7, 10)):
+        C = H * W
+        T_col = np.repeat(np.array([info.max - 3, 0, 1000, 4000, -5, 7, 64],
+                                   np.int64)[:H], W)
+        w_col = np.tile(np.array([-1, 0, 1 << 40, 300, 2_000, 86_400, 7, 64,
+                                  5_000, 1], np.int64)[:W], H)
+        bounds = (np.repeat(np.arange(H, dtype=np.int32), W),
+                  np.clip(T_col - w_col, info.min, info.max).astype(np.int32),
+                  w_col < 0)
+        cols = [put(a) for a in (
+            rng.choice(vals, (H, m)).astype(np.int32),
+            rng.random((H, m)) < 0.7,
+            rng.choice(vals, (H, n)).astype(np.int32),
+            rng.random((H, n)) < 0.7)]
+        tb = [put(a) for a in bounds]
+        before = columns.LAUNCHES["bin_masks"]
+        got = columns.bin_column_masks(*cols, *bounds, *pv)
+        if columns.LAUNCHES["bin_masks"] - before != -(-C // 64):
+            raise AssertionError(f"KB1: not one launch a group of 64 columns "
+                                 f"(C {C})")
+        want = columns.bin_column_masks_plain(*cols, *tb, *pv)
+        par = PARENT.column_masks(*cols, *tb, *pv) if PARENT else want
+        for g, x, y in zip(got, want, par):
+            if not (torch.equal(g, x) and torch.equal(g, y)):
+                raise AssertionError(f"KB1 differs from its twin or the "
+                                     f"parent's (C {C})")
+            kb1_err = max(kb1_err, exact_err(g, x))
+        if timed_kb1 is None:
+            timed_kb1 = (H, C, cols, bounds, tb)
+    H, C, cols, bounds, tb = timed_kb1
+
+    def kb1():
+        return columns.bin_column_masks(*cols, *bounds, *pv)
+    # the fold columns (lat i32 + alive), perm and valid, the column
+    # bounds read once; the binned and vertex masks written once
+    kb1_bound = bound(H * (m + n) * 5 + B * 5 + C * 17 + (B + n) * C)
+    kb1_shape = (f"host-column form B={B} m_pad={m} n_pad={n} H={H} C={C} "
+                 f"int32 (P={spec.partitions})")
+    if PARENT is not None:
+        vs_parent(torch, "bin_masks headline", kb1,
+                  lambda: PARENT.column_masks_step(cols, bounds, pv),
+                  iters=50, shape=kb1_shape + " (bounds' upload + the call)",
+                  bound_ms=kb1_bound[0])
     out["bin_masks"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:283",
-        max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: columns.bin_column_masks(*args)),
+        max_abs_err=kb1_err, ms=cuda_ms(torch, kb1, 50),
+        device_ms=device_ms(torch, kb1, 50)[0],
         plain_ms=cuda_ms(torch, lambda: columns.bin_column_masks_plain(
-            *args)),
-        library_ms=None, columns=C,
-        shape=f"host-column form B={B} m_pad={m} n_pad={n} H={H} C={C} "
-              f"int32 (P={spec.partitions})",
-        # the fold columns (lat i32 + alive), perm and valid, the column
-        # descriptors read once; the binned and vertex masks written once
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            H * (m + n) * 5 + B * 5 + C * 9 + (B + n) * C))))
+            *cols, *tb, *pv)),
+        library_ms=None, columns=C, shape=kb1_shape,
+        **dict(zip(("bound_ms", "bound_by"), kb1_bound)))
 
     # ---- K2b-P at the headline (pre-aggregated), against its twin and
     # bitwise against K2b over the same masks in engine order; then on a
@@ -1642,16 +1548,12 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         ref = segment.segment_combine(x, flat, op, mask, k)
         ok = (within_tol(got, want) if op == "sum" and dt == "f32"
               else torch.equal(got, want)) and torch.equal(got, ref)
-        if PARENT is not None:
-            ok = ok and torch.equal(got, PARENT.partition_reduce(
-                x, walk, op, mask, k))
         err = max(err, exact_err(got, want))
         if not ok:
             bad.append(f"{op} {dt} k={k} (max abs err "
                        f"{exact_err(got, want)})")
     if bad:
-        raise AssertionError(f"K7-P differs from its twin, K7 or the "
-                             f"parent's: {bad}")
+        raise AssertionError(f"K7-P differs from its twin or K7: {bad}")
     mask = put(np.arange(vm) < vreal)
     x = put((rng.random(vm) * 1e-4).astype(np.float32))
     ids = put(gab_view.e_dst).long()
@@ -1663,11 +1565,6 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
     # the real edges' payload and mask, their walk entries, perm and
     # valid, the output; one add per edge
     k7p_bound = bound(vreal * 5 + vreal * 9 + (vn + 1) * 8 + vn * 4, vreal)
-    if PARENT is not None:
-        vs_parent(torch, "partition_segment_reduce gab_view", k7p,
-                  lambda: PARENT.partition_reduce(x, walk, "sum", mask, 1),
-                  iters=100, shape=f"sum f32 k=1 n_pad={vn} B={vlay.B}",
-                  bound_ms=k7p_bound[0])
     out["partition_segment_reduce"] = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:116",
@@ -1889,12 +1786,6 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
                     raise AssertionError(f"K6w differs from its twin "
                                          f"({what}, h0={h0})")
                 err = max(err, exact_err(g, x))
-            if PARENT is not None and not all(
-                    torch.equal(g, x) for g, x in zip(
-                        got, PARENT.weights_from_deltas(base, d_pos, d_val,
-                                                        Hc, h0))):
-                raise AssertionError(f"K6w differs from the parent's "
-                                     f"({what}, h0={h0})")
         k6w_calls[what] = dict(len=n_rows, H=Hc, U=Uc, live=valid)
         if what == "unbinned":
             timed = (base, d_pos, d_val, valid)
@@ -1905,12 +1796,6 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
     def k6w():
         return columns.weights_from_deltas(base, d_pos, d_val, H, True)
     k6w_dev, k6w_by = device_ms(torch, k6w)
-    if PARENT is not None:
-        vs_parent(torch, "weights_from_deltas", k6w,
-                  lambda: PARENT.weights_from_deltas(base, d_pos, d_val, H,
-                                                     True), iters=100,
-                  shape=f"len={length} H={H} U={U} h0",
-                  bound_ms=k6w_bound[0])
     out["weights_from_deltas"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
         replaces="raphtory_tpu/engine/hopbatch.py:374",
@@ -2235,100 +2120,6 @@ def past_cap_cpu_rows():
     return got["rows"], got["job_s"]
 
 
-#: with ``--parent``: the past-cap job on the card in a child process of
-#: either tree (``past_cap_in_turns``), after a warm-up of two resident
-#: hops; its wall, fold and dispatch seconds, the host seconds its hops
-#: spent staging delta chunks (``stage_s``, inside ``fold_s``), shipping and
-#: applying them (``apply_s``: the chunk hops' ``_apply_staged``, K9a) and
-#: making the window masks (``masks_s``, K9b), both inside
-#: ``dispatch_s``, and its rows, as one JSON line
-PAST_CAP_CARD_CODE = """
-import json, sys, time
-import torch
-from raphtory_tpu_torch.algorithms import PageRank
-from raphtory_tpu_torch.core.service import TemporalGraph
-from raphtory_tpu_torch.engine import device_sweep as tds
-from raphtory_tpu_torch.jobs import manager
-from raphtory_tpu_torch.ops import columns
-from raphtory_tpu_torch.utils.synth import gab_like_log
-spent = dict(stage_s=0.0, apply_s=0.0, masks_s=0.0)
-def clocked(fn, key, when=lambda *a: True):
-    def run(*a, **kw):
-        t = time.perf_counter()
-        try:
-            return fn(*a, **kw)
-        finally:
-            if when(*a):
-                spent[key] += time.perf_counter() - t
-    return run
-D = tds.DeviceSweep
-D._stage_chunk = clocked(D._stage_chunk, "stage_s")
-D._apply_staged = clocked(D._apply_staged, "apply_s",
-                          lambda ds, p: p["kind"] == "chunks")
-tds.window_masks = clocked(tds.window_masks, "masks_s")
-columns.build()
-log = gab_like_log(3_000, 30_000, seed=3, t_span=100_000)
-warm = D(log, device="cuda")
-for T in (60_000, 60_050):
-    warm.run(PageRank(tol=1e-7, max_steps=20), T, windows=[20_000])
-spent.update(stage_s=0.0, apply_s=0.0, masks_s=0.0)
-sweeps, made = [], manager.DeviceSweep
-manager.DeviceSweep = lambda *a, **kw: sweeps.append(
-    made(*a, **kw)) or sweeps[-1]
-mgr = manager.AnalysisManager(TemporalGraph(log, device="cuda"),
-                              device="cuda")
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-job = mgr.submit(PageRank(tol=1e-7, max_steps=20), manager.RangeQuery(
-    start=48_800, end=100_000, jump=50, windows=(20_000,)))
-if not job.wait(600) or job.status != "done":
-    sys.exit(f"past-cap job {job.status}: {job.error}")
-torch.cuda.synchronize()
-job_s = time.perf_counter() - t0
-ds = sweeps[-1]
-print(json.dumps(dict(job_s=job_s, fold_s=ds.fold_seconds,
-                      dispatch_s=ds.dispatch_seconds,
-                      ship_bytes=ds.ship_bytes, **spent,
-                      rows=mgr.results(job.id))))
-"""
-
-
-def past_cap_in_turns(root: str) -> dict:
-    """The past-cap job on the card through the parent's whole package
-    (``root`` must hold it) and this tree's, each in a child process of
-    its own, in turns: parent, this, this, parent, parent, this (medians
-    of 3). Every run's rows held against the first's (the PageRank
-    tolerance, equal supersteps)."""
-    import statistics
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.exists(os.path.join(root, "raphtory_tpu_torch",
-                                       "__init__.py")):
-        return dict(skipped=f"{root} holds no raphtory_tpu_torch package")
-    runs, first = {"parent": [], "this": []}, None
-    for who in ("parent", "this", "this", "parent", "parent", "this"):
-        tree = root if who == "parent" else here
-        proc = subprocess.run(
-            [sys.executable, "-c", PAST_CAP_CARD_CODE], cwd=tree,
-            env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
-            text=True, timeout=900)
-        if proc.returncode:
-            raise AssertionError(f"past-cap job in {who}'s tree exited "
-                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
-        rows = got.pop("rows")
-        if first is None:
-            first = rows
-        compare_rows(f"past-cap job, {who}'s tree", rows, first)
-        runs[who].append(got)
-    med = {who: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
-           for who, rs in runs.items()}
-    return dict(runs=runs, median=med, ratio={
-        k: med["this"][k] / med["parent"][k]
-        for k in ("job_s", "dispatch_s", "fold_s", "stage_s", "apply_s",
-                  "masks_s")})
-
-
 def past_cap_shape(dev) -> tuple:
     """``(n_pad, m_pad)`` of the past-cap job's resident buffers."""
     from raphtory_tpu_torch.engine.device_sweep import GlobalTables
@@ -2345,8 +2136,7 @@ def k9a_case(torch, np, resident, rng, n_pad, m_pad, cap_v, cap_e, tdt, tt,
     past the buffer and a negative one, times at the dtype's limits)
     staged as the path stages it (``pack_chunk`` in pinned memory, one
     non-blocking upload) and applied, held BITWISE against the twin on the
-    same chunk and (``--parent``) against the parent's staging and
-    kernel (its eight padded arrays uploaded one by one)."""
+    same chunk."""
     info = np.iinfo(tdt)
     edge = np.array([info.min, info.min + 1, -5, 0, 7, info.max - 1,
                      info.max], tdt)
@@ -2370,45 +2160,65 @@ def k9a_case(torch, np, resident, rng, n_pad, m_pad, cap_v, cap_e, tdt, tt,
                  for i, ln in enumerate((n_pad,) * 3 + (m_pad,) * 3))
     got = tuple(b.clone() for b in base)
     want = tuple(b.clone() for b in base)
-    par = tuple(b.clone() for b in base)
     resident.apply_delta_chunk(got, packed._replace(
         data=packed.data.to(dev, non_blocking=True)))
     on_card = tuple(torch.from_numpy(a).to(dev) for a in padded)
     resident.apply_delta_chunk_plain(want, on_card)
-    if PARENT is not None:
-        PARENT.apply_hop(par, padded)
     err = 0.0
-    for g, w, x in zip(got, want, par if PARENT is not None else want):
-        if not (torch.equal(g, w) and torch.equal(g, x)):
-            raise AssertionError(f"K9a differs from its twin or the "
-                                 f"parent's (n_pad={n_pad}, "
-                                 f"{tdt.__name__})")
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K9a differs from its twin (n_pad="
+                                 f"{n_pad}, {tdt.__name__})")
         err = max(err, exact_err(g, w))
-    return dict(err=err, got=got, want=want, packed=packed, padded=padded,
-                parent_bufs=par, on_card=on_card, live=live, cap_v=cap_v,
+    return dict(err=err, got=got, want=want, packed=packed,
+                on_card=on_card, live=live, cap_v=cap_v,
                 cap_e=cap_e, n_pad=n_pad, m_pad=m_pad,
                 shape=f"n_pad={n_pad} m_pad={m_pad} cap_v={cap_v} "
                       f"cap_e={cap_e} {tdt.__name__} live={live}")
 
 
-def sync_check(torch, np, resident, dev) -> dict:
-    """One resident hop of the past-cap job's sweep — its chunk upload
-    (``DeviceSweep._apply_staged``: one non-blocking copy from pinned
-    memory) plus K9a, then K9b — under ``torch.cuda.set_sync_debug_mode(
-    "error")``: it raises on a synchronizing call. Then the same hop's
-    synchronizing calls counted under ``"warn"``, this tree's and (with
-    ``--parent``) the parent's staging, K9a and K9b."""
+def sync_check(torch, np, resident, gab, dev) -> dict:
+    """Synchronizing calls under ``torch.cuda.set_sync_debug_mode("error")``
+    (it raises on one) in two steps: one resident hop of the past-cap job's
+    sweep — its chunk upload (``DeviceSweep._apply_staged``: one
+    non-blocking copy from pinned memory) plus K9a, then K9b — and the
+    host-column route's mask step once its fold columns are on the card
+    (``hopbatch._dispatch_columns``' K3 call at the headline's chunk, H 4 x
+    C 12, and KB1's on a layout of the headline tables: the column bounds
+    by value). Then each step's synchronizing calls counted under
+    ``"warn"``, this tree's and (with ``--parent``) the parent's mask step
+    (its three bound uploads and its call), and what the dispatch still
+    uploads beside it (the four fold columns: their synchronizing calls
+    and milliseconds, beside the mask call's)."""
     import warnings
 
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+    from raphtory_tpu_torch.engine.hopbatch import _column_layout
+    from raphtory_tpu_torch.ops import columns, partition
 
     ds = DeviceSweep(past_cap_log(), device=dev)
     ds.advance(48_800)                       # the first hop: a full state
-    par = tuple(b.clone() for b in ds._bufs)
     payloads = [ds._fold_hop_inner(T) for T in (48_850, 48_900)]
     if any(p["kind"] != "chunks" for p in payloads):
         raise AssertionError("sync check: a hop took no delta chunk")
     windows = [20_000]
+    # the mask step's inputs: a headline chunk's fold columns on the card
+    # (``gab`` the headline's tables), its column bounds on the host
+    hops, _ = headline_grid()
+    H, C, hop_of_col, T_col, w_col = _column_layout(hops[:4], WINDOWS)
+    rng = np.random.default_rng(8)
+    host_cols = (rng.integers(0, GAB_SPAN, (H, gab.m_pad)).astype(np.int32),
+                 rng.random((H, gab.m_pad)) < 0.7,
+                 rng.integers(0, GAB_SPAN, (H, gab.n_pad)).astype(np.int32),
+                 rng.random((H, gab.n_pad)) < 0.7)
+    cols = [torch.from_numpy(a).to(dev) for a in host_cols]
+    info = np.iinfo(np.int32)
+    bounds = (hop_of_col, np.clip(T_col - w_col, info.min,
+                                  info.max).astype(np.int32), w_col < 0)
+    lay = partition.build_layout(gab.e_src, gab.e_dst, gab.n_pad, gab.m,
+                                 partition.partition_count(
+                                     gab.n_pad, partition.tile_budget_bytes()))
+    pv = tuple(torch.from_numpy(a).to(dev) for a in (lay.perm, lay.valid))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2416,6 +2226,8 @@ def sync_check(torch, np, resident, dev) -> dict:
         v_lat, v_alive, _, e_lat, e_alive, _ = ds._bufs
         resident.window_masks(v_lat, v_alive, e_lat, e_alive, 48_850,
                               windows)
+        columns.column_masks(*cols, *bounds)
+        columns.bin_column_masks(*cols, *bounds, *pv)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2431,23 +2243,34 @@ def sync_check(torch, np, resident, dev) -> dict:
                 torch.cuda.set_sync_debug_mode(0)
         return sum("synchroniz" in str(w.message) for w in rec)
 
-    def this_tree():
+    def hop():
         ds._apply_staged(payloads[1])
         resident.window_masks(*(ds._bufs[i] for i in (0, 1, 3, 4)), 48_900,
                               windows)
 
-    out = dict(error_mode="passed", chunks=len(payloads[1]["chunks"]),
-               warnings=count(this_tree))
-    if PARENT is not None:
-        arrays = [tuple(a.numpy() for a in c.arrays())
-                  for c in payloads[1]["chunks"]]
+    def upload():
+        return [torch.from_numpy(a).to(dev) for a in host_cols]
 
-        def parent():
-            for a in arrays:
-                PARENT.apply_hop(par, a)
-            PARENT.window_masks(*(par[i] for i in (0, 1, 3, 4)), 48_900,
-                                windows)
-        out["parent_warnings"] = count(parent)
+    out = dict(error_mode="passed", chunks=len(payloads[1]["chunks"]),
+               warnings=count(hop),
+               mask_step=dict(shape=f"m_pad={gab.m_pad} n_pad={gab.n_pad} "
+                                    f"H={H} C={C} int32, B={lay.B}",
+                              column_masks=count(lambda: columns.column_masks(
+                                  *cols, *bounds)),
+                              bin_masks=count(lambda: columns.bin_column_masks(
+                                  *cols, *bounds, *pv)),
+                              # what the dispatch still uploads: the four
+                              # fold columns, pageable
+                              fold_upload=count(upload),
+                              fold_upload_ms=cuda_ms(torch, upload),
+                              column_masks_ms=cuda_ms(
+                                  torch, lambda: columns.column_masks(
+                                      *cols, *bounds))))
+    if PARENT is not None:
+        out["mask_step"]["parent_column_masks"] = count(
+            lambda: PARENT.column_masks_step(cols, bounds))
+        out["mask_step"]["parent_bin_masks"] = count(
+            lambda: PARENT.column_masks_step(cols, bounds, pv))
     return out
 
 
@@ -2556,16 +2379,12 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
         want = segment.segment_combine_plain(x, csr, op, mask, k)
         ok = (within_tol(got, want) if op == "sum" and dt == "f32"
               else torch.equal(got, want))
-        if PARENT is not None:
-            ok = ok and torch.equal(got, PARENT.segment_combine(
-                x, csr, op, mask, k))
         err7 = max(err7, exact_err(got, want))
         if not ok:
             bad.append(f"{op} {dt} {direction} k={k} (max abs err "
                        f"{exact_err(got, want)})")
     if bad:
-        raise AssertionError(f"K7 differs from its twin or the parent's: "
-                             f"{bad}")
+        raise AssertionError(f"K7 differs from its twin: {bad}")
     # the timed call: PageRank's message combine on the GAB View (k = 1)
     csr = csr_of(gab, "dst")
     x, mask, nnz = inputs(gab, 1, "f32")
@@ -2576,11 +2395,6 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
     def k7():
         return segment.segment_combine(x, csr, "sum", mask, 1)
     k7_bound = bound(m * 5 + (n + 1) * 8 + n * 4, nnz)
-    if PARENT is not None:
-        vs_parent(torch, "segment_combine gab_view", k7,
-                  lambda: PARENT.segment_combine(x, csr, "sum", mask, 1),
-                  iters=100, shape=f"sum f32 dst n_pad={n} k=1",
-                  bound_ms=k7_bound[0])
     out["segment_combine"] = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:35",
@@ -2609,11 +2423,9 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
         return segment.segment_combine(ones, csr, "sum", mask, k)
     got = k7_src()
     if not torch.equal(got, segment.segment_combine_plain(
-            ones, csr, "sum", mask, k)) or (PARENT is not None and not
-            torch.equal(got, PARENT.segment_combine(ones, csr, "sum", mask,
-                                                    k))):
-        raise AssertionError("K7 differs from its twin or the parent's at "
-                             "the out-degree call")
+            ones, csr, "sum", mask, k)):
+        raise AssertionError("K7 differs from its twin at the out-degree "
+                             "call")
     flat = (csr.ids.long()[None, :] + torch.arange(
         k, device=dev)[:, None] * n).reshape(-1)
     ones_m = torch.where(mask, ones, 0)
@@ -2621,11 +2433,6 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
     # edges, the live entries' payload, the output; an add per live entry
     src_bound = bound(4 * m + 8 * (n + 1) + k * m + 4 * live + 4 * k * n,
                       live)
-    if PARENT is not None:
-        vs_parent(torch, "segment_combine out_degree", k7_src,
-                  lambda: PARENT.segment_combine(ones, csr, "sum", mask, k),
-                  iters=20, shape=f"sum i32 src k={k} n_pad={n}",
-                  bound_ms=src_bound[0])
     out["segment_combine_out_degree"] = dict(
         source="raphtory_tpu_torch/csrc/segment.cu",
         replaces="raphtory_tpu/ops/segment.py:35",
@@ -2661,18 +2468,12 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
                 hops[what] = case
     calls9a = {}
     for what, c in hops.items():
-        got, packed, padded, par = c["got"], c["packed"], c["padded"], \
-            c["parent_bufs"]
+        got, packed = c["got"], c["packed"]
 
         def hop(got=got, packed=packed):
             resident.apply_delta_chunk(got, packed._replace(
                 data=packed.data.to(dev, non_blocking=True)))
         bnd = bound((c["cap_v"] + c["cap_e"]) * 13 + c["live"] * 9)
-        if PARENT is not None:
-            vs_parent(torch, f"apply_delta_chunk hop {what}", hop,
-                      lambda par=par, padded=padded: PARENT.apply_hop(
-                          par, padded),
-                      iters=50, shape=c["shape"], bound_ms=bnd[0])
         calls9a[what] = dict(hop_ms=cuda_ms(torch, hop, 50),
                              hop_device_ms=device_ms(torch, hop, 50)[0],
                              bound_ms=bnd[0], shape=c["shape"])
@@ -2731,12 +2532,9 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
                                  f"windows ({what})")
         lo, nowin = resident.window_bounds(T, windows, tt, dev)
         want = resident.window_masks_plain(*args, lo, nowin)
-        par = (PARENT.window_masks(*args, T, windows)
-               if PARENT is not None else want)
-        for g, w, x in zip(got, want, par):
-            if not (torch.equal(g, w) and torch.equal(g, x)):
-                raise AssertionError(f"K9b differs from its twin or the "
-                                     f"parent's ({what})")
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K9b differs from its twin ({what})")
             err9b = max(err9b, exact_err(g, w))
         k = len(windows)
 
@@ -2745,11 +2543,6 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
         # lat + alive read, k masks written
         bnd = bound((t.n_pad + t.m_pad) * (tt.itemsize + 1 + k))
         shape = f"n_pad={t.n_pad} m_pad={t.m_pad} k={k} {tt}"
-        if PARENT is not None and what != "gab_i64":
-            vs_parent(torch, f"window_masks {what}", k9b,
-                      lambda args=args, T=T, windows=windows:
-                      PARENT.window_masks(*args, T, windows),
-                      iters=50, shape=shape, bound_ms=bnd[0])
         calls9b[what] = dict(ms=cuda_ms(torch, k9b, 50),
                              device_ms=device_ms(torch, k9b, 50)[0],
                              bound_ms=bnd[0], shape=shape)
@@ -2765,7 +2558,7 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
             *args, lo, nowin)),
         library_ms=None, shape=shape, calls=calls9b,
         **dict(zip(("bound_ms", "bound_by"), bnd)))
-    emit("sync_check", **sync_check(torch, np, resident, dev))
+    emit("sync_check", **sync_check(torch, np, resident, gab, dev))
 
     # ---- K8u: the cold LDBC view's vertex and edge masks (2 windows)
     err8, packed = 0.0, None
@@ -3390,10 +3183,6 @@ def scale_k1(torch, columns, calls, m_pad: int) -> dict:
         if not all(torch.equal(g, x) for g, x in zip(
                 got, columns.masks_from_deltas_plain(*args))):
             raise AssertionError(f"scale: K1's {key} differs from its twin")
-        if PARENT is not None and not all(torch.equal(g, x) for g, x in zip(
-                got, PARENT.masks_from_deltas(*args))):
-            raise AssertionError(f"scale: K1's {key} differs from the "
-                                 "parent's")
         del got
         pos = args[2]
         live = int(((pos >= 0) & (pos < m_pad))[0 if args[9] else 1:].sum())
@@ -3404,11 +3193,6 @@ def scale_k1(torch, columns, calls, m_pad: int) -> dict:
                      bound_ms=k1_bound(m_pad, H * W, live, tbytes))
         entry["device_ms"], entry["device_by"] = device_ms(
             torch, lambda: columns.masks_from_deltas(*args), iters=5)
-        if PARENT is not None:
-            vs_parent(torch, f"masks_from_deltas scale {key}",
-                      lambda: columns.masks_from_deltas(*args),
-                      lambda: PARENT.masks_from_deltas(*args), iters=5,
-                      shape=entry["shape"], bound_ms=entry["bound_ms"])
         out[key] = entry
     return out
 
@@ -3872,7 +3656,12 @@ def phase_features(torch, np, columns, dev):
     """``bench.py:bench_scale_features`` uncut, with ``RTPU_PCPM`` unset
     (auto): the set-up call at 0.8 t_span (full window), then the four
     timed calls, all on one ``DeviceSweep``; every row finite and unit
-    norm; K10 held against its twin at this shape (float32 and bf16)."""
+    norm; K10 and K10-P held against their twins at this shape (float32
+    and bf16) and each other, timed at the last call's day and month
+    windows beside their bounds ("H read once", and with every live edge's
+    row gathered); with ``--parent``, each held bitwise against the
+    parent's and timed in turns with it; then the four calls once more
+    under ``RTPU_PCPM=0`` (``features_unbinned``: K10's 8 launches)."""
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
     from raphtory_tpu_torch.engine.features import FeatureAggregator
     from raphtory_tpu_torch.ops import features as ops_features
@@ -3936,10 +3725,36 @@ def phase_features(torch, np, columns, dev):
             H, be, e_lat, e_alive, lo, nw, 0.5),
         lambda H, lo, nw: ops_features.propagate_round_binned_plain(
             H, be, e_lat, e_alive, lo, nw, 0.5), be)}
+    parent = {"feature_propagate": lambda H, lo, nw: PARENT.propagate_round(
+        H, ds.edges, e_lat, e_alive, lo, nw, 0.5),
+        "feature_propagate_binned": lambda H, lo, nw:
+        PARENT.propagate_round_binned(H, be, e_lat, e_alive, lo, nw, 0.5)}
+    live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
+            for k, v in win.items()}
     times, twin = {}, {}
     for name, (kern, plain, b_e) in k10.items():
         times[name] = {k: cuda_ms(torch, lambda: kern(Hb, *v), iters=10)
                        for k, v in win.items()}
+        nbytes, ops = feature_bounds(torch, fa, Hb, b_e is not None)
+        row = FEAT_F * Hb.element_size()
+        # "H read once" plus every live edge's source row gathered: by
+        # bytes, and in the 32-byte sectors a row spans
+        gather = {k: bound(nbytes + live[k] * row, ops)[0] for k in win}
+        sectors = {k: bound(nbytes + live[k] * -(-row // 32) * 32, ops)[0]
+                   for k in win}
+        if PARENT is not None:
+            for k, v in win.items():
+                if not torch.equal(kern(Hb, *v), parent[name](Hb, *v)):
+                    raise AssertionError(f"features: {name} differs from "
+                                         f"the parent's ({k} window)")
+                vs_parent(torch, f"{name} features {k}",
+                          lambda v=v: kern(Hb, *v),
+                          lambda v=v: parent[name](Hb, *v), iters=10,
+                          shape=f"n_pad={ds.n_pad} m_pad={ds.m_pad} F="
+                                f"{FEAT_F} bf16 {k} window, live "
+                                f"{live[k]}",
+                          bound_ms=bound(nbytes, ops)[0],
+                          gather_bound_ms=gather[k])
         times[name]["plain"] = cuda_ms(torch, lambda: plain(Hb, *win["day"]),
                                        iters=3)
         # the twin check at this shape: bf16 (the path's storage), then f32
@@ -3958,9 +3773,9 @@ def phase_features(torch, np, columns, dev):
             raise AssertionError(f"features: {name} differs from its twin "
                                  f"(f32 {f32_err}, bf16 {ulps} ulps)")
         twin[name] = dict(f32_max_abs_err=f32_err, bf16_elements_differ=differ,
-                          bf16_max_ulps=ulps,
-                          bound=bound(*feature_bounds(torch, fa, Hb,
-                                                      b_e is not None)))
+                          bf16_max_ulps=ulps, bound=bound(nbytes, ops),
+                          gather_bound_ms=gather,
+                          gather_sector_bound_ms=sectors)
     # the two routes add in one order: equal on the card at both windows
     for v in win.values():
         if not torch.equal(k10["feature_propagate"][0](Hb, *v),
@@ -3969,8 +3784,7 @@ def phase_features(torch, np, columns, dev):
     library_ms = sparse_library_ms(torch, fa, *win["day"], Hb)
     library_ms_month = sparse_library_ms(torch, fa, *win["month"], Hb)
     path_ms = times[kernel]
-    live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
-            for k, v in win.items()}
+    unbinned = features_unbinned(torch, columns, ds, fa, X, calls)
     # the row gathers' rate: live edges x row bytes over a round
     gather_gbps = {name: {k: live[k] * FEAT_F * Hb.element_size()
                           / (t[k] * 1e6) for k in win}
@@ -3992,7 +3806,8 @@ def phase_features(torch, np, columns, dev):
          traffic_bytes_per_call=fa.traffic_bytes(FEAT_ROUNDS),
          flops_per_call=fa.flops(FEAT_ROUNDS),
          peak_device_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches, twin=twin, binned_equals_unbinned=True,
+         launches=launches, unbinned=unbinned, twin=twin,
+         binned_equals_unbinned=True,
          library_ms=library_ms, library_ms_month_window=library_ms_month)
     entries = {name: dict(
         source="raphtory_tpu_torch/csrc/features.cu",
@@ -4008,7 +3823,46 @@ def phase_features(torch, np, columns, dev):
         for name, (_, _, b_e) in k10.items()}
     del outs, X, Hb, fa, ds, log, be, lay
     torch.cuda.empty_cache()
+    # K10's launches: the unbinned sweep's, one a round
+    launches["feature_propagate"] = unbinned["launches"]["feature_propagate"]
     return launches, entries
+
+
+def features_unbinned(torch, columns, ds, fa, X, calls) -> dict:
+    """The ``features`` path's four calls once more under ``RTPU_PCPM=0``
+    (K10, one launch a round), on the same sweep two hops on: each call's
+    time moved by 7,200 s (the sweep cannot go back, and a fresh one
+    would fold the whole log again), the same windows and rounds. Views/s,
+    ``fold_s`` and ``dispatch_s`` beside the binned sweep's; every row
+    finite and unit norm."""
+    fold0, disp0 = ds.fold_seconds, ds.dispatch_seconds
+    shifted = [(T + 7_200, w) for T, w in calls]
+    with pcpm_route("0"):
+        columns.reset_launches()
+        t0 = time.perf_counter()
+        outs = [fa.propagate(X, T, window=w, rounds=FEAT_ROUNDS)
+                for T, w in shifted]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(columns.LAUNCHES)
+        spec = fa._active_spec
+    if spec is not None:
+        raise AssertionError("features: RTPU_PCPM=0 still binned")
+    check_launched("features unbinned", launches,
+                   ("feature_propagate", "apply_delta_chunk"))
+    if launches["feature_propagate"] != len(calls) * FEAT_ROUNDS \
+            or launches["feature_propagate_binned"]:
+        raise AssertionError(f"features unbinned: {launches} launches")
+    for H in outs:
+        norms = torch.linalg.norm(H.float(), dim=1)
+        if not bool(torch.isfinite(norms).all()) \
+                or float((norms - 1.0).abs().max()) > 1e-2:
+            raise AssertionError("features unbinned: rows not finite / "
+                                 "unit norm")
+    return dict(calls=shifted, views=len(calls),
+                views_per_s=len(calls) / elapsed, sweep_s=elapsed,
+                fold_s=ds.fold_seconds - fold0,
+                dispatch_s=ds.dispatch_seconds - disp0, launches=launches)
 
 
 def row_scale_ulps(torch, got, want):
@@ -4127,12 +3981,41 @@ def phase_features_gab(torch, np, columns, log, dev):
         if ulps > 2:
             raise AssertionError(f"features_gab: {name} differs from its "
                                  f"twin ({ulps} ulps)")
+        # the GAB shape's bound (one round, this H and layout)
+        bnd = bound(*feature_bounds(torch, fa, H,
+                                    name == "feature_propagate_binned"))
         round_check[name] = dict(
             bf16_max_ulps_vs_twin=ulps, ms=cuda_ms(torch, kern),
             plain_ms=cuda_ms(torch, plain, iters=5),
-            # the GAB shape's bound (one round, this H and layout)
-            **dict(zip(("bound_ms", "bound_by"), bound(*feature_bounds(
-                torch, fa, H, name == "feature_propagate_binned")))))
+            **dict(zip(("bound_ms", "bound_by"), bnd)))
+        round_check[name]["device_ms"] = device_ms(torch, kern)[0]
+        if PARENT is None:
+            continue
+        # this tree's kernel and the parent's, bf16 and f32 (the same
+        # round on H in float32), bitwise, then in turns
+        for dt, Hd in (("bf16", H), ("f32", H.float())):
+            if name == "feature_propagate":
+                def new(Hd=Hd):
+                    return ops_features.propagate_round(
+                        Hd, ds.edges, e_lat, e_alive, lo, nowin, 0.5)
+
+                def old(Hd=Hd):
+                    return PARENT.propagate_round(
+                        Hd, ds.edges, e_lat, e_alive, lo, nowin, 0.5)
+            else:
+                def new(Hd=Hd):
+                    return ops_features.propagate_round_binned(
+                        Hd, be, e_lat, e_alive, lo, nowin, 0.5)
+
+                def old(Hd=Hd):
+                    return PARENT.propagate_round_binned(
+                        Hd, be, e_lat, e_alive, lo, nowin, 0.5)
+            if not torch.equal(new(), old()):
+                raise AssertionError(f"features_gab: {name} {dt} differs "
+                                     "from the parent's")
+            vs_parent(torch, f"{name} gab {dt}", new, old, iters=50,
+                      shape=f"n_pad={ds.n_pad} m_pad={ds.m_pad} F=128 {dt} "
+                            "week window", bound_ms=bnd[0])
     # every ring depth of K10-P (F 132 / 260 / 388 / 512: 2, 3 and 4
     # groups of 4 features a lane; F 512 float32 holds the widest ring),
     # float32 and bfloat16: bitwise K10, and equal to its twin
@@ -4157,6 +4040,11 @@ def phase_features_gab(torch, np, columns, log, dev):
                 raise AssertionError(
                     f"features_gab: K10-P at F {F} {dt} differs from K10 "
                     f"({torch.equal(got, k10w)}) or its twin ({err})")
+            if PARENT is not None and not torch.equal(
+                    k10w, PARENT.propagate_round(Hw, ds.edges, e_lat,
+                                                 e_alive, lo, nowin, 0.5)):
+                raise AssertionError(f"features_gab: K10 at F {F} {dt} "
+                                     "differs from the parent's")
             widths[f"F{F}_{str(dt).split('.')[-1]}"] = err
     # the embeddings example on the card against the CPU (same seed: the
     # features are drawn on the host)
@@ -4184,8 +4072,7 @@ def phase_features_gab(torch, np, columns, log, dev):
 
 
 def mode_kernel_check(torch, np, segment, dev):
-    """K7-mode against its twin (and, with ``--parent``, the parent's
-    kernel) on a synthetic case: one segment of 100,003 rows with ties,
+    """K7-mode against its twin on a synthetic case: one segment of 100,003 rows with ties,
     rows of 1, 32, 33, 4,096 and 4,097, runs at the short rows' lane
     widths (1-9, 15-17, 31-33, 64, 65; a warp's 16 rows of 32, of 31 and
     1, of 8), masked and negative values, empty segments, k = 1, 2 and 3,
@@ -4228,10 +4115,6 @@ def mode_kernel_check(torch, np, segment, dev):
                 if not torch.equal(got, want):
                     raise AssertionError(f"K7-mode differs from its twin "
                                          f"({what})")
-                if PARENT is not None and not torch.equal(
-                        PARENT.segment_mode(v, dseg, k * n, mk, -1, k), got):
-                    raise AssertionError(f"K7-mode differs from the "
-                                         f"parent's ({what})")
                 cases += 1
     return dict(cases=cases, longest_row=max(lens), rows=n)
 
@@ -4239,9 +4122,8 @@ def mode_kernel_check(torch, np, segment, dev):
 def mode_at(torch, np, segment, bsp, view, windows, dev, seed: int,
             key: str) -> dict:
     """K7-mode alone at a cold View's shape: its destination CSR, labels
-    in [0, n_pad), the view's window masks; bitwise its twin (and the
-    parent's kernel, timed in turns, with ``--parent``), timed with its
-    device time and bound. Returns the entry (with ``got`` / ``want``)."""
+    in [0, n_pad), the view's window masks; bitwise its twin, timed with
+    its device time and bound. Returns the entry (with ``got`` / ``want``)."""
     e = bsp.view_edges(view, dev)
     seg = segment.SegmentCSR(e.e_dst, e.in_indptr, None)
     k, m, n = len(windows), view.m_pad, view.n_pad
@@ -4257,10 +4139,6 @@ def mode_at(torch, np, segment, bsp, view, windows, dev, seed: int,
     if not torch.equal(got, want):
         raise AssertionError(f"K7-mode differs from its twin at the {key} "
                              "shape")
-    if PARENT is not None and not torch.equal(PARENT.segment_mode(*args),
-                                              got):
-        raise AssertionError(f"K7-mode differs from the parent's at the "
-                             f"{key} shape")
     m_real = int(view.m_active)
     lens = torch.diff(e.in_indptr)
     shape = (f"dst n_pad={n} m_pad={m} k={k} int32 labels, "
@@ -4276,11 +4154,6 @@ def mode_at(torch, np, segment, bsp, view, windows, dev, seed: int,
             k * m_real * 5 + (n + 1) * 8 + k * n * 4, k * m_real))))
     entry["device_ms"], entry["device_by"] = device_ms(
         torch, lambda: segment.segment_mode(*args))
-    if PARENT is not None:
-        vs_parent(torch, f"segment_mode {key}",
-                  lambda: segment.segment_mode(*args),
-                  lambda: PARENT.segment_mode(*args), iters=100, shape=shape,
-                  bound_ms=entry["bound_ms"])
     return entry
 
 
@@ -4455,25 +4328,18 @@ def taint_edge_cases(torch, np, segment, partition, dev) -> int:
                 for name, csr in csrs.items():
                     got = segment.segment_combine(xd, csr, op, md, k)
                     want = segment.segment_combine_plain(xd, csr, op, md, k)
-                    if not torch.equal(got, want) or (
-                            PARENT is not None and not torch.equal(
-                                got, PARENT.segment_combine(xd, csr, op, md,
-                                                            k))):
+                    if not torch.equal(got, want):
                         raise AssertionError(
-                            f"K7 int64 differs from its twin or the "
-                            f"parent's ({op}, {name}, k={k}, F={F})")
+                            f"K7 int64 differs from its twin ({op}, {name}, "
+                            f"k={k}, F={F})")
                     cases += 1
                 got = segment.partition_reduce(xd, walk, op, md, k)
                 want = segment.partition_reduce_plain(xd, walk, op, md, k)
                 flat = segment.segment_combine_plain(xd, csrs["dst"], op, md,
                                                      k)
-                if not (torch.equal(got, want) and torch.equal(got, flat)) \
-                        or (PARENT is not None and not torch.equal(
-                            got, PARENT.partition_reduce(xd, walk, op, md,
-                                                         k))):
+                if not (torch.equal(got, want) and torch.equal(got, flat)):
                     raise AssertionError(f"K7-P int64 differs from its twin "
-                                         f"or the parent's ({op}, k={k}, "
-                                         f"F={F})")
+                                         f"({op}, k={k}, F={F})")
                 cases += 1
     return cases
 
@@ -4536,16 +4402,6 @@ def taint_kernels(torch, np, segment, bsp, view, lay, k, dev) -> dict:
         if not (torch.equal(got, want) and torch.equal(got, ref)):
             raise AssertionError(f"{name} differs from its twin at the "
                                  "taint shape")
-        if PARENT is not None:
-            old = ((lambda: PARENT.segment_combine(x, csr, "min", mk, k))
-                   if "combine" in name else
-                   (lambda: PARENT.partition_reduce(x, walk, "min", mk, k)))
-            if not torch.equal(got, old()):
-                raise AssertionError(f"{name} differs from the parent's at "
-                                     "the taint shape")
-            vs_parent(torch, f"{name} taint", run, old, iters=20,
-                      shape=f"min int64 k={k} n_pad={n} o_pad={m}",
-                      bound_ms=bound(nbytes, live)[0])
         out[name] = dict(
             source="raphtory_tpu_torch/csrc/segment.cu",
             replaces=("raphtory_tpu/ops/segment.py:35" if "combine" in name
@@ -4893,8 +4749,10 @@ def device_ms(torch, fn, iters: int = 20) -> tuple[float, str]:
     """Device milliseconds of one ``fn()``: the summed durations of the
     device's activities (kernels, copies, sets) in a ``torch.profiler``
     trace of ``iters`` calls, over ``iters`` ("profiler"); where the trace
-    holds no device activity, CUDA events around single calls with a sync
-    each ("events": this counts the launch latency in)."""
+    holds fewer device activities than calls (none, or a trace that lost
+    some: every call launches at least one kernel), CUDA events around
+    single calls with a sync each ("events": this counts the launch
+    latency in)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4905,10 +4763,10 @@ def device_ms(torch, fn, iters: int = 20) -> tuple[float, str]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us > 0:
-        return us / iters / 1e3, "profiler"
+    acts = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    if len(acts) >= iters and sum(acts) > 0:
+        return sum(acts) / iters / 1e3, "profiler"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     total = 0.0
@@ -5744,7 +5602,8 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
     kernels.update(segment_kernels(torch, np, segment, resident, tables,
                                    btc_tables,
                                    (ldbc_view.n_pad, ldbc_view.m_pad), dev))
-    kernels.update(mask_kernels(torch, np, columns, tables, dev))
+    kernels.update(mask_kernels(torch, np, columns, tables, ldbc_tables,
+                                dev))
     PHASE_S["kernels"] = time.perf_counter() - t0
     kernels.update(timed("pcpm_kernels", pcpm_kernels, torch, np, columns,
                          minplus, segment, tables, ldbc_tables,
@@ -5817,16 +5676,14 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
         "mesh_ranks", phase_mesh_ranks, torch, np, columns, log, one, dev)
     kernels.update(mesh_entries)
     launches.update(mesh_launches)
+    if PARENT is not None:
+        emit("parent", source=PARENT.source, entries=PARENT_MS)
     emit("program_bounds", **program_bounds(np, log, kernels, mesh))
     # the binned route's share: its kernel checks, the pcpm phase, and the
     # binned parts inside scale_bulk (layout build included)
     pcpm_s = sum(PHASE_S[k] for k in ("pcpm_kernels", "pcpm",
                                       "scale_bulk_pcpm",
                                       "scale_bulk_crosscheck_pcpm"))
-    if PARENT is not None:
-        PARENT_MS["past_cap_job"] = timed(
-            "past_cap_in_turns", past_cap_in_turns, PARENT.source)
-        emit("parent", source=PARENT.source, entries=PARENT_MS)
     emit("timing", seconds=PHASE_S, pcpm_share_s=pcpm_s,
          total_s=time.perf_counter() - t_main)
 

@@ -84,14 +84,21 @@
 // into the entity-major [len, C] bool layout the superstep kernels read.
 // Edges and vertices share one launch. What bounds it: bytes — the columns
 // are read once (H * len * (sizeof(T) + 1)) and the masks written once
-// (len * C); no arithmetic to speak of. The read runs along entities and
-// the write along columns, so the design is a tiled transpose: a block
-// owns one 32-column tile (its hops, bounds and flags read once into
-// shared memory, so no mask byte pays a division) and strides over
-// 32-entity row tiles; its threads read a tile's 32 entities of one
-// column's hop row as neighbouring words (coalesced), park the mask bytes
-// in shared memory, and write them back as 32 neighbouring bytes of one
-// output row. Columns sharing a hop re-read the same words, from L1/L2.
+// (len * C); no arithmetic to speak of.
+//   Design: the column bounds travel BY VALUE. The C entry copies a group
+// of up to 64 columns from a host array (hop_of_col, lo, nowin, as the
+// wrapper computes them in Python integers) into a __grid_constant__
+// struct, with the group's distinct hops and each hop's run of columns;
+// more columns, one launch a group. Nothing of the bounds is uploaded, so
+// the dispatch makes no synchronizing copy. A thread takes one output row:
+// it reads its entity's (lat, alive) once for each hop of the group —
+// neighbouring threads on neighbouring entities, so every read is a
+// coalesced warp load — evaluates every column of that hop, and stages the
+// row's mask bytes in shared memory (an odd number of words a row: no bank
+// conflicts); the block then writes its 256 rows' column bytes as 4-byte
+// words where C allows (2 or 1 byte otherwise), neighbouring threads on
+// neighbouring words, so a tile whose group covers the row is one
+// contiguous run of the output.
 //
 // K4 — the scale path's per-hop masks. Replaces
 // raphtory_tpu/engine/hopbatch.py:2129-2150 `_compiled_scale.hop_masks`
@@ -128,13 +135,14 @@
 // column route's permutation of K3's edge masks into the binned layout).
 // Binned slot b of the [B, C] output is
 //     out[b, c] = valid[b] && mask of edge perm[b] in column c
-// (perm, valid: ops/partition.py). One pass: K3's tiled transpose whose
-// read side gathers entity perm[b] instead of b, so the engine-order
-// [m_pad, C] masks are never materialised next to the binned ones. The
-// reads are no longer neighbouring words (slots sort by source within a
-// partition, engine positions by destination); the writes stay coalesced.
-// Bound: bytes — the input columns read once, perm and valid once, B * C
-// mask bytes written. The vertex masks are K3's. One launch a call.
+// (perm, valid: ops/partition.py). K3's kernel, an edge row b reading
+// entity perm[b] (perm read once a row, not once a column) and writing 0
+// where !valid[b], so the engine-order [m_pad, C] masks are never
+// materialised next to the binned ones. The reads are no longer
+// neighbouring words (slots sort by source within a partition, engine
+// positions by destination); the writes stay coalesced. Bound: bytes — the
+// input columns read once, perm and valid once, B * C mask bytes written.
+// The vertex masks are K3's, in the same launch.
 //   K4 binned (the binned `col_of` of hopbatch.py:2126-2137: the hop state
 // advances in engine order, its columns are read through the layout
 // permutation) is K4's two passes over the [B, C] output: pass A reads row
@@ -556,107 +564,94 @@ int masks_from_deltas(const K1Args<C>& a, cudaStream_t st,
     return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kTile = 32;   // K3 tile: 32 entities x 32 columns
+// ---------------------------------------------------------------- K3
 
-// The 32 columns of a block's column tile [c0, c0 + 32): hop row, bound and
-// unwindowed flag, read once per block.
-template <typename T>
-struct ColumnTile {
-    int64_t hop[kTile];
-    T lo[kTile];
-    uint8_t nowin[kTile];
+constexpr int kColGroup = 64;   // columns a K3 / KB1 launch carries
+constexpr int kRowTile = 256;   // rows a K3 block stages (a thread a row)
+constexpr int kPitchMax = 68;   // bytes a staged row takes, at most
+
+// One launch's columns, by value (a __grid_constant__ kernel parameter):
+// output columns [c0, c0 + cg); their distinct hops hop[0, nh), each with
+// its run col[off[j], off[j + 1]) of columns (offsets from c0); each
+// column's bound lo (inside the times' dtype's range) and bit c of nowin
+// set where column c + c0 is unwindowed.
+struct ColGroup {
+    int64_t lo[kColGroup];
+    uint64_t nowin;
+    int64_t c0;
+    int32_t hop[kColGroup];
+    int32_t nh, cg;
+    uint8_t col[kColGroup];
+    uint8_t off[kColGroup + 1];
 };
 
-template <typename T>
-__device__ void load_column_tile(int64_t c0, int64_t C,
-                                 const int32_t* __restrict__ hop_of_col,
-                                 const T* __restrict__ lo,
-                                 const uint8_t* __restrict__ nowin,
-                                 ColumnTile<T>* ct) {
-    if (threadIdx.x < kTile) {
-        const int64_t c = c0 + threadIdx.x;
-        if (c < C) {
-            ct->hop[threadIdx.x] = hop_of_col[c];
-            ct->lo[threadIdx.x] = lo[c];
-            ct->nowin[threadIdx.x] = nowin[c];
-        }
-    }
-    __syncthreads();
+// bytes a staged row takes: cg rounded up to whole words, and an odd
+// number of words, so the 32 rows a warp stages fall in 32 banks
+__host__ __device__ constexpr int row_pitch(int cg) {
+    return ((cg + 3) / 4) % 2 ? (cg + 3) / 4 * 4 : (cg + 3) / 4 * 4 + 4;
 }
 
-// One 32 x 32 tile of K3's masks: rows [i0, i0 + 32) of `out [len, C]`,
-// the block's columns [c0, c0 + 32), read from hop rows of `stride`
-// entities. `perm` null: row i reads entity i;
-// else entity perm[i], and `valid[i]` false gives 0 (the binned rows of
-// KB1, which gather through the layout permutation).
-template <typename T>
-__device__ void mask_tile(int64_t i0, int64_t c0, int64_t len,
-                          int64_t stride, int64_t C,
-                          const T* __restrict__ lat,
-                          const uint8_t* __restrict__ alive,
-                          const int32_t* __restrict__ perm,
-                          const uint8_t* __restrict__ valid,
-                          const ColumnTile<T>* ct,
-                          uint8_t* __restrict__ out,
-                          uint8_t (*sh)[kTile + 1]) {
-    const int lane = threadIdx.x % kTile;
-    const int row = threadIdx.x / kTile;
-    const int rows = blockDim.x / kTile;
-    const int ncol = C - c0 < kTile ? static_cast<int>(C - c0) : kTile;
-    // read: lane = entity, so a warp reads 32 neighbouring words of a row
-    // (unbinned; binned rows gather within their partition)
-    const int64_t i = i0 + lane;
-    const bool live = i < len && (!valid || valid[i]);
-    const int64_t src = live ? (perm ? static_cast<int64_t>(perm[i]) : i) : 0;
-    for (int cl = row; cl < ncol; cl += rows) {
-        uint8_t m = 0;
-        if (live) {
-            const int64_t k = ct->hop[cl] * stride + src;
-            m = alive[k] && (ct->nowin[cl] || lat[k] >= ct->lo[cl]);
-        }
-        sh[lane][cl] = m;
-    }
-    __syncthreads();
-    // write: lane = column, so a warp writes 32 neighbouring bytes of a row
-    for (int rl = row; rl < kTile; rl += rows) {
-        const int64_t r = i0 + rl;
-        if (r < len && lane < ncol) out[r * C + c0 + lane] = sh[rl][lane];
-    }
-    __syncthreads();
-}
+template <int W> struct Word;
+template <> struct Word<1> { using type = uint8_t; };
+template <> struct Word<2> { using type = uint16_t; };
+template <> struct Word<4> { using type = uint32_t; };
 
-// K3 over edges then vertices in one grid: blockIdx.y is the column tile,
-// blockIdx.x strides over the edge row tiles, then the vertex row tiles.
-// (`me` has m rows read from hop rows of m_src edges, through perm/valid
-// when binned; see mask_tile.)
-template <typename T>
-__global__ void column_masks(int64_t m, int64_t m_src, int64_t n, int64_t H,
-                             int64_t C,
-                             const T* __restrict__ e_lat,
-                             const uint8_t* __restrict__ e_alive,
-                             const T* __restrict__ v_lat,
-                             const uint8_t* __restrict__ v_alive,
-                             const int32_t* __restrict__ hop_of_col,
-                             const T* __restrict__ lo,
-                             const uint8_t* __restrict__ nowin,
-                             const int32_t* __restrict__ perm,
-                             const uint8_t* __restrict__ valid,
-                             uint8_t* __restrict__ me,
-                             uint8_t* __restrict__ mv) {
-    __shared__ uint8_t sh[kTile][kTile + 1];
-    __shared__ ColumnTile<T> ct;
-    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kTile;
-    load_column_tile<T>(c0, C, hop_of_col, lo, nowin, &ct);
-    const int64_t te = (m + kTile - 1) / kTile;
-    const int64_t total = te + (n + kTile - 1) / kTile;
-    for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
-        if (t < te) {
-            mask_tile<T>(t * kTile, c0, m, m_src, C, e_lat, e_alive, perm,
-                         valid, &ct, me, sh);
+// K3 / KB1 over one column group: block x < etiles is the edge row tile x,
+// the rest the vertex row tiles. A thread takes one output row: it reads
+// its entity's (lat, alive) once for each hop of the group, evaluates every
+// column of that hop, and stages the row's cg mask bytes in shared memory;
+// the block then writes its rows' column bytes as W-byte words (W = 4, 2
+// or 1, as C allows), neighbouring threads on neighbouring words — where
+// one group covers the row, the tile is one contiguous run of the output.
+// Edge row r reads entity r of hop rows m_src long, or (binned, `perm`
+// given) entity perm[r], and is 0 where !valid[r].
+template <typename T, int W>
+__global__ void __launch_bounds__(kRowTile) column_masks_kernel(
+        int64_t m, int64_t m_src, int64_t n, int64_t C, int64_t etiles,
+        const T* __restrict__ e_lat, const uint8_t* __restrict__ e_alive,
+        const T* __restrict__ v_lat, const uint8_t* __restrict__ v_alive,
+        const int32_t* __restrict__ perm, const uint8_t* __restrict__ valid,
+        uint8_t* __restrict__ me, uint8_t* __restrict__ mv,
+        const __grid_constant__ ColGroup g) {
+    __shared__ __align__(16) uint8_t sh[kRowTile * kPitchMax];
+    const bool edges = blockIdx.x < etiles;            // block-uniform
+    const int64_t r0 =
+        (edges ? blockIdx.x : blockIdx.x - etiles) * (int64_t)kRowTile;
+    const int64_t len = edges ? m : n;
+    const int64_t stride = edges ? m_src : n;
+    const T* __restrict__ lat = edges ? e_lat : v_lat;
+    const uint8_t* __restrict__ alive = edges ? e_alive : v_alive;
+    const int pitch = row_pitch(g.cg);
+    const int64_t r = r0 + threadIdx.x;
+    uint8_t* mine = sh + threadIdx.x * pitch;
+    if (r < len) {
+        if (edges && valid != nullptr && !valid[r]) {
+            for (int c = 0; c < g.cg; ++c) mine[c] = 0;
         } else {
-            mask_tile<T>((t - te) * kTile, c0, n, n, C, v_lat, v_alive,
-                         nullptr, nullptr, &ct, mv, sh);
+            const int64_t e =
+                edges && perm != nullptr ? static_cast<int64_t>(perm[r]) : r;
+            for (int j = 0; j < g.nh; ++j) {
+                const int64_t k = static_cast<int64_t>(g.hop[j]) * stride + e;
+                const bool al = alive[k] != 0;
+                const T l = lat[k];
+                for (int q = g.off[j]; q < g.off[j + 1]; ++q) {
+                    const int c = g.col[q];
+                    mine[c] = al && (((g.nowin >> c) & 1u)
+                                     || l >= static_cast<T>(g.lo[c]));
+                }
+            }
         }
+    }
+    __syncthreads();
+    using V = typename Word<W>::type;
+    const int64_t rows = len - r0 < kRowTile ? len - r0 : kRowTile;
+    const int per = g.cg / W;                    // words a row
+    uint8_t* out = (edges ? me : mv) + g.c0;
+    for (int i = threadIdx.x; i < rows * per; i += kRowTile) {
+        const int row = i / per;
+        const int k = i - row * per;
+        *reinterpret_cast<V*>(out + (r0 + row) * C + k * W) =
+            *reinterpret_cast<const V*>(sh + row * pitch + k * W);
     }
 }
 
@@ -875,39 +870,67 @@ int scale_passes(int64_t rows, int64_t len, int64_t H, int64_t W, int64_t U,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Grid of a K3 pass: one block row per column tile (y), the row tiles
-// strided over x, about 132 * 32 blocks in all.
-inline dim3 tile_grid(int64_t row_tiles, int64_t C) {
-    const int64_t ct = (C + kTile - 1) / kTile;
-    int64_t x = (132 * 32 + ct - 1) / ct;
-    if (x > row_tiles) x = row_tiles;
-    if (x < 1) x = 1;
-    return dim3(static_cast<unsigned>(x), static_cast<unsigned>(ct));
-}
-
+// K3 / KB1: one launch a group of kColGroup columns (`bounds`: the host's
+// hop[C], lo[C], nowin[C]); adds the launches to *launched.
 template <typename T>
 int column_masks_launch(int64_t m, int64_t m_src, int64_t n, int64_t H,
-                        int64_t C, const void* e_lat,
-                        const void* e_alive, const void* v_lat,
-                        const void* v_alive, const void* hop_of_col,
-                        const void* lo, const void* nowin, const void* perm,
-                        const void* valid, void* me, void* mv,
-                        void* stream) {
-    if (C <= 0 || H <= 0 || m + n <= 0) {
-        return static_cast<int>(cudaGetLastError());
+                        int64_t C, const void* e_lat, const void* e_alive,
+                        const void* v_lat, const void* v_alive,
+                        const int64_t* bounds, const void* perm,
+                        const void* valid, void* me, void* mv, void* stream,
+                        int64_t* launched) {
+    if (C <= 0 || m + n <= 0) return static_cast<int>(cudaGetLastError());
+    for (int64_t c = 0; c < C; ++c)
+        if (bounds[c] < 0 || bounds[c] >= H)
+            return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int64_t etiles = (m + kRowTile - 1) / kRowTile;
+    const int64_t tiles = etiles + (n + kRowTile - 1) / kRowTile;
+    const T* el = static_cast<const T*>(e_lat);
+    const T* vl = static_cast<const T*>(v_lat);
+    const uint8_t* ea = static_cast<const uint8_t*>(e_alive);
+    const uint8_t* va = static_cast<const uint8_t*>(v_alive);
+    const int32_t* pm = static_cast<const int32_t*>(perm);
+    const uint8_t* vd = static_cast<const uint8_t*>(valid);
+    uint8_t* oe = static_cast<uint8_t*>(me);
+    uint8_t* ov = static_cast<uint8_t*>(mv);
+    for (int64_t c0 = 0; c0 < C; c0 += kColGroup) {
+        ColGroup g{};
+        g.c0 = c0;
+        g.cg = static_cast<int32_t>(C - c0 < kColGroup ? C - c0 : kColGroup);
+        // the group's distinct hops in order of first use, and the count of
+        // columns each
+        int slot[kColGroup], count[kColGroup] = {};
+        for (int c = 0; c < g.cg; ++c) {
+            const int32_t h = static_cast<int32_t>(bounds[c0 + c]);
+            int j = 0;
+            while (j < g.nh && g.hop[j] != h) ++j;
+            if (j == g.nh) g.hop[g.nh++] = h;
+            slot[c] = j;
+            ++count[j];
+            g.lo[c] = bounds[C + c0 + c];
+            if (bounds[2 * C + c0 + c]) g.nowin |= uint64_t{1} << c;
+        }
+        for (int j = 0; j < g.nh; ++j)
+            g.off[j + 1] = static_cast<uint8_t>(g.off[j] + count[j]);
+        int fill[kColGroup];
+        for (int j = 0; j < g.nh; ++j) fill[j] = g.off[j];
+        for (int c = 0; c < g.cg; ++c)
+            g.col[fill[slot[c]]++] = static_cast<uint8_t>(c);
+        if (C % 4 == 0)
+            column_masks_kernel<T, 4><<<static_cast<unsigned>(tiles), kRowTile, 0, st>>>(
+                m, m_src, n, C, etiles, el, ea, vl, va, pm, vd, oe, ov, g);
+        else if (C % 2 == 0)
+            column_masks_kernel<T, 2><<<static_cast<unsigned>(tiles), kRowTile, 0, st>>>(
+                m, m_src, n, C, etiles, el, ea, vl, va, pm, vd, oe, ov, g);
+        else
+            column_masks_kernel<T, 1><<<static_cast<unsigned>(tiles), kRowTile, 0, st>>>(
+                m, m_src, n, C, etiles, el, ea, vl, va, pm, vd, oe, ov, g);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ++*launched;
     }
-    const int64_t rows = (m + kTile - 1) / kTile + (n + kTile - 1) / kTile;
-    column_masks<T><<<tile_grid(rows, C), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        m, m_src, n, H, C, static_cast<const T*>(e_lat),
-        static_cast<const uint8_t*>(e_alive), static_cast<const T*>(v_lat),
-        static_cast<const uint8_t*>(v_alive),
-        static_cast<const int32_t*>(hop_of_col), static_cast<const T*>(lo),
-        static_cast<const uint8_t*>(nowin),
-        static_cast<const int32_t*>(perm),
-        static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(me),
-        static_cast<uint8_t*>(mv));
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
@@ -990,28 +1013,29 @@ int rtpu_weights_from_deltas(int64_t len, int64_t H, int64_t U, int64_t h0,
 }
 
 // K3: m edges and n vertices, H hops, C columns | e_lat, e_alive [H, m],
-// v_lat, v_alive [H, n], hop_of_col [C] int32, lo [C], nowin [C] |
-// me [m, C], mv [n, C]. One launch (none when there is nothing to write).
+// v_lat, v_alive [H, n] on the card | bounds: a HOST array of 3C int64 —
+// hop_of_col[0, C) (each in [0, H)), lo[0, C) (each inside the times'
+// dtype's range), nowin[0, C) (0 or 1) | me [m, C], mv [n, C] on the card,
+// 16-byte aligned | launched: one launch a group of 64 columns (none when
+// there is nothing to write).
 int rtpu_column_masks_i32(int64_t m, int64_t n, int64_t H, int64_t C,
-                          const void* e_lat,
-                          const void* e_alive, const void* v_lat,
-                          const void* v_alive, const void* hop_of_col,
-                          const void* lo, const void* nowin, void* me,
-                          void* mv, void* stream) {
+                          const void* e_lat, const void* e_alive,
+                          const void* v_lat, const void* v_alive,
+                          const int64_t* bounds, void* me, void* mv,
+                          void* stream, int64_t* launched) {
     return column_masks_launch<int32_t>(m, m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin,
-                                        nullptr, nullptr, me, mv, stream);
+                                        v_alive, bounds, nullptr, nullptr, me,
+                                        mv, stream, launched);
 }
 
 int rtpu_column_masks_i64(int64_t m, int64_t n, int64_t H, int64_t C,
-                          const void* e_lat,
-                          const void* e_alive, const void* v_lat,
-                          const void* v_alive, const void* hop_of_col,
-                          const void* lo, const void* nowin, void* me,
-                          void* mv, void* stream) {
+                          const void* e_lat, const void* e_alive,
+                          const void* v_lat, const void* v_alive,
+                          const int64_t* bounds, void* me, void* mv,
+                          void* stream, int64_t* launched) {
     return column_masks_launch<int64_t>(m, m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin,
-                                        nullptr, nullptr, me, mv, stream);
+                                        v_alive, bounds, nullptr, nullptr, me,
+                                        mv, stream, launched);
 }
 
 // K4: rows output rows (len; B binned), len entities, H hops, W windows,
@@ -1045,29 +1069,28 @@ int rtpu_scale_hop_masks(int64_t rows, int64_t len, int64_t H, int64_t W,
 
 // KB1 (host-column route): K3 with the edge masks emitted straight into
 // the binned layout — me [B, C] row b from edge perm[b] of the [H, m]
-// columns, 0 where !valid[b]; mv [n, C] as K3. One launch.
+// columns, 0 where !valid[b]; mv [n, C] as K3; the bounds as K3's. One
+// launch a group of 64 columns.
 int rtpu_bin_column_masks_i32(int64_t B, int64_t m, int64_t n, int64_t H,
                               int64_t C, const void* e_lat,
                               const void* e_alive, const void* v_lat,
-                              const void* v_alive, const void* hop_of_col,
-                              const void* lo, const void* nowin,
+                              const void* v_alive, const int64_t* bounds,
                               const void* perm, const void* valid, void* me,
-                              void* mv, void* stream) {
+                              void* mv, void* stream, int64_t* launched) {
     return column_masks_launch<int32_t>(B, m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin, perm,
-                                        valid, me, mv, stream);
+                                        v_alive, bounds, perm, valid, me, mv,
+                                        stream, launched);
 }
 
 int rtpu_bin_column_masks_i64(int64_t B, int64_t m, int64_t n, int64_t H,
                               int64_t C, const void* e_lat,
                               const void* e_alive, const void* v_lat,
-                              const void* v_alive, const void* hop_of_col,
-                              const void* lo, const void* nowin,
+                              const void* v_alive, const int64_t* bounds,
                               const void* perm, const void* valid, void* me,
-                              void* mv, void* stream) {
+                              void* mv, void* stream, int64_t* launched) {
     return column_masks_launch<int64_t>(B, m, n, H, C, e_lat, e_alive, v_lat,
-                                        v_alive, hop_of_col, lo, nowin, perm,
-                                        valid, me, mv, stream);
+                                        v_alive, bounds, perm, valid, me, mv,
+                                        stream, launched);
 }
 
 }  // extern "C"

@@ -353,14 +353,15 @@ def _dispatch_columns(tables, cols, hop_times, windows, dev, layout=None):
     """Upload the host fold columns ``cols = (e_lat, e_alive, v_lat,
     v_alive)`` (hop-major ``[H, m_pad]`` / ``[H, n_pad]``) and build the
     window masks on the device: K3, or KB1 with a ``layout`` (the edge
-    masks emitted binned, ``[B, C]``). Returns ``(H, W, me, mv [n_pad,
+    masks emitted binned, ``[B, C]``). The column bounds stay on the host:
+    the kernels take them by value. Returns ``(H, W, me, mv [n_pad,
     C])``."""
     H, C, hop_of_col, T_col, w_col = _column_layout(hop_times, windows)
     tdt = tables.tdtype
     info = np.iinfo(tdt)
-    args = (*(_put(a, dev) for a in cols), _put(hop_of_col, dev),
-            _put(np.clip(T_col - w_col, info.min, info.max).astype(tdt), dev),
-            _put(w_col < 0, dev))
+    args = (*(_put(a, dev) for a in cols), hop_of_col,
+            np.clip(T_col - w_col, info.min, info.max).astype(tdt),
+            w_col < 0)
     if layout is None:
         me, mv = columns.column_masks(*args)
     else:

@@ -43,6 +43,7 @@ import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -86,10 +87,14 @@ _ARGTYPES = {
     # launched
     "rtpu_weights_from_deltas": 5 * [ctypes.c_int64]
     + 7 * [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_int64)],
-    # m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
-    # me, mv, stream
-    "rtpu_column_masks_i32": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
-    "rtpu_column_masks_i64": 4 * [ctypes.c_int64] + 10 * [ctypes.c_void_p],
+    # m, n, H, C | e_lat, e_alive, v_lat, v_alive | bounds (host, 3C
+    # int64) | me, mv, stream | launched
+    "rtpu_column_masks_i32": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)] + 3 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
+    "rtpu_column_masks_i64": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)] + 3 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # rows, len, H, W, U | base, d_pos, d_t, thr, perm, valid, inv, out,
     # stream | launched
     "rtpu_scale_hop_masks": 5 * [ctypes.c_int64] + 9 * [ctypes.c_void_p]
@@ -121,10 +126,14 @@ _ARGTYPES = {
     + [ctypes.POINTER(ctypes.c_int64)],
     # rows, nbytes | packed, out, stream
     "rtpu_unpack_mask_bits": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
-    # B, m, n, H, C | e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
-    # perm, valid, me, mv, stream
-    "rtpu_bin_column_masks_i32": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
-    "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 12 * [ctypes.c_void_p],
+    # B, m, n, H, C | e_lat, e_alive, v_lat, v_alive | bounds (host, 3C
+    # int64) | perm, valid, me, mv, stream | launched
+    "rtpu_bin_column_masks_i32": 5 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)] + 5 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
+    "rtpu_bin_column_masks_i64": 5 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)] + 5 * [ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int64)],
     # n, C | in_indptr, pairs, me, rd, agg, stream
     "rtpu_binned_pull_sum": 2 * [ctypes.c_int64] + 6 * [ctypes.c_void_p],
     # k, n, m, F, op, dtype, nl | indptr, order, perm, valid, long_rows, x,
@@ -462,22 +471,86 @@ def weights_from_deltas(base_w, d_pos, d_val, H: int, h0: bool = False):
 
 # ---------------------------------------------------------------- K3
 
-#: most mask columns K3 and KB1 take: their grid has one block row per 32
-#: columns, and a CUDA grid at most 65,535 rows
-_MAX_MASK_COLUMNS = 65_535 * 32
+#: columns one K3 / KB1 launch carries (``kColGroup`` in ``csrc/masks.cu``):
+#: a call launches once a group
+COLUMN_GROUP = 64
 
 
-def _check_columns(name: str, C: int) -> None:
-    if C > _MAX_MASK_COLUMNS:
-        raise ValueError(f"{name}: {C} columns, more than the kernel's "
-                         f"{_MAX_MASK_COLUMNS}")
+def _host_array(name: str, what: str, a):
+    """A column bound as a host numpy array: a numpy array, a sequence or
+    a CPU tensor; a tensor on any other device raises."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"{name}: {what} is on {a.device}; the column "
+                             "bounds are host arrays (the kernel takes them "
+                             "by value)")
+        a = a.numpy()
+    return np.asarray(a)
+
+
+def _column_bounds(name: str, hop_of_col, lo, nowin, H: int,
+                   tdt: torch.dtype):
+    """K3's / KB1's column bounds checked on the host — ``hop_of_col [C]``
+    integers in ``[0, H)``, ``lo [C]`` in the time dtype (an array of
+    another dtype raises; a sequence's values must fit it), ``nowin [C]``
+    bool — and packed as the C entry takes them: ``int64 [3C]``,
+    hop_of_col then lo then nowin."""
+    hop = _host_array(name, "hop_of_col", hop_of_col)
+    lo_a = _host_array(name, "lo", lo)
+    nw = _host_array(name, "nowin", nowin)
+    C = hop.shape[0] if hop.ndim == 1 else -1
+    for a, what in ((hop, "hop_of_col"), (lo_a, "lo"), (nw, "nowin")):
+        if a.shape != (C,):
+            raise ValueError(f"{name}: {what} has shape {a.shape}, want "
+                             f"({C},)")
+    out = np.empty(3 * C, np.int64)
+    if not C:
+        return out
+    ndt = _NP_TIMES[tdt]
+    if hop.dtype.kind not in "iu":
+        raise TypeError(f"{name}: hop_of_col has dtype {hop.dtype}, want "
+                        "integers")
+    if nw.dtype != np.bool_:
+        raise TypeError(f"{name}: nowin has dtype {nw.dtype}, want bool")
+    if isinstance(lo, (np.ndarray, torch.Tensor)):
+        if lo_a.dtype != ndt:
+            raise TypeError(f"{name}: lo has dtype {lo_a.dtype}, want "
+                            f"{ndt} (the times' dtype)")
+    elif lo_a.dtype.kind not in "iu" or not np.array_equal(
+            lo_a.astype(ndt), lo_a):
+        raise ValueError(f"{name}: lo holds values outside {ndt}")
+    out[:C], out[C:2 * C], out[2 * C:] = hop, lo_a, nw
+    if H <= 0:
+        raise ValueError(f"{name}: {C} columns over no hop")
+    if out[:C].min() < 0 or out[:C].max() >= H:
+        raise ValueError(f"{name}: hop_of_col names a hop outside [0, {H})")
+    return out
+
+
+#: the numpy type of each time dtype
+_NP_TIMES = {torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64)}
+
+
+def _twin_bounds(bounds, tdt: torch.dtype):
+    """``bounds`` (``_column_bounds``' packing) as the twins take them: CPU
+    tensors ``(hop_of_col int32, lo, nowin bool)``."""
+    C = bounds.shape[0] // 3
+    return (torch.from_numpy(bounds[:C].astype(np.int32)),
+            torch.from_numpy(bounds[C:2 * C].astype(_NP_TIMES[tdt])),
+            torch.from_numpy(bounds[2 * C:] != 0))
+
+
+def _by_value(bounds):
+    """The C entry's ``bounds`` argument: the packed host array, shared."""
+    return (ctypes.c_int64 * bounds.shape[0]).from_buffer(bounds)
 
 
 def column_masks_plain(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
                        nowin):
     """Twin of ``rtpu_column_masks``: per column c, ``alive[hop_of_col[c]]
     & (nowin[c] | lat[hop_of_col[c]] >= lo[c])``, transposed to the
-    entity-major layout. Returns ``(me [m, C], mv [n, C])``."""
+    entity-major layout (the bounds as tensors on the columns' device).
+    Returns ``(me [m, C], mv [n, C])``."""
     hop = hop_of_col.long()
 
     def masks(lat, alive):
@@ -487,40 +560,55 @@ def column_masks_plain(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
     return masks(e_lat, e_alive), masks(v_lat, v_alive)
 
 
-def column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin):
-    """K3 wrapper (replaces ``raphtory_tpu/engine/hopbatch.py:50``): the
-    host-column route's window masks. ``e_lat``/``e_alive [H, m]`` and
-    ``v_lat``/``v_alive [H, n]`` are the host fold's hop-major columns
-    (int32 or int64 times, bool alive), ``hop_of_col [C]`` int32 names each
-    column's hop in ``[0, H)``, ``lo [C]`` is ``clip(T_col - w_col)`` in
-    the time dtype and ``nowin [C]`` is ``w_col < 0``. Returns
-    ``(me [m, C], mv [n, C])`` bool, entity-major."""
-    name = "column_masks"
+def _fold_columns(name, e_lat, e_alive, v_lat, v_alive):
+    """``(H, m, n)`` of the hop-major fold columns, checked."""
     H, m = e_lat.shape if e_lat.dim() == 2 else (-1, -1)
     n = v_lat.shape[1] if v_lat.dim() == 2 else -1
-    C = hop_of_col.shape[0] if hop_of_col.dim() == 1 else -1
     tdt = e_lat.dtype
     _expect(name, e_lat, "e_lat", _TIME_DTYPES, (H, m))
     _expect(name, e_alive, "e_alive", (torch.bool,), (H, m))
     _expect(name, v_lat, "v_lat", (tdt,), (H, n))
     _expect(name, v_alive, "v_alive", (torch.bool,), (H, n))
-    _expect(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
-    _expect(name, lo, "lo", (tdt,), (C,))
-    _expect(name, nowin, "nowin", (torch.bool,), (C,))
-    _check_columns(name, C)
-    if C and H <= 0:
-        raise ValueError(f"{name}: {C} columns over no hop")
-    tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin)
-    if not _on_cuda(name, *tensors):
-        return column_masks_plain(*tensors)
-    me = torch.empty((m, C), dtype=torch.bool, device=e_lat.device)
-    mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
-    fn = _fn("masks", "rtpu_column_masks_i32" if tdt == torch.int32
+    return H, m, n
+
+
+def column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin):
+    """K3 wrapper (replaces ``raphtory_tpu/engine/hopbatch.py:50``): the
+    host-column route's window masks. ``e_lat``/``e_alive [H, m]`` and
+    ``v_lat``/``v_alive [H, n]`` are the host fold's hop-major columns
+    (int32 or int64 times, bool alive), on the card or the CPU; the column
+    bounds are HOST arrays (numpy, sequences or CPU tensors): ``hop_of_col
+    [C]`` names each column's hop in ``[0, H)``, ``lo [C]`` is ``clip(T_col
+    - w_col)`` in the time dtype and ``nowin [C]`` is ``w_col < 0``. On the
+    card the bounds travel by value (one launch a group of
+    ``COLUMN_GROUP`` columns), so nothing is uploaded. Returns ``(me [m,
+    C], mv [n, C])`` bool, entity-major."""
+    name = "column_masks"
+    H, m, n = _fold_columns(name, e_lat, e_alive, v_lat, v_alive)
+    bounds = _column_bounds(name, hop_of_col, lo, nowin, H, e_lat.dtype)
+    cols = (e_lat, e_alive, v_lat, v_alive)
+    if not _on_cuda(name, *cols):
+        return column_masks_plain(*cols, *_twin_bounds(bounds, e_lat.dtype))
+    C = bounds.shape[0] // 3
+    me, mv = _mask_pair(m, n, C, e_lat.device)
+    fn = _fn("masks", "rtpu_column_masks_i32" if e_lat.dtype == torch.int32
              else "rtpu_column_masks_i64")
-    err = fn(m, n, H, C, *(t.data_ptr() for t in tensors), me.data_ptr(),
-             mv.data_ptr(), _stream(me))
-    _launch(name, err, 1 if C and m + n else 0)
+    launched = ctypes.c_int64(0)
+    err = fn(m, n, H, C, e_lat.data_ptr(), e_alive.data_ptr(),
+             v_lat.data_ptr(), v_alive.data_ptr(), _by_value(bounds),
+             me.data_ptr(), mv.data_ptr(), _stream(me),
+             ctypes.byref(launched))
+    _launch(name, err, launched.value)
     return me, mv
+
+
+def _mask_pair(rows: int, n: int, C: int, dev):
+    """``(me [rows, C], mv [n, C])`` bool, views of ONE allocation (the
+    vertex rows at the next 16-byte boundary)."""
+    v0 = -(-rows * C // 16) * 16
+    buf = torch.empty(v0 + n * C, dtype=torch.bool, device=dev)
+    return (buf.as_strided((rows, C), (C, 1)),
+            buf.as_strided((n, C), (C, 1), v0))
 
 
 # ---------------------------------------------------------------- K4
@@ -646,38 +734,31 @@ def bin_column_masks(e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin,
                      perm, valid):
     """KB1 wrapper on the host-column route (replaces K3 + ``_bin_masks``,
     ``raphtory_tpu/engine/hopbatch.py:50, 283``): the arguments of
-    ``column_masks`` plus a layout's ``perm``/``valid [B]``. Returns
-    ``(me [B, C] binned, mv [n, C])`` in one pass — edge row b read from
-    edge ``perm[b]`` of the hop-major columns, 0 on cap-pad slots."""
+    ``column_masks`` (the bounds host arrays, by value on the card) plus a
+    layout's ``perm``/``valid [B]`` on the columns' device. Returns ``(me
+    [B, C] binned, mv [n, C])`` in one pass a group of ``COLUMN_GROUP``
+    columns — edge row b read from edge ``perm[b]`` of the hop-major
+    columns, 0 on cap-pad slots."""
     name = "bin_masks"
-    H, m = e_lat.shape if e_lat.dim() == 2 else (-1, -1)
-    n = v_lat.shape[1] if v_lat.dim() == 2 else -1
-    C = hop_of_col.shape[0] if hop_of_col.dim() == 1 else -1
+    H, m, n = _fold_columns(name, e_lat, e_alive, v_lat, v_alive)
     B = perm.shape[0] if perm.dim() == 1 else -1
-    tdt = e_lat.dtype
-    _expect(name, e_lat, "e_lat", _TIME_DTYPES, (H, m))
-    _expect(name, e_alive, "e_alive", (torch.bool,), (H, m))
-    _expect(name, v_lat, "v_lat", (tdt,), (H, n))
-    _expect(name, v_alive, "v_alive", (torch.bool,), (H, n))
-    _expect(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
-    _expect(name, lo, "lo", (tdt,), (C,))
-    _expect(name, nowin, "nowin", (torch.bool,), (C,))
     _expect(name, perm, "perm", (torch.int32,), (B,))
     _expect(name, valid, "valid", (torch.bool,), (B,))
-    _check_columns(name, C)
-    if C and H <= 0:
-        raise ValueError(f"{name}: {C} columns over no hop")
-    tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin, perm,
-               valid)
+    bounds = _column_bounds(name, hop_of_col, lo, nowin, H, e_lat.dtype)
+    tensors = (e_lat, e_alive, v_lat, v_alive, perm, valid)
     if not _on_cuda(name, *tensors):
-        return bin_column_masks_plain(*tensors)
-    me = torch.empty((B, C), dtype=torch.bool, device=e_lat.device)
-    mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
-    fn = _fn("masks", "rtpu_bin_column_masks_i32" if tdt == torch.int32
-             else "rtpu_bin_column_masks_i64")
-    err = fn(B, m, n, H, C, *(t.data_ptr() for t in tensors), me.data_ptr(),
-             mv.data_ptr(), _stream(me))
-    _launch(name, err, 1 if C and B + n else 0)
+        return bin_column_masks_plain(
+            *tensors[:4], *_twin_bounds(bounds, e_lat.dtype), perm, valid)
+    C = bounds.shape[0] // 3
+    me, mv = _mask_pair(B, n, C, e_lat.device)
+    fn = _fn("masks", "rtpu_bin_column_masks_i32"
+             if e_lat.dtype == torch.int32 else "rtpu_bin_column_masks_i64")
+    launched = ctypes.c_int64(0)
+    err = fn(B, m, n, H, C, e_lat.data_ptr(), e_alive.data_ptr(),
+             v_lat.data_ptr(), v_alive.data_ptr(), _by_value(bounds),
+             perm.data_ptr(), valid.data_ptr(), me.data_ptr(), mv.data_ptr(),
+             _stream(me), ctypes.byref(launched))
+    _launch(name, err, launched.value)
     return me, mv
 
 

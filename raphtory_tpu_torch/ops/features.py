@@ -18,13 +18,14 @@ call; computing it inside every round's walk gives the same number.
 Same three parts as ``ops/columns.py``, whose build and launch plumbing
 they share:
 
-* the **wrappers** ``propagate_round`` (the unbinned route: one kernel a
-  round over the destination CSR) and ``propagate_round_binned`` (the
-  destination-binned PCPM route over a ``BinnedEdges`` layout: one
-  kernel a round that walks each row's slots and gathers the source rows
-  straight from ``H``) —
-  CPU tensors take the twin, CUDA tensors launch ``csrc/features.cu`` or
-  raise;
+* the **wrappers** ``propagate_round`` (the unbinned route: one launch a
+  round over the destination CSR, entry j read as ``(e_src[j], j)``) and
+  ``propagate_round_binned`` (the destination-binned PCPM route over a
+  ``BinnedEdges`` layout: one launch a round that walks each row's slots
+  through ``binned_walk``'s pairs) — one kernel, ``ring_kernel`` in
+  ``csrc/features.cu``, gathering the source rows straight from ``H``
+  with several in flight, in entry order, so the two routes agree bit for
+  bit; CPU tensors take the twin, CUDA tensors launch it or raise;
 * the **plain twins** (``*_plain``): the reference's chunked scan, edge
   (or binned slot) chunks of ``chunk`` rows scatter-added at the
   destination, so at 2^25 edges and F = 128 they hold a few chunk-sized
@@ -112,8 +113,10 @@ def propagate_round(H, edges, e_lat, e_alive, lo: int, nowin: bool,
                     self_weight: float, chunk: int = 1 << 22):
     """K10 wrapper: one round of ``H [n_pad, F]`` (float32 or bfloat16
     storage) over the sweep's ``DeviceEdges`` and resident ``(e_lat,
-    e_alive)``, the window given by ``window_bound``. Returns the next
-    ``H`` (a new tensor: the rounds double-buffer)."""
+    e_alive)``, the window given by ``window_bound``: one launch over
+    ``in_indptr`` whose entry j is edge j, source row ``e_src[j]`` (K10-P's
+    kernel with the walk implicit). Returns the next ``H`` (a new tensor:
+    the rounds double-buffer)."""
     name = "feature_propagate"
     m_pad = edges.e_src.shape[0]
     n_pad, F = _check(name, H, e_lat, e_alive, m_pad)

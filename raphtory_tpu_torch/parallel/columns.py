@@ -78,9 +78,7 @@ def run_columns_sharded(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     lo = np.clip(T_col - w_col, info.min, info.max).astype(tables.tdtype)
     me, mv = _columns.column_masks(
         *(_put(a, dev) for a in (e_lat, e_alive, v_lat, v_alive)),
-        _put(np.ascontiguousarray(hop_of_col[mine]), dev),
-        _put(np.ascontiguousarray(lo[mine]), dev),
-        _put(np.ascontiguousarray(w_col[mine] < 0), dev))
+        hop_of_col[mine], lo[mine], w_col[mine] < 0)
     edges = _host_edges(tables, dev)
     if kind == "pagerank":
         e_src, e_dst, indptr, _, walk = _pr_args(edges, tables)

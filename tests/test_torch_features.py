@@ -328,41 +328,68 @@ def _view(addr, dtype, n):
         addr)).view(dtype)
 
 
+def _model_walk(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, ip, src, edge,
+                e_lat, e_alive, H, out):
+    """``ring_kernel`` as numpy: each destination row walks its entries
+    ``ip[r] .. ip[r+1]`` — source row ``src[j]``, mask read at edge
+    ``edge[j]`` — and adds the source rows of ``H`` in walk order (float32
+    adds, one at a time), then the epilogue, written to ``out``."""
+    m_pad = int(edge.max()) + 1 if len(edge) else 0
+    lat = _view(e_lat, np.int32 if tbytes == 4 else np.int64, m_pad)
+    alive = _view(e_alive, np.uint8, m_pad)
+    store = np.float32 if fdtype == 0 else np.uint16
+    h = _view(H, store, n_pad * F).reshape(n_pad, F)
+    h = (h if fdtype == 0 else (h.astype(np.uint32) << 16)
+         .view(np.float32))
+    sw, sw1 = np.float32(sw), np.float32(sw1)
+    rows = np.zeros((n_pad, F), np.float32)
+    for r in range(n_pad):
+        acc = np.zeros(F, np.float32)
+        deg = 0
+        for s, e in zip(src[ip[r]:ip[r + 1]], edge[ip[r]:ip[r + 1]]):
+            if alive[e] and (nowin or lat[e] >= lo):
+                acc = acc + h[s]
+                deg += 1
+        inv = np.float32(1) / np.float32(max(deg, 1))
+        rows[r] = sw * h[r] + sw1 * (acc * inv)
+    nrm = np.maximum(np.sqrt(np.sum(rows * rows, axis=1,
+                                    dtype=np.float32)), np.float32(1e-12))
+    y = torch.from_numpy(rows / nrm[:, None])
+    y = y if fdtype == 0 else y.to(torch.bfloat16).view(torch.int16)
+    _view(out, store, n_pad * F)[:] = y.numpy().reshape(-1).view(store)
+
+
 def _model_binned(calls):
-    """``binned_kernel`` as numpy, over the raw host addresses the wrapper
-    passes: each destination row walks ``walk`` from ``in_indptr``, reads
-    the mask at each entry's own edge and adds the source rows of ``H`` in
-    walk order (float32 adds, one at a time), then the epilogue. Records
-    each call's arguments in ``calls``."""
+    """K10-P's C entry over the raw host addresses the wrapper passes: the
+    walk read as ``walk``'s (source row, edge) pairs, the mask at each
+    pair's edge (``_model_walk``). Records each call's arguments in
+    ``calls``."""
     def model(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, indptr, walk,
               e_lat, e_alive, H, out, stream):
         calls.append(dict(indptr=indptr, walk=walk, H=H, out=out,
                           n_pad=n_pad, F=F))
         ip = _view(indptr, np.int64, n_pad + 1)
         wk = _view(walk, np.int32, 2 * int(ip[-1])).reshape(-1, 2)
-        m_pad = int(wk[:, 1].max()) + 1 if len(wk) else 0
-        lat = _view(e_lat, np.int32 if tbytes == 4 else np.int64, m_pad)
-        alive = _view(e_alive, np.uint8, m_pad)
-        store = np.float32 if fdtype == 0 else np.uint16
-        h = _view(H, store, n_pad * F).reshape(n_pad, F)
-        h = (h if fdtype == 0 else (h.astype(np.uint32) << 16)
-             .view(np.float32))
-        sw, sw1 = np.float32(sw), np.float32(sw1)
-        rows = np.zeros((n_pad, F), np.float32)
-        for r in range(n_pad):
-            acc = np.zeros(F, np.float32)
-            deg = 0
-            for src, e in wk[ip[r]:ip[r + 1]]:
-                if alive[e] and (nowin or lat[e] >= lo):
-                    acc = acc + h[src]
-                    deg += 1
-            inv = np.float32(1) / np.float32(max(deg, 1))
-            rows[r] = sw * h[r] + sw1 * (acc * inv)
-        nrm = np.maximum(np.sqrt(np.sum(rows * rows, axis=1,
-                                        dtype=np.float32)), np.float32(1e-12))
-        y = torch.from_numpy(rows / nrm[:, None])
-        y = y if fdtype == 0 else y.to(torch.bfloat16).view(torch.int16)
-        _view(out, store, n_pad * F)[:] = y.numpy().reshape(-1).view(store)
+        _model_walk(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, ip,
+                    wk[:, 0], wk[:, 1], e_lat, e_alive, H, out)
+        return 0
+    return model
+
+
+def _model_k10(calls):
+    """K10's C entry (``rtpu_feature_propagate``) over the raw host
+    addresses: entry j of the destination CSR is edge j itself, source row
+    ``e_src[j]``, its mask read at j (``_model_walk`` with the implicit
+    walk ``(e_src[j], j)``). Records each call's arguments in ``calls``."""
+    def model(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, indptr, e_src,
+              e_lat, e_alive, H, out, stream):
+        calls.append(dict(kernel="k10", indptr=indptr, e_src=e_src, H=H,
+                          out=out, n_pad=n_pad, F=F))
+        ip = _view(indptr, np.int64, n_pad + 1)
+        m = int(ip[-1])
+        _model_walk(n_pad, F, fdtype, tbytes, lo, nowin, sw, sw1, ip,
+                    _view(e_src, np.int32, m), np.arange(m), e_lat, e_alive,
+                    H, out)
         return 0
     return model
 
@@ -457,3 +484,84 @@ def test_binned_walk_reaches_k10s_edges_in_k10s_order(P, seed):
     walk = ops_features.binned_walk(lay.device_edges("cpu"))
     np.testing.assert_array_equal(walk.numpy(), np.stack(
         [e_src[:m], np.arange(m, dtype=np.int32)], 1))
+
+
+# ------------------------------------------ K10's card branch, modelled
+
+@pytest.fixture
+def card_branch(monkeypatch):
+    """K10's and K10-P's card branch on CPU tensors: ``_on_cuda`` says True
+    and the C entry points are ``_model_k10`` / ``_model_binned``; records
+    the models' calls."""
+    calls = []
+    monkeypatch.setattr(ops_features, "_on_cuda", lambda name, *t: True)
+    monkeypatch.setattr(ops_features, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops_features, "_fn", lambda lib, fn: (
+        _model_k10(calls) if fn == "rtpu_feature_propagate"
+        else _model_binned(calls)))
+    columns.reset_launches()
+    yield calls
+    columns.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 30])
+def test_k10_card_branch_is_one_launch_a_round(card_branch, window, dtype):
+    """``FeatureAggregator`` on the unbinned route (``RTPU_PCPM=0``) through
+    K10's card branch: one launch a round, the sweep's destination CSR
+    (``in_indptr``) and ``e_src`` handed to the kernel (no walk pairs);
+    the modelled kernel equals the JAX package's ``FeatureAggregator`` and,
+    round by round, the twin within the module docstring's tolerance."""
+    calls = card_branch
+    jfa, fa, X = _pair(6, n_events=1_500, n_ids=120, dtype=dtype)
+    for T in (50, 99):
+        want = jfa.propagate(jnp.asarray(X), T, window=window, rounds=2)
+        columns.reset_launches()
+        del calls[:]
+        got = fa.propagate(torch.from_numpy(X), T, window=window, rounds=2)
+        assert fa._active_spec is None
+        assert columns.LAUNCHES["feature_propagate"] == 2
+        assert columns.LAUNCHES["feature_propagate_binned"] == 0
+        assert [c["kernel"] for c in calls] == ["k10", "k10"]
+        assert calls[0]["indptr"] == fa.ds.edges.in_indptr.data_ptr()
+        assert calls[0]["e_src"] == fa.ds.edges.e_src.data_ptr()
+        assert calls[1]["H"] == calls[0]["out"]
+        assert_features_match(got, want, dtype)
+        e_lat, e_alive = fa.ds.edge_state
+        lo, nowin = ops_features.window_bound(
+            T, -1 if window is None else window, e_lat.dtype)
+        H = torch.from_numpy(X).to(fa.dtype)
+        one = ops_features.propagate_round(H, fa.ds.edges, e_lat, e_alive,
+                                           lo, nowin, fa.self_weight)
+        twin = ops_features.propagate_round_plain(
+            H, fa.ds.edges, e_lat, e_alive, lo, nowin, fa.self_weight)
+        assert_features_match(one, twin, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", ["2", "5"])
+def test_k10_model_equals_k10p_model_bitwise(card_branch, P, dtype,
+                                             monkeypatch):
+    """K10 and K10-P are one kernel over two walks: on a layout whose walk
+    pairs are ``(e_src[j], j)`` (every layout the port builds), K10's
+    implicit walk and K10-P's explicit one give the same bits, at both a
+    windowed and an unwindowed bound."""
+    monkeypatch.setenv("RTPU_PCPM", "1")
+    monkeypatch.setenv("RTPU_PARTITIONS", P)
+    _, fa, X = _pair(8, n_events=1_500, n_ids=120, dtype=dtype)
+    fa.ds.advance(99)
+    be = fa._pcpm_layout().device_edges(fa.ds.device)
+    m = int(fa.ds.edges.in_indptr[-1])
+    assert torch.equal(ops_features.binned_walk(be), torch.stack(
+        [fa.ds.edges.e_src[:m], torch.arange(m, dtype=torch.int32)], 1))
+    e_lat, e_alive = fa.ds.edge_state
+    H = torch.from_numpy(X).to(fa.dtype)
+    for w in (-1, 30):
+        lo, nowin = ops_features.window_bound(99, w, e_lat.dtype)
+        k10 = ops_features.propagate_round(H, fa.ds.edges, e_lat, e_alive,
+                                           lo, nowin, fa.self_weight)
+        k10p = ops_features.propagate_round_binned(
+            H, be, e_lat, e_alive, lo, nowin, fa.self_weight)
+        assert torch.equal(k10, k10p)
+    assert columns.LAUNCHES["feature_propagate"] == 2
+    assert columns.LAUNCHES["feature_propagate_binned"] == 2

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_sweep import random_log
-from test_torch_scale import _jax_hop_masks
+from test_torch_scale import K3_GRIDS, _jax_hop_masks, _k3_case, k3_card  # noqa: F401 (a fixture)
 
 from raphtory_tpu.engine import hopbatch as jhb
 from raphtory_tpu.ops import partition as jpart
@@ -241,6 +241,40 @@ def test_bin_column_masks_twin_matches_jax(tdt, P):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert not got[0][T(~lay.valid)].any()
+
+
+@pytest.mark.parametrize("C", sorted(K3_GRIDS))
+@pytest.mark.parametrize("tdt", [np.int32, np.int64], ids=["i32", "i64"])
+def test_bin_column_masks_card_branch_passes_bounds_by_value(k3_card, tdt,
+                                                             C):
+    """KB1's card branch: the column bounds as one host int64 array (no
+    tensor made of them), one launch a group of 64 columns, edge row b
+    read from edge ``perm[b]`` and 0 on cap-pad slots; the modelled kernel
+    equals the twin and the JAX package's ``_column_masks`` +
+    ``_bin_masks`` (``raphtory_tpu/engine/hopbatch.py:50, 283``) bit for
+    bit."""
+    calls, made = k3_card
+    t, lay = _layout("random", 5)
+    cols, hops, windows = _k3_case(np.random.default_rng(C), tdt, C,
+                                   m=t.m_pad, n=t.n_pad)
+    _, _, hop_of_col, T_col, w_col = thb._column_layout(hops, windows)
+    want = _jax_bin_k3(np.dtype(tdt).name)(*cols, hop_of_col, T_col, w_col,
+                                           lay.perm, lay.valid)
+    info = np.iinfo(tdt)
+    lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+    args = (*map(T, cols), hop_of_col, lo, w_col < 0, T(lay.perm),
+            T(lay.valid))
+    del made[:]
+    got = columns.bin_column_masks(*args)
+    assert made == []
+    assert columns.LAUNCHES["bin_masks"] == -(-C // 64)
+    assert got[0].shape == (lay.B, C) and got[1].shape == (t.n_pad, C)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    twin = columns.bin_column_masks_plain(
+        *map(T, cols), T(hop_of_col), T(lo), T(w_col < 0), T(lay.perm),
+        T(lay.valid))
+    assert all(torch.equal(g, w) for g, w in zip(got, twin))
 
 
 def test_binned_scale_masks_twin_matches_jax():

@@ -93,6 +93,189 @@ def test_column_masks_twin_matches_jax(seed, tdt, windows):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+# ------------------------------------- K3 / KB1's card branch, modelled
+
+_NP = {4: np.int32, 8: np.int64}
+
+
+def _model_k3(calls, tbytes, binned):
+    """``rtpu_column_masks_*`` / ``rtpu_bin_column_masks_*`` over the
+    wrapper's raw addresses: the bounds read from the HOST array (3C int64:
+    hop_of_col, lo, nowin), one launch a group of ``COLUMN_GROUP`` columns,
+    and in each group every distinct hop's (lat, alive) row read once (the
+    record ``calls`` keeps each group's hops) and compared against each of
+    that hop's columns; KB1's edge row b reads entity ``perm[b]``, 0 where
+    ``!valid[b]``."""
+    tdt = _NP[tbytes]
+    G = columns.COLUMN_GROUP
+
+    def model(*a):
+        if binned:
+            (B, m, n, H, C, e_lat, e_alive, v_lat, v_alive, bounds, perm,
+             valid, me, mv, stream, launched) = a
+        else:
+            (m, n, H, C, e_lat, e_alive, v_lat, v_alive, bounds, me, mv,
+             stream, launched) = a
+            B = m
+        b = np.ctypeslib.as_array(bounds, (3 * C,)).copy()
+        hop, lo, nowin = b[:C], b[C:2 * C], b[2 * C:]
+        info = np.iinfo(tdt)
+        assert ((hop >= 0) & (hop < H)).all()
+        assert ((lo >= info.min) & (lo <= info.max)).all()
+        assert set(nowin.tolist()) <= {0, 1}
+        rows = np.arange(B)
+        live = np.ones(B, bool)
+        if binned:
+            rows = _view(perm, np.int32, B).astype(np.int64)
+            live = _view(valid, np.uint8, B) != 0
+            rows = np.where(live, rows, 0)
+        groups = []
+        for lat_a, al_a, out_a, length, idx, ok in (
+                (e_lat, e_alive, me, m, rows, live),
+                (v_lat, v_alive, mv, n, np.arange(n), np.ones(n, bool))):
+            lat = _view(lat_a, tdt, H * length).reshape(H, length)
+            alive = _view(al_a, np.uint8, H * length).reshape(H, length)
+            out = _view(out_a, np.uint8, len(idx) * C).reshape(len(idx), C)
+            for c0 in range(0, C, G):
+                cols = range(c0, min(C, c0 + G))
+                hops = list(dict.fromkeys(int(hop[c]) for c in cols))
+                groups.append(hops)
+                for h in hops:
+                    lt, al = lat[h][idx], (alive[h][idx] != 0) & ok
+                    for c in cols:
+                        if hop[c] == h:
+                            out[:, c] = al & (bool(nowin[c])
+                                              | (lt >= tdt(lo[c])))
+        launched._obj.value += -(-C // G) if C and B + n else 0
+        calls.append(dict(C=C, groups=groups))
+        return 0
+    return model
+
+
+@pytest.fixture
+def k3_card(monkeypatch):
+    """K3's and KB1's card branch on CPU tensors: ``_on_cuda`` says True
+    and the C entry points are ``_model_k3``; ``torch.tensor`` and
+    ``torch.from_numpy`` record every call (the bounds must not become a
+    tensor)."""
+    calls, made = [], []
+    monkeypatch.setattr(columns, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(columns, "_stream", lambda t: 0)
+    monkeypatch.setattr(columns, "_fn", lambda lib, fn: _model_k3(
+        calls, 4 if fn.endswith("i32") else 8, "bin" in fn))
+    for fn in ("tensor", "from_numpy"):
+        real = getattr(torch, fn)
+        monkeypatch.setattr(torch, fn, lambda *a, _real=real, _fn=fn, **kw:
+                            made.append(_fn) or _real(*a, **kw))
+    columns.reset_launches()
+    yield calls, made
+    columns.reset_launches()
+
+
+#: (hops, windows) of C = 12, 32, 33 and 70 columns: one group of 64, and
+#: two
+K3_GRIDS = {12: (4, [1000, 25, -1]), 32: (4, [-1, 0, 1, 3, 5, 7, 20, 90]),
+            33: (3, [-1, 0, 1, 3, 5, 7, 10, 20, 40, 80, 1000]),
+            70: (7, [-1, 0, 2, 4, 8, 16, 32, 64, 128, 1 << 40])}
+
+
+def _k3_case(rng, tdt, C, m=300, n=70):
+    H, windows = K3_GRIDS[C]
+    info = np.iinfo(tdt)
+    vals = np.concatenate([[info.min, info.min + 1, info.max - 1, info.max],
+                           rng.integers(-100, 100, 40)])
+    cols = (rng.choice(vals, (H, m)).astype(tdt), rng.random((H, m)) < 0.6,
+            rng.choice(vals, (H, n)).astype(tdt), rng.random((H, n)) < 0.6)
+    hops = ([info.max - 2] if tdt == np.int32 else [1 << 61]) \
+        + [int(x) for x in rng.integers(-50, 60, H - 1)]
+    return cols, hops, [None if w < 0 else w for w in windows]
+
+
+@pytest.mark.parametrize("C", sorted(K3_GRIDS))
+@pytest.mark.parametrize("tdt", [np.int32, np.int64], ids=["i32", "i64"])
+def test_column_masks_card_branch_passes_bounds_by_value(k3_card, tdt, C):
+    """K3's card branch hands the column bounds to the C entry as one host
+    int64 array — no tensor is made of them — and launches once a group of
+    64 columns, each group reading its distinct hops once; the modelled
+    kernel equals the twin and the JAX package's ``_column_masks``
+    (``raphtory_tpu/engine/hopbatch.py:50``) bit for bit."""
+    calls, made = k3_card
+    cols, hops, windows = _k3_case(np.random.default_rng(C), tdt, C)
+    want = _jax_masks(tdt, cols, hops, windows)
+    H, _, hop_of_col, T_col, w_col = thb._column_layout(hops, windows)
+    info = np.iinfo(tdt)
+    lo = np.clip(T_col - w_col, info.min, info.max).astype(tdt)
+    dev_cols = tuple(T(a) for a in cols)
+    del made[:]
+    got = columns.column_masks(*dev_cols, hop_of_col, lo, w_col < 0)
+    assert made == []
+    assert columns.LAUNCHES["column_masks"] == -(-C // 64)
+    assert [g for c in calls for g in c["groups"]][:-(-C // 64)] == [
+        sorted(set(hop_of_col[c0:c0 + 64].tolist()))
+        for c0 in range(0, C, 64)]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bool and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), w)
+    twin = columns.column_masks_plain(*dev_cols, T(hop_of_col), T(lo),
+                                      T(w_col < 0))
+    assert all(torch.equal(g, w) for g, w in zip(got, twin))
+    # the bounds as Python sequences give the same bits
+    seq = columns.column_masks(*dev_cols, hop_of_col.tolist(), lo.tolist(),
+                               (w_col < 0).tolist())
+    assert all(torch.equal(g, w) for g, w in zip(seq, got))
+
+
+def test_column_masks_card_branch_checks_its_bounds(k3_card):
+    """The bounds are checked on the host before the launch: a hop outside
+    ``[0, H)``, a ``lo`` outside the time dtype, a device tensor, a length
+    that differs from ``hop_of_col``'s."""
+    calls, _ = k3_card
+    cols, hops, windows = _k3_case(np.random.default_rng(9), np.int32, 12)
+    dev_cols = tuple(T(a) for a in cols)
+    hoc = np.repeat(np.arange(4, dtype=np.int32), 3)
+    lo, nowin = np.zeros(12, np.int32), np.zeros(12, bool)
+    with pytest.raises(ValueError, match="outside"):
+        columns.column_masks(*dev_cols, hoc + 1, lo, nowin)
+    with pytest.raises(ValueError, match="outside"):
+        columns.column_masks(*dev_cols, hoc, [1 << 40] * 12, nowin)
+    with pytest.raises(TypeError, match="lo"):
+        columns.column_masks(*dev_cols, hoc, lo.astype(np.int64), nowin)
+    with pytest.raises(ValueError, match="nowin"):
+        columns.column_masks(*dev_cols, hoc, lo, nowin[:-1])
+    with pytest.raises(ValueError, match="host arrays"):
+        columns.column_masks(*dev_cols, hoc, torch.zeros(
+            12, dtype=torch.int32, device="meta"), nowin)
+    assert calls == [] and columns.LAUNCHES["column_masks"] == 0
+
+
+@pytest.mark.parametrize("layout", [False, True])
+def test_dispatch_columns_uploads_only_the_fold_columns(layout,
+                                                        monkeypatch):
+    """``_dispatch_columns`` puts the four fold columns on the device and
+    nothing else: the column bounds reach K3 / KB1 as host arrays."""
+    src, dst, times = _stream(3)
+    tbg, *cols = tbulk.bulk_hop_columns(src, dst, times, HOPS)
+    lay = None
+    if layout:
+        from raphtory_tpu_torch.ops import partition
+
+        lay = partition.build_layout(tbg.e_src, tbg.e_dst, tbg.n_pad, tbg.m,
+                                     3)
+    put = thb._put
+    uploaded = []
+    monkeypatch.setattr(thb, "_put", lambda a, dev: uploaded.append(a)
+                        or put(a, dev))
+    H, W, me, mv = thb._dispatch_columns(tbg, cols, HOPS, WINDOWS, "cpu",
+                                         lay)
+    assert len(uploaded) == 4
+    assert all(u is c for u, c in zip(uploaded, cols))
+    want = _jax_masks(np.int32, cols, HOPS, WINDOWS)
+    if lay is not None:
+        want = (want[0][lay.perm] & lay.valid[:, None], want[1])
+    for g, w in zip((me, mv), want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 @pytest.mark.parametrize("windows", [WINDOWS, [None], [40, 3]],
                          ids=["mixed", "unwindowed", "windowed"])
 @pytest.mark.parametrize("seed", [0, 1])
