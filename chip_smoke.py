@@ -41,16 +41,22 @@ printing one JSON line:
               uploaded in one non-blocking copy, int32 and int64, at the
               GAB and the past-cap job's capacities; ``calls`` gives the
               hop's upload + wrapper), K9b (bounds by value, 32 windows a
-              launch: GAB k 1, Bitcoin k 3, GAB k 40, int64) and K8u
-              (mask unpack) bitwise; a ``sync_check`` line: one resident
-              hop's chunk upload, K9a and K9b, and the host-column mask
-              step (K3 and KB1 on fold columns already on the card) under
+              launch: GAB k 1, Bitcoin k 3, GAB k 40, int64) and K8u (a
+              cold View's two masks from one packed buffer in one launch,
+              at the LDBC, GAB and taint Views' shapes: ``ms``, device
+              time, the mask step's host time; and ``k8u_edge_cases``)
+              bitwise; a ``sync_check``
+              line: one resident hop's chunk upload, K9a and K9b, the cold
+              View's mask step (one non-blocking copy, one K8u launch) and
+              the host-column mask step (the fold columns' one staged
+              copy, then K3, and KB1) under
               ``torch.cuda.set_sync_debug_mode("error")``, and their
               synchronizing calls counted under ``"warn"`` (the
-              parent's mask step too); K3 (host-column masks, the column
+              parent's mask steps too); K3 (host-column masks, the column
               bounds by value, a launch a group of 64 columns: the
               headline chunk, int32 and int64, the LDBC dispatch's shape
-              and C 70) and K4 (scale masks at the scale
+              and C 70; ``upload_and_call_ms`` the dispatch's mask step
+              from staged fold columns) and K4 (scale masks at the scale
               sweep's shape, engine-order and binned through a synthetic
               layout, two launches a call, and ``k4_edge_cases``)
               bitwise; the binned kernels KB1, K2b-P
@@ -100,7 +106,8 @@ printing one JSON line:
               View jobs on the resident route, weighted SSSP and a
               descending-time PageRank View on the cold ``bsp.run`` route
               (K8u); rows and result vectors bitwise against the CPU
-              (PageRank: the tolerance above).
+              (PageRank: the tolerance above); each cold dispatch split
+              by stage (``cold_split_s``).
 11. host_columns — the headline PageRank, cc_range CC and LDBC BFS and
               SSSP on the host-column route (``RTPU_FOLD=host``: host-built
               ``[H, m_pad]`` fold columns, K3), each BITWISE with equal
@@ -195,7 +202,8 @@ printing one JSON line:
               int64) and unbinned (``=0``: K7 on int64), BITWISE equal
               with equal supersteps; the View equal to the CPU job, the
               Range's first hop to the CPU run; fold / layout / dispatch
-              seconds, views/s and the fold share, tainted counts,
+              seconds (the View's dispatch split by stage on each route,
+              ``split_s``), views/s and the fold share, tainted counts,
               peak memory; K7 and K7-P int64 against their twins at
               this shape (timed beside ``scatter_reduce_``) and on edge
               cases (empty segments, a fully masked window, INT64_MIN /
@@ -251,18 +259,19 @@ just after it; each path fails if one of its kernels never launched (the
 mesh kernels' counts come from rank 0 of ``mesh_ranks``).
 
 With ``--parent DIR`` (the tree of the previous slice, e.g. its commit
-unpacked with ``git archive``: ``Parent`` binds its C entry points), K10
-``feature_propagate``, K10-P ``feature_propagate_binned``, K3
-``column_masks`` and KB1 ``bin_column_masks`` as DIR's ``features.cu``
-and ``masks.cu`` build them, each inside a copy of DIR's wrapper, are held
-BITWISE against this tree's and timed in turns with them (CUDA events,
-and device time from the profiler): K10 and K10-P at the ``features``
-state's day and month windows (bf16, F 128) and at ``features_gab`` (one
-round, bf16 and f32; K10 also at F 132 / 260 / 388 / 512, held), K3 at
-the headline chunk and the LDBC shape and KB1 on the headline layout,
-each against the parent's mask step (its three column-bound uploads and
-its call; C 70 held); ``sync_check`` counts the parent mask step's
-synchronizing calls: a ``parent`` line before ``timing``.
+unpacked with ``git archive``: ``Parent`` binds its C entry point), K8u
+``rtpu_unpack_mask_bits`` as DIR's ``sweep.cu`` builds it, inside a copy
+of DIR's wrapper, is held BITWISE against this tree's K8u at the LDBC,
+GAB and taint Views' shapes and timed in turns with it (medians of 7
+rounds: CUDA events, the host's time to a sync, and device time from the
+profiler): the unpack alone (the parent's two calls, one an array) and the
+mask step (the parent's two pageable uploads and two calls against one
+non-blocking copy and one launch); and the host-column mask step (the
+parent's four pageable fold-column uploads and K3 / KB1, whose
+``masks.cu`` is unchanged, against the fold columns' one staged copy and
+the same call) at the headline chunk, the LDBC shape and KB1 on the
+headline layout; ``sync_check`` counts both parent steps' synchronizing
+calls: a ``parent`` line before ``timing``.
 
 Then a ``timing`` line (each phase's wall seconds, the binned route's
 share), one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -334,213 +343,165 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-#: with ``--parent DIR``: K10, K10-P, K3 and KB1 as the tree at DIR builds
-#: them (``Parent``), held against this tree's and timed in turns with them
-#: on the same inputs
+#: with ``--parent DIR``: K8u as the tree at DIR builds it (``Parent``),
+#: and the parent's mask steps, held against this tree's and timed in turns
+#: with them on the same inputs
 PARENT = None
 #: "kernel shape" -> this tree's and the parent's ms (``vs_parent``)
 PARENT_MS: dict = {}
 
 
 class Parent:
-    """K10 ``rtpu_feature_propagate``, K10-P
-    ``rtpu_feature_propagate_binned``, K3 ``rtpu_column_masks_*`` and KB1
-    ``rtpu_bin_column_masks_*`` of another tree's ``features.cu`` and
-    ``masks.cu``, through the C entry points they had before this tree put
-    K10 on K10-P's ring and passed K3 / KB1's column bounds by value, each
-    inside a copy of that tree's wrapper (its input checks, allocations and
-    call; the kernels line's ``ms`` has always timed the wrapper): K10 /
-    K10-P ``(n_pad, F, fdtype, tbytes, lo, nowin | sw, 1 - sw | in_indptr,
-    e_src or walk, e_lat, e_alive, H, out, stream)`` — the signature this
-    tree keeps; K3 ``(m, n, H, C | e_lat, e_alive, v_lat, v_alive,
-    hop_of_col, lo, nowin, me, mv, stream)`` and KB1 ``(B, m, n, H, C |
-    e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin, perm, valid, me,
-    mv, stream)``, the bounds three device tensors (``column_masks_step``
-    uploads them as that tree's ``hopbatch._dispatch_columns`` did: three
-    blocking ``.to`` calls). Built with ``columns.build``'s nvcc flags, both
-    sources at once. Its launches count nowhere."""
+    """K8u ``rtpu_unpack_mask_bits`` of another tree's ``sweep.cu``, the C
+    entry point it had before this tree unpacked a View's two masks from
+    one buffer in one launch: ``(rows, nbytes | packed, out, stream)``,
+    one array of ``u8[rows, nbytes]`` a call, inside a copy of that tree's
+    wrapper (its checks, its allocation and its call; the kernels line's
+    ``ms`` has always timed the wrapper); ``mask_step``: that tree's cold
+    mask step (``bsp.run_async``'s ``ship_bits``: each array's packed bits
+    uploaded pageable, a blocking ``.to``, then unpacked); and
+    ``fold_columns_step``: that tree's host-column dispatch
+    (``hopbatch._dispatch_columns``: the four fold columns uploaded one by
+    one, pageable, then K3 / KB1, whose ``masks.cu`` this tree keeps as it
+    was). Built with ``columns.build``'s nvcc flags. Its launches count
+    nowhere."""
 
     def __init__(self, columns, root: str):
         import ctypes
         import hashlib
 
-        libs = {}
-        procs = []
-        for name in ("features", "masks"):
-            src = os.path.join(root, "raphtory_tpu_torch", "csrc",
-                               f"{name}.cu")
-            with open(src, "rb") as f:
-                tag = hashlib.sha256(f.read()).hexdigest()[:16]
-            out = columns._BUILD / f"libparent_{name}_{tag}.so"
-            libs[name] = out
-            if not out.exists():
-                columns._BUILD.mkdir(exist_ok=True)
-                procs.append(subprocess.Popen(
-                    [columns._nvcc(), "-gencode",
-                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                     "-shared", "-Xcompiler", "-fPIC", "-o", str(out), src],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        for proc in procs:
-            log, _ = proc.communicate(timeout=900)
+        src = os.path.join(root, "raphtory_tpu_torch", "csrc", "sweep.cu")
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(f.read()).hexdigest()[:16]
+        out = columns._BUILD / f"libparent_sweep_{tag}.so"
+        if not out.exists():
+            columns._BUILD.mkdir(exist_ok=True)
+            proc = subprocess.run(
+                [columns._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                 str(out), src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, timeout=900)
             if proc.returncode:
-                raise RuntimeError(f"parent build failed:\n{log.decode()}")
-        feats = ctypes.CDLL(str(libs["features"]))
-        masks = ctypes.CDLL(str(libs["masks"]))
-        i64, ptr, f32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_float
-
-        def bind(f, args):
-            f.argtypes, f.restype = args, ctypes.c_int
-            return f
-
-        self._k10 = bind(feats.rtpu_feature_propagate,
-                         6 * [i64] + 2 * [f32] + 7 * [ptr])
-        self._k10p = bind(feats.rtpu_feature_propagate_binned,
-                          6 * [i64] + 2 * [f32] + 7 * [ptr])
-        self._k3 = {t: bind(getattr(masks, f"rtpu_column_masks_{t}"),
-                            4 * [i64] + 10 * [ptr]) for t in ("i32", "i64")}
-        self._kb1 = {t: bind(getattr(masks, f"rtpu_bin_column_masks_{t}"),
-                             5 * [i64] + 12 * [ptr]) for t in ("i32", "i64")}
+                raise RuntimeError(f"parent build failed:\n"
+                                   f"{proc.stdout.decode()}")
+        lib = ctypes.CDLL(str(out))
+        self._k8u = lib.rtpu_unpack_mask_bits
+        self._k8u.argtypes = 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p]
+        self._k8u.restype = ctypes.c_int
         self._c = columns
         self.source = str(root)
 
-    def _ok(self, what: str, err: int) -> None:
-        if err:
-            raise RuntimeError(f"parent {what}: cudaError {err}")
-
-    def _round(self, fn, what, H, walk_args, e_lat, e_alive, lo, nowin,
-               sw):
+    def unpack_mask_bits(self, packed):
+        """The parent's K8u wrapper (card branch): ``u8[k, b]`` →
+        ``bool[k, 8b]``."""
         import torch
 
-        from raphtory_tpu_torch.ops import features
-
-        out = torch.empty_like(H)
-        n_pad, F = H.shape
-        self._ok(what, fn(n_pad, F, features.FEATURE_DTYPES[H.dtype],
-                          e_lat.dtype.itemsize, int(lo), int(nowin),
-                          float(sw), float(1.0 - sw), *walk_args,
-                          e_lat.data_ptr(), e_alive.data_ptr(),
-                          H.data_ptr(), out.data_ptr(), self._c._stream(H)))
+        name = "unpack_mask_bits"
+        if packed.dim() != 2:
+            raise ValueError(f"{name}: packed has shape "
+                             f"{tuple(packed.shape)}, want [k, bytes]")
+        rows, nbytes = packed.shape
+        self._c._expect(name, packed, "packed", (torch.uint8,),
+                        (rows, nbytes))
+        self._c._on_cuda(name, packed)
+        out = torch.empty((rows, nbytes * 8), dtype=torch.bool,
+                          device=packed.device)
+        err = self._k8u(rows, nbytes, packed.data_ptr(), out.data_ptr(),
+                        self._c._stream(packed))
+        if err:
+            raise RuntimeError(f"parent K8u: cudaError {err}")
         return out
 
-    def propagate_round(self, H, edges, e_lat, e_alive, lo, nowin, sw):
-        """The parent's K10 wrapper (card branch)."""
+    def mask_step(self, v_bits, e_bits, dev):
+        """The parent's cold mask step from its two host arrays of packed
+        bits (``np.packbits`` of each mask, per row): two pageable uploads
+        and two K8u calls."""
         import torch
 
-        from raphtory_tpu_torch.ops import features
+        return tuple(self.unpack_mask_bits(torch.from_numpy(b).to(dev))
+                     for b in (v_bits, e_bits))
 
-        name, ex = "feature_propagate", self._c._expect
-        m_pad = edges.e_src.shape[0]
-        n_pad, F = features._check(name, H, e_lat, e_alive, m_pad)
-        ex(name, edges.e_src, "e_src", (torch.int32,), (m_pad,))
-        ex(name, edges.e_dst, "e_dst", (torch.int32,), (m_pad,))
-        ex(name, edges.in_indptr, "in_indptr", (torch.int64,), (n_pad + 1,))
-        self._c._on_cuda(name, H, e_lat, e_alive, edges.e_src,
-                         edges.in_indptr)
-        features._check_kernel_shape(name, H)
-        return self._round(self._k10, "K10", H, (
-            edges.in_indptr.data_ptr(), edges.e_src.data_ptr()), e_lat,
-            e_alive, lo, nowin, sw)
-
-    def propagate_round_binned(self, H, be, e_lat, e_alive, lo, nowin, sw):
-        """The parent's K10-P wrapper (card branch)."""
+    @staticmethod
+    def fold_columns_step(columns, host_cols, bounds, dev, pv=()):
+        """The parent's host-column mask step from the four host fold
+        columns: four pageable uploads, then K3 (KB1 with ``pv``)."""
         import torch
 
-        from raphtory_tpu_torch.ops import features
+        cols = [torch.from_numpy(a).to(dev) for a in host_cols]
+        if pv:
+            return columns.bin_column_masks(*cols, *bounds, *pv)
+        return columns.column_masks(*cols, *bounds)
 
-        name, ex = "feature_propagate_binned", self._c._expect
-        n_pad, F = features._check(name, H, e_lat, e_alive, e_lat.shape[0])
-        B = be.perm.shape[0]
-        for t, what, dt, shape in ((be.perm, "perm", torch.int32, (B,)),
-                                   (be.valid, "valid", torch.bool, (B,)),
-                                   (be.b_dst, "b_dst", torch.int32, (B,)),
-                                   (be.slot, "slot", torch.int32, (B,)),
-                                   (be.u_src, "u_src", torch.int32, (be.U,)),
-                                   (be.in_indptr, "in_indptr", torch.int64,
-                                    (n_pad + 1,)),
-                                   (be.in_order, "in_order", torch.int32,
-                                    (be.in_order.shape[0],))):
-            ex(name, t, what, (dt,), shape)
-        self._c._on_cuda(name, H, e_lat, e_alive, be.perm, be.slot, be.u_src,
-                         be.in_indptr, be.in_order)
-        features._check_kernel_shape(name, H)
-        walk = features.binned_walk(be)
-        return self._round(self._k10p, "K10-P", H, (
-            be.in_indptr.data_ptr(), walk.data_ptr()), e_lat, e_alive, lo,
-            nowin, sw)
 
-    def column_masks(self, e_lat, e_alive, v_lat, v_alive, hop_of_col, lo,
-                     nowin, perm=None, valid=None):
-        """The parent's K3 wrapper (KB1's with ``perm`` / ``valid``): the
-        column bounds device tensors, seven (nine) tensors checked."""
-        import torch
+def column_steps(columns, host_cols, bounds, dev, pv=()):
+    """``(new, old)``: the host-column dispatch's mask step from the same
+    four host fold columns, this tree's (the columns staged once in pinned
+    memory, as ``_fold_columns`` stages them, then ``hopbatch.
+    _ship_columns``' one non-blocking copy and K3 / KB1) and the
+    parent's (``Parent.fold_columns_step``)."""
+    from raphtory_tpu_torch.engine import hopbatch
+    from raphtory_tpu_torch.ops import resident
 
-        name, ex, c = "column_masks", self._c._expect, self._c
-        H, m = e_lat.shape
-        n = v_lat.shape[1]
-        C = hop_of_col.shape[0]
-        tdt = e_lat.dtype
-        ex(name, e_lat, "e_lat", (torch.int32, torch.int64), (H, m))
-        ex(name, e_alive, "e_alive", (torch.bool,), (H, m))
-        ex(name, v_lat, "v_lat", (tdt,), (H, n))
-        ex(name, v_alive, "v_alive", (torch.bool,), (H, n))
-        ex(name, hop_of_col, "hop_of_col", (torch.int32,), (C,))
-        ex(name, lo, "lo", (tdt,), (C,))
-        ex(name, nowin, "nowin", (torch.bool,), (C,))
-        tensors = (e_lat, e_alive, v_lat, v_alive, hop_of_col, lo, nowin)
-        t = "i32" if tdt == torch.int32 else "i64"
-        if perm is None:
-            c._on_cuda(name, *tensors)
-            rows, fn, extra = m, self._k3[t], ()
-        else:
-            B = perm.shape[0]
-            ex(name, perm, "perm", (torch.int32,), (B,))
-            ex(name, valid, "valid", (torch.bool,), (B,))
-            c._on_cuda(name, *tensors, perm, valid)
-            rows, fn, extra = B, self._kb1[t], (perm, valid)
-        me = torch.empty((rows, C), dtype=torch.bool, device=e_lat.device)
-        mv = torch.empty((n, C), dtype=torch.bool, device=e_lat.device)
-        dims = (m, n, H, C) if perm is None else (rows, m, n, H, C)
-        self._ok("K3" if perm is None else "KB1", fn(
-            *dims, *(x.data_ptr() for x in tensors + extra), me.data_ptr(),
-            mv.data_ptr(), c._stream(me)))
-        return me, mv
+    staged = resident.pack(host_cols, pin=dev.type == "cuda")
+    call = columns.bin_column_masks if pv else columns.column_masks
 
-    def column_masks_step(self, cols, bounds, pv=()):
-        """The parent's mask step of a host-column dispatch, the fold
-        columns already on the card: the three column bounds uploaded
-        (``_put``: a blocking ``.to`` each), then its K3 (KB1 with
-        ``pv``) wrapper."""
-        import torch
+    def new():
+        return call(*hopbatch._ship_columns(staged, dev), *bounds, *pv)
 
-        dev = cols[0].device
-        return self.column_masks(*cols, *(torch.from_numpy(a).to(dev)
-                                          for a in bounds), *pv)
+    def old():
+        return Parent.fold_columns_step(columns, host_cols, bounds, dev, pv)
+    return new, old
 
 
 #: alternating rounds ``vs_parent`` times this tree's and the parent's call
 PARENT_ROUNDS = 7
 
 
-def vs_parent(torch, key: str, new, old, iters: int = 20, **facts) -> None:
+def wall_ms(torch, fn, iters: int = 20) -> float:
+    """Mean host milliseconds of ``fn()`` to a device sync, each call
+    timed on its own after a warm-up (a step whose result the caller
+    waits for)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / iters * 1e3
+
+
+def vs_parent(torch, key: str, new, old, iters: int = 20, wall=False,
+              **facts) -> None:
     """``new`` and the parent's ``old`` timed in turns: ``PARENT_ROUNDS``
     rounds, each ``cuda_ms`` over ``iters`` calls of one then the other
     (the order alternating, so both see the same host load: at the
-    headline shapes a call is host-bound), compared by their medians; then
-    each one's device time (``device_ms``; both calls run their wrapper's
-    checks, as the parent's wrapper did), into ``PARENT_MS[key]``."""
+    headline shapes a call is host-bound), compared by their medians;
+    with ``wall``, also ``wall_ms`` (host time to a sync, a call at a
+    time) in the same alternating rounds; then each one's device time
+    (``device_ms``; both calls run their wrapper's checks, as the
+    parent's wrapper did), into ``PARENT_MS[key]``."""
     import statistics
 
-    ms, pms = [], []
+    ms, pms, wms, wpms = [], [], [], []
     for r in range(PARENT_ROUNDS):
-        for fn, got in ((old, pms), (new, ms))[::1 if r % 2 else -1]:
+        for fn, got, wgot in ((old, pms, wpms),
+                              (new, ms, wms))[::1 if r % 2 else -1]:
             got.append(cuda_ms(torch, fn, iters))
+            if wall:
+                wgot.append(wall_ms(torch, fn, iters))
     dn, by_n = device_ms(torch, new, iters)
     dp, by_p = device_ms(torch, old, iters)
-    PARENT_MS[key] = dict(ms=ms, parent_ms=pms,
-                          ratio=statistics.median(ms) / statistics.median(pms),
+    med = statistics.median
+    PARENT_MS[key] = dict(ms=ms, parent_ms=pms, ratio=med(ms) / med(pms),
                           device_ms=dn, parent_device_ms=dp,
                           device_ratio=dn / dp, device_by=[by_n, by_p],
                           **facts)
+    if wall:
+        PARENT_MS[key].update(wall_ms=wms, parent_wall_ms=wpms,
+                              wall_ratio=med(wms) / med(wpms))
 
 
 def k1_bound(length: int, C: int, updates: int, tbytes: int) -> float:
@@ -1081,11 +1042,11 @@ def mask_kernels(torch, np, columns, gab, ldbc, dev):
             w_col = np.tile(w_pool[:W], H)
             bounds = (hop_of_col, np.clip(T_col - w_col, info.min,
                                           info.max).astype(tdt), w_col < 0)
-            cols = [torch.from_numpy(a).to(dev) for a in (
-                rng.choice(vals, (H, m)).astype(tdt),
-                rng.random((H, m)) < 0.7,
-                rng.choice(vals, (H, n)).astype(tdt),
-                rng.random((H, n)) < 0.7)]
+            host_cols = (rng.choice(vals, (H, m)).astype(tdt),
+                         rng.random((H, m)) < 0.7,
+                         rng.choice(vals, (H, n)).astype(tdt),
+                         rng.random((H, n)) < 0.7)
+            cols = [torch.from_numpy(a).to(dev) for a in host_cols]
             tb = [torch.from_numpy(a).to(dev) for a in bounds]
             before = columns.LAUNCHES["column_masks"]
             got = columns.column_masks(*cols, *bounds)
@@ -1093,12 +1054,14 @@ def mask_kernels(torch, np, columns, gab, ldbc, dev):
                 raise AssertionError(f"K3: not one launch a group of 64 "
                                      f"columns ({key})")
             want = columns.column_masks_plain(*cols, *tb)
-            par = PARENT.column_masks(*cols, *tb) if PARENT else want
+            step, parent_step = column_steps(columns, host_cols, bounds,
+                                             dev)
             what = f"{key}, tdt={tdt.__name__}"
-            for g, x, y in zip(got, want, par):
-                if not (torch.equal(g, x) and torch.equal(g, y)):
-                    raise AssertionError(f"K3 differs from its twin or the "
-                                         f"parent's ({what})")
+            for g, x, y, z in zip(got, want, step(), parent_step()):
+                if not (torch.equal(g, x) and torch.equal(g, y)
+                        and torch.equal(g, z)):
+                    raise AssertionError(f"K3 differs from its twin or from "
+                                         f"the dispatch steps' ({what})")
                 k3_err = max(k3_err, exact_err(g, x))
             if tdt != np.int32:
                 continue
@@ -1111,18 +1074,20 @@ def mask_kernels(torch, np, columns, gab, ldbc, dev):
                         + (m + n) * C)
             shape = f"m_pad={m} n_pad={n} H={H} C={C} int32"
             entry = dict(ms=cuda_ms(torch, k3, 50), bound_ms=bnd[0],
-                         shape=shape, launches_a_call=-(-C // 64))
+                         shape=shape, launches_a_call=-(-C // 64),
+                         # the dispatch's mask step: the fold columns' one
+                         # staged upload and the call
+                         upload_and_call_ms=cuda_ms(torch, step, 50))
             entry["device_ms"], entry["device_by"] = device_ms(torch, k3, 50)
             if key == "headline":
                 entry["plain_ms"] = cuda_ms(
                     torch, lambda: columns.column_masks_plain(*cols, *tb))
                 head = bnd
-            if PARENT is not None:
-                vs_parent(torch, f"column_masks {key}", k3,
-                          lambda cols=cols, bounds=bounds:
-                          PARENT.column_masks_step(cols, bounds), iters=50,
-                          shape=shape + " (bounds' upload + the call)",
-                          bound_ms=bnd[0])
+            if PARENT is not None and key != "c70":
+                vs_parent(torch, f"fold_columns {key}", step, parent_step,
+                          iters=50, wall=True,
+                          shape=shape + " (the fold columns' upload + the "
+                                        "call)", bound_ms=bnd[0])
             calls[key] = entry
     out["column_masks"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
@@ -1339,11 +1304,11 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         bounds = (np.repeat(np.arange(H, dtype=np.int32), W),
                   np.clip(T_col - w_col, info.min, info.max).astype(np.int32),
                   w_col < 0)
-        cols = [put(a) for a in (
-            rng.choice(vals, (H, m)).astype(np.int32),
-            rng.random((H, m)) < 0.7,
-            rng.choice(vals, (H, n)).astype(np.int32),
-            rng.random((H, n)) < 0.7)]
+        host_cols = (rng.choice(vals, (H, m)).astype(np.int32),
+                     rng.random((H, m)) < 0.7,
+                     rng.choice(vals, (H, n)).astype(np.int32),
+                     rng.random((H, n)) < 0.7)
+        cols = [put(a) for a in host_cols]
         tb = [put(a) for a in bounds]
         before = columns.LAUNCHES["bin_masks"]
         got = columns.bin_column_masks(*cols, *bounds, *pv)
@@ -1351,15 +1316,16 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
             raise AssertionError(f"KB1: not one launch a group of 64 columns "
                                  f"(C {C})")
         want = columns.bin_column_masks_plain(*cols, *tb, *pv)
-        par = PARENT.column_masks(*cols, *tb, *pv) if PARENT else want
-        for g, x, y in zip(got, want, par):
-            if not (torch.equal(g, x) and torch.equal(g, y)):
-                raise AssertionError(f"KB1 differs from its twin or the "
-                                     f"parent's (C {C})")
+        step, parent_step = column_steps(columns, host_cols, bounds, dev, pv)
+        for g, x, y, z in zip(got, want, step(), parent_step()):
+            if not (torch.equal(g, x) and torch.equal(g, y)
+                    and torch.equal(g, z)):
+                raise AssertionError(f"KB1 differs from its twin or from "
+                                     f"the dispatch steps' (C {C})")
             kb1_err = max(kb1_err, exact_err(g, x))
         if timed_kb1 is None:
-            timed_kb1 = (H, C, cols, bounds, tb)
-    H, C, cols, bounds, tb = timed_kb1
+            timed_kb1 = (H, C, cols, bounds, tb, step, parent_step)
+    H, C, cols, bounds, tb, step, parent_step = timed_kb1
 
     def kb1():
         return columns.bin_column_masks(*cols, *bounds, *pv)
@@ -1369,9 +1335,9 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
     kb1_shape = (f"host-column form B={B} m_pad={m} n_pad={n} H={H} C={C} "
                  f"int32 (P={spec.partitions})")
     if PARENT is not None:
-        vs_parent(torch, "bin_masks headline", kb1,
-                  lambda: PARENT.column_masks_step(cols, bounds, pv),
-                  iters=50, shape=kb1_shape + " (bounds' upload + the call)",
+        vs_parent(torch, "fold_columns bin_masks headline", step,
+                  parent_step, iters=50, wall=True,
+                  shape=kb1_shape + " (the fold columns' upload + the call)",
                   bound_ms=kb1_bound[0])
     out["bin_masks"] = dict(
         source="raphtory_tpu_torch/csrc/masks.cu",
@@ -1381,6 +1347,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
         plain_ms=cuda_ms(torch, lambda: columns.bin_column_masks_plain(
             *cols, *tb, *pv)),
         library_ms=None, columns=C, shape=kb1_shape,
+        upload_and_call_ms=cuda_ms(torch, step, 50),
         **dict(zip(("bound_ms", "bound_by"), kb1_bound)))
 
     # ---- K2b-P at the headline (pre-aggregated), against its twin and
@@ -2177,23 +2144,26 @@ def k9a_case(torch, np, resident, rng, n_pad, m_pad, cap_v, cap_e, tdt, tt,
                       f"cap_e={cap_e} {tdt.__name__} live={live}")
 
 
-def sync_check(torch, np, resident, gab, dev) -> dict:
+def sync_check(torch, np, resident, gab, view_shape, dev) -> dict:
     """Synchronizing calls under ``torch.cuda.set_sync_debug_mode("error")``
-    (it raises on one) in two steps: one resident hop of the past-cap job's
-    sweep — its chunk upload (``DeviceSweep._apply_staged``: one
-    non-blocking copy from pinned memory) plus K9a, then K9b — and the
-    host-column route's mask step once its fold columns are on the card
-    (``hopbatch._dispatch_columns``' K3 call at the headline's chunk, H 4 x
-    C 12, and KB1's on a layout of the headline tables: the column bounds
-    by value). Then each step's synchronizing calls counted under
-    ``"warn"``, this tree's and (with ``--parent``) the parent's mask step
-    (its three bound uploads and its call), and what the dispatch still
-    uploads beside it (the four fold columns: their synchronizing calls
-    and milliseconds, beside the mask call's)."""
+    (it raises on one) in three steps: one resident hop of the past-cap
+    job's sweep — its chunk upload (``DeviceSweep._apply_staged``: one
+    non-blocking copy from pinned memory) plus K9a, then K9b; the cold
+    View's mask step at ``view_shape`` (``(k, n_pad, m_pad)``: both masks'
+    bits from one pinned buffer in one non-blocking copy, then one K8u
+    launch, as ``bsp.run_async`` takes it); and the host-column route's
+    mask step (``hopbatch._dispatch_columns`` at the headline's chunk, H 4
+    x C 12, from fold columns staged as ``_fold_columns`` stages them: one
+    non-blocking copy, then K3; and KB1's on a layout of the headline
+    tables, its device arrays built first). Then each step's synchronizing
+    calls counted under ``"warn"``, this tree's and (with ``--parent``)
+    the parent's: its cold mask step (two pageable uploads and two K8u
+    calls) and its host-column mask step (four pageable uploads and the
+    call)."""
     import warnings
 
+    from raphtory_tpu_torch.engine import hopbatch
     from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
-    from raphtory_tpu_torch.engine.hopbatch import _column_layout
     from raphtory_tpu_torch.ops import columns, partition
 
     ds = DeviceSweep(past_cap_log(), device=dev)
@@ -2202,23 +2172,33 @@ def sync_check(torch, np, resident, gab, dev) -> dict:
     if any(p["kind"] != "chunks" for p in payloads):
         raise AssertionError("sync check: a hop took no delta chunk")
     windows = [20_000]
-    # the mask step's inputs: a headline chunk's fold columns on the card
-    # (``gab`` the headline's tables), its column bounds on the host
-    hops, _ = headline_grid()
-    H, C, hop_of_col, T_col, w_col = _column_layout(hops[:4], WINDOWS)
     rng = np.random.default_rng(8)
-    host_cols = (rng.integers(0, GAB_SPAN, (H, gab.m_pad)).astype(np.int32),
-                 rng.random((H, gab.m_pad)) < 0.7,
-                 rng.integers(0, GAB_SPAN, (H, gab.n_pad)).astype(np.int32),
-                 rng.random((H, gab.n_pad)) < 0.7)
-    cols = [torch.from_numpy(a).to(dev) for a in host_cols]
-    info = np.iinfo(np.int32)
-    bounds = (hop_of_col, np.clip(T_col - w_col, info.min,
-                                  info.max).astype(np.int32), w_col < 0)
+    # the cold mask step's inputs: a View's masks, packed into pinned
+    # memory as ``bsp.run_async`` packs them
+    k, n, m = view_shape
+    v_masks, e_masks = rng.random((k, n)) < 0.4, rng.random((k, m)) < 0.6
+    packed = resident.pack_view_masks(v_masks, e_masks, pin=True)
+    # the host-column step's inputs: a headline chunk's fold columns
+    # (``gab`` the headline's tables), staged, and their windows
+    hops, _ = headline_grid()
+    host_cols = (rng.integers(0, GAB_SPAN, (4, gab.m_pad)).astype(np.int32),
+                 rng.random((4, gab.m_pad)) < 0.7,
+                 rng.integers(0, GAB_SPAN, (4, gab.n_pad)).astype(np.int32),
+                 rng.random((4, gab.n_pad)) < 0.7)
+    staged = resident.pack(host_cols, pin=True)
     lay = partition.build_layout(gab.e_src, gab.e_dst, gab.n_pad, gab.m,
                                  partition.partition_count(
                                      gab.n_pad, partition.tile_budget_bytes()))
-    pv = tuple(torch.from_numpy(a).to(dev) for a in (lay.perm, lay.valid))
+    lay.device_args(dev)                     # built once per layout
+
+    def cold():
+        return resident.unpack_view_masks(resident.upload(packed, dev), k,
+                                          n, m)
+
+    def columns_step(layout=None):
+        return hopbatch._dispatch_columns(gab, staged, hops[:4], WINDOWS,
+                                          dev, layout)
+
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2226,11 +2206,16 @@ def sync_check(torch, np, resident, gab, dev) -> dict:
         v_lat, v_alive, _, e_lat, e_alive, _ = ds._bufs
         resident.window_masks(v_lat, v_alive, e_lat, e_alive, 48_850,
                               windows)
-        columns.column_masks(*cols, *bounds)
-        columns.bin_column_masks(*cols, *bounds, *pv)
+        got_v, got_e = cold()
+        columns_step()
+        columns_step(lay)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    if not (torch.equal(got_v.cpu(), torch.from_numpy(v_masks))
+            and torch.equal(got_e.cpu(), torch.from_numpy(e_masks))):
+        raise AssertionError("sync check: the cold mask step's masks differ "
+                             "from the host's")
 
     def count(fn) -> int:
         torch.cuda.synchronize()
@@ -2248,29 +2233,33 @@ def sync_check(torch, np, resident, gab, dev) -> dict:
         resident.window_masks(*(ds._bufs[i] for i in (0, 1, 3, 4)), 48_900,
                               windows)
 
-    def upload():
-        return [torch.from_numpy(a).to(dev) for a in host_cols]
-
     out = dict(error_mode="passed", chunks=len(payloads[1]["chunks"]),
                warnings=count(hop),
+               cold_mask_step=dict(shape=f"k={k} n_pad={n} m_pad={m}",
+                                   calls=count(cold)),
                mask_step=dict(shape=f"m_pad={gab.m_pad} n_pad={gab.n_pad} "
-                                    f"H={H} C={C} int32, B={lay.B}",
-                              column_masks=count(lambda: columns.column_masks(
-                                  *cols, *bounds)),
-                              bin_masks=count(lambda: columns.bin_column_masks(
-                                  *cols, *bounds, *pv)),
-                              # what the dispatch still uploads: the four
-                              # fold columns, pageable
-                              fold_upload=count(upload),
-                              fold_upload_ms=cuda_ms(torch, upload),
-                              column_masks_ms=cuda_ms(
-                                  torch, lambda: columns.column_masks(
-                                      *cols, *bounds))))
+                                    f"H=4 C=12 int32, B={lay.B}",
+                              column_masks=count(columns_step),
+                              bin_masks=count(lambda: columns_step(lay)),
+                              dispatch_ms=cuda_ms(torch, columns_step)))
     if PARENT is not None:
+        v_bits, e_bits = (np.packbits(a, axis=1, bitorder="little")
+                          for a in (v_masks, e_masks))
+        out["cold_mask_step"]["parent_calls"] = count(
+            lambda: PARENT.mask_step(v_bits, e_bits, dev))
+        bounds = hopbatch._column_layout(hops[:4], WINDOWS)
+        info = np.iinfo(np.int32)
+        bounds = (bounds[2], np.clip(bounds[3] - bounds[4], info.min,
+                                     info.max).astype(np.int32),
+                  bounds[4] < 0)
+        pv = tuple(torch.from_numpy(a).to(dev) for a in (lay.perm,
+                                                         lay.valid))
         out["mask_step"]["parent_column_masks"] = count(
-            lambda: PARENT.column_masks_step(cols, bounds))
+            lambda: Parent.fold_columns_step(columns, host_cols, bounds,
+                                             dev))
         out["mask_step"]["parent_bin_masks"] = count(
-            lambda: PARENT.column_masks_step(cols, bounds, pv))
+            lambda: Parent.fold_columns_step(columns, host_cols, bounds,
+                                             dev, pv))
     return out
 
 
@@ -2326,14 +2315,14 @@ def grid_split_cases(torch, np, segment, dev) -> dict:
     return dict(bitwise=len(cases), launches=cases)
 
 
-def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
+def segment_kernels(torch, np, segment, resident, gab, btc, view_shapes,
                     dev):
     """K7, K9a, K9b and K8u against their twins on the card, at the shapes
     of the paths that run them: GAB (gab_pr_view, k = 1) and Bitcoin
     (bitcoin_range, k = 3) tables, the GAB and past-cap resident buffers
-    and chunk capacities, the LDBC cold view's masks; K7 / K7-P / K7-mode
-    past 65,535 grid rows (``grid_split_cases``); the ``sync_check``
-    line."""
+    and chunk capacities, the cold Views' masks (``view_shapes``: name ->
+    ``(k, n_pad, m_pad)``, ``k8u_calls``); K7 / K7-P / K7-mode past 65,535
+    grid rows (``grid_split_cases``); the ``sync_check`` line."""
     from raphtory_tpu_torch.ops.columns import LAUNCHES
 
     rng = np.random.default_rng(2)
@@ -2558,33 +2547,136 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shape,
             *args, lo, nowin)),
         library_ms=None, shape=shape, calls=calls9b,
         **dict(zip(("bound_ms", "bound_by"), bnd)))
-    emit("sync_check", **sync_check(torch, np, resident, gab, dev))
+    emit("sync_check", **sync_check(torch, np, resident, gab,
+                                    view_shapes["ldbc"], dev))
 
-    # ---- K8u: the cold LDBC view's vertex and edge masks (2 windows)
-    err8, packed = 0.0, None
-    for length in view_shape:
-        masks = rng.random((2, length)) < 0.4
-        packed = torch.from_numpy(np.packbits(
-            masks, axis=1, bitorder="little")).to(dev)
-        got = resident.unpack_mask_bits(packed)
-        want = resident.unpack_mask_bits_plain(packed)
-        if not (torch.equal(got, want)
-                and torch.equal(got.cpu(), torch.from_numpy(masks))):
-            raise AssertionError(f"K8u differs from its twin (len "
-                                 f"{length})")
-        err8 = max(err8, exact_err(got, want))
-    out["unpack_mask_bits"] = dict(
-        source="raphtory_tpu_torch/csrc/sweep.cu",
-        replaces="raphtory_tpu/engine/bsp.py:39",
-        max_abs_err=err8,
-        ms=cuda_ms(torch, lambda: resident.unpack_mask_bits(packed)),
-        plain_ms=cuda_ms(torch, lambda: resident.unpack_mask_bits_plain(
-            packed)),
-        library_ms=None, shape=f"k=2 len={view_shape[-1]}",
-        # the packed bits read, one byte per bit written
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(packed.numel() * 9))))
+    out["unpack_mask_bits"] = k8u_calls(torch, np, resident, view_shapes,
+                                        dev)
     return out
+
+
+def k8u_bound(k: int, n: int, m: int) -> tuple[float, str]:
+    """K8u's bound: a View's packed bits read once, its masks written
+    once."""
+    return bound(-(-k * n // 8) + -(-k * m // 8) + k * (n + m))
+
+
+def k8u_edge_cases(torch, np, resident, columns, dev) -> int:
+    """K8u (through the C entry) bitwise its twin and the numpy masks on
+    small Views: k 1-5, n_pad / m_pad 0, 8, 16, 24, 64, 1,024, 4,104 and
+    2^16 — regions under 16 bytes, k*n not a multiple of 128, a block's
+    end, empty regions. Returns the count."""
+    rng = np.random.default_rng(18)
+    fn = columns._fn("sweep", "rtpu_unpack_view_masks")
+    cases = 0
+    for k in (1, 2, 3, 4, 5):
+        for n, m in ((8, 8), (16, 64), (24, 0), (0, 1024), (64, 4104),
+                     (1024, 1 << 16), (1 << 16, 16)):
+            v, e = rng.random((k, n)) < 0.4, rng.random((k, m)) < 0.6
+            packed = resident.upload(resident.pack_view_masks(v, e,
+                                                              pin=True), dev)
+            want = resident.unpack_view_masks_plain(packed, k, n, m)
+            buf, gv, ge = resident._view_masks_out(k, n, m, dev)
+            err = fn(k * n, k * m, packed.data_ptr(), buf.data_ptr(),
+                     columns._stream(packed))
+            torch.cuda.synchronize()
+            if err or not (torch.equal(gv, want[0])
+                           and torch.equal(ge, want[1])
+                           and torch.equal(gv.cpu(), torch.from_numpy(v))
+                           and torch.equal(ge.cpu(), torch.from_numpy(e))):
+                raise AssertionError(f"K8u differs from its twin (k={k} "
+                                     f"n={n} m={m}, cudaError {err})")
+            cases += 1
+    return cases
+
+
+def flushed_ms(torch, fn, dev, iters: int = 10) -> float:
+    """Mean milliseconds of one ``fn()`` by CUDA events around it alone,
+    each call after a 128 MB write that evicts the L2 (the launch latency
+    counts in)."""
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        scrub.fill_(1)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def k8u_calls(torch, np, resident, view_shapes, dev) -> dict:
+    """K8u at each cold View's shape (``view_shapes``): random masks packed
+    into pinned memory as ``bsp.run_async`` packs them; the wrapper on the
+    uploaded bits held BITWISE against its twin, the numpy masks and the
+    parent's two calls (with ``--parent``); its ``ms`` and device time, and
+    the mask step (the upload + the unpack, host time to a sync) in turns
+    with the parent's (its two pageable uploads and two calls); then the
+    edge cases. The kernels line's entry is the LDBC View's."""
+    from raphtory_tpu_torch.ops import columns
+
+    rng = np.random.default_rng(18)
+    calls, err8 = {}, 0.0
+    for name, (k, n, m) in view_shapes.items():
+        v, e = rng.random((k, n)) < 0.4, rng.random((k, m)) < 0.6
+        host = resident.pack_view_masks(v, e, pin=True)
+        packed = resident.upload(host, dev)
+        got = resident.unpack_view_masks(packed, k, n, m)
+        want = resident.unpack_view_masks_plain(packed, k, n, m)
+        bits = [np.packbits(a, axis=1, bitorder="little") for a in (v, e)]
+        par = (PARENT.mask_step(*bits, dev) if PARENT is not None
+               else want)
+        for g, x, y, a in zip(got, want, par, (v, e)):
+            if not (torch.equal(g, x) and torch.equal(g, y)
+                    and torch.equal(g.cpu(), torch.from_numpy(a))):
+                raise AssertionError(f"K8u differs from its twin, the host's "
+                                     f"masks or the parent's ({name})")
+            err8 = max(err8, exact_err(g, x))
+
+        def kern(packed=packed, k=k, n=n, m=m):
+            return resident.unpack_view_masks(packed, k, n, m)
+
+        def step(host=host, k=k, n=n, m=m):
+            return resident.unpack_view_masks(resident.upload(host, dev), k,
+                                              n, m)
+
+        shape = f"k={k} n_pad={n} m_pad={m}"
+        bnd = k8u_bound(k, n, m)
+        entry = dict(shape=shape, ms=cuda_ms(torch, kern),
+                     step_wall_ms=wall_ms(torch, step), bound_ms=bnd[0])
+        entry["device_ms"], entry["device_by"] = device_ms(torch, kern)
+        if (n + m) * k * 9 // 8 > 16 << 20:
+            # a working set that stays in the 50 MB L2 between back-to-back
+            # calls: also each call after a 128 MB write, by CUDA events
+            entry["l2_flushed_events_ms"] = flushed_ms(torch, kern, dev)
+        if name == "ldbc":
+            entry["plain_ms"] = cuda_ms(
+                torch, lambda: resident.unpack_view_masks_plain(packed, k, n,
+                                                                m))
+        if PARENT is not None:
+            vs_parent(torch, f"unpack_mask_bits kernel {name}", kern,
+                      lambda bits=[torch.from_numpy(b).to(dev)
+                                   for b in bits]:
+                      [PARENT.unpack_mask_bits(b) for b in bits],
+                      shape=shape + " (the unpack alone)", bound_ms=bnd[0])
+            vs_parent(torch, f"unpack_mask_bits step {name}", step,
+                      lambda bits=bits: PARENT.mask_step(*bits, dev),
+                      wall=True, shape=shape + " (the upload + the unpack)",
+                      bound_ms=bnd[0])
+        calls[name] = entry
+    ldbc = calls["ldbc"]
+    return dict(
+        source="raphtory_tpu_torch/csrc/sweep.cu",
+        replaces="raphtory_tpu/engine/bsp.py:39", max_abs_err=err8,
+        ms=ldbc["ms"], device_ms=ldbc["device_ms"],
+        plain_ms=ldbc["plain_ms"], library_ms=None, shape=ldbc["shape"],
+        calls=calls,
+        edge_cases=k8u_edge_cases(torch, np, resident, columns, dev),
+        **dict(zip(("bound_ms", "bound_by"),
+                   k8u_bound(*view_shapes["ldbc"]))))
 
 
 def compare_rows(what, got, want) -> None:
@@ -2761,9 +2853,22 @@ def phase_bitcoin_range(torch, np, columns, dev):
     return launches, sum(src_calls)
 
 
+def split_run(bsp, prog, view, dev, **kw):
+    """``bsp.run`` on the card with ``bsp.STAGE_SECONDS`` on: ``(result,
+    steps, the dispatch's seconds by stage)``."""
+    bsp.STAGE_SECONDS = split = {}
+    try:
+        got, steps = bsp.run(prog, view, device=dev, **kw)
+    finally:
+        bsp.STAGE_SECONDS = None
+    return got, steps, split
+
+
 def phase_view_programs(torch, np, columns, log, dev):
     """CC, DegreeBasic and undirected BFS Views on the resident route;
-    weighted SSSP and a descending-time PageRank View on the cold route."""
+    weighted SSSP and a descending-time PageRank View on the cold route,
+    each cold dispatch split by stage (``cold_split_s``: mask build, pack,
+    the bits' upload + unpack, view edges, props, layout, supersteps)."""
     from raphtory_tpu_torch.algorithms import (BFS, SSSP, ConnectedComponents,
                                                DegreeBasic, PageRank)
     from raphtory_tpu_torch.core.snapshot import build_view
@@ -2794,12 +2899,14 @@ def phase_view_programs(torch, np, columns, log, dev):
     compare_rows("view_programs", rows, want)
     # the result vectors, card against CPU, on each job's route
     card, cpu = DeviceSweep(log, device=dev), DeviceSweep(log, device="cpu")
-    err = 0.0
+    err, cold_split = 0.0, {}
     for prog, q in jobs:
         kw = dict(window=q.window, windows=q.windows)
         if prog in (sssp, pr):
             view = build_view(log, q.timestamp)
-            got, s = bsp.run(prog, view, device=dev, **kw)
+            # the cold dispatch split by stage (``bsp.run_async``)
+            got, s, cold_split[type(prog).__name__] = split_run(
+                bsp, prog, view, dev, **kw)
             ref, xs = bsp.run(prog, view, device="cpu", **kw)
         else:
             got, s = card.run(prog, q.timestamp, **kw)
@@ -2814,7 +2921,7 @@ def phase_view_programs(torch, np, columns, log, dev):
             if prog is pr:
                 err = max(err, float((a - b).abs().max()))
     emit("view_programs", rows=len(rows), view_s=secs,
-         resident_fold_dispatch_s=split,
+         resident_fold_dispatch_s=split, cold_split_s=cold_split,
          supersteps=[r["steps"] for r in rows], launches=launches,
          pagerank_max_abs_err_vs_cpu=err)
     return launches
@@ -3725,10 +3832,6 @@ def phase_features(torch, np, columns, dev):
             H, be, e_lat, e_alive, lo, nw, 0.5),
         lambda H, lo, nw: ops_features.propagate_round_binned_plain(
             H, be, e_lat, e_alive, lo, nw, 0.5), be)}
-    parent = {"feature_propagate": lambda H, lo, nw: PARENT.propagate_round(
-        H, ds.edges, e_lat, e_alive, lo, nw, 0.5),
-        "feature_propagate_binned": lambda H, lo, nw:
-        PARENT.propagate_round_binned(H, be, e_lat, e_alive, lo, nw, 0.5)}
     live = {k: int(ops_features.edge_mask(e_lat, e_alive, *v).sum())
             for k, v in win.items()}
     times, twin = {}, {}
@@ -3742,19 +3845,6 @@ def phase_features(torch, np, columns, dev):
         gather = {k: bound(nbytes + live[k] * row, ops)[0] for k in win}
         sectors = {k: bound(nbytes + live[k] * -(-row // 32) * 32, ops)[0]
                    for k in win}
-        if PARENT is not None:
-            for k, v in win.items():
-                if not torch.equal(kern(Hb, *v), parent[name](Hb, *v)):
-                    raise AssertionError(f"features: {name} differs from "
-                                         f"the parent's ({k} window)")
-                vs_parent(torch, f"{name} features {k}",
-                          lambda v=v: kern(Hb, *v),
-                          lambda v=v: parent[name](Hb, *v), iters=10,
-                          shape=f"n_pad={ds.n_pad} m_pad={ds.m_pad} F="
-                                f"{FEAT_F} bf16 {k} window, live "
-                                f"{live[k]}",
-                          bound_ms=bound(nbytes, ops)[0],
-                          gather_bound_ms=gather[k])
         times[name]["plain"] = cuda_ms(torch, lambda: plain(Hb, *win["day"]),
                                        iters=3)
         # the twin check at this shape: bf16 (the path's storage), then f32
@@ -3989,33 +4079,6 @@ def phase_features_gab(torch, np, columns, log, dev):
             plain_ms=cuda_ms(torch, plain, iters=5),
             **dict(zip(("bound_ms", "bound_by"), bnd)))
         round_check[name]["device_ms"] = device_ms(torch, kern)[0]
-        if PARENT is None:
-            continue
-        # this tree's kernel and the parent's, bf16 and f32 (the same
-        # round on H in float32), bitwise, then in turns
-        for dt, Hd in (("bf16", H), ("f32", H.float())):
-            if name == "feature_propagate":
-                def new(Hd=Hd):
-                    return ops_features.propagate_round(
-                        Hd, ds.edges, e_lat, e_alive, lo, nowin, 0.5)
-
-                def old(Hd=Hd):
-                    return PARENT.propagate_round(
-                        Hd, ds.edges, e_lat, e_alive, lo, nowin, 0.5)
-            else:
-                def new(Hd=Hd):
-                    return ops_features.propagate_round_binned(
-                        Hd, be, e_lat, e_alive, lo, nowin, 0.5)
-
-                def old(Hd=Hd):
-                    return PARENT.propagate_round_binned(
-                        Hd, be, e_lat, e_alive, lo, nowin, 0.5)
-            if not torch.equal(new(), old()):
-                raise AssertionError(f"features_gab: {name} {dt} differs "
-                                     "from the parent's")
-            vs_parent(torch, f"{name} gab {dt}", new, old, iters=50,
-                      shape=f"n_pad={ds.n_pad} m_pad={ds.m_pad} F=128 {dt} "
-                            "week window", bound_ms=bnd[0])
     # every ring depth of K10-P (F 132 / 260 / 388 / 512: 2, 3 and 4
     # groups of 4 features a lane; F 512 float32 holds the widest ring),
     # float32 and bfloat16: bitwise K10, and equal to its twin
@@ -4040,11 +4103,6 @@ def phase_features_gab(torch, np, columns, log, dev):
                 raise AssertionError(
                     f"features_gab: K10-P at F {F} {dt} differs from K10 "
                     f"({torch.equal(got, k10w)}) or its twin ({err})")
-            if PARENT is not None and not torch.equal(
-                    k10w, PARENT.propagate_round(Hw, ds.edges, e_lat,
-                                                 e_alive, lo, nowin, 0.5)):
-                raise AssertionError(f"features_gab: K10 at F {F} {dt} "
-                                     "differs from the parent's")
             widths[f"F{F}_{str(dt).split('.')[-1]}"] = err
     # the embeddings example on the card against the CPU (same seed: the
     # features are drawn on the host)
@@ -4513,6 +4571,15 @@ def phase_taint(torch, np, columns, segment, dev):
             raise AssertionError(f"taint View: binned != unbinned on the "
                                  f"card (steps {bs} vs {us})")
         same_rows("View binned vs unbinned jobs", brows, urows)
+        # the View's dispatch split by stage (``bsp.run_async``), once
+        # more on each route, its layout cached for the view
+        for route, value in (("binned", None), ("unbinned", "0")):
+            knob(value)
+            again, _, view_runs[route]["split_s"] = split_run(
+                bsp, prog, view, dev, windows=list(TAINT_WINDOWS))
+            if not torch.equal(again.cpu(), results[route][0]):
+                raise AssertionError(f"taint View {route}: the split run "
+                                     "differs")
         knob("0")
         t0 = time.perf_counter()
         cpu_rows = job_rows(cpu_mgr, q)
@@ -5594,25 +5661,31 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
         n_addresses=20_000, n_txs=200_000, t_span=BTC_SPAN),
         device=dev).tables
     ldbc_view = build_view(ldbc, int(0.9 * LDBC_SPAN))
+    gab_view = build_view(log, int(0.90 * GAB_SPAN))
     PHASE_S["build_and_tables"] = time.perf_counter() - t_main
     t0 = time.perf_counter()
     kernels = phase_kernels(torch, np, columns, tables, dev)
     kernels.update(minplus_kernels(torch, np, columns, minplus, tables,
                                    ldbc_tables, dev))
-    kernels.update(segment_kernels(torch, np, segment, resident, tables,
-                                   btc_tables,
-                                   (ldbc_view.n_pad, ldbc_view.m_pad), dev))
+    # the cold Views K8u serves: view_programs' LDBC Views (2 windows), the
+    # GAB View of lpa and pcpm (3), the taint View's occurrence rows (3)
+    kernels.update(segment_kernels(
+        torch, np, segment, resident, tables, btc_tables,
+        {"ldbc": (2, ldbc_view.n_pad, ldbc_view.m_pad),
+         "gab": (3, gab_view.n_pad, gab_view.m_pad),
+         "taint": (len(TAINT_WINDOWS), 1 << 21, 1 << 23)}, dev))
     kernels.update(mask_kernels(torch, np, columns, tables, ldbc_tables,
                                 dev))
     PHASE_S["kernels"] = time.perf_counter() - t0
     kernels.update(timed("pcpm_kernels", pcpm_kernels, torch, np, columns,
-                         minplus, segment, tables, ldbc_tables,
-                         build_view(log, int(0.90 * GAB_SPAN)), dev))
+                         minplus, segment, tables, ldbc_tables, gab_view,
+                         dev))
     emit("kernels", kernels={k: {kk: vv for kk, vv in v.items()
                                  if kk in ("ms", "device_ms", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "max_abs_err", "shape", "calls",
-                                           "edge_cases", "grid_split")}
+                                           "edge_cases", "grid_split",
+                                           "upload_and_call_ms")}
                              for k, v in kernels.items()})
     launches = timed("headline", phase_headline, torch, np, columns,
                      HopBatchedPageRank, log, dev)

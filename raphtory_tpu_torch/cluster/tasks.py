@@ -38,6 +38,7 @@ from ..core.events import EventLog
 from ..interop import event_log_from_arrays, program_from_params
 from ..ops import columns as _columns
 from ..ops import exchange as _exchange
+from ..ops.resident import ship
 from ..utils import synth
 from . import bootstrap as _boot
 
@@ -147,9 +148,12 @@ def _columns_req(req, logs, clock):
     hops, cols = hb._fold_columns(req["hops"])
     weight_prop = params.pop("weight_prop", None)
     if weight_prop:
-        *cols, params["weight_cols"] = cols
+        # the weights stay on the host: a rank ships only its hops' rows
+        params["weight_cols"] = cols[4]
     with clock():
-        res, steps = run_columns_sharded(hb.tables, *cols, hops,
+        # the four fold columns in one copy of the bytes they span
+        res, steps = run_columns_sharded(hb.tables,
+                                         *ship(cols, mesh.device, 4), hops,
                                          req["windows"], mesh, kind=kind,
                                          **params)
     return {"result": res.cpu().numpy(), "steps": int(steps)}

@@ -35,15 +35,31 @@
 // one 16-byte store (byte stores where a row is not 16-byte aligned or at
 // the ragged end).
 //
-// K8u `rtpu_unpack_mask_bits` replaces raphtory_tpu/engine/bsp.py:39
-// `_unpack_bits`: u8[rows, nbytes] in little bit order to bool[rows,
-// 8*nbytes] — the cold route ships its window masks bit-packed and unpacks
-// them on the card. One thread per output byte.
+// K8u `rtpu_unpack_view_masks` replaces raphtory_tpu/engine/bsp.py:39
+// `_unpack_bits` as the cold route calls it (`:377-378`): a View's vertex
+// masks [k, n] and edge masks [k, m], bit-packed on the host in little bit
+// order, arrive as ONE byte buffer (one non-blocking copy from pinned
+// memory, raphtory_tpu_torch/ops/resident.py `pack_view_masks`): the k*n
+// vertex bits flat from byte 0, the k*m edge bits flat from the next
+// multiple of 16 bytes (`view_offsets` below; the wrapper's
+// `view_mask_layout` is the same rule). One launch unpacks both into one
+// bool allocation, the edge rows at the next multiple of 16 bytes past the
+// k*n vertex bytes. The vertex region takes the first blocks, the edge
+// region the rest (no division). A block takes 4,096 bytes of bits, one
+// 16-byte load a thread, staged in shared memory; a warp then writes its
+// 512 bytes' 4,096 mask bytes as eight 16-byte stores a lane, store q of
+// lane L covering bits bytes 2(32q + L) and 2(32q + L) + 1, so that each
+// store instruction of the warp writes 512 contiguous bytes. A byte's 8
+// bits become 8 mask bytes by one 64-bit multiply and masks (`spread`).
+// Ragged ends (a region under 16 bytes of bits, the tail of a region) take
+// byte loads and byte stores.
 //
 // What bounds them on the H100: bytes (one compare or shift per element).
 // K9a and K9b move well under a megabyte on the resident paths and are
 // launch-bound there: their designs cut the host's part of a call (one
-// upload and no synchronizing copy a call).
+// upload and no synchronizing copy a call). K8u writes 8 bytes for each
+// byte it reads (31.5 MB from 3.9 MB for the taint View): its stores set
+// its pace, hence whole coalesced 16-byte stores.
 //
 // Plain C interface, loaded with ctypes (raphtory_tpu_torch/ops/
 // resident.py). Each entry point launches on the caller's stream,
@@ -58,12 +74,6 @@ constexpr int kThreads = 256;
 constexpr int kWinGroup = 32;          // windows a K9b launch carries
 constexpr int kSpan = 16;              // elements a K9b thread takes
 constexpr int kRows = 4;               // chunk rows a K9a thread takes
-
-inline int64_t blocks_for(int64_t total) {
-    int64_t b = (total + kThreads - 1) / kThreads;
-    if (b > 65535 * 8) b = 65535 * 8;
-    return b < 1 ? 1 : b;
-}
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
@@ -245,14 +255,78 @@ __global__ void __launch_bounds__(kThreads) window_masks_kernel(
     if (i0 < m) mask_span<T>(i0, m, e_lat, e_alive, e_out, b);
 }
 
-__global__ void unpack_bits_kernel(int64_t total,
-                                   const uint8_t* __restrict__ packed,
-                                   uint8_t* __restrict__ out) {
-    // out is row-major [rows, 8*nbytes] and packed [rows, nbytes], so the
-    // flat output index j reads byte j/8 of the flat packed array
-    for (int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-         j < total; j += (int64_t)gridDim.x * blockDim.x)
-        out[j] = (packed[j >> 3] >> (j & 7)) & 1;
+// ---------------------------------------------------------------- K8u
+
+constexpr int kBitsBlock = kThreads * 16;   // bytes of bits a block takes
+
+__host__ __device__ inline int64_t align16(int64_t n) {
+    return (n + 15) / 16 * 16;
+}
+
+// (byte offset of the edge bits in the packed buffer, byte offset of the
+// edge masks in the output) of a View with vbits vertex and ebits edge
+// bits
+__host__ __device__ inline void view_offsets(int64_t vbits, int64_t& e_in,
+                                             int64_t& e_out) {
+    e_in = align16((vbits + 7) / 8);
+    e_out = align16(vbits);
+}
+
+// the 8 bits of b as 8 bytes of 0 / 1, bit j in byte j: b copied into every
+// byte, byte j keeps bit j, then each non-zero byte becomes 1
+__host__ __device__ __forceinline__ uint64_t spread(uint32_t b) {
+    const uint64_t x = ((uint64_t)b * 0x0101010101010101ull)
+                       & 0x8040201008040201ull;
+    return ((x + 0x7f7f7f7f7f7f7f7full) & 0x8080808080808080ull) >> 7;
+}
+
+__global__ void __launch_bounds__(kThreads) unpack_view_kernel(
+        int64_t vbits, int64_t ebits, int64_t vblocks,
+        const uint8_t* __restrict__ packed, uint8_t* __restrict__ out) {
+    __shared__ uint4 stage[kThreads];
+    const bool vert = blockIdx.x < vblocks;                 // block-uniform
+    int64_t e_in, e_out;
+    view_offsets(vbits, e_in, e_out);
+    const int64_t bits = vert ? vbits : ebits;
+    const int64_t nbytes = (bits + 7) / 8;
+    const uint8_t* in = packed + (vert ? 0 : e_in);
+    uint8_t* o = out + (vert ? 0 : e_out);
+    const int64_t b0 =
+        (int64_t)(vert ? blockIdx.x : blockIdx.x - vblocks) * kBitsBlock;
+    // one 16-byte load a thread, neighbouring threads on neighbouring words
+    const int64_t i0 = b0 + (int64_t)threadIdx.x * 16;
+    union { uint4 v; uint8_t c[16]; } w;
+    if (i0 + 16 <= nbytes) {
+        w.v = *reinterpret_cast<const uint4*>(in + i0);
+    } else {
+        #pragma unroll
+        for (int q = 0; q < 16; ++q)
+            w.c[q] = i0 + q < nbytes ? in[i0 + q] : 0;
+    }
+    stage[threadIdx.x] = w.v;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    const uint8_t* wb = reinterpret_cast<const uint8_t*>(stage)
+                        + (threadIdx.x >> 5) * 512;
+    // the warp's first byte of bits
+    const int64_t wbyte = b0 + (threadIdx.x >> 5) * 512;
+    #pragma unroll
+    for (int q = 0; q < 8; ++q) {
+        const int h = q * 32 + lane;        // the warp's half-word h
+        const int64_t j0 = (wbyte + 2 * h) * 8;
+        if (j0 >= bits) break;
+        const uint64_t lo = spread(wb[2 * h]);
+        const uint64_t hi = spread(wb[2 * h + 1]);
+        if (j0 + 16 <= bits) {
+            *reinterpret_cast<uint4*>(o + j0) = make_uint4(
+                (uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi,
+                (uint32_t)(hi >> 32));
+        } else {
+            for (int t = 0; j0 + t < bits; ++t)
+                o[j0 + t] = (uint8_t)((t < 8 ? lo >> (8 * t)
+                                             : hi >> (8 * (t - 8))) & 1);
+        }
+    }
 }
 
 }  // namespace
@@ -336,12 +410,20 @@ int rtpu_window_masks(int64_t k, int64_t n, int64_t m, int64_t tbytes,
     return (int)cudaSuccess;
 }
 
-int rtpu_unpack_mask_bits(int64_t rows, int64_t nbytes, const void* packed,
-                          void* out, void* stream) {
+// K8u. vbits = k*n vertex and ebits = k*m edge mask bits | packed: the
+// View's bits (view_offsets), 16-byte aligned, on the card; out: bool, the
+// vertex masks from byte 0 and the edge masks from view_offsets' e_out,
+// 16-byte aligned, on the card. One launch.
+int rtpu_unpack_view_masks(int64_t vbits, int64_t ebits, const void* packed,
+                           void* out, void* stream) {
+    if (vbits < 0 || ebits < 0) return (int)cudaErrorInvalidValue;
+    const int64_t vb = ceil_div(ceil_div(vbits, 8), kBitsBlock);
+    const int64_t eb = ceil_div(ceil_div(ebits, 8), kBitsBlock);
+    if (vb + eb == 0) return (int)cudaGetLastError();
+    if (vb + eb > 0x7fffffff) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t total = rows * nbytes * 8;
-    unpack_bits_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-        total, static_cast<const uint8_t*>(packed),
+    unpack_view_kernel<<<vb + eb, kThreads, 0, s>>>(
+        vbits, ebits, vb, static_cast<const uint8_t*>(packed),
         static_cast<uint8_t*>(out));
     return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@ tensors (``engine/program.py``), so launches per superstep do not grow
 with k. Halted windows freeze.
 
 Two callers: ``run``/``run_async`` over a host ``GraphView`` (the cold
-route: masks built on the host, shipped bit-packed, unpacked on the card
-by K8u) and the resident sweep (``engine/device_sweep.py``), which makes
+route: masks built on the host, both bit-packed into one pinned buffer,
+shipped in one non-blocking copy and unpacked on the card by one K8u
+launch) and the resident sweep (``engine/device_sweep.py``), which makes
 its masks on the card (K9b) and calls ``make_mask_runner`` directly.
 
 The cold route takes the destination-binned (PCPM) exchange where
@@ -39,12 +40,14 @@ its int64 state moves through the int64 instantiations of K7 / K7-P.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..core.snapshot import INT64_MIN, GraphView, _indptr
 from ..ops import partition as _partition
-from ..ops.resident import unpack_mask_bits
+from ..ops.resident import pack_view_masks, unpack_view_masks, upload
 from ..ops.segment import (PartitionWalk, SegmentCSR, partition_reduce,
                            segment_combine)
 from ..utils.device import resolve_device
@@ -249,6 +252,31 @@ def _gather_props(view: GraphView, keys, kind: str, device) -> dict:
             .to(device) for name in keys}
 
 
+#: the cold route's dispatch seconds by stage (``mask_build``, ``pack``,
+#: ``mask_upload_unpack``, ``view_edges``, ``props``, ``layout``,
+#: ``supersteps``), summed over ``run_async`` calls while it is a dict;
+#: each stage then closes with a device sync. None: no clock, no syncs.
+STAGE_SECONDS: dict | None = None
+
+
+def _stage_clock(device):
+    """``mark(stage)``: adds the seconds since the previous mark (the
+    first: since this call) to ``STAGE_SECONDS[stage]``, after a device
+    sync; a no-op while ``STAGE_SECONDS`` is None."""
+    split = STAGE_SECONDS
+    if split is None:
+        return lambda stage: None
+    last = [time.perf_counter()]
+
+    def mark(stage):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        split[stage] = split.get(stage, 0.0) + now - last[0]
+        last[0] = now
+    return mark
+
+
 def run_async(program: VertexProgram, view: GraphView, *,
               window: int | None = None, windows=None, device=None):
     """Run a vertex program against a host view on ``device`` (None: the
@@ -271,6 +299,7 @@ def run_async(program: VertexProgram, view: GraphView, *,
         windows = [window if window is not None else -1]
     wlist = normalize_windows(windows)
     k = len(wlist)
+    mark = _stage_clock(device)
 
     # an occurrence program's edges are the edge-add events of the edges
     # alive at T, each with its own time (``getOutgoingNeighborsAfter``,
@@ -295,19 +324,33 @@ def run_async(program: VertexProgram, view: GraphView, *,
             v_masks[i] = view.v_mask
             e_masks[i] = e_base_mask
         else:
-            vm, _ = view.window_masks([w])
-            v_masks[i] = vm[0]
+            # the vertex half of ``view.window_masks([w])``, its int64 bound
+            lo = (view.time - np.asarray([w], np.int64))[0]
+            v_masks[i] = view.v_mask & (view.v_latest_time >= lo)
             e_masks[i] = e_base_mask & (e_latest >= view.time - w)
-
-    def ship_bits(a):
-        # bit-packed over the link, unpacked on the device (K8u)
-        packed = np.packbits(a, axis=1, bitorder="little")
-        return unpack_mask_bits(torch.from_numpy(packed).to(device))
+    mark("mask_build")
+    # both masks bit-packed into one buffer (pinned for a card), one
+    # non-blocking copy, one K8u launch
+    packed = pack_view_masks(v_masks, e_masks, pin=device.type == "cuda")
+    mark("pack")
+    v_dev, e_dev = unpack_view_masks(upload(packed, device), k, n_pad,
+                                     m_pad)
+    mark("mask_upload_unpack")
+    edges = view_edges(view, device, occ)
+    mark("view_edges")
 
     def put(a, needed):
         return torch.from_numpy(a).to(device) if needed else None
 
     needs_vt, needs_et = program.needs_vertex_times, program.needs_edge_times
+    tables = (put(view.vids, program.needs_vids),
+              put(view.v_latest_time, needs_vt),
+              put(view.v_first_time, needs_vt),
+              put(e_latest, needs_et), put(e_first, needs_et),
+              _gather_props(view, program.edge_props, "occ" if occ else "e",
+                            device),
+              _gather_props(view, program.vertex_props, "v", device))
+    mark("props")
     # the layout only where the binned exchange can engage: a custom
     # exchange or an in-only program never takes the destination combine.
     # The port is no TPU backend, so sum programs bin too (the reference's
@@ -319,17 +362,13 @@ def run_async(program: VertexProgram, view: GraphView, *,
     if layout is not None:
         be = layout.device_edges(device)
         walk = PartitionWalk(be.in_indptr, be.in_order, be.perm, be.valid)
+    mark("layout")
     runner = make_mask_runner(program, n_pad, m_pad, k, walk)
-    result, steps = runner(
-        ship_bits(v_masks), ship_bits(e_masks),
-        put(view.vids, program.needs_vids),
-        put(view.v_latest_time, needs_vt), put(view.v_first_time, needs_vt),
-        view_edges(view, device, occ),
-        put(e_latest, needs_et), put(e_first, needs_et),
-        int(view.time), wlist,
-        _gather_props(view, program.edge_props, "occ" if occ else "e",
-                      device),
-        _gather_props(view, program.vertex_props, "v", device))
+    vids, v_latest, v_first, e_lat, e_fst, eprops, vprops = tables
+    result, steps = runner(v_dev, e_dev, vids, v_latest, v_first, edges,
+                           e_lat, e_fst, int(view.time), wlist, eprops,
+                           vprops)
+    mark("supersteps")
     if not batched:
         result = tree_map(lambda a: a[0], result)
     return result, steps

@@ -56,6 +56,7 @@ from ..core.sweep import SweepBuilder
 from ..ops import columns, minplus
 from ..ops import partition as _partition
 from ..ops.partition import BinnedEdges
+from ..ops.resident import Staged, pack, ship, stage
 from ..utils.device import resolve_device
 from .device_sweep import (DeviceEdges, GlobalTables, _device_edges,
                            normalize_windows)
@@ -349,17 +350,29 @@ def _host_edges(tables, dev):
                          for f in DeviceEdges._fields))
 
 
+def _ship_columns(cols, dev) -> tuple:
+    """Host fold columns on ``dev`` in ONE non-blocking copy
+    (``ops/resident.ship``): a ``Staged`` tuple, as ``_fold_columns``
+    builds it, ships its buffer; plain numpy arrays are packed into a new
+    one first (pinned for a card). Tensors pass through."""
+    if isinstance(cols, Staged):
+        return ship(cols, dev)
+    if any(isinstance(a, torch.Tensor) for a in cols):
+        return tuple(_put(a, dev) for a in cols)
+    return ship(pack(cols, pin=torch.device(dev).type == "cuda"), dev)
+
+
 def _dispatch_columns(tables, cols, hop_times, windows, dev, layout=None):
-    """Upload the host fold columns ``cols = (e_lat, e_alive, v_lat,
-    v_alive)`` (hop-major ``[H, m_pad]`` / ``[H, n_pad]``) and build the
-    window masks on the device: K3, or KB1 with a ``layout`` (the edge
-    masks emitted binned, ``[B, C]``). The column bounds stay on the host:
-    the kernels take them by value. Returns ``(H, W, me, mv [n_pad,
-    C])``."""
+    """Ship the host fold columns ``cols = (e_lat, e_alive, v_lat,
+    v_alive)`` (hop-major ``[H, m_pad]`` / ``[H, n_pad]``) in one copy
+    (``_ship_columns``; device tensors pass through) and build the window
+    masks on the device: K3, or KB1 with a ``layout`` (the edge masks
+    emitted binned, ``[B, C]``). The column bounds stay on the host: the
+    kernels take them by value. Returns ``(H, W, me, mv [n_pad, C])``."""
     H, C, hop_of_col, T_col, w_col = _column_layout(hop_times, windows)
     tdt = tables.tdtype
     info = np.iinfo(tdt)
-    args = (*(_put(a, dev) for a in cols), hop_of_col,
+    args = (*_ship_columns(cols, dev), hop_of_col,
             np.clip(T_col - w_col, info.min, info.max).astype(tdt),
             w_col < 0)
     if layout is None:
@@ -432,12 +445,16 @@ def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     H]``, as the reference's ``ew[perm]``). Returns ``(distances [H*W,
     n_pad], steps)``."""
     dev = resolve_device(device)
-    _, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev, layout)
+    # the weight columns ride the fold columns' one copy
+    cols = _ship_columns((e_lat, e_alive, v_lat, v_alive)
+                         + (() if weight_cols is None else (weight_cols,)),
+                         dev)
+    _, W, me, mv = _dispatch_columns(tables, cols[:4], hop_times, windows,
+                                     dev, layout)
     edges = _column_edges(tables, dev, edges, layout)
     ew = None
     if weight_cols is not None:
-        ew = _put(weight_cols, dev).t()
+        ew = cols[4].t()
         if layout is not None:
             ew = ew[edges.perm.long()]
         ew = ew.contiguous()
@@ -824,12 +841,23 @@ class _HopBatched:
         bv_alive[:nv] = sw.v_alive
         return (be_lat, be_alive, bv_lat, bv_alive)
 
+    def _column_specs(self, H: int) -> list:
+        """``(shape, dtype)`` of each host fold column of an ``H``-hop
+        dispatch: e_lat, e_alive, v_lat, v_alive."""
+        t = self.tables
+        return [((H, size), dt) for size, dt in (
+            (t.m_pad, t.tdtype), (t.m_pad, bool), (t.n_pad, t.tdtype),
+            (t.n_pad, bool))]
+
     def _fold_columns(self, hop_times, hop_callback=None):
         """Host-column fold: hop-major state columns ``[H, m_pad]`` /
         ``[H, n_pad]`` (lat, alive) — hop 0 writes the full fold state,
         every later hop copies the previous row (contiguous in this layout)
         and scatters the hop's touched-entity delta (``sweep.last_delta``).
-        The device builds the masks from them (K3)."""
+        The device builds the masks from them (K3). Returns the columns
+        (and any further ones of ``_column_specs``, left for the subclass
+        to fill) as one ``Staged`` buffer, pinned when the engine's device
+        is the card: the dispatch ships them in one non-blocking copy."""
         f0 = _time.perf_counter()
         # this route advances the shared SweepBuilder WITHOUT updating the
         # running delta base, and the device-resident advanced base falls
@@ -843,10 +871,9 @@ class _HopBatched:
         H = len(hop_times)
         # every row is written whole: row 0 from the fold state, the rest
         # copied from the row before
-        e_lat, e_alive, v_lat, v_alive = cols = tuple(
-            np.empty((H, size), dt) for size, dt in (
-                (t.m_pad, t.tdtype), (t.m_pad, bool), (t.n_pad, t.tdtype),
-                (t.n_pad, bool)))
+        staged = stage(self._column_specs(H),
+                       pin=self.device.type == "cuda")
+        e_lat, e_alive, v_lat, v_alive = cols = staged[:4]
         for j, T in enumerate(hop_times):
             self.sw._advance(T)
             if hop_callback is not None:
@@ -865,7 +892,7 @@ class _HopBatched:
         self.fold_seconds += _time.perf_counter() - f0
         self.ship_bytes += (e_lat.nbytes + e_alive.nbytes + v_lat.nbytes
                             + v_alive.nbytes)
-        return hop_times, (e_lat, e_alive, v_lat, v_alive)
+        return hop_times, staged
 
     def _delta_eng(self, d):
         """``sweep.last_delta`` → engine-coordinate (pos, lat, alive)
@@ -947,9 +974,10 @@ class HopBatchedPageRank(_HopBatched):
 
     def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
         return run_columns(
-            self.tables, *cols, hop_times, windows, damping=self.damping,
-            tol=self.tol, max_steps=self.max_steps, edges=self._edges,
-            r_init=r_init, device=self.device, layout=self._active_layout)
+            self.tables, *_ship_columns(cols, self.device), hop_times,
+            windows, damping=self.damping, tol=self.tol,
+            max_steps=self.max_steps, edges=self._edges, r_init=r_init,
+            device=self.device, layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         base, deltas_e, deltas_v = payload
@@ -997,9 +1025,9 @@ class HopBatchedBFS(_HopBatched):
     def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
         # r_init is never set here: no warm start on the host-column route
         return run_bfs_columns(
-            self.tables, *cols, hop_times, windows, self.seeds,
-            directed=self.directed, max_steps=self.max_steps,
-            edges=self._edges, device=self.device,
+            self.tables, *_ship_columns(cols, self.device), hop_times,
+            windows, self.seeds, directed=self.directed,
+            max_steps=self.max_steps, edges=self._edges, device=self.device,
             layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
@@ -1082,11 +1110,15 @@ class HopBatchedSSSP(HopBatchedBFS):
             self._w_pos = t.eng_pos(enc)[order]
         self._w_cursor = 0
 
-    def _weight_cols(self, hop_times):
-        """The host-column route's ``[H, m_pad]`` f32 weight columns: row j
-        is the running per-pair weight state at ``hop_times[j]``."""
-        H = len(hop_times)
-        cols = np.empty((H, self.tables.m_pad), np.float32)
+    def _column_specs(self, H: int) -> list:
+        # the weight columns join the fold columns' staging buffer
+        return super()._column_specs(H) + [((H, self.tables.m_pad),
+                                            np.float32)]
+
+    def _weight_cols(self, hop_times, cols):
+        """Fill ``cols``, the host-column route's ``[H, m_pad]`` f32 weight
+        columns: row j is the running per-pair weight state at
+        ``hop_times[j]``."""
         for j, T in enumerate(hop_times):
             hi = int(np.searchsorted(self._w_t, T, side="right"))
             if hi > self._w_cursor:
@@ -1095,13 +1127,12 @@ class HopBatchedSSSP(HopBatchedBFS):
                     self._w_val[self._w_cursor:hi]
                 self._w_cursor = hi
             cols[j] = self._w_state
-        return cols
 
     def _fold_columns(self, hop_times, hop_callback=None):
         hop_times, cols = super()._fold_columns(hop_times, hop_callback)
-        wcols = self._weight_cols(hop_times)
-        self.ship_bytes += wcols.nbytes
-        return hop_times, (*cols, wcols)
+        self._weight_cols(hop_times, cols[4])
+        self.ship_bytes += cols[4].nbytes
+        return hop_times, cols
 
     def _weight_deltas(self, hop_times, resident: bool = False):
         """Per-hop ``(pos, val)`` weight updates plus the running state at
@@ -1141,7 +1172,8 @@ class HopBatchedSSSP(HopBatchedBFS):
                                                 resident=payload[0] is None))
 
     def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
-        *cols, wcols = cols
+        # the weight columns ride the fold columns' one copy
+        *cols, wcols = _ship_columns(cols, self.device)
         return run_bfs_columns(
             self.tables, *cols, hop_times, windows, self.seeds,
             directed=self.directed, max_steps=self.max_steps,
@@ -1176,9 +1208,9 @@ class HopBatchedCC(_HopBatched):
     def _dispatch_cols(self, cols, hop_times, windows, r_init=None):
         # r_init is never set here: no warm start on the host-column route
         return run_cc_columns(
-            self.tables, *cols, hop_times, windows, max_steps=self.max_steps,
-            edges=self._edges, device=self.device,
-            layout=self._active_layout)
+            self.tables, *_ship_columns(cols, self.device), hop_times,
+            windows, max_steps=self.max_steps, edges=self._edges,
+            device=self.device, layout=self._active_layout)
 
     def _dispatch_deltas(self, payload, hop_times, windows, r_init=None):
         # r_init is the cross-epoch warm seed (min-merged labels);

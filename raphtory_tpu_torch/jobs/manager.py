@@ -57,6 +57,7 @@ from ..engine.device_sweep import DeviceSweep, IdSpaceError, supported
 from ..engine.hopbatch import (HopBatchedBFS, HopBatchedCC,
                                HopBatchedPageRank, HopBatchedSSSP)
 from ..engine.program import VertexProgram
+from ..ops.resident import ship
 from ..parallel.sweep import _Shell
 from ..utils.device import resolve_device
 
@@ -464,9 +465,12 @@ class Job:
         t0 = _time.perf_counter()
         _, cols = hb._fold_columns(hops, grab_shell)
         if isinstance(hb, HopBatchedSSSP):
-            *cols, kw["weight_cols"] = cols
-        ranks, steps = run_columns_sharded(hb.tables, *cols, hops, windows,
-                                           self.mesh, **kw)
+            # the weights stay on the host: a rank ships only its hops' rows
+            kw["weight_cols"] = cols[4]
+        # the four fold columns in one copy of the bytes they span
+        ranks, steps = run_columns_sharded(
+            hb.tables, *ship(cols, self.mesh.device, 4), hops, windows,
+            self.mesh, **kw)
         self._emit_columnar(hops, windows, ranks.cpu().numpy(), shells,
                             steps, _time.perf_counter() - t0)
         return True

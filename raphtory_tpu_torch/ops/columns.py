@@ -71,7 +71,7 @@ _LIBS = {
     "features": ("features.cu", ("rtpu_feature_propagate",
                                  "rtpu_feature_propagate_binned")),
     "sweep": ("sweep.cu", ("rtpu_apply_delta_chunk", "rtpu_window_masks",
-                           "rtpu_unpack_mask_bits")),
+                           "rtpu_unpack_view_masks")),
     "exchange": ("exchange.cu", ("rtpu_halo_pack", "rtpu_frontier_compact",
                                  "rtpu_frontier_pad",
                                  "rtpu_frontier_merge_min")),
@@ -124,8 +124,8 @@ _ARGTYPES = {
     "rtpu_window_masks": 4 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)] + 3 * [ctypes.c_void_p]
     + [ctypes.POINTER(ctypes.c_int64)],
-    # rows, nbytes | packed, out, stream
-    "rtpu_unpack_mask_bits": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
+    # vbits, ebits | packed, out, stream
+    "rtpu_unpack_view_masks": 2 * [ctypes.c_int64] + 3 * [ctypes.c_void_p],
     # B, m, n, H, C | e_lat, e_alive, v_lat, v_alive | bounds (host, 3C
     # int64) | perm, valid, me, mv, stream | launched
     "rtpu_bin_column_masks_i32": 5 * [ctypes.c_int64] + 4 * [ctypes.c_void_p]

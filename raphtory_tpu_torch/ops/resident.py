@@ -15,8 +15,17 @@ of the cold route's bit-packed masks.
   narrow time dtype. The card branch passes the bounds by value (a host
   array the C entry copies into a kernel parameter, 32 windows a launch):
   no device tensor, no copy, no stream sync.
-* **K8u** ``unpack_mask_bits`` (``raphtory_tpu/engine/bsp.py:39``
-  ``_unpack_bits``): little-bit-order ``u8[k, n/8]`` to ``bool[k, n]``.
+* **K8u** ``unpack_view_masks`` (``raphtory_tpu/engine/bsp.py:39``
+  ``_unpack_bits``, as the cold route calls it at ``:377-378``): a View's
+  vertex and edge masks, bit-packed in little bit order into ONE byte
+  buffer (``pack_view_masks``: pinned for a card, shipped in one
+  non-blocking copy), unpacked by one launch into one allocation.
+
+Host staging (``stage``, ``pack``, ``ship``): host arrays laid out at
+16-byte offsets in one byte buffer, pinned when it is bound for a card,
+and shipped in one non-blocking copy — K9a's delta chunks, the K8u masks'
+bits and the host-column route's fold columns
+(``engine/hopbatch._fold_columns``).
 
 Same three parts as ``ops/columns.py``, whose build and launch plumbing
 they share: wrappers that route by device (CPU tensors take the twin, CUDA
@@ -41,6 +50,77 @@ _NUMPY = {torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_}
 _LIMITS = {t: (torch.iinfo(t).min, torch.iinfo(t).max) for t in _TIME_DTYPES}
 
 
+# ------------------------------------------------------- host staging
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def offsets16(sizes):
+    """``(offsets, nbytes)`` of byte regions of the given ``sizes`` laid
+    end to end, each starting at a multiple of 16 bytes."""
+    offs, off = [], 0
+    for size in sizes:
+        offs.append(off)
+        off += _align16(size)
+    return tuple(offs), off
+
+
+class Staged(tuple):
+    """Host numpy arrays, views of ONE byte tensor ``data`` at 16-byte
+    ``offsets`` (``stage``; pinned when it is bound for a card): a tuple
+    of the arrays that carries the buffer they lie in, for ``ship``."""
+
+    def __new__(cls, data: torch.Tensor, arrays, offsets):
+        self = super().__new__(cls, arrays)
+        self.data, self.offsets = data, tuple(offsets)
+        return self
+
+
+def stage(specs, pin: bool) -> Staged:
+    """Empty numpy arrays of the given ``(shape, dtype)`` specs, views of
+    one byte tensor at 16-byte offsets (``offsets16``), in pinned memory
+    with ``pin`` (a card's uploads: one non-blocking copy; pinning fails
+    loudly where no card is)."""
+    specs = [(tuple(shape), np.dtype(dt)) for shape, dt in specs]
+    sizes = [int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+             for shape, dt in specs]
+    offs, total = offsets16(sizes)
+    data = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+    raw = data.numpy()
+    return Staged(data, (raw[off: off + size].view(dt).reshape(shape)
+                         for (shape, dt), off, size in zip(specs, offs,
+                                                           sizes)), offs)
+
+
+def pack(arrays, pin: bool) -> Staged:
+    """Copies of host ``arrays`` in one staging buffer (``stage``)."""
+    staged = stage([(a.shape, a.dtype) for a in arrays], pin)
+    for dst, a in zip(staged, arrays):
+        dst[...] = a
+    return staged
+
+
+def upload(data: torch.Tensor, dev) -> torch.Tensor:
+    """The one copy of a staging buffer to ``dev`` (non-blocking from
+    pinned memory; the caching host allocator keeps the block until the
+    copy is done)."""
+    return data.to(dev, non_blocking=True)
+
+
+def ship(staged: Staged, dev, count: int | None = None) -> tuple:
+    """The first ``count`` arrays of ``staged`` (all by default) on
+    ``dev`` in ONE copy of the bytes they span: the arrays after them stay
+    on the host. Returns the device tensors, views of that copy, in
+    order."""
+    count = len(staged) if count is None else count
+    end = staged.offsets[count - 1] + staged[count - 1].nbytes if count else 0
+    data = upload(staged.data[:end], torch.device(dev))
+    return tuple(
+        data[off: off + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+        .view(a.shape) for a, off in zip(staged[:count], staged.offsets))
+
+
 # ---------------------------------------------------------------- K9a
 
 #: a chunk's eight arrays, in their packed order: (name, dtype; None = the
@@ -51,22 +131,14 @@ _FIELDS = (("v_idx", torch.int32, 0), ("vd_lat", None, 0),
            ("ed_alive", torch.bool, 1), ("ed_first", None, 1))
 
 
-def _align16(nbytes: int) -> int:
-    return -(-nbytes // 16) * 16
-
-
 @functools.lru_cache(maxsize=64)
 def chunk_offsets(cap_v: int, cap_e: int, tdtype: torch.dtype):
     """``(offsets, nbytes)`` of a packed chunk: each of the eight arrays
     (``_FIELDS``, ``cap_v`` or ``cap_e`` rows) starts at a multiple of 16
     bytes, in order — ``chunk_offset`` in ``csrc/sweep.cu`` is the same
     rule."""
-    offs, off = [], 0
-    for _, dt, side in _FIELDS:
-        offs.append(off)
-        off += _align16((cap_e if side else cap_v)
-                        * (dt or tdtype).itemsize)
-    return tuple(offs), off
+    return offsets16((cap_e if side else cap_v) * (dt or tdtype).itemsize
+                     for _, dt, side in _FIELDS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -113,18 +185,16 @@ def pack_chunk(arrays, cap_v: int, cap_e: int, tdtype: torch.dtype,
     if tdtype not in _TIME_DTYPES:
         raise TypeError(f"pack_chunk: time dtype {tdtype}, want int32 or "
                         "int64")
-    data = torch.empty(chunk_offsets(cap_v, cap_e, tdtype)[1],
-                       dtype=torch.uint8, pin_memory=pin)
-    buf = data.numpy()
-    for (name, span, dt, pad), a in zip(_columns(cap_v, cap_e, tdtype),
-                                        arrays):
-        col = buf[span].view(_NUMPY[dt])
+    cols = _columns(cap_v, cap_e, tdtype)
+    staged = stage([(((span.stop - span.start) // dt.itemsize,), _NUMPY[dt])
+                    for _, span, dt, _ in cols], pin)
+    for (name, _, _, pad), col, a in zip(cols, staged, arrays):
         if len(a) > len(col):
             raise ValueError(f"pack_chunk: {name} has {len(a)} rows, more "
                              f"than its capacity {len(col)}")
         col[: len(a)] = a
         col[len(a):] = pad
-    return PackedChunk(data, cap_v, cap_e, tdtype)
+    return PackedChunk(staged.data, cap_v, cap_e, tdtype)
 
 
 def apply_delta_chunk_plain(bufs, chunk) -> None:
@@ -274,27 +344,74 @@ def window_masks(v_lat, v_alive, e_lat, e_alive, T: int, windows):
 
 # ---------------------------------------------------------------- K8u
 
-def unpack_mask_bits_plain(packed):
-    """Twin of ``rtpu_unpack_mask_bits``: ``u8[k, b]`` → ``bool[k, 8b]``,
-    bit j of byte i is column ``8i + j``."""
-    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
-    bits = (packed[:, :, None] >> shifts) & 1
-    return bits.reshape(packed.shape[0], -1).to(torch.bool)
+@functools.lru_cache(maxsize=64)
+def view_mask_layout(k: int, n: int, m: int):
+    """``(e_in, packed_bytes, e_out, out_bytes)`` of a View's K8u buffers:
+    the packed bits (the k*n vertex bits flat from byte 0, the k*m edge
+    bits from ``e_in``, each region at a multiple of 16 bytes) and the bool
+    output (vertex masks from byte 0, edge masks from ``e_out``) —
+    ``view_offsets`` in ``csrc/sweep.cu`` is the same rule."""
+    (_, e_in), packed_bytes = offsets16((-(-k * n // 8), -(-k * m // 8)))
+    e_out = _align16(k * n)
+    return e_in, packed_bytes, e_out, e_out + k * m
 
 
-def unpack_mask_bits(packed):
-    """K8u wrapper (``raphtory_tpu/engine/bsp.py:39`` ``_unpack_bits``)."""
+def pack_view_masks(v_masks: np.ndarray, e_masks: np.ndarray,
+                    pin: bool = False) -> torch.Tensor:
+    """A View's bool masks ``[k, n]`` and ``[k, m]`` as K8u's one packed
+    byte buffer (``view_mask_layout``), each region's bits flat in little
+    bit order; in pinned memory with ``pin``."""
+    staged = stage([((-(-a.size // 8),), np.uint8)
+                    for a in (v_masks, e_masks)], pin)
+    for bits, a in zip(staged, (v_masks, e_masks)):
+        bits[:] = np.packbits(a.reshape(-1), bitorder="little")
+    return staged.data
+
+
+def _view_masks_out(k: int, n: int, m: int, device):
+    """One bool allocation and its two mask views, the edge rows at
+    ``view_mask_layout``'s ``e_out``."""
+    _, _, e_out, total = view_mask_layout(k, n, m)
+    buf = torch.empty(total, dtype=torch.bool, device=device)
+    return buf, buf.as_strided((k, n), (n, 1)), buf.as_strided(
+        (k, m), (m, 1), e_out)
+
+
+def _unpack_flat(bits: torch.Tensor, count: int) -> torch.Tensor:
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits[:, None] >> shifts) & 1).reshape(-1)[:count].to(torch.bool)
+
+
+def unpack_view_masks_plain(packed, k: int, n: int, m: int):
+    """Twin of ``rtpu_unpack_view_masks``: ``(bool[k, n], bool[k, m])``
+    from the packed buffer, views of one allocation as the kernel's."""
+    e_in, _, _, _ = view_mask_layout(k, n, m)
+    _, v, e = _view_masks_out(k, n, m, packed.device)
+    v.view(-1).copy_(_unpack_flat(packed[: -(-k * n // 8)], k * n))
+    e.view(-1).copy_(_unpack_flat(packed[e_in: e_in + -(-k * m // 8)],
+                                  k * m))
+    return v, e
+
+
+def unpack_view_masks(packed, k: int, n: int, m: int):
+    """K8u wrapper (``raphtory_tpu/engine/bsp.py:39`` ``_unpack_bits``): a
+    View's ``k`` windows' vertex masks ``[k, n]`` and edge masks ``[k, m]``
+    from ``pack_view_masks``' buffer, both contiguous bool views of one
+    allocation (the edge view 16-byte aligned). On the card one launch,
+    counted under ``unpack_mask_bits``."""
     name = "unpack_mask_bits"
-    if packed.dim() != 2:
-        raise ValueError(f"{name}: packed has shape {tuple(packed.shape)}, "
-                         "want [k, bytes]")
-    rows, nbytes = packed.shape
-    _expect(name, packed, "packed", (torch.uint8,), (rows, nbytes))
+    k, n, m = int(k), int(n), int(m)
+    if min(k, n, m) < 0:
+        raise ValueError(f"{name}: k={k}, n={n}, m={m}")
+    _expect(name, packed, "packed", (torch.uint8,),
+            (view_mask_layout(k, n, m)[1],))
     if not _on_cuda(name, packed):
-        return unpack_mask_bits_plain(packed)
-    out = torch.empty((rows, nbytes * 8), dtype=torch.bool,
-                      device=packed.device)
-    err = _fn("sweep", "rtpu_unpack_mask_bits")(
-        rows, nbytes, packed.data_ptr(), out.data_ptr(), _stream(packed))
+        return unpack_view_masks_plain(packed, k, n, m)
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed bits are not 16-byte aligned")
+    buf, v, e = _view_masks_out(k, n, m, packed.device)
+    # the allocation's own address: an empty view's data_ptr() is 0
+    err = _fn("sweep", "rtpu_unpack_view_masks")(
+        k * n, k * m, packed.data_ptr(), buf.data_ptr(), _stream(packed))
     _launch(name, err)
-    return out
+    return v, e

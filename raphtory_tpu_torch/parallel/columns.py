@@ -22,7 +22,7 @@ import torch
 
 from ..engine.hopbatch import (_bfs_columns, _cc_columns, _column_layout,
                                _host_edges, _pagerank_columns, _pr_args,
-                               _put, _seed_mask)
+                               _put, _seed_mask, _ship_columns)
 from ..ops import columns as _columns
 
 
@@ -34,8 +34,11 @@ def run_columns_sharded(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     """Columnar sweep with the (hop, window) axis sharded over the ranks of
     ``mesh`` (every rank calls it with the same arguments). ``kind``:
     ``"pagerank"`` | ``"cc"`` | ``"bfs"`` (``seeds``/``directed`` apply;
-    ``weight_cols`` ``[H, m_pad]`` f32 makes it weighted SSSP). The fold
-    columns are the host-column route's ``[H, m_pad]`` / ``[H, n_pad]``.
+    ``weight_cols`` ``[H, m_pad]`` f32 on the host makes it weighted SSSP:
+    a rank uploads its hops' rows). The fold columns are the host-column
+    route's ``[H, m_pad]`` / ``[H, n_pad]``: device tensors (the callers
+    ship ``_fold_columns``' buffer, ``ops/resident.ship``) or host arrays,
+    packed into one copy.
     Returns ``(result [C, n_pad] hop-major on the rank's device, steps)``:
     the values of the single-device runners, ``steps`` the maximum over
     the ranks' blocks."""
@@ -62,11 +65,12 @@ def run_columns_sharded(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     elif kind not in ("pagerank", "cc"):
         raise ValueError(f"unknown columnar kind {kind!r}")
 
-    repl_arrays = [tables.e_src, tables.e_dst, e_lat, e_alive, v_lat,
-                   v_alive, *extra_host]
-    repl_bytes = int(sum(np.asarray(a).nbytes for a in repl_arrays))
-    repl_rows = int(sum(np.asarray(a).shape[-1] if np.asarray(a).ndim
-                        else 1 for a in repl_arrays))
+    # the fold columns may arrive on the device (shipped in one copy)
+    repl_arrays = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                   for a in (tables.e_src, tables.e_dst, e_lat, e_alive,
+                             v_lat, v_alive, *extra_host)]
+    repl_bytes = int(sum(a.nbytes for a in repl_arrays))
+    repl_rows = int(sum(a.shape[-1] if a.ndim else 1 for a in repl_arrays))
     COLLECTIVES.note_route_decision({
         "algorithm": f"columns.{kind}", "route": "replicate",
         "requested": "replicate",
@@ -77,7 +81,7 @@ def run_columns_sharded(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     info = np.iinfo(tables.tdtype)
     lo = np.clip(T_col - w_col, info.min, info.max).astype(tables.tdtype)
     me, mv = _columns.column_masks(
-        *(_put(a, dev) for a in (e_lat, e_alive, v_lat, v_alive)),
+        *_ship_columns((e_lat, e_alive, v_lat, v_alive), dev),
         hop_of_col[mine], lo[mine], w_col[mine] < 0)
     edges = _host_edges(tables, dev)
     if kind == "pagerank":

@@ -986,3 +986,89 @@ def test_k2_wrappers_check_a_changed_signature_again(monkeypatch):
     assert columns.LAUNCHES["pagerank_update"] == 3
     assert columns.LAUNCHES["column_out_degree"] == 2
     columns.reset_launches()
+
+
+# --------------------------- the host-column route's one staging buffer
+
+def _fold_engines(kind, jlog):
+    from raphtory_tpu_torch.interop import numeric_prop_payloads
+
+    log = event_log_from_arrays(jlog.arrays(),
+                                props=numeric_prop_payloads(jlog.props))
+    seeds = (1, 2, 3)
+    if kind == "pagerank":
+        return (jhb.HopBatchedPageRank(jlog, max_steps=20),
+                thb.HopBatchedPageRank(log, max_steps=20, device="cpu"))
+    if kind == "cc":
+        return (jhb.HopBatchedCC(jlog, max_steps=40),
+                thb.HopBatchedCC(log, max_steps=40, device="cpu"))
+    if kind == "bfs":
+        return (jhb.HopBatchedBFS(jlog, seeds, max_steps=40),
+                thb.HopBatchedBFS(log, seeds, max_steps=40, device="cpu"))
+    return (jhb.HopBatchedSSSP(jlog, seeds, "w", max_steps=40),
+            thb.HopBatchedSSSP(log, seeds, "w", max_steps=40, device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["pagerank", "cc", "bfs", "sssp"])
+def test_fold_columns_are_views_of_one_staging_buffer(kind, monkeypatch):
+    """``_fold_columns`` writes the host fold columns (and SSSP's weight
+    columns) as views of ONE staging buffer, each at a 16-byte offset
+    (plain memory for the CPU), bitwise the JAX package's separate arrays
+    over two forward batches; the dispatch ships the whole buffer in one
+    upload, with ``ship_bytes`` unchanged."""
+    from raphtory_tpu_torch.ops import resident
+
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    jlog = random_log(np.random.default_rng(21), n_events=700, n_ids=40,
+                      t_span=100, props=True)
+    j, t = _fold_engines(kind, jlog)
+    uploads = []
+    upload = resident.upload
+    monkeypatch.setattr(resident, "upload", lambda data, dev: uploads.append(
+        data) or upload(data, dev))
+    for hops in ([20, 35, 50], [60, 99]):
+        _, want = j._fold_columns(hops)
+        _, got = t._fold_columns(hops)
+        assert isinstance(got, resident.Staged)
+        assert len(got) == len(want) == (5 if kind == "sssp" else 4)
+        assert not got.data.is_pinned()
+        offs, nbytes = resident.offsets16(a.nbytes for a in got)
+        base = got.data.numpy().ctypes.data
+        assert got.data.numel() == nbytes and got.offsets == offs
+        for g, w, off in zip(got, want, offs):
+            assert g.ctypes.data - base == off and g.shape == w.shape
+            assert g.dtype == np.asarray(w).dtype
+            np.testing.assert_array_equal(g, np.asarray(w))
+        assert t.ship_bytes == j.ship_bytes
+        before = len(uploads)
+        t._active_layout = None
+        t._dispatch_cols(got, hops, [30, None])
+        assert len(uploads) == before + 1
+        assert uploads[-1].data_ptr() == got.data.data_ptr()
+        assert uploads[-1].numel() == offs[-1] + got[-1].nbytes
+
+
+@pytest.mark.parametrize("count", [0, 1, 3, 4, 5])
+def test_ship_uploads_the_span_of_the_arrays_it_ships(count, monkeypatch):
+    """``resident.ship(staged, dev, count)`` uploads ONE copy of the bytes
+    that the first ``count`` arrays span, no byte past them, and hands back
+    views of it equal to the host arrays."""
+    from raphtory_tpu_torch.ops import resident
+
+    rng = np.random.default_rng(count)
+    host = (rng.integers(0, 99, (3, 37)).astype(np.int32),
+            rng.random((3, 37)) < 0.5,
+            rng.integers(0, 99, (3, 5)).astype(np.int64),
+            rng.random((3, 5)) < 0.5,
+            rng.random((3, 37)).astype(np.float32))
+    staged = resident.pack(host, pin=False)
+    upload, uploaded = resident.upload, []
+    monkeypatch.setattr(resident, "upload", lambda data, dev: uploaded.append(
+        data) or upload(data, dev))
+    got = resident.ship(staged, "cpu", count)
+    end = staged.offsets[count - 1] + host[count - 1].nbytes if count else 0
+    assert len(uploaded) == 1 and uploaded[0].numel() == end
+    assert len(got) == count
+    for g, a in zip(got, host):
+        assert g.dtype == torch.from_numpy(a).dtype and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), a)

@@ -162,3 +162,30 @@ def test_unknown_kind_raises():
         run_columns_sharded(hb.tables, *cols, HOPS, WINDOWS,
                             sharded.make_mesh(1, 1, device="cpu"),
                             kind="lpa")
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_columns_request_ships_the_fold_columns_in_one_copy(kind,
+                                                            monkeypatch):
+    """A columns request ships the four fold columns in ONE copy of the
+    bytes they span in ``_fold_columns``' staging buffer; SSSP's weight
+    columns, after them in that buffer, are not in it (a rank uploads only
+    its hops' rows). The result stays the single-device run's."""
+    from raphtory_tpu_torch.cluster import tasks
+    from raphtory_tpu_torch.ops import resident
+
+    log = port_log(jax_log(kind))
+    monkeypatch.setattr(tasks, "_mesh", lambda req: sharded.make_mesh(
+        1, 1, device="cpu"))
+    upload, uploaded = resident.upload, []
+    monkeypatch.setattr(resident, "upload", lambda data, dev: uploaded.append(
+        data.numel()) or upload(data, dev))
+    req = request(kind)
+    got = tasks._columns_req(req, {kind: log}, tasks._Clock())
+    _, cols = tasks._engine(req["kind"], log, dict(req["params"]),
+                            "cpu")._fold_columns(HOPS)
+    assert len(cols) == (5 if kind == "sssp" else 4)
+    assert uploaded == [cols.offsets[3] + cols[3].nbytes]
+    one, steps = single_device(kind, log)
+    np.testing.assert_array_equal(got["result"], one.numpy())
+    assert got["steps"] == steps

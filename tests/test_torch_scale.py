@@ -251,8 +251,12 @@ def test_column_masks_card_branch_checks_its_bounds(k3_card):
 @pytest.mark.parametrize("layout", [False, True])
 def test_dispatch_columns_uploads_only_the_fold_columns(layout,
                                                         monkeypatch):
-    """``_dispatch_columns`` puts the four fold columns on the device and
-    nothing else: the column bounds reach K3 / KB1 as host arrays."""
+    """``_dispatch_columns`` puts the four fold columns on the device in
+    ONE upload and nothing else: the bulk loader's plain numpy columns
+    packed into one staging buffer at 16-byte offsets, the column bounds
+    reaching K3 / KB1 as host arrays."""
+    from raphtory_tpu_torch.ops import resident
+
     src, dst, times = _stream(3)
     tbg, *cols = tbulk.bulk_hop_columns(src, dst, times, HOPS)
     lay = None
@@ -261,14 +265,20 @@ def test_dispatch_columns_uploads_only_the_fold_columns(layout,
 
         lay = partition.build_layout(tbg.e_src, tbg.e_dst, tbg.n_pad, tbg.m,
                                      3)
-    put = thb._put
-    uploaded = []
-    monkeypatch.setattr(thb, "_put", lambda a, dev: uploaded.append(a)
-                        or put(a, dev))
+    upload, uploaded = resident.upload, []
+    monkeypatch.setattr(resident, "upload", lambda data, dev: uploaded.append(
+        data) or upload(data, dev))
+    monkeypatch.setattr(thb, "_put", lambda a, dev: pytest.fail(
+        "a column uploaded on its own"))
     H, W, me, mv = thb._dispatch_columns(tbg, cols, HOPS, WINDOWS, "cpu",
                                          lay)
-    assert len(uploaded) == 4
-    assert all(u is c for u, c in zip(uploaded, cols))
+    assert len(uploaded) == 1
+    offs, _ = resident.offsets16(c.nbytes for c in cols)
+    assert uploaded[0].numel() == offs[-1] + cols[-1].nbytes
+    for c, off in zip(cols, offs):
+        np.testing.assert_array_equal(
+            uploaded[0][off: off + c.nbytes].numpy().view(c.dtype).reshape(
+                c.shape), c)
     want = _jax_masks(np.int32, cols, HOPS, WINDOWS)
     if lay is not None:
         want = (want[0][lay.perm] & lay.valid[:, None], want[1])

@@ -10,7 +10,10 @@ functions they replace, on the same numpy inputs:
   checked too, by a plain walk of it that does what the kernel does.
 * K9a against ``device_sweep._compiled_apply``, K9b against the mask half
   of ``_compiled_run`` and K8u against ``bsp._unpack_bits``: bitwise, with
-  int32 and int64 times and pad rows.
+  int32 and int64 times and pad rows. K8u's one-buffer pack and unpack
+  (``pack_view_masks`` / ``unpack_view_masks``) also through its card
+  branch, over a numpy model of the C entry (``card_branch``), alone and
+  on the cold route (``bsp.run_async``).
 """
 
 import jax.numpy as jnp
@@ -321,23 +324,291 @@ def test_window_bounds_clamp_into_the_narrow_dtype():
 
 # ---------------------------------------------------------------- K8u
 
+def _packed_view(rng, k, n, m):
+    """Random vertex / edge masks and K8u's one packed buffer of them."""
+    v, e = rng.random((k, n)) < 0.4, rng.random((k, m)) < 0.6
+    return v, e, resident.pack_view_masks(v, e)
+
+
+def _check_view_masks(got, v, e):
+    """Both masks bitwise the numpy masks, contiguous bool views of one
+    allocation, the edge view at its 16-byte aligned offset."""
+    (gv, ge), (k, n), m = got, v.shape, e.shape[1]
+    _, _, e_out, total = resident.view_mask_layout(k, n, m)
+    for g, want in ((gv, v), (ge, e)):
+        assert g.dtype == torch.bool and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy(), want)
+    base = gv.untyped_storage().data_ptr()
+    assert ge.untyped_storage().data_ptr() == base
+    assert gv.untyped_storage().nbytes() == total
+    assert gv.storage_offset() == 0 and ge.storage_offset() == e_out
+    assert (base + e_out) % 16 == 0
+
+
 @pytest.mark.parametrize("n", [8, 64, 1024])
 def test_unpack_mask_bits_twin_matches_jax(n):
+    """The cold route's vertex masks through K8u's pack and unpack (a View
+    with no edges) against ``raphtory_tpu/engine/bsp.py:39``."""
     rng = np.random.default_rng(n)
     masks = rng.random((3, n)) < 0.4
     packed = np.packbits(masks, axis=1, bitorder="little")
     want = np.asarray(jbsp._unpack_bits(jnp.asarray(packed), n))
-    got = resident.unpack_mask_bits(torch.from_numpy(packed))
+    got, _ = resident.unpack_view_masks(resident.pack_view_masks(
+        masks, np.zeros((3, 0), bool)), 3, n, 0)
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), masks)
 
 
+#: (n_pad, m_pad) of the K8u cases: regions under 16 bytes (8, 16 and 64
+#: bits a row at small k), k*n not a multiple of 128, several blocks
+VIEW_SHAPES = [(8, 8), (16, 64), (64, 1024), (1024, 1 << 16),
+               (1 << 16, 16), (8, 1 << 16)]
+
+
+@pytest.mark.parametrize("shape", VIEW_SHAPES, ids=str)
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_view_masks_pack_unpack_match_jax(k, shape):
+    """``pack_view_masks`` + ``unpack_view_masks`` against the JAX
+    package's per-array pack (``bsp.py:377-378``) and ``_unpack_bits``,
+    bitwise: the packed regions equal its per-row bytes, laid out at
+    ``view_mask_layout``'s offsets."""
+    n, m = shape
+    rng = np.random.default_rng(k * 7 + n + m)
+    v, e, packed = _packed_view(rng, k, n, m)
+    e_in, nbytes, _, _ = resident.view_mask_layout(k, n, m)
+    assert packed.dtype == torch.uint8 and packed.numel() == nbytes
+    raw = packed.numpy()
+    for off, a in ((0, v), (e_in, e)):
+        jp = np.packbits(a, axis=1, bitorder="little")
+        np.testing.assert_array_equal(raw[off: off + jp.size],
+                                      jp.reshape(-1))
+        np.testing.assert_array_equal(
+            np.asarray(jbsp._unpack_bits(jnp.asarray(jp), a.shape[1])), a)
+    _check_view_masks(resident.unpack_view_masks(packed, k, n, m), v, e)
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the twins; other device types raise."""
-    meta = torch.zeros((2, 4), dtype=torch.uint8, device="meta")
+    meta = torch.zeros(resident.view_mask_layout(2, 16, 0)[1],
+                       dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        resident.unpack_mask_bits(meta)
+        resident.unpack_view_masks(meta, 2, 16, 0)
+
+
+def test_unpack_view_masks_checks_its_buffer():
+    packed = resident.pack_view_masks(np.ones((2, 8), bool),
+                                      np.ones((2, 8), bool))
+    with pytest.raises(ValueError, match="shape"):
+        resident.unpack_view_masks(packed[:-1], 2, 8, 8)
+    with pytest.raises(TypeError, match="dtype"):
+        resident.unpack_view_masks(packed.view(torch.int8), 2, 8, 8)
+    with pytest.raises(ValueError, match="k=-1"):
+        resident.unpack_view_masks(packed, -1, 8, 8)
+
+
+def _spread(b):
+    """``spread`` of ``csrc/sweep.cu`` in numpy: each byte's 8 bits as 8
+    bytes of 0 / 1 (a uint64, bit j in byte j)."""
+    x = (b.astype(np.uint64) * np.uint64(0x0101010101010101)) \
+        & np.uint64(0x8040201008040201)
+    return ((x + np.uint64(0x7f7f7f7f7f7f7f7f))
+            & np.uint64(0x8080808080808080)) >> np.uint64(7)
+
+
+def test_spread_puts_each_bit_in_its_byte():
+    """The kernel's byte spread (one multiply and masks) is bit j of the
+    byte in byte j, for every byte value."""
+    b = np.arange(256)
+    np.testing.assert_array_equal(
+        _spread(b).view(np.uint8).reshape(256, 8),
+        np.unpackbits(b.astype(np.uint8)[:, None], axis=1,
+                      bitorder="little"))
+
+
+def _model_unpack(calls, rng):
+    """``rtpu_unpack_view_masks`` over the wrapper's raw addresses: the
+    edge bits and masks at ``view_offsets``, the vertex region's blocks
+    first; its blocks run in a random order, each staging its 4,096 bytes
+    of bits (16 a thread, zero past the region), then each warp writes
+    store q of lane L from bits bytes 2(32q + L) and 2(32q + L) + 1: 16
+    mask bytes, or bytes up to the region's end, each byte's bits spread
+    by ``_spread``."""
+
+    def model(vbits, ebits, packed, out, stream):
+        assert packed % 16 == 0 and out % 16 == 0
+        e_in = -(-(-(-vbits // 8)) // 16) * 16
+        e_out = -(-vbits // 16) * 16
+        vb = -(-(-(-vbits // 8)) // 4096)
+        eb = -(-(-(-ebits // 8)) // 4096)
+        calls.append(dict(vbits=vbits, ebits=ebits, packed=packed,
+                          blocks=vb + eb))
+        for blk in rng.permutation(vb + eb):
+            vert = blk < vb
+            bits = vbits if vert else ebits
+            nbytes = -(-bits // 8)
+            src = _view(packed + (0 if vert else e_in), np.uint8, nbytes)
+            dst = _view(out + (0 if vert else e_out), np.uint8, bits)
+            b0 = (blk if vert else blk - vb) * 4096
+            stage = np.zeros(4096, np.uint8)
+            here = min(4096, nbytes - b0)
+            stage[:here] = src[b0: b0 + here]
+            for warp in range(8):
+                h = np.arange(256)                  # q * 32 + lane
+                j0 = (b0 + warp * 512 + 2 * h) * 8
+                pair = stage[warp * 512:][: 512].reshape(256, 2)
+                words = _spread(pair)
+                for hh in np.flatnonzero(j0 < bits):
+                    cnt = min(16, bits - j0[hh])
+                    dst[j0[hh]: j0[hh] + cnt] = words[hh].view(
+                        np.uint8)[:cnt]
+        return 0
+    return model
+
+
+@pytest.fixture
+def card_branch(monkeypatch):
+    """K8u's card branch on CPU tensors through ``_model_unpack``; the
+    calls it received."""
+    calls = []
+    monkeypatch.setattr(resident, "_on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(resident, "_stream", lambda t: 0)
+    monkeypatch.setattr(resident, "_fn", lambda lib, fn: _model_unpack(
+        calls, np.random.default_rng(len(calls))) if fn ==
+        "rtpu_unpack_view_masks" else pytest.fail(fn))
+    columns.reset_launches()
+    return calls
+
+
+@pytest.mark.parametrize("k, n, m", [(1, 8, 8), (3, 8, 64), (5, 16, 24),
+                                     (2, 1024, 1 << 16), (3, 4096, 40),
+                                     (1, 1 << 16, 0), (4, 0, 1000),
+                                     (2, 24, 0), (5, 64, 4104), (1, 0, 0),
+                                     (2, 8, 1 << 16), (3, 40, 8),
+                                     (4, 4104, 64), (1, 32768, 32776)])
+def test_view_masks_card_branch_one_launch(card_branch, k, n, m):
+    """The card branch of ``unpack_view_masks``: one launch a call over
+    the packed buffer, bitwise the twin and the numpy masks; ragged
+    regions (under 16 bytes, k*n not a multiple of 128, a block's end)
+    and empty ones."""
+    v, e, packed = _packed_view(np.random.default_rng(k + n + m), k, n, m)
+    got = resident.unpack_view_masks(packed, k, n, m)
+    assert len(card_branch) == 1
+    assert card_branch[0]["vbits"] == k * n and card_branch[0]["ebits"] \
+        == k * m
+    assert columns.LAUNCHES["unpack_mask_bits"] == 1
+    _check_view_masks(got, v, e)
+    for g, w in zip(got, resident.unpack_view_masks_plain(packed, k, n, m)):
+        assert torch.equal(g, w)
+
+
+def test_view_masks_card_branch_refuses_an_unaligned_buffer(card_branch):
+    packed = torch.zeros(33, dtype=torch.uint8)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        resident.unpack_view_masks(packed, 1, 8, 8)
+    assert card_branch == []
+
+
+@pytest.mark.parametrize("windows", [[100, 30, 7], [-1], [30]],
+                         ids=["three", "plain", "one"])
+@pytest.mark.parametrize("occurrences", [False, True],
+                         ids=["edges", "occurrences"])
+def test_cold_route_ships_one_buffer_and_unpacks_once(
+        card_branch, windows, occurrences, monkeypatch):
+    """``bsp.run_async`` packs the View's vertex and edge (or occurrence)
+    masks into one buffer, uploads it once and unpacks it in one launch:
+    the kernel reads each region at its offset, and the result stays
+    bitwise the JAX package's cold route."""
+    from test_sweep import random_log
+
+    from raphtory_tpu.algorithms import ConnectedComponents as JCC
+    from raphtory_tpu.algorithms import TaintTracking as JTaint
+    from raphtory_tpu.core.snapshot import build_view as jbuild_view
+    from raphtory_tpu_torch.algorithms import (ConnectedComponents,
+                                               TaintTracking)
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.interop import event_log_from_arrays
+
+    monkeypatch.setenv("RTPU_PCPM", "0")
+    jlog = random_log(np.random.default_rng(5), n_events=600, n_ids=40,
+                      t_span=100)
+    log = event_log_from_arrays(jlog.arrays())
+    if occurrences:
+        kw = dict(seeds=(1, 2), start_time=0, stop_list=(3,))
+        jprog, prog = JTaint(**kw), TaintTracking(**kw)
+    else:
+        jprog, prog = JCC(max_steps=60), ConnectedComponents(max_steps=60)
+    uploaded = []
+    monkeypatch.setattr(bsp, "upload", lambda data, dev: uploaded.append(
+        data.clone()) or resident.upload(data, dev))
+    seen = []
+    real_pack = resident.pack_view_masks
+    monkeypatch.setattr(bsp, "pack_view_masks", lambda v, e, pin: seen.append(
+        (v.copy(), e.copy(), pin)) or real_pack(v, e, pin))
+    view = build_view(log, 80, include_occurrences=occurrences)
+    got, steps = bsp.run(prog, view, windows=windows, device="cpu")
+    want, wsteps = jbsp.run(jprog, jbuild_view(
+        jlog, 80, include_occurrences=occurrences), windows=windows)
+    np.testing.assert_array_equal(leaves_of(got), leaves_of(want))
+    assert steps == int(wsteps)
+    # one pack, one upload, one launch, the regions at their offsets
+    assert len(seen) == len(uploaded) == len(card_branch) == 1
+    v, e, pin = seen[0]
+    assert pin is False
+    k, m = len(windows), e.shape[1]
+    assert v.shape == (k, view.n_pad) and m == (
+        len(view.occ_src) if occurrences else view.m_pad)
+    e_in, nbytes, _, _ = resident.view_mask_layout(k, view.n_pad, m)
+    raw = uploaded[0].numpy()
+    assert raw.size == nbytes
+    for off, a in ((0, v), (e_in, e)):
+        np.testing.assert_array_equal(
+            raw[off: off + -(-a.size // 8)],
+            np.packbits(a.reshape(-1), bitorder="little"))
+    assert card_branch[0]["vbits"] == v.size and card_branch[0]["ebits"] \
+        == e.size
+    assert columns.LAUNCHES["unpack_mask_bits"] == 1
+
+
+def test_cold_route_stage_seconds_switch(monkeypatch):
+    """``bsp.STAGE_SECONDS``: while it is a dict, ``bsp.run`` adds the cold
+    dispatch's seconds into its seven stages, call after call; the result
+    is the run's without it; None, the default, records nothing."""
+    from test_sweep import random_log
+
+    from raphtory_tpu_torch.algorithms import ConnectedComponents
+    from raphtory_tpu_torch.core.snapshot import build_view
+    from raphtory_tpu_torch.engine import bsp
+    from raphtory_tpu_torch.interop import event_log_from_arrays
+
+    assert bsp.STAGE_SECONDS is None
+    log = event_log_from_arrays(random_log(
+        np.random.default_rng(6), n_events=400, n_ids=30,
+        t_span=100).arrays())
+    view, prog = build_view(log, 80), ConnectedComponents(max_steps=60)
+    want, wsteps = bsp.run(prog, view, windows=[50, 10], device="cpu")
+    split = {}
+    monkeypatch.setattr(bsp, "STAGE_SECONDS", split)
+    for calls in (1, 2):
+        got, steps = bsp.run(prog, view, windows=[50, 10], device="cpu")
+        assert torch.equal(got, want) and steps == wsteps
+        assert list(split) == ["mask_build", "pack", "mask_upload_unpack",
+                               "view_edges", "props", "layout",
+                               "supersteps"]
+        assert all(sec >= 0 for sec in split.values())
+    once = dict(split)
+    monkeypatch.setattr(bsp, "STAGE_SECONDS", None)
+    bsp.run(prog, view, windows=[50, 10], device="cpu")
+    assert split == once
+
+
+def leaves_of(tree):
+    """The first result leaf as numpy (CC labels, taint times)."""
+    if isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return np.asarray(tree.numpy() if isinstance(tree, torch.Tensor)
+                      else tree)
 
 
 # ------------------------- K7 / K7-P long rows (Pareto senders) and plans
