@@ -112,6 +112,29 @@ printing one JSON line:
               SSSP on the host-column route (``RTPU_FOLD=host``: host-built
               ``[H, m_pad]`` fold columns, K3), each BITWISE with equal
               steps against the same engine's delta route on the card.
+    fold_pipeline — the fold pipeline's modes (``core/sweep.py``), medians
+              of 3 sweeps on fresh engines, each against the serial loop
+              (``RTPU_FOLD_WORKERS=1 RTPU_PREFETCH=0``, fold cache off):
+              the prefetch alone (1 worker), the defaults cold (the cache
+              emptied before each sweep: the serial lane, which leaves
+              checkpoints) and checkpoint-warm (an earlier sweep's
+              checkpoints: forked folds), each sweep's fold mode checked,
+              for the headline PageRank on both fold routes, cc_range CC
+              and LDBC BFS; LDBC SSSP (chunks=2) on the prefetch lane; the
+              fold alone (``fold_payloads``): its wall serial, with the
+              vertex fold inline (no overlap), cold and checkpoint-warm,
+              byte-equal the serial fold's, and the warm fold's worker
+              seconds over its wall (``overlap``); ``bitcoin_range``'s
+              ``run_sweep`` with ``RTPU_PREFETCH=0``, on the lookahead
+              lane, cold and checkpoint-warm. Results
+              bitwise the serial loop's (PageRank within rtol 1e-5 / atol
+              1e-7 where not bitwise, equal steps; each mode's
+              ``bitwise`` says which); the host's cores.
+              Every timed sweep of phases 4-14 folds cold (the cache
+              emptied before it) under the default pipeline, and reports
+              ``fold_s`` (worker seconds), ``fold_stall_s`` (the dispatch
+              loop's wait), ``fold_mode_s`` and ``device_s`` (the sweep
+              less the wait).
 12. scale_bulk — ``bench.py:bench_scale_pagerank`` uncut: the bulk loader
               over ``gab_like_arrays(5.3M, 2^25, seed 11)``, 16 one-hour
               hops x 8 windows = 128 columns, tol 0, 10 supersteps through
@@ -1492,7 +1515,7 @@ def pcpm_kernels(torch, np, columns, minplus, segment, gab, ldbc, gab_view,
 
     # ---- K7-P on the cold GAB View's layout: PageRank's f32 sum (k = 1),
     # min/max and int sums (k = 1, 3), and against K7 over the same edges
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         vlay = bsp._view_layout(gab_view)
     if vlay is None:
         raise AssertionError("the cold GAB View does not bin under auto")
@@ -1778,26 +1801,27 @@ def minplus_kernels(torch, np, columns, minplus, gab, ldbc, dev):
 
 def timed_sweep(torch, columns, make, hops, windows, chunks, reps=3,
                 **run_kw):
-    """Best of ``reps`` cold engines after one warm-up; the launch counts
-    cover the last timed sweep alone (zeroed just before it)."""
+    """Best of ``reps`` cold engines after one warm-up, each folding cold
+    (the fold cache emptied before it); the launch counts cover the last
+    timed sweep alone (zeroed just before it)."""
     make().run(hops, windows, chunks=chunks, **run_kw)
     torch.cuda.synchronize()
     reps_out = []
     for _ in range(reps):
+        cold_fold()
         hb = make()
         columns.reset_launches()
         t0 = time.perf_counter()
         res, steps = hb.run(hops, windows, chunks=chunks, **run_kw)
         torch.cuda.synchronize()
-        reps_out.append((time.perf_counter() - t0, hb.fold_seconds,
-                         hb.dispatch_seconds, hb.ship_bytes))
+        reps_out.append(fold_stats(hb, time.perf_counter() - t0))
         launches = dict(columns.LAUNCHES)
-    best = min(reps_out, key=lambda r: r[0])
+    cold_fold()
+    best = min(reps_out, key=lambda r: r["sweep_s"])
     n_views = len(hops) * len(windows)
     return res, steps, launches, dict(
-        views=n_views, views_per_s=n_views / best[0], sweep_s=best[0],
-        fold_s=best[1], dispatch_s=best[2], ship_bytes=best[3],
-        repeat_sweep_s=[r[0] for r in reps_out], supersteps=steps,
+        best, views=n_views, views_per_s=n_views / best["sweep_s"],
+        repeat_sweep_s=[r["sweep_s"] for r in reps_out], supersteps=steps,
         launches=launches)
 
 
@@ -1819,6 +1843,7 @@ def phase_cc_range(torch, np, columns, log, dev):
         hops, windows, chunks=1)
     check_launched("cc_range", launches, CC_KERNELS)
     one_launch_a_superstep("cc_range", launches, "cc_superstep", steps)
+    cold_fold()
     ref, ref_steps = HopBatchedCC(log, max_steps=50, device="cpu").run(
         hops, windows)
     bitwise_vs_cpu("cc_range", labels, steps, ref, ref_steps)
@@ -1866,6 +1891,7 @@ def phase_ldbc_traversal(torch, np, columns, log, dev):
         dist, steps, launches, stats = timed_sweep(
             torch, columns, lambda make=make: make(dev), hops, windows,
             chunks=chunks)
+        cold_fold()
         ref, ref_steps = make("cpu").run(hops, windows, chunks=chunks)
         bitwise_vs_cpu(f"ldbc_traversal {name}", dist, steps, ref,
                        ref_steps)
@@ -1902,6 +1928,7 @@ def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
     torch.cuda.synchronize()
     reps = []
     for _ in range(3):
+        cold_fold()
         hb = HopBatchedPageRank(log, device=dev, **kw)
         # the counts of this sweep alone: zeroed just before it, read
         # just after it
@@ -1909,11 +1936,11 @@ def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
         t0 = time.perf_counter()
         ranks, steps = hb.run(hops, windows, chunks=3, warm_start=True)
         torch.cuda.synchronize()
-        reps.append((time.perf_counter() - t0, hb.fold_seconds,
-                     hb.dispatch_seconds, hb.ship_bytes))
+        reps.append(fold_stats(hb, time.perf_counter() - t0))
         launches = dict(columns.LAUNCHES)
     check_launched("headline", launches, PAGERANK_KERNELS)
     ranks = ranks.cpu()
+    cold_fold()
     ref, ref_steps = HopBatchedPageRank(log, device="cpu", **kw).run(
         hops, windows, chunks=3, warm_start=True)
     err = (ranks - ref).abs()
@@ -1926,13 +1953,12 @@ def phase_headline(torch, np, columns, HopBatchedPageRank, log, dev):
     sums = ranks.double().sum(1)
     if bool(((sums - 1.0).abs() > 1e-4).any()):
         raise AssertionError(f"column rank sums off 1: {sums.tolist()}")
-    best = min(reps, key=lambda r: r[0])
+    best = min(reps, key=lambda r: r["sweep_s"])
     emit("headline", n=hb.tables.n, m=hb.tables.m, n_pad=hb.tables.n_pad,
-         m_pad=hb.tables.m_pad, views=n_views, views_per_s=n_views / best[0],
-         sweep_s=best[0], fold_s=best[1], dispatch_s=best[2],
-         device_s=best[0] - best[1], repeat_sweep_s=[r[0] for r in reps],
-         ship_bytes=best[3], supersteps=steps, launches=launches,
-         max_abs_err_vs_cpu=float(err.max()))
+         m_pad=hb.tables.m_pad, views=n_views,
+         views_per_s=n_views / best["sweep_s"], **best,
+         repeat_sweep_s=[r["sweep_s"] for r in reps], supersteps=steps,
+         launches=launches, max_abs_err_vs_cpu=float(err.max()))
     return launches
 
 
@@ -1946,6 +1972,7 @@ def phase_job(torch, np, columns, dev):
     def run_job(log, prog, q, kernels):
         mgr = AnalysisManager(TemporalGraph(log, device=dev), device=dev)
         columns.reset_launches()
+        cold_fold()   # the CC job repeats the PageRank job's log and grid
         t0 = time.perf_counter()
         job = mgr.submit(prog, q)
         if not job.wait(600):
@@ -2824,15 +2851,16 @@ def phase_bitcoin_range(torch, np, columns, dev):
                              "launches")
     reps = []
     for _ in range(2):
+        cold_fold()   # the sweep before left its checkpoints
         ds = DeviceSweep(log, device=dev)
         columns.reset_launches()
         t0 = time.perf_counter()
         res, steps = ds.run_sweep(prog, hops, windows=BTC_WINDOWS)
         torch.cuda.synchronize()
-        reps.append((time.perf_counter() - t0, ds.fold_seconds,
-                     ds.dispatch_seconds, ds.ship_bytes))
+        reps.append(fold_stats(ds, time.perf_counter() - t0))
         launches = dict(columns.LAUNCHES)
     check_launched("bitcoin_range", launches, RESIDENT_KERNELS)
+    cold_fold()
     ref, ref_steps = DeviceSweep(log, device="cpu").run_sweep(
         prog, hops, windows=BTC_WINDOWS)
     err = 0.0
@@ -2842,12 +2870,11 @@ def phase_bitcoin_range(torch, np, columns, dev):
             raise AssertionError(f"bitcoin_range at {T} differs from the "
                                  f"CPU run (steps {s} vs {xs})")
         err = max(err, float((r - x).abs().max()))
-    best = min(reps, key=lambda r: r[0])
+    best = min(reps, key=lambda r: r["sweep_s"])
     n_views = len(hops) * len(BTC_WINDOWS)
     emit("bitcoin_range", n=ds.n, m=ds.m, n_pad=ds.n_pad, m_pad=ds.m_pad,
-         views=n_views, views_per_s=n_views / best[0], sweep_s=best[0],
-         fold_s=best[1], dispatch_s=best[2], ship_bytes=best[3],
-         repeat_sweep_s=[r[0] for r in reps], supersteps=steps,
+         views=n_views, views_per_s=n_views / best["sweep_s"], **best,
+         repeat_sweep_s=[r["sweep_s"] for r in reps], supersteps=steps,
          launches=launches, segment_combine_out_degree=sum(src_calls),
          max_abs_err_vs_cpu=err)
     return launches, sum(src_calls)
@@ -2927,24 +2954,6 @@ def phase_view_programs(torch, np, columns, log, dev):
     return launches
 
 
-class fold_route:
-    """``RTPU_FOLD`` set to ``route`` inside the block (the engines read it
-    at dispatch)."""
-
-    def __init__(self, route: str):
-        self.route = route
-
-    def __enter__(self):
-        self.prev = os.environ.get("RTPU_FOLD")
-        os.environ["RTPU_FOLD"] = self.route
-
-    def __exit__(self, *exc):
-        if self.prev is None:
-            os.environ.pop("RTPU_FOLD", None)
-        else:
-            os.environ["RTPU_FOLD"] = self.prev
-
-
 def phase_host_columns(torch, np, columns, log, ldbc, dev):
     """The host-column route (``RTPU_FOLD=host``: the host builds the
     ``[H, m_pad]`` fold columns, K3 the masks) of the headline PageRank,
@@ -2978,9 +2987,10 @@ def phase_host_columns(torch, np, columns, log, ldbc, dev):
     total = {k: 0 for k in columns.LAUNCHES}
     result = {}
     for name, (make, h, w, kw, kernels) in runs.items():
-        with fold_route("delta"):
+        with knobs(RTPU_FOLD="delta"):
+            cold_fold()
             ref, ref_steps = make().run(h, w, **kw)
-        with fold_route("host"):
+        with knobs(RTPU_FOLD="host"):
             got, steps, launches, stats = timed_sweep(
                 torch, columns, make, h, w, **kw)
         if not torch.equal(got, ref) or steps != ref_steps:
@@ -3000,25 +3010,320 @@ def phase_host_columns(torch, np, columns, log, ldbc, dev):
     return total
 
 
-class pcpm_route:
-    """``RTPU_PCPM`` set to ``mode`` inside the block, or unset (None: the
-    default, auto) — the engines read it at dispatch."""
+class knobs:
+    """Environment variables set inside the block (None: unset), restored
+    after it."""
 
-    def __init__(self, mode):
-        self.mode = mode
+    def __init__(self, **values):
+        self.values = values
 
     def __enter__(self):
-        self.prev = os.environ.get("RTPU_PCPM")
-        if self.mode is None:
-            os.environ.pop("RTPU_PCPM", None)
-        else:
-            os.environ["RTPU_PCPM"] = self.mode
+        self.prev = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
 
     def __exit__(self, *exc):
-        if self.prev is None:
-            os.environ.pop("RTPU_PCPM", None)
-        else:
-            os.environ["RTPU_PCPM"] = self.prev
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cold_fold() -> None:
+    """Empty the fold cache: the next sweep folds cold (and a reference
+    run folds for itself) instead of dispatching an earlier run's cached
+    payloads."""
+    from raphtory_tpu_torch.core.sweep import fold_cache
+
+    cache = fold_cache()
+    if cache is not None:
+        cache.clear()
+
+
+def cache_stats():
+    """The fold cache's counters and bytes (None: the cache is off)."""
+    from raphtory_tpu_torch.core.sweep import fold_cache
+
+    cache = fold_cache()
+    return None if cache is None else cache.stats()
+
+
+def fold_stats(engine, sweep_s: float) -> dict:
+    """A sweep's fold split: worker seconds (``fold_s``), the dispatch
+    loop's wait (``fold_stall_s``), the seconds by mode, and the sweep
+    less the wait (``device_s``: the dispatches and what they wait on)."""
+    return dict(sweep_s=sweep_s, fold_s=engine.fold_seconds,
+                fold_stall_s=engine.fold_stall_seconds,
+                fold_mode_s=dict(engine.fold_mode_seconds),
+                dispatch_s=engine.dispatch_seconds,
+                device_s=sweep_s - engine.fold_stall_seconds,
+                ship_bytes=engine.ship_bytes)
+
+
+#: the fold pipeline's modes as (RTPU_FOLD_WORKERS, RTPU_PREFETCH); None:
+#: the default worker count. ``cold`` empties the fold cache before each
+#: sweep, ``warm`` sweeps over the checkpoints a first sweep left.
+FOLD_MODES = {"serial": (1, 0), "prefetch": (1, 1), "cold": (None, 1),
+              "warm": (None, 1)}
+
+
+def check_mode(name: str, mode: str, hb) -> None:
+    """Raise unless a sweep in pipeline mode ``mode`` folded as it must:
+    forked only checkpoint-warm, and only where the engine's fold can
+    fork."""
+    forks = mode == "warm" and getattr(hb, "supports_parallel_fold", True)
+    want = "parallel" if forks else "serial"
+    if set(hb.fold_mode_seconds) != {want}:
+        raise AssertionError(f"fold_pipeline {name}: a {mode} sweep folded "
+                             f"{hb.fold_mode_seconds}, not {want}")
+
+
+def median_row(rows: list) -> dict:
+    """The row of the median sweep, every sweep's seconds beside it."""
+    row = dict(sorted(rows, key=lambda r: r["sweep_s"])[len(rows) // 2])
+    row["sweep_s_all"] = [r["sweep_s"] for r in rows]
+    return row
+
+
+def same_result(torch, got, want, exact: bool) -> bool:
+    """``(result, steps)`` pairs equal: bitwise where ``exact``, else
+    PageRank's tolerance with equal steps."""
+    (g, gs), (w, ws) = got, want
+    if gs != ws:
+        return False
+    if exact or torch.equal(g, w):
+        return True
+    return within_tol(g.cpu(), w.cpu())
+
+
+def same_payload(a, b) -> bool:
+    """Fold payload trees equal to the byte (a ``Staged`` buffer as the
+    tuple of its arrays)."""
+    import numpy as np
+
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_payload(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def pipeline_case(torch, name, make, hops, windows, run_kw, exact,
+                  modes, reps: int = 3) -> dict:
+    """One engine's sweep under each fold mode (fresh engines, one warm-up
+    a mode, ``reps`` timed sweeps; the cache off in ``serial`` and
+    ``prefetch``), each against the serial loop's result and each sweep's
+    fold mode checked. Then the fold alone through ``fold_payloads``.
+    Medians; ratios against serial."""
+    out, want = {}, None
+    for mode in modes:
+        workers, prefetch = FOLD_MODES[mode]
+        cache_mb = None if mode in ("cold", "warm") else 0
+        with knobs(RTPU_FOLD_WORKERS=workers, RTPU_PREFETCH=prefetch,
+                   RTPU_FOLD_CACHE_MB=cache_mb):
+            cold_fold()
+            make().run(hops, windows, **run_kw)
+            torch.cuda.synchronize()
+            rows = []
+            for _ in range(reps):
+                if mode != "warm":
+                    cold_fold()
+                hb = make()
+                t0 = time.perf_counter()
+                got = hb.run(hops, windows, **run_kw)
+                torch.cuda.synchronize()
+                rows.append(fold_stats(hb, time.perf_counter() - t0))
+                check_mode(name, mode, hb)
+            cold_fold()
+        if want is None:
+            want = got
+        elif not same_result(torch, got, want, exact):
+            raise AssertionError(f"fold_pipeline {name}: {mode} differs "
+                                 "from the serial loop")
+        out[mode] = dict(median_row(rows),
+                         bitwise=torch.equal(got[0], want[0]))
+    if "warm" in modes:
+        out["fold"] = fold_walls(name, make, hops, run_kw, reps)
+    base = out["serial"]["sweep_s"]
+    out["sweep_ratio"] = {m: out[m]["sweep_s"] / base for m in modes}
+    return out
+
+
+class InlinePool:
+    """A stand-in for ``_vfold_pool()``: runs each vertex fold at once on
+    the caller, the inline fold the overlap replaced."""
+
+    def submit(self, fn, *args):
+        from concurrent.futures import Future
+
+        fut = Future()
+        fut.set_result(fn(*args))
+        return fut
+
+
+def fold_walls(name, make, hops, run_kw, reps: int) -> dict:
+    """The fold alone (``fold_payloads``, no dispatch): its wall serial
+    (one worker, cache off), serial with the vertex fold inline instead of
+    overlapped with the edge fold (``inline_vfold``), cold at the default
+    workers (the serial lane leaving its checkpoints) and checkpoint-warm
+    (forks seeded there), byte-equal the serial fold's; and the warm
+    fold's worker seconds over its wall (the threads' overlap: 1 where the
+    GIL serialises them)."""
+    from raphtory_tpu_torch.core import sweep as core_sweep
+
+    chunks = run_kw.get("chunks", 1)
+    walls = {"serial": [], "inline_vfold": [], "cold": [], "warm": []}
+    worker_s = []
+
+    def fold(mode):
+        hb = make()
+        t0 = time.perf_counter()
+        _, got = hb.fold_payloads(hops, chunks)
+        walls[mode].append(time.perf_counter() - t0)
+        check_mode(name, mode if mode in ("cold", "warm") else "serial", hb)
+        if mode == "warm":
+            worker_s.append(hb.fold_seconds)
+        return got
+
+    with knobs(RTPU_FOLD_WORKERS=1, RTPU_FOLD_CACHE_MB=0):
+        for _ in range(reps):
+            want = fold("serial")
+            pool = core_sweep._vfold_pool
+            core_sweep._vfold_pool = InlinePool
+            try:
+                got = fold("inline_vfold")
+            finally:
+                core_sweep._vfold_pool = pool
+            if not same_payload(got, want):
+                raise AssertionError(f"fold_pipeline {name}: the inline "
+                                     "vertex fold's payloads differ")
+    with knobs(RTPU_FOLD_WORKERS=None, RTPU_FOLD_CACHE_MB=None):
+        for _ in range(reps):
+            cold_fold()
+            for mode in ("cold", "warm"):
+                if not same_payload(fold(mode), want):
+                    raise AssertionError(f"fold_pipeline {name}: the {mode} "
+                                         "fold's payloads differ from the "
+                                         "serial fold's")
+        cold_fold()
+    med = {m: sorted(v)[len(v) // 2] for m, v in walls.items()}
+    return dict(wall_s=med, wall_s_all=walls,
+                ratio={m: med[m] / med["serial"] for m in med},
+                warm_worker_s=sorted(worker_s)[len(worker_s) // 2],
+                overlap=sorted(w / t for w, t in zip(
+                    worker_s, walls["warm"]))[len(worker_s) // 2])
+
+
+def sweep_modes(torch, log, hops, prog, windows, dev, reps: int = 3):
+    """``DeviceSweep.run_sweep`` under ``RTPU_PREFETCH=0`` (serial), the
+    lookahead lane (1 worker), the defaults cold and checkpoint-warm
+    (forked segments), each against the serial sweep's results, bitwise,
+    and each sweep's fold mode checked. Medians."""
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
+
+    out, want = {}, None
+    for mode, (workers, prefetch) in FOLD_MODES.items():
+        cache_mb = None if mode in ("cold", "warm") else 0
+        with knobs(RTPU_FOLD_WORKERS=workers, RTPU_PREFETCH=prefetch,
+                   RTPU_FOLD_CACHE_MB=cache_mb):
+            cold_fold()
+            DeviceSweep(log, device=dev).run_sweep(prog, hops,
+                                                   windows=windows)
+            torch.cuda.synchronize()
+            rows = []
+            for _ in range(reps):
+                if mode != "warm":
+                    cold_fold()
+                ds = DeviceSweep(log, device=dev)
+                t0 = time.perf_counter()
+                res, steps = ds.run_sweep(prog, hops, windows=windows)
+                torch.cuda.synchronize()
+                rows.append(fold_stats(ds, time.perf_counter() - t0))
+                check_mode("bitcoin_range", mode, ds)
+            cold_fold()
+        leaves = [torch.utils._pytree.tree_leaves(r) for r in res]
+        if want is None:
+            want = (leaves, steps)
+        elif steps != want[1] or not all(
+                torch.equal(a, b) for ga, wa in zip(leaves, want[0])
+                for a, b in zip(ga, wa)):
+            raise AssertionError(f"fold_pipeline bitcoin_range: {mode} "
+                                 "differs from RTPU_PREFETCH=0")
+        out[mode] = median_row(rows)
+    base = out["serial"]["sweep_s"]
+    out["sweep_ratio"] = {m: out[m]["sweep_s"] / base for m in FOLD_MODES}
+    return out
+
+
+def phase_fold_pipeline(torch, np, columns, log, ldbc, dev):
+    """The fold pipeline's modes (``core/sweep.py``): the headline PageRank
+    on both fold routes, cc_range CC and LDBC BFS under the serial loop,
+    the prefetch alone, and the defaults cold (the serial lane) and
+    checkpoint-warm (forked folds); LDBC SSSP on the prefetch lane (its
+    fold cannot fork); ``bitcoin_range`` on ``DeviceSweep.run_sweep``'s
+    four modes. Every
+    mode's result against the serial one's (bitwise, PageRank within its
+    tolerance where not bitwise), every fold's payloads byte-equal the
+    serial fold's. The host's cores beside the numbers."""
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.core.sweep import fold_workers
+    from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
+                                                    HopBatchedCC,
+                                                    HopBatchedPageRank,
+                                                    HopBatchedSSSP)
+    from raphtory_tpu_torch.utils.synth import bitcoin_like_log
+
+    host = dict(cpu_count=os.cpu_count(),
+                affinity=len(os.sched_getaffinity(0)),
+                fold_workers=fold_workers())
+    hops, windows = headline_grid()
+    ldbc_hops = [int(T) for T in
+                 np.linspace(0.5 * LDBC_SPAN, LDBC_SPAN, 10).astype(np.int64)]
+    ldbc_windows = [1_300_000, 604_800]
+    all_modes = tuple(FOLD_MODES)
+
+    def headline():
+        return HopBatchedPageRank(log, tol=1e-7, max_steps=20, device=dev)
+
+    cases = {}
+    cases["headline"] = pipeline_case(
+        torch, "headline", headline, hops, windows,
+        dict(chunks=3, warm_start=True), False, all_modes)
+    with knobs(RTPU_FOLD="host"):
+        cases["headline_host"] = pipeline_case(
+            torch, "headline_host", headline, hops, windows,
+            dict(chunks=3, warm_start=True), False, all_modes)
+    cases["cc_range"] = pipeline_case(
+        torch, "cc_range",
+        lambda: HopBatchedCC(log, max_steps=50, device=dev), hops,
+        [GAB_SPAN], dict(chunks=1), True, all_modes)
+    cases["ldbc_bfs"] = pipeline_case(
+        torch, "ldbc_bfs",
+        lambda: HopBatchedBFS(ldbc, LDBC_SEEDS, directed=False, max_steps=32,
+                              device=dev), ldbc_hops, ldbc_windows,
+        dict(chunks=1), True, all_modes)
+    cases["ldbc_sssp"] = pipeline_case(
+        torch, "ldbc_sssp",
+        lambda: HopBatchedSSSP(ldbc, LDBC_SEEDS, "weight", directed=False,
+                               max_steps=32, device=dev), ldbc_hops,
+        ldbc_windows, dict(chunks=2), True, ("serial", "prefetch"))
+    btc = bitcoin_like_log(n_addresses=20_000, n_txs=200_000,
+                           t_span=BTC_SPAN)
+    btc_hops = [int(t) for t in
+                np.linspace(0.5 * BTC_SPAN, BTC_SPAN, 10).astype(np.int64)]
+    cases["bitcoin_range"] = sweep_modes(
+        torch, btc, btc_hops, PageRank(max_steps=20, tol=1e-7), BTC_WINDOWS,
+        dev)
+    cold_fold()
+    emit("fold_pipeline", host=host, cases=cases, cache=cache_stats())
 
 
 def spec_of(lay) -> dict:
@@ -3055,7 +3360,7 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
     budget = partition.tile_budget_bytes()
     torch.cuda.reset_peak_memory_stats()
     layouts = {}
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         for name, lg in (("gab", log), ("ldbc", ldbc)):
             tables = HopBatchedCC(lg, device="cpu").tables
             t0 = time.perf_counter()
@@ -3094,12 +3399,14 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
                 if route == "host" and name == "ldbc_sssp_chunks2":
                     continue
                 key = name if route == "delta" else f"host_{name}"
-                with fold_route(route):
+                with knobs(RTPU_FOLD=route):
                     got, steps, launches, stats = timed_sweep(
                         torch, columns, lambda: make(dev), h, w, **kw)
                     spec = make(dev)._resolve_layout().spec
-                    with pcpm_route("0"):
+                    with knobs(RTPU_PCPM="0"):
+                        cold_fold()
                         flat, flat_steps = make(dev).run(h, w, **kw)
+                    cold_fold()
                     ref, ref_steps = make("cpu").run(h, w, **kw)
                 if not torch.equal(got, flat) or steps != flat_steps:
                     raise AssertionError(
@@ -3177,7 +3484,7 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
         got, steps = bsp.run(pr, view, window=2_600_000, device=dev)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        with pcpm_route("0"):
+        with knobs(RTPU_PCPM="0"):
             t0 = time.perf_counter()
             flat, flat_steps = bsp.run(pr, view, window=2_600_000,
                                        device=dev)
@@ -3212,6 +3519,7 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
 
 
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
+    from raphtory_tpu_torch.core.sweep import fold_workers
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
     t0 = time.perf_counter()
@@ -3231,6 +3539,7 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     own = columns.masks_from_deltas
     columns.masks_from_deltas = (
         lambda *a: k1_calls.append(a) or own(*a))
+    cold_fold()
     try:
         t0 = time.perf_counter()
         ranks, steps = hb.run(hops, WINDOWS, chunks=2, warm_start=True)
@@ -3248,9 +3557,8 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     n_views = len(hops) * len(WINDOWS)
     emit("scale", n_edge_events=1 << 25, n=hb.tables.n, m=hb.tables.m,
          n_pad=hb.tables.n_pad, m_pad=hb.tables.m_pad, views=n_views,
-         gen_s=gen_s, setup_s=setup_s, sweep_s=sweep_s,
-         fold_s=hb.fold_seconds, dispatch_s=hb.dispatch_seconds,
-         device_s=sweep_s - hb.fold_seconds,
+         gen_s=gen_s, setup_s=setup_s, **fold_stats(hb, sweep_s),
+         fold_workers=fold_workers(), fold_cache=cache_stats(),
          views_per_s=n_views / sweep_s, supersteps=steps,
          peak_device_bytes=torch.cuda.max_memory_allocated(),
          launches=launches,
@@ -3537,7 +3845,7 @@ def phase_scale_bulk(torch, np, columns, dev):
         raise AssertionError("scale crosscheck: run_columns over the bulk "
                              "host columns differs from run_scale_columns")
     t_phase = time.perf_counter()
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         from raphtory_tpu_torch.ops import partition
 
         lay = partition.resolve(loaded[0], loaded[0],
@@ -3588,7 +3896,7 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     prep = kw["prepared"]
     H, W = len(prep[7][0]), len(prep[7][1])
     C = H * W
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         t0 = time.perf_counter()
         lay = partition.resolve(bulk, bulk, partition.tile_budget_bytes())
         layout_build_s = time.perf_counter() - t0
@@ -3780,7 +4088,7 @@ def phase_features(torch, np, columns, dev):
     gen_s = time.perf_counter() - t0
     first, calls = feature_calls()
     torch.cuda.reset_peak_memory_stats()
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         t0 = time.perf_counter()
         ds = DeviceSweep(log, device=dev)
         fa = FeatureAggregator(ds, feature_dim=FEAT_F, dtype="bfloat16",
@@ -3819,7 +4127,7 @@ def phase_features(torch, np, columns, dev):
            "month": ops_features.window_bound(T, FEAT_SPAN, e_lat.dtype)}
     Hb = outs[-1]
     del outs[:-1]
-    with pcpm_route("1"):
+    with knobs(RTPU_PCPM="1"):
         lay = fa._pcpm_layout()
     be = lay.device_edges(dev)
     k10 = {"feature_propagate": (
@@ -3927,7 +4235,7 @@ def features_unbinned(torch, columns, ds, fa, X, calls) -> dict:
     finite and unit norm."""
     fold0, disp0 = ds.fold_seconds, ds.dispatch_seconds
     shifted = [(T + 7_200, w) for T, w in calls]
-    with pcpm_route("0"):
+    with knobs(RTPU_PCPM="0"):
         columns.reset_launches()
         t0 = time.perf_counter()
         outs = [fa.propagate(X, T, window=w, rounds=FEAT_ROUNDS)
@@ -3990,7 +4298,7 @@ def phase_features_gab(torch, np, columns, log, dev):
     for dt in ("float32", "bfloat16"):
         per_mode = {}
         for mode in ("0", "1"):
-            with pcpm_route(mode):
+            with knobs(RTPU_PCPM=mode):
                 fas = {d: FeatureAggregator(DeviceSweep(log, device=d), 128,
                                             dtype=dt) for d in (dev, "cpu")}
                 columns.reset_launches()
@@ -4045,7 +4353,7 @@ def phase_features_gab(torch, np, columns, log, dev):
                                      "from unbinned on the card")
         runs[dt] = {m: [s for _, s in o] for m, o in per_mode.items()}
     # one round of each kernel against its twin at this shape, and timed
-    with pcpm_route("1"):
+    with knobs(RTPU_PCPM="1"):
         fa = FeatureAggregator(DeviceSweep(log, device=dev), 128,
                                dtype="bfloat16")
         T, w = times[0]
@@ -4106,7 +4414,7 @@ def phase_features_gab(torch, np, columns, log, dev):
             widths[f"F{F}_{str(dt).split('.')[-1]}"] = err
     # the embeddings example on the card against the CPU (same seed: the
     # features are drawn on the host)
-    with pcpm_route(None):
+    with knobs(RTPU_PCPM=None):
         emb = {d: TemporalEmbeddings(log, dim=64, device=d)
                for d in (dev, "cpu")}
         vid = int(emb["cpu"].ds.uv[7])
@@ -4682,10 +4990,11 @@ ZIPF_T, ZIPF_WINDOWS = 1000, [800, 400, 200, 100]
 
 
 def run_jobs(mgr, jobs):
-    """Rows of each ``(program, query)`` job, submitted one after
-    another."""
+    """Rows of each ``(program, query)`` job, submitted one after another,
+    each folding cold."""
     out = []
     for prog, q in jobs:
+        cold_fold()
         job = mgr.submit(prog, q)
         if not job.wait(900) or job.status != "done":
             raise AssertionError(f"{type(prog).__name__} job {job.status}: "
@@ -5700,6 +6009,8 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
     host_launches = timed("host_columns", phase_host_columns, torch, np,
                           columns, log, ldbc, dev)
     launches["column_masks"] = host_launches["column_masks"]
+    timed("fold_pipeline", phase_fold_pipeline, torch, np, columns, log,
+          ldbc, dev)
     job_launches = timed("job", phase_job, torch, np, columns, dev)
     view_launches = timed("gab_pr_view", phase_gab_pr_view, torch, np,
                           columns, log, dev)

@@ -24,9 +24,29 @@ by the events with time in (T_i, T_{i+1}].
 Each ``view_at(T)`` emits a ``GraphView`` bit-identical to
 ``build_view(log, T)``; the columnar engine reads only the fold state and
 ``last_delta``.
+
+The fold pipeline (``raphtory_tpu/core/sweep.py``'s, with its knobs and
+defaults): ``_advance`` overlaps the vertex fold with the edge fold on a
+worker pool; ``prefetch_map`` runs folds ahead of the dispatch that
+consumes them (``RTPU_PREFETCH``, ``prefetch_on``); ``checkpoint`` /
+``fork`` give independent builders whose chunk folds run concurrently on
+``fold_pool`` (``RTPU_FOLD_WORKERS``); and ``FoldCache`` keeps fork
+checkpoints across requests under one byte bound (``RTPU_FOLD_CACHE_MB``).
+A fork seeded without a checkpoint folds its whole prefix again, so the
+engines fork only where cached checkpoints cover every fork's start
+(``SweepBuilder.covered``); otherwise they fold on the serial lane and
+leave the checkpoints there (``save_checkpoint``). Worker threads overlap
+only where numpy and the native library's ctypes calls drop the GIL.
 """
 
 from __future__ import annotations
+
+import bisect
+import collections
+import os
+import threading
+import time as _time
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 
@@ -49,6 +69,145 @@ _EMPTY_DELTA = {
     "e_enc": np.empty(0, np.int64), "e_lat": np.empty(0, np.int64),
     "e_alive": np.empty(0, bool), "e_first": np.empty(0, np.int64),
 }
+
+
+# ------------------------------------------------------------ fold pools
+
+def fold_workers() -> int:
+    """Size of the chunk-fold worker pool (``RTPU_FOLD_WORKERS``): half the
+    cores plus one, at most 8, by default; ``1`` keeps every engine on its
+    serial fold."""
+    v = os.environ.get("RTPU_FOLD_WORKERS")
+    if v is not None:
+        return max(1, int(v))
+    return max(1, min(8, (os.cpu_count() or 2) // 2 + 1))
+
+
+class _SizedPools:
+    """Process-wide thread pools keyed by their size: a knob change gets
+    a pool of the new size instead of a stale cached one."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self._pools: dict = {}
+        self._lock = threading.Lock()
+
+    def get(self, n: int) -> ThreadPoolExecutor:
+        with self._lock:
+            pool = self._pools.get(n)
+            if pool is None:
+                pool = ThreadPoolExecutor(max_workers=n,
+                                          thread_name_prefix=self.prefix)
+                self._pools[n] = pool
+            return pool
+
+
+# three separate pools: a chunk fold BLOCKS on its inner vertex fold, so
+# a pool shared with it could hold the very worker that fold needs
+_VFOLD_POOLS = _SizedPools("sweep-vfold")
+_FOLD_POOLS = _SizedPools("sweep-fold")
+_PREFETCH_POOLS = _SizedPools("sweep-prefetch")
+
+
+def _vfold_pool() -> ThreadPoolExecutor:
+    """The overlapped vertex folds of ``_advance``: every concurrent chunk
+    fold blocks on one, so the pool is at least as large as ``fold_pool``
+    (and 2 for the serial engines' prefetch lane beside a caller)."""
+    return _VFOLD_POOLS.get(max(2, fold_workers()))
+
+
+def fold_pool() -> ThreadPoolExecutor:
+    """INDEPENDENT chunk folds, each on its own forked builder, sized by
+    ``fold_workers()``."""
+    return _FOLD_POOLS.get(fold_workers())
+
+
+def _prefetch_pool() -> ThreadPoolExecutor:
+    """The lookahead lane: ONE worker, so folds that advance one shared
+    builder run one at a time, in the order they were submitted."""
+    return _PREFETCH_POOLS.get(1)
+
+
+def prefetch_on() -> bool:
+    """The engines' lookahead switch (``RTPU_PREFETCH``, on unless ``0``);
+    off, every engine folds and dispatches in turn on the calling thread."""
+    return os.environ.get("RTPU_PREFETCH", "1") != "0"
+
+
+#: folds queued or running on the one-worker lane ahead of the one the
+#: dispatch loop consumes
+PREFETCH_DEPTH = 2
+
+
+def prefetch_map(fold_fns, body, *, depth: int = PREFETCH_DEPTH,
+                 pool=None) -> None:
+    """Run ``fold_fns`` (zero-argument callables) on ``pool`` with
+    ``depth`` of them in flight, and call ``body(result, stall_seconds)``
+    for each result ON THE CALLING THREAD, in order, while the next folds
+    run. ``stall_seconds`` is how long the caller waited for that fold (0:
+    it hid behind the previous body). ``pool`` defaults to the one-worker
+    lane (``_prefetch_pool``), the only safe pool for folds that share a
+    builder; pass ``fold_pool()`` for independent folds. If a fold or a
+    body raises, every fold in flight is drained before the exception
+    propagates: the caller's handler must not reset state under a fold
+    that still runs."""
+    fns = list(fold_fns)
+    if not fns:
+        return
+    depth = max(1, depth)
+    pool = _prefetch_pool() if pool is None else pool
+    inflight = collections.deque(
+        pool.submit(fns[i]) for i in range(min(depth, len(fns))))
+    nxt = len(inflight)
+    try:
+        for _ in range(len(fns)):
+            fut = inflight.popleft()
+            t0 = _time.perf_counter()
+            result = fut.result()
+            stall = _time.perf_counter() - t0
+            if nxt < len(fns):
+                inflight.append(pool.submit(fns[nxt]))
+                nxt += 1
+            body(result, stall)
+    except BaseException:
+        wait(inflight)
+        raise
+
+
+# ----------------------------------------------------- checkpoint / fork
+#
+# The three lists below are read off ``SweepBuilder.__init__`` and
+# ``_advance``; every array attribute of a builder is in exactly one
+# (tests/test_torch_fold_parallel.py checks it).
+
+#: set in ``__init__`` and never written again: forks share them
+_LOG_DERIVED = ("log", "include_occurrences", "pad", "track_rows",
+                "_t", "_k", "_s", "_d", "uv", "_ok", "_sd_all", "_dd_all",
+                "_t_sorted", "_preseeded")
+#: written IN PLACE by ``_advance`` (the vertex fold's four arrays; the
+#: known pairs' overwrite of the edge state): checkpoints and forks copy
+_STATE_COPIED = ("v_lat", "v_alive", "v_first", "v_seen",
+                 "e_lat", "e_alive", "e_first", "e_seen")
+#: only ever REBOUND by ``_advance`` (``np.insert`` / ``np.concatenate`` /
+#: a reorder build new arrays): a checkpoint or a fork holds the reference
+_STATE_SHARED = ("e_enc", "e_enc_dst", "dh_v", "dh_t",
+                 "_ea_rows", "_va_rows")
+
+
+class FoldCheckpoint:
+    """A ``SweepBuilder``'s fold state at ``t_prev``, the seed of
+    ``SweepBuilder.fork``. Checkpoints of any builder over the same log
+    content are interchangeable (the dense spaces are functions of the
+    content), which lets the fold cache hand them across requests;
+    ``config`` keeps builders with other emit / preseed settings apart."""
+
+    __slots__ = ("t_prev", "state", "config", "nbytes")
+
+    def __init__(self, t_prev, state: dict, config: tuple):
+        self.t_prev = t_prev
+        self.state = state
+        self.config = config
+        self.nbytes = int(sum(a.nbytes for a in state.values()))
 
 
 class SweepBuilder:
@@ -173,6 +332,88 @@ class SweepBuilder:
             enc = ((enc & _ENC_MASK) << _ENC_SHIFT) | (enc >> _ENC_SHIFT)
         return enc, dt[qidx]
 
+    # ---- checkpoint / fork ----
+
+    def _config(self) -> tuple:
+        return (self.include_occurrences, self.pad, self.track_rows,
+                self._preseeded, len(self.uv), len(self._t))
+
+    def state_nbytes(self) -> int:
+        """Bytes of the fold state a ``checkpoint`` holds (what the fold
+        cache counts it at), computed without taking one."""
+        return int(sum(getattr(self, k).nbytes
+                       for k in _STATE_COPIED + _STATE_SHARED))
+
+    def checkpoint(self) -> FoldCheckpoint:
+        """The fold state at the current ``t_prev``: the arrays ``_advance``
+        writes in place are copied, those it only rebinds are shared."""
+        state = {k: getattr(self, k).copy() for k in _STATE_COPIED}
+        state.update({k: getattr(self, k) for k in _STATE_SHARED})
+        return FoldCheckpoint(self.t_prev, state, self._config())
+
+    def fork(self, cp: FoldCheckpoint | None = None) -> "SweepBuilder":
+        """An INDEPENDENT builder over the same pinned log, seeded from
+        ``cp`` (or from this builder's current state): it shares the
+        log-derived arrays and copies the fold state, so the fork and its
+        source advance without seeing each other. The fold state at T is a
+        function of (log, T) alone, so a fork's views equal the serial
+        builder's whatever hops reached them."""
+        if cp is not None and cp.config != self._config():
+            raise ValueError(
+                "checkpoint was taken from an incompatible SweepBuilder "
+                f"(config {cp.config} != {self._config()}): fold "
+                "checkpoints only transfer between builders over the same "
+                "pinned log content and emit settings")
+        src = cp.state if cp is not None else vars(self)
+        sw = SweepBuilder.__new__(SweepBuilder)
+        for k in _LOG_DERIVED:
+            setattr(sw, k, getattr(self, k))
+        for k in _STATE_COPIED:
+            setattr(sw, k, src[k].copy())
+        for k in _STATE_SHARED:
+            setattr(sw, k, src[k])
+        sw.t_prev = cp.t_prev if cp is not None else self.t_prev
+        sw.last_delta = None
+        return sw
+
+    def covered(self, cache, times) -> bool:
+        """Whether forks can start at each of ``times`` without folding a
+        prefix again: this builder is there already, or ``cache`` holds a
+        checkpoint at exactly that time. A fork without one re-folds from
+        this builder's clock, which costs more than the serial fold it
+        would spare, so the engines fork only where this holds."""
+        if cache is None:
+            return False
+        need = [int(t) for t in times
+                if self.t_prev is None or t > self.t_prev]
+        return cache.covers(log_fingerprint(self.log), self._config(), need)
+
+    def save_checkpoint(self, cache) -> None:
+        """Offer this builder's state at ``t_prev`` to ``cache`` as a fork
+        seed; a state larger than the cache's whole bound is never
+        copied."""
+        if (cache is not None and self.t_prev is not None
+                and self.state_nbytes() <= cache.max_bytes):
+            cache.put_checkpoint(log_fingerprint(self.log),
+                                 self.checkpoint())
+
+    def fork_at(self, time: int, cache=None) -> "SweepBuilder":
+        """A fork advanced to ``time``: seeded at ``cache``'s nearest
+        checkpoint when that lies ahead of this builder, then one bulk
+        advance, whose state goes back to the cache."""
+        cp = None
+        if cache is not None:
+            cp = cache.nearest_checkpoint(log_fingerprint(self.log),
+                                          self._config(), time)
+            if cp is not None and self.t_prev is not None \
+                    and cp.t_prev <= self.t_prev:
+                cp = None
+        sw = self.fork(cp)
+        if sw.t_prev is None or sw.t_prev < time:
+            sw._advance(time)
+            sw.save_checkpoint(cache)
+        return sw
+
     # ---- the sweep ----
 
     def view_at(self, time: int) -> GraphView:
@@ -208,7 +449,7 @@ class SweepBuilder:
         is_vd = k == VERTEX_DELETE
         is_ea = k == EDGE_ADD
         is_ed = k == EDGE_DELETE
-        uvd = uenc = None  # touched entities, recorded into last_delta below
+        uvd = None  # touched vertices, recorded into last_delta below
 
         if self.track_rows:
             new_ea = rows[is_ea]
@@ -239,7 +480,7 @@ class SweepBuilder:
         v_al = np.zeros(len(v_ids), bool)
         v_al[: len(v_ids) - len(dv_del)] = True
 
-        if len(v_ids):
+        def vertex_fold():
             (uvd,), dlat, dalive, dfirst = _fold_latest((v_ids,), v_t, v_al)
             # delta times are strictly later than any prior mark, so the
             # delta's latest wins outright and firsts only fill unseen slots
@@ -248,7 +489,43 @@ class SweepBuilder:
             self.v_first[uvd] = np.where(self.v_seen[uvd],
                                          self.v_first[uvd], dfirst)
             self.v_seen[uvd] = True
+            return uvd
 
+        # the vertex fold runs on a worker, overlapped with the edge fold
+        # below: the two touch disjoint state
+        v_fut = _vfold_pool().submit(vertex_fold) if len(v_ids) else None
+        try:
+            uenc, epos = self._advance_edges(t, is_ea, is_ed, ds_ea, dd_ea,
+                                             ds_ed, dd_ed, dv_del, t_del)
+        finally:
+            # joined even when the edge fold raised: nothing may write
+            # this builder's vertex state once _advance has returned
+            if v_fut is not None:
+                wait([v_fut])
+        if v_fut is not None:
+            uvd = v_fut.result()
+
+        # Touched-entity delta with POST-update fold state, read back from the
+        # running arrays so it is correct no matter which code path (known
+        # pair overwrite / fresh insert / tombstone join) produced the value.
+        tv = uvd if uvd is not None else np.empty(0, np.int64)
+        te = uenc if uenc is not None else np.empty(0, np.int64)
+        if epos is None:
+            epos = np.searchsorted(self.e_enc, te)
+        self.last_delta = {
+            "v_idx": tv, "v_lat": self.v_lat[tv],
+            "v_alive": self.v_alive[tv], "v_first": self.v_first[tv],
+            "e_enc": te, "e_lat": self.e_lat[epos],
+            "e_alive": self.e_alive[epos], "e_first": self.e_first[epos],
+        }
+
+    def _advance_edges(self, t, is_ea, is_ed, ds_ea, dd_ea, ds_ed, dd_ed,
+                       dv_del, t_del):
+        """The edge half of ``_advance``: marks, tombstone joins and the
+        fold into the pair table. Returns the touched pair keys (None when
+        the hop marked no pair) and their table positions when no insert
+        moved them (else None)."""
+        uenc = epos_known = None
         # -- edge delta marks: own add/delete events --
         enc_ea = self._pack(ds_ea, dd_ea)
         enc_ed = self._pack(ds_ed, dd_ed)
@@ -295,7 +572,6 @@ class SweepBuilder:
                 marks_a.append(np.zeros(len(hrows), bool))
 
         all_enc = np.concatenate(marks_enc)
-        epos_known = None
         if len(all_enc):
             all_t = np.concatenate(marks_t)
             all_a = np.concatenate(marks_a)
@@ -343,20 +619,7 @@ class SweepBuilder:
             order = np.argsort(self.dh_v, kind="stable")
             self.dh_v = self.dh_v[order]
             self.dh_t = self.dh_t[order]
-
-        # Touched-entity delta with POST-update fold state, read back from the
-        # running arrays so it is correct no matter which code path (known
-        # pair overwrite / fresh insert / tombstone join) produced the value.
-        tv = uvd if uvd is not None else np.empty(0, np.int64)
-        te = uenc if uenc is not None else np.empty(0, np.int64)
-        epos = epos_known if epos_known is not None \
-            else np.searchsorted(self.e_enc, te)
-        self.last_delta = {
-            "v_idx": tv, "v_lat": self.v_lat[tv],
-            "v_alive": self.v_alive[tv], "v_first": self.v_first[tv],
-            "e_enc": te, "e_lat": self.e_lat[epos],
-            "e_alive": self.e_alive[epos], "e_first": self.e_first[epos],
-        }
+        return uenc, epos_known
 
     def _emit(self, time: int) -> GraphView:
         if not self.track_rows:
@@ -398,3 +661,133 @@ class SweepBuilder:
             ae_s, ae_d, ae_latest, ae_first, self.pad,
             self._ea_rows, self._va_rows, occ, locs,
         )
+
+
+# ------------------------------------------------------------- fold cache
+
+_GOLD = np.uint64(0x9E3779B97F4A7C15)
+
+
+def checksum(a: np.ndarray) -> int:
+    """Order-sensitive 64-bit checksum of a 1-D array's values (floats and
+    bools by their bits; 0 for an empty array)."""
+    if not len(a):
+        return 0
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind in "fb":
+        a = a.view(f"i{a.dtype.itemsize}")
+    h = a.astype(np.int64, copy=False).view(np.uint64)
+    idx = np.arange(len(h), dtype=np.uint64)
+    return int(np.bitwise_xor.reduce((h + _GOLD) * (idx * _GOLD + _GOLD)))
+
+
+def log_fingerprint(log) -> tuple:
+    """Content identity of a pinned log for fold-cache keys: the row count,
+    the append version and an order-sensitive checksum of each column (src
+    and dst apart: a graph must not collide with its transpose). Cached on
+    the pin, which never changes."""
+    fp = getattr(log, "_rtpu_fold_fp", None)
+    if fp is not None:
+        return fp
+    fp = (int(log.n), int(log.version), checksum(log.column("time")),
+          checksum(log.column("src")), checksum(log.column("dst")),
+          checksum(log.column("kind")))
+    log._rtpu_fold_fp = fp
+    return fp
+
+
+class FoldCache:
+    """Bounded cross-request cache of fork checkpoints (``FoldCheckpoint``
+    at the starts of a sweep's forks), least recently used first out: a
+    later sweep over the same log content seeds its forks there instead of
+    folding the prefix again. Every access holds one lock. Callers never
+    write a checkpoint after putting it."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        # (fp, config) -> ascending checkpoint times, for nearest_checkpoint
+        self._ckpt_times: dict = {}
+
+    def _evict_until(self, budget: int) -> None:
+        while self._bytes > budget and self._entries:
+            key, (_, nbytes) = self._entries.popitem(last=False)
+            self._bytes -= nbytes
+            self.evictions += 1
+            self._ckpt_times[key[:2]].remove(key[2])
+
+    def put_checkpoint(self, fp: tuple, cp: FoldCheckpoint) -> bool:
+        """Insert (or refresh) ``cp`` for log ``fp`` and evict past the
+        bound. A checkpoint larger than the whole bound is refused (False):
+        one oversized state must not flush every other entry."""
+        if cp.t_prev is None or cp.nbytes > self.max_bytes:
+            return False
+        key = (fp, cp.config, int(cp.t_prev))
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return True
+            self._entries[key] = (cp, cp.nbytes)
+            self._bytes += cp.nbytes
+            bisect.insort(self._ckpt_times.setdefault((fp, cp.config), []),
+                          int(cp.t_prev))
+            self._evict_until(self.max_bytes)
+        return True
+
+    def nearest_checkpoint(self, fp: tuple, config: tuple,
+                           time: int) -> FoldCheckpoint | None:
+        """The latest cached checkpoint at or before ``time`` for this log
+        and builder config: the fork seed with the shortest prefix left."""
+        with self._lock:
+            times = self._ckpt_times.get((fp, config), ())
+            i = bisect.bisect_right(times, int(time))
+            if i == 0:
+                self.misses += 1
+                return None
+            key = (fp, config, times[i - 1])
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return self._entries[key][0]
+
+    def covers(self, fp: tuple, config: tuple, times) -> bool:
+        """Whether a checkpoint is cached at exactly each of ``times``
+        (neither a hit nor a miss: the engines ask before they choose to
+        fork)."""
+        with self._lock:
+            have = set(self._ckpt_times.get((fp, config), ()))
+        return all(int(t) in have for t in times)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._entries), "bytes": self._bytes,
+                    "max_bytes": self.max_bytes, "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._ckpt_times.clear()
+            self._bytes = 0
+
+
+_FOLD_CACHE = None
+_FOLD_CACHE_LOCK = threading.Lock()
+
+
+def fold_cache() -> FoldCache | None:
+    """The process-wide fold cache, sized by ``RTPU_FOLD_CACHE_MB`` (default
+    256; 0 turns it off), read on every call: a new size swaps in a fresh
+    cache."""
+    global _FOLD_CACHE
+    mb = int(os.environ.get("RTPU_FOLD_CACHE_MB", 256))
+    if mb <= 0:
+        return None
+    with _FOLD_CACHE_LOCK:
+        if _FOLD_CACHE is None or _FOLD_CACHE.max_bytes != mb << 20:
+            _FOLD_CACHE = FoldCache(mb << 20)
+        return _FOLD_CACHE

@@ -17,16 +17,23 @@ derives the window masks on the device
 (``engine/bsp.make_mask_runner``, K7) over them. Results are in the GLOBAL
 dense vertex space: row i is vertex ``uv[i]``.
 
+``run_sweep`` pipelines the hops as the reference does: hop i+1 folds and
+stages on the lookahead lane while hop i ships and runs (``RTPU_PREFETCH``),
+leaving checkpoints in the fold cache at the segment starts; where cached
+checkpoints cover them (a later sweep over the same log and hops), with
+``RTPU_FOLD_WORKERS`` > 1, contiguous segments of hops fold on forked
+builders at once (``core/sweep.py``). Every payload ships from the calling
+thread.
+
 Not ported yet (ROADMAP queue 1 item 5): ``repin`` (incremental re-pin of a
-live log), the lookahead prefetch and forked parallel folds of
-``run_sweep`` (it runs the serial loop), the ``TransferEngine`` and the
-tracer, fault and ledger hooks.
+live log), the ``TransferEngine`` and the tracer, fault and ledger hooks.
 """
 
 from __future__ import annotations
 
 import time as _time
 import weakref
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -34,7 +41,8 @@ import torch
 
 from ..core.events import EDGE_ADD, EDGE_DELETE
 from ..core.snapshot import INT64_MIN, _pad_bucket
-from ..core.sweep import _ENC_MASK, _ENC_SHIFT, SweepBuilder
+from ..core.sweep import (_ENC_MASK, _ENC_SHIFT, SweepBuilder, fold_cache,
+                          fold_pool, fold_workers, prefetch_map, prefetch_on)
 from ..native import lib as _native
 from ..ops.resident import apply_delta_chunk, pack_chunk, window_masks
 from ..utils.device import resolve_device
@@ -248,14 +256,22 @@ class DeviceSweep:
         self.cap_v = max(1024, self.n_pad // 4)
         self.cap_e = max(4096, self.m_pad // 16)
         self.t_now: int | None = None
-        #: host seconds spent folding + staging, device-bound seconds spent
-        #: applying deltas and dispatching (host wall; the superstep loop
-        #: waits on the device once per superstep), and bytes shipped
+        #: host seconds spent folding + staging (summed over the threads
+        #: that folded), device-bound seconds spent applying deltas and
+        #: dispatching (host wall; the superstep loop waits on the device
+        #: once per superstep), and bytes shipped
         self.fold_seconds = 0.0
         self.dispatch_seconds = 0.0
         self.ship_bytes = 0
+        #: the fold seconds by mode (``serial``: this thread or the
+        #: lookahead lane; ``parallel``: forked segments)
+        self.fold_mode_seconds: dict = {}
+        #: run_sweep: seconds the dispatch loop waited on folds (without
+        #: the prefetch, every inline fold)
+        self.fold_stall_seconds = 0.0
         # a failure between fold and device apply leaves t_now ahead of
-        # the buffers — the next fold must restage the full state
+        # the buffers (a lookahead fold may even be past the failed hop):
+        # the next fold must restage the full state
         self._stale = False
 
     @property
@@ -272,7 +288,13 @@ class DeviceSweep:
         rows into the device buffers. Times must be non-decreasing."""
         self._apply_staged(self._fold_hop_inner(time))
 
-    def _fold_hop_inner(self, time: int) -> dict:
+    def _fold_hop_inner(self, time: int, checkpoint_to=None) -> dict:
+        """Host half of one hop: fold events in (t_now, time] and stage the
+        touched rows (``_stage_payload``). Numpy and pinned host memory
+        only, so it may run on the lookahead lane while an earlier hop
+        ships and runs; the payload carries its own hop time. A fold that
+        moves the clock leaves its state in the fold cache
+        ``checkpoint_to``, when given."""
         f0 = _time.perf_counter()
         time = int(time)
         if self.t_now is not None and time < self.t_now:
@@ -280,9 +302,10 @@ class DeviceSweep:
                 raise ValueError(
                     f"DeviceSweep times must ascend "
                     f"(got {time} < {self.t_now})")
-            # stale rewind: the fold only ascends, so rebuild the builder
-            # from the pinned log and refold to `time`; the stale path
-            # below restages the FULL state either way
+            # stale rewind (a lookahead fold may have moved the clock past
+            # the hop a caller retries): the fold only ascends, so rebuild
+            # the builder from the pinned log and refold to `time`; the
+            # stale path below restages the FULL state either way
             self.sw = SweepBuilder(self.sw.log, track_rows=False,
                                    preseed_pairs=True)
             self.t_now = None
@@ -290,6 +313,7 @@ class DeviceSweep:
         if advanced:
             self.sw._advance(time)
             self.t_now = time
+            self.sw.save_checkpoint(checkpoint_to)
         if self._stale:
             self._stale = False
             payload = {"time": time, "kind": "full",
@@ -298,12 +322,18 @@ class DeviceSweep:
             return {"time": time, "kind": "noop"}
         else:
             payload = self._stage_payload(self.sw, time)
-        self.fold_seconds += _time.perf_counter() - f0
+        self._note_fold(_time.perf_counter() - f0, "serial")
         return payload
+
+    def _note_fold(self, seconds: float, mode: str) -> None:
+        self.fold_seconds += seconds
+        self.fold_mode_seconds[mode] = (
+            self.fold_mode_seconds.get(mode, 0.0) + seconds)
 
     def _stage_payload(self, sw, time: int) -> dict:
         """Staged payload for ``sw``'s LAST advance: noop / full refresh /
-        padded delta chunks."""
+        padded delta chunks. The one staging policy of the engine-clock
+        fold and the forked one (``_fold_hop_fork``)."""
         d = sw.last_delta
         nv, ne = len(d["v_idx"]), len(d["e_enc"])
         if nv == 0 and ne == 0:
@@ -456,10 +486,13 @@ class DeviceSweep:
 
     def run_sweep(self, program: VertexProgram, times, *,
                   window: int | None = None, windows=None):
-        """Ascending range sweep, the serial advance/run loop: returns
-        ``(results, steps_list)`` with ``results[i]`` = ``run(program,
-        times[i])``'s result. ``fold_seconds``, ``dispatch_seconds`` and
-        ``ship_bytes`` report this sweep alone."""
+        """Ascending range sweep: returns ``(results, steps_list)`` with
+        ``results[i]`` = ``run(program, times[i])``'s result, whatever the
+        pipeline: the lookahead lane (``RTPU_PREFETCH``, on unless ``0``),
+        forked segments where cached checkpoints cover their starts, or,
+        with the prefetch off, the serial advance/run loop.
+        ``fold_seconds``, ``fold_mode_seconds``, ``fold_stall_seconds``,
+        ``dispatch_seconds`` and ``ship_bytes`` report this sweep alone."""
         if not supported(program):
             raise ValueError(
                 "program needs occurrences or host-materialised properties — "
@@ -468,11 +501,108 @@ class DeviceSweep:
         if sorted(times) != times:
             raise ValueError("run_sweep times must ascend")
         self.fold_seconds = self.dispatch_seconds = 0.0
+        self.fold_mode_seconds = {}
+        self.fold_stall_seconds = 0.0
         self.ship_bytes = 0
         results, steps = [], []
-        for T in times:
-            self.advance(T)
-            r, s = self._dispatch(program, T, window, windows)
+
+        def step(payload, stall):
+            self.fold_stall_seconds += stall
+            self._apply_staged(payload)
+            r, s = self._dispatch(program, payload["time"], window, windows)
             results.append(r)
             steps.append(s)
+
+        if not prefetch_on() or len(times) <= 1:
+            for T in times:
+                t0 = _time.perf_counter()
+                payload = self._fold_hop_inner(T)
+                step(payload, _time.perf_counter() - t0)
+            return results, steps
+        plan = self._sweep_plan(times)
+        if plan is not None and not self._stale \
+                and self.sw.covered(plan[2], plan[1][1:]):
+            self._run_sweep_parallel(times, plan, step)
+            return results, steps
+        # the lane leaves checkpoints at the segments' starts
+        at = set() if plan is None else set(plan[1][1:])
+        cache = None if plan is None else plan[2]
+        try:
+            prefetch_map((partial(self._fold_hop_inner, T,
+                                  cache if T in at else None)
+                          for T in times), step)
+        except BaseException:
+            # the lookahead fold may have moved t_now past the hop whose
+            # dispatch failed: the buffers are behind the clock now
+            self._stale = True
+            raise
         return results, steps
+
+    @staticmethod
+    def _sweep_plan(times):
+        """The forked sweep's plan ``(segments, starts, cache)``: up to
+        ``fold_workers()`` contiguous segments of ``times`` and the time
+        each one's fork starts from (None: the engine clock). None at one
+        worker or with the fold cache off."""
+        workers, cache = fold_workers(), fold_cache()
+        if workers <= 1 or cache is None:
+            return None
+        per = -(-len(times) // min(workers, len(times)))
+        segs = [times[o: o + per] for o in range(0, len(times), per)]
+        starts = [None] + [int(segs[i - 1][-1]) for i in range(1, len(segs))]
+        return segs, starts, cache
+
+    def _run_sweep_parallel(self, times, plan, step) -> None:
+        """Segment-parallel folds: each segment of ``plan`` folds and
+        stages on its own fork of the builder, seeded at its start (a
+        cached checkpoint), on ``fold_pool``, while ``step`` ships and runs
+        the earlier hops on this thread. Each hop's payload is the serial
+        fold's, so the state and results are too. The last fork becomes
+        the engine's builder: the clock and the builder move only together,
+        here."""
+        if self.t_now is not None and times[0] < self.t_now:
+            raise ValueError(f"DeviceSweep times must ascend "
+                             f"(got {times[0]} < {self.t_now})")
+        segs, starts, cache = plan
+
+        def task(i: int):
+            t0 = _time.perf_counter()
+            sw = self.sw.fork() if starts[i] is None \
+                else self.sw.fork_at(starts[i], cache)
+            prev = sw.t_prev
+            payloads = []
+            for T in segs[i]:
+                payloads.append(self._fold_hop_fork(sw, T, prev))
+                prev = T
+            return sw, payloads, _time.perf_counter() - t0
+
+        last_sw = [self.sw]
+
+        def consume(res, stall):
+            sw, payloads, dt = res
+            self._note_fold(dt, "parallel")
+            self.fold_stall_seconds += stall
+            last_sw[0] = sw
+            for payload in payloads:
+                step(payload, 0.0)
+
+        try:
+            prefetch_map([partial(task, i) for i in range(len(segs))],
+                         consume, depth=len(segs), pool=fold_pool())
+        except BaseException:
+            # a fork's payloads may be ahead of the applied buffers while
+            # self.sw and t_now never moved: restage through the full
+            # refresh
+            self._stale = True
+            raise
+        self.sw = last_sw[0]
+        self.t_now = times[-1]
+
+    def _fold_hop_fork(self, sw, time: int, prev) -> dict:
+        """``_fold_hop_inner`` on a forked builder: fold events in (prev,
+        time] and stage the touched rows. The engine's clock, stale flag
+        and telemetry are the calling loop's business."""
+        if prev is not None and time <= prev:
+            return {"time": time, "kind": "noop"}
+        sw._advance(time)
+        return self._stage_payload(sw, time)

@@ -8,8 +8,10 @@ state rebuilt on the device from a base snapshot plus the host fold's
 per-hop touched-entity deltas (deletes and revivals included, not an
 add-only approximation).
 
-Port of ``raphtory_tpu/engine/hopbatch.py`` on its serial fold paths: the
-host fold is the same numpy/C++ code, and the device side runs the
+Port of ``raphtory_tpu/engine/hopbatch.py``: the host fold is the same
+numpy/C++ code and its pipeline (the lookahead prefetch, forked parallel
+chunk folds, the cross-request fold cache of ``core/sweep.py``), and the
+device side runs the
 hand-written kernels of ``ops/columns.py`` — K1 (``masks_from_deltas``)
 rebuilds the masks from a base plus per-hop deltas (the default
 ``RTPU_FOLD=delta`` route), K3 (``column_masks``) builds them from the
@@ -47,12 +49,14 @@ from __future__ import annotations
 import logging
 import os
 import time as _time
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..core.events import EDGE_ADD, EventLog
-from ..core.sweep import SweepBuilder
+from ..core.sweep import (SweepBuilder, fold_cache, fold_pool, fold_workers,
+                          prefetch_map, prefetch_on)
 from ..ops import columns, minplus
 from ..ops import partition as _partition
 from ..ops.partition import BinnedEdges
@@ -593,14 +597,22 @@ class _HopBatched:
     """Shared incremental fold → per-hop state (deletes included).
 
     ``run(hop_times, windows, chunks=k)`` splits the sweep into ``k`` equal
-    hop groups, each folded on the host and then dispatched. On the default
-    delta route (``RTPU_FOLD=delta``) the first group ships a base
-    snapshot, later groups only deltas onto the device-resident advanced
-    base (K1); on ``RTPU_FOLD=host`` every group ships its hop-major
-    ``[H, m_pad]`` fold columns (K3). Both routes build the same masks, so
-    their results are bitwise equal. Results match ``chunks=1`` (hop-major
-    concatenation; bitwise for CC and BFS/SSSP, within solver tolerance for
-    PageRank)."""
+    hop groups. On the default delta route (``RTPU_FOLD=delta``) the first
+    group ships a base snapshot, later groups only deltas onto the
+    device-resident advanced base (K1); on ``RTPU_FOLD=host`` every group
+    ships its hop-major ``[H, m_pad]`` fold columns (K3). Both routes build
+    the same masks, so their results are bitwise equal. Results match
+    ``chunks=1`` (hop-major concatenation; bitwise for CC and BFS/SSSP,
+    within solver tolerance for PageRank).
+
+    The fold pipeline, with the reference's knobs: group ``c+1`` folds on
+    the lookahead lane while group ``c`` dispatches (``RTPU_PREFETCH``,
+    default on), and the lane leaves fork checkpoints in the cross-request
+    fold cache (``RTPU_FOLD_CACHE_MB``). Where cached checkpoints cover
+    every fork's start (a later sweep over the same log and hop grid), the
+    groups (or one group's hops) fold concurrently on forked builders
+    instead (up to ``RTPU_FOLD_WORKERS``), byte-equal to the serial fold.
+    Dispatches stay on the calling thread, in group order."""
 
     #: set True by subclasses whose iteration is a contraction (safe to
     #: warm-start from the previous chunk's solution)
@@ -612,6 +624,11 @@ class _HopBatched:
     #: (``supports_warm_start``) accept the seed unconditionally.
     supports_epoch_warm = False
 
+    #: False where the fold threads SEQUENTIAL state of its own through
+    #: the engine (SSSP's weight cursor): such an engine folds on the
+    #: shared builder whatever ``RTPU_FOLD_WORKERS`` says
+    supports_parallel_fold = True
+
     def __init__(self, log: EventLog, device=None):
         self.device = resolve_device(device)
         # fold state only — the columnar engine never emits GraphViews
@@ -620,8 +637,16 @@ class _HopBatched:
         # cache key for the device edge tables: the CALLER's log object
         # (sw.log is a fresh pin per engine and would never hit)
         self._log = log
-        #: host seconds spent folding in the LAST run()
+        #: fold seconds of the LAST run(), summed over the threads that
+        #: folded (worker seconds: may exceed the run's wall time)
         self.fold_seconds = 0.0
+        #: the LAST run()'s fold seconds by mode: ``serial`` (this thread
+        #: or the lookahead lane) and ``parallel`` (forked units)
+        self.fold_mode_seconds: dict = {}
+        #: seconds the LAST run()'s dispatch loop waited on folds (0: every
+        #: fold hid behind a dispatch; without the prefetch, every inline
+        #: fold)
+        self.fold_stall_seconds = 0.0
         #: host wall seconds the LAST run() spent in its dispatches (H2D,
         #: kernels and the superstep loop, which waits on the device once
         #: per superstep)
@@ -668,9 +693,14 @@ class _HopBatched:
         lay = self._resolve_layout()
         spec = None if lay is None else lay.spec
         if self._dev_base is not None and self._dev_base_spec != spec:
-            self._dev_base = None
+            self._drop_residency()
         self._active_layout = lay
         return lay
+
+    def _drop_residency(self) -> None:
+        """Forget the device-resident advanced base: the next delta batch
+        ships a base snapshot from the host clock."""
+        self._dev_base = None
 
     def _use_delta_fold(self) -> bool:
         """The fold route, read at dispatch: ``RTPU_FOLD=host`` ships the
@@ -724,7 +754,7 @@ class _HopBatched:
         try:
             out, steps, adv = fn()
         except Exception:
-            self._dev_base = None
+            self._drop_residency()
             raise
         self._dev_base = adv
         self._dev_base_spec = (None if self._active_layout is None
@@ -739,7 +769,8 @@ class _HopBatched:
         fixed point, reached in fewer steps when consecutive hops differ
         little); warm results agree with cold ones to the solver
         tolerance. ``hop_callback(T, sweep_builder)`` fires after each
-        hop's fold.
+        hop's fold; under parallel folds it fires on worker threads, in any
+        hop order (key what it keeps by ``T``).
 
         ``warm_state`` (a previous ``run``'s output, ``[C_prev, n_pad]``
         with the SAME window count) seeds the FIRST dispatch the same way:
@@ -748,6 +779,8 @@ class _HopBatched:
         monotone (add-only, unwindowed) gate the CALLER must enforce; SSSP
         ignores it (a weight update can raise a pair's weight)."""
         self.fold_seconds = 0.0
+        self.fold_mode_seconds = {}
+        self.fold_stall_seconds = 0.0
         self.dispatch_seconds = 0.0
         self.ship_bytes = 0
         if warm_start and not self.supports_warm_start:
@@ -774,14 +807,39 @@ class _HopBatched:
             # device-resident base, and an advance that aborted before
             # _apply_delta_to_base leaves the running host base missing
             # that window: drop both, the next batch re-materialises
-            self._dev_base = None
+            self._drop_residency()
             self._delta_base = None
             raise
 
-    def _run_chunks(self, hop_times, windows, chunks, warm_start,
-                    hop_callback):
-        self._check_forward(hop_times)
-        delta = self._use_delta_fold()
+    def _observe_fold(self, seconds: float, mode: str) -> None:
+        self.fold_mode_seconds[mode] = (
+            self.fold_mode_seconds.get(mode, 0.0) + float(seconds))
+
+    def _dispatch_group(self, payload, group, windows, delta, warm_start,
+                        outs) -> None:
+        """Dispatch one group's payload and append ``(out, steps)`` to
+        ``outs``. Warm start seeds it with the previous group's FULL output
+        (its last hop's W rows are tiled per hop inside the dispatch), the
+        first group with the epoch seed."""
+        if outs:
+            r_init = outs[-1][0] if warm_start else None
+        else:
+            r_init = self._epoch_seed
+        d0 = _time.perf_counter()
+        if delta:
+            out = self._dispatch_deltas(payload, group, windows,
+                                        r_init=r_init)
+        else:
+            out = self._dispatch_cols(payload, group, windows, r_init=r_init)
+        self.dispatch_seconds += _time.perf_counter() - d0
+        outs.append(out)
+
+    @staticmethod
+    def _gather(outs):
+        return (torch.cat([o for o, _ in outs], dim=0),
+                max(s for _, s in outs))
+
+    def _groups(self, hop_times, chunks, warm_start=False):
         if chunks == 1 or len(hop_times) % chunks:
             # unequal groups are not pipelined: one dispatch
             if warm_start and chunks > 1:
@@ -789,29 +847,229 @@ class _HopBatched:
                     "%d hops do not split into %d equal chunks — running "
                     "one cold dispatch (warm_start has no effect)",
                     len(hop_times), chunks)
-            groups = [list(hop_times)]
+            return [list(hop_times)]
+        per = len(hop_times) // chunks
+        return [hop_times[c * per: (c + 1) * per] for c in range(chunks)]
+
+    def _run_chunks(self, hop_times, windows, chunks, warm_start,
+                    hop_callback):
+        self._check_forward(hop_times)
+        delta = self._use_delta_fold()
+        groups = self._groups(hop_times, chunks, warm_start)
+        plan = self._fold_plan(groups, delta) if prefetch_on() else None
+        outs = []
+        if self._forks_pay(plan):
+            self._fold_groups_parallel(
+                groups, plan, hop_callback, delta,
+                lambda c, p: self._dispatch_group(p, groups[c], windows,
+                                                  delta, warm_start, outs))
         else:
-            per = len(hop_times) // chunks
-            groups = [hop_times[c * per: (c + 1) * per]
-                      for c in range(chunks)]
-        outs, steps = [], 0
-        fold = self._fold_deltas if delta else self._fold_columns
-        dispatch = self._dispatch_deltas if delta else self._dispatch_cols
-        for group in groups:
-            _, payload = fold(group, hop_callback)
-            # warm start: the previous chunk's FULL output (the epoch seed
-            # for the first dispatch); its last hop's W rows are tiled per
-            # hop of this group inside the dispatch
-            if outs:
-                r_init = outs[-1] if warm_start else None
+            self._fold_dispatch_serial(
+                groups, windows, warm_start,
+                self._checkpointing(hop_callback, plan), delta, outs)
+        return self._gather(outs)
+
+    def _fold_plan(self, groups, delta):
+        """The forked fold's plan ``(units, starts, cache)``: its units
+        ``(group, hops, row offset)``, one a group or one group split
+        across the workers, and the time each unit's fork starts from
+        (None: the engine clock, to which a resident delta base pins unit
+        0). None where this engine folds serially whatever the cache holds:
+        one worker, one unit, a fold that cannot fork, or no cache."""
+        workers = fold_workers()
+        cache = fold_cache()
+        if workers <= 1 or not self.supports_parallel_fold or cache is None:
+            return None
+        if len(groups) == 1:
+            hops0 = groups[0]
+            per = -(-len(hops0) // min(workers, len(hops0)))
+            units = [(0, hops0[o: o + per], o)
+                     for o in range(0, len(hops0), per)]
+        else:
+            units = [(c, g, 0) for c, g in enumerate(groups)]
+        if len(units) < 2:
+            return None
+        resident0 = delta and self._dev_base is not None
+        # unit 0 emits absolute state unless the resident chain pins it to
+        # the engine clock (its catch-up delta covers (clock, first hop])
+        starts = [None if resident0 else int(units[0][1][0])]
+        starts += [int(units[u - 1][1][-1]) for u in range(1, len(units))]
+        return units, starts, cache
+
+    def _forks_pay(self, plan) -> bool:
+        """Fork only where cached checkpoints cover every unit's start: a
+        cold fork re-folds its whole prefix, and the forks lost to the
+        serial lane so on the card's host (PERF.md §6)."""
+        return plan is not None and self.sw.covered(
+            plan[2], [t for t in plan[1] if t is not None])
+
+    @staticmethod
+    def _checkpointing(hop_callback, plan):
+        """``hop_callback`` that also leaves a checkpoint at each start of
+        ``plan``'s forks as the serial fold passes it, so the next sweep
+        over this log and grid can fork there."""
+        if plan is None:
+            return hop_callback
+        _, starts, cache = plan
+        at = {t for t in starts if t is not None}
+
+        def cb(T, sw):
+            if int(T) in at:
+                sw.save_checkpoint(cache)
+            if hop_callback is not None:
+                hop_callback(T, sw)
+        return cb
+
+    def _fold_dispatch_serial(self, groups, windows, warm_start,
+                              hop_callback, delta, outs) -> None:
+        """The shared-builder pipeline: the groups fold one at a time on
+        the lookahead lane (``PREFETCH_DEPTH`` queued ahead) while earlier
+        groups dispatch on this thread into ``outs``; without the prefetch,
+        fold and dispatch alternate here."""
+
+        def fold(group, lookahead: bool):
+            # a lookahead fold runs BEFORE the previous group's delta
+            # dispatch has left its device-resident base: it must assume
+            # it, or chunks 2+ would ship a base the serial loop never does
+            t0 = _time.perf_counter()
+            if delta:
+                _, p = self._fold_deltas(group, hop_callback,
+                                         assume_resident=lookahead)
             else:
-                r_init = self._epoch_seed
-            d0 = _time.perf_counter()
-            out, st = dispatch(payload, group, windows, r_init=r_init)
-            self.dispatch_seconds += _time.perf_counter() - d0
-            outs.append(out)
-            steps = max(steps, st)
-        return torch.cat(outs, dim=0), steps
+                _, p = self._fold_columns(group, hop_callback)
+            self._observe_fold(_time.perf_counter() - t0, "serial")
+            return group, p
+
+        def dispatch(fold_out, stall):
+            group, payload = fold_out
+            self.fold_stall_seconds += stall
+            self._dispatch_group(payload, group, windows, delta, warm_start,
+                                 outs)
+
+        if prefetch_on() and len(groups) > 1:
+            prefetch_map((partial(fold, g, c > 0)
+                          for c, g in enumerate(groups)), dispatch)
+        else:
+            for g in groups:
+                t0 = _time.perf_counter()
+                out = fold(g, False)
+                dispatch(out, _time.perf_counter() - t0)
+
+    def fold_payloads(self, hop_times, chunks: int = 1):
+        """Fold the sweep's group payloads WITHOUT dispatching them: the
+        serial / parallel A/B surface. Chooses as ``run`` does: forked
+        folds where cached checkpoints cover every fork's start, else the
+        serial fold, which leaves those checkpoints (at more than one
+        ``RTPU_FOLD_WORKERS``). Returns ``(groups, payloads)``, one payload
+        a group, byte-equal to what ``run(hop_times, ..., chunks=chunks)``
+        dispatches."""
+        hop_times = [int(x) for x in hop_times]
+        self._check_forward(hop_times)
+        chunks = max(1, min(int(chunks), len(hop_times)))
+        self._sync_layout()
+        groups = self._groups(hop_times, chunks)
+        delta = self._use_delta_fold()
+        plan = self._fold_plan(groups, delta)
+        if self._forks_pay(plan):
+            payloads = self._fold_groups_parallel(groups, plan, None, delta,
+                                                  lambda c, p: None)
+            return groups, payloads
+        cb = self._checkpointing(None, plan)
+        payloads = []
+        for c, g in enumerate(groups):
+            t0 = _time.perf_counter()
+            if delta:
+                # groups 1+ fold all-delta as the pipelined run does (the
+                # previous group's dispatch leaves a resident base)
+                _, p = self._fold_deltas(g, cb, assume_resident=c > 0)
+            else:
+                _, p = self._fold_columns(g, cb)
+            self._observe_fold(_time.perf_counter() - t0, "serial")
+            payloads.append(p)
+        return groups, payloads
+
+    def _fold_groups_parallel(self, groups, plan, hop_callback, delta,
+                              on_payload):
+        """Parallel chunk folds: every unit of ``plan`` runs on its own fork
+        of the engine's builder, seeded at its start (a cached checkpoint)
+        on ``fold_pool``; the units of one group write absolute column rows
+        or delta lists, so the parts concatenate. ``on_payload(c,
+        payload)`` fires on THIS thread as each group completes, in group
+        order. The last fork becomes the engine's builder. Returns the
+        payloads, one a group."""
+        units, starts, cache = plan
+        left = [0] * len(groups)
+        for c, _, _ in units:
+            left[c] += 1
+        cols_out = None
+        if not delta:
+            # this route advances the fold WITHOUT the running delta base,
+            # as the serial _fold_columns does
+            self._delta_base = None
+            self._drop_residency()
+            # each group's columns in one staged buffer, allocated here;
+            # the workers write their rows into its views
+            cols_out = [self._stage_columns(len(g)) for g in groups]
+
+        def task(u: int):
+            c, hops, off = units[u]
+            t0 = _time.perf_counter()
+            sw = self.sw.fork() if starts[u] is None \
+                else self.sw.fork_at(starts[u], cache)
+            part = None
+            if delta:
+                part = self._fold_deltas_fork(
+                    sw, hops, c == 0 and off == 0 and starts[0] is not None,
+                    hop_callback)
+            else:
+                self._fold_columns_fork(sw, hops, hop_callback, cols_out[c],
+                                        off)
+            return u, sw, part, _time.perf_counter() - t0
+
+        pending: dict = {}
+        payloads = [None] * len(groups)
+        last_sw = [None]
+
+        def consume(res, stall):
+            u, sw, part, dt = res
+            self.fold_seconds += dt
+            self._observe_fold(dt, "parallel")
+            self.fold_stall_seconds += stall
+            last_sw[0] = sw
+            c = units[u][0]
+            pending.setdefault(c, []).append(part)
+            left[c] -= 1
+            if left[c]:
+                return
+            parts = pending.pop(c)
+            if delta:
+                payload = parts[0] if len(parts) == 1 \
+                    else self._merge_delta_parts(parts)
+            else:
+                payload = cols_out[c]
+                self.ship_bytes += sum(a.nbytes for a in payload)
+            payloads[c] = payload
+            on_payload(c, payload)
+
+        prefetch_map([partial(task, u) for u in range(len(units))], consume,
+                     depth=len(units), pool=fold_pool())
+        # the engine's fold clock ends at the sweep's last hop, as the
+        # serial fold leaves it; the running host base never moved, so it
+        # goes (a resident batch re-materialises it from this builder)
+        self.sw = last_sw[0]
+        self._delta_base = None
+        return payloads
+
+    @staticmethod
+    def _merge_delta_parts(parts):
+        """The delta payloads of ONE group's units, concatenated: part 0
+        may carry the base; each later unit's hop 0 is the catch-up from
+        the unit before, the serial fold's window."""
+        deltas_e, deltas_v = [], []
+        for p in parts:
+            deltas_e.extend(p[1])
+            deltas_v.extend(p[2])
+        return (parts[0][0], deltas_e, deltas_v)
 
     def _check_forward(self, hop_times) -> None:
         if sorted(hop_times) != hop_times:
@@ -826,7 +1084,7 @@ class _HopBatched:
 
     def _materialise_base(self, sw):
         """Full engine-coordinate base arrays from a builder's fold state
-        (the delta path's hop-0 snapshot)."""
+        (the delta path's hop-0 snapshot, a column group's first row)."""
         t = self.tables
         tdt = t.tdtype
         be_lat = np.full(t.m_pad, t.tmin, tdt)
@@ -849,50 +1107,57 @@ class _HopBatched:
             (t.m_pad, t.tdtype), (t.m_pad, bool), (t.n_pad, t.tdtype),
             (t.n_pad, bool))]
 
+    def _stage_columns(self, H: int) -> Staged:
+        """A fresh staging buffer for an ``H``-hop group's columns, pinned
+        when the engine's device is the card (one non-blocking copy)."""
+        return stage(self._column_specs(H), pin=self.device.type == "cuda")
+
     def _fold_columns(self, hop_times, hop_callback=None):
         """Host-column fold: hop-major state columns ``[H, m_pad]`` /
-        ``[H, n_pad]`` (lat, alive) — hop 0 writes the full fold state,
-        every later hop copies the previous row (contiguous in this layout)
-        and scatters the hop's touched-entity delta (``sweep.last_delta``).
-        The device builds the masks from them (K3). Returns the columns
-        (and any further ones of ``_column_specs``, left for the subclass
-        to fill) as one ``Staged`` buffer, pinned when the engine's device
-        is the card: the dispatch ships them in one non-blocking copy."""
+        ``[H, n_pad]`` (lat, alive), written into one fresh ``Staged``
+        buffer (``_stage_columns``; any further columns of
+        ``_column_specs`` are left for the subclass to fill). The device
+        builds the masks from them (K3)."""
         f0 = _time.perf_counter()
         # this route advances the shared SweepBuilder WITHOUT updating the
         # running delta base, and the device-resident advanced base falls
         # behind it: a later delta-route call must rebuild both, or it
         # would scatter one hop's delta onto a stale base
         self._delta_base = None
-        self._dev_base = None
-        t = self.tables
+        self._drop_residency()
         hop_times = [int(x) for x in hop_times]
         self._check_forward(hop_times)
-        H = len(hop_times)
-        # every row is written whole: row 0 from the fold state, the rest
-        # copied from the row before
-        staged = stage(self._column_specs(H),
-                       pin=self.device.type == "cuda")
-        e_lat, e_alive, v_lat, v_alive = cols = staged[:4]
-        for j, T in enumerate(hop_times):
-            self.sw._advance(T)
+        staged = self._stage_columns(len(hop_times))
+        self._fold_columns_fork(self.sw, hop_times, hop_callback, staged, 0)
+        self.fold_seconds += _time.perf_counter() - f0
+        self.ship_bytes += sum(a.nbytes for a in staged[:4])
+        return hop_times, staged
+
+    def _fold_columns_fork(self, sw, group, hop_callback, out,
+                           off: int) -> None:
+        """The column fold of ``group`` on builder ``sw``, into rows
+        ``[off, off + len(group))`` of ``out``: the first row whole from
+        the fold state, every later one copied from the row before (
+        contiguous in this layout) with the hop's touched-entity delta
+        (``sw.last_delta``) scattered in. Every row is absolute state, so
+        units of one group fold independently into one buffer."""
+        e_lat, e_alive, v_lat, v_alive = cols = out[:4]
+        for j, T in enumerate(group):
+            sw._advance(T)
             if hop_callback is not None:
-                hop_callback(T, self.sw)
+                hop_callback(T, sw)
+            r = off + j
             if j == 0:
-                for col, row in zip(cols, self._materialise_base(self.sw)):
-                    col[0] = row
+                for col, row in zip(cols, self._materialise_base(sw)):
+                    col[r] = row
                 continue
             for col in cols:
-                col[j] = col[j - 1]
-            de, dv = self._delta_eng(self.sw.last_delta)
+                col[r] = col[r - 1]
+            de, dv = self._delta_eng(sw.last_delta)
             for (pos, lat, alive), lat_col, alive_col in (
                     (de, e_lat, e_alive), (dv, v_lat, v_alive)):
-                lat_col[j, pos] = lat
-                alive_col[j, pos] = alive
-        self.fold_seconds += _time.perf_counter() - f0
-        self.ship_bytes += (e_lat.nbytes + e_alive.nbytes + v_lat.nbytes
-                            + v_alive.nbytes)
-        return hop_times, staged
+                lat_col[r, pos] = lat
+                alive_col[r, pos] = alive
 
     def _delta_eng(self, d):
         """``sweep.last_delta`` → engine-coordinate (pos, lat, alive)
@@ -915,14 +1180,19 @@ class _HopBatched:
         bv_alive[dv[0]] = dv[2]
         return de, dv
 
-    def _fold_deltas(self, hop_times, hop_callback=None):
+    def _fold_deltas(self, hop_times, hop_callback=None,
+                     assume_resident: bool = False):
         """Delta fold: the state at each batch's first hop (the base) plus
         per-hop touched-entity (pos, lat, alive) lists — the device
         rebuilds the hop columns (K1). Host work and H2D bytes are
         O(base + Σ delta) instead of O(H · m_pad). The base is a RUNNING
         array updated by O(delta) scatters, so chunked sweeps pay the
         full-table materialisation once, not per chunk; with a live
-        device-resident base the batch ships no base at all."""
+        device-resident base the batch ships no base at all.
+        ``assume_resident=True`` is the lookahead's promise that the
+        PREVIOUS group's dispatch will have left a resident base by the
+        time this payload dispatches (a failed dispatch ends the run
+        before the payload is used)."""
         f0 = _time.perf_counter()
         hop_times = [int(x) for x in hop_times]
         self._check_forward(hop_times)
@@ -931,7 +1201,13 @@ class _HopBatched:
         ship_base = None
         # a live device-resident base makes this batch all-delta: hop 0's
         # catch-up ships in the delta[0] slot instead of a base snapshot
-        resident = self._dev_base is not None and self._delta_base is not None
+        resident = assume_resident or self._dev_base is not None
+        if resident and self._delta_base is None \
+                and self.sw.t_prev is not None:
+            # a parallel fold adopted a fork and dropped the running base:
+            # rebuild it at the adopted clock, where the resident state is
+            self._delta_base = list(self._materialise_base(self.sw))
+        resident = resident and self._delta_base is not None
         empty = (np.empty(0, np.int32), np.empty(0, tdt),
                  np.empty(0, bool))
         for j, T in enumerate(hop_times):
@@ -954,6 +1230,32 @@ class _HopBatched:
                 deltas_v.append(empty)
         self.fold_seconds += _time.perf_counter() - f0
         return hop_times, (ship_base, deltas_e, deltas_v)
+
+    def _fold_deltas_fork(self, sw, group, ship_base: bool, hop_callback):
+        """The delta fold of one unit on a FORKED builder, the parallel
+        twin of ``_fold_deltas``: no engine state is touched. With
+        ``ship_base`` hop 0 is a full base snapshot (the first unit of a
+        non-resident sweep); otherwise every hop is a delta, hop 0 the
+        catch-up from the unit before — the serial fold's windows, so the
+        assembled payload is byte-equal."""
+        tdt = self.tables.tdtype
+        deltas_e, deltas_v = [], []
+        base = None
+        empty = (np.empty(0, np.int32), np.empty(0, tdt),
+                 np.empty(0, bool))
+        for j, T in enumerate(group):
+            sw._advance(T)
+            if hop_callback is not None:
+                hop_callback(T, sw)
+            if j == 0 and ship_base:
+                base = self._materialise_base(sw)
+                deltas_e.append(empty)
+                deltas_v.append(empty)
+            else:
+                de, dv = self._delta_eng(sw.last_delta)
+                deltas_e.append(de)
+                deltas_v.append(dv)
+        return (base, deltas_e, deltas_v)
 
 
 class HopBatchedPageRank(_HopBatched):
@@ -1057,6 +1359,10 @@ class HopBatchedSSSP(HopBatchedBFS):
     #: a weight update can RAISE a pair's weight — old distances become
     #: stale under-estimates, so SSSP never takes a cross-epoch seed
     supports_epoch_warm = False
+
+    #: the weight fold advances a SEQUENTIAL cursor over the sorted update
+    #: stream: its chunk folds cannot fork
+    supports_parallel_fold = False
 
     def host_column_bytes(self, n_hops: int) -> int:
         extra = self.tables.m_pad * 4   # the weight base (delta route)
@@ -1163,8 +1469,10 @@ class HopBatchedSSSP(HopBatchedBFS):
                 wd.append((pos, val))
         return w_base, wd
 
-    def _fold_deltas(self, hop_times, hop_callback=None):
-        hop_times, payload = super()._fold_deltas(hop_times, hop_callback)
+    def _fold_deltas(self, hop_times, hop_callback=None,
+                     assume_resident: bool = False):
+        hop_times, payload = super()._fold_deltas(hop_times, hop_callback,
+                                                  assume_resident)
         # payload[0] is None exactly when the mask fold went all-delta
         # against the device-resident base — the weight fold must match
         return hop_times, (*payload,
