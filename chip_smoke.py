@@ -2384,7 +2384,10 @@ def segment_kernels(torch, np, segment, resident, gab, btc, view_shapes,
              ("sum", "f32", "dst", btc, 3), ("sum", "i32", "src", btc, 3),
              ("min", "i32", "dst", btc, 3), ("sum", "f32", "src", btc, 3),
              ("max", "f32", "src", btc, 3), ("min", "f32", "src", btc, 1),
-             ("max", "i32", "src", btc, 3)]
+             ("max", "i32", "src", btc, 3),
+             # BinaryDiffusion's combine: int32 max at the destination,
+             # its Views' windows at the GAB shape
+             ("max", "i32", "dst", gab, 3)]
     for op, dt, direction, t, k in cases:
         csr = csr_of(t, direction)
         x, mask, _ = inputs(t, k, dt)
@@ -3883,6 +3886,54 @@ def phase_scale_bulk(torch, np, columns, dev):
     return launches, errs, pcpm_launches, pcpm_errs
 
 
+def binned_upload(torch, np, lay, dev, reverse: bool, reps: int = 3):
+    """A binned layout's device tables as its dispatch ships them (the six
+    ``device_args`` tables, then the walks, the source walk with
+    ``reverse``) two ways in turns, ``reps`` rounds, the first in each
+    round alternating: the parent tree's one pageable ``.to`` a table, and
+    this tree's two ``put_many`` through the shared transfer engine; every
+    table held bitwise. Seconds a round each way (synchronized), their
+    medians' ratio, and the engine's stats over its rounds."""
+    import statistics
+
+    from raphtory_tpu_torch.utils.transfer import shared_engine
+
+    eng = shared_engine()
+    args = [lay.b_src, lay.b_dst, lay.valid, lay.slot, lay.u_src, lay.perm]
+    walks = list(lay.walk(False)) + (list(lay.walk(True)) if reverse
+                                     else [])
+
+    def parent():
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in args + walks]
+
+    def engine():
+        return eng.put_many(args, dev) + eng.put_many(walks, dev)
+
+    secs = {"parent": [], "engine": []}
+    prior = eng.stats.as_dict()
+    for r in range(reps):
+        order = (("parent", parent), ("engine", engine))
+        got = {}
+        for name, fn in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = fn()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+        if not all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got["parent"], got["engine"])):
+            raise AssertionError("binned upload: the engine's tables differ "
+                                 "from the parent's")
+        del got
+    return dict(bytes=int(sum(a.nbytes for a in args + walks)),
+                tables=len(args + walks), parent_s=secs["parent"],
+                engine_s=secs["engine"],
+                ratio=statistics.median(secs["engine"])
+                / statistics.median(secs["parent"]),
+                engine_stats=eng.stats.delta_since(prior))
+
+
 def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
                     flat_ranks, flat_steps):
     """The binned route (knob unset: auto) on ``scale_bulk``'s load: the
@@ -3993,7 +4044,8 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
     k2bp = dict(k2bp_bound_ms=k2bp_bound(real, n_pad, C, int(me.sum()))[0],
                 **{f"k2bp_{k}": v for k, v in gather_bounds(
                     torch, me, real, n_pad, C, 8).items()})
-    del me, rd, agg
+    del me, rd, agg, be
+    upload = binned_upload(torch, np, lay, kw["device"], reverse=True)
     best = min(reps)
     PHASE_S["scale_bulk_pcpm"] = time.perf_counter() - t_phase
     emit("scale_bulk_pcpm", spec=spec_of(lay), layout_build_s=layout_build_s,
@@ -4002,7 +4054,7 @@ def scale_bulk_pcpm(torch, np, columns, bulk, base_e, base_v, sweep, kw,
          k2a_ms_per_call=k2a_ms, k2bp_ms_per_superstep=k2bp_ms, **k2bp,
          bitwise_vs_k2b=True, peak_device_bytes=peak, **k4,
          launches=launches, bitwise_vs_unbinned=True,
-         max_abs_err_vs_twins=errs)
+         max_abs_err_vs_twins=errs, binned_upload=upload)
     return launches, errs
 
 
@@ -4798,6 +4850,9 @@ def phase_taint(torch, np, columns, segment, dev):
                                                  RangeQuery, ViewQuery)
     from raphtory_tpu_torch.ops import partition
     from raphtory_tpu_torch.utils.synth import bitcoin_like_log
+    from raphtory_tpu_torch.utils.transfer import shared_engine
+
+    xfer = shared_engine().stats
 
     def knob(value):
         if value is None:
@@ -4846,11 +4901,15 @@ def phase_taint(torch, np, columns, segment, dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             columns.reset_launches()
+            prior = xfer.as_dict()
             t0 = time.perf_counter()
             res, steps = bsp.run(prog, view, windows=list(TAINT_WINDOWS),
                                  device=dev)
             torch.cuda.synchronize()
             dispatch_s = time.perf_counter() - t0
+            # the binned layout's device tables through the transfer
+            # engine (bytes, slices, stage / wire seconds)
+            transfer = xfer.delta_since(prior)
             launches = dict(columns.LAUNCHES)
             peak = torch.cuda.max_memory_allocated()
             columns.reset_launches()
@@ -4860,7 +4919,8 @@ def phase_taint(torch, np, columns, segment, dev):
             job_launches = dict(columns.LAUNCHES)
             results[route] = (res.cpu(), steps, rows)
             view_runs[route] = dict(
-                dispatch_s=dispatch_s, job_s=job_s, supersteps=steps,
+                dispatch_s=dispatch_s, transfer=transfer, job_s=job_s,
+                supersteps=steps,
                 tainted=[int(v) for v in (res < IMAX).sum(dim=1).cpu()],
                 launches=nonzero(launches),
                 job_launches=nonzero(job_launches), peak_device_bytes=peak)
@@ -4873,6 +4933,9 @@ def phase_taint(torch, np, columns, segment, dev):
                                {kk: r[what].get(kk, 0) for kk in ks}, ks)
         if view_runs["binned"]["launches"].get("segment_combine_i64"):
             raise AssertionError("taint: the binned View ran K7 on int64")
+        if view_runs["binned"]["transfer"]["bytes_shipped"] <= 0:
+            raise AssertionError("taint: the binned View's device tables "
+                                 "did not go through the transfer engine")
         (b, bs, brows), (u, us, urows) = results["binned"], \
             results["unbinned"]
         if not torch.equal(b, u) or bs != us:
@@ -4883,8 +4946,10 @@ def phase_taint(torch, np, columns, segment, dev):
         # more on each route, its layout cached for the view
         for route, value in (("binned", None), ("unbinned", "0")):
             knob(value)
+            prior = xfer.as_dict()
             again, _, view_runs[route]["split_s"] = split_run(
                 bsp, prog, view, dev, windows=list(TAINT_WINDOWS))
+            view_runs[route]["split_transfer"] = xfer.delta_since(prior)
             if not torch.equal(again.cpu(), results[route][0]):
                 raise AssertionError(f"taint View {route}: the split run "
                                      "differs")
@@ -4900,6 +4965,7 @@ def phase_taint(torch, np, columns, segment, dev):
                                  "its dispatch")
         kernels = taint_kernels(torch, np, segment, bsp, view, lay,
                                 len(TAINT_WINDOWS), dev)
+        upload = binned_upload(torch, np, lay, dev, reverse=False)
         edge_cases = taint_edge_cases(torch, np, segment, partition, dev)
         occ_shape = dict(n=view.n_active, n_pad=view.n_pad,
                          o=bsp._occ_count(view), o_pad=len(view.occ_src),
@@ -4970,7 +5036,8 @@ def phase_taint(torch, np, columns, segment, dev):
          seeds=len(prog.seeds), stop_list=len(prog.stop_list),
          start_time=prog.start_time, max_steps=prog.max_steps,
          view=dict(T=TAINT_T, windows=TAINT_WINDOWS, fold_s=fold_s,
-                   layout_s=layout_s, cpu_job_s=cpu_view_s, **view_runs),
+                   layout_s=layout_s, cpu_job_s=cpu_view_s,
+                   binned_upload=upload, **view_runs),
          range=dict(hops=hops, windows=rq.windows, views=len(rows),
                     seconds=range_s, views_per_s=len(rows) / range_s,
                     fold_s=fold_clock, fold_share=fold_share,
@@ -4982,6 +5049,456 @@ def phase_taint(torch, np, columns, segment, dev):
                   for kk, v in kernels.items()},
          edge_cases_bitwise=edge_cases)
     return launches, kernels
+
+
+# ---------------------------------------------------- slice 20: the live path
+
+LIVE_BATCHES = 12
+LIVE_NEW_VERTEX = 3      # the batch that brings a new vertex id (a rebase)
+LIVE_DELETES = 7         # the batch with deletes (CC's warm gate closes)
+LDBC_WINDOWS = [1_300_000, 604_800]
+
+
+def live_stream(np, log, seed: int, weighted: bool):
+    """The live phase's stream over a time-sorted ``log``: the events up to
+    half its last time start the graph (``first()``, a new log each call);
+    ``LIVE_BATCHES`` batches, batch i at times in ``(t0 + i*step, t0 +
+    (i+1)*step]``, each as many events as the second half held a batch,
+    re-drawn from the first half's edge adds (a pair the pin has not seen
+    rebuilds the preseeded engines, as in the reference): batch
+    ``LIVE_NEW_VERTEX`` adds one edge to a new vertex id, batch
+    ``LIVE_DELETES`` deletes 10 % of its pairs. Returns ``(first, t0,
+    step, batches)``, a batch the ``append_batch`` arguments."""
+    from raphtory_tpu_torch.core.events import EDGE_ADD, EDGE_DELETE, EventLog
+    from raphtory_tpu_torch.interop import numeric_prop_payloads
+
+    t, k = log.column("time"), log.column("kind")
+    s, d = log.column("src"), log.column("dst")
+    h = int(np.searchsorted(t, int(t[-1]) // 2, side="right"))
+    cols = tuple(c[:h].copy() for c in (t, k, s, d))
+    props = ([(r, p) for r, p in numeric_prop_payloads(log.props) if r < h]
+             if weighted else None)
+
+    def first():
+        out = EventLog()
+        out.append_batch(*cols, props=props)
+        return out
+
+    t0 = int(t[h - 1])
+    step = (int(t[-1]) - t0) // LIVE_BATCHES
+    per = (len(t) - h) // LIVE_BATCHES
+    adds = np.flatnonzero(k[:h] == EDGE_ADD)
+    rng = np.random.default_rng(seed)
+    new_id = int(max(s.max(), d.max())) + 1
+    batches = []
+    for i in range(LIVE_BATCHES):
+        rows = adds[rng.integers(0, len(adds), per)]
+        bt = np.sort(rng.integers(t0 + i * step + 1, t0 + (i + 1) * step + 1,
+                                  per)).astype(np.int64)
+        bk = np.full(per, EDGE_ADD, np.uint8)
+        bs, bd = s[rows].copy(), d[rows].copy()
+        if i == LIVE_DELETES:
+            bk[rng.random(per) < 0.1] = EDGE_DELETE
+        if i == LIVE_NEW_VERTEX:
+            bt, bk = np.append(bt, bt[-1]), np.append(bk, EDGE_ADD)
+            bs, bd = np.append(bs, bs[0]), np.append(bd, new_id)
+        bp = None
+        if weighted:
+            w = np.round(rng.uniform(0.5, 5.0, len(bt)), 2)
+            bp = [(int(j), {"weight": float(w[j])})
+                  for j in np.flatnonzero(bk == EDGE_ADD)]
+        batches.append((bt, bk, bs, bd, bp))
+    return first, t0, step, batches
+
+
+def serve_live(columns, stream, prog, windows, dev, live: bool):
+    """A ``LiveQuery`` job in event-time mode on the card over ``stream``:
+    the batches appended on this thread, each once the previous epoch's
+    rows are out, the watermark advanced past it. ``RTPU_LIVE`` is 1 or 0
+    (the full re-sweep every epoch); ``windows`` None is the unwindowed
+    subscription. Returns ``(rows, the job's LiveEpochState, launches,
+    wall seconds, the grown log)``."""
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.ingestion.watermark import WatermarkRegistry
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager, LiveQuery
+
+    first, t0, step, batches = stream
+    os.environ["RTPU_LIVE"] = "1" if live else "0"
+    try:
+        log, wm = first(), WatermarkRegistry()
+        wm.register("feed")
+        wm.advance("feed", t0)
+        mgr = AnalysisManager(TemporalGraph(log, watermarks=wm, device=dev),
+                              device=dev)
+        cold_fold()
+        columns.reset_launches()
+        w0 = time.perf_counter()
+        job = mgr.submit(prog, LiveQuery(repeat=step, event_time=True,
+                                         max_runs=len(batches) + 1,
+                                         windows=None if windows is None
+                                         else tuple(windows)),
+                         wait_timeout=600)
+        for i, (bt, bk, bs, bd, bp) in enumerate(batches):
+            while len(mgr.results(job.id)) < (i + 1) * len(windows or [0]):
+                if job.wait(0.0005):
+                    break
+            log.append_batch(bt, bk, bs, bd, props=bp)
+            wm.advance("feed", t0 + (i + 1) * step)
+        wm.finish("feed")
+        if not job.wait(900) or job.status != "done":
+            raise AssertionError(f"live {type(prog).__name__}: "
+                                 f"{job.status}: {job.error}")
+        wall = time.perf_counter() - w0
+        launches = dict(columns.LAUNCHES)
+    finally:
+        os.environ.pop("RTPU_LIVE", None)
+    rows = [{k: v for k, v in r.items() if k != "viewTime"}
+            for r in mgr.results(job.id)]
+    return rows, job.live, launches, wall, log
+
+
+def same_live_rows(what, got, want, pagerank: bool) -> None:
+    """A live epoch's rows against the scratch Range's at the same times:
+    time and window equal (steps differ where an epoch is warm-seeded);
+    PageRank's rank sums within 1e-5 and its top-10 ranks within rtol
+    1e-5 / atol 1e-7, an id out of place only where its rank ties its
+    neighbour's within that tolerance; every other result equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows vs {len(want)}")
+    for g, w in zip(got, want):
+        if (g["time"], g["windowsize"]) != (w["time"], w["windowsize"]):
+            raise AssertionError(f"{what}: row {g} vs {w}")
+        r, x = g["result"], w["result"]
+        if not pagerank:
+            if r != x:
+                raise AssertionError(f"{what} at {g['time']}: {r} vs {x}")
+            continue
+        ok = abs(r["sum"] - x["sum"]) <= 1e-5 and len(r["top10"]) == len(
+            x["top10"])
+        wrank = dict(x["top10"])
+        for (gi, gv), (wi, wv) in zip(r["top10"], x["top10"]):
+            tol = 1e-7 + 1e-5 * abs(wv)
+            ok &= abs(gv - wv) <= tol and (
+                gi == wi or (gi in wrank and abs(wrank[gi] - wv) <= tol))
+        if not ok:
+            raise AssertionError(f"{what} at {g['time']}: {r} vs {x}")
+
+
+def phase_transfer(torch, np, dev, reps: int = 5):
+    """The chunked transfer engine on the card: a 96 MiB int32 array and a
+    ``put_many`` of mixed tables (int64, bool, f32, a 0-d), each bitwise
+    one plain ``.to``; the put timed in turns with one pageable ``.to``
+    (``reps`` rounds, the first in each round alternating), after a first
+    put that allocates the engine's pinned staging buffers (timed on its
+    own)."""
+    from raphtory_tpu_torch.utils import transfer
+
+    rng = np.random.default_rng(23)
+    big = rng.integers(0, 1 << 30, 24 << 20).astype(np.int32)
+    mixed = [rng.integers(0, 1 << 40, 5_000_000),
+             rng.random(3_000_001) < 0.5,
+             rng.random((1_000_003, 3)).astype(np.float32), np.int64(7)]
+    eng = transfer.TransferEngine()
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - s0
+
+    want, _ = timed_call(lambda: torch.from_numpy(big).to(dev))
+    _, first_s = timed_call(lambda: eng.put(big, dev))
+    prior = eng.stats.as_dict()
+    secs = {"plain": [], "engine": []}
+    calls = (("plain", lambda: torch.from_numpy(big).to(dev)),
+             ("engine", lambda: eng.put(big, dev)))
+    for r in range(reps):
+        for name, fn in calls if r % 2 == 0 else calls[::-1]:
+            got, sec = timed_call(fn)
+            secs[name].append(sec)
+            if not torch.equal(got, want):
+                raise AssertionError(f"transfer: the {name} copy differs")
+    stats = eng.stats.delta_since(prior)
+    many = eng.put_many(mixed, dev)
+    torch.cuda.synchronize()
+    if not all(g.dtype == torch.as_tensor(a).dtype
+               and torch.equal(g, torch.as_tensor(a).to(dev))
+               for g, a in zip(many, mixed)):
+        raise AssertionError("transfer: put_many differs from plain copies")
+    emit("transfer", bytes=int(big.nbytes), reps=reps,
+         depth=transfer.DEPTH, chunk_bytes=transfer.CHUNK_BYTES,
+         intra_op_threads=torch.get_num_threads(), first_put_s=first_s,
+         plain_s=secs["plain"], engine_s=secs["engine"],
+         engine_gb_per_s=big.nbytes / min(secs["engine"]) / 1e9,
+         plain_gb_per_s=big.nbytes / min(secs["plain"]) / 1e9,
+         stats_of_the_puts=stats)
+
+
+def phase_live(torch, np, columns, log, ldbc, dev):
+    """Standing ``LiveQuery`` subscriptions on the card: PageRank and CC
+    on the headline's GAB log (month / week / day), BFS and weighted SSSP
+    on the LDBC log, each over a stream of 12 batches after half the span
+    (``live_stream``), each epoch held against a scratch Range over the
+    grown log at the same times, and the same stream under ``RTPU_LIVE=0``
+    (every epoch the full re-sweep, the View routes). Then CC unwindowed
+    on the GAB stream, where the min-merge gate opens: every incremental
+    epoch of an add-only batch must be warm-seeded, the rest cold, its
+    rows bitwise the scratch Range's. Prints each epoch's mode, seconds,
+    delta rows, ship bytes and warm seed beside the re-sweep arm's
+    seconds; returns each program's launches."""
+    from raphtory_tpu_torch.algorithms import (SSSP, ConnectedComponents,
+                                               PageRank)
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager, RangeQuery
+
+    gab = live_stream(np, log, 20, weighted=False)
+    ldbc_s = live_stream(np, ldbc, 21, weighted=True)
+    cases = {
+        # converged (a warm epoch and a cold scratch Range then agree to
+        # float noise, where 20 supersteps would stop each short of the
+        # fixed point at a different place)
+        "pagerank": (PageRank(tol=1e-9, max_steps=300), gab, WINDOWS,
+                     PAGERANK_KERNELS, RESIDENT_KERNELS),
+        "cc": (ConnectedComponents(max_steps=100), gab, WINDOWS, CC_KERNELS,
+               RESIDENT_KERNELS),
+        "bfs": (SSSP(seeds=LDBC_SEEDS, directed=False, max_steps=32),
+                ldbc_s, LDBC_WINDOWS,
+                ("masks_from_deltas", "minplus_superstep"),
+                RESIDENT_KERNELS),
+        "sssp": (SSSP(seeds=LDBC_SEEDS, weight_prop="weight",
+                      directed=False, max_steps=32), ldbc_s, LDBC_WINDOWS,
+                 SSSP_KERNELS, COLD_KERNELS),
+    }
+    modes = ["rebase"] + ["incremental"] * LIVE_BATCHES
+    modes[LIVE_NEW_VERTEX + 1] = "rebase"
+    # the min-merge seed: every incremental epoch but the one that folds
+    # the deletes (epoch i + 1 folds batch i)
+    warm_cc = [m == "incremental" for m in modes]
+    warm_cc[LIVE_DELETES + 1] = False
+    out, all_launches = {}, {}
+    for name, (prog, stream, windows, kern, kern_off) in cases.items():
+        rows, state, launches, wall, grown = serve_live(
+            columns, stream, prog, windows, dev, live=True)
+        check_launched(f"live {name}", launches, kern)
+        eps = list(state.epochs)
+        if [e["mode"] for e in eps] != modes:
+            raise AssertionError(f"live {name}: epoch modes "
+                                 f"{[e['mode'] for e in eps]}")
+        if name != "pagerank" and any(e["warm"] for e in eps):
+            raise AssertionError(f"live {name}: a windowed epoch was "
+                                 "warm-seeded")
+        rows0, state0, launches0, wall0, _ = serve_live(
+            columns, stream, prog, windows, dev, live=False)
+        check_launched(f"live {name} (RTPU_LIVE=0)", launches0, kern_off)
+        if state0.mode_counts != {"resweep": LIVE_BATCHES + 1}:
+            raise AssertionError(f"live {name} RTPU_LIVE=0: "
+                                 f"{state0.mode_counts}")
+        _, t0, step, _ = stream
+        mgr = AnalysisManager(TemporalGraph(grown, device=dev), device=dev)
+        s0 = time.perf_counter()
+        job = mgr.submit(prog, RangeQuery(t0, t0 + LIVE_BATCHES * step,
+                                          step, windows=tuple(windows)))
+        if not job.wait(900) or job.status != "done":
+            raise AssertionError(f"live {name} scratch Range: {job.error}")
+        scratch_s = time.perf_counter() - s0
+        want = mgr.results(job.id)
+        same_live_rows(f"live {name}", rows, want, name == "pagerank")
+        same_live_rows(f"live {name} RTPU_LIVE=0", rows0, want,
+                       name == "pagerank")
+        all_launches[name] = nonzero(launches)
+        out[name] = dict(
+            t0=t0, step=step, windows=windows, wall_s=wall,
+            wall_live0_s=wall0, scratch_range_s=scratch_s,
+            mode_counts=state.mode_counts,
+            epochs=[dict(e, live0_seconds=e0["seconds"])
+                    for e, e0 in zip(eps, state0.epochs)],
+            launches=nonzero(launches), launches_live0=nonzero(launches0))
+    # CC unwindowed: the warm gate open on add-only epochs
+    prog = ConnectedComponents(max_steps=100)
+    rows, state, launches, wall, grown = serve_live(
+        columns, gab, prog, None, dev, live=True)
+    check_launched("live cc unwindowed", launches, CC_KERNELS)
+    eps = list(state.epochs)
+    if [e["mode"] for e in eps] != modes \
+            or [e["warm"] for e in eps] != warm_cc:
+        raise AssertionError(f"live cc unwindowed: epochs {eps}")
+    _, t0, step, _ = gab
+    mgr = AnalysisManager(TemporalGraph(grown, device=dev), device=dev)
+    job = mgr.submit(prog, RangeQuery(t0, t0 + LIVE_BATCHES * step, step))
+    if not job.wait(900) or job.status != "done":
+        raise AssertionError(f"live cc unwindowed scratch Range: "
+                             f"{job.error}")
+    same_live_rows("live cc unwindowed", rows, mgr.results(job.id), False)
+    all_launches["cc_unwindowed"] = nonzero(launches)
+    out["cc_unwindowed"] = dict(
+        t0=t0, step=step, windows=None, wall_s=wall,
+        mode_counts=state.mode_counts, epochs=eps,
+        launches=nonzero(launches))
+    emit("live", batches=LIVE_BATCHES, new_vertex_batch=LIVE_NEW_VERTEX,
+         deletes_batch=LIVE_DELETES, runs=out)
+    return all_launches
+
+
+def phase_repin_view(torch, np, columns, log, dev):
+    """The resident route adopts a suffix: the warm GAB View at 0.9 of the
+    span, then 1 % more events (re-drawn edge adds of known pairs) after
+    the pin; the next View must extend the sweep (``DeviceSweep.repin``
+    "extended", no new ``DeviceSweep``) and its rows equal, bitwise, those
+    of a fresh sweep's View and of the cold route's. Prints the extended
+    View's seconds beside the fresh sweep's and the cold route's."""
+    from raphtory_tpu_torch.algorithms import ConnectedComponents, PageRank
+    from raphtory_tpu_torch.core.events import EDGE_ADD, EventLog
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.engine import device_sweep
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager, ViewQuery
+
+    t, k = log.column("time"), log.column("kind")
+    s, d = log.column("src"), log.column("dst")
+    t1 = int(0.9 * GAB_SPAN)
+    t2 = t1 + int(0.05 * GAB_SPAN)
+    h = int(np.searchsorted(t, t1, side="right"))
+    part = EventLog()
+    part.append_batch(t[:h].copy(), k[:h].copy(), s[:h].copy(), d[:h].copy())
+    rng = np.random.default_rng(22)
+    adds = np.flatnonzero(k[:h] == EDGE_ADD)
+    n_suffix = len(t) // 100
+    rows = adds[rng.integers(0, len(adds), n_suffix)]
+    suffix = (np.sort(rng.integers(t1 + 1, t2 + 1, n_suffix)).astype(
+        np.int64), np.full(n_suffix, EDGE_ADD, np.uint8), s[rows].copy(),
+        d[rows].copy())
+    progs = (PageRank(tol=1e-7, max_steps=20),
+             ConnectedComponents(max_steps=100))
+    statuses, built = [], []
+    repin, init = device_sweep.DeviceSweep.repin, \
+        device_sweep.DeviceSweep.__init__
+
+    def counting_repin(self, live_log):
+        statuses.append(repin(self, live_log))
+        return statuses[-1]
+
+    def counting_init(self, *a, **kw):
+        built.append(1)
+        init(self, *a, **kw)
+
+    def views(mgr, T):
+        got, secs = [], []
+        for prog in progs:
+            s0 = time.perf_counter()
+            job = mgr.submit(prog, ViewQuery(T, windows=tuple(WINDOWS)))
+            if not job.wait(600) or job.status != "done":
+                raise AssertionError(f"repin_view: {job.error}")
+            secs.append(time.perf_counter() - s0)
+            got += [{kk: v for kk, v in r.items() if kk != "viewTime"}
+                    for r in mgr.results(job.id)]
+        return got, secs
+
+    device_sweep.DeviceSweep.repin = counting_repin
+    device_sweep.DeviceSweep.__init__ = counting_init
+    try:
+        g = TemporalGraph(part, device=dev)
+        mgr = AnalysisManager(g, device=dev)
+        _, warm_s = views(mgr, t1)
+        sweep = g._resident
+        part.append_batch(*suffix)
+        columns.reset_launches()
+        got, ext_s = views(mgr, t2)
+        launches = dict(columns.LAUNCHES)
+        n_built = len(built)
+        if statuses != ["extended"] or n_built != 1 \
+                or g._resident is not sweep:
+            raise AssertionError(f"repin_view: statuses {statuses}, "
+                                 f"{len(built)} sweeps built")
+        check_launched("repin_view", launches, RESIDENT_KERNELS)
+        fresh, fresh_s = views(AnalysisManager(
+            TemporalGraph(part, device=dev), device=dev), t2)
+        cold_g = TemporalGraph(part, device=dev)
+        cold_g._resident_broken = True        # the resident route declines
+        cold, cold_s = views(AnalysisManager(cold_g, device=dev), t2)
+    finally:
+        device_sweep.DeviceSweep.repin = repin
+        device_sweep.DeviceSweep.__init__ = init
+    if got != fresh:
+        raise AssertionError("repin_view: the extended View's rows differ "
+                             "from a fresh sweep's")
+    if got != cold:
+        raise AssertionError("repin_view: the extended View's rows differ "
+                             "from the cold route's")
+    emit("repin_view", t1=t1, t2=t2, pinned_events=h,
+         suffix_events=n_suffix, status=statuses, sweeps_built=n_built,
+         programs=[type(p).__name__ for p in progs], warm_view_s=warm_s,
+         extended_view_s=ext_s, fresh_sweep_view_s=fresh_s,
+         cold_view_s=cold_s, launches=nonzero(launches))
+    return nonzero(launches)
+
+
+def phase_programs(torch, np, columns, log, ldbc, dev):
+    """The five programs of slice 20 through ``AnalysisManager`` on the
+    card, each as a View and as a Range (the cold route: their reducers
+    read the whole view), rows held against the same jobs on the CPU
+    through the twins, bitwise: DegreeRanking, StarNode, Density and
+    BinaryDiffusion on the GAB log, FlowGraph over the LDBC log's
+    ``weight``. Returns each program's launches."""
+    from raphtory_tpu_torch.algorithms import (BinaryDiffusion,
+                                               DegreeRanking, Density,
+                                               FlowGraph, StarNode)
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.jobs.manager import (AnalysisManager,
+                                                 RangeQuery, ViewQuery)
+
+    def queries(span, windows):
+        return (ViewQuery(int(0.9 * span), windows=tuple(windows)),
+                RangeQuery(int(0.8 * span), int(0.9 * span),
+                           int(0.05 * span), windows=tuple(windows)))
+
+    cases = {
+        "DegreeRanking": (DegreeRanking(top_k=10), log, GAB_SPAN, WINDOWS),
+        "StarNode": (StarNode(), log, GAB_SPAN, WINDOWS),
+        "Density": (Density(), log, GAB_SPAN, WINDOWS),
+        "BinaryDiffusion": (BinaryDiffusion(spread_prob=0.3, max_steps=50),
+                            log, GAB_SPAN, WINDOWS),
+        "FlowGraph": (FlowGraph(flow_prop="weight"), ldbc, LDBC_SPAN,
+                      LDBC_WINDOWS),
+    }
+    out, all_launches = {}, {}
+    for name, (prog, lg, span, windows) in cases.items():
+        mgrs = {where: AnalysisManager(TemporalGraph(lg, device=where),
+                                       device=where)
+                for where in (dev, "cpu")}
+        entry = {}
+        for q in queries(span, windows):
+            kind = type(q).__name__
+            res = {}
+            for where, mgr in mgrs.items():
+                columns.reset_launches()
+                s0 = time.perf_counter()
+                job = mgr.submit(prog, q)
+                if not job.wait(900) or job.status != "done":
+                    raise AssertionError(f"programs {name} {kind} on "
+                                         f"{where}: {job.error}")
+                res[str(where)] = (
+                    [{kk: v for kk, v in r.items() if kk != "viewTime"}
+                     for r in mgr.results(job.id)],
+                    time.perf_counter() - s0, dict(columns.LAUNCHES))
+            (got, secs, launches), (want, cpu_s, _) = res[str(dev)], \
+                res["cpu"]
+            if got != want:
+                raise AssertionError(f"programs {name} {kind}: card rows "
+                                     "differ from the CPU's")
+            check_launched(f"programs {name} {kind}", launches,
+                           COLD_KERNELS)
+            entry[kind] = dict(rows=len(got), seconds=secs, cpu_s=cpu_s,
+                               steps=sorted({r["steps"] for r in got}),
+                               launches=nonzero(launches))
+            if name == "BinaryDiffusion":
+                entry[kind]["infected"] = [r["result"]["infected"]
+                                           for r in got]
+        out[name] = entry
+        all_launches[name] = entry["ViewQuery"]["launches"]
+    if max(out["BinaryDiffusion"]["ViewQuery"]["infected"]) <= 1:
+        raise AssertionError("programs: BinaryDiffusion never spread")
+    emit("programs", runs=out)
+    return all_launches
 
 
 MESH_TARGET = "raphtory_tpu_torch.cluster.tasks:run_requests"
@@ -6054,6 +6571,12 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
                                           columns, segment, dev)
     kernels.update(taint_entries)
     launches.update(taint_launches)
+    # slice 20: the live path, the resident route's repin, the five
+    # programs
+    timed("transfer", phase_transfer, torch, np, dev)
+    timed("live", phase_live, torch, np, columns, log, ldbc, dev)
+    timed("repin_view", phase_repin_view, torch, np, columns, log, dev)
+    timed("programs", phase_programs, torch, np, columns, log, ldbc, dev)
     # slice 7: the mesh path, one rank then 4 ranks on the card
     one = timed("mesh_one", phase_mesh_one, torch, np, columns, log, dev)
     mesh_launches, mesh_entries, mesh = timed(

@@ -359,7 +359,7 @@ def _kill(procs) -> None:
             pass
 
 
-def _rank_main(argv) -> int:
+def _rank_main(argv) -> None:
     tmp, target, device, share, timeout = argv
     tmp = Path(tmp)
     torch.set_num_threads(1)
@@ -377,9 +377,17 @@ def _rank_main(argv) -> int:
             pickle.dump(result, f)
         os.replace(part, tmp / f"out{rank}.pkl")
         _dist().barrier()
-    finally:
+    except BaseException:
         _dist().destroy_process_group()
-    return 0
+        raise
+    # every rank's result is on disk and the group has met: the rank ends
+    # here, without the group's teardown or the interpreter's. gloo's
+    # teardown can abort a rank once its peers are gone ("terminate called
+    # without an active exception": a rank killed by SIGABRT after the
+    # other three had exited 0), which failed a group whose work was done
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
@@ -387,4 +395,4 @@ if __name__ == "__main__":
     # state must be the one the rest of the package reads
     from raphtory_tpu_torch.cluster import bootstrap as _module
 
-    sys.exit(_module._rank_main(sys.argv[1:]))
+    _module._rank_main(sys.argv[1:])

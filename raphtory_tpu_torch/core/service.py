@@ -120,9 +120,12 @@ class TemporalGraph:
         * the log's id space overflows the packed-key engine.
 
         When events appended after the pin land at or before ``time`` (an
-        exact incremental min over the post-pin rows), the sweep is REBUILT
-        from a fresh pin — the reference's rebuild branch; adopting the
-        suffix in place (``repin``) is not ported yet.
+        exact incremental min over the post-pin rows), the sweep ADOPTS the
+        appended suffix in place (``DeviceSweep.repin``), so the next
+        advance folds exactly the new rows; only a rebuild condition
+        (compaction, a new vertex or pair, a row at or before the sweep's
+        clock, the time dtype's overflow) builds a new sweep from a fresh
+        pin (``raphtory_tpu/core/service.py:152-167``).
 
         The caller owns the watermark fence (only ask for ``time`` <=
         ``safe_time()``)."""
@@ -146,7 +149,14 @@ class TemporalGraph:
                 # checked on EVERY acquire: an earlier small-time acquire
                 # may have recorded the post-pin min already
                 if int(time) >= self._post_pin_min:
-                    sweep = None
+                    if sweep.repin(self.log) == "extended":
+                        # the sweep's new pin captured (n, version)
+                        # atomically and covers every scanned row
+                        self._resident_n = sweep.sw.log.n
+                        self._resident_version = sweep.sw.log.version
+                        self._post_pin_min = 2**62
+                    else:
+                        sweep = None   # re-pin from scratch below
             if sweep is None:
                 pinned = self.log.pin()   # (n, version) atomic with rows
                 sweep = DeviceSweep(pinned, device=self.device)

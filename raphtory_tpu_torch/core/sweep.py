@@ -414,6 +414,79 @@ class SweepBuilder:
             sw.save_checkpoint(cache)
         return sw
 
+    # ---- incremental re-pin (live epoch serving) ----
+
+    def repin(self, live_log) -> str:
+        """Adopt the rows appended to ``live_log`` since this builder's
+        pin without refolding history (``raphtory_tpu/core/sweep.py:410``).
+        Returns ``"noop"`` (the pin covers the log), ``"extended"`` (the
+        suffix is adopted: the fold state, ``t_prev`` and the dense
+        dictionaries stay valid, and the next ``_advance`` folds exactly
+        the new rows) or ``"rebuild"`` (the caller builds a fresh
+        builder). Extension needs the pin to still be a prefix of the log
+        and the frozen dictionaries to cover the suffix, so it rebuilds
+        where:
+
+        * the log was compacted (``compactions`` moved: history was
+          rewritten, maybe to the same row count);
+        * a suffix row names a vertex id outside ``uv``;
+        * a preseeded builder sees a (src, dst) pair outside ``e_enc``;
+        * a suffix event lands at or before ``t_prev`` (the fence was not
+          honoured: folded state is stale).
+
+        The new pin rebinds ``log``, so ``log_fingerprint`` (cached on the
+        pin) keys the fold cache by the extended content, and no
+        checkpoint of the old pin can seed a fork of this builder. The
+        caller must not let a fold of this builder run meanwhile (the
+        engines drain theirs first)."""
+        new = live_log.pin()
+        n_old = len(self._t)
+        if (getattr(new, "compactions", 0)
+                != getattr(self.log, "compactions", 0)):
+            # before the row-count fast path: "same n" says nothing about
+            # row identity across a rewrite
+            return "rebuild"
+        if new.n == n_old:
+            return "noop"
+        if new.n < n_old or not self._ok:
+            return "rebuild"
+        t_new = new.column("time")[n_old:]
+        k_new = new.column("kind")[n_old:]
+        s_new = new.column("src")[n_old:]
+        d_new = new.column("dst")[n_old:]
+        if self.t_prev is not None and len(t_new) \
+                and int(t_new.min()) <= self.t_prev:
+            return "rebuild"
+        is_e = (k_new == EDGE_ADD) | (k_new == EDGE_DELETE)
+        ids = np.concatenate([s_new, d_new[is_e]])
+        pos = np.searchsorted(self.uv, ids)
+        pos_c = np.clip(pos, 0, max(len(self.uv) - 1, 0))
+        if not len(self.uv) or not bool((self.uv[pos_c] == ids).all()):
+            return "rebuild"   # a new vertex id: the dictionary is stale
+        sd_new = pos[: len(s_new)]
+        dd_new = np.zeros(len(d_new), np.int64)
+        dd_new[is_e] = pos[len(s_new):]
+        if self._preseeded and is_e.any():
+            enc = self._pack(sd_new[is_e], dd_new[is_e])
+            epos = np.clip(np.searchsorted(self.e_enc, enc), 0,
+                           max(len(self.e_enc) - 1, 0))
+            if not len(self.e_enc) \
+                    or not bool((self.e_enc[epos] == enc).all()):
+                return "rebuild"   # a new pair: the preseeded table is stale
+        self.log = new
+        self._t = new.column("time")
+        self._k = new.column("kind")
+        self._s = new.column("src")
+        self._d = new.column("dst")
+        if self._sd_all is not None:
+            self._sd_all = np.concatenate([self._sd_all, sd_new])
+            self._dd_all = np.concatenate([self._dd_all, dd_new])
+        self._t_sorted = bool(
+            self._t_sorted
+            and (not len(t_new) or bool((t_new[:-1] <= t_new[1:]).all()))
+            and (n_old == 0 or int(t_new[0]) >= int(self._t[n_old - 1])))
+        return "extended"
+
     # ---- the sweep ----
 
     def view_at(self, time: int) -> GraphView:

@@ -25,12 +25,17 @@ checkpoints cover them (a later sweep over the same log and hops), with
 builders at once (``core/sweep.py``). Every payload ships from the calling
 thread.
 
-Not ported yet (ROADMAP queue 1 item 5): ``repin`` (incremental re-pin of a
-live log), the ``TransferEngine`` and the tracer, fault and ledger hooks.
+``repin`` adopts the rows appended to a live log since the pin
+(``raphtory_tpu/engine/device_sweep.py:378``): the dense spaces do not
+change, so the static device tables, the fold-state buffers and ``t_now``
+stay valid, and the next ``advance`` folds the suffix as one delta. The
+tracer, fault and ledger hooks wait for the serving stack (ROADMAP queue 1
+item 6).
 """
 
 from __future__ import annotations
 
+import threading
 import time as _time
 import weakref
 from functools import partial
@@ -196,6 +201,16 @@ def normalize_windows(windows) -> list[int]:
     return [(-1 if w is None else int(w)) for w in windows]
 
 
+def _time_dtype_status(tdtype, t_new: np.ndarray) -> str:
+    """``"extended"``, or ``"rebuild"`` where an adopted suffix's times
+    leave the narrowed int32 dtype the resident state was built in."""
+    if tdtype == np.int32 and len(t_new) and not (
+            int(t_new.min()) > np.iinfo(np.int32).min // 2
+            and int(t_new.max()) < np.iinfo(np.int32).max // 2):
+        return "rebuild"
+    return "extended"
+
+
 def supported(program: VertexProgram) -> bool:
     """True if ``program`` can run on the device-resident sweep engine:
     no occurrence arrays and no host-materialised properties."""
@@ -273,6 +288,29 @@ class DeviceSweep:
         # the buffers (a lookahead fold may even be past the failed hop):
         # the next fold must restage the full state
         self._stale = False
+        # held by every fold of this sweep's builder (advance, run_sweep
+        # with its lookahead and forked folds) and by repin: a re-pin
+        # waits for the folds in flight instead of rebinding under them
+        self._pin_lock = threading.Lock()
+
+    # ---- incremental re-pin (live serving) ----
+
+    def repin(self, live_log) -> str:
+        """Adopt the rows appended to ``live_log`` since this sweep's pin
+        (``SweepBuilder.repin``). On ``"extended"`` the static device
+        tables, the fold-state buffers and ``t_now`` stay valid, and the
+        next ``advance`` folds the suffix. ``"noop"`` / ``"extended"`` /
+        ``"rebuild"``; after ``"rebuild"`` the sweep must be discarded.
+        A sweep whose buffers are behind its clock (``_stale``) rebuilds,
+        and so does a suffix past the narrowed int32 time dtype."""
+        with self._pin_lock:
+            if self._stale:
+                return "rebuild"
+            n_old = len(self.sw._t)
+            status = self.sw.repin(live_log)
+            if status != "extended":
+                return status
+            return _time_dtype_status(self.tdtype, self.sw._t[n_old:])
 
     @property
     def edge_state(self) -> tuple:
@@ -286,7 +324,9 @@ class DeviceSweep:
     def advance(self, time: int) -> None:
         """Fold events in (t_now, time] on the host and mirror the touched
         rows into the device buffers. Times must be non-decreasing."""
-        self._apply_staged(self._fold_hop_inner(time))
+        with self._pin_lock:
+            payload = self._fold_hop_inner(time)
+        self._apply_staged(payload)
 
     def _fold_hop_inner(self, time: int, checkpoint_to=None) -> dict:
         """Host half of one hop: fold events in (t_now, time] and stage the
@@ -500,6 +540,10 @@ class DeviceSweep:
         times = [int(t) for t in times]
         if sorted(times) != times:
             raise ValueError("run_sweep times must ascend")
+        with self._pin_lock:
+            return self._run_sweep(program, times, window, windows)
+
+    def _run_sweep(self, program, times, window, windows):
         self.fold_seconds = self.dispatch_seconds = 0.0
         self.fold_mode_seconds = {}
         self.fold_stall_seconds = 0.0

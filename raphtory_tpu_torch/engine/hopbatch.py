@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time as _time
 from functools import partial
 
@@ -63,7 +64,7 @@ from ..ops.partition import BinnedEdges
 from ..ops.resident import Staged, pack, ship, stage
 from ..utils.device import resolve_device
 from .device_sweep import (DeviceEdges, GlobalTables, _device_edges,
-                           normalize_windows)
+                           _time_dtype_status, normalize_windows)
 
 _log = logging.getLogger(__name__)
 
@@ -670,6 +671,10 @@ class _HopBatched:
         # cross-epoch warm seed (run(..., warm_state=...)): seeds the FIRST
         # dispatch's iteration from a previous run's output
         self._epoch_seed = None
+        # held by run() / fold_payloads() (every fold they queue on the
+        # lookahead lane or fork on fold_pool ends before they return) and
+        # by repin: a re-pin waits for those folds, never rebinds under them
+        self._pin_lock = threading.Lock()
 
     @property
     def _edges(self):
@@ -761,6 +766,32 @@ class _HopBatched:
                                else self._active_layout.spec)
         return out, steps
 
+    def repin(self) -> str:
+        """Adopt the rows appended to the engine's live log since its pin
+        (``SweepBuilder.repin``; ``raphtory_tpu/engine/hopbatch.py:906``).
+        On ``"extended"`` the dense dictionaries and the pair table do not
+        change, so ``GlobalTables``, the cached device edge tables, the host
+        delta base and the device-resident advanced base (``_dev_base``,
+        ``_dev_base_spec``) stay valid, and the next ``run`` folds the
+        suffix. ``"noop"`` / ``"extended"`` / ``"rebuild"``; after
+        ``"rebuild"`` the engine must be discarded (its pin may already be
+        rebound). A run in progress on another thread finishes first."""
+        with self._pin_lock:
+            n_old = len(self.sw._t)
+            status = self.sw.repin(self._log)
+            if status != "extended":
+                return status
+            status = _time_dtype_status(self.tables.tdtype,
+                                        self.sw._t[n_old:])
+            if status == "extended":
+                status = self._extend(n_old)
+            return status
+
+    def _extend(self, n_old: int) -> str:
+        """Engine state past the fold's to extend over the adopted rows
+        ``[n_old, n)``: none here; SSSP's weight stream."""
+        return "extended"
+
     def run(self, hop_times, windows, chunks: int = 1,
             warm_start: bool = False, hop_callback=None, warm_state=None):
         """Returns ``(result [H*W, n_pad] on the engine's device, steps)``;
@@ -798,6 +829,12 @@ class _HopBatched:
             self._epoch_seed = warm_state
         hop_times = [int(x) for x in hop_times]
         chunks = max(1, min(int(chunks), len(hop_times)))
+        with self._pin_lock:
+            return self._run_locked(hop_times, windows, chunks, warm_start,
+                                    hop_callback)
+
+    def _run_locked(self, hop_times, windows, chunks, warm_start,
+                    hop_callback):
         self._sync_layout()
         try:
             return self._run_chunks(hop_times, windows, chunks, warm_start,
@@ -966,6 +1003,10 @@ class _HopBatched:
         hop_times = [int(x) for x in hop_times]
         self._check_forward(hop_times)
         chunks = max(1, min(int(chunks), len(hop_times)))
+        with self._pin_lock:
+            return self._fold_payloads_locked(hop_times, chunks)
+
+    def _fold_payloads_locked(self, hop_times, chunks):
         self._sync_layout()
         groups = self._groups(hop_times, chunks)
         delta = self._use_delta_fold()
@@ -1415,6 +1456,47 @@ class HopBatchedSSSP(HopBatchedBFS):
                                 self.sw._dense(log.column("dst")[ev]))
             self._w_pos = t.eng_pos(enc)[order]
         self._w_cursor = 0
+
+    def _extend(self, n_old: int) -> str:
+        """Extend the sorted weight-update stream with the adopted rows'
+        props (``raphtory_tpu/engine/hopbatch.py:1911``). The consumed
+        prefix ``[:_w_cursor]`` is history (times <= t_prev); the
+        unconsumed tail and the new updates (all past t_prev: the repin
+        guard) merge by a STABLE sort on time alone, which keeps the
+        (time, event-row) order: each block is in it, and every new event
+        row is past every pinned one. A key that turned immutable
+        (earliest-wins) rebuilds: ``__init__`` refuses it."""
+        log = self.sw.log
+        props = log.props
+        if self.weight_prop not in props._key_ids:
+            return "extended"
+        kid = props._key_ids[self.weight_prop]
+        if props.is_immutable(kid):
+            return "rebuild"
+        pe = props.column("event")
+        sel = ((pe >= n_old) & (props.column("key") == kid)
+               & (props.column("tag") == props.NUM_TAG))
+        ev = pe[sel]
+        is_add = log.column("kind")[ev] == EDGE_ADD
+        ev = ev[is_add]
+        if not len(ev):
+            return "extended"
+        val = props.column("num")[sel][is_add]
+        val = np.where(np.isnan(val), 1.0, val).astype(np.float32)
+        tt = log.column("time")[ev]
+        order = np.lexsort((ev, tt))
+        enc = self.sw._pack(self.sw._dense(log.column("src")[ev]),
+                            self.sw._dense(log.column("dst")[ev]))
+        pos = self.tables.eng_pos(enc)
+        cur = self._w_cursor
+        t_cat = np.concatenate([self._w_t[cur:], tt[order]])
+        v_cat = np.concatenate([self._w_val[cur:], val[order]])
+        p_cat = np.concatenate([self._w_pos[cur:], pos[order]])
+        tail = np.argsort(t_cat, kind="stable")
+        self._w_t = np.concatenate([self._w_t[:cur], t_cat[tail]])
+        self._w_val = np.concatenate([self._w_val[:cur], v_cat[tail]])
+        self._w_pos = np.concatenate([self._w_pos[:cur], p_cat[tail]])
+        return "extended"
 
     def _column_specs(self, H: int) -> list:
         # the weight columns join the fold columns' staging buffer

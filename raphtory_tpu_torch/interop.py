@@ -9,14 +9,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from .algorithms import (BFS, SSSP, ConnectedComponents, DegreeBasic,
-                         LabelPropagation, PageRank, TaintTracking)
+from .algorithms import (BFS, SSSP, BinaryDiffusion, ConnectedComponents,
+                         DegreeBasic, DegreeRanking, Density, FlowGraph,
+                         LabelPropagation, PageRank, StarNode, TaintTracking)
 from .core.events import EventLog
 
 _PROGRAMS = {"PageRank": PageRank, "ConnectedComponents": ConnectedComponents,
              "SSSP": SSSP, "BFS": BFS, "DegreeBasic": DegreeBasic,
              "LabelPropagation": LabelPropagation,
-             "TaintTracking": TaintTracking}
+             "TaintTracking": TaintTracking, "DegreeRanking": DegreeRanking,
+             "StarNode": StarNode, "Density": Density,
+             "FlowGraph": FlowGraph, "BinaryDiffusion": BinaryDiffusion}
 
 
 def event_log_from_arrays(cols: dict[str, np.ndarray],
@@ -59,8 +62,7 @@ def program_from_params(name: str, **hyper):
     fields as hyperparameters (``dataclasses.asdict(program)``)."""
     cls = _PROGRAMS.get(name)
     if cls is None:
-        raise NotImplementedError(
-            f"program {name!r} is not ported yet: the port carries "
-            f"{sorted(_PROGRAMS)}; DegreeRanking, StarNode, Density, "
-            "FlowGraph and BinaryDiffusion are ROADMAP queue 1 item 4")
+        raise KeyError(
+            f"unknown program {name!r}: the port carries every program of "
+            f"the reference's library, {sorted(_PROGRAMS)}")
     return cls(**hyper)

@@ -31,10 +31,14 @@ An occurrence program (``needs_occurrences``: TaintTracking) takes the
 cold route: a View folds ``build_view(..., include_occurrences=True)``, a
 Range a ``SweepBuilder(include_occurrences=True)`` hop by hop; the
 columnar, resident and static-partition routes decline it, as the
-reference's do. A Live query raises ``NotImplementedError`` at submit,
-naming the ROADMAP item that brings it. A failed dispatch fails
+reference's do. A **Live** query repeats at the moving watermark
+(``_run_live``): each epoch is served by the live epoch engine
+(``jobs/live.LiveEpochState``) on a standing columnar engine that adopts
+the appended suffix, or by the full re-sweep where that engine cannot
+serve. A failed dispatch fails
 the job (``status`` / ``error``): the resident route drops its sweep and
-does NOT fall back to the cold route, and a failed mesh dispatch fails the
+does NOT fall back to the cold route, a failed live epoch does not fall
+back to the re-sweep, and a failed mesh dispatch fails the
 job instead of falling to the next route (the reference falls back).
 """
 
@@ -87,8 +91,11 @@ class RangeQuery:
 
 @dataclass(frozen=True)
 class LiveQuery:
-    """Repeating analysis at the moving watermark (LiveAnalysisTask) —
-    not carried yet: ``submit`` refuses it."""
+    """Repeating analysis at the moving watermark (LiveAnalysisTask).
+    ``event_time=False``: an epoch every ``repeat`` seconds of wall time at
+    the safe time; ``event_time=True``: the target time advances by
+    ``repeat`` event-time units, each epoch waiting for the watermark
+    (``LiveAnalysisTask.scala:34-52``)."""
     repeat: float = 1.0
     event_time: bool = False
     max_runs: int | None = None
@@ -145,6 +152,9 @@ class Job:
         self._kill = threading.Event()
         self._done = threading.Event()
         self._thread: threading.Thread | None = None
+        #: a Live job's ``jobs/live.LiveEpochState`` (its ``mode_counts``
+        #: and ``epochs``), set when the live loop starts
+        self.live = None
 
     # ---- lifecycle ----
 
@@ -173,6 +183,8 @@ class Job:
             q = self.query
             if isinstance(q, ViewQuery):
                 self._run_at(q.timestamp, q)
+            elif isinstance(q, LiveQuery):
+                self._run_live(q)
             elif not (self._try_range_mesh_columns(q)
                       or self._try_range_mesh(q)
                       or self._try_range_hopbatch(q)
@@ -194,6 +206,54 @@ class Job:
             self.error = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
         finally:
             self._done.set()
+
+    # ---- Live queries ----
+
+    def _run_live(self, q: LiveQuery) -> None:
+        """The live loop (``raphtory_tpu/jobs/manager.py:355-407``): each
+        iteration computes the target time, and the epoch engine decides
+        how to serve it. Event-time mode waits for the watermark in chunks
+        of at most 0.5 s, so a kill interrupts the wait, and gives up
+        waiting after ``wait_timeout``; once every source has finished and
+        the target has passed the end of history it ends (unless
+        ``max_runs`` asks for an exact count). Wall-clock mode waits
+        ``next_wait`` between epochs."""
+        from .live import LiveEpochState
+
+        live = self.live = LiveEpochState(self)
+        runs = 0
+        t_target = None
+        while not self._kill.is_set():
+            if q.event_time:
+                if t_target is None:
+                    t_target = min(self.graph.safe_time(),
+                                   self.graph.latest_time)
+                else:
+                    # advance in event time, never clamped back; a repeat
+                    # under 1 still advances
+                    t_target += max(1, int(q.repeat))
+                deadline = _time.monotonic() + self.wait_timeout
+                while (not self._kill.is_set()
+                       and _time.monotonic() < deadline
+                       and not self.graph.watermarks.wait_for(
+                           t_target,
+                           timeout=min(0.5, max(
+                               0.0, deadline - _time.monotonic())))):
+                    pass
+                t = t_target
+            else:
+                t = min(self.graph.safe_time(), self.graph.latest_time)
+            live.epoch(q, int(t))
+            runs += 1
+            if q.max_runs is not None and runs >= q.max_runs:
+                break
+            if q.event_time:
+                if (q.max_runs is None
+                        and self.graph.watermarks.safe_time() >= 2**62
+                        and t_target >= self.graph.latest_time):
+                    break
+            else:
+                self._kill.wait(live.next_wait(q))
 
     # ---- the generic engine: View queries and non-columnar Ranges ----
 
@@ -520,10 +580,8 @@ class AnalysisManager:
     def submit(self, program: VertexProgram, query,
                job_id: str | None = None, mesh=None,
                wait_timeout: float = 30.0) -> Job:
-        if not isinstance(query, (ViewQuery, RangeQuery)):
-            raise NotImplementedError(
-                f"{type(query).__name__} is not carried yet: Live queries "
-                "come with the live epoch engine, ROADMAP queue 1 item 5")
+        if not isinstance(query, (ViewQuery, RangeQuery, LiveQuery)):
+            raise TypeError(f"unknown query type {type(query).__name__}")
         bsp.check_program(program)
         with self._lock:
             if job_id is None:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..native import lib as _native
+from ..utils.transfer import shared_engine
 
 #: alignment of the per-partition block capacities — keeps pad overhead
 #: ~0.1% instead of the up-to-2x a power-of-two pad would cost
@@ -189,16 +190,20 @@ class PartitionLayout:
 
     def device_args(self, device) -> tuple:
         """The layout's device operands, uploaded once per device then
-        resident: ``(b_src, b_dst, valid, slot, u_src, perm)``. The upload
-        runs outside the lock; a racing duplicate is dropped."""
+        resident: ``(b_src, b_dst, valid, slot, u_src, perm)``, one put of
+        the six tables through the process's transfer engine
+        (``utils/transfer``: windows staged in reused pinned buffers, the
+        next staged while one is copied), where the reference's go through
+        ``device_put_chunked`` (``raphtory_tpu/ops/partition.py:150-154``).
+        The upload runs outside the lock; a racing duplicate is dropped."""
         device = torch.device(device)
         with self._lock:
             dev = self._dev.get(("args", device))
         if dev is not None:
             return dev
-        dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                    for a in (self.b_src, self.b_dst, self.valid, self.slot,
-                              self.u_src, self.perm))
+        dev = tuple(shared_engine().put_many(
+            (self.b_src, self.b_dst, self.valid, self.slot, self.u_src,
+             self.perm), device))
         with self._lock:
             return self._dev.setdefault(("args", device), dev)
 
@@ -213,11 +218,11 @@ class PartitionLayout:
         if got is not None:
             return got
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        fwd = tuple(map(put, self.walk(False)))
-        rev = tuple(map(put, self.walk(True))) if reverse else (None, None)
+        walks = list(self.walk(False)) + (list(self.walk(True)) if reverse
+                                          else [])
+        walks = shared_engine().put_many(walks, device)
+        fwd = tuple(walks[:2])
+        rev = tuple(walks[2:]) if reverse else (None, None)
         spec = self.spec
         got = BinnedEdges(*self.device_args(device), *fwd, *rev,
                           spec.partitions * spec.cap_u if spec.preagg else 0)

@@ -45,6 +45,11 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/parallel/frontier.py",
     "raphtory_tpu_torch/parallel/sweep.py",
     "raphtory_tpu_torch/parallel/columns.py",
+    "raphtory_tpu_torch/algorithms/rankings.py",
+    "raphtory_tpu_torch/algorithms/flow.py",
+    "raphtory_tpu_torch/algorithms/diffusion.py",
+    "raphtory_tpu_torch/jobs/live.py",
+    "raphtory_tpu_torch/utils/transfer.py",
 )
 
 

@@ -69,7 +69,7 @@ def test_range_job_matches_reference(jump):
 
 
 def test_unported_queries_raise_and_failures_fail_the_job():
-    """Live queries are still to port and raise at submit; a
+    """A Live query runs (its epochs on the live epoch engine); a
     custom-combiner program and an occurrence program without their own
     functions, and a Range whose fence never passes, fail the job as the
     reference's do."""
@@ -94,8 +94,11 @@ def test_unported_queries_raise_and_failures_fail_the_job():
     jg = JTemporalGraph(jlog)
     jmgr = JAnalysisManager(jg)
     prog = program_from_params("PageRank")
-    with pytest.raises(NotImplementedError, match="Live"):
-        mgr.submit(prog, LiveQuery(repeat=1.0))
+    live = mgr.submit(prog, LiveQuery(repeat=0.01, max_runs=3))
+    assert live.wait(60) and live.status == "done", live.error
+    # wall-clock mode on an unchanged log: one served epoch, two skipped
+    assert live.live.mode_counts == {"rebase": 1, "skipped": 2}
+    assert [r["time"] for r in mgr.results(live.id)] == [g.latest_time]
     # the base class's functions raise inside the job, in both packages:
     # the occurrence program's on the cold route, with its occurrence rows
     for q, jq in ((ViewQuery(timestamp=50), JViewQuery(timestamp=50)),

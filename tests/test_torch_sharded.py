@@ -39,6 +39,7 @@ import torch
 from test_sweep import random_log
 from test_torch_bsp import assert_pagerank_steps
 
+from raphtory_tpu.algorithms import BinaryDiffusion as JDiffusion
 from raphtory_tpu.algorithms import ConnectedComponents as JCC
 from raphtory_tpu.algorithms import LabelPropagation as JLPA
 from raphtory_tpu.algorithms import PageRank as JPageRank
@@ -58,11 +59,14 @@ T = 90
 WINDOWS = [100, 30, 7]
 PROGRAMS = {"pagerank": JPageRank(max_steps=30, tol=1e-7),
             "cc": JCC(max_steps=60),
-            "lpa": JLPA(max_steps=12)}
+            "lpa": JLPA(max_steps=12),
+            # no seeds: the seed vertex is the collective min over ranks
+            "diffusion": JDiffusion(spread_prob=0.6, max_steps=30)}
 #: (program, mesh [S, W], comm)
 CASES = [(p, mesh, comm) for p in ("pagerank", "cc")
          for mesh in ((4, 1), (2, 2)) for comm in ("all_gather", "halo")] \
-    + [("lpa", (4, 1), "halo"), ("lpa", (2, 2), "all_gather")]
+    + [("lpa", (4, 1), "halo"), ("lpa", (2, 2), "all_gather")] \
+    + [("diffusion", (4, 1), "halo"), ("diffusion", (2, 2), "all_gather")]
 #: TaintTracking over the occurrence rows: (mesh [S, W], comm, value gate)
 TAINT_CASES = [((4, 1), "halo", False), ((4, 1), "all_gather", True),
                ((2, 2), "all_gather", False), ((2, 2), "halo", True)]
@@ -316,6 +320,19 @@ def test_failing_rank_stops_the_group():
             pytest.raises(RuntimeError, match="requested failure"):
         spawn(TARGET, 2, ({"requests": [dict(op="fail", rank=1)]},),
               timeout=60, device="cpu")
+
+
+def test_a_rank_that_aborts_in_its_teardown_does_not_fail_the_group():
+    """A rank ends once its result is written and the group has met: no
+    teardown runs after that. Here each rank's work registers an exit
+    handler that aborts the process, as gloo's teardown aborted a rank
+    of a finished group ("terminate called without an active
+    exception", the rank killed by SIGABRT after the others exited 0);
+    the group still returns every rank's result."""
+    with one_group_at_a_time():
+        out = spawn("atexit:register", 2, (os.abort,), timeout=60,
+                    device="cpu")
+    assert out == [os.abort, os.abort]
 
 
 def test_rank_groups_leave_a_trace():
