@@ -175,8 +175,9 @@ printing one JSON line:
               binned against the CPU; the headline's binned run makes one
               K2b-P launch a superstep.
 14. scale   — the general-fold PageRank engine on a 5.3M-vertex /
-              2^25-edge-event log, 2 hops x 3 windows, chunks=2; K1 on
-              the sweep's edge payload (33,554,432 rows: its own h0 call,
+              2^24-edge-event log (cut from 2^25 to pay for the serve
+              phase: ~130 s of host fold at 2^25), 2 hops x 3 windows,
+              chunks=2; K1 on the sweep's edge payload (its own h0 call,
               and both hops as one call of H 2 without h0) bitwise its
               twin, timed with its device time and bound (``k1_edge``).
 15. features — ``bench.py:bench_scale_features`` uncut:
@@ -241,6 +242,17 @@ printing one JSON line:
               (K11); every row against the single-device port on the card
               (CC bitwise; PageRank rtol 1e-5 / atol 1e-7, equal steps),
               and K12 against the single-device host-column runners.
+    serve   — the REST serving stack (``phase_serve``): ``RestServer``
+              over ``AnalysisManager`` on the card, a GAB and an LDBC
+              server; bursts of concurrent PageRank, CC and SSSP Range
+              requests coalesced by the serving scheduler into one
+              columnar dispatch a family, Views warm and cold, an explain
+              Range, a kill, every ported GET route, the metrics text, a
+              Live subscription; rows against the CPU twins, sinks
+              against rows, an injected ``sched.dispatch`` failure sending
+              members to their own routes; latencies, batches, the
+              ``sched.dispatch`` spans and the Live epochs' split into
+              repin / fold / dispatch.
 20. mesh_ranks — 4 ranks on the card under gloo (``cluster.bootstrap.
               spawn``, share_card, hard timeout): on the headline log,
               ``sharded.run`` PageRank on 2 x 2 and 1 x 4 meshes over
@@ -3275,9 +3287,12 @@ def phase_fold_pipeline(torch, np, columns, log, ldbc, dev):
     four modes. Every
     mode's result against the serial one's (bitwise, PageRank within its
     tolerance where not bitwise), every fold's payloads byte-equal the
-    serial fold's. The host's cores beside the numbers."""
+    serial fold's. The host's cores beside the numbers. Then the headline
+    and ``bitcoin_range`` sweeps with the ledger on, off and syncing every
+    dispatch (``ledger_ab``)."""
     from raphtory_tpu_torch.algorithms import PageRank
     from raphtory_tpu_torch.core.sweep import fold_workers
+    from raphtory_tpu_torch.engine.device_sweep import DeviceSweep
     from raphtory_tpu_torch.engine.hopbatch import (HopBatchedBFS,
                                                     HopBatchedCC,
                                                     HopBatchedPageRank,
@@ -3326,7 +3341,62 @@ def phase_fold_pipeline(torch, np, columns, log, ldbc, dev):
         torch, btc, btc_hops, PageRank(max_steps=20, tol=1e-7), BTC_WINDOWS,
         dev)
     cold_fold()
-    emit("fold_pipeline", host=host, cases=cases, cache=cache_stats())
+    # the ledger's cost on these paths: its sampled dispatches sync the card
+    ab = {"headline": ledger_ab(torch, lambda: headline().run(
+        hops, windows, chunks=3, warm_start=True)),
+        "bitcoin_range": ledger_ab(torch, lambda: DeviceSweep(
+            btc, device=dev).run_sweep(PageRank(max_steps=20, tol=1e-7),
+                                       btc_hops, windows=BTC_WINDOWS))}
+    emit("fold_pipeline", host=host, cases=cases, cache=cache_stats(),
+         ledger_ab=ab)
+
+
+def ledger_ab(torch, sweep, reps: int = 2) -> dict:
+    """One sweep (a fresh engine, the fold cache cold, the default fold
+    knobs) under three arms: ``on``, the default, where ``instrument``
+    syncs the card on a sampled dispatch (the first two of each shape,
+    then one in 1/``RTPU_DEVICE_TIMING``); ``off``, ``RTPU_LEDGER=0``,
+    where the wrapper passes straight through; and ``all``,
+    ``RTPU_DEVICE_TIMING=1``, where every dispatch syncs (the stall's
+    whole cost). In the order on, off, all, all, off, on, ``reps`` sweeps
+    each after one warm-up. Medians against ``off``, and the instrumented
+    dispatches and the synced ones a sweep of ``on`` and ``all``."""
+    import statistics
+
+    from raphtory_tpu_torch.obs import device as obs_device
+    from raphtory_tpu_torch.obs import ledger as obs_ledger
+
+    def counts():
+        return (sum(r["dispatches"] for r in obs_ledger.REGISTRY.snapshot()),
+                obs_device.TIMING.totals()["warm_samples"])
+
+    arms = {"on": dict(RTPU_LEDGER=None, RTPU_DEVICE_TIMING=None),
+            "off": dict(RTPU_LEDGER="0", RTPU_DEVICE_TIMING=None),
+            "all": dict(RTPU_LEDGER=None, RTPU_DEVICE_TIMING="1")}
+    sweep()
+    torch.cuda.synchronize()
+    secs = {k: [] for k in arms}
+    seen = {k: [0, 0] for k in arms}
+    for arm in ("on", "off", "all", "all", "off", "on"):
+        with knobs(**arms[arm]):
+            for _ in range(reps):
+                cold_fold()
+                c0 = counts()
+                t0 = time.perf_counter()
+                sweep()
+                torch.cuda.synchronize()
+                secs[arm].append(time.perf_counter() - t0)
+                for i, (a, b) in enumerate(zip(counts(), c0)):
+                    seen[arm][i] += a - b
+    cold_fold()
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    return dict(median_s=med, over_off={k: med[k] / med["off"]
+                                        for k in ("on", "all")},
+                sweeps=secs,
+                dispatches_a_sweep={k: seen[k][0] / len(secs[k])
+                                    for k in ("on", "all")},
+                synced_a_sweep={k: seen[k][1] / len(secs[k])
+                                for k in ("on", "all")})
 
 
 def spec_of(lay) -> dict:
@@ -3521,12 +3591,17 @@ def phase_pcpm(torch, np, columns, log, ldbc, dev):
             runs["cold_view"]["partition_segment_reduce"]}
 
 
+#: the scale phase's edge events: 2^24, cut from 2^25 (its host fold took
+#: ~130 s there) to pay for the serve phase within the run's time limit
+SCALE_EVENTS = 1 << 24
+
+
 def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     from raphtory_tpu_torch.core.sweep import fold_workers
     from raphtory_tpu_torch.utils.synth import gab_like_log
 
     t0 = time.perf_counter()
-    log = gab_like_log(5_300_000, 1 << 25, seed=11, t_span=GAB_SPAN)
+    log = gab_like_log(5_300_000, SCALE_EVENTS, seed=11, t_span=GAB_SPAN)
     gen_s = time.perf_counter() - t0
     # 2 hops (cut from 4, and from bench's 16 x 8, for the host fold's
     # time: this phase measures the fold, not the device)
@@ -3558,7 +3633,7 @@ def phase_scale(torch, np, columns, HopBatchedPageRank, dev):
     if bool(((sums - 1.0).abs() > 1e-4).any()):
         raise AssertionError(f"scale rank sums off 1: {sums.tolist()}")
     n_views = len(hops) * len(WINDOWS)
-    emit("scale", n_edge_events=1 << 25, n=hb.tables.n, m=hb.tables.m,
+    emit("scale", n_edge_events=SCALE_EVENTS, n=hb.tables.n, m=hb.tables.m,
          n_pad=hb.tables.n_pad, m_pad=hb.tables.m_pad, views=n_views,
          gen_s=gen_s, setup_s=setup_s, **fold_stats(hb, sweep_s),
          fold_workers=fold_workers(), fold_cache=cache_stats(),
@@ -5501,6 +5576,534 @@ def phase_programs(torch, np, columns, log, ldbc, dev):
     return all_launches
 
 
+#: the serve phase: the headline's 12 hops (0.45 .. 1.0 x t_span, 130,000
+#: apart) and the LDBC server's 11 (0.5 .. 1.0 x its span)
+SERVE_HOP0, SERVE_STEP = 1_170_000, 130_000
+LDBC_HOP0 = 1_300_000
+#: the coalescing window of the serve phase's servers, a harness choice (a
+#: deployment's default is 3 ms): long enough that a burst posted from
+#: concurrent threads lands in one window. The phase ends with traffic at
+#: the default window
+SERVE_WINDOW_MS = 250
+#: converged, as the live phase's: a coalesced batch solves its columns
+#: cold in one dispatch where a solo Range warm-starts chunk by chunk, and
+#: the two agree to the tolerance only at the fixed point
+SERVE_PR = {"tol": 1e-9, "max_steps": 300}
+SERVE_CC = {"max_steps": 50}
+SERVE_SSSP = {"seeds": list(LDBC_SEEDS), "weight_prop": "weight",
+              "directed": False, "max_steps": 32}
+#: (first hop index, last hop index, stride, window indices): subsets of
+#: every other hop (6 of the 12, each union grid 6 hops x the windows, so
+#: the CPU comparisons fit the phase's time)
+SERVE_PR_REQS = [(0, 10, 2, (0,)), (0, 8, 4, (1, 2)), (2, 10, 4, (0, 1, 2)),
+                 (6, 10, 2, (2,)), (4, 8, 2, (1,)), (0, 10, 10, (0, 2)),
+                 (4, 6, 2, (0, 1)), (8, 10, 2, (2, 0))]
+SERVE_CC_REQS = [(0, 8, 4, (0,)), (2, 10, 8, (0, 1)), (6, 10, 2, (2,))]
+SERVE_SSSP_REQS = [(0, 10, 2, (0, 1)), (2, 10, 4, (0,)), (6, 10, 2, (1,))]
+SERVE_KERNELS = ("masks_from_deltas", "column_out_degree", "column_pull_sum",
+                 "pagerank_update", "cc_superstep", "minplus_superstep",
+                 "weights_from_deltas", "apply_delta_chunk", "window_masks",
+                 "segment_combine", "unpack_mask_bits")
+SERVE_GETS = ("/Jobs", "/Analysers", "/healthz", "/statusz", "/costz",
+              "/devicez", "/freshz", "/slz?n=5", "/journalz", "/workloadz",
+              "/faultz")
+
+
+def http(port: int, path: str, body=None, timeout: float = 120.0):
+    """``(status, JSON document)`` of one request to a local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_range(name, params, reqs, hop0, step, windows, tag):
+    """REST Range bodies of ``reqs``: hops ``hop0 + step * i`` for i in
+    ``range(first, last + 1, stride)``, the windows by index."""
+    return [dict(analyserName=name, params=dict(params),
+                 start=hop0 + step * a, end=hop0 + step * b,
+                 jump=step * k, windowType="batched",
+                 windowSet=[windows[i] for i in w],
+                 jobID=f"{tag}{j}", sinkName=f"{tag}{j}.jsonl")
+            for j, (a, b, k, w) in enumerate(reqs)]
+
+
+def query_of(body):
+    """The manager query a REST body asks for."""
+    from raphtory_tpu_torch.jobs.manager import RangeQuery, ViewQuery
+
+    ws = tuple(body["windowSet"]) if "windowSet" in body else None
+    if "timestamp" in body:
+        return ViewQuery(int(body["timestamp"]), windows=ws)
+    return RangeQuery(int(body["start"]), int(body["end"]),
+                      int(body["jump"]), windows=ws)
+
+
+def post_all(port: int, path: str, bodies) -> None:
+    """Every body posted at once, from a thread each (concurrent
+    clients)."""
+    import threading
+
+    codes = [None] * len(bodies)
+
+    def one(i):
+        codes[i] = http(port, path, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    bad = [c for c in codes if c[0] != 200]
+    if bad:
+        raise AssertionError(f"serve: POST {path} answered {bad}")
+
+
+def await_done(port: int, job_ids, timeout: float = 300.0) -> dict:
+    """``/AnalysisResults`` of each job once it has ended; fails unless it
+    ended ``done``."""
+    out, deadline = {}, time.monotonic() + timeout
+    for jid in job_ids:
+        while True:
+            code, res = http(port, f"/AnalysisResults?jobID={jid}")
+            if code != 200:
+                raise AssertionError(f"serve: {jid}: {code} {res}")
+            if res["status"] not in ("running", "pending"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve: {jid} still {res['status']}")
+            time.sleep(0.005)
+        if res["status"] != "done":
+            raise AssertionError(f"serve: {jid} {res['status']}: "
+                                 f"{res.get('error')}")
+        out[jid] = res
+    return out
+
+
+def cpu_rows(log, bodies, coalesce: bool, windows_ms: int = 0):
+    """The rows of each body's query on the CPU through the twins: solo
+    (each on its own hops, ``RTPU_BATCH_WINDOW_MS=0``), or, with
+    ``coalesce``, submitted together under the serve window, so the CPU's
+    scheduler packs them as the card's did. Returns ``{jobID: rows}`` and
+    each job's coalesced block."""
+    import threading
+
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.jobs import registry
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager
+
+    os.environ["RTPU_BATCH_WINDOW_MS"] = str(
+        SERVE_WINDOW_MS if coalesce else windows_ms)
+    mgr = AnalysisManager(TemporalGraph(log, device="cpu"), device="cpu")
+    jobs = {}
+
+    def one(body):
+        jobs[body["jobID"]] = mgr.submit(
+            registry.resolve(body["analyserName"], body.get("params")),
+            query_of(body), job_id=body["jobID"])
+
+    if coalesce:
+        threads = [threading.Thread(target=one, args=(b,)) for b in bodies]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    else:
+        for b in bodies:
+            one(b)
+            jobs[b["jobID"]].wait(900)
+    out, blocks = {}, {}
+    for jid, job in jobs.items():
+        if not job.wait(900) or job.status != "done":
+            raise AssertionError(f"serve CPU {jid}: {job.status}: "
+                                 f"{job.error}")
+        # as the REST answer carries them: through JSON
+        out[jid] = json.loads(json.dumps(
+            [{k: v for k, v in r.items() if k != "viewTime"}
+             for r in mgr.results(jid)]))
+        blocks[jid] = {k: v for k, v in (job.ledger.coalesced or {}).items()
+                       if k not in ("batch_id",)}
+    return out, blocks
+
+
+def values_match(what, got, want) -> None:
+    """Rows of a coalesced member against the same query run solo: equal
+    time / windowsize and results (PageRank within rtol 1e-5 / atol 1e-7
+    and its top-10 ids), whatever the supersteps (a coalesced row reports
+    its batch's, as in the reference)."""
+    compare_rows(what, [dict(r, steps=0) for r in got],
+                 [dict(r, steps=0) for r in want])
+
+
+def span_seconds(spans, name) -> list:
+    return [s["dur"] / 1e6 for s in spans
+            if s.get("ph") == "X" and s["name"] == name]
+
+
+def live_split(spans) -> list:
+    """Each live epoch's seconds split into repin (``live.repin``), fold
+    (``hop.fold``) and dispatch (``hop.compute``) from the job's spans,
+    an epoch the spans that start inside its ``live.repin`` ..
+    ``live.epoch`` interval."""
+    xs = sorted((s for s in spans if s.get("ph") == "X"),
+                key=lambda s: s["ts"])
+    epochs = [s for s in xs if s["name"] == "live.epoch"]
+    repins = [s for s in xs if s["name"] == "live.repin"]
+    out = []
+    for e in epochs:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        rep = [r for r in repins if r["ts"] + r["dur"] <= lo
+               and all(not (r["ts"] + r["dur"] <= o["ts"] < lo)
+                       for o in epochs)]
+        inside = [s for s in xs if lo <= s["ts"] < hi]
+        out.append(dict(
+            mode=e["args"].get("mode"), time=e["args"].get("time"),
+            epoch_s=e["dur"] / 1e6,
+            repin_s=rep[-1]["dur"] / 1e6 if rep else 0.0,
+            fold_s=sum(s["dur"] for s in inside
+                       if s["name"] == "hop.fold") / 1e6,
+            dispatch_s=sum(s["dur"] for s in inside
+                           if s["name"] == "hop.compute") / 1e6))
+    return out
+
+
+def latency_stats(secs) -> dict:
+    import statistics
+
+    return {"n": len(secs), "median_s": statistics.median(secs),
+            "max_s": max(secs)}
+
+
+def phase_serve(torch, np, columns, log, ldbc, dev):
+    """The REST serving stack on the card (``jobs/rest.RestServer`` over
+    ``AnalysisManager``, in process, port 0): a server over the headline
+    GAB log and one over the LDBC log, each with a sink directory, and a
+    third over the ``live`` phase's GAB stream; the serving scheduler's
+    coalescing window ``SERVE_WINDOW_MS``. Over HTTP: a burst of 8
+    concurrent PageRank Range requests (each its own subset of the 12
+    hops and of the 3 windows), 3 concurrent CC Ranges, 3 concurrent
+    weighted SSSP Ranges on the LDBC server (its 2 windows); a PageRank
+    View warm (the resident route: K9a, K9b, K7) and cold (behind the
+    resident clock: K8u, K7), a ``DegreeBasic`` View, an ``explain=1``
+    Range (its ledger back), a ``KillTask`` on a long Range; every ported
+    GET route and ``/tracez`` of one request's trace id; the metrics text
+    of a ``MetricsServer``; a Live PageRank subscription over 3 batches of
+    the live stream. Checks: every row against the same query on the CPU
+    through the twins (each request solo on its own hops: results;
+    and the burst coalesced on the CPU the same way: the same batches and
+    equal supersteps; PageRank rtol 1e-5 / atol 1e-7, the rest equal);
+    every sink file equal to its rows; a coalesced PageRank batch of 8,
+    a CC batch and an SSSP batch, none declined; K1, K2a/b/c, K5, K6,
+    K6w, K9a, K9b, K7 and K8u launched. Then one injected
+    ``sched.dispatch`` failure: the batch's members take their own routes
+    on the card, rows equal to the CPU's, equal supersteps. Last, at the
+    default window (3 ms): 3 PageRank Ranges one after another and the
+    burst of 8 again, rows against the solo CPU rows. Prints each
+    request kind's submit-to-done seconds at both windows, the batches, the
+    ``sched.dispatch`` spans and the Live epochs split into repin, fold
+    and dispatch. ``RTPU_PCPM=0``, as every phase before ``pcpm`` pins it:
+    the binned kernels (KB1, K2b-P, K5-P) are not on this path."""
+    import tempfile
+
+    from raphtory_tpu_torch.algorithms import PageRank
+    from raphtory_tpu_torch.core.service import TemporalGraph
+    from raphtory_tpu_torch.ingestion.watermark import WatermarkRegistry
+    from raphtory_tpu_torch.jobs.manager import AnalysisManager, LiveQuery
+    from raphtory_tpu_torch.jobs.rest import RestServer
+    from raphtory_tpu_torch.obs.metrics import MetricsServer
+    from raphtory_tpu_torch.obs.trace import TRACER
+    from raphtory_tpu_torch.resilience import faults
+
+    tmp = tempfile.mkdtemp(prefix="rtpu_serve_")
+    stream = live_stream(np, log, 20, weighted=False)   # the live phase's
+    first, t0, step, batches = stream
+    live_log, wm = first(), WatermarkRegistry()
+    wm.register("feed")
+    wm.advance("feed", t0)
+    os.environ["RTPU_BATCH_WINDOW_MS"] = str(SERVE_WINDOW_MS)
+    mgrs = {"gab": AnalysisManager(TemporalGraph(log, device=dev),
+                                   device=dev, sink_dir=f"{tmp}/gab"),
+            "ldbc": AnalysisManager(TemporalGraph(ldbc, device=dev),
+                                    device=dev, sink_dir=f"{tmp}/ldbc"),
+            "live": AnalysisManager(TemporalGraph(live_log, watermarks=wm,
+                                                  device=dev), device=dev)}
+    servers = {k: RestServer(m, port=0).start() for k, m in mgrs.items()}
+    port = {k: s.port for k, s in servers.items()}
+    metrics = MetricsServer(port=0, addr="127.0.0.1").start()
+    was_tracing = TRACER.enabled
+    try:
+        if http(port["gab"], "/tracez?enable=1")[0] != 200:
+            raise AssertionError("serve: /tracez?enable=1")
+        pr = serve_range("PageRank", SERVE_PR, SERVE_PR_REQS, SERVE_HOP0,
+                         SERVE_STEP, WINDOWS, "pr")
+        cc = serve_range("ConnectedComponents", SERVE_CC, SERVE_CC_REQS,
+                         SERVE_HOP0, SERVE_STEP, WINDOWS, "cc")
+        sssp = serve_range("SSSP", SERVE_SSSP, SERVE_SSSP_REQS, LDBC_HOP0,
+                           SERVE_STEP, LDBC_WINDOWS, "sssp")
+        views = [dict(analyserName="PageRank", params=dict(SERVE_PR),
+                      timestamp=int(f * GAB_SPAN), windowType="batched",
+                      windowSet=WINDOWS, jobID=name, sinkName=f"{name}.jsonl")
+                 for name, f in (("pr_view_pin", 0.95),
+                                 ("pr_view_warm", 0.98),
+                                 ("pr_view_cold", 0.90))]
+        views.append(dict(analyserName="DegreeBasic",
+                          timestamp=int(0.97 * GAB_SPAN),
+                          windowType="batched", windowSet=WINDOWS,
+                          jobID="degree_view", sinkName="degree_view.jsonl"))
+        explain = dict(analyserName="PageRank", params=dict(SERVE_PR),
+                       start=SERVE_HOP0 + 9 * SERVE_STEP,
+                       end=SERVE_HOP0 + 11 * SERVE_STEP, jump=SERVE_STEP,
+                       windowType="batched", windowSet=WINDOWS[:1],
+                       jobID="explain", explain=1)
+        cold_fold()
+        columns.reset_launches()
+        w0 = time.perf_counter()
+        post_all(port["gab"], "/RangeAnalysisRequest", pr)
+        post_all(port["gab"], "/RangeAnalysisRequest", cc)
+        post_all(port["ldbc"], "/RangeAnalysisRequest", sssp)
+        res = await_done(port["gab"], [b["jobID"] for b in pr + cc])
+        res.update(await_done(port["ldbc"], [b["jobID"] for b in sssp]))
+        burst_s = time.perf_counter() - w0
+        # the batches' spans, before later traffic rolls them off the ring
+        dispatch = [dict(args={k: s["args"].get(k) for k in (
+            "family", "jobs", "hops", "windows", "cols")},
+            seconds=s["dur"] / 1e6) for s in TRACER.recent(4096)
+            if s.get("ph") == "X" and s["name"] == "sched.dispatch"]
+        for body in views:
+            post_all(port["gab"], "/ViewAnalysisRequest", [body])
+            res.update(await_done(port["gab"], [body["jobID"]]))
+        post_all(port["gab"], "/RangeAnalysisRequest", [explain])
+        res.update(await_done(port["gab"], ["explain"]))
+        led = res["explain"].get("ledger")
+        if not led or led["views"] != len(res["explain"]["results"]) \
+                or led["device"]["dispatches"] < 1:
+            raise AssertionError(f"serve: explain ledger {led}")
+        long = dict(analyserName="DegreeBasic", start=int(0.5 * GAB_SPAN),
+                    end=GAB_SPAN, jump=1_000, jobID="long")
+        post_all(port["gab"], "/RangeAnalysisRequest", [long])
+        code, k = http(port["gab"], "/KillTask?jobID=long")
+        while True:
+            c2, kres = http(port["gab"], "/AnalysisResults?jobID=long")
+            if kres["status"] not in ("running", "pending"):
+                break
+            time.sleep(0.01)
+        if code != 200 or kres["status"] != "killed":
+            raise AssertionError(f"serve: KillTask {code} {k} -> "
+                                 f"{kres['status']}")
+        # the Live subscription over 3 batches of the live stream
+        live_body = dict(analyserName="PageRank",
+                         params={"tol": 1e-9, "max_steps": 300},
+                         repeatTime=step, eventTime=True,
+                         maxRuns=len(batches[:3]) + 1, windowType="batched",
+                         windowSet=WINDOWS, jobID="live")
+        post_all(port["live"], "/LiveAnalysisRequest", [live_body])
+        live_job = mgrs["live"].get("live")
+        deadline = time.monotonic() + 300.0
+        for i, (bt, bk, bs, bd, bp) in enumerate(batches[:3]):
+            while len(mgrs["live"].results("live")) < (i + 1) * len(WINDOWS):
+                if live_job.wait(0.0005):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve: Live epoch {i} never "
+                                         f"came ({live_job.status})")
+            live_log.append_batch(bt, bk, bs, bd, props=bp)
+            wm.advance("feed", t0 + (i + 1) * step)
+        wm.finish("feed")
+        res.update(await_done(port["live"], ["live"]))
+        serve_s = time.perf_counter() - w0
+        launches = dict(columns.LAUNCHES)
+        check_launched("serve", launches, SERVE_KERNELS)
+        # every GET route
+        gets = {}
+        for path in SERVE_GETS:
+            code, doc = http(port["gab"], path)
+            if code != 200:
+                raise AssertionError(f"serve: GET {path}: {code} {doc}")
+            gets[path] = doc
+        trace_id = res["explain"]["traceID"]
+        code, tz = http(port["gab"], f"/tracez?trace_id={trace_id}")
+        names = {s["name"] for s in tz.get("spans", [])}
+        if code != 200 or not {"rest.request", "job", "sweep.columnar",
+                               "hop.compute"} <= names:
+            raise AssertionError(f"serve: /tracez of {trace_id}: {names}")
+        for path in ("/advisez", "/profilez", "/clusterz"):
+            if http(port["gab"], path)[0] != 404:
+                raise AssertionError(f"serve: {path} is not unknown")
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{metrics.port}/metrics",
+                timeout=60) as resp:
+            text = resp.read().decode()
+        if 'raphtory_scheduler_batches_total{family="pagerank"}' not in text:
+            raise AssertionError("serve: metrics text lacks the batches")
+        sched = {k: m.scheduler.status_block() for k, m in mgrs.items()}
+        hist = sched["gab"]["coalesced_jobs_hist"]
+        if (hist.get(str(len(pr)), 0) < 1 or hist.get(str(len(cc)), 0) < 1
+                or sched["ldbc"]["coalesced_jobs_hist"].get(
+                    str(len(sssp)), 0) < 1
+                or sched["gab"]["batch_declined"]
+                or sched["ldbc"]["batch_declined"]):
+            raise AssertionError(f"serve: batches {sched}")
+        # sink files equal their rows
+        for k, bodies in (("gab", pr + cc + views), ("ldbc", sssp)):
+            for b in bodies:
+                with open(f"{tmp}/{k}/{b['sinkName']}") as f:
+                    disk = [json.loads(x) for x in f]
+                if disk != res[b["jobID"]]["results"]:
+                    raise AssertionError(f"serve: sink {b['sinkName']} "
+                                         "differs from its rows")
+        split = live_split(TRACER.for_trace(res["live"]["traceID"]))
+        kinds = {**{b["jobID"]: ("gab", "pagerank_range") for b in pr},
+                 **{b["jobID"]: ("gab", "cc_range") for b in cc},
+                 **{b["jobID"]: ("ldbc", "sssp_range") for b in sssp},
+                 **{b["jobID"]: ("gab", b["jobID"]) for b in views},
+                 "explain": ("gab", "explain_range"),
+                 "live": ("live", "live_subscription")}
+        lat = {}
+        for jid, (srv, kind) in kinds.items():
+            lat.setdefault(kind, []).append(
+                mgrs[srv].get(jid).ledger.wall_seconds)
+        blocks = {jid: mgrs["ldbc" if jid.startswith("sssp") else "gab"].get(
+            jid).ledger.coalesced for jid in
+            [b["jobID"] for b in pr + cc + sssp]}
+        # one injected sched.dispatch failure: the members' own routes
+        fails = pr[:3]
+        fails = [dict(b, jobID=f"f{b['jobID']}", sinkName=None)
+                 for b in fails]
+        faults.arm("sched.dispatch=error:1.0:1")
+        try:
+            post_all(port["gab"], "/RangeAnalysisRequest", fails)
+            fres = await_done(port["gab"], [b["jobID"] for b in fails])
+            code, fz = http(port["gab"], "/faultz")
+        finally:
+            faults.disarm()
+        declined = mgrs["gab"].scheduler.status_block()["batch_declined"]
+        if fz["sites"].get("sched.dispatch", {}).get("injected") != 1 \
+                or declined != 1:
+            raise AssertionError(f"serve: failpoint {fz} declined "
+                                 f"{declined}")
+        fail_launches = dict(columns.LAUNCHES)
+        # the default window (RTPU_BATCH_WINDOW_MS unset: 3 ms), as a
+        # deployment runs: 3 PageRank Ranges one after another (each a
+        # solo request, held for the window and passed through), then
+        # the burst of 8 posted at once; the fold cache emptied first
+        os.environ.pop("RTPU_BATCH_WINDOW_MS")
+        dflt = {"solo": [dict(b, jobID=f"d{b['jobID']}", sinkName=None)
+                         for b in pr[:3]],
+                "burst": [dict(b, jobID=f"db{b['jobID']}", sinkName=None)
+                          for b in pr]}
+        before = mgrs["gab"].scheduler.status_block()
+        cold_fold()
+        dres = {}
+        for body in dflt["solo"]:
+            post_all(port["gab"], "/RangeAnalysisRequest", [body])
+            dres.update(await_done(port["gab"], [body["jobID"]]))
+        post_all(port["gab"], "/RangeAnalysisRequest", dflt["burst"])
+        dres.update(await_done(port["gab"],
+                               [b["jobID"] for b in dflt["burst"]]))
+        after = mgrs["gab"].scheduler.status_block()
+        os.environ["RTPU_BATCH_WINDOW_MS"] = str(SERVE_WINDOW_MS)
+        if after["window_ms"] != 3.0 \
+                or after["batch_declined"] != before["batch_declined"]:
+            raise AssertionError(f"serve: default window {after}")
+        dflt_out = dict(
+            window_ms=after["window_ms"],
+            latency_s={k: latency_stats([
+                mgrs["gab"].get(b["jobID"]).ledger.wall_seconds
+                for b in v]) for k, v in dflt.items()},
+            coalesced={b["jobID"]: (mgrs["gab"].get(
+                b["jobID"]).ledger.coalesced or {}).get("jobs")
+                for k in dflt.values() for b in k},
+            batches={k: after[k] - before[k] for k in (
+                "batches_formed", "jobs_coalesced", "solo_passthrough")})
+    finally:
+        if not was_tracing:
+            TRACER.disable()
+        for s in servers.values():
+            s.stop()
+        metrics.stop()
+    # the CPU: each request solo on its own hops, and the bursts coalesced
+    # the same way
+    cpu_s = {}
+    c0 = time.perf_counter()
+    solo, _ = cpu_rows(log, pr + cc + views[:3] + [views[3], explain],
+                       coalesce=False)
+    solo.update(cpu_rows(ldbc, sssp, coalesce=False)[0])
+    cpu_s["solo"] = time.perf_counter() - c0
+    c0 = time.perf_counter()
+    batch, cpu_blocks = cpu_rows(log, pr + cc, coalesce=True)
+    b2, b2_blocks = cpu_rows(ldbc, sssp, coalesce=True)
+    batch.update(b2)
+    cpu_blocks.update(b2_blocks)
+    os.environ["RTPU_BATCH_WINDOW_MS"] = "0"
+    cpu_s["coalesced"] = time.perf_counter() - c0
+    def strip(rows):
+        return [{k: v for k, v in r.items() if k != "viewTime"}
+                for r in rows]
+
+    for jid, want in solo.items():
+        got = strip(res[jid]["results"])
+        if jid in batch:
+            values_match(f"serve {jid} vs solo", got, want)
+            compare_rows(f"serve {jid} vs the CPU batch", got, batch[jid])
+            mine = {k: v for k, v in (blocks[jid] or {}).items()
+                    if k != "batch_id"}
+            if mine != cpu_blocks[jid]:
+                raise AssertionError(f"serve {jid}: batch {mine} vs the "
+                                     f"CPU's {cpu_blocks[jid]}")
+        else:
+            compare_rows(f"serve {jid}", got, want)
+    # the failpoint's members ask pr[:3]'s queries again
+    for body, src in zip(fails, pr):
+        compare_rows(f"serve {body['jobID']} (own route)",
+                     strip(fres[body["jobID"]]["results"]),
+                     solo[src["jobID"]])
+    # the default window's rows: a request that passed through against
+    # its solo CPU rows, a coalesced one as the 250 ms burst's members
+    for body, src in zip(dflt["solo"] + dflt["burst"], pr[:3] + pr):
+        jid = body["jobID"]
+        got, want = strip(dres[jid]["results"]), solo[src["jobID"]]
+        if dflt_out["coalesced"][jid]:
+            values_match(f"serve {jid} (3 ms window) vs solo", got, want)
+        else:
+            compare_rows(f"serve {jid} (3 ms window)", got, want)
+    # the Live subscription against the same one on the CPU
+    c0 = time.perf_counter()
+    cpu_live = serve_live(columns, (first, t0, step, batches[:3]),
+                          PageRank(tol=1e-9, max_steps=300), WINDOWS,
+                          "cpu", live=True)[0]
+    cpu_s["live"] = time.perf_counter() - c0
+    same_live_rows("serve live", strip(res["live"]["results"]),
+                   json.loads(json.dumps(cpu_live)), True)
+    emit("serve", burst_s=burst_s, serve_s=serve_s, cpu_compare_s=cpu_s,
+         window_ms=SERVE_WINDOW_MS,
+         default_window=dflt_out,
+         latency_s={k: latency_stats(v) for k, v in lat.items() if v},
+         batches={k: {kk: sched[k][kk] for kk in (
+             "batches_formed", "jobs_coalesced", "coalesced_jobs_hist",
+             "batch_declined", "solo_passthrough")} for k in sched},
+         members=blocks, sched_dispatch=dispatch,
+         live_epochs=split, launches=nonzero(launches),
+         failpoint=dict(declined=declined, launches=nonzero({
+             k: fail_launches[k] - launches[k] for k in launches})),
+         routes={p: sorted(d) if isinstance(d, dict) else len(d)
+                 for p, d in gets.items()},
+         costz_kernels=sorted({k["kernel"] for k in gets["/costz"][
+             "kernels"]}),
+         device_memory=gets["/devicez"]["memory"])
+    return launches
+
+
 MESH_TARGET = "raphtory_tpu_torch.cluster.tasks:run_requests"
 ZIPF = dict(n_vertices=4096, n_events=160_000, seed=11)
 ZIPF_T, ZIPF_WINDOWS = 1000, [800, 400, 200, 100]
@@ -6435,6 +7038,9 @@ def main() -> int:
     # always measured; the pcpm phase (and scale_bulk's binned part) unset
     # the knob, the JAX package's default
     os.environ["RTPU_PCPM"] = "0"
+    # and their jobs take their own routes, as before the serving
+    # scheduler: only the serve phase opens a coalescing window
+    os.environ["RTPU_BATCH_WINDOW_MS"] = "0"
 
     from raphtory_tpu_torch.core.snapshot import build_view
     from raphtory_tpu_torch.engine.hopbatch import HopBatchedPageRank
@@ -6577,6 +7183,8 @@ def run_phases(torch, np, columns, minplus, resident, segment, build_view,
     timed("live", phase_live, torch, np, columns, log, ldbc, dev)
     timed("repin_view", phase_repin_view, torch, np, columns, log, dev)
     timed("programs", phase_programs, torch, np, columns, log, ldbc, dev)
+    # the REST serving stack, its scheduler's coalesced batches
+    timed("serve", phase_serve, torch, np, columns, log, ldbc, dev)
     # slice 7: the mesh path, one rank then 4 ranks on the card
     one = timed("mesh_one", phase_mesh_one, torch, np, columns, log, dev)
     mesh_launches, mesh_entries, mesh = timed(

@@ -115,6 +115,11 @@ def bootstrap(rank: int | None = None, world_size: int | None = None,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
     _STATE["device"], _STATE["backend"] = dev, chosen
+    # the tracer's process identity: every span and captured trace
+    # context of this rank carries it
+    from ..obs.trace import TRACER
+
+    TRACER.set_process_index(rank)
     return True
 
 

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import collections
 import threading
+import time as _time
 
 from ..ingestion.watermark import WatermarkRegistry
+from ..obs.metrics import METRICS
+from ..obs.trace import TRACER
 from ..utils.device import resolve_device
 from .events import EventLog
 from .snapshot import GraphView, build_view
@@ -83,8 +86,12 @@ class TemporalGraph:
             if hit is not None:
                 self._cache.move_to_end(key)
                 return hit
-        view = build_view(self.log, int(time),
-                          include_occurrences=include_occurrences)
+        t0 = _time.perf_counter()
+        with TRACER.span("snapshot.fold", time=int(time),
+                         occurrences=bool(include_occurrences)):
+            view = build_view(self.log, int(time),
+                              include_occurrences=include_occurrences)
+        METRICS.snapshot_build_seconds.observe(_time.perf_counter() - t0)
         self.cache_put(int(time), view, include_occurrences, version=version)
         return view
 
@@ -94,6 +101,8 @@ class TemporalGraph:
         """Insert an externally built view (e.g. a SweepBuilder hop) into the
         cache. ``version`` must be the log version the view was BUILT from
         (a sweep's pinned log), not the current one."""
+        METRICS.view_vertices.set(view.n_active)
+        METRICS.view_edges.set(view.m_active)
         if version is None:
             version = self.log.version
         key = (version, int(time), bool(include_occurrences))

@@ -50,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 
+from ..obs.trace import TRACER
 from .events import EDGE_ADD, EDGE_DELETE, VERTEX_ADD, VERTEX_DELETE, EventLog
 from .snapshot import (
     INT64_MIN,
@@ -156,6 +157,10 @@ def prefetch_map(fold_fns, body, *, depth: int = PREFETCH_DEPTH,
         return
     depth = max(1, depth)
     pool = _prefetch_pool() if pool is None else pool
+    # each fold adopts the submitting thread's trace context, so one
+    # request's spans stay one trace across the pool (obs/trace.py)
+    if TRACER.enabled:
+        fns = [TRACER.carry(fn) for fn in fns]
     inflight = collections.deque(
         pool.submit(fns[i]) for i in range(min(depth, len(fns))))
     nxt = len(inflight)
@@ -410,7 +415,10 @@ class SweepBuilder:
                 cp = None
         sw = self.fork(cp)
         if sw.t_prev is None or sw.t_prev < time:
-            sw._advance(time)
+            with TRACER.span("fold.checkpoint", time=int(time),
+                             seeded_from=(-1 if sw.t_prev is None
+                                          else int(sw.t_prev))):
+                sw._advance(time)
             sw.save_checkpoint(cache)
         return sw
 

@@ -49,7 +49,12 @@ from ..core.snapshot import INT64_MIN, _pad_bucket
 from ..core.sweep import (_ENC_MASK, _ENC_SHIFT, SweepBuilder, fold_cache,
                           fold_pool, fold_workers, prefetch_map, prefetch_on)
 from ..native import lib as _native
+from ..obs import device as _obs_device
+from ..obs import ledger as _ledger
+from ..obs.metrics import METRICS
+from ..obs.trace import TRACER
 from ..ops.resident import apply_delta_chunk, pack_chunk, window_masks
+from ..resilience import faults as _faults
 from ..utils.device import resolve_device
 from .program import VertexProgram
 
@@ -211,6 +216,44 @@ def _time_dtype_status(tdtype, t_new: np.ndarray) -> str:
     return "extended"
 
 
+def sweep_phase_summary(sp, elapsed, fold_seconds, fold_stall_seconds,
+                        ship_delta, ship_bytes, n_hops, fold_modes=None):
+    """Per-sweep fold/stage/ship/compute phase breakdown
+    (``raphtory_tpu/engine/device_sweep.py:59``), attached to the sweep
+    span, observed into ``raphtory_sweep_phase_seconds{phase}`` and added
+    to the active query ledger — shared by both sweep engines. ``fold``
+    is the host fold (worker seconds under the prefetch), ``stage`` /
+    ``ship`` the shared transfer engine's stalls during THIS sweep
+    (``TransferStats.delta_since``; process-wide, so concurrent sweeps
+    see each other's), ``compute`` the dispatch loop's residual (kernels
+    and their host driving). Returns the phase dict."""
+    stage = float(ship_delta.get("stage_stall_seconds", 0.0))
+    wire = float(ship_delta.get("wire_stall_seconds", 0.0))
+    phases = {
+        "fold": float(fold_seconds),
+        "stage": stage,
+        "ship": wire,
+        "compute": max(float(elapsed) - float(fold_stall_seconds)
+                       - stage - wire, 0.0),
+    }
+    for ph, sec in phases.items():
+        METRICS.sweep_phase_seconds.labels(ph).observe(sec)
+    led = _ledger.current()
+    if led is not None:
+        # the port's engines ship their fold state in their own staged
+        # copies, not through the transfer engine: their ``ship_bytes``
+        # are this sweep's H2D bytes when the engine moved none
+        if not ship_delta.get("bytes_shipped"):
+            ship_delta = dict(ship_delta, bytes_shipped=int(ship_bytes))
+        led.add_sweep(phases, ship_delta, ship_bytes, n_hops,
+                      fold_modes=fold_modes)
+    sp.set(elapsed_seconds=round(float(elapsed), 6),
+           fold_stall_seconds=round(float(fold_stall_seconds), 6),
+           ship_bytes=int(ship_bytes), n_hops=int(n_hops),
+           **{f"{ph}_seconds": round(sec, 6) for ph, sec in phases.items()})
+    return phases
+
+
 def supported(program: VertexProgram) -> bool:
     """True if ``program`` can run on the device-resident sweep engine:
     no occurrence arrays and no host-materialised properties."""
@@ -267,6 +310,12 @@ class DeviceSweep:
             torch.zeros(self.m_pad, dtype=torch.bool, device=dev),
             torch.full((self.m_pad,), self._tmin, dtype=tdt, device=dev),
         )
+        # resident-buffer gauge (obs/device.py): the fold-state buffers
+        # live exactly as long as this sweep
+        _obs_device.RESIDENT.track(
+            self, "fold_state",
+            _obs_device.nbytes_tree(self._bufs)
+            + _obs_device.nbytes_tree((self.vids,)))
         # delta chunk capacities: big enough that a typical hop is one chunk
         self.cap_v = max(1024, self.n_pad // 4)
         self.cap_e = max(4096, self.m_pad // 16)
@@ -325,8 +374,16 @@ class DeviceSweep:
         """Fold events in (t_now, time] on the host and mirror the touched
         rows into the device buffers. Times must be non-decreasing."""
         with self._pin_lock:
-            payload = self._fold_hop_inner(time)
+            payload = self._fold_hop(time)
         self._apply_staged(payload)
+
+    def _fold_hop(self, time: int, checkpoint_to=None) -> dict:
+        """``_fold_hop_inner`` under a ``hop.fold`` span."""
+        with TRACER.span("hop.fold", time=int(time),
+                         engine="device_sweep") as sp:
+            payload = self._fold_hop_inner(time, checkpoint_to)
+            sp.set(kind=payload["kind"])
+        return payload
 
     def _fold_hop_inner(self, time: int, checkpoint_to=None) -> dict:
         """Host half of one hop: fold events in (t_now, time] and stage the
@@ -406,6 +463,11 @@ class DeviceSweep:
         kind = payload["kind"]
         if kind == "noop":
             return
+        with TRACER.span("hop.ship", kind=kind, time=int(payload["time"])):
+            self._apply_staged_inner(payload)
+
+    def _apply_staged_inner(self, payload: dict) -> None:
+        kind = payload["kind"]
         t0 = _time.perf_counter()
         try:
             if kind == "full":
@@ -419,8 +481,10 @@ class DeviceSweep:
                     # one copy from pinned memory: the host does not wait
                     # (the caching host allocator keeps the block until the
                     # copy is done)
-                    apply_delta_chunk(self._bufs, chunk._replace(
-                        data=chunk.data.to(self.device, non_blocking=True)))
+                    _ledger.instrument("device_sweep.apply",
+                                       apply_delta_chunk)(
+                        self._bufs, chunk._replace(data=chunk.data.to(
+                            self.device, non_blocking=True)))
         except BaseException:
             # t_now already reflects this payload's fold but the buffers
             # may not — the next fold must take the full-refresh path
@@ -502,6 +566,9 @@ class DeviceSweep:
         if windows is None:
             windows = [window if window is not None else -1]
         wlist = normalize_windows(windows)
+        # the device.dispatch failpoint: an injected error takes the path
+        # a real dispatch failure takes
+        _faults.fire("device.dispatch")
         t0 = _time.perf_counter()
         try:
             v_lat, v_alive, v_first, e_lat, e_alive, e_first = self._bufs
@@ -513,11 +580,15 @@ class DeviceSweep:
             if program.needs_edge_times:
                 e_lat = _widen(e_lat, self._tmin)
                 e_first = _widen(e_first, self._tmin)
-            runner = make_mask_runner(program, self.n_pad, self.m_pad,
-                                      len(wlist))
-            result, steps = runner(v_masks, e_masks, self.vids, v_lat,
-                                   v_first, self.edges, e_lat, e_first,
-                                   int(T), wlist, {}, {})
+            runner = _ledger.instrument(
+                f"device_sweep.superstep.{type(program).__name__}",
+                make_mask_runner(program, self.n_pad, self.m_pad,
+                                 len(wlist)))
+            with TRACER.span("hop.compute", time=int(T), windows=len(wlist),
+                             engine="device_sweep"):
+                result, steps = runner(v_masks, e_masks, self.vids, v_lat,
+                                       v_first, self.edges, e_lat, e_first,
+                                       int(T), wlist, {}, {})
         finally:
             self.dispatch_seconds += _time.perf_counter() - t0
         if not batched:
@@ -540,8 +611,21 @@ class DeviceSweep:
         times = [int(t) for t in times]
         if sorted(times) != times:
             raise ValueError("run_sweep times must ascend")
-        with self._pin_lock:
-            return self._run_sweep(program, times, window, windows)
+        from ..utils.transfer import shared_engine
+
+        before = shared_engine().stats.as_dict()
+        t_start = _time.perf_counter()
+        with self._pin_lock, TRACER.span(
+                "sweep.range", engine="device_sweep", hops=len(times),
+                program=type(program).__name__) as sp:
+            out = self._run_sweep(program, times, window, windows)
+            self.last_phase_seconds = sweep_phase_summary(
+                sp, _time.perf_counter() - t_start, self.fold_seconds,
+                self.fold_stall_seconds,
+                shared_engine().stats.delta_since(before),
+                self.ship_bytes, len(times),
+                fold_modes=self.fold_mode_seconds)
+        return out
 
     def _run_sweep(self, program, times, window, windows):
         self.fold_seconds = self.dispatch_seconds = 0.0
@@ -552,6 +636,10 @@ class DeviceSweep:
 
         def step(payload, stall):
             self.fold_stall_seconds += stall
+            if stall > 0:
+                TRACER.complete("fold.stall", stall,
+                                time=int(payload["time"]))
+            METRICS.h2d_stall_seconds.labels(stage="fold").inc(stall)
             self._apply_staged(payload)
             r, s = self._dispatch(program, payload["time"], window, windows)
             results.append(r)
@@ -560,7 +648,7 @@ class DeviceSweep:
         if not prefetch_on() or len(times) <= 1:
             for T in times:
                 t0 = _time.perf_counter()
-                payload = self._fold_hop_inner(T)
+                payload = self._fold_hop(T)
                 step(payload, _time.perf_counter() - t0)
             return results, steps
         plan = self._sweep_plan(times)
@@ -572,7 +660,7 @@ class DeviceSweep:
         at = set() if plan is None else set(plan[1][1:])
         cache = None if plan is None else plan[2]
         try:
-            prefetch_map((partial(self._fold_hop_inner, T,
+            prefetch_map((partial(self._fold_hop, T,
                                   cache if T in at else None)
                           for T in times), step)
         except BaseException:
@@ -611,13 +699,16 @@ class DeviceSweep:
 
         def task(i: int):
             t0 = _time.perf_counter()
-            sw = self.sw.fork() if starts[i] is None \
-                else self.sw.fork_at(starts[i], cache)
-            prev = sw.t_prev
-            payloads = []
-            for T in segs[i]:
-                payloads.append(self._fold_hop_fork(sw, T, prev))
-                prev = T
+            with TRACER.span("hop.fold", hops=len(segs[i]),
+                             engine="device_sweep", mode="parallel",
+                             worker=threading.current_thread().name):
+                sw = self.sw.fork() if starts[i] is None \
+                    else self.sw.fork_at(starts[i], cache)
+                prev = sw.t_prev
+                payloads = []
+                for T in segs[i]:
+                    payloads.append(self._fold_hop_fork(sw, T, prev))
+                    prev = T
             return sw, payloads, _time.perf_counter() - t0
 
         last_sw = [self.sw]
@@ -626,6 +717,10 @@ class DeviceSweep:
             sw, payloads, dt = res
             self._note_fold(dt, "parallel")
             self.fold_stall_seconds += stall
+            if stall > 0:
+                TRACER.complete("fold.stall", stall)
+            METRICS.h2d_stall_seconds.labels(stage="fold").inc(stall)
+            METRICS.fold_seconds.labels("parallel").observe(dt)
             last_sw[0] = sw
             for payload in payloads:
                 step(payload, 0.0)
@@ -646,7 +741,13 @@ class DeviceSweep:
         """``_fold_hop_inner`` on a forked builder: fold events in (prev,
         time] and stage the touched rows. The engine's clock, stale flag
         and telemetry are the calling loop's business."""
-        if prev is not None and time <= prev:
-            return {"time": time, "kind": "noop"}
-        sw._advance(time)
-        return self._stage_payload(sw, time)
+        time = int(time)
+        with TRACER.span("hop.fold", time=time,
+                         engine="device_sweep") as sp:
+            if prev is not None and time <= prev:
+                sp.set(kind="noop")
+                return {"time": time, "kind": "noop"}
+            sw._advance(time)
+            payload = self._stage_payload(sw, time)
+            sp.set(kind=payload["kind"])
+            return payload

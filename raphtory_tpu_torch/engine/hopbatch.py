@@ -61,10 +61,14 @@ from ..core.sweep import (SweepBuilder, fold_cache, fold_pool, fold_workers,
 from ..ops import columns, minplus
 from ..ops import partition as _partition
 from ..ops.partition import BinnedEdges
+from ..obs import device as _obs_device
+from ..obs import ledger as _ledger
+from ..obs.trace import TRACER
 from ..ops.resident import Staged, pack, ship, stage
 from ..utils.device import resolve_device
 from .device_sweep import (DeviceEdges, GlobalTables, _device_edges,
-                           _time_dtype_status, normalize_windows)
+                           _time_dtype_status, normalize_windows,
+                           sweep_phase_summary)
 
 _log = logging.getLogger(__name__)
 
@@ -78,6 +82,38 @@ def _column_layout(hop_times, windows):
     T_col = np.asarray([int(x) for x in hop_times], np.int64)[hop_of_col]
     w_col = np.asarray(wlist * H, np.int64)
     return H, H * len(wlist), hop_of_col, T_col, w_col
+
+
+def stack_grids(grids):
+    """Multi-request column stacking (``raphtory_tpu/engine/hopbatch.py:
+    2298``): merge per-request ``(hop_times, windows)`` grids into ONE
+    dispatch grid — the serving scheduler's entry into the columnar
+    engines (``jobs/scheduler.py``). The batch grid is the cross product
+    of the hop union and the window union, a superset of every member's
+    grid. Returns ``(hops, wlist, cols)``:
+
+    * ``hops`` — ascending union of all hop times (ints, deduplicated);
+    * ``wlist`` — union of the normalized windows (``None`` → -1),
+      first-seen order, deduplicated;
+    * ``cols`` — per request, the flat column indices of ITS cells in the
+      batch result (hop-major ``_column_layout`` order), hops ascending ×
+      that request's own window order: the order a serial per-request
+      dispatch emits them in, so the demux is an index gather.
+    """
+    hops = sorted({int(t) for ts, _ in grids for t in ts})
+    wlist: list[int] = []
+    for _, ws in grids:
+        for w in normalize_windows(ws):
+            if w not in wlist:
+                wlist.append(w)
+    W = len(wlist)
+    hop_idx = {t: j for j, t in enumerate(hops)}
+    cols = []
+    for ts, ws in grids:
+        nws = [wlist.index(w) for w in normalize_windows(ws)]
+        cols.append([hop_idx[int(t)] * W + i
+                     for t in sorted({int(x) for x in ts}) for i in nws])
+    return hops, wlist, cols
 
 
 def _pad_hop_deltas(deltas, H: int, tdt):
@@ -305,10 +341,30 @@ def run_columns_delta(kind, tables, base, deltas_e, deltas_v, hop_times,
     def put(a):
         return _put(a, dev)
 
+    with TRACER.span("hop.compute", kind=kind, hops=H, cols=H * W,
+                     resident_base=h0_delta, pcpm=layout is not None):
+        return _ledger.instrument(f"hopbatch.delta.{kind}", partial(
+            _delta_program, kind, tables, algo_args, edges, seed_mask,
+            r_init, weight_base, put, H, W, h0_delta))(
+            *base, T_col, w_col, de_pos, de_lat, de_alive, dv_pos, dv_lat,
+            dv_alive, *((dw_pos, dw_val) if weighted else ()))
+
+
+def _delta_program(kind, tables, algo_args, edges, seed_mask, r_init,
+                   weight_base, put, H, W, h0_delta, be_lat, be_alive,
+                   bv_lat, bv_alive, T_col, w_col, de_pos, de_lat, de_alive,
+                   dv_pos, dv_lat, dv_alive, dw_pos=None, dw_val=None):
+    """The device half of ``run_columns_delta`` (the program the reference
+    compiles as ``hopbatch.delta.{kind}``): upload the base and the
+    deltas, rebuild the masks (K1), then iterate (K2a/b/c, K5 or K6 with
+    K6w's weights)."""
+    tdt = tables.tdtype
+    weighted = weight_base is not None
     info = np.iinfo(tdt)
     lo = put(np.clip(T_col - w_col, info.min, info.max).astype(tdt))
     nowin = put(w_col < 0)
-    be_lat, be_alive, bv_lat, bv_alive = (put(a) for a in base)
+    be_lat, be_alive, bv_lat, bv_alive = (
+        put(a) for a in (be_lat, be_alive, bv_lat, bv_alive))
     me, fe_lat, fe_alive = columns.masks_from_deltas(
         be_lat, be_alive, put(de_pos), put(de_lat), put(de_alive),
         lo, nowin, H, W, h0_delta)
@@ -413,14 +469,18 @@ def run_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times, windows,
     K2b-P). ``device=None`` is the CUDA card. Returns ``(ranks [H*W,
     n_pad] hop-major, steps)``."""
     dev = resolve_device(device)
-    H, W, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev, layout)
-    e_src, e_dst, indptr, pcpm, walk = _pr_args(
-        _column_edges(tables, dev, edges, layout), tables)
-    return _pagerank_columns(me, mv, e_src, e_dst, indptr, tables.n_pad,
-                             float(damping), float(tol), int(max_steps),
-                             r_init=_tile_warm(r_init, H, W), pcpm=pcpm,
-                             walk=walk)
+    with TRACER.span("hop.compute", cols=len(hop_times) * len(
+            normalize_windows(windows))):
+        H, W, me, mv = _dispatch_columns(
+            tables, (e_lat, e_alive, v_lat, v_alive), hop_times, windows,
+            dev, layout)
+        e_src, e_dst, indptr, pcpm, walk = _pr_args(
+            _column_edges(tables, dev, edges, layout), tables)
+        return _ledger.instrument("hopbatch.pagerank_cols",
+                                  _pagerank_columns)(
+            me, mv, e_src, e_dst, indptr, tables.n_pad, float(damping),
+            float(tol), int(max_steps), r_init=_tile_warm(r_init, H, W),
+            pcpm=pcpm, walk=walk)
 
 
 def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
@@ -431,10 +491,14 @@ def run_cc_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     is the device ``DeviceEdges`` (uploaded from ``tables`` when None).
     Returns ``(labels [H*W, n_pad], steps)``."""
     dev = resolve_device(device)
-    _, _, me, mv = _dispatch_columns(tables, (e_lat, e_alive, v_lat, v_alive),
-                                     hop_times, windows, dev, layout)
-    return _cc_columns(me, mv, _column_edges(tables, dev, edges, layout),
-                       tables.n_pad, int(max_steps))
+    with TRACER.span("hop.compute", cols=len(hop_times) * len(
+            normalize_windows(windows))):
+        _, _, me, mv = _dispatch_columns(
+            tables, (e_lat, e_alive, v_lat, v_alive), hop_times, windows,
+            dev, layout)
+        return _ledger.instrument("hopbatch.cc_cols", _cc_columns)(
+            me, mv, _column_edges(tables, dev, edges, layout), tables.n_pad,
+            int(max_steps))
 
 
 def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
@@ -450,22 +514,25 @@ def run_bfs_columns(tables, e_lat, e_alive, v_lat, v_alive, hop_times,
     H]``, as the reference's ``ew[perm]``). Returns ``(distances [H*W,
     n_pad], steps)``."""
     dev = resolve_device(device)
-    # the weight columns ride the fold columns' one copy
-    cols = _ship_columns((e_lat, e_alive, v_lat, v_alive)
-                         + (() if weight_cols is None else (weight_cols,)),
-                         dev)
-    _, W, me, mv = _dispatch_columns(tables, cols[:4], hop_times, windows,
-                                     dev, layout)
-    edges = _column_edges(tables, dev, edges, layout)
-    ew = None
-    if weight_cols is not None:
-        ew = cols[4].t()
-        if layout is not None:
-            ew = ew[edges.perm.long()]
-        ew = ew.contiguous()
-    seed_mask = _put(_seed_mask(tables, seed_vids), dev)
-    return _bfs_columns(me, mv, edges, tables.n_pad, int(max_steps),
-                        bool(directed), seed_mask, ew, W)
+    with TRACER.span("hop.compute", cols=len(hop_times) * len(
+            normalize_windows(windows))):
+        # the weight columns ride the fold columns' one copy
+        cols = _ship_columns((e_lat, e_alive, v_lat, v_alive)
+                             + (() if weight_cols is None
+                                else (weight_cols,)), dev)
+        _, W, me, mv = _dispatch_columns(tables, cols[:4], hop_times,
+                                         windows, dev, layout)
+        edges = _column_edges(tables, dev, edges, layout)
+        ew = None
+        if weight_cols is not None:
+            ew = cols[4].t()
+            if layout is not None:
+                ew = ew[edges.perm.long()]
+            ew = ew.contiguous()
+        seed_mask = _put(_seed_mask(tables, seed_vids), dev)
+        return _ledger.instrument("hopbatch.bfs_cols", _bfs_columns)(
+            me, mv, edges, tables.n_pad, int(max_steps), bool(directed),
+            seed_mask, ew, W)
 
 
 def _delta_fingerprint(deltas_e, deltas_v) -> tuple:
@@ -583,15 +650,26 @@ def run_scale_columns(bulk, base_e, base_v, deltas_e, deltas_v, hop_times,
     elif edges is None:
         edges = _host_edges(bulk, dev)
     binned = isinstance(edges, BinnedEdges)
+    with TRACER.span("hop.compute", cols=H * W):
+        return _ledger.instrument("hopbatch.pagerank_scale", _scale_program)(
+            bulk, _put(base_e, dev), _put(base_v, dev), de_pos, de_t,
+            dv_pos, dv_t, thr, edges, binned, H, W, float(damping),
+            float(tol), int(max_steps))
+
+
+def _scale_program(bulk, base_e, base_v, de_pos, de_t, dv_pos, dv_t, thr,
+                   edges, binned, H, W, damping, tol, max_steps):
+    """The device half of ``run_scale_columns`` (the reference's
+    ``hopbatch.pagerank_scale`` program): K4 for both mask sets, then the
+    power iteration (K2a/b/c)."""
     me = columns.scale_hop_masks(
-        _put(base_e, dev), de_pos, de_t, thr, H, W,
+        base_e, de_pos, de_t, thr, H, W,
         perm=edges.perm if binned else None,
         valid=edges.valid if binned else None)
-    mv = columns.scale_hop_masks(_put(base_v, dev), dv_pos, dv_t, thr, H, W)
+    mv = columns.scale_hop_masks(base_v, dv_pos, dv_t, thr, H, W)
     e_src, e_dst, indptr, pcpm, walk = _pr_args(edges, bulk)
     return _pagerank_columns(me, mv, e_src, e_dst, indptr, bulk.n_pad,
-                             float(damping), float(tol), int(max_steps),
-                             pcpm=pcpm, walk=walk)
+                             damping, tol, max_steps, pcpm=pcpm, walk=walk)
 
 
 class _HopBatched:
@@ -706,6 +784,7 @@ class _HopBatched:
         """Forget the device-resident advanced base: the next delta batch
         ships a base snapshot from the host clock."""
         self._dev_base = None
+        _obs_device.RESIDENT.drop(self, "advanced_base")
 
     def _use_delta_fold(self) -> bool:
         """The fold route, read at dispatch: ``RTPU_FOLD=host`` ships the
@@ -764,6 +843,10 @@ class _HopBatched:
         self._dev_base = adv
         self._dev_base_spec = (None if self._active_layout is None
                                else self._active_layout.spec)
+        # resident-buffer gauge (obs/device.py): the advanced base lives
+        # as long as this engine keeps it
+        _obs_device.RESIDENT.track(self, "advanced_base",
+                                   _obs_device.nbytes_tree(adv))
         return out, steps
 
     def repin(self) -> str:
@@ -829,9 +912,22 @@ class _HopBatched:
             self._epoch_seed = warm_state
         hop_times = [int(x) for x in hop_times]
         chunks = max(1, min(int(chunks), len(hop_times)))
-        with self._pin_lock:
-            return self._run_locked(hop_times, windows, chunks, warm_start,
-                                    hop_callback)
+        from ..utils.transfer import shared_engine
+
+        before = shared_engine().stats.as_dict()
+        t_start = _time.perf_counter()
+        with self._pin_lock, TRACER.span(
+                "sweep.columnar", engine=type(self).__name__,
+                hops=len(hop_times), chunks=chunks) as sp:
+            out = self._run_locked(hop_times, windows, chunks, warm_start,
+                                   hop_callback)
+            self.last_phase_seconds = sweep_phase_summary(
+                sp, _time.perf_counter() - t_start, self.fold_seconds,
+                self.fold_stall_seconds,
+                shared_engine().stats.delta_since(before),
+                self.ship_bytes, len(hop_times),
+                fold_modes=self.fold_mode_seconds)
+        return out
 
     def _run_locked(self, hop_times, windows, chunks, warm_start,
                     hop_callback):
@@ -968,18 +1064,22 @@ class _HopBatched:
             # a lookahead fold runs BEFORE the previous group's delta
             # dispatch has left its device-resident base: it must assume
             # it, or chunks 2+ would ship a base the serial loop never does
-            t0 = _time.perf_counter()
-            if delta:
-                _, p = self._fold_deltas(group, hop_callback,
-                                         assume_resident=lookahead)
-            else:
-                _, p = self._fold_columns(group, hop_callback)
-            self._observe_fold(_time.perf_counter() - t0, "serial")
+            with TRACER.span("hop.fold", hops=len(group),
+                             engine=type(self).__name__):
+                t0 = _time.perf_counter()
+                if delta:
+                    _, p = self._fold_deltas(group, hop_callback,
+                                             assume_resident=lookahead)
+                else:
+                    _, p = self._fold_columns(group, hop_callback)
+                self._observe_fold(_time.perf_counter() - t0, "serial")
             return group, p
 
         def dispatch(fold_out, stall):
             group, payload = fold_out
             self.fold_stall_seconds += stall
+            if stall > 0:
+                TRACER.complete("fold.stall", stall, hops=len(group))
             self._dispatch_group(payload, group, windows, delta, warm_start,
                                  outs)
 
@@ -1055,16 +1155,20 @@ class _HopBatched:
         def task(u: int):
             c, hops, off = units[u]
             t0 = _time.perf_counter()
-            sw = self.sw.fork() if starts[u] is None \
-                else self.sw.fork_at(starts[u], cache)
-            part = None
-            if delta:
-                part = self._fold_deltas_fork(
-                    sw, hops, c == 0 and off == 0 and starts[0] is not None,
-                    hop_callback)
-            else:
-                self._fold_columns_fork(sw, hops, hop_callback, cols_out[c],
-                                        off)
+            with TRACER.span("hop.fold", hops=len(hops),
+                             engine=type(self).__name__, mode="parallel",
+                             worker=threading.current_thread().name):
+                sw = self.sw.fork() if starts[u] is None \
+                    else self.sw.fork_at(starts[u], cache)
+                part = None
+                if delta:
+                    part = self._fold_deltas_fork(
+                        sw, hops,
+                        c == 0 and off == 0 and starts[0] is not None,
+                        hop_callback)
+                else:
+                    self._fold_columns_fork(sw, hops, hop_callback,
+                                            cols_out[c], off)
             return u, sw, part, _time.perf_counter() - t0
 
         pending: dict = {}
@@ -1076,6 +1180,8 @@ class _HopBatched:
             self.fold_seconds += dt
             self._observe_fold(dt, "parallel")
             self.fold_stall_seconds += stall
+            if stall > 0:
+                TRACER.complete("fold.stall", stall, hops=len(units[u][1]))
             last_sw[0] = sw
             c = units[u][0]
             pending.setdefault(c, []).append(part)

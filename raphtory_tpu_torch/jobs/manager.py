@@ -40,11 +40,26 @@ the job (``status`` / ``error``): the resident route drops its sweep and
 does NOT fall back to the cold route, a failed live epoch does not fall
 back to the re-sweep, and a failed mesh dispatch fails the
 job instead of falling to the next route (the reference falls back).
+
+The serving layer (``raphtory_tpu/jobs/manager.py``): each job carries a
+per-query ledger (``obs/ledger``; ``explain=1`` returns it), a trace
+context adopted from the submitting thread (one trace id from the REST
+handler to the engines' spans), its tenant, an optional deadline and a
+result sink (``jobs/sink``). ``AnalysisManager.submit`` prices the request
+through the serving scheduler (``jobs/scheduler``: admission control) and
+offers it to a coalescing collect window: concurrent PageRank / CC /
+BFS / SSSP View and Range requests over the same graph run as ONE columnar
+dispatch, each member emitting its own columns on its own thread. A
+declined or failed batch sends each member to its own route. A Range
+sweep whose deadline passes (or whose transient failures exhaust their
+retries) mid-sweep ships the hops it covered, marked ``degraded``.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
+import os
 import threading
 import time as _time
 import traceback
@@ -53,6 +68,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..algorithms import SSSP, ConnectedComponents, PageRank
+from ..analysis.sanitizer import (note_shared as _san_note,
+                                  track_shared as _san_track)
 from ..core.service import TemporalGraph
 from ..core.snapshot import INT64_MIN
 from ..core.sweep import SweepBuilder
@@ -61,9 +78,19 @@ from ..engine.device_sweep import DeviceSweep, IdSpaceError, supported
 from ..engine.hopbatch import (HopBatchedBFS, HopBatchedCC,
                                HopBatchedPageRank, HopBatchedSSSP)
 from ..engine.program import VertexProgram
+from ..obs import journal as _journal
+from ..obs import ledger as _ledger
+from ..obs import slo as _slo
+from ..obs import workload as _workload
+from ..obs.metrics import METRICS
+from ..obs.trace import TRACER, block_steps as _block_steps
 from ..ops.resident import ship
 from ..parallel.sweep import _Shell
+from ..resilience import degrade as _degrade
+from ..resilience.policy import default_classify as _transient
 from ..utils.device import resolve_device
+
+_jobs_log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -103,6 +130,9 @@ class LiveQuery:
     windows: tuple | None = None
 
 
+Query = ViewQuery | RangeQuery | LiveQuery
+
+
 def _shell_from_fold(tables, sw, T):
     """Reducer-facing vertex shell from a SweepBuilder's fold state at T
     (vertex-side fields only — gated by ``reduce_shell_safe``)."""
@@ -135,9 +165,11 @@ class _DeviceShell:
 
 
 class Job:
-    def __init__(self, job_id: str, program: VertexProgram, query,
+    def __init__(self, job_id: str, program: VertexProgram, query: Query,
                  graph: TemporalGraph, device, wait_timeout: float = 30.0,
-                 mesh=None):
+                 mesh=None, explain: bool = False, tenant: str | None = None,
+                 deadline_ms=None, priority: int = 0,
+                 no_batch: bool = False):
         self.id = job_id
         self.program = program
         self.query = query
@@ -145,10 +177,58 @@ class Job:
         self.device = device
         self.mesh = mesh
         self.wait_timeout = wait_timeout
+        #: client deadline (jobs/scheduler.py): absolute monotonic seconds,
+        #: or None; a job whose deadline passed before it dispatched fails
+        #: fast with status "expired"
+        self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        self.deadline = (None if deadline_ms is None
+                         else _time.monotonic() + float(deadline_ms) / 1e3)
+        if self.deadline_ms is not None and not self.deadline_ms > 0:
+            raise ValueError(
+                f"deadline_ms must be positive, got {deadline_ms!r}")
+        #: >= scheduler.PRIORITY_BYPASS skips the coalescing collect window
+        self.priority = int(priority or 0)
+        #: per-request coalescing opt-out (REST ``batch: false``)
+        self.no_batch = bool(no_batch)
+        #: the scheduler's ``_Pending`` while waiting in a collect window
+        self._coalesce = None
+        #: the manager's ServingScheduler (admission and price hooks);
+        #: None for a job constructed directly
+        self._sched = None
+        self._admitted_cost_s = None
+        #: per-query resource ledger — always collected; ``explain``
+        #: returns it with the results over REST (obs/ledger.py)
+        self.explain = bool(explain)
+        self.ledger = _ledger.Ledger(
+            job_id, getattr(program, "cost_label", type(program).__name__))
+        #: normalized tenant identity (obs/workload.py); never raises
+        self.tenant = _workload.normalize_tenant(tenant)
+        self.ledger.tenant = self.tenant
+        # the submitting thread's trace context (the REST handler's span):
+        # the job thread adopts it, so a request and its job share one
+        # trace id end to end (None when tracing is off)
+        self._trace_ctx = TRACER.capture()
+        #: trace id of this job's ``job`` span once it runs (None untraced)
+        self.trace_id: str | None = None
+        self._submitted = _time.perf_counter()
+        #: ResultSink | None — attached by AnalysisManager.submit
+        self.sink = None
         self.results: list[dict] = []
+        # oldest rows roll off past the cap (a Live job emits forever; the
+        # sink keeps the full history); readers take results_snapshot()
+        # under the same lock. 0 disables.
+        self._results_cap = max(
+            0, int(os.environ.get("RTPU_RESULT_ROWS", 10_000)))
         self._results_mu = threading.Lock()
+        self.results_dropped = 0
         self.status = "pending"
         self.error: str | None = None
+        #: degraded serving (resilience/degrade.py): a Range sweep whose
+        #: deadline or retry budget expired MID-sweep ships the hops it
+        #: covered, status "done", with these fields saying how much
+        self.degraded = False
+        self.covered_time: int | None = None
+        self.degraded_reason: str | None = None
         self._kill = threading.Event()
         self._done = threading.Event()
         self._thread: threading.Thread | None = None
@@ -179,8 +259,90 @@ class Job:
     # ---- execution ----
 
     def _run(self) -> None:
+        METRICS.jobs_started.labels(type(self.query).__name__).inc()
+        # queue wait: submit until the job thread runs
+        self.ledger.queue_wait_seconds = max(
+            0.0, _time.perf_counter() - self._submitted)
+        try:
+            with TRACER.adopt(self._trace_ctx), \
+                    TRACER.span("job", job_id=self.id,
+                                kind=type(self.query).__name__,
+                                program=type(self.program).__name__) as jsp, \
+                    _ledger.activate(self.ledger):
+                self.trace_id = jsp.trace or None
+                self.ledger.trace_id = self.trace_id or ""
+                self._run_query()
+                jsp.set(status=self.status)
+            # wall is submit -> done, so queue wait + phases == wall
+            self._publish_ledger(_time.perf_counter() - self._submitted)
+        finally:
+            # _done fires LAST: a waiter must observe the published state
+            self._done.set()
+
+    def _publish_ledger(self, wall_seconds: float) -> None:
+        """Close the job's ledger and fan it out
+        (``raphtory_tpu/jobs/manager.py:216``): the SLO histograms, the
+        queue-wait histogram, the tenant's workload account, the journal,
+        the scheduler's completion hook, and — unless ``RTPU_LEDGER=0`` —
+        the per-algorithm ``raphtory_query_cost_*`` metrics and the
+        ``/costz`` ring. (The reference also feeds its advisor here; the
+        port has no advisor yet.)"""
+        led = self.ledger
+        led.finish(wall_seconds, status=self.status)
+        alg = led.algorithm or "unknown"
+        if self.status == "done":
+            # only successful jobs land in the latency SLI
+            _slo.SLO.observe(alg, "e2e", led.wall_seconds,
+                             trace_id=self.trace_id)
+            for ph, sec in dict(led.phase_seconds).items():
+                _slo.SLO.observe(alg, ph, sec, trace_id=self.trace_id)
+        METRICS.job_queue_wait_seconds.observe(led.queue_wait_seconds)
+        _workload.WORKLOAD.record(led, status=self.status)
+        if _journal.enabled():
+            snap_j = led.as_dict()
+            snap_j["job_id"] = self.id
+            snap_j["status"] = self.status
+            _journal.emit("ledger", snap_j, trace_id=self.trace_id,
+                          tenant=led.tenant or None)
+        if self._sched is not None:
+            self._sched.complete(self)
+        if not _ledger.collection_enabled():
+            return
+        METRICS.query_cost_queries.labels(alg, led.bound()).inc()
+        METRICS.query_cost_seconds.labels(alg, "queue_wait").observe(
+            led.queue_wait_seconds)
+        snap = led.as_dict()
+        for ph, sec in snap["phase_seconds"].items():
+            METRICS.query_cost_seconds.labels(alg, ph).observe(sec)
+        METRICS.query_cost_est_flops.labels(alg).inc(
+            snap["device"]["est_flops"])
+        METRICS.query_cost_est_hbm_bytes.labels(alg).inc(
+            snap["device"]["est_bytes_accessed"])
+        METRICS.query_cost_h2d_bytes.labels(alg).inc(snap["h2d"]["bytes"])
+        if snap["dcn"]["bytes"]:
+            METRICS.query_cost_dcn_bytes.labels(alg).inc(
+                snap["dcn"]["bytes"])
+        _ledger.note_completed(led)
+
+    def _run_query(self) -> None:
         try:
             q = self.query
+            if self.deadline is not None \
+                    and _time.monotonic() > self.deadline:
+                # fail fast BEFORE any dispatch
+                self.status = "expired"
+                self.error = (f"DeadlineExpired: deadline_ms="
+                              f"{self.deadline_ms:g} passed before the "
+                              "job dispatched")
+                if self._coalesce is None:
+                    # a queued job's expiry is counted by the scheduler
+                    from . import scheduler as _sched
+
+                    _sched.note_deadline_expired(self)
+                return
+            if self._coalesce is not None and self._run_coalesced(q):
+                return   # status set by the coalesced path
+            self._coalesce = None   # declined / timed out: own route
             if isinstance(q, ViewQuery):
                 self._run_at(q.timestamp, q)
             elif isinstance(q, LiveQuery):
@@ -205,7 +367,73 @@ class Job:
             self.status = "failed"  # reference's per-phase catches
             self.error = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
         finally:
-            self._done.set()
+            if self.sink is not None:
+                self.sink.close()   # flush partial output on kill/failure
+            METRICS.jobs_completed.labels(self.status).inc()
+
+    # ---- coalesced batches (jobs/scheduler.py) ----
+
+    def _run_coalesced(self, q) -> bool:
+        """Wait on this job's collect-window handle and, when the batch
+        dispatched, emit THIS job's columns on THIS thread
+        (``raphtory_tpu/jobs/manager.py:408``). False when the scheduler
+        declined (a solo window, a failed or over-guard batch): the job
+        then takes its own route."""
+        pend = self._coalesce
+        limit = max(float(self.wait_timeout), 600.0)
+        w0 = _time.monotonic()
+        while not pend.done.wait(0.05):
+            if self._kill.is_set():
+                self.status = "killed"
+                return True
+            if _time.monotonic() - w0 > limit:
+                _jobs_log.warning(
+                    "coalesced wait timed out for %s after %.0fs — "
+                    "taking its own route", self.id, limit)
+                return False
+        if pend.outcome == "declined":
+            return False
+        if pend.outcome == "killed":
+            self.status = "killed"
+            return True
+        if pend.outcome == "expired":
+            self.status = "expired"
+            self.error = (f"DeadlineExpired: deadline_ms="
+                          f"{self.deadline_ms:g} expired in the "
+                          "scheduler queue (never dispatched)")
+            return True
+        pay = pend.payload
+        # the collect-window wait the scheduler added, from this thread's
+        # wait start; the dispatch is attributed by column share
+        self.ledger.add_phase("sched_wait", max(
+            0.0, pay["dispatch_started"] - w0))
+        self.ledger.absorb_share(pay["snap"], pay["share"],
+                                 coalesced=pay["batch"])
+        self._emit_coalesced(pend.grid, pay)
+        self.status = "done" if not self._kill.is_set() else "killed"
+        return True
+
+    def _emit_coalesced(self, grid, pay) -> None:
+        """This job's rows from a shared batch dispatch: ``grid`` is the
+        (hops, windows) the scheduler packed its columns from, in serial
+        emission order; ``viewTime`` is the amortised per-column share of
+        the batch dispatch (``raphtory_tpu/jobs/manager.py:455``)."""
+        hops, windows = grid
+        ranks, steps = pay["ranks"], int(pay["steps"])
+        shells, cols = pay["shells"], pay["cols"]
+        per_row = pay["elapsed"] / max(pay["total_cols"], 1)
+        for _ in hops:
+            METRICS.snapshot_build_seconds.observe(
+                pay["fold_seconds"] * pay["share"] / max(len(hops), 1))
+        self.ledger.count_supersteps(steps)
+        i = 0
+        for T in sorted({int(t) for t in hops}):
+            for w in windows:
+                if self._kill.is_set():
+                    return
+                self._emit(T, w, ranks[cols[i]], shells[int(T)], steps,
+                           _time.perf_counter() - per_row)
+                i += 1
 
     # ---- Live queries ----
 
@@ -283,12 +511,18 @@ class Job:
         sweep, lock = acq
         t0 = _time.perf_counter()
         try:
+            s0 = _time.perf_counter()
             sweep.advance(int(t))
+            METRICS.snapshot_build_seconds.observe(_time.perf_counter() - s0)
+            self.ledger.add_phase("fold", _time.perf_counter() - s0)
             windows = list(q.windows) if q.windows is not None else None
             result, steps = sweep.run(self.program, window=q.window,
                                       windows=windows)
             rv = _DeviceShell(sweep).freeze()
-            result = _to_host(result)
+            b0 = _time.perf_counter()
+            result, steps = _block_steps(lambda: (_to_host(result), steps))
+            self.ledger.add_phase("device_wait",
+                                  _time.perf_counter() - b0)
         except BaseException:
             # a partially applied delta leaves the device state
             # inconsistent with the host fold: drop the sweep while the
@@ -297,6 +531,8 @@ class Job:
             raise
         finally:
             lock.release()
+        METRICS.supersteps.inc(max(steps, 0))
+        self.ledger.count_supersteps(steps)
         if windows is not None:
             for i, w in enumerate(windows):
                 self._emit(t, w, bsp.tree_map(lambda a: a[i], result), rv,
@@ -313,23 +549,33 @@ class Job:
             return
         t0 = _time.perf_counter()
         occ = self.program.needs_occurrences
+        s0 = _time.perf_counter()
         if sweep is not None:
             view = sweep.view_at(int(t))
+            METRICS.snapshot_build_seconds.observe(_time.perf_counter() - s0)
             self.graph.cache_put(int(t), view, occ,
                                  version=sweep.log.version)
         else:
             view = self.graph.view_at(int(t), exact=exact,
                                       wait_timeout=self.wait_timeout,
                                       include_occurrences=occ)
+        self.ledger.add_phase("fold", _time.perf_counter() - s0)
+        c0 = _time.perf_counter()
         if q.windows is not None:
             result, steps = self._execute(view, windows=list(q.windows))
-            result = _to_host(result)
+            result, steps = _to_host(result), int(steps)
+        else:
+            result, steps = self._execute(view, window=q.window)
+            result, steps = _to_host(result), int(steps)
+        self.ledger.add_phase("compute", _time.perf_counter() - c0)
+        METRICS.supersteps.inc(max(steps, 0))
+        self.ledger.count_supersteps(steps)
+        if q.windows is not None:
             for i, w in enumerate(q.windows):
                 self._emit(t, w, bsp.tree_map(lambda a: a[i], result), view,
                            steps, t0)
         else:
-            result, steps = self._execute(view, window=q.window)
-            self._emit(t, q.window, _to_host(result), view, steps, t0)
+            self._emit(t, q.window, result, view, steps, t0)
 
     def _execute(self, view, window=None, windows=None):
         if self.mesh is not None:
@@ -388,28 +634,79 @@ class Job:
     def _range_amortised(self, q: RangeQuery, advance, run,
                          freeze_rv) -> None:
         """The amortised-sweep hop loop: advance the fold, dispatch, emit
-        the PREVIOUS hop's rows after this hop's dispatch."""
+        the PREVIOUS hop's rows after this hop's dispatch.
+
+        Degraded serving (``raphtory_tpu/jobs/manager.py:740-791``): a
+        deadline that passes, or a transient failure
+        (``resilience.policy.default_classify``), MID-sweep stops the loop
+        but ships every hop already covered — the job ends "done" with
+        ``degraded`` and ``covered_time``. Expiry before any hop still
+        fails fast in ``_run_query``, and any other error fails the job."""
         pending = None
+        covered = None
+        reason = None
         t = q.start
         windows = list(q.windows) if q.windows is not None else None
         while t <= q.end and not self._kill.is_set():
+            if (self.deadline is not None
+                    and _time.monotonic() > self.deadline
+                    and (pending is not None or covered is not None)):
+                reason = "deadline"
+                break
             t0 = _time.perf_counter()
-            advance(int(t))
-            result, steps = run(windows)
-            rv = freeze_rv()
+            try:
+                advance(int(t))
+                METRICS.snapshot_build_seconds.observe(
+                    _time.perf_counter() - t0)
+                self.ledger.add_phase("fold", _time.perf_counter() - t0)
+                result, steps = run(windows)
+                rv = freeze_rv()
+            except Exception as e:
+                if (_transient(e)
+                        and (pending is not None or covered is not None)):
+                    reason = "retry_budget"
+                    break
+                raise
             t_disp = _time.perf_counter()
             if pending is not None:
                 self._emit_mesh(*pending)
+                covered = pending[0]
             pending = (t, q, rv, result, steps, t0, t_disp)
             t += q.jump
         if pending is not None:
-            self._emit_mesh(*pending)
+            try:
+                self._emit_mesh(*pending)
+                covered = pending[0]
+            except Exception as e:
+                # the tail hop may be poisoned by the failure that stopped
+                # the loop: a degraded answer keeps the covered hops
+                if reason is None or not _transient(e):
+                    raise
+        if reason is not None:
+            self._mark_degraded(reason, covered)
+
+    def _mark_degraded(self, reason: str, covered) -> None:
+        """Record a partial answer: the job's fields the REST payload
+        shows, and the process-wide degraded ledger ``/healthz`` and
+        ``/faultz`` read. Never fails the job it marks."""
+        self.degraded = True
+        self.covered_time = None if covered is None else int(covered)
+        self.degraded_reason = reason
+        try:
+            _degrade.DEGRADED.note(self.id, reason,
+                                   covered_time=self.covered_time)
+        except Exception:   # telemetry must not fail a served answer
+            pass
 
     def _emit_mesh(self, t, q, rv, result, steps, t0, t_disp) -> None:
         # viewTime means this hop's fold + dispatch + reduce — not the next
         # hop's host work that ran between its dispatch and now
         t0 = t0 + (_time.perf_counter() - t_disp)
-        result = _to_host(result)
+        b0 = _time.perf_counter()
+        result, steps = _block_steps(lambda: (_to_host(result), steps))
+        self.ledger.add_phase("device_wait", _time.perf_counter() - b0)
+        METRICS.supersteps.inc(max(steps, 0))
+        self.ledger.count_supersteps(steps)
         if q.windows is not None:
             for i, w in enumerate(q.windows):
                 self._emit(t, w, bsp.tree_map(lambda a: a[i], result), rv,
@@ -489,9 +786,11 @@ class Job:
                               warm_start=chunks > 1
                               and hb.supports_warm_start,
                               hop_callback=grab_shell)
-        ranks = ranks.cpu().numpy()
+        b0 = _time.perf_counter()
+        ranks, steps = _block_steps(lambda: (ranks.cpu().numpy(), steps))
+        self.ledger.add_phase("device_wait", _time.perf_counter() - b0)
         self._emit_columnar(hops, windows, ranks, shells, steps,
-                            _time.perf_counter() - t0)
+                            _time.perf_counter() - t0, hb.fold_seconds)
         return True
 
     def _try_range_mesh_columns(self, q: RangeQuery) -> bool:
@@ -524,6 +823,7 @@ class Job:
 
         t0 = _time.perf_counter()
         _, cols = hb._fold_columns(hops, grab_shell)
+        self.ledger.add_phase("fold", hb.fold_seconds)
         if isinstance(hb, HopBatchedSSSP):
             # the weights stay on the host: a rank ships only its hops' rows
             kw["weight_cols"] = cols[4]
@@ -531,16 +831,25 @@ class Job:
         ranks, steps = run_columns_sharded(
             hb.tables, *ship(cols, self.mesh.device, 4), hops, windows,
             self.mesh, **kw)
-        self._emit_columnar(hops, windows, ranks.cpu().numpy(), shells,
-                            steps, _time.perf_counter() - t0)
+        b0 = _time.perf_counter()
+        ranks, steps = _block_steps(lambda: (ranks.cpu().numpy(), steps))
+        self.ledger.add_phase("device_wait", _time.perf_counter() - b0)
+        self._emit_columnar(hops, windows, ranks, shells, steps,
+                            _time.perf_counter() - t0, hb.fold_seconds)
         return True
 
     def _emit_columnar(self, hops, windows, ranks, shells, steps,
-                       elapsed) -> None:
+                       elapsed, fold_seconds) -> None:
         """One result row per (hop, window) column: viewTime is the
-        AMORTISED share of the sweep plus that row's own reduce."""
+        AMORTISED share of the sweep plus that row's own reduce, and the
+        snapshot-build histogram gets the per-hop share of the fold."""
         W = len(windows)
         per_row = elapsed / max(len(hops) * W, 1)
+        for _ in hops:
+            METRICS.snapshot_build_seconds.observe(
+                fold_seconds / max(len(hops), 1))
+        METRICS.supersteps.inc(max(steps, 0))
+        self.ledger.count_supersteps(steps)
         for j, T in enumerate(hops):
             if self._kill.is_set():
                 return
@@ -549,7 +858,14 @@ class Job:
                            _time.perf_counter() - per_row)
 
     def _emit(self, t, window, result, view, steps, t0) -> None:
+        e0 = _time.perf_counter()
         reduced = self.program.reduce(result, view, window=window)
+        # counted after the host reduce: viewTime is end to end, and a
+        # failed reduce is not a computed view
+        METRICS.views_computed.inc()
+        METRICS.view_seconds.observe(_time.perf_counter() - t0)
+        self.ledger.add_phase("emit", _time.perf_counter() - e0)
+        self.ledger.count_views()
         row = {
             "time": int(t),
             "windowsize": int(window) if window is not None else None,
@@ -559,6 +875,12 @@ class Job:
         }
         with self._results_mu:
             self.results.append(row)
+            if self._results_cap and len(self.results) > self._results_cap:
+                drop = len(self.results) - self._results_cap
+                del self.results[:drop]
+                self.results_dropped += drop
+        if self.sink is not None:
+            self.sink.write(row)
 
 
 class AnalysisManager:
@@ -566,37 +888,133 @@ class AnalysisManager:
     job tracking for RequestResults/KillTask). ``device=None`` means the
     CUDA card (and raises without one), or the mesh's device when a
     ``mesh`` is given; ``mesh`` (``parallel/sharded.make_mesh``) is every
-    job's default mesh."""
+    job's default mesh. ``sink_dir`` ("" disables) holds the jobs' result
+    files (``jobs/sink``), ``sink_format`` their default format. Every
+    submission passes the serving scheduler (``self.scheduler``):
+    admission, then its coalescing collect window."""
 
-    def __init__(self, graph: TemporalGraph, device=None, mesh=None):
+    def __init__(self, graph: TemporalGraph, device=None, mesh=None,
+                 sink_dir: str = "", sink_format: str = "jsonl"):
+        from .scheduler import ServingScheduler
+
         self.graph = graph
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))
+        self.sink_dir = sink_dir
+        self.sink_format = sink_format
+        #: the serving scheduler: coalescing collect windows, priced
+        #: admission and deadlines (RTPU_BATCH_WINDOW_MS=0 and
+        #: RTPU_ADMISSION=0 leave every request on its own route)
+        self.scheduler = ServingScheduler(graph)
         self._jobs: dict[str, Job] = {}
         self._counter = itertools.count()
         self._lock = threading.Lock()
+        # finished jobs stay for /AnalysisResults but are evicted oldest
+        # first past the cap; 0 disables
+        self._table_cap = max(
+            0, int(os.environ.get("RTPU_JOB_TABLE_CAP", 4096)))
+        self._san_tracker = _san_track("job_table")
 
-    def submit(self, program: VertexProgram, query,
+    def _note_table(self, write: bool = False) -> None:
+        _san_note(self._san_tracker, write)
+
+    def _evict_done_locked(self) -> None:
+        """Drop the oldest FINISHED jobs past the table cap (the caller
+        holds ``_lock``); running jobs are never evicted."""
+        if not self._table_cap or len(self._jobs) <= self._table_cap:
+            return
+        excess = len(self._jobs) - self._table_cap
+        for jid in [jid for jid, j in self._jobs.items()
+                    if j._done.is_set()][:excess]:
+            del self._jobs[jid]
+
+    def submit(self, program: VertexProgram, query: Query,
                job_id: str | None = None, mesh=None,
-               wait_timeout: float = 30.0) -> Job:
+               wait_timeout: float = 30.0, sink_name: str | None = None,
+               sink_format: str | None = None, explain: bool = False,
+               tenant: str | None = None, deadline_ms=None,
+               priority: int = 0, batch=None) -> Job:
+        """Admit, register and start a job
+        (``raphtory_tpu/jobs/manager.py:1046-1143``). A malformed
+        ``deadline_ms`` raises ValueError before admission; an over-budget
+        request raises ``scheduler.AdmissionDenied``; ``sink_name`` is a
+        file name inside ``sink_dir`` (ignored without one); ``batch=False``
+        keeps the job out of the coalescing window."""
+        from .sink import ResultSink, resolve_sink_path
+
         if not isinstance(query, (ViewQuery, RangeQuery, LiveQuery)):
             raise TypeError(f"unknown query type {type(query).__name__}")
         bsp.check_program(program)
+        if deadline_ms is not None and not float(deadline_ms) > 0:
+            raise ValueError(
+                f"deadline_ms must be positive, got {deadline_ms!r}")
+        est = self.scheduler.admit(program, query, tenant,
+                                   deadline_ms=deadline_ms)
         with self._lock:
             if job_id is None:
                 job_id = f"{type(program).__name__}_{next(self._counter)}"
             if job_id in self._jobs:
+                self.scheduler.cancel(est, tenant)
                 raise KeyError(f"job {job_id!r} already exists")
-            job = Job(job_id, program, query, self.graph, self.device,
-                      wait_timeout=wait_timeout,
-                      mesh=mesh if mesh is not None else self.mesh)
+            try:
+                job = Job(job_id, program, query, self.graph, self.device,
+                          wait_timeout=wait_timeout,
+                          mesh=mesh if mesh is not None else self.mesh,
+                          explain=explain, tenant=tenant,
+                          deadline_ms=deadline_ms, priority=priority,
+                          no_batch=batch is False)
+            except BaseException:
+                self.scheduler.cancel(est, tenant)
+                raise
+            job._sched = self.scheduler
+            job._admitted_cost_s = est
             self._jobs[job_id] = job
-        return job.start()
+            self._note_table(write=True)
+            self._evict_done_locked()
+        sink = None
+        try:
+            # disk I/O stays outside the registry lock; the job is not
+            # started yet, so the sink attaches before any emit
+            path = resolve_sink_path(self.sink_dir, job_id,
+                                     requested=sink_name,
+                                     fmt=sink_format or self.sink_format)
+            if path is not None:
+                sink = ResultSink(path)
+                with self._lock:
+                    # no two LIVE jobs share one file
+                    for other in self._jobs.values():
+                        if (other is not job and other.sink is not None
+                                and other.sink.path == sink.path
+                                and not other._done.is_set()):
+                            raise ValueError(
+                                f"sink path in use by job {other.id!r}")
+                    job.sink = sink
+        except BaseException:
+            if sink is not None:
+                sink.close()
+            with self._lock:
+                del self._jobs[job_id]
+            self.scheduler.cancel(est, tenant)
+            raise
+        # an eligible job joins its family's collect window BEFORE its
+        # thread starts (the thread's first act is to wait on it)
+        try:
+            self.scheduler.offer(job)
+            return job.start()
+        except BaseException:
+            job.kill()
+            if sink is not None:
+                sink.close()
+            with self._lock:
+                self._jobs.pop(job_id, None)
+            self.scheduler.cancel(est, tenant)
+            raise
 
     def get(self, job_id: str) -> Job:
         with self._lock:
             job = self._jobs.get(job_id)
+            self._note_table()
         if job is None:
             raise KeyError(f"unknown job {job_id!r}")
         return job
@@ -609,4 +1027,5 @@ class AnalysisManager:
 
     def jobs(self) -> dict[str, str]:
         with self._lock:
+            self._note_table()
             return {jid: j.status for jid, j in self._jobs.items()}

@@ -1,0 +1,619 @@
+"""REST job API — wire-compatible surface with the reference.
+
+The port of ``raphtory_tpu/jobs/rest.py``. ``AnalysisRestApi.scala`` serves
+on :8081 (line 30): POST ``/LiveAnalysisRequest`` ``/ViewAnalysisRequest``
+``/RangeAnalysisRequest`` and GET ``/AnalysisResults?jobID=``
+``/KillTask?jobID=`` (lines 35-129). Same endpoints here on a stdlib
+ThreadingHTTPServer. Request bodies take the reference's field names
+(analyserName, timestamp, start/end/jump, windowType, windowSize, windowSet,
+repeatTime, rawFile) with `params` as an extension for hyperparameters.
+
+Operational extensions: GET ``/Jobs``, ``/Analysers``, ``/healthz`` (graded
+ok|degraded|burning from the ``RTPU_SLO_TARGET`` latency budgets and the
+``RTPU_FRESH_TARGET`` staleness budgets), ``/statusz`` (job table,
+watermarks, transfer stats, the scheduler, the fold cache, the
+flight-recorder, ledger, workload, budget, freshness, device, resilience
+and journal blocks), ``/tracez`` (recent spans; ``?n=``, ``?trace_id=``
+for ONE request's spans across every thread it touched,
+``?format=chrome``, ``?dump=1``, ``?enable=0|1``), ``/costz`` (the kernel
+registry and recent per-query ledgers), ``/devicez`` (sampled kernel
+latencies, the card's memory or its degrade, resident buffers),
+``/freshz``, ``/slz`` (SLO histograms with trace exemplars and the series
+ring), ``/faultz`` (failpoints, breakers, degraded results),
+``/journalz`` and ``/workloadz``. POST bodies also accept ``explain``
+(truthy: the job's ledger rides back with ``/AnalysisResults``),
+``tenant`` (or the ``X-RTPU-Tenant`` header), ``sinkName`` /
+``sinkFormat``, ``deadline_ms``, ``batch`` and ``priority`` (the serving
+scheduler's fields; malformed values 400). With ``RTPU_ADMISSION=1`` a
+shed request answers **429** + ``Retry-After`` with its evidence.
+
+Not ported yet: ``/advisez`` (``obs/advisor.py``), ``/profilez``
+(``obs/sampler.py``) and ``/clusterz`` (``obs/cluster.py``) answer as an
+unknown path does (404), and ``/statusz`` has no ``advisor`` block. The
+reference's compile plane (``/statusz``'s ``compile_caches`` and
+``/devicez``'s ``compile``) is left out: the port compiles no XLA
+programs and observes no kernel build yet.
+
+Every POST runs under a ``rest.request`` span whose trace context the job
+thread adopts, so ``/tracez?trace_id=`` reconstructs REST → job → engines
+as ONE trace.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..obs import budget as _budget
+from ..obs import device as _device
+from ..obs import freshness as _freshness
+from ..obs import journal as _journal
+from ..obs import ledger as _ledger
+from ..obs import slo as _slo
+from ..obs import workload as _workload
+from ..obs.trace import TRACER, TraceContext
+from ..resilience import faults as _faults
+from ..utils.config import process_index, strided_port
+from . import registry
+from . import scheduler as _scheduler
+from .manager import AnalysisManager, LiveQuery, RangeQuery, ViewQuery
+
+DEFAULT_PORT = 8081
+
+
+def rest_conn_timeout_s() -> float | None:
+    """``RTPU_REST_CONN_TIMEOUT_S`` — per-connection socket timeout. A
+    half-open client (connected, never finishes its request, or stops
+    reading the response) used to pin one ``rest-req-*`` handler thread
+    FOREVER; with the timeout the blocked read/write raises, the
+    connection closes, and the thread returns to the pool. ``0``
+    disables (the old behaviour)."""
+    try:
+        v = float(os.environ.get("RTPU_REST_CONN_TIMEOUT_S", "") or 30.0)
+    except ValueError:
+        v = 30.0
+    return None if v <= 0 else v
+
+
+class _BadParam(ValueError):
+    """A malformed CLIENT-supplied query parameter — the only
+    ValueError do_GET maps to 400. Internal ValueErrors from payload
+    construction stay 500: reclassifying them would hide genuine server
+    bugs from exactly the 5xx alerting they should trip."""
+
+
+def _num_param(qs: dict, key: str, default, cast):
+    vals = qs.get(key)
+    if not vals:
+        return default
+    try:
+        return cast(vals[0])
+    except ValueError:
+        raise _BadParam(f"{key}={vals[0]!r} is not a number") from None
+
+
+def _body_deadline_ms(body: dict):
+    """Validated ``deadline_ms`` body field: None, or a finite positive
+    number. Anything else — bool, container, NaN, negative — is a
+    malformed CLIENT field and 400s via ``_BadParam`` (never a 500)."""
+    import math as _math
+
+    v = body.get("deadline_ms")
+    if v is None:
+        return None
+    if isinstance(v, bool) or not isinstance(v, (int, float, str)):
+        raise _BadParam(f"deadline_ms={v!r} is not a positive number")
+    try:
+        f = float(v)
+    except ValueError:
+        raise _BadParam(f"deadline_ms={v!r} is not a positive "
+                        "number") from None
+    if not _math.isfinite(f) or f <= 0:
+        raise _BadParam(f"deadline_ms={v!r} must be a finite positive "
+                        "number of milliseconds")
+    return f
+
+
+def _body_priority(body: dict) -> int:
+    """Validated ``priority`` body field: an integer 0..9 (>=8 bypasses
+    the coalescing collect window — jobs/scheduler.py)."""
+    v = body.get("priority")
+    if v is None:
+        return 0
+    if isinstance(v, bool) or not isinstance(v, (int, str)):
+        raise _BadParam(f"priority={v!r} is not an integer 0..9")
+    try:
+        i = int(v)
+    except ValueError:
+        raise _BadParam(f"priority={v!r} is not an integer 0..9") \
+            from None
+    if not 0 <= i <= 9:
+        raise _BadParam(f"priority={i} out of range 0..9")
+    return i
+
+
+def _body_batch(body: dict):
+    """Validated ``batch`` body field: None (default: batchable), or a
+    boolean — ``false`` opts this request out of coalescing."""
+    v = body.get("batch")
+    if v is None:
+        return None
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in ("0", "1", "true", "false",
+                                            "yes", "no"):
+        return v.lower() in ("1", "true", "yes")
+    raise _BadParam(f"batch={v!r} is not a boolean")
+
+
+def _fold_cache_status() -> dict:
+    """Cross-request fold-cache occupancy + hit rates (core/sweep)."""
+    from ..core.sweep import fold_cache
+
+    cache = fold_cache()
+    if cache is None:
+        return {"enabled": False}
+    return {"enabled": True, **cache.stats()}
+
+
+def _statusz(manager: AnalysisManager,
+             handler: "type[_Handler] | _Handler | None" = None) -> dict:
+    from ..parallel.sharded import COLLECTIVES
+    from ..utils.transfer import shared_engine
+
+    g = manager.graph
+    eng = shared_engine()
+    status: dict = {
+        "jobs": manager.jobs(),
+        "log_events": int(g.log.n),
+        "watermark": {
+            "safe_time": int(g.safe_time()),
+            "lag_seconds": round(g.watermarks.lag_seconds(), 3),
+            "sources": {k: int(v)
+                        for k, v in g.watermarks.snapshot().items()},
+        },
+        "transfer": {"depth": eng.depth, **eng.stats.as_dict()},
+        # the serving scheduler (jobs/scheduler.py): queue depth by
+        # class, batches formed, coalesced-jobs histogram, shed and
+        # deadline-expired counters, admission backlog + price book
+        "scheduler": manager.scheduler.status_block(),
+        "fold_cache": _fold_cache_status(),
+        "trace": TRACER.status(),
+        "ledger": _ledger.status_block(),
+        # the judgment plane: per-tenant workload accounts,
+        # error-budget grades, and the advisor's compact block — what
+        # /clusterz federates into the merged mesh view
+        "workload": _workload.WORKLOAD.status_block(),
+        "budget": _budget.BUDGET.status_block(),
+        # the freshness plane (obs/freshness.py): per-source updates/s
+        # total, staged backlog, queryable lag, staleness p99s and the
+        # RTPU_FRESH_TARGET grade — what /clusterz federates into the
+        # merged min-watermark / watermark-spread view
+        "freshness": _freshness.FRESH.status_block(),
+        # the measured device plane: sampled kernel-timing
+        # totals, the memory snapshot (or its honest degrade) and resident
+        # bytes — what /clusterz federates
+        "device": _device.status_block(),
+        # the resilience plane (resilience/): armed failpoints, breaker
+        # states, degraded-results tally — the full document is /faultz
+        "resilience": _resilience_block(),
+        # the durable journal (obs/journal.py): segment bytes, drops,
+        # flush lag — what /clusterz federates so a mesh-wide postmortem
+        # knows which members have replayable evidence
+        "journal": _journal.status_block(),
+        # the mesh-divergence sanitizer (analysis/sanitizer.py, armed by
+        # RTPU_SANITIZE): per-process dispatch-fingerprint ring — what
+        # /clusterz prefix-checks across processes to name the first
+        # divergent superstep
+        "mesh_sanitizer": _mesh_sanitizer_block(),
+        # the distributed half: which process this is, where its
+        # listeners actually bound (what /clusterz discovery reads), and
+        # what the cross-shard collectives moved
+        "cluster": _cluster_block(handler),
+    }
+    try:
+        status["latest_time"] = int(g.latest_time)
+    except Exception:   # empty log has no latest time
+        status["latest_time"] = None
+    status["collectives"] = COLLECTIVES.snapshot()
+    return status
+
+
+def _resilience_block() -> dict:
+    """The compact ``resilience`` block of /statusz (federated by
+    /clusterz): enough for the merged view to see injected chaos, open
+    breakers, and degraded serves without fetching every /faultz."""
+    doc = _faults.faultz()
+    return {
+        "faults_enabled": doc["enabled"],
+        "armed_sites": sorted(doc["sites"]),
+        "injected": sum(s["injected"] for s in doc["sites"].values()),
+        "breakers_open": sorted(
+            name for name, b in doc["breakers"].items()
+            if b["state"] != "closed"),
+        "degraded_results": doc["degraded"].get("total", 0),
+    }
+
+
+def _mesh_sanitizer_block() -> dict:
+    """The ``mesh_sanitizer`` block of /statusz: disabled stub when
+    RTPU_SANITIZE is off, else the fingerprint ring + counters the
+    /clusterz divergence cross-check consumes."""
+    from ..analysis.sanitizer import mesh_active
+
+    san = mesh_active()
+    if san is None:
+        return {"enabled": False}
+    return {"enabled": True, **san.status_block()}
+
+
+def _cluster_block(handler=None) -> dict:
+    """The ``cluster`` block of /statusz: process identity and ACTUAL
+    bound ports (ephemeral binds resolve here — the ports peers federate
+    on). The reference's watchdog membership waits for
+    ``cluster/watchdog.py``."""
+    from ..obs import metrics as _metrics
+
+    out: dict = {"process_index": process_index()}
+    ports: dict = {}
+    if handler is not None and getattr(handler, "rest_port", None):
+        ports["rest"] = handler.rest_port
+    mp = _metrics.bound_port()
+    if mp:
+        ports["metrics"] = mp
+    out["ports"] = ports
+    return out
+
+
+def _windows_from(body: dict):
+    """windowType: 'none' | 'single' | 'batched' (the reference's 3-way task
+    split per query type)."""
+    wt = body.get("windowType", "none")
+    if wt in ("none", "false", None):
+        return None, None
+    if wt in ("single", "true"):
+        return int(body["windowSize"]), None
+    if wt == "batched":
+        return None, tuple(int(w) for w in body["windowSet"])
+    raise ValueError(f"unknown windowType {wt!r}")
+
+
+def _program_from(body: dict):
+    if body.get("rawFile"):
+        return registry.compile_source(body["rawFile"])
+    return registry.resolve(body["analyserName"], body.get("params"))
+
+
+class _Handler(BaseHTTPRequestHandler):
+    manager: AnalysisManager = None  # injected by serve()
+    allow_dynamic: bool = True
+    rest_port: int = 0    # actual bound port, set by RestServer
+
+    def log_message(self, *a):  # quiet
+        pass
+
+    def _json(self, code: int, payload, headers: dict | None = None) -> None:
+        data = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, str(v))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _text(self, code: int, text: str) -> None:
+        data = text.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    @staticmethod
+    def _name_thread() -> None:
+        """ThreadingHTTPServer spawns one anonymous ``Thread-N`` per
+        request — rename it so traces and profiles read as REST work
+        (the tracer refreshes a recycled ident's name on next span)."""
+        t = threading.current_thread()
+        if t.name.startswith("Thread-"):
+            t.name = f"rest-req-{t.ident}"
+
+    def do_POST(self):
+        self._name_thread()
+        # a POST carrying X-RTPU-Trace is a forwarded hop of a request
+        # that started on another process: adopt the wire context so this
+        # process's spans JOIN that trace instead of opening a new one
+        ctx = TraceContext.from_wire(self.headers.get(TraceContext.HEADER))
+        with TRACER.adopt(ctx):
+            with TRACER.span("rest.request", method="POST", path=self.path,
+                             process=TRACER.process_index) as rsp:
+                if ctx is not None:
+                    rsp.set(origin_process=ctx.origin)
+                self._post(rsp)
+
+    def _post(self, rsp):
+        try:
+            # the rest.handler failpoint: an injected error terminates
+            # HONESTLY as a classified 503 with evidence (the chaos
+            # bench's zero-unclassified-500s bar), never a bare 500
+            _faults.fire("rest.handler")
+            n = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(n) or b"{}")
+            path = self.path.rstrip("/")
+            if path not in ("/ViewAnalysisRequest", "/RangeAnalysisRequest",
+                            "/LiveAnalysisRequest"):
+                return self._json(404, {"error": f"unknown path {self.path}"})
+            if body.get("rawFile") and not self.allow_dynamic:
+                return self._json(403, {"error": "dynamic analysers disabled"})
+            window, windows = _windows_from(body)
+            program = _program_from(body)
+            if path == "/ViewAnalysisRequest":
+                q = ViewQuery(int(body["timestamp"]), window, windows)
+            elif path == "/RangeAnalysisRequest":
+                q = RangeQuery(int(body["start"]), int(body["end"]),
+                               int(body["jump"]), window, windows)
+            else:  # /LiveAnalysisRequest (path validated above)
+                max_runs = body.get("maxRuns")
+                q = LiveQuery(float(body.get("repeatTime", 1.0)),
+                              bool(body.get("eventTime", False)),
+                              int(max_runs) if max_runs is not None else None,
+                              window, windows)
+            # sinkName is a file name resolved INSIDE the server's
+            # configured sink dir (jobs/sink.py) — absolute/escaping paths
+            # are rejected; with no sink dir configured it is ignored.
+            # explain=1 asks for the job's resource ledger back with the
+            # results (/AnalysisResults gains a "ledger" block).
+            explain = str(body.get("explain", "")).lower() \
+                in ("1", "true", "yes")
+            # tenant identity: the X-RTPU-Tenant header wins, a `tenant`
+            # body field backs it up. Normalization happens inside the
+            # job (obs/workload.py) and NEVER fails the request — a
+            # malformed value lands in the shared `invalid` account
+            tenant = self.headers.get(_workload.TENANT_HEADER)
+            if tenant is None or not tenant.strip():
+                # a present-but-blank header (proxy artifacts) must not
+                # suppress the body-field fallback
+                tenant = body.get("tenant")
+            # serving-scheduler fields (jobs/scheduler.py): each is
+            # validated HERE so malformed client values 400 via the
+            # _BadParam path instead of 500ing deep in the jobs layer
+            deadline_ms = _body_deadline_ms(body)
+            priority = _body_priority(body)
+            batch = _body_batch(body)
+            job = self.manager.submit(
+                program, q, job_id=body.get("jobID"),
+                sink_name=body.get("sinkName"),
+                sink_format=body.get("sinkFormat"),
+                explain=explain, tenant=tenant,
+                deadline_ms=deadline_ms, priority=priority, batch=batch)
+            rsp.set(job_id=job.id, tenant=job.tenant)
+            payload = {"jobID": job.id, "status": job.status,
+                       "tenant": job.tenant}
+            # the submitter (or forwarding peer) learns the trace id
+            # without polling /AnalysisResults — what the 2-process smoke
+            # joins cross-process traces on. The handler span's trace IS
+            # the job's trace (the job thread adopts the context captured
+            # under it); job.trace_id itself only lands once the job
+            # thread starts, which this response must not wait for.
+            if rsp.trace:
+                payload["traceID"] = rsp.trace
+            if job.sink is not None:
+                payload["sinkPath"] = job.sink.path
+            self._json(200, payload)
+        except _scheduler.AdmissionDenied as e:
+            # a SHED request, not an error: 429 with the Retry-After the
+            # pricing computed and the evidence line (queue depth,
+            # priced cost, budget) that justified it — clients and
+            # operators alike can see WHY, not just that they were told
+            # to go away
+            rsp.set(shed=e.evidence.get("reason"))
+            self._json(
+                429,
+                {"error": f"AdmissionDenied: {e}",
+                 "evidence": e.evidence,
+                 "retryAfterSeconds": e.retry_after_s},
+                headers={"Retry-After": str(int(e.retry_after_s))})
+        except _faults.FaultError as e:
+            rsp.set(injected=True)
+            self._json(503, {"error": f"FaultError: {e}",
+                             "injected": True,
+                             "evidence": {"site": "rest.handler"}},
+                       headers={"Retry-After": "1"})
+        except (KeyError, ValueError, TypeError) as e:
+            self._json(400, {"error": f"{type(e).__name__}: {e}"})
+        except Exception as e:  # noqa: BLE001
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def _tracez(self, qs: dict) -> None:
+        """Flight-recorder surface: recent spans as JSON. ``enable=0|1``
+        toggles tracing; ``dump=1`` writes the full Chrome trace to a
+        server-chosen temp file (never a caller-supplied path — the REST
+        surface must not become a file-write primitive)."""
+        if "enable" in qs:
+            (TRACER.enable if qs["enable"][0] not in ("0", "false")
+             else TRACER.disable)()
+        payload: dict = dict(TRACER.status())
+        if qs.get("dump", ["0"])[0] not in ("0", "false"):
+            payload["dumped"] = TRACER.dump()
+        if qs.get("format", [""])[0] == "chrome":
+            payload["trace"] = TRACER.chrome_trace()
+        elif qs.get("trace_id"):
+            # one request's spans across every thread it touched — what
+            # an /slz exemplar's trace_id resolves to
+            tid = qs["trace_id"][0]
+            payload["trace_id"] = tid
+            payload["spans"] = TRACER.for_trace(tid)
+        else:
+            payload["spans"] = TRACER.recent(_num_param(qs, "n", 200, int))
+        self._json(200, payload)
+
+    def do_GET(self):
+        self._name_thread()
+        # peer scrapes (/clusterz federation) carry X-RTPU-Trace: adopt
+        # it so the serve side of the scrape lands in the SAME trace as
+        # the scraping process's rest.scrape span. Plain GETs (no
+        # header) keep their zero-span fast path.
+        ctx = TraceContext.from_wire(self.headers.get(TraceContext.HEADER))
+        with TRACER.adopt(ctx):
+            if ctx is not None:
+                with TRACER.span("rest.serve_scrape", path=self.path,
+                                 process=TRACER.process_index,
+                                 origin_process=ctx.origin):
+                    self._get()
+            else:
+                self._get()
+
+    def _get(self):
+        try:
+            parsed = urllib.parse.urlparse(self.path)
+            qs = urllib.parse.parse_qs(parsed.query)
+            path = parsed.path.rstrip("/")
+            if path != "/faultz":
+                # rest.handler failpoint (GET side) — /faultz itself is
+                # exempt so the chaos run's own evidence endpoint stays
+                # readable while every other route is being failed
+                _faults.fire("rest.handler")
+            if path == "/AnalysisResults":
+                job = self.manager.get(qs["jobID"][0])
+                payload = {
+                    "jobID": job.id, "status": job.status,
+                    "error": job.error,
+                    # snapshot: the RTPU_RESULT_ROWS trim shrinks the
+                    # live list on the job thread mid-serialization
+                    "results": job.results_snapshot(),
+                }
+                if job.trace_id:
+                    # the request's trace: /tracez?trace_id=<this>
+                    payload["traceID"] = job.trace_id
+                if getattr(job, "degraded", False):
+                    # the degraded-serving contract: PARTIAL results,
+                    # honestly marked, with the watermark the sweep
+                    # actually covered (docs/RESILIENCE.md)
+                    payload["degraded"] = True
+                    payload["coveredTime"] = job.covered_time
+                    payload["degradedReason"] = job.degraded_reason
+                if job.results_dropped:
+                    # oldest rows rolled off the RTPU_RESULT_ROWS cap —
+                    # the sink file (when configured) has the full set
+                    payload["resultsDropped"] = job.results_dropped
+                if job.explain:
+                    payload["ledger"] = job.ledger.as_dict()
+                return self._json(200, payload)
+            if path == "/KillTask":
+                self.manager.kill(qs["jobID"][0])
+                return self._json(200, {"jobID": qs["jobID"][0],
+                                        "status": "killed"})
+            if path == "/Jobs":
+                return self._json(200, self.manager.jobs())
+            if path == "/Analysers":
+                return self._json(200, registry.names())
+            if path == "/healthz":
+                # graded from the error-budget state (obs/budget.py):
+                # ok|degraded|burning in the body; HTTP 503 on burning
+                # only under RTPU_HEALTH_STRICT=1, so load balancers can
+                # act on burn without parsing JSON
+                code, payload = _budget.healthz()
+                return self._json(code, payload)
+            if path == "/statusz":
+                return self._json(200, _statusz(self.manager, self))
+            if path == "/tracez":
+                return self._tracez(qs)
+            if path == "/costz":
+                # per-kernel harvested XLA cost/memory analysis with the
+                # roofline classification + recent per-query ledgers
+                return self._json(200, _ledger.costz())
+            if path == "/devicez":
+                # the measured device plane (obs/device.py): sampled
+                # kernel latencies joined with estimates (divergence +
+                # bound_measured), device memory (or its degrade),
+                # resident buffers
+                return self._json(200, _device.devicez())
+            if path == "/freshz":
+                # the freshness plane (obs/freshness.py): per-source
+                # ingest telemetry (op mix, out-of-orderness),
+                # ingest-to-queryable histograms with trace exemplars,
+                # live-result staleness quantiles, the staleness-budget
+                # judgment (RTPU_FRESH_TARGET)
+                return self._json(200, _freshness.freshz())
+            if path == "/slz":
+                # SLO histograms + trace exemplars + the series ring
+                return self._json(
+                    200, _slo.slz_payload(_num_param(qs, "n", 120, int)))
+            if path == "/faultz":
+                # the resilience plane (resilience/): armed failpoints
+                # with injection counts, per-peer breaker states, the
+                # degraded-results ledger — docs/RESILIENCE.md
+                return self._json(200, _faults.faultz())
+            if path == "/journalz":
+                # the durable journal (obs/journal.py): segment
+                # inventory with bytes, drop/error counters, flush lag
+                # — docs/OBSERVABILITY.md "Durable journal"
+                return self._json(200, _journal.journalz())
+            if path == "/workloadz":
+                # per-tenant workload accounts (obs/workload.py)
+                return self._json(200, _workload.WORKLOAD.workloadz())
+            return self._json(404, {"error": f"unknown path {self.path}"})
+        except _faults.FaultError as e:
+            self._json(503, {"error": f"FaultError: {e}",
+                             "injected": True,
+                             "evidence": {"site": "rest.handler"}},
+                       headers={"Retry-After": "1"})
+        except KeyError as e:
+            self._json(404, {"error": f"KeyError: {e}"})
+        except _BadParam as e:
+            # malformed numeric query params (?n=abc, ?hz=abc) are the
+            # CLIENT's fault — a 500 here would trip 5xx alerting on the
+            # very observability surface being queried. Only _BadParam:
+            # an internal ValueError from payload construction is a
+            # server bug and must stay 500.
+            self._json(400, {"error": f"ValueError: {e}"})
+        except Exception as e:  # noqa: BLE001
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+
+
+class RestServer:
+    def __init__(self, manager: AnalysisManager, port: int = DEFAULT_PORT,
+                 host: str = "127.0.0.1", allow_dynamic: bool = True):
+        handler = type("Handler", (_Handler,),
+                       {"manager": manager, "allow_dynamic": allow_dynamic,
+                        # per-connection socket timeout (stdlib
+                        # StreamRequestHandler honours the class attr in
+                        # setup()): a half-open client's blocked read or
+                        # write raises instead of pinning a rest-req-*
+                        # thread forever
+                        "timeout": rest_conn_timeout_s()})
+        # stride the listen port by the process index so an N-process
+        # localhost cluster never collides on :8081 (RTPU_PORT_STRIDE;
+        # port 0 stays ephemeral, process 0 binds the base verbatim)
+        self.httpd = ThreadingHTTPServer((host, strided_port(port)),
+                                         handler)
+        self.port = self.httpd.server_address[1]
+        handler.rest_port = self.port   # what /statusz reports to peers
+        # the UNSTRIDED base: what peer-URL derivation needs (peer i is
+        # base + i*stride — deriving from an already-strided port would
+        # double-offset every peer on a non-zero process)
+        handler.rest_base_port = int(port) or None
+        self._thread: threading.Thread | None = None
+        # the /slz series ring samples THIS manager's queue depth and
+        # in-flight jobs (weakly registered — the ring is process-wide)
+        _slo.SERIES.attach_manager(manager)
+
+    def start(self) -> "RestServer":
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, name="rest", daemon=True)
+        self._thread.start()
+        # a serving process is what the over-time surfaces exist for:
+        # start the series ring (a process-wide singleton, idempotent —
+        # left running on stop(): another server may depend on it)
+        _slo.SERIES.start()
+        return self
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()

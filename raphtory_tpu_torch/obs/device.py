@@ -1,0 +1,575 @@
+"""Device runtime plane — the MEASURED half of the ledger.
+
+The port of ``raphtory_tpu/obs/device.py``. The ledger (``obs/ledger.py``)
+holds what is known about each kernel before it runs; this module holds
+what was measured. Three pieces, all surfaced at ``/devicez``:
+
+* **Measured kernel latency** (``TIMING``). ``instrument()``'s dispatch
+  wrapper samples timed dispatches: a sampled dispatch waits for the
+  card (``block_ready``: ``torch.cuda.synchronize`` on every card its
+  output lives on; nothing for CPU tensors) and records wall seconds
+  into a bounded per-(kernel, shape-sig) window. Sampling
+  (``RTPU_DEVICE_TIMING``, a rate in (0, 1]) because an always-on sync
+  would serialise the host fold and the uploads with the kernels, and
+  the measured number therefore includes launch overhead and the drain
+  the sync forces. The first dispatch of every (kernel, sig) is always
+  timed (recorded apart as the COLD sample: it includes the kernel's
+  build on first use), the second is always timed, then every
+  1/rate-th. Each kernel row joins measured p50/p99 seconds with the
+  ledger's estimates where it has any (the port's ledger harvests none
+  yet, so ``bound_measured`` stays ``unknown``).
+* **Device memory** (``memory_snapshot``). ``torch.cuda.memory_stats``
+  and ``torch.cuda.mem_get_info`` of the first card; where torch has no
+  card (the CPU tests) the degrade is the reference's for a backend
+  without memory stats, ``{"available": False}`` — never an exception
+  out of a sampler thread, never a 500 off ``/devicez``. The series ring
+  samples bytes-in-use at 1 Hz, sampled dispatches max bytes-in-use into
+  the active query ledger (``peak_device_bytes``), and the
+  resident-buffer registry (``RESIDENT``) makes the engines'
+  device-resident base tables a live gauge.
+* **Resident-buffer registry** (``RESIDENT``). Weakref-keyed: an entry
+  lives exactly as long as the engine (or log) that owns the buffer, so
+  the gauge can never leak a dead engine's bytes. ``engine/hopbatch.py``
+  and ``engine/device_sweep.py`` feed it at their upload sites with the
+  bytes of their torch tensors (``nbytes_tree``).
+
+The reference's fourth piece, compile observability (``note_compile``
+and the compile-storm signal over its XLA compiles), has no counterpart:
+the port's kernels build once per process (``native/build.py``) and its
+ledger compiles nothing, so ``/devicez`` and the ``/statusz`` device block
+carry no ``compile`` block until a slice feeds one.
+
+Knobs
+-----
+* ``RTPU_DEVICE_TIMING`` — sampled timed-dispatch rate in (0, 1]
+  (default 0.05; ``0`` disables; ``1`` times every dispatch). Rides the
+  ledger plane: ``RTPU_LEDGER=0`` disables it too.
+* ``RTPU_KERNEL_REGISTRY_CAP`` — (kernel, shape-sig) entry cap shared
+  with the ledger's ``KernelRegistry`` (oldest evicted; ``0`` disables).
+* ``RTPU_DEVICE_DUMP`` — file path; the full ``/devicez`` document is
+  written there at interpreter exit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import weakref
+from collections import deque
+
+from ..analysis.sanitizer import (note_shared as _san_note,
+                                  track_shared as _san_track)
+
+DEFAULT_RATE = 0.05
+#: bounded warm-sample window per (kernel, sig) — recent-biased, like
+#: the flight recorder: the p50 should describe the CURRENT regime
+SAMPLE_WINDOW = 128
+DEFAULT_REGISTRY_CAP = 512
+#: measured seconds beyond this multiple of the model's predicted
+#: seconds re-classify as overhead_bound — the time is real but the
+#: roofline terms don't explain it (dispatch overhead, sync drain)
+OVERHEAD_FACTOR = 4.0
+
+
+def timing_rate() -> float:
+    """``RTPU_DEVICE_TIMING`` resolved to a sampling rate in [0, 1] —
+    re-read per dispatch (one getenv, the ledger-gate pattern) so the
+    bench A/B and operators can flip it without a restart."""
+    raw = os.environ.get("RTPU_DEVICE_TIMING")
+    if raw is None or raw == "":
+        return DEFAULT_RATE
+    if raw in ("0", "false"):
+        return 0.0
+    try:
+        return min(1.0, max(0.0, float(raw)))
+    except ValueError:
+        return DEFAULT_RATE
+
+
+def registry_cap() -> int:
+    """``RTPU_KERNEL_REGISTRY_CAP`` — the (kernel, shape-sig) entry cap
+    the ledger's KernelRegistry and this module's timing table share
+    (shape-diverse request traffic must not grow either without bound —
+    rtpulint RT011). 0 disables."""
+    try:
+        return max(0, int(os.environ.get("RTPU_KERNEL_REGISTRY_CAP",
+                                         DEFAULT_REGISTRY_CAP)))
+    except ValueError:
+        return DEFAULT_REGISTRY_CAP
+
+
+def evict_past_cap(table: dict, cap: int, keep) -> list:
+    """Shrink ``table`` to ``cap`` entries by evicting from the FRONT of
+    the dict — the single bounded-registry policy the kernel registry
+    and the timing table share. Callers re-insert a key at the BACK on
+    every touch, so front-of-dict means least-recently-used, not
+    first-registered: a hot kernel's row is never the one to go. The
+    just-inserted ``keep`` key is never evicted (a cap below 1 live
+    entry must not thrash it). Returns the evicted keys; the caller
+    holds the table's lock and runs any cross-table hooks AFTER
+    releasing it."""
+    evicted = []
+    while cap and len(table) > cap:
+        oldest = next(iter(table))
+        if oldest == keep:
+            break
+        del table[oldest]
+        evicted.append(oldest)
+    return evicted
+
+
+def _metrics():
+    """The obs.metrics bundle, or None where it fails to import."""
+    try:
+        from .metrics import METRICS
+
+        return METRICS
+    except Exception:
+        return None
+
+
+def _peaks():
+    """(peak FLOP/s, peak B/s) for the probed platform — the ledger's
+    roofline anchors (order-of-magnitude, not calibration; that gap is
+    exactly what the divergence ratio renders visible)."""
+    from . import ledger as _ledger
+
+    platform = _ledger.xla_analysis_caps().get("platform", "cpu")
+    return _ledger._PEAKS.get(platform, _ledger._PEAKS["cpu"])
+
+
+def estimated_seconds(flops, hbm_bytes) -> float | None:
+    """The roofline model's predicted per-dispatch seconds:
+    max(flops / peak FLOP/s, bytes / peak bandwidth) — None without
+    harvested estimates. The divergence ratio divides measured p50 by
+    THIS, so it is a judgement on the whole model (XLA harvest + traffic
+    model + platform anchors), not on one term."""
+    if not flops and not hbm_bytes:
+        return None
+    pf, bw = _peaks()
+    return max(float(flops or 0.0) / pf, float(hbm_bytes or 0.0) / bw)
+
+
+# --------------------------------------------------------- kernel timing
+
+
+class _Timing:
+    """Warm-sample window + lifetime counters for one (kernel, sig)."""
+
+    __slots__ = ("samples", "count", "sum_seconds", "min_seconds",
+                 "max_seconds", "cold_seconds", "last_unix")
+
+    def __init__(self):
+        self.samples: deque = deque(maxlen=SAMPLE_WINDOW)
+        self.count = 0          # warm timed dispatches, lifetime
+        self.sum_seconds = 0.0
+        self.min_seconds = float("inf")
+        self.max_seconds = 0.0
+        self.cold_seconds = None   # the always-timed first dispatch
+        self.last_unix = 0.0
+
+    def observe(self, seconds: float, cold: bool) -> None:
+        self.last_unix = time.time()
+        if cold:
+            self.cold_seconds = seconds
+            return
+        self.samples.append(seconds)
+        self.count += 1
+        self.sum_seconds += seconds
+        self.min_seconds = min(self.min_seconds, seconds)
+        self.max_seconds = max(self.max_seconds, seconds)
+
+    def summary(self) -> dict:
+        out: dict = {"samples": self.count,
+                     "last_unix": round(self.last_unix, 3)}
+        if self.cold_seconds is not None:
+            out["cold_seconds"] = round(self.cold_seconds, 6)
+        vals = sorted(self.samples)
+        if vals:
+            out["p50_seconds"] = round(
+                vals[(len(vals) - 1) // 2], 6)
+            out["p99_seconds"] = round(
+                vals[min(len(vals) - 1, int(0.99 * len(vals)))], 6)
+            out["min_seconds"] = round(self.min_seconds, 6)
+            out["max_seconds"] = round(self.max_seconds, 6)
+            out["mean_seconds"] = round(
+                self.sum_seconds / max(1, self.count), 6)
+        elif self.cold_seconds is not None:
+            # dispatched once, ever: the cold sample is all there is —
+            # flagged so readers don't mistake compile for execute
+            out["p50_seconds"] = round(self.cold_seconds, 6)
+            out["cold_only"] = True
+        return out
+
+
+class DeviceTiming:
+    """Process-wide sampled-dispatch timing table, keyed like the kernel
+    registry by (kernel name, joined shape sig). Bounded by the SAME
+    ``RTPU_KERNEL_REGISTRY_CAP`` (oldest evicted) and additionally
+    pruned by the registry's own evictions (``evict``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._timings: dict[tuple, _Timing] = {}
+        self._counters: dict[tuple, int] = {}
+        self.evictions = 0
+        self._san_tracker = _san_track("device_timing")
+
+    def should_sample(self, name: str, sig: tuple) -> tuple[bool, bool]:
+        """(timed, cold) decision for the dispatch about to run: first
+        dispatch of a (kernel, sig) is always timed as the cold sample,
+        the second always timed warm, then every 1/rate-th."""
+        rate = timing_rate()
+        if rate <= 0.0:
+            return False, False
+        key = (name, "×".join(sig))
+        with self._lock:
+            _san_note(self._san_tracker, True)
+            n = self._counters.get(key, 0) + 1
+            self._counters[key] = n
+        if n == 1:
+            return True, True
+        if n == 2:
+            return True, False
+        interval = max(1, round(1.0 / rate))
+        return n % interval == 0, False
+
+    def observe(self, name: str, sig: tuple, seconds: float,
+                cold: bool = False) -> None:
+        key = (name, "×".join(sig))
+        with self._lock:
+            _san_note(self._san_tracker, True)
+            t = self._timings.get(key)
+            if t is None:
+                t = self._timings[key] = _Timing()
+                # counters share this lock: dropping an evicted key's
+                # counter OUTSIDE it would race a concurrent
+                # should_sample re-creating the key and delete the
+                # fresh count (a phantom second cold sample)
+                for old in evict_past_cap(self._timings,
+                                          registry_cap(), key):
+                    self.evictions += 1
+                    self._counters.pop(old, None)
+            else:
+                # LRU touch: re-insert at the back so the cap evicts
+                # the coldest (kernel, sig), never the hottest
+                self._timings[key] = self._timings.pop(key)
+            t.observe(float(seconds), cold)
+        m = _metrics()
+        if m is not None and not cold:
+            m.device_kernel_seconds.labels(name).observe(float(seconds))
+
+    def evict(self, key: tuple) -> None:
+        """Registry-eviction hook: (name, sig tuple) keys from the
+        ledger's KernelRegistry cap drop their timing rows too."""
+        k = (key[0], "×".join(key[1]))
+        with self._lock:
+            _san_note(self._san_tracker, True)
+            self._timings.pop(k, None)
+            self._counters.pop(k, None)
+
+    def summaries(self) -> dict[tuple, dict]:
+        with self._lock:
+            _san_note(self._san_tracker, False)
+            return {k: t.summary() for k, t in self._timings.items()}
+
+    def totals(self) -> dict:
+        with self._lock:
+            _san_note(self._san_tracker, False)
+            return {"kernels_measured": len(self._timings),
+                    "warm_samples": sum(t.count
+                                        for t in self._timings.values()),
+                    "evictions": self.evictions}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._timings.clear()
+            self._counters.clear()
+            self.evictions = 0
+
+
+TIMING = DeviceTiming()
+
+
+def _tensors(out):
+    """Every torch tensor in a tuple / list / dict tree."""
+    if isinstance(out, (list, tuple)):
+        for x in out:
+            yield from _tensors(x)
+    elif isinstance(out, dict):
+        for x in out.values():
+            yield from _tensors(x)
+    elif hasattr(out, "is_cuda") and hasattr(out, "device"):
+        yield out
+
+
+def block_ready(out) -> bool:
+    """Wait until ``out`` (any tree of tensors) is computed — the sampled
+    dispatch's sync: ``torch.cuda.synchronize`` on each card the tree's
+    CUDA tensors live on; CPU tensors are computed when returned. Never
+    raises: a failed sync costs a sample, not the dispatch that produced
+    it. Returns False on a failed sync so the caller SKIPS the
+    observation — an unsynced duration is launch time, and recording it
+    would poison the percentiles the divergence math reads."""
+    try:
+        cards = {t.device for t in _tensors(out) if t.is_cuda}
+        if cards:
+            import torch
+
+            for dev in cards:
+                torch.cuda.synchronize(dev)
+        return True
+    except Exception:
+        return False
+
+
+def measured_row(rec: dict, timing: dict | None) -> dict:
+    """Join one kernel-registry record with its measured timing summary:
+    achieved FLOP/s / bytes/s at the measured p50, the divergence ratio
+    over the roofline model's predicted seconds, and the
+    ``bound_measured`` re-classification — ``overhead_bound`` when the
+    measured time is more than ``OVERHEAD_FACTOR``x what BOTH roofline
+    terms predict (the model does not explain where the time goes),
+    else whichever predicted term dominates."""
+    out = {"kernel": rec.get("kernel"), "sig": rec.get("sig"),
+           "dispatches": rec.get("dispatches"),
+           "bound": rec.get("bound"),
+           "bound_refined": rec.get("bound_refined"),
+           "bound_measured": "unknown",
+           "measured": timing or {}}
+    p50 = (timing or {}).get("p50_seconds")
+    if not p50 or p50 <= 0:
+        return out
+    flops = rec.get("flops") or 0.0
+    nbytes = rec.get("bytes_accessed") or 0.0
+    hbm = rec.get("est_hbm_bytes") or nbytes
+    if flops:
+        out["achieved_flops_per_s"] = round(flops / p50, 1)
+    if nbytes:
+        out["achieved_bytes_per_s"] = round(nbytes / p50, 1)
+    if hbm:
+        out["achieved_hbm_bytes_per_s"] = round(hbm / p50, 1)
+    est = estimated_seconds(flops, hbm)
+    if est and est > 0:
+        out["est_seconds"] = round(est, 9)
+        out["divergence"] = round(p50 / est, 4)
+        pf, bw = _peaks()
+        compute_t = float(flops) / pf
+        mem_t = float(hbm) / bw
+        if p50 > OVERHEAD_FACTOR * max(compute_t, mem_t):
+            out["bound_measured"] = "overhead_bound"
+        else:
+            out["bound_measured"] = ("compute_bound"
+                                     if compute_t >= mem_t
+                                     else "hbm_bound")
+    return out
+
+
+def measured_table() -> list[dict]:
+    """Every registered kernel joined with its measured stats, most
+    measured-time-covered first — the ``/devicez`` kernel table."""
+    from . import ledger as _ledger
+
+    summaries = TIMING.summaries()
+    rows = []
+    for rec in _ledger.REGISTRY.snapshot():
+        t = summaries.get((rec.get("kernel"), rec.get("sig")))
+        rows.append(measured_row(rec, t))
+    rows.sort(key=lambda r: -(r["measured"].get("p50_seconds") or 0.0)
+              * (r.get("dispatches") or 0))
+    return rows
+
+
+# --------------------------------------------------------- device memory
+
+
+def memory_snapshot() -> dict:
+    """Memory of the first card (``torch.cuda.memory_stats`` for the
+    caching allocator's bytes in use and their peak,
+    ``torch.cuda.mem_get_info`` for the card's size), degrade-tolerant:
+    without torch loaded or without a card (the CPU tests) it is the
+    reference's degrade for a backend that returns no memory stats,
+    ``{"available": False}`` — the ``/devicez`` memory block and every
+    sampler keep serving through that, never crash or 500."""
+    import sys
+
+    torch = sys.modules.get("torch")
+    try:
+        if torch is None or not torch.cuda.is_available():
+            stats = None
+        else:
+            stats = torch.cuda.memory_stats(0)
+            _, total = torch.cuda.mem_get_info(0)
+    except Exception as e:
+        return {"available": False,
+                "error": f"{type(e).__name__}: {e}"[:200]}
+    if not stats:
+        return {"available": False,
+                "reason": "backend returns no memory_stats"}
+    out = {"available": True,
+           "bytes_in_use": int(stats.get("allocated_bytes.all.current")
+                               or 0),
+           "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak")
+                                    or 0)}
+    limit = int(total or 0)
+    if limit:
+        out["bytes_limit"] = limit
+        out["in_use_fraction"] = round(out["bytes_in_use"] / limit, 4)
+    return out
+
+
+def series_bytes_in_use() -> float:
+    """Series-ring collector (obs/slo.SERIES): raises when the backend
+    has no memory counters so the sample records None — the ring's
+    contract for a failing collector (the thread never dies)."""
+    snap = memory_snapshot()
+    if not snap.get("available"):
+        raise RuntimeError("device memory_stats unavailable")
+    return float(snap["bytes_in_use"])
+
+
+def gauge_bytes_in_use() -> float:
+    """Prometheus set_function callback — scrape callbacks must never
+    raise, so unavailable degrades to 0.0 (the /devicez block is the
+    authoritative 'unavailable vs empty' surface)."""
+    try:
+        snap = memory_snapshot()
+        return float(snap.get("bytes_in_use") or 0.0) \
+            if snap.get("available") else 0.0
+    except Exception:
+        return 0.0
+
+
+# ------------------------------------------------ resident-buffer registry
+
+
+class ResidentRegistry:
+    """Live gauge of device-resident buffers, weakref-keyed by OWNER
+    (an engine or a log): ``track(owner, kind, nbytes)`` upserts the
+    owner's ``kind`` row, and the row disappears with the owner — the
+    registry cannot outlive-leak a dead engine's bytes (RT011 by
+    construction, no cap needed)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._by_owner: "weakref.WeakKeyDictionary" = \
+            weakref.WeakKeyDictionary()
+        self._san_tracker = _san_track("device_resident")
+
+    def track(self, owner, kind: str, nbytes: int, **info) -> None:
+        """Upsert ``owner``'s ``kind`` buffer at ``nbytes``. Never
+        raises: an owner that doesn't support weakrefs just isn't
+        tracked (the gauge is best-effort observability)."""
+        row = {"kind": str(kind), "nbytes": max(0, int(nbytes)),
+               "owner": type(owner).__name__,
+               "unix": round(time.time(), 3), **info}
+        try:
+            with self._lock:
+                _san_note(self._san_tracker, True)
+                self._by_owner.setdefault(owner, {})[str(kind)] = row
+        except TypeError:
+            pass
+
+    def drop(self, owner, kind: str | None = None) -> None:
+        try:
+            with self._lock:
+                _san_note(self._san_tracker, True)
+                rows = self._by_owner.get(owner)
+                if rows is None:
+                    return
+                if kind is None:
+                    del self._by_owner[owner]
+                else:
+                    rows.pop(str(kind), None)
+        except TypeError:
+            pass
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            _san_note(self._san_tracker, False)
+            rows = [dict(r) for rows in self._by_owner.values()
+                    for r in rows.values()]
+        rows.sort(key=lambda r: -r["nbytes"])
+        return {"buffers": rows,
+                "total_bytes": sum(r["nbytes"] for r in rows)}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._by_owner = weakref.WeakKeyDictionary()
+
+
+RESIDENT = ResidentRegistry()
+
+
+def nbytes_tree(obj) -> int:
+    """Recursive byte sum over a tuple/list tree of torch tensors (or
+    numpy arrays) — what the engines account their resident state at."""
+    if obj is None:
+        return 0
+    if isinstance(obj, (list, tuple)):
+        return sum(nbytes_tree(x) for x in obj)
+    nbytes = getattr(obj, "nbytes", None)
+    if nbytes is None and hasattr(obj, "element_size"):
+        nbytes = obj.numel() * obj.element_size()
+    return int(nbytes or 0)
+
+
+# ------------------------------------------------------------- surfaces
+
+
+def status_block() -> dict:
+    """The compact ``device`` block /statusz embeds (what /clusterz
+    federates per process): counts and gauges only, never the tables."""
+    mem = memory_snapshot()
+    return {
+        "timing": {"rate": timing_rate(), **TIMING.totals()},
+        "memory": mem if mem.get("available")
+        else {"available": False},
+        "resident_bytes": RESIDENT.snapshot()["total_bytes"],
+    }
+
+
+def devicez() -> dict:
+    """The full ``/devicez`` document: the measured kernel table
+    (estimates joined with sampled timings, divergence, and the
+    measured re-classification), the device-memory snapshot (or its
+    honest degrade) and the resident-buffer registry."""
+    mem = memory_snapshot()
+    return {
+        "timing": {
+            "rate": timing_rate(),
+            **TIMING.totals(),
+            "semantics": (
+                "sampled dispatches block until ready and record wall "
+                "seconds — dispatch overhead and pipeline drain "
+                "included; divergence = measured p50 / roofline-model "
+                "predicted seconds; bound_measured is overhead_bound "
+                "when measured exceeds "
+                f"{OVERHEAD_FACTOR:.0f}x both model terms"),
+            "kernels": measured_table(),
+        },
+        "memory": mem if mem.get("available") else
+        {"available": False, "detail": mem,
+         "note": "memory: unavailable — backend exposes no "
+                 "memory_stats; timing plane unaffected"},
+        "resident": RESIDENT.snapshot(),
+    }
+
+
+def clear() -> None:
+    """Reset every device-plane table (tests + bench arms)."""
+    TIMING.clear()
+    RESIDENT.clear()
+
+
+_device_dump = os.environ.get("RTPU_DEVICE_DUMP")
+if _device_dump:
+    from . import exitdump as _exitdump
+
+    def _dump_devicez(path=_device_dump):
+        with open(path, "w") as f:
+            json.dump(devicez(), f)
+
+    _exitdump.register("device", _dump_devicez)

@@ -1,0 +1,614 @@
+"""Durable telemetry journal — crash-safe, bounded, append-only.
+
+Every observability surface before this module (trace ring, series
+ring, ledger ring, advisor findings, fault/breaker/degrade events, live
+epoch accounting) lives in process memory and reaches disk only via
+best-effort exit dumps — a SIGKILLed cluster member takes its evidence
+to the grave. The reference Raphtory archived entity history so state
+survived failures (PAPER.md §2); this module applies the same principle
+to telemetry: a segmented on-disk journal that continuously records
+CRC-framed events, so ``tools/rtpu-postmortem`` can reconstruct a dead
+member's final sweep and epoch state from its journal alone.
+
+Design constraints, in order:
+
+* **Never block a request path.** ``emit()`` appends to a bounded
+  in-memory queue under one uncontended lock and returns; a single
+  writer thread drains, serializes, frames and fsyncs in batches
+  (``RTPU_JOURNAL_FLUSH_MS``). A full queue DROPS the record and counts
+  it (``/journalz`` ``drops``) — backpressure on telemetry must never
+  become backpressure on serving.
+* **Crash-safe by framing, not by fsync-per-record.** Each record is
+  ``<u32 length><u32 crc32(payload)><payload>``; a reader walks frames
+  until EOF, a short read, or a CRC mismatch and STOPS — a torn final
+  record (the SIGKILL case) is skipped, never fatal, and everything
+  before the last batched fsync is guaranteed durable.
+* **Bounded disk.** Segments rotate at ``total_cap/8`` bytes; when the
+  per-process total exceeds ``RTPU_JOURNAL_MB`` the oldest segments are
+  deleted. Each process manages only its OWN segments
+  (``journal-p<process_index>-<seq>.rtj``) — many cluster members can
+  share one directory without racing each other's rotation.
+* **Zero overhead off.** ``enabled()`` is one environ lookup; with
+  ``RTPU_JOURNAL=0`` (the default) no instance, thread, or file ever
+  exists and every hook returns after that single check.
+* **Standalone-importable.** stdlib only, no relative imports required
+  at module load — ``tools/rtpu-postmortem`` loads THIS file by path
+  (the rtpulint/perfwatch idiom) so the reader and writer can never
+  drift apart.
+
+Record schema (JSON payload, compact keys — docs/OBSERVABILITY.md):
+
+===  ==========================================================
+key  meaning
+===  ==========================================================
+k    kind: span|instant|series|ledger|advice|sched|epoch|fresh|
+     fault|breaker|degrade|mesh|meta
+w    wall-clock unix seconds at emit
+m    monotonic seconds (time.perf_counter) at emit
+p    process_index (cluster identity)
+s    per-process emit sequence number (gaps = dropped records)
+t    trace id ("" when none)
+n    tenant ("" when none)
+d    kind-specific data dict
+===  ==========================================================
+
+Knobs (all in docs/OPERATIONS.md):
+
+* ``RTPU_JOURNAL`` — enable (default off; ``RTPU_JOURNAL_DIR`` set
+  implies on, the RTPU_TRACE_DUMP precedent).
+* ``RTPU_JOURNAL_DIR`` — segment directory (default
+  ``<tmpdir>/rtpu-journal``).
+* ``RTPU_JOURNAL_MB`` — per-process on-disk cap in MB (default 64);
+  oldest segments rotate out.
+* ``RTPU_JOURNAL_FLUSH_MS`` — writer-thread batch interval (default
+  200): records are fsync-durable at most this far behind ``emit()``.
+* ``RTPU_JOURNAL_QUEUE`` — bounded emit-queue capacity in records
+  (default 8192); overflow drops-and-counts.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import struct
+import tempfile
+import threading
+import time
+import zlib
+
+#: segment file magic — 4 bytes at offset 0 of every segment
+MAGIC = b"RTJ1"
+#: frame header: little-endian u32 payload length, u32 crc32(payload)
+HEADER = struct.Struct("<II")
+#: a frame longer than this is corruption, not data (reader stops)
+MAX_RECORD_BYTES = 8 << 20
+
+DEFAULT_CAP_MB = 64
+DEFAULT_FLUSH_MS = 200
+DEFAULT_QUEUE = 8192
+SEGMENT_FRACTION = 8        # segment size = total cap / 8
+
+_VERSION = 1
+
+
+def enabled() -> bool:
+    """One environ lookup — the hot-path gate every hook checks first.
+    ``RTPU_JOURNAL`` wins when set; otherwise a configured
+    ``RTPU_JOURNAL_DIR`` implies on (the CI artifact idiom)."""
+    v = os.environ.get("RTPU_JOURNAL")
+    if v is not None:
+        return v not in ("", "0", "false")
+    return bool(os.environ.get("RTPU_JOURNAL_DIR"))
+
+
+def journal_dir() -> str:
+    return (os.environ.get("RTPU_JOURNAL_DIR")
+            or os.path.join(tempfile.gettempdir(), "rtpu-journal"))
+
+
+def _env_int(name: str, default: int, lo: int = 1) -> int:
+    try:
+        return max(lo, int(os.environ.get(name, "") or default))
+    except ValueError:
+        return default
+
+
+# ---------------------------------------------------------------------
+# framing — shared verbatim by writer (here) and reader (scan below,
+# loaded standalone by tools/rtpu-postmortem)
+# ---------------------------------------------------------------------
+
+def encode_record(rec: dict) -> bytes:
+    """One CRC-framed record. Serialization must never raise into the
+    writer thread — non-JSON values degrade via ``default=str``."""
+    payload = json.dumps(rec, separators=(",", ":"),
+                         default=str).encode("utf-8")
+    return HEADER.pack(len(payload), zlib.crc32(payload)) + payload
+
+
+def scan_segment(path: str):
+    """Yield ``(record, offset)`` for every intact frame of a segment,
+    stopping (silently — the caller counts via ``scan_report``) at the
+    first torn or corrupt frame. Never raises for data-level damage;
+    OS-level errors (unreadable file) propagate to the caller."""
+    for rec, off in _scan(path)[0]:
+        yield rec, off
+
+
+def scan_report(path: str) -> tuple[list, dict]:
+    """``(records, report)`` for one segment: every intact record (in
+    file order) plus ``{"bytes", "torn", "reason"}`` where ``torn`` is
+    1 when the walk stopped before EOF (truncated or corrupt tail —
+    the SIGKILL signature)."""
+    pairs, report = _scan(path)
+    return [r for r, _ in pairs], report
+
+
+def _scan(path: str) -> tuple[list, dict]:
+    pairs: list = []
+    size = os.path.getsize(path)
+    report = {"bytes": size, "torn": 0, "reason": ""}
+    with open(path, "rb") as f:
+        magic = f.read(len(MAGIC))
+        if magic != MAGIC:
+            report["torn"] = 1
+            report["reason"] = "bad-magic"
+            return pairs, report
+        off = len(MAGIC)
+        while True:
+            head = f.read(HEADER.size)
+            if not head:
+                return pairs, report           # clean EOF
+            if len(head) < HEADER.size:
+                report["torn"] = 1             # torn mid-header
+                report["reason"] = f"short-header@{off}"
+                return pairs, report
+            length, crc = HEADER.unpack(head)
+            if length > MAX_RECORD_BYTES:
+                report["torn"] = 1
+                report["reason"] = f"bad-length@{off}"
+                return pairs, report
+            payload = f.read(length)
+            if len(payload) < length:
+                report["torn"] = 1             # torn mid-payload
+                report["reason"] = f"short-payload@{off}"
+                return pairs, report
+            if zlib.crc32(payload) != crc:
+                report["torn"] = 1             # corrupt (or torn) bytes
+                report["reason"] = f"crc@{off}"
+                return pairs, report
+            try:
+                pairs.append((json.loads(payload), off))
+            except ValueError:
+                report["torn"] = 1
+                report["reason"] = f"json@{off}"
+                return pairs, report
+            off += HEADER.size + length
+
+
+def segment_name(process_index: int, seq: int) -> str:
+    return f"journal-p{int(process_index)}-{int(seq):08d}.rtj"
+
+
+def parse_segment_name(name: str) -> tuple[int, int] | None:
+    """``(process_index, seq)`` or None for non-journal files."""
+    if not (name.startswith("journal-p") and name.endswith(".rtj")):
+        return None
+    body = name[len("journal-p"):-len(".rtj")]
+    try:
+        pi, seq = body.split("-", 1)
+        return int(pi), int(seq)
+    except ValueError:
+        return None
+
+
+# ---------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------
+
+class Journal:
+    """One process's journal: bounded queue + single writer thread +
+    segment rotation. Construct directly in tests; production uses the
+    module-level ``emit()`` singleton."""
+
+    def __init__(self, directory: str | None = None,
+                 cap_mb: int | None = None,
+                 flush_ms: int | None = None,
+                 queue_cap: int | None = None,
+                 process_index: int | None = None):
+        self.dir = directory or journal_dir()
+        self.cap_bytes = (cap_mb if cap_mb is not None
+                          else _env_int("RTPU_JOURNAL_MB",
+                                        DEFAULT_CAP_MB)) * (1 << 20)
+        self.flush_s = (flush_ms if flush_ms is not None
+                        else _env_int("RTPU_JOURNAL_FLUSH_MS",
+                                      DEFAULT_FLUSH_MS)) / 1000.0
+        self.queue_cap = (queue_cap if queue_cap is not None
+                          else _env_int("RTPU_JOURNAL_QUEUE",
+                                        DEFAULT_QUEUE))
+        self.segment_bytes = max(64 << 10,
+                                 self.cap_bytes // SEGMENT_FRACTION)
+        if process_index is None:
+            process_index = _env_int("RTPU_PROCESS_INDEX", 0, lo=0)
+        self.process_index = int(process_index)
+        self._pid = os.getpid()
+        self._mu = threading.Lock()          # queue + counters
+        self._queue: collections.deque = collections.deque()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._seq = 0
+        self._enqueued = 0
+        self._flushed = 0
+        self._closed = False
+        # counters (read under _mu via status())
+        self.records_written = 0
+        self.bytes_written = 0
+        self.drops = 0
+        self.encode_errors = 0
+        self.rotations = 0
+        self.segments_deleted = 0
+        self.write_errors = 0
+        self.last_flush_unix = 0.0
+        self._oldest_pending_unix = 0.0
+        # segment state (writer thread only, after __init__)
+        os.makedirs(self.dir, exist_ok=True)
+        self._seg_seq = self._next_segment_seq()
+        self._seg_file = None
+        self._seg_bytes = 0
+        self._open_segment()
+        self._emit_meta()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="journal-writer", daemon=True)
+        self._thread.start()
+
+    # ---- segments ----
+
+    def _own_segments(self) -> list[tuple[int, str, int]]:
+        """Sorted ``(seq, path, bytes)`` of THIS process's segments."""
+        rows = []
+        try:
+            names = os.listdir(self.dir)
+        except OSError:
+            return rows
+        for name in names:
+            parsed = parse_segment_name(name)
+            if parsed is None or parsed[0] != self.process_index:
+                continue
+            path = os.path.join(self.dir, name)
+            try:
+                rows.append((parsed[1], path, os.path.getsize(path)))
+            except OSError:
+                continue
+        rows.sort()
+        return rows
+
+    def _next_segment_seq(self) -> int:
+        """Continue numbering past any previous run's segments — a
+        restarted process must never clobber its predecessor's evidence
+        (that evidence is exactly what postmortem reads)."""
+        rows = self._own_segments()
+        return rows[-1][0] + 1 if rows else 0
+
+    def _open_segment(self) -> None:
+        path = os.path.join(self.dir,
+                            segment_name(self.process_index, self._seg_seq))
+        self._seg_file = open(path, "ab")
+        if self._seg_file.tell() == 0:
+            self._seg_file.write(MAGIC)
+        self._seg_bytes = self._seg_file.tell()
+        self._seg_path = path
+
+    def _rotate_locked_out(self) -> None:
+        """Close the active segment, open the next, delete oldest
+        segments past the byte cap. Writer thread only."""
+        try:
+            self._seg_file.flush()
+            os.fsync(self._seg_file.fileno())
+            self._seg_file.close()
+        except OSError:
+            self.write_errors += 1
+        self._seg_seq += 1
+        self.rotations += 1
+        self._open_segment()
+        rows = self._own_segments()
+        total = sum(b for _, _, b in rows)
+        for seq, path, nbytes in rows:
+            if total <= self.cap_bytes:
+                break
+            if path == self._seg_path:
+                break                       # never delete the active one
+            try:
+                os.remove(path)
+                self.segments_deleted += 1
+                total -= nbytes
+            except OSError:
+                break
+
+    # ---- emit (any thread, non-blocking) ----
+
+    def emit(self, kind: str, data: dict | None = None, *,
+             trace_id: str | None = None,
+             tenant: str | None = None) -> bool:
+        """Queue one record; returns False when dropped (queue full or
+        journal closed). Never blocks, never raises."""
+        try:
+            now = time.time()
+            rec = {"k": kind, "w": round(now, 6),
+                   "m": time.perf_counter(),
+                   "p": self.process_index,
+                   "t": trace_id or "", "n": tenant or "",
+                   "d": data if data is not None else {}}
+            with self._mu:
+                # seq is assigned even to DROPPED records: a gap in the
+                # journaled sequence is the postmortem-visible drop
+                # evidence (the drops counter itself may be lost with
+                # the process)
+                self._seq += 1
+                rec["s"] = self._seq
+                if self._closed or len(self._queue) >= self.queue_cap:
+                    self.drops += 1
+                    return False
+                self._enqueued += 1
+                if not self._queue:
+                    self._oldest_pending_unix = now
+                self._queue.append(rec)
+            return True
+        except Exception:
+            # a telemetry sink must never become a fault injector
+            try:
+                with self._mu:
+                    self.encode_errors += 1
+            except Exception:
+                pass
+            return False
+
+    def _emit_meta(self) -> None:
+        self.emit("meta", {
+            "version": _VERSION, "pid": self._pid,
+            "segment": self._seg_seq,
+            "cap_mb": self.cap_bytes >> 20,
+            "flush_ms": int(self.flush_s * 1000),
+            # the mono↔wall anchor: every record carries both clocks,
+            # but the offset here lets a reader sanity-check drift
+            "mono_anchor": time.perf_counter(),
+            "wall_anchor": time.time(),
+        })
+
+    # ---- writer thread ----
+
+    def _drain(self) -> list[dict]:
+        with self._mu:
+            batch = list(self._queue)
+            self._queue.clear()
+            self._oldest_pending_unix = 0.0
+        return batch
+
+    def _write_batch(self, batch: list[dict]) -> None:
+        wrote = 0
+        nbytes = 0
+        for rec in batch:
+            try:
+                frame = encode_record(rec)
+            except Exception:
+                with self._mu:
+                    self.encode_errors += 1
+                continue
+            try:
+                self._seg_file.write(frame)
+                wrote += 1
+                nbytes += len(frame)
+                self._seg_bytes += len(frame)
+            except OSError:
+                with self._mu:
+                    self.write_errors += 1
+                break                       # a full disk drops the REST of
+            if self._seg_bytes >= self.segment_bytes:
+                # rotate MID-batch: one burst bigger than a segment must
+                # still produce capped segments, or the oldest-first
+                # deletion below would remove the single segment holding
+                # the entire history
+                self._rotate_locked_out()
+        try:                                # the batch, not the process
+            self._seg_file.flush()
+            os.fsync(self._seg_file.fileno())
+        except OSError:
+            with self._mu:
+                self.write_errors += 1
+        with self._mu:
+            self.records_written += wrote
+            self.bytes_written += nbytes
+            # the whole batch is PROCESSED (flush() waiters unblock)
+            # even when writes failed — failures are counted, never
+            # re-queued: replaying onto a sick disk would wedge the
+            # writer behind an ever-growing backlog
+            self._flushed += len(batch)
+            self.last_flush_unix = time.time()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.flush_s):
+            batch = self._drain()
+            if batch:
+                self._write_batch(batch)
+            if self._wake.is_set():
+                self._wake.clear()
+        # final drain on stop
+        batch = self._drain()
+        if batch:
+            self._write_batch(batch)
+
+    # ---- lifecycle ----
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Block until everything queued BEFORE the call is fsynced —
+        tests and the exit path; production code never calls this."""
+        deadline = time.monotonic() + timeout
+        with self._mu:
+            target = self._enqueued
+        while time.monotonic() < deadline:
+            with self._mu:
+                if self._flushed >= target and not self._queue:
+                    return True
+            time.sleep(0.005)
+        return False
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the writer after a final drain + fsync. Idempotent —
+        the exit path may run it more than once."""
+        with self._mu:
+            if self._closed:
+                return
+            self._closed = True
+        self._stop.set()
+        t = self._thread
+        if t is not None and t.is_alive() \
+                and t is not threading.current_thread():
+            t.join(timeout=timeout)
+        try:
+            self._seg_file.flush()
+            os.fsync(self._seg_file.fileno())
+            self._seg_file.close()
+        except OSError:
+            pass
+
+    # ---- introspection ----
+
+    def status(self) -> dict:
+        rows = self._own_segments()
+        with self._mu:
+            queue_depth = len(self._queue)
+            oldest = self._oldest_pending_unix
+            st = {
+                "dir": self.dir,
+                "process_index": self.process_index,
+                "cap_mb": self.cap_bytes >> 20,
+                "flush_ms": int(self.flush_s * 1000),
+                "segment_bytes": self.segment_bytes,
+                "records_written": self.records_written,
+                "bytes_written": self.bytes_written,
+                "drops": self.drops,
+                "encode_errors": self.encode_errors,
+                "write_errors": self.write_errors,
+                "rotations": self.rotations,
+                "segments_deleted": self.segments_deleted,
+                "queue_depth": queue_depth,
+                "queue_cap": self.queue_cap,
+                "last_flush_unix": round(self.last_flush_unix, 3),
+                "closed": self._closed,
+            }
+        # flush lag: how stale the on-disk tail is relative to emits —
+        # 0 when nothing is pending (everything emitted is durable)
+        st["flush_lag_seconds"] = (round(max(0.0, time.time() - oldest), 3)
+                                   if oldest else 0.0)
+        st["segments"] = [{"seq": seq, "file": os.path.basename(path),
+                           "bytes": nbytes} for seq, path, nbytes in rows]
+        st["total_bytes"] = sum(r["bytes"] for r in st["segments"])
+        return st
+
+    def status_block(self) -> dict:
+        """The compact /statusz block (federated at /clusterz)."""
+        full = self.status()
+        return {k: full[k] for k in
+                ("dir", "total_bytes", "records_written", "drops",
+                 "flush_lag_seconds", "queue_depth")} | {
+                    "segments": len(full["segments"]), "enabled": True}
+
+
+# ---------------------------------------------------------------------
+# module singleton + hook surface
+# ---------------------------------------------------------------------
+
+_SINGLETON: Journal | None = None
+_SINGLETON_MU = threading.Lock()
+_FAILED = False
+
+
+def get() -> Journal | None:
+    """The process journal (lazily constructed when enabled). A failed
+    construction (unwritable dir) disables journaling for the process —
+    telemetry must never take serving down — and surfaces on
+    ``journalz()`` as ``failed: true``."""
+    global _SINGLETON, _FAILED
+    j = _SINGLETON
+    if j is not None:
+        return j
+    if _FAILED or not enabled():
+        return None
+    with _SINGLETON_MU:
+        if _SINGLETON is None and not _FAILED:
+            try:
+                _SINGLETON = Journal()
+                _register_exit(_SINGLETON)
+            except Exception:
+                _FAILED = True
+                return None
+        return _SINGLETON
+
+
+def _register_exit(journal: Journal) -> None:
+    """Close/flush at interpreter exit AND on SIGTERM via the shared
+    exit-artifact module (obs/exitdump.py). Standalone loads (the
+    postmortem tool) have no package context — then atexit directly."""
+    try:
+        from . import exitdump
+
+        exitdump.register("journal", journal.close, last=True)
+    except ImportError:
+        import atexit
+
+        atexit.register(journal.close)
+
+
+def shutdown() -> None:
+    """Close and forget the singleton (tests; re-arms on next emit)."""
+    global _SINGLETON, _FAILED
+    with _SINGLETON_MU:
+        j, _SINGLETON = _SINGLETON, None
+        _FAILED = False
+    if j is not None:
+        j.close()
+
+
+def emit(kind: str, data: dict | None = None, *,
+         trace_id: str | None = None, tenant: str | None = None) -> None:
+    """The module-level hook every publication point calls:
+    ``if journal.enabled(): journal.emit(...)``. Safe to call bare —
+    the enabled() check is repeated here (one environ lookup)."""
+    if not enabled():
+        return
+    j = get()
+    if j is not None:
+        j.emit(kind, data, trace_id=trace_id, tenant=tenant)
+
+
+def emit_event(event: dict) -> None:
+    """Forward one flight-recorder ring event (obs/trace.Tracer._record
+    calls this after the ring append): ``ph: X`` → kind ``span``,
+    ``ph: i`` → kind ``instant``. The event dict is recorded verbatim
+    as the data block — the postmortem chrome exporter re-bases its
+    tracer-epoch timestamps onto the record's wall stamp."""
+    if not enabled():
+        return
+    j = get()
+    if j is not None:
+        kind = "span" if event.get("ph") == "X" else "instant"
+        j.emit(kind, event, trace_id=event.get("trace") or None)
+
+
+def journalz() -> dict:
+    """The ``/journalz`` document."""
+    on = enabled()
+    doc: dict = {"enabled": on, "failed": _FAILED}
+    j = _SINGLETON if _SINGLETON is not None else (get() if on else None)
+    if j is not None:
+        doc.update(j.status())
+    return doc
+
+
+def status_block() -> dict:
+    """Compact /statusz block; ``{"enabled": False}`` when off."""
+    on = enabled()
+    j = _SINGLETON if _SINGLETON is not None else (get() if on else None)
+    if j is None:
+        return {"enabled": False}
+    return j.status_block()

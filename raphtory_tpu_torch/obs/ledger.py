@@ -1,0 +1,864 @@
+"""Per-query resource ledger + kernel registry.
+
+The port of ``raphtory_tpu/obs/ledger.py``. Three pieces:
+
+* **Ledger** — a per-query accumulator every job carries: phase seconds
+  (fold/stage/ship/compute from the sweep engines' phase breakdowns,
+  plus device_wait / emit / other measured by the jobs layer), fold
+  seconds by mode and fold-cache hits, H2D bytes + stall seconds
+  (TransferEngine deltas), per-kernel device dispatch counts with
+  estimated FLOPs / bytes-accessed, queue wait, and peak host RSS.
+  Jobs accept ``explain=1`` and return it with the result; the phase
+  seconds (queue wait included) sum to the job's wall time by
+  construction (``other`` is the explicit residual).
+* **KernelRegistry** — process-wide: every dispatch function the engines
+  call is registered by ``instrument()`` under the name the reference
+  gives its compiled program (``hopbatch.pagerank_cols``,
+  ``hopbatch.delta.{kind}``, ``hopbatch.cc_cols``, ``hopbatch.bfs_cols``,
+  ``hopbatch.pagerank_scale``, ``device_sweep.*``), once per (kernel,
+  argument-shape signature), with its dispatch count and sampled
+  timings (``obs/device.py``).
+* **Capability probe** — the reference harvests XLA ``cost_analysis`` /
+  ``memory_analysis`` through a ``jax.jit`` probe. The port's dispatch
+  functions are hand kernels that XLA never sees, so its probe reports
+  no analysis: the reference's own degraded mode, in which every kernel
+  keeps ``bound="unknown"``, the FLOP / byte estimates stay empty and
+  ``/costz``'s ``xla.cost`` is False. (Filling the estimates from CUDA
+  events and ``ops/partition.edge_traffic_model`` is later work; no
+  number is invented for them.)
+
+Roofline classification rule: ``intensity = flops / bytes_accessed``; a
+kernel is ``hbm_bound`` when intensity is below the backend ridge (peak
+FLOP/s ÷ peak memory bandwidth), else ``compute_bound``, and ``unknown``
+without estimates. The query-level ``bound`` is ``host_bound`` /
+``h2d_bound`` when the fold / ship phase dominates wall time, else the
+dominant kernel's roofline bound.
+
+Knobs
+-----
+* ``RTPU_LEDGER`` — per-query cost accounting (default on; ``0``
+  disables collection).
+* ``RTPU_LEDGER_RIDGE`` — override the roofline ridge point
+  (flops/byte) when the built-in per-backend operating points are wrong
+  for the hardware.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import os
+import resource
+import sys
+import threading
+import time
+
+from ..analysis.sanitizer import (note_shared as _san_note,
+                                  track_shared as _san_track)
+from . import device as _device
+from .trace import TRACER
+
+#: (peak FLOP/s, peak memory bandwidth B/s) operating points per backend —
+#: order-of-magnitude roofline anchors, not measured calibration. Override
+#: the derived ridge with RTPU_LEDGER_RIDGE.
+_PEAKS = {
+    "gpu": (1e14, 2e12),
+    "cpu": (1e11, 2e10),        # few-core container class
+}
+_DEFAULT_PLATFORM = "cpu"
+
+
+def _enabled() -> bool:
+    """Collection gate, re-read per call so the bench A/B (and operators)
+    can flip ``RTPU_LEDGER`` without a restart."""
+    return os.environ.get("RTPU_LEDGER", "1") not in ("", "0", "false")
+
+
+def collection_enabled() -> bool:
+    """Public alias of the ``RTPU_LEDGER`` gate — the jobs layer checks
+    it before publishing (metrics, /costz ring, instants), so disabling
+    collection silences every ledger surface."""
+    return _enabled()
+
+
+def _rss_peak_bytes() -> int:
+    """Lifetime peak RSS (ru_maxrss is KiB on Linux, bytes on macOS) —
+    stdlib-only so the ledger imports in stripped environments."""
+    try:
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return int(peak if sys.platform == "darwin" else peak * 1024)
+    except Exception:
+        return 0
+
+
+# --------------------------------------------------------------- XLA caps
+
+_CAPS: dict = {}
+_CAPS_LOCK = threading.Lock()
+
+
+def _platform() -> str:
+    """``gpu`` where torch is loaded and sees a card, else ``cpu``."""
+    torch = sys.modules.get("torch")
+    try:
+        if torch is not None and torch.cuda.is_available():
+            return "gpu"
+    except Exception:
+        pass
+    return _DEFAULT_PLATFORM
+
+
+def xla_analysis_caps() -> dict:
+    """Probe-once capability check for compile-time cost/memory harvest.
+    The port's kernels are hand-written, so no compiler analysis exists:
+    ``cost`` and ``memory`` are False, the reference's degraded mode, and
+    the ledger keeps host-side accounting (``bound="unknown"``)."""
+    with _CAPS_LOCK:
+        if _CAPS:
+            return dict(_CAPS)
+    caps = {"cost": False, "memory": False, "platform": _platform(),
+            "probed": True}
+    with _CAPS_LOCK:
+        _CAPS.clear()
+        _CAPS.update(caps)
+    return dict(caps)
+
+
+def reset_xla_caps() -> None:
+    """Forget the probe result (the next call probes again)."""
+    with _CAPS_LOCK:
+        _CAPS.clear()
+
+
+def ridge_flops_per_byte(platform: str | None = None) -> float:
+    """Roofline ridge point for ``platform`` (default: the probed one)."""
+    v = os.environ.get("RTPU_LEDGER_RIDGE")
+    if v is not None:
+        try:
+            return max(1e-6, float(v))
+        except ValueError:
+            pass
+    if platform is None:
+        platform = xla_analysis_caps().get("platform", _DEFAULT_PLATFORM)
+    flops, bw = _PEAKS.get(platform, _PEAKS[_DEFAULT_PLATFORM])
+    return flops / bw
+
+
+def classify_roofline(flops, bytes_accessed,
+                      platform: str | None = None) -> str:
+    """``hbm_bound`` | ``compute_bound`` | ``unknown`` from harvested
+    cost-analysis numbers — the ONE place the classification rule lives
+    (docs/OBSERVABILITY.md documents it verbatim)."""
+    if not flops or not bytes_accessed:
+        return "unknown"
+    intensity = float(flops) / float(bytes_accessed)
+    return ("compute_bound"
+            if intensity >= ridge_flops_per_byte(platform) else "hbm_bound")
+
+
+# --------------------------------------------------------- kernel registry
+
+
+def _sig_of(args) -> tuple:
+    """Cheap argument-shape signature: shape+dtype for array-likes (never
+    materialises device data), type name for python scalars."""
+    sig = []
+    for a in args:
+        shape = getattr(a, "shape", None)
+        dt = getattr(a, "dtype", None)
+        if shape is not None and dt is not None:
+            sig.append(f"{dt}{list(shape)}")
+        else:
+            sig.append(f"py:{type(a).__name__}")
+    return tuple(sig)
+
+
+class KernelRegistry:
+    """Process-wide registry of every compiled kernel the engines
+    dispatch: one record per (kernel name, argument-shape signature),
+    carrying harvested XLA cost/memory analysis, the roofline
+    classification, and lifetime dispatch counts."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._kernels: dict[tuple, dict] = {}
+        #: keys whose record was created but not yet harvested — the
+        #: dispatch wrapper's harvest trigger. Lives HERE (not in a
+        #: per-wrapper seen-set) so a cap-evicted key re-harvests when
+        #: traffic brings it back: the estimates died with the record
+        self._pending_harvest: set[tuple] = set()
+        #: entries dropped by the RTPU_KERNEL_REGISTRY_CAP bound —
+        #: shape-diverse request traffic must not grow the registry
+        #: without bound (rtpulint RT011)
+        self.evictions = 0
+        # lockset-sanitizer registration (None unless RTPU_SANITIZE):
+        # every registry access reports its held lockset — an unguarded
+        # path shows up as a shared-state-race finding
+        self._san_tracker = _san_track("kernel_registry")
+
+    def _note_shared(self, write: bool) -> None:
+        _san_note(self._san_tracker, write)
+
+    @staticmethod
+    def _new_record(name: str, sig: tuple) -> dict:
+        return {
+            "kernel": name, "sig": "×".join(sig),
+            "dispatches": 0, "mode": "host", "bound": "unknown",
+            "flops": None, "bytes_accessed": None,
+            "temp_bytes": None, "argument_bytes": None,
+            "output_bytes": None, "intensity": None,
+            "est_hbm_bytes": None, "bound_refined": None,
+        }
+
+    def _create_locked(self, key: tuple) -> tuple[dict, list]:
+        """Insert a fresh record for ``key`` (caller holds the lock and
+        verified absence) and run the LRU cap eviction (every touch
+        re-inserts at the back, so the front is the COLDEST key, not the
+        first-registered — a hot kernel's estimates survive). Returns
+        (record, evicted keys); the caller runs the device-plane timing
+        hook on the evicted keys AFTER releasing the lock."""
+        rec = self._kernels[key] = self._new_record(*key)
+        evicted = _device.evict_past_cap(
+            self._kernels, _device.registry_cap(), key)
+        self.evictions += len(evicted)
+        for old in evicted:
+            self._pending_harvest.discard(old)
+        return rec, evicted
+
+    def _ensure(self, name: str, sig: tuple) -> dict:
+        key = (name, sig)
+        evicted: list[tuple] = []
+        with self._lock:
+            self._note_shared(write=True)
+            rec = self._kernels.get(key)
+            if rec is None:
+                rec, evicted = self._create_locked(key)
+                self._pending_harvest.add(key)
+            else:
+                self._kernels[key] = self._kernels.pop(key)  # LRU touch
+        for old in evicted:
+            _device.TIMING.evict(old)
+        return rec
+
+    def touch(self, name: str, sig: tuple) -> tuple[dict, bool]:
+        """The dispatch wrapper's pre-call, ONE lock acquisition:
+        get-or-create the record, LRU-touch it, and report whether it
+        still needs its harvest (consumed here — exactly once per LIVE
+        record). Registry-owned freshness (not a per-wrapper seen-set):
+        a key whose record was cap-evicted re-harvests when traffic
+        brings it back, instead of serving host-mode Nones forever."""
+        key = (name, sig)
+        evicted: list[tuple] = []
+        fresh = False
+        with self._lock:
+            self._note_shared(write=True)
+            rec = self._kernels.get(key)
+            if rec is None:
+                rec, evicted = self._create_locked(key)
+                fresh = True   # created-and-consumed in one step
+            else:
+                self._kernels[key] = self._kernels.pop(key)  # LRU touch
+                if key in self._pending_harvest:   # _ensure-created rec
+                    self._pending_harvest.discard(key)
+                    fresh = True
+        for old in evicted:
+            _device.TIMING.evict(old)
+        return rec, fresh
+
+    def needs_harvest(self, name: str, sig: tuple) -> bool:
+        """``touch``'s freshness flag alone (tests + direct callers)."""
+        return self.touch(name, sig)[1]
+
+    def record_dispatch(self, rec: dict) -> None:
+        """Count one dispatch on an already-touched record — the
+        wrapper's post-call, one lock acquisition (``touch`` did the
+        lookup; re-resolving the key would double the hot-path cost)."""
+        with self._lock:
+            self._note_shared(write=True)
+            rec["dispatches"] += 1
+
+    def harvest(self, name: str, sig: tuple, fn, args,
+                traffic: dict | None = None) -> dict:
+        """Record what is known about one (kernel, shapes) before its
+        first dispatch. ``traffic`` is an optional engine-side DRAM
+        traffic model (``ops/partition.edge_traffic_model``): its
+        ``est_hbm_bytes`` lands on the record. The compiler analyses the
+        reference harvests here do not exist for hand kernels
+        (``xla_analysis_caps``), so the record stays in host mode. Never
+        raises."""
+        rec = self._ensure(name, sig)
+        if traffic:
+            with self._lock:
+                rec["traffic_model"] = dict(traffic)
+                rec["est_hbm_bytes"] = int(
+                    traffic.get("est_hbm_bytes") or 0) or None
+        return rec
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            self._note_shared(write=False)
+            return [dict(r) for r in self._kernels.values()]
+
+    @staticmethod
+    def bound_counts(records: list[dict]) -> dict:
+        """Kernel count per roofline bound over an ALREADY-TAKEN
+        ``snapshot()`` — so /statusz and /costz copy the table once."""
+        out: dict[str, int] = {}
+        for rec in records:
+            out[rec["bound"]] = out.get(rec["bound"], 0) + 1
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._kernels.clear()
+            self._pending_harvest.clear()
+
+
+#: the process singleton every instrumented engine records into
+REGISTRY = KernelRegistry()
+
+
+class InstrumentedKernel:
+    """Wrapper around an engine's dispatch function: the call goes
+    straight through (the kernels launch asynchronously as before), while
+    the wrapper counts the dispatch into the registry and the active
+    query ledger, records the (kernel, argument-shape-signature) once per
+    LIVE registry record, and samples timed dispatches. With
+    ``RTPU_LEDGER=0`` the wrapper is a single env-read passthrough."""
+
+    __slots__ = ("name", "fn", "traffic")
+
+    def __init__(self, name: str, fn, traffic: dict | None = None):
+        self.name = name
+        self.fn = fn
+        self.traffic = traffic
+
+    def __call__(self, *args, **kwargs):
+        if not _enabled():
+            return self.fn(*args, **kwargs)
+        sig = _sig_of(args + tuple(kwargs[k] for k in sorted(kwargs)))
+        # freshness is REGISTRY-owned (not a per-wrapper seen-set): a
+        # cap-evicted (kernel, sig) whose traffic returns re-harvests
+        # instead of serving host-mode Nones forever, and the wrapper
+        # carries no per-shape state of its own (RT011). One lock
+        # acquisition pre-call (touch), one post-call (record_dispatch).
+        rec, fresh = REGISTRY.touch(self.name, sig)
+        if fresh:
+            # once per live record, before the dispatch
+            REGISTRY.harvest(self.name, sig, self.fn, args,
+                             traffic=self.traffic)
+        # sampled timed dispatch (obs/device.py): a sampled call blocks
+        # until the result is ready and records wall device seconds —
+        # sampling because an always-on sync would destroy the transfer
+        # pipelining; cold (first-ever) samples are recorded apart
+        timed, cold = _device.TIMING.should_sample(self.name, sig)
+        if timed:
+            t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        measured = False
+        seconds = 0.0
+        if timed and _device.block_ready(out):
+            # a FAILED sync is a lost sample, never an observation: the
+            # unsynced duration is enqueue time and would poison the
+            # percentiles the divergence/bound_measured math reads
+            seconds = time.perf_counter() - t0
+            measured = True
+            _device.TIMING.observe(self.name, sig, seconds, cold=cold)
+        REGISTRY.record_dispatch(rec)
+        led = current()
+        if led is not None:
+            led.count_dispatch(self.name, rec)
+            if measured and not cold:
+                led.count_measured(self.name, seconds)
+                # the synced instant is also the cheapest honest moment
+                # to read the device-memory counter into the query
+                snap = _device.memory_snapshot()
+                if snap.get("available"):
+                    led.note_device_memory(snap["bytes_in_use"])
+        return out
+
+    # the REST compile-cache introspection walks factories; keep the
+    # wrapped callable reachable for debugging
+    def __repr__(self):
+        return f"InstrumentedKernel({self.name!r})"
+
+
+def instrument(name: str, fn,
+               traffic: dict | None = None) -> InstrumentedKernel:
+    """Wrap an engine dispatch function for the kernel registry, under the
+    name the reference gives the compiled program it replaces.
+    ``traffic`` is an optional engine-side DRAM traffic model recorded on
+    the kernel's record (see :meth:`KernelRegistry.harvest`)."""
+    return InstrumentedKernel(name, fn, traffic)
+
+
+# ---------------------------------------------------------------- ledger
+
+
+class Ledger:
+    """Per-query resource accumulator — thread-safe (fold workers and the
+    dispatch thread may record concurrently). ``merge()`` folds another
+    ledger's accounting in — the sub-ledger path: every completed job's
+    ledger merges into its tenant's long-lived account
+    (``obs/workload.py``), and the serving-scheduler tentpole's
+    cross-tenant batches will merge per-unit sub-ledgers the same way."""
+
+    def __init__(self, query_id: str = "", algorithm: str = ""):
+        self._lock = threading.Lock()
+        self.query_id = query_id
+        self.algorithm = algorithm
+        #: normalized tenant identity (obs/workload.py) — set by the jobs
+        #: layer at submit; "" for ledgers created outside the jobs path
+        self.tenant = ""
+        #: trace id of the owning request's span tree ("" untraced) —
+        #: set by the jobs layer so /costz ledgers join /tracez traces
+        self.trace_id = ""
+        self.created_unix = time.time()
+        self.queue_wait_seconds = 0.0
+        self.wall_seconds = 0.0
+        self.status = "running"
+        self.phase_seconds: dict[str, float] = {}
+        self.fold_mode_seconds: dict[str, float] = {}
+        self.fold_cache_hits = 0
+        self.fold_cache_misses = 0
+        self.h2d_bytes = 0
+        self.h2d_stall_seconds: dict[str, float] = {}
+        # cross-shard collective traffic by comm route (halo /
+        # all_gather / replicate) — the refined DCN/ICI bytes column
+        # next to est HBM bytes (parallel/sharded.py exchange accounting)
+        self.dcn: dict[str, dict] = {}
+        self.kernels: dict[str, dict] = {}
+        self.sweeps = 0
+        self.views = 0
+        self.supersteps = 0
+        self.hops = 0
+        self.peak_rss_bytes = 0
+        #: max device bytes-in-use observed at sampled timed dispatches
+        #: (+ one read at finish) — 0 on backends without memory_stats
+        self.peak_device_bytes = 0
+        #: set by the serving scheduler when this query's views rode a
+        #: COALESCED cross-request dispatch (jobs/scheduler.py): batch
+        #: id, member count, this query's column share — the explain
+        #: surface's proof of which batch served it
+        self.coalesced: dict | None = None
+
+    # ---- recording ----
+
+    def add_phase(self, phase: str, seconds: float) -> None:
+        with self._lock:
+            self.phase_seconds[phase] = (
+                self.phase_seconds.get(phase, 0.0) + float(seconds))
+
+    def fold_cache_event(self, hit: bool) -> None:
+        with self._lock:
+            if hit:
+                self.fold_cache_hits += 1
+            else:
+                self.fold_cache_misses += 1
+
+    def add_sweep(self, phases: dict, ship_delta: dict, ship_bytes: int,
+                  n_hops: int, fold_modes: dict | None = None) -> None:
+        """One sweep's phase breakdown (``sweep_phase_summary`` output) +
+        transfer-engine deltas — called by both sweep engines on the
+        dispatch thread."""
+        with self._lock:
+            for ph, sec in phases.items():
+                self.phase_seconds[ph] = (
+                    self.phase_seconds.get(ph, 0.0) + float(sec))
+            self.h2d_bytes += int(ship_delta.get("bytes_shipped", 0) or 0)
+            for stage in ("stage", "wire"):
+                sec = float(ship_delta.get(f"{stage}_stall_seconds", 0.0)
+                            or 0.0)
+                if sec:
+                    self.h2d_stall_seconds[stage] = (
+                        self.h2d_stall_seconds.get(stage, 0.0) + sec)
+            self.sweeps += 1
+            self.hops += int(n_hops)
+            if fold_modes:
+                for mode, sec in fold_modes.items():
+                    self.fold_mode_seconds[mode] = (
+                        self.fold_mode_seconds.get(mode, 0.0) + float(sec))
+
+    def add_dcn(self, route: str, *, rows: int, bytes_: int) -> None:
+        """One sharded dispatch's cross-shard exchange accounting
+        (``parallel/sharded.py``): estimated rows/bytes the collective
+        moved on ``route`` (halo / all_gather / replicate). Lands in the
+        ``dcn`` block of the ledger dict and the per-algorithm
+        ``raphtory_query_cost_dcn_bytes_total`` counter at publish."""
+        with self._lock:
+            d = self.dcn.get(route)
+            if d is None:
+                d = self.dcn[route] = {"dispatches": 0, "rows": 0,
+                                       "bytes": 0}
+            d["dispatches"] += 1
+            d["rows"] += max(0, int(rows))
+            d["bytes"] += max(0, int(bytes_))
+
+    def count_dispatch(self, name: str, rec: dict) -> None:
+        with self._lock:
+            k = self.kernels.get(name)
+            if k is None:
+                k = self.kernels[name] = {
+                    "dispatches": 0, "est_flops": 0.0,
+                    "est_bytes_accessed": 0.0, "est_hbm_bytes": 0.0,
+                    "bound": "unknown"}
+            k["dispatches"] += 1
+            k["est_flops"] += float(rec.get("flops") or 0.0)
+            k["est_bytes_accessed"] += float(
+                rec.get("bytes_accessed") or 0.0)
+            # the locality-aware per-dispatch traffic estimate (falls
+            # back to the logical XLA bytes when no model is attached)
+            k["est_hbm_bytes"] += float(
+                rec.get("est_hbm_bytes")
+                or rec.get("bytes_accessed") or 0.0)
+            k["bound"] = rec.get("bound", "unknown")
+            if rec.get("bound_refined"):
+                k["bound_refined"] = rec["bound_refined"]
+
+    def count_measured(self, name: str, seconds: float) -> None:
+        """One sampled timed dispatch's measured wall device seconds
+        (obs/device.py) — joins the kernel's estimate columns so
+        ``explain:1`` carries measured next to estimated."""
+        with self._lock:
+            k = self.kernels.get(name)
+            if k is None:
+                k = self.kernels[name] = {
+                    "dispatches": 0, "est_flops": 0.0,
+                    "est_bytes_accessed": 0.0, "est_hbm_bytes": 0.0,
+                    "bound": "unknown"}
+            k["measured_seconds"] = round(
+                k.get("measured_seconds", 0.0) + float(seconds), 6)
+            k["timed_dispatches"] = k.get("timed_dispatches", 0) + 1
+
+    def note_device_memory(self, bytes_in_use: int) -> None:
+        with self._lock:
+            self.peak_device_bytes = max(self.peak_device_bytes,
+                                         int(bytes_in_use))
+
+    def count_views(self, n: int = 1) -> None:
+        with self._lock:
+            self.views += int(n)
+
+    def count_supersteps(self, n: int) -> None:
+        with self._lock:
+            self.supersteps += max(0, int(n))
+
+    def merge(self, other: "Ledger") -> "Ledger":
+        """Fold ``other``'s accounting into this ledger (parallel fold
+        workers / sub-unit ledgers). Scalar maxima (peak RSS) take the
+        max; everything else sums."""
+        with other._lock:
+            snap = other._unlocked_dict()
+        with self._lock:
+            for ph, sec in snap["phase_seconds"].items():
+                self.phase_seconds[ph] = (
+                    self.phase_seconds.get(ph, 0.0) + sec)
+            for mode, sec in snap["fold"]["seconds_by_mode"].items():
+                self.fold_mode_seconds[mode] = (
+                    self.fold_mode_seconds.get(mode, 0.0) + sec)
+            self.fold_cache_hits += snap["fold"]["cache_hits"]
+            self.fold_cache_misses += snap["fold"]["cache_misses"]
+            self.h2d_bytes += snap["h2d"]["bytes"]
+            for stage, sec in snap["h2d"]["stall_seconds"].items():
+                self.h2d_stall_seconds[stage] = (
+                    self.h2d_stall_seconds.get(stage, 0.0) + sec)
+            for route, d in snap["dcn"]["routes"].items():
+                mine = self.dcn.get(route)
+                if mine is None:
+                    self.dcn[route] = dict(d)
+                else:
+                    for k in ("dispatches", "rows", "bytes"):
+                        mine[k] += d[k]
+            for name, k in snap["device"]["kernels"].items():
+                mine = self.kernels.get(name)
+                if mine is None:
+                    self.kernels[name] = dict(k)
+                else:
+                    mine["dispatches"] += k["dispatches"]
+                    mine["est_flops"] += k["est_flops"]
+                    mine["est_bytes_accessed"] += k["est_bytes_accessed"]
+                    mine["est_hbm_bytes"] = (
+                        mine.get("est_hbm_bytes", 0.0)
+                        + k.get("est_hbm_bytes", 0.0))
+                    if k.get("timed_dispatches"):
+                        mine["measured_seconds"] = round(
+                            mine.get("measured_seconds", 0.0)
+                            + k.get("measured_seconds", 0.0), 6)
+                        mine["timed_dispatches"] = (
+                            mine.get("timed_dispatches", 0)
+                            + k["timed_dispatches"])
+            self.sweeps += snap["sweeps"]
+            self.views += snap["views"]
+            self.supersteps += snap["supersteps"]
+            self.hops += snap["hops"]
+            self.peak_rss_bytes = max(self.peak_rss_bytes,
+                                      snap["host"]["peak_rss_bytes"])
+            self.peak_device_bytes = max(
+                self.peak_device_bytes,
+                snap["device"].get("peak_device_bytes", 0))
+        return self
+
+    def absorb_share(self, batch_snap: dict, frac: float,
+                     coalesced: dict | None = None) -> None:
+        """Fold THIS query's share of a coalesced batch dispatch's
+        accounting in (``batch_snap`` = the batch ledger's ``as_dict()``,
+        ``frac`` = this query's columns / the batch's total columns —
+        the scheduler's attribution rule). Divisible resources (phase
+        seconds, H2D bytes, estimated FLOPs/bytes) scale by ``frac`` so
+        the members' ledgers SUM to the batch's cost; per-rider counts
+        (kernel dispatches, sweeps) land whole — every member's views
+        did ride that one dispatch. The batch's ``other`` residual is
+        skipped: each member computes its own residual at finish()."""
+        frac = float(frac)
+        with self._lock:
+            for ph, sec in batch_snap["phase_seconds"].items():
+                if ph == "other":
+                    continue
+                self.phase_seconds[ph] = (
+                    self.phase_seconds.get(ph, 0.0) + sec * frac)
+            for mode, sec in batch_snap["fold"]["seconds_by_mode"].items():
+                self.fold_mode_seconds[mode] = (
+                    self.fold_mode_seconds.get(mode, 0.0) + sec * frac)
+            # the batch's ONE fold outcome is every member's outcome: a
+            # hit means this query skipped folding too
+            self.fold_cache_hits += batch_snap["fold"]["cache_hits"]
+            self.fold_cache_misses += batch_snap["fold"]["cache_misses"]
+            self.h2d_bytes += int(batch_snap["h2d"]["bytes"] * frac)
+            for stage, sec in batch_snap["h2d"]["stall_seconds"].items():
+                self.h2d_stall_seconds[stage] = (
+                    self.h2d_stall_seconds.get(stage, 0.0) + sec * frac)
+            for name, k in batch_snap["device"]["kernels"].items():
+                mine = self.kernels.get(name)
+                if mine is None:
+                    mine = self.kernels[name] = {
+                        "dispatches": 0, "est_flops": 0.0,
+                        "est_bytes_accessed": 0.0, "est_hbm_bytes": 0.0,
+                        "bound": "unknown"}
+                mine["dispatches"] += k["dispatches"]
+                mine["est_flops"] += k["est_flops"] * frac
+                mine["est_bytes_accessed"] += (
+                    k["est_bytes_accessed"] * frac)
+                mine["est_hbm_bytes"] = (
+                    mine.get("est_hbm_bytes", 0.0)
+                    + k.get("est_hbm_bytes", 0.0) * frac)
+                mine["bound"] = k.get("bound", "unknown")
+                if k.get("bound_refined"):
+                    mine["bound_refined"] = k["bound_refined"]
+            self.sweeps += 1
+            if coalesced is not None:
+                self.coalesced = dict(coalesced)
+
+    def finish(self, wall_seconds: float, status: str = "done") -> None:
+        """Close the ledger: record wall time, peak RSS, and the explicit
+        ``other`` residual phase so queue wait + phase seconds sum to the
+        wall time exactly — the invariant /costz consumers rely on."""
+        # one more device-memory read at close (outside the lock: it may
+        # touch the backend) so short queries that never hit a sampled
+        # dispatch still carry a peak-bytes observation where available
+        dev_mem = _device.memory_snapshot()
+        with self._lock:
+            self.wall_seconds = float(wall_seconds)
+            self.status = status
+            self.peak_rss_bytes = max(self.peak_rss_bytes,
+                                      _rss_peak_bytes())
+            if dev_mem.get("available"):
+                self.peak_device_bytes = max(self.peak_device_bytes,
+                                             dev_mem["bytes_in_use"])
+            known = sum(self.phase_seconds.values())
+            self.phase_seconds["other"] = max(
+                0.0, self.wall_seconds - self.queue_wait_seconds - known)
+
+    # ---- classification / export ----
+
+    def bound(self) -> str:
+        """Query-level resource verdict: host_bound when the fold phase
+        dominates, h2d_bound when staging/shipping does, else the
+        dominant kernel's roofline bound (docs/OBSERVABILITY.md)."""
+        with self._lock:
+            ph = dict(self.phase_seconds)
+            kernels = {n: dict(k) for n, k in self.kernels.items()}
+        host = ph.get("fold", 0.0)
+        h2d = ph.get("stage", 0.0) + ph.get("ship", 0.0)
+        dev = (ph.get("compute", 0.0) + ph.get("device_wait", 0.0))
+        top = max((host, h2d, dev))
+        if top <= 0.0:
+            return "unknown"
+        if top == host:
+            return "host_bound"
+        if top == h2d:
+            return "h2d_bound"
+        if kernels:
+            dom = max(kernels.values(),
+                      key=lambda k: k["est_bytes_accessed"])
+            if dom["bound"] != "unknown":
+                return dom["bound"]
+        return "unknown"
+
+    def _unlocked_dict(self) -> dict:
+        return {
+            "query_id": self.query_id,
+            "algorithm": self.algorithm,
+            "tenant": self.tenant,
+            "trace_id": self.trace_id,
+            "status": self.status,
+            "queue_wait_seconds": round(self.queue_wait_seconds, 6),
+            "wall_seconds": round(self.wall_seconds, 6),
+            "phase_seconds": {ph: round(s, 6)
+                              for ph, s in self.phase_seconds.items()},
+            "fold": {
+                "seconds_by_mode": {m: round(s, 6) for m, s in
+                                    self.fold_mode_seconds.items()},
+                "cache_hits": self.fold_cache_hits,
+                "cache_misses": self.fold_cache_misses,
+            },
+            "h2d": {"bytes": int(self.h2d_bytes),
+                    "stall_seconds": {s: round(v, 6) for s, v in
+                                      self.h2d_stall_seconds.items()}},
+            "dcn": {
+                "bytes": sum(d["bytes"] for d in self.dcn.values()),
+                "rows": sum(d["rows"] for d in self.dcn.values()),
+                "routes": {r: dict(d) for r, d in self.dcn.items()},
+            },
+            "device": {
+                "dispatches": sum(k["dispatches"]
+                                  for k in self.kernels.values()),
+                "est_flops": sum(k["est_flops"]
+                                 for k in self.kernels.values()),
+                "est_bytes_accessed": sum(k["est_bytes_accessed"]
+                                          for k in self.kernels.values()),
+                # the measured half (obs/device.py): wall seconds of the
+                # sampled timed dispatches + peak observed device bytes
+                "measured_seconds": round(
+                    sum(k.get("measured_seconds", 0.0)
+                        for k in self.kernels.values()), 6),
+                "timed_dispatches": sum(k.get("timed_dispatches", 0)
+                                        for k in self.kernels.values()),
+                "peak_device_bytes": int(self.peak_device_bytes),
+                "kernels": {n: dict(k) for n, k in self.kernels.items()},
+            },
+            "host": {"peak_rss_bytes": int(self.peak_rss_bytes)},
+            "sweeps": self.sweeps,
+            "views": self.views,
+            "supersteps": self.supersteps,
+            "hops": self.hops,
+            **({"coalesced": dict(self.coalesced)}
+               if self.coalesced is not None else {}),
+        }
+
+    def as_dict(self) -> dict:
+        out_bound = self.bound()
+        with _CAPS_LOCK:
+            caps = dict(_CAPS) if _CAPS else {"probed": False}
+        with self._lock:
+            out = self._unlocked_dict()
+        out["bound"] = out_bound
+        out["xla_analysis"] = ("harvested"
+                               if caps.get("cost") or caps.get("memory")
+                               else "host_only")
+        return out
+
+
+# ------------------------------------------------------ activation context
+
+_ACTIVE = threading.local()
+
+
+@contextlib.contextmanager
+def activate(ledger: Ledger):
+    """Bind ``ledger`` as THIS thread's active query ledger — engine
+    layers attribute dispatches/phases to ``current()``. Thread-local by
+    design: two concurrent jobs on different threads never share one."""
+    prev = getattr(_ACTIVE, "ledger", None)
+    _ACTIVE.ledger = ledger
+    try:
+        yield ledger
+    finally:
+        _ACTIVE.ledger = prev
+
+
+def current() -> Ledger | None:
+    """The active query ledger of THIS thread (None when collection is
+    off or no query is in flight) — every engine-side hook goes through
+    here, so a disabled ledger costs one env read + one getattr."""
+    if not _enabled():
+        return None
+    return getattr(_ACTIVE, "ledger", None)
+
+
+# -------------------------------------------------- completed-query ring
+
+_RECENT: collections.deque = collections.deque(maxlen=64)
+_RECENT_LOCK = threading.Lock()
+_COMPLETED = [0]
+
+
+def note_completed(ledger: Ledger) -> None:
+    """Record a finished query's ledger into the bounded ring /costz
+    serves, and drop a flight-recorder instant so the cost lands on the
+    trace timeline next to the spans it explains."""
+    snap = ledger.as_dict()
+    with _RECENT_LOCK:
+        _RECENT.append(snap)
+        _COMPLETED[0] += 1
+    TRACER.instant(
+        "ledger.query", query_id=snap["query_id"],
+        algorithm=snap["algorithm"], bound=snap["bound"],
+        wall_seconds=snap["wall_seconds"],
+        est_flops=snap["device"]["est_flops"],
+        est_bytes_accessed=snap["device"]["est_bytes_accessed"],
+        h2d_bytes=snap["h2d"]["bytes"])
+
+
+def recent_queries(n: int = 16) -> list[dict]:
+    with _RECENT_LOCK:
+        snap = list(_RECENT)
+    return snap[-max(0, int(n)):]
+
+
+# ------------------------------------------------------------- surfaces
+
+
+def status_block() -> dict:
+    """The compact ``ledger`` block /statusz embeds."""
+    with _CAPS_LOCK:
+        caps = dict(_CAPS) if _CAPS else {"probed": False}
+    kernels = REGISTRY.snapshot()
+    return {
+        "enabled": _enabled(),
+        "xla": caps,
+        "kernels": len(kernels),
+        "kernels_by_bound": KernelRegistry.bound_counts(kernels),
+        "kernel_registry_cap": _device.registry_cap(),
+        "kernel_registry_evictions": REGISTRY.evictions,
+        "queries_completed": _COMPLETED[0],
+    }
+
+
+def costz() -> dict:
+    """The full /costz payload: probed capabilities, the roofline ridge,
+    every registered kernel with its harvested analysis + classification,
+    and the recent completed-query ledgers."""
+    caps = xla_analysis_caps()
+    kernels = sorted(REGISTRY.snapshot(),
+                     key=lambda r: -(r["bytes_accessed"] or 0.0)
+                     * r["dispatches"])
+    return {
+        "enabled": _enabled(),
+        "xla": caps,
+        "ridge_flops_per_byte": round(
+            ridge_flops_per_byte(caps.get("platform")), 3),
+        "classification_rule": (
+            "intensity = flops / bytes_accessed; hbm_bound if intensity "
+            "< ridge else compute_bound; unknown without harvested "
+            "analysis. bound_refined repeats the rule over est_hbm_bytes "
+            "— the engine-side partition-aware DRAM traffic model "
+            "(ops/partition.edge_traffic_model) where one is attached, "
+            "since XLA's bytes_accessed is blind to access locality"),
+        "kernels": kernels,
+        "kernels_by_bound": KernelRegistry.bound_counts(kernels),
+        "kernels_by_bound_refined": {
+            b: n for b, n in KernelRegistry.bound_counts(
+                [{"bound": r.get("bound_refined") or "unknown"}
+                 for r in kernels]).items()},
+        "recent_queries": recent_queries(),
+    }

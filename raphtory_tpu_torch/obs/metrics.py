@@ -1,0 +1,810 @@
+"""Prometheus metrics registry + scrape server, on the standard library.
+
+The port of ``raphtory_tpu/obs/metrics.py``. The reference builds its
+``Metrics`` bundle on ``prometheus_client``; the card's machine has no such
+package, so this module carries its own small registry of ``Counter``,
+``Gauge`` and ``Histogram`` with labels and writes the text exposition
+format 0.0.4 itself, line for line as ``prometheus_client`` does
+(``generate_latest``): the same HELP / TYPE lines, ``_total`` on counters,
+``_bucket`` / ``_count`` / ``_sum`` on histograms, and the ``_created``
+samples (each series' creation time, as a gauge family after its metric).
+Every metric name, label set, help string and histogram bucket of the
+reference's bundle is kept, the families only later slices feed
+(ingestion, the archivist) included, so the two expositions match.
+
+Signal parity with the reference's Kamon wiring (SURVEY §5.1): spout
+send-rate (``SpoutTrait.scala:136-141``), router throughput
+(``RouterManager.scala:118-122``), storage sizes and update rates
+(``WriterLogger.scala:21-30,62-84``), archivist cycle timings + heap gauge
+(``Archivist.scala:86-97,132``), plus the BSP/job signals the reference
+exposes only as log lines (viewTime per job). Scrape endpoint defaults to
+the reference's :11600.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import resource
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+INF = float("inf")
+#: ``prometheus_client``'s default histogram buckets
+DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0, 2.5,
+                   5.0, 7.5, 10.0, INF)
+#: the text exposition's content type (format 0.0.4)
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _created_enabled() -> bool:
+    """``PROMETHEUS_DISABLE_CREATED_SERIES``, as ``prometheus_client``
+    reads it: a true value leaves out the ``_created`` samples."""
+    return os.environ.get("PROMETHEUS_DISABLE_CREATED_SERIES",
+                          "False").lower() not in ("true", "1", "t")
+
+
+def float_to_go(d) -> str:
+    """A sample value or bucket bound as the exposition writes it
+    (``prometheus_client.utils.floatToGoString``)."""
+    d = float(d)
+    if d == INF:
+        return "+Inf"
+    if d == -INF:
+        return "-Inf"
+    if math.isnan(d):
+        return "NaN"
+    s = repr(d)
+    dot = s.find(".")
+    # Go switches to exponents sooner than Python does
+    if d > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+class CollectorRegistry:
+    """The metric families of one exposition, in registration order."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families: list = []
+
+    def register(self, family) -> None:
+        with self._lock:
+            if any(f.name == family.name for f in self._families):
+                raise ValueError(f"duplicated metric {family.name!r}")
+            self._families.append(family)
+
+    def collect(self) -> list:
+        with self._lock:
+            return list(self._families)
+
+    def exposition(self) -> str:
+        """The registry in the text format (``generate_latest``)."""
+        out = []
+        for fam in self.collect():
+            out.extend(fam.exposition())
+        return "".join(out)
+
+
+class _Family:
+    """One metric family: its name, help, label names and the child
+    series by label values (insertion order, as ``prometheus_client``
+    keeps them). A family without labels is its own single series."""
+
+    typ = ""
+    #: what the exposition appends to the family's name
+    exposed_suffix = ""
+
+    def __init__(self, name: str, documentation: str, labelnames=(),
+                 registry: CollectorRegistry | None = None):
+        if self.exposed_suffix and name.endswith(self.exposed_suffix):
+            name = name[:-len(self.exposed_suffix)]
+        self.name = name
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: dict[tuple, _Family] = {}
+        self._labelvalues: tuple = ()
+        self._created = time.time()
+        if not self.labelnames:
+            self._init_series()
+        if registry is not None:
+            registry.register(self)
+
+    def _init_series(self) -> None:
+        raise NotImplementedError
+
+    def _child(self, values: tuple):
+        child = object.__new__(type(self))
+        child.__dict__.update({k: v for k, v in self.__dict__.items()
+                               if k not in ("_children",)})
+        child._lock = threading.Lock()
+        child._labelvalues = values
+        child._created = time.time()
+        child._init_series()
+        return child
+
+    def labels(self, *values, **kw):
+        """The child series of these label values (made at first use)."""
+        if kw:
+            values = tuple(kw[n] for n in self.labelnames)
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels "
+                             f"{self.labelnames}, got {values!r}")
+        values = tuple(str(v) for v in values)
+        with self._lock:
+            child = self._children.get(values)
+            if child is None:
+                child = self._children[values] = self._child(values)
+        return child
+
+    def _series(self) -> list:
+        if not self.labelnames:
+            return [self]
+        with self._lock:
+            return list(self._children.values())
+
+    def _label_dict(self) -> dict:
+        return dict(zip(self.labelnames, self._labelvalues))
+
+    def _samples(self) -> list:
+        """``(suffix, extra labels, value)`` of one series."""
+        raise NotImplementedError
+
+    def exposition(self) -> list[str]:
+        mname = self.name + self.exposed_suffix
+        doc = self.documentation.replace("\\", r"\\").replace("\n", r"\n")
+        lines = [f"# HELP {mname} {doc}\n", f"# TYPE {mname} {self.typ}\n"]
+        created = []
+        for series in self._series():
+            base = series._label_dict()
+            for suffix, extra, value in series._samples():
+                labels = {**base, **extra}
+                line = self.name + suffix
+                if labels:
+                    line += "{" + ",".join(
+                        f'{k}="{_escape_label(v)}"'
+                        for k, v in sorted(labels.items())) + "}"
+                line += f" {float_to_go(value)}\n"
+                (created if suffix == "_created" else lines).append(line)
+        if created:
+            lines.append(f"# HELP {self.name}_created {doc}\n")
+            lines.append(f"# TYPE {self.name}_created gauge\n")
+            lines.extend(created)
+        return lines
+
+
+class Counter(_Family):
+    typ = "counter"
+    exposed_suffix = "_total"
+
+    def _init_series(self) -> None:
+        self._value = 0.0
+
+    def inc(self, amount: float = 1) -> None:
+        if amount < 0:
+            raise ValueError("counters can only be incremented by "
+                             "non-negative amounts")
+        with self._lock:
+            self._value += float(amount)
+
+    def _samples(self) -> list:
+        out = [("_total", {}, self._value)]
+        if _created_enabled():
+            out.append(("_created", {}, self._created))
+        return out
+
+
+class Gauge(_Family):
+    typ = "gauge"
+
+    def _init_series(self) -> None:
+        self._value = 0.0
+        self._function = None
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1) -> None:
+        with self._lock:
+            self._value += float(amount)
+
+    def dec(self, amount: float = 1) -> None:
+        self.inc(-amount)
+
+    def set_function(self, f) -> None:
+        """Read the value from ``f()`` at each scrape."""
+        self._function = f
+
+    def _samples(self) -> list:
+        v = self._function() if self._function is not None else self._value
+        return [("", {}, v)]
+
+
+class Histogram(_Family):
+    typ = "histogram"
+
+    def __init__(self, name: str, documentation: str, labelnames=(),
+                 registry: CollectorRegistry | None = None,
+                 buckets=DEFAULT_BUCKETS):
+        bounds = [float(b) for b in buckets]
+        if bounds and bounds[-1] != INF:
+            bounds.append(INF)
+        if bounds != sorted(bounds) or len(bounds) < 2:
+            raise ValueError("buckets not in sorted order, or too few")
+        self._upper_bounds = bounds
+        super().__init__(name, documentation, labelnames, registry)
+
+    def _init_series(self) -> None:
+        self._counts = [0.0] * len(self._upper_bounds)
+        self._sum = 0.0
+
+    def observe(self, amount: float) -> None:
+        amount = float(amount)
+        with self._lock:
+            self._sum += amount
+            for i, bound in enumerate(self._upper_bounds):
+                if amount <= bound:
+                    self._counts[i] += 1.0
+                    break
+
+    def _samples(self) -> list:
+        with self._lock:
+            counts = list(self._counts)
+            total = self._sum
+        out = []
+        acc = 0.0
+        for bound, c in zip(self._upper_bounds, counts):
+            acc += c
+            out.append(("_bucket", {"le": float_to_go(bound)}, acc))
+        out.append(("_count", {}, acc))
+        if self._upper_bounds[0] >= 0:
+            out.append(("_sum", {}, total))
+        if _created_enabled():
+            out.append(("_created", {}, self._created))
+        return out
+
+
+DEFAULT_PORT = 11600  # reference's embedded Prometheus scrape port
+
+
+class Metrics:
+    """The reference's bundle: every family, in its registration order."""
+
+    def __init__(self) -> None:
+        self.registry = CollectorRegistry()
+        r = self.registry
+        # ingestion (spout/router/writer signals)
+        self.events_ingested = Counter(
+            "raphtory_events_ingested_total",
+            "Graph update events appended to the log", ["source"], registry=r)
+        self.parse_errors = Counter(
+            "raphtory_parse_errors_total",
+            "Fatal source errors (a source thread died)", ["source"],
+            registry=r)
+        self.records_dropped = Counter(
+            "raphtory_records_dropped_total",
+            "Records a parser produced no updates for (malformed or "
+            "filtered)", ["source"], registry=r)
+        self.watermark = Gauge(
+            "raphtory_watermark_safe_time",
+            "Safe event time promised by all live sources", registry=r)
+        self.ingest_backlog = Gauge(
+            "raphtory_ingest_backlog_events",
+            "Events parsed but not yet appended to the log (bounded-"
+            "mailbox depth; the WriterLogger queue-size analogue)",
+            registry=r)
+        # freshness plane (obs/freshness.py): per-source stream
+        # telemetry + ingest-to-queryable + live-result staleness.
+        # Source label cardinality is bounded by the deployment's source
+        # set (same contract as events_ingested); algorithm by the
+        # registry + the freshness MAX_ALGOS cap.
+        self.ingest_batches = Counter(
+            "raphtory_ingest_batches_total",
+            "Sink batches that arrived from a source", ["source"],
+            registry=r)
+        self.ingest_batch_events = Histogram(
+            "raphtory_ingest_batch_events",
+            "Events per sink batch (the vectorisation amortisation "
+            "factor of the ingest hot path)",
+            buckets=(1, 8, 64, 512, 4096, 32768, 262144, float("inf")),
+            registry=r)
+        self.ingest_ooo_events = Counter(
+            "raphtory_ingest_out_of_order_events_total",
+            "Events that arrived with event time behind their source's "
+            "high-water mark (safe under the commutative store; the "
+            "distance distribution lives on /freshz)", ["source"],
+            registry=r)
+        self.ingest_tombstones = Counter(
+            "raphtory_ingest_tombstone_events_total",
+            "Vertex/edge DELETE events ingested (the tombstone half of "
+            "the op-type mix)", ["source"], registry=r)
+        self.freshness_queryable = Histogram(
+            "raphtory_freshness_queryable_seconds",
+            "Ingest-to-queryable latency: sink-batch arrival until the "
+            "global safe time covered the batch's max event time "
+            "(trace-ID exemplars on /freshz)", ["source"],
+            buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                     30.0, 60.0, 300.0, float("inf")), registry=r)
+        self.freshness_staleness = Histogram(
+            "raphtory_freshness_staleness_seconds",
+            "Live-query result staleness: wall seconds since the "
+            "result's watermark stopped being the ingest head",
+            ["algorithm"],
+            buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                     30.0, 60.0, 300.0, float("inf")), registry=r)
+        self.freshness_burn_rate = Gauge(
+            "raphtory_freshness_burn_rate",
+            "Staleness error-budget burn rate per RTPU_FRESH_TARGET "
+            "and window (>1 in both windows = burning; grades "
+            "/healthz)", ["algorithm", "window"], registry=r)
+        self.freshness_pending = Gauge(
+            "raphtory_freshness_pending_batches",
+            "Sink batches appended but not yet covered by the global "
+            "safe time (the not-yet-queryable backlog)", registry=r)
+        self.freshness_pending.set_function(_freshness_pending)
+        # storage (WriterLogger gauges)
+        self.log_events = Gauge(
+            "raphtory_log_events", "Rows in the event log", registry=r)
+        self.view_vertices = Gauge(
+            "raphtory_view_vertices",
+            "Vertices alive in the most recent view", registry=r)
+        self.view_edges = Gauge(
+            "raphtory_view_edges",
+            "Edges alive in the most recent view", registry=r)
+        self.snapshot_build_seconds = Histogram(
+            "raphtory_snapshot_build_seconds",
+            "Event log → device-ready view fold time", registry=r)
+        # analysis (AnalysisTask/ReaderWorker signals)
+        self.jobs_started = Counter(
+            "raphtory_jobs_started_total", "Analysis jobs submitted",
+            ["kind"], registry=r)
+        self.jobs_completed = Counter(
+            "raphtory_jobs_completed_total", "Analysis jobs finished",
+            ["status"], registry=r)
+        self.views_computed = Counter(
+            "raphtory_views_computed_total",
+            "Windowed views evaluated by the BSP engine", registry=r)
+        self.view_seconds = Histogram(
+            "raphtory_view_seconds",
+            "Per-view end-to-end time (the reference's viewTime)",
+            registry=r)
+        self.supersteps = Counter(
+            "raphtory_supersteps_total",
+            "BSP supersteps executed on device", registry=r)
+        # live epoch engine (jobs/live.LiveEpochState): bounded labels —
+        # algorithm is capped by the freshness registry's MAX_ALGOS and
+        # mode is a closed five-value set
+        self.live_epochs = Counter(
+            "raphtory_live_epochs_total",
+            "Live-subscription epochs served, by algorithm and epoch "
+            "mode (incremental|rebase|resweep|skipped|resync)",
+            ["algorithm", "mode"], registry=r)
+        # transfer pipeline (utils/transfer.TransferEngine) — the H2D link
+        # is the term that bounds a real sweep on a tunnelled accelerator,
+        # so the pipeline's stalls are first-class signals
+        self.h2d_bytes = Counter(
+            "raphtory_h2d_bytes_total",
+            "Host→device bytes shipped through the transfer engine",
+            registry=r)
+        self.h2d_slices = Counter(
+            "raphtory_h2d_slices_total",
+            "Chunked upload slices issued", registry=r)
+        self.h2d_retries = Counter(
+            "raphtory_h2d_retries_total",
+            "Per-slice transport retries (UNAVAILABLE-class errors)",
+            registry=r)
+        self.h2d_stall_seconds = Counter(
+            "raphtory_h2d_stall_seconds_total",
+            "Seconds a transfer-pipeline stage spent stalled (stage=host "
+            "staging copy, wire=blocked on an in-flight put, fold=sweep "
+            "waiting on the hop-lookahead host fold)", ["stage"],
+            registry=r)
+        self.h2d_inflight_depth = Gauge(
+            "raphtory_h2d_inflight_depth",
+            "High-water in-flight device_put window depth", registry=r)
+        self.fold_seconds = Histogram(
+            "raphtory_fold_seconds",
+            "Host fold wall seconds per chunk-group fold (mode=serial is "
+            "the shared-builder pipeline lane, mode=parallel a forked "
+            "per-chunk fold on the sized RTPU_FOLD_WORKERS pool)",
+            ["mode"], registry=r)
+        self.fold_cache_hits = Counter(
+            "raphtory_fold_cache_hits_total",
+            "Cross-request fold-cache hits (payloads + checkpoint seeds)",
+            registry=r)
+        self.fold_cache_misses = Counter(
+            "raphtory_fold_cache_misses_total",
+            "Cross-request fold-cache misses", registry=r)
+        self.fold_cache_evictions = Counter(
+            "raphtory_fold_cache_evictions_total",
+            "Fold-cache LRU evictions under the RTPU_FOLD_CACHE_MB bound",
+            registry=r)
+        self.fold_cache_bytes = Gauge(
+            "raphtory_fold_cache_bytes",
+            "Bytes currently accounted to the fold cache", registry=r)
+        # collective telemetry (parallel/sharded.py, parallel/columns.py):
+        # what the cross-shard exchange MOVED per route
+        self.collective_seconds = Counter(
+            "raphtory_collective_seconds_total",
+            "Wall seconds inside the collective window (dispatch to "
+            "local program completion) by comm route and edge direction",
+            ["route", "direction"], registry=r)
+        self.collective_bytes = Counter(
+            "raphtory_collective_bytes_total",
+            "Estimated cross-shard bytes moved by superstep exchanges "
+            "(halo slot pages or all_gather replication, summed over "
+            "devices and supersteps)", ["route", "direction"], registry=r)
+        self.collective_rows = Counter(
+            "raphtory_collective_rows_total",
+            "Cross-shard state rows moved by superstep exchanges",
+            ["route", "direction"], registry=r)
+        self.collective_barrier_wait = Counter(
+            "raphtory_collective_barrier_wait_seconds_total",
+            "Host seconds between local program completion and the "
+            "cross-process result allgather completing — the per-process "
+            "straggler-wait signal", ["route"], registry=r)
+        self.route_decisions = Counter(
+            "raphtory_comm_route_decisions_total",
+            "Comm-route chooser verdicts per mesh dispatch "
+            "(parallel/sharded.py: halo | all_gather | sparse) — a route "
+            "flip under load shows as the sparse series taking over",
+            ["algorithm", "route"], registry=r)
+        self.partition_skew = Gauge(
+            "raphtory_partition_skew",
+            "Max/mean per-shard row-count ratio of the latest partition "
+            "build (kind=edges_dst|edges_src|halo_dst|halo_src) — 1.0 is "
+            "perfectly balanced, power-law graphs drift high",
+            ["kind"], registry=r)
+        self.shard_rows = Histogram(
+            "raphtory_shard_rows",
+            "Per-shard row counts observed at partition build time "
+            "(one observation per shard per build)",
+            ["kind"],
+            buckets=(1e2, 1e3, 1e4, 1e5, 1e6, 1e7, 1e8, float("inf")),
+            registry=r)
+        # cluster control plane (cluster/watchdog.py)
+        self.cluster_members = Gauge(
+            "raphtory_cluster_members",
+            "Live watchdog members by role (joined, beating, not downed)",
+            ["role"], registry=r)
+        self.cluster_stale = Gauge(
+            "raphtory_cluster_stale_members",
+            "Members past the staleness bar but not yet auto-downed",
+            registry=r)
+        # watermark lag (ingestion/watermark.py wires the callable — this
+        # module must not import it: watermark imports METRICS from here)
+        self.watermark_lag = Gauge(
+            "raphtory_watermark_lag_seconds",
+            "Seconds since this process's global safe time last advanced "
+            "(0 while the fence is moving; grows when a source stalls)",
+            registry=r)
+        self.sweep_phase_seconds = Histogram(
+            "raphtory_sweep_phase_seconds",
+            "Per-sweep wall seconds by pipeline phase (fold=host delta "
+            "fold incl. worker time, stage=host staging copies, ship=wire/"
+            "in-flight waits, compute=dispatch-loop residual incl. device "
+            "compute) — the phase breakdown the span tracer also attaches "
+            "to every sweep span", ["phase"], registry=r)
+        # per-query resource ledger (obs/ledger.py): what a query COST,
+        # by algorithm — the accounting admission control and the PCPM
+        # kernel work size themselves from
+        # SLO surface (obs/slo.py): per-request end-to-end latency by
+        # algorithm and phase, bucketed on the SAME grid as the stdlib
+        # exemplar histograms so a Prometheus p99 and an /slz exemplar
+        # point at the same bucket; plus the queue-wait distribution
+        from .slo import slo_buckets as _slo_buckets
+
+        self.request_seconds = Histogram(
+            "raphtory_request_seconds",
+            "Per-request latency by ledger phase (phase=e2e is wall "
+            "submit->done; tail buckets keep trace-ID exemplars at /slz)",
+            ["algorithm", "phase"],
+            buckets=(*_slo_buckets(), float("inf")), registry=r)
+        self.job_queue_wait_seconds = Histogram(
+            "raphtory_job_queue_wait_seconds",
+            "Seconds between job submission and its thread running "
+            "(thread-spawn latency today; real admission queueing when "
+            "the serving scheduler lands)",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0,
+                     float("inf")), registry=r)
+        self.query_cost_seconds = Histogram(
+            "raphtory_query_cost_seconds",
+            "Per-query wall seconds by ledger phase (fold/stage/ship/"
+            "compute from the sweep engines, device_wait/emit/other from "
+            "the jobs layer, queue_wait before the job thread ran)",
+            ["algorithm", "phase"], registry=r)
+        self.query_cost_queries = Counter(
+            "raphtory_query_cost_queries_total",
+            "Queries whose ledger was closed", ["algorithm", "bound"],
+            registry=r)
+        self.query_cost_est_flops = Counter(
+            "raphtory_query_cost_est_device_flops_total",
+            "Estimated device FLOPs attributed to queries (XLA "
+            "cost_analysis per compiled kernel x dispatch count)",
+            ["algorithm"], registry=r)
+        self.query_cost_est_hbm_bytes = Counter(
+            "raphtory_query_cost_est_hbm_bytes_total",
+            "Estimated device bytes accessed attributed to queries (XLA "
+            "cost_analysis bytes-accessed x dispatch count)",
+            ["algorithm"], registry=r)
+        self.query_cost_h2d_bytes = Counter(
+            "raphtory_query_cost_h2d_bytes_total",
+            "Host->device bytes attributed to queries (TransferEngine "
+            "deltas per sweep)", ["algorithm"], registry=r)
+        self.query_cost_dcn_bytes = Counter(
+            "raphtory_query_cost_dcn_bytes_total",
+            "Estimated cross-shard collective bytes attributed to "
+            "queries (parallel/sharded.py exchange accounting) — the "
+            "DCN/ICI column next to est HBM bytes in the ledger",
+            ["algorithm"], registry=r)
+        # per-tenant workload accounts (obs/workload.py): WHO spent the
+        # budget. Label cardinality is PROVABLY bounded — tenant names
+        # pass normalize_tenant (malformed -> "invalid") and the
+        # RTPU_TENANT_CAP account cap (overflow -> "other") before ever
+        # reaching .labels()
+        self.tenant_queries = Counter(
+            "raphtory_tenant_queries_total",
+            "Completed jobs attributed to a tenant account",
+            ["tenant", "status"], registry=r)
+        self.tenant_cost_seconds = Counter(
+            "raphtory_tenant_cost_seconds_total",
+            "Attributed cost seconds by tenant and ledger phase "
+            "(queue_wait included as its own phase)",
+            ["tenant", "phase"], registry=r)
+        self.tenant_est_hbm_bytes = Counter(
+            "raphtory_tenant_est_hbm_bytes_total",
+            "Estimated device HBM bytes attributed to a tenant "
+            "(locality-aware per-dispatch traffic estimate)",
+            ["tenant"], registry=r)
+        self.tenant_dcn_bytes = Counter(
+            "raphtory_tenant_dcn_bytes_total",
+            "Estimated cross-shard collective bytes attributed to a "
+            "tenant", ["tenant"], registry=r)
+        # SLO error budgets (obs/budget.py): operator RTPU_SLO_TARGET
+        # targets judged as multi-window burn rates; label cardinality
+        # bounded by the parsed-target cap
+        self.slo_burn_rate = Gauge(
+            "raphtory_slo_burn_rate",
+            "Error-budget burn rate per target and window (1.0 = "
+            "spending exactly the allowed budget; >1 in both windows = "
+            "burning)", ["algorithm", "window"], registry=r)
+        self.slo_budget_remaining = Gauge(
+            "raphtory_slo_error_budget_remaining",
+            "Fraction of the error budget left over this process's "
+            "lifetime (1.0 = untouched, 0 = exhausted, negative = "
+            "overspent)", ["algorithm"], registry=r)
+        # serving scheduler (jobs/scheduler.py): cross-request
+        # coalescing + ledger-priced admission control + deadlines.
+        # Label cardinality is bounded: family comes from the fixed
+        # columnar-engine set, reason from the fixed shed-rule set.
+        self.scheduler_batches = Counter(
+            "raphtory_scheduler_batches_total",
+            "Coalesced cross-request batches dispatched by the serving "
+            "scheduler, by algorithm family", ["family"], registry=r)
+        self.scheduler_coalesced_jobs = Histogram(
+            "raphtory_scheduler_coalesced_jobs",
+            "Jobs per coalesced batch dispatch (the amortisation "
+            "factor)", buckets=(1, 2, 4, 8, 16, 32, 64, 128,
+                                float("inf")), registry=r)
+        self.scheduler_shed = Counter(
+            "raphtory_scheduler_shed_total",
+            "Requests shed by admission control (HTTP 429), by reason "
+            "(queue_full, tenant_share, shed_top_tenant, over_budget, "
+            "deadline_infeasible)", ["reason"], registry=r)
+        self.scheduler_deadline_expired = Counter(
+            "raphtory_scheduler_deadline_expired_total",
+            "Jobs whose deadline_ms expired before dispatch (failed "
+            "fast; never reached the device)", registry=r)
+        self.scheduler_queue_depth = Gauge(
+            "raphtory_scheduler_queue_depth",
+            "Jobs currently waiting in serving-scheduler collect "
+            "windows, summed over live schedulers", registry=r)
+        self.scheduler_queue_depth.set_function(_scheduler_queue_depth)
+        self.scheduler_backlog_seconds = Gauge(
+            "raphtory_scheduler_backlog_seconds",
+            "Ledger-priced cost seconds admitted but not yet completed "
+            "(the admission-control pressure signal)", registry=r)
+        self.scheduler_backlog_seconds.set_function(_scheduler_backlog)
+        # resilience plane (resilience/): retry decisions, breaker
+        # states, degraded serves — see docs/RESILIENCE.md
+        self.retry_attempts = Counter(
+            "raphtory_retry_attempts_total",
+            "Retry-policy decisions, by failpoint site and outcome "
+            "(retry, fatal, exhausted, deadline). Nothing increments on "
+            "the zero-failure hot path", ["site", "outcome"], registry=r)
+        self.breaker_state = Gauge(
+            "raphtory_breaker_state",
+            "Per-peer circuit-breaker state: 0 closed, 1 half-open, "
+            "2 open", ["peer"], registry=r)
+        self.degraded_results = Counter(
+            "raphtory_degraded_results_total",
+            "Queries answered with PARTIAL results under the degraded-"
+            "serving contract (degraded:true + coveredTime), by reason "
+            "(deadline, retry_budget)", ["reason"], registry=r)
+        # advisor plane (obs/advisor.py): strictly read-only findings
+        self.advisor_findings = Gauge(
+            "raphtory_advisor_findings",
+            "Findings emitted by the last advisor tick, by rule",
+            ["rule"], registry=r)
+        self.advisor_ticks = Counter(
+            "raphtory_advisor_ticks_total",
+            "Advisor rule-evaluation passes", registry=r)
+        # device runtime plane (obs/device.py): the MEASURED half of the
+        # ledger — sampled timed-dispatch latencies, observed XLA
+        # compiles (the compile-storm evidence), and device memory
+        self.device_kernel_seconds = Histogram(
+            "raphtory_device_kernel_seconds",
+            "Measured wall seconds of sampled timed dispatches "
+            "(RTPU_DEVICE_TIMING; includes dispatch overhead and the "
+            "sync's pipeline drain)", ["kernel"],
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+                     5.0, 30.0, float("inf")), registry=r)
+        self.compiles = Counter(
+            "raphtory_compiles_total",
+            "XLA compiles observed at the kernel registry's "
+            "lower().compile() sites (one per new (kernel, shape-sig))",
+            ["kernel"], registry=r)
+        self.compile_seconds = Counter(
+            "raphtory_compile_seconds_total",
+            "Seconds inside observed XLA compiles, by kernel",
+            ["kernel"], registry=r)
+        self.device_bytes_in_use = Gauge(
+            "raphtory_device_bytes_in_use",
+            "Device bytes in use (memory_stats of device 0; 0 when the "
+            "backend exposes no memory counters — /devicez reports the "
+            "unavailable degrade explicitly)", registry=r)
+        self.device_bytes_in_use.set_function(_device_bytes_in_use)
+        # memory governor (Archivist signals)
+        self.compactions = Counter(
+            "raphtory_compactions_total",
+            "History compaction cycles", ["kind"], registry=r)
+        self.compaction_seconds = Histogram(
+            "raphtory_compaction_seconds",
+            "Compression/archive cycle time", registry=r)
+        self.heap_bytes = Gauge(
+            "raphtory_host_rss_bytes",
+            "Host resident set size (the reference's heap gauge)",
+            registry=r)
+        self.heap_bytes.set_function(_rss_bytes)
+
+
+def _scheduler_queue_depth() -> float:
+    """Scrape-time gauge callback over the live serving schedulers —
+    must never raise; lazy import keeps metrics importable without the
+    jobs layer."""
+    try:
+        from ..jobs.scheduler import total_queue_depth
+
+        return total_queue_depth()
+    except Exception:
+        return 0.0
+
+
+def _scheduler_backlog() -> float:
+    try:
+        from ..jobs.scheduler import total_backlog_seconds
+
+        return total_backlog_seconds()
+    except Exception:
+        return 0.0
+
+
+def _device_bytes_in_use() -> float:
+    """Scrape-time device-memory gauge callback — must never raise (a
+    prometheus scrape is no place for a backend error), so unavailable
+    degrades to 0.0; lazy import keeps metrics importable without the
+    device plane."""
+    try:
+        from .device import gauge_bytes_in_use
+
+        return gauge_bytes_in_use()
+    except Exception:
+        return 0.0
+
+
+def _freshness_pending() -> float:
+    """Scrape-time not-yet-queryable batch count — never raises; lazy
+    import keeps metrics importable without the freshness plane."""
+    try:
+        from .freshness import FRESH
+
+        return float(FRESH.pending_batches())
+    except Exception:
+        return 0.0
+
+
+def _rss_bytes() -> float:
+    """Current RSS (so compaction wins are visible), not the lifetime peak."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return float(pages * resource.getpagesize())
+    except (OSError, ValueError, IndexError):
+        # fallback: peak RSS; ru_maxrss is KiB on Linux, bytes on macOS
+        peak = float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        return peak if sys.platform == "darwin" else peak * 1024.0
+
+
+METRICS = Metrics()
+
+#: actual bound port of the last-started MetricsServer (0 = none) — what
+#: /statusz surfaces so /clusterz peers can scrape without hand-wiring
+_BOUND_PORT = [0]
+_BOUND_PORT_LOCK = threading.Lock()
+
+
+def bound_port() -> int:
+    with _BOUND_PORT_LOCK:
+        return _BOUND_PORT[0]
+
+
+class MetricsServer:
+    """Embedded scrape endpoint (reference: Kamon Prometheus on :11600),
+    on ``http.server``: every GET answers the registry's exposition."""
+
+    def __init__(self, port: int = DEFAULT_PORT, addr: str = "0.0.0.0",
+                 metrics: Metrics = METRICS):
+        from ..utils.config import strided_port
+
+        # auto-offset by the process index x RTPU_PORT_STRIDE so a
+        # multi-process localhost cluster never collides on :11600 —
+        # process 0 (and every single-process deployment) binds the
+        # configured port verbatim; port 0 stays ephemeral
+        self.port = strided_port(port)
+        self.addr = addr
+        self.metrics = metrics
+        self._server = None
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "MetricsServer":
+        registry = self.metrics.registry
+
+        class _Scrape(BaseHTTPRequestHandler):
+            def do_GET(self):
+                data = registry.exposition().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *a):   # quiet
+                pass
+
+        self._server = ThreadingHTTPServer((self.addr, self.port), _Scrape)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="metrics-scrape",
+            daemon=True)
+        self._thread.start()
+        # surface the ACTUAL bound port (ephemeral port-0 binds resolve
+        # here) — what /statusz reports
+        self.port = self._server.server_address[1]
+        with _BOUND_PORT_LOCK:
+            _BOUND_PORT[0] = self.port
+        return self
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+            with _BOUND_PORT_LOCK:
+                if _BOUND_PORT[0] == self.port:
+                    _BOUND_PORT[0] = 0
+        if self._thread is not None:
+            # join the scrape-server thread so repeated start/stop in
+            # tests can't leak threads; a bounded wait keeps a wedged
+            # handler from hanging shutdown forever
+            self._thread.join(timeout=5.0)
+            self._thread = None

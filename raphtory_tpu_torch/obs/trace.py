@@ -1,0 +1,690 @@
+"""Span tracing + flight recorder — one timeline from ingest event to kernel.
+
+The reference had no distributed tracing at all (SURVEY §5.1 "No spans"):
+Kamon counters plus log lines were the only answer to "where did this
+sweep's time go". With the pipelined transfer engine overlapping fold /
+stage / ship / compute across threads, aggregate histograms can no longer
+attribute a regression to a stage — per-phase timing is the first-class
+signal of the BSP pseudo-streaming literature (arXiv:1608.07200) and of
+partition-centric phase breakdowns (arXiv:1709.07122).
+
+Three pieces, all host-side and dependency-free (stdlib only, so the
+transfer layer can use it in stripped environments):
+
+* **Spans** — ``TRACER.span(name, **attrs)`` context managers carrying
+  structured attributes (job_id, hop, superstep, bytes, stage). Spans
+  nest per thread (a thread-local stack links parent ids), and each span
+  optionally enters a ``torch.profiler.record_function`` of the same
+  name, so host phases line up with the card's kernels in a
+  ``torch.profiler`` capture (the port of the reference's
+  ``jax.profiler.TraceAnnotation`` hook, entered at the same place).
+* **Trace contexts** — every root span allocates a ``trace_id``, and
+  children inherit it. One REQUEST crosses threads (REST handler → job
+  thread → fold-pool workers → transfer staging), so the per-thread
+  nesting alone would shatter it into unlinked fragments; the explicit
+  handoff API stitches them: ``capture()`` the context on the submitting
+  thread, ``adopt(ctx)`` (or wrap the callable with ``carry(fn)``) on
+  the receiving one. Spans opened under an adoption parent to the
+  captured span and share its trace_id — ``for_trace(trace_id)`` (the
+  REST ``/tracez?trace_id=`` surface) then reconstructs the request
+  end-to-end, and the Chrome export draws cross-thread flow arrows
+  between a span and its other-thread parent. This is the Canopy model
+  of per-request trace assembly (one trace id, events from many
+  execution units, joined after the fact).
+* **Flight recorder** — a bounded ring (``collections.deque(maxlen=…)``)
+  of COMPLETED spans. Always cheap: when tracing is off, ``span()``
+  returns a shared no-op and records nothing; when on, a span costs two
+  ``perf_counter_ns`` calls plus one dict append. The ring survives
+  crashes of everything except the process — dump it on failure and the
+  last N spans tell you what the system was doing.
+* **Chrome trace-event exporter** — ``chrome_trace()`` / ``dump()``
+  produce Perfetto / ``chrome://tracing`` compatible JSON: one ``X``
+  (complete) event per span, one track per thread (``M`` thread-name
+  metadata events), instants (``ph: "i"``) for watermark advances and
+  stalls.
+
+Knobs
+-----
+* ``RTPU_TRACE`` — enable tracing at import (default off). Runtime
+  toggles: ``TRACER.enable()`` / ``TRACER.disable()`` or the REST
+  ``/tracez?enable=1`` endpoint.
+* ``RTPU_TRACE_RING`` — flight-recorder capacity in spans (default 4096).
+* ``RTPU_TRACE_DUMP`` — a file path; implies tracing on, and the ring is
+  written there at interpreter exit (the CI failure-artifact hook).
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import json
+import os
+import tempfile
+import threading
+import time
+
+from . import journal as _journal
+
+DEFAULT_RING = 4096
+
+
+class _NullSpan:
+    """Shared do-nothing span — what ``span()`` returns when tracing is
+    off, so disabled tracing costs one attribute check per call site."""
+
+    __slots__ = ()
+
+    #: NULL_SPAN.trace is None — callers that record "the trace id of the
+    #: span I just ran under" (jobs/manager) read it without a getattr
+    trace = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class TraceContext:
+    """A (trace_id, span_id) pair captured on one thread and adopted on
+    another — the request identity that crosses every pool handoff.
+    ``origin`` is the process index the context was captured on (0 for
+    single-process runs): a context that crossed a REST hop keeps naming
+    the process that started the request. Immutable value object; build
+    via ``Tracer.capture()`` or parse one off the wire with
+    ``from_wire``."""
+
+    __slots__ = ("trace_id", "span_id", "origin")
+
+    #: HTTP header every REST hop / peer scrape carries the wire form in
+    HEADER = "X-RTPU-Trace"
+
+    def __init__(self, trace_id: str, span_id: int, origin: int = 0):
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.origin = origin
+
+    def __repr__(self):
+        return (f"TraceContext({self.trace_id!r}, {self.span_id}, "
+                f"origin={self.origin})")
+
+    def __eq__(self, other):
+        return (isinstance(other, TraceContext)
+                and other.trace_id == self.trace_id
+                and other.span_id == self.span_id)
+
+    def __hash__(self):
+        # defining __eq__ alone would set __hash__ = None — a "value
+        # object" that can't key a set/dict is a trap for callers
+        # deduplicating captured contexts
+        return hash((self.trace_id, self.span_id))
+
+    # ---- wire form (the X-RTPU-Trace header payload) ----
+
+    def to_wire(self) -> str:
+        """Compact header payload: ``trace_id;span_id;origin``. Trace ids
+        are already process-unique strings (pid + urandom prefix), so the
+        receiving process joins the trace by value — no id translation."""
+        return f"{self.trace_id};{self.span_id:x};{self.origin}"
+
+    @classmethod
+    def from_wire(cls, raw: str | None) -> "TraceContext | None":
+        """Parse a wire form back into a context. Tolerant: anything
+        malformed (truncated header, non-hex span id, empty string)
+        returns None — an observability header must never be able to
+        fail a request."""
+        if not raw:
+            return None
+        parts = str(raw).strip().split(";")
+        if len(parts) != 3 or not parts[0]:
+            return None
+        try:
+            return cls(parts[0], int(parts[1], 16), int(parts[2]))
+        except ValueError:
+            return None
+
+
+class _Adoption:
+    """Context manager returned by ``Tracer.adopt``: installs ``ctx`` as
+    the thread's ambient trace context and restores the previous one on
+    exit — exception-safe (restore happens in ``__exit__`` regardless),
+    and re-entrant (adoptions nest, each restoring its own prior)."""
+
+    __slots__ = ("_tracer", "_ctx", "_prev", "_prev_active", "_tid")
+
+    def __init__(self, tracer: "Tracer", ctx: "TraceContext | None"):
+        self._tracer = tracer
+        self._ctx = ctx
+        self._prev = None
+        self._prev_active = None
+        self._tid = 0
+
+    def __enter__(self):
+        if self._ctx is None:
+            return self
+        tr = self._tracer
+        local = tr._local
+        self._prev = getattr(local, "adopted", None)
+        local.adopted = self._ctx
+        # expose the adopted context to the sampling profiler even while
+        # no span is open on this thread (the sample between two spans of
+        # one request still belongs to that request)
+        t = threading.current_thread()
+        self._tid = t.ident or 0
+        if not tr._stack():
+            self._prev_active = tr._active.get(self._tid)
+            tr._active[self._tid] = (self._ctx.trace_id, self._ctx.span_id,
+                                     "(adopted)")
+        return self
+
+    def __exit__(self, *exc):
+        if self._ctx is None:
+            return False
+        tr = self._tracer
+        tr._local.adopted = self._prev
+        if not tr._stack():
+            if self._prev_active is not None:
+                tr._active[self._tid] = self._prev_active
+            else:
+                tr._active.pop(self._tid, None)
+        return False
+
+#: lazily-resolved torch.profiler.record_function (False = unavailable) —
+#: torch is never imported by this module, only used once it is loaded
+_ANNOTATION = None
+
+
+def _annotation_cls():
+    global _ANNOTATION
+    if _ANNOTATION is None:
+        import sys
+
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False   # not loaded yet: ask again on the next span
+        try:
+            _ANNOTATION = torch.profiler.record_function
+        except Exception:
+            _ANNOTATION = False
+    return _ANNOTATION
+
+
+class Span:
+    """One in-flight span. Enter/exit on the SAME thread (the per-thread
+    parent stack assumes it); attributes are plain JSON-able values."""
+
+    __slots__ = ("name", "attrs", "sid", "parent", "trace", "_tracer",
+                 "_tid", "_t0", "_ann")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self._tracer = tracer
+        self.sid = next(tracer._ids)
+        self.parent = 0
+        self.trace = ""
+        self._tid = 0
+        self._t0 = 0
+        self._ann = None
+
+    def set(self, **attrs) -> "Span":
+        self.attrs.update(attrs)
+        return self
+
+    def __enter__(self) -> "Span":
+        tr = self._tracer
+        t = threading.current_thread()
+        self._tid = t.ident or 0
+        if tr._threads.get(self._tid) != t.name:
+            # not just first-seen: thread idents are RECYCLED by the OS,
+            # and pools rename threads — a stale entry would label this
+            # thread's track with a dead thread's name in every export
+            tr._note_thread(self._tid, t.name)
+        stack = tr._stack()
+        if stack:
+            top = stack[-1]
+            self.parent = top.sid
+            self.trace = top.trace
+        else:
+            ctx = getattr(tr._local, "adopted", None)
+            if ctx is not None:
+                # a pool handoff: parent to the captured span on the
+                # submitting thread, join its trace
+                self.parent = ctx.span_id
+                self.trace = ctx.trace_id
+            else:
+                self.trace = tr._new_trace_id()
+        stack.append(self)
+        # cross-thread registry for the sampling profiler: plain dict
+        # store (GIL-atomic), pruned with the thread-name map
+        tr._active[self._tid] = (self.trace, self.sid, self.name)
+        cls = _annotation_cls() if tr.annotate else False
+        if cls:
+            try:
+                self._ann = cls(self.name)
+                self._ann.__enter__()
+            except Exception:
+                self._ann = None
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        dur_ns = time.perf_counter_ns() - self._t0
+        tr = self._tracer
+        if self._ann is not None:
+            try:
+                self._ann.__exit__(et, ev, tb)
+            except Exception:
+                pass
+        stack = tr._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:   # mismatched exits must not corrupt nesting
+            stack.remove(self)
+        if stack:
+            top = stack[-1]
+            tr._active[self._tid] = (top.trace, top.sid, top.name)
+        else:
+            ctx = getattr(tr._local, "adopted", None)
+            if ctx is not None:
+                tr._active[self._tid] = (ctx.trace_id, ctx.span_id,
+                                         "(adopted)")
+            else:
+                tr._active.pop(self._tid, None)
+        if et is not None:
+            self.attrs["error"] = f"{et.__name__}: {ev}"
+        tr._record({
+            "ph": "X", "name": self.name,
+            "ts": (self._t0 - tr._epoch_ns) / 1e3,     # µs, tracer epoch
+            "dur": dur_ns / 1e3,
+            "pid": tr._pid, "tid": self._tid,
+            "sid": self.sid, "parent": self.parent,
+            "trace": self.trace,
+            "args": self.attrs,
+        })
+        return False
+
+
+class Tracer:
+    """Thread-safe span tracer + bounded flight recorder.
+
+    The module-level ``TRACER`` is the process singleton every
+    instrumented layer uses; tests build private instances.
+    """
+
+    def __init__(self, enabled: bool | None = None, ring: int | None = None,
+                 annotate: bool = True):
+        env = os.environ
+        if enabled is None:
+            enabled = (env.get("RTPU_TRACE", "0") not in ("", "0", "false")
+                       or bool(env.get("RTPU_TRACE_DUMP")))
+        if ring is None:
+            try:
+                ring = int(env.get("RTPU_TRACE_RING", DEFAULT_RING))
+            except ValueError:
+                ring = DEFAULT_RING
+        self.enabled = bool(enabled)
+        self.annotate = bool(annotate)
+        self._ring: collections.deque = collections.deque(
+            maxlen=max(16, int(ring)))
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()   # guards _recorded + ring append
+        self._recorded = 0
+        self._local = threading.local()
+        self._epoch_ns = time.perf_counter_ns()
+        self._epoch_unix = time.time()
+        self._pid = os.getpid()
+        self._threads: dict[int, str] = {}
+        # tid → (trace_id, span_id, span_name) of the innermost open span
+        # (or adopted context) per thread — the cross-thread read surface
+        # the sampling profiler tags its samples from. Plain dict with
+        # GIL-atomic per-key stores; pruned alongside _threads.
+        self._active: dict[int, tuple] = {}
+        # trace ids: process-unique prefix + counter — cheap (no urandom
+        # per request) yet collision-free across processes in one capture
+        self._trace_prefix = f"{os.getpid():x}-{os.urandom(3).hex()}"
+        self._trace_ids = itertools.count(1)
+        # cluster identity: which PROCESS of a multi-host deployment this
+        # tracer records for. Seeded from RTPU_PROCESS_INDEX (plain
+        # multi-process deployments), refined by cluster/bootstrap.py
+        # once the rank is known — this module stays stdlib-importable.
+        try:
+            self.process_index = max(
+                0, int(os.environ.get("RTPU_PROCESS_INDEX", "0") or 0))
+        except ValueError:
+            self.process_index = 0
+        # extra dump payloads (the sampling profiler registers one):
+        # name → zero-arg callable returning a JSON-able block or None
+        self._aux: dict[str, object] = {}
+        self._dump_dir: str | None = None   # lazy private dir for dump()
+
+    # ---- recording ----
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _new_trace_id(self) -> str:
+        return f"{self._trace_prefix}-{next(self._trace_ids):x}"
+
+    def _prune_threads(self, referenced: set | None = None) -> None:
+        """Drop name entries for threads the ring no longer references
+        (dead job threads) — called from exports, and from registration
+        once the map outgrows the ring it annotates. The ring and the
+        name map are snapshotted via atomic C-level copies before
+        iterating: concurrent span exits keep appending, and iterating
+        the live deque/dict would raise mid-export. The active-span
+        registry prunes on the same trigger (a dead thread can no longer
+        be sampled, so its entry is pure leak)."""
+        if referenced is None:
+            referenced = {e["tid"] for e in list(self._ring)}
+        live = {t.ident for t in threading.enumerate()}
+        self._threads = {tid: name
+                         for tid, name in dict(self._threads).items()
+                         if tid in referenced or tid in live}
+        for tid in list(self._active):
+            if tid not in live:
+                self._active.pop(tid, None)
+
+    def _note_thread(self, tid: int, name: str) -> None:
+        self._threads[tid] = name
+        if len(self._threads) > max(256, self.ring_size):
+            self._prune_threads()
+
+    def _record(self, event: dict) -> None:
+        # the bounded-deque append itself is GIL-atomic, but the recorded
+        # counter must stay exact under concurrent writers (the eviction
+        # count in /statusz derives from it) — one uncontended lock
+        # acquire per COMPLETED span is noise next to building the event
+        with self._lock:
+            self._recorded += 1
+            self._ring.append(event)
+        # durable mirror (obs/journal.py): ring events additionally land
+        # in the on-disk journal so a SIGKILLed process's final sweep
+        # survives it. One environ lookup when journaling is off; the
+        # emit itself is a bounded non-blocking queue append.
+        if _journal.enabled():
+            _journal.emit_event(event)
+
+    def span(self, name: str, **attrs):
+        """Context-manager span; no-op (and ~free) when tracing is off."""
+        if not self.enabled:
+            return NULL_SPAN
+        return Span(self, name, attrs)
+
+    def _ambient(self) -> tuple:
+        """(trace_id, parent span id) of the calling thread's innermost
+        open span, falling back to its adopted context — what instants
+        and completes tag themselves with ("" / 0 when neither)."""
+        st = self._stack()
+        if st:
+            return st[-1].trace, st[-1].sid
+        ctx = getattr(self._local, "adopted", None)
+        if ctx is not None:
+            return ctx.trace_id, ctx.span_id
+        return "", 0
+
+    def instant(self, name: str, **attrs) -> None:
+        """Zero-duration marker (watermark advances, state flips)."""
+        if not self.enabled:
+            return
+        t = threading.current_thread()
+        tid = t.ident or 0
+        if self._threads.get(tid) != t.name:
+            self._note_thread(tid, t.name)
+        trace, _ = self._ambient()
+        self._record({
+            "ph": "i", "s": "t", "name": name,
+            "ts": (time.perf_counter_ns() - self._epoch_ns) / 1e3,
+            "pid": self._pid, "tid": tid, "trace": trace, "args": attrs,
+        })
+
+    def complete(self, name: str, dur_s: float, **attrs) -> None:
+        """Record a span that already happened (e.g. a measured stall whose
+        wait ran inside another primitive) as an X event ending now."""
+        if not self.enabled:
+            return
+        t = threading.current_thread()
+        tid = t.ident or 0
+        if self._threads.get(tid) != t.name:
+            self._note_thread(tid, t.name)
+        now = time.perf_counter_ns()
+        dur_ns = max(0.0, float(dur_s)) * 1e9
+        trace, parent = self._ambient()
+        self._record({
+            "ph": "X", "name": name,
+            "ts": (now - dur_ns - self._epoch_ns) / 1e3,
+            "dur": dur_ns / 1e3,
+            "pid": self._pid, "tid": tid, "sid": next(self._ids),
+            "parent": parent, "trace": trace, "args": attrs,
+        })
+
+    # ---- cross-thread trace context ----
+
+    def capture(self) -> TraceContext | None:
+        """The calling thread's trace context (innermost open span, else
+        its adopted context) — hand it to the thread that continues this
+        request. None when tracing is off or nothing is open: adopt(None)
+        and carry() degrade to no-ops, so capture-at-submit is always
+        safe to write unconditionally."""
+        if not self.enabled:
+            return None
+        st = self._stack()
+        if st:
+            return TraceContext(st[-1].trace, st[-1].sid,
+                                self.process_index)
+        return getattr(self._local, "adopted", None)
+
+    def set_process_index(self, index: int) -> None:
+        """Record which process of a multi-host deployment this tracer
+        belongs to — called by ``cluster/bootstrap.bootstrap()`` once
+        the rank is known. Captured contexts carry it as
+        their origin, and ``block_steps`` tags barrier spans with it."""
+        self.process_index = max(0, int(index))
+
+    def adopt(self, ctx: TraceContext | None) -> _Adoption:
+        """Install ``ctx`` as this thread's ambient trace context for the
+        duration of the returned context manager. Spans opened inside
+        (with no other enclosing span) parent to the captured span and
+        share its trace. Exception-safe and re-entrant; ``adopt(None)``
+        is a no-op."""
+        return _Adoption(self, ctx)
+
+    def carry(self, fn):
+        """Wrap a zero-or-more-arg callable so it runs under the CALLING
+        thread's current trace context — the one-line pool handoff:
+        ``pool.submit(tracer.carry(task))``. When tracing is off or no
+        context is open the callable is returned unwrapped (zero cost)."""
+        ctx = self.capture()
+        if ctx is None:
+            return fn
+
+        def run(*a, **kw):
+            with self.adopt(ctx):
+                return fn(*a, **kw)
+        return run
+
+    def active_for(self, tid: int) -> tuple | None:
+        """(trace_id, span_id, span_name) of the innermost open span (or
+        adopted context) on thread ``tid`` — the sampling profiler's tag
+        lookup. None when that thread has nothing open."""
+        return self._active.get(tid)
+
+    # ---- lifecycle ----
+
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._recorded = 0
+
+    # ---- introspection / export ----
+
+    @property
+    def ring_size(self) -> int:
+        return self._ring.maxlen or 0
+
+    @property
+    def recorded(self) -> int:
+        """Events seen since start/clear (≥ len(ring) once it wraps)."""
+        return self._recorded
+
+    @property
+    def dropped(self) -> int:
+        """Events evicted from the ring by newer ones."""
+        return max(0, self._recorded - len(self._ring))
+
+    def recent(self, n: int = 200) -> list[dict]:
+        """The newest ``n`` completed events, oldest first (a snapshot —
+        safe against concurrent writers)."""
+        n = int(n)
+        if n <= 0:
+            return []
+        snap = list(self._ring)
+        return snap[-n:]
+
+    def for_trace(self, trace_id: str) -> list[dict]:
+        """Every buffered event of one trace, oldest first — the
+        ``/tracez?trace_id=`` request-reconstruction surface (and what an
+        SLO exemplar resolves to). Spans evicted from the bounded ring
+        are gone; the ``recorded``/``dropped`` counters say whether the
+        window still covers the request."""
+        return [e for e in list(self._ring) if e.get("trace") == trace_id]
+
+    def register_aux(self, name: str, fn) -> None:
+        """Attach a zero-arg provider whose return value rides in every
+        Chrome export's ``otherData`` under ``name`` (None = omit) — how
+        the sampling profiler folds its collapsed stacks into the
+        flight-recorder dump without spamming the span ring."""
+        self._aux[str(name)] = fn
+
+    @staticmethod
+    def _flow_events(events: list[dict]) -> list[dict]:
+        """Chrome flow-arrow pairs (ph ``s``/``f``) for every span whose
+        parent completed on ANOTHER thread — the visible cross-thread
+        handoffs (REST → job → fold workers) in Perfetto. Only pairs
+        where both ends are in the snapshot can be drawn; a parent still
+        open at export time simply has no arrow yet."""
+        by_sid = {e["sid"]: e for e in events
+                  if e.get("ph") == "X" and "sid" in e}
+        flows = []
+        for e in events:
+            if e.get("ph") != "X" or not e.get("parent"):
+                continue
+            p = by_sid.get(e["parent"])
+            if p is None or p["tid"] == e["tid"]:
+                continue
+            ts = min(p["ts"], e["ts"])
+            flows.append({"ph": "s", "cat": "handoff", "name": "handoff",
+                          "id": e["sid"], "pid": e["pid"],
+                          "tid": p["tid"], "ts": ts})
+            flows.append({"ph": "f", "bp": "e", "cat": "handoff",
+                          "name": "handoff", "id": e["sid"],
+                          "pid": e["pid"], "tid": e["tid"], "ts": e["ts"]})
+        return flows
+
+    def chrome_trace(self) -> dict:
+        """Perfetto / chrome://tracing compatible trace-event JSON dict:
+        the ring's events plus thread-name metadata (one track per
+        thread). Only threads the CURRENT ring references get a metadata
+        row — a long-lived server churns through one thread per job, and
+        emitting (or retaining, see ``_prune_threads``) every thread ever
+        seen would grow without bound."""
+        events = list(self._ring)   # atomic snapshot — writers keep going
+        referenced = {e["tid"] for e in events}
+        self._prune_threads(referenced)
+        meta = [{
+            "ph": "M", "name": "thread_name", "pid": self._pid, "tid": tid,
+            "args": {"name": name},
+        } for tid, name in sorted(dict(self._threads).items())
+            if tid in referenced]
+        other = {
+            "epoch_unix": self._epoch_unix,
+            "recorded": self._recorded,
+            "dropped": self.dropped,
+        }
+        for name, fn in dict(self._aux).items():
+            try:
+                block = fn()
+            except Exception:   # an aux provider must never break a dump
+                block = None
+            if block is not None:
+                other[name] = block
+        return {
+            "traceEvents": meta + self._flow_events(events) + events,
+            "displayTimeUnit": "ms",
+            "otherData": other,
+        }
+
+    def dump(self, path: str | None = None) -> str:
+        """Write the Chrome trace JSON to ``path`` and return the path.
+        The default is one STABLE per-process file, overwritten on each
+        call — a monitor polling ``/tracez?dump=1`` must refresh a
+        snapshot, not accumulate thousands of files — inside a private
+        mkdtemp (mode 0700) directory: a predictable world-writable /tmp
+        name would let another local user pre-plant a symlink and turn
+        the remotely-triggerable dump into a file-clobber primitive."""
+        if path is None:
+            if self._dump_dir is None:
+                self._dump_dir = tempfile.mkdtemp(prefix="rtpu_trace_")
+            path = os.path.join(self._dump_dir, "trace.json")
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(), f, default=str)
+        return path
+
+    def status(self) -> dict:
+        return {
+            "enabled": self.enabled,
+            "ring_size": self.ring_size,
+            "recorded": self._recorded,
+            "buffered": len(self._ring),
+            "dropped": self.dropped,
+        }
+
+
+#: process-wide tracer every instrumented layer records into
+TRACER = Tracer()
+
+
+def span(name: str, **attrs):
+    """Module-level convenience for ``TRACER.span``."""
+    return TRACER.span(name, **attrs)
+
+
+def block_steps(fn):
+    """Run ``fn() -> (value, steps)`` — a device barrier where a compiled
+    program's results land — under ONE ``superstep.block`` span carrying
+    the superstep count. The single definition of the barrier span shared
+    by the engine layer (``bsp.run``) and every jobs-layer emit path."""
+    with TRACER.span("superstep.block",
+                     process=TRACER.process_index) as sp:
+        value, steps = fn()
+        steps = int(steps)
+        sp.set(steps=steps)
+    return value, steps
+
+
+_dump_path = os.environ.get("RTPU_TRACE_DUMP")
+if _dump_path:
+    # the shared exit-artifact registry (obs/exitdump.py): one atexit
+    # hook + one guarded SIGTERM handler for EVERY RTPU_*_DUMP writer
+    from . import exitdump as _exitdump
+
+    def _dump_at_exit(path=_dump_path):
+        if len(TRACER._ring):
+            TRACER.dump(path)
+
+    _exitdump.register("trace", _dump_at_exit)

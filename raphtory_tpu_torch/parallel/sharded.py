@@ -53,6 +53,10 @@ from ..cluster import bootstrap as _boot
 from ..core.snapshot import INT64_MIN, GraphView
 from ..engine.bsp import _ELEM, _check_custom, check_program, tree_map
 from ..engine.program import Context, Edges, VertexProgram
+from ..obs import device as _obs_device
+from ..obs import journal as _journal
+from ..obs import ledger as _ledger
+from ..obs.trace import TRACER
 from ..ops.exchange import halo_pack
 from ..ops.segment import SegmentCSR, segment_combine
 from ..utils.device import resolve_device
@@ -830,14 +834,37 @@ def run(program: VertexProgram, view: GraphView, mesh: Mesh, *,
     multi = mesh.n_processes > 1
     decision = choose_route(program, view, sv, mesh, comm, k, multi)
     comm = decision["route"]
+    proc = TRACER.process_index
     COLLECTIVES.note_route_decision(decision)
+    if TRACER.enabled:
+        ev = decision["evidence"]
+        TRACER.instant(
+            "comm.route", process=proc, algorithm=decision["algorithm"],
+            route=comm, requested=decision["requested"],
+            reason=decision["reason"], density=ev["density"],
+            skew_max=ev["skew_max"],
+            **{f"est_{r}": b
+               for r, b in ev["est_bytes_per_superstep"].items()})
+    if _journal.enabled():
+        _journal.emit("comm.route", decision)
 
     if comm == "sparse":
         from . import frontier as _frontier
 
-        t0 = _time.perf_counter()
-        result, steps, acct = _frontier.run_sparse(
-            program, view, mesh, sv, wlist, multi=multi)
+        with TRACER.span("comm.exchange", route="sparse",
+                         direction=program.direction, process=proc,
+                         shards=S, windows=k) as csp:
+            t0 = _time.perf_counter()
+            result, steps, acct = _frontier.run_sparse(
+                program, view, mesh, sv, wlist, multi=multi)
+            csp.set(supersteps=acct["supersteps"], rows=acct["rows"],
+                    bytes=acct["bytes"],
+                    density=round(acct["density"], 6),
+                    fallback_supersteps=acct["fallback_supersteps"],
+                    barrier_wait_seconds=round(acct["barrier_wait"], 6))
+        led = _ledger.current()
+        if led is not None:
+            led.add_dcn("sparse", rows=acct["rows"], bytes_=acct["bytes"])
         COLLECTIVES.note_exchange(
             "sparse", program.direction, rows=acct["rows"],
             bytes_=acct["bytes"], seconds=_time.perf_counter() - t0,
@@ -855,19 +882,6 @@ def run(program: VertexProgram, view: GraphView, mesh: Mesh, *,
     rows_dev = (sv.halo_rows(program.direction) if comm == "halo"
                 else view.n_pad - sv.n_loc)
     rows_step = rows_dev * k_loc * mesh.n_devices
-    t0 = _time.perf_counter()
-    local, steps = _run_local(program, sv, mesh, int(view.time), wl_loc,
-                              int(view.n_pad), comm, vprops)
-    seconds = _time.perf_counter() - t0
-    # bytes a row moves: the result leaves' widths (the exchanged state of
-    # every program this engine runs)
-    row_bytes = sum(a.element_size() * int(np.prod(a.shape[2:],
-                                                   dtype=np.int64))
-                    for a in leaves(local))
-    rows_total = rows_step * steps
-    COLLECTIVES.note_exchange(
-        comm, program.direction, rows=rows_total,
-        bytes_=rows_total * row_bytes, seconds=seconds, supersteps=steps)
 
     # every rank gathers the blocks into global order: [W, S, k_loc, n_loc]
     # -> [W * k_loc, S * n_loc], then the pad windows are cut
@@ -877,7 +891,45 @@ def run(program: VertexProgram, view: GraphView, mesh: Mesh, *,
         g = g.reshape((W, S, k_loc, sv.n_loc) + tail).transpose(1, 2)
         return g.reshape((k_pad, view.n_pad) + tail)[:k]
 
-    result = tree_map(globalise, local)
+    with TRACER.span("comm.exchange", route=comm,
+                     direction=program.direction, process=proc,
+                     shards=S, windows=k_pad,
+                     rows_per_superstep=rows_step) as csp:
+        t0 = _time.perf_counter()
+        local, steps = _run_local(program, sv, mesh, int(view.time), wl_loc,
+                                  int(view.n_pad), comm, vprops)
+        t_disp = _time.perf_counter()
+        if multi:
+            # local completion: the kernels and the in-loop collectives
+            with TRACER.span("comm.block_wait", route=comm, process=proc):
+                _obs_device.block_ready(local)
+        seconds = _time.perf_counter() - t0
+        # bytes a row moves: the result leaves' widths (the exchanged state
+        # of every program this engine runs)
+        row_bytes = sum(a.element_size() * int(np.prod(a.shape[2:],
+                                                       dtype=np.int64))
+                        for a in leaves(local))
+        rows_total = rows_step * steps
+        barrier_wait = 0.0
+        if multi:
+            # the result all-gather: this rank's wait behind its peers
+            t_bar = _time.perf_counter()
+            with TRACER.span("comm.barrier_wait", route=comm, process=proc):
+                result = tree_map(globalise, local)
+            barrier_wait = _time.perf_counter() - t_bar
+        else:
+            result = tree_map(globalise, local)
+        csp.set(supersteps=steps, rows=rows_total,
+                bytes=rows_total * row_bytes,
+                block_seconds=round(seconds - (t_disp - t0), 6),
+                barrier_wait_seconds=round(barrier_wait, 6))
+    COLLECTIVES.note_exchange(
+        comm, program.direction, rows=rows_total,
+        bytes_=rows_total * row_bytes, seconds=seconds, supersteps=steps,
+        barrier_wait=barrier_wait)
+    led = _ledger.current()
+    if led is not None:
+        led.add_dcn(comm, rows=rows_total, bytes_=rows_total * row_bytes)
     if not batched:
         result = tree_map(lambda a: a[0], result)
     return result, steps

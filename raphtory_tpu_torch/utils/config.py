@@ -1,0 +1,162 @@
+"""Runtime configuration — env-var flags + a typed settings bundle.
+
+The reference's behaviour flags are environment variables read at class-load
+(``Utils.scala:22-26``: SAVING/COMPRESSING/ARCHIVING/WINDOWING/LOCAL/DEBUG;
+``Server.scala:28-62``: SPOUTCLASS/ROUTERCLASS/PARTITION_MIN/ROUTER_MIN)
+plus HOCON for cluster tuning. Here one dataclass carries every knob, with
+``Settings.from_env()`` reading the ``RAPHTORY_TPU_*`` namespace so
+deployments keep the env-var ergonomics.
+
+The port of ``raphtory_tpu/utils/config.py``. Two differences: the process
+index comes from the ``torch.distributed`` rank (``process_index``), and
+the JAX persistent compilation cache (``RTPU_COMPILE_CACHE_DIR``) has no
+counterpart: the port compiles no XLA programs, and its hand kernels build
+into their own directory (``native/build.py``) as before.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, fields
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return default if v is None else int(v)
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return default if v is None else float(v)
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+def process_index() -> int:
+    """This process's index in a multi-process deployment.
+
+    Resolution order: ``RTPU_PROCESS_INDEX`` (explicit), then the rank of
+    an initialised ``torch.distributed`` group when torch is already
+    imported (never imported from here), then ``RANK`` (what
+    ``cluster/bootstrap`` sets for every rank it spawns, as ``torchrun``
+    does), else 0."""
+    import sys
+
+    v = os.environ.get("RTPU_PROCESS_INDEX")
+    if v:
+        try:
+            return max(0, int(v))
+        except ValueError:
+            pass
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        try:
+            dist = torch.distributed
+            if dist.is_available() and dist.is_initialized():
+                return int(dist.get_rank())
+        except Exception:
+            pass
+    v = os.environ.get("RANK")
+    if v:
+        try:
+            return max(0, int(v))
+        except ValueError:
+            pass
+    return 0
+
+
+def port_stride() -> int:
+    """``RTPU_PORT_STRIDE`` (default 1): per-process listen-port offset
+    multiplier. 0 disables striding (every process binds the configured
+    port verbatim — the single-process behaviour)."""
+    try:
+        return max(0, int(os.environ.get("RTPU_PORT_STRIDE", "1") or 1))
+    except ValueError:
+        return 1
+
+
+def strided_port(base: int, index: int | None = None) -> int:
+    """Auto-offset a listen port by this process's index so an N-process
+    localhost cluster never collides on the fixed REST/metrics ports:
+    ``base + index * RTPU_PORT_STRIDE``. Port 0 (ephemeral, tests) is
+    never offset, and process 0 always binds ``base`` — single-process
+    deployments see no change."""
+    base = int(base)
+    if base == 0:
+        return 0
+    idx = process_index() if index is None else max(0, int(index))
+    return base + idx * port_stride()
+
+
+@dataclass
+class Settings:
+    """All behaviour flags. Defaults match the reference's defaults where a
+    counterpart exists (noted per field)."""
+
+    # feature flags (Utils.scala:22-26)
+    saving: bool = False          # SAVING: durable checkpoint after ingest
+    compressing: bool = True      # COMPRESSING: run-length history dedup
+    archiving: bool = True        # ARCHIVING: drop oldest history under pressure
+    windowing: bool = True        # WINDOWING: window queries enabled
+    local: bool = True            # LOCAL: single-process deployment
+    debug: bool = False           # DEBUG: verbose logging
+
+    # cluster-up gate (WatchDog.scala:66-83; PARTITION_MIN/ROUTER_MIN)
+    min_shards: int = 1
+    min_sources: int = 1
+
+    # liveness (application.conf:101-152 failure detector + auto-down)
+    heartbeat_interval_s: float = 10.0   # keep-alive cadence (refs: 10 s)
+    stale_after_s: float = 30.0          # staleness log threshold (refs: 30 s)
+    auto_down_after_s: float = 1200.0    # auto-down-unreachable (refs: 20 m)
+
+    # memory governor (Archivist.scala:38-39,56-58)
+    archivist_interval_s: float = 60.0
+    max_events: int = 50_000_000
+    archive_fraction: float = 0.1
+
+    # service ports (AnalysisRestApi.scala:30; application.conf:208-213)
+    rest_port: int = 8081
+    metrics_port: int = 11600
+
+    # checkpoint directory ("" disables; the Cassandra-saving analogue)
+    checkpoint_dir: str = ""
+
+    # result sink directory ("" disables; Utils.scala:107-126 writes rows
+    # to an env-configured path — here one file per job under this dir)
+    sink_dir: str = ""
+    sink_format: str = "jsonl"   # default per-job format: jsonl | csv
+
+    # staged ingestion: >0 bounds a parse→append queue (events) with a
+    # backlog gauge — the writer-mailbox shape; 0 = direct appends
+    ingest_queue_events: int = 0
+
+    # build the resident View sweep right after ingest (background), so
+    # the FIRST REST View is already warm instead of paying the pin
+    prewarm: bool = False
+
+    @classmethod
+    def from_env(cls, prefix: str = "RAPHTORY_TPU_") -> "Settings":
+        kw = {}
+        for f in fields(cls):
+            name = prefix + f.name.upper()
+            if os.environ.get(name) is None:
+                continue
+            if f.type == "bool":
+                kw[f.name] = _env_bool(name, f.default)
+            elif f.type == "int":
+                kw[f.name] = _env_int(name, f.default)
+            elif f.type == "float":
+                kw[f.name] = _env_float(name, f.default)
+            else:
+                kw[f.name] = _env_str(name, f.default)
+        return cls(**kw)

@@ -86,6 +86,16 @@ class TransferStats:
                 "inflight_depth_high_water": int(self.depth_high_water),
             }
 
+    def totals(self) -> dict:
+        """Cumulative bytes shipped and stage + wire stall seconds — what
+        the ``/slz`` series ring differences into per-interval rates."""
+        with self._mu:
+            return {
+                "bytes_shipped": int(self.bytes_shipped),
+                "stall_seconds": round(
+                    self.stage_seconds + self.wire_seconds, 6),
+            }
+
     def delta_since(self, prior: dict) -> dict:
         """What accumulated since a ``prior`` ``as_dict()`` snapshot (the
         high-water mark absolute)."""
@@ -122,6 +132,8 @@ class TransferEngine:
     staging buffers; concurrent puts through one engine wait their turn."""
 
     def __init__(self):
+        #: windows in flight (``/statusz``'s ``transfer.depth``)
+        self.depth = DEPTH
         self.stats = TransferStats()
         self._rings: dict = {}
         self._mu = threading.Lock()

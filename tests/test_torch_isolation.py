@@ -11,7 +11,13 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "raphtory_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "raphtory_tpu", "prometheus_client"}
+#: what the port and chip_smoke.py may import at module level, besides the
+#: standard library and the port itself: the card's machine has these and
+#: nothing more that the port may rely on (triton and the ctypes builds
+#: are imported inside the functions that launch a kernel)
+MODULE_LEVEL_ALLOWED = {"numpy", "torch", "scipy", "einops",
+                        "raphtory_tpu_torch"}
 
 
 def _port_sources():
@@ -50,6 +56,27 @@ SLICE_MODULES = (
     "raphtory_tpu_torch/algorithms/diffusion.py",
     "raphtory_tpu_torch/jobs/live.py",
     "raphtory_tpu_torch/utils/transfer.py",
+    "raphtory_tpu_torch/utils/config.py",
+    "raphtory_tpu_torch/analysis/sanitizer.py",
+    "raphtory_tpu_torch/obs/journal.py",
+    "raphtory_tpu_torch/obs/trace.py",
+    "raphtory_tpu_torch/obs/metrics.py",
+    "raphtory_tpu_torch/obs/slo.py",
+    "raphtory_tpu_torch/obs/freshness.py",
+    "raphtory_tpu_torch/obs/device.py",
+    "raphtory_tpu_torch/obs/ledger.py",
+    "raphtory_tpu_torch/obs/workload.py",
+    "raphtory_tpu_torch/obs/budget.py",
+    "raphtory_tpu_torch/obs/exitdump.py",
+    "raphtory_tpu_torch/resilience/breaker.py",
+    "raphtory_tpu_torch/resilience/degrade.py",
+    "raphtory_tpu_torch/resilience/faults.py",
+    "raphtory_tpu_torch/resilience/policy.py",
+    "raphtory_tpu_torch/jobs/registry.py",
+    "raphtory_tpu_torch/jobs/sink.py",
+    "raphtory_tpu_torch/jobs/scheduler.py",
+    "raphtory_tpu_torch/jobs/rest.py",
+    "raphtory_tpu_torch/ingestion/watermark.py",
 )
 
 
@@ -75,6 +102,47 @@ def test_no_jax_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _module_level_top_levels(path: Path) -> set[str]:
+    """Top-level names of the absolute imports a module runs when it is
+    imported: its own statements, those under ``if`` / ``try`` at module
+    level, not those inside a function or class."""
+    names = set()
+    todo = list(ast.parse(path.read_text(), str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo.extend(getattr(node, field, []) or [])
+        elif isinstance(node, ast.ExceptHandler):
+            todo.extend(node.body)
+    return names
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_level_imports_are_stdlib_numpy_torch(path):
+    """At module level the port and chip_smoke.py import only the
+    standard library, numpy, torch, scipy, einops and the port: nothing a
+    card's machine lacks (no prometheus_client: ``obs/metrics`` writes the
+    exposition itself)."""
+    bad = {n for n in _module_level_top_levels(path)
+           if n not in sys.stdlib_module_names
+           and n not in MODULE_LEVEL_ALLOWED}
+    assert not bad, f"{path} imports {bad} at module level"
+
+
+def test_the_module_level_check_refuses_prometheus(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom prometheus_client import Counter\n"
+                 "def g():\n    import triton\n")
+    assert _module_level_top_levels(f) == {"os", "prometheus_client"}
+    assert "prometheus_client" in FORBIDDEN
+
+
 def test_import_leaves_jax_unloaded():
     mods = ["raphtory_tpu_torch"] + sorted(
         "raphtory_tpu_torch." + ".".join(p.relative_to(
@@ -84,7 +152,7 @@ def test_import_leaves_jax_unloaded():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'raphtory_tpu')]\n"
+            "('jax', 'jaxlib', 'raphtory_tpu', 'prometheus_client')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)

@@ -324,3 +324,165 @@ def test_kill_interrupts_the_watermark_wait():
     # the epoch the kill cut short emits nothing (as in the reference, the
     # loop serves it, and the emit stops at the kill)
     assert len(mgr.results(job.id)) == 1
+
+
+# ---- the live engine's obs hooks (freshness, metrics, journal, tracer) --
+
+
+def _live_counts(metrics, job_ids=None):
+    """``raphtory_live_epochs_total`` by (algorithm, mode)."""
+    fam = metrics.live_epochs
+    out = {}
+    for child_key, child in fam._metrics.items() \
+            if hasattr(fam, "_metrics") else fam._children.items():
+        value = child._value.get() if hasattr(child._value, "get") \
+            else child._value
+        out[tuple(child_key)] = value
+    return out
+
+
+@pytest.mark.parametrize("name,seed", [("cc", 8), ("sssp", 9)])
+def test_live_hooks_fire_as_the_reference(name, seed, monkeypatch,
+                                          tmp_path):
+    """Every epoch lands in the freshness plane's subscription table, the
+    epochs counter, the journal and the tracer, in both packages alike
+    (the port adds one ``live.repin`` span an incremental epoch, which
+    splits the epoch's time). A stream of its own a program: the
+    reference's fold cache would serve a repeated stream from its payload
+    entries, which the port does not keep."""
+    from raphtory_tpu.obs import journal as j_journal
+    from raphtory_tpu.obs.metrics import METRICS as J_METRICS
+    from raphtory_tpu.obs.trace import TRACER as J_TRACER
+    from raphtory_tpu_torch.obs import journal as p_journal
+    from raphtory_tpu_torch.obs.freshness import FRESH as P_FRESH
+    from raphtory_tpu_torch.obs.metrics import METRICS as P_METRICS
+    from raphtory_tpu_torch.obs.trace import TRACER as P_TRACER
+
+    P_FRESH.clear()
+    first, batches = stream(seed, n_batches=3, new_vertex_at=None)
+    jprog = PROGRAMS[name]
+    before = (_live_counts(J_METRICS), _live_counts(P_METRICS))
+    monkeypatch.setenv("RTPU_JOURNAL", "1")
+    out = {}
+    for pkg, journal, prog in (("jax", j_journal, jprog),
+                               ("port", p_journal, _port(jprog))):
+        monkeypatch.setenv("RTPU_JOURNAL_DIR", str(tmp_path / pkg))
+        journal.shutdown()
+        try:
+            rows, job = serve(pkg, prog, first, batches)
+            assert journal.get().flush(30.0)
+            recs = [r for seg in sorted((tmp_path / pkg).iterdir())
+                    for r, _ in journal.scan_segment(str(seg))]
+        finally:
+            journal.shutdown()
+        epochs = [{k: v for k, v in r["d"].items()
+                   if k not in ("seconds", "staleness_s", "job_id")}
+                  for r in recs if r["k"] == "epoch"]
+        out[pkg] = (rows, job, epochs)
+    (jrows, jjob, jep), (rows, job, ep) = out["jax"], out["port"]
+    assert_rows_match(rows, jrows, name == "pagerank")
+    assert ep == jep and [e["mode"] for e in ep] == \
+        ["rebase"] + ["incremental"] * len(batches)
+    # the freshness plane's subscription row
+    sub_j = FRESH.live_subscription_rows()[jjob.id]
+    sub_p = P_FRESH.live_subscription_rows()[job.id]
+    assert sub_p["modes"] == sub_j["modes"]
+    assert _strip_recent(sub_p) == _strip_recent(sub_j)
+    # the counter moved by the same (algorithm, mode) amounts
+    dj = {k: v - before[0].get(k, 0)
+          for k, v in _live_counts(J_METRICS).items()}
+    dp = {k: v - before[1].get(k, 0)
+          for k, v in _live_counts(P_METRICS).items()}
+    assert {k: v for k, v in dp.items() if v} == \
+        {k: v for k, v in dj.items() if v}
+    # a traced run of each (the journal off again): the epoch spans of the
+    # reference, plus the port's live.repin around each adoption
+    monkeypatch.delenv("RTPU_JOURNAL")
+    monkeypatch.delenv("RTPU_JOURNAL_DIR")
+    spans = {}
+    for pkg, tracer, prog in (("jax", J_TRACER, jprog),
+                              ("port", P_TRACER, _port(jprog))):
+        tracer.enable()
+        try:
+            _, tjob = serve(pkg, prog, first, batches)
+            spans[pkg] = [e["name"] for e in tracer.for_trace(tjob.trace_id)
+                          if e.get("ph") == "X"]
+        finally:
+            tracer.disable()
+    assert spans["port"].count("live.epoch") == \
+        spans["jax"].count("live.epoch") == len(batches) + 1
+    assert spans["port"].count("live.repin") == len(batches)
+    assert spans["port"].count("sweep.columnar") == \
+        spans["jax"].count("sweep.columnar")
+    P_FRESH.clear()
+
+
+def _strip_recent(sub):
+    """A subscription row without its clock readings."""
+    return {k: ([{kk: vv for kk, vv in r.items()
+                  if kk not in ("unix", "staleness_seconds")}
+                 for r in v] if k == "recent" else v)
+            for k, v in sub.items()
+            if k not in ("last_unix", "first_unix", "last_wall",
+                         "staleness_seconds", "last_staleness_seconds",
+                         "key")}
+
+
+class _GradeJob:
+    """What ``LiveEpochState.next_wait`` reads of its job."""
+
+    class ledger:
+        algorithm = "PageRank"
+    program = None
+
+
+@pytest.mark.parametrize("staleness,grade", [(0.5, "ok"), (3.0, "burning")])
+def test_staleness_grades_equal(monkeypatch, staleness, grade):
+    """The same ingest head and live results give the same staleness
+    budget grade and the same wait in both packages. Both keep a grade
+    under the target's lower-cased name, so the epoch engine, which asks
+    under the program's name, reads "ok" in both."""
+    from raphtory_tpu.jobs.live import LiveEpochState as JLiveEpochState
+    from raphtory_tpu_torch.obs.freshness import FRESH as P_FRESH
+
+    monkeypatch.setenv("RTPU_FRESH_TARGET", "PageRank=p50:1s")
+    got = []
+    for fresh, state_cls, query in (
+            (FRESH, JLiveEpochState, JLiveQuery(repeat=3.0)),
+            (P_FRESH, live_mod.LiveEpochState, LiveQuery(repeat=3.0))):
+        fresh.clear()
+        now = 1_000.0
+        for i in range(20):
+            # the head passes the result's time `staleness` seconds before
+            # the result is served
+            now += 1.0
+            fresh.note_batch("s", np.array([10 * i + 5]),
+                             np.array([2], np.int8), now=now - staleness)
+            fresh.note_live_result("PageRank", 10 * i, now=now)
+        got.append((fresh.budget_evaluate()["grade"],
+                    fresh.live_grade("pagerank"),
+                    fresh.live_grade("PageRank"),
+                    state_cls(_GradeJob()).next_wait(query),
+                    fresh.staleness_totals_below("PageRank", 1.0)))
+        fresh.clear()
+    assert got[1] == got[0]
+    assert got[0][:4] == (grade, grade, "ok", 3.0)
+
+
+@pytest.mark.parametrize("grade", ["ok", "degraded", "burning"])
+def test_next_wait_follows_each_grade(monkeypatch, grade):
+    """The wall-clock wait between epochs: the repeat when the budget is
+    ok, half of it when degraded, the ``RTPU_LIVE_EPOCH_MS`` floor when
+    burning — alike in both packages."""
+    from raphtory_tpu.jobs.live import LiveEpochState as JLiveEpochState
+    from raphtory_tpu_torch.obs.freshness import FRESH as P_FRESH
+
+    monkeypatch.setenv("RTPU_LIVE_EPOCH_MS", "40")
+    waits = []
+    for fresh, state_cls, query in (
+            (FRESH, JLiveEpochState, JLiveQuery(repeat=3.0)),
+            (P_FRESH, live_mod.LiveEpochState, LiveQuery(repeat=3.0))):
+        monkeypatch.setattr(fresh, "live_grade", lambda alg: grade)
+        waits.append(state_cls(_GradeJob()).next_wait(query))
+    assert waits[1] == waits[0] == {"ok": 3.0, "degraded": 1.5,
+                                    "burning": 0.04}[grade]
